@@ -1,0 +1,139 @@
+"""Dense, fixed-shape IR-Graph building (port of ``schemanet_tpu/ops/graph.py``).
+
+The reference builds ragged per-sample ``{code -> positions}`` maps in C++;
+here each sample is compacted into ``L`` static slots holding its distinct
+codes in ascending order (the C++ ``std::map`` iteration order), and the
+all-pairs edge sums are the batched product ``P^T A P`` with the one-hot
+position->slot projection ``P``. That product is a plain batched matmul, as
+the JAX package leaves it to XLA.
+
+Precision modes: ``'highest'`` keeps every tensor fp32; ``'default'`` stores
+graph tensors in bf16. The one-hot operands are exact in bf16 and every
+contraction accumulates in fp32, so only attention and geometry round.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .normalize import normalize_max, normalize_sum, safe_softmax, zero_nans
+
+
+def graph_dtype(precision: str) -> torch.dtype:
+    """Storage dtype of graph tensors: bf16 under 'default', fp32 under 'highest'."""
+    return torch.bfloat16 if precision == "default" else torch.float32
+
+
+def clamp_softmax(attn: torch.Tensor, clamp: Optional[float], dim: int = -1) -> torch.Tensor:
+    """Optional threshold-to--inf then softmax; logits below ``clamp`` are masked."""
+    if clamp is not None:
+        attn = torch.where(attn < clamp, torch.full_like(attn, float("-inf")), attn)
+    return safe_softmax(attn, dim=dim)
+
+
+class InstanceSlots(NamedTuple):
+    """Per-sample compaction of up-to-L distinct codes into L static slots."""
+
+    codes: torch.Tensor  # [bs, L] int32: ascending distinct codes, padded with num_codes
+    pos_to_slot: torch.Tensor  # [bs, L] int64: slot index of each sequence position
+    num_slots: torch.Tensor  # [bs] int32: number of distinct codes per sample
+    mask: torch.Tensor  # [bs, L] bool: True for live slots
+
+
+def compact_instance_slots(ingredients: torch.Tensor, num_codes: int) -> InstanceSlots:
+    """Sorted-unique compaction with a fixed L-slot layout.
+
+    Slot s holds the s-th smallest distinct code of the sample (stable sort,
+    then a cumulative count of new values)."""
+    bs, L = ingredients.shape
+    sorted_codes, order = torch.sort(ingredients.long(), dim=1, stable=True)
+    is_new = torch.ones_like(sorted_codes, dtype=torch.bool)
+    is_new[:, 1:] = sorted_codes[:, 1:] != sorted_codes[:, :-1]
+    slot_of_sorted = torch.cumsum(is_new.long(), dim=1) - 1  # [bs, L]
+    num_slots = slot_of_sorted[:, -1] + 1
+    pos_to_slot = torch.empty_like(slot_of_sorted).scatter_(1, order, slot_of_sorted)
+    # every sorted position of slot s carries the same code, so the writes agree
+    codes = torch.empty_like(sorted_codes).scatter_(1, slot_of_sorted, sorted_codes)
+    mask = torch.arange(L, device=ingredients.device)[None, :] < num_slots[:, None]
+    codes = torch.where(mask, codes, torch.full_like(codes, num_codes))
+    return InstanceSlots(codes.int(), pos_to_slot, num_slots.int(), mask)
+
+
+def _blend(attrs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """einsum('...a,ao->...') of a 2-attribute tensor with the [2, 1] weights."""
+    return attrs @ weights.to(attrs.dtype)[:, 0]
+
+
+def instance_vertices(
+    slots: InstanceSlots,
+    attn_cls: torch.Tensor,  # [bs, L] raw CLS attention
+    vertex_attribute_weights: torch.Tensor,  # [2, 1]
+    clamp_vertex_attn: Optional[float] = None,
+    precision: str = "highest",
+) -> torch.Tensor:
+    """Slot-space vertex weights [bs, L] in the graph dtype.
+
+    Per sample: (count, mean attention) per live slot, each attribute divided
+    by its max over slots, blended by W_v; padding slots are 0."""
+    L = slots.pos_to_slot.shape[1]
+    dt = graph_dtype(precision)
+    attn_cls = zero_nans(clamp_softmax(attn_cls.float(), clamp_vertex_attn))
+    proj = F.one_hot(slots.pos_to_slot, L).float()  # [bs, L, S], exact in any dtype
+    count = proj.sum(dim=1)
+    attn_sum = torch.einsum("bls,bl->bs", proj, attn_cls.to(dt).float())
+    attn_val = attn_sum / torch.clamp(count, min=1.0)
+    attrs = normalize_max(torch.stack([count, attn_val], dim=-1), dim=1)  # [bs, S, 2]
+    w = _blend(attrs, vertex_attribute_weights)
+    return torch.where(slots.mask, w, torch.zeros_like(w)).to(dt)
+
+
+def _pair_mean_edges(
+    proj: torch.Tensor,  # [bs, L, S] one-hot position->slot projection, fp32
+    attn: torch.Tensor,  # [bs, L, L] softmaxed attention, fp32
+    geo_sim: torch.Tensor,  # [L, L] fp32
+    precision: str,
+) -> torch.Tensor:
+    """Mean over position pairs of (geo, attn) per slot pair: [bs, S, S, 2] in
+    the graph dtype. Operands round to the graph dtype, products accumulate in
+    fp32 (``P^T A P`` as batched matmuls)."""
+    dt = graph_dtype(precision)
+    pt = proj.transpose(1, 2)
+    attn_e = pt @ attn.to(dt).float() @ proj
+    geo_e = pt @ geo_sim.to(dt).float() @ proj
+    counts = proj.sum(dim=1)  # [bs, S]
+    pairs = counts[:, :, None] * counts[:, None, :]
+    denom = torch.clamp(pairs, min=1.0)
+    live = pairs > 0
+    zero = torch.zeros_like(attn_e)
+    attn_e = torch.where(live, attn_e / denom, zero)
+    geo_e = torch.where(live, geo_e / denom, zero)
+    return torch.stack([geo_e, attn_e], dim=-1).to(dt)
+
+
+def instance_edges(
+    slots: InstanceSlots,
+    attn: torch.Tensor,  # [bs, L, L] raw attention
+    geo_sim: torch.Tensor,  # [L, L]
+    edge_attribute_weights: torch.Tensor,  # [2, 1]
+    clamp_edge_attn: Optional[float] = None,
+    remove_self_loop: bool = False,
+    precision: str = "highest",
+) -> torch.Tensor:
+    """Slot-space instance adjacency [bs, L, L] in the graph dtype.
+
+    Row-normalised over the second slot axis, optional zero diagonal, blended
+    by W_e. Padding rows and columns are exactly zero."""
+    L = slots.pos_to_slot.shape[1]
+    dt = graph_dtype(precision)
+    attn = zero_nans(clamp_softmax(attn.float(), clamp_edge_attn))
+    proj = F.one_hot(slots.pos_to_slot, L).float()
+    edges = normalize_sum(_pair_mean_edges(proj, attn, geo_sim.float(), precision), dim=2)
+    if remove_self_loop:
+        eye = torch.eye(L, dtype=torch.bool, device=edges.device)[None, :, :, None]
+        edges = torch.where(eye, torch.zeros_like(edges), edges)
+    out = _blend(edges, edge_attribute_weights)
+    live = slots.mask[:, :, None] & slots.mask[:, None, :]
+    return torch.where(live, out, torch.zeros_like(out)).to(dt)
