@@ -1,15 +1,20 @@
-"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU (H100).
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path
+and the SchemaNet training step.
 
-Drives ``schemanet_torch.ServePredictor.predict`` at the CIFAR-100-scale
-serving configuration (DeiT-Tiny at full width, 224^2 input, layers 0-9 of 12,
+Both run the CIFAR-100 DeiT-Tiny configuration at full width (224^2 input,
+patch 16, 197 tokens, d=192, 3 heads, FFN 768, layers 0-9 of 12 frozen,
 M=1024 codes, K=100 classes, V_max=1024, GNN width 256 x 2 layers,
-microbatch 64; as ``tools/bench_serve.py``) with seeded random weights, and
-checks every hand-written CUDA kernel on the path:
+inner-product matcher) with seeded random weights, and check every
+hand-written CUDA kernel on the two paths.
+
+Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
+``tools/bench_serve.py``):
 
 1. device: name, count, and ``nvidia-smi`` name and power limit;
-2. build: compiles ``schemanet_torch/csrc/*.cu`` (seconds taken);
-3. each kernel against its plain PyTorch version at the serving shapes, in
-   bf16 and fp32: max |kernel - plain| / max |plain| <= 2e-2 (bf16), 1e-4 (fp32);
+2. build: compiles ``schemanet_torch/csrc/*.cu``, one nvcc per file at once;
+3. each serving kernel against its plain PyTorch version at the serving
+   shapes, in bf16 and fp32: max |kernel - plain| / max |plain| <= 2e-2
+   (bf16), 1e-4 (fp32);
 4. the slice in fp32 (graph_precision 'highest') on 100 images (two
    microbatches, the second padded) against the same model with the plain
    versions called in place of the kernels: VQ ids agree on >= 99.9% of
@@ -18,13 +23,39 @@ checks every hand-written CUDA kernel on the path:
    1, 64 and 100 images; ``predict(x[:5]) == predict(x)[:5]`` bit for bit;
    every kernel's launch counter advanced as the path implies (per
    microbatch: 10 attn_block, one of them with the head-mean, 10 ffn_block,
-   4 sym_conv);
+   4 sym_conv, and no training kernel);
 6. timings (CUDA events after warm-up): each kernel beside its plain version,
    and the p50/p99 latency and images/s of one microbatch of 64.
 
+Training (``schemanet_torch.train.Trainer.train_iter``, batch 64, the CIFAR
+config's AdamW groups, schedule and schema loss, the atlas kept projected by
+the fused update):
+
+7. each training kernel (``sym_conv_bwd`` on class and instance graphs,
+   ``embed_grad`` for the class and instance lookups, ``adamw_project_rows``
+   on the edge and vertex weights) against its plain version at the
+   training shapes, bf16 and fp32 (``adamw_project_rows``: fp32, its only
+   dtype), same tolerances as 3;
+8. the step in fp32 (graph_precision 'highest'): 3 steps against the same
+   trainer with every kernel replaced by its plain version; losses within
+   1e-4 relative, and the updated edge and vertex weights within
+   rtol 1e-4 / atol 1e-6 where the plain run's step-1 gradient exceeded
+   1e-3 * its max, within 2 * lr * steps elsewhere (Adam's first step moves
+   an entry by lr * sign(g), which may flip where g is near zero);
+9. the step in bf16 (graph_precision 'default', the training default): 5
+   finite losses, and the launch counters advanced as the path implies (per
+   step: 10 attn_block, one with the head-mean, 10 ffn_block, 4 sym_conv,
+   4 sym_conv_bwd, 2 embed_grad, 2 adamw_project_rows);
+10. timings: each training kernel beside its plain version; the bf16 step's
+    ms and images/s beside the step with every plain version; the step split
+    into frozen forward, graph build + GNN forward + loss, backward and
+    optimizer (CUDA events); the device's idle share over 3 steps
+    (``torch.profiler``) and the peak device memory.
+
 Any failed check raises, so the script exits non-zero. Without a GPU it fails
 at once. Its last line is ``{"ok": true, "device": {...}}``; the line before
-it lists the kernels with their launches, errors and times.
+it lists the kernels with their launches on the training path, errors and
+times.
 
 Usage: python3 chip_smoke.py
 """
@@ -68,6 +99,23 @@ SCHEMA_CFG = {
 NUM_CLASSES, NUM_CODES, ENCODE_LAYER = 100, 1024, 9
 FROZEN_LAYERS = ENCODE_LAYER + 1
 GNN_CONVS = 2 * SCHEMA_CFG["gnn"]["num_layers"]  # instance + class graphs per layer
+# the training block of configs/cifar_100/schema_net/deit_tiny-l9-M_1024.yaml
+# (optimizer, param_groups, drop_remain, lr_schedule, train_epochs) and its
+# loss weights; CIFAR-100 has 50,000 training images
+TRAIN_CFG = {
+    "optimizer": {"name": "AdamW", "lr": 0.001, "weight_decay": 0.05},
+    "param_groups": [{"pattern": "schema_net", "cfg": {"weight_decay": 0.0005}},
+                     {"pattern": "matcher"}],
+    "drop_remain": True,
+    "lr_schedule": {"name": "cosine_annealing", "T_max": 50, "eta_min": 1.0e-05},
+    "train_epochs": 50,
+    "batch_size": 64,
+}
+LOSS_CFG = {"name": "schema_inference_loss"}
+LOSS_WEIGHTS = {"cls": 1.0, "re_entropy_vertex": 0.5, "re_entropy_edge": 0.75}
+BATCH = TRAIN_CFG["batch_size"]
+STEPS_PER_EPOCH = 50_000 // BATCH
+FP32_STEPS, BF16_STEPS, STEP_TIME_ITERS = 3, 5, 10
 
 
 def phase(name: str, **fields) -> None:
@@ -100,6 +148,24 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def compare(name, kernel, plain, args, kw, dtype, tol, errors) -> None:
+    """Kernel against plain version on the same inputs; records the max
+    absolute error of the working dtype (bf16, or fp32 where that is the
+    kernel's only dtype)."""
+    got, want = kernel(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    rels = [rel_err(a, b) for a, b in zip(got, want)]
+    abss = [abs_err(a, b) for a, b in zip(got, want)]
+    shape = next(a for a in args if torch.is_tensor(a)).shape
+    phase("compare", kernel=name, dtype=str(dtype).split(".")[-1], shape=list(shape),
+          rel_err=rels, max_abs_err=abss, tol=tol)
+    require(all(r <= tol for r in rels), f"{name} {dtype}: rel err {rels} > {tol}")
+    if dtype == torch.bfloat16 or name not in errors:
+        errors[name] = max(abss)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script measures the GPU and nothing else")
@@ -108,11 +174,15 @@ def main() -> None:
         from schemanet_torch.ops.kernels import _build
     except ImportError as exc:
         sys.exit(f"chip_smoke: run from the repository root ({exc})")
+    from schemanet_torch.ops.kernels import atlas_opt as ao
+    from schemanet_torch.ops.kernels import embed_bwd as ek
     from schemanet_torch.ops.kernels import encoder_block as eb
     from schemanet_torch.ops.kernels import graphconv as gc
     from schemanet_torch.ops.kernels import launch_counts, reset_launch_counts
-    from schemanet_torch.schema import build_predictor, init_parameters_
+    from schemanet_torch.schema import build_predictor, get_loss_fn, init_parameters_
+    from schemanet_torch.schema.atlas import clamp_attribute_weights_
     from schemanet_torch.serve import ServePredictor
+    from schemanet_torch.train import SCHEMA_NET_FROZEN, Trainer, TrainerConfig
 
     # fp32 comparisons need full fp32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -126,6 +196,7 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     card = f"{kind} ({smi.split(',')[-1].strip()} limit)"
+    card_note = {"card": card}
     print(smi, flush=True)
     phase("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
           torch=torch.__version__, cuda=torch.version.cuda)
@@ -136,7 +207,7 @@ def main() -> None:
     phase("build", seconds=round(time.perf_counter() - t0, 3),
           compile_seconds=_build.build_seconds, library=str(_build.library_path().name))
 
-    # 3. each kernel against its plain version at the serving shapes
+    # 3. each serving kernel against its plain version at the serving shapes
     g = torch.Generator().manual_seed(0)
 
     def rnd(*shape, scale=1.0, dtype=torch.float32):
@@ -178,18 +249,7 @@ def main() -> None:
     errors = {}
     for name, case in cases.items():
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
-            kernel, plain, args, kw = case(dt)
-            got, want = kernel(*args, **kw), plain(*args, **kw)
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            rels = [rel_err(a, b) for a, b in zip(got, want)]
-            abss = [abs_err(a, b) for a, b in zip(got, want)]
-            phase("compare", kernel=name, dtype=str(dt).split(".")[-1],
-                  shape=list(args[0].shape), rel_err=rels, max_abs_err=abss, tol=tol)
-            require(all(r <= tol for r in rels), f"{name} {dt}: rel err {rels} > {tol}")
-            if dt == torch.bfloat16:
-                errors[name] = max(abss)
+            compare(name, *case(dt), dt, tol, errors)
 
     # the model, seeded random weights (made on the host, then moved)
     def model(dtype, precision):
@@ -200,8 +260,9 @@ def main() -> None:
     t0 = time.perf_counter()
     m32 = model(torch.float32, "highest")
     init_parameters_(m32, torch.Generator().manual_seed(0))
+    host_state = {k: v.clone() for k, v in m32.state_dict().items()}
     m16 = model(torch.bfloat16, "default")
-    m16.load_state_dict(m32.state_dict())
+    m16.load_state_dict(host_state)
     phase("init", seconds=round(time.perf_counter() - t0, 3),
           parameters=sum(p.numel() for p in m32.parameters()))
     images = np.random.default_rng(0).normal(size=(N_IMAGES, IMG, IMG, 3)).astype(np.float32)
@@ -210,7 +271,9 @@ def main() -> None:
     plain_versions = [
         mock.patch.object(eb, "attn_block", eb.attn_block_reference),
         mock.patch.object(eb, "ffn_block", eb.ffn_block_reference),
-        mock.patch.object(gc, "sym_conv", gc.sym_conv_reference),
+        mock.patch.object(gc, "sym_conv", gc.sym_conv_reference),  # autograd of plain torch
+        mock.patch.object(ek, "embed_grad", ek.embed_grad_reference),
+        mock.patch.object(ao, "adamw_project_rows", ao.adamw_project_rows_reference),
     ]
 
     def with_plain(fn):
@@ -242,16 +305,17 @@ def main() -> None:
     del s32, m32
     torch.cuda.empty_cache()
 
-    # 5. the slice in bf16: the main path, counted
+    # 5. the slice in bf16: the serving path, counted
     s16 = ServePredictor(m16, microbatch=MICROBATCH, device=dev)
     reset_launch_counts()
     logits = s16.predict(images)  # the user's entry point: numpy in, numpy out
-    launches = launch_counts()
+    serve_launches = launch_counts()
     mbs = -(-len(images) // MICROBATCH)
     expected = {"attn_block": FROZEN_LAYERS * mbs, "attn_block_hmean": mbs,
-                "ffn_block": FROZEN_LAYERS * mbs, "sym_conv": GNN_CONVS * mbs}
-    phase("slice_bf16_launches", microbatches=mbs, launches=launches, expected=expected)
-    require(launches == expected, f"launch counts {launches} != {expected}")
+                "ffn_block": FROZEN_LAYERS * mbs, "sym_conv": GNN_CONVS * mbs,
+                "sym_conv_bwd": 0, "embed_grad": 0, "adamw_project_rows": 0}
+    phase("slice_bf16_launches", microbatches=mbs, launches=serve_launches, expected=expected)
+    require(serve_launches == expected, f"launch counts {serve_launches} != {expected}")
     for count in (1, MICROBATCH, N_IMAGES):
         out = s16.predict(images[:count])
         require(out.shape == (count, NUM_CLASSES), f"bf16 logits {out.shape} for {count}")
@@ -263,7 +327,6 @@ def main() -> None:
     require(invariant, "predict(x[:5]) != predict(x)[:5]")
 
     # 6. timings, bf16 at the serving shapes
-    card_note = {"card": card}
     times = {}
     for name, case in cases.items():
         kernel, plain, args, kw = case(torch.bfloat16)
@@ -292,23 +355,245 @@ def main() -> None:
           images_per_s=MICROBATCH / (p50 / 1e3),
           plain_versions_p50_ms=float(np.percentile(plain_lat, 50)),
           peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, **card_note)
+    del s16, m16, x_dev
+    torch.cuda.empty_cache()
+
+    # 7. each training kernel against its plain version at the training shapes
+    g_class = rnd(NUM_CLASSES, NUM_CODES, GNN_DIM)
+    e_tr = torch.rand(BATCH, v_inst, v_inst, generator=g).to(dev) / v_inst
+    f_tr, g_tr = rnd(BATCH, v_inst, GNN_DIM), rnd(BATCH, v_inst, GNN_DIM)
+    ids_class = torch.arange(NUM_CODES, dtype=torch.int32).expand(NUM_CLASSES, NUM_CODES)
+    ids_class = ids_class.contiguous().to(dev)  # the class_ingredients buffer
+    ids_inst = torch.randint(0, NUM_CODES + 1, (BATCH, v_inst), generator=g,
+                             dtype=torch.int32).to(dev)
+    rows_edge = NUM_CLASSES * NUM_CODES
+    atlas_state = {
+        "edge": [torch.rand(rows_edge, NUM_CODES, generator=g).to(dev) / NUM_CODES,
+                 rnd(rows_edge, NUM_CODES, scale=1e-3), rnd(rows_edge, NUM_CODES, scale=1e-4),
+                 torch.rand(rows_edge, NUM_CODES, generator=g).to(dev) * 1e-8],
+        "vertex": [torch.rand(NUM_CLASSES, NUM_CODES, generator=g).to(dev) / NUM_CODES,
+                   rnd(NUM_CLASSES, NUM_CODES, scale=1e-3), rnd(NUM_CLASSES, NUM_CODES, scale=1e-4),
+                   torch.rand(NUM_CLASSES, NUM_CODES, generator=g).to(dev) * 1e-8],
+    }
+    adamw_kw = dict(lr=1e-3, weight_decay=5e-4)
+
+    def fresh_update(fn, which):
+        """fn on fresh copies of the atlas state (the update is in place)."""
+        _, grad, m0, v0 = atlas_state[which]
+        return lambda p0: fn(p0.clone(), grad, m0.clone(), v0.clone(), 2, **adamw_kw)
+
+    train_cases = {
+        "sym_conv_bwd": lambda dt: (gc.sym_conv_bwd, gc.sym_conv_bwd_reference,
+                                    (e_class.to(dt), f_class.to(dt), g_class.to(dt)), {}),
+        "sym_conv_bwd_instance": lambda dt: (gc.sym_conv_bwd, gc.sym_conv_bwd_reference,
+                                             (e_tr.to(dt), f_tr.to(dt), g_tr.to(dt)), {}),
+        "embed_grad": lambda dt: (ek.embed_grad, ek.embed_grad_reference,
+                                  (ids_class, f_class.to(dt), NUM_CODES + 1), {}),
+        "embed_grad_instance": lambda dt: (ek.embed_grad, ek.embed_grad_reference,
+                                           (ids_inst, g_tr.to(dt), NUM_CODES + 1), {}),
+    }
+    for name, case in train_cases.items():
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            compare(name, *case(dt), dt, tol, errors)
+    for name, which in (("adamw_project_rows", "edge"), ("adamw_project_rows_vertex", "vertex")):
+        compare(name, fresh_update(ao.adamw_project_rows, which),
+                fresh_update(ao.adamw_project_rows_reference, which), (atlas_state[which][0],), {},
+                torch.float32, FP32_TOL, errors)
+    # the adamw rows' self-loop variant: rows of one [K*V, V] view, diagonal zeroed
+    edge3 = [t.view(NUM_CLASSES, NUM_CODES, NUM_CODES) for t in atlas_state["edge"]]
+    got = ao.adamw_project_rows(edge3[0].clone(), edge3[1], edge3[2].clone(), edge3[3].clone(), 2,
+                                remove_self_loop=True, **adamw_kw)
+    want = ao.adamw_project_rows_reference(edge3[0].clone(), edge3[1], edge3[2].clone(),
+                                           edge3[3].clone(), 2, remove_self_loop=True, **adamw_kw)
+    torch.cuda.synchronize()
+    loop_err = max(rel_err(a, b) for a, b in zip(got, want))
+    phase("compare", kernel="adamw_project_rows_self_loop", dtype="float32",
+          shape=list(edge3[0].shape), rel_err=loop_err, tol=FP32_TOL)
+    require(loop_err <= FP32_TOL, f"adamw_project_rows self loop: rel err {loop_err}")
+    del got, want, edge3
+
+    # 8. the training step in fp32 against the same trainer on the plain versions
+    trainer_cfg = TrainerConfig.from_cfg(TRAIN_CFG, frozen_patterns=SCHEMA_NET_FROZEN)
+    loss_fn = get_loss_fn(LOSS_CFG)
+    rng = np.random.default_rng(1)
+    batches = [
+        {"image": torch.from_numpy(
+            rng.normal(size=(BATCH, IMG, IMG, 3)).astype(np.float32)).to(dev),
+         "label": torch.from_numpy(rng.integers(0, NUM_CLASSES, size=BATCH)).to(dev)}
+        for _ in range(BF16_STEPS)
+    ]
+
+    def trainer(dtype, precision):
+        mdl = model(dtype, precision)
+        mdl.load_state_dict(host_state)
+        return Trainer(trainer_cfg, mdl.to(dev), loss_fn, LOSS_WEIGHTS, STEPS_PER_EPOCH)
+
+    hot_names = ("schema_net.vertex_weights", "schema_net.edge_weights")
+
+    def fp32_run(track_sure):
+        tr = trainer(torch.float32, "highest")
+        losses, sure = [], {}
+        for batch in batches[:FP32_STEPS]:
+            losses.append(tr.train_iter(batch)["loss"].item())
+            if track_sure and not sure:  # the step-1 gradient
+                for k in hot_names:
+                    grad = tr.hot[k].param.grad.abs()
+                    sure[k] = grad > 1e-3 * grad.max()
+        hot = {k: tr.hot[k].param.detach().clone() for k in hot_names}
+        del tr
+        torch.cuda.empty_cache()
+        return losses, hot, sure
+
+    losses_k, hot_k, _ = fp32_run(False)
+    losses_p, hot_p, sure = with_plain(lambda: fp32_run(True))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
+    bound = 2 * TRAIN_CFG["optimizer"]["lr"] * FP32_STEPS
+    param_report = {}
+    for k in hot_names:
+        require(bool(sure[k].any()), f"fp32 {k}: no entry with a step-1 gradient above 1e-3 * max")
+        diff = (hot_k[k] - hot_p[k]).abs()
+        sure_ok = bool((diff[sure[k]] <= 1e-6 + 1e-4 * hot_p[k].abs()[sure[k]]).all())
+        param_report[k] = {"sure_share": sure[k].float().mean().item(), "sure_ok": sure_ok,
+                           "max_abs_diff": diff.max().item(),
+                           "max_abs_diff_sure": diff[sure[k]].max().item(), "bound": bound}
+    phase("train_fp32", steps=FP32_STEPS, batch=BATCH, losses=losses_k, plain_losses=losses_p,
+          loss_rel_err=loss_rel, tol=1e-4, params=param_report)
+    require(loss_rel <= 1e-4, f"fp32 train losses differ by {loss_rel} relative")
+    for k, r in param_report.items():
+        require(r["sure_ok"], f"fp32 {k}: differs beyond rtol 1e-4 / atol 1e-6 where |g| is large")
+        require(r["max_abs_diff"] <= bound, f"fp32 {k}: differs by {r['max_abs_diff']} > {bound}")
+    del hot_k, hot_p, sure
+
+    # 9. the training step in bf16: the main path, counted
+    tr16 = trainer(torch.bfloat16, "default")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    metrics = [tr16.train_iter(batch) for batch in batches]
+    torch.cuda.synchronize()
+    train_launches = launch_counts()
+    losses16 = [m["loss"].item() for m in metrics]
+    expected = {"attn_block": FROZEN_LAYERS * BF16_STEPS, "attn_block_hmean": BF16_STEPS,
+                "ffn_block": FROZEN_LAYERS * BF16_STEPS, "sym_conv": GNN_CONVS * BF16_STEPS,
+                "sym_conv_bwd": GNN_CONVS * BF16_STEPS, "embed_grad": 2 * BF16_STEPS,
+                "adamw_project_rows": 2 * BF16_STEPS}
+    phase("train_bf16", steps=BF16_STEPS, batch=BATCH, losses=losses16,
+          launches=train_launches, expected=expected)
+    require(all(np.isfinite(losses16)), f"bf16 train losses not finite: {losses16}")
+    require(train_launches == expected, f"train launch counts {train_launches} != {expected}")
+
+    # 10. timings: training kernels, the step, its split, idle share, memory
+    for name, case in train_cases.items():
+        kernel, plain, args, kw = case(torch.bfloat16)
+        times[name] = (time_ms(lambda: kernel(*args, **kw), TIME_ITERS),
+                       time_ms(lambda: plain(*args, **kw), TIME_ITERS))
+        phase("kernel_time", kernel=name, dtype="bfloat16", shape=list(args[1].shape),
+              ms=times[name][0], plain_ms=times[name][1], **card_note)
+    for name, which in (("adamw_project_rows", "edge"), ("adamw_project_rows_vertex", "vertex")):
+        p0, grad, m0, v0 = (t.clone() for t in atlas_state[which])
+        times[name] = (
+            time_ms(lambda: ao.adamw_project_rows(p0, grad, m0, v0, 2, **adamw_kw), TIME_ITERS),
+            time_ms(lambda: ao.adamw_project_rows_reference(p0, grad, m0, v0, 2, **adamw_kw),
+                    TIME_ITERS),
+        )
+        phase("kernel_time", kernel=name, dtype="float32", shape=list(p0.shape),
+              ms=times[name][0], plain_ms=times[name][1], **card_note)
+    del atlas_state
+    torch.cuda.empty_cache()
+
+    def step_ms(iters, plain=False):
+        out = []
+        for i in range(iters):
+            batch = batches[i % len(batches)]
+            t0 = time.perf_counter()
+            if plain:
+                with_plain(lambda: tr16.train_iter(batch))
+            else:
+                tr16.train_iter(batch)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    step_ms(2)
+    torch.cuda.reset_peak_memory_stats()
+    steps = step_ms(STEP_TIME_ITERS)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    step_ms(1, plain=True)
+    plain_steps = step_ms(STEP_TIME_ITERS // 2, plain=True)
+    step_p50 = float(np.percentile(steps, 50))
+    phase("train_step", batch=BATCH, dtype="bfloat16", p50_ms=step_p50,
+          min_ms=min(steps), max_ms=max(steps), images_per_s=BATCH / (step_p50 / 1e3),
+          plain_versions_p50_ms=float(np.percentile(plain_steps, 50)),
+          plain_versions_images_per_s=BATCH / (float(np.percentile(plain_steps, 50)) / 1e3),
+          peak_mem_gb=peak_gb, **card_note)
+
+    split = {"frozen_forward": [], "graph_build_gnn_forward_loss": [], "backward": [],
+             "optimizer": []}
+    for batch in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        clamp_attribute_weights_(tr16.model.schema_net)
+        ev[0].record()
+        with torch.no_grad():
+            tr16.model.ingredient_backbone(batch["image"])
+        ev[1].record()
+        total, _ = tr16.forward_loss(batch)
+        ev[2].record()
+        tr16.zero_grad()
+        total.backward()
+        ev[3].record()
+        tr16.apply_updates()
+        ev[4].record()
+        torch.cuda.synchronize()
+        frozen = ev[0].elapsed_time(ev[1])
+        split["frozen_forward"].append(frozen)
+        split["graph_build_gnn_forward_loss"].append(ev[1].elapsed_time(ev[2]) - frozen)
+        split["backward"].append(ev[2].elapsed_time(ev[3]))
+        split["optimizer"].append(ev[3].elapsed_time(ev[4]))
+    phase("train_split", ms={k: float(np.median(v)) for k, v in split.items()},
+          note="forward_loss runs the frozen forward again; its time is subtracted",
+          **card_note)
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches[:3]:
+            tr16.train_iter(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_kernel = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    busy_us = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    phase("train_profile", steps=3, wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+          idle_share=(1 - busy_us / wall_us) if busy_us else None,
+          top_device_ms_per_step={k[:80]: v / 3e3 for k, v in top}, **card_note)
 
     replaces = {
         "attn_block": "schemanet_tpu/ops/pallas/encoder_block.py:240",
         "attn_block_hmean": "schemanet_tpu/ops/pallas/encoder_block.py:240",
         "ffn_block": "schemanet_tpu/ops/pallas/encoder_block.py:286",
         "sym_conv": "schemanet_tpu/ops/pallas/graphconv.py:68",
+        "sym_conv_bwd": "schemanet_tpu/ops/pallas/graphconv.py:100",
+        "embed_grad": "schemanet_tpu/ops/pallas/embed_bwd.py:161",
+        "adamw_project_rows": "schemanet_tpu/ops/pallas/atlas_opt.py:133",
     }
-    sources = {"sym_conv": "schemanet_torch/csrc/graphconv.cu"}
+    sources = {"sym_conv": "graphconv.cu", "sym_conv_bwd": "graphconv.cu",
+               "embed_grad": "embed_bwd.cu", "adamw_project_rows": "atlas_opt.cu"}
+    variants = {"sym_conv": "sym_conv_instance", "sym_conv_bwd": "sym_conv_bwd_instance",
+                "embed_grad": "embed_grad_instance",
+                "adamw_project_rows": "adamw_project_rows_vertex"}
     kernels = [
         {
             "name": name,
             "route": "cuda",
-            "source": sources.get(name, "schemanet_torch/csrc/encoder_block.cu"),
+            "source": "schemanet_torch/csrc/" + sources.get(name, "encoder_block.cu"),
             "replaces": replaces[name],
-            "launches": launches[name],
-            "max_abs_err": errors[name] if name != "sym_conv"
-            else max(errors["sym_conv"], errors["sym_conv_instance"]),
+            "launches": train_launches[name],
+            "max_abs_err": max(errors[name], errors.get(variants.get(name), 0.0)),
             "ms": times[name][0],
             "plain_ms": times[name][1],
         }

@@ -1,4 +1,5 @@
-// GraphConv forward for Hopper (sm_90a): out[b] = ((E[b] + E[b]^T)/2 + I) f[b].
+// GraphConv for Hopper (sm_90a): out[b] = ((E[b] + E[b]^T)/2 + I) f[b], and
+// its backward.
 //
 // Replaces schemanet_tpu/ops/pallas/graphconv.py sym_conv (_fwd_kernel, the
 // forward of the custom VJP). The TPU kernel formed the whole [V, V] E_sym of
@@ -15,7 +16,22 @@
 //
 // Rounding follows the TPU kernel: e_ij + e_ji rounded to T, times 0.5,
 // plus the identity rounded to T, then an fp32-accumulated product rounded
-// once to T. The backward (_sym_conv_bwd) is training work and not here.
+// once to T.
+//
+// The backward (sn_sym_conv_bwd) replaces _sym_conv_bwd of the same TPU file,
+// which held e, f, g, E_sym and an fp32 t = g f^T of one graph in VMEM:
+//
+// * df = E_sym^T g = E_sym g by symmetry: the forward kernel with g in place
+//   of f (same E_sym tiles, same roundings);
+// * dE = (t + t^T)/2 with t = g f^T. Tile (i, j) of dE needs rows i and j of
+//   both g and f, so each block computes it as ONE product
+//   [g_i | f_i] . [f_j | g_j]^T over K = 2D: the fp32 accumulator holds
+//   t_ij + t_ji directly, and neither t nor its transpose is ever written.
+//   It is halved in fp32 and rounded once to T, as the TPU kernel rounds.
+//
+// At the training shapes the class-graph dE is [100, 1024, 1024] from
+// [100, 1024, 256] operands: ~107 GFLOP per launch against ~0.3 GB (bf16),
+// compute-bound like the forward; the same fp32-FMA tiles, right first.
 #include "common.cuh"
 
 namespace sn {
@@ -99,6 +115,81 @@ cudaError_t sym_conv_impl(const void* e, const void* f, void* out, int K, int V,
   return cudaGetLastError();
 }
 
+// de[b] = 0.5 (g[b] f[b]^T + f[b] g[b]^T), one kBM x kBN tile per block.
+// A operand row i = [g_i | f_i], B operand row j = [f_j | g_j], K = 2D; both
+// are read along rows of f and g (coalesced) into k-major shared tiles.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    sym_conv_de_kernel(const T* __restrict__ f, const T* __restrict__ g, T* __restrict__ de,
+                       int V, int D) {
+  __shared__ float as[kKC][kBM + 1];
+  __shared__ float bs[kKC][kBN + 1];
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  const long b = blockIdx.z;
+  const T* fb = f + b * V * (long)D;
+  const T* gb = g + b * V * (long)D;
+  constexpr int TX = kBN / kTN;
+  const int tx = tid % TX, ty = tid / TX;
+  const int K2 = 2 * D;
+  float acc[kTM][kTN] = {};
+
+  for (int k0 = 0; k0 < K2; k0 += kKC) {
+    __syncthreads();
+    for (int idx = tid; idx < kBM * kKC; idx += kThreads) {
+      const int i = idx / kKC, kk = idx % kKC;
+      const int r = m0 + i, k = k0 + kk;
+      float a = 0.f;
+      if (r < V && k < K2)
+        a = k < D ? Num<T>::load(gb, (long)r * D + k) : Num<T>::load(fb, (long)r * D + k - D);
+      as[kk][i] = a;
+    }
+    for (int idx = tid; idx < kBN * kKC; idx += kThreads) {
+      const int j = idx / kKC, kk = idx % kKC;
+      const int c = n0 + j, k = k0 + kk;
+      float x = 0.f;
+      if (c < V && k < K2)
+        x = k < D ? Num<T>::load(fb, (long)c * D + k) : Num<T>::load(gb, (long)c * D + k - D);
+      bs[kk][j] = x;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kKC; ++kk) {
+      float a[kTM], x[kTN];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) a[i] = as[kk][ty * kTM + i];
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) x[j] = bs[kk][tx * kTN + j];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], x[j], acc[i][j]);
+    }
+  }
+  T* db = de + b * V * (long)V;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int r = m0 + ty * kTM + i;
+    if (r >= V) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int c = n0 + tx * kTN + j;
+      if (c < V) Num<T>::store(db, (long)r * V + c, 0.5f * acc[i][j]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t sym_conv_bwd_impl(const void* e, const void* f, const void* g, void* df, void* de,
+                              int K, int V, int D, cudaStream_t stream) {
+  cudaError_t err = sym_conv_impl<T>(e, g, df, K, V, D, stream);  // df = E_sym g
+  if (err != cudaSuccess || de == nullptr) return err;
+  dim3 grid((V + kBN - 1) / kBN, (V + kBM - 1) / kBM, K);
+  sym_conv_de_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(f), static_cast<const T*>(g), static_cast<T*>(de), V, D);
+  return cudaGetLastError();
+}
+
 }  // namespace sn
 
 extern "C" int sn_sym_conv(int dtype, const void* e, const void* f, void* out, int K, int V,
@@ -106,4 +197,12 @@ extern "C" int sn_sym_conv(int dtype, const void* e, const void* f, void* out, i
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == sn::kF32) return sn::sym_conv_impl<float>(e, f, out, K, V, D, s);
   return sn::sym_conv_impl<__nv_bfloat16>(e, f, out, K, V, D, s);
+}
+
+// df (always) and de (skipped when de is null) of sym_conv for the cotangent g.
+extern "C" int sn_sym_conv_bwd(int dtype, const void* e, const void* f, const void* g, void* df,
+                               void* de, int K, int V, int D, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == sn::kF32) return sn::sym_conv_bwd_impl<float>(e, f, g, df, de, K, V, D, s);
+  return sn::sym_conv_bwd_impl<__nv_bfloat16>(e, f, g, df, de, K, V, D, s);
 }

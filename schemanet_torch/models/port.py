@@ -1,4 +1,4 @@
-"""JAX predictor variables -> the port's ``state_dict``.
+"""JAX predictor variables <-> the port's ``state_dict``.
 
 ``from_jax_params(params, buffers)`` takes the ``params`` and ``buffers`` trees
 of a ``schemanet_tpu`` ``SchemaNetPredictor`` as nested dicts of numpy arrays
@@ -15,12 +15,18 @@ and returns a state dict for ``schemanet_torch.SchemaNetPredictor``:
   ``layers_{i}`` -> ``layers.{i}``.
 
 Every leaf must be consumed; with ``model`` given, every parameter and buffer
-of the port must be set, with its shape. Imports numpy and torch only.
+of the port must be set, with its shape.
+
+``to_jax_params(state)`` is the inverse: any mapping of the port's names to
+tensors (parameters, or a tree of the same shape such as gradients or Adam
+moments) back to the JAX nested-dict layout, as numpy arrays. ``jax_name``
+gives the JAX package's dotted name of a port parameter, which its
+param-group regexes are written against. Imports numpy and torch only.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,3 +97,60 @@ def from_jax_params(
                                  f"{tuple(state[name].shape)}")
             state[name] = state[name].to(tensor.dtype)
     return state
+
+
+def _jax_path(name: str) -> List[str]:
+    """Module path of a port name in the JAX tree, leaf name unconverted."""
+    parts = name.split(".")
+    if parts[:2] == ["ingredient_backbone", "backbone"]:
+        parts = parts[1:]
+    path = []
+    i = 0
+    while i < len(parts):
+        if parts[i] == "layers" and i + 1 < len(parts) and parts[i + 1].isdigit():
+            path.append(f"layers_{parts[i + 1]}")
+            i += 2
+        else:
+            path.append(parts[i])
+            i += 1
+    return path
+
+
+def _jax_leaf_name(leaf: str, ndim: int) -> str:
+    if leaf == "weight" and ndim in (2, 4):
+        return "kernel"
+    if leaf == "weight" and ndim == 1:
+        return "scale"
+    if leaf in _AS_IS:
+        return leaf
+    raise KeyError(f"port leaf {leaf} of rank {ndim} has no JAX counterpart")
+
+
+def jax_name(name: str, ndim: int) -> str:
+    """The JAX package's dotted name of the port parameter ``name`` of rank
+    ``ndim`` (e.g. ``matcher.gnn.layers.0.g_conv.linear.weight`` ->
+    ``matcher.gnn.layers_0.g_conv.linear.kernel``)."""
+    path = _jax_path(name)
+    return ".".join(path[:-1] + [_jax_leaf_name(path[-1], ndim)])
+
+
+def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Nested dict in the JAX layout (numpy arrays) of a port state dict, or
+    of any mapping of port parameter names to tensors of their shapes."""
+    tree: Dict[str, Any] = {}
+    for name, tensor in state.items():
+        path = _jax_path(name)
+        t = tensor.detach().cpu()
+        if t.dtype == torch.bfloat16:  # numpy has no bf16
+            t = t.float()
+        value = t.numpy()
+        leaf = _jax_leaf_name(path[-1], value.ndim)
+        if leaf == "kernel":  # [out, in] -> [in, out]; OIHW -> HWIO
+            value = value.T if value.ndim == 2 else value.transpose(2, 3, 1, 0)
+        node = tree
+        for seg in path[:-1]:
+            node = node.setdefault(seg, {})
+        if leaf in node:
+            raise KeyError(f"two port leaves map onto {'/'.join(path[:-1] + [leaf])}")
+        node[leaf] = np.ascontiguousarray(value)
+    return tree

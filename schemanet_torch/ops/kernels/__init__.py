@@ -4,27 +4,33 @@ A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. There is no fallback from a kernel to its plain version on the card.
 """
 
+from .atlas_opt import adamw_project_rows, adamw_project_rows_reference
+from .embed_bwd import embed_grad, embed_grad_reference
 from .encoder_block import (
     attn_block,
     attn_block_reference,
     ffn_block,
     ffn_block_reference,
 )
-from .graphconv import sym_conv, sym_conv_reference
+from .graphconv import sym_conv, sym_conv_bwd, sym_conv_bwd_reference, sym_conv_reference
+
+# (wrapper, attribute) of every launch counter, by kernel name
+_COUNTERS = {
+    "attn_block": (attn_block, "launches"),
+    "attn_block_hmean": (attn_block, "hmean_launches"),
+    "ffn_block": (ffn_block, "launches"),
+    "sym_conv": (sym_conv, "launches"),
+    "sym_conv_bwd": (sym_conv_bwd, "launches"),
+    "embed_grad": (embed_grad, "launches"),
+    "adamw_project_rows": (adamw_project_rows, "launches"),
+}
 
 
 def launch_counts() -> dict:
     """Launch counters of every kernel wrapper, by kernel name."""
-    return {
-        "attn_block": attn_block.launches,
-        "attn_block_hmean": attn_block.hmean_launches,
-        "ffn_block": ffn_block.launches,
-        "sym_conv": sym_conv.launches,
-    }
+    return {name: getattr(fn, attr) for name, (fn, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    attn_block.launches = 0
-    attn_block.hmean_launches = 0
-    ffn_block.launches = 0
-    sym_conv.launches = 0
+    for fn, attr in _COUNTERS.values():
+        setattr(fn, attr, 0)

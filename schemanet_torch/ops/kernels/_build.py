@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels at first use.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into ONE shared library with a
-plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all started
+together, and the objects link into ONE shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds, not minutes). The library lands in ``schemanet_torch/_build/``, named
 by a hash of the sources, so an edited source builds anew and an unchanged one
 is reused. Nothing here runs at import: the build starts when a CUDA tensor
@@ -25,13 +26,16 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 # C signatures of the launchers (csrc/*.cu, extern "C"); every one returns the
 # cudaError_t of its launch
 _SIGNATURES = {
     "sn_attn_block": [_I] + [_P] * 10 + [_I] * 5 + [_F, _F, _P],
     "sn_ffn_block": [_I] + [_P] * 8 + [_I] * 3 + [_F, _P],
     "sn_sym_conv": [_I, _P, _P, _P, _I, _I, _I, _P],
+    "sn_sym_conv_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "sn_embed_grad": [_I, _P, _P, _P, _L, _I, _I, _P],
+    "sn_adamw_project_rows": [_P] * 4 + [_L, _I, _I, _I] + [_F] * 9 + [_P],
 }
 
 _lock = threading.Lock()
@@ -67,20 +71,39 @@ def _compile(out: Path) -> None:
     global build_seconds
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v", "-o", str(tmp), *map(str, cu),
-    ]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    # one nvcc per source, all at once: the build takes as long as its slowest file
+    procs = [
+        subprocess.Popen(
+            [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(cu, objects)
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    try:
+        failed = [(src.name, proc.returncode, log) for src, proc, log in zip(cu, procs, logs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        link = [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
-    # the ptxas register/shared-memory report, kept beside the library
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    # the ptxas register/shared-memory report of every source, kept beside the library
+    out.with_suffix(".log").write_text(
+        "\n".join(f"== {src.name}\n{log}" for src, log in zip(cu, logs)))
 
 
 def library() -> ctypes.CDLL:

@@ -26,9 +26,31 @@ def normalize_max(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return zero_nans(x / m)
 
 
-def normalize_sum_clamp(x: torch.Tensor, dim: int = -1, min_val: float = 0.0) -> torch.Tensor:
-    """clamp-min then sum-normalise."""
-    return normalize_sum(torch.clamp(x, min=min_val), dim=dim)
+def normalize_sum_clamp(x: torch.Tensor, dim: int = -1, detach_sum: bool = False,
+                        min_val: float = 0.0) -> torch.Tensor:
+    """clamp-min (``min_val >= 0``) then sum-normalise; the sum accumulates in
+    fp32. With ``detach_sum`` no gradient flows through the denominator (the
+    JAX package's ``stop_gradient`` on it).
+
+    The clamp is ``torch.maximum``, whose gradient splits a tie between x and
+    ``min_val`` in halves as ``jnp.maximum`` does (``torch.clamp`` would pass
+    all of it): projected atlas rows hold exact zeros, which tie with
+    ``min_val = 0``.
+
+    A row that clamps to all zeros is set to 0 without dividing by its zero
+    sum: the value is the 0 that 0/0 -> NaN -> 0 gives, and its gradient is
+    0, where the JAX package's is NaN (``0 * (1/0)``). Class-edge rows of
+    pruned vertices are such rows, so a NaN there would reach the optimizer
+    and poison the whole atlas."""
+    if min_val < 0:
+        raise ValueError(f"normalize_sum_clamp takes min_val >= 0, got {min_val}")
+    x = torch.maximum(x, torch.tensor(min_val, dtype=x.dtype, device=x.device))
+    s = x.sum(dim=dim, keepdim=True, dtype=torch.float32).to(x.dtype)
+    if detach_sum:
+        s = s.detach()
+    zero_row = s == 0
+    out = x / torch.where(zero_row, torch.ones_like(s), s)
+    return zero_nans(torch.where(zero_row, torch.zeros_like(out), out))
 
 
 def safe_softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -1,5 +1,6 @@
-from .atlas import AtlasConfig, SchemaAtlas
-from .gnn import GNN, GNNLayer, GraphConv, Matcher, similarity_fn
+from .atlas import AtlasConfig, SchemaAtlas, project_atlas_params
+from .gnn import GNN, GNNLayer, GraphConv, Matcher, embed_lookup, similarity_fn
+from .loss import get_loss_fn, weighted_total
 from .predictor import (
     IngredientBackbone,
     SchemaNetConfig,

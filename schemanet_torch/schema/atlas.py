@@ -1,6 +1,6 @@
 """IR-Atlas: per-class knowledge graphs and instance-graph building.
 
-Port of ``schemanet_tpu/schema/atlas.py`` (serving half). Parameters:
+Port of ``schemanet_tpu/schema/atlas.py``. Parameters:
 
 * ``vertex_weights``  [K, V_max]
 * ``edge_weights``    [K, V_max, V_max]
@@ -8,7 +8,11 @@ Port of ``schemanet_tpu/schema/atlas.py`` (serving half). Parameters:
 
 and the ``class_ingredients`` buffer [K, V_max] (global code id per class
 slot; ``arange`` by default). The getters renormalise the fp32 parameters in
-fp32 and emit the graph dtype (bf16 under ``graph_precision='default'``).
+fp32, with the row sums detached from the gradient as in the JAX package, and
+emit the graph dtype (bf16 under ``graph_precision='default'``).
+
+``project_atlas_params`` is the no-grad ``normalize()`` projection that
+training keeps the parameters on; it works on the module in place.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import torch
 from torch import nn
 
 from ..ops import geometry, graph as graph_ops
-from ..ops.normalize import normalize_sum_clamp
+from ..ops.normalize import normalize_sum_clamp, zero_nans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +44,8 @@ class AtlasConfig:
     clamp_edge_attn: Optional[float] = None
     remove_self_loop: bool = False
     prune_node_threshold: Optional[float] = None
+    apply_normalize: bool = True
+    clamp_weights: bool = True
     graph_precision: str = "highest"
 
     def __post_init__(self):
@@ -89,16 +95,19 @@ class SchemaAtlas(nn.Module):
         return graph_ops.graph_dtype(self.cfg.graph_precision)
 
     def get_class_vertices(self) -> torch.Tensor:
-        return normalize_sum_clamp(self.vertex_weights, min_val=1e-5).to(self._out_dtype())
+        return normalize_sum_clamp(self.vertex_weights, detach_sum=True, min_val=1e-5).to(
+            self._out_dtype())
 
     def get_class_edges(self) -> torch.Tensor:
         c = self.cfg
         e = self.edge_weights
         if c.prune_node_threshold is not None:
-            # zero every edge touching a vertex at or below the threshold
-            keep = (self.get_class_vertices() > c.prune_node_threshold).to(e.dtype)  # [K, V]
+            # zero every edge touching a vertex at or below the threshold; the
+            # mask carries no gradient
+            with torch.no_grad():
+                keep = (self.get_class_vertices() > c.prune_node_threshold).to(e.dtype)  # [K, V]
             e = e * (keep[:, :, None] * keep[:, None, :])
-        e = normalize_sum_clamp(e, min_val=0.0).to(self._out_dtype())
+        e = normalize_sum_clamp(e, detach_sum=True, min_val=0.0).to(self._out_dtype())
         if c.remove_self_loop:
             eye = torch.eye(e.shape[-1], dtype=torch.bool, device=e.device)[None]
             e = torch.where(eye, torch.zeros_like(e), e)
@@ -135,3 +144,38 @@ class SchemaAtlas(nn.Module):
             "feat_mask": ~slots.mask,  # True = padding
             "num_slots": slots.num_slots,
         }
+
+
+@torch.no_grad()
+def clamp_attribute_weights_(atlas: SchemaAtlas) -> None:
+    """Clamp the vertex and edge attribute weights to [0.01, 10] in place
+    (when ``clamp_weights``): the cheap half of the projection, which
+    training runs before every step."""
+    if atlas.cfg.clamp_weights:
+        for w in (atlas.vertex_attribute_weights, atlas.edge_attribute_weights):
+            w.clamp_(0.01, 10.0)
+
+
+@torch.no_grad()
+def _project_rows_(w: torch.Tensor, remove_self_loop: bool = False) -> None:
+    """clamp-min 0 and row-sum normalise over the last axis in place, all-zero
+    rows to 0; with ``remove_self_loop`` zero the diagonal of each [V, V]."""
+    w.clamp_(min=0.0)
+    w.copy_(zero_nans(w / w.sum(dim=-1, keepdim=True)))
+    if remove_self_loop:
+        w.diagonal(dim1=-2, dim2=-1).zero_()
+
+
+@torch.no_grad()
+def project_atlas_params(atlas: SchemaAtlas) -> SchemaAtlas:
+    """The no-grad ``normalize()`` projection of
+    ``schemanet_tpu.schema.atlas.project_atlas_params``, on the module's
+    parameters in place: clamp the attribute weights to [0.01, 10]
+    (``clamp_weights``); clamp-min 0 and row-sum normalise the vertex and
+    edge weights, zeroing the edge diagonals when ``remove_self_loop``
+    (``apply_normalize``)."""
+    clamp_attribute_weights_(atlas)
+    if atlas.cfg.apply_normalize:
+        _project_rows_(atlas.vertex_weights)
+        _project_rows_(atlas.edge_weights, atlas.cfg.remove_self_loop)
+    return atlas

@@ -1,4 +1,4 @@
-"""Graph matcher GNN (port of ``schemanet_tpu/schema/gnn.py``, forward only).
+"""Graph matcher GNN (port of ``schemanet_tpu/schema/gnn.py``).
 
 Semantics kept from the JAX package:
 
@@ -9,11 +9,18 @@ Semantics kept from the JAX package:
 * per layer: conv -> mask-fill padding to 0 -> LayerNorm (eps 1e-6, flax's
   default) -> activation;
 * pooling: sum over the vertex axis of feat * vertex_weights divided by the
-  pool size (per sample for serving), then the final Linear ``fc``.
+  pool size (per sample for serving, the batch max for training), then the
+  final Linear ``fc``;
+* the embedding lookup is ``embed_lookup``: a gather forward, and a backward
+  that sums the cotangent rows of duplicate ids in fp32 (the ``embed_grad``
+  kernel on CUDA) and rounds once to the cotangent's dtype, as the JAX
+  ``_embed_lookup_bwd`` returns ``gt.astype(g.dtype)``. The instance graphs and
+  the class graphs take the same function.
 
-The JAX package's TPU workarounds for the embedding backward (one-hot and
-banded products, static ids) have no counterpart: serving has no backward, so
-the lookup is a plain gather.
+Not ported, being TPU workarounds with the same semantics as the fp32 sum:
+the JAX package's one-hot and banded-product backward routes and its
+``StaticIds`` trace-time class ids; nor ``remat_class_gnn``, which trades
+recompute for TPU memory.
 """
 
 from __future__ import annotations
@@ -24,10 +31,30 @@ import torch
 from torch import nn
 
 from ..models.layers import get_activation
+from ..ops.kernels import embed_bwd as ek
 from ..ops.kernels import encoder_block as eb
 from ..ops.kernels import graphconv as gc
 
 GNN_NORM_EPS = 1e-6  # flax nn.LayerNorm's default, which the JAX GNN uses
+
+
+class _EmbedLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.num_rows = table.shape[0]
+        return table[ids.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return ek.embed_grad(ids, g.contiguous(), ctx.num_rows).to(g.dtype), None
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` ([M+1, D], int32 [...] -> [..., D]) whose backward
+    accumulates duplicate ids in fp32 and rounds once to the cotangent dtype."""
+    return _EmbedLookup.apply(table, ids.int().contiguous())
 
 
 class GraphConv(nn.Module):
@@ -78,7 +105,9 @@ class GNN(nn.Module):
         feat_mask: Optional[torch.Tensor] = None,  # [bs, n] True = padding
         pool_size: Optional[torch.Tensor] = None,  # [bs] or scalar denominator
     ) -> torch.Tensor:
-        feat = self.embedding.to(self.dtype)[ingredients.long()]
+        # cast the table, not the gathered rows, so the backward's fp32 sum
+        # rounds once to the compute dtype (a no-op in fp32)
+        feat = embed_lookup(self.embedding.to(self.dtype), ingredients)
         for layer in self.layers:
             feat = layer(edges, feat, feat_mask)
         feat = feat * nodes[..., None].to(feat.dtype)

@@ -2,7 +2,10 @@
 
 frozen ViT through layer ``encode_layer`` (with the layer's head-mean raw
 attention captured) -> VQ of the patch tokens -> dense instance graphs ->
-atlas match with the shared GNN -> logits. Forward only: this package serves.
+atlas match with the shared GNN -> logits. The backbone and its codebook are
+frozen: they run under ``torch.no_grad`` and their parameters do not require
+gradients (the JAX package's ``stop_gradient`` and optimizer masking), so
+training differentiates the atlas and the GNN only.
 
 Parameter names follow the JAX tree (``ingredient_backbone.backbone``,
 ``schema_net``, ``matcher.gnn``) so ``models/port.py`` maps one onto the other.
@@ -90,9 +93,11 @@ class SchemaNetPredictor(nn.Module):
             cfg.gnn_identity_proj, cfg.gnn_activation, cfg.ref_pooling, cfg.per_sample_pooling,
             dtype,
         )
+        self.ingredient_backbone.requires_grad_(False)
 
     def forward(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
-        output = self.ingredient_backbone(img)
+        with torch.no_grad():
+            output = self.ingredient_backbone(img)
         instance = self.schema_net(output["ingredients"], output["attn"], output["attn_cls"])
         atlas = self.schema_net.get_atlas()
         return {"pred": self.matcher(instance, atlas), **atlas}

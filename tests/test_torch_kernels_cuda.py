@@ -6,13 +6,16 @@ without a card. Imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances, relative to max |plain|: fp32 1e-5 (summation order only), bf16
-2e-2 (a few bf16 ulps where roundings meet in another order).
+Tolerances, relative to max |plain|: fp32 1e-5 (summation order only, and
+the run-dependent order of embed_grad's atomics), bf16 2e-2 (a few bf16 ulps
+where roundings meet in another order).
 """
 
 import pytest
 import torch
 
+from schemanet_torch.ops.kernels import atlas_opt as ao
+from schemanet_torch.ops.kernels import embed_bwd as ek
 from schemanet_torch.ops.kernels import encoder_block as eb
 from schemanet_torch.ops.kernels import graphconv as gc
 
@@ -92,3 +95,74 @@ def test_kernels_reject_bad_inputs(dev):
     e = torch.zeros(2, 8, 8, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         gc.sym_conv(e.transpose(1, 2), torch.zeros(2, 8, 4, device=dev))
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("k,v,d", [(2, 70, 40), (3, 196, 256)])
+def test_sym_conv_bwd_kernel(dev, dtype, tol, k, v, d):
+    g = torch.Generator().manual_seed(3)
+    e = (torch.rand(k, v, v, generator=g) / v).to(dev, dtype)
+    f, cot = _rnd(g, dev, k, v, d).to(dtype), _rnd(g, dev, k, v, d).to(dtype)
+    before = gc.sym_conv_bwd.launches
+    de, df = gc.sym_conv_bwd(e, f, cot)
+    no_de, df_only = gc.sym_conv_bwd(e, f, cot, need_de=False)
+    want_de, want_df = gc.sym_conv_bwd_reference(e, f, cot)
+    torch.cuda.synchronize()
+    assert gc.sym_conv_bwd.launches == before + 2
+    assert de.dtype == df.dtype == dtype and de.shape == (k, v, v) and no_de is None
+    assert _rel(de, want_de) <= tol and _rel(df, want_df) <= tol
+    assert torch.equal(df_only, df)
+    # through autograd: the Function's backward launches the kernel
+    ef, ff = e.clone().requires_grad_(), f.clone().requires_grad_()
+    gc.sym_conv(ef, ff).backward(cot)
+    assert _rel(ef.grad, want_de) <= tol and _rel(ff.grad, want_df) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,num_rows,d", [((5, 37), 40, 24), ((100, 1024), 1025, 256)])
+def test_embed_grad_kernel(dev, dtype, shape, num_rows, d):
+    g = torch.Generator().manual_seed(4)
+    ids = torch.randint(0, num_rows, shape, generator=g, dtype=torch.int32)
+    ids[0] = num_rows - 1  # one id many times over
+    ids = ids.to(dev)
+    cot = _rnd(g, dev, *shape, d).to(dtype)
+    got = ek.embed_grad(ids, cot, num_rows)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (num_rows, d)
+    assert _rel(got, ek.embed_grad_reference(ids, cot, num_rows)) <= 1e-5
+
+
+@pytest.mark.parametrize("shape,remove_self_loop", [((7, 40), False), ((6, 100, 100), True)])
+def test_adamw_project_rows_kernel(dev, shape, remove_self_loop):
+    g = torch.Generator().manual_seed(5)
+    p = torch.rand(shape, generator=g).to(dev)
+    p[0] = -1.0  # a row that projects to zero
+    grad = _rnd(g, dev, *shape, scale=0.05)
+    m, v = _rnd(g, dev, *shape, scale=0.01), torch.rand(shape, generator=g).to(dev) * 1e-4
+    kw = dict(lr=1e-3, weight_decay=5e-4, remove_self_loop=remove_self_loop)
+    want = ao.adamw_project_rows_reference(p.clone(), grad, m.clone(), v.clone(), 2, **kw)
+    got = ao.adamw_project_rows(p, grad, m, v, 2, **kw)
+    torch.cuda.synchronize()
+    assert got[0] is p and got[1] is m and got[2] is v  # in place
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 1e-5
+    assert not p[0].any()
+
+
+def test_training_kernels_reject_bad_inputs(dev):
+    ids = torch.tensor([0, 3, 5], dtype=torch.int32, device=dev)
+    cot = torch.ones(3, 8, device=dev)
+    with pytest.raises(IndexError, match="ids must lie"):
+        ek.embed_grad(ids, cot, 5)
+    with pytest.raises(IndexError, match="ids must lie"):
+        ek.embed_grad(-ids, cot, 6)
+    with pytest.raises(TypeError):
+        ek.embed_grad(ids.long(), cot, 6)
+    z = torch.zeros(2, 8, 8, device=dev)
+    with pytest.raises(TypeError):
+        ao.adamw_project_rows(z.double(), z.double(), z.double(), z.double(), 0, lr=1e-3)
+    with pytest.raises(ValueError, match="columns"):
+        w = torch.zeros(2, 5000, device=dev)
+        ao.adamw_project_rows(w, w, w, w, 0, lr=1e-3)
+    with pytest.raises(ValueError, match="shape"):
+        gc.sym_conv_bwd(z, torch.zeros(2, 8, 4, device=dev), torch.zeros(2, 8, 5, device=dev))
