@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path
-and the SchemaNet training step.
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path,
+the SchemaNet training step and stage 0, fine-tuning the backbone.
 
 Both run the CIFAR-100 DeiT-Tiny configuration at full width (224^2 input,
 patch 16, 197 tokens, d=192, 3 heads, FFN 768, layers 0-9 of 12 frozen,
@@ -52,10 +52,36 @@ the fused update):
     optimizer (CUDA events); the device's idle share over 3 steps
     (``torch.profiler``) and the peak device memory.
 
+Stage 0 (``schemanet_torch.train.backbone_trainer(...).train_iter``, the
+``backbone_worker`` step of ``configs/cifar_100/vanilla/deit_tiny.yaml``: ViT
+at DeiT-Tiny width, 12 layers, dropout 0.1, AdamW lr 1e-4 with warmup,
+``clip_max_norm`` 0.1, cross entropy, batch 64; seeded random weights):
+
+11. the fused attention and FFN kernels, forward and backward, against their
+    plain versions at the stage-0 shapes (qkv [64, 197, 576]; 12,608 rows of
+    192 -> 768 -> 192), bf16 and fp32, dropout off and at p = 0.1 with the
+    same seed (equal masks, so a wrong mask shows as an O(1) error); the
+    tolerances of 3;
+12. the step in fp32 with dropout live: 3 steps against the same trainer
+    with every kernel replaced by its plain version, from the same generator
+    seeds (so the same masks); losses within 1e-4 relative, the parameters
+    within the rule of 8;
+13. the step in bf16 (the config's dtype): 5 finite losses; per step 12
+    launches each of fused_mhsa, fused_mhsa_bwd, fused_mlp and fused_mlp_bwd,
+    and none of the serving or SchemaNet kernels;
+14. timings: each stage-0 kernel beside its plain version, and
+    ``scaled_dot_product_attention`` (forward, and forward plus backward)
+    beside the attention kernels; the bf16 step's ms and images/s beside the
+    step with every plain version; its split into forward, backward, and
+    clipping plus AdamW; the idle share over 3 steps and the peak memory.
+
 Any failed check raises, so the script exits non-zero. Without a GPU it fails
 at once. Its last line is ``{"ok": true, "device": {...}}``; the line before
-it lists the kernels with their launches on the training path, errors and
-times.
+it lists every kernel with its launches on its path (training for the
+SchemaNet kernels, stage 0 for the fused attention and FFN kernels), its
+error against its plain version, its time, the plain version's, its bound on
+the card and, where one PyTorch call computes the same function, that
+call's time.
 
 Usage: python3 chip_smoke.py
 """
@@ -116,6 +142,30 @@ LOSS_WEIGHTS = {"cls": 1.0, "re_entropy_vertex": 0.5, "re_entropy_edge": 0.75}
 BATCH = TRAIN_CFG["batch_size"]
 STEPS_PER_EPOCH = 50_000 // BATCH
 FP32_STEPS, BF16_STEPS, STEP_TIME_ITERS = 3, 5, 10
+# configs/cifar_100/vanilla/deit_tiny.yaml (stage 0), as backbone_trainer reads it
+STAGE0_CFG = {
+    "dataset": {"name": "cifar_100"},
+    "training": {
+        "dtype": "bfloat16",
+        "optimizer": {"name": "AdamW", "lr": 0.0001, "weight_decay": 0.05},
+        "lr_schedule": {"name": "cosine_annealing", "T_max": 50, "warmup_iters": 10},
+        "train_epochs": 50, "batch_size": 64, "clip_max_norm": 0.1,
+    },
+    "model": {
+        "name": "vit",
+        "transformer": dict(embed_dim=EMBED_DIM, num_encoder_layers=12, num_heads=HEADS,
+                            dim_feedforward=FFN_DIM, dropout=0.1, activation="gelu",
+                            final_norm=True, norm_eps=1e-06),
+        "patch_embed": dict(name="vit_like", img_size=IMG, patch_size=PATCH, image_channels=3),
+        "pos_encoding": {"name": "learnable", "dropout": None},
+    },
+    "loss": {"name": "ce_loss", "weight_dict": {"cls": 1.0}},
+}
+S0_LAYERS = STAGE0_CFG["model"]["transformer"]["num_encoder_layers"]
+S0_DROPOUT, S0_SEED = STAGE0_CFG["model"]["transformer"]["dropout"], 2**31 - 2
+# H100 SXM data sheet, dense: bf16 tensor cores, fp32 outside them, HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def phase(name: str, **fields) -> None:
@@ -148,6 +198,31 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def least_ms(flops: float, moved: float, dtype: str):
+    """(least ms on the card, what bounds it): the larger of the operations
+    over the peak rate of their type and the bytes moved over the memory
+    rate."""
+    ops_ms, bytes_ms = flops / PEAK_FLOPS[dtype] * 1e3, moved / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def device_time_by_name(prof) -> dict:
+    """Device microseconds by kernel name in a profile: the CUDA events,
+    without the user annotations that span kernels already counted (such as
+    ``Optimizer.step#AdamW.step``)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+            out[evt.name] = out.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    return out
+
+
 def compare(name, kernel, plain, args, kw, dtype, tol, errors) -> None:
     """Kernel against plain version on the same inputs; records the max
     absolute error of the working dtype (bf16, or fp32 where that is the
@@ -175,14 +250,16 @@ def main() -> None:
     except ImportError as exc:
         sys.exit(f"chip_smoke: run from the repository root ({exc})")
     from schemanet_torch.ops.kernels import atlas_opt as ao
+    from schemanet_torch.ops.kernels import attention as ak
     from schemanet_torch.ops.kernels import embed_bwd as ek
     from schemanet_torch.ops.kernels import encoder_block as eb
     from schemanet_torch.ops.kernels import graphconv as gc
     from schemanet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from schemanet_torch.ops.kernels import mlp as mk
     from schemanet_torch.schema import build_predictor, get_loss_fn, init_parameters_
     from schemanet_torch.schema.atlas import clamp_attribute_weights_
     from schemanet_torch.serve import ServePredictor
-    from schemanet_torch.train import SCHEMA_NET_FROZEN, Trainer, TrainerConfig
+    from schemanet_torch.train import SCHEMA_NET_FROZEN, Trainer, TrainerConfig, backbone_trainer
 
     # fp32 comparisons need full fp32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -274,6 +351,8 @@ def main() -> None:
         mock.patch.object(gc, "sym_conv", gc.sym_conv_reference),  # autograd of plain torch
         mock.patch.object(ek, "embed_grad", ek.embed_grad_reference),
         mock.patch.object(ao, "adamw_project_rows", ao.adamw_project_rows_reference),
+        mock.patch.object(ak, "fused_mhsa", ak.fused_mhsa_reference),  # autograd of plain torch
+        mock.patch.object(mk, "fused_mlp", mk.fused_mlp_reference),
     ]
 
     def with_plain(fn):
@@ -311,9 +390,9 @@ def main() -> None:
     logits = s16.predict(images)  # the user's entry point: numpy in, numpy out
     serve_launches = launch_counts()
     mbs = -(-len(images) // MICROBATCH)
-    expected = {"attn_block": FROZEN_LAYERS * mbs, "attn_block_hmean": mbs,
-                "ffn_block": FROZEN_LAYERS * mbs, "sym_conv": GNN_CONVS * mbs,
-                "sym_conv_bwd": 0, "embed_grad": 0, "adamw_project_rows": 0}
+    expected = {name: 0 for name in serve_launches}  # no training kernel
+    expected.update({"attn_block": FROZEN_LAYERS * mbs, "attn_block_hmean": mbs,
+                     "ffn_block": FROZEN_LAYERS * mbs, "sym_conv": GNN_CONVS * mbs})
     phase("slice_bf16_launches", microbatches=mbs, launches=serve_launches, expected=expected)
     require(serve_launches == expected, f"launch counts {serve_launches} != {expected}")
     for count in (1, MICROBATCH, N_IMAGES):
@@ -426,7 +505,7 @@ def main() -> None:
     def trainer(dtype, precision):
         mdl = model(dtype, precision)
         mdl.load_state_dict(host_state)
-        return Trainer(trainer_cfg, mdl.to(dev), loss_fn, LOSS_WEIGHTS, STEPS_PER_EPOCH)
+        return Trainer(trainer_cfg, mdl, loss_fn, LOSS_WEIGHTS, STEPS_PER_EPOCH, device=dev)
 
     hot_names = ("schema_net.vertex_weights", "schema_net.edge_weights")
 
@@ -472,10 +551,11 @@ def main() -> None:
     torch.cuda.synchronize()
     train_launches = launch_counts()
     losses16 = [m["loss"].item() for m in metrics]
-    expected = {"attn_block": FROZEN_LAYERS * BF16_STEPS, "attn_block_hmean": BF16_STEPS,
-                "ffn_block": FROZEN_LAYERS * BF16_STEPS, "sym_conv": GNN_CONVS * BF16_STEPS,
-                "sym_conv_bwd": GNN_CONVS * BF16_STEPS, "embed_grad": 2 * BF16_STEPS,
-                "adamw_project_rows": 2 * BF16_STEPS}
+    expected = {name: 0 for name in train_launches}  # no stage-0 kernel
+    expected.update({"attn_block": FROZEN_LAYERS * BF16_STEPS, "attn_block_hmean": BF16_STEPS,
+                     "ffn_block": FROZEN_LAYERS * BF16_STEPS, "sym_conv": GNN_CONVS * BF16_STEPS,
+                     "sym_conv_bwd": GNN_CONVS * BF16_STEPS, "embed_grad": 2 * BF16_STEPS,
+                     "adamw_project_rows": 2 * BF16_STEPS})
     phase("train_bf16", steps=BF16_STEPS, batch=BATCH, losses=losses16,
           launches=train_launches, expected=expected)
     require(all(np.isfinite(losses16)), f"bf16 train losses not finite: {losses16}")
@@ -497,7 +577,16 @@ def main() -> None:
         )
         phase("kernel_time", kernel=name, dtype="float32", shape=list(p0.shape),
               ms=times[name][0], plain_ms=times[name][1], **card_note)
-    del atlas_state
+    # the one PyTorch call that computes embed_grad's function: index_add_
+    # into an fp32 table, of the same cotangents made fp32 beforehand
+    ids_long = ids_class.reshape(-1).long()
+    g_fp32 = f_class.to(torch.bfloat16).reshape(-1, GNN_DIM).float()
+    table = torch.zeros(NUM_CODES + 1, GNN_DIM, device=dev)
+    library = {"embed_grad": time_ms(lambda: table.index_add_(0, ids_long, g_fp32), TIME_ITERS)}
+    phase("kernel_time", kernel="embed_grad_vs_index_add", dtype="bfloat16",
+          ms=times["embed_grad"][0], index_add_ms=library["embed_grad"], **card_note)
+    atlas_bytes = {k: v[0].numel() for k, v in atlas_state.items()}
+    del atlas_state, ids_long, g_fp32, table
     torch.cuda.empty_cache()
 
     def step_ms(iters, plain=False):
@@ -552,7 +641,6 @@ def main() -> None:
           note="forward_loss runs the frozen forward again; its time is subtracted",
           **card_note)
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -562,16 +650,240 @@ def main() -> None:
             tr16.train_iter(batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_kernel = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    by_kernel = device_time_by_name(prof)
     busy_us = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     phase("train_profile", steps=3, wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
           idle_share=(1 - busy_us / wall_us) if busy_us else None,
           top_device_ms_per_step={k[:80]: v / 3e3 for k, v in top}, **card_note)
 
+    del tr16, batches
+    torch.cuda.empty_cache()
+
+    # 11. the stage-0 kernels against their plain versions at the stage-0 shapes
+    rows0 = BATCH * n
+    s0 = dict(qkv=rnd(BATCH, n, 3 * d), g_att=rnd(BATCH, n, d), x=rnd(BATCH, n, d),
+              g_ffn=rnd(BATCH, n, d), w1=rnd(f, d, scale=d**-0.5), b1=rnd(f, scale=0.1),
+              w2=rnd(d, f, scale=f**-0.5), b2=rnd(d, scale=0.1))
+
+    def s0_case(name, dt, p):
+        seed = S0_SEED if p else None
+        t = {k: v.to(dt) for k, v in s0.items()}
+        weights = (t["w1"], t["b1"], t["w2"], t["b2"])
+        return {
+            "fused_mhsa": (ak.fused_mhsa, ak.fused_mhsa_reference, (t["qkv"], heads, p, seed)),
+            "fused_mhsa_bwd": (ak.fused_mhsa_bwd, ak.fused_mhsa_bwd_reference,
+                               (t["qkv"], t["g_att"], heads, p, seed)),
+            "fused_mlp": (mk.fused_mlp, mk.fused_mlp_reference, (t["x"], *weights, "gelu", p, seed)),
+            "fused_mlp_bwd": (mk.fused_mlp_bwd, mk.fused_mlp_bwd_reference,
+                              (t["x"], *weights[:3], t["g_ffn"], "gelu", p, seed)),
+        }[name]
+
+    s0_kernels = ("fused_mhsa", "fused_mhsa_bwd", "fused_mlp", "fused_mlp_bwd")
+    for name in s0_kernels:
+        for p in (0.0, S0_DROPOUT):
+            for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+                kernel, plain, args = s0_case(name, dt, p)
+                compare(name if p else f"{name}_p0", kernel, plain, args, {}, dt, tol, errors)
+
+    # 12. the stage-0 step in fp32, dropout live, against the plain versions
+    def s0_cfg(dtype):
+        return dict(STAGE0_CFG, training=dict(STAGE0_CFG["training"], dtype=dtype))
+
+    rng = np.random.default_rng(2)
+    s0_batches = [
+        {"image": torch.from_numpy(
+            rng.normal(size=(BATCH, IMG, IMG, 3)).astype(np.float32)).to(dev),
+         "label": torch.from_numpy(rng.integers(0, NUM_CLASSES, size=BATCH)).to(dev)}
+        for _ in range(BF16_STEPS)
+    ]
+
+    def s0_fp32_run(track_sure):
+        tr = backbone_trainer(s0_cfg("float32"), STEPS_PER_EPOCH, seed=0, device=dev)
+        losses, sure = [], {}
+        for batch in s0_batches[:FP32_STEPS]:
+            losses.append(tr.train_iter(batch)["loss"].item())
+            if track_sure and not sure:  # the step-1 (clipped) gradient
+                for k, prm in tr.model.named_parameters():
+                    grad = prm.grad.abs()
+                    sure[k] = grad > 1e-3 * grad.max()
+        params = {k: prm.detach().clone() for k, prm in tr.model.named_parameters()}
+        del tr
+        torch.cuda.empty_cache()
+        return losses, params, sure
+
+    losses_k, params_k, _ = s0_fp32_run(False)
+    losses_p, params_p, sure = with_plain(lambda: s0_fp32_run(True))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
+    bound_step = 2 * STAGE0_CFG["training"]["optimizer"]["lr"] * FP32_STEPS
+    worst = {"max_abs_diff": 0.0, "max_abs_diff_sure": 0.0, "sure_ok": True}
+    for k in params_p:
+        diff = (params_k[k] - params_p[k]).abs()
+        worst["max_abs_diff"] = max(worst["max_abs_diff"], diff.max().item())
+        if sure[k].any():
+            worst["max_abs_diff_sure"] = max(worst["max_abs_diff_sure"], diff[sure[k]].max().item())
+            worst["sure_ok"] &= bool((diff[sure[k]] <= 1e-6 + 1e-4 * params_p[k].abs()[sure[k]]).all())
+    sure_share = sum(v.sum().item() for v in sure.values()) / sum(v.numel() for v in sure.values())
+    phase("stage0_fp32", steps=FP32_STEPS, batch=BATCH, dropout=S0_DROPOUT, losses=losses_k,
+          plain_losses=losses_p, loss_rel_err=loss_rel, tol=1e-4, sure_share=sure_share,
+          bound=bound_step, **worst)
+    require(loss_rel <= 1e-4, f"stage-0 fp32 losses differ by {loss_rel} relative")
+    require(worst["sure_ok"], "stage-0 fp32 parameters differ beyond rtol 1e-4 / atol 1e-6 "
+                              "where |g| is large")
+    require(worst["max_abs_diff"] <= bound_step,
+            f"stage-0 fp32 parameters differ by {worst['max_abs_diff']} > {bound_step}")
+    del params_k, params_p, sure
+
+    # 13. the stage-0 step in bf16: the main path, counted
+    tr0 = backbone_trainer(s0_cfg("bfloat16"), STEPS_PER_EPOCH, seed=0, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    metrics = [tr0.train_iter(batch) for batch in s0_batches]
+    torch.cuda.synchronize()
+    s0_launches = launch_counts()
+    losses0 = [m["loss"].item() for m in metrics]
+    expected = {name: 0 for name in s0_launches}
+    expected.update({name: S0_LAYERS * BF16_STEPS for name in s0_kernels})
+    phase("stage0_bf16", steps=BF16_STEPS, batch=BATCH, losses=losses0, launches=s0_launches,
+          expected=expected)
+    require(all(np.isfinite(losses0)), f"stage-0 bf16 losses not finite: {losses0}")
+    require(s0_launches == expected, f"stage-0 launch counts {s0_launches} != {expected}")
+
+    # 14. timings: the stage-0 kernels beside their plain versions and SDPA, the step
+    for name in s0_kernels:
+        for p in (0.0, S0_DROPOUT):
+            kernel, plain, args = s0_case(name, torch.bfloat16, p)
+            key = name if p else f"{name}_p0"
+            with torch.no_grad():
+                times[key] = (time_ms(lambda: kernel(*args), TIME_ITERS),
+                              time_ms(lambda: plain(*args), TIME_ITERS))
+            phase("kernel_time", kernel=name, dtype="bfloat16", dropout=p,
+                  shape=list(args[0].shape), ms=times[key][0], plain_ms=times[key][1], **card_note)
+    qkv16, g16 = s0["qkv"].to(torch.bfloat16), s0["g_att"].to(torch.bfloat16)
+    q, k, v = qkv16.view(BATCH, n, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+    with torch.no_grad():
+        sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+                          TIME_ITERS)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    g_heads = g16.view(BATCH, n, heads, d // heads).transpose(1, 2)
+    sdpa_fb_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qg, kg, vg).backward(g_heads), TIME_ITERS)
+    xg = qkv16.detach().clone().requires_grad_()
+    fused_fb_ms = time_ms(lambda: ak.fused_mhsa(xg, heads).backward(g16), TIME_ITERS)
+    phase("kernel_time", kernel="fused_mhsa_vs_sdpa", dtype="bfloat16", dropout=0.0,
+          fused_fwd_ms=times["fused_mhsa_p0"][0], sdpa_fwd_ms=sdpa_ms,
+          fused_fwd_bwd_ms=fused_fb_ms, sdpa_fwd_bwd_ms=sdpa_fb_ms, **card_note)
+    library["fused_mhsa"] = sdpa_ms
+
+    def s0_step_ms(iters, plain=False):
+        out = []
+        for i in range(iters):
+            batch = s0_batches[i % len(s0_batches)]
+            t0 = time.perf_counter()
+            if plain:
+                with_plain(lambda: tr0.train_iter(batch))
+            else:
+                tr0.train_iter(batch)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    s0_step_ms(2)
+    torch.cuda.reset_peak_memory_stats()
+    steps = s0_step_ms(STEP_TIME_ITERS)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    s0_step_ms(1, plain=True)
+    plain_steps = s0_step_ms(STEP_TIME_ITERS // 2, plain=True)
+    step_p50, plain_p50 = float(np.percentile(steps, 50)), float(np.percentile(plain_steps, 50))
+    phase("stage0_step", batch=BATCH, dtype="bfloat16", layers=S0_LAYERS, p50_ms=step_p50,
+          min_ms=min(steps), max_ms=max(steps), images_per_s=BATCH / (step_p50 / 1e3),
+          plain_versions_p50_ms=plain_p50, plain_versions_images_per_s=BATCH / (plain_p50 / 1e3),
+          peak_mem_gb=peak_gb, **card_note)
+
+    split = {"forward": [], "backward": [], "clip_adamw": []}
+    for batch in s0_batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        total, _ = tr0.forward_loss(batch)
+        ev[1].record()
+        tr0.zero_grad()
+        total.backward()
+        ev[2].record()
+        tr0.clip_gradients()
+        tr0.apply_updates()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for key, (a, b) in zip(split, ((0, 1), (1, 2), (2, 3))):
+            split[key].append(ev[a].elapsed_time(ev[b]))
+    phase("stage0_split", ms={k: float(np.median(v)) for k, v in split.items()}, **card_note)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in s0_batches[:3]:
+            tr0.train_iter(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_kernel = device_time_by_name(prof)
+    busy_us = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:10]
+    phase("stage0_profile", steps=3, wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+          idle_share=(1 - busy_us / wall_us) if busy_us else None,
+          top_device_ms_per_step={k[:80]: v / 3e3 for k, v in top},
+          top_host_self_ms_per_step={e.key[:60]: e.self_cpu_time_total / 3e3 for e in host},
+          **card_note)
+
+    # the least time the card could take for the timed work of each kernel
+    def attn_work(args, hmean=False):
+        x, g1, b1, wqkv, bqkv, wo, bo, h = args
+        bs_, n_, dim = x.shape
+        rows, hd = bs_ * n_, wqkv.shape[0] // 3
+        flops = 2 * rows * dim * 3 * hd + 4 * bs_ * n_ * n_ * hd + 2 * rows * hd * dim
+        out = 2 * x.numel() * x.element_size() + (bs_ * n_ * n_ * x.element_size() if hmean else 0)
+        return flops, out + nbytes(g1, b1, wqkv, bqkv, wo, bo)
+
+    def ffn_work(args):
+        x, g1, b1, w1, fb1, w2, fb2 = args
+        return 4 * x.numel() * w1.shape[0], 2 * nbytes(x) + nbytes(g1, b1, w1, fb1, w2, fb2)
+
+    def conv_work(args, bwd=False):
+        e, f_ = args[0], args[1]
+        kk, vv, dd = f_.shape
+        flops = (4 if bwd else 2) * kk * vv * vv * dd + 2 * kk * vv * vv
+        io = nbytes(*args) + (nbytes(e, f_) if bwd else nbytes(f_))
+        return flops, io
+
+    def embed_work(args):
+        ids, g_, rows_ = args
+        return g_.numel(), nbytes(ids, g_) + rows_ * g_.shape[-1] * 4
+
+    def adamw_work(which):
+        prm = atlas_bytes[which]
+        return 15 * prm, 7 * 4 * prm  # p, g, m, v read; p, m, v written; fp32
+
+    def s0_work(name):
+        t = {k: v.to(torch.bfloat16) for k, v in s0.items()}
+        att = 2 * BATCH * heads * n * n * (d // heads)
+        mlp = 2 * rows0 * d * f
+        weights = nbytes(t["w1"], t["b1"], t["w2"])
+        return {
+            "fused_mhsa": (2 * att, nbytes(t["qkv"], t["g_att"])),
+            "fused_mhsa_bwd": (5 * att, 2 * nbytes(t["qkv"]) + nbytes(t["g_att"])),
+            "fused_mlp": (2 * mlp, 2 * nbytes(t["x"]) + weights + nbytes(t["b2"])),
+            "fused_mlp_bwd": (5 * mlp, 3 * nbytes(t["x"]) + 2 * weights + nbytes(t["b2"])),
+        }[name]
+
+    work = {
+        "attn_block": attn_work(cases["attn_block"](torch.bfloat16)[2]),
+        "attn_block_hmean": attn_work(cases["attn_block"](torch.bfloat16)[2], hmean=True),
+        "ffn_block": ffn_work(cases["ffn_block"](torch.bfloat16)[2]),
+        "sym_conv": conv_work(cases["sym_conv"](torch.bfloat16)[2]),
+        "sym_conv_bwd": conv_work(train_cases["sym_conv_bwd"](torch.bfloat16)[2], bwd=True),
+        "embed_grad": embed_work(train_cases["embed_grad"](torch.bfloat16)[2]),
+        "adamw_project_rows": adamw_work("edge"),
+        **{name: s0_work(name) for name in s0_kernels},
+    }
     replaces = {
         "attn_block": "schemanet_tpu/ops/pallas/encoder_block.py:240",
         "attn_block_hmean": "schemanet_tpu/ops/pallas/encoder_block.py:240",
@@ -580,25 +892,37 @@ def main() -> None:
         "sym_conv_bwd": "schemanet_tpu/ops/pallas/graphconv.py:100",
         "embed_grad": "schemanet_tpu/ops/pallas/embed_bwd.py:161",
         "adamw_project_rows": "schemanet_tpu/ops/pallas/atlas_opt.py:133",
+        "fused_mhsa": "schemanet_tpu/ops/pallas/attention.py:162",
+        "fused_mhsa_bwd": "schemanet_tpu/ops/pallas/attention.py:216",
+        "fused_mlp": "schemanet_tpu/ops/pallas/mlp.py:230",
+        "fused_mlp_bwd": "schemanet_tpu/ops/pallas/mlp.py:271",
     }
     sources = {"sym_conv": "graphconv.cu", "sym_conv_bwd": "graphconv.cu",
-               "embed_grad": "embed_bwd.cu", "adamw_project_rows": "atlas_opt.cu"}
+               "embed_grad": "embed_bwd.cu", "adamw_project_rows": "atlas_opt.cu",
+               "fused_mhsa": "attention.cu", "fused_mhsa_bwd": "attention.cu",
+               "fused_mlp": "mlp.cu", "fused_mlp_bwd": "mlp.cu"}
     variants = {"sym_conv": "sym_conv_instance", "sym_conv_bwd": "sym_conv_bwd_instance",
                 "embed_grad": "embed_grad_instance",
-                "adamw_project_rows": "adamw_project_rows_vertex"}
-    kernels = [
-        {
+                "adamw_project_rows": "adamw_project_rows_vertex",
+                **{name: f"{name}_p0" for name in s0_kernels}}
+    launches = {**train_launches, **{name: s0_launches[name] for name in s0_kernels}}
+    kernels = []
+    for name in replaces:
+        dtype = "float32" if name == "adamw_project_rows" else "bfloat16"
+        bound_ms, bound_by = least_ms(*work[name], dtype)
+        kernels.append({
             "name": name,
             "route": "cuda",
             "source": "schemanet_torch/csrc/" + sources.get(name, "encoder_block.cu"),
             "replaces": replaces[name],
-            "launches": train_launches[name],
+            "launches": launches[name],
             "max_abs_err": max(errors[name], errors.get(variants.get(name), 0.0)),
             "ms": times[name][0],
             "plain_ms": times[name][1],
-        }
-        for name in replaces
-    ]
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library.get(name),
+        })
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

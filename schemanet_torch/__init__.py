@@ -7,6 +7,11 @@ explicit devices and ``torch.Generator``s). The kernels that the JAX package
 wrote in Pallas for the TPU are hand-written CUDA C++ for ``sm_90a`` under
 ``csrc/``, built at first use (``ops/kernels/_build.py``).
 
+Entry points: ``ServePredictor`` (serving), ``train.Trainer`` with a
+SchemaNet predictor (stage 4) and ``train.backbone_trainer`` (stage 0,
+fine-tuning the ViT/DeiT backbone). They run on CUDA unless the caller
+passes ``device="cpu"``.
+
 This package never imports JAX, Flax, Optax, Orbax or ``schemanet_tpu``.
 """
 

@@ -5,6 +5,8 @@ raises. There is no fallback from a kernel to its plain version on the card.
 """
 
 from .atlas_opt import adamw_project_rows, adamw_project_rows_reference
+from .attention import fused_mhsa, fused_mhsa_bwd, fused_mhsa_bwd_reference, fused_mhsa_reference
+from .dropmask import hash_keep_mask
 from .embed_bwd import embed_grad, embed_grad_reference
 from .encoder_block import (
     attn_block,
@@ -13,6 +15,7 @@ from .encoder_block import (
     ffn_block_reference,
 )
 from .graphconv import sym_conv, sym_conv_bwd, sym_conv_bwd_reference, sym_conv_reference
+from .mlp import fused_mlp, fused_mlp_bwd, fused_mlp_bwd_reference, fused_mlp_reference
 
 # (wrapper, attribute) of every launch counter, by kernel name
 _COUNTERS = {
@@ -23,6 +26,10 @@ _COUNTERS = {
     "sym_conv_bwd": (sym_conv_bwd, "launches"),
     "embed_grad": (embed_grad, "launches"),
     "adamw_project_rows": (adamw_project_rows, "launches"),
+    "fused_mhsa": (fused_mhsa, "launches"),
+    "fused_mhsa_bwd": (fused_mhsa_bwd, "launches"),
+    "fused_mlp": (fused_mlp, "launches"),
+    "fused_mlp_bwd": (fused_mlp_bwd, "launches"),
 }
 
 

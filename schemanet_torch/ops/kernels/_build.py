@@ -36,6 +36,10 @@ _SIGNATURES = {
     "sn_sym_conv_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "sn_embed_grad": [_I, _P, _P, _P, _L, _I, _I, _P],
     "sn_adamw_project_rows": [_P] * 4 + [_L, _I, _I, _I] + [_F] * 9 + [_P],
+    "sn_fused_mhsa": [_I, _P, _P] + [_I] * 4 + [_F] * 3 + [_I, _P],
+    "sn_fused_mhsa_bwd": [_I] + [_P] * 4 + [_I] * 4 + [_F] * 3 + [_I, _P],
+    "sn_fused_mlp": [_I] + [_P] * 6 + [_I] * 3 + [_F, _F, _I, _P],
+    "sn_fused_mlp_bwd": [_I] + [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P],
 }
 
 _lock = threading.Lock()

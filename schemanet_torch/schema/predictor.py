@@ -95,7 +95,12 @@ class SchemaNetPredictor(nn.Module):
         )
         self.ingredient_backbone.requires_grad_(False)
 
-    def forward(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, img: torch.Tensor, deterministic: bool = True,
+                rng=None) -> Dict[str, torch.Tensor]:
+        """Logits and atlas of NHWC images. ``deterministic`` and ``rng`` are
+        the trainer's training-forward arguments, which this model takes and
+        ignores: its backbone is frozen and runs deterministic whatever its
+        ``dropout``, as in the JAX package, and nothing else drops out."""
         with torch.no_grad():
             output = self.ingredient_backbone(img)
         instance = self.schema_net(output["ingredients"], output["attn"], output["attn_cls"])
@@ -146,11 +151,12 @@ def _xavier_uniform_(w: torch.Tensor, g: torch.Generator):
 
 
 @torch.no_grad()
-def init_parameters_(model: SchemaNetPredictor, generator: torch.Generator) -> SchemaNetPredictor:
-    """Seeded random initialisation after the JAX package's initialisers
-    (their families and scales; not their numbers, since ``torch.Generator``
-    is not ``jax.random``). Parameters are made on the CPU; move the model
-    to its device after."""
+def init_parameters_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random initialisation of a SchemaNet predictor or a bare
+    ViT/DeiT after the JAX package's initialisers (their families and
+    scales; not their numbers, since ``torch.Generator`` is not
+    ``jax.random``). Parameters are made on the CPU; move the model to its
+    device after."""
     g = generator
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]

@@ -16,17 +16,19 @@ from typing import Iterator, Tuple, Union
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .schema.predictor import SchemaNetPredictor
 
 Images = Union[np.ndarray, torch.Tensor]
 
 
 class ServePredictor:
+    """Serves ``predictor`` on ``device``: CUDA unless the caller passes
+    ``device="cpu"``; without a GPU the default raises."""
+
     def __init__(self, predictor: SchemaNetPredictor, microbatch: int = 64, device=None):
         self.microbatch = microbatch
-        self.device = torch.device(device) if device is not None else next(
-            predictor.parameters()
-        ).device
+        self.device = resolve_device(device)
         predictor.matcher.per_sample_pooling = True
         predictor.cfg = dataclasses.replace(predictor.cfg, per_sample_pooling=True)
         self.predictor = predictor.to(self.device).eval()

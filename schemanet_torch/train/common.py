@@ -1,5 +1,6 @@
 """Training substrate (port of ``schemanet_tpu/train/common.py``): the
-per-epoch LR schedule and AdamW over regex parameter groups.
+per-epoch LR schedule, global-norm gradient clipping and AdamW over regex
+parameter groups.
 
 ``make_optimizer`` keeps the JAX package's semantics with
 ``torch.optim.AdamW`` underneath:
@@ -66,6 +67,20 @@ def epoch_schedule(
         return float(table[min(step // max(steps_per_epoch, 1), total_epochs)])
 
     return schedule
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """``optax.clip_by_global_norm`` in place: with the global norm
+    ``sqrt(sum of g^2 over every gradient)`` at or above ``max_norm``, each
+    gradient becomes ``(g / norm) * max_norm``; below it, none changes.
+    Returns the norm as a device scalar (the test runs on the device, so the
+    host does not wait). Not ``torch.nn.utils.clip_grad_norm_``, whose
+    ``+ 1e-6`` in the divisor changes the numbers."""
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))
+    return norm
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,16 +8,20 @@ without a card. Imports no JAX, so it also runs on a machine without it:
 
 Tolerances, relative to max |plain|: fp32 1e-5 (summation order only, and
 the run-dependent order of embed_grad's atomics), bf16 2e-2 (a few bf16 ulps
-where roundings meet in another order).
+where roundings meet in another order). The fused attention and FFN kernels
+are held to the plain versions of their forward and their backward, with
+dropout off and at p = 0.1 with the same seed.
 """
 
 import pytest
 import torch
 
 from schemanet_torch.ops.kernels import atlas_opt as ao
+from schemanet_torch.ops.kernels import attention as ak
 from schemanet_torch.ops.kernels import embed_bwd as ek
 from schemanet_torch.ops.kernels import encoder_block as eb
 from schemanet_torch.ops.kernels import graphconv as gc
+from schemanet_torch.ops.kernels import mlp as mk
 
 pytestmark = pytest.mark.cuda
 TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
@@ -166,3 +170,62 @@ def test_training_kernels_reject_bad_inputs(dev):
         ao.adamw_project_rows(w, w, w, w, 0, lr=1e-3)
     with pytest.raises(ValueError, match="shape"):
         gc.sym_conv_bwd(z, torch.zeros(2, 8, 4, device=dev), torch.zeros(2, 8, 5, device=dev))
+
+
+SEED = 2**31 - 2
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("bs,n,heads,d", [(3, 37, 2, 16), (64, 197, 3, 64)])
+def test_fused_mhsa_kernels(dev, dtype, tol, p, bs, n, heads, d):
+    """Forward and backward kernels against the plain versions, the stage-0
+    shape included; with dropout the masks are the same bits, so a wrong
+    mask shows as an O(1) error."""
+    g = torch.Generator().manual_seed(6)
+    qkv = _rnd(g, dev, bs, n, 3 * heads * d).to(dtype)
+    cot = _rnd(g, dev, bs, n, heads * d).to(dtype)
+    seed = SEED if p else None
+    before = (ak.fused_mhsa.launches, ak.fused_mhsa_bwd.launches)
+    x = qkv.clone().requires_grad_()
+    out = ak.fused_mhsa(x, heads, p, seed)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert (ak.fused_mhsa.launches, ak.fused_mhsa_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == x.grad.dtype == dtype and out.shape == (bs, n, heads * d)
+    assert _rel(out, ak.fused_mhsa_reference(qkv, heads, p, seed)) <= tol
+    assert _rel(x.grad, ak.fused_mhsa_bwd_reference(qkv, cot, heads, p, seed)) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("rows,dim,f", [(45, 64, 96), (12_608, 192, 768)])
+def test_fused_mlp_kernels(dev, dtype, tol, p, rows, dim, f):
+    """Forward and backward kernels against the plain versions; the rows are
+    not a multiple of the kernels' row tile, the stage-0 shape included."""
+    g = torch.Generator().manual_seed(7)
+    x = _rnd(g, dev, 1, rows, dim).to(dtype)
+    w1, b1 = _rnd(g, dev, f, dim, scale=dim**-0.5).to(dtype), _rnd(g, dev, f, scale=0.1).to(dtype)
+    w2, b2 = _rnd(g, dev, dim, f, scale=f**-0.5).to(dtype), _rnd(g, dev, dim, scale=0.1).to(dtype)
+    cot = _rnd(g, dev, 1, rows, dim).to(dtype)
+    seed = SEED if p else None
+    out = mk.fused_mlp(x, w1, b1, w2, b2, "gelu", p, seed)
+    got = mk.fused_mlp_bwd(x, w1, b1, w2, cot, "gelu", p, seed)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    assert _rel(out, mk.fused_mlp_reference(x, w1, b1, w2, b2, "gelu", p, seed)) <= tol
+    want = mk.fused_mlp_bwd_reference(x, w1, b1, w2, cot, "gelu", p, seed)
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape, name
+        assert _rel(a, b) <= tol, name
+
+
+def test_fused_kernels_reject_bad_inputs(dev):
+    with pytest.raises(ValueError, match="head_dim"):
+        ak.fused_mhsa(torch.zeros(2, 5, 3 * 128, device=dev), 1)
+    with pytest.raises(ValueError, match="seed"):
+        ak.fused_mhsa(torch.zeros(2, 5, 48, device=dev), 1, dropout_p=0.1)
+    x = torch.zeros(4, 48, device=dev)
+    with pytest.raises(ValueError, match="width"):
+        mk.fused_mlp(x, torch.zeros(96, 48, device=dev), torch.zeros(96, device=dev),
+                     torch.zeros(48, 96, device=dev), torch.zeros(48, device=dev))

@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package: the machine with the card
 has no JAX. Checked in a fresh interpreter where importing any of them fails
-(serving and one training step), and by reading the port's sources."""
+(serving, one SchemaNet training step and one stage-0 backbone step with
+dropout live), and by reading the port's sources."""
 
 import pathlib
 import re
@@ -35,7 +36,7 @@ def test_import_and_cpu_forward_without_jax():
         model = build_predictor(model_cfg, schema_cfg, num_classes=5, num_codes=16,
                                 code_dim=32, encode_layer=1)
         init_parameters_(model, torch.Generator().manual_seed(0))
-        server = schemanet_torch.ServePredictor(model, microbatch=2)
+        server = schemanet_torch.ServePredictor(model, microbatch=2, device="cpu")
         logits = server.predict(np.random.default_rng(0).normal(size=(3, 16, 16, 3)))
         assert logits.shape == (3, 5) and np.isfinite(logits).all(), logits
         from schemanet_torch.schema import get_loss_fn
@@ -46,9 +47,21 @@ def test_import_and_cpu_forward_without_jax():
         trainer = Trainer(TrainerConfig(train_epochs=1, optimizer={{"lr": 1e-3}},
                                         frozen_patterns=SCHEMA_NET_FROZEN),
                           train_model, get_loss_fn({{"name": "schema_inference_loss"}}),
-                          {{"cls": 1.0}}, steps_per_epoch=1)
+                          {{"cls": 1.0}}, steps_per_epoch=1, device="cpu")
         loss = trainer.train_iter({{"image": torch.randn(2, 16, 16, 3),
                                     "label": torch.tensor([0, 1])}})["loss"]
+        assert torch.isfinite(loss), loss
+        from schemanet_torch.ops.kernels import attention, dropmask, mlp
+        from schemanet_torch.train import backbone_trainer
+        stage0 = {{"dataset": {{"name": "cifar_10"}},
+                   "model": dict(model_cfg, name="vit", transformer=dict(
+                       model_cfg["transformer"], dropout=0.1)),
+                   "loss": {{"name": "ce_loss", "weight_dict": {{"cls": 1.0}}}},
+                   "training": {{"train_epochs": 1, "clip_max_norm": 0.1,
+                                 "optimizer": {{"name": "AdamW", "lr": 1e-4}}}}}}
+        backbone = backbone_trainer(stage0, steps_per_epoch=1, device="cpu")
+        loss = backbone.train_iter({{"image": torch.randn(2, 16, 16, 3),
+                                     "label": torch.tensor([0, 1])}})["loss"]
         assert torch.isfinite(loss), loss
         loaded = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}
                   and sys.modules[m] is not None]

@@ -134,7 +134,7 @@ def test_serve_slice_matches_jax(jax_variables):
     ).reshape(4, -1)
 
     model = _torch_predictor(params, buffers)
-    server = TorchServePredictor(model, microbatch=4)
+    server = TorchServePredictor(model, microbatch=4, device="cpu")
     got = server.predict(images)
     got_ids = model.ingredient_backbone(torch.from_numpy(images[:4]))["ingredients"].numpy()
 
@@ -150,7 +150,7 @@ def test_serve_batch_invariance():
     repeating its final image, and pooling is per sample."""
     model = torch_build_predictor(MODEL_CFG, SCHEMA_CFG, K, M, D, ENCODE_LAYER)
     init_parameters_(model, torch.Generator().manual_seed(0))
-    server = TorchServePredictor(model, microbatch=4)
+    server = TorchServePredictor(model, microbatch=4, device="cpu")
     images = np.random.default_rng(1).normal(size=(7, 16, 16, 3)).astype(np.float32)
     full = server.predict(images)
     assert full.shape == (7, K) and np.isfinite(full).all()

@@ -46,6 +46,7 @@ import torch
 from schemanet_torch.models.port import from_jax_params, jax_name, to_jax_params
 from schemanet_torch.schema import build_predictor as torch_build_predictor
 from schemanet_torch.schema import get_loss_fn as torch_get_loss_fn
+from schemanet_torch.schema import init_parameters_
 from schemanet_torch.train import SCHEMA_NET_FROZEN, Trainer, TrainerConfig
 from schemanet_tpu.ops import geometry as jax_geometry
 from schemanet_tpu.parallel.mesh import make_mesh
@@ -150,7 +151,8 @@ def run():
     model = torch_build_predictor(MODEL_CFG, SCHEMA_CFG, K, M, D, ENCODE_LAYER)
     model.load_state_dict(from_jax_params(params, buffers, model))
     trainer = Trainer(TrainerConfig.from_cfg(train_cfg, frozen_patterns=SCHEMA_NET_FROZEN),
-                      model, torch_get_loss_fn(loss_cfg), loss_cfg["weight_dict"], STEPS_PER_EPOCH)
+                      model, torch_get_loss_fn(loss_cfg), loss_cfg["weight_dict"], STEPS_PER_EPOCH,
+                      device="cpu")
 
     rng = np.random.default_rng(0)
     result = {"jax_loss": [], "torch_loss": [], "jax_grads": []}
@@ -256,3 +258,25 @@ def test_to_jax_params_inverts_from_jax_params():
         "matcher.gnn.layers_0.g_conv.linear.kernel"
     assert jax_name("ingredient_backbone.backbone.transformer.norm.weight", 1) == \
         "backbone.transformer.norm.scale"
+
+
+def test_schema_forward_unchanged_by_backbone_dropout():
+    """The SchemaNet backbone stays deterministic under the Trainer whatever
+    its ``dropout`` (the JAX schema path runs it with deterministic=True):
+    the training forward gives the same loss terms bit for bit."""
+    image = torch.from_numpy(np.random.default_rng(3).normal(size=(BATCH, 16, 16, 3)).astype(np.float32))
+    label = torch.arange(BATCH) % K
+    losses = []
+    for dropout in (None, 0.1):
+        cfg = dict(MODEL_CFG, transformer=dict(MODEL_CFG["transformer"], dropout=dropout))
+        model = torch_build_predictor(cfg, SCHEMA_CFG, K, M, D, ENCODE_LAYER)
+        init_parameters_(model, torch.Generator().manual_seed(0))
+        trainer = Trainer(TrainerConfig.from_cfg(CIFAR["training"], frozen_patterns=SCHEMA_NET_FROZEN),
+                          model, torch_get_loss_fn(CIFAR["loss"]), CIFAR["loss"]["weight_dict"],
+                          STEPS_PER_EPOCH, device="cpu")
+        assert (model.ingredient_backbone.backbone.transformer.layers[0].drop is None) == (dropout is None)
+        with torch.no_grad():
+            losses.append(trainer.forward_loss({"image": image, "label": label})[1])
+    assert sorted(losses[0]) == sorted(losses[1])
+    for name in losses[0]:
+        assert torch.equal(losses[0][name], losses[1][name]), name
