@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path,
-the SchemaNet training step and stage 0, fine-tuning the backbone.
+the SchemaNet training step, stage 0 (fine-tuning the backbone), stage 1
+(codebook extraction) and stage 3 (IR-Atlas initialisation).
 
 Both run the CIFAR-100 DeiT-Tiny configuration at full width (224^2 input,
 patch 16, 197 tokens, d=192, 3 heads, FFN 768, layers 0-9 of 12 frozen,
@@ -23,7 +24,8 @@ Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
    1, 64 and 100 images; ``predict(x[:5]) == predict(x)[:5]`` bit for bit;
    every kernel's launch counter advanced as the path implies (per
    microbatch: 10 attn_block, one of them with the head-mean, 10 ffn_block,
-   4 sym_conv, and no training kernel);
+   one vq_assign, 4 sym_conv, 4 fused_layernorm (the GNN's LN+relu), and no
+   training kernel);
 6. timings (CUDA events after warm-up): each kernel beside its plain version,
    and the p50/p99 latency and images/s of one microbatch of 64.
 
@@ -36,18 +38,27 @@ the fused update):
    on the edge and vertex weights) against its plain version at the
    training shapes, bf16 and fp32 (``adamw_project_rows``: fp32, its only
    dtype), same tolerances as 3;
-8. the step in fp32 (graph_precision 'highest'): 3 steps against the same
-   trainer with every kernel replaced by its plain version; losses within
-   1e-4 relative, and the updated edge and vertex weights within
-   rtol 1e-4 / atol 1e-6 where the plain run's step-1 gradient exceeded
-   1e-3 * its max, within 2 * lr * steps elsewhere (Adam's first step moves
-   an entry by lr * sign(g), which may flip where g is near zero);
+8. the step in fp32 (graph_precision 'highest') against the same trainer
+   with every kernel replaced by its plain version, fed the kernel run's VQ
+   ids (the plain VQ's own ids must agree with them on >= 99.9% of tokens,
+   near-ties apart: one other code changes a graph). 3 steps run free:
+   losses within 1e-4 relative, the edge and vertex weights within
+   2 * lr * steps. 3 steps in lock step (each from the kernel trainer's
+   state): losses within 1e-4 relative, the atlas gradients' difference
+   reported, the updated edge and vertex weights within rtol 1e-4 / atol 1e-6
+   where the step's plain gradient exceeds 1e-3 * its max, within
+   2 * lr * steps elsewhere (Adam moves an entry by about lr * sign(g),
+   which may flip where g is near zero, and the row projection rescales). Free-running steps amplify rounding where the
+   atlas is not smooth (the prune threshold, exact zeros), so the tight rule
+   holds step by step;
 9. the step in bf16 (graph_precision 'default', the training default): 5
    finite losses, and the launch counters advanced as the path implies (per
-   step: 10 attn_block, one with the head-mean, 10 ffn_block, 4 sym_conv,
-   4 sym_conv_bwd, 2 embed_grad, 2 adamw_project_rows);
+   step: 10 attn_block, one with the head-mean, 10 ffn_block, one vq_assign,
+   4 sym_conv, 4 sym_conv_bwd, 4 fused_layernorm and 4 fused_layernorm_bwd,
+   2 embed_grad, 2 adamw_project_rows);
 10. timings: each training kernel beside its plain version; the bf16 step's
-    ms and images/s beside the step with every plain version; the step split
+    ms and images/s beside the step with every plain version and with the
+    plain LayerNorm alone; the step split
     into frozen forward, graph build + GNN forward + loss, backward and
     optimizer (CUDA events); the device's idle share over 3 steps
     (``torch.profiler``) and the peak device memory.
@@ -68,12 +79,51 @@ at DeiT-Tiny width, 12 layers, dropout 0.1, AdamW lr 1e-4 with warmup,
     within the rule of 8;
 13. the step in bf16 (the config's dtype): 5 finite losses; per step 12
     launches each of fused_mhsa, fused_mhsa_bwd, fused_mlp and fused_mlp_bwd,
-    and none of the serving or SchemaNet kernels;
+    25 of fused_layernorm and of fused_layernorm_bwd (two a layer and the
+    final norm), and none of the serving or SchemaNet kernels;
 14. timings: each stage-0 kernel beside its plain version, and
     ``scaled_dot_product_attention`` (forward, and forward plus backward)
     beside the attention kernels; the bf16 step's ms and images/s beside the
-    step with every plain version; its split into forward, backward, and
+    step with every plain version and with the plain LayerNorm alone; its split into forward, backward, and
     clipping plus AdamW; the idle share over 3 steps and the peak memory.
+
+Stages 1 and 3 (``schemanet_torch.pipeline.extract_stage`` and
+``init_stage``, from ``configs/cifar_100/ingredient/deit_tiny-l9-M_1024.yaml``
+and the atlas block of ``configs/cifar_100/schema_net/deit_tiny-l9-M_1024.yaml``,
+fp32, seeded random weights and images made on the card):
+
+15. the VQ kernel against its plain version at [1024, 192] x 1024 (a k-means
+    minibatch) and [200,000, 192] x 1024 (a Lloyd step) in fp32, [6,272, 192]
+    x 1024 in bf16 (stage 3's batch of 32), [6,272, 384] x 8,000 in fp32
+    (the ImageNet vocabulary), and duplicated codes: ids equal on >= 99.9%
+    of rows, every mismatch a near-tie (the plain scores of the two codes
+    within 1e-5 of the row's largest |score|), duplicates give the first
+    index exactly. The LayerNorm kernels, forward and backward, at
+    [12,608, 192] (stage 0, act none) and [102,400, 256] (the GNN's class
+    graphs, relu) in bf16 and fp32: the tolerances of 3 (backward fp32
+    1e-4), dscale and dbias equal bit for bit over two runs; in fp32 both
+    the kernels and the plain versions beside an fp64 LayerNorm;
+16. ``stage1_fp32``: the whole stage at the CLI's defaults (batch 64,
+    1,000,000 features from 80 batches, M = 1024, k-means++ from the first
+    4,096 features, minibatches of 1,024, 10 Lloyd iterations over the first
+    200,000), its launches (one vq_assign a minibatch and a Lloyd step);
+    features/s of the collection, ms a minibatch step and a Lloyd step, the
+    final inertia; held against the plain versions: the first two batches'
+    features within 1e-4, then 50 minibatch steps and 2 Lloyd steps in lock
+    step (each step from the kernel run's state, once with the kernel and
+    once with every plain version): ids >= 99.9% equal, mismatches near-ties
+    only, the updated centers within 1e-4 of max apart from the centers a
+    mismatched row moved;
+17. ``stage3_fp32``: ``init_stage`` at K = 100, V_max = 1024, batch 32, on
+    64 batches a pass (2,048 of CIFAR's 50,000 images: a cut, with the
+    extrapolated full-dataset time), its launches and peak memory; against
+    the plain versions fed the kernel run's VQ ids (their own ids' agreement
+    reported): class_ingredients equal, vertex and edge weights within 1e-5
+    of max. Then the bundle and the atlas init go to files, and a stage-4
+    ``Trainer`` (``schema_net_trainer``) takes one bf16 step from them;
+18. timings of the new kernels beside their plain versions and, for the
+    LayerNorm forward, ``F.layer_norm``; CUDA events over 20 calls, and the
+    device time of a call from ``torch.profiler``.
 
 Any failed check raises, so the script exits non-zero. Without a GPU it fails
 at once. Its last line is ``{"ok": true, "device": {...}}``; the line before
@@ -81,7 +131,9 @@ it lists every kernel with its launches on its path (training for the
 SchemaNet kernels, stage 0 for the fused attention and FFN kernels), its
 error against its plain version, its time, the plain version's, its bound on
 the card and, where one PyTorch call computes the same function, that
-call's time.
+call's time. The VQ kernel's launches are stage 1's and the LayerNorm
+kernels' stage 0's; its error is the largest plain-score difference between
+the kernel's code and the plain version's.
 
 Usage: python3 chip_smoke.py
 """
@@ -90,6 +142,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -163,6 +216,27 @@ STAGE0_CFG = {
 }
 S0_LAYERS = STAGE0_CFG["model"]["transformer"]["num_encoder_layers"]
 S0_DROPOUT, S0_SEED = STAGE0_CFG["model"]["transformer"]["dropout"], 2**31 - 2
+# stage 1: configs/cifar_100/ingredient/deit_tiny-l9-M_1024.yaml (its model
+# is configs/models/deit_tiny_patch16_224.yaml, the ViT above) at the CLI's
+# defaults (batch 64, max_features 1,000,000, fp32, 10 Lloyd iterations over
+# 200,000 held features)
+STAGE1_CFG = {
+    "dataset": {"name": "cifar_100"},
+    "model": dict(STAGE0_CFG["model"]),
+    "discretization": {"vocabulary": {"size": NUM_CODES, "dim": EMBED_DIM},
+                       "encoder_layer": f"module.transformer.layers.{ENCODE_LAYER}"},
+}
+S1_BATCH, S1_BATCHES, S1_FEATURES, S1_LLOYD, S1_LLOYD_ITERS = 64, 80, 1_000_000, 200_000, 10
+S1_CHECK_MINIBATCHES, S1_CHECK_LLOYD = 50, 2
+# stage 3: the schema_net block of configs/cifar_100/schema_net/deit_tiny-l9-M_1024.yaml
+# at the CLI's init batch of 32; 64 batches a pass cut CIFAR-100's 50,000
+STAGE3_CFG = {
+    "dataset": {"name": "cifar_100"},
+    "training": dict(TRAIN_CFG, dtype="bfloat16"),
+    "schema_net": SCHEMA_CFG,
+    "loss": dict(LOSS_CFG, weight_dict=LOSS_WEIGHTS),
+}
+S3_BATCH, S3_BATCHES, CIFAR_TRAIN = 32, 64, 50_000
 # H100 SXM data sheet, dense: bf16 tensor cores, fp32 outside them, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
@@ -255,11 +329,19 @@ def main() -> None:
     from schemanet_torch.ops.kernels import encoder_block as eb
     from schemanet_torch.ops.kernels import graphconv as gc
     from schemanet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from schemanet_torch.ops.kernels import layernorm as lnk
     from schemanet_torch.ops.kernels import mlp as mk
+    from schemanet_torch.ops.kernels import vq as vqk
+    from schemanet_torch.models.vit import get_model
+    from schemanet_torch.ops import kmeans
+    from schemanet_torch.pipeline import (collect_mid_features, extract_stage, init_stage,
+                                          load_atlas_init, load_bundle, save_atlas_init,
+                                          save_bundle)
     from schemanet_torch.schema import build_predictor, get_loss_fn, init_parameters_
     from schemanet_torch.schema.atlas import clamp_attribute_weights_
     from schemanet_torch.serve import ServePredictor
-    from schemanet_torch.train import SCHEMA_NET_FROZEN, Trainer, TrainerConfig, backbone_trainer
+    from schemanet_torch.train import (SCHEMA_NET_FROZEN, Trainer, TrainerConfig, backbone_trainer,
+                                       schema_net_trainer)
 
     # fp32 comparisons need full fp32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -353,6 +435,8 @@ def main() -> None:
         mock.patch.object(ao, "adamw_project_rows", ao.adamw_project_rows_reference),
         mock.patch.object(ak, "fused_mhsa", ak.fused_mhsa_reference),  # autograd of plain torch
         mock.patch.object(mk, "fused_mlp", mk.fused_mlp_reference),
+        mock.patch.object(vqk, "vq_assign_kernel", vqk.vq_assign_reference),
+        mock.patch.object(lnk, "fused_layernorm", lnk.fused_layernorm_plain),
     ]
 
     def with_plain(fn):
@@ -363,6 +447,49 @@ def main() -> None:
         finally:
             for p in plain_versions:
                 p.stop()
+
+    def plain_layernorm(fn):
+        """fn with the plain LayerNorm in place of the kernels, the rest as is."""
+        with mock.patch.object(lnk, "fused_layernorm", lnk.fused_layernorm_plain):
+            return fn()
+
+    def median(xs):
+        return float(np.percentile(xs, 50))
+
+    # A run on the kernels against one on the plain versions: where two codes'
+    # scores nearly tie, the VQ kernel and its plain version may pick either,
+    # and one other code changes a graph and its gradients. So the plain run
+    # takes the kernel run's ids in the same order, and the plain VQ's own
+    # ids on the plain run's features are held to them apart from near-ties.
+    def recording_vq(store):
+        kernel_vq = vqk.vq_assign_kernel
+
+        def record(x, cb):
+            ids = kernel_vq(x, cb)
+            store.append(ids)
+            return ids
+
+        return mock.patch.object(vqk, "vq_assign_kernel", record)
+
+    def replaying_vq(store, stats):
+        replay = iter(store)
+
+        def replayed(x, cb):
+            ids = next(replay)
+            gaps, scale = vqk.score_gaps(x, cb, ids, vqk.vq_assign_reference(x, cb))
+            stats["rows"] += ids.numel()
+            stats["mismatches"] += len(gaps)
+            stats["near_ties_only"] &= bool((gaps <= 1e-5 * scale).all())
+            return ids
+
+        return mock.patch.object(vqk, "vq_assign_kernel", replayed)
+
+    def replay_report(stats):
+        agree = 1 - stats["mismatches"] / max(stats["rows"], 1)
+        require(agree >= 0.999 and stats["near_ties_only"],
+                f"plain VQ ids disagree with the kernel's beyond near-ties: {stats}")
+        return {"plain_vq_id_agreement": agree, "plain_vq_mismatches": stats["mismatches"],
+                "plain_vq_near_ties_only": stats["near_ties_only"]}
 
     # 4. the slice in fp32 against the plain versions
     s32 = ServePredictor(m32, microbatch=MICROBATCH, device=dev)
@@ -392,7 +519,8 @@ def main() -> None:
     mbs = -(-len(images) // MICROBATCH)
     expected = {name: 0 for name in serve_launches}  # no training kernel
     expected.update({"attn_block": FROZEN_LAYERS * mbs, "attn_block_hmean": mbs,
-                     "ffn_block": FROZEN_LAYERS * mbs, "sym_conv": GNN_CONVS * mbs})
+                     "ffn_block": FROZEN_LAYERS * mbs, "vq_assign": mbs,
+                     "sym_conv": GNN_CONVS * mbs, "fused_layernorm": GNN_CONVS * mbs})
     phase("slice_bf16_launches", microbatches=mbs, launches=serve_launches, expected=expected)
     require(serve_launches == expected, f"launch counts {serve_launches} != {expected}")
     for count in (1, MICROBATCH, N_IMAGES):
@@ -509,39 +637,84 @@ def main() -> None:
 
     hot_names = ("schema_net.vertex_weights", "schema_net.edge_weights")
 
-    def fp32_run(track_sure):
+    def fp32_run():
         tr = trainer(torch.float32, "highest")
-        losses, sure = [], {}
-        for batch in batches[:FP32_STEPS]:
-            losses.append(tr.train_iter(batch)["loss"].item())
-            if track_sure and not sure:  # the step-1 gradient
-                for k in hot_names:
-                    grad = tr.hot[k].param.grad.abs()
-                    sure[k] = grad > 1e-3 * grad.max()
+        losses = [tr.train_iter(batch)["loss"].item() for batch in batches[:FP32_STEPS]]
         hot = {k: tr.hot[k].param.detach().clone() for k in hot_names}
         del tr
         torch.cuda.empty_cache()
-        return losses, hot, sure
+        return losses, hot
 
-    losses_k, hot_k, _ = fp32_run(False)
-    losses_p, hot_p, sure = with_plain(lambda: fp32_run(True))
+    # free running: 3 steps each, the kernels against the plain versions
+    s4_ids, s4_vq = [], {"rows": 0, "mismatches": 0, "near_ties_only": True}
+    with recording_vq(s4_ids):
+        losses_k, hot_k = fp32_run()
+
+    def plain_fp32_run():
+        with replaying_vq(s4_ids, s4_vq):
+            return fp32_run()
+
+    losses_p, hot_p = with_plain(plain_fp32_run)
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
-    bound = 2 * TRAIN_CFG["optimizer"]["lr"] * FP32_STEPS
-    param_report = {}
-    for k in hot_names:
-        require(bool(sure[k].any()), f"fp32 {k}: no entry with a step-1 gradient above 1e-3 * max")
-        diff = (hot_k[k] - hot_p[k]).abs()
-        sure_ok = bool((diff[sure[k]] <= 1e-6 + 1e-4 * hot_p[k].abs()[sure[k]]).all())
-        param_report[k] = {"sure_share": sure[k].float().mean().item(), "sure_ok": sure_ok,
-                           "max_abs_diff": diff.max().item(),
-                           "max_abs_diff_sure": diff[sure[k]].max().item(), "bound": bound}
+    lr = TRAIN_CFG["optimizer"]["lr"]
+    bound = 2 * lr * FP32_STEPS
+    free = {k: (hot_k[k] - hot_p[k]).abs().max().item() for k in hot_names}
+    del hot_k, hot_p
+
+    # lock step: each step from the kernel trainer's state, once on the
+    # kernels and once on the plain versions. Run free, a rounding
+    # difference anywhere upstream of the atlas grows over the steps where
+    # the atlas is not smooth: a vertex weight crossing prune_node_threshold
+    # (the random init's weights cluster at 1/V_max, next to 0.001), a
+    # projected entry leaving its exact 0
+    tk, tp = trainer(torch.float32, "highest"), trainer(torch.float32, "highest")
+    lock_vq = {"rows": 0, "mismatches": 0, "near_ties_only": True}
+    lock = {k: {"sure_share": [], "sure_ok": True, "max_abs_diff_sure": 0.0, "max_abs_diff": 0.0,
+                "grad_rel_err": 0.0} for k in hot_names}
+    lock_loss_rel = 0.0
+    for batch in batches[:FP32_STEPS]:
+        tp.model.load_state_dict(tk.model.state_dict())
+        tp.optimizer.optimizer.load_state_dict(tk.optimizer.optimizer.state_dict())
+        for k, hot in tk.hot.items():
+            tp.hot[k].m.copy_(hot.m)
+            tp.hot[k].v.copy_(hot.v)
+        tp.step = tk.step
+        step_ids = []
+        with recording_vq(step_ids):
+            loss_k = tk.train_iter(batch)["loss"].item()
+
+        def plain_step():
+            with replaying_vq(step_ids, lock_vq):
+                return tp.train_iter(batch)["loss"].item()
+
+        loss_p = with_plain(plain_step)
+        lock_loss_rel = max(lock_loss_rel, abs(loss_k - loss_p) / abs(loss_p))
+        for k in hot_names:
+            pk, pp = tk.hot[k].param, tp.hot[k].param
+            grad = pp.grad.abs()
+            sure = grad > 1e-3 * grad.max()
+            diff = (pk.detach() - pp.detach()).abs()
+            r = lock[k]
+            r["sure_share"].append(sure.float().mean().item())
+            r["sure_ok"] &= bool((diff[sure] <= 1e-6 + 1e-4 * pp.detach().abs()[sure]).all())
+            r["max_abs_diff_sure"] = max(r["max_abs_diff_sure"], diff[sure].max().item())
+            r["max_abs_diff"] = max(r["max_abs_diff"], diff.max().item())
+            r["grad_rel_err"] = max(r["grad_rel_err"], rel_err(pk.grad, pp.grad))
+    del tk, tp
+    torch.cuda.empty_cache()
     phase("train_fp32", steps=FP32_STEPS, batch=BATCH, losses=losses_k, plain_losses=losses_p,
-          loss_rel_err=loss_rel, tol=1e-4, params=param_report)
-    require(loss_rel <= 1e-4, f"fp32 train losses differ by {loss_rel} relative")
-    for k, r in param_report.items():
-        require(r["sure_ok"], f"fp32 {k}: differs beyond rtol 1e-4 / atol 1e-6 where |g| is large")
-        require(r["max_abs_diff"] <= bound, f"fp32 {k}: differs by {r['max_abs_diff']} > {bound}")
-    del hot_k, hot_p, sure
+          loss_rel_err=loss_rel, free_run_max_abs_diff=free, bound=bound,
+          lock_step_loss_rel_err=lock_loss_rel, lock_step=lock,
+          tol={"loss": 1e-4, "sure": "rtol 1e-4 / atol 1e-6"},
+          **replay_report(s4_vq), lock_step_vq=replay_report(lock_vq))
+    require(loss_rel <= 1e-4 and lock_loss_rel <= 1e-4,
+            f"fp32 train losses differ by {loss_rel} (free) / {lock_loss_rel} (lock step)")
+    for k in hot_names:
+        r = lock[k]
+        require(free[k] <= bound, f"fp32 {k}: differs by {free[k]} > {bound} after the free run")
+        require(r["sure_ok"], f"fp32 {k}: a step differs beyond rtol 1e-4 / atol 1e-6 where |g| "
+                              "is large")
+        require(r["max_abs_diff"] <= bound, f"fp32 {k}: a step differs by {r['max_abs_diff']}")
 
     # 9. the training step in bf16: the main path, counted
     tr16 = trainer(torch.bfloat16, "default")
@@ -553,9 +726,11 @@ def main() -> None:
     losses16 = [m["loss"].item() for m in metrics]
     expected = {name: 0 for name in train_launches}  # no stage-0 kernel
     expected.update({"attn_block": FROZEN_LAYERS * BF16_STEPS, "attn_block_hmean": BF16_STEPS,
-                     "ffn_block": FROZEN_LAYERS * BF16_STEPS, "sym_conv": GNN_CONVS * BF16_STEPS,
-                     "sym_conv_bwd": GNN_CONVS * BF16_STEPS, "embed_grad": 2 * BF16_STEPS,
-                     "adamw_project_rows": 2 * BF16_STEPS})
+                     "ffn_block": FROZEN_LAYERS * BF16_STEPS, "vq_assign": BF16_STEPS,
+                     "sym_conv": GNN_CONVS * BF16_STEPS, "sym_conv_bwd": GNN_CONVS * BF16_STEPS,
+                     "fused_layernorm": GNN_CONVS * BF16_STEPS,
+                     "fused_layernorm_bwd": GNN_CONVS * BF16_STEPS,
+                     "embed_grad": 2 * BF16_STEPS, "adamw_project_rows": 2 * BF16_STEPS})
     phase("train_bf16", steps=BF16_STEPS, batch=BATCH, losses=losses16,
           launches=train_launches, expected=expected)
     require(all(np.isfinite(losses16)), f"bf16 train losses not finite: {losses16}")
@@ -608,11 +783,15 @@ def main() -> None:
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     step_ms(1, plain=True)
     plain_steps = step_ms(STEP_TIME_ITERS // 2, plain=True)
-    step_p50 = float(np.percentile(steps, 50))
+    # the LayerNorm kernels' share: the plain LayerNorm alone, then the kernels again
+    ln_plain_steps = plain_layernorm(lambda: step_ms(STEP_TIME_ITERS))
+    again = step_ms(STEP_TIME_ITERS)
+    step_p50 = median(steps)
     phase("train_step", batch=BATCH, dtype="bfloat16", p50_ms=step_p50,
           min_ms=min(steps), max_ms=max(steps), images_per_s=BATCH / (step_p50 / 1e3),
-          plain_versions_p50_ms=float(np.percentile(plain_steps, 50)),
-          plain_versions_images_per_s=BATCH / (float(np.percentile(plain_steps, 50)) / 1e3),
+          plain_versions_p50_ms=median(plain_steps),
+          plain_versions_images_per_s=BATCH / (median(plain_steps) / 1e3),
+          plain_layernorm_p50_ms=median(ln_plain_steps), kernels_again_p50_ms=median(again),
           peak_mem_gb=peak_gb, **card_note)
 
     split = {"frozen_forward": [], "graph_build_gnn_forward_loss": [], "backward": [],
@@ -744,6 +923,8 @@ def main() -> None:
     losses0 = [m["loss"].item() for m in metrics]
     expected = {name: 0 for name in s0_launches}
     expected.update({name: S0_LAYERS * BF16_STEPS for name in s0_kernels})
+    expected.update({name: (2 * S0_LAYERS + 1) * BF16_STEPS
+                     for name in ("fused_layernorm", "fused_layernorm_bwd")})
     phase("stage0_bf16", steps=BF16_STEPS, batch=BATCH, losses=losses0, launches=s0_launches,
           expected=expected)
     require(all(np.isfinite(losses0)), f"stage-0 bf16 losses not finite: {losses0}")
@@ -794,10 +975,13 @@ def main() -> None:
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     s0_step_ms(1, plain=True)
     plain_steps = s0_step_ms(STEP_TIME_ITERS // 2, plain=True)
-    step_p50, plain_p50 = float(np.percentile(steps, 50)), float(np.percentile(plain_steps, 50))
+    ln_plain_steps = plain_layernorm(lambda: s0_step_ms(STEP_TIME_ITERS))
+    again = s0_step_ms(STEP_TIME_ITERS)
+    step_p50, plain_p50 = median(steps), median(plain_steps)
     phase("stage0_step", batch=BATCH, dtype="bfloat16", layers=S0_LAYERS, p50_ms=step_p50,
           min_ms=min(steps), max_ms=max(steps), images_per_s=BATCH / (step_p50 / 1e3),
           plain_versions_p50_ms=plain_p50, plain_versions_images_per_s=BATCH / (plain_p50 / 1e3),
+          plain_layernorm_p50_ms=median(ln_plain_steps), kernels_again_p50_ms=median(again),
           peak_mem_gb=peak_gb, **card_note)
 
     split = {"forward": [], "backward": [], "clip_adamw": []}
@@ -833,6 +1017,301 @@ def main() -> None:
           top_device_ms_per_step={k[:80]: v / 3e3 for k, v in top},
           top_host_self_ms_per_step={e.key[:60]: e.self_cpu_time_total / 3e3 for e in host},
           **card_note)
+
+    del tr0, s0_batches
+    torch.cuda.empty_cache()
+
+    # 15. the VQ and LayerNorm kernels against their plain versions
+    def vq_compare(case, x, cb, first_of=None):
+        got, want = vqk.vq_assign_kernel(x, cb), vqk.vq_assign_reference(x, cb)
+        torch.cuda.synchronize()
+        agree = (got == want).float().mean().item()
+        gaps, scale = vqk.score_gaps(x, cb, got, want)
+        near = bool((gaps <= 1e-5 * scale).all())
+        fields = dict(kernel="vq_assign", case=case, dtype=str(x.dtype).split(".")[-1],
+                      shape=list(x.shape), codes=cb.shape[0], id_agreement=agree,
+                      mismatches=len(gaps), near_ties_only=near,
+                      max_gap_over_scale=(gaps / scale).max().item() if len(gaps) else 0.0)
+        if first_of is not None:  # duplicated codes: the first copy, exactly
+            fields["first_index"] = bool(torch.equal(got, vqk.vq_assign_reference(x, first_of)))
+        phase("compare", **fields)
+        require(agree >= 0.999, f"vq_assign {case}: ids agree on {agree} < 0.999")
+        require(near, f"vq_assign {case}: a mismatch is no near-tie")
+        require(fields.get("first_index", True), f"vq_assign {case}: not the first copy")
+        errors["vq_assign"] = max(errors.get("vq_assign", 0.0),
+                                  gaps.max().item() if len(gaps) else 0.0)
+
+    v_s3 = S3_BATCH * v_inst
+    vq_shapes = {"minibatch": (1024, d, NUM_CODES, torch.float32),
+                 "lloyd": (S1_LLOYD, d, NUM_CODES, torch.float32),
+                 "stage3_bf16": (v_s3, d, NUM_CODES, torch.bfloat16),
+                 "imagenet_vocabulary": (v_s3, 384, 8000, torch.float32)}
+    vq_inputs = {case: (rnd(rows, width).to(dt), rnd(codes, width))
+                 for case, (rows, width, codes, dt) in vq_shapes.items()}
+    for case, (x, cb) in vq_inputs.items():
+        vq_compare(case, x, cb)
+    base = rnd(512, d)
+    vq_compare("duplicated_codes", base[torch.randint(0, 512, (v_s3,), generator=g).to(dev)]
+               + rnd(v_s3, d, scale=0.01), torch.cat([base, base, base]), first_of=base)
+
+    def ln_fp64(x, sc, bi, cot, act):
+        """(y, dx, dscale, dbias) of the LayerNorm in fp64 (two-pass variance)."""
+        xd, gd, scd = x.double(), cot.double(), sc.double()
+        mean = xd.mean(dim=-1, keepdim=True)
+        r = torch.rsqrt(((xd - mean) ** 2).mean(dim=-1, keepdim=True) + 1e-6)
+        xhat = (xd - mean) * r
+        y = xhat * scd + bi.double()
+        if act == "relu":
+            gd = torch.where(y > 0, gd, torch.zeros_like(gd))
+            y = y.clamp(min=0)
+        ga = gd * scd
+        dx = r * (ga - ga.mean(dim=-1, keepdim=True)
+                  - xhat * (ga * xhat).mean(dim=-1, keepdim=True))
+        return y, dx, (gd * xhat).sum(dim=0), gd.sum(dim=0)
+
+    ln_shapes = {"fused_layernorm": (BATCH * n, d, "none"),
+                 "fused_layernorm_gnn": (NUM_CLASSES * NUM_CODES, GNN_DIM, "relu")}
+    ln_inputs = {}
+    for name, (rows, width, act) in ln_shapes.items():
+        x32 = rnd(rows, width) * 2 + 0.5
+        ln_inputs[name] = (x32, 1 + rnd(width, scale=0.3), rnd(width, scale=0.3),
+                           rnd(rows, width), act)
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            x, sc, bi, cot, _ = ln_inputs[name]
+            x, cot = x.to(dt), cot.to(dt)
+            compare(name, lnk.fused_layernorm, lnk.fused_layernorm_reference,
+                    (x, sc, bi, 1e-6, act), {}, dt, 1e-5 if dt == torch.float32 else tol, errors)
+            bwd = name.replace("fused_layernorm", "fused_layernorm_bwd")
+            compare(bwd, lnk.fused_layernorm_bwd, lnk.fused_layernorm_bwd_reference,
+                    (x, sc, bi, cot, 1e-6, act), {}, dt, tol, errors)
+            if dt == torch.float32:  # both against the same formula in fp64
+                want = ln_fp64(x, sc, bi, cot, act)
+                got_k = (lnk.fused_layernorm(x, sc, bi, 1e-6, act),
+                         *lnk.fused_layernorm_bwd(x, sc, bi, cot, 1e-6, act))
+                got_p = (lnk.fused_layernorm_reference(x, sc, bi, 1e-6, act),
+                         *lnk.fused_layernorm_bwd_reference(x, sc, bi, cot, 1e-6, act))
+                phase("compare", kernel=f"{name}_vs_fp64", outputs=["y", "dx", "dscale", "dbias"],
+                      kernel_rel_err=[rel_err(a, b) for a, b in zip(got_k, want)],
+                      plain_rel_err=[rel_err(a, b) for a, b in zip(got_p, want)])
+            runs = [lnk.fused_layernorm_bwd(x, sc, bi, cot, 1e-6, act)[1:] for _ in range(2)]
+            same = all(torch.equal(a, b) for a, b in zip(*runs))
+            phase("compare", kernel=bwd, dtype=str(dt).split(".")[-1], dparam_run_to_run=same)
+            require(same, f"{bwd} {dt}: dscale/dbias differ between two runs")
+
+    class DeviceImages:
+        """A re-iterable loader of seeded random NHWC images and labels made
+        on the card; ``seconds`` holds each pass's time, to its last batch's
+        end on the device."""
+
+        def __init__(self, batches, batch, seed):
+            self.batches, self.batch, self.seed, self.seconds = batches, batch, seed, []
+
+        def __iter__(self):
+            gen = torch.Generator(device=dev).manual_seed(self.seed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(self.batches):
+                yield {"image": torch.randn(self.batch, IMG, IMG, 3, generator=gen, device=dev),
+                       "label": torch.randint(0, NUM_CLASSES, (self.batch,), generator=gen,
+                                              device=dev)}
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+
+    # 16. stage 1: codebook extraction, counted, then against the plain versions
+    s1_loader = DeviceImages(S1_BATCHES, S1_BATCH, 3)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    bundle = extract_stage(STAGE1_CFG, s1_loader, seed=0, device=dev)
+    torch.cuda.synchronize()
+    s1_seconds = time.perf_counter() - t0
+    s1_launches = launch_counts()
+    per_batch = S1_BATCH * v_inst
+    chunks = [min(per_batch, S1_FEATURES - i * per_batch) for i in range(-(-S1_FEATURES // per_batch))]
+    minibatches = sum(-(-c // 1024) for c in chunks)
+    require(len(chunks) <= S1_BATCHES, "stage 1: too few batches for its features")
+    expected = {name: 0 for name in s1_launches}
+    expected.update({"attn_block": FROZEN_LAYERS * len(chunks),
+                     "ffn_block": FROZEN_LAYERS * len(chunks),
+                     "vq_assign": minibatches + S1_LLOYD_ITERS})
+    require(s1_launches == expected, f"stage-1 launch counts {s1_launches} != {expected}")
+    require(bool(torch.isfinite(bundle.codebook).all())
+            and tuple(bundle.codebook.shape) == (NUM_CODES, EMBED_DIM), "stage-1 codebook")
+    backbone = get_model(STAGE1_CFG["model"], NUM_CLASSES)
+    backbone.load_state_dict(bundle.backbone_state)
+    backbone.requires_grad_(False).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = collect_mid_features(backbone, s1_loader, ENCODE_LAYER, S1_FEATURES)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    held = feats[:S1_LLOYD]
+    inertia = kmeans.kmeans_inertia(bundle.codebook, held).item()
+    init_state = kmeans.kmeans_init(torch.Generator().manual_seed(0), feats[:4096], NUM_CODES)
+    mb = feats[:1024]
+    minibatch_ms = time_ms(lambda: kmeans.minibatch_step(init_state, mb), TIME_ITERS)
+    lloyd_ms = time_ms(lambda: kmeans.lloyd_step(bundle.codebook, held), 3, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kmeans.kmeans_init(torch.Generator().manual_seed(0), feats[:4096], NUM_CODES)
+    torch.cuda.synchronize()
+    plusplus_ms = (time.perf_counter() - t0) * 1e3
+    phase("stage1_fp32", features=len(feats), batches=len(chunks), batch=S1_BATCH,
+          codes=NUM_CODES, seconds=s1_seconds, launches=s1_launches, expected=expected,
+          collect_features_per_s=len(feats) / collect_s, collect_seconds=collect_s,
+          minibatch_steps=minibatches, minibatch_step_ms=minibatch_ms,
+          lloyd_iterations=S1_LLOYD_ITERS, lloyd_step_ms=lloyd_ms, kmeans_pp_ms=plusplus_ms,
+          final_inertia=inertia, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+          **card_note)
+    require(np.isfinite(inertia), f"stage-1 inertia {inertia}")
+
+    plain_feats = with_plain(lambda: collect_mid_features(
+        backbone, DeviceImages(2, S1_BATCH, 3), ENCODE_LAYER, 2 * per_batch))
+    feat_err = rel_err(feats[:len(plain_feats)], plain_feats)
+    require(feat_err <= FP32_TOL, f"stage-1 features differ by {feat_err} of max")
+    del plain_feats
+    lock = {"steps": 0, "rows": 0, "mismatches": 0, "near_ties_only": True,
+            "center_err": 0.0, "centers_moved_by_mismatch": 0}
+
+    def lock_step(ids_fn, step_fn, data):
+        """One k-means step from the kernel run's state, with the kernel and
+        with every plain version: ids and the updated centers compared."""
+        ids_k = vqk.vq_assign_kernel(data, ids_fn())
+        ids_p = vqk.vq_assign_reference(data, ids_fn())
+        gaps, scale = vqk.score_gaps(data, ids_fn(), ids_k, ids_p)
+        nxt_k, nxt_p = step_fn(), with_plain(step_fn)
+        c_k, c_p = nxt_k[0], nxt_p[0]  # the centers of a KMeansState or a Lloyd step
+        moved = torch.zeros(NUM_CODES, dtype=torch.bool, device=dev)
+        mis = ids_k != ids_p
+        moved[ids_k[mis].long()] = True
+        moved[ids_p[mis].long()] = True
+        err = (c_k - c_p).abs()[~moved].max() / c_p.abs().max()
+        lock["steps"] += 1
+        lock["rows"] += len(data)
+        lock["mismatches"] += int(mis.sum())
+        lock["near_ties_only"] &= bool((gaps <= 1e-5 * scale).all())
+        lock["center_err"] = max(lock["center_err"], err.item())
+        lock["centers_moved_by_mismatch"] += int(moved.sum())
+        return nxt_k
+
+    state = init_state
+    for i in range(S1_CHECK_MINIBATCHES):
+        batch_i = feats[i * 1024:(i + 1) * 1024]
+        state = lock_step(lambda: state.centers,
+                          lambda: kmeans.minibatch_step(state, batch_i), batch_i)
+    centers = state.centers
+    for _ in range(S1_CHECK_LLOYD):
+        centers = lock_step(lambda: centers, lambda: kmeans.lloyd_step(centers, held), held)[0]
+    agree = 1 - lock["mismatches"] / lock["rows"]
+    phase("stage1_fp32_vs_plain", feature_rel_err=feat_err, id_agreement=agree,
+          tol={"features": FP32_TOL, "ids": 0.999, "near_tie": 1e-5, "centers": 1e-4}, **lock)
+    require(agree >= 0.999, f"stage-1 k-means ids agree on {agree} < 0.999")
+    require(lock["near_ties_only"], "stage-1 k-means: a mismatch is no near-tie")
+    require(lock["center_err"] <= 1e-4, f"stage-1 centers differ by {lock['center_err']}")
+    del feats, held, backbone, init_state, state, centers, mb
+    torch.cuda.empty_cache()
+
+    # 17. stage 3: the IR-Atlas init, counted, then against the plain versions
+    s3_loader = DeviceImages(S3_BATCHES, S3_BATCH, 4)
+    recorded = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with recording_vq(recorded):
+        atlas = init_stage(STAGE3_CFG, bundle, s3_loader, device=dev)
+    torch.cuda.synchronize()
+    s3_seconds = time.perf_counter() - t0
+    s3_peak = torch.cuda.max_memory_allocated() / 2**30
+    s3_launches = launch_counts()
+    passes = 2 * S3_BATCHES
+    expected = {name: 0 for name in s3_launches}
+    expected.update({"attn_block": FROZEN_LAYERS * passes, "attn_block_hmean": passes,
+                     "ffn_block": FROZEN_LAYERS * passes, "vq_assign": passes})
+    require(s3_launches == expected, f"stage-3 launch counts {s3_launches} != {expected}")
+    replay_stats = {"rows": 0, "mismatches": 0, "near_ties_only": True}
+
+    def plain_init():
+        with replaying_vq(recorded, replay_stats):
+            return init_stage(STAGE3_CFG, bundle, DeviceImages(S3_BATCHES, S3_BATCH, 4),
+                              device=dev)
+
+    atlas_p = with_plain(plain_init)
+    same_ingredients = bool(torch.equal(atlas["class_ingredients"], atlas_p["class_ingredients"]))
+    atlas_err = {k: rel_err(atlas["params"][k], atlas_p["params"][k]) for k in atlas["params"]}
+    ips = [S3_BATCHES * S3_BATCH / sec for sec in s3_loader.seconds]
+    del atlas_p
+    torch.cuda.empty_cache()
+
+    # the stage-3 atlas to files, and a stage-4 step from them
+    run_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "run", "chip_smoke")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    save_bundle(os.path.join(run_dir, "bundle"), bundle.model_cfg, bundle.encode_layer,
+                bundle.backbone_state, bundle.codebook, bundle.extra)
+    save_atlas_init(os.path.join(run_dir, "atlas_init.pt"), atlas["params"],
+                    atlas["class_ingredients"])
+    tr4 = schema_net_trainer(STAGE3_CFG, load_bundle(os.path.join(run_dir, "bundle")),
+                             load_atlas_init(os.path.join(run_dir, "atlas_init.pt")),
+                             STEPS_PER_EPOCH, seed=0, device=dev)
+    shutil.rmtree(run_dir)
+    from_atlas = bool(torch.equal(tr4.model.schema_net.class_ingredients,
+                                  atlas["class_ingredients"].to(dev)))
+    step_loss = tr4.train_iter(next(iter(DeviceImages(1, BATCH, 5))))["loss"].item()
+    phase("stage3_fp32", classes=NUM_CLASSES, v_max=NUM_CODES, batch=S3_BATCH,
+          batches_per_pass=S3_BATCHES, seconds=s3_seconds,
+          cut=f"{S3_BATCHES * S3_BATCH} of CIFAR-100's {CIFAR_TRAIN} training images a pass",
+          images_per_s_per_pass=ips,
+          full_dataset_seconds_extrapolated=sum(CIFAR_TRAIN / r for r in ips),
+          launches=s3_launches, expected=expected, peak_mem_gb=s3_peak,
+          class_ingredients_equal=same_ingredients, param_rel_err=atlas_err,
+          **replay_report(replay_stats), stage4_trainer_from_saved_atlas=from_atlas, stage4_step_loss=step_loss,
+          tol={"params": 1e-5, "ids": 0.999}, **card_note)
+    require(same_ingredients, "stage-3 class_ingredients differ from the plain versions'")
+    require(all(err <= 1e-5 for err in atlas_err.values()), f"stage-3 atlas differs: {atlas_err}")
+    require(from_atlas and np.isfinite(step_loss), "stage-4 step from the saved atlas")
+    del tr4, atlas, bundle, recorded
+    torch.cuda.empty_cache()
+
+    # 18. timings of the VQ and LayerNorm kernels; the device time of a call
+    # beside the CUDA-event time, which the host's per-call work bounds for
+    # the small launches
+    def device_ms(fn, iters=TIME_ITERS):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        return sum(device_time_by_name(prof).values()) / iters / 1e3
+
+    for case, (x, cb) in vq_inputs.items():
+        iters = 3 if case == "lloyd" else TIME_ITERS
+        key = "vq_assign" if case == "minibatch" else f"vq_assign_{case}"
+        times[key] = (time_ms(lambda: vqk.vq_assign_kernel(x, cb), iters),
+                      time_ms(lambda: vqk.vq_assign_reference(x, cb), iters))
+        phase("kernel_time", kernel="vq_assign", case=case, dtype=str(x.dtype).split(".")[-1],
+              shape=list(x.shape), codes=cb.shape[0], ms=times[key][0], plain_ms=times[key][1],
+              device_ms=device_ms(lambda: vqk.vq_assign_kernel(x, cb), iters), **card_note)
+    for name, (x, sc, bi, cot, act) in ln_inputs.items():
+        x, cot = x.to(torch.bfloat16), cot.to(torch.bfloat16)
+        bwd = name.replace("fused_layernorm", "fused_layernorm_bwd")
+        times[name] = (time_ms(lambda: lnk.fused_layernorm(x, sc, bi, 1e-6, act), TIME_ITERS),
+                       time_ms(lambda: lnk.fused_layernorm_reference(x, sc, bi, 1e-6, act),
+                               TIME_ITERS))
+        times[bwd] = (time_ms(lambda: lnk.fused_layernorm_bwd(x, sc, bi, cot, 1e-6, act),
+                              TIME_ITERS),
+                      time_ms(lambda: lnk.fused_layernorm_bwd_reference(x, sc, bi, cot, 1e-6, act),
+                              TIME_ITERS))
+        w16, b16 = sc.to(torch.bfloat16), bi.to(torch.bfloat16)
+        library[name] = time_ms(lambda: torch.nn.functional.layer_norm(
+            x, (x.shape[-1],), w16, b16, 1e-6), TIME_ITERS)
+        phase("kernel_time", kernel=name, dtype="bfloat16", shape=list(x.shape), act=act,
+              ms=times[name][0], plain_ms=times[name][1], layer_norm_ms=library[name],
+              bwd_ms=times[bwd][0], bwd_plain_ms=times[bwd][1],
+              device_ms=device_ms(lambda: lnk.fused_layernorm(x, sc, bi, 1e-6, act)),
+              bwd_device_ms=device_ms(lambda: lnk.fused_layernorm_bwd(x, sc, bi, cot, 1e-6, act)),
+              layer_norm_device_ms=device_ms(lambda: torch.nn.functional.layer_norm(
+                  x, (x.shape[-1],), w16, b16, 1e-6)), **card_note)
 
     # the least time the card could take for the timed work of each kernel
     def attn_work(args, hmean=False):
@@ -874,6 +1353,17 @@ def main() -> None:
             "fused_mlp_bwd": (5 * mlp, 3 * nbytes(t["x"]) + 2 * weights + nbytes(t["b2"])),
         }[name]
 
+    def vq_work(x, cb):
+        (rows, width), codes = x.shape, cb.shape[0]
+        return 2 * rows * codes * width, nbytes(x, cb) + rows * 4  # int32 ids out
+
+    def ln_work(inputs, bwd=False):
+        x = inputs[0].to(torch.bfloat16)  # timed in bf16; statistics, affine in fp32
+        params = 2 * x.shape[-1] * 4
+        if bwd:  # x and g in, dx out; scale, bias in, dscale, dbias out
+            return 14 * x.numel(), 3 * nbytes(x) + 2 * params
+        return 8 * x.numel(), 2 * nbytes(x) + params
+
     work = {
         "attn_block": attn_work(cases["attn_block"](torch.bfloat16)[2]),
         "attn_block_hmean": attn_work(cases["attn_block"](torch.bfloat16)[2], hmean=True),
@@ -883,6 +1373,9 @@ def main() -> None:
         "embed_grad": embed_work(train_cases["embed_grad"](torch.bfloat16)[2]),
         "adamw_project_rows": adamw_work("edge"),
         **{name: s0_work(name) for name in s0_kernels},
+        "vq_assign": vq_work(*vq_inputs["minibatch"]),
+        "fused_layernorm": ln_work(ln_inputs["fused_layernorm"]),
+        "fused_layernorm_bwd": ln_work(ln_inputs["fused_layernorm"], bwd=True),
     }
     replaces = {
         "attn_block": "schemanet_tpu/ops/pallas/encoder_block.py:240",
@@ -896,19 +1389,34 @@ def main() -> None:
         "fused_mhsa_bwd": "schemanet_tpu/ops/pallas/attention.py:216",
         "fused_mlp": "schemanet_tpu/ops/pallas/mlp.py:230",
         "fused_mlp_bwd": "schemanet_tpu/ops/pallas/mlp.py:271",
+        "vq_assign": "schemanet_tpu/ops/pallas/vq.py:79",
+        "fused_layernorm": "schemanet_tpu/ops/pallas/layernorm.py:119",
+        "fused_layernorm_bwd": "schemanet_tpu/ops/pallas/layernorm.py:151",
     }
     sources = {"sym_conv": "graphconv.cu", "sym_conv_bwd": "graphconv.cu",
                "embed_grad": "embed_bwd.cu", "adamw_project_rows": "atlas_opt.cu",
                "fused_mhsa": "attention.cu", "fused_mhsa_bwd": "attention.cu",
-               "fused_mlp": "mlp.cu", "fused_mlp_bwd": "mlp.cu"}
+               "fused_mlp": "mlp.cu", "fused_mlp_bwd": "mlp.cu", "vq_assign": "vq.cu",
+               "fused_layernorm": "layernorm.cu", "fused_layernorm_bwd": "layernorm.cu"}
     variants = {"sym_conv": "sym_conv_instance", "sym_conv_bwd": "sym_conv_bwd_instance",
                 "embed_grad": "embed_grad_instance",
                 "adamw_project_rows": "adamw_project_rows_vertex",
+                "fused_layernorm": "fused_layernorm_gnn",
+                "fused_layernorm_bwd": "fused_layernorm_bwd_gnn",
                 **{name: f"{name}_p0" for name in s0_kernels}}
-    launches = {**train_launches, **{name: s0_launches[name] for name in s0_kernels}}
+    # each kernel's launches on the path that runs it most: stage 4 for the
+    # SchemaNet kernels, stage 0 for the fused ViT kernels and the LayerNorm,
+    # stage 1 for VQ
+    launches = {**train_launches,
+                **{name: s0_launches[name] for name in (*s0_kernels, "fused_layernorm",
+                                                        "fused_layernorm_bwd")},
+                "vq_assign": s1_launches["vq_assign"]}
     kernels = []
     for name in replaces:
-        dtype = "float32" if name == "adamw_project_rows" else "bfloat16"
+        # the operations' type: fp32 for the kernels that compute outside the
+        # tensor cores on fp32 data (or with fp32 statistics)
+        fp32_ops = ("adamw_project_rows", "vq_assign", "fused_layernorm", "fused_layernorm_bwd")
+        dtype = "float32" if name in fp32_ops else "bfloat16"
         bound_ms, bound_by = least_ms(*work[name], dtype)
         kernels.append({
             "name": name,

@@ -13,11 +13,12 @@ on CUDA every layer takes the two hand-written kernels
 the ``attn_block`` kernel itself. On the CPU a layer runs the plain per-op path
 and the probe is the fp32 mean over heads of the raw scores.
 
-Training forward (``deterministic=False``), as stage 0 runs it: flax-semantics
-LayerNorm, ``fused_mhsa`` (attention dropout in the kernel), residual
-dropout, LayerNorm, ``fused_mlp`` (FFN dropout in the kernel), residual
-dropout; differentiable through the kernels' backward kernels. Dropout draws
-from the caller's ``DropoutRNG``.
+Training forward (``deterministic=False``), as stage 0 runs it:
+``fused_layernorm``, ``fused_mhsa`` (attention dropout in the kernel),
+residual dropout, ``fused_layernorm``, ``fused_mlp`` (FFN dropout in the
+kernel), residual dropout; differentiable through the kernels' backward
+kernels. Dropout draws from the caller's ``DropoutRNG``. The final norm is
+``fused_layernorm`` in both forwards.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from torch import nn
 
 from ..ops.kernels import encoder_block as eb
+from ..ops.kernels import layernorm as lnk
 from .attention import MultiHeadSelfAttention
 from .layers import MLP, Dropout, DropoutRNG
 
@@ -69,10 +71,10 @@ class EncoderLayer(nn.Module):
         if live and rng is None:
             raise ValueError("a training forward with dropout needs a DropoutRNG")
         n1, n2 = self.norm1, self.norm2
-        x = self.attention.fused(eb.layer_norm(seq, n1.weight, n1.bias, self.norm_eps),
+        x = self.attention.fused(lnk.fused_layernorm(seq, n1.weight, n1.bias, self.norm_eps),
                                  rng.kernel_seed() if live else None)
         seq = seq + (self.drop(x, rng.masks) if live else x)
-        x = self.mlp.fused(eb.layer_norm(seq, n2.weight, n2.bias, self.norm_eps),
+        x = self.mlp.fused(lnk.fused_layernorm(seq, n2.weight, n2.bias, self.norm_eps),
                            rng.kernel_seed() if live else None)
         return seq + (self.drop(x, rng.masks) if live else x)
 
@@ -132,5 +134,5 @@ class Transformer(nn.Module):
                 if f"layers_{i}.{kind}" in capture:
                     captured[f"layers_{i}.{kind}"] = value
         if self.norm is not None and end_layer == self.num_encoder_layers:
-            seq = eb.layer_norm(seq, self.norm.weight, self.norm.bias, self.norm_eps)
+            seq = lnk.fused_layernorm(seq, self.norm.weight, self.norm.bias, self.norm_eps)
         return seq, captured

@@ -7,6 +7,10 @@ all-pairs edge sums are the batched product ``P^T A P`` with the one-hot
 position->slot projection ``P``. That product is a plain batched matmul, as
 the JAX package leaves it to XLA.
 
+Atlas initialisation (stage 3) takes two more functions: the full-vocabulary
+vertex weights of a sample (``feat_to_full_vertices``) and the edges of a
+sample restricted to its class's vertex set (``class_limited_edges``).
+
 Precision modes: ``'highest'`` keeps every tensor fp32; ``'default'`` stores
 graph tensors in bf16. The one-hot operands are exact in bf16 and every
 contraction accumulates in fp32, so only attention and geometry round.
@@ -137,3 +141,67 @@ def instance_edges(
     out = _blend(edges, edge_attribute_weights)
     live = slots.mask[:, :, None] & slots.mask[:, None, :]
     return torch.where(live, out, torch.zeros_like(out)).to(dt)
+
+
+def vertex_attributes_full(
+    ingredients: torch.Tensor,  # [bs, L] int
+    attn_cls: torch.Tensor,  # [bs, L] softmaxed CLS attention
+    num_vertices: int,
+) -> torch.Tensor:
+    """Per-code (count, mean attention) attributes, dense [bs, V, 2] fp32;
+    codes absent from a sample get (0, 0). A code whose positions
+    carried NaN attention keeps a NaN attention attribute, as the reference's
+    scatter does (a one-hot product would otherwise spread the NaN to every
+    code)."""
+    onehot = F.one_hot(ingredients.long(), num_vertices).float()  # [bs, L, V]
+    count = onehot.sum(dim=1)
+    attn_f = attn_cls.float()
+    nan_in = torch.isnan(attn_f)
+    attn_sum = torch.einsum("blv,bl->bv", onehot, torch.where(nan_in, torch.zeros_like(attn_f),
+                                                               attn_f))
+    nan_hit = torch.einsum("blv,bl->bv", onehot, nan_in.float()) > 0
+    attn_sum = torch.where(nan_hit, torch.full_like(attn_sum, float("nan")), attn_sum)
+    attn_val = torch.where(count > 0, attn_sum / torch.clamp(count, min=1.0),
+                           torch.zeros_like(attn_sum))
+    attn_val = torch.where(torch.isnan(attn_sum), attn_sum, attn_val)
+    return torch.stack([count, attn_val], dim=-1)
+
+
+def feat_to_full_vertices(
+    ingredients: torch.Tensor,  # [bs, L] int
+    attn_cls: torch.Tensor,  # [bs, L] raw (pre-softmax) CLS attention
+    num_vertices: int,
+    vertex_attribute_weights: torch.Tensor,  # [2, 1]
+    clamp_vertex_attn: Optional[float] = None,
+) -> torch.Tensor:
+    """[bs, V] vertex weights over the full vocabulary: the max-normalised
+    (count, mean attention) attributes of each sample, blended by W_v."""
+    attn_cls = clamp_softmax(attn_cls, clamp_vertex_attn)
+    attrs = normalize_max(vertex_attributes_full(ingredients, attn_cls, num_vertices), dim=1)
+    return _blend(attrs, vertex_attribute_weights)
+
+
+def class_limited_edges(
+    ingredients: torch.Tensor,  # [bs, L] int
+    attn: torch.Tensor,  # [bs, L, L] raw attention
+    geo_sim: torch.Tensor,  # [L, L]
+    labels: torch.Tensor,  # [bs] int
+    class_ingredients: torch.Tensor,  # [K, V_max] global code id per class slot
+    edge_attribute_weights: torch.Tensor,  # [2, 1]
+    clamp_edge_attn: Optional[float] = None,
+    remove_self_loop: bool = False,
+    precision: str = "highest",
+) -> torch.Tensor:
+    """[bs, V_max, V_max] edges of each sample over its label's vertex set:
+    position l maps to slot s iff its code is the class's s-th ingredient;
+    the pair means are row-normalised over the second slot axis, the
+    diagonal optionally zeroed, and blended by W_e. As in the JAX package the
+    softmaxed attention keeps its NaNs (an all-masked row)."""
+    attn = clamp_softmax(attn.float(), clamp_edge_attn)
+    my_codes = class_ingredients[labels.long()].long()  # [bs, V_max]
+    proj = (ingredients.long()[:, :, None] == my_codes[:, None, :]).float()  # [bs, L, V_max]
+    edges = normalize_sum(_pair_mean_edges(proj, attn, geo_sim.float(), precision), dim=2)
+    if remove_self_loop:
+        eye = torch.eye(edges.shape[1], dtype=torch.bool, device=edges.device)[None, :, :, None]
+        edges = torch.where(eye, torch.zeros_like(edges), edges)
+    return _blend(edges, edge_attribute_weights).to(graph_dtype(precision))

@@ -15,7 +15,15 @@ from .encoder_block import (
     ffn_block_reference,
 )
 from .graphconv import sym_conv, sym_conv_bwd, sym_conv_bwd_reference, sym_conv_reference
+from .layernorm import (
+    fused_layernorm,
+    fused_layernorm_bwd,
+    fused_layernorm_bwd_reference,
+    fused_layernorm_plain,
+    fused_layernorm_reference,
+)
 from .mlp import fused_mlp, fused_mlp_bwd, fused_mlp_bwd_reference, fused_mlp_reference
+from .vq import vq_assign_kernel, vq_assign_reference
 
 # (wrapper, attribute) of every launch counter, by kernel name
 _COUNTERS = {
@@ -30,6 +38,9 @@ _COUNTERS = {
     "fused_mhsa_bwd": (fused_mhsa_bwd, "launches"),
     "fused_mlp": (fused_mlp, "launches"),
     "fused_mlp_bwd": (fused_mlp_bwd, "launches"),
+    "vq_assign": (vq_assign_kernel, "launches"),
+    "fused_layernorm": (fused_layernorm, "launches"),
+    "fused_layernorm_bwd": (fused_layernorm_bwd, "launches"),
 }
 
 

@@ -28,7 +28,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 # C signatures of the launchers (csrc/*.cu, extern "C"); every one returns the
-# cudaError_t of its launch
+# cudaError_t of its launch, except where noted
 _SIGNATURES = {
     "sn_attn_block": [_I] + [_P] * 10 + [_I] * 5 + [_F, _F, _P],
     "sn_ffn_block": [_I] + [_P] * 8 + [_I] * 3 + [_F, _P],
@@ -40,6 +40,10 @@ _SIGNATURES = {
     "sn_fused_mhsa_bwd": [_I] + [_P] * 4 + [_I] * 4 + [_F] * 3 + [_I, _P],
     "sn_fused_mlp": [_I] + [_P] * 6 + [_I] * 3 + [_F, _F, _I, _P],
     "sn_fused_mlp_bwd": [_I] + [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P],
+    "sn_vq_assign": [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    "sn_layernorm_fwd": [_I] + [_P] * 4 + [_L, _I, _F, _I, _P],
+    "sn_layernorm_bwd": [_I] + [_P] * 7 + [_L, _I, _F, _I, _P],
+    "sn_layernorm_bwd_blocks": [_L],  # returns the block count, not an error
 }
 
 _lock = threading.Lock()

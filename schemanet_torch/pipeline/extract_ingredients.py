@@ -1,0 +1,119 @@
+"""Stage 1: ingredient (codebook) extraction, mid-layer feature collection and
+k-means (port of ``schemanet_tpu/pipeline/extract_ingredients.py``).
+
+The frozen backbone's forward through the encode layer streams its patch
+tokens (prefix tokens stripped) straight into minibatch k-means on the
+device, then Lloyd iterations refine the centers on a held sample. Unlike
+the JAX package, the features stay on the device: the JAX stage copies each
+batch to the host, while 1,000,000 x 192 fp32 features (768 MB) fit the
+card with room to spare.
+
+A loader is any re-iterable of ``{"image": NHWC float, "label", "valid"?}``
+batches (numpy arrays or tensors). Not ported: ``mesh`` (data-parallel
+collection), ``quant`` (the int8 backbone), and ``save_features_path`` /
+``cluster_saved_features``, which need h5py.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List
+
+import torch
+
+from ..ops import kmeans as kmeans_ops
+
+MINIBATCH = 1024  # rows of one k-means minibatch
+
+
+def _image(batch, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(batch["image"]).to(device, torch.float32)
+
+
+@torch.no_grad()
+def _mid_features(model, image: torch.Tensor, encode_layer: int) -> torch.Tensor:
+    seq, _ = model.encode_until(image, end_layer=encode_layer + 1)
+    feats = seq[:, model.num_prefix_tokens:]  # strip the cls (and dist) tokens
+    return feats.reshape(-1, feats.shape[-1])
+
+
+def collect_mid_features(model, loader, encode_layer: int, max_features: int,
+                         as_iterator: bool = False):
+    """[n, d] chunks, one per loader batch, of the patch tokens that leave
+    layer ``encode_layer`` of the ViT/DeiT ``model``, until ``max_features``
+    rows; on the model's device, in its dtype. ``as_iterator`` yields the
+    chunks, otherwise they come back concatenated."""
+    device = next(model.parameters()).device
+
+    def gen() -> Iterator[torch.Tensor]:
+        seen = 0
+        for batch in loader:
+            flat = _mid_features(model, _image(batch, device), encode_layer)
+            flat = flat[: max_features - seen]
+            seen += len(flat)
+            yield flat
+            if seen >= max_features:
+                return
+
+    if as_iterator:
+        return gen()
+    chunks = list(gen())
+    return torch.cat(chunks) if chunks else torch.zeros((0, 1), device=device)
+
+
+def extract_codebook(
+    model,
+    loader,
+    encode_layer: int,
+    num_clusters: int,
+    max_features: int = 1_000_000,
+    seed: int = 0,
+    lloyd_iters: int = 10,
+    lloyd_sample: int = 200_000,
+    generator: torch.Generator = None,
+) -> torch.Tensor:
+    """Stream features into minibatch k-means (minibatches of 1,024 cut from
+    each loader batch, seeded by k-means++ from the first
+    ``max(4 M, 4096)`` features), then ``lloyd_iters`` Lloyd iterations on the
+    first ``lloyd_sample`` features. Returns the [M, d] fp32 centers on the
+    model's device. k-means++ draws from ``generator``, or from a CPU
+    generator seeded with ``seed``."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(seed)
+    held: List[torch.Tensor] = []
+    held_count = 0
+
+    def stream():
+        nonlocal held_count
+        for chunk in collect_mid_features(model, loader, encode_layer, max_features,
+                                          as_iterator=True):
+            if held_count < lloyd_sample:
+                take = min(len(chunk), lloyd_sample - held_count)
+                held.append(chunk[:take])
+                held_count += take
+            for i in range(0, len(chunk), MINIBATCH):
+                yield chunk[i:i + MINIBATCH]
+
+    init_needed = max(4 * num_clusters, 4096)
+    batches = stream()
+    first: List[torch.Tensor] = []
+    first_count = 0
+    for chunk in batches:
+        first.append(chunk)
+        first_count += len(chunk)
+        if first_count >= init_needed:
+            break
+    if not first_count:
+        raise ValueError("no features collected")
+
+    def full_stream():
+        yield from first
+        yield from batches
+
+    centers = kmeans_ops.fit_kmeans(generator, full_stream(), num_clusters,
+                                    init_data=torch.cat(first))
+    # the held sample is complete only once the stream is spent (the JAX
+    # stage builds its Lloyd sample before that, from the first chunks alone)
+    lloyd_data = torch.cat(held)
+    for _ in range(lloyd_iters):
+        centers, _ = kmeans_ops.lloyd_step(centers, lloyd_data)
+    return centers

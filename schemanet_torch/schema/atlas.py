@@ -146,6 +146,28 @@ class SchemaAtlas(nn.Module):
         }
 
 
+def trunc_normal_(t: torch.Tensor, std: float, lo: float, hi: float, g: torch.Generator
+                  ) -> torch.Tensor:
+    """Fill t with Normal(0, std) truncated to [lo*std, hi*std], by redrawing
+    the entries outside from ``g``."""
+    t.copy_(torch.randn(t.shape, generator=g) * std)
+    while True:
+        bad = (t < lo * std) | (t > hi * std)
+        if not bad.any():
+            return t
+        t[bad] = torch.randn(int(bad.sum()), generator=g) * std
+
+
+def trunc_normal_unit(shape, generator: torch.Generator) -> torch.Tensor:
+    """The atlas weights' initialiser, the port's ``_trunc_normal_unit``:
+    0.5 + Normal(0, 1/6) truncated to 3 std, clipped to [0, 1], then each
+    row divided by its sum. fp32 on the CPU, drawn from ``generator``
+    (``jax.random`` gives other numbers from the same seed)."""
+    x = torch.clamp(0.5 + trunc_normal_(torch.empty(shape), 1 / 6, -3.0, 3.0, generator), 0, 1)
+    s = x.sum(dim=-1, keepdim=True)
+    return torch.where(s > 0, x / s, x)
+
+
 @torch.no_grad()
 def clamp_attribute_weights_(atlas: SchemaAtlas) -> None:
     """Clamp the vertex and edge attribute weights to [0.01, 10] in place
@@ -167,15 +189,23 @@ def _project_rows_(w: torch.Tensor, remove_self_loop: bool = False) -> None:
 
 
 @torch.no_grad()
-def project_atlas_params(atlas: SchemaAtlas) -> SchemaAtlas:
+def project_params_(params: Dict[str, torch.Tensor], cfg: AtlasConfig) -> Dict[str, torch.Tensor]:
     """The no-grad ``normalize()`` projection of
-    ``schemanet_tpu.schema.atlas.project_atlas_params``, on the module's
-    parameters in place: clamp the attribute weights to [0.01, 10]
+    ``schemanet_tpu.schema.atlas.project_atlas_params`` on a dict of the four
+    atlas tensors, in place: clamp the attribute weights to [0.01, 10]
     (``clamp_weights``); clamp-min 0 and row-sum normalise the vertex and
     edge weights, zeroing the edge diagonals when ``remove_self_loop``
     (``apply_normalize``)."""
-    clamp_attribute_weights_(atlas)
-    if atlas.cfg.apply_normalize:
-        _project_rows_(atlas.vertex_weights)
-        _project_rows_(atlas.edge_weights, atlas.cfg.remove_self_loop)
+    if cfg.clamp_weights:
+        for key in ("vertex_attribute_weights", "edge_attribute_weights"):
+            params[key].clamp_(0.01, 10.0)
+    if cfg.apply_normalize:
+        _project_rows_(params["vertex_weights"])
+        _project_rows_(params["edge_weights"], cfg.remove_self_loop)
+    return params
+
+
+def project_atlas_params(atlas: SchemaAtlas) -> SchemaAtlas:
+    """``project_params_`` on the module's parameters, in place."""
+    project_params_(dict(atlas.named_parameters()), atlas.cfg)
     return atlas

@@ -7,7 +7,9 @@ Semantics kept from the JAX package:
   instance graphs and class graphs alike, runs the ``sym_conv`` kernel on CUDA
   (``ops/kernels/graphconv.py``);
 * per layer: conv -> mask-fill padding to 0 -> LayerNorm (eps 1e-6, flax's
-  default) -> activation;
+  default) -> activation, the LayerNorm the ``fused_layernorm`` kernel on
+  CUDA with the relu fused into it (``ops/kernels/layernorm.py``), as the
+  JAX package's ``gnn_ln`` site does;
 * pooling: sum over the vertex axis of feat * vertex_weights divided by the
   pool size (per sample for serving, the batch max for training), then the
   final Linear ``fc``;
@@ -34,6 +36,7 @@ from ..models.layers import get_activation
 from ..ops.kernels import embed_bwd as ek
 from ..ops.kernels import encoder_block as eb
 from ..ops.kernels import graphconv as gc
+from ..ops.kernels import layernorm as lnk
 
 GNN_NORM_EPS = 1e-6  # flax nn.LayerNorm's default, which the JAX GNN uses
 
@@ -80,7 +83,9 @@ class GNNLayer(nn.Module):
         feat = self.g_conv(edges, feat)
         if feat_mask is not None:
             feat = torch.where(feat_mask[..., None], torch.zeros_like(feat), feat)
-        feat = eb.layer_norm(feat, self.norm.weight, self.norm.bias, GNN_NORM_EPS)
+        if self.activation == "relu":
+            return lnk.fused_layernorm(feat, self.norm.weight, self.norm.bias, GNN_NORM_EPS, "relu")
+        feat = lnk.fused_layernorm(feat, self.norm.weight, self.norm.bias, GNN_NORM_EPS)
         return get_activation(self.activation)(feat)
 
 

@@ -23,7 +23,7 @@ from torch import nn
 from ..models.vit import ViT, get_model
 from ..ops.graph import graph_dtype
 from ..ops.vq import vq_encode
-from .atlas import AtlasConfig, SchemaAtlas
+from .atlas import AtlasConfig, SchemaAtlas, trunc_normal_, trunc_normal_unit
 from .gnn import Matcher
 
 
@@ -135,16 +135,6 @@ def build_predictor(
     return SchemaNetPredictor(backbone, cfg, encode_layer, num_codes, code_dim, dtype)
 
 
-def _trunc_normal_(t: torch.Tensor, std: float, lo: float, hi: float, g: torch.Generator):
-    """Normal(0, std) truncated to [lo*std, hi*std], by redrawing."""
-    t.copy_(torch.randn(t.shape, generator=g) * std)
-    while True:
-        bad = (t < lo * std) | (t > hi * std)
-        if not bad.any():
-            return t
-        t[bad] = torch.randn(int(bad.sum()), generator=g) * std
-
-
 def _xavier_uniform_(w: torch.Tensor, g: torch.Generator):
     limit = math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
     w.copy_((torch.rand(w.shape, generator=g) * 2 - 1) * limit)
@@ -161,7 +151,7 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if name.endswith("pos_embed.pos_embed"):
-            _trunc_normal_(p, 0.02, -2.0, 2.0, g)
+            trunc_normal_(p, 0.02, -2.0, 2.0, g)
         elif leaf in ("cls_token", "dist_token"):
             p.copy_(torch.randn(p.shape, generator=g) * 0.02)
         elif name.endswith("patch_embed.proj.weight") or name.endswith("gnn.fc.weight"):
@@ -174,15 +164,13 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif name.endswith("g_conv.linear.bias"):
             p.copy_(torch.randn(p.shape, generator=g))
         elif name.endswith(("cls_head.weight", "dist_head.weight")):
-            _trunc_normal_(p, 1.0 / math.sqrt(p.shape[1]) / 0.87962566, -2.0, 2.0, g)
+            trunc_normal_(p, 1.0 / math.sqrt(p.shape[1]) / 0.87962566, -2.0, 2.0, g)
         elif name.endswith("vocabulary"):
             p.copy_(torch.rand(p.shape, generator=g) * 2 - 1)
         elif leaf in ("vertex_weights", "edge_weights"):
-            x = torch.clamp(0.5 + _trunc_normal_(torch.empty(p.shape), 1 / 6, -3.0, 3.0, g), 0, 1)
-            s = x.sum(dim=-1, keepdim=True)
-            p.copy_(torch.where(s > 0, x / s, x))
+            p.copy_(trunc_normal_unit(p.shape, g))
         elif leaf == "embedding":
-            _trunc_normal_(p, 1.0, -2.0, 2.0, g)
+            trunc_normal_(p, 1.0, -2.0, 2.0, g)
             p[-1] = 0.0  # padding row
         elif leaf == "weight" and p.ndim == 1:  # LayerNorm scales
             p.fill_(1.0)

@@ -3,4 +3,4 @@
 
 from .common import clip_by_global_norm, epoch_schedule, make_optimizer
 from .trainer import SCHEMA_NET_FROZEN, Trainer, TrainerConfig
-from .workers import backbone_trainer
+from .workers import backbone_trainer, schema_net_trainer

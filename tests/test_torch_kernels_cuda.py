@@ -11,6 +11,15 @@ the run-dependent order of embed_grad's atomics), bf16 2e-2 (a few bf16 ulps
 where roundings meet in another order). The fused attention and FFN kernels
 are held to the plain versions of their forward and their backward, with
 dropout off and at p = 0.1 with the same seed.
+
+The VQ kernel sums each dot product in another order than the plain
+version's matrix product: its ids must equal the plain ones on >= 99.9% of
+rows, every mismatch a near-tie (the plain scores of the two codes within
+1e-5 of the row's largest |score|), and duplicated codes give the first
+index exactly. The LayerNorm kernels: the forward within the tolerances
+above, the backward's dx too (fp32 1e-4: the statistics are recomputed),
+dscale and dbias within 1e-4 in both dtypes (fp32 sums) and equal bit for
+bit from run to run.
 """
 
 import pytest
@@ -21,7 +30,9 @@ from schemanet_torch.ops.kernels import attention as ak
 from schemanet_torch.ops.kernels import embed_bwd as ek
 from schemanet_torch.ops.kernels import encoder_block as eb
 from schemanet_torch.ops.kernels import graphconv as gc
+from schemanet_torch.ops.kernels import layernorm as lnk
 from schemanet_torch.ops.kernels import mlp as mk
+from schemanet_torch.ops.kernels import vq as vqk
 
 pytestmark = pytest.mark.cuda
 TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
@@ -229,3 +240,73 @@ def test_fused_kernels_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="width"):
         mk.fused_mlp(x, torch.zeros(96, 48, device=dev), torch.zeros(96, device=dev),
                      torch.zeros(48, 96, device=dev), torch.zeros(48, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,d", [(100, 64, 32), (1024, 1024, 192), (777, 8000, 384),
+                                   (33, 130, 768)])
+def test_vq_assign_kernel(dev, dtype, n, m, d):
+    g = torch.Generator().manual_seed(6)
+    x, cb = _rnd(g, dev, n, d).to(dtype), _rnd(g, dev, m, d)
+    before = vqk.vq_assign_kernel.launches
+    got = vqk.vq_assign_kernel(x, cb)
+    want = vqk.vq_assign_reference(x, cb)
+    torch.cuda.synchronize()
+    assert vqk.vq_assign_kernel.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert (got == want).float().mean().item() >= 0.999
+    gaps, scale = vqk.score_gaps(x, cb, got, want)
+    assert bool((gaps <= 1e-5 * scale).all()), (gaps, scale)
+
+
+def test_vq_assign_kernel_duplicated_codes_take_the_first(dev):
+    g = torch.Generator().manual_seed(7)
+    base = _rnd(g, dev, 70, 192)
+    cb = torch.cat([base] * 3)  # copies 64 codes apart: the tile and segment edges cut them
+    x = base[torch.randint(0, 70, (4, 7), generator=g).to(dev)] + _rnd(g, dev, 4, 7, 192,
+                                                                       scale=0.01)
+    got = vqk.vq_assign_kernel(x, cb)
+    torch.cuda.synchronize()
+    assert got.shape == (4, 7)
+    assert torch.equal(got, vqk.vq_assign_reference(x, base))  # the first copy, exactly
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("rows,d,act", [(45, 64, "none"), (12_608, 192, "none"),
+                                        (1000, 256, "relu"), (37, 768, "relu"),
+                                        (5, 300, "none")])
+def test_fused_layernorm_kernels(dev, dtype, tol, rows, d, act):
+    g = torch.Generator().manual_seed(8)
+    x = (_rnd(g, dev, rows, d) * 2 + 0.5).to(dtype)
+    scale, bias = 1 + _rnd(g, dev, d, scale=0.3), _rnd(g, dev, d, scale=0.3)
+    cot = _rnd(g, dev, rows, d).to(dtype)
+    before = (lnk.fused_layernorm.launches, lnk.fused_layernorm_bwd.launches)
+    y = lnk.fused_layernorm(x, scale, bias, 1e-6, act)
+    grads = lnk.fused_layernorm_bwd(x, scale, bias, cot, 1e-6, act)
+    again = lnk.fused_layernorm_bwd(x, scale, bias, cot, 1e-6, act)
+    want = lnk.fused_layernorm_reference(x, scale, bias, 1e-6, act)
+    want_grads = lnk.fused_layernorm_bwd_reference(x, scale, bias, cot, 1e-6, act)
+    torch.cuda.synchronize()
+    assert (lnk.fused_layernorm.launches, lnk.fused_layernorm_bwd.launches) == \
+        (before[0] + 1, before[1] + 2)
+    assert y.dtype == grads[0].dtype == dtype
+    assert _rel(y, want) <= tol
+    assert _rel(grads[0], want_grads[0]) <= max(tol, 1e-4)
+    for got, ref, rerun in zip(grads[1:], want_grads[1:], again[1:]):
+        assert got.dtype == torch.float32 and _rel(got, ref) <= 1e-4
+        assert torch.equal(got, rerun)  # a fixed order of sums
+    # through autograd: the Function's backward launches the kernel
+    xs, ss, bs = (t.clone().requires_grad_() for t in (x, scale, bias))
+    lnk.fused_layernorm(xs, ss, bs, 1e-6, act).backward(cot)
+    assert torch.equal(xs.grad, grads[0]) and torch.equal(ss.grad, grads[1])
+
+
+def test_stage_kernels_reject_bad_inputs(dev):
+    with pytest.raises(ValueError, match="width"):
+        lnk.fused_layernorm(torch.zeros(4, 800, device=dev), torch.ones(800, device=dev),
+                            torch.zeros(800, device=dev))
+    with pytest.raises(TypeError):
+        lnk.fused_layernorm(torch.zeros(4, 8, device=dev, dtype=torch.float16),
+                            torch.ones(8, device=dev), torch.zeros(8, device=dev))
+    with pytest.raises(ValueError, match="codebook"):
+        vqk.vq_assign_kernel(torch.zeros(4, 8, device=dev), torch.zeros(5, 9, device=dev))

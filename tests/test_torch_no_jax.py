@@ -1,7 +1,8 @@
 """The port imports neither JAX nor the JAX package: the machine with the card
 has no JAX. Checked in a fresh interpreter where importing any of them fails
-(serving, one SchemaNet training step and one stage-0 backbone step with
-dropout live), and by reading the port's sources."""
+(serving, one SchemaNet training step, one stage-0 backbone step with
+dropout live, and stages 1 and 3 through the pipeline package, with the VQ
+and LayerNorm kernel modules), and by reading the port's sources."""
 
 import pathlib
 import re
@@ -63,6 +64,17 @@ def test_import_and_cpu_forward_without_jax():
         loss = backbone.train_iter({{"image": torch.randn(2, 16, 16, 3),
                                      "label": torch.tensor([0, 1])}})["loss"]
         assert torch.isfinite(loss), loss
+        from schemanet_torch.ops.kernels import layernorm, vq
+        from schemanet_torch.pipeline import extract_stage, init_stage
+        images = {{"image": np.random.default_rng(1).normal(size=(2, 16, 16, 3)),
+                   "label": np.array([0, 1])}}
+        bundle = extract_stage({{"dataset": {{"name": "cifar_10"}}, "model": model_cfg,
+                                 "discretization": {{"vocabulary": {{"size": 16}},
+                                                    "encoder_layer": 1}}}},
+                               [images], device="cpu", max_features=32, lloyd_iters=1)
+        atlas = init_stage({{"dataset": {{"name": "cifar_10"}}, "schema_net": schema_cfg}},
+                           bundle, [images], device="cpu")
+        assert atlas["class_ingredients"].shape == (10, 16), atlas["class_ingredients"].shape
         loaded = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}
                   and sys.modules[m] is not None]
         assert not loaded, loaded
