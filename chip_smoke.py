@@ -13,6 +13,8 @@ Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
 
 1. device: name, count, and ``nvidia-smi`` name and power limit;
 2. build: compiles ``schemanet_torch/csrc/*.cu``, one nvcc per file at once;
+   prints the registers and spills of the tensor-core attention kernels from
+   the ptxas log and fails if any spills;
 3. each serving kernel against its plain PyTorch version at the serving
    shapes, in bf16 and fp32: max |kernel - plain| / max |plain| <= 2e-2
    (bf16), 1e-4 (fp32);
@@ -72,18 +74,23 @@ at DeiT-Tiny width, 12 layers, dropout 0.1, AdamW lr 1e-4 with warmup,
     plain versions at the stage-0 shapes (qkv [64, 197, 576]; 12,608 rows of
     192 -> 768 -> 192), bf16 and fp32, dropout off and at p = 0.1 with the
     same seed (equal masks, so a wrong mask shows as an O(1) error); the
-    tolerances of 3;
+    tolerances of 3. The attention kernels also at the edges of their tiling
+    (``MHSA_EDGES``: n = 65, one row past a tile of 64; n = 320, the limit;
+    head_dim 32 over several waves of blocks);
 12. the step in fp32 with dropout live: 3 steps against the same trainer
     with every kernel replaced by its plain version, from the same generator
     seeds (so the same masks); losses within 1e-4 relative, the parameters
     within the rule of 8;
 13. the step in bf16 (the config's dtype): 5 finite losses; per step 12
     launches each of fused_mhsa, fused_mhsa_bwd, fused_mlp and fused_mlp_bwd,
-    25 of fused_layernorm and of fused_layernorm_bwd (two a layer and the
-    final norm), and none of the serving or SchemaNet kernels;
+    every attention launch on the tensor-core route, 25 of fused_layernorm
+    and of fused_layernorm_bwd (two a layer and the final norm), and none of
+    the serving or SchemaNet kernels;
 14. timings: each stage-0 kernel beside its plain version, and
-    ``scaled_dot_product_attention`` (forward, and forward plus backward)
-    beside the attention kernels; the bf16 step's ms and images/s beside the
+    ``scaled_dot_product_attention`` at p = 0 (forward, backward alone, and
+    both) beside the attention kernels at p = 0 and 0.1, CUDA events over 20
+    calls and, for SDPA and the kernels, the profiler's device time of a
+    call; the bf16 step's ms and images/s beside the
     step with every plain version and with the plain LayerNorm alone; its split into forward, backward, and
     clipping plus AdamW; the idle share over 3 steps and the peak memory.
 
@@ -122,8 +129,9 @@ fp32, seeded random weights and images made on the card):
     of max. Then the bundle and the atlas init go to files, and a stage-4
     ``Trainer`` (``schema_net_trainer``) takes one bf16 step from them;
 18. timings of the new kernels beside their plain versions and, for the
-    LayerNorm forward, ``F.layer_norm``; CUDA events over 20 calls, and the
-    device time of a call from ``torch.profiler``.
+    LayerNorm, ``F.layer_norm`` and ATen's ``native_layer_norm_backward``;
+    CUDA events over 20 calls, and the device time of a call from
+    ``torch.profiler``.
 
 Any failed check raises, so the script exits non-zero. Without a GPU it fails
 at once. Its last line is ``{"ok": true, "device": {...}}``; the line before
@@ -142,6 +150,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -216,6 +225,8 @@ STAGE0_CFG = {
 }
 S0_LAYERS = STAGE0_CFG["model"]["transformer"]["num_encoder_layers"]
 S0_DROPOUT, S0_SEED = STAGE0_CFG["model"]["transformer"]["dropout"], 2**31 - 2
+# (bs, n, heads, head_dim) of the attention compares beside the stage-0 shape
+MHSA_EDGES = {"n65": (5, 65, 2, 64), "n320": (2, 320, 3, 64), "d32": (96, 100, 4, 32)}
 # stage 1: configs/cifar_100/ingredient/deit_tiny-l9-M_1024.yaml (its model
 # is configs/models/deit_tiny_patch16_224.yaml, the ViT above) at the CLI's
 # defaults (batch 64, max_features 1,000,000, fp32, 10 Lloyd iterations over
@@ -297,6 +308,20 @@ def device_time_by_name(prof) -> dict:
     return out
 
 
+def ptxas_report(log: str, source: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} of one
+    source's section of the build's ``nvcc -Xptxas -v`` log."""
+    section = log.split(f"== {source}\n", 1)[1].split("\n== ", 1)[0]
+    out = {}
+    for block in section.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        out[name] = (int(regs.group(1)) if regs else None,
+                     *(tuple(map(int, spills.groups())) if spills else (None, None)))
+    return out
+
+
 def compare(name, kernel, plain, args, kw, dtype, tol, errors) -> None:
     """Kernel against plain version on the same inputs; records the max
     absolute error of the working dtype (bf16, or fp32 where that is the
@@ -365,6 +390,14 @@ def main() -> None:
     _build.library()
     phase("build", seconds=round(time.perf_counter() - t0, 3),
           compile_seconds=_build.build_seconds, library=str(_build.library_path().name))
+    # registers and spills of the tensor-core attention kernels, from ptxas
+    ptxas = ptxas_report(_build.library_path().with_suffix(".log").read_text(), "attention.cu")
+    tc_ptxas = {name: dict(zip(("registers", "spill_stores", "spill_loads"), r))
+                for name, r in ptxas.items() if "mhsa_tc" in name}
+    phase("ptxas", source="attention.cu", kernels=tc_ptxas)
+    require(len(tc_ptxas) == 12, f"ptxas reported {len(tc_ptxas)} tensor-core attention kernels")
+    require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in tc_ptxas.values()),
+            "a tensor-core attention kernel spills to local memory")
 
     # 3. each serving kernel against its plain version at the serving shapes
     g = torch.Generator().manual_seed(0)
@@ -864,6 +897,19 @@ def main() -> None:
             for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
                 kernel, plain, args = s0_case(name, dt, p)
                 compare(name if p else f"{name}_p0", kernel, plain, args, {}, dt, tol, errors)
+    # the attention kernels at the edges of their tiling: one row past a tile
+    # of 64, the limit n = 320, head_dim 32 over several waves of blocks
+    for tag, (bs_, n_, h_, d_) in MHSA_EDGES.items():
+        qkv_e, g_e = rnd(bs_, n_, 3 * h_ * d_), rnd(bs_, n_, h_ * d_)
+        for p in (0.0, S0_DROPOUT):
+            seed = S0_SEED if p else None
+            for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+                suffix = f"{tag}" if p else f"{tag}_p0"
+                compare(f"fused_mhsa_{suffix}", ak.fused_mhsa, ak.fused_mhsa_reference,
+                        (qkv_e.to(dt), h_, p, seed), {}, dt, tol, errors)
+                compare(f"fused_mhsa_bwd_{suffix}", ak.fused_mhsa_bwd, ak.fused_mhsa_bwd_reference,
+                        (qkv_e.to(dt), g_e.to(dt), h_, p, seed), {}, dt, tol, errors)
+    del qkv_e, g_e
 
     # 12. the stage-0 step in fp32, dropout live, against the plain versions
     def s0_cfg(dtype):
@@ -922,15 +968,39 @@ def main() -> None:
     s0_launches = launch_counts()
     losses0 = [m["loss"].item() for m in metrics]
     expected = {name: 0 for name in s0_launches}
-    expected.update({name: S0_LAYERS * BF16_STEPS for name in s0_kernels})
+    # every attention launch of the bf16 step on the tensor-core route
+    expected.update({name: S0_LAYERS * BF16_STEPS
+                     for name in (*s0_kernels, "fused_mhsa_tc", "fused_mhsa_bwd_tc")})
     expected.update({name: (2 * S0_LAYERS + 1) * BF16_STEPS
                      for name in ("fused_layernorm", "fused_layernorm_bwd")})
     phase("stage0_bf16", steps=BF16_STEPS, batch=BATCH, losses=losses0, launches=s0_launches,
           expected=expected)
     require(all(np.isfinite(losses0)), f"stage-0 bf16 losses not finite: {losses0}")
     require(s0_launches == expected, f"stage-0 launch counts {s0_launches} != {expected}")
+    require(all(s0_launches[f"{name}_tc"] == s0_launches[name] > 0
+                for name in ("fused_mhsa", "fused_mhsa_bwd")),
+            "a bf16 attention launch of stage 0 missed the tensor-core kernels")
 
     # 14. timings: the stage-0 kernels beside their plain versions and SDPA, the step
+    def device_ms(fn, iters=TIME_ITERS):
+        """Device ms of one call of fn: every device event of `iters` calls
+        under the profiler. The profiler now and then returns a session with
+        no device event at all, whatever was launched (twice in a row once);
+        each such session is printed as a phase of its own and taken again,
+        and five in a row fail."""
+        fn()
+        torch.cuda.synchronize()
+        for attempt in range(1, 6):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            total_us = sum(device_time_by_name(prof).values())
+            if total_us:
+                return total_us / iters / 1e3
+            phase("profile_empty", attempt=attempt, iters=iters)
+        raise AssertionError("the profiler recorded no device event in five profiles in a row")
+
     for name in s0_kernels:
         for p in (0.0, S0_DROPOUT):
             kernel, plain, args = s0_case(name, torch.bfloat16, p)
@@ -942,19 +1012,44 @@ def main() -> None:
                   shape=list(args[0].shape), ms=times[key][0], plain_ms=times[key][1], **card_note)
     qkv16, g16 = s0["qkv"].to(torch.bfloat16), s0["g_att"].to(torch.bfloat16)
     q, k, v = qkv16.view(BATCH, n, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     with torch.no_grad():
-        sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
-                          TIME_ITERS)
+        sdpa_ms = time_ms(lambda: sdpa(q, k, v), TIME_ITERS)
+        sdpa_device = {"fwd": device_ms(lambda: sdpa(q, k, v))}
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
     g_heads = g16.view(BATCH, n, heads, d // heads).transpose(1, 2)
-    sdpa_fb_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qg, kg, vg).backward(g_heads), TIME_ITERS)
+    sdpa_fb_ms = time_ms(lambda: sdpa(qg, kg, vg).backward(g_heads), TIME_ITERS)
+    # SDPA's backward alone: the same dq, dk, dv from one saved forward
+    sdpa_out = sdpa(qg, kg, vg)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qg, kg, vg), g_heads, retain_graph=True)
+
+    sdpa_bwd_ms = time_ms(sdpa_bwd, TIME_ITERS)
+    sdpa_device["bwd"] = device_ms(sdpa_bwd)
     xg = qkv16.detach().clone().requires_grad_()
     fused_fb_ms = time_ms(lambda: ak.fused_mhsa(xg, heads).backward(g16), TIME_ITERS)
-    phase("kernel_time", kernel="fused_mhsa_vs_sdpa", dtype="bfloat16", dropout=0.0,
-          fused_fwd_ms=times["fused_mhsa_p0"][0], sdpa_fwd_ms=sdpa_ms,
-          fused_fwd_bwd_ms=fused_fb_ms, sdpa_fwd_bwd_ms=sdpa_fb_ms, **card_note)
+    attn_device = {}
+    for name in ("fused_mhsa", "fused_mhsa_bwd"):
+        for p in (0.0, S0_DROPOUT):
+            kernel, _, args = s0_case(name, torch.bfloat16, p)
+            attn_device[name if p else f"{name}_p0"] = device_ms(lambda: kernel(*args))
+    # kernel over SDPA at p = 0 (SDPA has no hash dropout): CUDA events, and
+    # the profiler's device time, which the host's per-call work does not reach
+    phase("kernel_time", kernel="fused_mhsa_vs_sdpa", dtype="bfloat16",
+          fused_fwd_ms=times["fused_mhsa_p0"][0], fused_fwd_p01_ms=times["fused_mhsa"][0],
+          sdpa_fwd_ms=sdpa_ms, fused_bwd_ms=times["fused_mhsa_bwd_p0"][0],
+          fused_bwd_p01_ms=times["fused_mhsa_bwd"][0], sdpa_bwd_ms=sdpa_bwd_ms,
+          fused_fwd_bwd_ms=fused_fb_ms, sdpa_fwd_bwd_ms=sdpa_fb_ms, device_ms=attn_device,
+          sdpa_device_ms=sdpa_device,
+          fwd_over_sdpa=times["fused_mhsa_p0"][0] / sdpa_ms,
+          bwd_over_sdpa=times["fused_mhsa_bwd_p0"][0] / sdpa_bwd_ms,
+          fwd_over_sdpa_device=attn_device["fused_mhsa_p0"] / sdpa_device["fwd"],
+          bwd_over_sdpa_device=attn_device["fused_mhsa_bwd_p0"] / sdpa_device["bwd"],
+          **card_note)
+    del sdpa_out
     library["fused_mhsa"] = sdpa_ms
+    library["fused_mhsa_bwd"] = sdpa_bwd_ms
 
     def s0_step_ms(iters, plain=False):
         out = []
@@ -1275,15 +1370,6 @@ def main() -> None:
     # 18. timings of the VQ and LayerNorm kernels; the device time of a call
     # beside the CUDA-event time, which the host's per-call work bounds for
     # the small launches
-    def device_ms(fn, iters=TIME_ITERS):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        return sum(device_time_by_name(prof).values()) / iters / 1e3
-
     for case, (x, cb) in vq_inputs.items():
         iters = 3 if case == "lloyd" else TIME_ITERS
         key = "vq_assign" if case == "minibatch" else f"vq_assign_{case}"
@@ -1305,9 +1391,21 @@ def main() -> None:
         w16, b16 = sc.to(torch.bfloat16), bi.to(torch.bfloat16)
         library[name] = time_ms(lambda: torch.nn.functional.layer_norm(
             x, (x.shape[-1],), w16, b16, 1e-6), TIME_ITERS)
+        bwd_library_ms = bwd_library_device_ms = None
+        if act == "none":  # one ATen call computes the backward of a plain LayerNorm
+            _, mean, rstd = torch.ops.aten.native_layer_norm(x, [x.shape[-1]], w16, b16, 1e-6)
+
+            def ln_bwd_library():
+                return torch.ops.aten.native_layer_norm_backward(
+                    cot, x, [x.shape[-1]], mean, rstd, w16, b16, [True, True, True])
+
+            bwd_library_ms = library[bwd] = time_ms(ln_bwd_library, TIME_ITERS)
+            bwd_library_device_ms = device_ms(ln_bwd_library)
         phase("kernel_time", kernel=name, dtype="bfloat16", shape=list(x.shape), act=act,
               ms=times[name][0], plain_ms=times[name][1], layer_norm_ms=library[name],
               bwd_ms=times[bwd][0], bwd_plain_ms=times[bwd][1],
+              native_layer_norm_backward_ms=bwd_library_ms,
+              native_layer_norm_backward_device_ms=bwd_library_device_ms,
               device_ms=device_ms(lambda: lnk.fused_layernorm(x, sc, bi, 1e-6, act)),
               bwd_device_ms=device_ms(lambda: lnk.fused_layernorm_bwd(x, sc, bi, cot, 1e-6, act)),
               layer_norm_device_ms=device_ms(lambda: torch.nn.functional.layer_norm(

@@ -36,6 +36,8 @@ _COUNTERS = {
     "adamw_project_rows": (adamw_project_rows, "launches"),
     "fused_mhsa": (fused_mhsa, "launches"),
     "fused_mhsa_bwd": (fused_mhsa_bwd, "launches"),
+    "fused_mhsa_tc": (fused_mhsa, "tc_launches"),  # the tensor-core route's share
+    "fused_mhsa_bwd_tc": (fused_mhsa_bwd, "tc_launches"),
     "fused_mlp": (fused_mlp, "launches"),
     "fused_mlp_bwd": (fused_mlp_bwd, "launches"),
     "vq_assign": (vq_assign_kernel, "launches"),

@@ -22,7 +22,11 @@ from the scaled q.
 
 Dispatch: a CPU tensor takes the plain versions (``fused_mhsa_reference``,
 ``fused_mhsa_bwd_reference``); a CUDA tensor launches the kernels or raises.
-``fused_mhsa.launches`` and ``fused_mhsa_bwd.launches`` count the launches.
+``mhsa_route`` picks the kernels by dtype: fp32 takes the FMA kernels, bf16
+the tensor-core ones (head_dim a multiple of 16 up to 64). ``fused_mhsa.launches``
+and ``fused_mhsa_bwd.launches`` count the launches of both routes,
+``fused_mhsa.tc_launches`` and ``fused_mhsa_bwd.tc_launches`` those of the
+tensor-core route.
 """
 
 from __future__ import annotations
@@ -36,7 +40,29 @@ from .dropmask import hash_keep_mask, kernel_dropout_args, keep_scale
 from .encoder_block import _DTYPES, _check, _require_cuda, _stream
 
 _MAX_HEAD_DIM = 64  # csrc/attention.cu kMhsaMaxHeadDim
-_MAX_TOKENS = 320  # K and V of one head, in fp32, and the score rows fit a block's shared memory
+_MAX_TOKENS = 320  # the FMA route's K, V and score rows, in fp32, fill a block's shared memory
+FMA, TENSOR_CORE = "fma", "tensor_core"
+
+
+def mhsa_route(dtype: torch.dtype, n: int, head_dim: int) -> str:
+    """The kernels a CUDA launch of ``fused_mhsa`` takes for qkv of this dtype,
+    sequence length and head_dim: ``"fma"`` (fp32: FMA on fp32 tiles, which
+    keeps fp32's agreement where tensor cores would mean TF32) or
+    ``"tensor_core"`` (bf16: ``mma`` on bf16 tiles, head_dim a multiple of 16
+    up to 64). Raises on what neither takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"fused_mhsa takes float32 or bfloat16, got {dtype}")
+    if n > _MAX_TOKENS:
+        raise ValueError(f"fused_mhsa takes n <= {_MAX_TOKENS}, got {n}")
+    if dtype == torch.float32:
+        if head_dim > _MAX_HEAD_DIM:
+            raise ValueError(f"fused_mhsa takes head_dim <= {_MAX_HEAD_DIM} in float32, "
+                             f"got {head_dim}")
+        return FMA
+    if head_dim % 16 or not 16 <= head_dim <= _MAX_HEAD_DIM:
+        raise ValueError(f"fused_mhsa takes a bfloat16 head_dim that is a multiple of 16 up to "
+                         f"{_MAX_HEAD_DIM}, got {head_dim}")
+    return TENSOR_CORE
 
 
 def _split(qkv: torch.Tensor, num_heads: int):
@@ -98,6 +124,7 @@ def fused_mhsa_bwd_reference(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
 
 
 def _check_qkv(name: str, qkv: torch.Tensor, num_heads: int):
+    """(bs, n, d, route) of a qkv the kernels take; raises on any other."""
     _require_cuda("qkv", qkv)
     if qkv.dtype not in _DTYPES:
         raise TypeError(f"{name} takes float32 or bfloat16, got {qkv.dtype}")
@@ -105,18 +132,19 @@ def _check_qkv(name: str, qkv: torch.Tensor, num_heads: int):
         raise ValueError(f"{name} takes qkv [bs, n, 3 x {num_heads} x d], got {tuple(qkv.shape)}")
     bs, n, three_hd = qkv.shape
     d = three_hd // (3 * num_heads)
-    if d > _MAX_HEAD_DIM or n > _MAX_TOKENS:
-        raise ValueError(f"{name} takes head_dim <= {_MAX_HEAD_DIM} and n <= {_MAX_TOKENS}, "
-                         f"got {d} and {n}")
+    route = mhsa_route(qkv.dtype, n, d)
     _check("qkv", qkv, qkv.dtype, qkv.shape)
-    return bs, n, d
+    if route == TENSOR_CORE and qkv.data_ptr() % 16:
+        raise ValueError(f"{name}: the tensor-core kernels copy 16-byte rows; qkv is not 16-byte "
+                         "aligned")
+    return bs, n, d, route
 
 
 def _mhsa_forward(qkv: torch.Tensor, num_heads: int, dropout_p: float, seed: Optional[int]):
     """The forward alone: the kernel on CUDA, the plain version on the CPU."""
     if qkv.device.type == "cpu":
         return fused_mhsa_reference(qkv, num_heads, dropout_p, seed)
-    bs, n, d = _check_qkv("fused_mhsa", qkv, num_heads)
+    bs, n, d, route = _check_qkv("fused_mhsa", qkv, num_heads)
     out = torch.empty((bs, n, num_heads * d), dtype=qkv.dtype, device=qkv.device)
     err = _build.library().sn_fused_mhsa(
         _DTYPES[qkv.dtype], qkv.data_ptr(), out.data_ptr(), bs, n, num_heads, d,
@@ -124,6 +152,8 @@ def _mhsa_forward(qkv: torch.Tensor, num_heads: int, dropout_p: float, seed: Opt
     )
     _build.check(err, "fused_mhsa")
     fused_mhsa.launches += 1
+    if route == TENSOR_CORE:
+        fused_mhsa.tc_launches += 1
     return out
 
 
@@ -134,8 +164,10 @@ def fused_mhsa_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, dropout_p
     the CPU."""
     if qkv.device.type == "cpu":
         return fused_mhsa_bwd_reference(qkv, g, num_heads, dropout_p, seed)
-    bs, n, d = _check_qkv("fused_mhsa_bwd", qkv, num_heads)
+    bs, n, d, route = _check_qkv("fused_mhsa_bwd", qkv, num_heads)
     _check("g", g, qkv.dtype, (bs, n, num_heads * d))
+    if route == TENSOR_CORE and g.data_ptr() % 16:
+        raise ValueError("fused_mhsa_bwd: g is not 16-byte aligned")
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((bs, num_heads, n, 3), dtype=torch.float32, device=qkv.device)
     err = _build.library().sn_fused_mhsa_bwd(
@@ -144,6 +176,8 @@ def fused_mhsa_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, dropout_p
     )
     _build.check(err, "fused_mhsa_bwd")
     fused_mhsa_bwd.launches += 1
+    if route == TENSOR_CORE:
+        fused_mhsa_bwd.tc_launches += 1
     return dqkv
 
 
@@ -170,5 +204,5 @@ def fused_mhsa(qkv: torch.Tensor, num_heads: int, dropout_p: float = 0.0,
     return _FusedMhsa.apply(qkv, num_heads, float(dropout_p), seed)
 
 
-fused_mhsa.launches = 0
-fused_mhsa_bwd.launches = 0
+fused_mhsa.launches = fused_mhsa.tc_launches = 0
+fused_mhsa_bwd.launches = fused_mhsa_bwd.tc_launches = 0

@@ -86,3 +86,37 @@ def test_bwd_reference_is_the_gradient_of_the_forward(p):
     ak.fused_mhsa_reference(x, 2, p, SEED).backward(g)
     got = ak.fused_mhsa_bwd_reference(qkv, g, 2, p, SEED)
     torch.testing.assert_close(got, x.grad, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,n,d,route", [
+    (torch.float32, 197, 64, "fma"),
+    (torch.float32, 37, 40, "fma"),
+    (torch.bfloat16, 197, 16, "tensor_core"),
+    (torch.bfloat16, 65, 32, "tensor_core"),
+    (torch.bfloat16, 197, 48, "tensor_core"),
+    (torch.bfloat16, 320, 64, "tensor_core"),
+])
+def test_mhsa_route(dtype, n, d, route):
+    """The CUDA kernels a launch takes: fp32 keeps the FMA kernels, bf16 the
+    tensor-core ones."""
+    assert ak.mhsa_route(dtype, n, d) == route
+
+
+@pytest.mark.parametrize("dtype,n,d,what", [
+    (torch.bfloat16, 197, 40, "head_dim"),
+    (torch.bfloat16, 197, 128, "head_dim"),
+    (torch.bfloat16, 197, 8, "head_dim"),
+    (torch.bfloat16, 321, 64, "n <= 320"),
+    (torch.float32, 197, 128, "head_dim"),
+    (torch.float32, 321, 64, "n <= 320"),
+])
+def test_mhsa_route_rejects(dtype, n, d, what):
+    """No quiet fallback: a bf16 head_dim the tensor-core kernels do not take
+    raises, as does anything past the kernels' limits."""
+    with pytest.raises(ValueError, match=what):
+        ak.mhsa_route(dtype, n, d)
+
+
+def test_mhsa_route_rejects_other_dtypes():
+    with pytest.raises(TypeError, match="float16"):
+        ak.mhsa_route(torch.float16, 197, 64)

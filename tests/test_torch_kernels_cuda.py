@@ -188,21 +188,31 @@ SEED = 2**31 - 2
 
 @pytest.mark.parametrize("dtype,tol", TOLS)
 @pytest.mark.parametrize("p", [0.0, 0.1])
-@pytest.mark.parametrize("bs,n,heads,d", [(3, 37, 2, 16), (64, 197, 3, 64)])
+@pytest.mark.parametrize("bs,n,heads,d", [
+    (3, 37, 2, 16), (64, 197, 3, 64),  # a ragged tile; the stage-0 shape
+    (5, 65, 2, 64),  # one row past a tile of 64
+    (2, 320, 3, 64),  # the kernels' limit
+    (96, 100, 4, 32),  # head_dim 32, several waves of blocks
+])
 def test_fused_mhsa_kernels(dev, dtype, tol, p, bs, n, heads, d):
     """Forward and backward kernels against the plain versions, the stage-0
     shape included; with dropout the masks are the same bits, so a wrong
-    mask shows as an O(1) error."""
+    mask shows as an O(1) error. bf16 takes the tensor-core kernels, fp32
+    the FMA ones."""
     g = torch.Generator().manual_seed(6)
     qkv = _rnd(g, dev, bs, n, 3 * heads * d).to(dtype)
     cot = _rnd(g, dev, bs, n, heads * d).to(dtype)
     seed = SEED if p else None
     before = (ak.fused_mhsa.launches, ak.fused_mhsa_bwd.launches)
+    before_tc = (ak.fused_mhsa.tc_launches, ak.fused_mhsa_bwd.tc_launches)
     x = qkv.clone().requires_grad_()
     out = ak.fused_mhsa(x, heads, p, seed)
     out.backward(cot)
     torch.cuda.synchronize()
     assert (ak.fused_mhsa.launches, ak.fused_mhsa_bwd.launches) == (before[0] + 1, before[1] + 1)
+    tc = int(dtype == torch.bfloat16)
+    assert (ak.fused_mhsa.tc_launches, ak.fused_mhsa_bwd.tc_launches) == \
+        (before_tc[0] + tc, before_tc[1] + tc)
     assert out.dtype == x.grad.dtype == dtype and out.shape == (bs, n, heads * d)
     assert _rel(out, ak.fused_mhsa_reference(qkv, heads, p, seed)) <= tol
     assert _rel(x.grad, ak.fused_mhsa_bwd_reference(qkv, cot, heads, p, seed)) <= tol
@@ -234,6 +244,8 @@ def test_fused_mlp_kernels(dev, dtype, tol, p, rows, dim, f):
 def test_fused_kernels_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="head_dim"):
         ak.fused_mhsa(torch.zeros(2, 5, 3 * 128, device=dev), 1)
+    with pytest.raises(ValueError, match="head_dim"):  # no quiet fallback to the FMA kernels
+        ak.fused_mhsa(torch.zeros(2, 5, 3 * 40, device=dev, dtype=torch.bfloat16), 1)
     with pytest.raises(ValueError, match="seed"):
         ak.fused_mhsa(torch.zeros(2, 5, 48, device=dev), 1, dropout_p=0.1)
     x = torch.zeros(4, 48, device=dev)
