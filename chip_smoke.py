@@ -13,11 +13,12 @@ Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
 
 1. device: name, count, and ``nvidia-smi`` name and power limit;
 2. build: compiles ``schemanet_torch/csrc/*.cu``, one nvcc per file at once;
-   prints the registers and spills of the tensor-core attention kernels from
-   the ptxas log and fails if any spills;
+   prints the registers and spills of the tensor-core attention and
+   GraphConv kernels from the ptxas log and fails if any spills;
 3. each serving kernel against its plain PyTorch version at the serving
    shapes, in bf16 and fp32: max |kernel - plain| / max |plain| <= 2e-2
-   (bf16), 1e-4 (fp32);
+   (bf16), 1e-4 (fp32); ``sym_conv`` also at rows of E that are 4-byte
+   (V = 70) and 8-byte (V = 500) aligned (``CONV_EDGES``);
 4. the slice in fp32 (graph_precision 'highest') on 100 images (two
    microbatches, the second padded) against the same model with the plain
    versions called in place of the kernels: VQ ids agree on >= 99.9% of
@@ -26,8 +27,8 @@ Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
    1, 64 and 100 images; ``predict(x[:5]) == predict(x)[:5]`` bit for bit;
    every kernel's launch counter advanced as the path implies (per
    microbatch: 10 attn_block, one of them with the head-mean, 10 ffn_block,
-   one vq_assign, 4 sym_conv, 4 fused_layernorm (the GNN's LN+relu), and no
-   training kernel);
+   one vq_assign, 4 sym_conv, all on the tensor-core route, 4
+   fused_layernorm (the GNN's LN+relu), and no training kernel);
 6. timings (CUDA events after warm-up): each kernel beside its plain version,
    and the p50/p99 latency and images/s of one microbatch of 64.
 
@@ -39,7 +40,9 @@ the fused update):
    ``embed_grad`` for the class and instance lookups, ``adamw_project_rows``
    on the edge and vertex weights) against its plain version at the
    training shapes, bf16 and fp32 (``adamw_project_rows``: fp32, its only
-   dtype), same tolerances as 3;
+   dtype), same tolerances as 3; ``sym_conv_bwd`` also at ``CONV_EDGES``;
+   bf16 dE exactly symmetric at every shape, and ``embed_grad`` and its
+   plain version equal bit for bit over two calls;
 8. the step in fp32 (graph_precision 'highest') against the same trainer
    with every kernel replaced by its plain version, fed the kernel run's VQ
    ids (the plain VQ's own ids must agree with them on >= 99.9% of tokens,
@@ -52,13 +55,19 @@ the fused update):
    2 * lr * steps elsewhere (Adam moves an entry by about lr * sign(g),
    which may flip where g is near zero, and the row projection rescales). Free-running steps amplify rounding where the
    atlas is not smooth (the prune threshold, exact zeros), so the tight rule
-   holds step by step;
+   holds step by step. The first lock step is taken twice from one saved
+   state on each side (``run_to_run_bitwise``): every loss, VQ id,
+   gradient, parameter and moment must have the same bits both times;
 9. the step in bf16 (graph_precision 'default', the training default): 5
    finite losses, and the launch counters advanced as the path implies (per
    step: 10 attn_block, one with the head-mean, 10 ffn_block, one vq_assign,
-   4 sym_conv, 4 sym_conv_bwd, 4 fused_layernorm and 4 fused_layernorm_bwd,
-   2 embed_grad, 2 adamw_project_rows);
-10. timings: each training kernel beside its plain version; the bf16 step's
+   4 sym_conv and 4 sym_conv_bwd, all on the tensor-core route, 4
+   fused_layernorm and 4 fused_layernorm_bwd, 2 embed_grad, 2
+   adamw_project_rows);
+10. timings: each training kernel beside its plain version; the device time
+    of ``sym_conv``, ``sym_conv_bwd`` and ``embed_grad`` (``torch.profiler``)
+    beside ``torch.bmm`` on a pre-formed E_sym (the products alone, a note);
+    the bf16 step's
     ms and images/s beside the step with every plain version and with the
     plain LayerNorm alone; the step split
     into frozen forward, graph build + GNN forward + loss, backward and
@@ -148,6 +157,7 @@ Usage: python3 chip_smoke.py
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
@@ -227,6 +237,9 @@ S0_LAYERS = STAGE0_CFG["model"]["transformer"]["num_encoder_layers"]
 S0_DROPOUT, S0_SEED = STAGE0_CFG["model"]["transformer"]["dropout"], 2**31 - 2
 # (bs, n, heads, head_dim) of the attention compares beside the stage-0 shape
 MHSA_EDGES = {"n65": (5, 65, 2, 64), "n320": (2, 320, 3, 64), "d32": (96, 100, 4, 32)}
+# (graphs, V, D) of the GraphConv compares beside the path's shapes: rows of E
+# 4-byte aligned (V = 70), 8-byte aligned (V = 500, ImageNet's class graphs)
+CONV_EDGES = {"v70": (4, 70, 40), "v500": (16, 500, 1024)}
 # stage 1: configs/cifar_100/ingredient/deit_tiny-l9-M_1024.yaml (its model
 # is configs/models/deit_tiny_patch16_224.yaml, the ViT above) at the CLI's
 # defaults (batch 64, max_features 1,000,000, fp32, 10 Lloyd iterations over
@@ -390,14 +403,18 @@ def main() -> None:
     _build.library()
     phase("build", seconds=round(time.perf_counter() - t0, 3),
           compile_seconds=_build.build_seconds, library=str(_build.library_path().name))
-    # registers and spills of the tensor-core attention kernels, from ptxas
-    ptxas = ptxas_report(_build.library_path().with_suffix(".log").read_text(), "attention.cu")
-    tc_ptxas = {name: dict(zip(("registers", "spill_stores", "spill_loads"), r))
-                for name, r in ptxas.items() if "mhsa_tc" in name}
-    phase("ptxas", source="attention.cu", kernels=tc_ptxas)
-    require(len(tc_ptxas) == 12, f"ptxas reported {len(tc_ptxas)} tensor-core attention kernels")
-    require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in tc_ptxas.values()),
-            "a tensor-core attention kernel spills to local memory")
+    # registers and spills of the tensor-core kernels, from ptxas: 12
+    # attention kernels (4 head_dims x forward, dq, dk/dv), 8 GraphConv
+    # kernels (4 row widths of E x forward, dE)
+    build_log = _build.library_path().with_suffix(".log").read_text()
+    for source, tag, count in (("attention.cu", "mhsa_tc", 12), ("graphconv.cu", "tc_kernel", 8)):
+        tc_ptxas = {name: dict(zip(("registers", "spill_stores", "spill_loads"), r))
+                    for name, r in ptxas_report(build_log, source).items() if tag in name}
+        phase("ptxas", source=source, kernels=tc_ptxas)
+        require(len(tc_ptxas) == count,
+                f"ptxas reported {len(tc_ptxas)} tensor-core kernels in {source}, not {count}")
+        require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in tc_ptxas.values()),
+                f"a tensor-core kernel of {source} spills to local memory")
 
     # 3. each serving kernel against its plain version at the serving shapes
     g = torch.Generator().manual_seed(0)
@@ -442,6 +459,14 @@ def main() -> None:
     for name, case in cases.items():
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
             compare(name, *case(dt), dt, tol, errors)
+    # the GraphConv kernels at rows of E aligned to 4 bytes (V = 70) and 8
+    # bytes (V = 500, the ImageNet class graphs' width, cut to 16 graphs)
+    conv_edges = {tag: (torch.rand(k_, v_, v_, generator=g).to(dev) / v_, rnd(k_, v_, d_),
+                        rnd(k_, v_, d_)) for tag, (k_, v_, d_) in CONV_EDGES.items()}
+    for tag, (e_, f_, _) in conv_edges.items():
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            compare(f"sym_conv_{tag}", gc.sym_conv, gc.sym_conv_reference, (e_.to(dt), f_.to(dt)),
+                    {}, dt, tol, errors)
 
     # the model, seeded random weights (made on the host, then moved)
     def model(dtype, precision):
@@ -553,9 +578,12 @@ def main() -> None:
     expected = {name: 0 for name in serve_launches}  # no training kernel
     expected.update({"attn_block": FROZEN_LAYERS * mbs, "attn_block_hmean": mbs,
                      "ffn_block": FROZEN_LAYERS * mbs, "vq_assign": mbs,
-                     "sym_conv": GNN_CONVS * mbs, "fused_layernorm": GNN_CONVS * mbs})
+                     "sym_conv": GNN_CONVS * mbs, "sym_conv_tc": GNN_CONVS * mbs,
+                     "fused_layernorm": GNN_CONVS * mbs})
     phase("slice_bf16_launches", microbatches=mbs, launches=serve_launches, expected=expected)
     require(serve_launches == expected, f"launch counts {serve_launches} != {expected}")
+    require(serve_launches["sym_conv_tc"] == serve_launches["sym_conv"] > 0,
+            "a bf16 GraphConv launch of serving missed the tensor-core kernel")
     for count in (1, MICROBATCH, N_IMAGES):
         out = s16.predict(images[:count])
         require(out.shape == (count, NUM_CLASSES), f"bf16 logits {out.shape} for {count}")
@@ -635,6 +663,33 @@ def main() -> None:
     for name, case in train_cases.items():
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
             compare(name, *case(dt), dt, tol, errors)
+    for tag, (e_, f_, g_) in conv_edges.items():
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            compare(f"sym_conv_bwd_{tag}", gc.sym_conv_bwd, gc.sym_conv_bwd_reference,
+                    (e_.to(dt), f_.to(dt), g_.to(dt)), {}, dt, tol, errors)
+    # bf16 dE: the upper triangle of tiles, mirrored, so exactly symmetric;
+    # both versions of embed_grad add in a fixed order, so the same bits twice
+    bwd_bf16 = {name: train_cases[name](torch.bfloat16)[2]
+                for name in ("sym_conv_bwd", "sym_conv_bwd_instance")}
+    bwd_bf16.update({f"sym_conv_bwd_{tag}": tuple(t.to(torch.bfloat16) for t in args)
+                     for tag, args in conv_edges.items()})
+    symmetric, embed_same = {}, {}
+    for name, args in bwd_bf16.items():
+        de_ = gc.sym_conv_bwd(*args)[0]
+        symmetric[name] = bool(torch.equal(de_, de_.transpose(1, 2)))
+        del de_
+    for name in ("embed_grad", "embed_grad_instance"):
+        for dt in (torch.bfloat16, torch.float32):
+            _, _, args, _ = train_cases[name](dt)
+            embed_same[f"{name}_{str(dt).split('.')[-1]}"] = [
+                bool(torch.equal(fn(*args), fn(*args)))
+                for fn in (ek.embed_grad, ek.embed_grad_reference)]
+    phase("compare", kernel="sym_conv_bwd", dtype="bfloat16", de_exactly_symmetric=symmetric,
+          embed_grad_run_to_run_bitwise_kernel_plain=embed_same)
+    require(all(symmetric.values()), f"bf16 dE not exactly symmetric: {symmetric}")
+    require(all(all(v) for v in embed_same.values()),
+            f"embed_grad differs between two calls: {embed_same}")
+    del conv_edges, bwd_bf16
     for name, which in (("adamw_project_rows", "edge"), ("adamw_project_rows_vertex", "vertex")):
         compare(name, fresh_update(ao.adamw_project_rows, which),
                 fresh_update(ao.adamw_project_rows_reference, which), (atlas_state[which][0],), {},
@@ -700,27 +755,74 @@ def main() -> None:
     # the atlas is not smooth: a vertex weight crossing prune_node_threshold
     # (the random init's weights cluster at 1/V_max, next to 0.001), a
     # projected entry leaving its exact 0
+    def trainer_state(tr):
+        """A copy of all a step reads and writes: the parameters, the AdamW
+        state (deep: ``load_state_dict`` keeps the tensors it is given, so a
+        shallow copy would let two trainers update one state), the atlas
+        moments and the step count."""
+        return ({k: v.detach().clone() for k, v in tr.model.state_dict().items()},
+                copy.deepcopy(tr.optimizer.optimizer.state_dict()),
+                {k: (h.m.clone(), h.v.clone()) for k, h in tr.hot.items()}, tr.step)
+
+    def load_trainer_state(tr, state):
+        params, opt, hot, step = state
+        tr.model.load_state_dict(params)
+        tr.optimizer.optimizer.load_state_dict(copy.deepcopy(opt))
+        for k, (m, v) in hot.items():
+            tr.hot[k].m.copy_(m)
+            tr.hot[k].v.copy_(v)
+        tr.step = step
+
+    def step_result(tr, loss, ids=()):
+        """The loss, every parameter, gradient and atlas moment after a step,
+        and the step's VQ ids."""
+        out = {"loss": torch.tensor(loss), **{f"vq ids {i}": t.clone() for i, t in enumerate(ids)}}
+        for k, p in tr.model.named_parameters():
+            out[f"param {k}"] = p.detach().clone()
+            if p.grad is not None:
+                out[f"grad {k}"] = p.grad.detach().clone()
+        for k, h in tr.hot.items():
+            out[f"m {k}"], out[f"v {k}"] = h.m.clone(), h.v.clone()
+        return out
+
+    def differing(a, b):
+        return sorted(k for k in a if not torch.equal(a[k], b[k]))
+
     tk, tp = trainer(torch.float32, "highest"), trainer(torch.float32, "highest")
     lock_vq = {"rows": 0, "mismatches": 0, "near_ties_only": True}
     lock = {k: {"sure_share": [], "sure_ok": True, "max_abs_diff_sure": 0.0, "max_abs_diff": 0.0,
                 "grad_rel_err": 0.0} for k in hot_names}
     lock_loss_rel = 0.0
-    for batch in batches[:FP32_STEPS]:
-        tp.model.load_state_dict(tk.model.state_dict())
-        tp.optimizer.optimizer.load_state_dict(tk.optimizer.optimizer.state_dict())
-        for k, hot in tk.hot.items():
-            tp.hot[k].m.copy_(hot.m)
-            tp.hot[k].v.copy_(hot.v)
-        tp.step = tk.step
+    run_to_run = {}
+    for i, batch in enumerate(batches[:FP32_STEPS]):
+        state = trainer_state(tk)
+        load_trainer_state(tp, state)
         step_ids = []
-        with recording_vq(step_ids):
-            loss_k = tk.train_iter(batch)["loss"].item()
+
+        def kernel_step():
+            step_ids.clear()
+            with recording_vq(step_ids):
+                return tk.train_iter(batch)["loss"].item()
 
         def plain_step():
             with replaying_vq(step_ids, lock_vq):
                 return tp.train_iter(batch)["loss"].item()
 
-        loss_p = with_plain(plain_step)
+        loss_k = kernel_step()
+        if i == 0:  # the first lock step twice from one state, on each side
+            first = step_result(tk, loss_k, step_ids)
+            load_trainer_state(tk, state)
+            loss_k = kernel_step()
+            run_to_run["kernel"] = differing(first, step_result(tk, loss_k, step_ids))
+            first = step_result(tp, with_plain(plain_step))
+            load_trainer_state(tp, state)
+            loss_p = with_plain(plain_step)
+            run_to_run["plain"] = differing(first, step_result(tp, loss_p))
+            del first
+            torch.cuda.empty_cache()
+        else:
+            loss_p = with_plain(plain_step)
+        del state
         lock_loss_rel = max(lock_loss_rel, abs(loss_k - loss_p) / abs(loss_p))
         for k in hot_names:
             pk, pp = tk.hot[k].param, tp.hot[k].param
@@ -739,7 +841,12 @@ def main() -> None:
           loss_rel_err=loss_rel, free_run_max_abs_diff=free, bound=bound,
           lock_step_loss_rel_err=lock_loss_rel, lock_step=lock,
           tol={"loss": 1e-4, "sure": "rtol 1e-4 / atol 1e-6"},
-          **replay_report(s4_vq), lock_step_vq=replay_report(lock_vq))
+          **replay_report(s4_vq), lock_step_vq=replay_report(lock_vq),
+          run_to_run_bitwise={side: not names for side, names in run_to_run.items()},
+          run_to_run_differs={side: names[:20] for side, names in run_to_run.items()})
+    for side, names in run_to_run.items():
+        require(not names, f"fp32 lock step, {side} side: a step from one state twice differs in "
+                           f"{names[:20]}")
     require(loss_rel <= 1e-4 and lock_loss_rel <= 1e-4,
             f"fp32 train losses differ by {loss_rel} (free) / {lock_loss_rel} (lock step)")
     for k in hot_names:
@@ -760,7 +867,8 @@ def main() -> None:
     expected = {name: 0 for name in train_launches}  # no stage-0 kernel
     expected.update({"attn_block": FROZEN_LAYERS * BF16_STEPS, "attn_block_hmean": BF16_STEPS,
                      "ffn_block": FROZEN_LAYERS * BF16_STEPS, "vq_assign": BF16_STEPS,
-                     "sym_conv": GNN_CONVS * BF16_STEPS, "sym_conv_bwd": GNN_CONVS * BF16_STEPS,
+                     **{name: GNN_CONVS * BF16_STEPS for name in (
+                         "sym_conv", "sym_conv_bwd", "sym_conv_tc", "sym_conv_bwd_tc")},
                      "fused_layernorm": GNN_CONVS * BF16_STEPS,
                      "fused_layernorm_bwd": GNN_CONVS * BF16_STEPS,
                      "embed_grad": 2 * BF16_STEPS, "adamw_project_rows": 2 * BF16_STEPS})
@@ -768,6 +876,9 @@ def main() -> None:
           launches=train_launches, expected=expected)
     require(all(np.isfinite(losses16)), f"bf16 train losses not finite: {losses16}")
     require(train_launches == expected, f"train launch counts {train_launches} != {expected}")
+    require(all(train_launches[f"{name}_tc"] == train_launches[name] > 0
+                for name in ("sym_conv", "sym_conv_bwd")),
+            "a bf16 GraphConv launch of the stage-4 step missed the tensor-core kernels")
 
     # 10. timings: training kernels, the step, its split, idle share, memory
     for name, case in train_cases.items():
@@ -785,6 +896,52 @@ def main() -> None:
         )
         phase("kernel_time", kernel=name, dtype="float32", shape=list(p0.shape),
               ms=times[name][0], plain_ms=times[name][1], **card_note)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ms(fn, iters=TIME_ITERS):
+        """Device ms of one call of fn: every device event of `iters` calls
+        under the profiler. The profiler now and then returns a session with
+        no device event at all, whatever was launched (twice in a row once);
+        each such session is printed as a phase of its own and taken again,
+        and five in a row fail."""
+        fn()
+        torch.cuda.synchronize()
+        for attempt in range(1, 6):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            total_us = sum(device_time_by_name(prof).values())
+            if total_us:
+                return total_us / iters / 1e3
+            phase("profile_empty", attempt=attempt, iters=iters)
+        raise AssertionError("the profiler recorded no device event in five profiles in a row")
+
+    # the GraphConv kernels' and embed_grad's device time at the class-graph
+    # shapes; beside them, as a note, torch.bmm on an E_sym formed beforehand:
+    # the products alone (no single PyTorch call symmetrises and multiplies)
+    conv_args = cases["sym_conv"](torch.bfloat16)[2]
+    bwd_args = train_cases["sym_conv_bwd"](torch.bfloat16)[2]
+    esym = gc.symmetrize_edges(conv_args[0])
+    f16, g16 = bwd_args[1], bwd_args[2]
+
+    def bwd_products():
+        return torch.bmm(esym, g16), torch.bmm(g16, f16.transpose(1, 2))
+
+    conv_device = {
+        "sym_conv": device_ms(lambda: gc.sym_conv(*conv_args)),
+        "sym_conv_bwd": device_ms(lambda: gc.sym_conv_bwd(*bwd_args)),
+        "embed_grad": device_ms(lambda: ek.embed_grad(*train_cases["embed_grad"](torch.bfloat16)[2])),
+    }
+    phase("kernel_time", kernel="sym_conv_device", dtype="bfloat16", shape=list(f16.shape),
+          device_ms=conv_device, ms={k: times[k][0] for k in conv_device},
+          note="bmm_*: torch.bmm on a pre-formed E_sym, the products alone; not library_ms",
+          bmm_fwd_ms=time_ms(lambda: torch.bmm(esym, f16), TIME_ITERS),
+          bmm_fwd_device_ms=device_ms(lambda: torch.bmm(esym, f16)),
+          bmm_bwd_ms=time_ms(bwd_products, TIME_ITERS), bmm_bwd_device_ms=device_ms(bwd_products),
+          **card_note)
+    del esym, conv_args, bwd_args, f16, g16
     # the one PyTorch call that computes embed_grad's function: index_add_
     # into an fp32 table, of the same cotangents made fp32 beforehand
     ids_long = ids_class.reshape(-1).long()
@@ -852,8 +1009,6 @@ def main() -> None:
     phase("train_split", ms={k: float(np.median(v)) for k, v in split.items()},
           note="forward_loss runs the frozen forward again; its time is subtracted",
           **card_note)
-
-    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -982,25 +1137,6 @@ def main() -> None:
             "a bf16 attention launch of stage 0 missed the tensor-core kernels")
 
     # 14. timings: the stage-0 kernels beside their plain versions and SDPA, the step
-    def device_ms(fn, iters=TIME_ITERS):
-        """Device ms of one call of fn: every device event of `iters` calls
-        under the profiler. The profiler now and then returns a session with
-        no device event at all, whatever was launched (twice in a row once);
-        each such session is printed as a phase of its own and taken again,
-        and five in a row fail."""
-        fn()
-        torch.cuda.synchronize()
-        for attempt in range(1, 6):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
-            total_us = sum(device_time_by_name(prof).values())
-            if total_us:
-                return total_us / iters / 1e3
-            phase("profile_empty", attempt=attempt, iters=iters)
-        raise AssertionError("the profiler recorded no device event in five profiles in a row")
-
     for name in s0_kernels:
         for p in (0.0, S0_DROPOUT):
             kernel, plain, args = s0_case(name, torch.bfloat16, p)

@@ -378,10 +378,10 @@ cudaError_t mhsa_bwd_impl(const void* qkv, const void* g, void* dqkv, void* stat
 
 
 // ---------------------------------------------------------------------------
-// bf16 route: tensor cores
+// bf16 route: tensor cores (the mma, ldmatrix and cp.async helpers are in
+// common.cuh)
 // ---------------------------------------------------------------------------
-using bf16 = __nv_bfloat16;
-constexpr int kTcThreads = 128;     // 4 warps of 16 rows
+constexpr int kTcThreads = 128;    // 4 warps of 16 rows
 constexpr int kTcRows = 64;         // query rows (forward, dq) or keys (dk, dv) a block
 constexpr int kTcMaxTokens = 320;
 constexpr int kPPitch = kTcRows + 8;  // bf16 a row of the dk, dv kernel's P and dS tiles
@@ -394,55 +394,6 @@ __host__ __device__ constexpr int tc_pitch() { return D + 8; }
 
 // keys padded to whole tiles of 16
 __host__ __device__ inline int tc_keys(int n) { return (n + 15) & ~15; }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from device to shared memory, asynchronously; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// c += a b: A 16x16 (row), B 16x8 (col), bf16 in, fp32 accumulated
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two fp32 values rounded to bf16 (nearest even), the lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // Rows [row0, row0 + rows) of one head's slice (columns col0 .. col0 + D) of
 // a [.., n, stride] bf16 tensor into a [rows][D + 8] shared tile, by cp.async;

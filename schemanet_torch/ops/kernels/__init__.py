@@ -32,6 +32,8 @@ _COUNTERS = {
     "ffn_block": (ffn_block, "launches"),
     "sym_conv": (sym_conv, "launches"),
     "sym_conv_bwd": (sym_conv_bwd, "launches"),
+    "sym_conv_tc": (sym_conv, "tc_launches"),  # the tensor-core route's share
+    "sym_conv_bwd_tc": (sym_conv_bwd, "tc_launches"),
     "embed_grad": (embed_grad, "launches"),
     "adamw_project_rows": (adamw_project_rows, "launches"),
     "fused_mhsa": (fused_mhsa, "launches"),

@@ -20,8 +20,11 @@ and rounded once. In the backward, ``df = E_sym g`` rounds like the forward,
 and ``t = g f^T`` stays fp32 through ``dE = (t + t^T)/2``, rounded once.
 
 Dispatch: a CPU tensor takes the plain version (``*_reference``); a CUDA
-tensor launches the kernel or raises. ``sym_conv.launches`` and
-``sym_conv_bwd.launches`` count the launches.
+tensor launches the kernel or raises. ``conv_route`` picks the kernels by
+dtype: fp32 takes the FMA kernels, bf16 the tensor-core ones (any V, D a
+multiple of 8). ``sym_conv.launches`` and ``sym_conv_bwd.launches`` count
+the launches of both routes, ``sym_conv.tc_launches`` and
+``sym_conv_bwd.tc_launches`` those of the tensor-core route.
 """
 
 from __future__ import annotations
@@ -32,6 +35,26 @@ import torch
 
 from . import _build
 from .encoder_block import _DTYPES, _check, _require_cuda, _stream
+
+FMA, TENSOR_CORE = "fma", "tensor_core"
+
+
+def conv_route(dtype: torch.dtype, v: int, d: int) -> str:
+    """The kernels a CUDA launch of ``sym_conv`` or ``sym_conv_bwd`` takes for
+    graphs of this dtype, V vertices and width D: ``"fma"`` (fp32: FMA on
+    fp32 tiles, which keeps fp32's agreement where tensor cores would mean
+    TF32) or ``"tensor_core"`` (bf16: ``mma`` on bf16 tiles, any V, D a
+    multiple of 8, since f's rows are copied in 16-byte chunks). Raises on
+    what neither takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"sym_conv takes float32 or bfloat16, got {dtype}")
+    if v < 1 or d < 1:
+        raise ValueError(f"sym_conv takes graphs of V >= 1 and D >= 1, got V={v}, D={d}")
+    if dtype == torch.float32:
+        return FMA
+    if d % 8:
+        raise ValueError(f"sym_conv takes a bfloat16 width D that is a multiple of 8, got {d}")
+    return TENSOR_CORE
 
 
 def symmetrize_edges(e: torch.Tensor) -> torch.Tensor:
@@ -60,16 +83,23 @@ def sym_conv_bwd_reference(
     return (0.5 * (t + t.transpose(-1, -2))).to(e.dtype), df
 
 
-def _check_conv(name: str, e: torch.Tensor, f: torch.Tensor):
+def _check_conv(name: str, e: torch.Tensor, f: torch.Tensor, *more: torch.Tensor):
+    """(k, v, d, route) of graphs the kernels take; raises on any other.
+    ``more``: further [K, V, D] operands (the backward's g)."""
     _require_cuda("e", e)
     if f.dtype not in _DTYPES:
         raise TypeError(f"{name} takes float32 or bfloat16, got {f.dtype}")
     if f.ndim != 3:
         raise ValueError(f"{name} takes f of shape [K, V, D], got {tuple(f.shape)}")
     k, v, d = f.shape
+    route = conv_route(f.dtype, v, d)
     _check("e", e, f.dtype, (k, v, v))
-    _check("f", f, f.dtype, (k, v, d))
-    return k, v, d
+    for label, t in (("f", f), *(("g", t) for t in more)):
+        _check(label, t, f.dtype, (k, v, d))
+    if route == TENSOR_CORE and any(t.data_ptr() % 16 for t in (e, f, *more)):
+        raise ValueError(f"{name}: the tensor-core kernels copy 16-byte chunks; an operand is not "
+                         "16-byte aligned")
+    return k, v, d, route
 
 
 def _sym_conv_forward(e: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
@@ -77,13 +107,15 @@ def _sym_conv_forward(e: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     on the CPU."""
     if e.device.type == "cpu":
         return sym_conv_reference(e, f)
-    k, v, d = _check_conv("sym_conv", e, f)
+    k, v, d, route = _check_conv("sym_conv", e, f)
     out = torch.empty_like(f)
     err = _build.library().sn_sym_conv(
         _DTYPES[f.dtype], e.data_ptr(), f.data_ptr(), out.data_ptr(), k, v, d, _stream()
     )
     _build.check(err, "sym_conv")
     sym_conv.launches += 1
+    if route == TENSOR_CORE:
+        sym_conv.tc_launches += 1
     return out
 
 
@@ -94,8 +126,7 @@ def sym_conv_bwd(
     ``g`` [K, V, D]; ``de`` [K, V, V] is skipped (None) when not needed."""
     if e.device.type == "cpu":
         return sym_conv_bwd_reference(e, f, g, need_de)
-    k, v, d = _check_conv("sym_conv_bwd", e, f)
-    _check("g", g, f.dtype, (k, v, d))
+    k, v, d, route = _check_conv("sym_conv_bwd", e, f, g)
     df = torch.empty_like(g)
     de = torch.empty_like(e) if need_de else None
     err = _build.library().sn_sym_conv_bwd(
@@ -104,6 +135,8 @@ def sym_conv_bwd(
     )
     _build.check(err, "sym_conv_bwd")
     sym_conv_bwd.launches += 1
+    if route == TENSOR_CORE:
+        sym_conv_bwd.tc_launches += 1
     return de, df
 
 
@@ -126,5 +159,5 @@ def sym_conv(e: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     return _SymConv.apply(e, f)
 
 
-sym_conv.launches = 0
-sym_conv_bwd.launches = 0
+sym_conv.launches = sym_conv.tc_launches = 0
+sym_conv_bwd.launches = sym_conv_bwd.tc_launches = 0

@@ -153,13 +153,19 @@ class Matcher(nn.Module):
         self.ref_pooling, self.per_sample_pooling = ref_pooling, per_sample_pooling
         self.gnn = GNN(num_codes, embed_dim, num_layers, identity_proj, activation, dtype)
 
-    def forward(self, instance: dict, atlas: dict) -> torch.Tensor:
+    def forward(self, instance: dict, atlas: dict,
+                per_sample_pooling: Optional[bool] = None) -> torch.Tensor:
+        """``per_sample_pooling`` overrides the module's own setting for this
+        call (None keeps it): serving passes True without changing the
+        module."""
+        if per_sample_pooling is None:
+            per_sample_pooling = self.per_sample_pooling
         pool_size = None
         if self.ref_pooling and instance.get("num_slots") is not None:
             slots = torch.clamp(instance["num_slots"], min=1)
             # per-sample: each sample's own live-slot count (batch invariant);
             # otherwise the batch max, the reference's training semantics
-            pool_size = slots if self.per_sample_pooling else slots.max()
+            pool_size = slots if per_sample_pooling else slots.max()
         feat_instance = self.gnn(
             instance["instance_vertices"], instance["instance_edges"],
             instance["instance_ingredients"], instance.get("feat_mask"), pool_size,

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -95,17 +95,20 @@ class SchemaNetPredictor(nn.Module):
         )
         self.ingredient_backbone.requires_grad_(False)
 
-    def forward(self, img: torch.Tensor, deterministic: bool = True,
-                rng=None) -> Dict[str, torch.Tensor]:
+    def forward(self, img: torch.Tensor, deterministic: bool = True, rng=None,
+                per_sample_pooling: Optional[bool] = None) -> Dict[str, torch.Tensor]:
         """Logits and atlas of NHWC images. ``deterministic`` and ``rng`` are
         the trainer's training-forward arguments, which this model takes and
         ignores: its backbone is frozen and runs deterministic whatever its
-        ``dropout``, as in the JAX package, and nothing else drops out."""
+        ``dropout``, as in the JAX package, and nothing else drops out, so the
+        forward does not depend on the module's training mode.
+        ``per_sample_pooling`` overrides ``cfg.per_sample_pooling`` for this
+        call (None keeps it)."""
         with torch.no_grad():
             output = self.ingredient_backbone(img)
         instance = self.schema_net(output["ingredients"], output["attn"], output["attn_cls"])
         atlas = self.schema_net.get_atlas()
-        return {"pred": self.matcher(instance, atlas), **atlas}
+        return {"pred": self.matcher(instance, atlas, per_sample_pooling), **atlas}
 
 
 def build_predictor(

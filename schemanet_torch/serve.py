@@ -2,15 +2,15 @@
 in ``schemanet_tpu/serve.py``).
 
 Images of any count are split into fixed-size microbatches; the last one is
-padded by repeating its final image, so every call runs one shape. The served
-model pools each instance graph by its own live-slot count
-(``per_sample_pooling``): the reference's bs=1 semantics, which makes the
-logits of an image independent of the images it shares a microbatch with.
+padded by repeating its final image, so every call runs one shape. Serving
+pools each instance graph by its own live-slot count (``per_sample_pooling``,
+passed to every forward call): the reference's bs=1 semantics, which makes
+the logits of an image independent of the images it shares a microbatch
+with. The caller's model keeps its own pooling for training.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Iterator, Tuple, Union
 
 import numpy as np
@@ -24,14 +24,18 @@ Images = Union[np.ndarray, torch.Tensor]
 
 class ServePredictor:
     """Serves ``predictor`` on ``device``: CUDA unless the caller passes
-    ``device="cpu"``; without a GPU the default raises."""
+    ``device="cpu"``; without a GPU the default raises.
+
+    The model is moved to the serving device in place (``Module.to`` moves
+    the caller's module). Nothing else of it changes: its config, its
+    matcher's pooling and its training mode stay as they were, since the
+    predictor's forward does not depend on the mode and the per-sample pooling
+    is an argument of each call."""
 
     def __init__(self, predictor: SchemaNetPredictor, microbatch: int = 64, device=None):
         self.microbatch = microbatch
         self.device = resolve_device(device)
-        predictor.matcher.per_sample_pooling = True
-        predictor.cfg = dataclasses.replace(predictor.cfg, per_sample_pooling=True)
-        self.predictor = predictor.to(self.device).eval()
+        self.predictor = predictor.to(self.device)
 
     def _microbatches(self, images: torch.Tensor) -> Iterator[Tuple[torch.Tensor, int]]:
         mb = self.microbatch
@@ -47,8 +51,8 @@ class ServePredictor:
         """images [n, H, W, C] float (normalised), on any device -> logits
         [n, K] on the serving device."""
         images = images.to(self.device, torch.float32)
-        outs = [self.predictor(chunk)["pred"][:n_valid] for chunk, n_valid in
-                self._microbatches(images)]
+        outs = [self.predictor(chunk, per_sample_pooling=True)["pred"][:n_valid]
+                for chunk, n_valid in self._microbatches(images)]
         return torch.cat(outs)
 
     def predict(self, images: Images) -> np.ndarray:

@@ -32,6 +32,18 @@ def test_embed_grad_reference_matches_jax():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
+def test_embed_grad_reference_chunks_match_jax(monkeypatch):
+    """The plain version's fixed chunks of rows (cut to 64 here, so the 300
+    rows take five chunks, one of them partial) add up to JAX's sum."""
+    monkeypatch.setattr(ek, "_SUM_CHUNK", 64)
+    ids, g = _inputs(np.random.default_rng(5))
+    want = np.asarray(jax_embed_grad(jnp.asarray(ids), jnp.asarray(g), NUM_ROWS, True))
+    got = ek.embed_grad_reference(torch.from_numpy(ids), torch.from_numpy(g), NUM_ROWS)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    again = ek.embed_grad_reference(torch.from_numpy(ids), torch.from_numpy(g), NUM_ROWS)
+    assert torch.equal(got, again)
+
+
 def test_embed_lookup_backward_matches_jax():
     ids, g = _inputs(np.random.default_rng(1), shape=(4, 9, 10))
     table = torch.from_numpy(

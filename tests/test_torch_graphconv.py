@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from schemanet_torch.ops.kernels import graphconv as gc
 from schemanet_torch.ops.kernels.graphconv import sym_conv, sym_conv_reference
 from schemanet_torch.schema.gnn import GraphConv
 from schemanet_tpu.ops.pallas.graphconv import sym_conv as jax_sym_conv
@@ -55,6 +56,40 @@ def test_graph_conv_module_matches_jax_conv_then_dense():
         got = conv(torch.from_numpy(e), torch.from_numpy(f)).numpy()
     want = np.asarray(jax_xla_sym_conv(jnp.asarray(e), jnp.asarray(f))) @ w + b
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,v,d,route", [
+    (torch.float32, 1024, 256, "fma"),
+    (torch.float32, 70, 40, "fma"),
+    (torch.float32, 33, 12, "fma"),  # fp32 takes any D
+    (torch.bfloat16, 1024, 256, "tensor_core"),  # CIFAR class graphs
+    (torch.bfloat16, 196, 256, "tensor_core"),  # instance graphs: rows 8-byte aligned
+    (torch.bfloat16, 500, 1024, "tensor_core"),  # ImageNet class graphs
+    (torch.bfloat16, 70, 40, "tensor_core"),  # rows 4-byte aligned
+    (torch.bfloat16, 33, 8, "tensor_core"),  # odd V: plain loads
+])
+def test_conv_route(dtype, v, d, route):
+    """The CUDA kernels a GraphConv launch takes: fp32 keeps the FMA kernels,
+    bf16 the tensor-core ones at any V."""
+    assert gc.conv_route(dtype, v, d) == route
+
+
+@pytest.mark.parametrize("dtype,v,d,what", [
+    (torch.bfloat16, 196, 12, "multiple of 8"),
+    (torch.bfloat16, 1024, 100, "multiple of 8"),
+    (torch.bfloat16, 0, 256, "V >= 1"),
+    (torch.float32, 64, 0, "D >= 1"),
+])
+def test_conv_route_rejects(dtype, v, d, what):
+    """No quiet fallback: a bf16 width the tensor-core kernels do not take
+    raises."""
+    with pytest.raises(ValueError, match=what):
+        gc.conv_route(dtype, v, d)
+
+
+def test_conv_route_rejects_other_dtypes():
+    with pytest.raises(TypeError, match="float16"):
+        gc.conv_route(torch.float16, 64, 64)
 
 
 def test_sym_conv_refuses_non_cuda_devices():

@@ -6,9 +6,8 @@ without a card. Imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances, relative to max |plain|: fp32 1e-5 (summation order only, and
-the run-dependent order of embed_grad's atomics), bf16 2e-2 (a few bf16 ulps
-where roundings meet in another order). The fused attention and FFN kernels
+Tolerances, relative to max |plain|: fp32 1e-5 (summation order only), bf16
+2e-2 (a few bf16 ulps where roundings meet in another order). The fused attention and FFN kernels
 are held to the plain versions of their forward and their backward, with
 dropout off and at p = 0.1 with the same seed.
 
@@ -90,14 +89,25 @@ def test_ffn_block_kernel(dev, dtype, tol, rows, dim, f):
     assert _rel(got, eb.ffn_block_reference(*args)) <= tol
 
 
+# rows of E 4-byte aligned (V = 70), 8-byte (196: instance graphs; 500:
+# ImageNet class graphs), 16-byte (1024: CIFAR class graphs), 2-byte (33)
+CONV_SHAPES = [(2, 70, 40), (3, 196, 256), (2, 500, 1024), (2, 1024, 256), (2, 33, 8)]
+
+
 @pytest.mark.parametrize("dtype,tol", TOLS)
-@pytest.mark.parametrize("k,v,d", [(2, 70, 40), (3, 196, 256)])
+@pytest.mark.parametrize("k,v,d", CONV_SHAPES)
 def test_sym_conv_kernel(dev, dtype, tol, k, v, d):
+    """bf16 takes the tensor-core kernel (counted by tc_launches), fp32 the
+    FMA one; the identity on the diagonal tiles shows as an O(1) error if a
+    fragment's coordinates are wrong."""
     g = torch.Generator().manual_seed(2)
     e = (torch.rand(k, v, v, generator=g) / v).to(dev, dtype)
     f = _rnd(g, dev, k, v, d).to(dtype)
+    before = (gc.sym_conv.launches, gc.sym_conv.tc_launches)
     got = gc.sym_conv(e, f)
     torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16)
+    assert (gc.sym_conv.launches, gc.sym_conv.tc_launches) == (before[0] + 1, before[1] + tc)
     assert got.dtype == dtype and got.shape == (k, v, d)
     assert _rel(got, gc.sym_conv_reference(e, f)) <= tol
 
@@ -110,23 +120,31 @@ def test_kernels_reject_bad_inputs(dev):
     e = torch.zeros(2, 8, 8, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         gc.sym_conv(e.transpose(1, 2), torch.zeros(2, 8, 4, device=dev))
+    with pytest.raises(ValueError, match="multiple of 8"):  # no quiet fallback to the FMA kernel
+        gc.sym_conv(e.bfloat16(), torch.zeros(2, 8, 12, device=dev, dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype,tol", TOLS)
-@pytest.mark.parametrize("k,v,d", [(2, 70, 40), (3, 196, 256)])
+@pytest.mark.parametrize("k,v,d", CONV_SHAPES)
 def test_sym_conv_bwd_kernel(dev, dtype, tol, k, v, d):
+    """bf16: the tensor-core kernels, dE computed on the upper triangle of
+    tiles and mirrored, so exactly symmetric; fp32: the FMA kernels."""
     g = torch.Generator().manual_seed(3)
     e = (torch.rand(k, v, v, generator=g) / v).to(dev, dtype)
     f, cot = _rnd(g, dev, k, v, d).to(dtype), _rnd(g, dev, k, v, d).to(dtype)
-    before = gc.sym_conv_bwd.launches
+    before = (gc.sym_conv_bwd.launches, gc.sym_conv_bwd.tc_launches)
     de, df = gc.sym_conv_bwd(e, f, cot)
     no_de, df_only = gc.sym_conv_bwd(e, f, cot, need_de=False)
     want_de, want_df = gc.sym_conv_bwd_reference(e, f, cot)
     torch.cuda.synchronize()
-    assert gc.sym_conv_bwd.launches == before + 2
+    tc = 2 * int(dtype == torch.bfloat16)
+    assert (gc.sym_conv_bwd.launches, gc.sym_conv_bwd.tc_launches) == \
+        (before[0] + 2, before[1] + tc)
     assert de.dtype == df.dtype == dtype and de.shape == (k, v, v) and no_de is None
     assert _rel(de, want_de) <= tol and _rel(df, want_df) <= tol
     assert torch.equal(df_only, df)
+    if dtype == torch.bfloat16:
+        assert torch.equal(de, de.transpose(1, 2))
     # through autograd: the Function's backward launches the kernel
     ef, ff = e.clone().requires_grad_(), f.clone().requires_grad_()
     gc.sym_conv(ef, ff).backward(cot)
@@ -142,9 +160,13 @@ def test_embed_grad_kernel(dev, dtype, shape, num_rows, d):
     ids = ids.to(dev)
     cot = _rnd(g, dev, *shape, d).to(dtype)
     got = ek.embed_grad(ids, cot, num_rows)
+    want = ek.embed_grad_reference(ids, cot, num_rows)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (num_rows, d)
-    assert _rel(got, ek.embed_grad_reference(ids, cot, num_rows)) <= 1e-5
+    assert _rel(got, want) <= 1e-5
+    # both add in a fixed order: the same bits on every call
+    assert torch.equal(got, ek.embed_grad(ids, cot, num_rows))
+    assert torch.equal(want, ek.embed_grad_reference(ids, cot, num_rows))
 
 
 @pytest.mark.parametrize("shape,remove_self_loop", [((7, 40), False), ((6, 100, 100), True)])

@@ -14,8 +14,9 @@ import torch
 
 from schemanet_torch.models.port import from_jax_params
 from schemanet_torch.schema import build_predictor as torch_build_predictor
-from schemanet_torch.schema import init_parameters_
+from schemanet_torch.schema import get_loss_fn, init_parameters_
 from schemanet_torch.serve import ServePredictor as TorchServePredictor
+from schemanet_torch.train import SCHEMA_NET_FROZEN, Trainer, TrainerConfig
 from schemanet_tpu.ops import geometry as jax_geometry
 from schemanet_tpu.ops import policy
 from schemanet_tpu.schema import build_predictor as jax_build_predictor
@@ -143,6 +144,60 @@ def test_serve_slice_matches_jax(jax_variables):
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * scale)
     np.testing.assert_array_equal(server.predict_labels(images), want.argmax(-1))
+
+
+def _seeded_predictor():
+    model = torch_build_predictor(MODEL_CFG, SCHEMA_CFG, K, M, D, ENCODE_LAYER)
+    init_parameters_(model, torch.Generator().manual_seed(0))
+    return model
+
+
+def _trainer(model):
+    train_cfg = {
+        "optimizer": {"name": "AdamW", "lr": 0.001, "weight_decay": 0.05},
+        "param_groups": [{"pattern": "schema_net", "cfg": {"weight_decay": 0.0005}},
+                         {"pattern": "matcher"}],
+        "drop_remain": True,
+        "lr_schedule": {"name": "cosine_annealing", "T_max": 50, "eta_min": 1.0e-05},
+        "train_epochs": 50,
+    }
+    return Trainer(TrainerConfig.from_cfg(train_cfg, frozen_patterns=SCHEMA_NET_FROZEN), model,
+                   get_loss_fn({"name": "schema_inference_loss"}),
+                   {"cls": 1.0, "re_entropy_vertex": 0.5, "re_entropy_edge": 0.75},
+                   steps_per_epoch=10, device="cpu")
+
+
+def test_serving_leaves_the_callers_model_as_it_was():
+    """A model wrapped by ServePredictor and used to serve keeps its config,
+    its matcher's pooling and its training mode; a training step of it then
+    gives exactly the loss and gradients of an identical model never wrapped
+    (training pools by the batch max, serving by each sample's count)."""
+    rng = np.random.default_rng(3)
+    images = rng.normal(size=(6, 16, 16, 3)).astype(np.float32)
+    batch = {"image": torch.from_numpy(images),
+             "label": torch.from_numpy(rng.integers(0, K, size=6))}
+    wrapped, never = _seeded_predictor(), _seeded_predictor()
+    cfg = wrapped.cfg
+    assert wrapped.training and not cfg.per_sample_pooling
+    server = TorchServePredictor(wrapped, microbatch=4, device="cpu")
+    assert np.isfinite(server.predict(images)).all()
+    assert wrapped.cfg == cfg and not wrapped.cfg.per_sample_pooling
+    assert not wrapped.matcher.per_sample_pooling
+    assert wrapped.training
+    # the batch's live-slot counts differ, so the two poolings give other logits
+    with torch.no_grad():
+        by_max = never(batch["image"])["pred"]
+        by_sample = never(batch["image"], per_sample_pooling=True)["pred"]
+    assert not torch.equal(by_max, by_sample)
+    torch.testing.assert_close(server.predict_tensor(batch["image"]), by_sample, rtol=0, atol=0)
+
+    losses = [float(_trainer(m).train_iter(batch)["loss"]) for m in (wrapped, never)]
+    assert losses[0] == losses[1]
+    grads = [{n: p.grad for n, p in m.named_parameters() if p.requires_grad}
+             for m in (wrapped, never)]
+    assert grads[0].keys() == grads[1].keys()
+    for name in grads[0]:
+        assert torch.equal(grads[0][name], grads[1][name]), name
 
 
 def test_serve_batch_invariance():
