@@ -13,12 +13,15 @@ Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
 
 1. device: name, count, and ``nvidia-smi`` name and power limit;
 2. build: compiles ``schemanet_torch/csrc/*.cu``, one nvcc per file at once;
-   prints the registers and spills of the tensor-core attention and
-   GraphConv kernels from the ptxas log and fails if any spills;
+   prints the registers and spills of the tensor-core kernels (attention
+   and its head-mean variant, GraphConv, the FFN backward, attn_block's
+   products) from the ptxas log, and fails if one is missing or spills;
 3. each serving kernel against its plain PyTorch version at the serving
    shapes, in bf16 and fp32: max |kernel - plain| / max |plain| <= 2e-2
    (bf16), 1e-4 (fp32); ``sym_conv`` also at rows of E that are 4-byte
-   (V = 70) and 8-byte (V = 500) aligned (``CONV_EDGES``);
+   (V = 70) and 8-byte (V = 500) aligned (``CONV_EDGES``), ``attn_block``
+   (both variants) also one row past a tile of 64 and at DeiT-Small's 6
+   heads of width 384 (``ATTN_EDGES``);
 4. the slice in fp32 (graph_precision 'highest') on 100 images (two
    microbatches, the second padded) against the same model with the plain
    versions called in place of the kernels: VQ ids agree on >= 99.9% of
@@ -26,7 +29,8 @@ Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
 5. the slice in bf16 (graph_precision 'default'): finite [n, 100] logits for
    1, 64 and 100 images; ``predict(x[:5]) == predict(x)[:5]`` bit for bit;
    every kernel's launch counter advanced as the path implies (per
-   microbatch: 10 attn_block, one of them with the head-mean, 10 ffn_block,
+   microbatch: 10 attn_block on the tensor-core route, one of them with the
+   head-mean, 10 ffn_block,
    one vq_assign, 4 sym_conv, all on the tensor-core route, 4
    fused_layernorm (the GNN's LN+relu), and no training kernel);
 6. timings (CUDA events after warm-up): each kernel beside its plain version,
@@ -60,7 +64,8 @@ the fused update):
    gradient, parameter and moment must have the same bits both times;
 9. the step in bf16 (graph_precision 'default', the training default): 5
    finite losses, and the launch counters advanced as the path implies (per
-   step: 10 attn_block, one with the head-mean, 10 ffn_block, one vq_assign,
+   step: 10 attn_block on the tensor-core route, one with the head-mean, 10
+   ffn_block, one vq_assign,
    4 sym_conv and 4 sym_conv_bwd, all on the tensor-core route, 4
    fused_layernorm and 4 fused_layernorm_bwd, 2 embed_grad, 2
    adamw_project_rows);
@@ -85,21 +90,28 @@ at DeiT-Tiny width, 12 layers, dropout 0.1, AdamW lr 1e-4 with warmup,
     same seed (equal masks, so a wrong mask shows as an O(1) error); the
     tolerances of 3. The attention kernels also at the edges of their tiling
     (``MHSA_EDGES``: n = 65, one row past a tile of 64; n = 320, the limit;
-    head_dim 32 over several waves of blocks);
+    head_dim 32 over several waves of blocks), the FFN backward past its
+    tiles (``MLP_EDGES``: 1,000 rows, past a tile of 64; f = 96, past a
+    chunk of 64), and its bf16 dW1, dW2, db1 and db2 equal bit for bit over
+    two calls at every one of those shapes;
 12. the step in fp32 with dropout live: 3 steps against the same trainer
     with every kernel replaced by its plain version, from the same generator
     seeds (so the same masks); losses within 1e-4 relative, the parameters
     within the rule of 8;
 13. the step in bf16 (the config's dtype): 5 finite losses; per step 12
     launches each of fused_mhsa, fused_mhsa_bwd, fused_mlp and fused_mlp_bwd,
-    every attention launch on the tensor-core route, 25 of fused_layernorm
+    every attention and FFN-backward launch on the tensor-core route, 25 of
+    fused_layernorm
     and of fused_layernorm_bwd (two a layer and the final norm), and none of
     the serving or SchemaNet kernels;
 14. timings: each stage-0 kernel beside its plain version, and
     ``scaled_dot_product_attention`` at p = 0 (forward, backward alone, and
     both) beside the attention kernels at p = 0 and 0.1, CUDA events over 20
     calls and, for SDPA and the kernels, the profiler's device time of a
-    call; the bf16 step's ms and images/s beside the
+    call; ``schemanet_torch/kernel_times.py``: events and device time of
+    attn_block (both variants) beside F.layer_norm + F.linear + SDPA +
+    F.linear, of the FFN backward beside its five products by torch.matmul,
+    and of embed_grad beside index_add_; the bf16 step's ms and images/s beside the
     step with every plain version and with the plain LayerNorm alone; its split into forward, backward, and
     clipping plus AdamW; the idle share over 3 steps and the peak memory.
 
@@ -237,6 +249,13 @@ S0_LAYERS = STAGE0_CFG["model"]["transformer"]["num_encoder_layers"]
 S0_DROPOUT, S0_SEED = STAGE0_CFG["model"]["transformer"]["dropout"], 2**31 - 2
 # (bs, n, heads, head_dim) of the attention compares beside the stage-0 shape
 MHSA_EDGES = {"n65": (5, 65, 2, 64), "n320": (2, 320, 3, 64), "d32": (96, 100, 4, 32)}
+# (bs, n, dim, heads) of the attn_block compares beside the serving shape: one
+# query row past a tile of 64; DeiT-Small's width and 6 heads
+ATTN_EDGES = {"n65": (5, 65, EMBED_DIM, HEADS), "deit_small": (16, 197, 384, 6)}
+# (rows, dim, f) of the fused_mlp_bwd compares beside the stage-0 shape (whose
+# 12,608 rows are a multiple of the tensor-core row tile of 64): rows past a
+# tile, and f past a hidden chunk of 64
+MLP_EDGES = {"rows1000": (1000, EMBED_DIM, FFN_DIM), "f96": (45, 64, 96)}
 # (graphs, V, D) of the GraphConv compares beside the path's shapes: rows of E
 # 4-byte aligned (V = 70), 8-byte aligned (V = 500, ImageNet's class graphs)
 CONV_EDGES = {"v70": (4, 70, 40), "v500": (16, 500, 1024)}
@@ -403,11 +422,14 @@ def main() -> None:
     _build.library()
     phase("build", seconds=round(time.perf_counter() - t0, 3),
           compile_seconds=_build.build_seconds, library=str(_build.library_path().name))
-    # registers and spills of the tensor-core kernels, from ptxas: 12
-    # attention kernels (4 head_dims x forward, dq, dk/dv), 8 GraphConv
-    # kernels (4 row widths of E x forward, dE)
+    # registers and spills of the tensor-core kernels, from ptxas: 16
+    # attention kernels (4 head_dims x forward, dq, dk/dv, head-mean
+    # forward), 8 GraphConv kernels (4 row widths of E x forward, dE), 5 FFN
+    # backward kernels (4 widths of dH and dx, one of the weight gradients),
+    # 2 of attn_block's products (LN + qkv, out projection + residual)
     build_log = _build.library_path().with_suffix(".log").read_text()
-    for source, tag, count in (("attention.cu", "mhsa_tc", 12), ("graphconv.cu", "tc_kernel", 8)):
+    for source, tag, count in (("attention.cu", "mhsa_tc", 16), ("graphconv.cu", "tc_kernel", 8),
+                               ("mlp.cu", "tc_kernel", 5), ("encoder_block.cu", "linear_tc", 2)):
         tc_ptxas = {name: dict(zip(("registers", "spill_stores", "spill_loads"), r))
                     for name, r in ptxas_report(build_log, source).items() if tag in name}
         phase("ptxas", source=source, kernels=tc_ptxas)
@@ -467,6 +489,18 @@ def main() -> None:
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
             compare(f"sym_conv_{tag}", gc.sym_conv, gc.sym_conv_reference, (e_.to(dt), f_.to(dt)),
                     {}, dt, tol, errors)
+
+    # attn_block at its edges: one query row past a tile of 64 (the
+    # tensor-core attention's), and DeiT-Small's width with 6 heads
+    for tag, (bs_, n_, d_, h_) in ATTN_EDGES.items():
+        args_e = (rnd(bs_, n_, d_), 1 + rnd(d_, scale=0.1), rnd(d_, scale=0.1),
+                  rnd(3 * d_, d_, scale=d_**-0.5), rnd(3 * d_, scale=0.1),
+                  rnd(d_, d_, scale=d_**-0.5), rnd(d_, scale=0.1), h_)
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            for kw, name in (({}, "attn_block"), ({"capture_hmean": True}, "attn_block_hmean")):
+                compare(f"{name}_{tag}", eb.attn_block, eb.attn_block_reference,
+                        (args_e[0].to(dt), *args_e[1:]), kw, dt, tol, errors)
+    del args_e
 
     # the model, seeded random weights (made on the host, then moved)
     def model(dtype, precision):
@@ -577,6 +611,7 @@ def main() -> None:
     mbs = -(-len(images) // MICROBATCH)
     expected = {name: 0 for name in serve_launches}  # no training kernel
     expected.update({"attn_block": FROZEN_LAYERS * mbs, "attn_block_hmean": mbs,
+                     "attn_block_tc": FROZEN_LAYERS * mbs,
                      "ffn_block": FROZEN_LAYERS * mbs, "vq_assign": mbs,
                      "sym_conv": GNN_CONVS * mbs, "sym_conv_tc": GNN_CONVS * mbs,
                      "fused_layernorm": GNN_CONVS * mbs})
@@ -584,6 +619,8 @@ def main() -> None:
     require(serve_launches == expected, f"launch counts {serve_launches} != {expected}")
     require(serve_launches["sym_conv_tc"] == serve_launches["sym_conv"] > 0,
             "a bf16 GraphConv launch of serving missed the tensor-core kernel")
+    require(serve_launches["attn_block_tc"] == serve_launches["attn_block"] > 0,
+            "a bf16 attn_block launch of serving missed the tensor-core kernels")
     for count in (1, MICROBATCH, N_IMAGES):
         out = s16.predict(images[:count])
         require(out.shape == (count, NUM_CLASSES), f"bf16 logits {out.shape} for {count}")
@@ -866,6 +903,7 @@ def main() -> None:
     losses16 = [m["loss"].item() for m in metrics]
     expected = {name: 0 for name in train_launches}  # no stage-0 kernel
     expected.update({"attn_block": FROZEN_LAYERS * BF16_STEPS, "attn_block_hmean": BF16_STEPS,
+                     "attn_block_tc": FROZEN_LAYERS * BF16_STEPS,
                      "ffn_block": FROZEN_LAYERS * BF16_STEPS, "vq_assign": BF16_STEPS,
                      **{name: GNN_CONVS * BF16_STEPS for name in (
                          "sym_conv", "sym_conv_bwd", "sym_conv_tc", "sym_conv_bwd_tc")},
@@ -877,8 +915,9 @@ def main() -> None:
     require(all(np.isfinite(losses16)), f"bf16 train losses not finite: {losses16}")
     require(train_launches == expected, f"train launch counts {train_launches} != {expected}")
     require(all(train_launches[f"{name}_tc"] == train_launches[name] > 0
-                for name in ("sym_conv", "sym_conv_bwd")),
-            "a bf16 GraphConv launch of the stage-4 step missed the tensor-core kernels")
+                for name in ("sym_conv", "sym_conv_bwd", "attn_block")),
+            "a bf16 GraphConv or attn_block launch of the stage-4 step missed the tensor-core "
+            "kernels")
 
     # 10. timings: training kernels, the step, its split, idle share, memory
     for name, case in train_cases.items():
@@ -1065,6 +1104,29 @@ def main() -> None:
                 compare(f"fused_mhsa_bwd_{suffix}", ak.fused_mhsa_bwd, ak.fused_mhsa_bwd_reference,
                         (qkv_e.to(dt), g_e.to(dt), h_, p, seed), {}, dt, tol, errors)
     del qkv_e, g_e
+    # the FFN backward past its tiles (rows past a tile of 64, f past a
+    # chunk of 64), and the bf16 weight and bias gradients of the stage-0
+    # shape and the edges equal bit for bit over two calls (no atomics)
+    mlp_same = {}
+    for tag, (rows_, d_, f_) in {"stage0": (rows0, d, f), **MLP_EDGES}.items():
+        x_e, g_e = rnd(1, rows_, d_), rnd(1, rows_, d_)
+        w_e = (rnd(f_, d_, scale=d_**-0.5), rnd(f_, scale=0.1), rnd(d_, f_, scale=f_**-0.5))
+        for p in (0.0, S0_DROPOUT):
+            seed = S0_SEED if p else None
+            for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+                args_e = (x_e.to(dt), *(t.to(dt) for t in w_e), g_e.to(dt), "gelu", p, seed)
+                if tag != "stage0":
+                    compare(f"fused_mlp_bwd_{tag}" if p else f"fused_mlp_bwd_{tag}_p0",
+                            mk.fused_mlp_bwd, mk.fused_mlp_bwd_reference, args_e, {}, dt, tol,
+                            errors)
+                if dt == torch.bfloat16:
+                    runs = [mk.fused_mlp_bwd(*args_e)[1:] for _ in range(2)]
+                    mlp_same[f"{tag}_p{p}"] = all(torch.equal(a, b) for a, b in zip(*runs))
+    phase("compare", kernel="fused_mlp_bwd", dtype="bfloat16",
+          dparams_run_to_run_bitwise=mlp_same)
+    require(all(mlp_same.values()), f"bf16 fused_mlp_bwd dW1/dW2/db1/db2 differ between two "
+                                    f"calls: {mlp_same}")
+    del x_e, g_e, w_e, args_e, runs
 
     # 12. the stage-0 step in fp32, dropout live, against the plain versions
     def s0_cfg(dtype):
@@ -1125,7 +1187,8 @@ def main() -> None:
     expected = {name: 0 for name in s0_launches}
     # every attention launch of the bf16 step on the tensor-core route
     expected.update({name: S0_LAYERS * BF16_STEPS
-                     for name in (*s0_kernels, "fused_mhsa_tc", "fused_mhsa_bwd_tc")})
+                     for name in (*s0_kernels, "fused_mhsa_tc", "fused_mhsa_bwd_tc",
+                                  "fused_mlp_bwd_tc")})
     expected.update({name: (2 * S0_LAYERS + 1) * BF16_STEPS
                      for name in ("fused_layernorm", "fused_layernorm_bwd")})
     phase("stage0_bf16", steps=BF16_STEPS, batch=BATCH, losses=losses0, launches=s0_launches,
@@ -1133,8 +1196,8 @@ def main() -> None:
     require(all(np.isfinite(losses0)), f"stage-0 bf16 losses not finite: {losses0}")
     require(s0_launches == expected, f"stage-0 launch counts {s0_launches} != {expected}")
     require(all(s0_launches[f"{name}_tc"] == s0_launches[name] > 0
-                for name in ("fused_mhsa", "fused_mhsa_bwd")),
-            "a bf16 attention launch of stage 0 missed the tensor-core kernels")
+                for name in ("fused_mhsa", "fused_mhsa_bwd", "fused_mlp_bwd")),
+            "a bf16 attention or FFN-backward launch of stage 0 missed the tensor-core kernels")
 
     # 14. timings: the stage-0 kernels beside their plain versions and SDPA, the step
     for name in s0_kernels:
@@ -1186,6 +1249,11 @@ def main() -> None:
     del sdpa_out
     library["fused_mhsa"] = sdpa_ms
     library["fused_mhsa_bwd"] = sdpa_bwd_ms
+    # events and device time of attn_block (both variants), the FFN backward
+    # and embed_grad, beside their PyTorch yardsticks (schemanet_torch/kernel_times.py)
+    from schemanet_torch import kernel_times
+    phase("kernel_times", script="schemanet_torch/kernel_times.py",
+          rows=kernel_times.measure(dev), **card_note)
 
     def s0_step_ms(iters, plain=False):
         out = []

@@ -34,7 +34,10 @@
 //     scores, forms a = exp(s - m) / l with the row's final max and sum,
 //     applies the mask, rounds to bf16 and packs the C fragments straight
 //     into the A fragment of the AV product, V read by ldmatrix.trans. The
-//     output accumulator is [16, d] fp32 a warp.
+//     output accumulator is [16, d] fp32 a warp. The frozen attn_block
+//     (encoder_block.cu) runs the same forward at p = 0, and its head-mean
+//     variant (one block per 64 query rows and item, all heads in order)
+//     sums the pass-1 scores into a [64][np] fp32 shared tile.
 //   - backward, FlashAttention-2's split. (a) dq, per 64 query rows: K and V
 //     staged, q and g fragments in registers, as above; pass 1 the row
 //     statistics (m, l), pass 2 D_i = sum_j dA_ij s_ij with dA = g v^T by
@@ -551,17 +554,26 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// the fp32 score accumulator of the head-mean: element (i, j) of the block's
+// 64 query rows, at the place of the lane whose C fragment holds it
+__device__ __forceinline__ float& hsum_at(float* hsum, int np, int j0, int t, int half, int c,
+                                          int lane) {
+  const int warp = threadIdx.x / 32;
+  return hsum[(warp * 16 + lane / 4 + half * 8) * np + frag_key(j0, t, c, lane)];
+}
+
+// The forward of head h for the block's 64 query rows from q0 (K and V of
+// the head staged into ks and vs here). With `hsum` ([64][np] fp32 in shared
+// memory), the head's scores are also added into it by the lane that holds
+// each (h = 0 sets it): one owner an element, so the sum over heads runs in
+// head order without atomics.
 template <int D>
-__global__ void __launch_bounds__(kTcThreads)
-    mhsa_tc_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int n, int heads,
-                       float scale, float p, float inv, int seed) {
-  constexpr int P = tc_pitch<D>();
-  extern __shared__ __align__(16) unsigned char tc_smem[];
+__device__ __forceinline__ void mhsa_tc_fwd_head(const bf16* __restrict__ qkv,
+                                                 bf16* __restrict__ out, int n, int heads, int h,
+                                                 int b, int q0, float scale, float p, float inv,
+                                                 int seed, bf16* ks, bf16* vs, float* hsum) {
   const int np = tc_keys(n);
-  bf16* ks = reinterpret_cast<bf16*>(tc_smem);  // [np][P]
-  bf16* vs = ks + np * P;                       // [np][P]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * kTcRows, h = blockIdx.y, b = blockIdx.z;
   const int hd = heads * D, n3 = 3 * hd;
   const long item = (long)b * n;
   stage_async<D>(qkv, item, 0, np, n, n3, (heads + h) * D, ks);
@@ -578,6 +590,17 @@ __global__ void __launch_bounds__(kTcThreads)
     float s[2][4];
     mma_rows16<D>(s, qa, ks, j0, lane);
     online_update(m, l, s, j0, lane, n);
+    if (hsum != nullptr) {
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& acc = hsum_at(hsum, np, j0, t, half, c, lane);
+            acc = h == 0 ? s[t][half * 2 + c] : acc + s[t][half * 2 + c];
+          }
+    }
   }
   quad_combine(m, l);
 
@@ -616,6 +639,54 @@ __global__ void __launch_bounds__(kTcThreads)
       *reinterpret_cast<__nv_bfloat162*>(row + t * 8) =
           __floats2bfloat162_rn(o[t][half * 2], o[t][half * 2 + 1]);
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+    mhsa_tc_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int n, int heads,
+                       float scale, float p, float inv, int seed) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(tc_smem);  // [np][P]
+  bf16* vs = ks + tc_keys(n) * tc_pitch<D>();   // [np][P]
+  mhsa_tc_fwd_head<D>(qkv, out, n, heads, blockIdx.y, blockIdx.z, blockIdx.x * kTcRows, scale, p,
+                      inv, seed, ks, vs, nullptr);
+}
+
+// The frozen layer-9 forward of attn_block's capture_hmean (p = 0): one
+// block per (64 query rows, item) owns every head of its rows, so the
+// head-mean of the pre-softmax scores, summed in fp32 in head order 0..H-1
+// and scaled by 1/H, needs no atomics. K and V take 60 KB and the score sum
+// [64][np] fp32 53 KB of shared memory at n = 197, two blocks an SM (the
+// bound of 2 also keeps ptxas from a 4-byte spill it makes at head_dim 64
+// without it).
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    mhsa_tc_hmean_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                         bf16* __restrict__ hmean, int n, int heads, float scale) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int np = tc_keys(n);
+  bf16* ks = reinterpret_cast<bf16*>(tc_smem);             // [np][P]
+  bf16* vs = ks + np * tc_pitch<D>();                      // [np][P]
+  float* hsum = reinterpret_cast<float*>(vs + np * tc_pitch<D>());  // [64][np]
+  const int q0 = blockIdx.x * kTcRows, b = blockIdx.y;
+  for (int h = 0; h < heads; ++h) {
+    if (h > 0) __syncthreads();  // every warp is done with the last head's K and V
+    mhsa_tc_fwd_head<D>(qkv, out, n, heads, h, b, q0, scale, 0.f, 1.f, 0, ks, vs, hsum);
+  }
+  const int lane = threadIdx.x % 32, i0 = q0 + (threadIdx.x / 32) * 16 + lane / 4;
+  const float inv_h = (float)(1.0 / heads);
+  bf16* dst = hmean + (long)b * n * n;
+  for (int j0 = 0; j0 < np; j0 += 16)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int i = i0 + half * 8, j = frag_key(j0, t, c, lane);
+          if (i < n && j < n)
+            dst[(long)i * n + j] = __float2bfloat16(hsum_at(hsum, np, j0, t, half, c, lane) * inv_h);
+        }
 }
 
 // backward (a): row statistics and dq
@@ -899,6 +970,41 @@ cudaError_t mhsa_tc_bwd(const void* qkv, const void* g, void* dqkv, void* stats,
 // the head_dim a bf16 launch takes: a multiple of 16 up to 64, with n <= 320
 inline bool tc_takes(int n, int d) {
   return n <= kTcMaxTokens && d % 16 == 0 && d >= 16 && d <= 64;
+}
+
+template <int D>
+cudaError_t mhsa_tc_hmean(const void* qkv, void* out, void* hmean, int bs, int n, int heads,
+                          float scale, cudaStream_t stream) {
+  const size_t bytes = tc_fwd_smem<D>(n) + sizeof(float) * kTcRows * (size_t)tc_keys(n);
+  cudaError_t err = allow_smem(mhsa_tc_hmean_kernel<D>, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((n + kTcRows - 1) / kTcRows, bs);
+  mhsa_tc_hmean_kernel<D><<<grid, kTcThreads, bytes, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), static_cast<bf16*>(hmean), n, heads,
+      scale);
+  return cudaGetLastError();
+}
+
+// The bf16 attention forward at p = 0 for encoder_block.cu's attn_block: the
+// kernel of fused_mhsa, or, with hmean [bs, n, n] not null, its head-mean
+// variant. head_dim a multiple of 16 up to 64, n <= 320.
+cudaError_t mhsa_tc_forward(const void* qkv, void* out, void* hmean, int bs, int n, int heads,
+                            int d, float scale, cudaStream_t s) {
+  if (!tc_takes(n, d)) return cudaErrorInvalidValue;
+  if (hmean == nullptr) {
+    switch (d) {
+      case 16: return mhsa_tc_fwd<16>(qkv, out, bs, n, heads, scale, 0.f, 1.f, 0, s);
+      case 32: return mhsa_tc_fwd<32>(qkv, out, bs, n, heads, scale, 0.f, 1.f, 0, s);
+      case 48: return mhsa_tc_fwd<48>(qkv, out, bs, n, heads, scale, 0.f, 1.f, 0, s);
+      default: return mhsa_tc_fwd<64>(qkv, out, bs, n, heads, scale, 0.f, 1.f, 0, s);
+    }
+  }
+  switch (d) {
+    case 16: return mhsa_tc_hmean<16>(qkv, out, hmean, bs, n, heads, scale, s);
+    case 32: return mhsa_tc_hmean<32>(qkv, out, hmean, bs, n, heads, scale, s);
+    case 48: return mhsa_tc_hmean<48>(qkv, out, hmean, bs, n, heads, scale, s);
+    default: return mhsa_tc_hmean<64>(qkv, out, hmean, bs, n, heads, scale, s);
+  }
 }
 
 }  // namespace sn

@@ -120,6 +120,58 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
+// mma operands from bf16 shared-memory tiles of row pitch `pitch` elements
+// (a multiple of 8, padded by 16 bytes so the 8 rows an ldmatrix reads fall on
+// distinct banks). In the C fragment of an m16n8 product, lane t holds rows
+// t/4 and t/4 + 8 and columns 2 (t % 4) and 2 (t % 4) + 1.
+//
+// A (16 rows x 16 of k): rows m0.. and columns k0.. of a [m][k] tile
+__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const bf16* tile, int pitch, int m0,
+                                       int k0, int lane) {
+  ldsm_x4(a, tile + (m0 + (lane & 15)) * pitch + k0 + (lane >> 4) * 8);
+}
+
+// A (16 rows x 16 of k) of the transpose of a [k][m] tile: its rows k0..,
+// columns m0..
+__device__ __forceinline__ void ldsm_a_t(uint32_t (&a)[4], const bf16* tile, int pitch, int k0,
+                                         int m0, int lane) {
+  const int i = lane >> 3;
+  ldsm_x4_trans(a, tile + (k0 + (lane & 7) + (i >> 1) * 8) * pitch + m0 + (i & 1) * 8);
+}
+
+// B of two n8 tiles (16 of k x 16 of n): b[0], b[1] for columns n0.., b[2],
+// b[3] for n0 + 8..; from a [n][k] tile (rows n0.., columns k0..)
+__device__ __forceinline__ void ldsm_b_nk(uint32_t (&b)[4], const bf16* tile, int pitch, int n0,
+                                          int k0, int lane) {
+  ldsm_x4(b, tile + (n0 + (lane & 7) + (lane >> 4) * 8) * pitch + k0 + ((lane >> 3) & 1) * 8);
+}
+
+// the same from a [k][n] tile (rows k0.., columns n0..), by ldmatrix.trans
+__device__ __forceinline__ void ldsm_b_kn(uint32_t (&b)[4], const bf16* tile, int pitch, int k0,
+                                          int n0, int lane) {
+  ldsm_x4_trans(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch + n0 +
+                       (lane >> 4) * 8);
+}
+
+// Rows [row0, row0 + R) and columns [col0, col0 + C) of a row-major bf16
+// matrix (nrows x ncols, row stride ld) into a [R][pitch] shared tile by
+// 16-byte cp.async, THREADS threads; chunks at or past nrows or ncols are
+// zero. C, ld, ncols and col0 are multiples of 8 and the matrix is 16-byte
+// aligned. The caller commits the group.
+template <int THREADS>
+__device__ __forceinline__ void stage_tile(bf16* dst, int pitch, const bf16* src, long ld,
+                                           long nrows, int ncols, long row0, int col0, int R,
+                                           int C) {
+  const int chunks = C / 8;
+  for (int idx = threadIdx.x; idx < R * chunks; idx += THREADS) {
+    const int r = idx / chunks, c = (idx % chunks) * 8;
+    const long row = row0 + r;
+    const int col = col0 + c;
+    const bool in = row < nrows && col < ncols;
+    cp_async16(dst + r * pitch + c, in ? src + row * ld + col : src, in ? 16 : 0);
+  }
+}
+
 // Raises the dynamic shared-memory limit of `kernel` when `bytes` is above
 // the 48 KB that every kernel gets without asking.
 template <typename Kernel>
@@ -176,6 +228,27 @@ __device__ __forceinline__ void gemm_smem_a(const float* As, int lda, const T* W
 // memory, rounded to T: statistics as E[x^2] - E[x]^2 clamped at 0 (flax's
 // fast variance, as the TPU kernels compute it), then scale and bias in fp32.
 // One warp per row; rows past `rows_here` up to `BM` are zero-filled.
+// (mean, rstd) of one row of x, by the warp that calls it (lane c sums
+// columns c, c + 32, ...); every lane ends with the same bits
+template <typename T>
+__device__ __forceinline__ void layernorm_stats(const T* x, long base, int dim, float eps,
+                                                int lane, float& mean, float& rstd) {
+  float s = 0.f, s2 = 0.f;
+  for (int c = lane; c < dim; c += 32) {
+    const float v = Num<T>::load(x, base + c);
+    s += v;
+    s2 = fmaf(v, v, s2);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+  mean = s / dim;
+  const float var = fmaxf(s2 / dim - mean * mean, 0.f);
+  rstd = 1.f / sqrtf(var + eps);
+}
+
 template <typename T, int BM>
 __device__ __forceinline__ void layernorm_rows(const T* x, long row0, int rows_here, int dim,
                                                const float* scale, const float* bias, float eps,
@@ -188,20 +261,8 @@ __device__ __forceinline__ void layernorm_rows(const T* x, long row0, int rows_h
       continue;
     }
     const long base = (row0 + r) * (long)dim;
-    float s = 0.f, s2 = 0.f;
-    for (int c = lane; c < dim; c += 32) {
-      const float v = Num<T>::load(x, base + c);
-      s += v;
-      s2 = fmaf(v, v, s2);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-    }
-    const float mean = s / dim;
-    const float var = fmaxf(s2 / dim - mean * mean, 0.f);
-    const float rstd = 1.f / sqrtf(var + eps);
+    float mean, rstd;
+    layernorm_stats<T>(x, base, dim, eps, lane, mean, rstd);
     for (int c = lane; c < dim; c += 32) {
       const float v = Num<T>::load(x, base + c);
       dst[c] = Num<T>::round((v - mean) * rstd * scale[c] + bias[c]);
@@ -209,5 +270,38 @@ __device__ __forceinline__ void layernorm_rows(const T* x, long row0, int rows_h
   }
   __syncthreads();
 }
+
+// The same LayerNorm of bf16 rows, rounded to bf16 into a [BM][pitch] tile
+// (the A operand of a tensor-core product); rows past `rows_here` are zero.
+// The caller synchronises.
+template <int BM>
+__device__ __forceinline__ void layernorm_rows_bf16(const bf16* x, long row0, int rows_here,
+                                                    int dim, const float* scale,
+                                                    const float* bias, float eps, bf16* dst,
+                                                    int pitch) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < BM; r += kThreads / 32) {
+    bf16* row = dst + r * pitch;
+    if (r >= rows_here) {
+      for (int c = lane; c < dim; c += 32) row[c] = __float2bfloat16(0.f);
+      continue;
+    }
+    const long base = (row0 + r) * (long)dim;
+    float mean, rstd;
+    layernorm_stats<bf16>(x, base, dim, eps, lane, mean, rstd);
+    for (int c = lane; c < dim; c += 32) {
+      const float v = __bfloat162float(x[base + c]);
+      row[c] = __float2bfloat16((v - mean) * rstd * scale[c] + bias[c]);
+    }
+  }
+}
+
+// Defined in attention.cu, launched by encoder_block.cu's attn_block: the
+// bf16 tensor-core attention forward at p = 0 on qkv [bs, n, 3 H d] into out
+// [bs, n, H d], and, where hmean is not null, the head-mean of the
+// pre-softmax scores into hmean [bs, n, n]. d a multiple of 16 up to 64,
+// n <= 320.
+cudaError_t mhsa_tc_forward(const void* qkv, void* out, void* hmean, int bs, int n, int heads,
+                            int d, float scale, cudaStream_t stream);
 
 }  // namespace sn

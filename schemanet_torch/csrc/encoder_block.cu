@@ -23,8 +23,11 @@
 //     the hidden width in chunks of 64: fc1 + bias + gelu into shared memory,
 //     and the fc2 partial sums accumulate in registers. The [rows, 768] hidden
 //     state never reaches device memory.
-// Products are fp32 FMA on shared-memory tiles: right first. Tensor-core
-// (wgmma) tiles and keeping qkv on chip are later work.
+// Products are fp32 FMA on shared-memory tiles. That stays the fp32 route of
+// attn_block (tensor cores would mean TF32 and lose the 1e-4 agreement the
+// fp32 checks hold) and ffn_block's only route; bf16 attn_block takes the
+// tensor-core route below (ops/kernels/encoder_block.py attn_block_route
+// says which, and raises on what neither takes).
 //
 // Numerics follow the TPU kernels: LN statistics in fp32 (E[x^2] - E[x]^2),
 // every product accumulated in fp32 and rounded once to T, bias added in T
@@ -321,6 +324,109 @@ cudaError_t attn_block_impl(const void* x, const void* g, const void* be, const 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 route of attn_block: tensor cores (mma.sync m16n8k16; the fragment
+// helpers are in common.cuh), three launches:
+//   (a) linear_tc_kernel<true>: qkv = round(LN1(x) Wqkv^T) + bqkv, the LN
+//       computed in fp32 and rounded to bf16 into the A tile;
+//   (b) the attention of fused_mhsa at p = 0 (attention.cu, the same
+//       function: encoder_block.py:60-72 is attention.py:64-86 at p = 0), or
+//       its head-mean variant, into mh [rows, H d] (bf16, as the TPU rounds
+//       it before the out projection);
+//   (c) linear_tc_kernel<false>: out = x + round(round(mh Wo^T) + bo).
+// One block of 8 warps per 64 rows x 64 output columns; the A rows and the
+// W rows of the block are staged whole (K <= 768) in padded bf16 tiles, each
+// warp owns 16 rows x 32 columns.
+// ---------------------------------------------------------------------------
+constexpr int kLinRows = 64, kLinCols = 64, kLinMaxK = 768;
+
+inline size_t linear_tc_smem(int K) { return sizeof(bf16) * 2 * (size_t)kLinRows * (K + 8); }
+
+template <bool kLn>
+__global__ void __launch_bounds__(kThreads)
+    linear_tc_kernel(const bf16* __restrict__ a, const float* __restrict__ ln_scale,
+                     const float* __restrict__ ln_bias, float eps, const bf16* __restrict__ w,
+                     const bf16* __restrict__ bias, const bf16* __restrict__ resid,
+                     bf16* __restrict__ y, int rows, int K, int N) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int P = K + 8;
+  bf16* as = reinterpret_cast<bf16*>(smem_raw);  // [64][P]
+  bf16* ws = as + kLinRows * P;                  // [64][P]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp >> 1, wc = warp & 1;
+  const long row0 = (long)blockIdx.x * kLinRows;
+  const int n0 = blockIdx.y * kLinCols;
+  stage_tile<kThreads>(ws, P, w, K, N, K, n0, 0, kLinCols, K);
+  if (!kLn) stage_tile<kThreads>(as, P, a, K, rows, K, row0, 0, kLinRows, K);
+  cp_async_commit();
+  if (kLn)  // while W is in flight
+    layernorm_rows_bf16<kLinRows>(a, row0, min((long)kLinRows, rows - row0), K, ln_scale, ln_bias,
+                                  eps, as, P);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t af[4];
+    ldsm_a(af, as, P, wr * 16, k0, lane);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t b[4];
+      ldsm_b_nk(b, ws, P, wc * 32 + np * 16, k0, lane);
+      mma16816(acc[2 * np], af, b[0], b[1]);
+      mma16816(acc[2 * np + 1], af, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long row = row0 + wr * 16 + (lane >> 2) + half * 8;
+      const int col = n0 + wc * 32 + nt * 8 + (lane & 3) * 2;
+      if (row >= rows || col >= N) continue;  // N even: the pair is in whole
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        v[e] = Num<bf16>::round(acc[nt][half * 2 + e]) + __bfloat162float(bias[col + e]);
+        if (!kLn)
+          v[e] = __bfloat162float(resid[row * N + col + e]) + Num<bf16>::round(v[e]);
+      }
+      *reinterpret_cast<uint32_t*>(y + row * N + col) = pack_bf16(v[0], v[1]);
+    }
+}
+
+template <bool kLn>
+cudaError_t linear_tc(const void* a, const void* ln_scale, const void* ln_bias, float eps,
+                      const void* w, const void* bias, const void* resid, void* y, int rows, int K,
+                      int N, cudaStream_t stream) {
+  const size_t bytes = linear_tc_smem(K);
+  cudaError_t err = allow_smem(linear_tc_kernel<kLn>, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((rows + kLinRows - 1) / kLinRows, (N + kLinCols - 1) / kLinCols);
+  linear_tc_kernel<kLn><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const bf16*>(a), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(ln_bias), eps, static_cast<const bf16*>(w),
+      static_cast<const bf16*>(bias), static_cast<const bf16*>(resid), static_cast<bf16*>(y),
+      rows, K, N);
+  return cudaGetLastError();
+}
+
+// dim and H d multiples of 16 up to kLinMaxK; d and n as mhsa_tc_forward takes
+cudaError_t attn_block_tc(const void* x, const void* g, const void* be, const void* wqkv,
+                          const void* bqkv, const void* wo, const void* bo, void* qkv, void* mh,
+                          void* out, void* hmean, int bs, int n, int dim, int heads, int d,
+                          float eps, float scale, cudaStream_t stream) {
+  const int rows = bs * n, hd = heads * d;
+  if (dim % 16 || hd % 16 || dim > kLinMaxK || hd > kLinMaxK || mh == nullptr)
+    return cudaErrorInvalidValue;
+  cudaError_t err = linear_tc<true>(x, g, be, eps, wqkv, bqkv, nullptr, qkv, rows, dim, 3 * hd,
+                                    stream);
+  if (err != cudaSuccess) return err;
+  err = mhsa_tc_forward(qkv, mh, hmean, bs, n, heads, d, scale, stream);
+  if (err != cudaSuccess) return err;
+  return linear_tc<false>(mh, nullptr, nullptr, 0.f, wo, bo, x, out, rows, hd, dim, stream);
+}
+
 template <typename T, int TN2>
 cudaError_t ffn_launch(const void* x, const void* g, const void* be, const void* w1,
                        const void* b1, const void* w2, const void* b2, void* out, int rows,
@@ -355,17 +461,21 @@ cudaError_t ffn_block_impl(const void* x, const void* g, const void* be, const v
 extern "C" {
 
 // qkv: scratch [bs*n, 3*heads*d] of the storage type; hmean may be null.
+// fp32 takes the FMA kernels (head_dim <= 128; mh unused, may be null); bf16
+// the tensor-core kernels (head_dim a multiple of 16 up to 64, n <= 320, dim
+// a multiple of 16 up to 768; mh a bf16 scratch [bs*n, heads*d]).
 int sn_attn_block(int dtype, const void* x, const void* ln_scale, const void* ln_bias,
                   const void* wqkv, const void* bqkv, const void* wo, const void* bo, void* qkv,
-                  void* out, void* hmean, int bs, int n, int dim, int heads, int head_dim,
-                  float eps, float scale, void* stream) {
-  if (head_dim > sn::kMaxHeadDim) return cudaErrorInvalidValue;
+                  void* mh, void* out, void* hmean, int bs, int n, int dim, int heads,
+                  int head_dim, float eps, float scale, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == sn::kF32)
+  if (dtype == sn::kF32) {
+    if (head_dim > sn::kMaxHeadDim) return cudaErrorInvalidValue;
     return sn::attn_block_impl<float>(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, qkv, out,
                                       hmean, bs, n, dim, heads, head_dim, eps, scale, s);
-  return sn::attn_block_impl<__nv_bfloat16>(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, qkv, out,
-                                            hmean, bs, n, dim, heads, head_dim, eps, scale, s);
+  }
+  return sn::attn_block_tc(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, qkv, mh, out, hmean, bs, n,
+                           dim, heads, head_dim, eps, scale, s);
 }
 
 int sn_ffn_block(int dtype, const void* x, const void* ln_scale, const void* ln_bias,

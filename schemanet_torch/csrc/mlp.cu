@@ -28,9 +28,13 @@
 //     partials instead, and the sums do not depend on the run.
 //   Rows past the end are zero in x and g, so they add nothing to the
 //   weight gradients.
-// Products are fp32 FMA on shared-memory tiles: right first. Tensor-core
-// (wgmma) tiles, and a backward that does not recompute the hidden chunk
-// twice, are later work.
+// Two routes for the backward, chosen by the storage type
+// (ops/kernels/mlp.py mlp_route says which, and raises on what neither takes):
+// fp32 takes the FMA kernels above, whose products are fp32 FMA on
+// shared-memory tiles (tensor cores would mean TF32 and lose the 1e-4
+// agreement the fp32 checks hold); bf16 takes the tensor-core kernels below,
+// which store the hidden state once instead of recomputing it in two
+// launches. The forward is FMA on both dtypes.
 //
 // Numerics follow the TPU kernel: x W1 accumulated in fp32 and rounded once
 // to T, + b1 in T, gelu with the Abramowitz-Stegun erf in fp32 rounded to T,
@@ -343,16 +347,276 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// backward (c): out[e] = sum over splits of part[s][e], in split order
+// backward (c): out[e] = sum over splits of part[s][e], in split order. The
+// first tr x tc elements (a [tr][tc] matrix; tr = 0 for none) land
+// transposed: part's reads stay coalesced, and the one strided write is per
+// element, not per split.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
     sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out, long count,
-                      int splits) {
+                      int splits, int tr, int tc) {
+  const long tn = (long)tr * tc;
   for (long e = (long)blockIdx.x * kThreads + threadIdx.x; e < count;
        e += (long)gridDim.x * kThreads) {
     float s = 0.f;
     for (int k = 0; k < splits; ++k) s += part[(long)k * count + e];
-    out[e] = s;
+    out[e < tn ? (e % tc) * tr + e / tc : e] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulated;
+// the fragment helpers are in common.cuh)
+//
+// (a) mlp_dh_tc_kernel: one block of 8 warps per 64 rows. x and g of the
+//     rows stay in shared memory; the hidden width goes by in chunks of 64,
+//     W1[f0:+64, :] and W2[:, f0:+64] double-buffered by cp.async. Per
+//     chunk each warp computes h = x W1^T and dA = g W2 for its 16 rows and
+//     32 of the chunk's columns (W1 rows as [n][k] by ldmatrix, W2 as [k][n]
+//     by ldmatrix.trans), applies b1, gelu, gelu' and the mask to the C
+//     fragments in registers (an element's row and column from the lane
+//     layout), and writes a_used and dH, bf16, to shared tiles. Then
+//     dx += dH W1 (W1's chunk again, as [k][n]) for the warp's 16 rows and
+//     dim/2 columns, in fp32 registers over all chunks, while the chunk's
+//     dH and a_used go to a [rows, f] scratch each with 16-byte stores.
+// (b) mlp_wgrad_tc_kernel: dW1^T = x^T dH and dW2 = g^T a_used, both
+//     [dim][f] with K = rows: one block per (64 of dim, 128 of f, product,
+//     split of the rows), 32 rows a step double-buffered, both operands
+//     transposed out of row-major [rows][.] tiles by ldmatrix.trans. db1 and
+//     db2 are column sums of the same tiles (dH in the first row of tiles,
+//     g in the first column). Each block writes an fp32 partial.
+// (c) sum_splits_kernel sums the partials in split order and transposes dW1.
+// No atomics: two calls give the same bits. The hidden state is computed
+// once, not once per launch as the FMA route does.
+// ---------------------------------------------------------------------------
+constexpr int kTcRowTile = 64;    // rows a block of (a)
+constexpr int kTcChunk = 64;      // hidden columns a step of (a)
+constexpr int kTcChunkPitch = kTcChunk + 8;
+constexpr int kWgM = 64, kWgN = 128, kWgK = 32;  // (b): dim x f tile, rows a step
+constexpr int kWgPitchA = kWgM + 8, kWgPitchB = kWgN + 8;
+constexpr int kWgStage = kWgK * (kWgPitchA + kWgPitchB);
+
+template <int DIM>
+struct MlpTcSmem {
+  static constexpr int kPitch = DIM + 8;
+  static constexpr int kRows = kTcRowTile * kPitch;   // x or g rows; a W1 chunk
+  static constexpr int kW2 = DIM * kTcChunkPitch;     // a W2 chunk
+  static constexpr int kHidden = kTcRowTile * kTcChunkPitch;
+  static constexpr size_t kBytes = sizeof(bf16) * (2 * kRows + 2 * (kRows + kW2) + 2 * kHidden);
+};
+
+template <int DIM>
+__global__ void __launch_bounds__(kThreads, 1)
+    mlp_dh_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                     const bf16* __restrict__ b1, const bf16* __restrict__ w2,
+                     const bf16* __restrict__ g, bf16* __restrict__ dx, bf16* __restrict__ dh_out,
+                     bf16* __restrict__ a_out, int rows, int f, float p, float inv, int seed) {
+  using S = MlpTcSmem<DIM>;
+  constexpr int P = S::kPitch, CP = kTcChunkPitch;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [64][P]
+  bf16* gs = xs + S::kRows;                      // [64][P]
+  bf16* wbuf = gs + S::kRows;                    // 2 x (W1 chunk [64][P], W2 chunk [DIM][CP])
+  bf16* hs = wbuf + 2 * (S::kRows + S::kW2);     // dH of the chunk [64][CP]
+  bf16* as = hs + S::kHidden;                    // a_used of the chunk [64][CP]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp >> 1, wc = warp & 1;  // rows 16 wr..; column half wc
+  const long row0 = (long)blockIdx.x * kTcRowTile;
+  const uint32_t h0 = drop_stream(seed, 0);
+  const float inv_t = Num<bf16>::round(inv);
+  auto w1c = [&](int c) { return wbuf + (c & 1) * (S::kRows + S::kW2); };
+  auto w2c = [&](int c) { return w1c(c) + S::kRows; };
+  auto stage_chunk = [&](int c) {
+    const int f0 = c * kTcChunk;
+    stage_tile<kThreads>(w1c(c), P, w1, DIM, f, DIM, f0, 0, kTcChunk, DIM);
+    stage_tile<kThreads>(w2c(c), CP, w2, f, DIM, f, 0, f0, DIM, kTcChunk);
+  };
+  stage_tile<kThreads>(xs, P, x, DIM, rows, DIM, row0, 0, kTcRowTile, DIM);
+  stage_tile<kThreads>(gs, P, g, DIM, rows, DIM, row0, 0, kTcRowTile, DIM);
+  stage_chunk(0);
+  cp_async_commit();
+
+  float dxa[DIM / 16][4] = {};  // the warp's 16 rows x DIM/2 columns of dx
+  const int chunks = (f + kTcChunk - 1) / kTcChunk;
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk c landed; every warp is past chunk c - 1
+    if (c + 1 < chunks) {
+      stage_chunk(c + 1);
+      cp_async_commit();
+    }
+    const bf16* w1t = w1c(c);
+    const bf16* w2t = w2c(c);
+    const int f0 = c * kTcChunk;
+
+    // h = x W1^T and dA = g W2 for rows 16 wr.., chunk columns 32 wc..
+    float hacc[4][4] = {}, dacc[4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DIM / 16; ++kk) {
+      uint32_t ax[4], ag[4];
+      ldsm_a(ax, xs, P, wr * 16, kk * 16, lane);
+      ldsm_a(ag, gs, P, wr * 16, kk * 16, lane);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t b[4];
+        ldsm_b_nk(b, w1t, P, wc * 32 + np * 16, kk * 16, lane);
+        mma16816(hacc[2 * np], ax, b[0], b[1]);
+        mma16816(hacc[2 * np + 1], ax, b[2], b[3]);
+        ldsm_b_kn(b, w2t, CP, kk * 16, wc * 32 + np * 16, lane);
+        mma16816(dacc[2 * np], ag, b[0], b[1]);
+        mma16816(dacc[2 * np + 1], ag, b[2], b[3]);
+      }
+    }
+    // the roundings of the FMA route, on the C fragments
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wr * 16 + (lane >> 2) + half * 8;
+        const int cc = wc * 32 + nt * 8 + (lane & 3) * 2;
+        float av[2], dv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = f0 + cc + e;
+          float a_used = 0.f, dh = 0.f;
+          if (col < f) {
+            const float h = Num<bf16>::round(Num<bf16>::round(hacc[nt][half * 2 + e]) +
+                                             Num<bf16>::load(b1, col));
+            a_used = Num<bf16>::round(gelu_as(h));
+            float da = dacc[nt][half * 2 + e];
+            if (p > 0.f) {
+              const bool keep = drop_keep(h0, (uint32_t)(row0 + r), f, col, p);
+              a_used = keep ? Num<bf16>::round(a_used * inv_t) : 0.f;
+              da = keep ? da * inv : 0.f;
+            }
+            dh = Num<bf16>::round(da * gelu_as_grad(h));
+          }
+          av[e] = a_used;
+          dv[e] = dh;
+        }
+        *reinterpret_cast<uint32_t*>(as + r * CP + cc) = pack_bf16(av[0], av[1]);
+        *reinterpret_cast<uint32_t*>(hs + r * CP + cc) = pack_bf16(dv[0], dv[1]);
+      }
+    __syncthreads();
+
+    // dx += dH W1 over the chunk: rows 16 wr.., columns wc DIM/2..
+#pragma unroll
+    for (int kk = 0; kk < kTcChunk / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_a(a, hs, CP, wr * 16, kk * 16, lane);
+#pragma unroll
+      for (int nb = 0; nb < DIM / 32; ++nb) {
+        uint32_t b[4];
+        ldsm_b_kn(b, w1t, P, kk * 16, wc * (DIM / 2) + nb * 16, lane);
+        mma16816(dxa[2 * nb], a, b[0], b[1]);
+        mma16816(dxa[2 * nb + 1], a, b[2], b[3]);
+      }
+    }
+    // the chunk's dH and a_used to the scratch, 16 bytes a store
+    constexpr int kChunks = kTcRowTile * (kTcChunk / 8);
+    for (int idx = threadIdx.x; idx < 2 * kChunks; idx += kThreads) {
+      const int which = idx / kChunks, rest = idx % kChunks;
+      const int r = rest / (kTcChunk / 8), cc = (rest % (kTcChunk / 8)) * 8;
+      const long row = row0 + r;
+      const int col = f0 + cc;
+      if (row < rows && col < f)
+        *reinterpret_cast<uint4*>((which ? a_out : dh_out) + row * f + col) =
+            *reinterpret_cast<const uint4*>((which ? as : hs) + r * CP + cc);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < DIM / 16; ++nt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long row = row0 + wr * 16 + (lane >> 2) + half * 8;
+      const int col = wc * (DIM / 2) + nt * 8 + (lane & 3) * 2;
+      if (row < rows)
+        *reinterpret_cast<uint32_t*>(dx + row * DIM + col) =
+            pack_bf16(dxa[nt][half * 2], dxa[nt][half * 2 + 1]);
+    }
+}
+
+// part (per split): dW1^T [dim][f], dW2 [dim][f], db1 [f], db2 [dim], fp32
+__global__ void __launch_bounds__(kThreads)
+    mlp_wgrad_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                        const bf16* __restrict__ dh, const bf16* __restrict__ a,
+                        float* __restrict__ part, int rows, int dim, int f, int steps_per_split) {
+  __shared__ __align__(16) bf16 smem[2 * kWgStage];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;  // 32 x 32 of the 64 x 128 tile
+  const int n0 = blockIdx.x * kWgN, m0 = blockIdx.y * kWgM;
+  const int which = blockIdx.z & 1, split = blockIdx.z >> 1;
+  const bf16* A = which ? g : x;   // [rows][dim]
+  const bf16* B = which ? a : dh;  // [rows][f]
+  const int steps = (rows + kWgK - 1) / kWgK;
+  const int s_begin = split * steps_per_split, s_end = min(steps, s_begin + steps_per_split);
+  // db1: the column sums of dH (first row of tiles); db2: of g (first column)
+  const bool bias = which ? blockIdx.x == 0 : blockIdx.y == 0;
+  const int bias_cols = which ? kWgM : kWgN;
+  auto stage = [&](int t) { return smem + (t & 1) * kWgStage; };
+  auto load = [&](int s, bf16* buf) {
+    stage_tile<kThreads>(buf, kWgPitchA, A, dim, rows, dim, (long)s * kWgK, m0, kWgK, kWgM);
+    stage_tile<kThreads>(buf + kWgK * kWgPitchA, kWgPitchB, B, f, rows, f, (long)s * kWgK, n0,
+                         kWgK, kWgN);
+  };
+  float acc[2][4][4] = {};
+  float bsum = 0.f;
+  if (s_begin < s_end) {
+    load(s_begin, stage(0));
+    cp_async_commit();
+  }
+  for (int s = s_begin; s < s_end; ++s) {
+    const int t = s - s_begin;
+    cp_async_wait<0>();
+    __syncthreads();  // step s landed; every warp is past step s - 1
+    if (s + 1 < s_end) {
+      load(s + 1, stage(t + 1));
+      cp_async_commit();
+    }
+    const bf16* at = stage(t);
+    const bf16* bt = at + kWgK * kWgPitchA;
+#pragma unroll
+    for (int kk = 0; kk < kWgK / 16; ++kk) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) ldsm_a_t(af[mt], at, kWgPitchA, kk * 16, wm * 32 + mt * 16, lane);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t b[4];
+        ldsm_b_kn(b, bt, kWgPitchB, kk * 16, wn * 32 + np * 16, lane);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma16816(acc[mt][2 * np], af[mt], b[0], b[1]);
+          mma16816(acc[mt][2 * np + 1], af[mt], b[2], b[3]);
+        }
+      }
+    }
+    if (bias && threadIdx.x < bias_cols) {
+      const bf16* col = which ? at + threadIdx.x : bt + threadIdx.x;
+      const int pitch = which ? kWgPitchA : kWgPitchB;
+      for (int k = 0; k < kWgK; ++k) bsum += __bfloat162float(col[k * pitch]);
+    }
+  }
+  const long fd = (long)f * dim;
+  float* base = part + (long)split * (2 * fd + f + dim);
+  float* c_out = base + which * fd;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + wm * 32 + mt * 16 + (lane >> 2) + half * 8;  // < dim: dim % 64 == 0
+        const int col = n0 + wn * 32 + nt * 8 + (lane & 3) * 2;
+        if (col < f)
+          *reinterpret_cast<float2*>(c_out + (long)row * f + col) =
+              make_float2(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
+      }
+  if (bias && threadIdx.x < bias_cols) {
+    if (which)
+      base[2 * fd + f + m0 + threadIdx.x] = bsum;
+    else if (n0 + (int)threadIdx.x < f)
+      base[2 * fd + n0 + threadIdx.x] = bsum;
   }
 }
 
@@ -410,8 +674,59 @@ cudaError_t mlp_bwd_launch(const void* x, const void* w1, const void* b1, const 
   }
   const long count = 2L * f * dim + f + dim;
   sum_splits_kernel<<<(int)((count + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<float*>(grads), count, splits);
+      static_cast<const float*>(part), static_cast<float*>(grads), count, splits, 0, 0);
   return cudaGetLastError();
+}
+
+// hidden: bf16 scratch of 2 rows f (dH, then a_used)
+template <int DIM>
+cudaError_t mlp_bwd_tc_launch(const void* x, const void* w1, const void* b1, const void* w2,
+                              const void* g, void* dx, void* part, void* grads, void* hidden,
+                              int rows, int f, int splits, float p, float inv, int seed,
+                              cudaStream_t stream) {
+  bf16* dh = static_cast<bf16*>(hidden);
+  bf16* a = dh + (long)rows * f;
+  const size_t bytes = MlpTcSmem<DIM>::kBytes;
+  cudaError_t err = allow_smem(mlp_dh_tc_kernel<DIM>, bytes);
+  if (err != cudaSuccess) return err;
+  mlp_dh_tc_kernel<DIM><<<(rows + kTcRowTile - 1) / kTcRowTile, kThreads, bytes, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+      static_cast<const bf16*>(w2), static_cast<const bf16*>(g), static_cast<bf16*>(dx), dh, a,
+      rows, f, p, inv, seed);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int steps = (rows + kWgK - 1) / kWgK;
+  dim3 grid((f + kWgN - 1) / kWgN, DIM / kWgM, 2 * splits);
+  mlp_wgrad_tc_kernel<<<grid, kThreads, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(g), dh, a, static_cast<float*>(part),
+      rows, DIM, f, (steps + splits - 1) / splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long count = 2L * f * DIM + f + DIM;
+  sum_splits_kernel<<<(int)((count + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<float*>(grads), count, splits, DIM, f);
+  return cudaGetLastError();
+}
+
+cudaError_t mlp_bwd_tc(const void* x, const void* w1, const void* b1, const void* w2,
+                       const void* g, void* dx, void* part, void* grads, void* hidden, int rows,
+                       int dim, int f, int splits, float p, float inv, int seed, cudaStream_t s) {
+  if (f % 8 || hidden == nullptr) return cudaErrorInvalidValue;
+  switch (dim) {
+    case 64:
+      return mlp_bwd_tc_launch<64>(x, w1, b1, w2, g, dx, part, grads, hidden, rows, f, splits, p,
+                                   inv, seed, s);
+    case 128:
+      return mlp_bwd_tc_launch<128>(x, w1, b1, w2, g, dx, part, grads, hidden, rows, f, splits,
+                                    p, inv, seed, s);
+    case 192:
+      return mlp_bwd_tc_launch<192>(x, w1, b1, w2, g, dx, part, grads, hidden, rows, f, splits,
+                                    p, inv, seed, s);
+    case 256:
+      return mlp_bwd_tc_launch<256>(x, w1, b1, w2, g, dx, part, grads, hidden, rows, f, splits,
+                                    p, inv, seed, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -464,16 +779,18 @@ int sn_fused_mlp(int dtype, const void* x, const void* w1, const void* b1, const
 
 // dx [rows, dim] in the storage type; grads fp32 [2 f dim + f + dim] holding
 // dw1 [f, dim], dw2 [dim, f], db1 [f], db2 [dim]; part fp32 scratch of
-// splits * (2 f dim + f + dim).
+// splits * (2 f dim + f + dim). fp32 takes the FMA kernels (hidden unused,
+// may be null); bf16 the tensor-core kernels (f a multiple of 8; hidden a
+// bf16 scratch of 2 rows f; the splits cut the rows in steps of 32).
 int sn_fused_mlp_bwd(int dtype, const void* x, const void* w1, const void* b1, const void* w2,
-                     const void* g, void* dx, void* part, void* grads, int rows, int dim, int f,
-                     int splits, float p, float inv, int seed, void* stream) {
+                     const void* g, void* dx, void* part, void* grads, void* hidden, int rows,
+                     int dim, int f, int splits, float p, float inv, int seed, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == sn::kF32)
     return sn::mlp_bwd_impl<float>(x, w1, b1, w2, g, dx, part, grads, rows, dim, f, splits, p,
                                    inv, seed, s);
-  return sn::mlp_bwd_impl<__nv_bfloat16>(x, w1, b1, w2, g, dx, part, grads, rows, dim, f, splits,
-                                         p, inv, seed, s);
+  return sn::mlp_bwd_tc(x, w1, b1, w2, g, dx, part, grads, hidden, rows, dim, f, splits, p, inv,
+                        seed, s);
 }
 
 }  // extern "C"

@@ -1,0 +1,141 @@
+"""Card times of the frozen ``attn_block`` (with and without the head-mean),
+the ``fused_mlp`` backward and ``embed_grad`` at the shapes of their paths,
+each beside a PyTorch yardstick, in bf16.
+
+* ``attn_block`` at serving's microbatch (x [64, 197, 192], 3 heads), beside
+  ``F.layer_norm`` + ``F.linear`` + SDPA (p = 0) + ``F.linear`` and the
+  residual at the same shape: the same function by library calls, a note,
+  not one library call;
+* ``fused_mlp_bwd`` at stage 0's shape (12,608 rows, 192 -> 768 -> 192) at
+  p = 0.1 and p = 0, beside the five products alone by bf16 ``torch.matmul``
+  (x W1^T, g W2, dH W1, dH^T x, g^T a on bf16 operands made beforehand);
+* ``embed_grad`` on the class graphs' lookup (ids [100, 1024], cotangents
+  [100, 1024, 256]), beside ``index_add_`` of the same cotangents made fp32
+  beforehand.
+
+Each gets ``ms``, CUDA events around one window of 20 calls after warm-up,
+and ``device_ms``, the ``torch.profiler`` device time of a call. Uses only
+the kernels' public wrappers, so the same file times an older checkout of
+the port: from that checkout's root, ``python -m schemanet_torch.kernel_times``.
+Prints the card's name and power limit, then one JSON line.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+
+import torch
+import torch.nn.functional as F
+
+ITERS = 20
+SEED = 2**31 - 2  # stage 0's dropout seed in chip_smoke.py
+
+
+def time_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
+    """Mean ms a call: CUDA events around one window of ``iters`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = ITERS) -> float:
+    """Device ms a call: every device event of ``iters`` calls under the
+    profiler, user annotations excluded. A session that comes back without
+    device events is taken again; five in a row raise."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(evt.time_range.elapsed_us() for evt in prof.events()
+                       if evt.device_type == DeviceType.CUDA
+                       and not getattr(evt, "is_user_annotation", False))
+        if total_us:
+            return total_us / iters / 1e3
+    raise RuntimeError("the profiler recorded no device event in five profiles in a row")
+
+
+def _both(fn) -> dict:
+    return {"ms": time_ms(fn), "device_ms": device_ms(fn)}
+
+
+def measure(dev: torch.device) -> dict:
+    """{row: {timing: {"ms", "device_ms"}}} of the kernels and yardsticks."""
+    from .ops.kernels import embed_bwd as ek
+    from .ops.kernels import encoder_block as eb
+    from .ops.kernels import mlp as mk
+
+    g = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    bs, n, d, heads, f = 64, 197, 192, 3, 768
+    x = rnd(bs, n, d)
+    ln_g, ln_b = 1 + rnd(d, scale=0.1, dtype=torch.float32), rnd(d, scale=0.1, dtype=torch.float32)
+    wqkv, bqkv = rnd(3 * d, d, scale=d**-0.5), rnd(3 * d, scale=0.1)
+    wo, bo = rnd(d, d, scale=d**-0.5), rnd(d, scale=0.1)
+    attn_args = (x, ln_g, ln_b, wqkv, bqkv, wo, bo, heads)
+    ln_g16, ln_b16 = ln_g.to(bf), ln_b.to(bf)
+
+    def attn_torch():
+        y = F.layer_norm(x, (d,), ln_g16, ln_b16, 1e-6)
+        qkv = F.linear(y, wqkv, bqkv).view(bs, n, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
+        return x + F.linear(o.transpose(1, 2).reshape(bs, n, d), wo, bo)
+
+    out = {
+        "attn_block": _both(lambda: eb.attn_block(*attn_args)),
+        "attn_block_hmean": _both(lambda: eb.attn_block(*attn_args, capture_hmean=True)),
+        "attn_block_torch_calls": _both(attn_torch),
+    }
+
+    rows = bs * n
+    x2, g2 = rnd(rows, d), rnd(rows, d)
+    w1, b1, w2 = rnd(f, d, scale=d**-0.5), rnd(f, scale=0.1), rnd(d, f, scale=f**-0.5)
+    dh, act = rnd(rows, f, scale=0.01), rnd(rows, f)
+
+    def products():
+        return (x2 @ w1.t(), g2 @ w2, dh @ w1, dh.t() @ x2, g2.t() @ act)
+
+    out["fused_mlp_bwd"] = _both(lambda: mk.fused_mlp_bwd(x2, w1, b1, w2, g2, "gelu", 0.1, SEED))
+    out["fused_mlp_bwd_p0"] = _both(lambda: mk.fused_mlp_bwd(x2, w1, b1, w2, g2, "gelu", 0.0))
+    out["fused_mlp_bwd_matmul_products"] = _both(products)
+
+    classes, codes, width = 100, 1024, 256
+    ids = torch.arange(codes, dtype=torch.int32).expand(classes, codes).contiguous().to(dev)
+    cot = rnd(classes, codes, width)
+    ids_long, cot32 = ids.reshape(-1).long(), cot.reshape(-1, width).float()
+    table = torch.zeros(codes + 1, width, device=dev)
+    out["embed_grad"] = _both(lambda: ek.embed_grad(ids, cot, codes + 1))
+    out["embed_grad_index_add"] = _both(lambda: table.index_add_(0, ids_long, cot32))
+    return out
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    print(json.dumps({"kernel_times": measure(torch.device("cuda")),
+                      "card": smi.splitlines()[0]}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

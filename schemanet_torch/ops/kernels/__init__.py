@@ -29,6 +29,7 @@ from .vq import vq_assign_kernel, vq_assign_reference
 _COUNTERS = {
     "attn_block": (attn_block, "launches"),
     "attn_block_hmean": (attn_block, "hmean_launches"),
+    "attn_block_tc": (attn_block, "tc_launches"),  # the tensor-core route's share
     "ffn_block": (ffn_block, "launches"),
     "sym_conv": (sym_conv, "launches"),
     "sym_conv_bwd": (sym_conv_bwd, "launches"),
@@ -42,6 +43,7 @@ _COUNTERS = {
     "fused_mhsa_bwd_tc": (fused_mhsa_bwd, "tc_launches"),
     "fused_mlp": (fused_mlp, "launches"),
     "fused_mlp_bwd": (fused_mlp_bwd, "launches"),
+    "fused_mlp_bwd_tc": (fused_mlp_bwd, "tc_launches"),
     "vq_assign": (vq_assign_kernel, "launches"),
     "fused_layernorm": (fused_layernorm, "launches"),
     "fused_layernorm_bwd": (fused_layernorm_bwd, "launches"),

@@ -16,9 +16,13 @@ in its own dtype, softmax in fp32, the head-mean of the pre-softmax scores
 summed over heads in fp32.
 
 Dispatch: a CPU tensor takes the plain version (``*_reference``); a CUDA
-tensor launches the kernel or raises. Each wrapper counts its launches in a
-plain integer attribute (``attn_block.launches``, ``attn_block.hmean_launches``,
-``ffn_block.launches``).
+tensor launches the kernel or raises. ``attn_block_route`` picks
+``attn_block``'s kernels by dtype: fp32 takes the FMA kernels, bf16 the
+tensor-core ones (head_dim a multiple of 16 up to 64, n <= 320), whose
+attention is ``fused_mhsa``'s kernel at p = 0. Each wrapper counts its
+launches in a plain integer attribute (``attn_block.launches``,
+``attn_block.hmean_launches``, ``attn_block.tc_launches`` for the
+tensor-core route, ``ffn_block.launches``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,34 @@ import torch.nn.functional as F
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+FMA, TENSOR_CORE = "fma", "tensor_core"
+_FMA_MAX_HEAD_DIM = 128  # csrc/encoder_block.cu kMaxHeadDim
+_TC_MAX_TOKENS = 320  # the tensor-core attention's K and V of one head fill its shared memory
+_TC_MAX_WIDTH = 768  # csrc/encoder_block.cu kLinMaxK: a block stages 64 rows of A and W whole
+
+
+def attn_block_route(dtype: torch.dtype, n: int, heads: int, head_dim: int) -> str:
+    """The kernels a CUDA launch of ``attn_block`` takes for x of this dtype,
+    n tokens and ``heads`` heads of ``head_dim``: ``"fma"`` (fp32: FMA on
+    fp32 tiles, which keeps fp32's agreement where tensor cores would mean
+    TF32; head_dim up to 128) or ``"tensor_core"`` (bf16: ``mma`` on bf16
+    tiles, head_dim a multiple of 16 up to 64, n <= 320). Raises on what
+    neither takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"attn_block takes float32 or bfloat16, got {dtype}")
+    if n < 1 or heads < 1:
+        raise ValueError(f"attn_block takes n >= 1 and heads >= 1, got n={n}, heads={heads}")
+    if dtype == torch.float32:
+        if not 1 <= head_dim <= _FMA_MAX_HEAD_DIM:
+            raise ValueError(f"attn_block takes head_dim <= {_FMA_MAX_HEAD_DIM} in float32, "
+                             f"got {head_dim}")
+        return FMA
+    if head_dim % 16 or not 16 <= head_dim <= 64:
+        raise ValueError(f"attn_block takes a bfloat16 head_dim that is a multiple of 16 up to 64, "
+                         f"got {head_dim}")
+    if n > _TC_MAX_TOKENS:
+        raise ValueError(f"attn_block takes n <= {_TC_MAX_TOKENS} in bfloat16, got {n}")
+    return TENSOR_CORE
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
@@ -127,10 +159,11 @@ def attn_block(
     if hd3 % (3 * num_heads):
         raise ValueError(f"qkv width {hd3} is not 3 x {num_heads} heads")
     d = hd3 // (3 * num_heads)
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"attn_block takes float32 or bfloat16, got {x.dtype}")
-    if d > 128:
-        raise ValueError(f"attn_block takes head_dim <= 128, got {d}")
+    route = attn_block_route(x.dtype, n, num_heads, d)
+    if route == TENSOR_CORE and (dim % 16 or num_heads * d % 16 or
+                                 max(dim, num_heads * d) > _TC_MAX_WIDTH):
+        raise ValueError(f"attn_block takes bfloat16 widths that are multiples of 16 up to "
+                         f"{_TC_MAX_WIDTH}, got dim={dim}, H*d={num_heads * d}")
     dt = x.dtype
     wqkv, bqkv, wo, bo = (t.to(dt).contiguous() for t in (wqkv, bqkv, wo, bo))
     ln_scale, ln_bias = ln_scale.float().contiguous(), ln_bias.float().contiguous()
@@ -141,25 +174,32 @@ def attn_block(
     _check("bqkv", bqkv, dt, (3 * num_heads * d,))
     _check("wo", wo, dt, (dim, num_heads * d))
     _check("bo", bo, dt, (dim,))
+    if route == TENSOR_CORE and any(t.data_ptr() % 16 for t in (wqkv, wo)):
+        raise ValueError("attn_block: the tensor-core kernels copy 16-byte chunks; a weight is not "
+                         "16-byte aligned")
     qkv = torch.empty((bs * n, hd3), dtype=dt, device=x.device)
+    mh = torch.empty((bs * n, num_heads * d), dtype=dt, device=x.device) \
+        if route == TENSOR_CORE else None
     out = torch.empty_like(x)
     hmean = torch.empty((bs, n, n), dtype=dt, device=x.device) if capture_hmean else None
     err = _build.library().sn_attn_block(
         _DTYPES[dt], x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wqkv.data_ptr(),
-        bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), qkv.data_ptr(), out.data_ptr(),
+        bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), qkv.data_ptr(),
+        mh.data_ptr() if mh is not None else None, out.data_ptr(),
         hmean.data_ptr() if hmean is not None else None,
         bs, n, dim, num_heads, d, float(eps), float(1.0 / d**0.5), _stream(),
     )
     _build.check(err, "attn_block")
     attn_block.launches += 1
+    if route == TENSOR_CORE:
+        attn_block.tc_launches += 1
     if capture_hmean:
         attn_block.hmean_launches += 1
         return out, hmean
     return out
 
 
-attn_block.launches = 0
-attn_block.hmean_launches = 0
+attn_block.launches = attn_block.hmean_launches = attn_block.tc_launches = 0
 
 
 _FFN_DIMS = (64, 128, 192, 256, 384)

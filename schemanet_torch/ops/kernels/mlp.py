@@ -11,8 +11,8 @@ them on the card and how their design answers it.
 hidden element (row, col) by the hash mask of ``dropmask.py``, stream 0, the
 absolute row of the flattened ``bs * n`` rows and ``cols = f``, so the
 backward regenerates the forward's mask. It is a ``torch.autograd.Function``
-whose backward is the backward kernel; the ``[rows, f]`` hidden state is
-never stored.
+whose backward is the backward kernel; the forward never stores the
+``[rows, f]`` hidden state.
 
 Numerics follow the TPU kernels: the weights are cast to x's dtype outside
 the kernel (so their gradients reach fp32 parameters rounded to that dtype,
@@ -26,7 +26,12 @@ gradients summed in fp32 and rounded to the weights' dtype.
 
 Dispatch: a CPU tensor takes the plain versions (``fused_mlp_reference``,
 ``fused_mlp_bwd_reference``); a CUDA tensor launches the kernels or raises.
-``fused_mlp.launches`` and ``fused_mlp_bwd.launches`` count the launches.
+``mlp_route`` picks the backward's kernels by dtype: fp32 takes the FMA
+kernels, bf16 the tensor-core ones, which store the hidden state ``dH`` and
+``a_used`` once in a ``[rows, f]`` bf16 scratch each; the forward is the FMA
+kernel on both dtypes. ``fused_mlp.launches`` and ``fused_mlp_bwd.launches``
+count the launches, ``fused_mlp_bwd.tc_launches`` those of the tensor-core
+route.
 """
 
 from __future__ import annotations
@@ -40,8 +45,12 @@ from .dropmask import hash_keep_mask, kernel_dropout_args, keep_scale
 from .encoder_block import _DTYPES, _check, _require_cuda, _stream
 
 _DIMS = (64, 128, 192, 256)  # csrc/mlp.cu instantiates these widths
-_SPLITS = 24  # row splits of the weight-gradient kernel: ~2 blocks per SM at f = 768
+_SPLITS = 24  # row splits of the FMA weight-gradient kernel: ~2 blocks per SM at f = 768
 _ROW_TILE = 32  # csrc/mlp.cu kMlpBM
+# row splits of the tensor-core weight-gradient kernel: 12 x 36 tiles at the
+# stage-0 shape, ~3 blocks an SM; its rows go in steps of 32 (csrc/mlp.cu kWgK)
+_TC_SPLITS, _TC_ROW_STEP = 12, 32
+FMA, TENSOR_CORE = "fma", "tensor_core"
 _SQRT_HALF, _INV_SQRT_2PI = 0.7071067811865476, 0.3989422804014327
 
 
@@ -66,6 +75,25 @@ def gelu_as_grad(x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     cdf = 0.5 * (1.0 + erf_as(xf * _SQRT_HALF))
     return cdf + xf * (torch.exp(-0.5 * xf * xf) * _INV_SQRT_2PI)
+
+
+def mlp_route(dtype: torch.dtype, dim: int, f: int) -> str:
+    """The kernels a CUDA launch of ``fused_mlp_bwd`` takes for rows of this
+    dtype, width ``dim`` and hidden width ``f``: ``"fma"`` (fp32: FMA on fp32
+    tiles, which keeps fp32's agreement where tensor cores would mean TF32)
+    or ``"tensor_core"`` (bf16: ``mma`` on bf16 tiles, f a multiple of 8,
+    since the hidden rows are copied in 16-byte chunks). Raises on what
+    neither takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"fused_mlp takes float32 or bfloat16, got {dtype}")
+    if dim not in _DIMS:
+        raise ValueError(f"fused_mlp takes width in {_DIMS}, got {dim}")
+    if dtype == torch.float32:
+        return FMA
+    if f < 1 or f % 8:
+        raise ValueError(f"fused_mlp_bwd takes a bfloat16 hidden width that is a multiple of 8, "
+                         f"got {f}")
+    return TENSOR_CORE
 
 
 def _keep_mask(seed: int, rows: int, f: int, dropout_p: float, device) -> torch.Tensor:
@@ -157,19 +185,31 @@ def fused_mlp_bwd(x, w1, b1, w2, g, activation: str = "gelu", dropout_p: float =
     if x.device.type == "cpu":
         return fused_mlp_bwd_reference(x, w1, b1, w2, g, activation, dropout_p, seed)
     rows, dim, f = _check_mlp("fused_mlp_bwd", x, w1, b1, w2, activation)
+    route = mlp_route(x.dtype, dim, f)
     _check("g", g, x.dtype, x.shape)
-    splits = max(1, min(_SPLITS, -(-rows // _ROW_TILE)))
+    hidden = None
+    if route == TENSOR_CORE:
+        if any(t.data_ptr() % 16 for t in (x, w1, w2, g)):
+            raise ValueError("fused_mlp_bwd: the tensor-core kernels copy 16-byte chunks; an "
+                             "operand is not 16-byte aligned")
+        splits = max(1, min(_TC_SPLITS, -(-rows // _TC_ROW_STEP)))
+        hidden = torch.empty((2, rows, f), dtype=x.dtype, device=x.device)  # dH, a_used
+    else:
+        splits = max(1, min(_SPLITS, -(-rows // _ROW_TILE)))
     dx = torch.empty_like(x)
     count = 2 * f * dim + f + dim
     part = torch.empty((splits, count), dtype=torch.float32, device=x.device)
     grads = torch.empty(count, dtype=torch.float32, device=x.device)
     err = _build.library().sn_fused_mlp_bwd(
         _DTYPES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), g.data_ptr(),
-        dx.data_ptr(), part.data_ptr(), grads.data_ptr(), rows, dim, f, splits,
+        dx.data_ptr(), part.data_ptr(), grads.data_ptr(),
+        hidden.data_ptr() if hidden is not None else None, rows, dim, f, splits,
         *kernel_dropout_args(dropout_p, seed), _stream(),
     )
     _build.check(err, "fused_mlp_bwd")
     fused_mlp_bwd.launches += 1
+    if route == TENSOR_CORE:
+        fused_mlp_bwd.tc_launches += 1
     dw1, dw2, db1, db2 = torch.split(grads, [f * dim, f * dim, f, dim])
     dt = x.dtype
     return dx, dw1.view(f, dim).to(dt), db1.to(dt), dw2.view(dim, f).to(dt), db2.to(dt)
@@ -205,4 +245,4 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
 
 
 fused_mlp.launches = 0
-fused_mlp_bwd.launches = 0
+fused_mlp_bwd.launches = fused_mlp_bwd.tc_launches = 0

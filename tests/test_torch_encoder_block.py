@@ -90,3 +90,37 @@ def test_wrappers_refuse_non_cuda_devices():
         eb.attn_block(x, p["g"], p["b"], p["wqkv"].T, p["bqkv"], p["wo"].T, p["bo"], HEADS)
     with pytest.raises(ValueError, match="CUDA"):
         eb.ffn_block(x, p["g"], p["b"], p["w1"].T, p["b1"], p["w2"].T, p["b2"])
+
+
+@pytest.mark.parametrize("dtype,n,heads,head_dim,route", [
+    (torch.bfloat16, 197, 3, 64, "tensor_core"),  # DeiT-Tiny (serving, stages 3 and 4)
+    (torch.bfloat16, 197, 6, 64, "tensor_core"),  # DeiT-Small
+    (torch.bfloat16, 197, 12, 64, "tensor_core"),  # DeiT-Base
+    (torch.bfloat16, 65, 2, 32, "tensor_core"),  # one query row past a tile of 64
+    (torch.bfloat16, 320, 3, 16, "tensor_core"),  # the limit of n
+    (torch.float32, 197, 3, 64, "fma"),  # fp32 serving checks, stages 1 and 3
+    (torch.float32, 400, 2, 128, "fma"),  # fp32 takes head_dim up to 128 at any n
+])
+def test_attn_block_route(dtype, n, heads, head_dim, route):
+    """The CUDA kernels an attn_block launch takes: every shipped config's
+    bf16 shape takes the tensor-core kernels, fp32 keeps the FMA kernels."""
+    assert eb.attn_block_route(dtype, n, heads, head_dim) == route
+
+
+@pytest.mark.parametrize("dtype,n,heads,head_dim,what", [
+    (torch.bfloat16, 197, 2, 128, "multiple of 16 up to 64"),
+    (torch.bfloat16, 197, 4, 40, "multiple of 16 up to 64"),
+    (torch.bfloat16, 321, 3, 64, "n <= 320"),
+    (torch.float32, 197, 1, 256, "head_dim <= 128"),
+    (torch.bfloat16, 0, 3, 64, "n >= 1"),
+])
+def test_attn_block_route_rejects(dtype, n, heads, head_dim, what):
+    """No quiet fallback: a bf16 shape the tensor-core kernels do not take
+    raises, and so does what the FMA kernels do not take in fp32."""
+    with pytest.raises(ValueError, match=what):
+        eb.attn_block_route(dtype, n, heads, head_dim)
+
+
+def test_attn_block_route_rejects_other_dtypes():
+    with pytest.raises(TypeError, match="float16"):
+        eb.attn_block_route(torch.float16, 197, 3, 64)

@@ -18,7 +18,8 @@ rows, every mismatch a near-tie (the plain scores of the two codes within
 index exactly. The LayerNorm kernels: the forward within the tolerances
 above, the backward's dx too (fp32 1e-4: the statistics are recomputed),
 dscale and dbias within 1e-4 in both dtypes (fp32 sums) and equal bit for
-bit from run to run.
+bit from run to run. The bf16 FFN backward's weight and bias gradients are
+equal bit for bit over two calls too.
 """
 
 import pytest
@@ -54,8 +55,15 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("dtype,tol", TOLS)
-@pytest.mark.parametrize("bs,n,dim,heads", [(3, 37, 64, 2), (2, 70, 192, 3)])
+@pytest.mark.parametrize("bs,n,dim,heads", [
+    (3, 37, 64, 2), (2, 70, 192, 3),
+    (5, 65, 192, 3),  # one query row past a tile of 64
+    (2, 197, 384, 6),  # DeiT-Small's width and heads
+])
 def test_attn_block_kernel(dev, dtype, tol, bs, n, dim, heads):
+    """bf16 takes the tensor-core route (counted by tc_launches): the qkv and
+    out products by mma, the attention by fused_mhsa's kernel at p = 0 and
+    its head-mean variant; fp32 the FMA kernels."""
     g = torch.Generator().manual_seed(0)
     x = _rnd(g, dev, bs, n, dim).to(dtype)
     args = (
@@ -63,12 +71,14 @@ def test_attn_block_kernel(dev, dtype, tol, bs, n, dim, heads):
         _rnd(g, dev, 3 * dim, dim, scale=dim**-0.5), _rnd(g, dev, 3 * dim, scale=0.1),
         _rnd(g, dev, dim, dim, scale=dim**-0.5), _rnd(g, dev, dim, scale=0.1), heads,
     )
-    before = (eb.attn_block.launches, eb.attn_block.hmean_launches)
+    before = (eb.attn_block.launches, eb.attn_block.hmean_launches, eb.attn_block.tc_launches)
     out, hmean = eb.attn_block(*args, capture_hmean=True)
     plain_only = eb.attn_block(*args)
     want_out, want_hmean = eb.attn_block_reference(*args, capture_hmean=True)
     torch.cuda.synchronize()
-    assert (eb.attn_block.launches, eb.attn_block.hmean_launches) == (before[0] + 2, before[1] + 1)
+    tc = 2 * int(dtype == torch.bfloat16)
+    assert (eb.attn_block.launches, eb.attn_block.hmean_launches, eb.attn_block.tc_launches) == \
+        (before[0] + 2, before[1] + 1, before[2] + tc)
     assert out.dtype == hmean.dtype == dtype and hmean.shape == (bs, n, n)
     assert _rel(out, want_out) <= tol and _rel(hmean, want_hmean) <= tol
     assert torch.equal(plain_only, out)  # the head-mean output changes nothing else
@@ -242,19 +252,32 @@ def test_fused_mhsa_kernels(dev, dtype, tol, p, bs, n, heads, d):
 
 @pytest.mark.parametrize("dtype,tol", TOLS)
 @pytest.mark.parametrize("p", [0.0, 0.1])
-@pytest.mark.parametrize("rows,dim,f", [(45, 64, 96), (12_608, 192, 768)])
+@pytest.mark.parametrize("rows,dim,f", [
+    (45, 64, 96),  # f past a chunk of 64
+    (12_608, 192, 768),  # the stage-0 shape
+    (1000, 192, 768),  # rows not a multiple of the tensor-core row tile (64)
+    (300, 256, 1024),
+])
 def test_fused_mlp_kernels(dev, dtype, tol, p, rows, dim, f):
-    """Forward and backward kernels against the plain versions; the rows are
-    not a multiple of the kernels' row tile, the stage-0 shape included."""
+    """Forward and backward kernels against the plain versions at rows that
+    are not a multiple of a row tile. The bf16 backward takes the
+    tensor-core kernels (counted by tc_launches) and gives the same weight
+    and bias gradients, bit for bit, on a second call."""
     g = torch.Generator().manual_seed(7)
     x = _rnd(g, dev, 1, rows, dim).to(dtype)
     w1, b1 = _rnd(g, dev, f, dim, scale=dim**-0.5).to(dtype), _rnd(g, dev, f, scale=0.1).to(dtype)
     w2, b2 = _rnd(g, dev, dim, f, scale=f**-0.5).to(dtype), _rnd(g, dev, dim, scale=0.1).to(dtype)
     cot = _rnd(g, dev, 1, rows, dim).to(dtype)
     seed = SEED if p else None
+    before = (mk.fused_mlp_bwd.launches, mk.fused_mlp_bwd.tc_launches)
     out = mk.fused_mlp(x, w1, b1, w2, b2, "gelu", p, seed)
     got = mk.fused_mlp_bwd(x, w1, b1, w2, cot, "gelu", p, seed)
+    again = mk.fused_mlp_bwd(x, w1, b1, w2, cot, "gelu", p, seed)
     torch.cuda.synchronize()
+    tc = 2 * int(dtype == torch.bfloat16)
+    assert (mk.fused_mlp_bwd.launches, mk.fused_mlp_bwd.tc_launches) == \
+        (before[0] + 2, before[1] + tc)
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))  # no atomics
     assert out.dtype == dtype
     assert _rel(out, mk.fused_mlp_reference(x, w1, b1, w2, b2, "gelu", p, seed)) <= tol
     want = mk.fused_mlp_bwd_reference(x, w1, b1, w2, cot, "gelu", p, seed)
@@ -274,6 +297,15 @@ def test_fused_kernels_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="width"):
         mk.fused_mlp(x, torch.zeros(96, 48, device=dev), torch.zeros(96, device=dev),
                      torch.zeros(48, 96, device=dev), torch.zeros(48, device=dev))
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    x = torch.zeros(4, 64, **bf)
+    with pytest.raises(ValueError, match="multiple of 8"):  # no quiet fallback to the FMA kernels
+        mk.fused_mlp_bwd(x, torch.zeros(100, 64, **bf), torch.zeros(100, **bf),
+                         torch.zeros(64, 100, **bf), x)
+    w = torch.zeros(3 * 128, 128, **bf)
+    with pytest.raises(ValueError, match="head_dim"):  # head_dim 128 in bf16
+        eb.attn_block(torch.zeros(2, 5, 128, **bf), w[0].float(), w[0].float(), w, w[:, 0],
+                      w[:128], w[0], 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

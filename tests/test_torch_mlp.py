@@ -114,3 +114,35 @@ def test_bwd_reference_is_the_gradient_of_the_forward(p):
     got = mk.fused_mlp_bwd_reference(x.detach(), w1, b1, w2, g, dropout_p=p, seed=SEED)
     for a, b in zip(got, [x.grad] + [t.grad for t in ws]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,dim,f,route", [
+    (torch.bfloat16, 192, 768, "tensor_core"),  # DeiT-Tiny, stage 0
+    (torch.bfloat16, 64, 96, "tensor_core"),  # f past a hidden chunk of 64
+    (torch.bfloat16, 128, 8, "tensor_core"),
+    (torch.bfloat16, 256, 1024, "tensor_core"),
+    (torch.float32, 192, 768, "fma"),  # the fp32 stage-0 checks
+    (torch.float32, 64, 100, "fma"),  # fp32 takes any f
+])
+def test_mlp_route(dtype, dim, f, route):
+    """The CUDA kernels a fused_mlp_bwd launch takes: bf16 the tensor-core
+    kernels at every width the FMA kernels take, fp32 the FMA kernels."""
+    assert mk.mlp_route(dtype, dim, f) == route
+
+
+@pytest.mark.parametrize("dtype,dim,f,what", [
+    (torch.bfloat16, 192, 100, "multiple of 8"),
+    (torch.bfloat16, 192, 0, "multiple of 8"),
+    (torch.bfloat16, 384, 1536, "width"),  # DeiT-Small waits for the FFN kernels' width 384
+    (torch.float32, 48, 96, "width"),
+])
+def test_mlp_route_rejects(dtype, dim, f, what):
+    """No quiet fallback: a bf16 shape the tensor-core kernels do not take
+    raises."""
+    with pytest.raises(ValueError, match=what):
+        mk.mlp_route(dtype, dim, f)
+
+
+def test_mlp_route_rejects_other_dtypes():
+    with pytest.raises(TypeError, match="float16"):
+        mk.mlp_route(torch.float16, 192, 768)
