@@ -14,8 +14,9 @@ Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
 1. device: name, count, and ``nvidia-smi`` name and power limit;
 2. build: compiles ``schemanet_torch/csrc/*.cu``, one nvcc per file at once;
    prints the registers and spills of the tensor-core kernels (attention
-   and its head-mean variant, GraphConv, the FFN backward, attn_block's
-   products) from the ptxas log, and fails if one is missing or spills;
+   and its head-mean variant, GraphConv, the FFN forward and backward,
+   attn_block's products, VQ's two routes) from the ptxas log, and fails if
+   one is missing or spills;
 3. each serving kernel against its plain PyTorch version at the serving
    shapes, in bf16 and fp32: max |kernel - plain| / max |plain| <= 2e-2
    (bf16), 1e-4 (fp32); ``sym_conv`` also at rows of E that are 4-byte
@@ -31,7 +32,7 @@ Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
    every kernel's launch counter advanced as the path implies (per
    microbatch: 10 attn_block on the tensor-core route, one of them with the
    head-mean, 10 ffn_block,
-   one vq_assign, 4 sym_conv, all on the tensor-core route, 4
+   one vq_assign, 4 sym_conv, all on the tensor-core routes, 4
    fused_layernorm (the GNN's LN+relu), and no training kernel);
 6. timings (CUDA events after warm-up): each kernel beside its plain version,
    and the p50/p99 latency and images/s of one microbatch of 64.
@@ -66,7 +67,7 @@ the fused update):
    finite losses, and the launch counters advanced as the path implies (per
    step: 10 attn_block on the tensor-core route, one with the head-mean, 10
    ffn_block, one vq_assign,
-   4 sym_conv and 4 sym_conv_bwd, all on the tensor-core route, 4
+   4 sym_conv and 4 sym_conv_bwd, all on the tensor-core routes, 4
    fused_layernorm and 4 fused_layernorm_bwd, 2 embed_grad, 2
    adamw_project_rows);
 10. timings: each training kernel beside its plain version; the device time
@@ -90,17 +91,18 @@ at DeiT-Tiny width, 12 layers, dropout 0.1, AdamW lr 1e-4 with warmup,
     same seed (equal masks, so a wrong mask shows as an O(1) error); the
     tolerances of 3. The attention kernels also at the edges of their tiling
     (``MHSA_EDGES``: n = 65, one row past a tile of 64; n = 320, the limit;
-    head_dim 32 over several waves of blocks), the FFN backward past its
-    tiles (``MLP_EDGES``: 1,000 rows, past a tile of 64; f = 96, past a
-    chunk of 64), and its bf16 dW1, dW2, db1 and db2 equal bit for bit over
-    two calls at every one of those shapes;
+    head_dim 32 over several waves of blocks), the FFN forward and backward
+    past their tiles (``MLP_EDGES``: 1,000 rows, past a tile of 64; f = 96,
+    past a chunk of 64 and the forward's chunk of 32), and the backward's
+    bf16 dW1, dW2, db1 and db2 equal bit for bit over two calls at every one
+    of those shapes;
 12. the step in fp32 with dropout live: 3 steps against the same trainer
     with every kernel replaced by its plain version, from the same generator
     seeds (so the same masks); losses within 1e-4 relative, the parameters
     within the rule of 8;
 13. the step in bf16 (the config's dtype): 5 finite losses; per step 12
     launches each of fused_mhsa, fused_mhsa_bwd, fused_mlp and fused_mlp_bwd,
-    every attention and FFN-backward launch on the tensor-core route, 25 of
+    every attention and FFN launch on the tensor-core route, 25 of
     fused_layernorm
     and of fused_layernorm_bwd (two a layer and the final norm), and none of
     the serving or SchemaNet kernels;
@@ -110,8 +112,10 @@ at DeiT-Tiny width, 12 layers, dropout 0.1, AdamW lr 1e-4 with warmup,
     calls and, for SDPA and the kernels, the profiler's device time of a
     call; ``schemanet_torch/kernel_times.py``: events and device time of
     attn_block (both variants) beside F.layer_norm + F.linear + SDPA +
-    F.linear, of the FFN backward beside its five products by torch.matmul,
-    and of embed_grad beside index_add_; the bf16 step's ms and images/s beside the
+    F.linear, of ffn_block, of the FFN forward and backward beside their two
+    and five products by torch.matmul, of embed_grad beside index_add_, of
+    adamw_project_rows, and of vq_assign at the minibatch, Lloyd and bf16
+    serving shapes beside matmul + argmin; the bf16 step's ms and images/s beside the
     step with every plain version and with the plain LayerNorm alone; its split into forward, backward, and
     clipping plus AdamW; the idle share over 3 steps and the peak memory.
 
@@ -123,7 +127,9 @@ fp32, seeded random weights and images made on the card):
 15. the VQ kernel against its plain version at [1024, 192] x 1024 (a k-means
     minibatch) and [200,000, 192] x 1024 (a Lloyd step) in fp32, [6,272, 192]
     x 1024 in bf16 (stage 3's batch of 32), [6,272, 384] x 8,000 in fp32
-    (the ImageNet vocabulary), and duplicated codes: ids equal on >= 99.9%
+    (the ImageNet vocabulary), rows past a row tile of 64 and codes past a
+    code tile of 128 in both dtypes (``VQ_EDGES``), and duplicated codes
+    (fp32 takes the split-TF32 route, bf16 the bf16 one): ids equal on >= 99.9%
     of rows, every mismatch a near-tie (the plain scores of the two codes
     within 1e-5 of the row's largest |score|), duplicates give the first
     index exactly. The LayerNorm kernels, forward and backward, at
@@ -134,7 +140,8 @@ fp32, seeded random weights and images made on the card):
 16. ``stage1_fp32``: the whole stage at the CLI's defaults (batch 64,
     1,000,000 features from 80 batches, M = 1024, k-means++ from the first
     4,096 features, minibatches of 1,024, 10 Lloyd iterations over the first
-    200,000), its launches (one vq_assign a minibatch and a Lloyd step);
+    200,000), its launches (one vq_assign a minibatch and a Lloyd step, all
+    on the split-TF32 route);
     features/s of the collection, ms a minibatch step and a Lloyd step, the
     final inertia; held against the plain versions: the first two batches'
     features within 1e-4, then 50 minibatch steps and 2 Lloyd steps in lock
@@ -152,7 +159,7 @@ fp32, seeded random weights and images made on the card):
 18. timings of the new kernels beside their plain versions and, for the
     LayerNorm, ``F.layer_norm`` and ATen's ``native_layer_norm_backward``;
     CUDA events over 20 calls, and the device time of a call from
-    ``torch.profiler``.
+    ``torch.profiler``; for VQ, the bound of each case.
 
 Any failed check raises, so the script exits non-zero. Without a GPU it fails
 at once. Its last line is ``{"ok": true, "device": {...}}``; the line before
@@ -256,6 +263,10 @@ ATTN_EDGES = {"n65": (5, 65, EMBED_DIM, HEADS), "deit_small": (16, 197, 384, 6)}
 # 12,608 rows are a multiple of the tensor-core row tile of 64): rows past a
 # tile, and f past a hidden chunk of 64
 MLP_EDGES = {"rows1000": (1000, EMBED_DIM, FFN_DIM), "f96": (45, 64, 96)}
+# (rows, width, codes, dtype) of the VQ compares beside the path's shapes:
+# rows past a row tile of 64 and codes past a code tile of 128
+VQ_EDGES = {"odd_fp32": (1037, EMBED_DIM, 1000, torch.float32),
+            "odd_bf16": (777, EMBED_DIM, 1000, torch.bfloat16)}
 # (graphs, V, D) of the GraphConv compares beside the path's shapes: rows of E
 # 4-byte aligned (V = 70), 8-byte aligned (V = 500, ImageNet's class graphs)
 CONV_EDGES = {"v70": (4, 70, 40), "v500": (16, 500, 1024)}
@@ -280,8 +291,8 @@ STAGE3_CFG = {
     "loss": dict(LOSS_CFG, weight_dict=LOSS_WEIGHTS),
 }
 S3_BATCH, S3_BATCHES, CIFAR_TRAIN = 32, 64, 50_000
-# H100 SXM data sheet, dense: bf16 tensor cores, fp32 outside them, HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM data sheet, dense: bf16 and TF32 tensor cores, fp32 outside them, HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "tfloat32": 494.7e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -325,6 +336,18 @@ def least_ms(flops: float, moved: float, dtype: str):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def vq_work(x, cb):
+    """(operations, bytes, type) of a vq_assign call, reckoned for the work
+    as the kernel does it: fp32 by the 3xTF32 split, three TF32 products per
+    fp32 product on the TF32 tensor cores; bf16 one bf16 product."""
+    (rows, width), codes = x.shape, cb.shape[0]
+    flops = 2 * rows * codes * width
+    moved = nbytes(x, cb) + rows * 4  # int32 ids out
+    if x.dtype == torch.float32:
+        return 3 * flops, moved, "tfloat32"
+    return flops, moved, "bfloat16"
 
 
 def device_time_by_name(prof) -> dict:
@@ -424,12 +447,14 @@ def main() -> None:
           compile_seconds=_build.build_seconds, library=str(_build.library_path().name))
     # registers and spills of the tensor-core kernels, from ptxas: 16
     # attention kernels (4 head_dims x forward, dq, dk/dv, head-mean
-    # forward), 8 GraphConv kernels (4 row widths of E x forward, dE), 5 FFN
-    # backward kernels (4 widths of dH and dx, one of the weight gradients),
-    # 2 of attn_block's products (LN + qkv, out projection + residual)
+    # forward), 8 GraphConv kernels (4 row widths of E x forward, dE), 9 FFN
+    # kernels (4 widths of the forward, 4 of dH and dx, one of the weight
+    # gradients), 2 of attn_block's products (LN + qkv, out projection +
+    # residual), VQ's 2 (split TF32, bf16)
     build_log = _build.library_path().with_suffix(".log").read_text()
     for source, tag, count in (("attention.cu", "mhsa_tc", 16), ("graphconv.cu", "tc_kernel", 8),
-                               ("mlp.cu", "tc_kernel", 5), ("encoder_block.cu", "linear_tc", 2)):
+                               ("mlp.cu", "tc_kernel", 9), ("encoder_block.cu", "linear_tc", 2),
+                               ("vq.cu", "vq_tc", 2)):
         tc_ptxas = {name: dict(zip(("registers", "spill_stores", "spill_loads"), r))
                     for name, r in ptxas_report(build_log, source).items() if tag in name}
         phase("ptxas", source=source, kernels=tc_ptxas)
@@ -612,11 +637,13 @@ def main() -> None:
     expected = {name: 0 for name in serve_launches}  # no training kernel
     expected.update({"attn_block": FROZEN_LAYERS * mbs, "attn_block_hmean": mbs,
                      "attn_block_tc": FROZEN_LAYERS * mbs,
-                     "ffn_block": FROZEN_LAYERS * mbs, "vq_assign": mbs,
+                     "ffn_block": FROZEN_LAYERS * mbs, "vq_assign": mbs, "vq_assign_tc": mbs,
                      "sym_conv": GNN_CONVS * mbs, "sym_conv_tc": GNN_CONVS * mbs,
                      "fused_layernorm": GNN_CONVS * mbs})
     phase("slice_bf16_launches", microbatches=mbs, launches=serve_launches, expected=expected)
     require(serve_launches == expected, f"launch counts {serve_launches} != {expected}")
+    require(serve_launches["vq_assign_tc"] == serve_launches["vq_assign"] > 0,
+            "a vq_assign launch of serving missed the tensor-core kernel")
     require(serve_launches["sym_conv_tc"] == serve_launches["sym_conv"] > 0,
             "a bf16 GraphConv launch of serving missed the tensor-core kernel")
     require(serve_launches["attn_block_tc"] == serve_launches["attn_block"] > 0,
@@ -905,6 +932,7 @@ def main() -> None:
     expected.update({"attn_block": FROZEN_LAYERS * BF16_STEPS, "attn_block_hmean": BF16_STEPS,
                      "attn_block_tc": FROZEN_LAYERS * BF16_STEPS,
                      "ffn_block": FROZEN_LAYERS * BF16_STEPS, "vq_assign": BF16_STEPS,
+                     "vq_assign_tc": BF16_STEPS,
                      **{name: GNN_CONVS * BF16_STEPS for name in (
                          "sym_conv", "sym_conv_bwd", "sym_conv_tc", "sym_conv_bwd_tc")},
                      "fused_layernorm": GNN_CONVS * BF16_STEPS,
@@ -915,9 +943,9 @@ def main() -> None:
     require(all(np.isfinite(losses16)), f"bf16 train losses not finite: {losses16}")
     require(train_launches == expected, f"train launch counts {train_launches} != {expected}")
     require(all(train_launches[f"{name}_tc"] == train_launches[name] > 0
-                for name in ("sym_conv", "sym_conv_bwd", "attn_block")),
-            "a bf16 GraphConv or attn_block launch of the stage-4 step missed the tensor-core "
-            "kernels")
+                for name in ("sym_conv", "sym_conv_bwd", "attn_block", "vq_assign")),
+            "a bf16 GraphConv, attn_block or vq_assign launch of the stage-4 step missed the "
+            "tensor-core kernels")
 
     # 10. timings: training kernels, the step, its split, idle share, memory
     for name, case in train_cases.items():
@@ -1104,21 +1132,24 @@ def main() -> None:
                 compare(f"fused_mhsa_bwd_{suffix}", ak.fused_mhsa_bwd, ak.fused_mhsa_bwd_reference,
                         (qkv_e.to(dt), g_e.to(dt), h_, p, seed), {}, dt, tol, errors)
     del qkv_e, g_e
-    # the FFN backward past its tiles (rows past a tile of 64, f past a
-    # chunk of 64), and the bf16 weight and bias gradients of the stage-0
-    # shape and the edges equal bit for bit over two calls (no atomics)
+    # the FFN forward and backward past their tiles (rows past a tile of 64,
+    # f past a chunk of 64), and the bf16 weight and bias gradients of the
+    # stage-0 shape and the edges equal bit for bit over two calls (no atomics)
     mlp_same = {}
     for tag, (rows_, d_, f_) in {"stage0": (rows0, d, f), **MLP_EDGES}.items():
         x_e, g_e = rnd(1, rows_, d_), rnd(1, rows_, d_)
         w_e = (rnd(f_, d_, scale=d_**-0.5), rnd(f_, scale=0.1), rnd(d_, f_, scale=f_**-0.5))
+        b2_e = rnd(d_, scale=0.1)
         for p in (0.0, S0_DROPOUT):
             seed = S0_SEED if p else None
             for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
                 args_e = (x_e.to(dt), *(t.to(dt) for t in w_e), g_e.to(dt), "gelu", p, seed)
                 if tag != "stage0":
-                    compare(f"fused_mlp_bwd_{tag}" if p else f"fused_mlp_bwd_{tag}_p0",
-                            mk.fused_mlp_bwd, mk.fused_mlp_bwd_reference, args_e, {}, dt, tol,
-                            errors)
+                    suffix = tag if p else f"{tag}_p0"
+                    compare(f"fused_mlp_{suffix}", mk.fused_mlp, mk.fused_mlp_reference,
+                            (*args_e[:4], b2_e.to(dt), *args_e[5:]), {}, dt, tol, errors)
+                    compare(f"fused_mlp_bwd_{suffix}", mk.fused_mlp_bwd,
+                            mk.fused_mlp_bwd_reference, args_e, {}, dt, tol, errors)
                 if dt == torch.bfloat16:
                     runs = [mk.fused_mlp_bwd(*args_e)[1:] for _ in range(2)]
                     mlp_same[f"{tag}_p{p}"] = all(torch.equal(a, b) for a, b in zip(*runs))
@@ -1126,7 +1157,7 @@ def main() -> None:
           dparams_run_to_run_bitwise=mlp_same)
     require(all(mlp_same.values()), f"bf16 fused_mlp_bwd dW1/dW2/db1/db2 differ between two "
                                     f"calls: {mlp_same}")
-    del x_e, g_e, w_e, args_e, runs
+    del x_e, g_e, w_e, b2_e, args_e, runs
 
     # 12. the stage-0 step in fp32, dropout live, against the plain versions
     def s0_cfg(dtype):
@@ -1185,10 +1216,10 @@ def main() -> None:
     s0_launches = launch_counts()
     losses0 = [m["loss"].item() for m in metrics]
     expected = {name: 0 for name in s0_launches}
-    # every attention launch of the bf16 step on the tensor-core route
+    # every attention and FFN launch of the bf16 step on the tensor-core route
     expected.update({name: S0_LAYERS * BF16_STEPS
                      for name in (*s0_kernels, "fused_mhsa_tc", "fused_mhsa_bwd_tc",
-                                  "fused_mlp_bwd_tc")})
+                                  "fused_mlp_tc", "fused_mlp_bwd_tc")})
     expected.update({name: (2 * S0_LAYERS + 1) * BF16_STEPS
                      for name in ("fused_layernorm", "fused_layernorm_bwd")})
     phase("stage0_bf16", steps=BF16_STEPS, batch=BATCH, losses=losses0, launches=s0_launches,
@@ -1196,8 +1227,8 @@ def main() -> None:
     require(all(np.isfinite(losses0)), f"stage-0 bf16 losses not finite: {losses0}")
     require(s0_launches == expected, f"stage-0 launch counts {s0_launches} != {expected}")
     require(all(s0_launches[f"{name}_tc"] == s0_launches[name] > 0
-                for name in ("fused_mhsa", "fused_mhsa_bwd", "fused_mlp_bwd")),
-            "a bf16 attention or FFN-backward launch of stage 0 missed the tensor-core kernels")
+                for name in ("fused_mhsa", "fused_mhsa_bwd", "fused_mlp", "fused_mlp_bwd")),
+            "a bf16 attention or FFN launch of stage 0 missed the tensor-core kernels")
 
     # 14. timings: the stage-0 kernels beside their plain versions and SDPA, the step
     for name in s0_kernels:
@@ -1249,8 +1280,8 @@ def main() -> None:
     del sdpa_out
     library["fused_mhsa"] = sdpa_ms
     library["fused_mhsa_bwd"] = sdpa_bwd_ms
-    # events and device time of attn_block (both variants), the FFN backward
-    # and embed_grad, beside their PyTorch yardsticks (schemanet_torch/kernel_times.py)
+    # events and device time of the kernels schemanet_torch/kernel_times.py
+    # lists, beside their PyTorch yardsticks
     from schemanet_torch import kernel_times
     phase("kernel_times", script="schemanet_torch/kernel_times.py",
           rows=kernel_times.measure(dev), **card_note)
@@ -1344,7 +1375,7 @@ def main() -> None:
     vq_shapes = {"minibatch": (1024, d, NUM_CODES, torch.float32),
                  "lloyd": (S1_LLOYD, d, NUM_CODES, torch.float32),
                  "stage3_bf16": (v_s3, d, NUM_CODES, torch.bfloat16),
-                 "imagenet_vocabulary": (v_s3, 384, 8000, torch.float32)}
+                 "imagenet_vocabulary": (v_s3, 384, 8000, torch.float32), **VQ_EDGES}
     vq_inputs = {case: (rnd(rows, width).to(dt), rnd(codes, width))
                  for case, (rows, width, codes, dt) in vq_shapes.items()}
     for case, (x, cb) in vq_inputs.items():
@@ -1432,8 +1463,11 @@ def main() -> None:
     expected = {name: 0 for name in s1_launches}
     expected.update({"attn_block": FROZEN_LAYERS * len(chunks),
                      "ffn_block": FROZEN_LAYERS * len(chunks),
-                     "vq_assign": minibatches + S1_LLOYD_ITERS})
+                     "vq_assign": minibatches + S1_LLOYD_ITERS,
+                     "vq_assign_tc": minibatches + S1_LLOYD_ITERS})
     require(s1_launches == expected, f"stage-1 launch counts {s1_launches} != {expected}")
+    require(s1_launches["vq_assign_tc"] == s1_launches["vq_assign"] > 0,
+            "a vq_assign launch of stage 1 missed the split-TF32 kernel")
     require(bool(torch.isfinite(bundle.codebook).all())
             and tuple(bundle.codebook.shape) == (NUM_CODES, EMBED_DIM), "stage-1 codebook")
     backbone = get_model(STAGE1_CFG["model"], NUM_CLASSES)
@@ -1526,8 +1560,11 @@ def main() -> None:
     passes = 2 * S3_BATCHES
     expected = {name: 0 for name in s3_launches}
     expected.update({"attn_block": FROZEN_LAYERS * passes, "attn_block_hmean": passes,
-                     "ffn_block": FROZEN_LAYERS * passes, "vq_assign": passes})
+                     "ffn_block": FROZEN_LAYERS * passes, "vq_assign": passes,
+                     "vq_assign_tc": passes})
     require(s3_launches == expected, f"stage-3 launch counts {s3_launches} != {expected}")
+    require(s3_launches["vq_assign_tc"] == s3_launches["vq_assign"] > 0,
+            "a vq_assign launch of stage 3 missed the tensor-core kernels")
     replay_stats = {"rows": 0, "mismatches": 0, "near_ties_only": True}
 
     def plain_init():
@@ -1575,13 +1612,18 @@ def main() -> None:
     # beside the CUDA-event time, which the host's per-call work bounds for
     # the small launches
     for case, (x, cb) in vq_inputs.items():
+        # the events of 3 Lloyd calls; the device time of 20 (profiles of 3
+        # have read a third or two thirds of the events' time)
         iters = 3 if case == "lloyd" else TIME_ITERS
         key = "vq_assign" if case == "minibatch" else f"vq_assign_{case}"
         times[key] = (time_ms(lambda: vqk.vq_assign_kernel(x, cb), iters),
                       time_ms(lambda: vqk.vq_assign_reference(x, cb), iters))
+        flops, moved, ops_type = vq_work(x, cb)
+        bound_ms, bound_by = least_ms(flops, moved, ops_type)
         phase("kernel_time", kernel="vq_assign", case=case, dtype=str(x.dtype).split(".")[-1],
               shape=list(x.shape), codes=cb.shape[0], ms=times[key][0], plain_ms=times[key][1],
-              device_ms=device_ms(lambda: vqk.vq_assign_kernel(x, cb), iters), **card_note)
+              device_ms=device_ms(lambda: vqk.vq_assign_kernel(x, cb)),
+              bound_ms=bound_ms, bound_by=bound_by, bound_ops=ops_type, **card_note)
     for name, (x, sc, bi, cot, act) in ln_inputs.items():
         x, cot = x.to(torch.bfloat16), cot.to(torch.bfloat16)
         bwd = name.replace("fused_layernorm", "fused_layernorm_bwd")
@@ -1655,10 +1697,6 @@ def main() -> None:
             "fused_mlp_bwd": (5 * mlp, 3 * nbytes(t["x"]) + 2 * weights + nbytes(t["b2"])),
         }[name]
 
-    def vq_work(x, cb):
-        (rows, width), codes = x.shape, cb.shape[0]
-        return 2 * rows * codes * width, nbytes(x, cb) + rows * 4  # int32 ids out
-
     def ln_work(inputs, bwd=False):
         x = inputs[0].to(torch.bfloat16)  # timed in bf16; statistics, affine in fp32
         params = 2 * x.shape[-1] * 4
@@ -1715,11 +1753,13 @@ def main() -> None:
                 "vq_assign": s1_launches["vq_assign"]}
     kernels = []
     for name in replaces:
-        # the operations' type: fp32 for the kernels that compute outside the
-        # tensor cores on fp32 data (or with fp32 statistics)
-        fp32_ops = ("adamw_project_rows", "vq_assign", "fused_layernorm", "fused_layernorm_bwd")
-        dtype = "float32" if name in fp32_ops else "bfloat16"
-        bound_ms, bound_by = least_ms(*work[name], dtype)
+        # the operations' type: where the work does not name it (VQ's does),
+        # fp32 for the kernels that compute outside the tensor cores on fp32
+        # data (or with fp32 statistics), else bf16
+        fp32_ops = ("adamw_project_rows", "fused_layernorm", "fused_layernorm_bwd")
+        flops, moved, *ops_type = work[name]
+        dtype = ops_type[0] if ops_type else "float32" if name in fp32_ops else "bfloat16"
+        bound_ms, bound_by = least_ms(flops, moved, dtype)
         kernels.append({
             "name": name,
             "route": "cuda",

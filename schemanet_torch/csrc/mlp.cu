@@ -13,7 +13,7 @@
 // -> 192, bf16) a forward is 7.4 GFLOP and a backward 18.6 GFLOP (five
 // products) against ~10 MB and ~16 MB of operands: compute-bound, once the
 // [rows, f] hidden state stays on chip. The design keeps it there:
-//   * forward: one block per 32 rows; the hidden width in chunks of 64:
+//   * forward (fp32): one block per 32 rows; the hidden width in chunks of 64:
 //     fc1 + bias + gelu + mask into shared memory, and the fc2 partial sums
 //     accumulate in registers (as the frozen ffn_block does).
 //   * backward, three launches. (a) dx: one block per 32 rows, the hidden
@@ -28,13 +28,13 @@
 //     partials instead, and the sums do not depend on the run.
 //   Rows past the end are zero in x and g, so they add nothing to the
 //   weight gradients.
-// Two routes for the backward, chosen by the storage type
-// (ops/kernels/mlp.py mlp_route says which, and raises on what neither takes):
-// fp32 takes the FMA kernels above, whose products are fp32 FMA on
-// shared-memory tiles (tensor cores would mean TF32 and lose the 1e-4
-// agreement the fp32 checks hold); bf16 takes the tensor-core kernels below,
-// which store the hidden state once instead of recomputing it in two
-// launches. The forward is FMA on both dtypes.
+// Two routes, chosen by the storage type (ops/kernels/mlp.py mlp_route says
+// which, and raises on what neither takes): fp32 takes the FMA kernels
+// above, whose products are fp32 FMA on shared-memory tiles (tensor cores
+// would mean TF32 and lose the 1e-4 agreement the fp32 checks hold); bf16
+// takes the tensor-core kernels below: the forward in one launch, the
+// backward storing the hidden state once instead of recomputing it in two
+// launches.
 //
 // Numerics follow the TPU kernel: x W1 accumulated in fp32 and rounded once
 // to T, + b1 in T, gelu with the Abramowitz-Stegun erf in fp32 rounded to T,
@@ -106,6 +106,29 @@ __device__ __forceinline__ float gelu_as_grad(float x) {
   const float cdf = 0.5f * (1.f + erf_as(x * 0.7071067811865476f));
   const float pdf = expf(-0.5f * x * x) * 0.3989422804014327f;
   return cdf + x * pdf;
+}
+
+// The hidden element (row, col) of the bf16 FFN from its fp32 fc1 sum, with
+// the TPU kernel's roundings: h = round(round(acc) + b1), a = round(gelu(h)),
+// and with dropout a_used = round(a * inv_t) where the hash keeps (row, col),
+// else 0. The tensor-core forward and backward both call it on their C
+// fragments, so they regenerate the same h, a_used and mask.
+struct FfnHidden {
+  float h, a_used;
+  bool keep;
+};
+
+__device__ __forceinline__ FfnHidden ffn_hidden_bf16(float acc, const bf16* b1, long row, int col,
+                                                     int f, float p, float inv_t, uint32_t h0) {
+  FfnHidden v;
+  v.h = Num<bf16>::round(Num<bf16>::round(acc) + Num<bf16>::load(b1, col));
+  v.a_used = Num<bf16>::round(gelu_as(v.h));
+  v.keep = true;
+  if (p > 0.f) {
+    v.keep = drop_keep(h0, (uint32_t)row, f, col, p);
+    v.a_used = v.keep ? Num<bf16>::round(v.a_used * inv_t) : 0.f;
+  }
+  return v;
 }
 
 // x (or g) rows [row0, row0 + BM) into xs [BM][dim]; rows past the end are 0.
@@ -368,6 +391,18 @@ __global__ void __launch_bounds__(kThreads)
 // bf16 route: tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulated;
 // the fragment helpers are in common.cuh)
 //
+// forward, mlp_fwd_tc_kernel: one block of 8 warps per 64 rows, whose x
+//     stays in shared memory; the hidden width goes by in chunks of 32,
+//     W1[f0:+32, :] and W2[:, f0:+32] double-buffered by cp.async. Per chunk
+//     each warp computes h = x W1^T for its 16 rows and 16 of the chunk's
+//     columns (W1 rows as [n][k] by ldmatrix), applies b1, gelu and the mask
+//     to the C fragments (ffn_hidden_bf16, shared with (a) below), and
+//     writes a_used, bf16, to a shared tile; then out += a_used W2^T (W2's
+//     chunk as [n][k]) for its 16 rows and dim/2 columns, in fp32 registers
+//     over all chunks; b2 in the epilogue. Nothing of the hidden state
+//     leaves the chip. The chunk of 32 (not (a)'s 64) keeps a block at 87 KB
+//     of shared memory at dim 192, so two blocks share an SM and stage 0's
+//     197 row tiles run in one wave of 264 places, not two of 132.
 // (a) mlp_dh_tc_kernel: one block of 8 warps per 64 rows. x and g of the
 //     rows stay in shared memory; the hidden width goes by in chunks of 64,
 //     W1[f0:+64, :] and W2[:, f0:+64] double-buffered by cp.async. Per
@@ -480,16 +515,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int col = f0 + cc + e;
           float a_used = 0.f, dh = 0.f;
           if (col < f) {
-            const float h = Num<bf16>::round(Num<bf16>::round(hacc[nt][half * 2 + e]) +
-                                             Num<bf16>::load(b1, col));
-            a_used = Num<bf16>::round(gelu_as(h));
+            const FfnHidden hv =
+                ffn_hidden_bf16(hacc[nt][half * 2 + e], b1, row0 + r, col, f, p, inv_t, h0);
+            a_used = hv.a_used;
             float da = dacc[nt][half * 2 + e];
-            if (p > 0.f) {
-              const bool keep = drop_keep(h0, (uint32_t)(row0 + r), f, col, p);
-              a_used = keep ? Num<bf16>::round(a_used * inv_t) : 0.f;
-              da = keep ? da * inv : 0.f;
-            }
-            dh = Num<bf16>::round(da * gelu_as_grad(h));
+            if (p > 0.f) da = hv.keep ? da * inv : 0.f;
+            dh = Num<bf16>::round(da * gelu_as_grad(hv.h));
           }
           av[e] = a_used;
           dv[e] = dh;
@@ -620,6 +651,146 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kFwdChunk = 32;  // hidden columns a step of the forward
+constexpr int kFwdChunkPitch = kFwdChunk + 8;
+
+template <int DIM>
+struct MlpFwdTcSmem {
+  static constexpr int kPitch = DIM + 8;
+  static constexpr int kX = kTcRowTile * kPitch;    // x rows
+  static constexpr int kW1 = kFwdChunk * kPitch;    // a W1 chunk [32][DIM]
+  static constexpr int kW2 = DIM * kFwdChunkPitch;  // a W2 chunk [DIM][32]
+  static constexpr int kA = kTcRowTile * kFwdChunkPitch;
+  static constexpr size_t kBytes = sizeof(bf16) * (kX + 2 * (kW1 + kW2) + kA);
+};
+
+// two resident blocks an SM up to dim 192 (<= 128 registers a thread); at
+// 256 the fp32 output fragments take 64 registers, so one
+template <int DIM>
+__global__ void __launch_bounds__(kThreads, DIM <= 192 ? 2 : 1)
+    mlp_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                      const bf16* __restrict__ b1, const bf16* __restrict__ w2,
+                      const bf16* __restrict__ b2, bf16* __restrict__ out, int rows, int f, float p,
+                      float inv, int seed) {
+  using S = MlpFwdTcSmem<DIM>;
+  constexpr int P = S::kPitch, CP = kFwdChunkPitch;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [64][P]
+  bf16* wbuf = xs + S::kX;                       // 2 x (W1 chunk [32][P], W2 chunk [DIM][CP])
+  bf16* as = wbuf + 2 * (S::kW1 + S::kW2);       // a_used of the chunk [64][CP]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp >> 1, wc = warp & 1;  // rows 16 wr..; column half wc
+  const long row0 = (long)blockIdx.x * kTcRowTile;
+  const uint32_t h0 = drop_stream(seed, 0);
+  const float inv_t = Num<bf16>::round(inv);
+  auto w1c = [&](int c) { return wbuf + (c & 1) * (S::kW1 + S::kW2); };
+  auto w2c = [&](int c) { return w1c(c) + S::kW1; };
+  auto stage_chunk = [&](int c) {
+    const int f0 = c * kFwdChunk;
+    stage_tile<kThreads>(w1c(c), P, w1, DIM, f, DIM, f0, 0, kFwdChunk, DIM);
+    stage_tile<kThreads>(w2c(c), CP, w2, f, DIM, f, 0, f0, DIM, kFwdChunk);
+  };
+  stage_tile<kThreads>(xs, P, x, DIM, rows, DIM, row0, 0, kTcRowTile, DIM);
+  stage_chunk(0);
+  cp_async_commit();
+
+  float oacc[DIM / 16][4] = {};  // the warp's 16 rows x DIM/2 columns of out
+  const int chunks = (f + kFwdChunk - 1) / kFwdChunk;
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk c landed; every warp is past chunk c - 1
+    if (c + 1 < chunks) {
+      stage_chunk(c + 1);
+      cp_async_commit();
+    }
+    const bf16* w1t = w1c(c);
+    const bf16* w2t = w2c(c);
+    const int f0 = c * kFwdChunk;
+
+    // h = x W1^T for rows 16 wr.., chunk columns 16 wc..
+    float hacc[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DIM / 16; ++kk) {
+      uint32_t a[4], b[4];
+      ldsm_a(a, xs, P, wr * 16, kk * 16, lane);
+      ldsm_b_nk(b, w1t, P, wc * 16, kk * 16, lane);
+      mma16816(hacc[0], a, b[0], b[1]);
+      mma16816(hacc[1], a, b[2], b[3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wr * 16 + (lane >> 2) + half * 8;
+        const int cc = wc * 16 + nt * 8 + (lane & 3) * 2;
+        float av[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = f0 + cc + e;
+          av[e] = col < f ? ffn_hidden_bf16(hacc[nt][half * 2 + e], b1, row0 + r, col, f, p,
+                                            inv_t, h0)
+                                .a_used
+                          : 0.f;
+        }
+        *reinterpret_cast<uint32_t*>(as + r * CP + cc) = pack_bf16(av[0], av[1]);
+      }
+    __syncthreads();
+
+    // out += a_used W2^T over the chunk: rows 16 wr.., columns wc DIM/2..
+#pragma unroll
+    for (int kk = 0; kk < kFwdChunk / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_a(a, as, CP, wr * 16, kk * 16, lane);
+#pragma unroll
+      for (int nb = 0; nb < DIM / 32; ++nb) {
+        uint32_t b[4];
+        ldsm_b_nk(b, w2t, CP, wc * (DIM / 2) + nb * 16, kk * 16, lane);
+        mma16816(oacc[2 * nb], a, b[0], b[1]);
+        mma16816(oacc[2 * nb + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  // out = round(round(a W2^T) + b2), as the FMA route
+#pragma unroll
+  for (int nt = 0; nt < DIM / 16; ++nt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long row = row0 + wr * 16 + (lane >> 2) + half * 8;
+      const int col = wc * (DIM / 2) + nt * 8 + (lane & 3) * 2;
+      if (row < rows)
+        *reinterpret_cast<uint32_t*>(out + row * DIM + col) =
+            pack_bf16(Num<bf16>::round(oacc[nt][half * 2]) + Num<bf16>::load(b2, col),
+                      Num<bf16>::round(oacc[nt][half * 2 + 1]) + Num<bf16>::load(b2, col + 1));
+    }
+}
+
+template <int DIM>
+cudaError_t mlp_fwd_tc_launch(const void* x, const void* w1, const void* b1, const void* w2,
+                              const void* b2, void* out, int rows, int f, float p, float inv,
+                              int seed, cudaStream_t stream) {
+  const size_t bytes = MlpFwdTcSmem<DIM>::kBytes;
+  cudaError_t err = allow_smem(mlp_fwd_tc_kernel<DIM>, bytes);
+  if (err != cudaSuccess) return err;
+  mlp_fwd_tc_kernel<DIM><<<(rows + kTcRowTile - 1) / kTcRowTile, kThreads, bytes, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+      static_cast<const bf16*>(w2), static_cast<const bf16*>(b2), static_cast<bf16*>(out), rows,
+      f, p, inv, seed);
+  return cudaGetLastError();
+}
+
+cudaError_t mlp_fwd_tc(const void* x, const void* w1, const void* b1, const void* w2,
+                       const void* b2, void* out, int rows, int dim, int f, float p, float inv,
+                       int seed, cudaStream_t s) {
+  if (f % 8) return cudaErrorInvalidValue;
+  switch (dim) {
+    case 64: return mlp_fwd_tc_launch<64>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
+    case 128: return mlp_fwd_tc_launch<128>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
+    case 192: return mlp_fwd_tc_launch<192>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
+    case 256: return mlp_fwd_tc_launch<256>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, int TN2>
 cudaError_t mlp_fwd_launch(const void* x, const void* w1, const void* b1, const void* w2,
                            const void* b2, void* out, int rows, int f, float p, float inv,
@@ -729,15 +900,14 @@ cudaError_t mlp_bwd_tc(const void* x, const void* w1, const void* b1, const void
   }
 }
 
-template <typename T>
-cudaError_t mlp_fwd_impl(const void* x, const void* w1, const void* b1, const void* w2,
+cudaError_t mlp_fwd_fp32(const void* x, const void* w1, const void* b1, const void* w2,
                          const void* b2, void* out, int rows, int dim, int f, float p, float inv,
                          int seed, cudaStream_t s) {
   switch (dim) {
-    case 64: return mlp_fwd_launch<T, 2>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
-    case 128: return mlp_fwd_launch<T, 4>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
-    case 192: return mlp_fwd_launch<T, 6>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
-    case 256: return mlp_fwd_launch<T, 8>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
+    case 64: return mlp_fwd_launch<float, 2>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
+    case 128: return mlp_fwd_launch<float, 4>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
+    case 192: return mlp_fwd_launch<float, 6>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
+    case 256: return mlp_fwd_launch<float, 8>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -767,14 +937,16 @@ cudaError_t mlp_bwd_impl(const void* x, const void* w1, const void* b1, const vo
 
 extern "C" {
 
-// out [rows, dim]; p = 0 turns dropout off; inv = fp32(1 / (1 - p)).
+// out [rows, dim]; p = 0 turns dropout off; inv = fp32(1 / (1 - p)). fp32
+// takes the FMA kernel, bf16 the tensor-core one (f a multiple of 8; x, w1
+// and w2 16-byte aligned).
 int sn_fused_mlp(int dtype, const void* x, const void* w1, const void* b1, const void* w2,
                  const void* b2, void* out, int rows, int dim, int f, float p, float inv,
                  int seed, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == sn::kF32)
-    return sn::mlp_fwd_impl<float>(x, w1, b1, w2, b2, out, rows, dim, f, p, inv, seed, s);
-  return sn::mlp_fwd_impl<__nv_bfloat16>(x, w1, b1, w2, b2, out, rows, dim, f, p, inv, seed, s);
+    return sn::mlp_fwd_fp32(x, w1, b1, w2, b2, out, rows, dim, f, p, inv, seed, s);
+  return sn::mlp_fwd_tc(x, w1, b1, w2, b2, out, rows, dim, f, p, inv, seed, s);
 }
 
 // dx [rows, dim] in the storage type; grads fp32 [2 f dim + f + dim] holding

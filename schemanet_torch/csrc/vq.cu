@@ -1,131 +1,306 @@
-// Nearest-code assignment with a streaming argmin, for Hopper (sm_90a):
+// Nearest-code assignment with a streaming argmin on Hopper's tensor cores
+// (sm_90a):
 //   ids[n] = argmin_m (||c_m||^2 - 2 x_n . c_m),  first minimum on ties,
-// for x [N, d] and a codebook [M, d] in one storage type T, products and
-// sums in fp32.
+// for x [N, d] and a codebook [M, d] in one storage type T, scores in fp32.
 //
 // Replaces schemanet_tpu/ops/pallas/vq.py vq_assign_pallas. The TPU kernel
 // tiled N x M on the MXU and carried the running (min, argmin) of each row
 // in VMEM across the sequential M grid axis. Hopper's blocks run in parallel
-// and in no order, so here the code axis is cut into S segments: block
-// (row tile, segment) streams its segment's code tiles through shared memory
-// in ascending order, keeps each row's running (min, argmin) in registers,
-// and writes one (score, id) partial per row and segment; a second small
-// launch takes the first minimum over the S partials in segment order. The
-// [N, M] score matrix never exists in device memory. The wrapper picks S so
-// that a small N (a k-means minibatch of 1,024 rows) still fills the card.
+// and in no order, so the code axis is cut into S segments: block (row tile,
+// segment) streams its segment's code tiles in ascending order and keeps each
+// row's running (min, argmin) in registers. The [N, M] score matrix never
+// reaches device memory.
 //
-// What bounds it on the card: 2 N M d fp32 operations against N d + M d
-// inputs, so operations (a Lloyd step at N = 200,000, M = 1,024, d = 192 is
-// 78.6 GFLOP, 1.17 ms at the 67 TFLOP/s fp32 rate). The products are fp32
-// FMA on 64 x 64 shared-memory tiles, 4 x 4 a thread: right first.
-// Tensor-core tiles (TF32 would change the ids; a 3xTF32 split would not)
-// are later work.
+// What bounds it on the card: 2 N M d operations against N d + M d inputs,
+// so operations. Two routes by the storage type (ops/kernels/vq.py vq_route):
+//   * fp32: the reference scores at Precision.HIGHEST, and one TF32 product
+//     (10-bit mantissa) would move ids far past the near-ties the checks
+//     allow. So the 3xTF32 split: x = x_hi + x_lo with x_hi = tf32(x),
+//     x_lo = tf32(x - x_hi), the same for c, done once per element while the
+//     tile is staged; each k step adds x_lo c_hi, then x_hi c_lo, then
+//     x_hi c_hi into one fp32 accumulator by mma.sync m16n8k8 .tf32, and
+//     drops x_lo c_lo: about fp32's accuracy at three TF32 products per fp32
+//     product (3 x 2 N M d over 494.7 TFLOP/s dense TF32 is the bound).
+//   * bf16: mma.sync m16n8k16, fp32 accumulated. The products of bf16 values
+//     are exact in fp32, so only the order of the sum differs.
+// A block of 8 warps takes 64 rows x 128 codes, each warp 32 x 32, over k in
+// chunks of 128 bytes a row (32 fp32 or 64 bf16). The next chunk's 16-byte
+// loads are in flight in registers while the current one is multiplied; they
+// are split (fp32) and stored into the other of two shared-memory stages.
+// Fragments come by ldmatrix: an 8 x 16-byte matrix gives lane l the 32-bit
+// word (l / 4, l % 4), which is the TF32 m16n8k8 A and B layout, so the bf16
+// fragment loaders of common.cuh serve both types (pitch and k in bf16
+// units). The squared norms of a code tile are summed from the fp32 values
+// (bf16 widened) as they are staged, and reduced by shuffles: no pre-pass.
+// The codebook (0.79 MB at 1024 x 192 fp32) stays in L2 across row tiles.
 //
-// Ties: within a thread codes are visited in ascending order and a later
-// code must be strictly smaller; the threads of a row then reduce
-// lexicographically on (score, id), and the segments in ascending order,
-// so the result is the first minimum over all codes, as torch.argmin gives.
-// Codes and rows past the end are bounds-checked, never padded.
-//
-// The squared norms are a tiny pre-pass (one warp per code, fp32), written
-// to a scratch vector the wrapper allocates.
+// Epilogue on the C fragments, in registers: s = ||c||^2 - 2 acc; each thread
+// scans its codes in ascending order and a later code must be strictly
+// smaller; the lanes and warps that share a row then reduce
+// lexicographically on (score, id). With S > 1 each block writes a (score,
+// id) partial per row; the last block of a row tile to finish (a ticket taken
+// by an atomic after a __threadfence) reduces the S partials
+// lexicographically and writes the ids, so the result does not depend on
+// which block finishes last, and it resets its ticket to 0 for the next call.
+// Codes and rows past the end are zero in shared memory and never win.
 #include "common.cuh"
 
 namespace sn {
 
-constexpr int kVqBN = 64, kVqBM = 64, kVqKC = 32, kVqTM = 4, kVqTN = 4;
-constexpr int kVqTX = kVqBM / kVqTN;  // 16 threads across the codes of a tile
+constexpr int kVqRows = 64, kVqCodes = 128;  // block tile: rows x codes
+constexpr int kVqVecs = 8;                   // 16-byte vectors of a row in a chunk
+constexpr int kVqXLoads = kVqRows * kVqVecs / kThreads;   // 2 a thread
+constexpr int kVqCLoads = kVqCodes * kVqVecs / kThreads;  // 4 a thread
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    vq_norms_kernel(const T* __restrict__ cb, float* __restrict__ cnorm, int M, int d) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int code = blockIdx.x * (kThreads / 32) + warp;
-  if (code >= M) return;
-  float s = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    const float v = Num<T>::load(cb, (long)code * d + c);
-    s = fmaf(v, v, s);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (lane == 0) cnorm[code] = s;
+struct VqTile;
+template <>
+struct VqTile<float> {  // planes: tf32 hi, tf32 lo
+  static constexpr int kChunk = 32, kPitch = 36, kPlanes = 2;
+};
+template <>
+struct VqTile<bf16> {
+  static constexpr int kChunk = 64, kPitch = 72, kPlanes = 1;
+};
+
+template <typename T>
+struct VqSmem {
+  using Tile = VqTile<T>;
+  static constexpr int kX = kVqRows * Tile::kPitch;   // one plane of x
+  static constexpr int kC = kVqCodes * Tile::kPitch;  // one plane of the codes
+  static constexpr int kStage = Tile::kPlanes * (kX + kC);
+  static constexpr size_t kBytes = sizeof(T) * 2 * kStage + sizeof(float) * 2 * kVqCodes;
+};
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// c += a b: A 16x8 (row), B 8x8 (col), TF32 in, fp32 accumulated
+__device__ __forceinline__ void mma1688_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ bool vq_better(float s, int i, float best, int besti) {
   return s < best || (s == best && i < besti);
 }
 
-// grid (row tiles, segments); segment s covers codes [s * seg, (s+1) * seg)
+// sum of squares of the 16 bytes v of T, widened to fp32
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    vq_assign_kernel(const T* __restrict__ x, const T* __restrict__ cb,
-                     const float* __restrict__ cnorm, float* __restrict__ part_s,
-                     int* __restrict__ part_i, int N, int M, int d, int seg) {
-  __shared__ float xs[kVqKC][kVqBN + 1];
-  __shared__ float cs[kVqKC][kVqBM + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % kVqTX, ty = tid / kVqTX;
-  const int row0 = blockIdx.x * kVqBN;
-  const int m_lo = blockIdx.y * seg, m_hi = min(M, m_lo + seg);
-  float best[kVqTM];
-  int besti[kVqTM];
+__device__ __forceinline__ float sq16(const uint4& v) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(&v);
+    return fmaf(f.x, f.x, fmaf(f.y, f.y, fmaf(f.z, f.z, f.w * f.w)));
+  } else {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < kVqTM; ++i) {
-    best[i] = INFINITY;
-    besti[i] = m_lo;
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = unpack_bf16(w[i]);
+      s = fmaf(f.x, f.x, fmaf(f.y, f.y, s));
+    }
+    return s;
   }
-  for (int m0 = m_lo; m0 < m_hi; m0 += kVqBM) {
-    float acc[kVqTM][kVqTN];
+}
+
+// the 16 bytes v into row r, vector q of a stage's planes (fp32: split)
+template <typename T>
+__device__ __forceinline__ void vq_put(T* plane, int plane_size, int r, int q, const uint4& v) {
+  constexpr int P = VqTile<T>::kPitch, E = 16 / sizeof(T);
+  if constexpr (sizeof(T) == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(&v);
+    const uint4 hi = make_uint4(tf32_rna(f.x), tf32_rna(f.y), tf32_rna(f.z), tf32_rna(f.w));
+    const uint4 lo = make_uint4(tf32_rna(f.x - __uint_as_float(hi.x)),
+                                tf32_rna(f.y - __uint_as_float(hi.y)),
+                                tf32_rna(f.z - __uint_as_float(hi.z)),
+                                tf32_rna(f.w - __uint_as_float(hi.w)));
+    *reinterpret_cast<uint4*>(plane + r * P + q * E) = hi;
+    *reinterpret_cast<uint4*>(plane + plane_size + r * P + q * E) = lo;
+  } else {
+    *reinterpret_cast<uint4*>(plane + r * P + q * E) = v;
+  }
+}
+
+// acc += the chunk's x tile (rows 32 wr..) times the code tile (codes 32 wc..)
+template <typename T>
+__device__ __forceinline__ void vq_chunk_mma(float (&acc)[2][4][4], const T* stage, int wr, int wc,
+                                             int lane) {
+  using S = VqSmem<T>;
+  constexpr int P = VqTile<T>::kPitch;
+  const bf16* xs = reinterpret_cast<const bf16*>(stage);
+  const bf16* cs = reinterpret_cast<const bf16*>(stage + VqTile<T>::kPlanes * S::kX);
+  if constexpr (sizeof(T) == 4) {
+    // fp32 planes read as bf16 pairs: pitch and k in 2-byte units
+    const bf16* xs_lo = xs + 2 * S::kX;
+    const bf16* cs_lo = cs + 2 * S::kC;
 #pragma unroll
-    for (int i = 0; i < kVqTM; ++i)
+    for (int ks = 0; ks < VqTile<T>::kChunk / 8; ++ks) {
+      uint32_t ah[2][4], al[2][4];
 #pragma unroll
-      for (int j = 0; j < kVqTN; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < d; k0 += kVqKC) {
-      __syncthreads();
-      // loads run along k (coalesced); the +1 pads keep the transposing
-      // stores free of bank conflicts
-      for (int idx = tid; idx < kVqBN * kVqKC; idx += kThreads) {
-        const int kk = idx % kVqKC, r = idx / kVqKC;
-        const int k = k0 + kk, row = row0 + r, code = m0 + r;
-        xs[kk][r] = (row < N && k < d) ? Num<T>::load(x, (long)row * d + k) : 0.f;
-        cs[kk][r] = (code < m_hi && k < d) ? Num<T>::load(cb, (long)code * d + k) : 0.f;
+      for (int mt = 0; mt < 2; ++mt) {
+        ldsm_a(ah[mt], xs, 2 * P, wr * 32 + mt * 16, ks * 16, lane);
+        ldsm_a(al[mt], xs_lo, 2 * P, wr * 32 + mt * 16, ks * 16, lane);
       }
-      __syncthreads();
-      const int kmax = min(kVqKC, d - k0);
-      for (int kk = 0; kk < kmax; ++kk) {
-        float a[kVqTM], b[kVqTN];
 #pragma unroll
-        for (int i = 0; i < kVqTM; ++i) a[i] = xs[kk][ty * kVqTM + i];
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bh[4], bl[4];
+        ldsm_b_nk(bh, cs, 2 * P, wc * 32 + np * 16, ks * 16, lane);
+        ldsm_b_nk(bl, cs_lo, 2 * P, wc * 32 + np * 16, ks * 16, lane);
 #pragma unroll
-        for (int j = 0; j < kVqTN; ++j) b[j] = cs[kk][tx + kVqTX * j];
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int i = 0; i < kVqTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kVqTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          for (int h = 0; h < 2; ++h) {
+            float(&c)[4] = acc[mt][2 * np + h];
+            mma1688_tf32(c, al[mt], bh[2 * h], bh[2 * h + 1]);
+            mma1688_tf32(c, ah[mt], bl[2 * h], bl[2 * h + 1]);
+            mma1688_tf32(c, ah[mt], bh[2 * h], bh[2 * h + 1]);
+          }
       }
     }
-    // epilogue: codes of this thread in ascending order, strictly smaller wins
+  } else {
 #pragma unroll
-    for (int j = 0; j < kVqTN; ++j) {
-      const int code = m0 + tx + kVqTX * j;
-      if (code >= m_hi) continue;
-      const float cn = cnorm[code];
+    for (int ks = 0; ks < VqTile<T>::kChunk / 16; ++ks) {
+      uint32_t a[2][4];
 #pragma unroll
-      for (int i = 0; i < kVqTM; ++i) {
-        const float s = cn - 2.f * acc[i][j];
-        if (s < best[i]) {
-          best[i] = s;
-          besti[i] = code;
+      for (int mt = 0; mt < 2; ++mt) ldsm_a(a[mt], xs, P, wr * 32 + mt * 16, ks * 16, lane);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t b[4];
+        ldsm_b_nk(b, cs, P, wc * 32 + np * 16, ks * 16, lane);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma16816(acc[mt][2 * np], a[mt], b[0], b[1]);
+          mma16816(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
         }
       }
     }
   }
-  // the 16 threads of a row are 16 neighbouring lanes of one warp
+}
+
+// grid (row tiles, segments); segment s covers code tiles [s * tps, (s+1) * tps).
+// part: S partial (score) rows of N, then S partial (id) rows of N; tickets:
+// one int a row tile, 0 between calls. Both unused when gridDim.y == 1.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    vq_tc_kernel(const T* __restrict__ x, const T* __restrict__ cb, int* __restrict__ tickets,
+                 float* __restrict__ part, int* __restrict__ ids, int N, int M, int d, int tps) {
+  using S = VqSmem<T>;
+  constexpr int E = 16 / sizeof(T), KC = VqTile<T>::kChunk;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* stages = reinterpret_cast<T*>(smem_raw);
+  float* cnorm = reinterpret_cast<float*>(stages + 2 * S::kStage);  // [2][128]
+  __shared__ int last_block;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr = warp >> 2, wc = warp & 3;  // rows 32 wr.., codes 32 wc..
+  const int q = tid % kVqVecs, r0 = tid / kVqVecs;  // a thread's vector and first row
+  const long row0 = (long)blockIdx.x * kVqRows;
+  const int m_lo = blockIdx.y * tps * kVqCodes, m_hi = min(M, m_lo + tps * kVqCodes);
+  const int kchunks = (d + KC - 1) / KC;
+  const int total = ((m_hi - m_lo + kVqCodes - 1) / kVqCodes) * kchunks;
+
+  uint4 xv[kVqXLoads], cv[kVqCLoads];
+  float nsum[kVqCLoads] = {};
+  auto load = [&](int c) {
+    const int m0 = m_lo + (c / kchunks) * kVqCodes, col = (c % kchunks) * KC + q * E;
 #pragma unroll
-  for (int i = 0; i < kVqTM; ++i) {
+    for (int j = 0; j < kVqXLoads; ++j) {
+      const long row = row0 + r0 + j * (kThreads / kVqVecs);
+      xv[j] = row < N && col < d ? __ldg(reinterpret_cast<const uint4*>(x + row * d + col))
+                                 : make_uint4(0, 0, 0, 0);
+    }
 #pragma unroll
-    for (int o = kVqTX / 2; o > 0; o >>= 1) {
+    for (int j = 0; j < kVqCLoads; ++j) {
+      const int code = m0 + r0 + j * (kThreads / kVqVecs);
+      cv[j] = code < m_hi && col < d
+                  ? __ldg(reinterpret_cast<const uint4*>(cb + (long)code * d + col))
+                  : make_uint4(0, 0, 0, 0);
+    }
+  };
+  // the loaded chunk c into its stage; at the tile's last chunk, its norms
+  auto store = [&](int c) {
+    T* st = stages + (c & 1) * S::kStage;
+    T* cs = st + VqTile<T>::kPlanes * S::kX;
+#pragma unroll
+    for (int j = 0; j < kVqXLoads; ++j) vq_put<T>(st, S::kX, r0 + j * (kThreads / kVqVecs), q, xv[j]);
+#pragma unroll
+    for (int j = 0; j < kVqCLoads; ++j) {
+      vq_put<T>(cs, S::kC, r0 + j * (kThreads / kVqVecs), q, cv[j]);
+      nsum[j] += sq16<T>(cv[j]);
+    }
+    if (c % kchunks == kchunks - 1) {
+      float* cn = cnorm + ((c / kchunks) & 1) * kVqCodes;
+#pragma unroll
+      for (int j = 0; j < kVqCLoads; ++j) {
+        float s = nsum[j];
+#pragma unroll
+        for (int o = 1; o < kVqVecs; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (q == 0) cn[r0 + j * (kThreads / kVqVecs)] = s;
+        nsum[j] = 0.f;
+      }
+    }
+  };
+
+  float best[4];
+  int besti[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    best[i] = INFINITY;
+    besti[i] = m_lo;
+  }
+  float acc[2][4][4] = {};
+  if (total > 0) {
+    load(0);
+    store(0);
+  }
+  __syncthreads();
+  for (int c = 0; c < total; ++c) {
+    const bool more = c + 1 < total;
+    if (more) load(c + 1);  // in flight while the tensor cores work
+    vq_chunk_mma<T>(acc, stages + (c & 1) * S::kStage, wr, wc, lane);
+    if (c % kchunks == kchunks - 1) {
+      // the tile's scores against the running minimum, codes in ascending order
+      const int t = c / kchunks, m0 = m_lo + t * kVqCodes;
+      const float* cn = cnorm + (t & 1) * kVqCodes;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int cc = wc * 32 + nt * 8 + (lane & 3) * 2 + e;
+              const float s = cn[cc] - 2.f * acc[mt][nt][half * 2 + e];
+              const int i = mt * 2 + half;
+              if (m0 + cc < m_hi && s < best[i]) {
+                best[i] = s;
+                besti[i] = m0 + cc;
+              }
+            }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    }
+    if (more) store(c + 1);
+    __syncthreads();
+  }
+
+  // the 4 lanes of a row (lane % 4), then the 4 warps of a row block (wc)
+  float* red_s = reinterpret_cast<float*>(smem_raw);  // [4][64], over the stages
+  int* red_i = reinterpret_cast<int*>(red_s + 4 * kVqRows);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
       const float s = __shfl_xor_sync(0xffffffffu, best[i], o);
       const int id = __shfl_xor_sync(0xffffffffu, besti[i], o);
       if (vq_better(s, id, best[i], besti[i])) {
@@ -133,63 +308,86 @@ __global__ void __launch_bounds__(kThreads)
         besti[i] = id;
       }
     }
-    const int row = row0 + ty * kVqTM + i;
-    if (tx == 0 && row < N) {
-      part_s[(long)blockIdx.y * N + row] = best[i];
-      part_i[(long)blockIdx.y * N + row] = besti[i];
+    const int r = wr * 32 + (i >> 1) * 16 + (lane >> 2) + (i & 1) * 8;
+    if ((lane & 3) == 0) {
+      red_s[wc * kVqRows + r] = best[i];
+      red_i[wc * kVqRows + r] = besti[i];
     }
   }
-}
-
-// the first minimum over the segments, in ascending order
-__global__ void __launch_bounds__(kThreads)
-    vq_reduce_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i,
-                     int* __restrict__ ids, int N, int S) {
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  if (row >= N) return;
-  float best = part_s[row];
-  int besti = part_i[row];
-  for (int s = 1; s < S; ++s) {
-    const float v = part_s[(long)s * N + row];
-    if (v < best) {
-      best = v;
-      besti = part_i[(long)s * N + row];
-    }
+  __syncthreads();
+  const long row = row0 + tid;
+  float bs = INFINITY;
+  int bi = m_lo;
+  if (tid < kVqRows) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      if (vq_better(red_s[w * kVqRows + tid], red_i[w * kVqRows + tid], bs, bi)) {
+        bs = red_s[w * kVqRows + tid];
+        bi = red_i[w * kVqRows + tid];
+      }
   }
-  ids[row] = besti;
+  const int segs = gridDim.y;
+  if (segs == 1) {
+    if (tid < kVqRows && row < N) ids[row] = bi;
+    return;
+  }
+  if (tid < kVqRows && row < N) {
+    part[(long)blockIdx.y * N + row] = bs;
+    reinterpret_cast<int*>(part + (long)segs * N)[(long)blockIdx.y * N + row] = bi;
+  }
+  __threadfence();  // the partials reach L2 before the ticket is taken
+  __syncthreads();
+  if (tid == 0) last_block = atomicAdd(&tickets[blockIdx.x], 1) == segs - 1;
+  __syncthreads();
+  if (!last_block) return;
+  if (tid < kVqRows && row < N) {
+    const int* part_i = reinterpret_cast<const int*>(part + (long)segs * N);
+    bs = INFINITY;
+    for (int s = 0; s < segs; ++s) {  // L2 reads: another block wrote them
+      const float v = __ldcg(part + (long)s * N + row);
+      const int id = __ldcg(part_i + (long)s * N + row);
+      if (s == 0 || vq_better(v, id, bs, bi)) {
+        bs = v;
+        bi = id;
+      }
+    }
+    ids[row] = bi;
+  }
+  if (tid == 0) tickets[blockIdx.x] = 0;
 }
 
 template <typename T>
-cudaError_t vq_assign_impl(const void* x, const void* cb, void* cnorm, void* part_s,
-                           void* part_i, void* ids, int N, int M, int d, int S,
-                           cudaStream_t stream) {
+cudaError_t vq_assign_impl(const void* x, const void* cb, void* tickets, void* part, void* ids,
+                           int N, int M, int d, int S, cudaStream_t stream) {
   if (N == 0) return cudaSuccess;
-  const int warps = kThreads / 32;
-  vq_norms_kernel<T><<<(M + warps - 1) / warps, kThreads, 0, stream>>>(
-      static_cast<const T*>(cb), static_cast<float*>(cnorm), M, d);
+  if (d <= 0 || d % 8 || M <= 0 || S <= 0) return cudaErrorInvalidValue;
   // segments of whole code tiles
-  const int tiles = (M + kVqBM - 1) / kVqBM;
-  const int seg = ((tiles + S - 1) / S) * kVqBM;
-  const int segs = (M + seg - 1) / seg;
-  dim3 grid((N + kVqBN - 1) / kVqBN, segs);
-  vq_assign_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(cb), static_cast<const float*>(cnorm),
-      static_cast<float*>(part_s), static_cast<int*>(part_i), N, M, d, seg);
-  vq_reduce_kernel<<<(N + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      static_cast<const float*>(part_s), static_cast<const int*>(part_i),
-      static_cast<int*>(ids), N, segs);
+  const int tiles = (M + kVqCodes - 1) / kVqCodes;
+  const int tps = (tiles + S - 1) / S;
+  const int segs = (tiles + tps - 1) / tps;
+  if (segs > 1 && (tickets == nullptr || part == nullptr)) return cudaErrorInvalidValue;
+  const size_t bytes = VqSmem<T>::kBytes;
+  cudaError_t err = allow_smem(vq_tc_kernel<T>, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + kVqRows - 1) / kVqRows, segs);
+  vq_tc_kernel<T><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(cb), static_cast<int*>(tickets),
+      static_cast<float*>(part), static_cast<int*>(ids), N, M, d, tps);
   return cudaGetLastError();
 }
 
 }  // namespace sn
 
-// x [N, d], cb [M, d] in one dtype; cnorm fp32 [M], part_s fp32 [S, N],
-// part_i int32 [S, N] scratch; ids int32 [N]. S is an upper bound on the
-// segments (the launcher may use fewer, never more).
-extern "C" int sn_vq_assign(int dtype, const void* x, const void* cb, void* cnorm, void* part_s,
-                            void* part_i, void* ids, int N, int M, int d, int S, void* stream) {
+// x [N, d], cb [M, d] in one dtype (d a multiple of 8, both 16-byte
+// aligned); ids int32 [N]. S is the number of code segments the wrapper
+// sized its scratch for (the launcher uses ceil(tiles / ceil(tiles / S)) <= S
+// of them, tiles = ceil(M / 128)). With more than one: tickets, int32
+// [ceil(N / 64)], zero before the first call (each call leaves it zero);
+// part, 8 S N bytes (fp32 scores, then int32 ids). Both may be null for one.
+extern "C" int sn_vq_assign(int dtype, const void* x, const void* cb, void* tickets, void* part,
+                            void* ids, int N, int M, int d, int S, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == sn::kF32)
-    return sn::vq_assign_impl<float>(x, cb, cnorm, part_s, part_i, ids, N, M, d, S, s);
-  return sn::vq_assign_impl<__nv_bfloat16>(x, cb, cnorm, part_s, part_i, ids, N, M, d, S, s);
+    return sn::vq_assign_impl<float>(x, cb, tickets, part, ids, N, M, d, S, s);
+  return sn::vq_assign_impl<sn::bf16>(x, cb, tickets, part, ids, N, M, d, S, s);
 }

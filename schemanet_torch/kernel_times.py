@@ -1,17 +1,29 @@
 """Card times of the frozen ``attn_block`` (with and without the head-mean),
-the ``fused_mlp`` backward and ``embed_grad`` at the shapes of their paths,
-each beside a PyTorch yardstick, in bf16.
+``ffn_block``, the ``fused_mlp`` forward and backward, ``embed_grad``,
+``adamw_project_rows`` and ``vq_assign`` at the shapes of their paths, each
+beside a PyTorch yardstick where one is named, in bf16 unless said.
 
 * ``attn_block`` at serving's microbatch (x [64, 197, 192], 3 heads), beside
   ``F.layer_norm`` + ``F.linear`` + SDPA (p = 0) + ``F.linear`` and the
   residual at the same shape: the same function by library calls, a note,
   not one library call;
-* ``fused_mlp_bwd`` at stage 0's shape (12,608 rows, 192 -> 768 -> 192) at
-  p = 0.1 and p = 0, beside the five products alone by bf16 ``torch.matmul``
-  (x W1^T, g W2, dH W1, dH^T x, g^T a on bf16 operands made beforehand);
+* ``ffn_block`` at serving's microbatch (x [64, 197, 192]), alone;
+* the ``fused_mlp`` forward at stage 0's shape (12,608 rows, 192 -> 768 ->
+  192) at p = 0.1 and p = 0, beside its two products alone by bf16
+  ``torch.matmul`` (x W1^T, a W2^T on bf16 operands made beforehand): a
+  note, not one library call;
+* ``fused_mlp_bwd`` at the same shape at p = 0.1 and p = 0, beside the five
+  products alone by bf16 ``torch.matmul`` (x W1^T, g W2, dH W1, dH^T x,
+  g^T a on bf16 operands made beforehand);
 * ``embed_grad`` on the class graphs' lookup (ids [100, 1024], cotangents
   [100, 1024, 256]), beside ``index_add_`` of the same cotangents made fp32
-  beforehand.
+  beforehand;
+* ``adamw_project_rows`` on the class graphs' edge weights ([102,400, 1024]
+  fp32), alone;
+* ``vq_assign`` at a k-means minibatch ([1024, 192] x 1024, fp32), a Lloyd
+  step ([200,000, 192] x 1024, fp32; 5 calls a window) and serving's
+  microbatch ([12,544, 192] x 1024, bf16), each beside the plain scores by
+  ``torch.matmul`` (fp32, TF32 off) and ``torch.argmin``: a note.
 
 Each gets ``ms``, CUDA events around one window of 20 calls after warm-up,
 and ``device_ms``, the ``torch.profiler`` device time of a call. Uses only
@@ -74,9 +86,11 @@ def _both(fn) -> dict:
 
 def measure(dev: torch.device) -> dict:
     """{row: {timing: {"ms", "device_ms"}}} of the kernels and yardsticks."""
+    from .ops.kernels import atlas_opt as ao
     from .ops.kernels import embed_bwd as ek
     from .ops.kernels import encoder_block as eb
     from .ops.kernels import mlp as mk
+    from .ops.kernels import vq as vqk
 
     g = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
@@ -112,6 +126,11 @@ def measure(dev: torch.device) -> dict:
     def products():
         return (x2 @ w1.t(), g2 @ w2, dh @ w1, dh.t() @ x2, g2.t() @ act)
 
+    b2 = rnd(d, scale=0.1)
+    out["ffn_block"] = _both(lambda: eb.ffn_block(x, ln_g, ln_b, w1, b1, w2, b2))
+    out["fused_mlp"] = _both(lambda: mk.fused_mlp(x2, w1, b1, w2, b2, "gelu", 0.1, SEED))
+    out["fused_mlp_p0"] = _both(lambda: mk.fused_mlp(x2, w1, b1, w2, b2, "gelu", 0.0))
+    out["fused_mlp_matmul_products"] = _both(lambda: (x2 @ w1.t(), act @ w2.t()))
     out["fused_mlp_bwd"] = _both(lambda: mk.fused_mlp_bwd(x2, w1, b1, w2, g2, "gelu", 0.1, SEED))
     out["fused_mlp_bwd_p0"] = _both(lambda: mk.fused_mlp_bwd(x2, w1, b1, w2, g2, "gelu", 0.0))
     out["fused_mlp_bwd_matmul_products"] = _both(products)
@@ -123,6 +142,32 @@ def measure(dev: torch.device) -> dict:
     table = torch.zeros(codes + 1, width, device=dev)
     out["embed_grad"] = _both(lambda: ek.embed_grad(ids, cot, codes + 1))
     out["embed_grad_index_add"] = _both(lambda: table.index_add_(0, ids_long, cot32))
+    del table, cot, cot32
+
+    f32 = torch.float32
+    shape = (classes * codes, codes)
+    prm, grad = torch.rand(shape, device=dev) / codes, rnd(*shape, scale=1e-3, dtype=f32)
+    m, v = rnd(*shape, scale=1e-4, dtype=f32), torch.rand(shape, device=dev) * 1e-8
+    out["adamw_project_rows"] = _both(
+        lambda: ao.adamw_project_rows(prm, grad, m, v, 2, lr=1e-3, weight_decay=5e-4))
+    del prm, grad, m, v
+
+    cb = rnd(codes, d, dtype=f32)
+    for case, (n_rows, dt, iters) in {"minibatch": (1024, f32, ITERS),
+                                      "lloyd": (200_000, f32, 5),
+                                      "serve_bf16": (64 * 196, bf, ITERS)}.items():
+        xv = rnd(n_rows, d, dtype=dt)
+        cbv = cb.to(dt)
+
+        def scores_argmin():
+            c32 = cbv.float()
+            return torch.argmin((c32 * c32).sum(-1)[None] - 2 * (xv.float() @ c32.t()), dim=-1)
+
+        out[f"vq_assign_{case}"] = {"ms": time_ms(lambda: vqk.vq_assign_kernel(xv, cb), iters),
+                                    "device_ms": device_ms(lambda: vqk.vq_assign_kernel(xv, cb),
+                                                           iters)}
+        out[f"vq_assign_{case}_matmul_argmin"] = {"ms": time_ms(scores_argmin, iters),
+                                                  "device_ms": device_ms(scores_argmin, iters)}
     return out
 
 

@@ -43,8 +43,10 @@ _COUNTERS = {
     "fused_mhsa_bwd_tc": (fused_mhsa_bwd, "tc_launches"),
     "fused_mlp": (fused_mlp, "launches"),
     "fused_mlp_bwd": (fused_mlp_bwd, "launches"),
+    "fused_mlp_tc": (fused_mlp, "tc_launches"),  # the tensor-core route's share
     "fused_mlp_bwd_tc": (fused_mlp_bwd, "tc_launches"),
     "vq_assign": (vq_assign_kernel, "launches"),
+    "vq_assign_tc": (vq_assign_kernel, "tc_launches"),  # split TF32 or bf16 mma: all of them
     "fused_layernorm": (fused_layernorm, "launches"),
     "fused_layernorm_bwd": (fused_layernorm_bwd, "launches"),
 }

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "sn_fused_mhsa_bwd": [_I] + [_P] * 4 + [_I] * 4 + [_F] * 3 + [_I, _P],
     "sn_fused_mlp": [_I] + [_P] * 6 + [_I] * 3 + [_F, _F, _I, _P],
     "sn_fused_mlp_bwd": [_I] + [_P] * 9 + [_I] * 4 + [_F, _F, _I, _P],
-    "sn_vq_assign": [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    "sn_vq_assign": [_I] + [_P] * 5 + [_I] * 4 + [_P],
     "sn_layernorm_fwd": [_I] + [_P] * 4 + [_L, _I, _F, _I, _P],
     "sn_layernorm_bwd": [_I] + [_P] * 7 + [_L, _I, _F, _I, _P],
     "sn_layernorm_bwd_blocks": [_L],  # returns the block count, not an error

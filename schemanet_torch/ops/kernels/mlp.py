@@ -26,12 +26,12 @@ gradients summed in fp32 and rounded to the weights' dtype.
 
 Dispatch: a CPU tensor takes the plain versions (``fused_mlp_reference``,
 ``fused_mlp_bwd_reference``); a CUDA tensor launches the kernels or raises.
-``mlp_route`` picks the backward's kernels by dtype: fp32 takes the FMA
-kernels, bf16 the tensor-core ones, which store the hidden state ``dH`` and
-``a_used`` once in a ``[rows, f]`` bf16 scratch each; the forward is the FMA
-kernel on both dtypes. ``fused_mlp.launches`` and ``fused_mlp_bwd.launches``
-count the launches, ``fused_mlp_bwd.tc_launches`` those of the tensor-core
-route.
+``mlp_route`` picks the kernels of both launches by dtype: fp32 takes the
+FMA kernels, bf16 the tensor-core ones (the forward keeps its hidden chunk in
+shared memory; the backward stores the hidden state ``dH`` and ``a_used``
+once in a ``[rows, f]`` bf16 scratch each). ``fused_mlp.launches`` and
+``fused_mlp_bwd.launches`` count the launches, ``fused_mlp.tc_launches`` and
+``fused_mlp_bwd.tc_launches`` those of the tensor-core route.
 """
 
 from __future__ import annotations
@@ -78,12 +78,13 @@ def gelu_as_grad(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_route(dtype: torch.dtype, dim: int, f: int) -> str:
-    """The kernels a CUDA launch of ``fused_mlp_bwd`` takes for rows of this
-    dtype, width ``dim`` and hidden width ``f``: ``"fma"`` (fp32: FMA on fp32
-    tiles, which keeps fp32's agreement where tensor cores would mean TF32)
-    or ``"tensor_core"`` (bf16: ``mma`` on bf16 tiles, f a multiple of 8,
-    since the hidden rows are copied in 16-byte chunks). Raises on what
-    neither takes."""
+    """The kernels a CUDA launch of ``fused_mlp`` (the forward) or
+    ``fused_mlp_bwd`` takes for rows of this dtype, width ``dim`` and hidden
+    width ``f``; both launches take the same route: ``"fma"`` (fp32: FMA on
+    fp32 tiles, which keeps fp32's agreement where tensor cores would mean
+    TF32) or ``"tensor_core"`` (bf16: ``mma`` on bf16 tiles, f a multiple of
+    8, since the weights' hidden columns are copied in 16-byte chunks).
+    Raises on what neither takes."""
     if dtype not in _DTYPES:
         raise TypeError(f"fused_mlp takes float32 or bfloat16, got {dtype}")
     if dim not in _DIMS:
@@ -91,7 +92,7 @@ def mlp_route(dtype: torch.dtype, dim: int, f: int) -> str:
     if dtype == torch.float32:
         return FMA
     if f < 1 or f % 8:
-        raise ValueError(f"fused_mlp_bwd takes a bfloat16 hidden width that is a multiple of 8, "
+        raise ValueError(f"fused_mlp takes a bfloat16 hidden width that is a multiple of 8, "
                          f"got {f}")
     return TENSOR_CORE
 
@@ -160,13 +161,22 @@ def _check_mlp(name, x, w1, b1, w2, activation):
     return x.numel() // dim, dim, f
 
 
+def _check_aligned(name, *tensors):
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the tensor-core kernels copy 16-byte chunks; an operand is "
+                         f"not 16-byte aligned")
+
+
 def _mlp_forward(x, w1, b1, w2, b2, activation, dropout_p, seed):
     """The forward alone, weights in x.dtype: the kernel on CUDA, the plain
     version on the CPU."""
     if x.device.type == "cpu":
         return fused_mlp_reference(x, w1, b1, w2, b2, activation, dropout_p, seed)
     rows, dim, f = _check_mlp("fused_mlp", x, w1, b1, w2, activation)
+    route = mlp_route(x.dtype, dim, f)
     _check("b2", b2, x.dtype, (dim,))
+    if route == TENSOR_CORE:
+        _check_aligned("fused_mlp", x, w1, w2)
     out = torch.empty_like(x)
     err = _build.library().sn_fused_mlp(
         _DTYPES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
@@ -175,6 +185,8 @@ def _mlp_forward(x, w1, b1, w2, b2, activation, dropout_p, seed):
     )
     _build.check(err, "fused_mlp")
     fused_mlp.launches += 1
+    if route == TENSOR_CORE:
+        fused_mlp.tc_launches += 1
     return out
 
 
@@ -189,9 +201,7 @@ def fused_mlp_bwd(x, w1, b1, w2, g, activation: str = "gelu", dropout_p: float =
     _check("g", g, x.dtype, x.shape)
     hidden = None
     if route == TENSOR_CORE:
-        if any(t.data_ptr() % 16 for t in (x, w1, w2, g)):
-            raise ValueError("fused_mlp_bwd: the tensor-core kernels copy 16-byte chunks; an "
-                             "operand is not 16-byte aligned")
+        _check_aligned("fused_mlp_bwd", x, w1, w2, g)
         splits = max(1, min(_TC_SPLITS, -(-rows // _TC_ROW_STEP)))
         hidden = torch.empty((2, rows, f), dtype=x.dtype, device=x.device)  # dH, a_used
     else:
@@ -244,5 +254,5 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
     return _FusedMlp.apply(x, w1, b1, w2, b2, activation, float(dropout_p), seed)
 
 
-fused_mlp.launches = 0
+fused_mlp.launches = fused_mlp.tc_launches = 0
 fused_mlp_bwd.launches = fused_mlp_bwd.tc_launches = 0

@@ -11,7 +11,8 @@ Tolerances, relative to max |plain|: fp32 1e-5 (summation order only), bf16
 are held to the plain versions of their forward and their backward, with
 dropout off and at p = 0.1 with the same seed.
 
-The VQ kernel sums each dot product in another order than the plain
+The VQ kernel (fp32 by the 3xTF32 split, bf16 by bf16 mma, both counted by
+``tc_launches``) sums each dot product in another order than the plain
 version's matrix product: its ids must equal the plain ones on >= 99.9% of
 rows, every mismatch a near-tie (the plain scores of the two codes within
 1e-5 of the row's largest |score|), and duplicated codes give the first
@@ -257,11 +258,12 @@ def test_fused_mhsa_kernels(dev, dtype, tol, p, bs, n, heads, d):
     (12_608, 192, 768),  # the stage-0 shape
     (1000, 192, 768),  # rows not a multiple of the tensor-core row tile (64)
     (300, 256, 1024),
+    (77, 128, 40),  # f past the forward's hidden chunk of 32, not a multiple of it
 ])
 def test_fused_mlp_kernels(dev, dtype, tol, p, rows, dim, f):
     """Forward and backward kernels against the plain versions at rows that
-    are not a multiple of a row tile. The bf16 backward takes the
-    tensor-core kernels (counted by tc_launches) and gives the same weight
+    are not a multiple of a row tile. In bf16 both take the tensor-core
+    kernels (counted by tc_launches), and the backward gives the same weight
     and bias gradients, bit for bit, on a second call."""
     g = torch.Generator().manual_seed(7)
     x = _rnd(g, dev, 1, rows, dim).to(dtype)
@@ -270,13 +272,16 @@ def test_fused_mlp_kernels(dev, dtype, tol, p, rows, dim, f):
     cot = _rnd(g, dev, 1, rows, dim).to(dtype)
     seed = SEED if p else None
     before = (mk.fused_mlp_bwd.launches, mk.fused_mlp_bwd.tc_launches)
+    before_fwd = (mk.fused_mlp.launches, mk.fused_mlp.tc_launches)
     out = mk.fused_mlp(x, w1, b1, w2, b2, "gelu", p, seed)
     got = mk.fused_mlp_bwd(x, w1, b1, w2, cot, "gelu", p, seed)
     again = mk.fused_mlp_bwd(x, w1, b1, w2, cot, "gelu", p, seed)
     torch.cuda.synchronize()
-    tc = 2 * int(dtype == torch.bfloat16)
+    tc = int(dtype == torch.bfloat16)
     assert (mk.fused_mlp_bwd.launches, mk.fused_mlp_bwd.tc_launches) == \
-        (before[0] + 2, before[1] + tc)
+        (before[0] + 2, before[1] + 2 * tc)
+    assert (mk.fused_mlp.launches, mk.fused_mlp.tc_launches) == \
+        (before_fwd[0] + 1, before_fwd[1] + tc)
     assert all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))  # no atomics
     assert out.dtype == dtype
     assert _rel(out, mk.fused_mlp_reference(x, w1, b1, w2, b2, "gelu", p, seed)) <= tol
@@ -302,6 +307,9 @@ def test_fused_kernels_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="multiple of 8"):  # no quiet fallback to the FMA kernels
         mk.fused_mlp_bwd(x, torch.zeros(100, 64, **bf), torch.zeros(100, **bf),
                          torch.zeros(64, 100, **bf), x)
+    with pytest.raises(ValueError, match="multiple of 8"):  # the forward too
+        mk.fused_mlp(x, torch.zeros(100, 64, **bf), torch.zeros(100, **bf),
+                     torch.zeros(64, 100, **bf), torch.zeros(64, **bf))
     w = torch.zeros(3 * 128, 128, **bf)
     with pytest.raises(ValueError, match="head_dim"):  # head_dim 128 in bf16
         eb.attn_block(torch.zeros(2, 5, 128, **bf), w[0].float(), w[0].float(), w, w[:, 0],
@@ -310,15 +318,23 @@ def test_fused_kernels_reject_bad_inputs(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,m,d", [(100, 64, 32), (1024, 1024, 192), (777, 8000, 384),
-                                   (33, 130, 768)])
+                                   (33, 130, 768),
+                                   (1037, 1000, 192),  # N past a row tile, M past a code tile
+                                   (65, 129, 40),  # d past a chunk; one code past a tile
+                                   (20_000, 1024, 192)])  # one segment: no tickets
 def test_vq_assign_kernel(dev, dtype, n, m, d):
+    """Both routes (fp32: split TF32; bf16: mma) on every launch, counted by
+    tc_launches; twice, so that the segments' tickets are left at zero."""
     g = torch.Generator().manual_seed(6)
     x, cb = _rnd(g, dev, n, d).to(dtype), _rnd(g, dev, m, d)
-    before = vqk.vq_assign_kernel.launches
+    before = (vqk.vq_assign_kernel.launches, vqk.vq_assign_kernel.tc_launches)
     got = vqk.vq_assign_kernel(x, cb)
+    again = vqk.vq_assign_kernel(x, cb)
     want = vqk.vq_assign_reference(x, cb)
     torch.cuda.synchronize()
-    assert vqk.vq_assign_kernel.launches == before + 1
+    assert (vqk.vq_assign_kernel.launches, vqk.vq_assign_kernel.tc_launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert torch.equal(got, again)
     assert got.dtype == torch.int32 and got.shape == (n,)
     assert (got == want).float().mean().item() >= 0.999
     gaps, scale = vqk.score_gaps(x, cb, got, want)
@@ -328,7 +344,7 @@ def test_vq_assign_kernel(dev, dtype, n, m, d):
 def test_vq_assign_kernel_duplicated_codes_take_the_first(dev):
     g = torch.Generator().manual_seed(7)
     base = _rnd(g, dev, 70, 192)
-    cb = torch.cat([base] * 3)  # copies 64 codes apart: the tile and segment edges cut them
+    cb = torch.cat([base] * 3)  # copies 70 codes apart: the code tiles of 128 cut them
     x = base[torch.randint(0, 70, (4, 7), generator=g).to(dev)] + _rnd(g, dev, 4, 7, 192,
                                                                        scale=0.01)
     got = vqk.vq_assign_kernel(x, cb)
@@ -376,3 +392,5 @@ def test_stage_kernels_reject_bad_inputs(dev):
                             torch.ones(8, device=dev), torch.zeros(8, device=dev))
     with pytest.raises(ValueError, match="codebook"):
         vqk.vq_assign_kernel(torch.zeros(4, 8, device=dev), torch.zeros(5, 9, device=dev))
+    with pytest.raises(ValueError, match="multiple of 8"):  # no quiet fallback
+        vqk.vq_assign_kernel(torch.zeros(4, 12, device=dev), torch.zeros(5, 12, device=dev))

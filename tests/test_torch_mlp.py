@@ -123,10 +123,14 @@ def test_bwd_reference_is_the_gradient_of_the_forward(p):
     (torch.bfloat16, 256, 1024, "tensor_core"),
     (torch.float32, 192, 768, "fma"),  # the fp32 stage-0 checks
     (torch.float32, 64, 100, "fma"),  # fp32 takes any f
+    (torch.bfloat16, 192, 40, "tensor_core"),  # f past the forward's hidden chunk of 32
+    (torch.bfloat16, 64, 16, "tensor_core"),  # f under one chunk
+    (torch.float32, 256, 768, "fma"),
 ])
 def test_mlp_route(dtype, dim, f, route):
-    """The CUDA kernels a fused_mlp_bwd launch takes: bf16 the tensor-core
-    kernels at every width the FMA kernels take, fp32 the FMA kernels."""
+    """The CUDA kernels a fused_mlp (forward) or fused_mlp_bwd launch takes,
+    the same for both: bf16 the tensor-core kernels at every width the FMA
+    kernels take, fp32 the FMA kernels."""
     assert mk.mlp_route(dtype, dim, f) == route
 
 
@@ -135,6 +139,8 @@ def test_mlp_route(dtype, dim, f, route):
     (torch.bfloat16, 192, 0, "multiple of 8"),
     (torch.bfloat16, 384, 1536, "width"),  # DeiT-Small waits for the FFN kernels' width 384
     (torch.float32, 48, 96, "width"),
+    (torch.bfloat16, 192, 12, "multiple of 8"),  # the forward copies 16-byte chunks too
+    (torch.bfloat16, 768, 3072, "width"),  # ViT-B waits for A7
 ])
 def test_mlp_route_rejects(dtype, dim, f, what):
     """No quiet fallback: a bf16 shape the tensor-core kernels do not take
