@@ -15,14 +15,15 @@ Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
 2. build: compiles ``schemanet_torch/csrc/*.cu``, one nvcc per file at once;
    prints the registers and spills of the tensor-core kernels (attention
    and its head-mean variant, GraphConv, the FFN forward and backward,
-   attn_block's products, VQ's two routes) from the ptxas log, and fails if
-   one is missing or spills;
+   attn_block's products, ffn_block's bf16 and split-TF32 kernels, VQ's two
+   routes) from the ptxas log, and fails if one is missing or spills;
 3. each serving kernel against its plain PyTorch version at the serving
    shapes, in bf16 and fp32: max |kernel - plain| / max |plain| <= 2e-2
    (bf16), 1e-4 (fp32); ``sym_conv`` also at rows of E that are 4-byte
    (V = 70) and 8-byte (V = 500) aligned (``CONV_EDGES``), ``attn_block``
    (both variants) also one row past a tile of 64 and at DeiT-Small's 6
-   heads of width 384 (``ATTN_EDGES``);
+   heads of width 384 (``ATTN_EDGES``), ``ffn_block`` also at 1,000 rows
+   (past a row tile), f = 96 and widths 64, 128, 256 and 384 (``FFN_EDGES``);
 4. the slice in fp32 (graph_precision 'highest') on 100 images (two
    microbatches, the second padded) against the same model with the plain
    versions called in place of the kernels: VQ ids agree on >= 99.9% of
@@ -34,8 +35,9 @@ Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
    head-mean, 10 ffn_block,
    one vq_assign, 4 sym_conv, all on the tensor-core routes, 4
    fused_layernorm (the GNN's LN+relu), and no training kernel);
-6. timings (CUDA events after warm-up): each kernel beside its plain version,
-   and the p50/p99 latency and images/s of one microbatch of 64.
+6. timings (CUDA events after warm-up): each kernel beside its plain version
+   (``ffn_block`` in bf16 and fp32), and the p50/p99 latency and images/s of
+   one microbatch of 64.
 
 Training (``schemanet_torch.train.Trainer.train_iter``, batch 64, the CIFAR
 config's AdamW groups, schedule and schema loss, the atlas kept projected by
@@ -65,8 +67,8 @@ the fused update):
    gradient, parameter and moment must have the same bits both times;
 9. the step in bf16 (graph_precision 'default', the training default): 5
    finite losses, and the launch counters advanced as the path implies (per
-   step: 10 attn_block on the tensor-core route, one with the head-mean, 10
-   ffn_block, one vq_assign,
+   step: 10 attn_block and 10 ffn_block on the tensor-core routes, one
+   attn_block with the head-mean, one vq_assign,
    4 sym_conv and 4 sym_conv_bwd, all on the tensor-core routes, 4
    fused_layernorm and 4 fused_layernorm_bwd, 2 embed_grad, 2
    adamw_project_rows);
@@ -112,7 +114,8 @@ at DeiT-Tiny width, 12 layers, dropout 0.1, AdamW lr 1e-4 with warmup,
     calls and, for SDPA and the kernels, the profiler's device time of a
     call; ``schemanet_torch/kernel_times.py``: events and device time of
     attn_block (both variants) beside F.layer_norm + F.linear + SDPA +
-    F.linear, of ffn_block, of the FFN forward and backward beside their two
+    F.linear, of ffn_block in bf16 and fp32 beside F.layer_norm + F.linear
+    + F.gelu + F.linear, of the FFN forward and backward beside their two
     and five products by torch.matmul, of embed_grad beside index_add_, of
     adamw_project_rows, and of vq_assign at the minibatch, Lloyd and bf16
     serving shapes beside matmul + argmin; the bf16 step's ms and images/s beside the
@@ -140,8 +143,8 @@ fp32, seeded random weights and images made on the card):
 16. ``stage1_fp32``: the whole stage at the CLI's defaults (batch 64,
     1,000,000 features from 80 batches, M = 1024, k-means++ from the first
     4,096 features, minibatches of 1,024, 10 Lloyd iterations over the first
-    200,000), its launches (one vq_assign a minibatch and a Lloyd step, all
-    on the split-TF32 route);
+    200,000), its launches (one vq_assign a minibatch and a Lloyd step, and
+    10 ffn_block a batch, all on the split-TF32 routes);
     features/s of the collection, ms a minibatch step and a Lloyd step, the
     final inertia; held against the plain versions: the first two batches'
     features within 1e-4, then 50 minibatch steps and 2 Lloyd steps in lock
@@ -151,7 +154,8 @@ fp32, seeded random weights and images made on the card):
     mismatched row moved;
 17. ``stage3_fp32``: ``init_stage`` at K = 100, V_max = 1024, batch 32, on
     64 batches a pass (2,048 of CIFAR's 50,000 images: a cut, with the
-    extrapolated full-dataset time), its launches and peak memory; against
+    extrapolated full-dataset time), its launches (every ffn_block on the
+    split-TF32 route) and peak memory; against
     the plain versions fed the kernel run's VQ ids (their own ids' agreement
     reported): class_ingredients equal, vertex and edge weights within 1e-5
     of max. Then the bundle and the atlas init go to files, and a stage-4
@@ -169,7 +173,9 @@ error against its plain version, its time, the plain version's, its bound on
 the card and, where one PyTorch call computes the same function, that
 call's time. The VQ kernel's launches are stage 1's and the LayerNorm
 kernels' stage 0's; its error is the largest plain-score difference between
-the kernel's code and the plain version's.
+the kernel's code and the plain version's. ``ffn_block_fp32`` is
+``ffn_block`` in fp32 (the split-TF32 kernel): stage 1's launches, the fp32
+error and times, its bound by three TF32 products a product.
 
 Usage: python3 chip_smoke.py
 """
@@ -259,6 +265,12 @@ MHSA_EDGES = {"n65": (5, 65, 2, 64), "n320": (2, 320, 3, 64), "d32": (96, 100, 4
 # (bs, n, dim, heads) of the attn_block compares beside the serving shape: one
 # query row past a tile of 64; DeiT-Small's width and 6 heads
 ATTN_EDGES = {"n65": (5, 65, EMBED_DIM, HEADS), "deit_small": (16, 197, 384, 6)}
+# (rows, dim, f) of the ffn_block compares beside the serving shape: rows past
+# a row tile (64 in bf16 and fp32 up to 192, 32 beyond), f past a hidden
+# chunk of 32, and every other width the kernels take (384: DeiT-Small; fp32
+# there takes the FMA kernel)
+FFN_EDGES = {"rows1000": (1000, EMBED_DIM, FFN_DIM), "f96": (45, 64, 96),
+             "d128": (130, 128, 512), "d256": (1000, 256, 1024), "d384": (394, 384, 1536)}
 # (rows, dim, f) of the fused_mlp_bwd compares beside the stage-0 shape (whose
 # 12,608 rows are a multiple of the tensor-core row tile of 64): rows past a
 # tile, and f past a hidden chunk of 64
@@ -450,14 +462,16 @@ def main() -> None:
     # forward), 8 GraphConv kernels (4 row widths of E x forward, dE), 9 FFN
     # kernels (4 widths of the forward, 4 of dH and dx, one of the weight
     # gradients), 2 of attn_block's products (LN + qkv, out projection +
-    # residual), VQ's 2 (split TF32, bf16)
+    # residual), ffn_block's 5 bf16 widths and 4 split-TF32 widths, VQ's 2
+    # (split TF32, bf16)
     build_log = _build.library_path().with_suffix(".log").read_text()
     for source, tag, count in (("attention.cu", "mhsa_tc", 16), ("graphconv.cu", "tc_kernel", 8),
                                ("mlp.cu", "tc_kernel", 9), ("encoder_block.cu", "linear_tc", 2),
-                               ("vq.cu", "vq_tc", 2)):
+                               ("encoder_block.cu", "ffn_tc_kernel", 5),
+                               ("encoder_block.cu", "ffn_tf32_kernel", 4), ("vq.cu", "vq_tc", 2)):
         tc_ptxas = {name: dict(zip(("registers", "spill_stores", "spill_loads"), r))
                     for name, r in ptxas_report(build_log, source).items() if tag in name}
-        phase("ptxas", source=source, kernels=tc_ptxas)
+        phase("ptxas", source=source, tag=tag, kernels=tc_ptxas)
         require(len(tc_ptxas) == count,
                 f"ptxas reported {len(tc_ptxas)} tensor-core kernels in {source}, not {count}")
         require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in tc_ptxas.values()),
@@ -505,7 +519,9 @@ def main() -> None:
     errors = {}
     for name, case in cases.items():
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
-            compare(name, *case(dt), dt, tol, errors)
+            # fp32 ffn_block is a kernel of its own (split TF32): its error apart
+            label = f"{name}_fp32" if name == "ffn_block" and dt == torch.float32 else name
+            compare(label, *case(dt), dt, tol, errors)
     # the GraphConv kernels at rows of E aligned to 4 bytes (V = 70) and 8
     # bytes (V = 500, the ImageNet class graphs' width, cut to 16 graphs)
     conv_edges = {tag: (torch.rand(k_, v_, v_, generator=g).to(dev) / v_, rnd(k_, v_, d_),
@@ -525,6 +541,20 @@ def main() -> None:
             for kw, name in (({}, "attn_block"), ({"capture_hmean": True}, "attn_block_hmean")):
                 compare(f"{name}_{tag}", eb.attn_block, eb.attn_block_reference,
                         (args_e[0].to(dt), *args_e[1:]), kw, dt, tol, errors)
+    del args_e
+    # ffn_block at its edges, each dtype on its route, counted
+    for tag, (rows_, d_, f_) in FFN_EDGES.items():
+        args_e = (rnd(1, rows_, d_), 1 + rnd(d_, scale=0.1), rnd(d_, scale=0.1),
+                  rnd(f_, d_, scale=d_**-0.5), rnd(f_, scale=0.1), rnd(d_, f_, scale=f_**-0.5),
+                  rnd(d_, scale=0.1))
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            before = (eb.ffn_block.launches, eb.ffn_block.tc_launches)
+            label = f"ffn_block_{tag}" if dt == torch.bfloat16 else f"ffn_block_fp32_{tag}"
+            compare(label, eb.ffn_block, eb.ffn_block_reference, (args_e[0].to(dt), *args_e[1:]),
+                    {}, dt, tol, errors)
+            tc = int(eb.ffn_block_route(dt, d_, f_) != "fma")
+            require((eb.ffn_block.launches, eb.ffn_block.tc_launches) ==
+                    (before[0] + 1, before[1] + tc), f"ffn_block {tag} {dt}: not counted on its route")
     del args_e
 
     # the model, seeded random weights (made on the host, then moved)
@@ -637,7 +667,8 @@ def main() -> None:
     expected = {name: 0 for name in serve_launches}  # no training kernel
     expected.update({"attn_block": FROZEN_LAYERS * mbs, "attn_block_hmean": mbs,
                      "attn_block_tc": FROZEN_LAYERS * mbs,
-                     "ffn_block": FROZEN_LAYERS * mbs, "vq_assign": mbs, "vq_assign_tc": mbs,
+                     "ffn_block": FROZEN_LAYERS * mbs, "ffn_block_tc": FROZEN_LAYERS * mbs,
+                     "vq_assign": mbs, "vq_assign_tc": mbs,
                      "sym_conv": GNN_CONVS * mbs, "sym_conv_tc": GNN_CONVS * mbs,
                      "fused_layernorm": GNN_CONVS * mbs})
     phase("slice_bf16_launches", microbatches=mbs, launches=serve_launches, expected=expected)
@@ -648,6 +679,8 @@ def main() -> None:
             "a bf16 GraphConv launch of serving missed the tensor-core kernel")
     require(serve_launches["attn_block_tc"] == serve_launches["attn_block"] > 0,
             "a bf16 attn_block launch of serving missed the tensor-core kernels")
+    require(serve_launches["ffn_block_tc"] == serve_launches["ffn_block"] > 0,
+            "a bf16 ffn_block launch of serving missed the tensor-core kernel")
     for count in (1, MICROBATCH, N_IMAGES):
         out = s16.predict(images[:count])
         require(out.shape == (count, NUM_CLASSES), f"bf16 logits {out.shape} for {count}")
@@ -666,6 +699,11 @@ def main() -> None:
                        time_ms(lambda: plain(*args, **kw), TIME_ITERS))
         phase("kernel_time", kernel=name, dtype="bfloat16", shape=list(args[0].shape),
               ms=times[name][0], plain_ms=times[name][1], **card_note)
+    kernel, plain, args, kw = cases["ffn_block"](torch.float32)  # the split-TF32 kernel
+    times["ffn_block_fp32"] = (time_ms(lambda: kernel(*args, **kw), TIME_ITERS),
+                               time_ms(lambda: plain(*args, **kw), TIME_ITERS))
+    phase("kernel_time", kernel="ffn_block", dtype="float32", shape=list(args[0].shape),
+          ms=times["ffn_block_fp32"][0], plain_ms=times["ffn_block_fp32"][1], **card_note)
     xb = x_dev[:MICROBATCH]
     for _ in range(3):
         s16.predict_tensor(xb)
@@ -931,7 +969,8 @@ def main() -> None:
     expected = {name: 0 for name in train_launches}  # no stage-0 kernel
     expected.update({"attn_block": FROZEN_LAYERS * BF16_STEPS, "attn_block_hmean": BF16_STEPS,
                      "attn_block_tc": FROZEN_LAYERS * BF16_STEPS,
-                     "ffn_block": FROZEN_LAYERS * BF16_STEPS, "vq_assign": BF16_STEPS,
+                     "ffn_block": FROZEN_LAYERS * BF16_STEPS,
+                     "ffn_block_tc": FROZEN_LAYERS * BF16_STEPS, "vq_assign": BF16_STEPS,
                      "vq_assign_tc": BF16_STEPS,
                      **{name: GNN_CONVS * BF16_STEPS for name in (
                          "sym_conv", "sym_conv_bwd", "sym_conv_tc", "sym_conv_bwd_tc")},
@@ -943,9 +982,9 @@ def main() -> None:
     require(all(np.isfinite(losses16)), f"bf16 train losses not finite: {losses16}")
     require(train_launches == expected, f"train launch counts {train_launches} != {expected}")
     require(all(train_launches[f"{name}_tc"] == train_launches[name] > 0
-                for name in ("sym_conv", "sym_conv_bwd", "attn_block", "vq_assign")),
-            "a bf16 GraphConv, attn_block or vq_assign launch of the stage-4 step missed the "
-            "tensor-core kernels")
+                for name in ("sym_conv", "sym_conv_bwd", "attn_block", "ffn_block", "vq_assign")),
+            "a bf16 GraphConv, attn_block, ffn_block or vq_assign launch of the stage-4 step "
+            "missed the tensor-core kernels")
 
     # 10. timings: training kernels, the step, its split, idle share, memory
     for name, case in train_cases.items():
@@ -1463,11 +1502,14 @@ def main() -> None:
     expected = {name: 0 for name in s1_launches}
     expected.update({"attn_block": FROZEN_LAYERS * len(chunks),
                      "ffn_block": FROZEN_LAYERS * len(chunks),
+                     "ffn_block_tc": FROZEN_LAYERS * len(chunks),
                      "vq_assign": minibatches + S1_LLOYD_ITERS,
                      "vq_assign_tc": minibatches + S1_LLOYD_ITERS})
     require(s1_launches == expected, f"stage-1 launch counts {s1_launches} != {expected}")
     require(s1_launches["vq_assign_tc"] == s1_launches["vq_assign"] > 0,
             "a vq_assign launch of stage 1 missed the split-TF32 kernel")
+    require(s1_launches["ffn_block_tc"] == s1_launches["ffn_block"] > 0,
+            "an ffn_block launch of stage 1 missed the split-TF32 kernel")
     require(bool(torch.isfinite(bundle.codebook).all())
             and tuple(bundle.codebook.shape) == (NUM_CODES, EMBED_DIM), "stage-1 codebook")
     backbone = get_model(STAGE1_CFG["model"], NUM_CLASSES)
@@ -1560,11 +1602,13 @@ def main() -> None:
     passes = 2 * S3_BATCHES
     expected = {name: 0 for name in s3_launches}
     expected.update({"attn_block": FROZEN_LAYERS * passes, "attn_block_hmean": passes,
-                     "ffn_block": FROZEN_LAYERS * passes, "vq_assign": passes,
-                     "vq_assign_tc": passes})
+                     "ffn_block": FROZEN_LAYERS * passes, "ffn_block_tc": FROZEN_LAYERS * passes,
+                     "vq_assign": passes, "vq_assign_tc": passes})
     require(s3_launches == expected, f"stage-3 launch counts {s3_launches} != {expected}")
     require(s3_launches["vq_assign_tc"] == s3_launches["vq_assign"] > 0,
             "a vq_assign launch of stage 3 missed the tensor-core kernels")
+    require(s3_launches["ffn_block_tc"] == s3_launches["ffn_block"] > 0,
+            "an ffn_block launch of stage 3 missed the split-TF32 kernel")
     replay_stats = {"rows": 0, "mismatches": 0, "near_ties_only": True}
 
     def plain_init():
@@ -1667,8 +1711,15 @@ def main() -> None:
         return flops, out + nbytes(g1, b1, wqkv, bqkv, wo, bo)
 
     def ffn_work(args):
+        """(operations, bytes[, type]) of an ffn_block call: fp32 as its
+        kernel does it, three TF32 products a product."""
         x, g1, b1, w1, fb1, w2, fb2 = args
-        return 4 * x.numel() * w1.shape[0], 2 * nbytes(x) + nbytes(g1, b1, w1, fb1, w2, fb2)
+        flops = 4 * x.numel() * w1.shape[0]
+        moved = 2 * nbytes(x) + nbytes(g1, b1, w1.to(x.dtype), fb1.to(x.dtype), w2.to(x.dtype),
+                                       fb2.to(x.dtype))
+        if x.dtype == torch.float32:
+            return 3 * flops, moved, "tfloat32"
+        return flops, moved
 
     def conv_work(args, bwd=False):
         e, f_ = args[0], args[1]
@@ -1708,6 +1759,7 @@ def main() -> None:
         "attn_block": attn_work(cases["attn_block"](torch.bfloat16)[2]),
         "attn_block_hmean": attn_work(cases["attn_block"](torch.bfloat16)[2], hmean=True),
         "ffn_block": ffn_work(cases["ffn_block"](torch.bfloat16)[2]),
+        "ffn_block_fp32": ffn_work(cases["ffn_block"](torch.float32)[2]),
         "sym_conv": conv_work(cases["sym_conv"](torch.bfloat16)[2]),
         "sym_conv_bwd": conv_work(train_cases["sym_conv_bwd"](torch.bfloat16)[2], bwd=True),
         "embed_grad": embed_work(train_cases["embed_grad"](torch.bfloat16)[2]),
@@ -1721,6 +1773,7 @@ def main() -> None:
         "attn_block": "schemanet_tpu/ops/pallas/encoder_block.py:240",
         "attn_block_hmean": "schemanet_tpu/ops/pallas/encoder_block.py:240",
         "ffn_block": "schemanet_tpu/ops/pallas/encoder_block.py:286",
+        "ffn_block_fp32": "schemanet_tpu/ops/pallas/encoder_block.py:286",
         "sym_conv": "schemanet_tpu/ops/pallas/graphconv.py:68",
         "sym_conv_bwd": "schemanet_tpu/ops/pallas/graphconv.py:100",
         "embed_grad": "schemanet_tpu/ops/pallas/embed_bwd.py:161",
@@ -1746,11 +1799,11 @@ def main() -> None:
                 **{name: f"{name}_p0" for name in s0_kernels}}
     # each kernel's launches on the path that runs it most: stage 4 for the
     # SchemaNet kernels, stage 0 for the fused ViT kernels and the LayerNorm,
-    # stage 1 for VQ
+    # stage 1 for VQ and fp32 ffn_block
     launches = {**train_launches,
                 **{name: s0_launches[name] for name in (*s0_kernels, "fused_layernorm",
                                                         "fused_layernorm_bwd")},
-                "vq_assign": s1_launches["vq_assign"]}
+                "vq_assign": s1_launches["vq_assign"], "ffn_block_fp32": s1_launches["ffn_block"]}
     kernels = []
     for name in replaces:
         # the operations' type: where the work does not name it (VQ's does),

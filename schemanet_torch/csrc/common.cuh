@@ -110,6 +110,53 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ---------------------------------------------------------------------------
+// fp32 products on the TF32 tensor cores by the 3xTF32 split: v = hi + lo,
+// hi = tf32(v), lo = tf32(v - hi), both rounded to nearest (ties away) by
+// cvt.rna; a product x w is x_lo w_hi + x_hi w_lo + x_hi w_hi in one fp32
+// accumulator (x_lo w_lo dropped), about fp32's accuracy at three TF32
+// products. The split is done once per element, as a tile is stored into
+// shared memory in two planes (hi, lo), never per mma. An 8 x 16-byte
+// ldmatrix gives lane l the 32-bit word (l / 4, l % 4), which is the TF32
+// m16n8k8 A and B layout, so the bf16 fragment loaders below read TF32
+// planes as bf16 pairs (pitch and k in 2-byte units).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void tf32_split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void tf32_split4(const float4& v, uint4& hi, uint4& lo) {
+  tf32_split(v.x, hi.x, lo.x);
+  tf32_split(v.y, hi.y, lo.y);
+  tf32_split(v.z, hi.z, lo.z);
+  tf32_split(v.w, hi.w, lo.w);
+}
+
+// c += a b: A 16x8 (row), B 8x8 (col), TF32 in, fp32 accumulated
+__device__ __forceinline__ void mma1688_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b for split operands: the three TF32 products, small terms first
+__device__ __forceinline__ void mma1688_split(float (&c)[4], const uint32_t (&ah)[4],
+                                              const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                              uint32_t bl0, uint32_t bl1) {
+  mma1688_tf32(c, al, bh0, bh1);
+  mma1688_tf32(c, ah, bl0, bl1);
+  mma1688_tf32(c, ah, bh0, bh1);
+}
+
 // two fp32 values rounded to bf16 (nearest even), the lower column in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -144,6 +191,13 @@ __device__ __forceinline__ void ldsm_a_t(uint32_t (&a)[4], const bf16* tile, int
 __device__ __forceinline__ void ldsm_b_nk(uint32_t (&b)[4], const bf16* tile, int pitch, int n0,
                                           int k0, int lane) {
   ldsm_x4(b, tile + (n0 + (lane & 7) + (lane >> 4) * 8) * pitch + k0 + ((lane >> 3) & 1) * 8);
+}
+
+// B of one n8 tile over 32 of k: b[0], b[1] for k0.., b[2], b[3] for
+// k0 + 16..; from a [n][k] tile (rows n0.., columns k0..)
+__device__ __forceinline__ void ldsm_b_nk_k32(uint32_t (&b)[4], const bf16* tile, int pitch,
+                                              int n0, int k0, int lane) {
+  ldsm_x4(b, tile + (n0 + (lane & 7)) * pitch + k0 + (lane >> 3) * 8);
 }
 
 // the same from a [k][n] tile (rows k0.., columns n0..), by ldmatrix.trans
@@ -293,6 +347,29 @@ __device__ __forceinline__ void layernorm_rows_bf16(const bf16* x, long row0, in
       const float v = __bfloat162float(x[base + c]);
       row[c] = __float2bfloat16((v - mean) * rstd * scale[c] + bias[c]);
     }
+  }
+}
+
+// The same LayerNorm of fp32 rows, split into TF32 planes hi and lo, each
+// [BM][pitch] words (the A operand of a split-TF32 product); rows past
+// `rows_here` are zero. The caller synchronises.
+template <int BM>
+__device__ __forceinline__ void layernorm_rows_tf32(const float* x, long row0, int rows_here,
+                                                    int dim, const float* scale,
+                                                    const float* bias, float eps, uint32_t* hi,
+                                                    uint32_t* lo, int pitch) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < BM; r += kThreads / 32) {
+    if (r >= rows_here) {
+      for (int c = lane; c < dim; c += 32) hi[r * pitch + c] = lo[r * pitch + c] = 0u;
+      continue;
+    }
+    const long base = (row0 + r) * (long)dim;
+    float mean, rstd;
+    layernorm_stats<float>(x, base, dim, eps, lane, mean, rstd);
+    for (int c = lane; c < dim; c += 32)
+      tf32_split((x[base + c] - mean) * rstd * scale[c] + bias[c], hi[r * pitch + c],
+                 lo[r * pitch + c]);
   }
 }
 

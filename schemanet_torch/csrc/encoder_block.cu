@@ -19,22 +19,28 @@
 //     64-key chunks, the [16, n] scores and the head sum stay in shared memory
 //     (no atomics: one block owns its rows of every head), then the out
 //     projection, bias and residual run in the same block.
-//   * ffn_block is one launch per 32-row tile: LN2 into shared memory, then
-//     the hidden width in chunks of 64: fc1 + bias + gelu into shared memory,
-//     and the fc2 partial sums accumulate in registers. The [rows, 768] hidden
+//   * ffn_block is one launch: LN2 of a row tile into shared memory, then
+//     the hidden width in chunks: fc1 + bias + gelu into shared memory, and
+//     the fc2 partial sums accumulate in registers. The [rows, 768] hidden
 //     state never reaches device memory.
-// Products are fp32 FMA on shared-memory tiles. That stays the fp32 route of
-// attn_block (tensor cores would mean TF32 and lose the 1e-4 agreement the
-// fp32 checks hold) and ffn_block's only route; bf16 attn_block takes the
-// tensor-core route below (ops/kernels/encoder_block.py attn_block_route
-// says which, and raises on what neither takes).
+// Routes by the storage type (ops/kernels/encoder_block.py attn_block_route
+// and ffn_block_route say which, and raise on what none takes):
+//   * attn_block: fp32 FMA on shared-memory tiles (ln_qkv_kernel,
+//     attn_core_kernel: tensor cores would mean TF32 and lose the 1e-4
+//     agreement the fp32 checks hold); bf16 the tensor-core route below.
+//   * ffn_block: bf16 ffn_tc_kernel (mma.sync m16n8k16, the fused_mlp
+//     forward's chunk loop of ffn.cuh behind an LN2 prologue); fp32
+//     ffn_tf32_kernel (mma.sync m16n8k8 .tf32 by the 3xTF32 split, which
+//     keeps about fp32's accuracy) at widths 64-256, and the FMA ffn_kernel
+//     at 384, where the split planes do not fit a block's shared memory.
 //
 // Numerics follow the TPU kernels: LN statistics in fp32 (E[x^2] - E[x]^2),
 // every product accumulated in fp32 and rounded once to T, bias added in T
 // after that rounding, q scaled in T, scores and softmax in fp32, the
 // probabilities rounded to T before the AV product, the head-mean summed in
-// fp32 over heads in order and scaled by 1/H, gelu in fp32 with erff.
-#include "common.cuh"
+// fp32 over heads in order and scaled by 1/H, gelu in fp32 with the
+// Abramowitz-Stegun erf (ffn.cuh's gelu_as), the residual added in T.
+#include "ffn.cuh"
 
 namespace sn {
 
@@ -222,7 +228,13 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// FFN half: out[r] = x[r] + round(gelu(round(LN(x[r]) W1^T) + b1) W2^T) + b2
+// FFN half, fp32 at width 384 (ffn_block_route's "fma"): the TF32 planes of
+// 64 or 32 rows and a double-buffered weight chunk do not fit a block's
+// shared memory at that width, so products are fp32 FMA on shared-memory
+// tiles: one launch per 32-row tile, LN2 into shared memory, then the
+// hidden width in chunks of 64: fc1 + bias + gelu into shared memory, and
+// the fc2 partial sums accumulate in registers.
+//   out[r] = x[r] + ((gelu(LN(x[r]) W1^T + b1) W2^T) + b2)
 // ---------------------------------------------------------------------------
 constexpr int kFfnBM = 32, kFfnFC = 64, kFc1KC = 32, kFc2KC = 16;
 
@@ -233,12 +245,13 @@ __host__ __device__ inline size_t ffn_smem_floats(int dim) {
 
 // TN2 = dim / 32 output columns per thread of the fc2 accumulator ([32, dim]
 // over 8 x 32 threads, 4 rows each).
-template <typename T, int TN2>
+template <int TN2>
 __global__ void __launch_bounds__(kThreads)
-    ffn_kernel(const T* __restrict__ x, const float* __restrict__ ln_scale,
-               const float* __restrict__ ln_bias, const T* __restrict__ w1,
-               const T* __restrict__ b1, const T* __restrict__ w2, const T* __restrict__ b2,
-               T* __restrict__ out, int rows, int f, float eps) {
+    ffn_kernel(const float* __restrict__ x, const float* __restrict__ ln_scale,
+               const float* __restrict__ ln_bias, const float* __restrict__ w1,
+               const float* __restrict__ b1, const float* __restrict__ w2,
+               const float* __restrict__ b2, float* __restrict__ out, int rows, int f,
+               float eps) {
   constexpr int dim = 32 * TN2;
   extern __shared__ float smem[];
   float* xs = smem;                 // [BM][dim]
@@ -246,28 +259,23 @@ __global__ void __launch_bounds__(kThreads)
   float* bs = hs + kFfnBM * kFfnFC; // weight chunks
   const long row0 = (long)blockIdx.x * kFfnBM;
   const int rows_here = min(kFfnBM, rows - (int)row0);
-  layernorm_rows<T, kFfnBM>(x, row0, rows_here, dim, ln_scale, ln_bias, eps, xs);
+  layernorm_rows<float, kFfnBM>(x, row0, rows_here, dim, ln_scale, ln_bias, eps, xs);
 
   constexpr int TM1 = 2, TN1 = 4, TM2 = 4;
   const int tx1 = threadIdx.x % (kFfnFC / TN1), ty1 = threadIdx.x / (kFfnFC / TN1);
   float acc2[TM2][TN2] = {};
   for (int f0 = 0; f0 < f; f0 += kFfnFC) {
     float acc1[TM1][TN1] = {};
-    gemm_smem_a<T, kFfnBM, kFfnFC, TM1, TN1, kFc1KC>(xs, dim, w1, dim, dim, f0, f, bs, acc1);
+    gemm_smem_a<float, kFfnBM, kFfnFC, TM1, TN1, kFc1KC>(xs, dim, w1, dim, dim, f0, f, bs, acc1);
 #pragma unroll
     for (int i = 0; i < TM1; ++i)
 #pragma unroll
       for (int j = 0; j < TN1; ++j) {
         const int c = tx1 * TN1 + j;
-        float g = 0.f;
-        if (f0 + c < f) {
-          const float h = Num<T>::round(Num<T>::round(acc1[i][j]) + Num<T>::load(b1, f0 + c));
-          g = Num<T>::round(h * 0.5f * (1.f + erff(h * 0.70710678118654752f)));
-        }
-        hs[(ty1 * TM1 + i) * kFfnFC + c] = g;
+        hs[(ty1 * TM1 + i) * kFfnFC + c] = f0 + c < f ? gelu_as(acc1[i][j] + b1[f0 + c]) : 0.f;
       }
-    gemm_smem_a<T, kFfnBM, dim, TM2, TN2, kFc2KC>(hs, kFfnFC, w2 + f0, f, min(kFfnFC, f - f0), 0,
-                                                  dim, bs, acc2);
+    gemm_smem_a<float, kFfnBM, dim, TM2, TN2, kFc2KC>(hs, kFfnFC, w2 + f0, f,
+                                                      min(kFfnFC, f - f0), 0, dim, bs, acc2);
   }
   const int tx2 = threadIdx.x % 32, ty2 = threadIdx.x / 32;
 #pragma unroll
@@ -278,10 +286,291 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < TN2; ++j) {
       const int c = tx2 * TN2 + j;
       const long o = (row0 + r) * dim + c;
-      const float y = Num<T>::round(Num<T>::round(acc2[i][j]) + Num<T>::load(b2, c));
-      Num<T>::store(out, o, Num<T>::load(x, o) + y);
+      out[o] = x[o] + (acc2[i][j] + b2[c]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// FFN half, bf16 (ffn_block_route's "tensor_core"): ffn_tc_kernel, mma.sync
+// m16n8k16 through ffn.cuh's chunk loop (the fused_mlp forward's), one
+// block of 8 warps per RT rows. The prologue is LN2 of the block's rows,
+// computed in fp32 and rounded to bf16 into the A tile (layernorm_rows_bf16)
+// while the first W1/W2 chunk is in flight by cp.async; the hidden element
+// is ffn_hidden_bf16 at p = 0 (no hash, no mask); the epilogue is
+//   out = x + round(round(acc) + b2), x re-read from device memory.
+// RT = 64 up to width 256 (two blocks an SM up to 192), 32 at 384 (48
+// output registers a thread, one block an SM). f a multiple of 8: the
+// weights' hidden columns are copied in 16-byte chunks.
+// ---------------------------------------------------------------------------
+template <int DIM>
+constexpr int kFfnTcRows = DIM <= 256 ? 64 : 32;
+
+template <int DIM>
+__global__ void __launch_bounds__(kThreads, DIM <= 192 ? 2 : 1)
+    ffn_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
+                  const float* __restrict__ ln_bias, float eps, const bf16* __restrict__ w1,
+                  const bf16* __restrict__ b1, const bf16* __restrict__ w2,
+                  const bf16* __restrict__ b2, bf16* __restrict__ out, int rows, int f) {
+  constexpr int RT = kFfnTcRows<DIM>;
+  using S = FfnTcSmem<DIM, RT>;
+  using L = FfnTcLayout<DIM, RT>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* as = reinterpret_cast<bf16*>(smem_raw);  // LN2(x) [RT][DIM + 8]
+  bf16* stages = as + S::kA;                     // 2 x (W1 chunk, W2 chunk)
+  bf16* act = stages + 2 * S::kStage;            // gelu of the chunk [RT][40]
+  const int lane = threadIdx.x & 31;
+  const long row0 = (long)blockIdx.x * RT;
+  ffn_tc_stage_chunk<DIM, RT>(stages, w1, w2, f, 0);
+  cp_async_commit();
+  layernorm_rows_bf16<RT>(x, row0, (int)min((long)RT, rows - row0), DIM, ln_scale, ln_bias, eps,
+                          as, S::kPitch);  // while chunk 0 is in flight
+
+  float oacc[L::kOutTiles][4] = {};
+  ffn_tc_chunks<DIM, RT>(as, stages, act, w1, b1, w2, row0, f, 0.f, 1.f, 0u, oacc);
+#pragma unroll
+  for (int nt = 0; nt < L::kOutTiles; ++nt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int2 rc = ffn_tc_out_coord<DIM, RT>(nt, half, lane);
+      const long row = row0 + rc.x;
+      if (row >= rows) continue;
+      const float2 xv = unpack_bf16(*reinterpret_cast<const uint32_t*>(x + row * DIM + rc.y));
+      const float y0 = Num<bf16>::round(Num<bf16>::round(oacc[nt][half * 2]) +
+                                        Num<bf16>::load(b2, rc.y));
+      const float y1 = Num<bf16>::round(Num<bf16>::round(oacc[nt][half * 2 + 1]) +
+                                        Num<bf16>::load(b2, rc.y + 1));
+      *reinterpret_cast<uint32_t*>(out + row * DIM + rc.y) = pack_bf16(xv.x + y0, xv.y + y1);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// FFN half, fp32 at widths 64-256 (ffn_block_route's "split_tf32"):
+// ffn_tf32_kernel, mma.sync m16n8k8 .tf32 by the 3xTF32 split (common.cuh),
+// the layout of ffn_tc_kernel: 8 warps over RT rows (64 up to width 192, 32
+// at 256), the hidden width in chunks of 32. LN2(x), each W1 and W2 chunk
+// and the chunk's gelu output are split into hi and lo planes once per
+// element, as they are stored into shared memory. The planes take twice
+// bf16's room, so the weights are double-buffered in registers, not in
+// shared memory: chunk c + 1's 16-byte (W1) and 4-byte (W2, any f) loads
+// are in flight while chunk c is multiplied, then split into the one stage
+// (at width 256 W2's are issued as the stage is written: ahead, they spill).
+// Sums: the tensor cores add into an fp32 fragment with truncation, so a
+// fragment chained over all of k (288 mma at width 192) drifts to ~10x the
+// FMA kernel's error; every 32 of k is summed in a zeroed fragment and added
+// to the running sum in fp32, which also makes the mma chains short and
+// independent.
+// At width 192: 64 rows of LN2(x) planes (100 KB), a W1 and a W2 chunk (49 +
+// 54 KB) and the activation (18 KB), one block an SM.
+//   out = x + ((gelu(LN2(x) W1^T + b1) W2^T) + b2), all in fp32
+// ---------------------------------------------------------------------------
+template <int DIM>
+constexpr int kFfnTf32Rows = DIM <= 192 ? 64 : 32;
+
+template <int DIM>
+struct FfnTf32Smem {
+  static constexpr int kRows = kFfnTf32Rows<DIM>;
+  static constexpr int kPitch = DIM + 4;          // words; rows 16 bytes past 128-byte lines
+  static constexpr int kActPitch = kFfnChunk + 4;
+  static constexpr int kA = kRows * kPitch;       // one plane of LN2(x)
+  static constexpr int kW1 = kFfnChunk * kPitch;  // one plane of a W1 chunk [32][DIM]
+  static constexpr int kW2 = DIM * kActPitch;     // one plane of a W2 chunk [DIM][32]
+  static constexpr int kAct = kRows * kActPitch;  // one plane of the chunk's gelu
+  static constexpr size_t kBytes = sizeof(uint32_t) * 2 * (kA + kW1 + kW2 + kAct);
+};
+
+template <int DIM>
+__global__ void __launch_bounds__(kThreads, 1)
+    ffn_tf32_kernel(const float* __restrict__ x, const float* __restrict__ ln_scale,
+                    const float* __restrict__ ln_bias, float eps, const float* __restrict__ w1,
+                    const float* __restrict__ b1, const float* __restrict__ w2,
+                    const float* __restrict__ b2, float* __restrict__ out, int rows, int f) {
+  using S = FfnTf32Smem<DIM>;
+  constexpr int RT = S::kRows, P = S::kPitch, AP = S::kActPitch;
+  using L = FfnTcLayout<DIM, RT>;
+  constexpr int NT1 = L::kFc1Tiles;
+  constexpr int kW1Vecs = kFfnChunk * DIM / 4 / kThreads;  // 16-byte loads a thread
+  constexpr int kW2Vals = DIM * kFfnChunk / kThreads;      // 4-byte loads a thread
+  // W2's values loaded a chunk ahead too, up to width 192; at 256 they would
+  // take the registers past 255 (ptxas spills), so they are loaded as stored
+  constexpr bool kW2Ahead = DIM <= 192;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint32_t* a_hi = reinterpret_cast<uint32_t*>(smem_raw);  // the planes, hi then lo
+  uint32_t* a_lo = a_hi + S::kA;
+  uint32_t* w1_hi = a_lo + S::kA;
+  uint32_t* w1_lo = w1_hi + S::kW1;
+  uint32_t* w2_hi = w1_lo + S::kW1;
+  uint32_t* w2_lo = w2_hi + S::kW2;
+  uint32_t* act_hi = w2_lo + S::kW2;
+  uint32_t* act_lo = act_hi + S::kAct;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp / L::kWC, wc = warp % L::kWC;
+  const long row0 = (long)blockIdx.x * RT;
+  const int chunks = (f + kFfnChunk - 1) / kFfnChunk;
+
+  uint4 w1v[kW1Vecs];
+  float w2v[kW2Ahead ? kW2Vals : 1];
+  auto w2_value = [&](int c, int j) {  // value j of this thread in chunk c's W2, 0 past f
+    const int idx = threadIdx.x + j * kThreads, n = idx / kFfnChunk, k = idx % kFfnChunk;
+    const int col = c * kFfnChunk + k;
+    return col < f ? __ldg(w2 + (long)n * f + col) : 0.f;
+  };
+  auto load = [&](int c) {  // chunk c's weights into registers, zero past f
+    const int f0 = c * kFfnChunk;
+#pragma unroll
+    for (int j = 0; j < kW1Vecs; ++j) {
+      const int idx = threadIdx.x + j * kThreads, r = idx / (DIM / 4), q = idx % (DIM / 4);
+      w1v[j] = f0 + r < f
+                   ? __ldg(reinterpret_cast<const uint4*>(w1 + (long)(f0 + r) * DIM) + q)
+                   : make_uint4(0, 0, 0, 0);
+    }
+    if constexpr (kW2Ahead) {
+#pragma unroll
+      for (int j = 0; j < kW2Vals; ++j) w2v[j] = w2_value(c, j);
+    }
+  };
+  auto store = [&](int c) {  // chunk c, loaded, split into the stage
+#pragma unroll
+    for (int j = 0; j < kW1Vecs; ++j) {
+      const int idx = threadIdx.x + j * kThreads, r = idx / (DIM / 4), q = idx % (DIM / 4);
+      uint4 hi, lo;
+      tf32_split4(*reinterpret_cast<const float4*>(&w1v[j]), hi, lo);
+      *reinterpret_cast<uint4*>(w1_hi + r * P + 4 * q) = hi;
+      *reinterpret_cast<uint4*>(w1_lo + r * P + 4 * q) = lo;
+    }
+    auto w2_put = [&](int j, float v) {
+      const int idx = threadIdx.x + j * kThreads, n = idx / kFfnChunk, k = idx % kFfnChunk;
+      tf32_split(v, w2_hi[n * AP + k], w2_lo[n * AP + k]);
+    };
+    if constexpr (kW2Ahead) {
+#pragma unroll
+      for (int j = 0; j < kW2Vals; ++j) w2_put(j, w2v[j]);
+    } else {  // 16 loads in flight at a time: all 32 at once spill
+#pragma unroll 16
+      for (int j = 0; j < kW2Vals; ++j) w2_put(j, w2_value(c, j));
+    }
+  };
+  // the planes as bf16 pairs for the fragment loaders: pitch and k doubled
+  auto h16 = [](const uint32_t* p) { return reinterpret_cast<const bf16*>(p); };
+
+  load(0);
+  layernorm_rows_tf32<RT>(x, row0, (int)min((long)RT, rows - row0), DIM, ln_scale, ln_bias, eps,
+                          a_hi, a_lo, P);  // while chunk 0's loads are in flight
+  store(0);
+  __syncthreads();
+
+  float oacc[L::kOutTiles][4] = {};
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) load(c + 1);  // in flight while the tensor cores work
+    const int f0 = c * kFfnChunk;
+
+    // h = LN2(x) W1^T for rows 16 wr.., chunk columns 8 NT1 wc..: each 32
+    // of k summed in a zeroed fragment (12 chained mma), then added in fp32
+    // (round to nearest): the tensor cores' accumulation truncates, and one
+    // fragment chained over all of k drifts by ~10x fp32's error
+    float hacc[NT1][4] = {};
+#pragma unroll 2
+    for (int kg = 0; kg < DIM / 32; ++kg) {
+      float t[NT1][4] = {};
+      if constexpr (NT1 == 2) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int k0 = (kg * 4 + s) * 16;  // in bf16 units: 8 of k
+          uint32_t ah[4], al[4], bh[4], bl[4];
+          ldsm_a(ah, h16(a_hi), 2 * P, wr * 16, k0, lane);
+          ldsm_a(al, h16(a_lo), 2 * P, wr * 16, k0, lane);
+          ldsm_b_nk(bh, h16(w1_hi), 2 * P, wc * 16, k0, lane);
+          ldsm_b_nk(bl, h16(w1_lo), 2 * P, wc * 16, k0, lane);
+          mma1688_split(t[0], ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma1688_split(t[1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+        }
+      } else {
+#pragma unroll
+        for (int kp = 0; kp < 2; ++kp) {
+          const int k0 = (kg * 2 + kp) * 32;  // in bf16 units: 16 of k
+          uint32_t bh[4], bl[4];
+          ldsm_b_nk_k32(bh, h16(w1_hi), 2 * P, wc * 8, k0, lane);
+          ldsm_b_nk_k32(bl, h16(w1_lo), 2 * P, wc * 8, k0, lane);
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            uint32_t ah[4], al[4];
+            ldsm_a(ah, h16(a_hi), 2 * P, wr * 16, k0 + s * 16, lane);
+            ldsm_a(al, h16(a_lo), 2 * P, wr * 16, k0 + s * 16, lane);
+            mma1688_split(t[0], ah, al, bh[2 * s], bh[2 * s + 1], bl[2 * s], bl[2 * s + 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT1; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hacc[nt][e] += t[nt][e];
+    }
+    // a = gelu(h + b1) in fp32, split into the activation planes
+#pragma unroll
+    for (int nt = 0; nt < NT1; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wr * 16 + (lane >> 2) + half * 8;
+        const int cc = wc * (NT1 * 8) + nt * 8 + (lane & 3) * 2;
+        uint2 hi, lo;
+        tf32_split(f0 + cc < f ? gelu_as(hacc[nt][half * 2] + b1[f0 + cc]) : 0.f, hi.x, lo.x);
+        tf32_split(f0 + cc + 1 < f ? gelu_as(hacc[nt][half * 2 + 1] + b1[f0 + cc + 1]) : 0.f,
+                   hi.y, lo.y);
+        *reinterpret_cast<uint2*>(act_hi + r * AP + cc) = hi;
+        *reinterpret_cast<uint2*>(act_lo + r * AP + cc) = lo;
+      }
+    __syncthreads();
+
+    // out += a W2^T over the chunk (32 of k): rows 16 wr.., columns wc
+    // DIM / WC..; each output tile's chunk summed in a zeroed fragment, then
+    // added in fp32, as fc1's
+    uint32_t ah[kFfnChunk / 8][4], al[kFfnChunk / 8][4];
+#pragma unroll
+    for (int ks = 0; ks < kFfnChunk / 8; ++ks) {
+      ldsm_a(ah[ks], h16(act_hi), 2 * AP, wr * 16, ks * 16, lane);
+      ldsm_a(al[ks], h16(act_lo), 2 * AP, wr * 16, ks * 16, lane);
+    }
+    auto fc2_tiles = [&](int nb) {  // output tiles 2 nb and 2 nb + 1
+      float t[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < kFfnChunk / 8; ++ks) {
+        uint32_t bh[4], bl[4];
+        ldsm_b_nk(bh, h16(w2_hi), 2 * AP, wc * L::kOutCols + nb * 16, ks * 16, lane);
+        ldsm_b_nk(bl, h16(w2_lo), 2 * AP, wc * L::kOutCols + nb * 16, ks * 16, lane);
+        mma1688_split(t[0], ah[ks], al[ks], bh[0], bh[1], bl[0], bl[1]);
+        mma1688_split(t[1], ah[ks], al[ks], bh[2], bh[3], bl[2], bl[3]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        oacc[2 * nb][e] += t[0][e];
+        oacc[2 * nb + 1][e] += t[1][e];
+      }
+    };
+    if constexpr (DIM > 192) {  // at 256 the weights in flight take 64 registers: no unroll
+#pragma unroll 1
+      for (int nb = 0; nb < L::kOutTiles / 2; ++nb) fc2_tiles(nb);
+    } else {
+#pragma unroll
+      for (int nb = 0; nb < L::kOutTiles / 2; ++nb) fc2_tiles(nb);
+    }
+    if (c + 1 < chunks) {
+      __syncthreads();  // every warp is done with chunk c's weights and activation
+      store(c + 1);
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < L::kOutTiles; ++nt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int2 rc = ffn_tc_out_coord<DIM, RT>(nt, half, lane);
+      const long row = row0 + rc.x;
+      if (row >= rows) continue;
+      const float2 xv = *reinterpret_cast<const float2*>(x + row * DIM + rc.y);
+      *reinterpret_cast<float2*>(out + row * DIM + rc.y) =
+          make_float2(xv.x + (oacc[nt][half * 2] + b2[rc.y]),
+                      xv.y + (oacc[nt][half * 2 + 1] + b2[rc.y + 1]));
+    }
 }
 
 template <typename T>
@@ -427,31 +716,75 @@ cudaError_t attn_block_tc(const void* x, const void* g, const void* be, const vo
   return linear_tc<false>(mh, nullptr, nullptr, 0.f, wo, bo, x, out, rows, hd, dim, stream);
 }
 
-template <typename T, int TN2>
-cudaError_t ffn_launch(const void* x, const void* g, const void* be, const void* w1,
-                       const void* b1, const void* w2, const void* b2, void* out, int rows,
-                       int f, float eps, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * ffn_smem_floats(32 * TN2);
-  cudaError_t err = allow_smem(ffn_kernel<T, TN2>, bytes);
+// one launch of an FFN kernel over `rows` rows, RT a block; T the storage type
+template <typename T, int RT, typename Kernel>
+cudaError_t ffn_launch(Kernel kernel, size_t bytes, const void* x, const void* g, const void* be,
+                       const void* w1, const void* b1, const void* w2, const void* b2, void* out,
+                       int rows, int f, float eps, cudaStream_t stream) {
+  cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
-  ffn_kernel<T, TN2><<<(rows + kFfnBM - 1) / kFfnBM, kThreads, bytes, stream>>>(
-            static_cast<const T*>(x), static_cast<const float*>(g),
-            static_cast<const float*>(be), static_cast<const T*>(w1), static_cast<const T*>(b1),
-            static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<T*>(out), rows, f,
-            eps);
+  kernel<<<(rows + RT - 1) / RT, kThreads, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const float*>(be), eps,
+      static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(w2),
+      static_cast<const T*>(b2), static_cast<T*>(out), rows, f);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t ffn_block_impl(const void* x, const void* g, const void* be, const void* w1,
+template <int DIM>
+cudaError_t ffn_tc_launch(const void* x, const void* g, const void* be, const void* w1,
+                          const void* b1, const void* w2, const void* b2, void* out, int rows,
+                          int f, float eps, cudaStream_t s) {
+  constexpr int RT = kFfnTcRows<DIM>;
+  return ffn_launch<bf16, RT>(ffn_tc_kernel<DIM>, FfnTcSmem<DIM, RT>::kBytes, x, g, be, w1, b1,
+                              w2, b2, out, rows, f, eps, s);
+}
+
+template <int DIM>
+cudaError_t ffn_tf32_launch(const void* x, const void* g, const void* be, const void* w1,
+                            const void* b1, const void* w2, const void* b2, void* out, int rows,
+                            int f, float eps, cudaStream_t s) {
+  return ffn_launch<float, kFfnTf32Rows<DIM>>(ffn_tf32_kernel<DIM>, FfnTf32Smem<DIM>::kBytes, x,
+                                                 g, be, w1, b1, w2, b2, out, rows, f, eps, s);
+}
+
+cudaError_t ffn_fma_launch(const void* x, const void* g, const void* be, const void* w1,
                            const void* b1, const void* w2, const void* b2, void* out, int rows,
-                           int dim, int f, float eps, cudaStream_t stream) {
+                           int f, float eps, cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * ffn_smem_floats(384);
+  cudaError_t err = allow_smem(ffn_kernel<12>, bytes);
+  if (err != cudaSuccess) return err;
+  ffn_kernel<12><<<(rows + kFfnBM - 1) / kFfnBM, kThreads, bytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(g), static_cast<const float*>(be),
+      static_cast<const float*>(w1), static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<float*>(out), rows, f, eps);
+  return cudaGetLastError();
+}
+
+// bf16 by the tensor cores, f a multiple of 8
+cudaError_t ffn_block_tc(const void* x, const void* g, const void* be, const void* w1,
+                         const void* b1, const void* w2, const void* b2, void* out, int rows,
+                         int dim, int f, float eps, cudaStream_t s) {
+  if (f % 8) return cudaErrorInvalidValue;
   switch (dim) {
-    case 64: return ffn_launch<T, 2>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, stream);
-    case 128: return ffn_launch<T, 4>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, stream);
-    case 192: return ffn_launch<T, 6>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, stream);
-    case 256: return ffn_launch<T, 8>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, stream);
-    case 384: return ffn_launch<T, 12>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, stream);
+    case 64: return ffn_tc_launch<64>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
+    case 128: return ffn_tc_launch<128>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
+    case 192: return ffn_tc_launch<192>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
+    case 256: return ffn_tc_launch<256>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
+    case 384: return ffn_tc_launch<384>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// fp32: the split TF32 up to width 256, FMA at 384
+cudaError_t ffn_block_fp32(const void* x, const void* g, const void* be, const void* w1,
+                           const void* b1, const void* w2, const void* b2, void* out, int rows,
+                           int dim, int f, float eps, cudaStream_t s) {
+  switch (dim) {
+    case 64: return ffn_tf32_launch<64>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
+    case 128: return ffn_tf32_launch<128>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
+    case 192: return ffn_tf32_launch<192>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
+    case 256: return ffn_tf32_launch<256>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
+    case 384: return ffn_fma_launch(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -478,15 +811,17 @@ int sn_attn_block(int dtype, const void* x, const void* ln_scale, const void* ln
                            dim, heads, head_dim, eps, scale, s);
 }
 
+// fp32 takes the split-TF32 kernel at dim 64-256 (w1 16-byte aligned) and
+// the FMA kernel at 384; bf16 the tensor-core kernel (dim 64-384, f a
+// multiple of 8; w1 and w2 16-byte aligned).
 int sn_ffn_block(int dtype, const void* x, const void* ln_scale, const void* ln_bias,
                  const void* w1, const void* b1, const void* w2, const void* b2, void* out,
                  int rows, int dim, int f, float eps, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (rows == 0) return cudaSuccess;
   if (dtype == sn::kF32)
-    return sn::ffn_block_impl<float>(x, ln_scale, ln_bias, w1, b1, w2, b2, out, rows, dim, f,
-                                     eps, s);
-  return sn::ffn_block_impl<__nv_bfloat16>(x, ln_scale, ln_bias, w1, b1, w2, b2, out, rows, dim,
-                                           f, eps, s);
+    return sn::ffn_block_fp32(x, ln_scale, ln_bias, w1, b1, w2, b2, out, rows, dim, f, eps, s);
+  return sn::ffn_block_tc(x, ln_scale, ln_bias, w1, b1, w2, b2, out, rows, dim, f, eps, s);
 }
 
 }  // extern "C"

@@ -15,7 +15,8 @@
 // [rows, f] hidden state stays on chip. The design keeps it there:
 //   * forward (fp32): one block per 32 rows; the hidden width in chunks of 64:
 //     fc1 + bias + gelu + mask into shared memory, and the fc2 partial sums
-//     accumulate in registers (as the frozen ffn_block does).
+//     accumulate in registers (as the frozen ffn_block's fp32 FMA kernel
+//     does at width 384).
 //   * backward, three launches. (a) dx: one block per 32 rows, the hidden
 //     width in chunks: recompute h = x W1 + b1 and dA = g W2^T for the chunk,
 //     dH = dA * gelu'(h) in shared memory, dx += dH W1 in registers.
@@ -42,8 +43,7 @@
 // a weak-typed Python float), then the fp32-accumulated fc2 rounded to T,
 // + b2 in T. Backward: dA * inv in fp32, dH = dA * gelu'(h) rounded to T,
 // weight and bias gradients summed in fp32.
-#include "common.cuh"
-#include "dropmask.cuh"
+#include "ffn.cuh"
 
 namespace sn {
 
@@ -84,51 +84,6 @@ __device__ __forceinline__ void gemm_smem_a_kn(const float* As, int lda, const T
     }
   }
   __syncthreads();
-}
-
-// Abramowitz & Stegun 7.1.26 erf, as the TPU kernel computes it in fp32.
-__device__ __forceinline__ float erf_as(float x) {
-  const float s = (float)((x > 0.f) - (x < 0.f));
-  const float ax = fabsf(x);
-  const float t = 1.f / (1.f + 0.3275911f * ax);
-  const float poly =
-      ((((1.061405429f * t + -1.453152027f) * t + 1.421413741f) * t + -0.284496736f) * t +
-       0.254829592f) *
-      t;
-  return s * (1.f - poly * expf(-ax * ax));
-}
-
-__device__ __forceinline__ float gelu_as(float x) {
-  return x * 0.5f * (1.f + erf_as(x * 0.7071067811865476f));
-}
-
-__device__ __forceinline__ float gelu_as_grad(float x) {
-  const float cdf = 0.5f * (1.f + erf_as(x * 0.7071067811865476f));
-  const float pdf = expf(-0.5f * x * x) * 0.3989422804014327f;
-  return cdf + x * pdf;
-}
-
-// The hidden element (row, col) of the bf16 FFN from its fp32 fc1 sum, with
-// the TPU kernel's roundings: h = round(round(acc) + b1), a = round(gelu(h)),
-// and with dropout a_used = round(a * inv_t) where the hash keeps (row, col),
-// else 0. The tensor-core forward and backward both call it on their C
-// fragments, so they regenerate the same h, a_used and mask.
-struct FfnHidden {
-  float h, a_used;
-  bool keep;
-};
-
-__device__ __forceinline__ FfnHidden ffn_hidden_bf16(float acc, const bf16* b1, long row, int col,
-                                                     int f, float p, float inv_t, uint32_t h0) {
-  FfnHidden v;
-  v.h = Num<bf16>::round(Num<bf16>::round(acc) + Num<bf16>::load(b1, col));
-  v.a_used = Num<bf16>::round(gelu_as(v.h));
-  v.keep = true;
-  if (p > 0.f) {
-    v.keep = drop_keep(h0, (uint32_t)row, f, col, p);
-    v.a_used = v.keep ? Num<bf16>::round(v.a_used * inv_t) : 0.f;
-  }
-  return v;
 }
 
 // x (or g) rows [row0, row0 + BM) into xs [BM][dim]; rows past the end are 0.
@@ -392,17 +347,14 @@ __global__ void __launch_bounds__(kThreads)
 // the fragment helpers are in common.cuh)
 //
 // forward, mlp_fwd_tc_kernel: one block of 8 warps per 64 rows, whose x
-//     stays in shared memory; the hidden width goes by in chunks of 32,
-//     W1[f0:+32, :] and W2[:, f0:+32] double-buffered by cp.async. Per chunk
-//     each warp computes h = x W1^T for its 16 rows and 16 of the chunk's
-//     columns (W1 rows as [n][k] by ldmatrix), applies b1, gelu and the mask
-//     to the C fragments (ffn_hidden_bf16, shared with (a) below), and
-//     writes a_used, bf16, to a shared tile; then out += a_used W2^T (W2's
-//     chunk as [n][k]) for its 16 rows and dim/2 columns, in fp32 registers
-//     over all chunks; b2 in the epilogue. Nothing of the hidden state
-//     leaves the chip. The chunk of 32 (not (a)'s 64) keeps a block at 87 KB
-//     of shared memory at dim 192, so two blocks share an SM and stage 0's
-//     197 row tiles run in one wave of 264 places, not two of 132.
+//     stays in shared memory, through the chunk loop of ffn.cuh (shared with
+//     encoder_block.cu's ffn_tc_kernel): hidden chunks of 32, double-buffered
+//     by cp.async; h, b1, gelu and the mask on the C fragments
+//     (ffn_hidden_bf16, shared with (a) below); out += a_used W2^T in fp32
+//     registers; b2 in the epilogue. Nothing of the hidden state leaves the
+//     chip. The chunk of 32 (not (a)'s 64) keeps a block at 87 KB of shared
+//     memory at dim 192, so two blocks share an SM and stage 0's 197 row
+//     tiles run in one wave of 264 places, not two of 132.
 // (a) mlp_dh_tc_kernel: one block of 8 warps per 64 rows. x and g of the
 //     rows stay in shared memory; the hidden width goes by in chunks of 64,
 //     W1[f0:+64, :] and W2[:, f0:+64] double-buffered by cp.async. Per
@@ -651,19 +603,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int kFwdChunk = 32;  // hidden columns a step of the forward
-constexpr int kFwdChunkPitch = kFwdChunk + 8;
-
-template <int DIM>
-struct MlpFwdTcSmem {
-  static constexpr int kPitch = DIM + 8;
-  static constexpr int kX = kTcRowTile * kPitch;    // x rows
-  static constexpr int kW1 = kFwdChunk * kPitch;    // a W1 chunk [32][DIM]
-  static constexpr int kW2 = DIM * kFwdChunkPitch;  // a W2 chunk [DIM][32]
-  static constexpr int kA = kTcRowTile * kFwdChunkPitch;
-  static constexpr size_t kBytes = sizeof(bf16) * (kX + 2 * (kW1 + kW2) + kA);
-};
-
 // two resident blocks an SM up to dim 192 (<= 128 registers a thread); at
 // 256 the fp32 output fragments take 64 registers, so one
 template <int DIM>
@@ -672,95 +611,32 @@ __global__ void __launch_bounds__(kThreads, DIM <= 192 ? 2 : 1)
                       const bf16* __restrict__ b1, const bf16* __restrict__ w2,
                       const bf16* __restrict__ b2, bf16* __restrict__ out, int rows, int f, float p,
                       float inv, int seed) {
-  using S = MlpFwdTcSmem<DIM>;
-  constexpr int P = S::kPitch, CP = kFwdChunkPitch;
+  using S = FfnTcSmem<DIM, kTcRowTile>;
+  using L = FfnTcLayout<DIM, kTcRowTile>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [64][P]
-  bf16* wbuf = xs + S::kX;                       // 2 x (W1 chunk [32][P], W2 chunk [DIM][CP])
-  bf16* as = wbuf + 2 * (S::kW1 + S::kW2);       // a_used of the chunk [64][CP]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wr = warp >> 1, wc = warp & 1;  // rows 16 wr..; column half wc
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [64][DIM + 8]
+  bf16* stages = xs + S::kA;                     // 2 x (W1 chunk, W2 chunk)
+  bf16* act = stages + 2 * S::kStage;            // a_used of the chunk [64][40]
+  const int lane = threadIdx.x & 31;
   const long row0 = (long)blockIdx.x * kTcRowTile;
-  const uint32_t h0 = drop_stream(seed, 0);
-  const float inv_t = Num<bf16>::round(inv);
-  auto w1c = [&](int c) { return wbuf + (c & 1) * (S::kW1 + S::kW2); };
-  auto w2c = [&](int c) { return w1c(c) + S::kW1; };
-  auto stage_chunk = [&](int c) {
-    const int f0 = c * kFwdChunk;
-    stage_tile<kThreads>(w1c(c), P, w1, DIM, f, DIM, f0, 0, kFwdChunk, DIM);
-    stage_tile<kThreads>(w2c(c), CP, w2, f, DIM, f, 0, f0, DIM, kFwdChunk);
-  };
-  stage_tile<kThreads>(xs, P, x, DIM, rows, DIM, row0, 0, kTcRowTile, DIM);
-  stage_chunk(0);
+  stage_tile<kThreads>(xs, S::kPitch, x, DIM, rows, DIM, row0, 0, kTcRowTile, DIM);
+  ffn_tc_stage_chunk<DIM, kTcRowTile>(stages, w1, w2, f, 0);
   cp_async_commit();
 
-  float oacc[DIM / 16][4] = {};  // the warp's 16 rows x DIM/2 columns of out
-  const int chunks = (f + kFwdChunk - 1) / kFwdChunk;
-  for (int c = 0; c < chunks; ++c) {
-    cp_async_wait<0>();
-    __syncthreads();  // chunk c landed; every warp is past chunk c - 1
-    if (c + 1 < chunks) {
-      stage_chunk(c + 1);
-      cp_async_commit();
-    }
-    const bf16* w1t = w1c(c);
-    const bf16* w2t = w2c(c);
-    const int f0 = c * kFwdChunk;
-
-    // h = x W1^T for rows 16 wr.., chunk columns 16 wc..
-    float hacc[2][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < DIM / 16; ++kk) {
-      uint32_t a[4], b[4];
-      ldsm_a(a, xs, P, wr * 16, kk * 16, lane);
-      ldsm_b_nk(b, w1t, P, wc * 16, kk * 16, lane);
-      mma16816(hacc[0], a, b[0], b[1]);
-      mma16816(hacc[1], a, b[2], b[3]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = wr * 16 + (lane >> 2) + half * 8;
-        const int cc = wc * 16 + nt * 8 + (lane & 3) * 2;
-        float av[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = f0 + cc + e;
-          av[e] = col < f ? ffn_hidden_bf16(hacc[nt][half * 2 + e], b1, row0 + r, col, f, p,
-                                            inv_t, h0)
-                                .a_used
-                          : 0.f;
-        }
-        *reinterpret_cast<uint32_t*>(as + r * CP + cc) = pack_bf16(av[0], av[1]);
-      }
-    __syncthreads();
-
-    // out += a_used W2^T over the chunk: rows 16 wr.., columns wc DIM/2..
-#pragma unroll
-    for (int kk = 0; kk < kFwdChunk / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_a(a, as, CP, wr * 16, kk * 16, lane);
-#pragma unroll
-      for (int nb = 0; nb < DIM / 32; ++nb) {
-        uint32_t b[4];
-        ldsm_b_nk(b, w2t, CP, wc * (DIM / 2) + nb * 16, kk * 16, lane);
-        mma16816(oacc[2 * nb], a, b[0], b[1]);
-        mma16816(oacc[2 * nb + 1], a, b[2], b[3]);
-      }
-    }
-  }
+  float oacc[L::kOutTiles][4] = {};  // the warp's 16 rows x DIM/2 columns of out
+  ffn_tc_chunks<DIM, kTcRowTile>(xs, stages, act, w1, b1, w2, row0, f, p, Num<bf16>::round(inv),
+                                 drop_stream(seed, 0), oacc);
   // out = round(round(a W2^T) + b2), as the FMA route
 #pragma unroll
-  for (int nt = 0; nt < DIM / 16; ++nt)
+  for (int nt = 0; nt < L::kOutTiles; ++nt)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const long row = row0 + wr * 16 + (lane >> 2) + half * 8;
-      const int col = wc * (DIM / 2) + nt * 8 + (lane & 3) * 2;
+      const int2 rc = ffn_tc_out_coord<DIM, kTcRowTile>(nt, half, lane);
+      const long row = row0 + rc.x;
       if (row < rows)
-        *reinterpret_cast<uint32_t*>(out + row * DIM + col) =
-            pack_bf16(Num<bf16>::round(oacc[nt][half * 2]) + Num<bf16>::load(b2, col),
-                      Num<bf16>::round(oacc[nt][half * 2 + 1]) + Num<bf16>::load(b2, col + 1));
+        *reinterpret_cast<uint32_t*>(out + row * DIM + rc.y) =
+            pack_bf16(Num<bf16>::round(oacc[nt][half * 2]) + Num<bf16>::load(b2, rc.y),
+                      Num<bf16>::round(oacc[nt][half * 2 + 1]) + Num<bf16>::load(b2, rc.y + 1));
     }
 }
 
@@ -768,7 +644,7 @@ template <int DIM>
 cudaError_t mlp_fwd_tc_launch(const void* x, const void* w1, const void* b1, const void* w2,
                               const void* b2, void* out, int rows, int f, float p, float inv,
                               int seed, cudaStream_t stream) {
-  const size_t bytes = MlpFwdTcSmem<DIM>::kBytes;
+  const size_t bytes = FfnTcSmem<DIM, kTcRowTile>::kBytes;
   cudaError_t err = allow_smem(mlp_fwd_tc_kernel<DIM>, bytes);
   if (err != cudaSuccess) return err;
   mlp_fwd_tc_kernel<DIM><<<(rows + kTcRowTile - 1) / kTcRowTile, kThreads, bytes, stream>>>(

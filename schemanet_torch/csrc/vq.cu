@@ -72,21 +72,6 @@ struct VqSmem {
   static constexpr size_t kBytes = sizeof(T) * 2 * kStage + sizeof(float) * 2 * kVqCodes;
 };
 
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// c += a b: A 16x8 (row), B 8x8 (col), TF32 in, fp32 accumulated
-__device__ __forceinline__ void mma1688_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ bool vq_better(float s, int i, float best, int besti) {
   return s < best || (s == best && i < besti);
 }
@@ -114,12 +99,8 @@ template <typename T>
 __device__ __forceinline__ void vq_put(T* plane, int plane_size, int r, int q, const uint4& v) {
   constexpr int P = VqTile<T>::kPitch, E = 16 / sizeof(T);
   if constexpr (sizeof(T) == 4) {
-    const float4 f = *reinterpret_cast<const float4*>(&v);
-    const uint4 hi = make_uint4(tf32_rna(f.x), tf32_rna(f.y), tf32_rna(f.z), tf32_rna(f.w));
-    const uint4 lo = make_uint4(tf32_rna(f.x - __uint_as_float(hi.x)),
-                                tf32_rna(f.y - __uint_as_float(hi.y)),
-                                tf32_rna(f.z - __uint_as_float(hi.z)),
-                                tf32_rna(f.w - __uint_as_float(hi.w)));
+    uint4 hi, lo;
+    tf32_split4(*reinterpret_cast<const float4*>(&v), hi, lo);
     *reinterpret_cast<uint4*>(plane + r * P + q * E) = hi;
     *reinterpret_cast<uint4*>(plane + plane_size + r * P + q * E) = lo;
   } else {
@@ -156,10 +137,8 @@ __device__ __forceinline__ void vq_chunk_mma(float (&acc)[2][4][4], const T* sta
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            float(&c)[4] = acc[mt][2 * np + h];
-            mma1688_tf32(c, al[mt], bh[2 * h], bh[2 * h + 1]);
-            mma1688_tf32(c, ah[mt], bl[2 * h], bl[2 * h + 1]);
-            mma1688_tf32(c, ah[mt], bh[2 * h], bh[2 * h + 1]);
+            mma1688_split(acc[mt][2 * np + h], ah[mt], al[mt], bh[2 * h], bh[2 * h + 1],
+                          bl[2 * h], bl[2 * h + 1]);
           }
       }
     }

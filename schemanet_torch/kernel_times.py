@@ -1,13 +1,17 @@
 """Card times of the frozen ``attn_block`` (with and without the head-mean),
-``ffn_block``, the ``fused_mlp`` forward and backward, ``embed_grad``,
+``ffn_block`` (bf16 and fp32), the ``fused_mlp`` forward and backward, ``embed_grad``,
 ``adamw_project_rows`` and ``vq_assign`` at the shapes of their paths, each
 beside a PyTorch yardstick where one is named, in bf16 unless said.
 
 * ``attn_block`` at serving's microbatch (x [64, 197, 192], 3 heads), beside
   ``F.layer_norm`` + ``F.linear`` + SDPA (p = 0) + ``F.linear`` and the
   residual at the same shape: the same function by library calls, a note,
-  not one library call;
-* ``ffn_block`` at serving's microbatch (x [64, 197, 192]), alone;
+  not one library call; and in fp32 (stages 1 and 3), alone;
+* ``ffn_block`` at serving's microbatch (x [64, 197, 192], f 768) in bf16
+  and in fp32 (stages 1 and 3), each beside ``F.layer_norm`` + ``F.linear``
+  + ``F.gelu`` + ``F.linear`` and the residual in the same dtype (fp32 with
+  TF32 off): the same function by library calls, a note, not one library
+  call;
 * the ``fused_mlp`` forward at stage 0's shape (12,608 rows, 192 -> 768 ->
   192) at p = 0.1 and p = 0, beside its two products alone by bf16
   ``torch.matmul`` (x W1^T, a W2^T on bf16 operands made beforehand): a
@@ -112,10 +116,12 @@ def measure(dev: torch.device) -> dict:
         o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
         return x + F.linear(o.transpose(1, 2).reshape(bs, n, d), wo, bo)
 
+    attn_fp32 = (x.float(), ln_g, ln_b, *(t.float() for t in (wqkv, bqkv, wo, bo)), heads)
     out = {
         "attn_block": _both(lambda: eb.attn_block(*attn_args)),
         "attn_block_hmean": _both(lambda: eb.attn_block(*attn_args, capture_hmean=True)),
         "attn_block_torch_calls": _both(attn_torch),
+        "attn_block_fp32": _both(lambda: eb.attn_block(*attn_fp32)),
     }
 
     rows = bs * n
@@ -127,7 +133,16 @@ def measure(dev: torch.device) -> dict:
         return (x2 @ w1.t(), g2 @ w2, dh @ w1, dh.t() @ x2, g2.t() @ act)
 
     b2 = rnd(d, scale=0.1)
-    out["ffn_block"] = _both(lambda: eb.ffn_block(x, ln_g, ln_b, w1, b1, w2, b2))
+    for dt, key in ((bf, "ffn_block"), (torch.float32, "ffn_block_fp32")):
+        xf, lg, lb = x.to(dt), ln_g.to(dt), ln_b.to(dt)
+        w1f, b1f, w2f, b2f = (t.to(dt) for t in (w1, b1, w2, b2))
+
+        def ffn_torch():
+            y = F.layer_norm(xf, (d,), lg, lb, 1e-6)
+            return xf + F.linear(F.gelu(F.linear(y, w1f, b1f)), w2f, b2f)
+
+        out[key] = _both(lambda: eb.ffn_block(xf, ln_g, ln_b, w1f, b1f, w2f, b2f))
+        out[f"{key}_torch_calls"] = _both(ffn_torch)
     out["fused_mlp"] = _both(lambda: mk.fused_mlp(x2, w1, b1, w2, b2, "gelu", 0.1, SEED))
     out["fused_mlp_p0"] = _both(lambda: mk.fused_mlp(x2, w1, b1, w2, b2, "gelu", 0.0))
     out["fused_mlp_matmul_products"] = _both(lambda: (x2 @ w1.t(), act @ w2.t()))

@@ -31,6 +31,7 @@ _COUNTERS = {
     "attn_block_hmean": (attn_block, "hmean_launches"),
     "attn_block_tc": (attn_block, "tc_launches"),  # the tensor-core route's share
     "ffn_block": (ffn_block, "launches"),
+    "ffn_block_tc": (ffn_block, "tc_launches"),  # tensor cores: bf16 mma or split TF32
     "sym_conv": (sym_conv, "launches"),
     "sym_conv_bwd": (sym_conv_bwd, "launches"),
     "sym_conv_tc": (sym_conv, "tc_launches"),  # the tensor-core route's share

@@ -19,10 +19,15 @@ Dispatch: a CPU tensor takes the plain version (``*_reference``); a CUDA
 tensor launches the kernel or raises. ``attn_block_route`` picks
 ``attn_block``'s kernels by dtype: fp32 takes the FMA kernels, bf16 the
 tensor-core ones (head_dim a multiple of 16 up to 64, n <= 320), whose
-attention is ``fused_mhsa``'s kernel at p = 0. Each wrapper counts its
-launches in a plain integer attribute (``attn_block.launches``,
-``attn_block.hmean_launches``, ``attn_block.tc_launches`` for the
-tensor-core route, ``ffn_block.launches``).
+attention is ``fused_mhsa``'s kernel at p = 0. ``ffn_block_route`` picks
+``ffn_block``'s: bf16 the tensor-core kernel (``mma`` on bf16 tiles, f a
+multiple of 8), fp32 the split-TF32 kernel (three TF32 ``mma`` products a
+product, about fp32's accuracy) up to width 256 and the FMA kernel at 384.
+gelu is the TPU kernels' (``mlp.gelu_as``, the Abramowitz-Stegun erf). Each
+wrapper counts its launches in a plain integer attribute
+(``attn_block.launches``, ``attn_block.hmean_launches``,
+``attn_block.tc_launches`` for the tensor-core route, ``ffn_block.launches``,
+``ffn_block.tc_launches`` for the tensor-core and split-TF32 routes).
 """
 
 from __future__ import annotations
@@ -30,12 +35,11 @@ from __future__ import annotations
 from typing import Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FMA, TENSOR_CORE = "fma", "tensor_core"
+FMA, TENSOR_CORE, SPLIT_TF32 = "fma", "tensor_core", "split_tf32"
 _FMA_MAX_HEAD_DIM = 128  # csrc/encoder_block.cu kMaxHeadDim
 _TC_MAX_TOKENS = 320  # the tensor-core attention's K and V of one head fill its shared memory
 _TC_MAX_WIDTH = 768  # csrc/encoder_block.cu kLinMaxK: a block stages 64 rows of A and W whole
@@ -82,11 +86,6 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -
     return y if bias is None else y + bias.to(x.dtype)
 
 
-def gelu_f32(x: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) gelu computed in fp32, cast back to x.dtype."""
-    return F.gelu(x.float()).to(x.dtype)
-
-
 def attn_block_reference(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads, eps=1e-6,
                          capture_hmean=False):
     """Plain PyTorch version of ``attn_block`` (same numerics, same outputs)."""
@@ -109,8 +108,11 @@ def attn_block_reference(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads, ep
 
 
 def ffn_block_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6):
-    """Plain PyTorch version of ``ffn_block`` (gelu activation)."""
-    h = gelu_f32(dense(layer_norm(x, ln_scale, ln_bias, eps), w1, b1))
+    """Plain PyTorch version of ``ffn_block``: gelu in fp32 with the TPU
+    kernels' Abramowitz-Stegun erf (``mlp.gelu_as``), cast back."""
+    from .mlp import gelu_as  # mlp imports this module's helpers
+
+    h = gelu_as(dense(layer_norm(x, ln_scale, ln_bias, eps), w1, b1))
     return x + dense(h, w2, b2)
 
 
@@ -202,7 +204,31 @@ def attn_block(
 attn_block.launches = attn_block.hmean_launches = attn_block.tc_launches = 0
 
 
-_FFN_DIMS = (64, 128, 192, 256, 384)
+_FFN_DIMS = (64, 128, 192, 256, 384)  # csrc/encoder_block.cu instantiates these widths
+_FFN_FMA_DIMS = (384,)  # fp32: the split-TF32 planes do not fit a block's shared memory
+
+
+def ffn_block_route(dtype: torch.dtype, dim: int, f: int) -> str:
+    """The kernel a CUDA launch of ``ffn_block`` takes for x of this dtype,
+    width ``dim`` and hidden width ``f``: ``"tensor_core"`` (bf16: ``mma``
+    on bf16 tiles, f a multiple of 8, since the weights' hidden columns are
+    copied in 16-byte chunks), ``"split_tf32"`` (fp32 up to width 256: each
+    product as three TF32 ``mma`` products of split operands, about fp32's
+    accuracy) or ``"fma"`` (fp32 at width 384, where the split operands of a
+    row tile and a weight chunk do not fit a block's shared memory). Raises
+    on what none takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"ffn_block takes float32 or bfloat16, got {dtype}")
+    if dim not in _FFN_DIMS:
+        raise ValueError(f"ffn_block takes width in {_FFN_DIMS}, got {dim}")
+    if f < 1:
+        raise ValueError(f"ffn_block takes a hidden width >= 1, got {f}")
+    if dtype == torch.float32:
+        return FMA if dim in _FFN_FMA_DIMS else SPLIT_TF32
+    if f % 8:
+        raise ValueError(f"ffn_block takes a bfloat16 hidden width that is a multiple of 8, "
+                         f"got {f}")
+    return TENSOR_CORE
 
 
 def ffn_block(
@@ -221,10 +247,7 @@ def ffn_block(
     _require_cuda("x", x)
     dim = x.shape[-1]
     f = w1.shape[0]
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"ffn_block takes float32 or bfloat16, got {x.dtype}")
-    if dim not in _FFN_DIMS:
-        raise ValueError(f"ffn_block takes width in {_FFN_DIMS}, got {dim}")
+    route = ffn_block_route(x.dtype, dim, f)
     dt = x.dtype
     w1, b1, w2, b2 = (t.to(dt).contiguous() for t in (w1, b1, w2, b2))
     ln_scale, ln_bias = ln_scale.float().contiguous(), ln_bias.float().contiguous()
@@ -235,6 +258,9 @@ def ffn_block(
     _check("b1", b1, dt, (f,))
     _check("w2", w2, dt, (dim, f))
     _check("b2", b2, dt, (dim,))
+    if route != FMA and any(t.data_ptr() % 16 for t in (x, w1, w2)):
+        raise ValueError("ffn_block: the tensor-core kernels load 16-byte chunks; x or a weight is "
+                         "not 16-byte aligned")
     rows = x.numel() // dim
     out = torch.empty_like(x)
     err = _build.library().sn_ffn_block(
@@ -244,7 +270,9 @@ def ffn_block(
     )
     _build.check(err, "ffn_block")
     ffn_block.launches += 1
+    if route != FMA:
+        ffn_block.tc_launches += 1
     return out
 
 
-ffn_block.launches = 0
+ffn_block.launches = ffn_block.tc_launches = 0

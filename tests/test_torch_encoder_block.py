@@ -13,7 +13,10 @@ import pytest
 import torch
 
 from schemanet_torch.ops.kernels import encoder_block as eb
+from schemanet_torch.ops.kernels import mlp as mk
 from schemanet_tpu.ops.pallas import encoder_block as jeb
+from schemanet_tpu.ops.pallas.mlp import _kernel_activation
+from tests.test_torch_vq import _tf32
 
 BS, N, DIM, HEADS, F = 2, 17, 32, 2, 64
 TOLS = [("float32", 2e-5, 2e-6), ("bfloat16", 2e-2, 2e-2)]
@@ -64,21 +67,131 @@ def test_attn_block_matches_jax(dtype, rtol, atol, capture_hmean):
         np.testing.assert_allclose(_np(g), _np(w), rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("dtype,rtol,atol", TOLS)
-def test_ffn_block_matches_jax(dtype, rtol, atol):
-    rng = np.random.default_rng(1)
-    p = _weights(rng)
-    x = rng.normal(size=(BS, N, DIM)).astype(np.float32)
-    want = jeb.ffn_block(
-        jnp.asarray(x, dtype), jnp.asarray(p["g"]), jnp.asarray(p["b"]),
-        jnp.asarray(p["w1"]), jnp.asarray(p["b1"]), jnp.asarray(p["w2"]),
-        jnp.asarray(p["b2"]), activation="gelu", eps=1e-6, interpret=True,
+def _ffn_inputs(rng, bs, n, dim, f):
+    """x [bs, n, dim] and the FFN half's weights in the JAX layout ([in, out])."""
+    def w(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    return w(bs, n, dim), dict(g=1.0 + w(dim, scale=0.1), b=w(dim, scale=0.1),
+                               w1=w(dim, f, scale=dim**-0.5), b1=w(f, scale=0.1),
+                               w2=w(f, dim, scale=f**-0.5), b2=w(dim, scale=0.1))
+
+
+def _jax_ffn(x, p, dtype="float32"):
+    return jeb.ffn_block(
+        jnp.asarray(x, dtype), jnp.asarray(p["g"]), jnp.asarray(p["b"]), jnp.asarray(p["w1"]),
+        jnp.asarray(p["b1"]), jnp.asarray(p["w2"]), jnp.asarray(p["b2"]), activation="gelu",
+        eps=1e-6, interpret=True,
     )
+
+
+@pytest.mark.parametrize("dim", [64, 384])  # the smallest width the kernels take; DeiT-Small
+@pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+def test_ffn_block_matches_jax(dtype, rtol, atol, dim):
+    x, p = _ffn_inputs(np.random.default_rng(1), BS, N, dim, 4 * dim)
+    want = _jax_ffn(x, p, dtype)
     got = eb.ffn_block(
         _t(x).to(getattr(torch, dtype)), _t(p["g"]), _t(p["b"]), _t(p["w1"].T), _t(p["b1"]),
         _t(p["w2"].T), _t(p["b2"]), eps=1e-6,
     )
+    assert got.dtype == getattr(torch, dtype)
     np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
+
+
+def test_ffn_gelu_is_the_tpu_kernels():
+    """The plain ffn_block's gelu is the TPU kernel's (Abramowitz-Stegun erf),
+    not torch's exact erf. An FFN whose LN2 is the constant e_0 (scale 0,
+    bias e_0), W1 a column of grid points and W2 the identity returns gelu of
+    the grid exactly. Against JAX's ``_kernel_activation("gelu")`` in fp32 on
+    that grid across [-8, 8]: within 2^-22 of max(1, |x|), not bit for bit,
+    since XLA's CPU exp and torch's differ in their last bit on some points
+    (0.6-16% of a grid, by the run); the exact-erf gelu misses that bound
+    (A&S's erf is off by up to 1.5e-7)."""
+    grid = np.linspace(-8.0, 8.0, 2049, dtype=np.float32)
+    n = len(grid)
+    e0, zeros = torch.zeros(n), torch.zeros(n)
+    e0[0] = 1.0
+    w1 = torch.zeros(n, n)
+    w1[:, 0] = torch.from_numpy(grid)
+    got = eb.ffn_block_reference(torch.zeros(1, n), zeros, e0, w1, zeros, torch.eye(n), zeros)
+    got = got[0].numpy()
+    assert np.array_equal(got, mk.gelu_as(torch.from_numpy(grid)).numpy())
+    want = np.asarray(_kernel_activation("gelu")(jnp.asarray(grid)))
+    bound = 2.0**-22 * np.maximum(1.0, np.abs(grid))
+    assert bool((np.abs(got - want) <= bound).all())
+    exact = torch.nn.functional.gelu(torch.from_numpy(grid)).numpy()
+    assert bool((np.abs(exact - want) > bound).any())
+
+
+@pytest.mark.parametrize("dtype,dim,f,route", [
+    *[(torch.bfloat16, dim, 4 * dim, "tensor_core") for dim in eb._FFN_DIMS],
+    (torch.bfloat16, 192, 96, "tensor_core"),  # f past a chunk of 32 and 64
+    *[(torch.float32, dim, 4 * dim, "split_tf32") for dim in (64, 128, 192, 256)],
+    (torch.float32, 192, 100, "split_tf32"),  # fp32 takes any f
+    (torch.float32, 384, 1536, "fma"),  # the split planes do not fit at DeiT-Small's width
+])
+def test_ffn_block_route(dtype, dim, f, route):
+    """The kernel an ffn_block launch takes: bf16 the tensor cores at every
+    width, fp32 the split TF32 up to 256 and the FMA kernel at 384."""
+    assert eb.ffn_block_route(dtype, dim, f) == route
+
+
+@pytest.mark.parametrize("dtype,dim,f,error,what", [
+    (torch.float16, 192, 768, TypeError, "float16"),
+    (torch.bfloat16, 96, 384, ValueError, "width in"),
+    (torch.float32, 96, 384, ValueError, "width in"),
+    (torch.bfloat16, 192, 100, ValueError, "multiple of 8"),
+    (torch.bfloat16, 192, 0, ValueError, ">= 1"),
+])
+def test_ffn_block_route_rejects(dtype, dim, f, error, what):
+    """No quiet fallback: what no ffn_block kernel takes raises."""
+    with pytest.raises(error, match=what):
+        eb.ffn_block_route(dtype, dim, f)
+
+
+def _split(t):
+    hi = _tf32(t)
+    return hi, _tf32(t - hi)
+
+
+def _ffn_emulated(x, p, products):
+    """fp32 ffn_block with each product formed as the kernel forms it, summed
+    in fp64 and rounded once to fp32: "split" (3xTF32: x_lo w_hi + x_hi w_lo
+    + x_hi w_hi) or "tf32" (one product of TF32-rounded operands)."""
+    def matmul(a, w):  # a [rows, k] times w [k, n], both fp32
+        if products == "tf32":
+            return (_tf32(a).double() @ _tf32(w).double()).float()
+        (ah, al), (wh, wl) = _split(a), _split(w)
+        return (al.double() @ wh.double() + ah.double() @ wl.double()
+                + ah.double() @ wh.double()).float()
+
+    xt = _t(x).reshape(-1, x.shape[-1])
+    ln = eb.layer_norm(xt, _t(p["g"]), _t(p["b"]), 1e-6)
+    a = mk.gelu_as(matmul(ln, _t(p["w1"])) + _t(p["b1"]))
+    return (xt + (matmul(a, _t(p["w2"])) + _t(p["b2"]))).reshape(x.shape)
+
+
+@pytest.fixture(scope="module")
+def serving_ffn():
+    """One serving item ([2, 197, 192], f 768) and the JAX fp32 ffn_block on it."""
+    x, p = _ffn_inputs(np.random.default_rng(4), 2, 197, 192, 768)
+    return x, p, np.asarray(_jax_ffn(x, p))
+
+
+def test_split_tf32_ffn_holds_the_jax_fp32_ffn_block(serving_ffn):
+    """The split-TF32 route's arithmetic within 1e-5 of max of JAX's fp32
+    ffn_block at the serving width: the split costs about fp32's accuracy."""
+    x, p, want = serving_ffn
+    got = _ffn_emulated(x, p, "split").numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_one_tf32_product_misses_the_fp32_bound(serving_ffn):
+    """Why the split: one TF32 product a product (10-bit mantissa) misses the
+    bound the split holds."""
+    x, p, want = serving_ffn
+    got = _ffn_emulated(x, p, "tf32").numpy()
+    assert np.abs(got - want).max() > 1e-5 * np.abs(want).max()
 
 
 def test_wrappers_refuse_non_cuda_devices():

@@ -86,16 +86,27 @@ def test_attn_block_kernel(dev, dtype, tol, bs, n, dim, heads):
 
 
 @pytest.mark.parametrize("dtype,tol", TOLS)
-@pytest.mark.parametrize("rows,dim,f", [(45, 64, 96), (2 * 197, 192, 768)])
+@pytest.mark.parametrize("rows,dim,f", [
+    (45, 64, 96), (2 * 197, 192, 768),
+    (70, 128, 96),  # f past a hidden chunk of 32
+    (1000, 256, 1024),  # rows past a row tile of 64 (bf16) and 32 (fp32 at 256)
+    (2 * 197, 384, 1536),  # DeiT-Small: 32 rows a bf16 block; fp32 takes the FMA kernel
+])
 def test_ffn_block_kernel(dev, dtype, tol, rows, dim, f):
+    """bf16 takes the tensor-core kernel, fp32 the split-TF32 kernel up to
+    width 256 (both counted by tc_launches) and the FMA kernel at 384."""
     g = torch.Generator().manual_seed(1)
     args = (
         _rnd(g, dev, 1, rows, dim).to(dtype), 1 + _rnd(g, dev, dim, scale=0.1),
         _rnd(g, dev, dim, scale=0.1), _rnd(g, dev, f, dim, scale=dim**-0.5),
         _rnd(g, dev, f, scale=0.1), _rnd(g, dev, dim, f, scale=f**-0.5), _rnd(g, dev, dim, scale=0.1),
     )
+    before = (eb.ffn_block.launches, eb.ffn_block.tc_launches)
     got = eb.ffn_block(*args)
     torch.cuda.synchronize()
+    tc = int(eb.ffn_block_route(dtype, dim, f) != "fma")
+    assert (eb.ffn_block.launches, eb.ffn_block.tc_launches) == (before[0] + 1, before[1] + tc)
+    assert tc == int(dtype == torch.bfloat16 or dim < 384)
     assert got.dtype == dtype
     assert _rel(got, eb.ffn_block_reference(*args)) <= tol
 
