@@ -31,8 +31,7 @@
 //   * ffn_block: bf16 ffn_tc_kernel (mma.sync m16n8k16, the fused_mlp
 //     forward's chunk loop of ffn.cuh behind an LN2 prologue); fp32
 //     ffn_tf32_kernel (mma.sync m16n8k8 .tf32 by the 3xTF32 split, which
-//     keeps about fp32's accuracy) at widths 64-256, and the FMA ffn_kernel
-//     at 384, where the split planes do not fit a block's shared memory.
+//     keeps about fp32's accuracy).
 //
 // Numerics follow the TPU kernels: LN statistics in fp32 (E[x^2] - E[x]^2),
 // every product accumulated in fp32 and rounded once to T, bias added in T
@@ -228,70 +227,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// FFN half, fp32 at width 384 (ffn_block_route's "fma"): the TF32 planes of
-// 64 or 32 rows and a double-buffered weight chunk do not fit a block's
-// shared memory at that width, so products are fp32 FMA on shared-memory
-// tiles: one launch per 32-row tile, LN2 into shared memory, then the
-// hidden width in chunks of 64: fc1 + bias + gelu into shared memory, and
-// the fc2 partial sums accumulate in registers.
-//   out[r] = x[r] + ((gelu(LN(x[r]) W1^T + b1) W2^T) + b2)
-// ---------------------------------------------------------------------------
-constexpr int kFfnBM = 32, kFfnFC = 64, kFc1KC = 32, kFc2KC = 16;
-
-__host__ __device__ inline size_t ffn_smem_floats(int dim) {
-  const size_t fc1 = (size_t)kFc1KC * (kFfnFC + 1), fc2 = (size_t)kFc2KC * (dim + 1);
-  return (size_t)kFfnBM * dim + (size_t)kFfnBM * kFfnFC + (fc1 > fc2 ? fc1 : fc2);
-}
-
-// TN2 = dim / 32 output columns per thread of the fc2 accumulator ([32, dim]
-// over 8 x 32 threads, 4 rows each).
-template <int TN2>
-__global__ void __launch_bounds__(kThreads)
-    ffn_kernel(const float* __restrict__ x, const float* __restrict__ ln_scale,
-               const float* __restrict__ ln_bias, const float* __restrict__ w1,
-               const float* __restrict__ b1, const float* __restrict__ w2,
-               const float* __restrict__ b2, float* __restrict__ out, int rows, int f,
-               float eps) {
-  constexpr int dim = 32 * TN2;
-  extern __shared__ float smem[];
-  float* xs = smem;                 // [BM][dim]
-  float* hs = xs + kFfnBM * dim;    // [BM][FC] hidden chunk after gelu
-  float* bs = hs + kFfnBM * kFfnFC; // weight chunks
-  const long row0 = (long)blockIdx.x * kFfnBM;
-  const int rows_here = min(kFfnBM, rows - (int)row0);
-  layernorm_rows<float, kFfnBM>(x, row0, rows_here, dim, ln_scale, ln_bias, eps, xs);
-
-  constexpr int TM1 = 2, TN1 = 4, TM2 = 4;
-  const int tx1 = threadIdx.x % (kFfnFC / TN1), ty1 = threadIdx.x / (kFfnFC / TN1);
-  float acc2[TM2][TN2] = {};
-  for (int f0 = 0; f0 < f; f0 += kFfnFC) {
-    float acc1[TM1][TN1] = {};
-    gemm_smem_a<float, kFfnBM, kFfnFC, TM1, TN1, kFc1KC>(xs, dim, w1, dim, dim, f0, f, bs, acc1);
-#pragma unroll
-    for (int i = 0; i < TM1; ++i)
-#pragma unroll
-      for (int j = 0; j < TN1; ++j) {
-        const int c = tx1 * TN1 + j;
-        hs[(ty1 * TM1 + i) * kFfnFC + c] = f0 + c < f ? gelu_as(acc1[i][j] + b1[f0 + c]) : 0.f;
-      }
-    gemm_smem_a<float, kFfnBM, dim, TM2, TN2, kFc2KC>(hs, kFfnFC, w2 + f0, f,
-                                                      min(kFfnFC, f - f0), 0, dim, bs, acc2);
-  }
-  const int tx2 = threadIdx.x % 32, ty2 = threadIdx.x / 32;
-#pragma unroll
-  for (int i = 0; i < TM2; ++i) {
-    const int r = ty2 * TM2 + i;
-    if (r >= rows_here) continue;
-#pragma unroll
-    for (int j = 0; j < TN2; ++j) {
-      const int c = tx2 * TN2 + j;
-      const long o = (row0 + r) * dim + c;
-      out[o] = x[o] + (acc2[i][j] + b2[c]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // FFN half, bf16 (ffn_block_route's "tensor_core"): ffn_tc_kernel, mma.sync
 // m16n8k16 through ffn.cuh's chunk loop (the fused_mlp forward's), one
 // block of 8 warps per RT rows. The prologue is LN2 of the block's rows,
@@ -345,38 +280,53 @@ __global__ void __launch_bounds__(kThreads, DIM <= 192 ? 2 : 1)
 }
 
 // ---------------------------------------------------------------------------
-// FFN half, fp32 at widths 64-256 (ffn_block_route's "split_tf32"):
-// ffn_tf32_kernel, mma.sync m16n8k8 .tf32 by the 3xTF32 split (common.cuh),
-// the layout of ffn_tc_kernel: 8 warps over RT rows (64 up to width 192, 32
-// at 256), the hidden width in chunks of 32. LN2(x), each W1 and W2 chunk
-// and the chunk's gelu output are split into hi and lo planes once per
-// element, as they are stored into shared memory. The planes take twice
-// bf16's room, so the weights are double-buffered in registers, not in
-// shared memory: chunk c + 1's 16-byte (W1) and 4-byte (W2, any f) loads
-// are in flight while chunk c is multiplied, then split into the one stage
-// (at width 256 W2's are issued as the stage is written: ahead, they spill).
+// FFN half, fp32 (ffn_block_route's "split_tf32"): ffn_tf32_kernel,
+// mma.sync m16n8k8 .tf32 by the 3xTF32 split (common.cuh), the output layout
+// of ffn_tc_kernel: 8 warps over RT rows, the hidden width in chunks of CH
+// (kFfnTf32Rows, kFfnTf32Chunk below). LN2(x), each W1 and W2 chunk and the
+// chunk's gelu output are split into hi and lo planes once per element, as
+// they are stored into shared memory. The planes take twice bf16's room, so
+// the weights are double-buffered in registers, not in shared memory: chunk
+// c + 1's 16-byte (W1) and 4-byte (W2, any f) loads are in flight while chunk
+// c is multiplied, then split into the one stage (where that would hold more
+// than 48 registers a thread, as at width 256, W2's are issued as the stage
+// is written: ahead, they spill).
 // Sums: the tensor cores add into an fp32 fragment with truncation, so a
 // fragment chained over all of k (288 mma at width 192) drifts to ~10x the
-// FMA kernel's error; every 32 of k is summed in a zeroed fragment and added
+// error of fp32 FMA sums; every 32 of k is summed in a zeroed fragment and added
 // to the running sum in fp32, which also makes the mma chains short and
 // independent.
-// At width 192: 64 rows of LN2(x) planes (100 KB), a W1 and a W2 chunk (49 +
-// 54 KB) and the activation (18 KB), one block an SM.
+// Shared memory: at width 192, 64 rows of LN2(x) planes (100 KB), a W1 and a
+// W2 chunk (49 + 54 KB) and the activation (18 KB); at 384, 32 rows (99 KB)
+// and chunks of 16 (50 + 61 KB, activation 5 KB): chunks of 32 would take
+// 318 KB. With a chunk of 16 fc1 has 4 tiles of 16 x 8 for 8 warps, so two
+// warps split each tile's k and one adds the other's half through shared
+// memory (2.5 KB) before gelu. One block an SM.
 //   out = x + ((gelu(LN2(x) W1^T + b1) W2^T) + b2), all in fp32
 // ---------------------------------------------------------------------------
 template <int DIM>
 constexpr int kFfnTf32Rows = DIM <= 192 ? 64 : 32;
+template <int DIM>
+constexpr int kFfnTf32Chunk = DIM <= 256 ? 32 : 16;
 
 template <int DIM>
 struct FfnTf32Smem {
-  static constexpr int kRows = kFfnTf32Rows<DIM>;
+  static constexpr int kRows = kFfnTf32Rows<DIM>, kChunk = kFfnTf32Chunk<DIM>;
   static constexpr int kPitch = DIM + 4;          // words; rows 16 bytes past 128-byte lines
-  static constexpr int kActPitch = kFfnChunk + 4;
+  static constexpr int kActPitch = kChunk + 4;
   static constexpr int kA = kRows * kPitch;       // one plane of LN2(x)
-  static constexpr int kW1 = kFfnChunk * kPitch;  // one plane of a W1 chunk [32][DIM]
-  static constexpr int kW2 = DIM * kActPitch;     // one plane of a W2 chunk [DIM][32]
+  static constexpr int kW1 = kChunk * kPitch;     // one plane of a W1 chunk [CH][DIM]
+  static constexpr int kW2 = DIM * kActPitch;     // one plane of a W2 chunk [DIM][CH]
   static constexpr int kAct = kRows * kActPitch;  // one plane of the chunk's gelu
-  static constexpr size_t kBytes = sizeof(uint32_t) * 2 * (kA + kW1 + kW2 + kAct);
+  // the fc1 layout: n8 tiles a warp (2 or 1) and warps over one tile's k
+  static constexpr int kWC = FfnTcLayout<DIM, kRows>::kWC, kTiles = kChunk / 8;
+  static constexpr int kKSplit = kWC > kTiles ? kWC / kTiles : 1;
+  static constexpr int kFc1Tiles = kTiles * kKSplit / kWC;
+  static constexpr int kPart = kKSplit > 1 ? kAct : 0;  // fc1's other half of k, fp32
+  static constexpr size_t kBytes = sizeof(uint32_t) * (2 * (kA + kW1 + kW2 + kAct) + kPart);
+  static_assert(kKSplit <= 2 && (kFc1Tiles == 1 || kFc1Tiles == 2), "fc1 layout");
+  static_assert(kFc1Tiles == 2 ? kKSplit == 1 : DIM / kKSplit % 32 == 0, "fc1 steps k by 32");
+  static_assert(kChunk * DIM / 4 % kThreads == 0, "W1 chunk in whole 16-byte loads a thread");
 };
 
 template <int DIM>
@@ -386,14 +336,15 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const float* __restrict__ b1, const float* __restrict__ w2,
                     const float* __restrict__ b2, float* __restrict__ out, int rows, int f) {
   using S = FfnTf32Smem<DIM>;
-  constexpr int RT = S::kRows, P = S::kPitch, AP = S::kActPitch;
+  constexpr int RT = S::kRows, CH = S::kChunk, P = S::kPitch, AP = S::kActPitch;
   using L = FfnTcLayout<DIM, RT>;
-  constexpr int NT1 = L::kFc1Tiles;
-  constexpr int kW1Vecs = kFfnChunk * DIM / 4 / kThreads;  // 16-byte loads a thread
-  constexpr int kW2Vals = DIM * kFfnChunk / kThreads;      // 4-byte loads a thread
-  // W2's values loaded a chunk ahead too, up to width 192; at 256 they would
-  // take the registers past 255 (ptxas spills), so they are loaded as stored
-  constexpr bool kW2Ahead = DIM <= 192;
+  constexpr int NT1 = S::kFc1Tiles, KS = S::kKSplit;
+  constexpr int kW1Vecs = CH * DIM / 4 / kThreads;  // 16-byte loads a thread
+  constexpr int kW2Vals = DIM * CH / kThreads;      // 4-byte loads a thread
+  // W2's values loaded a chunk ahead too where the weights in flight stay
+  // within 48 registers; past that (width 256) the registers pass 255 and
+  // ptxas spills, so they are loaded as stored
+  constexpr bool kW2Ahead = 4 * kW1Vecs + kW2Vals <= 48;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint32_t* a_hi = reinterpret_cast<uint32_t*>(smem_raw);  // the planes, hi then lo
   uint32_t* a_lo = a_hi + S::kA;
@@ -403,20 +354,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint32_t* w2_lo = w2_hi + S::kW2;
   uint32_t* act_hi = w2_lo + S::kW2;
   uint32_t* act_lo = act_hi + S::kAct;
+  float* part = reinterpret_cast<float*>(act_lo + S::kAct);  // [RT][AP] with a k split
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wr = warp / L::kWC, wc = warp % L::kWC;
+  // fc1: this warp's n8 tiles g NT1.. of the chunk over the kq-th 1/KS of k
+  const int g = wc % (L::kWC / KS), kq = wc / (L::kWC / KS);
   const long row0 = (long)blockIdx.x * RT;
-  const int chunks = (f + kFfnChunk - 1) / kFfnChunk;
+  const int chunks = (f + CH - 1) / CH;
 
   uint4 w1v[kW1Vecs];
   float w2v[kW2Ahead ? kW2Vals : 1];
   auto w2_value = [&](int c, int j) {  // value j of this thread in chunk c's W2, 0 past f
-    const int idx = threadIdx.x + j * kThreads, n = idx / kFfnChunk, k = idx % kFfnChunk;
-    const int col = c * kFfnChunk + k;
+    const int idx = threadIdx.x + j * kThreads, n = idx / CH, k = idx % CH;
+    const int col = c * CH + k;
     return col < f ? __ldg(w2 + (long)n * f + col) : 0.f;
   };
   auto load = [&](int c) {  // chunk c's weights into registers, zero past f
-    const int f0 = c * kFfnChunk;
+    const int f0 = c * CH;
 #pragma unroll
     for (int j = 0; j < kW1Vecs; ++j) {
       const int idx = threadIdx.x + j * kThreads, r = idx / (DIM / 4), q = idx % (DIM / 4);
@@ -439,7 +393,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       *reinterpret_cast<uint4*>(w1_lo + r * P + 4 * q) = lo;
     }
     auto w2_put = [&](int j, float v) {
-      const int idx = threadIdx.x + j * kThreads, n = idx / kFfnChunk, k = idx % kFfnChunk;
+      const int idx = threadIdx.x + j * kThreads, n = idx / CH, k = idx % CH;
       tf32_split(v, w2_hi[n * AP + k], w2_lo[n * AP + k]);
     };
     if constexpr (kW2Ahead) {
@@ -462,15 +416,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   float oacc[L::kOutTiles][4] = {};
   for (int c = 0; c < chunks; ++c) {
     if (c + 1 < chunks) load(c + 1);  // in flight while the tensor cores work
-    const int f0 = c * kFfnChunk;
+    const int f0 = c * CH;
 
-    // h = LN2(x) W1^T for rows 16 wr.., chunk columns 8 NT1 wc..: each 32
-    // of k summed in a zeroed fragment (12 chained mma), then added in fp32
+    // h = LN2(x) W1^T for rows 16 wr.., chunk columns 8 NT1 g..: each 32 of
+    // k summed in a zeroed fragment (12 chained mma), then added in fp32
     // (round to nearest): the tensor cores' accumulation truncates, and one
     // fragment chained over all of k drifts by ~10x fp32's error
     float hacc[NT1][4] = {};
 #pragma unroll 2
-    for (int kg = 0; kg < DIM / 32; ++kg) {
+    for (int kg = 0; kg < DIM / KS / 32; ++kg) {
       float t[NT1][4] = {};
       if constexpr (NT1 == 2) {
 #pragma unroll
@@ -479,18 +433,18 @@ __global__ void __launch_bounds__(kThreads, 1)
           uint32_t ah[4], al[4], bh[4], bl[4];
           ldsm_a(ah, h16(a_hi), 2 * P, wr * 16, k0, lane);
           ldsm_a(al, h16(a_lo), 2 * P, wr * 16, k0, lane);
-          ldsm_b_nk(bh, h16(w1_hi), 2 * P, wc * 16, k0, lane);
-          ldsm_b_nk(bl, h16(w1_lo), 2 * P, wc * 16, k0, lane);
+          ldsm_b_nk(bh, h16(w1_hi), 2 * P, g * 16, k0, lane);
+          ldsm_b_nk(bl, h16(w1_lo), 2 * P, g * 16, k0, lane);
           mma1688_split(t[0], ah, al, bh[0], bh[1], bl[0], bl[1]);
           mma1688_split(t[1], ah, al, bh[2], bh[3], bl[2], bl[3]);
         }
       } else {
 #pragma unroll
         for (int kp = 0; kp < 2; ++kp) {
-          const int k0 = (kg * 2 + kp) * 32;  // in bf16 units: 16 of k
+          const int k0 = 2 * kq * (DIM / KS) + (kg * 2 + kp) * 32;  // in bf16 units: 16 of k
           uint32_t bh[4], bl[4];
-          ldsm_b_nk_k32(bh, h16(w1_hi), 2 * P, wc * 8, k0, lane);
-          ldsm_b_nk_k32(bl, h16(w1_lo), 2 * P, wc * 8, k0, lane);
+          ldsm_b_nk_k32(bh, h16(w1_hi), 2 * P, g * 8, k0, lane);
+          ldsm_b_nk_k32(bl, h16(w1_lo), 2 * P, g * 8, k0, lane);
 #pragma unroll
           for (int s = 0; s < 2; ++s) {
             uint32_t ah[4], al[4];
@@ -505,35 +459,56 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e) hacc[nt][e] += t[nt][e];
     }
-    // a = gelu(h + b1) in fp32, split into the activation planes
+    auto frag_coord = [&](int nt, int half) {  // (row, chunk column) of fc1 fragment values
+      return make_int2(wr * 16 + (lane >> 2) + half * 8, g * (NT1 * 8) + nt * 8 + (lane & 3) * 2);
+    };
+    if constexpr (KS > 1) {  // the second half of k's sums to the first: fixed order
+      if (kq == 1) {
 #pragma unroll
-    for (int nt = 0; nt < NT1; ++nt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = wr * 16 + (lane >> 2) + half * 8;
-        const int cc = wc * (NT1 * 8) + nt * 8 + (lane & 3) * 2;
-        uint2 hi, lo;
-        tf32_split(f0 + cc < f ? gelu_as(hacc[nt][half * 2] + b1[f0 + cc]) : 0.f, hi.x, lo.x);
-        tf32_split(f0 + cc + 1 < f ? gelu_as(hacc[nt][half * 2 + 1] + b1[f0 + cc + 1]) : 0.f,
-                   hi.y, lo.y);
-        *reinterpret_cast<uint2*>(act_hi + r * AP + cc) = hi;
-        *reinterpret_cast<uint2*>(act_lo + r * AP + cc) = lo;
+        for (int half = 0; half < 2; ++half) {
+          const int2 rc = frag_coord(0, half);
+          *reinterpret_cast<float2*>(part + rc.x * AP + rc.y) =
+              make_float2(hacc[0][half * 2], hacc[0][half * 2 + 1]);
+        }
       }
+      __syncthreads();
+    }
+    // a = gelu(h + b1) in fp32, split into the activation planes
+    if (kq == 0) {
+#pragma unroll
+      for (int nt = 0; nt < NT1; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int2 rc = frag_coord(nt, half);
+          const int r = rc.x, cc = rc.y;
+          float h0 = hacc[nt][half * 2], h1 = hacc[nt][half * 2 + 1];
+          if constexpr (KS > 1) {
+            const float2 o = *reinterpret_cast<const float2*>(part + r * AP + cc);
+            h0 += o.x;
+            h1 += o.y;
+          }
+          uint2 hi, lo;
+          tf32_split(f0 + cc < f ? gelu_as(h0 + b1[f0 + cc]) : 0.f, hi.x, lo.x);
+          tf32_split(f0 + cc + 1 < f ? gelu_as(h1 + b1[f0 + cc + 1]) : 0.f, hi.y, lo.y);
+          *reinterpret_cast<uint2*>(act_hi + r * AP + cc) = hi;
+          *reinterpret_cast<uint2*>(act_lo + r * AP + cc) = lo;
+        }
+    }
     __syncthreads();
 
-    // out += a W2^T over the chunk (32 of k): rows 16 wr.., columns wc
+    // out += a W2^T over the chunk (CH of k): rows 16 wr.., columns wc
     // DIM / WC..; each output tile's chunk summed in a zeroed fragment, then
     // added in fp32, as fc1's
-    uint32_t ah[kFfnChunk / 8][4], al[kFfnChunk / 8][4];
+    uint32_t ah[CH / 8][4], al[CH / 8][4];
 #pragma unroll
-    for (int ks = 0; ks < kFfnChunk / 8; ++ks) {
+    for (int ks = 0; ks < CH / 8; ++ks) {
       ldsm_a(ah[ks], h16(act_hi), 2 * AP, wr * 16, ks * 16, lane);
       ldsm_a(al[ks], h16(act_lo), 2 * AP, wr * 16, ks * 16, lane);
     }
     auto fc2_tiles = [&](int nb) {  // output tiles 2 nb and 2 nb + 1
       float t[2][4] = {};
 #pragma unroll
-      for (int ks = 0; ks < kFfnChunk / 8; ++ks) {
+      for (int ks = 0; ks < CH / 8; ++ks) {
         uint32_t bh[4], bl[4];
         ldsm_b_nk(bh, h16(w2_hi), 2 * AP, wc * L::kOutCols + nb * 16, ks * 16, lane);
         ldsm_b_nk(bl, h16(w2_lo), 2 * AP, wc * L::kOutCols + nb * 16, ks * 16, lane);
@@ -546,7 +521,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         oacc[2 * nb + 1][e] += t[1][e];
       }
     };
-    if constexpr (DIM > 192) {  // at 256 the weights in flight take 64 registers: no unroll
+    // 64 registers of weights in flight (width 256): no unroll, so oacc,
+    // indexed at run time, sits in local memory (a 128-byte stack frame)
+    if constexpr (!kW2Ahead) {
 #pragma unroll 1
       for (int nb = 0; nb < L::kOutTiles / 2; ++nb) fc2_tiles(nb);
     } else {
@@ -747,19 +724,6 @@ cudaError_t ffn_tf32_launch(const void* x, const void* g, const void* be, const 
                                                  g, be, w1, b1, w2, b2, out, rows, f, eps, s);
 }
 
-cudaError_t ffn_fma_launch(const void* x, const void* g, const void* be, const void* w1,
-                           const void* b1, const void* w2, const void* b2, void* out, int rows,
-                           int f, float eps, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * ffn_smem_floats(384);
-  cudaError_t err = allow_smem(ffn_kernel<12>, bytes);
-  if (err != cudaSuccess) return err;
-  ffn_kernel<12><<<(rows + kFfnBM - 1) / kFfnBM, kThreads, bytes, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(g), static_cast<const float*>(be),
-      static_cast<const float*>(w1), static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), static_cast<float*>(out), rows, f, eps);
-  return cudaGetLastError();
-}
-
 // bf16 by the tensor cores, f a multiple of 8
 cudaError_t ffn_block_tc(const void* x, const void* g, const void* be, const void* w1,
                          const void* b1, const void* w2, const void* b2, void* out, int rows,
@@ -775,7 +739,7 @@ cudaError_t ffn_block_tc(const void* x, const void* g, const void* be, const voi
   }
 }
 
-// fp32: the split TF32 up to width 256, FMA at 384
+// fp32 by the split TF32
 cudaError_t ffn_block_fp32(const void* x, const void* g, const void* be, const void* w1,
                            const void* b1, const void* w2, const void* b2, void* out, int rows,
                            int dim, int f, float eps, cudaStream_t s) {
@@ -784,7 +748,7 @@ cudaError_t ffn_block_fp32(const void* x, const void* g, const void* be, const v
     case 128: return ffn_tf32_launch<128>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
     case 192: return ffn_tf32_launch<192>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
     case 256: return ffn_tf32_launch<256>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
-    case 384: return ffn_fma_launch(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
+    case 384: return ffn_tf32_launch<384>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -811,9 +775,9 @@ int sn_attn_block(int dtype, const void* x, const void* ln_scale, const void* ln
                            dim, heads, head_dim, eps, scale, s);
 }
 
-// fp32 takes the split-TF32 kernel at dim 64-256 (w1 16-byte aligned) and
-// the FMA kernel at 384; bf16 the tensor-core kernel (dim 64-384, f a
-// multiple of 8; w1 and w2 16-byte aligned).
+// dim 64-384; fp32 takes the split-TF32 kernel (x and w1 16-byte aligned),
+// bf16 the tensor-core kernel (f a multiple of 8; x, w1 and w2 16-byte
+// aligned).
 int sn_ffn_block(int dtype, const void* x, const void* ln_scale, const void* ln_bias,
                  const void* w1, const void* b1, const void* w2, const void* b2, void* out,
                  int rows, int dim, int f, float eps, void* stream) {

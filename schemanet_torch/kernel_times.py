@@ -11,7 +11,8 @@ beside a PyTorch yardstick where one is named, in bf16 unless said.
   and in fp32 (stages 1 and 3), each beside ``F.layer_norm`` + ``F.linear``
   + ``F.gelu`` + ``F.linear`` and the residual in the same dtype (fp32 with
   TF32 off): the same function by library calls, a note, not one library
-  call;
+  call; and in fp32 at DeiT-Small's width (x [64, 197, 384], f 1536), with
+  the same note;
 * the ``fused_mlp`` forward at stage 0's shape (12,608 rows, 192 -> 768 ->
   192) at p = 0.1 and p = 0, beside its two products alone by bf16
   ``torch.matmul`` (x W1^T, a W2^T on bf16 operands made beforehand): a
@@ -143,6 +144,18 @@ def measure(dev: torch.device) -> dict:
 
         out[key] = _both(lambda: eb.ffn_block(xf, ln_g, ln_b, w1f, b1f, w2f, b2f))
         out[f"{key}_torch_calls"] = _both(ffn_torch)
+    ds, fs, f32 = 384, 1536, torch.float32  # DeiT-Small, fp32
+    xs, gs = rnd(bs, n, ds, dtype=f32), 1 + rnd(ds, scale=0.1, dtype=f32)
+    bs_ = rnd(ds, scale=0.1, dtype=f32)
+    w1s, b1s = rnd(fs, ds, scale=ds**-0.5, dtype=f32), rnd(fs, scale=0.1, dtype=f32)
+    w2s, b2s = rnd(ds, fs, scale=fs**-0.5, dtype=f32), rnd(ds, scale=0.1, dtype=f32)
+
+    def ffn_torch_d384():
+        y = F.layer_norm(xs, (ds,), gs, bs_, 1e-6)
+        return xs + F.linear(F.gelu(F.linear(y, w1s, b1s)), w2s, b2s)
+
+    out["ffn_block_fp32_d384"] = _both(lambda: eb.ffn_block(xs, gs, bs_, w1s, b1s, w2s, b2s))
+    out["ffn_block_fp32_d384_torch_calls"] = _both(ffn_torch_d384)
     out["fused_mlp"] = _both(lambda: mk.fused_mlp(x2, w1, b1, w2, b2, "gelu", 0.1, SEED))
     out["fused_mlp_p0"] = _both(lambda: mk.fused_mlp(x2, w1, b1, w2, b2, "gelu", 0.0))
     out["fused_mlp_matmul_products"] = _both(lambda: (x2 @ w1.t(), act @ w2.t()))

@@ -22,8 +22,8 @@ tensor-core ones (head_dim a multiple of 16 up to 64, n <= 320), whose
 attention is ``fused_mhsa``'s kernel at p = 0. ``ffn_block_route`` picks
 ``ffn_block``'s: bf16 the tensor-core kernel (``mma`` on bf16 tiles, f a
 multiple of 8), fp32 the split-TF32 kernel (three TF32 ``mma`` products a
-product, about fp32's accuracy) up to width 256 and the FMA kernel at 384.
-gelu is the TPU kernels' (``mlp.gelu_as``, the Abramowitz-Stegun erf). Each
+product, about fp32's accuracy). gelu is the TPU kernels' (``gelu_as``, the
+Abramowitz-Stegun erf). Each
 wrapper counts its launches in a plain integer attribute
 (``attn_block.launches``, ``attn_block.hmean_launches``,
 ``attn_block.tc_launches`` for the tensor-core route, ``ffn_block.launches``,
@@ -43,6 +43,7 @@ FMA, TENSOR_CORE, SPLIT_TF32 = "fma", "tensor_core", "split_tf32"
 _FMA_MAX_HEAD_DIM = 128  # csrc/encoder_block.cu kMaxHeadDim
 _TC_MAX_TOKENS = 320  # the tensor-core attention's K and V of one head fill its shared memory
 _TC_MAX_WIDTH = 768  # csrc/encoder_block.cu kLinMaxK: a block stages 64 rows of A and W whole
+_SQRT_HALF = 0.7071067811865476
 
 
 def attn_block_route(dtype: torch.dtype, n: int, heads: int, head_dim: int) -> str:
@@ -67,6 +68,22 @@ def attn_block_route(dtype: torch.dtype, n: int, heads: int, head_dim: int) -> s
     if n > _TC_MAX_TOKENS:
         raise ValueError(f"attn_block takes n <= {_TC_MAX_TOKENS} in bfloat16, got {n}")
     return TENSOR_CORE
+
+
+def erf_as(x: torch.Tensor) -> torch.Tensor:
+    """Abramowitz & Stegun 7.1.26 rational erf of fp32 x, |error| <= 1.5e-7:
+    the erf of the TPU kernels (not ``torch.erf``)."""
+    a1, a2, a3, a4, a5 = 0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429
+    ax = torch.abs(x)
+    t = 1.0 / (1.0 + 0.3275911 * ax)
+    poly = ((((a5 * t + a4) * t + a3) * t + a2) * t + a1) * t
+    return torch.sign(x) * (1.0 - poly * torch.exp(-ax * ax))
+
+
+def gelu_as(x: torch.Tensor) -> torch.Tensor:
+    """gelu in fp32 with ``erf_as``, cast back to x.dtype."""
+    xf = x.float()
+    return (xf * 0.5 * (1.0 + erf_as(xf * _SQRT_HALF))).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
@@ -109,9 +126,7 @@ def attn_block_reference(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads, ep
 
 def ffn_block_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6):
     """Plain PyTorch version of ``ffn_block``: gelu in fp32 with the TPU
-    kernels' Abramowitz-Stegun erf (``mlp.gelu_as``), cast back."""
-    from .mlp import gelu_as  # mlp imports this module's helpers
-
+    kernels' Abramowitz-Stegun erf (``gelu_as``), cast back."""
     h = gelu_as(dense(layer_norm(x, ln_scale, ln_bias, eps), w1, b1))
     return x + dense(h, w2, b2)
 
@@ -205,18 +220,15 @@ attn_block.launches = attn_block.hmean_launches = attn_block.tc_launches = 0
 
 
 _FFN_DIMS = (64, 128, 192, 256, 384)  # csrc/encoder_block.cu instantiates these widths
-_FFN_FMA_DIMS = (384,)  # fp32: the split-TF32 planes do not fit a block's shared memory
 
 
 def ffn_block_route(dtype: torch.dtype, dim: int, f: int) -> str:
     """The kernel a CUDA launch of ``ffn_block`` takes for x of this dtype,
     width ``dim`` and hidden width ``f``: ``"tensor_core"`` (bf16: ``mma``
     on bf16 tiles, f a multiple of 8, since the weights' hidden columns are
-    copied in 16-byte chunks), ``"split_tf32"`` (fp32 up to width 256: each
-    product as three TF32 ``mma`` products of split operands, about fp32's
-    accuracy) or ``"fma"`` (fp32 at width 384, where the split operands of a
-    row tile and a weight chunk do not fit a block's shared memory). Raises
-    on what none takes."""
+    copied in 16-byte chunks) or ``"split_tf32"`` (fp32: each product as
+    three TF32 ``mma`` products of split operands, about fp32's accuracy).
+    Raises on what neither takes."""
     if dtype not in _DTYPES:
         raise TypeError(f"ffn_block takes float32 or bfloat16, got {dtype}")
     if dim not in _FFN_DIMS:
@@ -224,7 +236,7 @@ def ffn_block_route(dtype: torch.dtype, dim: int, f: int) -> str:
     if f < 1:
         raise ValueError(f"ffn_block takes a hidden width >= 1, got {f}")
     if dtype == torch.float32:
-        return FMA if dim in _FFN_FMA_DIMS else SPLIT_TF32
+        return SPLIT_TF32
     if f % 8:
         raise ValueError(f"ffn_block takes a bfloat16 hidden width that is a multiple of 8, "
                          f"got {f}")
@@ -247,7 +259,7 @@ def ffn_block(
     _require_cuda("x", x)
     dim = x.shape[-1]
     f = w1.shape[0]
-    route = ffn_block_route(x.dtype, dim, f)
+    ffn_block_route(x.dtype, dim, f)  # raises on what no kernel takes
     dt = x.dtype
     w1, b1, w2, b2 = (t.to(dt).contiguous() for t in (w1, b1, w2, b2))
     ln_scale, ln_bias = ln_scale.float().contiguous(), ln_bias.float().contiguous()
@@ -258,7 +270,7 @@ def ffn_block(
     _check("b1", b1, dt, (f,))
     _check("w2", w2, dt, (dim, f))
     _check("b2", b2, dt, (dim,))
-    if route != FMA and any(t.data_ptr() % 16 for t in (x, w1, w2)):
+    if any(t.data_ptr() % 16 for t in (x, w1, w2)):
         raise ValueError("ffn_block: the tensor-core kernels load 16-byte chunks; x or a weight is "
                          "not 16-byte aligned")
     rows = x.numel() // dim
@@ -270,8 +282,7 @@ def ffn_block(
     )
     _build.check(err, "ffn_block")
     ffn_block.launches += 1
-    if route != FMA:
-        ffn_block.tc_launches += 1
+    ffn_block.tc_launches += 1  # both routes run on the tensor cores
     return out
 
 

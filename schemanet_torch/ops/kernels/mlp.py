@@ -42,7 +42,7 @@ import torch
 
 from . import _build
 from .dropmask import hash_keep_mask, kernel_dropout_args, keep_scale
-from .encoder_block import _DTYPES, _check, _require_cuda, _stream
+from .encoder_block import _DTYPES, _SQRT_HALF, _check, _require_cuda, _stream, erf_as, gelu_as
 
 _DIMS = (64, 128, 192, 256)  # csrc/mlp.cu instantiates these widths
 _SPLITS = 24  # row splits of the FMA weight-gradient kernel: ~2 blocks per SM at f = 768
@@ -51,23 +51,7 @@ _ROW_TILE = 32  # csrc/mlp.cu kMlpBM
 # stage-0 shape, ~3 blocks an SM; its rows go in steps of 32 (csrc/mlp.cu kWgK)
 _TC_SPLITS, _TC_ROW_STEP = 12, 32
 FMA, TENSOR_CORE = "fma", "tensor_core"
-_SQRT_HALF, _INV_SQRT_2PI = 0.7071067811865476, 0.3989422804014327
-
-
-def erf_as(x: torch.Tensor) -> torch.Tensor:
-    """Abramowitz & Stegun 7.1.26 rational erf of fp32 x, |error| <= 1.5e-7:
-    the erf of the TPU kernels (not ``torch.erf``)."""
-    a1, a2, a3, a4, a5 = 0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429
-    ax = torch.abs(x)
-    t = 1.0 / (1.0 + 0.3275911 * ax)
-    poly = ((((a5 * t + a4) * t + a3) * t + a2) * t + a1) * t
-    return torch.sign(x) * (1.0 - poly * torch.exp(-ax * ax))
-
-
-def gelu_as(x: torch.Tensor) -> torch.Tensor:
-    """gelu in fp32 with ``erf_as``, cast back to x.dtype."""
-    xf = x.float()
-    return (xf * 0.5 * (1.0 + erf_as(xf * _SQRT_HALF))).to(x.dtype)
+_INV_SQRT_2PI = 0.3989422804014327
 
 
 def gelu_as_grad(x: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,6 @@ import pytest
 import torch
 
 from schemanet_torch.ops.kernels import encoder_block as eb
-from schemanet_torch.ops.kernels import mlp as mk
 from schemanet_tpu.ops.pallas import encoder_block as jeb
 from schemanet_tpu.ops.pallas.mlp import _kernel_activation
 from tests.test_torch_vq import _tf32
@@ -115,7 +114,7 @@ def test_ffn_gelu_is_the_tpu_kernels():
     w1[:, 0] = torch.from_numpy(grid)
     got = eb.ffn_block_reference(torch.zeros(1, n), zeros, e0, w1, zeros, torch.eye(n), zeros)
     got = got[0].numpy()
-    assert np.array_equal(got, mk.gelu_as(torch.from_numpy(grid)).numpy())
+    assert np.array_equal(got, eb.gelu_as(torch.from_numpy(grid)).numpy())
     want = np.asarray(_kernel_activation("gelu")(jnp.asarray(grid)))
     bound = 2.0**-22 * np.maximum(1.0, np.abs(grid))
     assert bool((np.abs(got - want) <= bound).all())
@@ -128,11 +127,11 @@ def test_ffn_gelu_is_the_tpu_kernels():
     (torch.bfloat16, 192, 96, "tensor_core"),  # f past a chunk of 32 and 64
     *[(torch.float32, dim, 4 * dim, "split_tf32") for dim in (64, 128, 192, 256)],
     (torch.float32, 192, 100, "split_tf32"),  # fp32 takes any f
-    (torch.float32, 384, 1536, "fma"),  # the split planes do not fit at DeiT-Small's width
+    (torch.float32, 384, 1536, "split_tf32"),  # DeiT-Small: hidden chunks of 16
 ])
 def test_ffn_block_route(dtype, dim, f, route):
-    """The kernel an ffn_block launch takes: bf16 the tensor cores at every
-    width, fp32 the split TF32 up to 256 and the FMA kernel at 384."""
+    """The kernel an ffn_block launch takes: bf16 the tensor cores, fp32 the
+    split TF32, at every width."""
     assert eb.ffn_block_route(dtype, dim, f) == route
 
 
@@ -167,7 +166,7 @@ def _ffn_emulated(x, p, products):
 
     xt = _t(x).reshape(-1, x.shape[-1])
     ln = eb.layer_norm(xt, _t(p["g"]), _t(p["b"]), 1e-6)
-    a = mk.gelu_as(matmul(ln, _t(p["w1"])) + _t(p["b1"]))
+    a = eb.gelu_as(matmul(ln, _t(p["w1"])) + _t(p["b1"]))
     return (xt + (matmul(a, _t(p["w2"])) + _t(p["b2"]))).reshape(x.shape)
 
 
@@ -182,6 +181,15 @@ def test_split_tf32_ffn_holds_the_jax_fp32_ffn_block(serving_ffn):
     """The split-TF32 route's arithmetic within 1e-5 of max of JAX's fp32
     ffn_block at the serving width: the split costs about fp32's accuracy."""
     x, p, want = serving_ffn
+    got = _ffn_emulated(x, p, "split").numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_split_tf32_ffn_holds_at_deit_small_width():
+    """The same at DeiT-Small's width (one item, [1, 197, 384], f 1536),
+    which the split-TF32 kernel takes in hidden chunks of 16."""
+    x, p = _ffn_inputs(np.random.default_rng(5), 1, 197, 384, 1536)
+    want = np.asarray(_jax_ffn(x, p))
     got = _ffn_emulated(x, p, "split").numpy()
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 

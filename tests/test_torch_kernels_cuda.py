@@ -90,11 +90,12 @@ def test_attn_block_kernel(dev, dtype, tol, bs, n, dim, heads):
     (45, 64, 96), (2 * 197, 192, 768),
     (70, 128, 96),  # f past a hidden chunk of 32
     (1000, 256, 1024),  # rows past a row tile of 64 (bf16) and 32 (fp32 at 256)
-    (2 * 197, 384, 1536),  # DeiT-Small: 32 rows a bf16 block; fp32 takes the FMA kernel
+    (2 * 197, 384, 1536),  # DeiT-Small: 32 rows a block; fp32 in hidden chunks of 16
+    (45, 384, 104),  # f past a hidden chunk of 16 (fp32 at 384)
 ])
 def test_ffn_block_kernel(dev, dtype, tol, rows, dim, f):
-    """bf16 takes the tensor-core kernel, fp32 the split-TF32 kernel up to
-    width 256 (both counted by tc_launches) and the FMA kernel at 384."""
+    """bf16 takes the tensor-core kernel, fp32 the split-TF32 kernel, both
+    counted by tc_launches."""
     g = torch.Generator().manual_seed(1)
     args = (
         _rnd(g, dev, 1, rows, dim).to(dtype), 1 + _rnd(g, dev, dim, scale=0.1),
@@ -104,9 +105,9 @@ def test_ffn_block_kernel(dev, dtype, tol, rows, dim, f):
     before = (eb.ffn_block.launches, eb.ffn_block.tc_launches)
     got = eb.ffn_block(*args)
     torch.cuda.synchronize()
-    tc = int(eb.ffn_block_route(dtype, dim, f) != "fma")
-    assert (eb.ffn_block.launches, eb.ffn_block.tc_launches) == (before[0] + 1, before[1] + tc)
-    assert tc == int(dtype == torch.bfloat16 or dim < 384)
+    assert eb.ffn_block_route(dtype, dim, f) == ("tensor_core" if dtype == torch.bfloat16
+                                                 else "split_tf32")
+    assert (eb.ffn_block.launches, eb.ffn_block.tc_launches) == (before[0] + 1, before[1] + 1)
     assert got.dtype == dtype
     assert _rel(got, eb.ffn_block_reference(*args)) <= tol
 
