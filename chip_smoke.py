@@ -16,7 +16,8 @@ Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
    prints the registers and spills of the tensor-core kernels (attention
    and its head-mean variant, GraphConv, the FFN forward and backward,
    attn_block's products, ffn_block's bf16 and split-TF32 kernels, VQ's two
-   routes) from the ptxas log, and fails if one is missing or spills;
+   routes, the LayerNorm backward's 12 and its parameter sum, embed_grad's
+   6) from the ptxas log, and fails if one is missing or spills;
 3. each serving kernel against its plain PyTorch version at the serving
    shapes, in bf16 and fp32: max |kernel - plain| / max |plain| <= 2e-2
    (bf16), 1e-4 (fp32); ``sym_conv`` also at rows of E that are 4-byte
@@ -49,8 +50,16 @@ the fused update):
    on the edge and vertex weights) against its plain version at the
    training shapes, bf16 and fp32 (``adamw_project_rows``: fp32, its only
    dtype), same tolerances as 3; ``sym_conv_bwd`` also at ``CONV_EDGES``;
-   bf16 dE exactly symmetric at every shape, and ``embed_grad`` and its
-   plain version equal bit for bit over two calls;
+   bf16 dE exactly symmetric at every shape. ``embed_grad``'s instance
+   lookup takes the ids the stage-4 step makes (``compact_instance_slots``
+   of phase 4's VQ ids, each sample's unused slots padded); it is also
+   compared at uniform ids, one id taking 4,500 rows, one id spanning many
+   chunks, ids no row takes (whose rows must be exactly 0) and a table of one
+   row; it and its plain version equal bit for bit over two calls at every
+   one of those; the class lookup with the plan of its buffer runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host wait) with the
+   unplanned call's bits, and an in-place write to the buffer rebuilds the
+   plan;
 8. the step in fp32 (graph_precision 'highest') against the same trainer
    with every kernel replaced by its plain version, fed the kernel run's VQ
    ids (the plain VQ's own ids must agree with them on >= 99.9% of tokens,
@@ -71,11 +80,14 @@ the fused update):
    step: 10 attn_block and 10 ffn_block on the tensor-core routes, one
    attn_block with the head-mean, one vq_assign,
    4 sym_conv and 4 sym_conv_bwd, all on the tensor-core routes, 4
-   fused_layernorm and 4 fused_layernorm_bwd, 2 embed_grad, 2
-   adamw_project_rows);
+   fused_layernorm and 4 fused_layernorm_bwd on the 16-byte route, 2
+   embed_grad on the 16-byte route, one of them (the class lookup) with the
+   atlas's plan, 2 adamw_project_rows);
 10. timings: each training kernel beside its plain version; the device time
-    of ``sym_conv``, ``sym_conv_bwd`` and ``embed_grad`` (``torch.profiler``)
-    beside ``torch.bmm`` on a pre-formed E_sym (the products alone, a note);
+    of ``sym_conv``, ``sym_conv_bwd`` and ``embed_grad`` (``torch.profiler``;
+    ``embed_grad`` unplanned, planned and at the instance ids, beside
+    ``index_add_``) beside ``torch.bmm`` on a pre-formed E_sym (the products
+    alone, a note);
     the bf16 step's
     ms and images/s beside the step with every plain version and with the
     plain LayerNorm alone; the step split
@@ -107,7 +119,8 @@ at DeiT-Tiny width, 12 layers, dropout 0.1, AdamW lr 1e-4 with warmup,
     launches each of fused_mhsa, fused_mhsa_bwd, fused_mlp and fused_mlp_bwd,
     every attention and FFN launch on the tensor-core route, 25 of
     fused_layernorm
-    and of fused_layernorm_bwd (two a layer and the final norm), and none of
+    and of fused_layernorm_bwd (two a layer and the final norm; every
+    backward on the 16-byte route), and none of
     the serving or SchemaNet kernels;
 14. timings: each stage-0 kernel beside its plain version, and
     ``scaled_dot_product_attention`` at p = 0 (forward, backward alone, and
@@ -117,7 +130,10 @@ at DeiT-Tiny width, 12 layers, dropout 0.1, AdamW lr 1e-4 with warmup,
     attn_block (both variants) beside F.layer_norm + F.linear + SDPA +
     F.linear, of ffn_block in bf16 and fp32 beside F.layer_norm + F.linear
     + F.gelu + F.linear, of the FFN forward and backward beside their two
-    and five products by torch.matmul, of embed_grad beside index_add_, of
+    and five products by torch.matmul, of embed_grad (class and instance
+    lookups, planned where the checkout has plans) beside index_add_, of the
+    LayerNorm forward and backward at stage 0's and the GNN's shapes in both
+    dtypes beside F.layer_norm and native_layer_norm_backward, of
     adamw_project_rows, and of vq_assign at the minibatch, Lloyd and bf16
     serving shapes beside matmul + argmin; the bf16 step's ms and images/s beside the
     step with every plain version and with the plain LayerNorm alone; its split into forward, backward, and
@@ -141,7 +157,9 @@ fp32, seeded random weights and images made on the card):
     graphs, relu; no cotangent where y is within 1e-5 of max |y| of 0, a
     tie of the relu gate) in bf16 and fp32: the tolerances of 3 (backward
     fp32 1e-4), dscale and dbias equal bit for bit over two runs; in fp32 both
-    the kernels and the plain versions beside an fp64 LayerNorm;
+    the kernels and the plain versions beside an fp64 LayerNorm. The
+    backward also at ``LN_EDGES`` (rows past a warp's and a block's rows,
+    widths on the scalar route), dscale and dbias bitwise over two runs;
 16. ``stage1_fp32``: the whole stage at the CLI's defaults (batch 64,
     1,000,000 features from 80 batches, M = 1024, k-means++ from the first
     4,096 features, minibatches of 1,024, 10 Lloyd iterations over the first
@@ -163,7 +181,9 @@ fp32, seeded random weights and images made on the card):
     of max. Then the bundle and the atlas init go to files, and a stage-4
     ``Trainer`` (``schema_net_trainer``) takes one bf16 step from them;
 18. timings of the new kernels beside their plain versions and, for the
-    LayerNorm, ``F.layer_norm`` and ATen's ``native_layer_norm_backward``;
+    LayerNorm, ``F.layer_norm`` and ATen's ``native_layer_norm_backward``
+    (at the GNN's relu shape a note: it has no gate), the backward also in
+    fp32, each with its bound;
     CUDA events over 20 calls, and the device time of a call from
     ``torch.profiler``; for VQ, the bound of each case.
 
@@ -282,6 +302,12 @@ MLP_EDGES = {"rows1000": (1000, EMBED_DIM, FFN_DIM), "f96": (45, 64, 96)}
 # rows past a row tile of 64 and codes past a code tile of 128
 VQ_EDGES = {"odd_fp32": (1037, EMBED_DIM, 1000, torch.float32),
             "odd_bf16": (777, EMBED_DIM, 1000, torch.bfloat16)}
+# (rows, width, act) of the LayerNorm backward compares beside the path's
+# shapes: rows that are not a multiple of the rows a warp takes at a time (2)
+# or a block (16), and widths on the scalar route (bf16 300, and 6 in both
+# dtypes: rows not a whole number of 16-byte pieces)
+LN_EDGES = {"rows_odd": (12_607, EMBED_DIM, "none"), "rows_odd_gnn": (1_001, GNN_DIM, "relu"),
+            "d300": (777, 300, "none"), "d6": (33, 6, "relu")}
 # (graphs, V, D) of the GraphConv compares beside the path's shapes: rows of E
 # 4-byte aligned (V = 70), 8-byte aligned (V = 500, ImageNet's class graphs)
 CONV_EDGES = {"v70": (4, 70, 40), "v500": (16, 500, 1024)}
@@ -365,6 +391,24 @@ def vq_work(x, cb):
     return flops, moved, "bfloat16"
 
 
+def ln_work(x, bwd=False):
+    """(operations, bytes) of a fused_layernorm call on x [rows, d] in x's
+    dtype (statistics and affine in fp32): the forward reads x and writes y;
+    the backward reads x and g and writes dx; scale, bias in, dscale, dbias
+    out in fp32."""
+    params = 2 * x.shape[-1] * 4
+    if bwd:
+        return 14 * x.numel(), 3 * nbytes(x) + 2 * params
+    return 8 * x.numel(), 2 * nbytes(x) + params
+
+
+def embed_work(args):
+    """(operations, bytes) of an embed_grad call: one add a cotangent value;
+    the ids and cotangents read once, the fp32 table written once."""
+    ids, g_, rows_ = args
+    return g_.numel(), nbytes(ids, g_) + rows_ * g_.shape[-1] * 4
+
+
 def device_time_by_name(prof) -> dict:
     """Device microseconds by kernel name in a profile: the CUDA events,
     without the user annotations that span kernels already counted (such as
@@ -429,6 +473,7 @@ def main() -> None:
     from schemanet_torch.ops.kernels import vq as vqk
     from schemanet_torch.models.vit import get_model
     from schemanet_torch.ops import kmeans
+    from schemanet_torch.ops.graph import compact_instance_slots
     from schemanet_torch.pipeline import (collect_mid_features, extract_stage, init_stage,
                                           load_atlas_init, load_bundle, save_atlas_init,
                                           save_bundle)
@@ -466,19 +511,24 @@ def main() -> None:
     # kernels (4 widths of the forward, 4 of dH and dx, one of the weight
     # gradients), 2 of attn_block's products (LN + qkv, out projection +
     # residual), ffn_block's 5 bf16 and 5 split-TF32 widths, VQ's 2
-    # (split TF32, bf16)
+    # (split TF32, bf16); the LayerNorm backward's 12 (2 dtypes x 4 widths of
+    # 16-byte pieces, 2 x 2 of scalar pieces) and its parameter sum;
+    # embed_grad's 6 (the chunks' 2 dtypes x 2 piece widths, the combine, the
+    # offsets)
     build_log = _build.library_path().with_suffix(".log").read_text()
     for source, tag, count in (("attention.cu", "mhsa_tc", 16), ("graphconv.cu", "tc_kernel", 8),
                                ("mlp.cu", "tc_kernel", 9), ("encoder_block.cu", "linear_tc", 2),
                                ("encoder_block.cu", "ffn_tc_kernel", 5),
-                               ("encoder_block.cu", "ffn_tf32_kernel", 5), ("vq.cu", "vq_tc", 2)):
+                               ("encoder_block.cu", "ffn_tf32_kernel", 5), ("vq.cu", "vq_tc", 2),
+                               ("layernorm.cu", "ln_bwd_kernel", 12),
+                               ("layernorm.cu", "ln_param_sum", 1), ("embed_bwd.cu", "embed_", 6)):
         tc_ptxas = {name: dict(zip(("registers", "spill_stores", "spill_loads"), r))
                     for name, r in ptxas_report(build_log, source).items() if tag in name}
         phase("ptxas", source=source, tag=tag, kernels=tc_ptxas)
         require(len(tc_ptxas) == count,
-                f"ptxas reported {len(tc_ptxas)} tensor-core kernels in {source}, not {count}")
+                f"ptxas reported {len(tc_ptxas)} {tag} kernels in {source}, not {count}")
         require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in tc_ptxas.values()),
-                f"a tensor-core kernel of {source} spills to local memory")
+                f"a kernel of {source} ({tag}) spills to local memory")
 
     # 3. each serving kernel against its plain version at the serving shapes
     g = torch.Generator().manual_seed(0)
@@ -737,8 +787,12 @@ def main() -> None:
     f_tr, g_tr = rnd(BATCH, v_inst, GNN_DIM), rnd(BATCH, v_inst, GNN_DIM)
     ids_class = torch.arange(NUM_CODES, dtype=torch.int32).expand(NUM_CLASSES, NUM_CODES)
     ids_class = ids_class.contiguous().to(dev)  # the class_ingredients buffer
-    ids_inst = torch.randint(0, NUM_CODES + 1, (BATCH, v_inst), generator=g,
-                             dtype=torch.int32).to(dev)
+    ids_uniform = torch.randint(0, NUM_CODES + 1, (BATCH, v_inst), generator=g,
+                                dtype=torch.int32).to(dev)
+    # the instance lookup's ids as the stage-4 step makes them: the slots of
+    # phase 4's VQ ids of 64 images, each sample's unused slots padded with
+    # the id NUM_CODES (one long segment after the sort)
+    ids_inst = compact_instance_slots(ids_k, NUM_CODES).codes
     rows_edge = NUM_CLASSES * NUM_CODES
     atlas_state = {
         "edge": [torch.rand(rows_edge, NUM_CODES, generator=g).to(dev) / NUM_CODES,
@@ -783,17 +837,75 @@ def main() -> None:
         de_ = gc.sym_conv_bwd(*args)[0]
         symmetric[name] = bool(torch.equal(de_, de_.transpose(1, 2)))
         del de_
+    # embed_grad at its edges (EMBED_EDGES): (ids, cotangent width, rows)
+    embed_edges = {
+        "uniform": (ids_uniform, GNN_DIM, NUM_CODES + 1),
+        "long_id": (torch.cat([torch.zeros(4500, dtype=torch.int32),
+                               torch.randint(1, 9, (500,), generator=g, dtype=torch.int32)]),
+                    GNN_DIM, 9),
+        "spanning": (torch.randint(0, 3, (700,), generator=g, dtype=torch.int32), 40, 3),
+        "unused": (torch.randint(0, 5, (300,), generator=g, dtype=torch.int32) * 3, 24, 16),
+        "one_row": (torch.zeros(77, dtype=torch.int32), 6, 1),
+    }
+    embed_edges = {tag: (ids_.to(dev), rnd(*ids_.shape, w_), rows_)
+                   for tag, (ids_, w_, rows_) in embed_edges.items()}
+    unused_zero = {}
+    for tag, (ids_, cot_, rows_) in embed_edges.items():
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            compare(f"embed_grad_{tag}", ek.embed_grad, ek.embed_grad_reference,
+                    (ids_, cot_.to(dt), rows_), {}, dt, tol, errors)
+        taken = torch.zeros(rows_, dtype=torch.bool, device=dev)
+        taken[ids_.long()] = True
+        unused_zero[tag] = not ek.embed_grad(ids_, cot_, rows_)[~taken].any().item()
     for name in ("embed_grad", "embed_grad_instance"):
         for dt in (torch.bfloat16, torch.float32):
             _, _, args, _ = train_cases[name](dt)
             embed_same[f"{name}_{str(dt).split('.')[-1]}"] = [
                 bool(torch.equal(fn(*args), fn(*args)))
                 for fn in (ek.embed_grad, ek.embed_grad_reference)]
+    for tag, (ids_, cot_, rows_) in embed_edges.items():
+        for dt in (torch.bfloat16, torch.float32):
+            args = (ids_, cot_.to(dt), rows_)
+            embed_same[f"embed_grad_{tag}_{str(dt).split('.')[-1]}"] = [
+                bool(torch.equal(fn(*args), fn(*args)))
+                for fn in (ek.embed_grad, ek.embed_grad_reference)]
+    # the class lookup with the plan of its fixed buffer: no host wait (the
+    # sync debug mode raises on one), the unplanned call's bits; after an
+    # in-place write to the buffer the plan is rebuilt
+    buf = ids_class.clone()
+    plans = ek.PlannedIds()
+    cot16 = f_class.to(torch.bfloat16)
+    unplanned = ek.embed_grad(buf, cot16, NUM_CODES + 1)
+    plan0 = plans.plan(buf, NUM_CODES + 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        planned = ek.embed_grad(buf, cot16, NUM_CODES + 1, plan=plans.plan(buf, NUM_CODES + 1))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    planned_same = bool(torch.equal(planned, unplanned))
+    buf[:7] = NUM_CODES  # in place: seven classes' graphs now all padding
+    rebuilt = plans.plan(buf, NUM_CODES + 1) is not plan0
+    after = ek.embed_grad(buf, cot16, NUM_CODES + 1, plan=plans.plan(buf, NUM_CODES + 1))
+    after_err = rel_err(after, ek.embed_grad_reference(buf, cot16, NUM_CODES + 1))
+    embed_same["embed_grad_planned_after_write_bfloat16"] = [
+        bool(torch.equal(after, ek.embed_grad(buf, cot16, NUM_CODES + 1,
+                                              plan=plans.plan(buf, NUM_CODES + 1))))]
+    padding = (ids_inst == NUM_CODES).sum(1)
     phase("compare", kernel="sym_conv_bwd", dtype="bfloat16", de_exactly_symmetric=symmetric,
-          embed_grad_run_to_run_bitwise_kernel_plain=embed_same)
+          embed_grad_run_to_run_bitwise_kernel_plain=embed_same,
+          embed_grad_unused_ids_zero=unused_zero, embed_grad_planned_without_host_wait=True,
+          embed_grad_planned_equals_unplanned=planned_same,
+          embed_grad_plan_rebuilt_after_write=rebuilt, embed_grad_after_write_rel_err=after_err,
+          instance_ids_padding_rows=int(padding.sum()),
+          instance_ids_padding_per_sample=[int(padding.min()), int(padding.max())])
     require(all(symmetric.values()), f"bf16 dE not exactly symmetric: {symmetric}")
     require(all(all(v) for v in embed_same.values()),
             f"embed_grad differs between two calls: {embed_same}")
+    require(all(unused_zero.values()), f"embed_grad: an unused id is not 0: {unused_zero}")
+    require(planned_same and rebuilt and after_err <= BF16_TOL,
+            f"embed_grad plan: equal {planned_same}, rebuilt {rebuilt}, error {after_err}")
+    del embed_edges, buf, plans, plan0, planned, unplanned, after
     del conv_edges, bwd_bf16
     for name, which in (("adamw_project_rows", "edge"), ("adamw_project_rows_vertex", "vertex")):
         compare(name, fresh_update(ao.adamw_project_rows, which),
@@ -979,7 +1091,10 @@ def main() -> None:
                          "sym_conv", "sym_conv_bwd", "sym_conv_tc", "sym_conv_bwd_tc")},
                      "fused_layernorm": GNN_CONVS * BF16_STEPS,
                      "fused_layernorm_bwd": GNN_CONVS * BF16_STEPS,
-                     "embed_grad": 2 * BF16_STEPS, "adamw_project_rows": 2 * BF16_STEPS})
+                     "fused_layernorm_bwd_vec": GNN_CONVS * BF16_STEPS,
+                     "embed_grad": 2 * BF16_STEPS, "embed_grad_vec": 2 * BF16_STEPS,
+                     "embed_grad_planned": BF16_STEPS,  # the class lookup, from the atlas's plan
+                     "adamw_project_rows": 2 * BF16_STEPS})
     phase("train_bf16", steps=BF16_STEPS, batch=BATCH, losses=losses16,
           launches=train_launches, expected=expected)
     require(all(np.isfinite(losses16)), f"bf16 train losses not finite: {losses16}")
@@ -1038,10 +1153,22 @@ def main() -> None:
     def bwd_products():
         return torch.bmm(esym, g16), torch.bmm(g16, f16.transpose(1, 2))
 
+    # embed_grad's class lookup as the stage-4 step calls it: with the plan
+    # of the fixed class_ingredients buffer (no sort, no host wait)
+    class_args = train_cases["embed_grad"](torch.bfloat16)[2]
+    inst_args = train_cases["embed_grad_instance"](torch.bfloat16)[2]
+    class_plan = ek.sort_ids(ids_class, NUM_CODES + 1)
+
+    def embed_planned():
+        return ek.embed_grad(*class_args, plan=class_plan)
+
+    times["embed_grad_planned"] = (time_ms(embed_planned, TIME_ITERS), times["embed_grad"][1])
     conv_device = {
         "sym_conv": device_ms(lambda: gc.sym_conv(*conv_args)),
         "sym_conv_bwd": device_ms(lambda: gc.sym_conv_bwd(*bwd_args)),
-        "embed_grad": device_ms(lambda: ek.embed_grad(*train_cases["embed_grad"](torch.bfloat16)[2])),
+        "embed_grad": device_ms(lambda: ek.embed_grad(*class_args)),
+        "embed_grad_planned": device_ms(embed_planned),
+        "embed_grad_instance": device_ms(lambda: ek.embed_grad(*inst_args)),
     }
     phase("kernel_time", kernel="sym_conv_device", dtype="bfloat16", shape=list(f16.shape),
           device_ms=conv_device, ms={k: times[k][0] for k in conv_device},
@@ -1055,12 +1182,24 @@ def main() -> None:
     # into an fp32 table, of the same cotangents made fp32 beforehand
     ids_long = ids_class.reshape(-1).long()
     g_fp32 = f_class.to(torch.bfloat16).reshape(-1, GNN_DIM).float()
+    inst_long, inst_fp32 = ids_inst.reshape(-1).long(), inst_args[1].reshape(-1, GNN_DIM).float()
     table = torch.zeros(NUM_CODES + 1, GNN_DIM, device=dev)
     library = {"embed_grad": time_ms(lambda: table.index_add_(0, ids_long, g_fp32), TIME_ITERS)}
+    inst_index_add_ms = time_ms(lambda: table.index_add_(0, inst_long, inst_fp32), TIME_ITERS)
+    embed_bounds = {name: least_ms(*embed_work(args), "float32")
+                    for name, args in (("class", class_args), ("instance", inst_args))}
     phase("kernel_time", kernel="embed_grad_vs_index_add", dtype="bfloat16",
-          ms=times["embed_grad"][0], index_add_ms=library["embed_grad"], **card_note)
+          ms=times["embed_grad"][0], planned_ms=times["embed_grad_planned"][0],
+          instance_ms=times["embed_grad_instance"][0], index_add_ms=library["embed_grad"],
+          instance_index_add_ms=inst_index_add_ms,
+          index_add_device_ms=device_ms(lambda: table.index_add_(0, ids_long, g_fp32)),
+          instance_index_add_device_ms=device_ms(
+              lambda: table.index_add_(0, inst_long, inst_fp32)),
+          bound_ms={k: v[0] for k, v in embed_bounds.items()}, **card_note)
+    # the kernels line gives the class lookup as the step runs it: planned
+    times["embed_grad"] = times["embed_grad_planned"]
     atlas_bytes = {k: v[0].numel() for k, v in atlas_state.items()}
-    del atlas_state, ids_long, g_fp32, table
+    del atlas_state, ids_long, g_fp32, table, inst_long, inst_fp32, class_plan
     torch.cuda.empty_cache()
 
     def step_ms(iters, plain=False):
@@ -1263,7 +1402,8 @@ def main() -> None:
                      for name in (*s0_kernels, "fused_mhsa_tc", "fused_mhsa_bwd_tc",
                                   "fused_mlp_tc", "fused_mlp_bwd_tc")})
     expected.update({name: (2 * S0_LAYERS + 1) * BF16_STEPS
-                     for name in ("fused_layernorm", "fused_layernorm_bwd")})
+                     for name in ("fused_layernorm", "fused_layernorm_bwd",
+                                  "fused_layernorm_bwd_vec")})
     phase("stage0_bf16", steps=BF16_STEPS, batch=BATCH, losses=losses0, launches=s0_launches,
           expected=expected)
     require(all(np.isfinite(losses0)), f"stage-0 bf16 losses not finite: {losses0}")
@@ -1326,7 +1466,7 @@ def main() -> None:
     # lists, beside their PyTorch yardsticks
     from schemanet_torch import kernel_times
     phase("kernel_times", script="schemanet_torch/kernel_times.py",
-          rows=kernel_times.measure(dev), **card_note)
+          rows=kernel_times.measure(dev, ids_inst), **card_note)
 
     def s0_step_ms(iters, plain=False):
         out = []
@@ -1441,25 +1581,29 @@ def main() -> None:
                   - xhat * (ga * xhat).mean(dim=-1, keepdim=True))
         return y, dx, (gd * xhat).sum(dim=0), gd.sum(dim=0)
 
-    ln_shapes = {"fused_layernorm": (BATCH * n, d, "none"),
-                 "fused_layernorm_gnn": (NUM_CLASSES * NUM_CODES, GNN_DIM, "relu")}
-    ln_inputs = {}
-    for name, (rows, width, act) in ln_shapes.items():
+    def ln_case(rows, width, act, name):
+        """(x fp32, scale, bias, cotangent, act). For relu: the gate y > 0 is a
+        tie where y is a few ulps from 0: the kernel's and the plain version's
+        roundings of y may fall on either side, and one element gated apart
+        moves dx by ~r g scale. No cotangent sits there (y of the fp32 and of
+        the bf16 x)."""
         x32 = rnd(rows, width) * 2 + 0.5
         sc, bi, cot = 1 + rnd(width, scale=0.3), rnd(width, scale=0.3), rnd(rows, width)
         if act == "relu":
-            # the gate y > 0 is a tie where y is a few ulps from 0: the kernel's
-            # and the plain version's roundings of y may fall on either side,
-            # and one element gated apart moves dx by ~r g scale. No cotangent
-            # sits there (y of the fp32 and of the bf16 x).
             ties = torch.zeros_like(cot, dtype=torch.bool)
             for dt in (torch.float32, torch.bfloat16):
                 y = lnk.fused_layernorm_reference(x32.to(dt), sc, bi, 1e-6, "none").float()
                 ties |= y.abs() <= 1e-5 * y.abs().max()
             cot = torch.where(ties, torch.zeros_like(cot), cot)
-            phase("compare", kernel="fused_layernorm_bwd_gnn", relu_ties_zeroed=int(ties.sum()))
-            del ties, y
-        ln_inputs[name] = (x32, sc, bi, cot, act)
+            phase("compare", kernel=name, relu_ties_zeroed=int(ties.sum()))
+        return x32, sc, bi, cot, act
+
+    ln_shapes = {"fused_layernorm": (BATCH * n, d, "none"),
+                 "fused_layernorm_gnn": (NUM_CLASSES * NUM_CODES, GNN_DIM, "relu")}
+    ln_inputs = {}
+    for name, (rows, width, act) in ln_shapes.items():
+        ln_inputs[name] = ln_case(rows, width, act,
+                                  name.replace("fused_layernorm", "fused_layernorm_bwd"))
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
             x, sc, bi, cot, _ = ln_inputs[name]
             x, cot = x.to(dt), cot.to(dt)
@@ -1479,7 +1623,21 @@ def main() -> None:
                       plain_rel_err=[rel_err(a, b) for a, b in zip(got_p, want)])
             runs = [lnk.fused_layernorm_bwd(x, sc, bi, cot, 1e-6, act)[1:] for _ in range(2)]
             same = all(torch.equal(a, b) for a, b in zip(*runs))
-            phase("compare", kernel=bwd, dtype=str(dt).split(".")[-1], dparam_run_to_run=same)
+            phase("compare", kernel=bwd, dtype=str(dt).split(".")[-1], dparam_run_to_run=same,
+                  route=eb.piece_route(dt, x.shape[-1], x.data_ptr(), cot.data_ptr()))
+            require(same, f"{bwd} {dt}: dscale/dbias differ between two runs")
+    # the backward at its edges, each dtype on the route its width takes
+    for tag, (rows, width, act) in LN_EDGES.items():
+        bwd = f"fused_layernorm_bwd_{tag}"
+        x32, sc, bi, cot, _ = ln_case(rows, width, act, bwd)
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            x, c = x32.to(dt), cot.to(dt)
+            compare(bwd, lnk.fused_layernorm_bwd, lnk.fused_layernorm_bwd_reference,
+                    (x, sc, bi, c, 1e-6, act), {}, dt, tol, errors)
+            runs = [lnk.fused_layernorm_bwd(x, sc, bi, c, 1e-6, act)[1:] for _ in range(2)]
+            same = all(torch.equal(a, b) for a, b in zip(*runs))
+            phase("compare", kernel=bwd, dtype=str(dt).split(".")[-1], dparam_run_to_run=same,
+                  route=eb.piece_route(dt, width, x.data_ptr(), c.data_ptr()))
             require(same, f"{bwd} {dt}: dscale/dbias differ between two runs")
 
     class DeviceImages:
@@ -1696,21 +1854,29 @@ def main() -> None:
         w16, b16 = sc.to(torch.bfloat16), bi.to(torch.bfloat16)
         library[name] = time_ms(lambda: torch.nn.functional.layer_norm(
             x, (x.shape[-1],), w16, b16, 1e-6), TIME_ITERS)
-        bwd_library_ms = bwd_library_device_ms = None
-        if act == "none":  # one ATen call computes the backward of a plain LayerNorm
-            _, mean, rstd = torch.ops.aten.native_layer_norm(x, [x.shape[-1]], w16, b16, 1e-6)
+        # one ATen call computes the backward of a plain LayerNorm; it has no
+        # relu gate, so at the GNN's shape it is a note, not library_ms
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [x.shape[-1]], w16, b16, 1e-6)
 
-            def ln_bwd_library():
-                return torch.ops.aten.native_layer_norm_backward(
-                    cot, x, [x.shape[-1]], mean, rstd, w16, b16, [True, True, True])
+        def ln_bwd_library():
+            return torch.ops.aten.native_layer_norm_backward(
+                cot, x, [x.shape[-1]], mean, rstd, w16, b16, [True, True, True])
 
-            bwd_library_ms = library[bwd] = time_ms(ln_bwd_library, TIME_ITERS)
-            bwd_library_device_ms = device_ms(ln_bwd_library)
+        bwd_library_ms = time_ms(ln_bwd_library, TIME_ITERS)
+        if act == "none":
+            library[bwd] = bwd_library_ms
+        x32_, cot32_ = x.float(), cot.float()  # the same values in fp32
         phase("kernel_time", kernel=name, dtype="bfloat16", shape=list(x.shape), act=act,
               ms=times[name][0], plain_ms=times[name][1], layer_norm_ms=library[name],
               bwd_ms=times[bwd][0], bwd_plain_ms=times[bwd][1],
               native_layer_norm_backward_ms=bwd_library_ms,
-              native_layer_norm_backward_device_ms=bwd_library_device_ms,
+              native_layer_norm_backward_device_ms=device_ms(ln_bwd_library),
+              bwd_bound_ms=least_ms(*ln_work(x, bwd=True), "float32")[0],
+              bwd_fp32_ms=time_ms(lambda: lnk.fused_layernorm_bwd(x32_, sc, bi, cot32_, 1e-6, act),
+                                  TIME_ITERS),
+              bwd_fp32_device_ms=device_ms(
+                  lambda: lnk.fused_layernorm_bwd(x32_, sc, bi, cot32_, 1e-6, act)),
+              bwd_fp32_bound_ms=least_ms(*ln_work(x32_, bwd=True), "float32")[0],
               device_ms=device_ms(lambda: lnk.fused_layernorm(x, sc, bi, 1e-6, act)),
               bwd_device_ms=device_ms(lambda: lnk.fused_layernorm_bwd(x, sc, bi, cot, 1e-6, act)),
               layer_norm_device_ms=device_ms(lambda: torch.nn.functional.layer_norm(
@@ -1743,10 +1909,6 @@ def main() -> None:
         io = nbytes(*args) + (nbytes(e, f_) if bwd else nbytes(f_))
         return flops, io
 
-    def embed_work(args):
-        ids, g_, rows_ = args
-        return g_.numel(), nbytes(ids, g_) + rows_ * g_.shape[-1] * 4
-
     def adamw_work(which):
         prm = atlas_bytes[which]
         return 15 * prm, 7 * 4 * prm  # p, g, m, v read; p, m, v written; fp32
@@ -1763,13 +1925,6 @@ def main() -> None:
             "fused_mlp_bwd": (5 * mlp, 3 * nbytes(t["x"]) + 2 * weights + nbytes(t["b2"])),
         }[name]
 
-    def ln_work(inputs, bwd=False):
-        x = inputs[0].to(torch.bfloat16)  # timed in bf16; statistics, affine in fp32
-        params = 2 * x.shape[-1] * 4
-        if bwd:  # x and g in, dx out; scale, bias in, dscale, dbias out
-            return 14 * x.numel(), 3 * nbytes(x) + 2 * params
-        return 8 * x.numel(), 2 * nbytes(x) + params
-
     work = {
         "attn_block": attn_work(cases["attn_block"](torch.bfloat16)[2]),
         "attn_block_hmean": attn_work(cases["attn_block"](torch.bfloat16)[2], hmean=True),
@@ -1781,8 +1936,10 @@ def main() -> None:
         "adamw_project_rows": adamw_work("edge"),
         **{name: s0_work(name) for name in s0_kernels},
         "vq_assign": vq_work(*vq_inputs["minibatch"]),
-        "fused_layernorm": ln_work(ln_inputs["fused_layernorm"]),
-        "fused_layernorm_bwd": ln_work(ln_inputs["fused_layernorm"], bwd=True),
+        # timed in bf16
+        "fused_layernorm": ln_work(ln_inputs["fused_layernorm"][0].to(torch.bfloat16)),
+        "fused_layernorm_bwd": ln_work(ln_inputs["fused_layernorm"][0].to(torch.bfloat16),
+                                       bwd=True),
     }
     replaces = {
         "attn_block": "schemanet_tpu/ops/pallas/encoder_block.py:240",

@@ -235,6 +235,83 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The blocks of `threads` threads and `smem` bytes of dynamic shared memory
+// that the card holds at once: resident blocks an SM times the SMs. The
+// answers are kept by (kernel, threads, smem) in a small table, so a launch
+// asks the runtime once per shape.
+template <typename Kernel>
+inline int resident_blocks(Kernel kernel, int threads, size_t smem) {
+  struct Entry {
+    const void* fn;
+    int threads;
+    size_t smem;
+    int blocks;
+  };
+  static Entry table[32];
+  static int used = 0;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  for (int i = 0; i < used; ++i)
+    if (table[i].fn == fn && table[i].threads == threads && table[i].smem == smem)
+      return table[i].blocks;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  const int blocks = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  table[used < 32 ? used++ : 31] = {fn, threads, smem, blocks};
+  return blocks;
+}
+
+// N contiguous values of T as fp32, loaded and stored in one piece: 16 bytes
+// (N = 8 bf16 or 4 fp32) through one vector instruction, or N = 1 for rows
+// that are not 16-byte aligned. Raw holds the bits as loaded; get(k) widens
+// value k (k known at compile time once the loops are unrolled).
+template <typename T, int N>
+struct Pack;
+
+template <>
+struct Pack<bf16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const bf16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ Raw zero() { return make_uint4(0, 0, 0, 0); }
+  static __device__ __forceinline__ float get(const Raw& r, int k) {
+    const uint32_t w = k < 2 ? r.x : k < 4 ? r.y : k < 6 ? r.z : r.w;
+    return __uint_as_float(k & 1 ? (w & 0xffff0000u) : (w << 16));
+  }
+  static __device__ __forceinline__ void store(bf16* p, const float (&v)[8]) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                              pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  }
+};
+
+template <>
+struct Pack<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ Raw zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  static __device__ __forceinline__ float get(const Raw& r, int k) {
+    return k == 0 ? r.x : k == 1 ? r.y : k == 2 ? r.z : r.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <typename T>
+struct Pack<T, 1> {
+  using Raw = float;
+  static __device__ __forceinline__ Raw load(const T* p) { return Num<T>::load(p, 0); }
+  static __device__ __forceinline__ Raw zero() { return 0.f; }
+  static __device__ __forceinline__ float get(const Raw& r, int) { return r; }
+  static __device__ __forceinline__ void store(T* p, const float (&v)[1]) {
+    Num<T>::store(p, 0, v[0]);
+  }
+};
+
 // Block-level product with A in shared memory and B = W^T read from a weight
 // in nn.Linear layout W[N][K] (row n holds the K inputs of output n):
 //

@@ -21,8 +21,18 @@ beside a PyTorch yardstick where one is named, in bf16 unless said.
   products alone by bf16 ``torch.matmul`` (x W1^T, g W2, dH W1, dH^T x,
   g^T a on bf16 operands made beforehand);
 * ``embed_grad`` on the class graphs' lookup (ids [100, 1024], cotangents
-  [100, 1024, 256]), beside ``index_add_`` of the same cotangents made fp32
-  beforehand;
+  [100, 1024, 256]) and on the stage-4 step's instance lookup (the
+  ``compact_instance_slots`` codes [64, 196] of the VQ ids that the
+  DeiT-Tiny ingredient backbone, seeded random weights, gives 64 seeded
+  random images: ``instance_ids``; each sample's unused slots hold the
+  padding id), each as one call and, where the checkout has plans
+  (``sort_ids``), as a planned call, beside ``index_add_`` of the same
+  cotangents made fp32 beforehand; with the device time split by kernel;
+* the ``fused_layernorm`` forward and backward at stage 0's shape
+  ([12,608, 192], no activation) and the GNN class graphs' ([102,400, 256],
+  relu) in bf16 and fp32, beside ``F.layer_norm`` and ATen's
+  ``native_layer_norm_backward`` (which has no relu gate: a note at the GNN
+  shape) on the same inputs;
 * ``adamw_project_rows`` on the class graphs' edge weights ([102,400, 1024]
   fp32), alone;
 * ``vq_assign`` at a k-means minibatch ([1024, 192] x 1024, fp32), a Lloyd
@@ -31,7 +41,9 @@ beside a PyTorch yardstick where one is named, in bf16 unless said.
   ``torch.matmul`` (fp32, TF32 off) and ``torch.argmin``: a note.
 
 Each gets ``ms``, CUDA events around one window of 20 calls after warm-up,
-and ``device_ms``, the ``torch.profiler`` device time of a call. Uses only
+and ``device_ms``, the ``torch.profiler`` device time of a call (and, for
+``embed_grad`` and the LayerNorm backward, ``by_kernel``, that time split by
+kernel name). Uses only
 the kernels' public wrappers, so the same file times an older checkout of
 the port: from that checkout's root, ``python -m schemanet_torch.kernel_times``.
 Prints the card's name and power limit, then one JSON line.
@@ -42,11 +54,28 @@ from __future__ import annotations
 import json
 import subprocess
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 ITERS = 20
 SEED = 2**31 - 2  # stage 0's dropout seed in chip_smoke.py
+# the DeiT-Tiny model and schema blocks of chip_smoke.py (CIFAR-100, M = 1024,
+# encode layer 9), for the instance lookup's ids
+MODEL_CFG = {
+    "name": "vit",
+    "transformer": dict(embed_dim=192, num_encoder_layers=12, num_heads=3, dim_feedforward=768,
+                        dropout=None, activation="gelu", final_norm=True, norm_eps=1e-6),
+    "patch_embed": dict(img_size=224, patch_size=16, image_channels=3),
+    "pos_encoding": dict(name="learnable"),
+}
+SCHEMA_CFG = {
+    "matcher": {"similarity": "inner_product"},
+    "gnn": {"embed_dim": 256, "num_layers": 2, "activation": "relu"},
+    "ir_atlas": dict(class_max_vertices=None, dist_pow=2, feat_h=14, feat_w=14,
+                     clamp_vertex_attn=-1.0, clamp_edge_attn=-1.0, remove_self_loop=False,
+                     prune_node_threshold=0.001, graph_precision="highest"),
+}
 
 
 def time_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
@@ -89,11 +118,55 @@ def _both(fn) -> dict:
     return {"ms": time_ms(fn), "device_ms": device_ms(fn)}
 
 
-def measure(dev: torch.device) -> dict:
-    """{row: {timing: {"ms", "device_ms"}}} of the kernels and yardsticks."""
+def device_by_kernel(fn, iters: int = ITERS) -> dict:
+    """Device ms a call by kernel name (the first 60 characters), from one
+    profile of ``iters`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+            key = evt.name[:60]
+            out[key] = out.get(key, 0.0) + evt.time_range.elapsed_us() / iters / 1e3
+    return out
+
+
+def _split(fn) -> dict:
+    return {**_both(fn), "by_kernel": device_by_kernel(fn)}
+
+
+def instance_ids(dev: torch.device, batch: int = 64, seed: int = 0) -> torch.Tensor:
+    """The stage-4 step's instance-lookup ids: ``compact_instance_slots`` of
+    the VQ ids that the fp32 DeiT-Tiny ingredient backbone (layers 0-9,
+    M = 1024 codes), with weights from ``init_parameters_`` seeded by
+    ``seed``, gives ``batch`` standard-normal NHWC images from
+    ``numpy.random.default_rng(seed)``: chip_smoke.py's model and images."""
+    from .ops.graph import compact_instance_slots
+    from .schema import build_predictor, init_parameters_
+
+    model = build_predictor(MODEL_CFG, SCHEMA_CFG, 100, 1024, 192, 9)
+    init_parameters_(model, torch.Generator().manual_seed(seed))
+    backbone = model.ingredient_backbone.to(dev)
+    images = np.random.default_rng(seed).normal(size=(batch, 224, 224, 3)).astype(np.float32)
+    with torch.no_grad():
+        codes = backbone(torch.from_numpy(images).to(dev))["ingredients"]
+    return compact_instance_slots(codes, 1024).codes
+
+
+def measure(dev: torch.device, inst_ids=None) -> dict:
+    """{row: {timing: {"ms", "device_ms"}}} of the kernels and yardsticks.
+    ``inst_ids``: the instance lookup's ids, ``instance_ids(dev)`` if None."""
     from .ops.kernels import atlas_opt as ao
     from .ops.kernels import embed_bwd as ek
     from .ops.kernels import encoder_block as eb
+    from .ops.kernels import layernorm as lnk
     from .ops.kernels import mlp as mk
     from .ops.kernels import vq as vqk
 
@@ -168,9 +241,42 @@ def measure(dev: torch.device) -> dict:
     cot = rnd(classes, codes, width)
     ids_long, cot32 = ids.reshape(-1).long(), cot.reshape(-1, width).float()
     table = torch.zeros(codes + 1, width, device=dev)
-    out["embed_grad"] = _both(lambda: ek.embed_grad(ids, cot, codes + 1))
+    out["embed_grad"] = _split(lambda: ek.embed_grad(ids, cot, codes + 1))
     out["embed_grad_index_add"] = _both(lambda: table.index_add_(0, ids_long, cot32))
-    del table, cot, cot32
+    inst = instance_ids(dev) if inst_ids is None else inst_ids
+    cot_i = rnd(*inst.shape, width)
+    ids_i, cot_i32 = inst.reshape(-1).long(), cot_i.reshape(-1, width).float()
+    out["embed_grad_instance"] = _split(lambda: ek.embed_grad(inst, cot_i, codes + 1))
+    out["embed_grad_instance_index_add"] = _both(lambda: table.index_add_(0, ids_i, cot_i32))
+    out["embed_grad_instance_ids"] = {"rows": inst.numel(),
+                                      "padding_rows": int((inst == codes).sum()),
+                                      "padding_per_sample": (inst == codes).sum(1).tolist()}
+    if hasattr(ek, "sort_ids"):  # checkouts with plans: the calls without the sort and wait
+        plan, plan_i = ek.sort_ids(ids, codes + 1), ek.sort_ids(inst, codes + 1)
+        out["embed_grad_planned"] = _split(lambda: ek.embed_grad(ids, cot, codes + 1, plan=plan))
+        out["embed_grad_instance_planned"] = _split(
+            lambda: ek.embed_grad(inst, cot_i, codes + 1, plan=plan_i))
+    del table, cot, cot32, cot_i, cot_i32
+
+    for tag, (rows_ln, w_ln, act_ln) in {"stage0": (bs * n, d, "none"),
+                                         "gnn": (classes * codes, width, "relu")}.items():
+        x_ln = rnd(rows_ln, w_ln, dtype=torch.float32) * 2 + 0.5
+        sc = 1 + rnd(w_ln, scale=0.3, dtype=torch.float32)
+        bi = rnd(w_ln, scale=0.3, dtype=torch.float32)
+        g_ln = rnd(rows_ln, w_ln, dtype=torch.float32)
+        for dt, sfx in ((bf, ""), (torch.float32, "_fp32")):
+            xx, gg, w_t, b_t = x_ln.to(dt), g_ln.to(dt), sc.to(dt), bi.to(dt)
+            _, mean, rstd = torch.ops.aten.native_layer_norm(xx, [w_ln], w_t, b_t, 1e-6)
+            out[f"layernorm_{tag}{sfx}"] = _both(lambda: lnk.fused_layernorm(xx, sc, bi, 1e-6,
+                                                                            act_ln))
+            out[f"layernorm_{tag}{sfx}_F_layer_norm"] = _both(
+                lambda: F.layer_norm(xx, (w_ln,), w_t, b_t, 1e-6))
+            out[f"layernorm_bwd_{tag}{sfx}"] = _split(
+                lambda: lnk.fused_layernorm_bwd(xx, sc, bi, gg, 1e-6, act_ln))
+            out[f"layernorm_bwd_{tag}{sfx}_native"] = _both(
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    gg, xx, [w_ln], mean, rstd, w_t, b_t, [True, True, True]))
+        del x_ln, g_ln, xx, gg
 
     f32 = torch.float32
     shape = (classes * codes, codes)

@@ -7,7 +7,7 @@ raises. There is no fallback from a kernel to its plain version on the card.
 from .atlas_opt import adamw_project_rows, adamw_project_rows_reference
 from .attention import fused_mhsa, fused_mhsa_bwd, fused_mhsa_bwd_reference, fused_mhsa_reference
 from .dropmask import hash_keep_mask
-from .embed_bwd import embed_grad, embed_grad_reference
+from .embed_bwd import PlannedIds, embed_grad, embed_grad_reference, sort_ids
 from .encoder_block import (
     attn_block,
     attn_block_reference,
@@ -37,6 +37,8 @@ _COUNTERS = {
     "sym_conv_tc": (sym_conv, "tc_launches"),  # the tensor-core route's share
     "sym_conv_bwd_tc": (sym_conv_bwd, "tc_launches"),
     "embed_grad": (embed_grad, "launches"),
+    "embed_grad_vec": (embed_grad, "vec_launches"),  # the 16-byte route's share
+    "embed_grad_planned": (embed_grad, "planned_launches"),  # calls given a plan
     "adamw_project_rows": (adamw_project_rows, "launches"),
     "fused_mhsa": (fused_mhsa, "launches"),
     "fused_mhsa_bwd": (fused_mhsa_bwd, "launches"),
@@ -50,6 +52,7 @@ _COUNTERS = {
     "vq_assign_tc": (vq_assign_kernel, "tc_launches"),  # split TF32 or bf16 mma: all of them
     "fused_layernorm": (fused_layernorm, "launches"),
     "fused_layernorm_bwd": (fused_layernorm_bwd, "launches"),
+    "fused_layernorm_bwd_vec": (fused_layernorm_bwd, "vec_launches"),  # 16-byte route's share
 }
 
 

@@ -151,6 +151,20 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+VECTOR, SCALAR = "vector", "scalar"
+
+
+def piece_route(dtype: torch.dtype, d: int, *ptrs: int) -> str:
+    """The route of a kernel that moves rows of ``d`` values of ``dtype`` in
+    16-byte pieces a lane (the LayerNorm backward, ``embed_grad``'s
+    gather): ``"vector"`` where a row is a whole number of 16 bytes and every
+    data pointer in ``ptrs`` is 16-byte aligned, else ``"scalar"`` (one
+    value a piece)."""
+    if d * torch.finfo(dtype).bits // 8 % 16 == 0 and all(p % 16 == 0 for p in ptrs):
+        return VECTOR
+    return SCALAR
+
+
 def attn_block(
     x: torch.Tensor,  # [bs, n, dim]
     ln_scale: torch.Tensor,  # [dim]

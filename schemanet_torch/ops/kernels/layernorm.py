@@ -14,11 +14,21 @@ recomputes the statistics and y, gates the cotangent by ``y > 0`` for relu,
 and returns dx in x.dtype and dscale, dbias in the parameters' dtype, summed
 in fp32 over the rows in a fixed order (the same bits from run to run).
 
+The backward is bound by bytes (x and g read, dx written). Its kernel moves
+rows in 16-byte pieces a lane, two rows a warp in flight, on a grid sized to
+what the card holds at once; each block writes one fp32 partial of dscale
+and dbias and a second launch adds the partials, 32 columns a block, in a
+fixed order. ``piece_route`` names the route: ``"vector"`` where a row is a
+whole number of 16-byte pieces (d a multiple of 8 in bf16, of 4 in fp32) and
+x, g and dx are 16-byte aligned, else ``"scalar"``, the same kernel with one
+value a piece.
+
 Dispatch: a CPU tensor takes the plain versions (``fused_layernorm_reference``
 for the forward, ``fused_layernorm_bwd_reference`` for the backward); a CUDA
 tensor launches the kernels or raises. ``fused_layernorm_plain`` takes the
 plain versions on any device. ``fused_layernorm.launches`` and
-``fused_layernorm_bwd.launches`` count the launches.
+``fused_layernorm_bwd.launches`` count the launches,
+``fused_layernorm_bwd.vec_launches`` those of the backward's vector route.
 """
 
 from __future__ import annotations
@@ -28,10 +38,13 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .encoder_block import _DTYPES, _check, _require_cuda, _stream, layer_norm
+from .encoder_block import (VECTOR, _DTYPES, _check, _require_cuda, _stream, layer_norm,
+                            piece_route)
 
 _ACTS = ("none", "relu")
 _MAX_DIM = 768  # csrc/layernorm.cu holds up to 24 values a lane
+_BWD_MAX_BLOCKS = 1024  # csrc/layernorm.cu kLnBwdMaxBlocks: the backward's blocks at most
+_WARPS = 8  # csrc/layernorm.cu kLnWarps: a block has at least one row
 
 
 def _check_act(act: str) -> None:
@@ -109,18 +122,20 @@ def fused_layernorm_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
         return fused_layernorm_bwd_reference(x, scale, bias, g, eps, act)
     rows, d = _check_ln("fused_layernorm_bwd", x, scale, bias, act)
     _check("g", g, x.dtype, x.shape)
-    lib = _build.library()
     dx = torch.empty_like(x)
-    part = torch.empty((lib.sn_layernorm_bwd_blocks(rows), 2 * d), dtype=torch.float32,
-                       device=x.device)
+    route = piece_route(x.dtype, d, x.data_ptr(), g.data_ptr(), dx.data_ptr())
+    blocks = max(1, min(-(-rows // _WARPS), _BWD_MAX_BLOCKS))
+    part = torch.empty((blocks, 2 * d), dtype=torch.float32, device=x.device)
     dparam = torch.empty(2 * d, dtype=torch.float32, device=x.device)
-    err = lib.sn_layernorm_bwd(
-        _DTYPES[x.dtype], x.data_ptr(), scale.data_ptr(), bias.data_ptr(), g.data_ptr(),
-        dx.data_ptr(), part.data_ptr(), dparam.data_ptr(), rows, d, float(eps),
+    err = _build.library().sn_layernorm_bwd(
+        _DTYPES[x.dtype], int(route == VECTOR), x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        g.data_ptr(), dx.data_ptr(), part.data_ptr(), dparam.data_ptr(), rows, d, float(eps),
         int(act == "relu"), _stream(),
     )
     _build.check(err, "fused_layernorm_bwd")
     _counted[1].launches += 1
+    if route == VECTOR:
+        _counted[1].vec_launches += 1
     return dx, dparam[:d], dparam[d:]
 
 
@@ -166,7 +181,7 @@ def fused_layernorm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tens
 
 
 fused_layernorm.launches = 0
-fused_layernorm_bwd.launches = 0
+fused_layernorm_bwd.launches = fused_layernorm_bwd.vec_launches = 0
 # the counters are reached through these second names, so that a caller who
 # wraps or replaces the wrappers in this module still counts into them
 _counted = (fused_layernorm, fused_layernorm_bwd)

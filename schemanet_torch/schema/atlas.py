@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..ops import geometry, graph as graph_ops
+from ..ops.kernels import embed_bwd as ek
 from ..ops.normalize import normalize_sum_clamp, zero_nans
 
 
@@ -90,6 +91,9 @@ class SchemaAtlas(nn.Module):
         self.register_buffer(
             "class_ingredients", torch.arange(v, dtype=torch.int32).expand(k, v).contiguous()
         )
+        # the embedding gradient's plan of class_ingredients (sorted ids,
+        # offsets, range checked), rebuilt when the buffer changes
+        self.class_id_plans = ek.PlannedIds()
 
     def _out_dtype(self) -> torch.dtype:
         return graph_ops.graph_dtype(self.cfg.graph_precision)

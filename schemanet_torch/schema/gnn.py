@@ -17,7 +17,9 @@ Semantics kept from the JAX package:
   that sums the cotangent rows of duplicate ids in fp32 (the ``embed_grad``
   kernel on CUDA) and rounds once to the cotangent's dtype, as the JAX
   ``_embed_lookup_bwd`` returns ``gt.astype(g.dtype)``. The instance graphs and
-  the class graphs take the same function.
+  the class graphs take the same function; the class graphs' ids are the
+  atlas's fixed ``class_ingredients`` buffer, whose sort and range check the
+  atlas keeps as a plan (``PlannedIds``) while the buffer is unchanged.
 
 Not ported, being TPU workarounds with the same semantics as the fp32 sum:
 the JAX package's one-hot and banded-product backward routes and its
@@ -43,21 +45,26 @@ GNN_NORM_EPS = 1e-6  # flax nn.LayerNorm's default, which the JAX GNN uses
 
 class _EmbedLookup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, ids):
+    def forward(ctx, table, ids, plans):
         ctx.save_for_backward(ids)
         ctx.num_rows = table.shape[0]
+        ctx.plans = plans
         return table[ids.long()]
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        return ek.embed_grad(ids, g.contiguous(), ctx.num_rows).to(g.dtype), None
+        plan = None if ctx.plans is None else ctx.plans.plan(ids, ctx.num_rows)
+        return ek.embed_grad(ids, g.contiguous(), ctx.num_rows, plan=plan).to(g.dtype), None, None
 
 
-def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
+                 plans: Optional[ek.PlannedIds] = None) -> torch.Tensor:
     """``table[ids]`` ([M+1, D], int32 [...] -> [..., D]) whose backward
-    accumulates duplicate ids in fp32 and rounds once to the cotangent dtype."""
-    return _EmbedLookup.apply(table, ids.int().contiguous())
+    accumulates duplicate ids in fp32 and rounds once to the cotangent dtype.
+    ``plans``: the ``PlannedIds`` of a fixed id buffer, whose plan (sort,
+    offsets, range check) the backward reuses while the buffer is unchanged."""
+    return _EmbedLookup.apply(table, ids.int().contiguous(), plans)
 
 
 class GraphConv(nn.Module):
@@ -109,10 +116,11 @@ class GNN(nn.Module):
         ingredients: torch.Tensor,  # [bs, n] code ids (num_codes = padding)
         feat_mask: Optional[torch.Tensor] = None,  # [bs, n] True = padding
         pool_size: Optional[torch.Tensor] = None,  # [bs] or scalar denominator
+        id_plans: Optional[ek.PlannedIds] = None,  # of a fixed ingredients buffer
     ) -> torch.Tensor:
         # cast the table, not the gathered rows, so the backward's fp32 sum
         # rounds once to the compute dtype (a no-op in fp32)
-        feat = embed_lookup(self.embedding.to(self.dtype), ingredients)
+        feat = embed_lookup(self.embedding.to(self.dtype), ingredients, id_plans)
         for layer in self.layers:
             feat = layer(edges, feat, feat_mask)
         feat = feat * nodes[..., None].to(feat.dtype)
@@ -153,11 +161,13 @@ class Matcher(nn.Module):
         self.ref_pooling, self.per_sample_pooling = ref_pooling, per_sample_pooling
         self.gnn = GNN(num_codes, embed_dim, num_layers, identity_proj, activation, dtype)
 
-    def forward(self, instance: dict, atlas: dict,
-                per_sample_pooling: Optional[bool] = None) -> torch.Tensor:
+    def forward(self, instance: dict, atlas: dict, per_sample_pooling: Optional[bool] = None,
+                class_id_plans: Optional[ek.PlannedIds] = None) -> torch.Tensor:
         """``per_sample_pooling`` overrides the module's own setting for this
         call (None keeps it): serving passes True without changing the
-        module."""
+        module. ``class_id_plans``: the atlas's ``PlannedIds`` of its
+        ``class_ingredients``, so the class lookup's backward sorts and checks
+        those ids once, not every step."""
         if per_sample_pooling is None:
             per_sample_pooling = self.per_sample_pooling
         pool_size = None
@@ -171,6 +181,7 @@ class Matcher(nn.Module):
             instance["instance_ingredients"], instance.get("feat_mask"), pool_size,
         )  # [bs, D]
         feat_kg = self.gnn(
-            atlas["class_vertices"], atlas["class_edges"], atlas["class_ingredients"]
+            atlas["class_vertices"], atlas["class_edges"], atlas["class_ingredients"],
+            id_plans=class_id_plans,
         )  # [K, D]
         return similarity_fn(self.similarity)(feat_instance[:, None, :], feat_kg[None, :, :])

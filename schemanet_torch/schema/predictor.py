@@ -108,7 +108,8 @@ class SchemaNetPredictor(nn.Module):
             output = self.ingredient_backbone(img)
         instance = self.schema_net(output["ingredients"], output["attn"], output["attn_cls"])
         atlas = self.schema_net.get_atlas()
-        return {"pred": self.matcher(instance, atlas, per_sample_pooling), **atlas}
+        pred = self.matcher(instance, atlas, per_sample_pooling, self.schema_net.class_id_plans)
+        return {"pred": pred, **atlas}
 
 
 def build_predictor(

@@ -245,3 +245,19 @@ def test_attn_block_route_rejects(dtype, n, heads, head_dim, what):
 def test_attn_block_route_rejects_other_dtypes():
     with pytest.raises(TypeError, match="float16"):
         eb.attn_block_route(torch.float16, 197, 3, 64)
+
+
+@pytest.mark.parametrize("dtype,d,offset,route", [
+    (torch.bfloat16, 192, 0, "vector"), (torch.bfloat16, 256, 0, "vector"),
+    (torch.bfloat16, 24, 0, "vector"), (torch.float32, 192, 0, "vector"),
+    (torch.float32, 300, 0, "vector"), (torch.bfloat16, 300, 0, "scalar"),
+    (torch.bfloat16, 12, 0, "scalar"), (torch.float32, 6, 0, "scalar"),
+    (torch.bfloat16, 192, 4, "scalar"), (torch.bfloat16, 256, 2, "scalar"),
+])
+def test_piece_route(dtype, d, offset, route):
+    """The LayerNorm backward's and embed_grad's route: 16-byte pieces where
+    a row is a whole number of 16 bytes and the data is 16-byte aligned,
+    scalar pieces otherwise."""
+    x = torch.zeros(3 * d + 16, dtype=dtype)[offset:offset + 3 * d]
+    assert eb.piece_route(dtype, d, x.data_ptr()) == route
+    assert eb.piece_route(dtype, d, x.data_ptr(), torch.zeros(8, dtype=dtype).data_ptr()) == route

@@ -19,8 +19,13 @@ rows, every mismatch a near-tie (the plain scores of the two codes within
 index exactly. The LayerNorm kernels: the forward within the tolerances
 above, the backward's dx too (fp32 1e-4: the statistics are recomputed),
 dscale and dbias within 1e-4 in both dtypes (fp32 sums) and equal bit for
-bit from run to run. The bf16 FFN backward's weight and bias gradients are
-equal bit for bit over two calls too.
+bit from run to run, on both of the backward's routes (16-byte and
+scalar pieces). ``embed_grad`` at its edges (a long id, an id spanning
+chunks, unused ids that must be exact zeros, one table row) within 1e-5 and
+bitwise from run to run; a planned call runs under the sync debug mode
+"error" and a plan is rebuilt after an in-place write. The bf16 FFN
+backward's weight and bias gradients are equal bit for bit over two calls
+too.
 """
 
 import pytest
@@ -190,6 +195,61 @@ def test_embed_grad_kernel(dev, dtype, shape, num_rows, d):
     # both add in a fixed order: the same bits on every call
     assert torch.equal(got, ek.embed_grad(ids, cot, num_rows))
     assert torch.equal(want, ek.embed_grad_reference(ids, cot, num_rows))
+
+
+# (ids, num_rows) of the embed_grad edge cases: one id taking 4,096 rows and
+# more, one id spanning several chunks of 32 sorted positions, ids that no
+# row takes (their table rows must be exact zeros), a table of one row
+EMBED_EDGES = {
+    "long_id": (lambda g: torch.cat([torch.zeros(4500, dtype=torch.int32),
+                                     torch.randint(1, 9, (500,), generator=g,
+                                                   dtype=torch.int32)]), 9),
+    "spanning": (lambda g: torch.randint(0, 3, (700,), generator=g, dtype=torch.int32), 3),
+    "unused": (lambda g: torch.randint(0, 5, (300,), generator=g, dtype=torch.int32) * 3, 16),
+    "one_row": (lambda g: torch.zeros(77, dtype=torch.int32), 1),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,d", [("long_id", 256), ("spanning", 40), ("unused", 24),
+                                    ("one_row", 6)])
+def test_embed_grad_kernel_edges(dev, dtype, case, d):
+    g = torch.Generator().manual_seed(9)
+    make, num_rows = EMBED_EDGES[case]
+    ids = make(g).to(dev)
+    cot = _rnd(g, dev, ids.numel(), d).to(dtype)
+    got = ek.embed_grad(ids, cot, num_rows)
+    want = ek.embed_grad_reference(ids, cot, num_rows)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-5
+    assert torch.equal(got, ek.embed_grad(ids, cot, num_rows))
+    unused = torch.ones(num_rows, dtype=torch.bool, device=dev)
+    unused[ids.long()] = False
+    assert not got[unused].any()
+
+
+def test_embed_grad_planned_calls(dev):
+    """A planned call makes no host wait (it runs under the sync debug mode
+    "error"), gives the unplanned call's bits, and after an in-place write to
+    the buffer the plan is rebuilt and the result follows the new ids."""
+    g = torch.Generator().manual_seed(10)
+    buf = torch.arange(64, dtype=torch.int32).repeat(20).to(dev)
+    cot = _rnd(g, dev, buf.numel(), 256).to(torch.bfloat16)
+    plans = ek.PlannedIds()
+    want = ek.embed_grad(buf, cot, 65)
+    plan = plans.plan(buf, 65)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ek.embed_grad(buf, cot, 65, plan=plans.plan(buf, 65))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+    buf[:100] = 64
+    assert plans.plan(buf, 65) is not plan
+    got = ek.embed_grad(buf, cot, 65, plan=plans.plan(buf, 65))
+    assert torch.equal(got, ek.embed_grad(buf, cot, 65))
+    assert _rel(got, ek.embed_grad_reference(buf, cot, 65)) <= 1e-5
 
 
 @pytest.mark.parametrize("shape,remove_self_loop", [((7, 40), False), ((6, 100, 100), True)])
@@ -368,13 +428,16 @@ def test_vq_assign_kernel_duplicated_codes_take_the_first(dev):
 @pytest.mark.parametrize("dtype,tol", TOLS)
 @pytest.mark.parametrize("rows,d,act", [(45, 64, "none"), (12_608, 192, "none"),
                                         (1000, 256, "relu"), (37, 768, "relu"),
-                                        (5, 300, "none")])
+                                        (5, 300, "none"), (12_607, 192, "none"),
+                                        (33, 6, "relu")])
 def test_fused_layernorm_kernels(dev, dtype, tol, rows, d, act):
     g = torch.Generator().manual_seed(8)
     x = (_rnd(g, dev, rows, d) * 2 + 0.5).to(dtype)
     scale, bias = 1 + _rnd(g, dev, d, scale=0.3), _rnd(g, dev, d, scale=0.3)
     cot = _rnd(g, dev, rows, d).to(dtype)
     before = (lnk.fused_layernorm.launches, lnk.fused_layernorm_bwd.launches)
+    vec_before = lnk.fused_layernorm_bwd.vec_launches
+    route = eb.piece_route(dtype, d, x.data_ptr(), cot.data_ptr())
     y = lnk.fused_layernorm(x, scale, bias, 1e-6, act)
     grads = lnk.fused_layernorm_bwd(x, scale, bias, cot, 1e-6, act)
     again = lnk.fused_layernorm_bwd(x, scale, bias, cot, 1e-6, act)
@@ -383,6 +446,7 @@ def test_fused_layernorm_kernels(dev, dtype, tol, rows, d, act):
     torch.cuda.synchronize()
     assert (lnk.fused_layernorm.launches, lnk.fused_layernorm_bwd.launches) == \
         (before[0] + 1, before[1] + 2)
+    assert lnk.fused_layernorm_bwd.vec_launches == vec_before + (2 if route == "vector" else 0)
     assert y.dtype == grads[0].dtype == dtype
     assert _rel(y, want) <= tol
     assert _rel(grads[0], want_grads[0]) <= max(tol, 1e-4)
