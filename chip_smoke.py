@@ -15,21 +15,26 @@ Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
 2. build: compiles ``schemanet_torch/csrc/*.cu``, one nvcc per file at once;
    prints the registers and spills of the tensor-core kernels (attention
    and its head-mean variant, GraphConv, the FFN forward and backward,
-   attn_block's products, ffn_block's bf16 and split-TF32 kernels, VQ's two
-   routes, the LayerNorm backward's 12 and its parameter sum, embed_grad's
-   6) from the ptxas log, and fails if one is missing or spills;
+   attn_block's bf16 products, its split-TF32 products, attention and LN
+   statistics, ffn_block's bf16 and split-TF32 kernels, VQ's two routes, the
+   LayerNorm backward's 12 and its parameter sum, embed_grad's 6) from the
+   ptxas log, and fails if one is missing or spills;
 3. each serving kernel against its plain PyTorch version at the serving
    shapes, in bf16 and fp32: max |kernel - plain| / max |plain| <= 2e-2
    (bf16), 1e-4 (fp32); ``sym_conv`` also at rows of E that are 4-byte
    (V = 70) and 8-byte (V = 500) aligned (``CONV_EDGES``), ``attn_block``
    (both variants) also one row past a tile of 64 and at DeiT-Small's 6
-   heads of width 384 (``ATTN_EDGES``), ``ffn_block`` also at 1,000 rows
+   heads of width 384 (``ATTN_EDGES``), every fp32 ``attn_block`` call
+   counted on the split-TF32 route and equal bit for bit over two calls,
+   ``ffn_block`` also at 1,000 rows
    (past a row tile), f = 96, widths 64, 128, 256 and 384, and f = 104 at
    384 (past fp32's hidden chunk of 16 there) (``FFN_EDGES``);
 4. the slice in fp32 (graph_precision 'highest') on 100 images (two
    microbatches, the second padded) against the same model with the plain
    versions called in place of the kernels: VQ ids agree on >= 99.9% of
-   tokens, logits within 1e-3 * max |logit|;
+   tokens, logits within 1e-3 * max |logit|; the kernel run's 10
+   attn_block launches a microbatch (one with the head-mean) all on the
+   split-TF32 route;
 5. the slice in bf16 (graph_precision 'default'): finite [n, 100] logits for
    1, 64 and 100 images; ``predict(x[:5]) == predict(x)[:5]`` bit for bit;
    every kernel's launch counter advanced as the path implies (per
@@ -38,8 +43,9 @@ Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
    one vq_assign, 4 sym_conv, all on the tensor-core routes, 4
    fused_layernorm (the GNN's LN+relu), and no training kernel);
 6. timings (CUDA events after warm-up): each kernel beside its plain version
-   (``ffn_block`` in bf16 and fp32), and the p50/p99 latency and images/s of
-   one microbatch of 64.
+   (``ffn_block`` in bf16 and fp32, ``attn_block`` in bf16 and fp32, its
+   fp32 head-mean at stage 3's batch of 32), and the p50/p99 latency and
+   images/s of one microbatch of 64.
 
 Training (``schemanet_torch.train.Trainer.train_iter``, batch 64, the CIFAR
 config's AdamW groups, schedule and schema loss, the atlas kept projected by
@@ -74,7 +80,9 @@ the fused update):
    atlas is not smooth (the prune threshold, exact zeros), so the tight rule
    holds step by step. The first lock step is taken twice from one saved
    state on each side (``run_to_run_bitwise``): every loss, VQ id,
-   gradient, parameter and moment must have the same bits both times;
+   gradient, parameter and moment must have the same bits both times.
+   Every attn_block launch of the kernel side's free run (10 a step, one
+   with the head-mean) is on the split-TF32 route;
 9. the step in bf16 (graph_precision 'default', the training default): 5
    finite losses, and the launch counters advanced as the path implies (per
    step: 10 attn_block and 10 ffn_block on the tensor-core routes, one
@@ -164,7 +172,7 @@ fp32, seeded random weights and images made on the card):
     1,000,000 features from 80 batches, M = 1024, k-means++ from the first
     4,096 features, minibatches of 1,024, 10 Lloyd iterations over the first
     200,000), its launches (one vq_assign a minibatch and a Lloyd step, and
-    10 ffn_block a batch, all on the split-TF32 routes);
+    10 attn_block and 10 ffn_block a batch, all on the split-TF32 routes);
     features/s of the collection, ms a minibatch step and a Lloyd step, the
     final inertia; held against the plain versions: the first two batches'
     features within 1e-4, then 50 minibatch steps and 2 Lloyd steps in lock
@@ -174,8 +182,9 @@ fp32, seeded random weights and images made on the card):
     mismatched row moved;
 17. ``stage3_fp32``: ``init_stage`` at K = 100, V_max = 1024, batch 32, on
     64 batches a pass (2,048 of CIFAR's 50,000 images: a cut, with the
-    extrapolated full-dataset time), its launches (every ffn_block on the
-    split-TF32 route) and peak memory; against
+    extrapolated full-dataset time), its launches (every attn_block, the
+    head-mean too, and every ffn_block on the split-TF32 routes) and peak
+    memory; against
     the plain versions fed the kernel run's VQ ids (their own ids' agreement
     reported): class_ingredients equal, vertex and edge weights within 1e-5
     of max. Then the bundle and the atlas init go to files, and a stage-4
@@ -198,6 +207,9 @@ kernels' stage 0's; its error is the largest plain-score difference between
 the kernel's code and the plain version's. ``ffn_block_fp32`` is
 ``ffn_block`` in fp32 (the split-TF32 kernel): stage 1's launches, the fp32
 error and times, its bound by three TF32 products a product.
+``attn_block_fp32`` is ``attn_block`` in fp32 (the split-TF32 kernels) the
+same way, at serving's microbatch shape; ``attn_block_fp32_hmean`` its
+head-mean variant: stage 3's launches, timed at stage 3's batch of 32.
 
 Usage: python3 chip_smoke.py
 """
@@ -510,7 +522,9 @@ def main() -> None:
     # forward), 8 GraphConv kernels (4 row widths of E x forward, dE), 9 FFN
     # kernels (4 widths of the forward, 4 of dH and dx, one of the weight
     # gradients), 2 of attn_block's products (LN + qkv, out projection +
-    # residual), ffn_block's 5 bf16 and 5 split-TF32 widths, VQ's 2
+    # residual) in bf16 and 2 in split TF32, its split-TF32 attention (3
+    # head_dim paddings) and LN statistics, ffn_block's 5 bf16 and 5
+    # split-TF32 widths, VQ's 2
     # (split TF32, bf16); the LayerNorm backward's 12 (2 dtypes x 4 widths of
     # 16-byte pieces, 2 x 2 of scalar pieces) and its parameter sum;
     # embed_grad's 6 (the chunks' 2 dtypes x 2 piece widths, the combine, the
@@ -518,6 +532,9 @@ def main() -> None:
     build_log = _build.library_path().with_suffix(".log").read_text()
     for source, tag, count in (("attention.cu", "mhsa_tc", 16), ("graphconv.cu", "tc_kernel", 8),
                                ("mlp.cu", "tc_kernel", 9), ("encoder_block.cu", "linear_tc", 2),
+                               ("encoder_block.cu", "linear_tf32", 2),
+                               ("encoder_block.cu", "attn_tf32", 3),
+                               ("encoder_block.cu", "ln_stats", 1),
                                ("encoder_block.cu", "ffn_tc_kernel", 5),
                                ("encoder_block.cu", "ffn_tf32_kernel", 5), ("vq.cu", "vq_tc", 2),
                                ("layernorm.cu", "ln_bwd_kernel", 12),
@@ -570,11 +587,34 @@ def main() -> None:
                                          (e_inst.to(dt), f_inst.to(dt)), {}),
     }
     errors = {}
+
+    def fp32_label(name):
+        """fp32 attn_block and ffn_block are kernels of their own (split
+        TF32): their errors and times apart."""
+        return name.replace("_block", "_block_fp32", 1) if "_block" in name else name
+
+    def fp32_attn_route(label, args, kw):
+        """An fp32 attn_block call is counted on the split-TF32 route and
+        gives the same bits twice."""
+        before = (eb.attn_block.launches, eb.attn_block.tc_launches)
+        first, again = eb.attn_block(*args, **kw), eb.attn_block(*args, **kw)
+        torch.cuda.synchronize()
+        first = first if isinstance(first, tuple) else (first,)
+        again = again if isinstance(again, tuple) else (again,)
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        phase("compare", kernel=label, dtype="float32", route=eb.attn_block_route(
+            torch.float32, args[0].shape[1], args[-1], args[3].shape[0] // (3 * args[-1])),
+            run_to_run_bitwise=same)
+        require((eb.attn_block.launches, eb.attn_block.tc_launches) ==
+                (before[0] + 2, before[1] + 2), f"{label}: not counted on the split-TF32 route")
+        require(same, f"{label}: two calls differ")
+
     for name, case in cases.items():
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
-            # fp32 ffn_block is a kernel of its own (split TF32): its error apart
-            label = f"{name}_fp32" if name == "ffn_block" and dt == torch.float32 else name
+            label = fp32_label(name) if dt == torch.float32 else name
             compare(label, *case(dt), dt, tol, errors)
+            if dt == torch.float32 and name.startswith("attn_block"):
+                fp32_attn_route(label, *case(dt)[2:])
     # the GraphConv kernels at rows of E aligned to 4 bytes (V = 70) and 8
     # bytes (V = 500, the ImageNet class graphs' width, cut to 16 graphs)
     conv_edges = {tag: (torch.rand(k_, v_, v_, generator=g).to(dev) / v_, rnd(k_, v_, d_),
@@ -592,8 +632,11 @@ def main() -> None:
                   rnd(d_, d_, scale=d_**-0.5), rnd(d_, scale=0.1), h_)
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
             for kw, name in (({}, "attn_block"), ({"capture_hmean": True}, "attn_block_hmean")):
-                compare(f"{name}_{tag}", eb.attn_block, eb.attn_block_reference,
-                        (args_e[0].to(dt), *args_e[1:]), kw, dt, tol, errors)
+                label = f"{fp32_label(name) if dt == torch.float32 else name}_{tag}"
+                args_dt = (args_e[0].to(dt), *args_e[1:])
+                compare(label, eb.attn_block, eb.attn_block_reference, args_dt, kw, dt, tol, errors)
+                if dt == torch.float32:
+                    fp32_attn_route(label, args_dt, kw)
     del args_e
     # ffn_block at its edges, each dtype on its tensor-core route, counted
     for tag, (rows_, d_, f_) in FFN_EDGES.items():
@@ -694,7 +737,9 @@ def main() -> None:
     # 4. the slice in fp32 against the plain versions
     s32 = ServePredictor(m32, microbatch=MICROBATCH, device=dev)
     with torch.no_grad():
+        reset_launch_counts()
         logits_k = s32.predict_tensor(x_dev)
+        fp32_launches = launch_counts()
         ids_k = s32.predictor.ingredient_backbone(x_dev[:MICROBATCH])["ingredients"]
         logits_p = with_plain(lambda: s32.predict_tensor(x_dev))
         ids_p = with_plain(lambda: s32.predictor.ingredient_backbone(x_dev[:MICROBATCH]))[
@@ -703,8 +748,14 @@ def main() -> None:
     agree = (ids_k == ids_p).float().mean().item()
     scale = logits_p.abs().max().item()
     logit_err = (logits_k - logits_p).abs().max().item()
+    mbs = -(-N_IMAGES // MICROBATCH)
+    want_attn = {"attn_block": FROZEN_LAYERS * mbs, "attn_block_tc": FROZEN_LAYERS * mbs,
+                 "attn_block_hmean": mbs}
     phase("slice_fp32", images=N_IMAGES, vq_id_agreement=agree, logit_max_abs_err=logit_err,
-          logit_scale=scale, tol=1e-3 * scale)
+          logit_scale=scale, tol=1e-3 * scale, launches=fp32_launches, expected_attn=want_attn)
+    require({k: fp32_launches[k] for k in want_attn} == want_attn,
+            f"fp32 serving attn_block launches {fp32_launches} != {want_attn}: an fp32 launch "
+            "missed the split-TF32 route")
     require(tuple(logits_k.shape) == (N_IMAGES, NUM_CLASSES), f"fp32 logits {tuple(logits_k.shape)}")
     require(agree >= 0.999, f"fp32 VQ ids agree on {agree:.5f} < 0.999 of tokens")
     require(logit_err <= 1e-3 * scale, f"fp32 logits differ by {logit_err} > 1e-3 * {scale}")
@@ -757,6 +808,16 @@ def main() -> None:
                                time_ms(lambda: plain(*args, **kw), TIME_ITERS))
     phase("kernel_time", kernel="ffn_block", dtype="float32", shape=list(args[0].shape),
           ms=times["ffn_block_fp32"][0], plain_ms=times["ffn_block_fp32"][1], **card_note)
+    # fp32 attn_block (the split-TF32 kernels): serving's microbatch, and the
+    # head-mean at stage 3's batch of 32
+    attn32 = {"attn_block_fp32": (attn_args(x_seq), {}),
+              "attn_block_fp32_hmean": (attn_args(x_seq[:S3_BATCH].contiguous()),
+                                        {"capture_hmean": True})}
+    for name, (args, kw) in attn32.items():
+        times[name] = (time_ms(lambda: eb.attn_block(*args, **kw), TIME_ITERS),
+                       time_ms(lambda: eb.attn_block_reference(*args, **kw), TIME_ITERS))
+        phase("kernel_time", kernel=name, dtype="float32", shape=list(args[0].shape),
+              ms=times[name][0], plain_ms=times[name][1], **card_note)
     xb = x_dev[:MICROBATCH]
     for _ in range(3):
         s16.predict_tensor(xb)
@@ -952,8 +1013,15 @@ def main() -> None:
 
     # free running: 3 steps each, the kernels against the plain versions
     s4_ids, s4_vq = [], {"rows": 0, "mismatches": 0, "near_ties_only": True}
+    reset_launch_counts()
     with recording_vq(s4_ids):
         losses_k, hot_k = fp32_run()
+    s4_launches = launch_counts()
+    want_attn = {"attn_block": FROZEN_LAYERS * FP32_STEPS,
+                 "attn_block_tc": FROZEN_LAYERS * FP32_STEPS, "attn_block_hmean": FP32_STEPS}
+    require({k: s4_launches[k] for k in want_attn} == want_attn,
+            f"fp32 stage-4 attn_block launches {s4_launches} != {want_attn}: an fp32 launch "
+            "missed the split-TF32 route")
 
     def plain_fp32_run():
         with replaying_vq(s4_ids, s4_vq):
@@ -1060,6 +1128,7 @@ def main() -> None:
           tol={"loss": 1e-4, "sure": "rtol 1e-4 / atol 1e-6"},
           **replay_report(s4_vq), lock_step_vq=replay_report(lock_vq),
           run_to_run_bitwise={side: not names for side, names in run_to_run.items()},
+          attn_launches={k: s4_launches[k] for k in want_attn},
           run_to_run_differs={side: names[:20] for side, names in run_to_run.items()})
     for side, names in run_to_run.items():
         require(not names, f"fp32 lock step, {side} side: a step from one state twice differs in "
@@ -1674,6 +1743,7 @@ def main() -> None:
     require(len(chunks) <= S1_BATCHES, "stage 1: too few batches for its features")
     expected = {name: 0 for name in s1_launches}
     expected.update({"attn_block": FROZEN_LAYERS * len(chunks),
+                     "attn_block_tc": FROZEN_LAYERS * len(chunks),
                      "ffn_block": FROZEN_LAYERS * len(chunks),
                      "ffn_block_tc": FROZEN_LAYERS * len(chunks),
                      "vq_assign": minibatches + S1_LLOYD_ITERS,
@@ -1683,6 +1753,8 @@ def main() -> None:
             "a vq_assign launch of stage 1 missed the split-TF32 kernel")
     require(s1_launches["ffn_block_tc"] == s1_launches["ffn_block"] > 0,
             "an ffn_block launch of stage 1 missed the split-TF32 kernel")
+    require(s1_launches["attn_block_tc"] == s1_launches["attn_block"] > 0,
+            "an attn_block launch of stage 1 missed the split-TF32 kernels")
     require(bool(torch.isfinite(bundle.codebook).all())
             and tuple(bundle.codebook.shape) == (NUM_CODES, EMBED_DIM), "stage-1 codebook")
     backbone = get_model(STAGE1_CFG["model"], NUM_CLASSES)
@@ -1775,6 +1847,7 @@ def main() -> None:
     passes = 2 * S3_BATCHES
     expected = {name: 0 for name in s3_launches}
     expected.update({"attn_block": FROZEN_LAYERS * passes, "attn_block_hmean": passes,
+                     "attn_block_tc": FROZEN_LAYERS * passes,
                      "ffn_block": FROZEN_LAYERS * passes, "ffn_block_tc": FROZEN_LAYERS * passes,
                      "vq_assign": passes, "vq_assign_tc": passes})
     require(s3_launches == expected, f"stage-3 launch counts {s3_launches} != {expected}")
@@ -1782,6 +1855,8 @@ def main() -> None:
             "a vq_assign launch of stage 3 missed the tensor-core kernels")
     require(s3_launches["ffn_block_tc"] == s3_launches["ffn_block"] > 0,
             "an ffn_block launch of stage 3 missed the split-TF32 kernel")
+    require(s3_launches["attn_block_tc"] == s3_launches["attn_block"] > 0,
+            "an attn_block launch of stage 3 missed the split-TF32 kernels")
     replay_stats = {"rows": 0, "mismatches": 0, "near_ties_only": True}
 
     def plain_init():
@@ -1884,12 +1959,17 @@ def main() -> None:
 
     # the least time the card could take for the timed work of each kernel
     def attn_work(args, hmean=False):
+        """(operations, bytes[, type]) of an attn_block call: fp32 as its
+        kernels do it, three TF32 products a product."""
         x, g1, b1, wqkv, bqkv, wo, bo, h = args
         bs_, n_, dim = x.shape
         rows, hd = bs_ * n_, wqkv.shape[0] // 3
         flops = 2 * rows * dim * 3 * hd + 4 * bs_ * n_ * n_ * hd + 2 * rows * hd * dim
         out = 2 * x.numel() * x.element_size() + (bs_ * n_ * n_ * x.element_size() if hmean else 0)
-        return flops, out + nbytes(g1, b1, wqkv, bqkv, wo, bo)
+        moved = out + nbytes(g1, b1, *(t.to(x.dtype) for t in (wqkv, bqkv, wo, bo)))
+        if x.dtype == torch.float32:
+            return 3 * flops, moved, "tfloat32"
+        return flops, moved
 
     def ffn_work(args):
         """(operations, bytes[, type]) of an ffn_block call: fp32 as its
@@ -1928,6 +2008,8 @@ def main() -> None:
     work = {
         "attn_block": attn_work(cases["attn_block"](torch.bfloat16)[2]),
         "attn_block_hmean": attn_work(cases["attn_block"](torch.bfloat16)[2], hmean=True),
+        "attn_block_fp32": attn_work(attn32["attn_block_fp32"][0]),
+        "attn_block_fp32_hmean": attn_work(attn32["attn_block_fp32_hmean"][0], hmean=True),
         "ffn_block": ffn_work(cases["ffn_block"](torch.bfloat16)[2]),
         "ffn_block_fp32": ffn_work(cases["ffn_block"](torch.float32)[2]),
         "sym_conv": conv_work(cases["sym_conv"](torch.bfloat16)[2]),
@@ -1944,6 +2026,8 @@ def main() -> None:
     replaces = {
         "attn_block": "schemanet_tpu/ops/pallas/encoder_block.py:240",
         "attn_block_hmean": "schemanet_tpu/ops/pallas/encoder_block.py:240",
+        "attn_block_fp32": "schemanet_tpu/ops/pallas/encoder_block.py:240",
+        "attn_block_fp32_hmean": "schemanet_tpu/ops/pallas/encoder_block.py:240",
         "ffn_block": "schemanet_tpu/ops/pallas/encoder_block.py:286",
         "ffn_block_fp32": "schemanet_tpu/ops/pallas/encoder_block.py:286",
         "sym_conv": "schemanet_tpu/ops/pallas/graphconv.py:68",
@@ -1971,11 +2055,14 @@ def main() -> None:
                 **{name: f"{name}_p0" for name in s0_kernels}}
     # each kernel's launches on the path that runs it most: stage 4 for the
     # SchemaNet kernels, stage 0 for the fused ViT kernels and the LayerNorm,
-    # stage 1 for VQ and fp32 ffn_block
+    # stage 1 for VQ and fp32 ffn_block and attn_block, stage 3 for the fp32
+    # head-mean
     launches = {**train_launches,
                 **{name: s0_launches[name] for name in (*s0_kernels, "fused_layernorm",
                                                         "fused_layernorm_bwd")},
-                "vq_assign": s1_launches["vq_assign"], "ffn_block_fp32": s1_launches["ffn_block"]}
+                "vq_assign": s1_launches["vq_assign"], "ffn_block_fp32": s1_launches["ffn_block"],
+                "attn_block_fp32": s1_launches["attn_block"],
+                "attn_block_fp32_hmean": s3_launches["attn_block_hmean"]}
     kernels = []
     for name in replaces:
         # the operations' type: where the work does not name it (VQ's does),

@@ -355,12 +355,10 @@ __device__ __forceinline__ void gemm_smem_a(const float* As, int lda, const T* W
   __syncthreads();
 }
 
-// fp32 LayerNorm of `rows_here` rows of x (row stride `dim`) into shared
-// memory, rounded to T: statistics as E[x^2] - E[x]^2 clamped at 0 (flax's
-// fast variance, as the TPU kernels compute it), then scale and bias in fp32.
-// One warp per row; rows past `rows_here` up to `BM` are zero-filled.
 // (mean, rstd) of one row of x, by the warp that calls it (lane c sums
-// columns c, c + 32, ...); every lane ends with the same bits
+// columns c, c + 32, ...): statistics as E[x^2] - E[x]^2 clamped at 0
+// (flax's fast variance, as the TPU kernels compute it); every lane ends
+// with the same bits
 template <typename T>
 __device__ __forceinline__ void layernorm_stats(const T* x, long base, int dim, float eps,
                                                 int lane, float& mean, float& rstd) {
@@ -380,31 +378,10 @@ __device__ __forceinline__ void layernorm_stats(const T* x, long base, int dim, 
   rstd = 1.f / sqrtf(var + eps);
 }
 
-template <typename T, int BM>
-__device__ __forceinline__ void layernorm_rows(const T* x, long row0, int rows_here, int dim,
-                                               const float* scale, const float* bias, float eps,
-                                               float* xs) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += kThreads / 32) {
-    float* dst = xs + r * dim;
-    if (r >= rows_here) {
-      for (int c = lane; c < dim; c += 32) dst[c] = 0.f;
-      continue;
-    }
-    const long base = (row0 + r) * (long)dim;
-    float mean, rstd;
-    layernorm_stats<T>(x, base, dim, eps, lane, mean, rstd);
-    for (int c = lane; c < dim; c += 32) {
-      const float v = Num<T>::load(x, base + c);
-      dst[c] = Num<T>::round((v - mean) * rstd * scale[c] + bias[c]);
-    }
-  }
-  __syncthreads();
-}
-
-// The same LayerNorm of bf16 rows, rounded to bf16 into a [BM][pitch] tile
-// (the A operand of a tensor-core product); rows past `rows_here` are zero.
-// The caller synchronises.
+// fp32 LayerNorm of `rows_here` bf16 rows of x (row stride `dim`) from row
+// row0, scale and bias in fp32, rounded to bf16 into a [BM][pitch] tile (the
+// A operand of a tensor-core product); one warp a row, rows past `rows_here`
+// up to BM zero. The caller synchronises.
 template <int BM>
 __device__ __forceinline__ void layernorm_rows_bf16(const bf16* x, long row0, int rows_here,
                                                     int dim, const float* scale,

@@ -11,219 +11,469 @@
 // halves are compute-bound once the intermediates stay on chip. On the TPU one
 // program held an item's whole qkv ([197, 576]) plus its [197, 197] fp32 score
 // tiles in VMEM; on Hopper that qkv alone (227 KB in bf16) fills a block's
-// shared memory. The design:
-//   * attn_block is two launches. (a) ln_qkv: LN1 and the qkv product for a
-//     tile of 32 rows x 64 columns, qkv to device memory (the one intermediate
-//     that leaves the chip). (b) attn_core: one block per (item, 16 query
-//     rows) loops over the heads; K and V stream through shared memory in
-//     64-key chunks, the [16, n] scores and the head sum stay in shared memory
-//     (no atomics: one block owns its rows of every head), then the out
-//     projection, bias and residual run in the same block.
-//   * ffn_block is one launch: LN2 of a row tile into shared memory, then
-//     the hidden width in chunks: fc1 + bias + gelu into shared memory, and
-//     the fc2 partial sums accumulate in registers. The [rows, 768] hidden
-//     state never reaches device memory.
+// shared memory. So attn_block writes qkv and the heads' outputs (mh) to
+// device memory between its products, and its [n, n] scores never leave the
+// chip; ffn_block is one launch whose [rows, 768] hidden state never leaves
+// it.
 // Routes by the storage type (ops/kernels/encoder_block.py attn_block_route
 // and ffn_block_route say which, and raise on what none takes):
-//   * attn_block: fp32 FMA on shared-memory tiles (ln_qkv_kernel,
-//     attn_core_kernel: tensor cores would mean TF32 and lose the 1e-4
-//     agreement the fp32 checks hold); bf16 the tensor-core route below.
+//   * attn_block: bf16 on the tensor cores (linear_tc_kernel around
+//     attention.cu's mhsa_tc kernels); fp32 by the 3xTF32 split on the TF32
+//     tensor cores (linear_tf32_kernel around attn_tf32_kernel), any n,
+//     head_dim up to 128. The split holds about fp32's accuracy where one
+//     TF32 product would not: each 8 of k is summed in a zeroed fragment
+//     and added in fp32 (the tensor cores truncate at every mma: chained
+//     over all of k their sums drift to ~10x fp32's error, over 32 of k the
+//     head-mean's error passed the plain fp32 version's).
 //   * ffn_block: bf16 ffn_tc_kernel (mma.sync m16n8k16, the fused_mlp
 //     forward's chunk loop of ffn.cuh behind an LN2 prologue); fp32
-//     ffn_tf32_kernel (mma.sync m16n8k8 .tf32 by the 3xTF32 split, which
-//     keeps about fp32's accuracy).
+//     ffn_tf32_kernel (mma.sync m16n8k8 .tf32 by the 3xTF32 split).
 //
 // Numerics follow the TPU kernels: LN statistics in fp32 (E[x^2] - E[x]^2),
 // every product accumulated in fp32 and rounded once to T, bias added in T
 // after that rounding, q scaled in T, scores and softmax in fp32, the
 // probabilities rounded to T before the AV product, the head-mean summed in
 // fp32 over heads in order and scaled by 1/H, gelu in fp32 with the
-// Abramowitz-Stegun erf (ffn.cuh's gelu_as), the residual added in T.
+// Abramowitz-Stegun erf (ffn.cuh's gelu_as), the residual added in T. The
+// fp32 attention takes its softmax online over chunks of 32 keys (running
+// max, sums rescaled), dividing by the row's sum after the AV product: the
+// same function, rounded in another order.
 #include "ffn.cuh"
 
 namespace sn {
 
 // ---------------------------------------------------------------------------
-// (a) LN1 + qkv projection: qkv[r, :] = round(LN(x[r]) Wqkv^T) + bqkv
+// fp32 route of attn_block (attn_block_route's "split_tf32"): every product
+// on the TF32 tensor cores (mma.sync m16n8k8) by the 3xTF32 split of
+// common.cuh, each value split into hi and lo planes once, as it is stored
+// into shared memory. Four launches:
+//   (a) ln_stats_kernel: LN1's (mean, rstd) of every row, one warp a row, to
+//       an fp32 scratch, so the product blocks below, which each take 128
+//       rows, start without a serial walk over their rows;
+//   (b) linear_tf32_kernel<true>: qkv = LN1(x) Wqkv^T + bqkv;
+//   (c) attn_tf32_kernel<DP>: mh = softmax(q_s K^T) V per head into an fp32
+//       scratch [rows, H d], and, where hmean is not null, the head-mean of
+//       q_s K^T;
+//   (d) linear_tf32_kernel<false>: out = x + (mh Wo^T + bo).
+// Raw fp32 chunks reach shared memory by cp.async (16-byte copies where the
+// widths and pointers allow, else 4-byte), in flight while the previous
+// chunk is multiplied; a split pass then writes the chunk's planes (the
+// split done once an element a block, never per mma). Every 8 of k (d in
+// the scores, keys in the AV product) is summed in a zeroed fragment and
+// added in fp32.
 // ---------------------------------------------------------------------------
-constexpr int kQkvBM = 32, kQkvBN = 64, kQkvKC = 32;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ln_qkv_kernel(const T* __restrict__ x, const float* __restrict__ ln_scale,
-                  const float* __restrict__ ln_bias, const T* __restrict__ wqkv,
-                  const T* __restrict__ bqkv, T* __restrict__ qkv, int rows, int dim, int n3,
-                  float eps) {
-  extern __shared__ float smem[];
-  float* xs = smem;                    // [BM][dim]
-  float* bs = smem + kQkvBM * dim;     // [KC][BN+1]
-  const long row0 = (long)blockIdx.x * kQkvBM;
-  const int n0 = blockIdx.y * kQkvBN;
-  const int rows_here = min(kQkvBM, rows - (int)row0);
-  layernorm_rows<T, kQkvBM>(x, row0, rows_here, dim, ln_scale, ln_bias, eps, xs);
-
-  constexpr int TM = 2, TN = 4;
-  float acc[TM][TN] = {};
-  gemm_smem_a<T, kQkvBM, kQkvBN, TM, TN, kQkvKC>(xs, dim, wqkv, dim, dim, n0, n3, bs, acc);
-  const int tx = threadIdx.x % (kQkvBN / TN), ty = threadIdx.x / (kQkvBN / TN);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ty * TM + i;
-    if (r >= rows_here) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = n0 + tx * TN + j;
-      if (c >= n3) continue;
-      const float v = Num<T>::round(acc[i][j]) + Num<T>::load(bqkv, c);
-      Num<T>::store(qkv, (row0 + r) * n3 + c, v);
+// Rows [row0, row0 + R) and columns [col0, col0 + C) of a row-major fp32
+// matrix (row stride ld) into a dense [R][C] shared chunk by cp.async,
+// THREADS threads; values at rows >= nrows or columns >= col_end are zero.
+// vec: 16-byte copies (ld, col0 and col_end multiples of 4 and src 16-byte
+// aligned), else 4-byte ones. The caller commits the group.
+template <int R, int C, int THREADS>
+__device__ __forceinline__ void stage_raw_f32(float* dst, const float* src, long ld, long nrows,
+                                              long row0, int col0, int col_end, bool vec) {
+  if (vec) {
+    constexpr int kQuads = C / 4;
+    for (int idx = threadIdx.x; idx < R * kQuads; idx += THREADS) {
+      const int r = idx / kQuads, c = idx % kQuads * 4, col = col0 + c;
+      const long row = row0 + r;
+      const bool in = row < nrows && col < col_end;
+      cp_async16(dst + r * C + c, in ? src + row * ld + col : src, in ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < R * C; idx += THREADS) {
+      const int r = idx / C, col = col0 + idx % C;
+      const long row = row0 + r;
+      const bool in = row < nrows && col < col_end;
+      cp_async_ca<4>(dst + idx, in ? src + row * ld + col : src, in ? 4 : 0);
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// (b) attention core + out projection + residual (+ head-mean of the scores)
-// ---------------------------------------------------------------------------
-constexpr int kBQ = 16;       // query rows per block
-constexpr int kKeyChunk = 64; // keys per K/V chunk in shared memory
-constexpr int kOutBN = 64, kOutKC = 32;
-constexpr int kMaxHeadDim = 128;
-constexpr int kPerThread = kBQ * kMaxHeadDim / kThreads;  // AV outputs per thread
+// A dense [R][C] fp32 chunk split into TF32 planes hi and lo ([R][P]
+// words), THREADS threads. A thread takes the quad of columns split_col<C>()
+// of rows split_row<C>() + j THREADS / (C / 4), the same in every chunk;
+// each quad v of its j-th row passes through f(j, v) first.
+template <int C>
+__device__ __forceinline__ int split_row() { return threadIdx.x / (C / 4); }
+template <int C>
+__device__ __forceinline__ int split_col() { return threadIdx.x % (C / 4) * 4; }
 
-__host__ __device__ inline size_t attn_core_smem_floats(int n, int d, int hd, bool hmean) {
-  return (size_t)kBQ * d                 // qs   [BQ][d]
-         + (size_t)kKeyChunk * (d + 1)   // kv   [chunk][d+1]
-         + (size_t)kBQ * n               // ss   [BQ][n] scores, then probabilities
-         + (hmean ? (size_t)kBQ * n : 0) // hs   [BQ][n] head sum
-         + (size_t)kBQ * hd              // os   [BQ][H*d] attention output
-         + (size_t)kOutKC * (kOutBN + 1);// bs   out-projection weight chunk
+template <int R, int C, int P, int THREADS, typename F>
+__device__ __forceinline__ void split_chunk(const float* raw, uint32_t* hi, uint32_t* lo, F f) {
+  constexpr int kStep = THREADS / (C / 4);  // rows a pass of the block
+  static_assert(THREADS % (C / 4) == 0 && R % kStep == 0, "whole quads a thread");
+  const int r0 = split_row<C>(), c = split_col<C>();
+#pragma unroll
+  for (int j = 0; j < R / kStep; ++j) {
+    const int r = r0 + j * kStep;
+    uint4 h, l;
+    tf32_split4(f(j, *reinterpret_cast<const float4*>(raw + r * C + c)), h, l);
+    *reinterpret_cast<uint4*>(hi + r * P + c) = h;
+    *reinterpret_cast<uint4*>(lo + r * P + c) = l;
+  }
 }
 
-template <typename T, bool kHmean>
+struct Identity4 {
+  __device__ __forceinline__ float4 operator()(int, float4 v) const { return v; }
+};
+
+// the planes as bf16 pairs for the fragment loaders: pitch and k doubled
+__device__ __forceinline__ const bf16* tf32_as_bf16(const uint32_t* p) {
+  return reinterpret_cast<const bf16*>(p);
+}
+
+// (a) (mean, rstd) of each row of x [rows, dim], one warp a row
 __global__ void __launch_bounds__(kThreads)
-    attn_core_kernel(const T* __restrict__ x, const T* __restrict__ qkv,
-                     const T* __restrict__ wo, const T* __restrict__ bo, T* __restrict__ out,
-                     T* __restrict__ hmean, int n, int heads, int d, int dim, float scale) {
-  extern __shared__ float smem[];
+    ln_stats_kernel(const float* __restrict__ x, float2* __restrict__ stats, int rows, int dim,
+                    float eps) {
+  const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float mean, rstd;
+  layernorm_stats<float>(x, (long)row * dim, dim, eps, lane, mean, rstd);
+  if (lane == 0) stats[row] = make_float2(mean, rstd);
+}
+
+// (b), (d): y = [LN](a) W^T + bias [+ resid], a [rows, K], W [N, K]. One
+// block of 8 warps a 128 x 64 tile of y, each warp 32 rows x 32 columns
+// (2 x 4 fragments: 4 ldmatrix of A and 4 of W a step of 8 of k for 24 mma);
+// k in chunks of 32. Shared memory: the raw chunks of A and W (24 KB), their
+// planes (54 KB) and the rows' LN statistics (1 KB), two blocks an SM.
+constexpr int kLtRows = 128, kLtCols = 64, kLtK = 32;
+constexpr int kLtPitch = kLtK + 4;  // words: the 8 rows an ldmatrix reads fall on distinct banks
+
+struct LinearTf32Smem {
+  static constexpr int kRawA = kLtRows * kLtK, kRawW = kLtCols * kLtK;
+  static constexpr int kA = kLtRows * kLtPitch, kW = kLtCols * kLtPitch;  // one plane each
+  static constexpr size_t kBytes = sizeof(float) * (kRawA + kRawW + 2 * (kA + kW) + 2 * kLtRows);
+};
+
+template <bool kLn>
+__global__ void __launch_bounds__(kThreads, 2)
+    linear_tf32_kernel(const float* __restrict__ a, const float2* __restrict__ stats,
+                       const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
+                       const float* __restrict__ w, const float* __restrict__ bias,
+                       const float* __restrict__ resid, float* __restrict__ y, int rows, int K,
+                       int N, int vec) {
+  using S = LinearTf32Smem;
+  constexpr int P = kLtPitch;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* raw_a = reinterpret_cast<float*>(smem_raw);
+  float* raw_w = raw_a + S::kRawA;
+  uint32_t* a_hi = reinterpret_cast<uint32_t*>(raw_w + S::kRawW);
+  uint32_t* a_lo = a_hi + S::kA;
+  uint32_t* w_hi = a_lo + S::kA;
+  uint32_t* w_lo = w_hi + S::kW;
+  float2* st = reinterpret_cast<float2*>(w_lo + S::kW);  // (mean, rstd) of the block's rows
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp >> 1, wc = warp & 1;  // rows 32 wr.., columns 32 wc.. of the tile
+  const long row0 = (long)blockIdx.x * kLtRows;
+  const int n0 = blockIdx.y * kLtCols;
+  const int chunks = (K + kLtK - 1) / kLtK;
+  auto stage = [&](int c) {
+    stage_raw_f32<kLtRows, kLtK, kThreads>(raw_a, a, K, rows, row0, c * kLtK, K, vec);
+    stage_raw_f32<kLtCols, kLtK, kThreads>(raw_w, w, K, N, n0, c * kLtK, K, vec);
+    cp_async_commit();
+  };
+
+  stage(0);
+  // LN: the block's rows' statistics, loaded once (rows past the end take
+  // (0, 0): their values are never stored)
+  if (kLn && threadIdx.x < kLtRows)
+    st[threadIdx.x] = row0 + threadIdx.x < rows ? stats[row0 + threadIdx.x] : make_float2(0.f, 0.f);
+  constexpr int kSplitStep = kThreads / (kLtK / 4);  // rows apart of a thread's split quads
+  float acc[2][4][4] = {};
+  for (int c = 0; c < chunks; ++c) {
+    const int k0 = c * kLtK;
+    float lg[4] = {}, lb[4] = {};  // LN's scale and bias at this thread's columns, 0 past K
+    if (kLn) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = k0 + split_col<kLtK>() + q;
+        lg[q] = k < K ? ln_scale[k] : 0.f;
+        lb[q] = k < K ? ln_bias[k] : 0.f;
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // chunk c has landed, and every warp is done with chunk c - 1's planes
+    split_chunk<kLtRows, kLtK, P, kThreads>(raw_a, a_hi, a_lo, [&](int j, float4 v) {
+      if (!kLn) return v;
+      const float2 s = st[split_row<kLtK>() + j * kSplitStep];
+      return make_float4((v.x - s.x) * s.y * lg[0] + lb[0], (v.y - s.x) * s.y * lg[1] + lb[1],
+                         (v.z - s.x) * s.y * lg[2] + lb[2], (v.w - s.x) * s.y * lg[3] + lb[3]);
+    });
+    split_chunk<kLtCols, kLtK, P, kThreads>(raw_w, w_hi, w_lo, Identity4());
+    __syncthreads();  // the planes are in and the raw chunks free
+    if (c + 1 < chunks) stage(c + 1);  // in flight while the tensor cores work
+
+#pragma unroll 1  // unrolled, two steps' fragments in flight pass 128 registers and spill
+    for (int ks = 0; ks < kLtK / 8; ++ks) {
+      float t[2][4][4] = {};  // this 8 of k in a zeroed fragment
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        ldsm_a(ah[mi], tf32_as_bf16(a_hi), 2 * P, wr * 32 + mi * 16, ks * 16, lane);
+        ldsm_a(al[mi], tf32_as_bf16(a_lo), 2 * P, wr * 32 + mi * 16, ks * 16, lane);
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bh[4], bl[4];
+        ldsm_b_nk(bh, tf32_as_bf16(w_hi), 2 * P, wc * 32 + np * 16, ks * 16, lane);
+        ldsm_b_nk(bl, tf32_as_bf16(w_lo), 2 * P, wc * 32 + np * 16, ks * 16, lane);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma1688_split(t[mi][2 * np], ah[mi], al[mi], bh[0], bh[1], bl[0], bl[1]);
+          mma1688_split(t[mi][2 * np + 1], ah[mi], al[mi], bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += t[mi][ni][e];
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long row = row0 + wr * 32 + mi * 16 + (lane >> 2) + (e >> 1) * 8;
+        const int col = n0 + wc * 32 + ni * 8 + (lane & 3) * 2 + (e & 1);
+        if (row >= rows || col >= N) continue;
+        const float v = acc[mi][ni][e] + bias[col];
+        y[row * N + col] = kLn ? v : resid[row * N + col] + v;
+      }
+}
+
+// (c) The attention of qkv [bs, n, (3, H, d)] into mh [bs, n, H d]: one
+// block of 4 warps per (64 query rows, head, item), each warp 16 rows; with
+// hmean one block per (64 query rows, item) takes every head in order. q_s
+// = q * scale is split into planes once a head; K and V stream through in
+// chunks of 32 keys. A chunk: S = q_s K^T (each 8 of d in a zeroed
+// fragment), keys past n masked, the row's running max m and the lane's
+// running sum l rescaled by exp(m_old - m), p = exp(s - m); then o = o
+// exp(m_old - m) + p V (each 8 keys in a zeroed fragment). p goes from the C
+// fragment of S straight into the A fragment of the AV product without a
+// shuffle: lane t holds keys 2 (t % 4) and 2 (t % 4) + 1 of each 8, which
+// become k slots t % 4 and t % 4 + 4, and V's B fragment is read from the
+// same two keys (a V row pitch of 4 mod 16 words keeps those 32 loads on
+// distinct banks). V rows past n are zero (the cp.async zero fill): their p
+// is 0, and 0 x stale data could be NaN. mh = o / l at the end. The
+// head-mean adds each head's s into hmean [bs, n, n] fp32 by the lane that
+// holds it (the same lane every head: h = 0 stores, the last head scales by
+// 1/H), so the sum runs in head order without atomics. DP: head_dim padded
+// to 32, 64 or 128 (zero columns); shared memory 45, 86 or 168 KB.
+constexpr int kAtRows = 64, kAtKeys = 32, kAtThreads = 128;
+
+template <int DP>
+struct AttnTf32Smem {
+  static constexpr int kPitch = DP + 4;         // words, 4 mod 16 (see above)
+  static constexpr int kQ = kAtRows * kPitch;   // one plane of q_s
+  static constexpr int kKV = kAtKeys * kPitch;  // one plane of a K or V chunk
+  static constexpr int kRaw = kAtKeys * DP;     // a raw K or V chunk
+  static constexpr size_t kBytes = sizeof(float) * (2 * kQ + 4 * kKV + 2 * kRaw);
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kAtThreads)
+    attn_tf32_kernel(const float* __restrict__ qkv, float* __restrict__ mh,
+                     float* __restrict__ hmean, int n, int heads, int d, float scale, int vec) {
+  using S = AttnTf32Smem<DP>;
+  constexpr int P = S::kPitch, NT = DP / 8;  // n8 tiles of d
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint32_t* q_hi = reinterpret_cast<uint32_t*>(smem_raw);
+  uint32_t* q_lo = q_hi + S::kQ;
+  uint32_t* k_hi = q_lo + S::kQ;
+  uint32_t* k_lo = k_hi + S::kKV;
+  uint32_t* v_hi = k_lo + S::kKV;
+  uint32_t* v_lo = v_hi + S::kKV;
+  float* raw_k = reinterpret_cast<float*>(v_lo + S::kKV);
+  float* raw_v = raw_k + S::kRaw;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * kAtRows, b = blockIdx.z;
+  const int i0 = q0 + warp * 16 + (lane >> 2);  // rows i0 and i0 + 8 of the C fragments
   const int hd = heads * d, n3 = 3 * hd;
-  float* qs = smem;
-  float* kv = qs + kBQ * d;
-  float* ss = kv + kKeyChunk * (d + 1);
-  float* hs = ss + kBQ * n;
-  float* os = hs + (kHmean ? kBQ * n : 0);
-  float* bs = os + kBQ * hd;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int rows_here = min(kBQ, n - q0);
   const long item = (long)b * n;
-  const float scale_t = Num<T>::round(scale);
+  const int chunks = (n + kAtKeys - 1) / kAtKeys;
+  const int h_begin = hmean ? 0 : blockIdx.y, h_end = hmean ? heads : blockIdx.y + 1;
+  const float inv_h = (float)(1.0 / heads);
+  const float neg_inf = -__int_as_float(0x7f800000);
+  auto stage = [&](int h, int c) {  // raw K and V of keys 32 c.. of head h
+    const long key0 = item + c * kAtKeys;
+    stage_raw_f32<kAtKeys, DP, kAtThreads>(raw_k, qkv, n3, item + n, key0, (heads + h) * d,
+                                           (heads + h + 1) * d, vec);
+    stage_raw_f32<kAtKeys, DP, kAtThreads>(raw_v, qkv, n3, item + n, key0, (2 * heads + h) * d,
+                                           (2 * heads + h + 1) * d, vec);
+    cp_async_commit();
+  };
 
-  for (int h = 0; h < heads; ++h) {
-    // q rows of this head, scaled in T
-    for (int idx = tid; idx < kBQ * d; idx += kThreads) {
-      const int r = idx / d, c = idx % d;
-      qs[idx] = r < rows_here
-                    ? Num<T>::round(Num<T>::load(qkv, (item + q0 + r) * n3 + h * d + c) * scale_t)
-                    : 0.f;
+  for (int h = h_begin; h < h_end; ++h) {
+    if (h > h_begin) __syncthreads();  // every warp is done with the last head's q planes
+    stage(h, 0);
+    for (int idx = threadIdx.x; idx < kAtRows * DP; idx += kAtThreads) {
+      const int r = idx / DP, c = idx % DP;
+      const float v = q0 + r < n && c < d ? qkv[(item + q0 + r) * n3 + h * d + c] * scale : 0.f;
+      tf32_split(v, q_hi[r * P + c], q_lo[r * P + c]);
     }
-    // scores S = q k^T in fp32, one key chunk at a time
-    for (int j0 = 0; j0 < n; j0 += kKeyChunk) {
-      const int keys = min(kKeyChunk, n - j0);
+    float m[2] = {neg_inf, neg_inf}, l[2] = {0.f, 0.f};
+    float o[NT][4] = {};
+    for (int c = 0; c < chunks; ++c) {
+      cp_async_wait<0>();
+      __syncthreads();  // chunk c and the q planes are in; every warp is done with chunk c - 1
+      split_chunk<kAtKeys, DP, P, kAtThreads>(raw_k, k_hi, k_lo, Identity4());
+      split_chunk<kAtKeys, DP, P, kAtThreads>(raw_v, v_hi, v_lo, Identity4());
       __syncthreads();
-      for (int idx = tid; idx < keys * d; idx += kThreads) {
-        const int jj = idx / d, c = idx % d;
-        kv[jj * (d + 1) + c] = Num<T>::load(qkv, (item + j0 + jj) * n3 + (heads + h) * d + c);
-      }
-      __syncthreads();
-      for (int idx = tid; idx < kBQ * keys; idx += kThreads) {
-        const int r = idx / keys, jj = idx % keys;
-        const float* q = qs + r * d;
-        const float* k = kv + jj * (d + 1);
-        float s = 0.f;
-        for (int c = 0; c < d; ++c) s = fmaf(q[c], k[c], s);
-        ss[r * n + j0 + jj] = s;
-      }
-    }
-    __syncthreads();
-    if (kHmean) {
-      for (int idx = tid; idx < kBQ * n; idx += kThreads)
-        hs[idx] = h == 0 ? ss[idx] : hs[idx] + ss[idx];
-      __syncthreads();  // the softmax below overwrites ss in place
-    }
-    // fp32 softmax per row, probabilities rounded to T (one warp per row)
-    for (int r = warp; r < kBQ; r += kThreads / 32) {
-      float* row = ss + r * n;
-      float m = -__int_as_float(0x7f800000);  // -inf
-      for (int j = lane; j < n; j += 32) m = fmaxf(m, row[j]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      float sum = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        const float e = expf(row[j] - m);
-        row[j] = e;
-        sum += e;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      for (int j = lane; j < n; j += 32) row[j] = Num<T>::round(row[j] / sum);
-    }
-    // out_h = P v, fp32 accumulation, rounded once to T
-    float acc[kPerThread] = {};
-    for (int j0 = 0; j0 < n; j0 += kKeyChunk) {
-      const int keys = min(kKeyChunk, n - j0);
-      __syncthreads();
-      for (int idx = tid; idx < keys * d; idx += kThreads) {
-        const int jj = idx / d, c = idx % d;
-        kv[jj * (d + 1) + c] =
-            Num<T>::load(qkv, (item + j0 + jj) * n3 + (2 * heads + h) * d + c);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int t = 0; t < kPerThread; ++t) {
-        const int idx = tid + t * kThreads;
-        if (idx >= kBQ * d) break;
-        const int r = idx / d, c = idx % d;
-        const float* p = ss + r * n + j0;
-        float a = acc[t];
-        for (int jj = 0; jj < keys; ++jj) a = fmaf(p[jj], kv[jj * (d + 1) + c], a);
-        acc[t] = a;
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < kPerThread; ++t) {
-      const int idx = tid + t * kThreads;
-      if (idx >= kBQ * d) break;
-      const int r = idx / d, c = idx % d;
-      os[r * hd + h * d + c] = Num<T>::round(acc[t]);
-    }
-    __syncthreads();
-  }
+      if (c + 1 < chunks) stage(h, c + 1);
 
-  if (kHmean) {
-    const float inv_h = (float)(1.0 / heads);
-    for (int idx = tid; idx < rows_here * n; idx += kThreads) {
-      const int r = idx / n, j = idx % n;
-      Num<T>::store(hmean, (item + q0 + r) * n + j, hs[r * n + j] * inv_h);
-    }
-  }
-
-  // out projection + bias + residual, 64 output columns at a time
-  constexpr int TM = 1, TN = 4;
-  const int tx = tid % (kOutBN / TN), ty = tid / (kOutBN / TN);
-  for (int n0 = 0; n0 < dim; n0 += kOutBN) {
-    float acc[TM][TN] = {};
-    gemm_smem_a<T, kBQ, kOutBN, TM, TN, kOutKC>(os, hd, wo, hd, hd, n0, dim, bs, acc);
-    const int r = ty;
-    if (r >= rows_here) continue;
+      // s = q_s K^T: this warp's 16 rows x the chunk's 32 keys (4 n8 tiles)
+      float s[4][4] = {};
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = n0 + tx * TN + j;
-      if (c >= dim) continue;
-      const long o = (item + q0 + r) * dim + c;
-      const float proj = Num<T>::round(Num<T>::round(acc[0][j]) + Num<T>::load(bo, c));
-      Num<T>::store(out, o, Num<T>::load(x, o) + proj);
+      for (int ks = 0; ks < DP / 8; ++ks) {
+        float t[4][4] = {};  // this 8 of d in a zeroed fragment
+        uint32_t ah[4], al[4];
+        ldsm_a(ah, tf32_as_bf16(q_hi), 2 * P, warp * 16, ks * 16, lane);
+        ldsm_a(al, tf32_as_bf16(q_lo), 2 * P, warp * 16, ks * 16, lane);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t bh[4], bl[4];
+          ldsm_b_nk(bh, tf32_as_bf16(k_hi), 2 * P, np * 16, ks * 16, lane);
+          ldsm_b_nk(bl, tf32_as_bf16(k_lo), 2 * P, np * 16, ks * 16, lane);
+          mma1688_split(t[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma1688_split(t[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] += t[nt][e];
+      }
+
+      // the head-mean's sum, and the keys past n masked
+      float mc[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0 + (e >> 1) * 8, j = c * kAtKeys + nt * 8 + (lane & 3) * 2 + (e & 1);
+          if (hmean != nullptr && i < n && j < n) {
+            float* acc = hmean + (item + i) * n + j;
+            const float v = h == 0 ? s[nt][e] : *acc + s[nt][e];
+            *acc = h == heads - 1 ? v * inv_h : v;
+          }
+          if (j >= n) s[nt][e] = neg_inf;
+          mc[e >> 1] = fmaxf(mc[e >> 1], s[nt][e]);
+        }
+      // the online softmax: the row's max over its 4 lanes (the chunk holds
+      // key 32 c < n, so it is finite), the old sums rescaled
+      float alpha[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        mc[half] = fmaxf(mc[half], __shfl_xor_sync(0xffffffffu, mc[half], 1));
+        mc[half] = fmaxf(mc[half], __shfl_xor_sync(0xffffffffu, mc[half], 2));
+        alpha[half] = expf(m[half] - mc[half]);  // 0 on the first chunk
+        m[half] = mc[half];
+        l[half] *= alpha[half];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = expf(s[nt][e] - m[e >> 1]);  // 0 past n
+          l[e >> 1] += s[nt][e];
+        }
+
+      // o = o alpha + p V over the chunk, each 8 keys in a zeroed fragment
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nt][e] *= alpha[e >> 1];
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt) {
+        uint32_t ah[4], al[4];  // slots t % 4 and t % 4 + 4: keys 2 (t % 4) and 2 (t % 4) + 1
+        tf32_split(s[kt][0], ah[0], al[0]);
+        tf32_split(s[kt][2], ah[1], al[1]);
+        tf32_split(s[kt][1], ah[2], al[2]);
+        tf32_split(s[kt][3], ah[3], al[3]);
+        const int off = (kt * 8 + (lane & 3) * 2) * P + (lane >> 2);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float t[4] = {};
+          const uint32_t* vh = v_hi + off + nt * 8;
+          const uint32_t* vl = v_lo + off + nt * 8;
+          mma1688_split(t, ah, al, vh[0], vh[P], vl[0], vl[P]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[nt][e] += t[e];
+        }
+      }
     }
+
+    // the row's sum over its 4 lanes (every lane ends with the same bits), then mh = o / l
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
+      l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + (e >> 1) * 8, col = nt * 8 + (lane & 3) * 2 + (e & 1);
+        if (i < n && col < d) mh[(item + i) * hd + h * d + col] = o[nt][e] / l[e >> 1];
+      }
   }
+}
+
+template <bool kLn>
+cudaError_t linear_tf32(const float* a, const float2* stats, const float* ln_scale,
+                        const float* ln_bias, const float* w, const float* bias,
+                        const float* resid, float* y, int rows, int K, int N, bool vec,
+                        cudaStream_t stream) {
+  const size_t bytes = LinearTf32Smem::kBytes;
+  cudaError_t err = allow_smem(linear_tf32_kernel<kLn>, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((rows + kLtRows - 1) / kLtRows, (N + kLtCols - 1) / kLtCols);
+  linear_tf32_kernel<kLn><<<grid, kThreads, bytes, stream>>>(a, stats, ln_scale, ln_bias, w, bias,
+                                                             resid, y, rows, K, N, vec);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t attn_tf32(const float* qkv, float* mh, float* hmean, int bs, int n, int heads, int d,
+                      float scale, bool vec, cudaStream_t stream) {
+  const size_t bytes = AttnTf32Smem<DP>::kBytes;
+  cudaError_t err = allow_smem(attn_tf32_kernel<DP>, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((n + kAtRows - 1) / kAtRows, hmean ? 1 : heads, bs);
+  attn_tf32_kernel<DP><<<grid, kAtThreads, bytes, stream>>>(qkv, mh, hmean, n, heads, d, scale,
+                                                            vec);
+  return cudaGetLastError();
+}
+
+// head_dim 1-128, any n and width; qkv, mh and stats fp32 scratch
+cudaError_t attn_block_tf32(const float* x, const float* g, const float* be, const float* wqkv,
+                            const float* bqkv, const float* wo, const float* bo, float* qkv,
+                            float* mh, float2* stats, float* out, float* hmean, int bs, int n,
+                            int dim, int heads, int d, float eps, float scale,
+                            cudaStream_t stream) {
+  const int rows = bs * n, hd = heads * d;
+  if (d < 1 || d > 128 || mh == nullptr || stats == nullptr) return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  constexpr int kWarps = kThreads / 32;
+  ln_stats_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(x, stats, rows, dim, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = linear_tf32<true>(x, stats, g, be, wqkv, bqkv, nullptr, qkv, rows, dim, 3 * hd,
+                          dim % 4 == 0 && aligned(x) && aligned(wqkv), stream);
+  if (err != cudaSuccess) return err;
+  const bool vec = d % 4 == 0 && aligned(qkv);
+  err = d <= 32   ? attn_tf32<32>(qkv, mh, hmean, bs, n, heads, d, scale, vec, stream)
+        : d <= 64 ? attn_tf32<64>(qkv, mh, hmean, bs, n, heads, d, scale, vec, stream)
+                  : attn_tf32<128>(qkv, mh, hmean, bs, n, heads, d, scale, vec, stream);
+  if (err != cudaSuccess) return err;
+  return linear_tf32<false>(mh, nullptr, nullptr, nullptr, wo, bo, x, out, rows, hd, dim,
+                            hd % 4 == 0 && aligned(mh) && aligned(wo), stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -404,9 +654,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int j = 0; j < kW2Vals; ++j) w2_put(j, w2_value(c, j));
     }
   };
-  // the planes as bf16 pairs for the fragment loaders: pitch and k doubled
-  auto h16 = [](const uint32_t* p) { return reinterpret_cast<const bf16*>(p); };
-
   load(0);
   layernorm_rows_tf32<RT>(x, row0, (int)min((long)RT, rows - row0), DIM, ln_scale, ln_bias, eps,
                           a_hi, a_lo, P);  // while chunk 0's loads are in flight
@@ -431,10 +678,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int s = 0; s < 4; ++s) {
           const int k0 = (kg * 4 + s) * 16;  // in bf16 units: 8 of k
           uint32_t ah[4], al[4], bh[4], bl[4];
-          ldsm_a(ah, h16(a_hi), 2 * P, wr * 16, k0, lane);
-          ldsm_a(al, h16(a_lo), 2 * P, wr * 16, k0, lane);
-          ldsm_b_nk(bh, h16(w1_hi), 2 * P, g * 16, k0, lane);
-          ldsm_b_nk(bl, h16(w1_lo), 2 * P, g * 16, k0, lane);
+          ldsm_a(ah, tf32_as_bf16(a_hi), 2 * P, wr * 16, k0, lane);
+          ldsm_a(al, tf32_as_bf16(a_lo), 2 * P, wr * 16, k0, lane);
+          ldsm_b_nk(bh, tf32_as_bf16(w1_hi), 2 * P, g * 16, k0, lane);
+          ldsm_b_nk(bl, tf32_as_bf16(w1_lo), 2 * P, g * 16, k0, lane);
           mma1688_split(t[0], ah, al, bh[0], bh[1], bl[0], bl[1]);
           mma1688_split(t[1], ah, al, bh[2], bh[3], bl[2], bl[3]);
         }
@@ -443,13 +690,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int kp = 0; kp < 2; ++kp) {
           const int k0 = 2 * kq * (DIM / KS) + (kg * 2 + kp) * 32;  // in bf16 units: 16 of k
           uint32_t bh[4], bl[4];
-          ldsm_b_nk_k32(bh, h16(w1_hi), 2 * P, g * 8, k0, lane);
-          ldsm_b_nk_k32(bl, h16(w1_lo), 2 * P, g * 8, k0, lane);
+          ldsm_b_nk_k32(bh, tf32_as_bf16(w1_hi), 2 * P, g * 8, k0, lane);
+          ldsm_b_nk_k32(bl, tf32_as_bf16(w1_lo), 2 * P, g * 8, k0, lane);
 #pragma unroll
           for (int s = 0; s < 2; ++s) {
             uint32_t ah[4], al[4];
-            ldsm_a(ah, h16(a_hi), 2 * P, wr * 16, k0 + s * 16, lane);
-            ldsm_a(al, h16(a_lo), 2 * P, wr * 16, k0 + s * 16, lane);
+            ldsm_a(ah, tf32_as_bf16(a_hi), 2 * P, wr * 16, k0 + s * 16, lane);
+            ldsm_a(al, tf32_as_bf16(a_lo), 2 * P, wr * 16, k0 + s * 16, lane);
             mma1688_split(t[0], ah, al, bh[2 * s], bh[2 * s + 1], bl[2 * s], bl[2 * s + 1]);
           }
         }
@@ -502,16 +749,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t ah[CH / 8][4], al[CH / 8][4];
 #pragma unroll
     for (int ks = 0; ks < CH / 8; ++ks) {
-      ldsm_a(ah[ks], h16(act_hi), 2 * AP, wr * 16, ks * 16, lane);
-      ldsm_a(al[ks], h16(act_lo), 2 * AP, wr * 16, ks * 16, lane);
+      ldsm_a(ah[ks], tf32_as_bf16(act_hi), 2 * AP, wr * 16, ks * 16, lane);
+      ldsm_a(al[ks], tf32_as_bf16(act_lo), 2 * AP, wr * 16, ks * 16, lane);
     }
     auto fc2_tiles = [&](int nb) {  // output tiles 2 nb and 2 nb + 1
       float t[2][4] = {};
 #pragma unroll
       for (int ks = 0; ks < CH / 8; ++ks) {
         uint32_t bh[4], bl[4];
-        ldsm_b_nk(bh, h16(w2_hi), 2 * AP, wc * L::kOutCols + nb * 16, ks * 16, lane);
-        ldsm_b_nk(bl, h16(w2_lo), 2 * AP, wc * L::kOutCols + nb * 16, ks * 16, lane);
+        ldsm_b_nk(bh, tf32_as_bf16(w2_hi), 2 * AP, wc * L::kOutCols + nb * 16, ks * 16, lane);
+        ldsm_b_nk(bl, tf32_as_bf16(w2_lo), 2 * AP, wc * L::kOutCols + nb * 16, ks * 16, lane);
         mma1688_split(t[0], ah[ks], al[ks], bh[0], bh[1], bl[0], bl[1]);
         mma1688_split(t[1], ah[ks], al[ks], bh[2], bh[3], bl[2], bl[3]);
       }
@@ -548,46 +795,6 @@ __global__ void __launch_bounds__(kThreads, 1)
           make_float2(xv.x + (oacc[nt][half * 2] + b2[rc.y]),
                       xv.y + (oacc[nt][half * 2 + 1] + b2[rc.y + 1]));
     }
-}
-
-template <typename T>
-cudaError_t attn_block_impl(const void* x, const void* g, const void* be, const void* wqkv,
-                            const void* bqkv, const void* wo, const void* bo, void* qkv,
-                            void* out, void* hmean, int bs, int n, int dim, int heads, int d,
-                            float eps, float scale, cudaStream_t stream) {
-  const int rows = bs * n, n3 = 3 * heads * d, hd = heads * d;
-  {
-    const size_t bytes = sizeof(float) * ((size_t)kQkvBM * dim + kQkvKC * (kQkvBN + 1));
-    cudaError_t err = allow_smem(ln_qkv_kernel<T>, bytes);
-    if (err != cudaSuccess) return err;
-    dim3 grid((rows + kQkvBM - 1) / kQkvBM, (n3 + kQkvBN - 1) / kQkvBN);
-    ln_qkv_kernel<T><<<grid, kThreads, bytes, stream>>>(static_cast<const T*>(x),
-              static_cast<const float*>(g), static_cast<const float*>(be),
-              static_cast<const T*>(wqkv), static_cast<const T*>(bqkv), static_cast<T*>(qkv),
-              rows, dim, n3, eps);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  const bool with_hmean = hmean != nullptr;
-  const size_t bytes = sizeof(float) * attn_core_smem_floats(n, d, hd, with_hmean);
-  dim3 grid((n + kBQ - 1) / kBQ, bs);
-  cudaError_t err;
-  if (with_hmean) {
-    err = allow_smem(attn_core_kernel<T, true>, bytes);
-    if (err != cudaSuccess) return err;
-    attn_core_kernel<T, true><<<grid, kThreads, bytes, stream>>>(
-              static_cast<const T*>(x), static_cast<const T*>(qkv), static_cast<const T*>(wo),
-              static_cast<const T*>(bo), static_cast<T*>(out), static_cast<T*>(hmean), n, heads,
-              d, dim, scale);
-  } else {
-    err = allow_smem(attn_core_kernel<T, false>, bytes);
-    if (err != cudaSuccess) return err;
-    attn_core_kernel<T, false><<<grid, kThreads, bytes, stream>>>(
-              static_cast<const T*>(x), static_cast<const T*>(qkv), static_cast<const T*>(wo),
-              static_cast<const T*>(bo), static_cast<T*>(out), static_cast<T*>(nullptr), n,
-              heads, d, dim, scale);
-  }
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -757,19 +964,23 @@ cudaError_t ffn_block_fp32(const void* x, const void* g, const void* be, const v
 
 extern "C" {
 
-// qkv: scratch [bs*n, 3*heads*d] of the storage type; hmean may be null.
-// fp32 takes the FMA kernels (head_dim <= 128; mh unused, may be null); bf16
-// the tensor-core kernels (head_dim a multiple of 16 up to 64, n <= 320, dim
-// a multiple of 16 up to 768; mh a bf16 scratch [bs*n, heads*d]).
+// qkv: scratch [bs*n, 3*heads*d] and mh [bs*n, heads*d] of the storage
+// type; hmean may be null. fp32 takes the split-TF32 kernels (head_dim
+// 1-128, any n and width; stats an fp32 scratch [bs*n, 2]); bf16 the
+// tensor-core kernels (head_dim a multiple of 16 up to 64, n <= 320, dim a
+// multiple of 16 up to 768; stats unused, may be null).
 int sn_attn_block(int dtype, const void* x, const void* ln_scale, const void* ln_bias,
                   const void* wqkv, const void* bqkv, const void* wo, const void* bo, void* qkv,
-                  void* mh, void* out, void* hmean, int bs, int n, int dim, int heads,
-                  int head_dim, float eps, float scale, void* stream) {
+                  void* mh, void* stats, void* out, void* hmean, int bs, int n, int dim,
+                  int heads, int head_dim, float eps, float scale, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == sn::kF32) {
-    if (head_dim > sn::kMaxHeadDim) return cudaErrorInvalidValue;
-    return sn::attn_block_impl<float>(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, qkv, out,
-                                      hmean, bs, n, dim, heads, head_dim, eps, scale, s);
+    const auto f = [](const void* p) { return static_cast<const float*>(p); };
+    return sn::attn_block_tf32(f(x), f(ln_scale), f(ln_bias), f(wqkv), f(bqkv), f(wo), f(bo),
+                               static_cast<float*>(qkv), static_cast<float*>(mh),
+                               static_cast<float2*>(stats), static_cast<float*>(out),
+                               static_cast<float*>(hmean), bs, n, dim, heads, head_dim, eps,
+                               scale, s);
   }
   return sn::attn_block_tc(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, qkv, mh, out, hmean, bs, n,
                            dim, heads, head_dim, eps, scale, s);

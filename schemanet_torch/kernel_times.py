@@ -6,7 +6,10 @@ beside a PyTorch yardstick where one is named, in bf16 unless said.
 * ``attn_block`` at serving's microbatch (x [64, 197, 192], 3 heads), beside
   ``F.layer_norm`` + ``F.linear`` + SDPA (p = 0) + ``F.linear`` and the
   residual at the same shape: the same function by library calls, a note,
-  not one library call; and in fp32 (stages 1 and 3), alone;
+  not one library call; and in fp32 (stages 1 and 3) beside the same calls
+  in fp32 with TF32 off (``attn_block_fp32_torch_calls``, with the SDPA
+  backend that ran, read from the profiled kernel names), and its fp32
+  head-mean variant at stage 3's batch (x [32, 197, 192]);
 * ``ffn_block`` at serving's microbatch (x [64, 197, 192], f 768) in bf16
   and in fp32 (stages 1 and 3), each beside ``F.layer_norm`` + ``F.linear``
   + ``F.gelu`` + ``F.linear`` and the residual in the same dtype (fp32 with
@@ -42,8 +45,9 @@ beside a PyTorch yardstick where one is named, in bf16 unless said.
 
 Each gets ``ms``, CUDA events around one window of 20 calls after warm-up,
 and ``device_ms``, the ``torch.profiler`` device time of a call (and, for
-``embed_grad`` and the LayerNorm backward, ``by_kernel``, that time split by
-kernel name). Uses only
+``embed_grad``, the LayerNorm backward and the fp32 ``attn_block`` and its
+yardstick, ``by_kernel``, that time split by kernel name). fp32 products run
+with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` False). Uses only
 the kernels' public wrappers, so the same file times an older checkout of
 the port: from that checkout's root, ``python -m schemanet_torch.kernel_times``.
 Prints the card's name and power limit, then one JSON line.
@@ -142,6 +146,18 @@ def _split(fn) -> dict:
     return {**_both(fn), "by_kernel": device_by_kernel(fn)}
 
 
+def sdpa_backend(by_kernel: dict) -> str:
+    """The SDPA backend whose kernels a profile's names show: "flash",
+    "efficient" (memory-efficient, CUTLASS's fmha), "cudnn", or "math"
+    (plain products and a softmax)."""
+    names = " ".join(by_kernel).lower()
+    for backend, marks in (("flash", ("flash",)), ("efficient", ("fmha", "efficient")),
+                           ("cudnn", ("cudnn",))):
+        if any(mark in names for mark in marks):
+            return backend
+    return "math"
+
+
 def instance_ids(dev: torch.device, batch: int = 64, seed: int = 0) -> torch.Tensor:
     """The stage-4 step's instance-lookup ids: ``compact_instance_slots`` of
     the VQ ids that the fp32 DeiT-Tiny ingredient backbone (layers 0-9,
@@ -190,13 +206,28 @@ def measure(dev: torch.device, inst_ids=None) -> dict:
         o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
         return x + F.linear(o.transpose(1, 2).reshape(bs, n, d), wo, bo)
 
-    attn_fp32 = (x.float(), ln_g, ln_b, *(t.float() for t in (wqkv, bqkv, wo, bo)), heads)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x32, w32 = x.float(), [t.float() for t in (wqkv, bqkv, wo, bo)]
+    attn_fp32 = (x32, ln_g, ln_b, *w32, heads)
+    attn_fp32_s3 = (x32[:32].contiguous(), ln_g, ln_b, *w32, heads)  # stage 3's batch
+
+    def attn_torch_fp32():
+        y = F.layer_norm(x32, (d,), ln_g, ln_b, 1e-6)
+        qkv = F.linear(y, w32[0], w32[1]).view(bs, n, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
+        return x32 + F.linear(o.transpose(1, 2).reshape(bs, n, d), w32[2], w32[3])
+
     out = {
         "attn_block": _both(lambda: eb.attn_block(*attn_args)),
         "attn_block_hmean": _both(lambda: eb.attn_block(*attn_args, capture_hmean=True)),
         "attn_block_torch_calls": _both(attn_torch),
-        "attn_block_fp32": _both(lambda: eb.attn_block(*attn_fp32)),
+        "attn_block_fp32": _split(lambda: eb.attn_block(*attn_fp32)),
+        "attn_block_fp32_hmean": _split(lambda: eb.attn_block(*attn_fp32_s3, capture_hmean=True)),
+        "attn_block_fp32_torch_calls": _split(attn_torch_fp32),
     }
+    out["attn_block_fp32_torch_calls"]["sdpa_backend"] = sdpa_backend(
+        out["attn_block_fp32_torch_calls"]["by_kernel"])
+    del x32, w32, attn_fp32, attn_fp32_s3
 
     rows = bs * n
     x2, g2 = rnd(rows, d), rnd(rows, d)

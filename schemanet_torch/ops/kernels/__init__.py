@@ -29,7 +29,7 @@ from .vq import vq_assign_kernel, vq_assign_reference
 _COUNTERS = {
     "attn_block": (attn_block, "launches"),
     "attn_block_hmean": (attn_block, "hmean_launches"),
-    "attn_block_tc": (attn_block, "tc_launches"),  # the tensor-core route's share
+    "attn_block_tc": (attn_block, "tc_launches"),  # tensor cores: bf16 mma or split TF32
     "ffn_block": (ffn_block, "launches"),
     "ffn_block_tc": (ffn_block, "tc_launches"),  # tensor cores: bf16 mma or split TF32
     "sym_conv": (sym_conv, "launches"),

@@ -30,7 +30,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 # C signatures of the launchers (csrc/*.cu, extern "C"); every one returns the
 # cudaError_t of its launch, except where noted
 _SIGNATURES = {
-    "sn_attn_block": [_I] + [_P] * 11 + [_I] * 5 + [_F, _F, _P],
+    "sn_attn_block": [_I] + [_P] * 12 + [_I] * 5 + [_F, _F, _P],
     "sn_ffn_block": [_I] + [_P] * 8 + [_I] * 3 + [_F, _P],
     "sn_sym_conv": [_I, _P, _P, _P, _I, _I, _I, _P],
     "sn_sym_conv_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],

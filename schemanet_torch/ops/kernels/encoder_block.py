@@ -17,17 +17,18 @@ summed over heads in fp32.
 
 Dispatch: a CPU tensor takes the plain version (``*_reference``); a CUDA
 tensor launches the kernel or raises. ``attn_block_route`` picks
-``attn_block``'s kernels by dtype: fp32 takes the FMA kernels, bf16 the
-tensor-core ones (head_dim a multiple of 16 up to 64, n <= 320), whose
-attention is ``fused_mhsa``'s kernel at p = 0. ``ffn_block_route`` picks
-``ffn_block``'s: bf16 the tensor-core kernel (``mma`` on bf16 tiles, f a
-multiple of 8), fp32 the split-TF32 kernel (three TF32 ``mma`` products a
-product, about fp32's accuracy). gelu is the TPU kernels' (``gelu_as``, the
-Abramowitz-Stegun erf). Each
-wrapper counts its launches in a plain integer attribute
-(``attn_block.launches``, ``attn_block.hmean_launches``,
-``attn_block.tc_launches`` for the tensor-core route, ``ffn_block.launches``,
-``ffn_block.tc_launches`` for the tensor-core and split-TF32 routes).
+``attn_block``'s kernels by dtype: bf16 the tensor-core ones (``mma`` on bf16
+tiles, head_dim a multiple of 16 up to 64, n <= 320), whose attention is
+``fused_mhsa``'s kernel at p = 0; fp32 the split-TF32 ones (each product as
+three TF32 ``mma`` products of split operands, about fp32's accuracy; head_dim
+up to 128, any n), whose attention takes its softmax online over chunks of 32
+keys. ``ffn_block_route`` picks ``ffn_block``'s: bf16 the tensor-core kernel
+(f a multiple of 8), fp32 the split-TF32 kernel. gelu is the TPU kernels'
+(``gelu_as``, the Abramowitz-Stegun erf). Each wrapper counts its launches
+in a plain integer attribute (``attn_block.launches``,
+``attn_block.hmean_launches``, ``ffn_block.launches``; ``attn_block.tc_launches``
+and ``ffn_block.tc_launches`` count the launches on the tensor cores: both
+routes of each).
 """
 
 from __future__ import annotations
@@ -39,8 +40,8 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FMA, TENSOR_CORE, SPLIT_TF32 = "fma", "tensor_core", "split_tf32"
-_FMA_MAX_HEAD_DIM = 128  # csrc/encoder_block.cu kMaxHeadDim
+TENSOR_CORE, SPLIT_TF32 = "tensor_core", "split_tf32"
+_TF32_MAX_HEAD_DIM = 128  # csrc/encoder_block.cu attn_tf32_kernel<128>: head_dim padded to 128
 _TC_MAX_TOKENS = 320  # the tensor-core attention's K and V of one head fill its shared memory
 _TC_MAX_WIDTH = 768  # csrc/encoder_block.cu kLinMaxK: a block stages 64 rows of A and W whole
 _SQRT_HALF = 0.7071067811865476
@@ -48,20 +49,20 @@ _SQRT_HALF = 0.7071067811865476
 
 def attn_block_route(dtype: torch.dtype, n: int, heads: int, head_dim: int) -> str:
     """The kernels a CUDA launch of ``attn_block`` takes for x of this dtype,
-    n tokens and ``heads`` heads of ``head_dim``: ``"fma"`` (fp32: FMA on
-    fp32 tiles, which keeps fp32's agreement where tensor cores would mean
-    TF32; head_dim up to 128) or ``"tensor_core"`` (bf16: ``mma`` on bf16
-    tiles, head_dim a multiple of 16 up to 64, n <= 320). Raises on what
-    neither takes."""
+    n tokens and ``heads`` heads of ``head_dim``: ``"split_tf32"`` (fp32:
+    each product as three TF32 ``mma`` products of split operands, which
+    keeps about fp32's accuracy; head_dim up to 128, any n, any width) or
+    ``"tensor_core"`` (bf16: ``mma`` on bf16 tiles, head_dim a multiple of 16
+    up to 64, n <= 320). Raises on what neither takes."""
     if dtype not in _DTYPES:
         raise TypeError(f"attn_block takes float32 or bfloat16, got {dtype}")
     if n < 1 or heads < 1:
         raise ValueError(f"attn_block takes n >= 1 and heads >= 1, got n={n}, heads={heads}")
     if dtype == torch.float32:
-        if not 1 <= head_dim <= _FMA_MAX_HEAD_DIM:
-            raise ValueError(f"attn_block takes head_dim <= {_FMA_MAX_HEAD_DIM} in float32, "
+        if not 1 <= head_dim <= _TF32_MAX_HEAD_DIM:
+            raise ValueError(f"attn_block takes head_dim <= {_TF32_MAX_HEAD_DIM} in float32, "
                              f"got {head_dim}")
-        return FMA
+        return SPLIT_TF32
     if head_dim % 16 or not 16 <= head_dim <= 64:
         raise ValueError(f"attn_block takes a bfloat16 head_dim that is a multiple of 16 up to 64, "
                          f"got {head_dim}")
@@ -209,21 +210,22 @@ def attn_block(
         raise ValueError("attn_block: the tensor-core kernels copy 16-byte chunks; a weight is not "
                          "16-byte aligned")
     qkv = torch.empty((bs * n, hd3), dtype=dt, device=x.device)
-    mh = torch.empty((bs * n, num_heads * d), dtype=dt, device=x.device) \
-        if route == TENSOR_CORE else None
+    mh = torch.empty((bs * n, num_heads * d), dtype=dt, device=x.device)
+    # LN1's (mean, rstd) a row, for the fp32 route's product blocks
+    stats = torch.empty((bs * n, 2), dtype=torch.float32, device=x.device) \
+        if route == SPLIT_TF32 else None
     out = torch.empty_like(x)
     hmean = torch.empty((bs, n, n), dtype=dt, device=x.device) if capture_hmean else None
     err = _build.library().sn_attn_block(
         _DTYPES[dt], x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wqkv.data_ptr(),
-        bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), qkv.data_ptr(),
-        mh.data_ptr() if mh is not None else None, out.data_ptr(),
+        bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), qkv.data_ptr(), mh.data_ptr(),
+        stats.data_ptr() if stats is not None else None, out.data_ptr(),
         hmean.data_ptr() if hmean is not None else None,
         bs, n, dim, num_heads, d, float(eps), float(1.0 / d**0.5), _stream(),
     )
     _build.check(err, "attn_block")
     attn_block.launches += 1
-    if route == TENSOR_CORE:
-        attn_block.tc_launches += 1
+    attn_block.tc_launches += 1  # both routes run on the tensor cores
     if capture_hmean:
         attn_block.hmean_launches += 1
         return out, hmean

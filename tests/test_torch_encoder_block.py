@@ -202,6 +202,94 @@ def test_one_tf32_product_misses_the_fp32_bound(serving_ffn):
     assert np.abs(got - want).max() > 1e-5 * np.abs(want).max()
 
 
+def _attn_emulated(x, p, heads, products, capture_hmean):
+    """fp32 attn_block as the split-TF32 kernels form it: the qkv, score,
+    P V and out products each formed as ``_ffn_emulated``'s are ("split" or
+    "tf32"), summed in fp64 and rounded once; the softmax online over chunks
+    of 32 keys (the running max, the sums rescaled by exp(m_old - m), the
+    division by the row's sum after the P V product), as the attention
+    kernel runs it; the head-mean the sum of each head's scores in head
+    order, scaled by 1/H."""
+    def matmul(a, b):  # [..., m, k] @ [..., k, n], both fp32
+        if products == "tf32":
+            return (_tf32(a).double() @ _tf32(b).double()).float()
+        (ah, al), (bh, bl) = _split(a), _split(b)
+        return (al.double() @ bh.double() + ah.double() @ bl.double()
+                + ah.double() @ bh.double()).float()
+
+    bs, n, dim = x.shape
+    d = dim // heads
+    xt = _t(x)
+    ln = eb.layer_norm(xt, _t(p["g"]), _t(p["b"]), 1e-6)
+    qkv = (matmul(ln, _t(p["wqkv"])) + _t(p["bqkv"])).reshape(bs, n, 3, heads, d)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)  # [bs, H, n, d] each
+    s = matmul(q * torch.tensor(1.0 / d**0.5, dtype=torch.float32), k.transpose(-1, -2))
+    m = torch.full((bs, heads, n), -torch.inf)
+    l, o = torch.zeros(bs, heads, n), torch.zeros(bs, heads, n, d)
+    for j0 in range(0, n, 32):
+        m_new = torch.maximum(m, s[..., j0:j0 + 32].amax(-1))
+        alpha = torch.exp(m - m_new)
+        e = torch.exp(s[..., j0:j0 + 32] - m_new[..., None])
+        l = l * alpha + e.sum(-1)
+        o = o * alpha[..., None] + matmul(e, v[..., j0:j0 + 32, :])
+        m = m_new
+    mh = (o / l[..., None]).transpose(1, 2).reshape(bs, n, dim)
+    out = xt + (matmul(mh, _t(p["wo"])) + _t(p["bo"]))
+    if not capture_hmean:
+        return (out,)
+    hsum = s[:, 0]
+    for h in range(1, heads):
+        hsum = hsum + s[:, h]
+    return out, hsum * (1.0 / heads)
+
+
+@pytest.fixture(scope="module")
+def serving_attn():
+    """One serving pair of items ([2, 197, 192], 3 heads of 64), the weights
+    in the JAX layout, and the JAX fp32 attn_block on them, both variants."""
+    rng = np.random.default_rng(6)
+
+    def w(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    bs, n, dim = 2, 197, 192
+    x = w(bs, n, dim)
+    p = dict(g=1.0 + w(dim, scale=0.1), b=w(dim, scale=0.1),
+             wqkv=w(dim, 3 * dim, scale=dim**-0.5), bqkv=w(3 * dim, scale=0.1),
+             wo=w(dim, dim, scale=dim**-0.5), bo=w(dim, scale=0.1))
+    want = {}
+    for capture_hmean in (False, True):
+        got = jeb.attn_block(
+            jnp.asarray(x), jnp.asarray(p["g"]), jnp.asarray(p["b"]), jnp.asarray(p["wqkv"]),
+            jnp.asarray(p["bqkv"]), jnp.asarray(p["wo"]), jnp.asarray(p["bo"]), 3, eps=1e-6,
+            interpret=True, capture_hmean=capture_hmean,
+        )
+        want[capture_hmean] = [np.asarray(a) for a in (got if capture_hmean else (got,))]
+    return x, p, want
+
+
+@pytest.mark.parametrize("capture_hmean", [False, True])
+def test_split_tf32_attn_holds_the_jax_fp32_attn_block(serving_attn, capture_hmean):
+    """The split-TF32 route's arithmetic (its online softmax included)
+    within 1e-5 of max of JAX's fp32 attn_block at the serving width, the
+    output and the head-mean each."""
+    x, p, want = serving_attn
+    got = _attn_emulated(x, p, 3, "split", capture_hmean)
+    assert len(got) == len(want[capture_hmean])
+    for g, w in zip(got, want[capture_hmean]):
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("capture_hmean", [False, True])
+def test_one_tf32_attn_product_misses_the_fp32_bound(serving_attn, capture_hmean):
+    """Why the split: one TF32 product a product misses the bound the split
+    holds, on the output and on the head-mean."""
+    x, p, want = serving_attn
+    got = _attn_emulated(x, p, 3, "tf32", capture_hmean)
+    for g, w in zip(got, want[capture_hmean]):
+        assert np.abs(g.numpy() - w).max() > 1e-5 * np.abs(w).max()
+
+
 def test_wrappers_refuse_non_cuda_devices():
     """Only a CPU tensor takes the plain version; any other device must reach
     the kernel path, which accepts CUDA tensors only."""
@@ -219,12 +307,18 @@ def test_wrappers_refuse_non_cuda_devices():
     (torch.bfloat16, 197, 12, 64, "tensor_core"),  # DeiT-Base
     (torch.bfloat16, 65, 2, 32, "tensor_core"),  # one query row past a tile of 64
     (torch.bfloat16, 320, 3, 16, "tensor_core"),  # the limit of n
-    (torch.float32, 197, 3, 64, "fma"),  # fp32 serving checks, stages 1 and 3
-    (torch.float32, 400, 2, 128, "fma"),  # fp32 takes head_dim up to 128 at any n
+    (torch.float32, 197, 3, 64, "split_tf32"),  # fp32 serving checks, stages 1 and 3
+    (torch.float32, 400, 2, 128, "split_tf32"),  # fp32 takes head_dim up to 128 at any n
+    (torch.float32, 197, 6, 64, "split_tf32"),  # DeiT-Small
+    (torch.float32, 65, 3, 32, "split_tf32"),  # head_dim padded to 32
+    (torch.float32, 33, 3, 30, "split_tf32"),  # head_dim not a multiple of 4: 4-byte copies
+    (torch.float32, 5, 1, 1, "split_tf32"),  # the smallest head_dim
+    (torch.float32, 1000, 2, 65, "split_tf32"),  # head_dim padded to 128, n past any tile
 ])
 def test_attn_block_route(dtype, n, heads, head_dim, route):
     """The CUDA kernels an attn_block launch takes: every shipped config's
-    bf16 shape takes the tensor-core kernels, fp32 keeps the FMA kernels."""
+    bf16 shape takes the tensor-core kernels, every fp32 shape the FMA
+    kernels took (head_dim up to 128, any n) the split-TF32 kernels."""
     assert eb.attn_block_route(dtype, n, heads, head_dim) == route
 
 
@@ -233,11 +327,13 @@ def test_attn_block_route(dtype, n, heads, head_dim, route):
     (torch.bfloat16, 197, 4, 40, "multiple of 16 up to 64"),
     (torch.bfloat16, 321, 3, 64, "n <= 320"),
     (torch.float32, 197, 1, 256, "head_dim <= 128"),
+    (torch.float32, 197, 1, 129, "head_dim <= 128"),  # one past the split-TF32 kernels' padding
+    (torch.float32, 197, 1, 0, "head_dim <= 128"),
     (torch.bfloat16, 0, 3, 64, "n >= 1"),
 ])
 def test_attn_block_route_rejects(dtype, n, heads, head_dim, what):
     """No quiet fallback: a bf16 shape the tensor-core kernels do not take
-    raises, and so does what the FMA kernels do not take in fp32."""
+    raises, and so does what the split-TF32 kernels do not take in fp32."""
     with pytest.raises(ValueError, match=what):
         eb.attn_block_route(dtype, n, heads, head_dim)
 

@@ -67,9 +67,11 @@ def _rel(got, want):
     (2, 197, 384, 6),  # DeiT-Small's width and heads
 ])
 def test_attn_block_kernel(dev, dtype, tol, bs, n, dim, heads):
-    """bf16 takes the tensor-core route (counted by tc_launches): the qkv and
-    out products by mma, the attention by fused_mhsa's kernel at p = 0 and
-    its head-mean variant; fp32 the FMA kernels."""
+    """bf16 takes the tensor-core route: the qkv and out products by mma,
+    the attention by fused_mhsa's kernel at p = 0 and its head-mean variant;
+    fp32 the split-TF32 route (products by three TF32 mma, the attention's
+    softmax online over chunks of 32 keys). Both are counted by
+    tc_launches."""
     g = torch.Generator().manual_seed(0)
     x = _rnd(g, dev, bs, n, dim).to(dtype)
     args = (
@@ -82,12 +84,39 @@ def test_attn_block_kernel(dev, dtype, tol, bs, n, dim, heads):
     plain_only = eb.attn_block(*args)
     want_out, want_hmean = eb.attn_block_reference(*args, capture_hmean=True)
     torch.cuda.synchronize()
-    tc = 2 * int(dtype == torch.bfloat16)
     assert (eb.attn_block.launches, eb.attn_block.hmean_launches, eb.attn_block.tc_launches) == \
-        (before[0] + 2, before[1] + 1, before[2] + tc)
+        (before[0] + 2, before[1] + 1, before[2] + 2)
     assert out.dtype == hmean.dtype == dtype and hmean.shape == (bs, n, n)
     assert _rel(out, want_out) <= tol and _rel(hmean, want_hmean) <= tol
     assert torch.equal(plain_only, out)  # the head-mean output changes nothing else
+
+
+@pytest.mark.parametrize("bs,n,dim,heads", [
+    (3, 33, 90, 3),  # head_dim 30: 4-byte copies, padded to 32
+    (2, 50, 80, 2),  # head_dim 40, padded to 64
+    (2, 400, 256, 2),  # head_dim 128, n past several key chunks and query tiles
+    (1, 5, 8, 8),  # head_dim 1, fewer rows than a warp's 16
+])
+def test_attn_block_fp32_edges(dev, bs, n, dim, heads):
+    """The fp32 route at head_dims and widths off its tiles: within 1e-5 of
+    the plain version, both variants, counted on the tensor cores, and the
+    same bits over two calls."""
+    g = torch.Generator().manual_seed(2)
+    args = (
+        _rnd(g, dev, bs, n, dim), 1 + _rnd(g, dev, dim, scale=0.1), _rnd(g, dev, dim, scale=0.1),
+        _rnd(g, dev, 3 * dim, dim, scale=dim**-0.5), _rnd(g, dev, 3 * dim, scale=0.1),
+        _rnd(g, dev, dim, dim, scale=dim**-0.5), _rnd(g, dev, dim, scale=0.1), heads,
+    )
+    assert eb.attn_block_route(torch.float32, n, heads, dim // heads) == "split_tf32"
+    before = eb.attn_block.tc_launches
+    out, hmean = eb.attn_block(*args, capture_hmean=True)
+    out2, hmean2 = eb.attn_block(*args, capture_hmean=True)
+    want_out, want_hmean = eb.attn_block_reference(*args, capture_hmean=True)
+    torch.cuda.synchronize()
+    assert eb.attn_block.tc_launches == before + 2
+    assert _rel(out, want_out) <= 1e-5 and _rel(hmean, want_hmean) <= 1e-5
+    assert torch.equal(out, out2) and torch.equal(hmean, hmean2)
+    assert torch.equal(eb.attn_block(*args), out)
 
 
 @pytest.mark.parametrize("dtype,tol", TOLS)
