@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path,
 the SchemaNet training step, stage 0 (fine-tuning the backbone), stage 1
-(codebook extraction) and stage 3 (IR-Atlas initialisation).
+(codebook extraction), stage 3 (IR-Atlas initialisation) and the
+loader-driven workers (training with validation, checkpoints and resume,
+and evaluation).
 
 Both run the CIFAR-100 DeiT-Tiny configuration at full width (224^2 input,
 patch 16, 197 tokens, d=192, 3 heads, FFN 768, layers 0-9 of 12 frozen,
@@ -196,13 +198,51 @@ fp32, seeded random weights and images made on the card):
     CUDA events over 20 calls, and the device time of a call from
     ``torch.profiler``; for VQ, the bound of each case.
 
+The loader-driven workers (``schemanet_torch.train.schema_net_worker``,
+``backbone_worker`` and ``eval_worker`` with the stage-4 and stage-0
+configs above, bf16, on the ``synthetic`` dataset at CIFAR-100's 32^2 source
+shape, 640 training and 160 validation images; checkpoints under a
+temporary directory):
+
+19. the loader on the card: a batch of 64 shipped as uint8 at 32^2, resized
+    to 224^2 and normalised on the card, against the plain numpy version
+    (``resize_normalize_reference``) within 1e-5 x max; the validation
+    batches' valid rows (64, 64, 32); images/s of an epoch of the training
+    set through ``device_prefetch`` and the resize (host clock, two
+    epochs), and with CIFAR's random crop and flip on the host;
+20. ``schema_net_worker`` from phase 17's bundle and atlas-init files: 2
+    epochs of 10 steps, validation at the start, at iter 15 (mid-epoch) and
+    at the end; finite losses, acc@1 and acc@5 in [0, 1], the launch
+    counters as the path implies (per training step as 9, per validation
+    batch the serving forward's of 5), ``meta.json`` with the JAX keys and
+    a ``best`` checkpoint; the loop's images/s (host clock, and without its
+    validations and checkpoint writes), the device idle share over the loop
+    (the profiler's device time over the host's wall time, device activity
+    only), each validation's and checkpoint write's seconds, a
+    checkpoint's bytes;
+21. resume: the same run stopped after epoch 1 (``request_stop``, what
+    SIGTERM does) and resumed with ``resume="auto"`` gives phase 20's
+    parameters, AdamW moments (the hot atlas tensors' too), generators and
+    final validation bit for bit;
+22. phase 20's predictor validated in fp32 (``graph_precision`` 'highest')
+    against the same predictor with the plain versions called in place of
+    the kernels, fed the kernel run's VQ ids: every sample whose top-1 or
+    top-5 correctness, or whose quantised or original codebook-evaluation
+    prediction, differs must have its two deciding logits within 1e-3 x max
+    |logit| (those samples are reported); the loss within 1e-4 relative;
+23. ``backbone_worker``: one epoch of 5 steps at dropout 0.1 with the launch
+    counters as the path implies (per step as 13, per validation batch 12
+    attn_block, 12 ffn_block and the final LayerNorm), then ``eval_worker``
+    on its last checkpoint: top-1/top-5 counts equal to the worker's final
+    validation, the loss within 1e-6 relative.
+
 Any failed check raises, so the script exits non-zero. Without a GPU it fails
 at once. Its last line is ``{"ok": true, "device": {...}}``; the line before
 it lists every kernel with its launches on its path (training for the
 SchemaNet kernels, stage 0 for the fused attention and FFN kernels), its
 error against its plain version, its time, the plain version's, its bound on
 the card and, where one PyTorch call computes the same function, that
-call's time. The VQ kernel's launches are stage 1's and the LayerNorm
+call's time, and its launches in the workers' runs (phases 20 and 23). The VQ kernel's launches are stage 1's and the LayerNorm
 kernels' stage 0's; its error is the largest plain-score difference between
 the kernel's code and the plain version's. ``ffn_block_fp32`` is
 ``ffn_block`` in fp32 (the split-TF32 kernel): stage 1's launches, the fp32
@@ -223,6 +263,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -344,6 +385,13 @@ STAGE3_CFG = {
     "loss": dict(LOSS_CFG, weight_dict=LOSS_WEIGHTS),
 }
 S3_BATCH, S3_BATCHES, CIFAR_TRAIN = 32, 64, 50_000
+# the loader-driven workers (phases 19-23): the stage-4 and stage-0 configs
+# above on the synthetic dataset at CIFAR-100's 32^2 source shape, resized to
+# 224^2 on the card; 640 training images (10 steps an epoch, so iter 15 of 2
+# epochs is mid-epoch) and 160 validation images (the last batch 32 valid of 64)
+WORKER_DATA = {"name": "synthetic", "num_classes": NUM_CLASSES, "image_size": 32, "resize": IMG,
+               "train": {"num_samples": 640}, "val": {"num_samples": 160}}
+W_EPOCHS, W_VAL_INTERVAL, W_PRINT, S0W_STEPS = 2, 15, 5, 5
 # H100 SXM data sheet, dense: bf16 and TF32 tensor cores, fp32 outside them, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "tfloat32": 494.7e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
@@ -466,7 +514,326 @@ def compare(name, kernel, plain, args, kw, dtype, tol, errors) -> None:
         errors[name] = max(abss)
 
 
+def worker_phases(dev, work_dir: str, bundle_dir: str, atlas_path: str, card_note: dict,
+                  helpers: dict) -> dict:
+    """Phases 19-23: the loader on the card, ``schema_net_worker`` (counted,
+    timed, profiled), its resume, its validation in fp32 against the plain
+    versions, and ``backbone_worker`` with ``eval_worker`` on its checkpoint.
+    ``helpers``: main's ``with_plain``, ``recording_vq``, ``replaying_vq`` and
+    ``replay_report``. Returns each worker's launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from schemanet_torch.data import build_loaders, device_prefetch
+    from schemanet_torch.data.augment import get_augmentation, resize_normalize_reference
+    from schemanet_torch.data.loader import DataLoader
+    from schemanet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from schemanet_torch.pipeline import load_bundle
+    from schemanet_torch.schema import build_predictor, get_loss_fn
+    from schemanet_torch.train import (CBEvaluation, CheckpointManager, Evaluation, LaunchArgs,
+                                       Trainer, backbone_worker, eval_worker, load_metadata,
+                                       schema_net_worker)
+
+    s4_cfg = {
+        "dataset": WORKER_DATA,
+        "training": dict(TRAIN_CFG, dtype="bfloat16", train_epochs=W_EPOCHS,
+                         val_interval=W_VAL_INTERVAL, print_interval=W_PRINT, num_workers=8),
+        "validation": {"batch_size": BATCH, "num_workers": 8},
+        "schema_net": dict(SCHEMA_CFG, bundle=bundle_dir, initial_state_fp=atlas_path),
+        "loss": dict(LOSS_CFG, weight_dict=LOSS_WEIGHTS),
+    }
+    jax_meta_keys = ["best_acc", "best_iter", "epoch", "eval", "iter", "last_tag"]
+
+    # 19. the loader: the device-side resize and normalisation against their
+    # plain version, and images/s over an epoch of the training set
+    t_phase = time.perf_counter()
+    train_loader, val_loader, n_cls = build_loaders(s4_cfg["dataset"], s4_cfg["training"],
+                                                    s4_cfg["validation"], seed=0)
+    host = next(iter(train_loader))
+    got = train_loader.prepare(torch.from_numpy(host["image"]).to(dev))
+    want = torch.from_numpy(resize_normalize_reference(host["image"], IMG, train_loader.mean,
+                                                       train_loader.std))
+    resize_err = rel_err(got.cpu(), want)
+    val_valid = [float(b["valid"].sum()) for b in val_loader]
+    cifar_aug = DataLoader(train_loader.dataset, BATCH, "train", seed=0, resize=IMG,
+                           transform=get_augmentation("cifar_100", "train"), num_workers=8)
+
+    def epoch_images_per_s(loader):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in device_prefetch(iter(loader), dev):
+            loader.prepare(batch["image"])
+        torch.cuda.synchronize()
+        return len(loader) * BATCH / (time.perf_counter() - t0)
+
+    loader_ips = [epoch_images_per_s(train_loader) for _ in range(2)]
+    cifar_ips = [epoch_images_per_s(cifar_aug) for _ in range(2)]
+    phase("loader", batch=BATCH, source_shape=list(host["image"].shape), out_shape=list(got.shape),
+          bytes_shipped_per_batch=host["image"].nbytes, bytes_at_224_fp32=got.numel() * 4,
+          resize_normalize_rel_err=resize_err, tol=1e-5, val_valid_per_batch=val_valid,
+          images_per_s=loader_ips, images_per_s_cifar_crop_flip=cifar_ips,
+          seconds=time.perf_counter() - t_phase, **card_note)
+    require(resize_err <= 1e-5, f"device resize + normalise differ by {resize_err} of max")
+    require(val_valid[-1] == BATCH // 2 and len(val_valid) == 3,
+            f"validation batches' valid rows {val_valid}")
+    require(n_cls == NUM_CLASSES, f"{n_cls} classes")
+
+    # 20. schema_net_worker: 2 epochs with validation and checkpoints, counted,
+    # timed by the host clock, its loop profiled on the device
+    t_phase = time.perf_counter()
+    stats = {"validate_s": [], "save_s": [], "losses": []}
+    real_call, real_iter = Trainer.__call__, Trainer.train_iter
+    real_validate, real_save = Trainer.validate, CheckpointManager.save
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            stats[key].append(time.perf_counter() - t0)
+            return out
+
+        return run
+
+    def profiled_call(self, *args, **kw):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_call(self, *args, **kw)
+            torch.cuda.synchronize()
+            stats["loop_s"] = time.perf_counter() - t0
+        stats["busy_us"] = sum(device_time_by_name(prof).values())
+        return out
+
+    def recorded_iter(self, batch):
+        out = real_iter(self, batch)
+        stats["losses"].append(out["loss"])
+        return out
+
+    full_dir = os.path.join(work_dir, "s4_full")
+    reset_launch_counts()
+    with mock.patch.object(Trainer, "__call__", profiled_call), \
+            mock.patch.object(Trainer, "train_iter", recorded_iter), \
+            mock.patch.object(Trainer, "validate", timed(real_validate, "validate_s")), \
+            mock.patch.object(CheckpointManager, "save", timed(real_save, "save_s")):
+        run_a = schema_net_worker(s4_cfg, LaunchArgs(seed=0, log_dir=full_dir, device=str(dev)))
+    s4_launches = launch_counts()
+    steps = W_EPOCHS * len(train_loader)
+    fwd = steps + 3 * len(val_loader)  # training forwards and 3 validations' batches
+    expected = {name: 0 for name in s4_launches}  # no stage-0 kernel
+    expected.update({"attn_block": FROZEN_LAYERS * fwd, "attn_block_hmean": fwd,
+                     "attn_block_tc": FROZEN_LAYERS * fwd, "ffn_block": FROZEN_LAYERS * fwd,
+                     "ffn_block_tc": FROZEN_LAYERS * fwd, "vq_assign": fwd, "vq_assign_tc": fwd,
+                     "sym_conv": GNN_CONVS * fwd, "sym_conv_tc": GNN_CONVS * fwd,
+                     "sym_conv_bwd": GNN_CONVS * steps, "sym_conv_bwd_tc": GNN_CONVS * steps,
+                     "fused_layernorm": GNN_CONVS * fwd, "fused_layernorm_bwd": GNN_CONVS * steps,
+                     "fused_layernorm_bwd_vec": GNN_CONVS * steps,
+                     "embed_grad": 2 * steps, "embed_grad_vec": 2 * steps,
+                     "embed_grad_planned": steps, "adamw_project_rows": 2 * steps})
+    losses = [float(loss) for loss in stats["losses"]]
+    final = run_a["eval"]
+    ckpt_dir = os.path.join(full_dir, "ckpt")
+    meta = load_metadata(ckpt_dir) or {}
+    ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, f"{meta.get('last_tag')}.pt"))
+    overhead = sum(stats["validate_s"]) + sum(stats["save_s"])
+    phase("schema_net_worker", epochs=W_EPOCHS, steps=steps, batch=BATCH, dtype="bfloat16",
+          val_interval=W_VAL_INTERVAL, losses=losses, final_validation=final, meta=meta,
+          launches=s4_launches, expected=expected, loop_s=stats["loop_s"],
+          loop_images_per_s=steps * BATCH / stats["loop_s"],
+          train_images_per_s=steps * BATCH / (stats["loop_s"] - overhead),
+          device_busy_s=stats["busy_us"] / 1e6,
+          idle_share=(1 - stats["busy_us"] / 1e6 / stats["loop_s"]) if stats["busy_us"] else None,
+          validation_s=stats["validate_s"], checkpoint_save_s=stats["save_s"],
+          checkpoint_bytes=ckpt_bytes, ckpt_files=sorted(os.listdir(ckpt_dir)),
+          seconds=time.perf_counter() - t_phase, **card_note)
+    require(len(losses) == steps and all(np.isfinite(losses)), f"losses {losses}")
+    require(np.isfinite(final["loss"]) and all(0.0 <= v <= 1.0 for v in final["acc"].values())
+            and sorted(final["acc"]) == [1, 5], f"final validation {final}")
+    require(s4_launches == expected, f"schema_net_worker launches {s4_launches} != {expected}")
+    require(sorted(meta) == jax_meta_keys and meta["iter"] == steps,
+            f"meta.json {meta} lacks the JAX keys")
+    require(os.path.isfile(os.path.join(ckpt_dir, "best.pt")), "no best checkpoint")
+    require(len(stats["validate_s"]) == 3, f"{len(stats['validate_s'])} validations, not 3")
+    shutil.rmtree(full_dir)  # ~1.3 GB a checkpoint: the atlas and its AdamW moments
+
+    # 21. resume: a run stopped after epoch 1, resumed with resume="auto",
+    # against the uninterrupted run, bit for bit
+    t_phase = time.perf_counter()
+
+    def stop_after_epoch_1(self, batch):
+        out = real_iter(self, batch)
+        if self.step == self.steps_per_epoch:
+            self.request_stop()
+        return out
+
+    cut_dir = os.path.join(work_dir, "s4_cut")
+    with mock.patch.object(Trainer, "train_iter", stop_after_epoch_1):
+        cut = schema_net_worker(s4_cfg, LaunchArgs(seed=0, log_dir=cut_dir, device=str(dev)))
+    cut_steps, cut_eval = cut["trainer"].step, cut["eval"]
+    del cut
+    resumed = schema_net_worker(s4_cfg, LaunchArgs(seed=0, log_dir=cut_dir, resume="auto",
+                                                   device=str(dev)))
+    want_state, got_state = run_a["trainer"].state_dict(), resumed["trainer"].state_dict()
+
+    def leaves(state):
+        out = {f"model/{k}": v for k, v in state["model"].items()}
+        for pid, slot in state["optimizer"]["state"].items():
+            out.update({f"adamw/{pid}/{k}": v for k, v in slot.items()})
+        for name, hot in state["hot"].items():
+            out.update({f"hot/{name}/m": hot["m"], f"hot/{name}/v": hot["v"]})
+        out.update({f"rng/{k}": v for k, v in state["rng"].items()})
+        return out
+
+    want_leaves, got_leaves = leaves(want_state), leaves(got_state)
+    differ = sorted(k for k in want_leaves
+                    if k not in got_leaves or not torch.equal(got_leaves[k], want_leaves[k]))
+    same_eval = resumed["eval"] == final
+    phase("resume", stopped_at_step=cut_steps, stopped_eval=cut_eval,
+          resumed_start_epoch=resumed["trainer"].start_epoch, leaves=len(want_leaves),
+          differ=differ[:20], final_validation_equal=same_eval, steps=resumed["trainer"].step,
+          seconds=time.perf_counter() - t_phase)
+    require(cut_steps == len(train_loader) and cut_eval is None, "the run did not stop at epoch 1")
+    require(not differ and len(got_leaves) == len(want_leaves),
+            f"the resumed run's state differs in {differ[:20]}")
+    require(same_eval, f"resumed validation {resumed['eval']} != {final}")
+    del resumed, want_state, got_state, want_leaves, got_leaves
+    shutil.rmtree(cut_dir)
+    torch.cuda.empty_cache()
+
+    # 22. validation in fp32 ('highest') against the plain versions, the
+    # plain run fed the kernel run's VQ ids
+    t_phase = time.perf_counter()
+    bundle = load_bundle(bundle_dir)
+    schema32 = dict(SCHEMA_CFG, ir_atlas=dict(SCHEMA_CFG["ir_atlas"], graph_precision="highest"))
+    m32 = build_predictor(bundle.model_cfg, schema32, NUM_CLASSES, NUM_CODES, EMBED_DIM,
+                          ENCODE_LAYER, dtype=torch.float32)
+    m32.load_state_dict({k: v.cpu() for k, v in run_a["trainer"].model.state_dict().items()})
+    m32.to(dev)
+    del run_a
+    torch.cuda.empty_cache()
+    loss_fn = get_loss_fn(s4_cfg["loss"])
+    labels = np.concatenate([b["label"] for b in val_loader])
+    valid = np.concatenate([b["valid"] for b in val_loader]) > 0
+
+    def evaluate(store):
+        def forward(img):
+            out = m32(img)
+            store["pred"].append(out["pred"].float())
+            return out
+
+        def classify(img, quantize):
+            logits = m32.classify_discretized(img, quantize)
+            store["q" if quantize else "o"].append(logits.float())
+            return logits
+
+        ev = Evaluation(forward, loss_fn, LOSS_WEIGHTS, val_loader, top_k=(1, 5), device=dev)()
+        cb = CBEvaluation(classify, val_loader, device=dev)()
+        return ev, cb, {k: torch.cat(v).cpu().numpy() for k, v in store.items()}
+
+    recorded, vq_stats = [], {"rows": 0, "mismatches": 0, "near_ties_only": True}
+    with helpers["recording_vq"](recorded):
+        ev_k, cb_k, logits_k = evaluate({"pred": [], "q": [], "o": []})
+
+    def plain_eval():
+        with helpers["replaying_vq"](recorded, vq_stats):
+            return evaluate({"pred": [], "q": [], "o": []})
+
+    ev_p, cb_p, logits_p = helpers["with_plain"](plain_eval)
+
+    def gaps(logits, k):
+        """The gap between the k-th and (k+1)-th largest logit of each row
+        (infinite where every class is in the top k)."""
+        if k >= logits.shape[1]:
+            return np.full(len(logits), np.inf)
+        top = -np.sort(-logits, axis=1)
+        return top[:, k - 1] - top[:, k]
+
+    flips, near = {}, {}
+    for key, k in (("pred", 1), ("pred", 5), ("q", 1), ("o", 1)):
+        scale = np.abs(logits_p[key][valid]).max()
+        tie = gaps(logits_p[key], k) <= 1e-3 * scale
+        near[f"{key}@{k}"] = [int(i) for i in np.flatnonzero(tie & valid)]
+        if key == "pred":
+            topk_k = np.argsort(-logits_k[key], axis=1)[:, :k]
+            topk_p = np.argsort(-logits_p[key], axis=1)[:, :k]
+            diff = (topk_k == labels[:, None]).any(1) != (topk_p == labels[:, None]).any(1)
+        else:
+            diff = logits_k[key].argmax(1) != logits_p[key].argmax(1)
+        flips[f"{key}@{k}"] = [(int(i), bool(tie[i])) for i in np.flatnonzero(diff & valid)]
+    n_val = int(valid.sum())
+    counts = {side: {k: round(v * n_val) for k, v in ev["acc"].items()}
+              for side, ev in (("kernel", ev_k), ("plain", ev_p))}
+    cb_counts = {side: {k: round(v * n_val) for k, v in cb.items()}
+                 for side, cb in (("kernel", cb_k), ("plain", cb_p))}
+    loss_rel = abs(ev_k["loss"] - ev_p["loss"]) / abs(ev_p["loss"])
+    phase("validation_fp32_vs_plain", images=n_val, acc_counts=counts, cb_counts=cb_counts,
+          loss=ev_k["loss"], plain_loss=ev_p["loss"], loss_rel_err=loss_rel,
+          logit_max_abs_err={k: float(np.abs(logits_k[k] - logits_p[k])[valid].max())
+                             for k in logits_k},
+          logit_scale={k: float(np.abs(logits_p[k])[valid].max()) for k in logits_p},
+          near_tie_samples=near, flipped_samples_and_near_tie=flips,
+          tol={"loss": 1e-4, "near_tie": "top two logits within 1e-3 x max |logit|"},
+          **helpers["replay_report"](vq_stats), seconds=time.perf_counter() - t_phase)
+    require(vq_stats["rows"] > 0, "the plain validation took no recorded VQ ids")
+    require(loss_rel <= 1e-4, f"fp32 validation loss differs by {loss_rel} relative")
+    # the counts and rates differ by the flipped samples alone, so this holds them too
+    require(all(tie for fl in flips.values() for _, tie in fl),
+            f"a sample's prediction differs beyond a near-tie: {flips}")
+    del m32, bundle
+    torch.cuda.empty_cache()
+
+    # 23. backbone_worker: one epoch of 5 steps at dropout 0.1, then
+    # eval_worker on its last checkpoint
+    t_phase = time.perf_counter()
+    s0_cfg = {
+        "dataset": dict(WORKER_DATA, train={"num_samples": S0W_STEPS * BATCH}),
+        "training": dict(STAGE0_CFG["training"], train_epochs=1, num_workers=8),
+        # eval_worker builds the model in the validation dtype: the training one
+        "validation": {"batch_size": BATCH, "num_workers": 8,
+                       "dtype": STAGE0_CFG["training"]["dtype"]},
+        "model": STAGE0_CFG["model"],
+        "loss": STAGE0_CFG["loss"],
+    }
+    s0_dir = os.path.join(work_dir, "s0")
+    reset_launch_counts()
+    run_b = backbone_worker(s0_cfg, LaunchArgs(seed=0, log_dir=s0_dir, device=str(dev)))
+    s0w_launches = launch_counts()
+    fwd = 2 * len(val_loader)  # the initial and the final validation
+    layer = S0_LAYERS
+    expected = {name: 0 for name in s0w_launches}  # no SchemaNet kernel
+    expected.update({**{name: layer * S0W_STEPS for name in (
+        "fused_mhsa", "fused_mhsa_tc", "fused_mhsa_bwd", "fused_mhsa_bwd_tc", "fused_mlp",
+        "fused_mlp_tc", "fused_mlp_bwd", "fused_mlp_bwd_tc")},
+        "fused_layernorm": (2 * layer + 1) * S0W_STEPS + fwd,
+        "fused_layernorm_bwd": (2 * layer + 1) * S0W_STEPS,
+        "fused_layernorm_bwd_vec": (2 * layer + 1) * S0W_STEPS,
+        **{name: layer * fwd for name in ("attn_block", "attn_block_tc", "ffn_block",
+                                          "ffn_block_tc")}})
+    b_meta = load_metadata(os.path.join(s0_dir, "ckpt")) or {}
+    last = os.path.join(s0_dir, "ckpt", f"{b_meta.get('last_tag')}.pt")
+    reset_launch_counts()
+    evaluated = eval_worker(s0_cfg, LaunchArgs(seed=0, resume=last, device=str(dev)))
+    eval_launches = {k: v for k, v in launch_counts().items() if v}
+    b_final = run_b["eval"]
+    b_counts = {side: {k: round(v * n_val) for k, v in r["acc"].items()}
+                for side, r in (("worker", b_final), ("eval_worker", evaluated))}
+    b_rel = abs(evaluated["loss"] - b_final["loss"]) / abs(b_final["loss"])
+    phase("backbone_worker", steps=run_b["trainer"].step, dropout=S0_DROPOUT, dtype="bfloat16",
+          final_validation=b_final, eval_worker=evaluated, acc_counts=b_counts,
+          loss_rel_err=b_rel, tol=1e-6, meta=b_meta, launches=s0w_launches, expected=expected,
+          eval_worker_launches=eval_launches, seconds=time.perf_counter() - t_phase, **card_note)
+    require(run_b["trainer"].step == S0W_STEPS, f"{run_b['trainer'].step} stage-0 steps")
+    require(s0w_launches == expected, f"backbone_worker launches {s0w_launches} != {expected}")
+    require(sorted(b_meta) == jax_meta_keys, f"meta.json {b_meta} lacks the JAX keys")
+    require(b_counts["worker"] == b_counts["eval_worker"] and b_rel <= 1e-6,
+            f"eval_worker {evaluated} != the worker's final validation {b_final}")
+    del run_b
+    torch.cuda.empty_cache()
+    return {"schema_net_worker": s4_launches, "backbone_worker": s0w_launches}
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script measures the GPU and nothing else")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1871,9 +2238,9 @@ def main() -> None:
     del atlas_p
     torch.cuda.empty_cache()
 
-    # the stage-3 atlas to files, and a stage-4 step from them
-    run_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "run", "chip_smoke")
-    shutil.rmtree(run_dir, ignore_errors=True)
+    # the stage-3 atlas to files (which phases 19-23 read), and a stage-4 step
+    # from them
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     save_bundle(os.path.join(run_dir, "bundle"), bundle.model_cfg, bundle.encode_layer,
                 bundle.backbone_state, bundle.codebook, bundle.extra)
     save_atlas_init(os.path.join(run_dir, "atlas_init.pt"), atlas["params"],
@@ -1881,7 +2248,6 @@ def main() -> None:
     tr4 = schema_net_trainer(STAGE3_CFG, load_bundle(os.path.join(run_dir, "bundle")),
                              load_atlas_init(os.path.join(run_dir, "atlas_init.pt")),
                              STEPS_PER_EPOCH, seed=0, device=dev)
-    shutil.rmtree(run_dir)
     from_atlas = bool(torch.equal(tr4.model.schema_net.class_ingredients,
                                   atlas["class_ingredients"].to(dev)))
     step_loss = tr4.train_iter(next(iter(DeviceImages(1, BATCH, 5))))["loss"].item()
@@ -1956,6 +2322,15 @@ def main() -> None:
               bwd_device_ms=device_ms(lambda: lnk.fused_layernorm_bwd(x, sc, bi, cot, 1e-6, act)),
               layer_norm_device_ms=device_ms(lambda: torch.nn.functional.layer_norm(
                   x, (x.shape[-1],), w16, b16, 1e-6)), **card_note)
+
+    # 19-23. the loader-driven workers
+    try:
+        worker_launches = worker_phases(
+            dev, run_dir, os.path.join(run_dir, "bundle"), os.path.join(run_dir, "atlas_init.pt"),
+            card_note, {"with_plain": with_plain, "recording_vq": recording_vq,
+                        "replaying_vq": replaying_vq, "replay_report": replay_report})
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
 
     # the least time the card could take for the timed work of each kernel
     def attn_work(args, hmean=False):
@@ -2084,8 +2459,12 @@ def main() -> None:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": library.get(name),
+            # the loader-driven workers' launches (phases 20 and 23), fp32 variants apart
+            "worker_launches": {worker: counts[name] for worker, counts in worker_launches.items()
+                                if name in counts and counts[name]},
         })
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
+    phase("total", seconds=time.perf_counter() - t_start, **card_note)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

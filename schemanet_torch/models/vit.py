@@ -3,7 +3,8 @@
 Token layout matches the JAX package: [cls, patches...] for ViT and
 [cls, dist, patches...] for DeiT, with the learnable positional table over the
 full sequence. Inputs are NHWC images. The frozen SchemaNet backbone runs
-``encode_until`` (deterministic); ``forward`` is the classifier that stage 0
+``encode_until`` (deterministic), and the codebook evaluation re-enters the
+model after it with ``resume_from_layer``; ``forward`` is the classifier that stage 0
 fine-tunes, with ``deterministic=False`` for the training forward (dropout on
 the positional encoding, the residuals and inside the fused kernels, drawn
 from the caller's ``DropoutRNG``).
@@ -70,6 +71,13 @@ class ViT(nn.Module):
         """Patchify + layers [0, end_layer): the mid feature is the output of
         ``layers_{end_layer-1}``."""
         return self.transformer.run(self.embed(img), capture=capture, end_layer=end_layer)
+
+    def resume_from_layer(self, seq: torch.Tensor, start_layer: int) -> Dict[str, torch.Tensor]:
+        """Layers [start_layer, end) from the output of ``layers_{start_layer-1}``,
+        the final norm and the head (deterministic): the rest of the model
+        after ``encode_until(img, start_layer)``."""
+        seq, _ = self.transformer.run(seq, start_layer=start_layer)
+        return self.head(seq)
 
 
 class DeiT(ViT):

@@ -2,10 +2,12 @@
 
 frozen ViT through layer ``encode_layer`` (with the layer's head-mean raw
 attention captured) -> VQ of the patch tokens -> dense instance graphs ->
-atlas match with the shared GNN -> logits. The backbone and its codebook are
-frozen: they run under ``torch.no_grad`` and their parameters do not require
-gradients (the JAX package's ``stop_gradient`` and optimizer masking), so
-training differentiates the atlas and the GNN only.
+atlas match with the shared GNN -> logits; ``classify_discretized`` is the
+frozen ViT's own classification with its mid feature quantised or not. The
+backbone and its codebook are frozen: they run under ``torch.no_grad`` and
+their parameters do not require gradients (the JAX package's
+``stop_gradient`` and optimizer masking), so training differentiates the
+atlas and the GNN only.
 
 Parameter names follow the JAX tree (``ingredient_backbone.backbone``,
 ``schema_net``, ``matcher.gnn``) so ``models/port.py`` maps one onto the other.
@@ -110,6 +112,23 @@ class SchemaNetPredictor(nn.Module):
         atlas = self.schema_net.get_atlas()
         pred = self.matcher(instance, atlas, per_sample_pooling, self.schema_net.class_id_plans)
         return {"pred": pred, **atlas}
+
+    @torch.no_grad()
+    def classify_discretized(self, img: torch.Tensor, quantize: bool = True) -> torch.Tensor:
+        """Logits [bs, num_classes] of the whole frozen ViT with its patch
+        tokens after the encode layer replaced by their nearest codes
+        (``quantize``) or kept (not): the codebook-agreement evaluation's two
+        classifiers (``train/evaluator.py`` ``CBEvaluation``). Layers after
+        the encode layer run deterministic, without the head-mean probe."""
+        backbone = self.ingredient_backbone.backbone
+        start = self.ingredient_backbone.encode_layer + 1
+        mid_feat, _ = backbone.encode_until(img, end_layer=start)
+        n_prefix = backbone.num_prefix_tokens
+        patches = mid_feat[:, n_prefix:]
+        if quantize:
+            patches, _ = vq_encode(patches, self.ingredient_backbone.vocabulary)
+        seq = torch.cat([mid_feat[:, :n_prefix], patches], dim=1)
+        return backbone.resume_from_layer(seq, start)["pred"]
 
 
 def build_predictor(

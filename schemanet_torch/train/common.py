@@ -18,14 +18,25 @@ parameter groups.
 
 Not ported yet: ``moment_dtype`` (bf16 moments), ``factored`` and the
 per-group ``adamw_lowmem`` keys, and the other optimizers; asking for them
-raises. Checkpointing waits for the trainer's loaders.
+raises.
+
+Checkpoints are torch-native: ``CheckpointManager`` writes one
+``torch.save`` file a tag (``<ckpt_dir>/iter-<n>.pt``, the reference's
+``ckpt/iter-<N>.pth``), keeps the newest ``max_keep`` of them and copies the
+best to ``best.pt``; ``save_metadata`` writes ``meta.json`` with the JAX
+package's keys. Reading or writing the JAX package's Orbax checkpoints is
+not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
+import os
 import re
-from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+import shutil
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -131,6 +142,13 @@ class ScheduledAdamW:
         if self.optimizer is not None:
             self.optimizer.zero_grad(set_to_none=True)
 
+    def state_dict(self) -> Dict[str, Any]:
+        return self.optimizer.state_dict() if self.optimizer is not None else {}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        if self.optimizer is not None:
+            self.optimizer.load_state_dict(state)
+
     def step(self, count: int) -> None:
         """One update; ``count`` is the number of updates already applied."""
         if self.optimizer is None:
@@ -181,3 +199,96 @@ def make_optimizer(
         if label != "frozen" and pname not in exclude:
             params[label].append(p)
     return ScheduledAdamW(params, hyper, schedule), labels, hyper
+
+
+class CheckpointManager:
+    """``iter-<n>`` checkpoints and a ``best`` copy in ``ckpt_dir``, one
+    ``torch.save`` file a tag. ``max_keep`` keeps the newest N ``iter-*``
+    files (``best`` and other tags are never pruned); None keeps all. One
+    process writes: the port's training runs in one."""
+
+    def __init__(self, ckpt_dir: str, max_keep: Optional[int] = 3):
+        self.ckpt_dir = os.path.abspath(ckpt_dir)
+        self.max_keep = max_keep
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+
+    def _path(self, tag: str) -> str:
+        return os.path.join(self.ckpt_dir, f"{tag}.pt")
+
+    def _prune(self) -> None:
+        if self.max_keep is None:
+            return
+        iters = []
+        for name in os.listdir(self.ckpt_dir):
+            stem, ext = os.path.splitext(name)
+            if stem.startswith("iter-") and ext == ".pt" and stem[5:].isdigit():
+                iters.append((int(stem[5:]), name))
+        iters.sort()
+        for _, name in iters[: max(0, len(iters) - self.max_keep)]:
+            os.remove(os.path.join(self.ckpt_dir, name))
+
+    def save(self, tag: str, state: Mapping[str, Any], is_best: bool = False) -> None:
+        """Write ``state`` under ``tag`` (through a temporary file, so a
+        crash leaves the previous file whole); copy it to ``best`` when
+        ``is_best``; prune."""
+        path = self._path(tag)
+        torch.save(state, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        if is_best:
+            shutil.copyfile(path, self._path("best") + ".tmp")
+            os.replace(self._path("best") + ".tmp", self._path("best"))
+        self._prune()
+
+    def restore(self, tag_or_path: str) -> Dict[str, Any]:
+        """The saved state of a tag, or of a file path, on the CPU."""
+        path = tag_or_path if os.path.isabs(tag_or_path) else self._path(tag_or_path)
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    def exists(self, tag: str) -> bool:
+        return os.path.isfile(self._path(tag))
+
+
+def merge_restored(init: Mapping[str, Any], restored: Mapping[str, Any],
+                   name: str = "ckpt") -> Dict[str, Any]:
+    """Lax overlay of a restored (possibly nested) state dict onto a fresh
+    one, as the reference's tolerant ``load_pretrain_model``
+    (``utils/model.py:24-33``): keys in both with equal shapes come from the
+    checkpoint; missing or other-shaped ones (a head for another class
+    count) keep the local value and are logged."""
+    logger = logging.getLogger("merge_restored")
+    skipped = []
+
+    def overlay(dst, src, path):
+        if isinstance(dst, Mapping):
+            out = {}
+            for k, v in dst.items():
+                if isinstance(src, Mapping) and k in src:
+                    out[k] = overlay(v, src[k], f"{path}/{k}")
+                else:
+                    skipped.append(f"{path}/{k} (missing in {name})")
+                    out[k] = v
+            return out
+        if tuple(np.shape(src)) != tuple(np.shape(dst)):
+            skipped.append(f"{path} (shape {tuple(np.shape(src))} != {tuple(np.shape(dst))})")
+            return dst
+        return src
+
+    merged = overlay(init, restored, "")
+    for msg in skipped:
+        logger.warning("keeping local init for %s", msg)
+    return merged
+
+
+def save_metadata(ckpt_dir: str, meta: Dict[str, Any]) -> None:
+    """``meta.json`` in ``ckpt_dir`` (the JAX package's keys: epoch, iter,
+    best_acc, best_iter, eval, last_tag)."""
+    with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=2, default=float)
+
+
+def load_metadata(ckpt_dir: str) -> Optional[Dict[str, Any]]:
+    path = os.path.join(ckpt_dir, "meta.json")
+    if not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        return json.load(f)

@@ -1,8 +1,10 @@
-"""The port imports neither JAX nor the JAX package: the machine with the card
-has no JAX. Checked in a fresh interpreter where importing any of them fails
-(serving, one SchemaNet training step, one stage-0 backbone step with
-dropout live, and stages 1 and 3 through the pipeline package, with the VQ
-and LayerNorm kernel modules), and by reading the port's sources."""
+"""The port imports neither JAX nor the JAX package, and neither Pillow nor
+TensorBoard: the machine with the card has none of them. Checked in a fresh
+interpreter where importing any of them fails (serving, one SchemaNet
+training step, one stage-0 backbone step with dropout live, stages 1 and 3
+through the pipeline package, with the VQ and LayerNorm kernel modules, and
+one epoch of ``schema_net_worker`` with its loaders, validation, TensorBoard
+writer and checkpoints), and by reading the port's sources."""
 
 import pathlib
 import re
@@ -12,13 +14,15 @@ import textwrap
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "schemanet_tpu")
+ABSENT_ON_CARD = ("PIL", "tensorboard")  # not installed beside the card either
 
 
-def test_import_and_cpu_forward_without_jax():
+def test_import_and_cpu_forward_without_jax(tmp_path):
+    blocked = FORBIDDEN + ABSENT_ON_CARD
     script = textwrap.dedent(
         f"""
         import sys
-        for name in {FORBIDDEN!r}:
+        for name in {blocked!r}:
             sys.modules[name] = None  # any import of it now raises ImportError
         import numpy as np
         import torch
@@ -75,7 +79,30 @@ def test_import_and_cpu_forward_without_jax():
         atlas = init_stage({{"dataset": {{"name": "cifar_10"}}, "schema_net": schema_cfg}},
                            bundle, [images], device="cpu")
         assert atlas["class_ingredients"].shape == (10, 16), atlas["class_ingredients"].shape
-        loaded = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}
+        import json, os
+        from schemanet_torch.pipeline import save_atlas_init, save_bundle
+        from schemanet_torch.train import LaunchArgs, schema_net_worker
+        root = {str(tmp_path)!r}
+        save_bundle(os.path.join(root, "bundle"), bundle.model_cfg, bundle.encode_layer,
+                    bundle.backbone_state, bundle.codebook)
+        save_atlas_init(os.path.join(root, "atlas.pt"), atlas["params"], atlas["class_ingredients"])
+        worker_cfg = {{
+            "dataset": {{"name": "synthetic", "num_classes": 10, "image_size": 8, "resize": 16,
+                        "train": {{"num_samples": 8}}, "val": {{"num_samples": 6}}}},
+            "training": {{"train_epochs": 1, "batch_size": 4, "val_interval": 1,
+                          "num_workers": 1, "optimizer": {{"name": "AdamW", "lr": 1e-3}}}},
+            "validation": {{"batch_size": 4, "num_workers": 1}},
+            "schema_net": dict(schema_cfg, bundle=os.path.join(root, "bundle"),
+                               initial_state_fp=os.path.join(root, "atlas.pt")),
+            "loss": {{"name": "schema_inference_loss", "weight_dict": {{"cls": 1.0}}}},
+        }}
+        out = schema_net_worker(worker_cfg, LaunchArgs(log_dir=os.path.join(root, "run"),
+                                                       device="cpu"))
+        meta = json.load(open(os.path.join(root, "run", "ckpt", "meta.json")))
+        assert meta["iter"] == 2 and meta["last_tag"] == "iter-2", meta
+        assert os.path.isfile(os.path.join(root, "run", "ckpt", "best.pt"))
+        assert out["trainer"].tb._writer is None  # no tensorboard: the writer does nothing
+        loaded = [m for m in sys.modules if m.split(".")[0] in {blocked!r}
                   and sys.modules[m] is not None]
         assert not loaded, loaded
         print("ok")
@@ -96,4 +123,14 @@ def test_sources_name_no_jax_module():
         for p in sorted((REPO / "schemanet_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
         if pattern.search(p.read_text())
     ]
+    assert not offenders, offenders
+
+
+def test_data_and_utils_import_no_pillow_or_tensorboard_at_module_level():
+    pattern = re.compile(
+        r"^(import|from)\s+(PIL|tensorboard|torch\.utils\.tensorboard)\b", re.MULTILINE)
+    sources = [p for sub in ("data", "utils")
+               for p in sorted((REPO / "schemanet_torch" / sub).rglob("*.py"))]
+    assert len(sources) >= 7
+    offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
     assert not offenders, offenders
