@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): the serving path,
 the SchemaNet training step, stage 0 (fine-tuning the backbone), stage 1
-(codebook extraction), stage 3 (IR-Atlas initialisation) and the
+(codebook extraction), stage 3 (IR-Atlas initialisation), the
 loader-driven workers (training with validation, checkpoints and resume,
-and evaluation).
+and evaluation), and the ImageNet DeiT-Small configuration (serving, the
+stage-4 step and stage 0) with DeiT-Base's widths.
 
 Both run the CIFAR-100 DeiT-Tiny configuration at full width (224^2 input,
 patch 16, 197 tokens, d=192, 3 heads, FFN 768, layers 0-9 of 12 frozen,
@@ -236,13 +237,79 @@ temporary directory):
     on its last checkpoint: top-1/top-5 counts equal to the worker's final
     validation, the loss within 1e-6 relative.
 
+ImageNet (``imagenet_phases``): ``configs/imagenet/schema_net/deit_small-l9-M_8000.yaml``
+with its model ``configs/models/deit_small_patch16_224.yaml`` (224^2, patch
+16, 197 tokens, d=384, 6 heads of 64, FFN 1536, layers 0-9 of 12 frozen,
+M=8000 codes, K=1000 classes, V_max=500, GNN 1024 x 2, inner-product
+matcher, bf16, bf16 AdamW moments on the schema_net group, batch 64) and
+``configs/imagenet/vanilla/deit_{small,base}.yaml`` for stage 0, on the
+dataset block ``{name: synthetic, num_classes: 1000, image_size: 224}``
+with seeded random weights (a seeded DeiT-Small bundle with a random
+codebook; class ingredients drawn distinct a class from the 8000 codes):
+
+24. the kernels at the new widths against their plain versions (the
+    tolerances of 3), each bitwise over two calls and counted on its route:
+    ``ffn_block`` at [64, 197, 768] f 3072 and at 1,000 rows in both dtypes
+    (the two-product route); ``fused_mlp`` forward and backward at
+    [64, 197, 384] and [64, 197, 768], p = 0 and 0.1, both dtypes (the wide
+    route); ``fused_layernorm`` forward and backward at [500,000, 1024] relu
+    (the class graphs; no cotangent at a gate tie, as 15) and
+    [12,608, 384 | 768]; ``adamw_project_rows`` with bf16 moments on the
+    [1000, 500, 500] edge and [1000, 500] vertex tensors against the plain
+    low-memory update plus the projection (p within 1e-4, m and v within one
+    bf16 ulp); their times beside the plain versions' and their bounds;
+25. ImageNet serving, bf16 (the stage-4 trainer's predictor through
+    ``ServePredictor``): finite [100, 1000] logits from two microbatches
+    (the second padded), ``predict(x[:5]) == predict(x)[:5]`` bit for bit,
+    the launch counters as 5 (384 wide: ``ffn_block`` on its one-launch
+    kernel), p50/p99 latency of a microbatch of 64;
+26. ImageNet serving in fp32 against the plain versions, the rule of 4.
+    Cut: K = 100 classes (the plain GraphConv's E_sym and a second
+    predictor at K = 1000 beside the first would crowd the card's memory);
+27. the ImageNet stage-4 step in bf16 (``schema_net_trainer``): 5 finite
+    losses, the counters as 9 plus 2 ``adamw_project_rows`` with bf16
+    moments a step, the moments' dtypes (bf16 for all four atlas tensors),
+    step ms and images/s, device-busy ms and idle share (profiler, 2
+    steps), the peak device memory; ``sym_conv`` and ``sym_conv_bwd`` at
+    [1000, 500, 1024] against their plain versions and timed (run after 25,
+    before 26);
+28. the ImageNet stage-4 step in fp32 against the plain versions with
+    phase 8's rules (``stage4_fp32_vs_plain``: free run, lock step,
+    ``run_to_run_bitwise``), the YAML's bf16 moments kept, except that the
+    tight rule is reported, not gated: the rows' projection ties each edge
+    weight to its row's sum, and entries whose |g| is below the two sides'
+    gradient difference may take either sign of Adam's g / (|g| + eps),
+    moving whole rows past rtol 1e-4 within the bound; and from the second
+    step the LayerNorm's E[x^2] - E[x]^2 variance at the GNN's 1024-wide
+    features leaves the edge weights' fp32 gradient known to ~1e-3 of its
+    max. Gated in its place: the first lock step's atlas gradients within
+    1e-5 of the plain versions', and the atlas gradient after 2 steps,
+    kernels and plain versions in fp32 against the plain versions in fp64:
+    the kernels' no more than 10% farther. Cut: K = 100;
+29. DeiT-Small stage 0 (``backbone_trainer``, 1000 classes): 3 fp32 steps
+    against the plain versions with phase 12's rules, then 5 bf16 steps:
+    finite losses, 12 launches each of the four stage-0 kernels a step,
+    every FFN launch on the wide route, 25 LayerNorm forward and backward;
+    step ms;
+30. DeiT-Base: one bf16 serving microbatch of 64 (K cut to 100) with its 10
+    ``ffn_block`` launches on the two-product route at 768, finite logits;
+    2 bf16 stage-0 steps with ``fused_mlp`` at 768 on the wide route,
+    finite losses. Depth not cut.
+
+Each of 24-30 prints its seconds (``phase_seconds``; ``imagenet_seconds``
+sums them).
+
 Any failed check raises, so the script exits non-zero. Without a GPU it fails
 at once. Its last line is ``{"ok": true, "device": {...}}``; the line before
 it lists every kernel with its launches on its path (training for the
 SchemaNet kernels, stage 0 for the fused attention and FFN kernels), its
 error against its plain version, its time, the plain version's, its bound on
 the card and, where one PyTorch call computes the same function, that
-call's time, and its launches in the workers' runs (phases 20 and 23). The VQ kernel's launches are stage 1's and the LayerNorm
+call's time, and its launches in the workers' runs (phases 20 and 23); the
+instantiations of phases 24-30 follow (``ffn_block_d768``,
+``fused_mlp[_bwd]_d384`` and ``_d768``, ``fused_layernorm[_bwd]_d1024``,
+``adamw_project_rows_bf16``, ``sym_conv[_bwd]_imagenet``), each with the
+launches of the path that runs it. The VQ kernel's launches are stage 1's and the LayerNorm
 kernels' stage 0's; its error is the largest plain-score difference between
 the kernel's code and the plain version's. ``ffn_block_fp32`` is
 ``ffn_block`` in fp32 (the split-TF32 kernel): stage 1's launches, the fp32
@@ -392,6 +459,68 @@ S3_BATCH, S3_BATCHES, CIFAR_TRAIN = 32, 64, 50_000
 WORKER_DATA = {"name": "synthetic", "num_classes": NUM_CLASSES, "image_size": 32, "resize": IMG,
                "train": {"num_samples": 640}, "val": {"num_samples": 160}}
 W_EPOCHS, W_VAL_INTERVAL, W_PRINT, S0W_STEPS = 2, 15, 5, 5
+# ImageNet (phases 24-30): configs/imagenet/schema_net/deit_small-l9-M_8000.yaml
+# with its model configs/models/deit_small_patch16_224.yaml, and
+# configs/imagenet/vanilla/deit_{small,base}.yaml, as the workers read them
+# (inline: the card's machine has no PyYAML); the dataset block
+# {name: synthetic, num_classes: 1000, image_size: 224} (no ImageNet file is
+# in the repository: 224^2 images shipped as they are, no resize)
+IN_CLASSES, IN_CODES, IN_VMAX, IN_GNN, IN_FP32_CLASSES = 1000, 8000, 500, 1024, 100
+IN_DATA = {"name": "synthetic", "num_classes": IN_CLASSES, "image_size": IMG}
+
+
+def vit_cfg(dim: int, heads: int, dropout) -> dict:
+    """configs/models/deit_{small,base}_patch16_224.yaml (12 layers, patch 16, FFN 4 d)."""
+    return {"name": "vit",
+            "transformer": dict(embed_dim=dim, num_encoder_layers=12, num_heads=heads,
+                                dim_feedforward=4 * dim, dropout=dropout, activation="gelu",
+                                final_norm=True, norm_eps=1e-06),
+            "patch_embed": dict(name="vit_like", img_size=IMG, patch_size=PATCH, image_channels=3),
+            "pos_encoding": {"name": "learnable", "dropout": None}}
+
+
+IN_SCHEMA_CFG = {  # configs/imagenet/schema_net/deit_small-l9-M_8000.yaml
+    "dataset": IN_DATA,
+    "training": {
+        "dtype": "bfloat16",
+        "optimizer": {"name": "AdamW", "lr": 0.001, "weight_decay": 0.05},
+        "param_groups": [{"pattern": "schema_net",
+                          "cfg": {"weight_decay": 0.0005, "moment_dtype": "bfloat16",
+                                  "nu_dtype": "bfloat16"}},
+                         {"pattern": "matcher"}],
+        "drop_remain": True,
+        "lr_schedule": {"name": "cosine_annealing", "T_max": 50, "eta_min": 1.0e-05},
+        "train_epochs": 50, "batch_size": 64,
+    },
+    "schema_net": {
+        "matcher": {"similarity": "inner_product"},
+        "gnn": {"embed_dim": IN_GNN, "num_layers": 2, "identity_proj": False,
+                "activation": "relu"},
+        "ir_atlas": dict(class_max_vertices=IN_VMAX, dist_pow=2, feat_h=IMG // PATCH,
+                         feat_w=IMG // PATCH, constant_vertex_attr=None, constant_edge_attr=None,
+                         clamp_vertex_attn=-1.0, clamp_edge_attn=-1.0, remove_self_loop=False,
+                         prune_node_threshold=0.001, apply_normalize=True, clamp_weights=True),
+    },
+    "loss": {"name": "schema_inference_loss", "weight_dict": LOSS_WEIGHTS},
+}
+
+
+def vanilla_cfg(dim: int, heads: int) -> dict:
+    """configs/imagenet/vanilla/deit_{small,base}.yaml (stage 0)."""
+    return {
+        "dataset": IN_DATA,
+        "training": {
+            "dtype": "bfloat16",
+            "optimizer": {"name": "AdamW", "lr": 0.0001, "weight_decay": 0.05},
+            "lr_schedule": {"name": "cosine_annealing", "T_max": 50, "warmup_iters": 10},
+            "train_epochs": 50, "batch_size": 64, "clip_max_norm": 0.1,
+        },
+        "model": vit_cfg(dim, heads, 0.1),
+        "loss": {"name": "ce_loss", "weight_dict": {"cls": 1.0}},
+    }
+
+
+IN_STEPS_PER_EPOCH = 1_281_167 // BATCH  # ImageNet-1k's training images
 # H100 SXM data sheet, dense: bf16 and TF32 tensor cores, fp32 outside them, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "tfloat32": 494.7e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
@@ -512,6 +641,797 @@ def compare(name, kernel, plain, args, kw, dtype, tol, errors) -> None:
     require(all(r <= tol for r in rels), f"{name} {dtype}: rel err {rels} > {tol}")
     if dtype == torch.bfloat16 or name not in errors:
         errors[name] = max(abss)
+
+
+def stage4_fp32_vs_plain(make_trainer, batches, lr: float, frozen_layers: int, helpers: dict,
+                         label: str = "train_fp32", tight: bool = True, **fields):
+    """Phase 8 (and phase 28 at ImageNet's shapes): the stage-4 step in fp32
+    (``make_trainer()``, graph_precision 'highest') against the same trainer
+    with every kernel replaced by its plain version, fed the kernel run's VQ
+    ids: ``len(batches)`` steps run free, then as many in lock step, the
+    first of them twice from one saved state on each side
+    (``run_to_run_bitwise``). Fails on any rule of phase 8; returns the
+    kernel side's free-run launch counts and the lock step's report.
+    ``tight`` False (phase 28): the tight rule is reported for every step
+    (``sure_ok_steps``), not gated; the bound gates every entry."""
+    from schemanet_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    with_plain, recording_vq = helpers["with_plain"], helpers["recording_vq"]
+    replaying_vq, replay_report = helpers["replaying_vq"], helpers["replay_report"]
+    steps = len(batches)
+    hot_names = ("schema_net.vertex_weights", "schema_net.edge_weights")
+
+    def fp32_run():
+        tr = make_trainer()
+        losses = [tr.train_iter(batch)["loss"].item() for batch in batches]
+        hot = {k: tr.hot[k].param.detach().clone() for k in hot_names}
+        del tr
+        torch.cuda.empty_cache()
+        return losses, hot
+
+    # free running: 3 steps each, the kernels against the plain versions
+    s4_ids, s4_vq = [], {"rows": 0, "mismatches": 0, "near_ties_only": True}
+    reset_launch_counts()
+    with recording_vq(s4_ids):
+        losses_k, hot_k = fp32_run()
+    s4_launches = launch_counts()
+    want_attn = {"attn_block": frozen_layers * steps, "attn_block_tc": frozen_layers * steps,
+                 "attn_block_hmean": steps}
+    require({k: s4_launches[k] for k in want_attn} == want_attn,
+            f"fp32 stage-4 attn_block launches {s4_launches} != {want_attn}: an fp32 launch "
+            "missed the split-TF32 route")
+
+    def plain_fp32_run():
+        with replaying_vq(s4_ids, s4_vq):
+            return fp32_run()
+
+    losses_p, hot_p = with_plain(plain_fp32_run)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
+    bound = 2 * lr * steps
+    free = {k: (hot_k[k] - hot_p[k]).abs().max().item() for k in hot_names}
+    del hot_k, hot_p
+
+    # lock step: each step from the kernel trainer's state, once on the
+    # kernels and once on the plain versions. Run free, a rounding
+    # difference anywhere upstream of the atlas grows over the steps where
+    # the atlas is not smooth: a vertex weight crossing prune_node_threshold
+    # (the random init's weights cluster at 1/V_max, next to 0.001), a
+    # projected entry leaving its exact 0
+    def trainer_state(tr):
+        """A copy of all a step reads and writes: the parameters, the AdamW
+        state (deep: ``load_state_dict`` keeps the tensors it is given, so a
+        shallow copy would let two trainers update one state; the
+        low-memory groups' moments with it), the atlas moments and the step
+        count."""
+        return ({k: v.detach().clone() for k, v in tr.model.state_dict().items()},
+                copy.deepcopy(tr.optimizer.state_dict()),
+                {k: {n: t.clone() for n, t in h.state.items()} for k, h in tr.hot.items()},
+                tr.step)
+
+    def load_trainer_state(tr, state):
+        params, opt, hot, step = state
+        tr.model.load_state_dict(params)
+        tr.optimizer.load_state_dict(copy.deepcopy(opt))
+        for k, moments in hot.items():
+            for n, t in moments.items():
+                tr.hot[k].state[n].copy_(t)
+        tr.step = step
+
+    def step_result(tr, loss, ids=()):
+        """The loss, every parameter, gradient and atlas moment after a step,
+        and the step's VQ ids."""
+        out = {"loss": torch.tensor(loss), **{f"vq ids {i}": t.clone() for i, t in enumerate(ids)}}
+        for k, p in tr.model.named_parameters():
+            out[f"param {k}"] = p.detach().clone()
+            if p.grad is not None:
+                out[f"grad {k}"] = p.grad.detach().clone()
+        for k, h in tr.hot.items():
+            out.update({f"{n} {k}": t.clone() for n, t in h.state.items()})
+        for gi, group in enumerate(tr.optimizer.state_dict().get("lowmem", ())):
+            for pi, slot in enumerate(group):
+                out.update({f"lowmem {gi}/{pi} {n}": t.clone() for n, t in slot.items()})
+        return out
+
+    def differing(a, b):
+        return sorted(k for k in a if not torch.equal(a[k], b[k]))
+
+    tk, tp = make_trainer(), make_trainer()
+    lock_vq = {"rows": 0, "mismatches": 0, "near_ties_only": True}
+    lock = {k: {"sure_share": [], "sure_ok": True, "max_abs_diff_sure": 0.0, "max_abs_diff": 0.0,
+                "grad_rel_err": 0.0} for k in hot_names}
+    lock_loss_rel = 0.0
+    run_to_run = {}
+    for i, batch in enumerate(batches):
+        state = trainer_state(tk)
+        load_trainer_state(tp, state)
+        step_ids = []
+
+        def kernel_step():
+            step_ids.clear()
+            with recording_vq(step_ids):
+                return tk.train_iter(batch)["loss"].item()
+
+        def plain_step():
+            with replaying_vq(step_ids, lock_vq):
+                return tp.train_iter(batch)["loss"].item()
+
+        loss_k = kernel_step()
+        if i == 0:  # the first lock step twice from one state, on each side
+            first = step_result(tk, loss_k, step_ids)
+            load_trainer_state(tk, state)
+            loss_k = kernel_step()
+            run_to_run["kernel"] = differing(first, step_result(tk, loss_k, step_ids))
+            first = step_result(tp, with_plain(plain_step))
+            load_trainer_state(tp, state)
+            loss_p = with_plain(plain_step)
+            run_to_run["plain"] = differing(first, step_result(tp, loss_p))
+            del first
+            torch.cuda.empty_cache()
+        else:
+            loss_p = with_plain(plain_step)
+        del state
+        lock_loss_rel = max(lock_loss_rel, abs(loss_k - loss_p) / abs(loss_p))
+        for k in hot_names:
+            pk, pp = tk.hot[k].param, tp.hot[k].param
+            grad = pp.grad.abs()
+            sure = grad > 1e-3 * grad.max()
+            diff = (pk.detach() - pp.detach()).abs()
+            r = lock[k]
+            r["sure_share"].append(sure.float().mean().item())
+            ok = bool((diff[sure] <= 1e-6 + 1e-4 * pp.detach().abs()[sure]).all())
+            r.setdefault("sure_ok_steps", []).append(ok)
+            r["sure_ok"] &= ok
+            r["max_abs_diff_sure"] = max(r["max_abs_diff_sure"], diff[sure].max().item())
+            r["max_abs_diff"] = max(r["max_abs_diff"], diff.max().item())
+            r.setdefault("grad_rel_err_steps", []).append(rel_err(pk.grad, pp.grad))
+            r["grad_rel_err"] = max(r["grad_rel_err_steps"])
+    del tk, tp
+    torch.cuda.empty_cache()
+    phase(label, steps=steps, batch=len(batches[0]["label"]), losses=losses_k,
+          plain_losses=losses_p,
+          loss_rel_err=loss_rel, free_run_max_abs_diff=free, bound=bound,
+          lock_step_loss_rel_err=lock_loss_rel, lock_step=lock,
+          tol={"loss": 1e-4, "sure": "rtol 1e-4 / atol 1e-6"},
+          **replay_report(s4_vq), lock_step_vq=replay_report(lock_vq),
+          run_to_run_bitwise={side: not names for side, names in run_to_run.items()},
+          attn_launches={k: s4_launches[k] for k in want_attn},
+          run_to_run_differs={side: names[:20] for side, names in run_to_run.items()}, **fields)
+    for side, names in run_to_run.items():
+        require(not names, f"fp32 lock step, {side} side: a step from one state twice differs in "
+                           f"{names[:20]}")
+    require(loss_rel <= 1e-4 and lock_loss_rel <= 1e-4,
+            f"fp32 train losses differ by {loss_rel} (free) / {lock_loss_rel} (lock step)")
+    for k in hot_names:
+        r = lock[k]
+        require(free[k] <= bound, f"fp32 {k}: differs by {free[k]} > {bound} after the free run")
+        require(r["sure_ok"] or not tight, f"fp32 {k}: a step differs beyond rtol 1e-4 / atol "
+                                           "1e-6 where |g| is large")
+        require(r["max_abs_diff"] <= bound, f"fp32 {k}: a step differs by {r['max_abs_diff']}")
+    return s4_launches, lock
+
+
+
+def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
+    """Phases 24-30: the kernels at the DeiT-Small, DeiT-Base and ImageNet
+    widths against their plain versions; the ImageNet DeiT-Small
+    configuration's serving (bf16, counted and timed; fp32 against the plain
+    versions), its stage-4 step (bf16, counted, timed, profiled; fp32 in lock
+    step against the plain versions) and its stage 0 (fp32 against the plain
+    versions, bf16 counted); DeiT-Base's serving microbatch and stage-0
+    steps. ``helpers``: main's ``with_plain``, ``recording_vq``,
+    ``replaying_vq`` and ``replay_report``. Returns the rows of the kernels
+    line for the new instantiations, and each phase's seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from schemanet_torch.models.vit import get_model
+    from schemanet_torch.ops.kernels import atlas_opt as ao
+    from schemanet_torch.ops.kernels import encoder_block as eb
+    from schemanet_torch.ops.kernels import graphconv as gc
+    from schemanet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from schemanet_torch.ops.kernels import layernorm as lnk
+    from schemanet_torch.ops.kernels import mlp as mk
+    from schemanet_torch.pipeline.bundle import Bundle
+    from schemanet_torch.schema import build_predictor, get_loss_fn, init_parameters_
+    from schemanet_torch.serve import ServePredictor
+    from schemanet_torch.train import (SCHEMA_NET_FROZEN, Trainer, TrainerConfig, backbone_trainer,
+                                       schema_net_trainer)
+
+    with_plain = helpers["with_plain"]
+    seconds, rows, errors = {}, {}, {}
+    g = torch.Generator().manual_seed(24)
+    t_phase = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        seconds[name] = now - t_phase
+        t_phase = now
+        phase("phase_seconds", phase_name=name, seconds=seconds[name], **card_note)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    def twice_equal(fn):
+        a, b = fn(), fn()
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def row(name, work, ms, plain_ms, library_ms=None, **extra):
+        bound_ms, bound_by = least_ms(*work)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms, **extra)
+        phase("kernel_time", kernel=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+              bound_by=bound_by, library_ms=library_ms, **extra, **card_note)
+
+    iters = 5  # events over 5 calls: these calls take milliseconds each
+    vit_rows = BATCH * ((IMG // PATCH) ** 2 + 1)  # a batch of 64 at 197 tokens: 12,608 rows
+
+    # 24. the kernels at the new widths against their plain versions, each
+    # bitwise over two calls, each counted on its route
+    ffn_cases = {"d768": (vit_rows, 768, 3072), "d768_rows1000": (1000, 768, 3072)}
+    for tag, (rows_, d_, f_) in ffn_cases.items():
+        args = (rnd(1, rows_, d_), 1 + rnd(d_, scale=0.1), rnd(d_, scale=0.1),
+                rnd(f_, d_, scale=d_**-0.5), rnd(f_, scale=0.1), rnd(d_, f_, scale=f_**-0.5),
+                rnd(d_, scale=0.1))
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            a = (args[0].to(dt), *args[1:])
+            before = eb.ffn_block.wide_launches
+            label = f"ffn_block_{tag}" if dt == torch.bfloat16 else f"ffn_block_fp32_{tag}"
+            compare(label, eb.ffn_block, eb.ffn_block_reference, a, {}, dt, tol, errors)
+            same = twice_equal(lambda: eb.ffn_block(*a))
+            phase("compare", kernel=label, run_to_run_bitwise=same,
+                  wide_launches=eb.ffn_block.wide_launches - before)
+            require(same and eb.ffn_block.wide_launches - before == 3,
+                    f"{label}: two calls differ, or a call missed the two-product route")
+            if tag == "d768":
+                x_, g1, b1, w1, fb1, w2, fb2 = a
+                flops = 4 * x_.numel() * f_ * (3 if dt == torch.float32 else 1)
+                moved = 2 * nbytes(x_) + nbytes(g1, b1, w1, fb1, w2, fb2)
+                name = "ffn_block_d768" if dt == torch.bfloat16 else "ffn_block_fp32_d768"
+                with torch.no_grad():
+                    row(name, (flops, moved, "tfloat32" if dt == torch.float32 else "bfloat16"),
+                        time_ms(lambda: eb.ffn_block(*a), iters),
+                        time_ms(lambda: eb.ffn_block_reference(*a), iters), shape=list(x_.shape))
+    mlp_same = {}
+    for d_ in (384, 768):
+        f_, rows_ = 4 * d_, vit_rows
+        x_, g_ = rnd(rows_, d_), rnd(rows_, d_)
+        w_ = (rnd(f_, d_, scale=d_**-0.5), rnd(f_, scale=0.1), rnd(d_, f_, scale=f_**-0.5))
+        b2_ = rnd(d_, scale=0.1)
+        for p in (0.0, S0_DROPOUT):
+            seed = S0_SEED if p else None
+            for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+                w_dt = tuple(t.to(dt) for t in w_)
+                fwd = (x_.to(dt), *w_dt, b2_.to(dt), "gelu", p, seed)
+                bwd = (x_.to(dt), *w_dt, g_.to(dt), "gelu", p, seed)
+                suffix = f"d{d_}" + ("" if p else "_p0") + ("" if dt == torch.bfloat16 else "_fp32")
+                before = (mk.fused_mlp.wide_launches, mk.fused_mlp_bwd.wide_launches)
+                with torch.no_grad():
+                    compare(f"fused_mlp_{suffix}", mk.fused_mlp, mk.fused_mlp_reference, fwd, {},
+                            dt, tol, errors)
+                compare(f"fused_mlp_bwd_{suffix}", mk.fused_mlp_bwd, mk.fused_mlp_bwd_reference,
+                        bwd, {}, dt, tol, errors)
+                with torch.no_grad():
+                    mlp_same[suffix] = (twice_equal(lambda: mk.fused_mlp(*fwd))
+                                        and twice_equal(lambda: mk.fused_mlp_bwd(*bwd)))
+                require((mk.fused_mlp.wide_launches, mk.fused_mlp_bwd.wide_launches) ==
+                        (before[0] + 3, before[1] + 3),
+                        f"fused_mlp {suffix}: not on the wide route")
+                if dt == torch.bfloat16 and p:
+                    mlp = 2 * rows_ * d_ * f_
+                    wbytes = nbytes(*w_dt)
+                    with torch.no_grad():
+                        row(f"fused_mlp_d{d_}", (2 * mlp, 2 * nbytes(fwd[0]) + wbytes + nbytes(
+                            fwd[4]), "bfloat16"), time_ms(lambda: mk.fused_mlp(*fwd), iters),
+                            time_ms(lambda: mk.fused_mlp_reference(*fwd), iters),
+                            shape=list(fwd[0].shape), dropout=p)
+                    row(f"fused_mlp_bwd_d{d_}", (5 * mlp, 3 * nbytes(fwd[0]) + 2 * wbytes,
+                                                  "bfloat16"),
+                        time_ms(lambda: mk.fused_mlp_bwd(*bwd), iters),
+                        time_ms(lambda: mk.fused_mlp_bwd_reference(*bwd), iters),
+                        shape=list(fwd[0].shape), dropout=p)
+    phase("compare", kernel="fused_mlp_wide", run_to_run_bitwise=mlp_same)
+    require(all(mlp_same.values()), f"fused_mlp at 384/768: two calls differ: {mlp_same}")
+    del x_, g_, w_, fwd, bwd
+    torch.cuda.empty_cache()
+
+    # the LayerNorm at the ImageNet class graphs (relu) and the ViT widths
+    ln_same = {}
+    for tag, (rows_, d_, act) in {"d1024": (IN_CLASSES * IN_VMAX, IN_GNN, "relu"),
+                                  "d384": (vit_rows, 384, "none"),
+                                  "d768": (vit_rows, 768, "none")}.items():
+        x32 = rnd(rows_, d_)
+        sc, bi = 1 + rnd(d_, scale=0.1), rnd(d_, scale=0.1)
+        cot32 = rnd(rows_, d_)
+        if act == "relu":  # no cotangent at a gate tie (|y| <= 1e-5 max |y|), as phase 15
+            y = lnk.fused_layernorm_reference(x32, sc, bi, 1e-6, act)
+            cot32 = torch.where(y.abs() <= 1e-5 * y.abs().max(), 0.0, cot32)
+            for dt in (torch.bfloat16,):
+                yk = lnk.fused_layernorm_reference(x32.to(dt), sc, bi, 1e-6, act).float()
+                cot32 = torch.where(yk.abs() <= 1e-5 * yk.abs().max(), 0.0, cot32)
+            del y, yk
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            xx, cc = x32.to(dt), cot32.to(dt)
+            label = f"fused_layernorm_{tag}" + ("" if dt == torch.bfloat16 else "_fp32")
+            compare(label, lnk.fused_layernorm, lnk.fused_layernorm_reference,
+                    (xx, sc, bi, 1e-6, act), {}, dt, tol, errors)
+            compare(label.replace("layernorm", "layernorm_bwd"), lnk.fused_layernorm_bwd,
+                    lnk.fused_layernorm_bwd_reference, (xx, sc, bi, cc, 1e-6, act), {}, dt, tol,
+                    errors)
+            ln_same[label] = twice_equal(lambda: lnk.fused_layernorm_bwd(xx, sc, bi, cc, 1e-6,
+                                                                         act)[1:])
+            if tag == "d1024" and dt == torch.bfloat16:
+                row("fused_layernorm_d1024", (*ln_work(xx), "float32"),
+                    time_ms(lambda: lnk.fused_layernorm(xx, sc, bi, 1e-6, act), iters),
+                    time_ms(lambda: lnk.fused_layernorm_reference(xx, sc, bi, 1e-6, act), iters),
+                    shape=list(xx.shape), act=act)
+                row("fused_layernorm_bwd_d1024", (*ln_work(xx, bwd=True), "float32"),
+                    time_ms(lambda: lnk.fused_layernorm_bwd(xx, sc, bi, cc, 1e-6, act), iters),
+                    time_ms(lambda: lnk.fused_layernorm_bwd_reference(xx, sc, bi, cc, 1e-6, act),
+                            iters), shape=list(xx.shape), act=act)
+        del x32, cot32, xx, cc
+        torch.cuda.empty_cache()
+    phase("compare", kernel="fused_layernorm_wide", dparams_run_to_run_bitwise=ln_same)
+    require(all(ln_same.values()), f"fused_layernorm_bwd dscale/dbias differ: {ln_same}")
+
+    # adamw_project_rows with bf16 moments on the ImageNet edge and vertex
+    # tensors, against the plain low-memory update plus the projection
+    adam_report = {}
+    atlas_shapes = {"edge": (IN_CLASSES, IN_VMAX, IN_VMAX), "vertex": (IN_CLASSES, IN_VMAX)}
+    for tag, shape in atlas_shapes.items():
+        p0 = torch.rand(*shape, generator=g).to(dev)
+        p0 /= p0.sum(-1, keepdim=True)
+        grad = rnd(*shape, scale=1e-4)
+        m0 = rnd(*shape, scale=1e-5).to(torch.bfloat16)
+        v0 = (rnd(*shape, scale=1e-5) ** 2).to(torch.bfloat16)
+        hyper = dict(lr=1e-3, weight_decay=5e-4, project=True)
+        outs = []
+        for fn in (ao.adamw_project_rows, ao.adamw_project_rows, ao.adamw_project_rows_reference):
+            p_, m_, v_ = p0.clone(), m0.clone(), v0.clone()
+            fn(p_, grad, m_, v_, 3, **hyper)
+            outs.append((p_, m_, v_))
+        (pk, mk_, vk), (pk2, mk2, vk2), (pp, mp, vp) = outs
+
+        def within_ulp(got, want, terms):
+            """|got - want| <= one bf16 ulp of the larger, beyond the fp32
+            rounding of the moment's sum b t + (1 - b) x (2^-22 of its
+            terms' magnitudes: where the two terms cancel, the kernel's fused
+            multiply-add and the plain version's two roundings leave
+            different fp32 residues); the worst offender for the report."""
+            big = torch.maximum(got.float().abs(), want.float().abs()).clamp_min(1e-30)
+            tol = torch.exp2(torch.floor(torch.log2(big)) - 7) + 2.0**-22 * terms
+            excess = (got.float() - want.float()).abs() - tol
+            i = int(excess.flatten().argmax())
+            return bool((excess <= 0).all()), [got.flatten()[i].item(), want.flatten()[i].item()]
+
+        m_ok, m_worst = within_ulp(mk_, mp, 0.9 * m0.float().abs() + 0.1 * grad.abs())
+        v_ok, v_worst = within_ulp(vk, vp, 0.999 * v0.float().abs() + 0.001 * grad * grad)
+        adam_report[tag] = {
+            "p_rel_err": rel_err(pk, pp),
+            "m_within_1_ulp": m_ok, "v_within_1_ulp": v_ok, "m_worst": m_worst,
+            "v_worst": v_worst,
+            "m_equal_share": (mk_ == mp).float().mean().item(),
+            "run_to_run_bitwise": all(torch.equal(a, b) for a, b in
+                                      ((pk, pk2), (mk_, mk2), (vk, vk2))),
+            "moment_dtypes": [str(mk_.dtype), str(vk.dtype)]}
+        errors[f"adamw_project_rows_bf16_{tag}"] = abs_err(pk, pp)
+        r = adam_report[tag]
+        require(r["p_rel_err"] <= FP32_TOL and r["m_within_1_ulp"] and r["v_within_1_ulp"]
+                and r["run_to_run_bitwise"], f"adamw_project_rows bf16 moments {tag}: {r}")
+        if tag == "edge":
+            p_, m_, v_ = p0.clone(), m0.clone(), v0.clone()
+            prm = p0.numel()
+            # p and g read and p written in fp32, m and v read and written in bf16
+            row("adamw_project_rows_bf16", (15 * prm, 3 * 4 * prm + 4 * 2 * prm, "float32"),
+                time_ms(lambda: ao.adamw_project_rows(p_, grad, m_, v_, 3, **hyper), iters),
+                time_ms(lambda: ao.adamw_project_rows_reference(p_, grad, m_, v_, 3, **hyper),
+                        iters), shape=list(shape))
+        del p0, grad, m0, v0, outs, pk, mk_, vk, pk2, mk2, vk2, pp, mp, vp
+        torch.cuda.empty_cache()
+    phase("compare", kernel="adamw_project_rows_bf16",
+          tol={"p": FP32_TOL, "m, v": "1 bf16 ulp beyond the fp32 rounding of the sum"},
+          **adam_report)
+    lap("24_kernels_at_new_widths")
+
+    # 25. ImageNet DeiT-Small serving, bf16: the stage-4 trainer's predictor
+    # (schema_net_trainer from a seeded bundle: DeiT-Small, M = 8000 codes),
+    # K = 1000 class graphs of V_max = 500, class ingredients drawn distinct
+    # a class from the 8000 codes
+    small = vit_cfg(384, 6, None)
+    vit = get_model(small, IN_CLASSES)
+    init_parameters_(vit, torch.Generator().manual_seed(0))
+    bundle = Bundle(model_cfg=small, encode_layer=ENCODE_LAYER, img_size=IMG,
+                    backbone_state={k: v.clone() for k, v in vit.state_dict().items()},
+                    codebook=torch.rand(IN_CODES, 384, generator=g) * 2 - 1, extra={})
+    del vit
+    ingredients = torch.stack([torch.randperm(IN_CODES, generator=g)[:IN_VMAX]
+                               for _ in range(IN_CLASSES)]).to(torch.int32)
+    tr = schema_net_trainer(IN_SCHEMA_CFG, bundle, None, IN_STEPS_PER_EPOCH, seed=0, device=dev)
+    with torch.no_grad():
+        tr.model.schema_net.class_ingredients.copy_(ingredients)
+    serve = ServePredictor(tr.model, microbatch=MICROBATCH, device=dev)
+    images = torch.from_numpy(np.random.default_rng(25).normal(
+        size=(N_IMAGES, IMG, IMG, 3)).astype(np.float32)).to(dev)
+    reset_launch_counts()
+    logits = serve.predict_tensor(images)
+    torch.cuda.synchronize()
+    serve_launches = launch_counts()
+    mbs = -(-N_IMAGES // MICROBATCH)
+    convs = 2 * IN_SCHEMA_CFG["schema_net"]["gnn"]["num_layers"]
+    expected = {name: 0 for name in serve_launches}
+    expected.update({"attn_block": FROZEN_LAYERS * mbs, "attn_block_hmean": mbs,
+                     "attn_block_tc": FROZEN_LAYERS * mbs, "ffn_block": FROZEN_LAYERS * mbs,
+                     "ffn_block_tc": FROZEN_LAYERS * mbs, "vq_assign": mbs, "vq_assign_tc": mbs,
+                     "sym_conv": convs * mbs, "sym_conv_tc": convs * mbs,
+                     "fused_layernorm": convs * mbs})
+    head = serve.predict_tensor(images[:5])
+    invariant = torch.equal(head, logits[:5])
+    finite = bool(torch.isfinite(logits).all())
+    lat = []
+    for _ in range(LATENCY_ITERS):
+        t0 = time.perf_counter()
+        serve.predict_tensor(images[:MICROBATCH])
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+    phase("imagenet_serve_bf16", images=N_IMAGES, microbatches=mbs, logits=list(logits.shape),
+          finite=finite, batch_invariant=invariant, launches=serve_launches, expected=expected,
+          p50_ms=p50, p99_ms=p99, images_per_s=MICROBATCH / p50 * 1e3, classes=IN_CLASSES,
+          codes=IN_CODES, v_max=IN_VMAX, gnn=IN_GNN, **card_note)
+    require(tuple(logits.shape) == (N_IMAGES, IN_CLASSES) and finite,
+            f"ImageNet bf16 logits {tuple(logits.shape)}, finite {finite}")
+    require(invariant, "ImageNet serving: predict(x[:5]) != predict(x)[:5]")
+    require(serve_launches == expected, f"ImageNet serving launches {serve_launches} != {expected}")
+    lap("25_imagenet_serve_bf16")
+
+    # 27. the ImageNet stage-4 step in bf16: the main path, counted, timed
+    rng = np.random.default_rng(27)
+    batches = [{"image": torch.from_numpy(rng.integers(0, 256, size=(BATCH, IMG, IMG, 3),
+                                                        dtype=np.uint8)).to(dev),
+                "label": torch.from_numpy(rng.integers(0, IN_CLASSES, size=BATCH)).to(dev)}
+               for _ in range(BF16_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [tr.train_iter(b)["loss"].item() for b in batches]
+    first_steps_s = time.perf_counter() - t0
+    train_launches = launch_counts()
+    expected = {name: 0 for name in train_launches}
+    expected.update({"attn_block": FROZEN_LAYERS * BF16_STEPS, "attn_block_hmean": BF16_STEPS,
+                     "attn_block_tc": FROZEN_LAYERS * BF16_STEPS,
+                     "ffn_block": FROZEN_LAYERS * BF16_STEPS,
+                     "ffn_block_tc": FROZEN_LAYERS * BF16_STEPS, "vq_assign": BF16_STEPS,
+                     "vq_assign_tc": BF16_STEPS,
+                     **{name: convs * BF16_STEPS for name in (
+                         "sym_conv", "sym_conv_bwd", "sym_conv_tc", "sym_conv_bwd_tc",
+                         "fused_layernorm", "fused_layernorm_bwd", "fused_layernorm_bwd_vec")},
+                     "embed_grad": 2 * BF16_STEPS, "embed_grad_vec": 2 * BF16_STEPS,
+                     "embed_grad_planned": BF16_STEPS,
+                     "adamw_project_rows": 2 * BF16_STEPS,
+                     "adamw_project_rows_bf16": 2 * BF16_STEPS})  # the hot atlas tensors
+    moments = {name: {k: str(t.dtype) for k, t in h.state.items()} for name, h in tr.hot.items()}
+    moments.update({f"lowmem {gi}/{pi}": {k: str(t.dtype) for k, t in slot.items()}
+                    for gi, group in enumerate(tr.optimizer.lowmem.state)
+                    for pi, slot in enumerate(group)})
+    step_ms = []
+    for b in batches[:3]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_iter(b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for attempt in range(1, 6):  # a session without device events is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in batches[:2]:
+                tr.train_iter(b)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy = device_time_by_name(prof)
+        busy_us = sum(busy.values())
+        if busy_us:
+            break
+        phase("profile_empty", attempt=attempt, iters=2)
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
+    step_p50 = float(np.median(step_ms))
+    phase("imagenet_train_bf16", steps=BF16_STEPS, batch=BATCH, losses=losses,
+          launches=train_launches, expected=expected, moment_dtypes=moments,
+          first_steps_s=first_steps_s, step_ms=step_ms, p50_ms=step_p50,
+          images_per_s=BATCH / step_p50 * 1e3, device_busy_ms_a_step=busy_us / 2e3,
+          idle_share=1 - busy_us / wall_us if busy_us else None,
+          top_device_ms_a_step={k: v / 2e3 for k, v in top}, peak_memory_gb=peak_gb,
+          **card_note)
+    require(all(np.isfinite(losses)), f"ImageNet bf16 stage-4 losses not finite: {losses}")
+    require(train_launches == expected, f"ImageNet stage-4 launches {train_launches} != {expected}")
+    require(all(t == "torch.bfloat16" for m in moments.values() for t in m.values()),
+            f"an atlas tensor's moment is not bf16: {moments}")
+    require(busy_us > 0, "the ImageNet stage-4 profile holds no device time")
+    launches_path = {"ffn_block": train_launches["ffn_block"],
+                     "fused_layernorm_d1024": train_launches["fused_layernorm"],
+                     "fused_layernorm_bwd_d1024": train_launches["fused_layernorm_bwd"],
+                     "adamw_project_rows_bf16": train_launches["adamw_project_rows_bf16"],
+                     "sym_conv_imagenet": train_launches["sym_conv"],
+                     "sym_conv_bwd_imagenet": train_launches["sym_conv_bwd"]}
+    # the class graphs' GraphConv at [1000, 500, 1024], beside its plain version
+    e16 = tr.model.schema_net.edge_weights.detach().to(torch.bfloat16)
+    f16 = rnd(IN_CLASSES, IN_VMAX, IN_GNN).to(torch.bfloat16)
+    compare("sym_conv_imagenet", gc.sym_conv, gc.sym_conv_reference, (e16, f16), {},
+            torch.bfloat16, BF16_TOL, errors)
+    gout = rnd(IN_CLASSES, IN_VMAX, IN_GNN).to(torch.bfloat16)
+    compare("sym_conv_bwd_imagenet", gc.sym_conv_bwd, gc.sym_conv_bwd_reference,
+            (e16, f16, gout), {}, torch.bfloat16, BF16_TOL, errors)
+    conv_flops = 2 * IN_CLASSES * IN_VMAX * IN_VMAX * IN_GNN + 2 * IN_CLASSES * IN_VMAX * IN_VMAX
+    with torch.no_grad():
+        row("sym_conv_imagenet", (conv_flops, nbytes(e16, f16, f16), "bfloat16"),
+            time_ms(lambda: gc.sym_conv(e16, f16), iters),
+            time_ms(lambda: gc.sym_conv_reference(e16, f16), iters), shape=list(f16.shape))
+        row("sym_conv_bwd_imagenet", (2 * conv_flops, nbytes(e16, f16, gout, e16, f16),
+                                      "bfloat16"),
+            time_ms(lambda: gc.sym_conv_bwd(e16, f16, gout), iters),
+            time_ms(lambda: gc.sym_conv_bwd_reference(e16, f16, gout), iters),
+            shape=list(f16.shape))
+    del e16, f16, gout, tr, serve, batches, images
+    torch.cuda.empty_cache()
+    lap("27_imagenet_train_bf16")
+
+    # 26 and 28 in fp32 against the plain versions, K cut to 100 classes (two
+    # trainers and the plain GraphConv's E_sym at K = 1000 pass 80 GB)
+    def fp32_model(dtype=torch.float32):
+        schema = dict(IN_SCHEMA_CFG["schema_net"], ir_atlas=dict(
+            IN_SCHEMA_CFG["schema_net"]["ir_atlas"], graph_precision="highest"))
+        return build_predictor(small, schema, IN_FP32_CLASSES, IN_CODES, 384, ENCODE_LAYER,
+                               dtype=dtype)
+
+    m32 = fp32_model()
+    init_parameters_(m32, torch.Generator().manual_seed(0))
+    with torch.no_grad():  # the bundle's backbone; its 1000-class head is not on the path
+        m32.ingredient_backbone.backbone.load_state_dict(
+            {k: v for k, v in bundle.backbone_state.items() if not k.startswith("cls_head.")},
+            strict=False)
+        m32.ingredient_backbone.vocabulary.copy_(bundle.codebook)
+        m32.schema_net.class_ingredients.copy_(ingredients[:IN_FP32_CLASSES])
+    host_state = {k: v.clone() for k, v in m32.state_dict().items()}
+    s32 = ServePredictor(m32, microbatch=MICROBATCH, device=dev)
+    images = torch.from_numpy(np.random.default_rng(26).normal(
+        size=(N_IMAGES, IMG, IMG, 3)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        reset_launch_counts()
+        logits_k = s32.predict_tensor(images)
+        fp32_launches = launch_counts()
+        ids_k = s32.predictor.ingredient_backbone(images[:MICROBATCH])["ingredients"]
+        logits_p = with_plain(lambda: s32.predict_tensor(images))
+        ids_p = with_plain(lambda: s32.predictor.ingredient_backbone(images[:MICROBATCH]))[
+            "ingredients"]
+    torch.cuda.synchronize()
+    agree = (ids_k == ids_p).float().mean().item()
+    scale = logits_p.abs().max().item()
+    logit_err = (logits_k - logits_p).abs().max().item()
+    want_attn = {"attn_block": FROZEN_LAYERS * mbs, "attn_block_tc": FROZEN_LAYERS * mbs,
+                 "attn_block_hmean": mbs}
+    phase("imagenet_serve_fp32", images=N_IMAGES, classes=IN_FP32_CLASSES,
+          vq_id_agreement=agree, logit_max_abs_err=logit_err, logit_scale=scale,
+          tol=1e-3 * scale, attn_launches={k: fp32_launches[k] for k in want_attn})
+    require({k: fp32_launches[k] for k in want_attn} == want_attn,
+            "ImageNet fp32 serving: an attn_block launch missed the split-TF32 route")
+    require(tuple(logits_k.shape) == (N_IMAGES, IN_FP32_CLASSES), "ImageNet fp32 logits shape")
+    require(agree >= 0.999, f"ImageNet fp32 VQ ids agree on {agree:.5f} < 0.999 of tokens")
+    require(logit_err <= 1e-3 * scale, f"ImageNet fp32 logits differ by {logit_err}")
+    del s32, m32, logits_k, logits_p, images
+    torch.cuda.empty_cache()
+    lap("26_imagenet_serve_fp32")
+
+    rng = np.random.default_rng(28)
+    batches = [{"image": torch.from_numpy(rng.normal(size=(BATCH, IMG, IMG, 3)).astype(
+        np.float32)).to(dev),
+                "label": torch.from_numpy(rng.integers(0, IN_FP32_CLASSES, size=BATCH)).to(dev)}
+               for _ in range(FP32_STEPS)]
+    trainer_cfg = TrainerConfig.from_cfg(IN_SCHEMA_CFG["training"],
+                                         frozen_patterns=SCHEMA_NET_FROZEN)
+    loss_fn = get_loss_fn(IN_SCHEMA_CFG["loss"])
+
+    def fp32_trainer():
+        mdl = fp32_model()
+        mdl.load_state_dict(host_state)
+        return Trainer(trainer_cfg, mdl, loss_fn, LOSS_WEIGHTS, IN_STEPS_PER_EPOCH, device=dev)
+
+    # The tight rule is reported here, not gated. The rows' projection ties
+    # every edge weight of a row to its row's sum, and where |g| is below the
+    # two sides' gradient difference, Adam's step g / (|g| + eps) may take
+    # either sign: a whole row then moves beyond rtol 1e-4 while each entry
+    # keeps the bound. From the second step on, the GNN's 1024-wide
+    # activations also give the LayerNorm's E[x^2] - E[x]^2 variance (flax's,
+    # as the TPU kernels and both of the port's versions compute it) a
+    # cancellation, which leaves the edge weights' fp32 gradient known to
+    # ~1e-3 of its max. Gated instead: the first lock step's gradients (from
+    # the fresh model, where fp32 holds them) within 1e-5, and the fp64 check
+    # below (the kernels' gradient no farther from fp64 than the plain one's).
+    _, lock = stage4_fp32_vs_plain(
+        fp32_trainer, batches, IN_SCHEMA_CFG["training"]["optimizer"]["lr"], FROZEN_LAYERS,
+        helpers, label="imagenet_train_fp32", tight=False, classes=IN_FP32_CLASSES,
+        moments="bf16 (the schema_net group's)")
+    first = {k: r["grad_rel_err_steps"][0] for k, r in lock.items()}
+    require(all(v <= 1e-5 for v in first.values()),
+            f"ImageNet fp32 lock step: the first step's atlas gradients differ by {first}")
+
+    # the step's atlas gradient after 2 kernel steps: kernels and plain
+    # versions in fp32 against the plain versions in fp64; the kernels may
+    # not be the farther from fp64 (by more than 10%)
+    tr = fp32_trainer()
+    for b in batches[:2]:
+        tr.train_iter(b)
+    stepped = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    del tr
+
+    def step_grads(plain: bool, dtype=torch.float32):
+        mdl = fp32_model(dtype).to(dtype)
+        mdl.load_state_dict(stepped)
+        t = Trainer(trainer_cfg, mdl, loss_fn, LOSS_WEIGHTS, IN_STEPS_PER_EPOCH, device=dev)
+        batch = {"image": batches[2]["image"].to(dtype), "label": batches[2]["label"]}
+
+        def run():
+            t.zero_grad()
+            t.forward_loss(batch)[0].backward()
+            return {k: getattr(t.model.schema_net, k).grad.double() for k in (
+                "edge_weights", "vertex_weights")}
+
+        return with_plain(run) if plain else run()
+
+    ids = []
+    with helpers["recording_vq"](ids):
+        g_k = step_grads(False)
+    vq_ids = list(ids)
+    stats = {"rows": 0, "mismatches": 0, "near_ties_only": True}
+    with helpers["replaying_vq"](list(vq_ids), stats):
+        g_p = step_grads(True)
+    with helpers["replaying_vq"](list(vq_ids), dict(stats)):
+        g_64 = step_grads(True, torch.float64)
+    cond = {k: {"kernel_vs_plain": rel_err(g_k[k], g_p[k]),
+                "kernel_vs_fp64": rel_err(g_k[k], g_64[k]),
+                "plain_vs_fp64": rel_err(g_p[k], g_64[k])} for k in g_k}
+    phase("imagenet_grad_vs_fp64", after_steps=2, **cond)
+    require(all(c["kernel_vs_fp64"] <= 1.1 * c["plain_vs_fp64"] + 1e-6 for c in cond.values()),
+            f"the kernels' fp32 atlas gradient is farther from fp64 than the plain one: {cond}")
+    del g_k, g_p, g_64, stepped
+    del batches, host_state
+    torch.cuda.empty_cache()
+    lap("28_imagenet_train_fp32")
+
+    # 29. DeiT-Small stage 0 (configs/imagenet/vanilla/deit_small.yaml):
+    # 3 fp32 steps against the plain versions (phase 12's rules), then 5 bf16
+    # steps counted
+    def stage0(dim, heads, dtype, n_classes=IN_CLASSES):
+        cfg = vanilla_cfg(dim, heads)
+        cfg["training"] = dict(cfg["training"], dtype=dtype)
+        return backbone_trainer(cfg, IN_STEPS_PER_EPOCH, seed=0, device=dev,
+                                num_classes=n_classes)
+
+    rng = np.random.default_rng(29)
+    s0_batches = [{"image": torch.from_numpy(rng.normal(size=(BATCH, IMG, IMG, 3)).astype(
+        np.float32)).to(dev),
+                   "label": torch.from_numpy(rng.integers(0, IN_CLASSES, size=BATCH)).to(dev)}
+                  for _ in range(BF16_STEPS)]
+
+    def s0_fp32_run(track_sure):
+        tr0 = stage0(384, 6, "float32")
+        out_losses, sure = [], {}
+        for b in s0_batches[:FP32_STEPS]:
+            out_losses.append(tr0.train_iter(b)["loss"].item())
+            if track_sure and not sure:
+                for k, prm in tr0.model.named_parameters():
+                    gr = prm.grad.abs()
+                    sure[k] = gr > 1e-3 * gr.max()
+        params = {k: prm.detach().clone() for k, prm in tr0.model.named_parameters()}
+        del tr0
+        torch.cuda.empty_cache()
+        return out_losses, params, sure
+
+    losses_k, params_k, _ = s0_fp32_run(False)
+    losses_p, params_p, sure = with_plain(lambda: s0_fp32_run(True))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
+    bound_step = 2 * vanilla_cfg(384, 6)["training"]["optimizer"]["lr"] * FP32_STEPS
+    worst = {"max_abs_diff": 0.0, "max_abs_diff_sure": 0.0, "sure_ok": True}
+    for k in params_p:
+        diff = (params_k[k] - params_p[k]).abs()
+        worst["max_abs_diff"] = max(worst["max_abs_diff"], diff.max().item())
+        if sure[k].any():
+            worst["max_abs_diff_sure"] = max(worst["max_abs_diff_sure"],
+                                             diff[sure[k]].max().item())
+            worst["sure_ok"] &= bool((diff[sure[k]] <= 1e-6 + 1e-4 * params_p[k].abs()[
+                sure[k]]).all())
+    phase("imagenet_stage0_fp32", model="deit_small", steps=FP32_STEPS, batch=BATCH,
+          losses=losses_k, plain_losses=losses_p, loss_rel_err=loss_rel, tol=1e-4,
+          bound=bound_step, **worst)
+    require(loss_rel <= 1e-4, f"DeiT-Small stage-0 fp32 losses differ by {loss_rel}")
+    require(worst["sure_ok"], "DeiT-Small stage-0 fp32 parameters differ beyond rtol 1e-4 / "
+                              "atol 1e-6 where |g| is large")
+    require(worst["max_abs_diff"] <= bound_step, f"DeiT-Small stage-0 fp32: {worst}")
+    del params_k, params_p, sure
+
+    def counted_steps(tr0, steps, layers):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out_losses = [tr0.train_iter(b)["loss"].item() for b in s0_batches[:steps]]
+        torch.cuda.synchronize()
+        got = launch_counts()
+        want = {name: 0 for name in got}
+        want.update({name: layers * steps for name in (
+            "fused_mhsa", "fused_mhsa_bwd", "fused_mlp", "fused_mlp_bwd", "fused_mhsa_tc",
+            "fused_mhsa_bwd_tc", "fused_mlp_tc", "fused_mlp_bwd_tc", "fused_mlp_wide",
+            "fused_mlp_bwd_wide")})
+        want.update({name: (2 * layers + 1) * steps for name in (
+            "fused_layernorm", "fused_layernorm_bwd", "fused_layernorm_bwd_vec")})
+        ms = []
+        for b in s0_batches[:2]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr0.train_iter(b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out_losses, got, want, ms
+
+    tr0 = stage0(384, 6, "bfloat16")
+    losses0, got, want, ms = counted_steps(tr0, BF16_STEPS, 12)
+    phase("imagenet_stage0_bf16", model="deit_small", steps=BF16_STEPS, batch=BATCH,
+          losses=losses0, launches=got, expected=want, step_ms=ms,
+          images_per_s=BATCH / float(np.median(ms)) * 1e3, **card_note)
+    require(all(np.isfinite(losses0)), f"DeiT-Small stage-0 bf16 losses: {losses0}")
+    require(got == want, f"DeiT-Small stage-0 launches {got} != {want}")
+    launches_path.update({"fused_mlp_d384": got["fused_mlp"], "fused_mlp_bwd_d384": got[
+        "fused_mlp_bwd"]})
+    del tr0
+    torch.cuda.empty_cache()
+    lap("29_deit_small_stage0")
+
+    # 30. DeiT-Base (configs/imagenet/*/deit_base*): one bf16 serving
+    # microbatch (K cut to 100 classes) with ffn_block at 768 counted, and 2
+    # bf16 stage-0 steps with fused_mlp at 768 counted; depth not cut
+    base = vit_cfg(768, 12, None)
+    schema = dict(IN_SCHEMA_CFG["schema_net"], ir_atlas=dict(
+        IN_SCHEMA_CFG["schema_net"]["ir_atlas"], graph_precision="default"))
+    mb = build_predictor(base, schema, IN_FP32_CLASSES, IN_CODES, 768, ENCODE_LAYER,
+                         dtype=torch.bfloat16)
+    init_parameters_(mb, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        mb.schema_net.class_ingredients.copy_(ingredients[:IN_FP32_CLASSES])
+    serve = ServePredictor(mb, microbatch=MICROBATCH, device=dev)
+    images = torch.from_numpy(np.random.default_rng(30).normal(
+        size=(MICROBATCH, IMG, IMG, 3)).astype(np.float32)).to(dev)
+    reset_launch_counts()
+    logits = serve.predict_tensor(images)
+    torch.cuda.synchronize()
+    base_serve = launch_counts()
+    finite = bool(torch.isfinite(logits).all())
+    phase("deit_base_serve_bf16", classes=IN_FP32_CLASSES, logits=list(logits.shape),
+          finite=finite, ffn_block_wide=base_serve["ffn_block_wide"],
+          attn_block=base_serve["attn_block"])
+    require(finite and tuple(logits.shape) == (MICROBATCH, IN_FP32_CLASSES),
+            "DeiT-Base bf16 logits not finite")
+    require(base_serve["ffn_block_wide"] == base_serve["ffn_block"] == FROZEN_LAYERS,
+            f"DeiT-Base serving: ffn_block launches {base_serve}")
+    launches_path["ffn_block_d768"] = base_serve["ffn_block_wide"]
+    del serve, mb, images, logits
+    torch.cuda.empty_cache()
+    tr0 = stage0(768, 12, "bfloat16")
+    losses_b, got, want, ms = counted_steps(tr0, 2, 12)
+    phase("deit_base_stage0_bf16", steps=2, batch=BATCH, losses=losses_b,
+          fused_mlp_wide=got["fused_mlp_wide"], fused_mlp_bwd_wide=got["fused_mlp_bwd_wide"],
+          step_ms=ms, **card_note)
+    require(all(np.isfinite(losses_b)), f"DeiT-Base stage-0 losses: {losses_b}")
+    require(got == want, f"DeiT-Base stage-0 launches {got} != {want}")
+    launches_path.update({"fused_mlp_d768": got["fused_mlp"],
+                          "fused_mlp_bwd_d768": got["fused_mlp_bwd"]})
+    del tr0
+    torch.cuda.empty_cache()
+    lap("30_deit_base")
+
+    for name, r in rows.items():
+        r["launches"] = launches_path.get(name, 0)
+        r["max_abs_err"] = max(errors.get(name, 0.0), errors.get(f"{name}_p0", 0.0),
+                               errors.get(f"{name}_edge", 0.0), errors.get(f"{name}_vertex", 0.0))
+    return {"rows": rows, "seconds": seconds}
 
 
 def worker_phases(dev, work_dir: str, bundle_dir: str, atlas_path: str, card_note: dict,
@@ -897,15 +1817,23 @@ def main() -> None:
     # embed_grad's 6 (the chunks' 2 dtypes x 2 piece widths, the combine, the
     # offsets)
     build_log = _build.library_path().with_suffix(".log").read_text()
+    # Phase 24's widths add: mlp.cu's wide route, 5 gemm_tc_kernel (counted
+    # with the tc_kernels: 14), 5 gemm_fma_kernel and col_sum_kernel;
+    # encoder_block.cu's gelu epilogues of linear_tc and linear_tf32 (3 each)
+    # and its gemm_tc_kernel; layernorm.cu's backward at 1024 (18 in all:
+    # 16-byte pieces 4 and 8 a lane, scalar 32, in both dtypes)
     for source, tag, count in (("attention.cu", "mhsa_tc", 16), ("graphconv.cu", "tc_kernel", 8),
-                               ("mlp.cu", "tc_kernel", 9), ("encoder_block.cu", "linear_tc", 2),
-                               ("encoder_block.cu", "linear_tf32", 2),
+                               ("mlp.cu", "tc_kernel", 14), ("mlp.cu", "gemm_fma", 5),
+                               ("mlp.cu", "col_sum", 1), ("encoder_block.cu", "linear_tc", 3),
+                               ("encoder_block.cu", "linear_tf32", 3),
+                               ("encoder_block.cu", "gemm_tc", 1),
                                ("encoder_block.cu", "attn_tf32", 3),
                                ("encoder_block.cu", "ln_stats", 1),
                                ("encoder_block.cu", "ffn_tc_kernel", 5),
                                ("encoder_block.cu", "ffn_tf32_kernel", 5), ("vq.cu", "vq_tc", 2),
-                               ("layernorm.cu", "ln_bwd_kernel", 12),
-                               ("layernorm.cu", "ln_param_sum", 1), ("embed_bwd.cu", "embed_", 6)):
+                               ("layernorm.cu", "ln_bwd_kernel", 18),
+                               ("layernorm.cu", "ln_param_sum", 1), ("embed_bwd.cu", "embed_", 6),
+                               ("atlas_opt.cu", "adamw_project_rows", 4)):
         tc_ptxas = {name: dict(zip(("registers", "spill_stores", "spill_loads"), r))
                     for name, r in ptxas_report(build_log, source).items() if tag in name}
         phase("ptxas", source=source, tag=tag, kernels=tc_ptxas)
@@ -1369,145 +2297,11 @@ def main() -> None:
         return Trainer(trainer_cfg, mdl, loss_fn, LOSS_WEIGHTS, STEPS_PER_EPOCH, device=dev)
 
     hot_names = ("schema_net.vertex_weights", "schema_net.edge_weights")
-
-    def fp32_run():
-        tr = trainer(torch.float32, "highest")
-        losses = [tr.train_iter(batch)["loss"].item() for batch in batches[:FP32_STEPS]]
-        hot = {k: tr.hot[k].param.detach().clone() for k in hot_names}
-        del tr
-        torch.cuda.empty_cache()
-        return losses, hot
-
-    # free running: 3 steps each, the kernels against the plain versions
-    s4_ids, s4_vq = [], {"rows": 0, "mismatches": 0, "near_ties_only": True}
-    reset_launch_counts()
-    with recording_vq(s4_ids):
-        losses_k, hot_k = fp32_run()
-    s4_launches = launch_counts()
-    want_attn = {"attn_block": FROZEN_LAYERS * FP32_STEPS,
-                 "attn_block_tc": FROZEN_LAYERS * FP32_STEPS, "attn_block_hmean": FP32_STEPS}
-    require({k: s4_launches[k] for k in want_attn} == want_attn,
-            f"fp32 stage-4 attn_block launches {s4_launches} != {want_attn}: an fp32 launch "
-            "missed the split-TF32 route")
-
-    def plain_fp32_run():
-        with replaying_vq(s4_ids, s4_vq):
-            return fp32_run()
-
-    losses_p, hot_p = with_plain(plain_fp32_run)
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
-    lr = TRAIN_CFG["optimizer"]["lr"]
-    bound = 2 * lr * FP32_STEPS
-    free = {k: (hot_k[k] - hot_p[k]).abs().max().item() for k in hot_names}
-    del hot_k, hot_p
-
-    # lock step: each step from the kernel trainer's state, once on the
-    # kernels and once on the plain versions. Run free, a rounding
-    # difference anywhere upstream of the atlas grows over the steps where
-    # the atlas is not smooth: a vertex weight crossing prune_node_threshold
-    # (the random init's weights cluster at 1/V_max, next to 0.001), a
-    # projected entry leaving its exact 0
-    def trainer_state(tr):
-        """A copy of all a step reads and writes: the parameters, the AdamW
-        state (deep: ``load_state_dict`` keeps the tensors it is given, so a
-        shallow copy would let two trainers update one state), the atlas
-        moments and the step count."""
-        return ({k: v.detach().clone() for k, v in tr.model.state_dict().items()},
-                copy.deepcopy(tr.optimizer.optimizer.state_dict()),
-                {k: (h.m.clone(), h.v.clone()) for k, h in tr.hot.items()}, tr.step)
-
-    def load_trainer_state(tr, state):
-        params, opt, hot, step = state
-        tr.model.load_state_dict(params)
-        tr.optimizer.optimizer.load_state_dict(copy.deepcopy(opt))
-        for k, (m, v) in hot.items():
-            tr.hot[k].m.copy_(m)
-            tr.hot[k].v.copy_(v)
-        tr.step = step
-
-    def step_result(tr, loss, ids=()):
-        """The loss, every parameter, gradient and atlas moment after a step,
-        and the step's VQ ids."""
-        out = {"loss": torch.tensor(loss), **{f"vq ids {i}": t.clone() for i, t in enumerate(ids)}}
-        for k, p in tr.model.named_parameters():
-            out[f"param {k}"] = p.detach().clone()
-            if p.grad is not None:
-                out[f"grad {k}"] = p.grad.detach().clone()
-        for k, h in tr.hot.items():
-            out[f"m {k}"], out[f"v {k}"] = h.m.clone(), h.v.clone()
-        return out
-
-    def differing(a, b):
-        return sorted(k for k in a if not torch.equal(a[k], b[k]))
-
-    tk, tp = trainer(torch.float32, "highest"), trainer(torch.float32, "highest")
-    lock_vq = {"rows": 0, "mismatches": 0, "near_ties_only": True}
-    lock = {k: {"sure_share": [], "sure_ok": True, "max_abs_diff_sure": 0.0, "max_abs_diff": 0.0,
-                "grad_rel_err": 0.0} for k in hot_names}
-    lock_loss_rel = 0.0
-    run_to_run = {}
-    for i, batch in enumerate(batches[:FP32_STEPS]):
-        state = trainer_state(tk)
-        load_trainer_state(tp, state)
-        step_ids = []
-
-        def kernel_step():
-            step_ids.clear()
-            with recording_vq(step_ids):
-                return tk.train_iter(batch)["loss"].item()
-
-        def plain_step():
-            with replaying_vq(step_ids, lock_vq):
-                return tp.train_iter(batch)["loss"].item()
-
-        loss_k = kernel_step()
-        if i == 0:  # the first lock step twice from one state, on each side
-            first = step_result(tk, loss_k, step_ids)
-            load_trainer_state(tk, state)
-            loss_k = kernel_step()
-            run_to_run["kernel"] = differing(first, step_result(tk, loss_k, step_ids))
-            first = step_result(tp, with_plain(plain_step))
-            load_trainer_state(tp, state)
-            loss_p = with_plain(plain_step)
-            run_to_run["plain"] = differing(first, step_result(tp, loss_p))
-            del first
-            torch.cuda.empty_cache()
-        else:
-            loss_p = with_plain(plain_step)
-        del state
-        lock_loss_rel = max(lock_loss_rel, abs(loss_k - loss_p) / abs(loss_p))
-        for k in hot_names:
-            pk, pp = tk.hot[k].param, tp.hot[k].param
-            grad = pp.grad.abs()
-            sure = grad > 1e-3 * grad.max()
-            diff = (pk.detach() - pp.detach()).abs()
-            r = lock[k]
-            r["sure_share"].append(sure.float().mean().item())
-            r["sure_ok"] &= bool((diff[sure] <= 1e-6 + 1e-4 * pp.detach().abs()[sure]).all())
-            r["max_abs_diff_sure"] = max(r["max_abs_diff_sure"], diff[sure].max().item())
-            r["max_abs_diff"] = max(r["max_abs_diff"], diff.max().item())
-            r["grad_rel_err"] = max(r["grad_rel_err"], rel_err(pk.grad, pp.grad))
-    del tk, tp
-    torch.cuda.empty_cache()
-    phase("train_fp32", steps=FP32_STEPS, batch=BATCH, losses=losses_k, plain_losses=losses_p,
-          loss_rel_err=loss_rel, free_run_max_abs_diff=free, bound=bound,
-          lock_step_loss_rel_err=lock_loss_rel, lock_step=lock,
-          tol={"loss": 1e-4, "sure": "rtol 1e-4 / atol 1e-6"},
-          **replay_report(s4_vq), lock_step_vq=replay_report(lock_vq),
-          run_to_run_bitwise={side: not names for side, names in run_to_run.items()},
-          attn_launches={k: s4_launches[k] for k in want_attn},
-          run_to_run_differs={side: names[:20] for side, names in run_to_run.items()})
-    for side, names in run_to_run.items():
-        require(not names, f"fp32 lock step, {side} side: a step from one state twice differs in "
-                           f"{names[:20]}")
-    require(loss_rel <= 1e-4 and lock_loss_rel <= 1e-4,
-            f"fp32 train losses differ by {loss_rel} (free) / {lock_loss_rel} (lock step)")
-    for k in hot_names:
-        r = lock[k]
-        require(free[k] <= bound, f"fp32 {k}: differs by {free[k]} > {bound} after the free run")
-        require(r["sure_ok"], f"fp32 {k}: a step differs beyond rtol 1e-4 / atol 1e-6 where |g| "
-                              "is large")
-        require(r["max_abs_diff"] <= bound, f"fp32 {k}: a step differs by {r['max_abs_diff']}")
+    s4_launches, _ = stage4_fp32_vs_plain(
+        lambda: trainer(torch.float32, "highest"), batches[:FP32_STEPS],
+        TRAIN_CFG["optimizer"]["lr"], FROZEN_LAYERS,
+        {"with_plain": with_plain, "recording_vq": recording_vq, "replaying_vq": replaying_vq,
+         "replay_report": replay_report})
 
     # 9. the training step in bf16: the main path, counted
     tr16 = trainer(torch.bfloat16, "default")
@@ -2332,6 +3126,14 @@ def main() -> None:
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 
+    # 24-30. ImageNet: the kernels at the new widths, DeiT-Small's serving,
+    # stage-4 step and stage 0, DeiT-Base's serving and stage 0
+    torch.cuda.empty_cache()
+    imagenet = imagenet_phases(dev, card_note, {"with_plain": with_plain,
+                                                "recording_vq": recording_vq,
+                                                "replaying_vq": replaying_vq,
+                                                "replay_report": replay_report})
+
     # the least time the card could take for the timed work of each kernel
     def attn_work(args, hmean=False):
         """(operations, bytes[, type]) of an attn_block call: fp32 as its
@@ -2463,7 +3265,30 @@ def main() -> None:
             "worker_launches": {worker: counts[name] for worker, counts in worker_launches.items()
                                 if name in counts and counts[name]},
         })
+    # the instantiations of phases 24-30, launches from their paths: DeiT-Small
+    # and DeiT-Base stage 0 (fused_mlp at 384, 768), DeiT-Base serving
+    # (ffn_block at 768), the ImageNet stage-4 step (the rest)
+    new_rows = {
+        "ffn_block_d768": ("encoder_block.cu", "encoder_block.py:286"),
+        "fused_mlp_d384": ("mlp.cu", "mlp.py:230"), "fused_mlp_bwd_d384": ("mlp.cu", "mlp.py:271"),
+        "fused_mlp_d768": ("mlp.cu", "mlp.py:230"), "fused_mlp_bwd_d768": ("mlp.cu", "mlp.py:271"),
+        "fused_layernorm_d1024": ("layernorm.cu", "layernorm.py:119"),
+        "fused_layernorm_bwd_d1024": ("layernorm.cu", "layernorm.py:151"),
+        "adamw_project_rows_bf16": ("atlas_opt.cu", "atlas_opt.py:133"),
+        "sym_conv_imagenet": ("graphconv.cu", "graphconv.py:68"),
+        "sym_conv_bwd_imagenet": ("graphconv.cu", "graphconv.py:100"),
+    }
+    for name, (source, tpu_site) in new_rows.items():
+        r = imagenet["rows"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "schemanet_torch/csrc/" + source,
+            "replaces": "schemanet_tpu/ops/pallas/" + tpu_site, "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "worker_launches": {},
+        })
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
+    phase("imagenet_seconds", total=sum(imagenet["seconds"].values()), **imagenet["seconds"])
     phase("total", seconds=time.perf_counter() - t_start, **card_note)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

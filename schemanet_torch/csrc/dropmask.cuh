@@ -19,7 +19,7 @@
 
 namespace sn {
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+__host__ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;
   h *= 0x85EBCA6Bu;
   h ^= h >> 13;
@@ -28,8 +28,8 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-// h0 of a (seed, stream) pair: computed once per stream.
-__device__ __forceinline__ uint32_t drop_stream(int seed, int stream) {
+// h0 of a (seed, stream) pair: computed once per stream (on the host too).
+__host__ __device__ __forceinline__ uint32_t drop_stream(int seed, int stream) {
   return fmix32(static_cast<uint32_t>(seed) * 0x9E3779B1u ^
                 static_cast<uint32_t>(stream) * 0x85EBCA77u);
 }

@@ -39,6 +39,7 @@
 // max, sums rescaled), dividing by the row's sum after the AV product: the
 // same function, rounded in another order.
 #include "ffn.cuh"
+#include "gemm.cuh"
 
 namespace sn {
 
@@ -147,7 +148,7 @@ struct LinearTf32Smem {
   static constexpr size_t kBytes = sizeof(float) * (kRawA + kRawW + 2 * (kA + kW) + 2 * kLtRows);
 };
 
-template <bool kLn>
+template <bool kLn, bool kGelu = false>
 __global__ void __launch_bounds__(kThreads, 2)
     linear_tf32_kernel(const float* __restrict__ a, const float2* __restrict__ stats,
                        const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
@@ -243,7 +244,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int col = n0 + wc * 32 + ni * 8 + (lane & 3) * 2 + (e & 1);
         if (row >= rows || col >= N) continue;
         const float v = acc[mi][ni][e] + bias[col];
-        y[row * N + col] = kLn ? v : resid[row * N + col] + v;
+        y[row * N + col] = kGelu ? gelu_as(v) : kLn ? v : resid[row * N + col] + v;
       }
 }
 
@@ -424,17 +425,18 @@ __global__ void __launch_bounds__(kAtThreads)
   }
 }
 
-template <bool kLn>
+template <bool kLn, bool kGelu = false>
 cudaError_t linear_tf32(const float* a, const float2* stats, const float* ln_scale,
                         const float* ln_bias, const float* w, const float* bias,
                         const float* resid, float* y, int rows, int K, int N, bool vec,
                         cudaStream_t stream) {
   const size_t bytes = LinearTf32Smem::kBytes;
-  cudaError_t err = allow_smem(linear_tf32_kernel<kLn>, bytes);
+  auto kernel = linear_tf32_kernel<kLn, kGelu>;
+  cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((rows + kLtRows - 1) / kLtRows, (N + kLtCols - 1) / kLtCols);
-  linear_tf32_kernel<kLn><<<grid, kThreads, bytes, stream>>>(a, stats, ln_scale, ln_bias, w, bias,
-                                                             resid, y, rows, K, N, vec);
+  kernel<<<grid, kThreads, bytes, stream>>>(a, stats, ln_scale, ln_bias, w, bias, resid, y, rows,
+                                            K, N, vec);
   return cudaGetLastError();
 }
 
@@ -482,7 +484,7 @@ cudaError_t attn_block_tf32(const float* x, const float* g, const float* be, con
 // block of 8 warps per RT rows. The prologue is LN2 of the block's rows,
 // computed in fp32 and rounded to bf16 into the A tile (layernorm_rows_bf16)
 // while the first W1/W2 chunk is in flight by cp.async; the hidden element
-// is ffn_hidden_bf16 at p = 0 (no hash, no mask); the epilogue is
+// is ffn_hidden at p = 0 (no hash, no mask); the epilogue is
 //   out = x + round(round(acc) + b2), x re-read from device memory.
 // RT = 64 up to width 256 (two blocks an SM up to 192), 32 at 384 (48
 // output registers a thread, one block an SM). f a multiple of 8: the
@@ -815,7 +817,7 @@ constexpr int kLinRows = 64, kLinCols = 64, kLinMaxK = 768;
 
 inline size_t linear_tc_smem(int K) { return sizeof(bf16) * 2 * (size_t)kLinRows * (K + 8); }
 
-template <bool kLn>
+template <bool kLn, bool kGelu = false>
 __global__ void __launch_bounds__(kThreads)
     linear_tc_kernel(const bf16* __restrict__ a, const float* __restrict__ ln_scale,
                      const float* __restrict__ ln_bias, float eps, const bf16* __restrict__ w,
@@ -861,6 +863,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         v[e] = Num<bf16>::round(acc[nt][half * 2 + e]) + __bfloat162float(bias[col + e]);
+        if (kGelu) v[e] = gelu_as(Num<bf16>::round(v[e]));
         if (!kLn)
           v[e] = __bfloat162float(resid[row * N + col + e]) + Num<bf16>::round(v[e]);
       }
@@ -868,15 +871,16 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-template <bool kLn>
+template <bool kLn, bool kGelu = false>
 cudaError_t linear_tc(const void* a, const void* ln_scale, const void* ln_bias, float eps,
                       const void* w, const void* bias, const void* resid, void* y, int rows, int K,
                       int N, cudaStream_t stream) {
   const size_t bytes = linear_tc_smem(K);
-  cudaError_t err = allow_smem(linear_tc_kernel<kLn>, bytes);
+  auto kernel = linear_tc_kernel<kLn, kGelu>;
+  cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((rows + kLinRows - 1) / kLinRows, (N + kLinCols - 1) / kLinCols);
-  linear_tc_kernel<kLn><<<grid, kThreads, bytes, stream>>>(
+  kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(a), static_cast<const float*>(ln_scale),
       static_cast<const float*>(ln_bias), eps, static_cast<const bf16*>(w),
       static_cast<const bf16*>(bias), static_cast<const bf16*>(resid), static_cast<bf16*>(y),
@@ -929,6 +933,66 @@ cudaError_t ffn_tf32_launch(const void* x, const void* g, const void* be, const 
                             int f, float eps, cudaStream_t s) {
   return ffn_launch<float, kFfnTf32Rows<DIM>>(ffn_tf32_kernel<DIM>, FfnTf32Smem<DIM>::kBytes, x,
                                                  g, be, w1, b1, w2, b2, out, rows, f, eps, s);
+}
+
+// ---------------------------------------------------------------------------
+// FFN half past width 384 (DeiT-Base's 768): the one-launch kernels hold a
+// row tile of LN2(x) and the warps' output fragments whole, which at 768
+// passes the shared memory and registers a block has. Two products, the
+// hidden state through device memory between them (in T, where the
+// one-launch kernels round it to T):
+//   bf16: linear_tc_kernel<true, true> (LN2 prologue, K = dim staged whole,
+//         gelu epilogue: hidden = round(gelu(round(round(acc) + b1)))), then
+//         gemm.cuh's gemm_tc_kernel over k = f with EpiResidual below:
+//         out = x + round(round(acc) + b2);
+//   fp32: ln_stats_kernel, linear_tf32_kernel<true, true> (hidden =
+//         gelu(acc + b1)) and linear_tf32_kernel<false> (out = x + (acc +
+//         b2)), split TF32 as attn_block's fp32 route.
+// ---------------------------------------------------------------------------
+struct EpiResidual {  // out = x + round(round(acc) + b2), bf16
+  const bf16* b2;
+  const bf16* x;
+  bf16* out;
+  int n;
+  __device__ __forceinline__ void operator()(long row, int col, float c0, float c1, int) const {
+    const long i = row * n + col;
+    const float2 xv = unpack_bf16(*reinterpret_cast<const uint32_t*>(x + i));
+    const float y0 = Num<bf16>::round(Num<bf16>::round(c0) + __bfloat162float(b2[col]));
+    const float y1 = Num<bf16>::round(Num<bf16>::round(c1) + __bfloat162float(b2[col + 1]));
+    *reinterpret_cast<uint32_t*>(out + i) = pack_bf16(xv.x + y0, xv.y + y1);
+  }
+};
+
+// hidden: bf16 scratch [rows, f]; dim a multiple of 16 up to kLinMaxK, f of 8
+cudaError_t ffn_wide_tc(const void* x, const void* g, const void* be, const void* w1,
+                        const void* b1, const void* w2, const void* b2, void* out, void* hidden,
+                        int rows, int dim, int f, float eps, cudaStream_t s) {
+  if (dim % 16 || dim > kLinMaxK || f % 8 || hidden == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err =
+      linear_tc<true, true>(x, g, be, eps, w1, b1, nullptr, hidden, rows, dim, f, s);
+  if (err != cudaSuccess) return err;
+  const EpiResidual epi{static_cast<const bf16*>(b2), static_cast<const bf16*>(x),
+                        static_cast<bf16*>(out), dim};
+  return gemm_tc<false>(static_cast<const bf16*>(hidden), static_cast<const bf16*>(w2), rows, dim,
+                        f, epi, s);
+}
+
+// hidden: fp32 scratch [rows, f]; stats fp32 [rows, 2]
+cudaError_t ffn_wide_tf32(const float* x, const float* g, const float* be, const float* w1,
+                          const float* b1, const float* w2, const float* b2, float* out,
+                          float* hidden, float2* stats, int rows, int dim, int f, float eps,
+                          cudaStream_t s) {
+  if (hidden == nullptr || stats == nullptr) return cudaErrorInvalidValue;
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  constexpr int kWarps = kThreads / 32;
+  ln_stats_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, s>>>(x, stats, rows, dim, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = linear_tf32<true, true>(x, stats, g, be, w1, b1, nullptr, hidden, rows, dim, f,
+                                dim % 4 == 0 && aligned(x) && aligned(w1), s);
+  if (err != cudaSuccess) return err;
+  return linear_tf32<false>(hidden, nullptr, nullptr, nullptr, w2, b2, x, out, rows, f, dim,
+                            f % 4 == 0 && aligned(hidden) && aligned(w2), s);
 }
 
 // bf16 by the tensor cores, f a multiple of 8
@@ -986,14 +1050,26 @@ int sn_attn_block(int dtype, const void* x, const void* ln_scale, const void* ln
                            dim, heads, head_dim, eps, scale, s);
 }
 
-// dim 64-384; fp32 takes the split-TF32 kernel (x and w1 16-byte aligned),
+// dim 64-384: fp32 takes the split-TF32 kernel (x and w1 16-byte aligned),
 // bf16 the tensor-core kernel (f a multiple of 8; x, w1 and w2 16-byte
-// aligned).
+// aligned); hidden and stats unused, may be null. Past 384 (dim a multiple
+// of 16 up to 768) the two-product route: hidden a scratch [rows, f] of the
+// storage type, and in fp32 stats an fp32 scratch [rows, 2].
 int sn_ffn_block(int dtype, const void* x, const void* ln_scale, const void* ln_bias,
                  const void* w1, const void* b1, const void* w2, const void* b2, void* out,
-                 int rows, int dim, int f, float eps, void* stream) {
+                 void* hidden, void* stats, int rows, int dim, int f, float eps, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (rows == 0) return cudaSuccess;
+  if (dim > 384) {
+    if (dtype == sn::kF32) {
+      const auto c = [](const void* p) { return static_cast<const float*>(p); };
+      return sn::ffn_wide_tf32(c(x), c(ln_scale), c(ln_bias), c(w1), c(b1), c(w2), c(b2),
+                               static_cast<float*>(out), static_cast<float*>(hidden),
+                               static_cast<float2*>(stats), rows, dim, f, eps, s);
+    }
+    return sn::ffn_wide_tc(x, ln_scale, ln_bias, w1, b1, w2, b2, out, hidden, rows, dim, f, eps,
+                           s);
+  }
   if (dtype == sn::kF32)
     return sn::ffn_block_fp32(x, ln_scale, ln_bias, w1, b1, w2, b2, out, rows, dim, f, eps, s);
   return sn::ffn_block_tc(x, ln_scale, ln_bias, w1, b1, w2, b2, out, rows, dim, f, eps, s);

@@ -8,7 +8,7 @@
 // W2[:, f0:+32] double-buffered by cp.async. Per chunk each warp computes
 // h = A W1^T for its 16 rows and 32 / WC of the chunk's columns (W1 rows as
 // [n][k] by ldmatrix), turns the C fragments into the activation
-// (ffn_hidden_bf16: b1, gelu, the mask) and writes it, bf16, to a shared
+// (ffn_hidden: b1, gelu, the mask) and writes it, bf16, to a shared
 // tile; then out += act W2^T (W2's chunk as [n][k]) for its 16 rows and
 // DIM / WC columns, in fp32 registers over all chunks. The hidden state
 // never leaves the chip. RT = 64 (4 row groups x 2 column groups of warps)
@@ -43,25 +43,27 @@ __device__ __forceinline__ float gelu_as_grad(float x) {
   return cdf + x * pdf;
 }
 
-// The hidden element (row, col) of the bf16 FFN from its fp32 fc1 sum, with
-// the TPU kernel's roundings: h = round(round(acc) + b1), a = round(gelu(h)),
-// and with dropout a_used = round(a * inv_t) where the hash keeps (row, col),
-// else 0. The tensor-core forward and backward both call it on their C
-// fragments, so they regenerate the same h, a_used and mask.
+// The hidden element (row, col) of the FFN from its fp32 fc1 sum, with the
+// TPU kernel's roundings to the storage type T: h = round(round(acc) + b1),
+// a = round(gelu(h)), and with dropout a_used = round(a * inv_t) where the
+// hash keeps (row, col), else 0. The tensor-core forward and backward both
+// call it on their C fragments, so they regenerate the same h, a_used and
+// mask; so do the wide routes' epilogues (mlp.cu).
 struct FfnHidden {
   float h, a_used;
   bool keep;
 };
 
-__device__ __forceinline__ FfnHidden ffn_hidden_bf16(float acc, const bf16* b1, long row, int col,
-                                                     int f, float p, float inv_t, uint32_t h0) {
+template <typename T>
+__device__ __forceinline__ FfnHidden ffn_hidden(float acc, const T* b1, long row, int col, int f,
+                                                float p, float inv_t, uint32_t h0) {
   FfnHidden v;
-  v.h = Num<bf16>::round(Num<bf16>::round(acc) + Num<bf16>::load(b1, col));
-  v.a_used = Num<bf16>::round(gelu_as(v.h));
+  v.h = Num<T>::round(Num<T>::round(acc) + Num<T>::load(b1, col));
+  v.a_used = Num<T>::round(gelu_as(v.h));
   v.keep = true;
   if (p > 0.f) {
     v.keep = drop_keep(h0, (uint32_t)row, f, col, p);
-    v.a_used = v.keep ? Num<bf16>::round(v.a_used * inv_t) : 0.f;
+    v.a_used = v.keep ? Num<T>::round(v.a_used * inv_t) : 0.f;
   }
   return v;
 }
@@ -173,7 +175,7 @@ __device__ __forceinline__ void ffn_tc_chunks(const bf16* a, bf16* stages, bf16*
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = f0 + cc + e;
-          av[e] = col < f ? ffn_hidden_bf16(hacc[nt][half * 2 + e], b1, row0 + r, col, f, p,
+          av[e] = col < f ? ffn_hidden<bf16>(hacc[nt][half * 2 + e], b1, row0 + r, col, f, p,
                                             inv_t, h0)
                                 .a_used
                           : 0.f;

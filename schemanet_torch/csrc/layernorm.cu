@@ -61,6 +61,7 @@ namespace sn {
 constexpr int kLnWarps = kThreads / 32;   // warps a block
 constexpr int kLnBwdMaxBlocks = 1024;     // backward blocks at most: the partials' rows
 constexpr int kLnSumWarps = 32;           // warps of a ln_param_sum_kernel block
+constexpr int kLnMaxDim = 1024;           // 32 values a lane
 
 // The row's statistics from the values a lane holds (columns lane + 32 j).
 template <int VPL>
@@ -356,11 +357,17 @@ cudaError_t ln_bwd_vec(const void* x, const void* scale, const void* bias, const
   if (lanes <= 96)
     return ln_bwd_impl<T, N, 3, 1>(x, scale, bias, g, dx, part, dparam, rows, d,
                                    eps, relu, stream);
-  return ln_bwd_impl<T, N, 6, 1>(x, scale, bias, g, dx, part, dparam, rows, d,
+  if (lanes <= 128)  // bf16 up to 1024 (the ImageNet GNN), fp32 up to 512
+    return ln_bwd_impl<T, N, 4, 1>(x, scale, bias, g, dx, part, dparam, rows, d,
+                                   eps, relu, stream);
+  if (lanes <= 192)
+    return ln_bwd_impl<T, N, 6, 1>(x, scale, bias, g, dx, part, dparam, rows, d,
+                                   eps, relu, stream);
+  return ln_bwd_impl<T, N, 8, 1>(x, scale, bias, g, dx, part, dparam, rows, d,
                                  eps, relu, stream);
 }
 
-// scalar pieces (the scalar route): up to 8 or 24 columns a lane
+// scalar pieces (the scalar route): up to 8, 24 or 32 columns a lane
 template <typename T>
 cudaError_t ln_bwd_scalar(const void* x, const void* scale, const void* bias, const void* g,
                           void* dx, void* part, void* dparam, long rows, int d,
@@ -368,7 +375,10 @@ cudaError_t ln_bwd_scalar(const void* x, const void* scale, const void* bias, co
   if (d <= 256)
     return ln_bwd_impl<T, 1, 8, 1>(x, scale, bias, g, dx, part, dparam, rows, d,
                                    eps, relu, stream);
-  return ln_bwd_impl<T, 1, 24, 1>(x, scale, bias, g, dx, part, dparam, rows, d,
+  if (d <= 768)
+    return ln_bwd_impl<T, 1, 24, 1>(x, scale, bias, g, dx, part, dparam, rows, d,
+                                    eps, relu, stream);
+  return ln_bwd_impl<T, 1, 32, 1>(x, scale, bias, g, dx, part, dparam, rows, d,
                                   eps, relu, stream);
 }
 
@@ -376,21 +386,27 @@ cudaError_t ln_bwd_scalar(const void* x, const void* scale, const void* bias, co
 
 extern "C" {
 
-// y [rows, d] in the storage type of x; d <= 768.
+// y [rows, d] in the storage type of x; d <= 1024.
 int sn_layernorm_fwd(int dtype, const void* x, const void* scale, const void* bias, void* y,
                      long rows, int d, float eps, int relu, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (d <= 0 || d > sn::kLnMaxDim) return cudaErrorInvalidValue;
   if (d <= 256) {
     if (dtype == sn::kF32)
       return sn::ln_fwd_impl<float, 8>(x, scale, bias, y, rows, d, eps, relu, s);
     return sn::ln_fwd_impl<__nv_bfloat16, 8>(x, scale, bias, y, rows, d, eps, relu, s);
+  }
+  if (d > 768) {  // the ImageNet GNN's 1024
+    if (dtype == sn::kF32)
+      return sn::ln_fwd_impl<float, 32>(x, scale, bias, y, rows, d, eps, relu, s);
+    return sn::ln_fwd_impl<__nv_bfloat16, 32>(x, scale, bias, y, rows, d, eps, relu, s);
   }
   if (dtype == sn::kF32)
     return sn::ln_fwd_impl<float, 24>(x, scale, bias, y, rows, d, eps, relu, s);
   return sn::ln_fwd_impl<__nv_bfloat16, 24>(x, scale, bias, y, rows, d, eps, relu, s);
 }
 
-// dx [rows, d] in the storage type, d <= 768; part fp32 scratch of
+// dx [rows, d] in the storage type, d <= 1024; part fp32 scratch of
 // min(ceil(rows / 8), 1024) rows of 2 d (a block has at least one row);
 // dparam fp32 [2 d] = (dscale, dbias). vec = 1 takes 16-byte pieces: d * sizeof(T) a multiple of
 // 16 and x, g, dx 16-byte aligned, else cudaErrorInvalidValue; vec = 0 the
@@ -399,7 +415,7 @@ int sn_layernorm_bwd(int dtype, int vec, const void* x, const void* scale, const
                      const void* g, void* dx, void* part, void* dparam, long rows,
                      int d, float eps, int relu, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (d <= 0 || d > 768) return cudaErrorInvalidValue;
+  if (d <= 0 || d > sn::kLnMaxDim) return cudaErrorInvalidValue;
   if (vec) {
     const int bytes = dtype == sn::kF32 ? 4 : 2;
     const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16; };

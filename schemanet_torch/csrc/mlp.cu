@@ -43,7 +43,10 @@
 // a weak-typed Python float), then the fp32-accumulated fc2 rounded to T,
 // + b2 in T. Backward: dA * inv in fp32, dH = dA * gelu'(h) rounded to T,
 // weight and bias gradients summed in fp32.
+#include <cstring>
+
 #include "ffn.cuh"
+#include "gemm.cuh"
 
 namespace sn {
 
@@ -350,7 +353,7 @@ __global__ void __launch_bounds__(kThreads)
 //     stays in shared memory, through the chunk loop of ffn.cuh (shared with
 //     encoder_block.cu's ffn_tc_kernel): hidden chunks of 32, double-buffered
 //     by cp.async; h, b1, gelu and the mask on the C fragments
-//     (ffn_hidden_bf16, shared with (a) below); out += a_used W2^T in fp32
+//     (ffn_hidden, shared with (a) below); out += a_used W2^T in fp32
 //     registers; b2 in the epilogue. Nothing of the hidden state leaves the
 //     chip. The chunk of 32 (not (a)'s 64) keeps a block at 87 KB of shared
 //     memory at dim 192, so two blocks share an SM and stage 0's 197 row
@@ -468,7 +471,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           float a_used = 0.f, dh = 0.f;
           if (col < f) {
             const FfnHidden hv =
-                ffn_hidden_bf16(hacc[nt][half * 2 + e], b1, row0 + r, col, f, p, inv_t, h0);
+                ffn_hidden<bf16>(hacc[nt][half * 2 + e], b1, row0 + r, col, f, p, inv_t, h0);
             a_used = hv.a_used;
             float da = dacc[nt][half * 2 + e];
             if (p > 0.f) da = hv.keep ? da * inv : 0.f;
@@ -684,6 +687,213 @@ cudaError_t mlp_fwd_launch(const void* x, const void* w1, const void* b1, const 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Widths past 256 (DeiT-Small's 384, DeiT-Base's 768), both dtypes: the
+// one-launch kernels above hold a row tile of x (and g) whole in shared
+// memory and a row group's output in registers, which at 768 pass the
+// 227 KB of shared memory and the 255 registers a thread. Here every
+// product is one launch of gemm.cuh (bf16 on the tensor cores, fp32 by FMA)
+// over a fixed tile of its output, and the hidden state goes through device
+// memory between them, stored in T where the one-launch kernels round it to
+// T (so nothing is lost by storing it):
+//   forward:  hidden = a_used = drop(gelu(x W1^T + b1))       [rows, f] T
+//             out = round(hidden W2^T) + b2
+//   backward: dA = g W2                                        [rows, f] fp32
+//             (dH, a_used) from x W1^T + b1 and dA             [2][rows, f] T
+//             dx = dH W1
+//             dW1^T = x^T dH and dW2 = g^T a_used over row splits, db1 and
+//             db2 their column sums (bf16: mlp_wgrad_tc_kernel; fp32:
+//             gemm_fma's split sums and col_sum_kernel), then
+//             sum_splits_kernel in split order, transposing dW1.
+// The epilogues below are the one-launch kernels' roundings (ffn_hidden,
+// the same gelu' and mask). The price against a fused kernel: the hidden
+// state is written and read once more in device memory (at DeiT-Small's
+// stage 0, 12,608 x 1,536 bf16: 39 MB a forward), and the backward reads
+// dA in fp32.
+// ---------------------------------------------------------------------------
+// Num<T>::round on the host, for the epilogues' scalars: bf16 to nearest
+// even (v finite)
+template <typename T>
+inline float host_round(float v) {
+  if (sizeof(T) == sizeof(float)) return v;
+  uint32_t u;
+  std::memcpy(&u, &v, sizeof u);
+  u = (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
+  std::memcpy(&v, &u, sizeof v);
+  return v;
+}
+
+template <typename T>
+struct EpiHidden {  // hidden[row][col] = a_used of x W1^T + b1
+  const T* b1;
+  T* hidden;
+  int f;
+  float p, inv_t;
+  uint32_t h0;
+  __device__ __forceinline__ void operator()(long row, int col, float c0, float c1, int) const {
+    Num<T>::store(hidden, row * f + col, ffn_hidden<T>(c0, b1, row, col, f, p, inv_t, h0).a_used);
+    Num<T>::store(hidden, row * f + col + 1,
+                  ffn_hidden<T>(c1, b1, row, col + 1, f, p, inv_t, h0).a_used);
+  }
+};
+
+template <typename T>
+struct EpiBias {  // out[row][col] = round(acc) + b2
+  const T* b2;
+  T* out;
+  int n;
+  __device__ __forceinline__ void operator()(long row, int col, float c0, float c1, int) const {
+    Num<T>::store(out, row * n + col, Num<T>::round(c0) + Num<T>::load(b2, col));
+    Num<T>::store(out, row * n + col + 1, Num<T>::round(c1) + Num<T>::load(b2, col + 1));
+  }
+};
+
+template <typename T>
+struct EpiStore {  // out[row][col] = acc, rounded to T
+  T* out;
+  int n;
+  __device__ __forceinline__ void operator()(long row, int col, float c0, float c1, int) const {
+    Num<T>::store(out, row * n + col, c0);
+    Num<T>::store(out, row * n + col + 1, c1);
+  }
+};
+
+template <typename T>
+struct EpiHiddenBwd {  // dH and a_used from x W1^T + b1 and dA
+  const T* b1;
+  const float* da;
+  T* dh;
+  T* a_used;
+  int f;
+  float p, inv, inv_t;
+  uint32_t h0;
+  __device__ __forceinline__ void one(long row, int col, float acc) const {
+    const FfnHidden hv = ffn_hidden<T>(acc, b1, row, col, f, p, inv_t, h0);
+    float d = da[row * f + col];
+    if (p > 0.f) d = hv.keep ? d * inv : 0.f;
+    Num<T>::store(dh, row * f + col, Num<T>::round(d * gelu_as_grad(hv.h)));
+    Num<T>::store(a_used, row * f + col, hv.a_used);
+  }
+  __device__ __forceinline__ void operator()(long row, int col, float c0, float c1, int) const {
+    one(row, col, c0);
+    one(row, col + 1, c1);
+  }
+};
+
+struct EpiPart {  // part[split][off + row n + col] = the split's sum
+  float* part;
+  long stride, off;
+  int n;
+  __device__ __forceinline__ void operator()(long row, int col, float c0, float c1,
+                                             int split) const {
+    float* dst = part + split * stride + off + row * n + col;
+    dst[0] = c0;
+    dst[1] = c1;
+  }
+};
+
+// part[z][off + c] = the sum over rows [z ks, (z + 1) ks) of x[row][c], in
+// row order (the bias gradients of the fp32 wide route)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    col_sum_kernel(const T* __restrict__ x, float* __restrict__ part, long rows, int n, int ks,
+                   long stride, long off) {
+  const int c = blockIdx.x * kThreads + threadIdx.x, z = blockIdx.y;
+  if (c >= n) return;
+  const long lo = (long)z * ks, hi = min(rows, lo + ks);
+  float s = 0.f;
+  for (long r = lo; r < hi; ++r) s += Num<T>::load(x, r * n + c);
+  part[z * stride + off + c] = s;
+}
+
+// hidden: [rows, f] of T
+template <typename T>
+cudaError_t mlp_fwd_wide(const void* x, const void* w1, const void* b1, const void* w2,
+                         const void* b2, void* out, void* hidden, int rows, int dim, int f,
+                         float p, float inv, int seed, cudaStream_t s) {
+  if (hidden == nullptr) return cudaErrorInvalidValue;
+  const T* xt = static_cast<const T*>(x);
+  const T* w1t = static_cast<const T*>(w1);
+  const T* w2t = static_cast<const T*>(w2);
+  T* ht = static_cast<T*>(hidden);
+  const EpiHidden<T> eh{static_cast<const T*>(b1), ht, f, p, host_round<T>(inv),
+                        drop_stream(seed, 0)};
+  const EpiBias<T> eb{static_cast<const T*>(b2), static_cast<T*>(out), dim};
+  cudaError_t err;
+  if constexpr (sizeof(T) == 2) {
+    err = gemm_tc<false>(xt, w1t, rows, f, dim, eh, s);
+    if (err != cudaSuccess) return err;
+    return gemm_tc<false>(ht, w2t, rows, dim, f, eb, s);
+  } else {
+    err = gemm_fma<T, false, false>(xt, w1t, rows, f, dim, 1, dim, eh, s);
+    if (err != cudaSuccess) return err;
+    return gemm_fma<T, false, false>(ht, w2t, rows, dim, f, 1, f, eb, s);
+  }
+}
+
+// hidden: [2][rows, f] of T (dH, then a_used); da: fp32 [rows, f]; part as
+// the tensor-core route's (dW1^T [dim][f], dW2 [dim][f], db1, db2 a split)
+template <typename T>
+cudaError_t mlp_bwd_wide(const void* x, const void* w1, const void* b1, const void* w2,
+                         const void* g, void* dx, void* part, void* grads, void* hidden, void* da,
+                         int rows, int dim, int f, int splits, float p, float inv, int seed,
+                         cudaStream_t s) {
+  if (hidden == nullptr || da == nullptr) return cudaErrorInvalidValue;
+  const T* xt = static_cast<const T*>(x);
+  const T* w1t = static_cast<const T*>(w1);
+  const T* w2t = static_cast<const T*>(w2);
+  const T* gt = static_cast<const T*>(g);
+  T* dh = static_cast<T*>(hidden);
+  T* a = dh + (long)rows * f;
+  float* dat = static_cast<float*>(da);
+  float* pt = static_cast<float*>(part);
+  const EpiStore<float> ed{dat, f};
+  const EpiHiddenBwd<T> eh{static_cast<const T*>(b1), dat, dh, a, f, p, inv, host_round<T>(inv),
+                           drop_stream(seed, 0)};
+  const EpiStore<T> ex{static_cast<T*>(dx), dim};
+  const long fd = (long)f * dim, stride = 2 * fd + f + dim;
+  cudaError_t err;
+  if constexpr (sizeof(T) == 2) {
+    err = gemm_tc<true>(gt, w2t, rows, f, dim, ed, s);
+    if (err != cudaSuccess) return err;
+    err = gemm_tc<false>(xt, w1t, rows, f, dim, eh, s);
+    if (err != cudaSuccess) return err;
+    err = gemm_tc<true>(dh, w1t, rows, dim, f, ex, s);
+    if (err != cudaSuccess) return err;
+    const int steps = (rows + kWgK - 1) / kWgK;
+    dim3 grid((f + kWgN - 1) / kWgN, dim / kWgM, 2 * splits);
+    mlp_wgrad_tc_kernel<<<grid, kThreads, 0, s>>>(xt, gt, dh, a, pt, rows, dim, f,
+                                                  (steps + splits - 1) / splits);
+  } else {
+    err = gemm_fma<T, false, true>(gt, w2t, rows, f, dim, 1, dim, ed, s);
+    if (err != cudaSuccess) return err;
+    err = gemm_fma<T, false, false>(xt, w1t, rows, f, dim, 1, dim, eh, s);
+    if (err != cudaSuccess) return err;
+    err = gemm_fma<T, false, true>(dh, w1t, rows, dim, f, 1, f, ex, s);
+    if (err != cudaSuccess) return err;
+    const int ks = (rows + splits - 1) / splits;
+    err = gemm_fma<T, true, true>(xt, dh, dim, f, rows, splits, ks, EpiPart{pt, stride, 0, f}, s);
+    if (err != cudaSuccess) return err;
+    err = gemm_fma<T, true, true>(gt, a, dim, f, rows, splits, ks, EpiPart{pt, stride, fd, f}, s);
+    if (err != cudaSuccess) return err;
+    col_sum_kernel<T><<<dim3((f + kThreads - 1) / kThreads, splits), kThreads, 0, s>>>(
+        dh, pt, rows, f, ks, stride, 2 * fd);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    col_sum_kernel<T><<<dim3((dim + kThreads - 1) / kThreads, splits), kThreads, 0, s>>>(
+        gt, pt, rows, dim, ks, stride, 2 * fd + f);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sum_splits_kernel<<<(int)((stride + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      pt, static_cast<float*>(grads), stride, splits, dim, f);
+  return cudaGetLastError();
+}
+
+// the widths the wide route takes: past the one-launch kernels' 256, whole
+// 64-row tiles of the weight-gradient kernel
+inline bool mlp_wide(int dim) { return dim > 256 && dim % kWgM == 0; }
+
 // part: fp32 scratch of splits * (2 f dim + f + dim); dw1 [f, dim], dw2 [dim, f],
 // db1 [f], db2 [dim] fp32, contiguous in that order (one buffer).
 template <typename T, int TN2>
@@ -815,11 +1025,21 @@ extern "C" {
 
 // out [rows, dim]; p = 0 turns dropout off; inv = fp32(1 / (1 - p)). fp32
 // takes the FMA kernel, bf16 the tensor-core one (f a multiple of 8; x, w1
-// and w2 16-byte aligned).
+// and w2 16-byte aligned), at widths 64-256; past 256 (a multiple of 64) both
+// take the wide route, with hidden a scratch of rows f in the storage type
+// (unused, may be null, at the narrower widths).
 int sn_fused_mlp(int dtype, const void* x, const void* w1, const void* b1, const void* w2,
-                 const void* b2, void* out, int rows, int dim, int f, float p, float inv,
-                 int seed, void* stream) {
+                 const void* b2, void* out, void* hidden, int rows, int dim, int f, float p,
+                 float inv, int seed, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (sn::mlp_wide(dim)) {
+    if (dtype == sn::kF32)
+      return sn::mlp_fwd_wide<float>(x, w1, b1, w2, b2, out, hidden, rows, dim, f, p, inv, seed,
+                                     s);
+    if (f % 8) return cudaErrorInvalidValue;
+    return sn::mlp_fwd_wide<sn::bf16>(x, w1, b1, w2, b2, out, hidden, rows, dim, f, p, inv, seed,
+                                      s);
+  }
   if (dtype == sn::kF32)
     return sn::mlp_fwd_fp32(x, w1, b1, w2, b2, out, rows, dim, f, p, inv, seed, s);
   return sn::mlp_fwd_tc(x, w1, b1, w2, b2, out, rows, dim, f, p, inv, seed, s);
@@ -827,13 +1047,25 @@ int sn_fused_mlp(int dtype, const void* x, const void* w1, const void* b1, const
 
 // dx [rows, dim] in the storage type; grads fp32 [2 f dim + f + dim] holding
 // dw1 [f, dim], dw2 [dim, f], db1 [f], db2 [dim]; part fp32 scratch of
-// splits * (2 f dim + f + dim). fp32 takes the FMA kernels (hidden unused,
-// may be null); bf16 the tensor-core kernels (f a multiple of 8; hidden a
-// bf16 scratch of 2 rows f; the splits cut the rows in steps of 32).
+// splits * (2 f dim + f + dim). At widths 64-256 fp32 takes the FMA kernels
+// (hidden and da unused, may be null) and bf16 the tensor-core kernels (f a
+// multiple of 8; hidden a bf16 scratch of 2 rows f; the splits cut the rows
+// in steps of 32; da unused). Past 256 (a multiple of 64) both take the wide
+// route: hidden a scratch of 2 rows f in the storage type, da an fp32
+// scratch of rows f.
 int sn_fused_mlp_bwd(int dtype, const void* x, const void* w1, const void* b1, const void* w2,
-                     const void* g, void* dx, void* part, void* grads, void* hidden, int rows,
-                     int dim, int f, int splits, float p, float inv, int seed, void* stream) {
+                     const void* g, void* dx, void* part, void* grads, void* hidden, void* da,
+                     int rows, int dim, int f, int splits, float p, float inv, int seed,
+                     void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (sn::mlp_wide(dim)) {
+    if (dtype == sn::kF32)
+      return sn::mlp_bwd_wide<float>(x, w1, b1, w2, g, dx, part, grads, hidden, da, rows, dim, f,
+                                     splits, p, inv, seed, s);
+    if (f % 8) return cudaErrorInvalidValue;
+    return sn::mlp_bwd_wide<sn::bf16>(x, w1, b1, w2, g, dx, part, grads, hidden, da, rows, dim,
+                                      f, splits, p, inv, seed, s);
+  }
   if (dtype == sn::kF32)
     return sn::mlp_bwd_impl<float>(x, w1, b1, w2, g, dx, part, grads, rows, dim, f, splits, p,
                                    inv, seed, s);

@@ -1,7 +1,8 @@
 """Card times of the frozen ``attn_block`` (with and without the head-mean),
 ``ffn_block`` (bf16 and fp32), the ``fused_mlp`` forward and backward, ``embed_grad``,
-``adamw_project_rows`` and ``vq_assign`` at the shapes of their paths, each
-beside a PyTorch yardstick where one is named, in bf16 unless said.
+``adamw_project_rows``, ``vq_assign`` and, at ImageNet's shapes, ``sym_conv``
+at the shapes of their paths, each beside a PyTorch yardstick where one is
+named, in bf16 unless said.
 
 * ``attn_block`` at serving's microbatch (x [64, 197, 192], 3 heads), beside
   ``F.layer_norm`` + ``F.linear`` + SDPA (p = 0) + ``F.linear`` and the
@@ -41,7 +42,18 @@ beside a PyTorch yardstick where one is named, in bf16 unless said.
 * ``vq_assign`` at a k-means minibatch ([1024, 192] x 1024, fp32), a Lloyd
   step ([200,000, 192] x 1024, fp32; 5 calls a window) and serving's
   microbatch ([12,544, 192] x 1024, bf16), each beside the plain scores by
-  ``torch.matmul`` (fp32, TF32 off) and ``torch.argmin``: a note.
+  ``torch.matmul`` (fp32, TF32 off) and ``torch.argmin``: a note;
+* where the checkout takes them, the DeiT-Small, DeiT-Base and ImageNet
+  widths: ``ffn_block`` at [64, 197, 768] f 3072 beside the library calls
+  as above; the ``fused_mlp`` forward and backward at 12,608 rows of 384 ->
+  1536 and of 768 -> 3072 (p = 0.1) beside their products by
+  ``torch.matmul``; the LayerNorm forward and backward (relu) on the
+  ImageNet class graphs ([500,000, 1024]) beside ``F.layer_norm`` and
+  ``native_layer_norm_backward`` (no gate: notes);
+  ``adamw_project_rows`` with bf16 moments on the ImageNet edge weights
+  ([500,000, 500]); ``sym_conv`` and ``sym_conv_bwd`` on the ImageNet class
+  graphs ([1000, 500, 500] x [1000, 500, 1024]) beside ``torch.bmm`` on a
+  pre-formed E_sym (the products alone, a note).
 
 Each gets ``ms``, CUDA events around one window of 20 calls after warm-up,
 and ``device_ms``, the ``torch.profiler`` device time of a call (and, for
@@ -333,6 +345,73 @@ def measure(dev: torch.device, inst_ids=None) -> dict:
                                                            iters)}
         out[f"vq_assign_{case}_matmul_argmin"] = {"ms": time_ms(scores_argmin, iters),
                                                   "device_ms": device_ms(scores_argmin, iters)}
+    if 768 in getattr(mk, "_DIMS", ()) and getattr(lnk, "_MAX_DIM", 0) >= 1024:
+        out.update(_imagenet_widths(dev, rnd))
+    return out
+
+
+def _imagenet_widths(dev: torch.device, rnd) -> dict:
+    """The rows of the DeiT-Small, DeiT-Base and ImageNet widths."""
+    from .ops.kernels import atlas_opt as ao
+    from .ops.kernels import encoder_block as eb
+    from .ops.kernels import graphconv as gc
+    from .ops.kernels import layernorm as lnk
+    from .ops.kernels import mlp as mk
+
+    out, bf, f32 = {}, torch.bfloat16, torch.float32
+    rows = 64 * 197
+    d, f = 768, 3072
+    x = rnd(64, 197, d)
+    lg, lb = 1 + rnd(d, scale=0.1, dtype=f32), rnd(d, scale=0.1, dtype=f32)
+    w1, b1, w2, b2 = (rnd(f, d, scale=d**-0.5), rnd(f, scale=0.1), rnd(d, f, scale=f**-0.5),
+                      rnd(d, scale=0.1))
+    lg16, lb16 = lg.to(bf), lb.to(bf)
+    out["ffn_block_d768"] = _both(lambda: eb.ffn_block(x, lg, lb, w1, b1, w2, b2))
+    out["ffn_block_d768_torch_calls"] = _both(
+        lambda: x + F.linear(F.gelu(F.linear(F.layer_norm(x, (d,), lg16, lb16, 1e-6), w1, b1)),
+                             w2, b2))
+    del x
+    for d, f in ((384, 1536), (768, 3072)):
+        x2, g2 = rnd(rows, d), rnd(rows, d)
+        w1, b1, w2, b2 = (rnd(f, d, scale=d**-0.5), rnd(f, scale=0.1), rnd(d, f, scale=f**-0.5),
+                          rnd(d, scale=0.1))
+        dh, act = rnd(rows, f, scale=0.01), rnd(rows, f)
+        out[f"fused_mlp_d{d}"] = _both(lambda: mk.fused_mlp(x2, w1, b1, w2, b2, "gelu", 0.1, SEED))
+        out[f"fused_mlp_d{d}_matmul_products"] = _both(lambda: (x2 @ w1.t(), act @ w2.t()))
+        out[f"fused_mlp_bwd_d{d}"] = _split(
+            lambda: mk.fused_mlp_bwd(x2, w1, b1, w2, g2, "gelu", 0.1, SEED))
+        out[f"fused_mlp_bwd_d{d}_matmul_products"] = _both(
+            lambda: (x2 @ w1.t(), g2 @ w2, dh @ w1, dh.t() @ x2, g2.t() @ act))
+        del x2, g2, dh, act
+    n_rows, width = 1000 * 500, 1024
+    x_ln = rnd(n_rows, width) * 2 + 0.5
+    g_ln = rnd(n_rows, width)
+    sc, bi = 1 + rnd(width, scale=0.3, dtype=f32), rnd(width, scale=0.3, dtype=f32)
+    sc16, bi16 = sc.to(bf), bi.to(bf)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x_ln, [width], sc16, bi16, 1e-6)
+    out["layernorm_gnn_imagenet"] = _both(lambda: lnk.fused_layernorm(x_ln, sc, bi, 1e-6, "relu"))
+    out["layernorm_gnn_imagenet_F_layer_norm"] = _both(
+        lambda: F.layer_norm(x_ln, (width,), sc16, bi16, 1e-6))
+    out["layernorm_bwd_gnn_imagenet"] = _split(
+        lambda: lnk.fused_layernorm_bwd(x_ln, sc, bi, g_ln, 1e-6, "relu"))
+    out["layernorm_bwd_gnn_imagenet_native"] = _both(
+        lambda: torch.ops.aten.native_layer_norm_backward(
+            g_ln, x_ln, [width], mean, rstd, sc16, bi16, [True, True, True]))
+    del x_ln, g_ln, mean, rstd
+    shape = (n_rows, 500)
+    prm, grad = torch.rand(shape, device=dev) / 500, rnd(*shape, scale=1e-3, dtype=f32)
+    m, v = rnd(*shape, scale=1e-4), (torch.rand(shape, device=dev) * 1e-8).to(bf)
+    out["adamw_project_rows_bf16"] = _both(
+        lambda: ao.adamw_project_rows(prm, grad, m, v, 2, lr=1e-3, weight_decay=5e-4))
+    del prm, grad, m, v
+    e = (torch.rand(1000, 500, 500, device=dev) / 500).to(bf)
+    feat, cot = rnd(1000, 500, width), rnd(1000, 500, width)
+    e_sym = (0.5 * (e + e.transpose(1, 2)) + torch.eye(500, device=dev, dtype=bf)).contiguous()
+    out["sym_conv_imagenet"] = _both(lambda: gc.sym_conv(e, feat))
+    out["sym_conv_imagenet_bmm"] = _both(lambda: torch.bmm(e_sym, feat))
+    out["sym_conv_bwd_imagenet"] = _split(lambda: gc.sym_conv_bwd(e, feat, cot))
+    out["sym_conv_bwd_imagenet_bmm"] = _both(
+        lambda: (torch.bmm(e_sym, cot), torch.bmm(cot, feat.transpose(1, 2))))
     return out
 
 

@@ -32,6 +32,7 @@ _COUNTERS = {
     "attn_block_tc": (attn_block, "tc_launches"),  # tensor cores: bf16 mma or split TF32
     "ffn_block": (ffn_block, "launches"),
     "ffn_block_tc": (ffn_block, "tc_launches"),  # tensor cores: bf16 mma or split TF32
+    "ffn_block_wide": (ffn_block, "wide_launches"),  # past width 384: two products
     "sym_conv": (sym_conv, "launches"),
     "sym_conv_bwd": (sym_conv_bwd, "launches"),
     "sym_conv_tc": (sym_conv, "tc_launches"),  # the tensor-core route's share
@@ -40,6 +41,7 @@ _COUNTERS = {
     "embed_grad_vec": (embed_grad, "vec_launches"),  # the 16-byte route's share
     "embed_grad_planned": (embed_grad, "planned_launches"),  # calls given a plan
     "adamw_project_rows": (adamw_project_rows, "launches"),
+    "adamw_project_rows_bf16": (adamw_project_rows, "bf16_launches"),  # a bf16 moment
     "fused_mhsa": (fused_mhsa, "launches"),
     "fused_mhsa_bwd": (fused_mhsa_bwd, "launches"),
     "fused_mhsa_tc": (fused_mhsa, "tc_launches"),  # the tensor-core route's share
@@ -48,6 +50,8 @@ _COUNTERS = {
     "fused_mlp_bwd": (fused_mlp_bwd, "launches"),
     "fused_mlp_tc": (fused_mlp, "tc_launches"),  # the tensor-core route's share
     "fused_mlp_bwd_tc": (fused_mlp_bwd, "tc_launches"),
+    "fused_mlp_wide": (fused_mlp, "wide_launches"),  # past width 256: a launch a product
+    "fused_mlp_bwd_wide": (fused_mlp_bwd, "wide_launches"),
     "vq_assign": (vq_assign_kernel, "launches"),
     "vq_assign_tc": (vq_assign_kernel, "tc_launches"),  # split TF32 or bf16 mma: all of them
     "fused_layernorm": (fused_layernorm, "launches"),

@@ -31,16 +31,16 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 # cudaError_t of its launch, except where noted
 _SIGNATURES = {
     "sn_attn_block": [_I] + [_P] * 12 + [_I] * 5 + [_F, _F, _P],
-    "sn_ffn_block": [_I] + [_P] * 8 + [_I] * 3 + [_F, _P],
+    "sn_ffn_block": [_I] + [_P] * 10 + [_I] * 3 + [_F, _P],
     "sn_sym_conv": [_I, _P, _P, _P, _I, _I, _I, _P],
     "sn_sym_conv_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "sn_embed_offsets": [_P, _P, _L, _I, _P],
     "sn_embed_grad": [_I, _I] + [_P] * 6 + [_L, _I, _I, _P],
-    "sn_adamw_project_rows": [_P] * 4 + [_L, _I, _I, _I] + [_F] * 9 + [_P],
+    "sn_adamw_project_rows": [_P] * 4 + [_I, _I, _L, _I, _I, _I] + [_F] * 9 + [_P],
     "sn_fused_mhsa": [_I, _P, _P] + [_I] * 4 + [_F] * 3 + [_I, _P],
     "sn_fused_mhsa_bwd": [_I] + [_P] * 4 + [_I] * 4 + [_F] * 3 + [_I, _P],
-    "sn_fused_mlp": [_I] + [_P] * 6 + [_I] * 3 + [_F, _F, _I, _P],
-    "sn_fused_mlp_bwd": [_I] + [_P] * 9 + [_I] * 4 + [_F, _F, _I, _P],
+    "sn_fused_mlp": [_I] + [_P] * 7 + [_I] * 3 + [_F, _F, _I, _P],
+    "sn_fused_mlp_bwd": [_I] + [_P] * 10 + [_I] * 4 + [_F, _F, _I, _P],
     "sn_vq_assign": [_I] + [_P] * 5 + [_I] * 4 + [_P],
     "sn_layernorm_fwd": [_I] + [_P] * 4 + [_L, _I, _F, _I, _P],
     "sn_layernorm_bwd": [_I, _I] + [_P] * 7 + [_L, _I, _F, _I, _P],

@@ -13,6 +13,14 @@ place:
 * then, with ``remove_self_loop``, the diagonal of each ``[V, V]`` block is
   zeroed (row r of the ``[K*V, V]`` view has its self-loop at column r mod V).
 
+The moments ``m`` and ``v`` are each fp32 or bf16 (a group with
+``moment_dtype`` / ``nu_dtype: bfloat16``, as the JAX package's
+``adamw_lowmem`` stores them): the update runs in fp32 from the stored
+moments and uses this step's fp32 moments; only their storage rounds, to
+nearest even. With bf16 moments this is ``adamw_lowmem`` followed by
+``project_atlas_params``, which is what the JAX package runs for such a
+group.
+
 Folding the projection into the update keeps the atlas projected from one
 step to the next, so the gradient sees the same projected parameters as
 under the projection before every step (``schemanet_tpu/ops/pallas/
@@ -34,6 +42,7 @@ from . import _build
 from .encoder_block import _check, _require_cuda, _stream
 
 _MAX_COLUMNS = 4096  # csrc/atlas_opt.cu: kThreads * kMaxPer
+_MOMENT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DType
 
 
 def _bias_corrections(count: int, b1: float, b2: float) -> Tuple[float, float]:
@@ -60,18 +69,32 @@ def adamw_project_rows_reference(
     place and returns them."""
     loop_v = _self_loop_width(p.shape, remove_self_loop)
     bc1, bc2 = _bias_corrections(count, b1, b2)
-    m.mul_(b1).add_((1.0 - b1) * g)
-    v.mul_(b2).add_((1.0 - b2) * g * g)
-    pn = p - lr * ((m * bc1) / (torch.sqrt(v * bc2) + eps) + weight_decay * p)
+    m32 = m.float().mul(b1).add_((1.0 - b1) * g)
+    v32 = v.float().mul(b2).add_((1.0 - b2) * g * g)
+    m.copy_(m32)  # stored in m's dtype, rounded to nearest even where bf16
+    v.copy_(v32)
+    pn = p - lr * ((m32 * bc1) / (torch.sqrt(v32 * bc2) + eps) + weight_decay * p)
+    p.copy_(_projected(pn, project, loop_v))
+    return p, m, v
+
+
+def _projected(pn: torch.Tensor, project: bool, loop_v: int) -> torch.Tensor:
     if project:
         w = torch.clamp(pn, min=0.0)
         s = w.sum(dim=-1, keepdim=True)
         pn = torch.where(s > 0, w / s, torch.zeros_like(w))
     if loop_v:
-        eye = torch.eye(loop_v, dtype=torch.bool, device=p.device)
+        eye = torch.eye(loop_v, dtype=torch.bool, device=pn.device)
         pn = torch.where(eye, torch.zeros_like(pn), pn)
-    p.copy_(pn)
-    return p, m, v
+    return pn
+
+
+@torch.no_grad()
+def project_rows_(p: torch.Tensor, remove_self_loop: bool = False) -> torch.Tensor:
+    """The kernel's row projection alone, plain, in place: for an atlas
+    tensor whose update the kernel does not compute (a factored second
+    moment), after the plain low-memory update."""
+    return p.copy_(_projected(p, True, _self_loop_width(p.shape, remove_self_loop)))
 
 
 def adamw_project_rows(
@@ -81,30 +104,39 @@ def adamw_project_rows(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One fused AdamW step + row projection over the last axis, in place.
 
-    ``p/g/m/v`` are fp32 tensors of one shape ``[..., C]``; ``count`` is the
-    number of updates already applied (optax's pre-increment convention).
-    Returns ``(p, m, v)``, the same tensors."""
+    ``p/g/m/v`` are tensors of one shape ``[..., C]``, p and g fp32, m and v
+    each fp32 or bf16; ``count`` is the number of updates already applied
+    (optax's pre-increment convention). Returns ``(p, m, v)``, the same
+    tensors."""
     if p.device.type == "cpu":
         return adamw_project_rows_reference(
             p, g, m, v, count, lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
             project=project, remove_self_loop=remove_self_loop,
         )
     _require_cuda("p", p)
-    for name, t in (("p", p), ("g", g), ("m", m), ("v", v)):
+    for name, t in (("p", p), ("g", g)):
         _check(name, t, torch.float32, p.shape)
+    for name, t in (("m", m), ("v", v)):
+        if t.dtype not in _MOMENT_DTYPES:
+            raise TypeError(f"adamw_project_rows keeps {name} in float32 or bfloat16, got "
+                            f"{t.dtype}")
+        _check(name, t, t.dtype, p.shape)
     c = p.shape[-1]
     if not 0 < c <= _MAX_COLUMNS:
         raise ValueError(f"adamw_project_rows takes rows of 1..{_MAX_COLUMNS} columns, got {c}")
     loop_v = _self_loop_width(p.shape, remove_self_loop)
     bc1, bc2 = _bias_corrections(count, b1, b2)
     err = _build.library().sn_adamw_project_rows(
-        p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel() // c, c,
+        p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), _MOMENT_DTYPES[m.dtype],
+        _MOMENT_DTYPES[v.dtype], p.numel() // c, c,
         int(project), loop_v, lr, b1, 1.0 - b1, b2, 1.0 - b2, bc1, bc2, eps, weight_decay,
         _stream(),
     )
     _build.check(err, "adamw_project_rows")
     adamw_project_rows.launches += 1
+    if torch.bfloat16 in (m.dtype, v.dtype):
+        adamw_project_rows.bf16_launches += 1
     return p, m, v
 
 
-adamw_project_rows.launches = 0
+adamw_project_rows.launches = adamw_project_rows.bf16_launches = 0

@@ -235,7 +235,10 @@ def attn_block(
 attn_block.launches = attn_block.hmean_launches = attn_block.tc_launches = 0
 
 
-_FFN_DIMS = (64, 128, 192, 256, 384)  # csrc/encoder_block.cu instantiates these widths
+# csrc/encoder_block.cu: the one-launch kernels' widths up to 384, then
+# DeiT-Base's 768 on the two-product route (the hidden state in device memory)
+_FFN_DIMS = (64, 128, 192, 256, 384, 768)
+_FFN_FUSED_MAX = 384
 
 
 def ffn_block_route(dtype: torch.dtype, dim: int, f: int) -> str:
@@ -291,15 +294,23 @@ def ffn_block(
                          "not 16-byte aligned")
     rows = x.numel() // dim
     out = torch.empty_like(x)
+    hidden = stats = None
+    if dim > _FFN_FUSED_MAX:  # the two-product route: gelu's output, and fp32's LN2 statistics
+        hidden = torch.empty((rows, f), dtype=dt, device=x.device)
+        if dt == torch.float32:
+            stats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
     err = _build.library().sn_ffn_block(
         _DTYPES[dt], x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), rows, dim, f,
-        float(eps), _stream(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+        hidden.data_ptr() if hidden is not None else None,
+        stats.data_ptr() if stats is not None else None, rows, dim, f, float(eps), _stream(),
     )
     _build.check(err, "ffn_block")
     ffn_block.launches += 1
     ffn_block.tc_launches += 1  # both routes run on the tensor cores
+    if dim > _FFN_FUSED_MAX:
+        ffn_block.wide_launches += 1
     return out
 
 
-ffn_block.launches = ffn_block.tc_launches = 0
+ffn_block.launches = ffn_block.tc_launches = ffn_block.wide_launches = 0

@@ -6,7 +6,7 @@ kernels are ``csrc/layernorm.cu``, whose header says what bounds them on the
 card and how their design answers it.
 
 ``fused_layernorm(x, scale, bias, eps, act)`` is ``act(LN(x))`` over the last
-axis of x [..., d] (d <= 768), output in x.dtype: statistics in fp32 with
+axis of x [..., d] (d <= 1024), output in x.dtype: statistics in fp32 with
 flax's fast variance ``max(E[x^2] - E[x]^2, 0)``, ``rsqrt(var + eps)``, fp32
 scale and bias, relu (``act="relu"``) after the affine. It is a
 ``torch.autograd.Function`` whose backward is the second kernel: it
@@ -42,7 +42,7 @@ from .encoder_block import (VECTOR, _DTYPES, _check, _require_cuda, _stream, lay
                             piece_route)
 
 _ACTS = ("none", "relu")
-_MAX_DIM = 768  # csrc/layernorm.cu holds up to 24 values a lane
+_MAX_DIM = 1024  # csrc/layernorm.cu kLnMaxDim: up to 32 values a lane
 _BWD_MAX_BLOCKS = 1024  # csrc/layernorm.cu kLnBwdMaxBlocks: the backward's blocks at most
 _WARPS = 8  # csrc/layernorm.cu kLnWarps: a block has at least one row
 
@@ -82,14 +82,20 @@ def fused_layernorm_bwd_reference(x: torch.Tensor, scale: torch.Tensor, bias: to
     return dx.to(x.dtype).reshape(x.shape), (gf * xhat).sum(dim=0), gf.sum(dim=0)
 
 
+def check_width(dtype: torch.dtype, d: int, name: str = "fused_layernorm") -> None:
+    """Raises unless the kernels take rows of this dtype and width d (float32
+    or bfloat16, 1..1024)."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {dtype}")
+    if not 0 < d <= _MAX_DIM:
+        raise ValueError(f"{name} takes width 1..{_MAX_DIM}, got {d}")
+
+
 def _check_ln(name: str, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, act: str):
     _require_cuda("x", x)
     _check_act(act)
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"{name} takes float32 or bfloat16, got {x.dtype}")
     d = x.shape[-1]
-    if not 0 < d <= _MAX_DIM:
-        raise ValueError(f"{name} takes width 1..{_MAX_DIM}, got {d}")
+    check_width(x.dtype, d, name)
     _check("x", x, x.dtype, x.shape)
     _check("scale", scale, torch.float32, (d,))
     _check("bias", bias, torch.float32, (d,))

@@ -29,9 +29,14 @@ Dispatch: a CPU tensor takes the plain versions (``fused_mlp_reference``,
 ``mlp_route`` picks the kernels of both launches by dtype: fp32 takes the
 FMA kernels, bf16 the tensor-core ones (the forward keeps its hidden chunk in
 shared memory; the backward stores the hidden state ``dH`` and ``a_used``
-once in a ``[rows, f]`` bf16 scratch each). ``fused_mlp.launches`` and
+once in a ``[rows, f]`` bf16 scratch each). Past width 256 (DeiT-Small's 384,
+DeiT-Base's 768) both dtypes take the wide route of the same kernel family:
+each product one launch over a fixed output tile (tensor cores in bf16, FMA
+in fp32), the hidden state ``a_used`` (and in the backward ``dA`` in fp32,
+``dH``) in device memory between them. ``fused_mlp.launches`` and
 ``fused_mlp_bwd.launches`` count the launches, ``fused_mlp.tc_launches`` and
-``fused_mlp_bwd.tc_launches`` those of the tensor-core route.
+``fused_mlp_bwd.tc_launches`` those of the tensor-core route, and
+``*.wide_launches`` those of the wide route.
 """
 
 from __future__ import annotations
@@ -44,7 +49,10 @@ from . import _build
 from .dropmask import hash_keep_mask, kernel_dropout_args, keep_scale
 from .encoder_block import _DTYPES, _SQRT_HALF, _check, _require_cuda, _stream, erf_as, gelu_as
 
-_DIMS = (64, 128, 192, 256)  # csrc/mlp.cu instantiates these widths
+# csrc/mlp.cu: the one-launch kernels' widths, and the wide route's (each
+# product a launch, the hidden state in device memory) past them
+_DIMS = (64, 128, 192, 256, 384, 768)
+_WIDE = 256  # widths above this take the wide route
 _SPLITS = 24  # row splits of the FMA weight-gradient kernel: ~2 blocks per SM at f = 768
 _ROW_TILE = 32  # csrc/mlp.cu kMlpBM
 # row splits of the tensor-core weight-gradient kernel: 12 x 36 tiles at the
@@ -162,15 +170,19 @@ def _mlp_forward(x, w1, b1, w2, b2, activation, dropout_p, seed):
     if route == TENSOR_CORE:
         _check_aligned("fused_mlp", x, w1, w2)
     out = torch.empty_like(x)
+    # the wide route's hidden state, a_used [rows, f] in x's dtype
+    hidden = torch.empty((rows, f), dtype=x.dtype, device=x.device) if dim > _WIDE else None
     err = _build.library().sn_fused_mlp(
         _DTYPES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), rows, dim, f, *kernel_dropout_args(dropout_p, seed),
-        _stream(),
+        b2.data_ptr(), out.data_ptr(), hidden.data_ptr() if hidden is not None else None, rows,
+        dim, f, *kernel_dropout_args(dropout_p, seed), _stream(),
     )
     _build.check(err, "fused_mlp")
     fused_mlp.launches += 1
     if route == TENSOR_CORE:
         fused_mlp.tc_launches += 1
+    if dim > _WIDE:
+        fused_mlp.wide_launches += 1
     return out
 
 
@@ -183,13 +195,16 @@ def fused_mlp_bwd(x, w1, b1, w2, g, activation: str = "gelu", dropout_p: float =
     rows, dim, f = _check_mlp("fused_mlp_bwd", x, w1, b1, w2, activation)
     route = mlp_route(x.dtype, dim, f)
     _check("g", g, x.dtype, x.shape)
-    hidden = None
+    hidden = da = None
     if route == TENSOR_CORE:
         _check_aligned("fused_mlp_bwd", x, w1, w2, g)
         splits = max(1, min(_TC_SPLITS, -(-rows // _TC_ROW_STEP)))
-        hidden = torch.empty((2, rows, f), dtype=x.dtype, device=x.device)  # dH, a_used
     else:
         splits = max(1, min(_SPLITS, -(-rows // _ROW_TILE)))
+    if route == TENSOR_CORE or dim > _WIDE:
+        hidden = torch.empty((2, rows, f), dtype=x.dtype, device=x.device)  # dH, a_used
+    if dim > _WIDE:  # the wide route's dA = g W2
+        da = torch.empty((rows, f), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     count = 2 * f * dim + f + dim
     part = torch.empty((splits, count), dtype=torch.float32, device=x.device)
@@ -197,13 +212,16 @@ def fused_mlp_bwd(x, w1, b1, w2, g, activation: str = "gelu", dropout_p: float =
     err = _build.library().sn_fused_mlp_bwd(
         _DTYPES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), g.data_ptr(),
         dx.data_ptr(), part.data_ptr(), grads.data_ptr(),
-        hidden.data_ptr() if hidden is not None else None, rows, dim, f, splits,
+        hidden.data_ptr() if hidden is not None else None,
+        da.data_ptr() if da is not None else None, rows, dim, f, splits,
         *kernel_dropout_args(dropout_p, seed), _stream(),
     )
     _build.check(err, "fused_mlp_bwd")
     fused_mlp_bwd.launches += 1
     if route == TENSOR_CORE:
         fused_mlp_bwd.tc_launches += 1
+    if dim > _WIDE:
+        fused_mlp_bwd.wide_launches += 1
     dw1, dw2, db1, db2 = torch.split(grads, [f * dim, f * dim, f, dim])
     dt = x.dtype
     return dx, dw1.view(f, dim).to(dt), db1.to(dt), dw2.view(dim, f).to(dt), db2.to(dt)
@@ -238,5 +256,5 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
     return _FusedMlp.apply(x, w1, b1, w2, b2, activation, float(dropout_p), seed)
 
 
-fused_mlp.launches = fused_mlp.tc_launches = 0
-fused_mlp_bwd.launches = fused_mlp_bwd.tc_launches = 0
+fused_mlp.launches = fused_mlp.tc_launches = fused_mlp.wide_launches = 0
+fused_mlp_bwd.launches = fused_mlp_bwd.tc_launches = fused_mlp_bwd.wide_launches = 0

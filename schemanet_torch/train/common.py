@@ -16,9 +16,29 @@ parameter groups.
   ``step`` starts at 1), and the schedule is read at the count before the
   update, which ``ScheduledAdamW.step(count)`` sets as each group's lr.
 
-Not ported yet: ``moment_dtype`` (bf16 moments), ``factored`` and the
-per-group ``adamw_lowmem`` keys, and the other optimizers; asking for them
-raises.
+Low-memory moments, chosen as the JAX ``make_optimizer`` chooses them:
+
+* a group whose ``cfg`` names any of ``moment_dtype``, ``nu_dtype`` or
+  ``nu_factored_min_size`` takes ``adamw_lowmem`` (the port of
+  ``scale_by_adam_lowmem`` + decoupled decay + the schedule): the moments
+  are stored in ``moment_dtype`` (the group's, else the top-level one) and
+  ``nu_dtype``; with ``nu_factored_min_size`` a parameter of >= 2 dims whose
+  two trailing dims are both at least that size keeps fp32 row and column
+  statistics of g^2 for each leading index instead of a full nu. The
+  update runs in fp32 from the stored moments and uses this step's fp32
+  moments; only the storage rounds, to nearest even;
+* any other group under a top-level ``moment_dtype`` takes
+  ``optax.adamw(mu_dtype=...)``: mu stored in that dtype, nu in the
+  parameter's, and ``m = (1 - b1) g + b1' mu`` with ``b1' = b1`` rounded to
+  mu's dtype (optax multiplies the stored mu by the weakly typed Python
+  ``b1``, which JAX casts to mu's dtype; under ``jit`` XLA keeps the
+  product in fp32);
+* the rest take ``torch.optim.AdamW``.
+
+The low-memory updates are plain PyTorch (``LowMemAdamW``), as the JAX
+package runs them as plain XLA. Not ported: ``factored: true``
+(``optax.adafactor``) and the ``adam`` and ``sgd`` optimizers; asking for
+them raises ``NotImplementedError``.
 
 Checkpoints are torch-native: ``CheckpointManager`` writes one
 ``torch.save`` file a tag (``<ckpt_dir>/iter-<n>.pt``, the reference's
@@ -44,8 +64,9 @@ from torch import nn
 
 from ..models.port import jax_name
 
-_LOWMEM_KEYS = ("moment_dtype", "nu_dtype", "nu_factored_min_size", "factored")
+_GROUP_LOWMEM_KEYS = ("nu_dtype", "nu_factored_min_size", "moment_dtype")
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults, which the JAX package uses
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def epoch_schedule(
@@ -94,12 +115,139 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> torch
     return norm
 
 
+def _dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    if name is None:
+        return None
+    if name not in _DTYPES:
+        raise ValueError(f"unknown moment dtype {name!r}")
+    return _DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class Moments:
+    """How a group stores its Adam moments: ``adamw_lowmem``'s knobs (None
+    dtypes: the parameter's), or with ``optax_mu`` the update of
+    ``optax.adamw(mu_dtype)``, whose b1 is rounded to mu's dtype."""
+
+    mu_dtype: Optional[torch.dtype] = None
+    nu_dtype: Optional[torch.dtype] = None
+    factored_min_size: Optional[int] = None
+    optax_mu: bool = False
+
+    def factored(self, p: torch.Tensor) -> bool:
+        """Row and column statistics in place of a full nu for ``p``."""
+        return (self.factored_min_size is not None and p.ndim >= 2
+                and min(p.shape[-2:]) >= self.factored_min_size)
+
+
 @dataclasses.dataclass(frozen=True)
 class GroupHyper:
-    """A parameter group's hyperparameters: lr as a scale of the schedule."""
+    """A parameter group's hyperparameters: lr as a scale of the schedule;
+    ``moments`` None for ``torch.optim.AdamW`` (fp32 moments)."""
 
     lr_scale: float
     weight_decay: float
+    moments: Optional[Moments] = None
+
+
+def _bias_correction(b: float, count: int) -> torch.Tensor:
+    """1 - b^t at t = count + 1, in fp32 as optax computes it."""
+    return torch.tensor(1.0, dtype=torch.float32) - torch.tensor(b, dtype=torch.float32) ** float(
+        count + 1)
+
+
+def lowmem_init(p: torch.Tensor, moments: Moments) -> Dict[str, torch.Tensor]:
+    """Zero moments of ``p`` as ``moments`` stores them: ``m``, and ``v`` or
+    (factored) ``row`` [..., n] and ``col`` [..., m] in fp32."""
+    state = {"m": torch.zeros_like(p, dtype=moments.mu_dtype or p.dtype)}
+    if moments.factored(p):
+        state["row"] = torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device)
+        state["col"] = torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=torch.float32,
+                                   device=p.device)
+    else:
+        state["v"] = torch.zeros_like(p, dtype=moments.nu_dtype or p.dtype)
+    return state
+
+
+def _fma(a: float, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a x + c`` in fp32 rounded once (``a`` taken as fp32), as XLA
+    computes a moment's update ``b t + (1 - b) g``: it fuses the first
+    product into the add (a fused multiply-add). The product of two fp32
+    values is exact in fp64, so the sum is rounded to fp64 and then to fp32
+    (the fused result but for a tie between the two roundings)."""
+    return (x.double() * float(np.float32(a)) + c.double()).float()
+
+
+@torch.no_grad()
+def lowmem_adamw_step_(p: torch.Tensor, g: torch.Tensor, state: Dict[str, torch.Tensor],
+                       count: int, lr: float, weight_decay: float, moments: Moments) -> None:
+    """One AdamW update of ``p`` in place from gradient ``g``, its moments in
+    ``state`` (``lowmem_init``) updated in place; ``count`` updates were
+    applied before. ``adamw_lowmem`` of the JAX package
+    (``schemanet_tpu/train/common.py``): ``m = b1 m + (1 - b1) g`` and ``n =
+    b2 n + (1 - b2) g^2`` in fp32 from the stored moments, ``u = (m / bc1) /
+    (sqrt(n / bc2) + eps)`` (factored: ``n / bc2`` replaced by ``r c^T /
+    max(sum r, 1e-30) / bc2``), the moments stored rounded; then ``p += -lr
+    (u + wd p)``, as optax's ``add_decayed_weights`` and
+    ``scale_by_learning_rate``. With ``moments.optax_mu`` the b1 of ``b1 m``
+    is rounded to m's dtype first, as ``optax.adamw(mu_dtype)`` computes
+    it."""
+    b1, b2 = ADAM_B1, ADAM_B2
+    bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
+    g32 = g.float()
+    mu = state["m"]
+    g2 = g32 * g32
+    if moments.optax_mu:  # optax's order: (1 - b) g^k + b t, b1 in mu's dtype
+        b1_mu = torch.tensor(b1, dtype=mu.dtype).item()
+        m32 = _fma(1.0 - b1, g32, b1_mu * mu.float())
+    else:
+        m32 = _fma(b1, mu.float(), (1.0 - b1) * g32)
+    if "v" in state:
+        v = state["v"].float()
+        n32 = (_fma(1.0 - b2, g2, b2 * v) if moments.optax_mu
+               else _fma(b2, v, (1.0 - b2) * g2))
+        state["v"].copy_(n32)
+        nu_hat = n32 / bc2
+    else:
+        r = _fma(b2, state["row"], (1.0 - b2) * g2.sum(-1))
+        c = _fma(b2, state["col"], (1.0 - b2) * g2.sum(-2))
+        state["row"].copy_(r)
+        state["col"].copy_(c)
+        denom = torch.clamp(r.sum(-1)[..., None, None], min=1e-30)
+        nu_hat = (r[..., :, None] * c[..., None, :]) / denom / bc2
+    mu.copy_(m32)
+    u = ((m32 / bc1) / (torch.sqrt(nu_hat) + ADAM_EPS)).to(g.dtype)
+    p.add_((u + weight_decay * p) * torch.tensor(-lr, dtype=torch.float32))
+
+
+class LowMemAdamW:
+    """The groups of ``make_optimizer`` that store their moments in a narrow
+    dtype or factored: ``lowmem_adamw_step_`` on each of their parameters."""
+
+    def __init__(self, params: Dict[str, List[nn.Parameter]], hyper: Dict[str, GroupHyper]):
+        self.groups = [(hyper[label], ps) for label, ps in params.items() if ps]
+        self.state = [[lowmem_init(p, hp.moments) for p in ps] for hp, ps in self.groups]
+
+    def step(self, count: int, lr: float) -> None:
+        for (hp, ps), states in zip(self.groups, self.state):
+            for p, st in zip(ps, states):
+                if p.grad is not None:
+                    lowmem_adamw_step_(p.data, p.grad, st, count, lr * hp.lr_scale,
+                                       hp.weight_decay, hp.moments)
+
+    def zero_grad(self) -> None:
+        for _, ps in self.groups:
+            for p in ps:
+                p.grad = None
+
+    def state_dict(self) -> List[List[Dict[str, torch.Tensor]]]:
+        return self.state
+
+    def load_state_dict(self, state) -> None:
+        for mine, saved in zip(self.state, state):
+            for st, sv in zip(mine, saved):
+                for k, t in st.items():
+                    t.copy_(sv[k])
 
 
 def param_labels(
@@ -124,8 +272,11 @@ def param_labels(
 
 
 class ScheduledAdamW:
-    """``torch.optim.AdamW`` over the labelled groups, its lr set from the
-    schedule at every step."""
+    """``torch.optim.AdamW`` over the labelled groups with fp32 moments and
+    ``LowMemAdamW`` over the others (``GroupHyper.moments``), their lr set
+    from the schedule at every step. The state dict is torch's (``state``,
+    ``param_groups``), with the low-memory groups' moments under
+    ``lowmem`` where there are any."""
 
     def __init__(self, params: Dict[str, List[nn.Parameter]], hyper: Dict[str, GroupHyper],
                  schedule: Callable[[int], float]):
@@ -133,30 +284,43 @@ class ScheduledAdamW:
         groups = [
             {"params": ps, "lr": schedule(0) * hyper[label].lr_scale,
              "weight_decay": hyper[label].weight_decay, "lr_scale": hyper[label].lr_scale}
-            for label, ps in params.items() if ps
+            for label, ps in params.items() if ps and hyper[label].moments is None
         ]
         self.optimizer = (torch.optim.AdamW(groups, betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS)
                           if groups else None)
+        lowmem = {label: ps for label, ps in params.items()
+                  if ps and hyper[label].moments is not None}
+        self.lowmem = LowMemAdamW(lowmem, hyper) if lowmem else None
 
     def zero_grad(self) -> None:
         if self.optimizer is not None:
             self.optimizer.zero_grad(set_to_none=True)
+        if self.lowmem is not None:
+            self.lowmem.zero_grad()
 
     def state_dict(self) -> Dict[str, Any]:
-        return self.optimizer.state_dict() if self.optimizer is not None else {}
+        state = self.optimizer.state_dict() if self.optimizer is not None else {}
+        if self.lowmem is not None:
+            state = {**state, "lowmem": self.lowmem.state_dict()}
+        return state
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        state = dict(state)
+        lowmem = state.pop("lowmem", None)
         if self.optimizer is not None:
             self.optimizer.load_state_dict(state)
+        if self.lowmem is not None:
+            self.lowmem.load_state_dict(lowmem)
 
     def step(self, count: int) -> None:
         """One update; ``count`` is the number of updates already applied."""
-        if self.optimizer is None:
-            return
         lr = self.schedule(count)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr * group["lr_scale"]
-        self.optimizer.step()
+        if self.optimizer is not None:
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr * group["lr_scale"]
+            self.optimizer.step()
+        if self.lowmem is not None:
+            self.lowmem.step(count, lr)
 
 
 def make_optimizer(
@@ -176,19 +340,30 @@ def make_optimizer(
     name = optimizer_cfg.get("name", "AdamW").lower()
     if name != "adamw":
         raise NotImplementedError(f"optimizer {name!r} is not ported (only AdamW)")
-    asked = [k for k in _LOWMEM_KEYS if optimizer_cfg.get(k)]
+    if optimizer_cfg.get("factored"):
+        raise NotImplementedError("factored: true (optax.adafactor) is not ported")
     groups = list(param_groups or [])
-    for group in groups:
-        asked += [k for k in _LOWMEM_KEYS if k in (group.get("cfg") or {})]
-    if asked:
-        raise NotImplementedError(f"low-memory AdamW options {sorted(set(asked))} are not ported")
     base_lr = float(optimizer_cfg.get("lr", 1e-3))
     weight_decay = float(optimizer_cfg.get("weight_decay", 0.0))
-    hyper = {"default": GroupHyper(1.0, weight_decay)}
+    moment_dtype = _dtype(optimizer_cfg.get("moment_dtype"))
+
+    def moments_of(cfg: Dict[str, Any]) -> Optional[Moments]:
+        """As the JAX make_one: any group key -> adamw_lowmem; else a
+        top-level moment_dtype -> optax.adamw(mu_dtype); else fp32 AdamW."""
+        if any(k in cfg for k in _GROUP_LOWMEM_KEYS):
+            return Moments(_dtype(cfg.get("moment_dtype")) if "moment_dtype" in cfg
+                           else moment_dtype, _dtype(cfg.get("nu_dtype")),
+                           cfg.get("nu_factored_min_size"))
+        if moment_dtype is not None:
+            return Moments(moment_dtype, optax_mu=True)
+        return None
+
+    hyper = {"default": GroupHyper(1.0, weight_decay, moments_of({}))}
     for gi, group in enumerate(groups):
         cfg = group.get("cfg") or {}
         hyper[f"group_{gi}"] = GroupHyper(
-            float(cfg.get("lr", base_lr)) / base_lr, float(cfg.get("weight_decay", weight_decay))
+            float(cfg.get("lr", base_lr)) / base_lr, float(cfg.get("weight_decay", weight_decay)),
+            moments_of(cfg),
         )
     named = list(model.named_parameters())
     labels = param_labels(named, groups, drop_remain, frozen_patterns)

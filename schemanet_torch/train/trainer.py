@@ -21,7 +21,18 @@ step:
    and ``edge_weights``: AdamW and the row projection in one pass, so they
    stay projected. The gradient therefore sees the same projected parameters
    as under the JAX package's default, the projection before every step
-   (``ops/kernels/atlas_opt.py``).
+   (``ops/kernels/atlas_opt.py``). Their moments are stored as their group
+   asks (``common.py`` ``Moments``): fp32, or bf16 under ``moment_dtype`` /
+   ``nu_dtype`` (the kernel's bf16-moment variant: ``adamw_lowmem`` then the
+   projection, as the JAX package computes it). A group whose update the
+   kernel does not compute (a factored nu, or ``optax.adamw(mu_dtype)``'s b1
+   rounded to bf16 under a top-level ``moment_dtype``) takes the plain
+   low-memory update and then the plain projection, as the JAX package
+   does. The ImageNet YAMLs
+   put every atlas tensor in the ``schema_net`` group, so all four
+   (vertex, edge and both attribute weights) keep bf16 moments, where
+   ``bench.py`` gave bf16 moments to two of them: the port follows the YAML
+   the workers read.
 
 Both updates read the schedule at the count before the update and use the
 hyperparameters of the group their parameters fall in. Dropout randomness
@@ -47,8 +58,8 @@ the end. ``validate`` clamps a SchemaNet predictor's attribute weights
 with a ``ckpt_dir``, saves ``iter-<step>`` (``best`` too when it is the
 best) and ``meta.json``. A
 checkpoint holds the model's state dict (frozen parts included), the AdamW
-state, the hot tensors' moments, the step (the schedule's position) and
-both dropout generators' states, so ``resume`` ("auto": the ``last_tag`` of
+state, the hot tensors' moments (in their dtypes), the step (the
+schedule's position) and both dropout generators' states, so ``resume`` ("auto": the ``last_tag`` of
 ``meta.json``) continues at the epoch after the saved one with the bits of
 an uninterrupted run. SIGTERM or SIGINT during the loop saves a checkpoint
 at the next step's end and stops.
@@ -73,8 +84,9 @@ from ..schema.loss import weighted_total
 from ..utils.logging_utils import TBWriter, process_rank
 from ..utils.metrics import tensor_dict_items
 from ..utils.profiling import StepTimer
-from .common import (CheckpointManager, clip_by_global_norm, epoch_schedule, load_metadata,
-                     make_optimizer, save_metadata)
+from .common import (CheckpointManager, Moments, clip_by_global_norm, epoch_schedule,
+                     load_metadata, lowmem_adamw_step_, lowmem_init, make_optimizer,
+                     save_metadata)
 from .evaluator import Evaluation
 
 # the frozen patterns schema_net_worker adds to the YAML's parameter groups
@@ -110,11 +122,25 @@ class TrainerConfig:
 @dataclasses.dataclass
 class _HotTensor:
     param: torch.nn.Parameter
-    m: torch.Tensor
-    v: torch.Tensor
+    state: Dict[str, torch.Tensor]  # lowmem_init's: m, and v or (factored) row and col
     lr_scale: float
     weight_decay: float
+    moments: Optional[Moments]  # None: fp32 moments
     remove_self_loop: bool
+
+    @property
+    def m(self) -> torch.Tensor:
+        return self.state["m"]
+
+    @property
+    def v(self) -> torch.Tensor:
+        return self.state["v"]
+
+    @property
+    def fused(self) -> bool:
+        """The kernel computes this tensor's update: full (not factored)
+        moments, each in fp32 or bf16, and adamw_lowmem's b1."""
+        return "v" in self.state and not (self.moments and self.moments.optax_mu)
 
 
 class Trainer:
@@ -166,9 +192,11 @@ class Trainer:
             if label == "frozen":
                 continue
             p = getattr(self.atlas, name.split(".", 1)[1])
+            moments = hyper[label].moments
+            state = (lowmem_init(p, moments) if moments is not None
+                     else {"m": torch.zeros_like(p), "v": torch.zeros_like(p)})
             self.hot[name] = _HotTensor(
-                p, torch.zeros_like(p), torch.zeros_like(p), hyper[label].lr_scale,
-                hyper[label].weight_decay,
+                p, state, hyper[label].lr_scale, hyper[label].weight_decay, moments,
                 name.endswith("edge_weights") and self.atlas.cfg.remove_self_loop,
             )
         self.trainable = [p for p in model.parameters() if p.requires_grad]
@@ -212,11 +240,16 @@ class Trainer:
         self.optimizer.step(self.step)
         lr = self.schedule(self.step)
         for hot in self.hot.values():
-            ao.adamw_project_rows(
-                hot.param.data, hot.param.grad.contiguous(), hot.m, hot.v, self.step,
-                lr=lr * hot.lr_scale, weight_decay=hot.weight_decay, project=True,
-                remove_self_loop=hot.remove_self_loop,
-            )
+            if hot.fused:
+                ao.adamw_project_rows(
+                    hot.param.data, hot.param.grad.contiguous(), hot.m, hot.v, self.step,
+                    lr=lr * hot.lr_scale, weight_decay=hot.weight_decay, project=True,
+                    remove_self_loop=hot.remove_self_loop,
+                )
+            else:
+                lowmem_adamw_step_(hot.param.data, hot.param.grad, hot.state, self.step,
+                                   lr * hot.lr_scale, hot.weight_decay, hot.moments)
+                ao.project_rows_(hot.param.data, hot.remove_self_loop)
         self.step += 1
 
     def train_iter(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -254,7 +287,7 @@ class Trainer:
         return {
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
-            "hot": {name: {"m": hot.m, "v": hot.v} for name, hot in self.hot.items()},
+            "hot": {name: hot.state for name, hot in self.hot.items()},
             "step": self.step,
             "rng": {"seeds": self.rng.seeds.get_state(), "masks": self.rng.masks.get_state()},
         }
@@ -263,8 +296,8 @@ class Trainer:
         with torch.no_grad():
             self.model.load_state_dict(state["model"])
             for name, hot in self.hot.items():
-                hot.m.copy_(state["hot"][name]["m"])
-                hot.v.copy_(state["hot"][name]["v"])
+                for key, t in hot.state.items():
+                    t.copy_(state["hot"][name][key])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
         self.rng.seeds.set_state(state["rng"]["seeds"])

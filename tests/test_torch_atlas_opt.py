@@ -94,3 +94,42 @@ def test_remove_self_loop_needs_square_blocks():
     z = torch.zeros(3, 4, 5)
     with pytest.raises(ValueError, match="V, V"):
         ao.adamw_project_rows(z, z, z, z, 0, lr=1e-3, remove_self_loop=True)
+
+
+@pytest.mark.parametrize("remove_self_loop", [False, True])
+def test_bf16_moments_match_jax_adamw_lowmem_plus_projection(remove_self_loop):
+    """bf16 m and v (a group with ``moment_dtype`` and ``nu_dtype`` bfloat16,
+    as the ImageNet stage-4 YAML's schema_net group): the plain version
+    against the JAX ``adamw_lowmem`` followed by ``project_atlas_params``,
+    which is what the JAX package runs for such a group. 3 steps: p within
+    1e-5 relative (the kernel's bias corrections as reciprocals, the row
+    sums in another order), m and v within one bf16 ulp of JAX's (a last-bit
+    fp32 difference in the update can flip a rounding), stored in bf16."""
+    from schemanet_tpu.train.common import adamw_lowmem
+
+    rng = np.random.default_rng(5)
+    shape = (4, 24, 24)
+    p0 = _project(_start(shape, rng), remove_self_loop)
+    p_t = torch.from_numpy(p0.copy())
+    m_t = torch.zeros(shape, dtype=torch.bfloat16)
+    v_t = torch.zeros(shape, dtype=torch.bfloat16)
+    tx = adamw_lowmem(HYPERS["lr"], b1=HYPERS["b1"], b2=HYPERS["b2"], eps=HYPERS["eps"],
+                      weight_decay=HYPERS["weight_decay"], mu_dtype=jnp.bfloat16,
+                      nu_dtype=jnp.bfloat16)
+    p_o, state = p0, tx.init(jnp.asarray(p0))
+    for step in range(3):
+        g = rng.normal(0.0, 0.05, size=shape).astype(np.float32)
+        ao.adamw_project_rows(p_t, torch.from_numpy(g), m_t, v_t, step,
+                              remove_self_loop=remove_self_loop, **HYPERS)
+        updates, state = tx.update(jnp.asarray(g), state, jnp.asarray(p_o))
+        p_o = _project(np.asarray(optax.apply_updates(jnp.asarray(p_o), updates)),
+                       remove_self_loop)
+        np.testing.assert_allclose(p_t.numpy(), p_o, rtol=1e-5, atol=1e-9, err_msg=f"step {step}")
+        adam = state[0]
+        for got, want in ((m_t, adam.mu), (v_t, adam.nu["full"])):
+            assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+            w = np.asarray(want.astype(jnp.float32))
+            ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(w), np.finfo(np.float32).tiny))) - 7)
+            assert (np.abs(got.float().numpy() - w) <= ulp).all(), f"step {step}"
+    if remove_self_loop:
+        assert not torch.diagonal(p_t, dim1=-2, dim2=-1).any()

@@ -84,7 +84,8 @@ def _jax_ffn(x, p, dtype="float32"):
     )
 
 
-@pytest.mark.parametrize("dim", [64, 384])  # the smallest width the kernels take; DeiT-Small
+# the smallest width the kernels take; DeiT-Small; DeiT-Base (the two-product route)
+@pytest.mark.parametrize("dim", [64, 384, 768])
 @pytest.mark.parametrize("dtype,rtol,atol", TOLS)
 def test_ffn_block_matches_jax(dtype, rtol, atol, dim):
     x, p = _ffn_inputs(np.random.default_rng(1), BS, N, dim, 4 * dim)
@@ -123,11 +124,12 @@ def test_ffn_gelu_is_the_tpu_kernels():
 
 
 @pytest.mark.parametrize("dtype,dim,f,route", [
-    *[(torch.bfloat16, dim, 4 * dim, "tensor_core") for dim in eb._FFN_DIMS],
+    *[(torch.bfloat16, dim, 4 * dim, "tensor_core") for dim in (64, 128, 192, 256, 384, 768)],
     (torch.bfloat16, 192, 96, "tensor_core"),  # f past a chunk of 32 and 64
     *[(torch.float32, dim, 4 * dim, "split_tf32") for dim in (64, 128, 192, 256)],
     (torch.float32, 192, 100, "split_tf32"),  # fp32 takes any f
     (torch.float32, 384, 1536, "split_tf32"),  # DeiT-Small: hidden chunks of 16
+    (torch.float32, 768, 3072, "split_tf32"),  # DeiT-Base: the two-product route
 ])
 def test_ffn_block_route(dtype, dim, f, route):
     """The kernel an ffn_block launch takes: bf16 the tensor cores, fp32 the

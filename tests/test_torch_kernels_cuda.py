@@ -489,9 +489,9 @@ def test_fused_layernorm_kernels(dev, dtype, tol, rows, d, act):
 
 
 def test_stage_kernels_reject_bad_inputs(dev):
-    with pytest.raises(ValueError, match="width"):
-        lnk.fused_layernorm(torch.zeros(4, 800, device=dev), torch.ones(800, device=dev),
-                            torch.zeros(800, device=dev))
+    with pytest.raises(ValueError, match="width"):  # past the kernels' 1024
+        lnk.fused_layernorm(torch.zeros(4, 1100, device=dev), torch.ones(1100, device=dev),
+                            torch.zeros(1100, device=dev))
     with pytest.raises(TypeError):
         lnk.fused_layernorm(torch.zeros(4, 8, device=dev, dtype=torch.float16),
                             torch.ones(8, device=dev), torch.zeros(8, device=dev))

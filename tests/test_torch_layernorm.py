@@ -36,12 +36,13 @@ def _close(got, want, tol, name):
     assert err <= tol, f"{name}: {err} > {tol}"
 
 
-def _inputs(dtype, seed=0):
+def _inputs(dtype, seed=0, shape=(3, 37, 48)):
     rng = np.random.default_rng(seed)
-    x = rng.normal(size=(3, 37, 48)).astype(np.float32) * 2 + 0.5
-    scale = (1 + 0.3 * rng.normal(size=48)).astype(np.float32)
-    bias = (0.3 * rng.normal(size=48)).astype(np.float32)
-    g = rng.normal(size=(3, 37, 48)).astype(np.float32)
+    d = shape[-1]
+    x = rng.normal(size=shape).astype(np.float32) * 2 + 0.5
+    scale = (1 + 0.3 * rng.normal(size=d)).astype(np.float32)
+    bias = (0.3 * rng.normal(size=d)).astype(np.float32)
+    g = rng.normal(size=shape).astype(np.float32)
     jdt = jnp.dtype(dtype)
     tdt = getattr(torch, dtype)
     jax_in = (jnp.asarray(x, jdt), jnp.asarray(scale), jnp.asarray(bias), jnp.asarray(g, jdt))
@@ -50,10 +51,18 @@ def _inputs(dtype, seed=0):
     return jax_in, torch_in
 
 
-@pytest.mark.parametrize("act", ["none", "relu"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_layernorm_forward_and_gradients_match_jax(dtype, act):
-    (jx, js, jb, jg), (x, scale, bias, g) = _inputs(dtype)
+# beside the narrow default: the ImageNet GNN's width (gnn.embed_dim 1024 in
+# configs/imagenet/schema_net/*), a few rows
+WIDE = {"d1024": (2, 5, 1024)}
+
+
+@pytest.mark.parametrize("dtype,act,width", [
+    pytest.param(dtype, act, width, id=f"{dtype}-{act}" + (f"-{width}" if width else ""))
+    for width in (None, *WIDE) for dtype in ("float32", "bfloat16") for act in ("none", "relu")
+])
+def test_layernorm_forward_and_gradients_match_jax(dtype, act, width):
+    (jx, js, jb, jg), (x, scale, bias, g) = (
+        _inputs(dtype) if width is None else _inputs(dtype, 0, WIDE[width]))
     fwd_tol, dx_tol = TOLS[dtype]
     want, vjp = jax.vjp(lambda *a: jax_fused_layernorm(*a, 1e-6, interpret=True, act=act),
                         jx, js, jb)

@@ -76,6 +76,8 @@ LOOP = {"train_epochs": 2, "batch_size": BATCH, "val_interval": 4, "print_interv
 VAL_CFG = {"batch_size": BATCH, "num_workers": 2}
 STAGE4 = get_cfg("configs/cifar_100/schema_net/deit_tiny-l9-M_1024.yaml")
 STAGE0 = get_cfg("configs/cifar_100/vanilla/deit_tiny.yaml")
+# the ImageNet stage-4 training block: bf16 Adam moments on the schema_net group
+STAGE4_IMAGENET = get_cfg("configs/imagenet/schema_net/deit_small-l9-M_8000.yaml")
 
 
 class _Recorder:
@@ -102,7 +104,7 @@ class _Recorder:
 def _jax_trainer(kind, train_cfg, loss_cfg):
     loaders = jax_build_loaders(DATA_CFG, train_cfg, VAL_CFG, seed=0)
     mesh = make_mesh(devices=jax.devices()[:1])
-    if kind == "schema_net":
+    if kind.startswith("schema_net"):
         jax_geometry.pairwise_point_sim(4, 4, 1.0, 2.0)
         predictor = jax_build_predictor(MODEL_CFG, SCHEMA_CFG, K, M, D, ENCODE_LAYER)
         variables = jax.jit(lambda key, x: predictor.init(key, x, method="init_full"))(
@@ -134,7 +136,7 @@ def _jax_trainer(kind, train_cfg, loss_cfg):
 
 
 def _port_model(kind, params, buffers, dropout=None):
-    if kind == "schema_net":
+    if kind.startswith("schema_net"):
         model = torch_build_predictor(MODEL_CFG, SCHEMA_CFG, K, M, D, ENCODE_LAYER)
     else:
         cfg = dict(MODEL_CFG, transformer=dict(MODEL_CFG["transformer"], dropout=dropout))
@@ -144,8 +146,8 @@ def _port_model(kind, params, buffers, dropout=None):
 
 
 def _configs(kind):
-    base = STAGE4 if kind == "schema_net" else STAGE0
-    frozen = SCHEMA_NET_FROZEN if kind == "schema_net" else ()
+    base = {"schema_net": STAGE4, "schema_net_bf16_moments": STAGE4_IMAGENET}.get(kind, STAGE0)
+    frozen = SCHEMA_NET_FROZEN if kind.startswith("schema_net") else ()
     return dict(base["training"], **LOOP), base["loss"], frozen
 
 
@@ -199,14 +201,21 @@ def _state_leaves(trainer):
         leaves.update({f"opt/{pid}/{k}": v for k, v in slot.items()})
     for name, hot in state["hot"].items():
         leaves.update({f"hot/{name}/m": hot["m"], f"hot/{name}/v": hot["v"]})
+    for gi, group in enumerate(state["optimizer"].get("lowmem", ())):
+        for pi, slot in enumerate(group):
+            leaves.update({f"lowmem/{gi}/{pi}/{k}": v for k, v in slot.items()})
     leaves.update({f"rng/{k}": v for k, v in state["rng"].items()})
     return leaves
 
 
-@pytest.mark.parametrize("kind", ["schema_net", "backbone"])
+@pytest.mark.parametrize("kind", ["schema_net", "backbone", "schema_net_bf16_moments"])
 def test_resume_is_bitwise(kind, tmp_path):
+    """A run stopped after epoch 1 and resumed ("auto") ends with the bits of
+    the uninterrupted one: parameters, every moment in its dtype (the
+    ImageNet training block's bf16 moments of the atlas, fused and plain
+    alike), generators and the final validation."""
     _, params, buffers = _jax_trainer(kind, *_configs(kind)[:2])
-    dropout = None if kind == "schema_net" else 0.1
+    dropout = None if kind.startswith("schema_net") else 0.1
     full = _port_trainer(kind, params, buffers, dropout, ckpt_dir=str(tmp_path / "full"))
     final = full()
 
@@ -230,7 +239,16 @@ def test_resume_is_bitwise(kind, tmp_path):
     want, got = _state_leaves(full), _state_leaves(resumed)
     assert sorted(got) == sorted(want)
     for name, value in want.items():
-        assert torch.equal(got[name], value) if torch.is_tensor(value) else got[name] == value, name
+        if torch.is_tensor(value):
+            assert got[name].dtype == value.dtype and torch.equal(got[name], value), name
+        else:
+            assert got[name] == value, name
+    if kind == "schema_net_bf16_moments":
+        saved = resumed.ckpt.restore("iter-3")
+        assert all(t.dtype == torch.bfloat16 for hot in saved["hot"].values() for t in hot.values())
+        assert len(saved["optimizer"]["lowmem"][0]) == 2  # the two attribute weights
+        assert all(t.dtype == torch.bfloat16 for slot in saved["optimizer"]["lowmem"][0]
+                   for t in slot.values())
 
 
 @pytest.fixture(scope="module")

@@ -27,14 +27,19 @@ SEED = 2**31 - 2
 BS, N, DIM, F = 2, 17, 16, 64
 
 
-def _inputs(seed=0):
+# (bs, n, dim, f) beside the narrow default: DeiT-Small's and DeiT-Base's
+# widths (the CUDA wide route), a few rows
+WIDE = {"d384": (1, 9, 384, 1536), "d768": (1, 5, 768, 3072)}
+
+
+def _inputs(seed=0, bs=BS, n=N, dim=DIM, f=F):
     rng = np.random.default_rng(seed)
     return dict(
-        x=rng.normal(size=(BS, N, DIM)).astype(np.float32),
-        w1=(rng.normal(size=(DIM, F)) * 0.3).astype(np.float32),  # JAX layout [in, out]
-        b1=(rng.normal(size=(F,)) * 0.1).astype(np.float32),
-        w2=(rng.normal(size=(F, DIM)) * 0.2).astype(np.float32),
-        b2=(rng.normal(size=(DIM,)) * 0.1).astype(np.float32),
+        x=rng.normal(size=(bs, n, dim)).astype(np.float32),
+        w1=(rng.normal(size=(dim, f)) * (dim**-0.5 * 1.2)).astype(np.float32),  # JAX [in, out]
+        b1=(rng.normal(size=(f,)) * 0.1).astype(np.float32),
+        w2=(rng.normal(size=(f, dim)) * (f**-0.5 * 1.6)).astype(np.float32),
+        b2=(rng.normal(size=(dim,)) * 0.1).astype(np.float32),
     )
 
 
@@ -70,10 +75,16 @@ def _torch(inp, dtype, p):
     return {k: v.float().numpy() for k, v in got.items()}
 
 
-@pytest.mark.parametrize("p", [0.0, 0.1])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_mlp_matches_jax(dtype, p):
-    inp = _inputs()
+@pytest.mark.parametrize("dtype,p,shape", [
+    pytest.param(dtype, p, shape, id=f"dtype{i}-{p}" + (f"-{shape}" if shape else ""))
+    for shape in (None, *WIDE) for i, dtype in enumerate((torch.float32, torch.bfloat16))
+    for p in (0.0, 0.1)
+])
+def test_fused_mlp_matches_jax(dtype, p, shape):
+    """The narrow default (34 rows of 16 -> 64), and DeiT-Small's and
+    DeiT-Base's widths on a few rows: the mask the same bits as JAX's (a
+    wrong mask is an O(1) error at p = 0.1)."""
+    inp = _inputs() if shape is None else _inputs(0, *WIDE[shape])
     want = _jax(inp, jnp.float32 if dtype == torch.float32 else jnp.bfloat16, p)
     got = _torch(inp, dtype, p)
     for name, w in want.items():
@@ -126,6 +137,10 @@ def test_bwd_reference_is_the_gradient_of_the_forward(p):
     (torch.bfloat16, 192, 40, "tensor_core"),  # f past the forward's hidden chunk of 32
     (torch.bfloat16, 64, 16, "tensor_core"),  # f under one chunk
     (torch.float32, 256, 768, "fma"),
+    (torch.bfloat16, 384, 1536, "tensor_core"),  # DeiT-Small, the wide route
+    (torch.bfloat16, 768, 3072, "tensor_core"),  # DeiT-Base, the wide route
+    (torch.float32, 384, 1536, "fma"),
+    (torch.float32, 768, 3072, "fma"),
 ])
 def test_mlp_route(dtype, dim, f, route):
     """The CUDA kernels a fused_mlp (forward) or fused_mlp_bwd launch takes,
@@ -137,10 +152,10 @@ def test_mlp_route(dtype, dim, f, route):
 @pytest.mark.parametrize("dtype,dim,f,what", [
     (torch.bfloat16, 192, 100, "multiple of 8"),
     (torch.bfloat16, 192, 0, "multiple of 8"),
-    (torch.bfloat16, 384, 1536, "width"),  # DeiT-Small waits for the FFN kernels' width 384
+    (torch.bfloat16, 320, 1280, "width"),  # between the widths the kernels take
     (torch.float32, 48, 96, "width"),
     (torch.bfloat16, 192, 12, "multiple of 8"),  # the forward copies 16-byte chunks too
-    (torch.bfloat16, 768, 3072, "width"),  # ViT-B waits for A7
+    (torch.bfloat16, 1024, 4096, "width"),  # past DeiT-Base's 768: no config names it
 ])
 def test_mlp_route_rejects(dtype, dim, f, what):
     """No quiet fallback: a bf16 shape the tensor-core kernels do not take
