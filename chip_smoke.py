@@ -20,8 +20,10 @@ Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
    and its head-mean variant, GraphConv, the FFN forward and backward,
    attn_block's bf16 products, its split-TF32 products, attention and LN
    statistics, ffn_block's bf16 and split-TF32 kernels, VQ's two routes, the
-   LayerNorm backward's 12 and its parameter sum, embed_grad's 6) from the
-   ptxas log, and fails if one is missing or spills;
+   LayerNorm backward's 12 and its parameter sum, embed_grad's 6, the wide
+   FFN route's Hopper kernels: TMA-fed wgmma GEMMs, the dual product, the
+   weight gradients) from the ptxas log, and fails if one is missing or
+   spills;
 3. each serving kernel against its plain PyTorch version at the serving
    shapes, in bf16 and fp32: max |kernel - plain| / max |plain| <= 2e-2
    (bf16), 1e-4 (fp32); ``sym_conv`` also at rows of E that are 4-byte
@@ -257,7 +259,10 @@ codebook; class ingredients drawn distinct a class from the 8000 codes):
     [12,608, 384 | 768]; ``adamw_project_rows`` with bf16 moments on the
     [1000, 500, 500] edge and [1000, 500] vertex tensors against the plain
     low-memory update plus the projection (p within 1e-4, m and v within one
-    bf16 ulp); their times beside the plain versions' and their bounds;
+    bf16 ulp); their times beside the plain versions' and their bounds; the
+    profiled kernel names of ``fused_mlp`` and ``fused_mlp_bwd`` at 384 in
+    bf16, none of them a cuBLAS, CUTLASS or cuDNN kernel and some of them
+    the library's own;
 25. ImageNet serving, bf16 (the stage-4 trainer's predictor through
     ``ServePredictor``): finite [100, 1000] logits from two microbatches
     (the second padded), ``predict(x[:5]) == predict(x)[:5]`` bit for bit,
@@ -290,11 +295,11 @@ codebook; class ingredients drawn distinct a class from the 8000 codes):
     against the plain versions with phase 12's rules, then 5 bf16 steps:
     finite losses, 12 launches each of the four stage-0 kernels a step,
     every FFN launch on the wide route, 25 LayerNorm forward and backward;
-    step ms;
+    step ms; the profiler's device ms a step and idle share over 2 steps;
 30. DeiT-Base: one bf16 serving microbatch of 64 (K cut to 100) with its 10
     ``ffn_block`` launches on the two-product route at 768, finite logits;
     2 bf16 stage-0 steps with ``fused_mlp`` at 768 on the wide route,
-    finite losses. Depth not cut.
+    finite losses, step ms, device ms a step and idle share. Depth not cut.
 
 Each of 24-30 prints its seconds (``phase_seconds``; ``imagenet_seconds``
 sums them).
@@ -611,6 +616,33 @@ def device_time_by_name(prof) -> dict:
     return out
 
 
+# marks of library GEMM kernels in profiled names: cuBLAS (and cuBLASLt's
+# nvjet), CUTLASS, cuDNN
+LIBRARY_KERNEL_MARKS = ("cublas", "cutlass", "xmma", "nvjet", "cudnn", "gemv", "sm90_", "sm80_")
+
+
+def kernel_names(fn, iters: int = 5) -> list:
+    """The distinct device kernel names of ``iters`` calls of fn, in launch
+    order, from the profiler (a session without device events is taken
+    again; a session of one call has come back without the library's
+    kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        names = [evt.name for evt in prof.events() if evt.device_type == DeviceType.CUDA
+                 and not getattr(evt, "is_user_annotation", False)]
+        if names:
+            return list(dict.fromkeys(names))
+    return []
+
+
 def ptxas_report(log: str, source: str) -> dict:
     """{kernel: (registers, spill store bytes, spill load bytes)} of one
     source's section of the build's ``nvcc -Xptxas -v`` log."""
@@ -918,6 +950,18 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
                 require((mk.fused_mlp.wide_launches, mk.fused_mlp_bwd.wide_launches) ==
                         (before[0] + 3, before[1] + 3),
                         f"fused_mlp {suffix}: not on the wide route")
+                if dt == torch.bfloat16 and p and d_ == 384:
+                    # the wide route launches only the repo's kernels: none of
+                    # the profiled names is a cuBLAS or CUTLASS library kernel
+                    with torch.no_grad():
+                        names = {"fused_mlp": kernel_names(lambda: mk.fused_mlp(*fwd)),
+                                 "fused_mlp_bwd": kernel_names(lambda: mk.fused_mlp_bwd(*bwd))}
+                    library = [n for v in names.values() for n in v
+                               if any(mark in n.lower() for mark in LIBRARY_KERNEL_MARKS)]
+                    ours = {k: [n for n in v if "sn::" in n] for k, v in names.items()}
+                    phase("kernel_names", dim=d_, dtype="bfloat16", names=names, library=library)
+                    require(not library and all(ours.values()),
+                            f"the wide route ran library kernels, or none of its own: {names}")
                 if dt == torch.bfloat16 and p:
                     mlp = 2 * rows_ * d_ * f_
                     wbytes = nbytes(*w_dt)
@@ -1372,11 +1416,33 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
             ms.append((time.perf_counter() - t0) * 1e3)
         return out_losses, got, want, ms
 
+    def profiled_steps(tr0, steps=2):
+        """The profiler's device ms a step (device activity only), the idle
+        share of the steps' host wall time, and the top kernels a step."""
+        for attempt in range(1, 6):  # a session without device events is taken again
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for b in s0_batches[:steps]:
+                    tr0.train_iter(b)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            by_kernel = device_time_by_name(prof)
+            busy_us = sum(by_kernel.values())
+            if busy_us:
+                break
+            phase("profile_empty", attempt=attempt, iters=steps)
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+        return dict(device_ms_a_step=busy_us / steps / 1e3,
+                    wall_ms_a_step=wall_us / steps / 1e3,
+                    idle_share=(1 - busy_us / wall_us) if busy_us else None,
+                    top_device_ms_a_step={k[:80]: v / steps / 1e3 for k, v in top})
+
     tr0 = stage0(384, 6, "bfloat16")
     losses0, got, want, ms = counted_steps(tr0, BF16_STEPS, 12)
     phase("imagenet_stage0_bf16", model="deit_small", steps=BF16_STEPS, batch=BATCH,
           losses=losses0, launches=got, expected=want, step_ms=ms,
-          images_per_s=BATCH / float(np.median(ms)) * 1e3, **card_note)
+          images_per_s=BATCH / float(np.median(ms)) * 1e3, **profiled_steps(tr0), **card_note)
     require(all(np.isfinite(losses0)), f"DeiT-Small stage-0 bf16 losses: {losses0}")
     require(got == want, f"DeiT-Small stage-0 launches {got} != {want}")
     launches_path.update({"fused_mlp_d384": got["fused_mlp"], "fused_mlp_bwd_d384": got[
@@ -1418,7 +1484,7 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
     losses_b, got, want, ms = counted_steps(tr0, 2, 12)
     phase("deit_base_stage0_bf16", steps=2, batch=BATCH, losses=losses_b,
           fused_mlp_wide=got["fused_mlp_wide"], fused_mlp_bwd_wide=got["fused_mlp_bwd_wide"],
-          step_ms=ms, **card_note)
+          step_ms=ms, **profiled_steps(tr0), **card_note)
     require(all(np.isfinite(losses_b)), f"DeiT-Base stage-0 losses: {losses_b}")
     require(got == want, f"DeiT-Base stage-0 launches {got} != {want}")
     launches_path.update({"fused_mlp_d768": got["fused_mlp"],
@@ -1817,16 +1883,23 @@ def main() -> None:
     # embed_grad's 6 (the chunks' 2 dtypes x 2 piece widths, the combine, the
     # offsets)
     build_log = _build.library_path().with_suffix(".log").read_text()
-    # Phase 24's widths add: mlp.cu's wide route, 5 gemm_tc_kernel (counted
-    # with the tc_kernels: 14), 5 gemm_fma_kernel and col_sum_kernel;
-    # encoder_block.cu's gelu epilogues of linear_tc and linear_tf32 (3 each)
-    # and its gemm_tc_kernel; layernorm.cu's backward at 1024 (18 in all:
-    # 16-byte pieces 4 and 8 a lane, scalar 32, in both dtypes)
+    # Phase 24's widths add: mlp.cu's wide route, in bf16 the Hopper
+    # kernels (TMA-fed wgmma): 7 gemm_wg_kernel (fc1 at 192 x 128; fc2 at
+    # 128 x 96, 128 x 192 and 192 x 192; dx at 128 x 128, 128 x 192 and
+    # 192 x 192) and mlp_wgrad_wg_kernel (8 "_wg_kernel"), gemm_dual_kernel
+    # (h and dA); in fp32 5 gemm_fma_kernel and col_sum_kernel;
+    # encoder_block.cu's gelu epilogues of linear_tc and linear_tf32 (3
+    # each) and its 3 gemm_wg_kernel (fc2 + residual);
+    # layernorm.cu's backward at 1024 (18 in all: 16-byte pieces 4 and 8 a
+    # lane, scalar 32, in both dtypes). mlp.cu's 9 "tc_kernel" are the
+    # one-launch route's (4 widths of the forward, 4 of dH and dx, the
+    # weight gradients).
     for source, tag, count in (("attention.cu", "mhsa_tc", 16), ("graphconv.cu", "tc_kernel", 8),
-                               ("mlp.cu", "tc_kernel", 14), ("mlp.cu", "gemm_fma", 5),
+                               ("mlp.cu", "tc_kernel", 9), ("mlp.cu", "_wg_kernel", 8),
+                               ("mlp.cu", "gemm_dual", 1), ("mlp.cu", "gemm_fma", 5),
                                ("mlp.cu", "col_sum", 1), ("encoder_block.cu", "linear_tc", 3),
                                ("encoder_block.cu", "linear_tf32", 3),
-                               ("encoder_block.cu", "gemm_tc", 1),
+                               ("encoder_block.cu", "gemm_wg", 3),
                                ("encoder_block.cu", "attn_tf32", 3),
                                ("encoder_block.cu", "ln_stats", 1),
                                ("encoder_block.cu", "ffn_tc_kernel", 5),

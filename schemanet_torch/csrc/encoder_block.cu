@@ -943,22 +943,29 @@ cudaError_t ffn_tf32_launch(const void* x, const void* g, const void* be, const 
 // one-launch kernels round it to T):
 //   bf16: linear_tc_kernel<true, true> (LN2 prologue, K = dim staged whole,
 //         gelu epilogue: hidden = round(gelu(round(round(acc) + b1)))), then
-//         gemm.cuh's gemm_tc_kernel over k = f with EpiResidual below:
+//         gemm.cuh's gemm_tc (TMA-fed wgmma) over k = f with EpiResidual below:
 //         out = x + round(round(acc) + b2);
 //   fp32: ln_stats_kernel, linear_tf32_kernel<true, true> (hidden =
 //         gelu(acc + b1)) and linear_tf32_kernel<false> (out = x + (acc +
 //         b2)), split TF32 as attn_block's fp32 route.
 // ---------------------------------------------------------------------------
-struct EpiResidual {  // out = x + round(round(acc) + b2), bf16
+struct EpiResidual {  // out = x + round(round(acc) + b2), bf16 (gemm.cuh's cols / put)
+  using Col = float2;
+  static constexpr bool kHeavy = false;
   const bf16* b2;
   const bf16* x;
   bf16* out;
   int n;
-  __device__ __forceinline__ void operator()(long row, int col, float c0, float c1, int) const {
+  __device__ __forceinline__ Col cols(int col, bool in) const {
+    return in ? unpack_bf16(*reinterpret_cast<const uint32_t*>(b2 + col)) : make_float2(0.f, 0.f);
+  }
+  __device__ __forceinline__ void put(long row, int col, float c0, float c1, Col b,
+                                      bool in) const {
+    if (!in) return;
     const long i = row * n + col;
     const float2 xv = unpack_bf16(*reinterpret_cast<const uint32_t*>(x + i));
-    const float y0 = Num<bf16>::round(Num<bf16>::round(c0) + __bfloat162float(b2[col]));
-    const float y1 = Num<bf16>::round(Num<bf16>::round(c1) + __bfloat162float(b2[col + 1]));
+    const float y0 = Num<bf16>::round(Num<bf16>::round(c0) + b.x);
+    const float y1 = Num<bf16>::round(Num<bf16>::round(c1) + b.y);
     *reinterpret_cast<uint32_t*>(out + i) = pack_bf16(xv.x + y0, xv.y + y1);
   }
 };

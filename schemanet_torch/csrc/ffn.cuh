@@ -68,6 +68,23 @@ __device__ __forceinline__ FfnHidden ffn_hidden(float acc, const T* b1, long row
   return v;
 }
 
+// ffn_hidden for the wide route's epilogues (mlp.cu), where a thread's
+// elements run as one straight sequence the compiler interleaves: b1's value
+// passed in (read before any store), the hash computed at p = 0 too and the
+// mask applied by selects, no branch. The same numbers as ffn_hidden.
+template <typename T>
+__device__ __forceinline__ FfnHidden ffn_hidden_sel(float acc, float bias, long row, int col,
+                                                    int f, float p, float inv_t, uint32_t h0) {
+  FfnHidden v;
+  v.h = Num<T>::round(Num<T>::round(acc) + bias);
+  const float a = Num<T>::round(gelu_as(v.h));
+  const bool drop = p > 0.f;
+  const bool keep = drop_keep(h0, (uint32_t)row, f, col, p);
+  v.keep = keep | !drop;
+  v.a_used = drop ? (keep ? Num<T>::round(a * inv_t) : 0.f) : a;
+  return v;
+}
+
 constexpr int kFfnChunk = 32;  // hidden columns a step
 constexpr int kFfnChunkPitch = kFfnChunk + 8;
 

@@ -369,7 +369,8 @@ __global__ void __launch_bounds__(kThreads)
 //     dx += dH W1 (W1's chunk again, as [k][n]) for the warp's 16 rows and
 //     dim/2 columns, in fp32 registers over all chunks, while the chunk's
 //     dH and a_used go to a [rows, f] scratch each with 16-byte stores.
-// (b) mlp_wgrad_tc_kernel: dW1^T = x^T dH and dW2 = g^T a_used, both
+// (b) mlp_wgrad_tc_kernel (widths 64-256; the wide route's is
+//     mlp_wgrad_wg_kernel, below): dW1^T = x^T dH and dW2 = g^T a_used, both
 //     [dim][f] with K = rows: one block per (64 of dim, 128 of f, product,
 //     split of the rows), 32 rows a step double-buffered, both operands
 //     transposed out of row-major [rows][.] tiles by ldmatrix.trans. db1 and
@@ -692,24 +693,31 @@ cudaError_t mlp_fwd_launch(const void* x, const void* w1, const void* b1, const 
 // one-launch kernels above hold a row tile of x (and g) whole in shared
 // memory and a row group's output in registers, which at 768 pass the
 // 227 KB of shared memory and the 255 registers a thread. Here every
-// product is one launch of gemm.cuh (bf16 on the tensor cores, fp32 by FMA)
-// over a fixed tile of its output, and the hidden state goes through device
-// memory between them, stored in T where the one-launch kernels round it to
-// T (so nothing is lost by storing it):
+// product is one launch of gemm.cuh over a fixed tile of its output, and the
+// hidden state goes through device memory between them, stored in T where
+// the one-launch kernels round it to T (so nothing is lost by storing it):
 //   forward:  hidden = a_used = drop(gelu(x W1^T + b1))       [rows, f] T
 //             out = round(hidden W2^T) + b2
-//   backward: dA = g W2                                        [rows, f] fp32
+//   backward, bf16 (Hopper: TMA-fed wgmma, gemm.cuh):
+//             (dH, a_used) from h = x W1^T and dA = g W2, both products in
+//             one launch (gemm_tc_dual, two accumulators a thread; dA never
+//             leaves the registers)                             [2][rows, f] T
+//             dx = dH W1 (gemm_tc, W1 read MN-major)
+//             dW1 = dH^T x and dW2 = g^T a_used (mlp_wgrad_wg_kernel, every
+//             operand read MN-major from its row-major [rows][.] matrix),
+//             db1 and db2 the column sums of the same tiles, over the row
+//             splits the wrapper's plan gives (ops/kernels/mlp.py
+//             wgrad_splits: fixed by the shape), then sum_splits_kernel in
+//             split order
+//   backward, fp32 (FMA, gemm_fma):
+//             dA = g W2                                        [rows, f] fp32
 //             (dH, a_used) from x W1^T + b1 and dA             [2][rows, f] T
-//             dx = dH W1
-//             dW1^T = x^T dH and dW2 = g^T a_used over row splits, db1 and
-//             db2 their column sums (bf16: mlp_wgrad_tc_kernel; fp32:
-//             gemm_fma's split sums and col_sum_kernel), then
-//             sum_splits_kernel in split order, transposing dW1.
+//             dx = dH W1; dW1^T, dW2 over row splits and db1, db2 by
+//             col_sum_kernel, then sum_splits_kernel
 // The epilogues below are the one-launch kernels' roundings (ffn_hidden,
 // the same gelu' and mask). The price against a fused kernel: the hidden
 // state is written and read once more in device memory (at DeiT-Small's
-// stage 0, 12,608 x 1,536 bf16: 39 MB a forward), and the backward reads
-// dA in fp32.
+// stage 0, 12,608 x 1,536 bf16: 39 MB a forward).
 // ---------------------------------------------------------------------------
 // Num<T>::round on the host, for the epilogues' scalars: bf16 to nearest
 // even (v finite)
@@ -723,43 +731,94 @@ inline float host_round(float v) {
   return v;
 }
 
+// The wide route's epilogues. Each gives gemm.cuh's Hopper kernels
+// `cols(col, in)`, the values of a column pair read before any store (the
+// biases; Col), and `put(row, col, c0, c1, cv, in)`, which computes the pair
+// unconditionally and stores it where `in`; gemm_fma (fp32) calls
+// `operator()(row, col, c0, c1, split)`, which is the two together.
+template <typename T>
+__device__ __forceinline__ float2 load_pair(const T* p, int i) {
+  if constexpr (sizeof(T) == 2)
+    return unpack_bf16(*reinterpret_cast<const uint32_t*>(p + i));  // i even
+  else
+    return make_float2(p[i], p[i + 1]);
+}
+
+// v0, v1 to p[i], p[i + 1], rounded to T (bf16: one 4-byte store, i even)
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, long i, float v0, float v1) {
+  if constexpr (sizeof(T) == 2) {
+    *reinterpret_cast<uint32_t*>(p + i) = pack_bf16(v0, v1);
+  } else {
+    p[i] = v0;
+    p[i + 1] = v1;
+  }
+}
+
 template <typename T>
 struct EpiHidden {  // hidden[row][col] = a_used of x W1^T + b1
+  using Col = float2;
+  static constexpr bool kHeavy = true;  // gelu and the hash an element
   const T* b1;
   T* hidden;
   int f;
   float p, inv_t;
   uint32_t h0;
+  __device__ __forceinline__ Col cols(int col, bool in) const {
+    return in ? load_pair(b1, col) : make_float2(0.f, 0.f);
+  }
+  __device__ __forceinline__ void put(long row, int col, float c0, float c1, Col b,
+                                      bool in) const {
+    const float a0 = ffn_hidden_sel<T>(c0, b.x, row, col, f, p, inv_t, h0).a_used;
+    const float a1 = ffn_hidden_sel<T>(c1, b.y, row, col + 1, f, p, inv_t, h0).a_used;
+    if (in) store_pair(hidden, row * f + col, a0, a1);
+  }
   __device__ __forceinline__ void operator()(long row, int col, float c0, float c1, int) const {
-    Num<T>::store(hidden, row * f + col, ffn_hidden<T>(c0, b1, row, col, f, p, inv_t, h0).a_used);
-    Num<T>::store(hidden, row * f + col + 1,
-                  ffn_hidden<T>(c1, b1, row, col + 1, f, p, inv_t, h0).a_used);
+    put(row, col, c0, c1, cols(col, true), true);
   }
 };
 
 template <typename T>
 struct EpiBias {  // out[row][col] = round(acc) + b2
+  using Col = float2;
+  static constexpr bool kHeavy = false;
   const T* b2;
   T* out;
   int n;
+  __device__ __forceinline__ Col cols(int col, bool in) const {
+    return in ? load_pair(b2, col) : make_float2(0.f, 0.f);
+  }
+  __device__ __forceinline__ void put(long row, int col, float c0, float c1, Col b,
+                                      bool in) const {
+    if (in) store_pair(out, row * n + col, Num<T>::round(c0) + b.x, Num<T>::round(c1) + b.y);
+  }
   __device__ __forceinline__ void operator()(long row, int col, float c0, float c1, int) const {
-    Num<T>::store(out, row * n + col, Num<T>::round(c0) + Num<T>::load(b2, col));
-    Num<T>::store(out, row * n + col + 1, Num<T>::round(c1) + Num<T>::load(b2, col + 1));
+    put(row, col, c0, c1, cols(col, true), true);
   }
 };
 
 template <typename T>
 struct EpiStore {  // out[row][col] = acc, rounded to T
+  struct Col {};
+  static constexpr bool kHeavy = false;
   T* out;
   int n;
+  __device__ __forceinline__ Col cols(int, bool) const { return {}; }
+  __device__ __forceinline__ void put(long row, int col, float c0, float c1, Col,
+                                      bool in) const {
+    if (in) store_pair(out, row * n + col, c0, c1);
+  }
   __device__ __forceinline__ void operator()(long row, int col, float c0, float c1, int) const {
-    Num<T>::store(out, row * n + col, c0);
-    Num<T>::store(out, row * n + col + 1, c1);
+    put(row, col, c0, c1, {}, true);
   }
 };
 
+// dH and a_used from the fc1 sum x W1^T and dA: dA handed over from its own
+// accumulator (gemm_tc_dual's put) or read from the fp32 scratch `da`
+// (gemm_fma's route)
 template <typename T>
-struct EpiHiddenBwd {  // dH and a_used from x W1^T + b1 and dA
+struct EpiHiddenBwd {
+  using Col = float2;
   const T* b1;
   const float* da;
   T* dh;
@@ -767,16 +826,25 @@ struct EpiHiddenBwd {  // dH and a_used from x W1^T + b1 and dA
   int f;
   float p, inv, inv_t;
   uint32_t h0;
-  __device__ __forceinline__ void one(long row, int col, float acc) const {
-    const FfnHidden hv = ffn_hidden<T>(acc, b1, row, col, f, p, inv_t, h0);
-    float d = da[row * f + col];
-    if (p > 0.f) d = hv.keep ? d * inv : 0.f;
-    Num<T>::store(dh, row * f + col, Num<T>::round(d * gelu_as_grad(hv.h)));
-    Num<T>::store(a_used, row * f + col, hv.a_used);
+  __device__ __forceinline__ Col cols(int col, bool in) const {
+    return in ? load_pair(b1, col) : make_float2(0.f, 0.f);
+  }
+  // (dH, a_used) of one element
+  __device__ __forceinline__ float2 one(long row, int col, float acc, float d, float bias) const {
+    const FfnHidden hv = ffn_hidden_sel<T>(acc, bias, row, col, f, p, inv_t, h0);
+    d = p > 0.f ? (hv.keep ? d * inv : 0.f) : d;
+    return make_float2(Num<T>::round(d * gelu_as_grad(hv.h)), hv.a_used);
+  }
+  __device__ __forceinline__ void put(long row, int col, float c0, float c1, float d0, float d1,
+                                      Col b, bool in) const {
+    const float2 v0 = one(row, col, c0, d0, b.x), v1 = one(row, col + 1, c1, d1, b.y);
+    if (in) {
+      store_pair(dh, row * f + col, v0.x, v1.x);
+      store_pair(a_used, row * f + col, v0.y, v1.y);
+    }
   }
   __device__ __forceinline__ void operator()(long row, int col, float c0, float c1, int) const {
-    one(row, col, c0);
-    one(row, col + 1, c1);
+    put(row, col, c0, c1, da[row * f + col], da[row * f + col + 1], cols(col, true), true);
   }
 };
 
@@ -831,14 +899,164 @@ cudaError_t mlp_fwd_wide(const void* x, const void* w1, const void* b1, const vo
   }
 }
 
-// hidden: [2][rows, f] of T (dH, then a_used); da: fp32 [rows, f]; part as
-// the tensor-core route's (dW1^T [dim][f], dW2 [dim][f], db1, db2 a split)
+// ---------------------------------------------------------------------------
+// bf16 wide route's weight gradients, mlp_wgrad_wg_kernel: dW1 = dH^T x
+// [f][dim] and dW2 = g^T a_used [dim][f], K = rows. A block a unit (128 x
+// 128 of one product over one split of the rows), the producer / consumer
+// loop of gemm.cuh with every operand read MN-major from its row-major
+// [rows][.] matrix: a stage is two 64 x 64 boxes of A (dH or g) and two of
+// B (x or a_used), 32 KB, six stages; wgmma m64n128k16 with both transpose
+// bits. The units of the first column of tiles also sum A's columns (db1 of
+// dH, db2 of g): a consumer thread a column of the stage's swizzled tile,
+// each warpgroup half of its 64 rows, in row order, while the tensor cores
+// multiply; the halves are added in a fixed order at the end. The units run
+// with the tile along dim fastest, so the blocks in flight share their
+// columns of dH or a_used, and a 77 MB dH at 768 is read from memory about
+// once. Rows past the end are zeros (TMA), and a split ends on a multiple
+// of 64 rows, so no unit reads its neighbour's rows. Both products land in
+// their parameters' layouts, so the sum of the splits copies in order.
+// ---------------------------------------------------------------------------
+constexpr int kHwTile = 128;                  // a unit's rows and columns
+constexpr int kHwStage = 4 * kHgBox;          // 32 KB
+constexpr int kHwStages = kHgRingBytes / kHwStage;
+constexpr int kHwBytes = kHwStages * kHwStage + 1024;
+
+// part[split]: dW1 [f][dim], dW2 [dim][f], db1 [f], db2 [dim]; dim a multiple of 128
+__global__ void __launch_bounds__(kHgThreads, 1)
+    mlp_wgrad_wg_kernel(const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap tg,
+                        const __grid_constant__ CUtensorMap tdh,
+                        const __grid_constant__ CUtensorMap ta, float* __restrict__ part,
+                        int rows, int dim, int f, int steps_per_split) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kHwStages], empty[kHwStages];
+  __shared__ float half_sum[kHwTile];
+  uint8_t* smem = ring_base(smem_raw);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int d_tiles = dim / kHwTile, f_tiles = (f + kHwTile - 1) / kHwTile;
+  int u = blockIdx.x;
+  const int d0 = (u % d_tiles) * kHwTile;
+  u /= d_tiles;
+  const int f0 = (u % f_tiles) * kHwTile;
+  u /= f_tiles;
+  const int which = u & 1, split = u >> 1;  // which: 0 dH^T x, 1 g^T a_used
+  const int M = which ? dim : f, N = which ? f : dim;
+  const int m0 = which ? d0 : f0, n0 = which ? f0 : d0;
+  const int steps = (rows + kHgBK - 1) / kHgBK;
+  const int s_begin = split * steps_per_split;
+  const int s_end = min(steps, s_begin + steps_per_split);
+  const bool bias = n0 == 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kHwStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (wg == 0) {
+    regs_dec<kHgProducerRegs>();
+    if (tid != 0) return;
+    const CUtensorMap* am = which ? &tg : &tdh;
+    const CUtensorMap* bm = which ? &ta : &tx;
+    Ring<kHwStages> ring;
+    for (int s = s_begin; s < s_end; ++s, ring.next()) {
+      mbar_wait(&empty[ring.stage], ring.phase ^ 1);
+      uint8_t* st = smem + ring.stage * kHwStage;
+      uint64_t* bar = &full[ring.stage];
+      mbar_arrive_expect(bar, kHwStage);
+      tma_load(st, am, bar, m0, s * kHgBK);
+      tma_load(st + kHgBox, am, bar, m0 + 64, s * kHgBK);
+      tma_load(st + 2 * kHgBox, bm, bar, n0, s * kHgBK);
+      tma_load(st + 3 * kHgBox, bm, bar, n0 + 64, s * kHgBK);
+    }
+    return;
+  }
+  regs_inc<kHgConsumerRegs>();
+  const int cw = wg - 1, warp = tid / 32, lane = tid % 32;
+  float acc[kHwTile / 2];
+#pragma unroll
+  for (int i = 0; i < kHwTile / 2; ++i) acc[i] = 0.f;
+  wg_fence_regs(acc);
+  // this thread's bias column: column tid of A's two swizzled 64-wide boxes
+  const int chunk = (tid % 64) / 8, col_off = (tid / 64) * kHgBox + (tid % 8) * 2;
+  float bsum = 0.f;
+  int held = -1;
+  Ring<kHwStages> ring;
+  for (int s = s_begin; s < s_end; ++s, ring.next()) {
+    mbar_wait(&full[ring.stage], ring.phase);
+    const uint8_t* st = smem + ring.stage * kHwStage;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHgBK / 16; ++kk)
+      wgmma_bf16<kHwTile, 1, 1>(acc, wg_desc(st + cw * kHgBox + kk * 2048, 64 * 128, 1024),
+                                wg_desc(st + 2 * kHgBox + kk * 2048, 64 * 128, 1024));
+    wg_commit();
+    if (bias) {
+      const uint8_t* col = st + col_off;
+#pragma unroll 8
+      for (int r = cw * 32; r < cw * 32 + 32; ++r)
+        bsum += __bfloat162float(
+            *reinterpret_cast<const bf16*>(col + r * 128 + ((chunk ^ (r & 7)) << 4)));
+    }
+    wg_wait<1>();
+    if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);
+    held = ring.stage;
+  }
+  wg_wait<0>();
+  if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);
+  wg_fence_regs(acc);
+  const long fd = (long)f * dim;
+  float* base = part + (long)split * (2 * fd + f + dim);
+  float* c_out = base + which * fd;
+  const int row = m0 + cw * 64 + warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < kHwTile / 8; ++j) {
+    const int col = n0 + j * 8 + (lane % 4) * 2;
+    if (col < N) {
+      if (row < M)
+        *reinterpret_cast<float2*>(c_out + (long)row * N + col) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (row + 8 < M)
+        *reinterpret_cast<float2*>(c_out + (long)(row + 8) * N + col) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+  if (bias) {  // rows [0, 32) + rows [32, 64) of every stage, in that order
+    if (cw == 1) half_sum[tid] = bsum;
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the consumer warpgroups alone
+    if (cw == 0 && m0 + tid < M) base[2 * fd + (which ? f : 0) + m0 + tid] = bsum + half_sum[tid];
+  }
+}
+
+// x, g [rows][dim] and dh, a [rows][f] bf16, 16-byte aligned; f a multiple
+// of 8, dim of 128; the rows split in `splits` runs of whole 64-row steps
+cudaError_t mlp_wgrad_wg(const bf16* x, const bf16* g, const bf16* dh, const bf16* a,
+                         float* part, int rows, int dim, int f, int splits, cudaStream_t s) {
+  if (dim % kHwTile || f % 8 || splits < 1) return cudaErrorInvalidValue;
+  CUtensorMap tx, tg, tdh, ta;
+  cudaError_t err = tma_map_bf16(&tx, x, rows, dim, 64);
+  if (err == cudaSuccess) err = tma_map_bf16(&tg, g, rows, dim, 64);
+  if (err == cudaSuccess) err = tma_map_bf16(&tdh, dh, rows, f, 64);
+  if (err == cudaSuccess) err = tma_map_bf16(&ta, a, rows, f, 64);
+  if (err == cudaSuccess) err = allow_smem(mlp_wgrad_wg_kernel, kHwBytes);
+  if (err != cudaSuccess) return err;
+  const int steps = (rows + kHgBK - 1) / kHgBK;
+  const int units = dim / kHwTile * ((f + kHwTile - 1) / kHwTile) * 2 * splits;
+  mlp_wgrad_wg_kernel<<<units, kHgThreads, kHwBytes, s>>>(tx, tg, tdh, ta, part, rows, dim, f,
+                                                         (steps + splits - 1) / splits);
+  return cudaGetLastError();
+}
+
+// hidden: [2][rows, f] of T (dH, then a_used); part: splits x (dW1
+// [f][dim] in bf16, dW1^T [dim][f] in fp32; dW2 [dim][f], db1, db2) fp32; da:
+// the fp32 route's [rows, f] scratch of dA (unused, may be null, in bf16)
 template <typename T>
 cudaError_t mlp_bwd_wide(const void* x, const void* w1, const void* b1, const void* w2,
                          const void* g, void* dx, void* part, void* grads, void* hidden, void* da,
                          int rows, int dim, int f, int splits, float p, float inv, int seed,
                          cudaStream_t s) {
-  if (hidden == nullptr || da == nullptr) return cudaErrorInvalidValue;
+  if (hidden == nullptr || (sizeof(T) == 4 && da == nullptr)) return cudaErrorInvalidValue;
   const T* xt = static_cast<const T*>(x);
   const T* w1t = static_cast<const T*>(w1);
   const T* w2t = static_cast<const T*>(w2);
@@ -847,24 +1065,19 @@ cudaError_t mlp_bwd_wide(const void* x, const void* w1, const void* b1, const vo
   T* a = dh + (long)rows * f;
   float* dat = static_cast<float*>(da);
   float* pt = static_cast<float*>(part);
-  const EpiStore<float> ed{dat, f};
   const EpiHiddenBwd<T> eh{static_cast<const T*>(b1), dat, dh, a, f, p, inv, host_round<T>(inv),
                            drop_stream(seed, 0)};
   const EpiStore<T> ex{static_cast<T*>(dx), dim};
   const long fd = (long)f * dim, stride = 2 * fd + f + dim;
   cudaError_t err;
   if constexpr (sizeof(T) == 2) {
-    err = gemm_tc<true>(gt, w2t, rows, f, dim, ed, s);
-    if (err != cudaSuccess) return err;
-    err = gemm_tc<false>(xt, w1t, rows, f, dim, eh, s);
+    err = gemm_tc_dual(xt, w1t, gt, w2t, rows, f, dim, eh, s);  // h = x W1^T, dA = g W2
     if (err != cudaSuccess) return err;
     err = gemm_tc<true>(dh, w1t, rows, dim, f, ex, s);
     if (err != cudaSuccess) return err;
-    const int steps = (rows + kWgK - 1) / kWgK;
-    dim3 grid((f + kWgN - 1) / kWgN, dim / kWgM, 2 * splits);
-    mlp_wgrad_tc_kernel<<<grid, kThreads, 0, s>>>(xt, gt, dh, a, pt, rows, dim, f,
-                                                  (steps + splits - 1) / splits);
+    err = mlp_wgrad_wg(xt, gt, dh, a, pt, rows, dim, f, splits, s);
   } else {
+    const EpiStore<float> ed{dat, f};
     err = gemm_fma<T, false, true>(gt, w2t, rows, f, dim, 1, dim, ed, s);
     if (err != cudaSuccess) return err;
     err = gemm_fma<T, false, false>(xt, w1t, rows, f, dim, 1, dim, eh, s);
@@ -882,17 +1095,19 @@ cudaError_t mlp_bwd_wide(const void* x, const void* w1, const void* b1, const vo
     if (err != cudaSuccess) return err;
     col_sum_kernel<T><<<dim3((dim + kThreads - 1) / kThreads, splits), kThreads, 0, s>>>(
         gt, pt, rows, dim, ks, stride, 2 * fd + f);
+    err = cudaGetLastError();
   }
-  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  // fp32's partials hold dW1^T, bf16's dW1
+  const int tr = sizeof(T) == 4 ? dim : 0;
   sum_splits_kernel<<<(int)((stride + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      pt, static_cast<float*>(grads), stride, splits, dim, f);
+      pt, static_cast<float*>(grads), stride, splits, tr, f);
   return cudaGetLastError();
 }
 
 // the widths the wide route takes: past the one-launch kernels' 256, whole
-// 64-row tiles of the weight-gradient kernel
-inline bool mlp_wide(int dim) { return dim > 256 && dim % kWgM == 0; }
+// 128-row tiles of the bf16 weight-gradient kernel
+inline bool mlp_wide(int dim) { return dim > 256 && dim % kHgBM == 0; }
 
 // part: fp32 scratch of splits * (2 f dim + f + dim); dw1 [f, dim], dw2 [dim, f],
 // db1 [f], db2 [dim] fp32, contiguous in that order (one buffer).
@@ -1025,9 +1240,9 @@ extern "C" {
 
 // out [rows, dim]; p = 0 turns dropout off; inv = fp32(1 / (1 - p)). fp32
 // takes the FMA kernel, bf16 the tensor-core one (f a multiple of 8; x, w1
-// and w2 16-byte aligned), at widths 64-256; past 256 (a multiple of 64) both
-// take the wide route, with hidden a scratch of rows f in the storage type
-// (unused, may be null, at the narrower widths).
+// and w2 16-byte aligned), at widths 64-256; past 256 (a multiple of 128)
+// both take the wide route, with hidden a scratch of rows f in the storage
+// type (unused, may be null, at the narrower widths).
 int sn_fused_mlp(int dtype, const void* x, const void* w1, const void* b1, const void* w2,
                  const void* b2, void* out, void* hidden, int rows, int dim, int f, float p,
                  float inv, int seed, void* stream) {
@@ -1050,9 +1265,10 @@ int sn_fused_mlp(int dtype, const void* x, const void* w1, const void* b1, const
 // splits * (2 f dim + f + dim). At widths 64-256 fp32 takes the FMA kernels
 // (hidden and da unused, may be null) and bf16 the tensor-core kernels (f a
 // multiple of 8; hidden a bf16 scratch of 2 rows f; the splits cut the rows
-// in steps of 32; da unused). Past 256 (a multiple of 64) both take the wide
-// route: hidden a scratch of 2 rows f in the storage type, da an fp32
-// scratch of rows f.
+// in steps of 32; da unused). Past 256 (a multiple of 128) both take the
+// wide route: hidden a scratch of 2 rows f in the storage type; fp32: da an
+// fp32 scratch of rows f, the splits cut the rows evenly; bf16: da unused
+// (may be null), the splits cut the rows in steps of 64.
 int sn_fused_mlp_bwd(int dtype, const void* x, const void* w1, const void* b1, const void* w2,
                      const void* g, void* dx, void* part, void* grads, void* hidden, void* da,
                      int rows, int dim, int f, int splits, float p, float inv, int seed,
@@ -1074,3 +1290,5 @@ int sn_fused_mlp_bwd(int dtype, const void* x, const void* w1, const void* b1, c
 }
 
 }  // extern "C"
+
+

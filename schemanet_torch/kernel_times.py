@@ -46,8 +46,8 @@ named, in bf16 unless said.
 * where the checkout takes them, the DeiT-Small, DeiT-Base and ImageNet
   widths: ``ffn_block`` at [64, 197, 768] f 3072 beside the library calls
   as above; the ``fused_mlp`` forward and backward at 12,608 rows of 384 ->
-  1536 and of 768 -> 3072 (p = 0.1) beside their products by
-  ``torch.matmul``; the LayerNorm forward and backward (relu) on the
+  1536 and of 768 -> 3072 (p = 0.1), each split by kernel, beside their
+  products by ``torch.matmul``; the LayerNorm forward and backward (relu) on the
   ImageNet class graphs ([500,000, 1024]) beside ``F.layer_norm`` and
   ``native_layer_norm_backward`` (no gate: notes);
   ``adamw_project_rows`` with bf16 moments on the ImageNet edge weights
@@ -57,18 +57,21 @@ named, in bf16 unless said.
 
 Each gets ``ms``, CUDA events around one window of 20 calls after warm-up,
 and ``device_ms``, the ``torch.profiler`` device time of a call (and, for
-``embed_grad``, the LayerNorm backward and the fp32 ``attn_block`` and its
-yardstick, ``by_kernel``, that time split by kernel name). fp32 products run
+``embed_grad``, the LayerNorm backward, the fp32 ``attn_block`` and its
+yardstick and the wide ``fused_mlp`` forward and backward, ``by_kernel``,
+that time split by kernel name). fp32 products run
 with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` False). Uses only
 the kernels' public wrappers, so the same file times an older checkout of
-the port: from that checkout's root, ``python -m schemanet_torch.kernel_times``.
-Prints the card's name and power limit, then one JSON line.
+the port: from that checkout's root, ``python -m schemanet_torch.kernel_times``
+(``--widths``: only the FFN rows at 384 and 768). Prints the card's name and
+power limit, then one JSON line.
 """
 
 from __future__ import annotations
 
 import json
 import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -376,7 +379,7 @@ def _imagenet_widths(dev: torch.device, rnd) -> dict:
         w1, b1, w2, b2 = (rnd(f, d, scale=d**-0.5), rnd(f, scale=0.1), rnd(d, f, scale=f**-0.5),
                           rnd(d, scale=0.1))
         dh, act = rnd(rows, f, scale=0.01), rnd(rows, f)
-        out[f"fused_mlp_d{d}"] = _both(lambda: mk.fused_mlp(x2, w1, b1, w2, b2, "gelu", 0.1, SEED))
+        out[f"fused_mlp_d{d}"] = _split(lambda: mk.fused_mlp(x2, w1, b1, w2, b2, "gelu", 0.1, SEED))
         out[f"fused_mlp_d{d}_matmul_products"] = _both(lambda: (x2 @ w1.t(), act @ w2.t()))
         out[f"fused_mlp_bwd_d{d}"] = _split(
             lambda: mk.fused_mlp_bwd(x2, w1, b1, w2, g2, "gelu", 0.1, SEED))
@@ -416,14 +419,29 @@ def _imagenet_widths(dev: torch.device, rnd) -> dict:
 
 
 def main() -> None:
+    """``python -m schemanet_torch.kernel_times [--widths]``: every row, or
+    with ``--widths`` only the FFN rows at DeiT-Small's and DeiT-Base's
+    widths (``ffn_block`` at 768, the wide ``fused_mlp`` forward and
+    backward), which a copy of this file dropped into an older checkout
+    times there too."""
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    print(json.dumps({"kernel_times": measure(torch.device("cuda")),
-                      "card": smi.splitlines()[0]}), flush=True)
+    dev = torch.device("cuda")
+    if "--widths" in sys.argv[1:]:
+        g = torch.Generator().manual_seed(0)
+
+        def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+            return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+        rows = {k: v for k, v in _imagenet_widths(dev, rnd).items()
+                if k.startswith(("ffn_block", "fused_mlp"))}
+    else:
+        rows = measure(dev)
+    print(json.dumps({"kernel_times": rows, "card": smi.splitlines()[0]}), flush=True)
 
 
 if __name__ == "__main__":

@@ -31,9 +31,11 @@ FMA kernels, bf16 the tensor-core ones (the forward keeps its hidden chunk in
 shared memory; the backward stores the hidden state ``dH`` and ``a_used``
 once in a ``[rows, f]`` bf16 scratch each). Past width 256 (DeiT-Small's 384,
 DeiT-Base's 768) both dtypes take the wide route of the same kernel family:
-each product one launch over a fixed output tile (tensor cores in bf16, FMA
-in fp32), the hidden state ``a_used`` (and in the backward ``dA`` in fp32,
-``dH``) in device memory between them. ``fused_mlp.launches`` and
+each product one launch over a fixed output tile (bf16: Hopper's TMA-fed
+``wgmma``, the backward's h and dA in one launch; fp32: FMA), the hidden
+state ``a_used`` (and in the backward ``dH``, and in fp32 ``dA``) in device
+memory between them. ``mlp_plan`` gives every launch's scratch, row splits
+and tiles, and the wrappers allocate from it. ``fused_mlp.launches`` and
 ``fused_mlp_bwd.launches`` count the launches, ``fused_mlp.tc_launches`` and
 ``fused_mlp_bwd.tc_launches`` those of the tensor-core route, and
 ``*.wide_launches`` those of the wide route.
@@ -55,11 +57,123 @@ _DIMS = (64, 128, 192, 256, 384, 768)
 _WIDE = 256  # widths above this take the wide route
 _SPLITS = 24  # row splits of the FMA weight-gradient kernel: ~2 blocks per SM at f = 768
 _ROW_TILE = 32  # csrc/mlp.cu kMlpBM
-# row splits of the tensor-core weight-gradient kernel: 12 x 36 tiles at the
-# stage-0 shape, ~3 blocks an SM; its rows go in steps of 32 (csrc/mlp.cu kWgK)
+# row splits of the narrow tensor-core weight-gradient kernel: 12 x 36 tiles
+# at the stage-0 shape, ~3 blocks an SM; its rows go in steps of 32 (csrc/mlp.cu kWgK)
 _TC_SPLITS, _TC_ROW_STEP = 12, 32
+# the wide bf16 route's Hopper kernels (csrc/gemm.cuh, csrc/mlp.cu): 128-row
+# tiles of the dual product and the weight gradients, 64 of k a stage, the
+# tiles gemm_tile chooses from (consumer warpgroups of 64 rows, columns),
+# fc1's tile (an epilogue-heavy product: 192 rows, 128 columns), the dual
+# product's and the weight gradients' N tiles, and the SMs the rules assume
+# (an H100 SXM's; the rules read no device, so a shape gives the same tiles
+# and splits, and the same bits, on any card)
+_HG_BM, _HG_BK = 128, 64
+_KMAJOR_TILES, _MNMAJOR_TILES = ((2, 96), (2, 192), (3, 192)), ((2, 128), (2, 192), (3, 192))
+_HEAVY_BM, _HEAVY_N, _DUAL_N, _WGRAD_N = 192, 128, 128, 128
+_SMS = 132
+# the split rule's model: a 64-row step of a 128 x 128 weight-gradient tile
+# at ~5 TFLOP/s an SM, and each split's fp32 partials written and read back
+# at ~3 TB/s
+_STEP_US = 2 * 128 * 128 * 64 / 5e12 * 1e6
+_PART_US_PER_BYTE = 1e6 / 3e12
+_MAX_SPLITS = 16
 FMA, TENSOR_CORE = "fma", "tensor_core"
 _INV_SQRT_2PI = 0.3989422804014327
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gemm_tile(rows: int, n: int, mn_major: bool) -> Tuple[int, int]:
+    """csrc/gemm.cuh ``gemm_tile``: (rows, columns) of the tile of a bf16
+    wide-route product with a light epilogue over ``rows`` x ``n`` (B read
+    MN-major or K-major), the shape with the least rounds of persistent
+    blocks times its rows times (columns + 32); a tie goes to the later.
+    fc1 (gelu and the hash) takes ``_HEAVY_BM`` x ``_HEAVY_N``."""
+    best, best_cost = None, None
+    for nc, width in (_MNMAJOR_TILES if mn_major else _KMAJOR_TILES):
+        bm = 64 * nc
+        cost = _cdiv(_cdiv(rows, bm) * _cdiv(n, width), _SMS) * bm * (width + 32)
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = (bm, width), cost
+    return best
+
+
+def wgrad_splits(rows: int, dim: int, f: int) -> int:
+    """Row splits of the bf16 wide route's weight gradients: fixed by the
+    shape alone. At least enough that the units (2 products x its 128 x 128
+    tiles x splits) cover the card where the rows allow it, no split empty,
+    and of those the least modelled time: rounds of units over ``_SMS`` times
+    the steps a split, plus the partials' traffic a split."""
+    steps = _cdiv(rows, _HG_BK)
+    tiles = 2 * (dim // _HG_BM) * _cdiv(f, _WGRAD_N)
+    best, best_cost = None, None
+    for s in range(min(steps, _cdiv(_SMS, tiles)), min(steps, _MAX_SPLITS) + 1):
+        per = _cdiv(steps, s)
+        if _cdiv(steps, per) < s:  # a split would be empty
+            continue
+        cost = (_cdiv(tiles * s, _SMS) * per * _STEP_US
+                + s * 16 * dim * f * _PART_US_PER_BYTE)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best if best is not None else 1
+
+
+class MlpPlan:
+    """The launches of one ``fused_mlp`` / ``fused_mlp_bwd`` call: route,
+    row splits of the weight gradients, the scratch of each direction as
+    ``{name: (shape, dtype)}``, the tiles of each product of the bf16 wide
+    route as ``{product: (m_tiles, n_tiles, n_tile)}`` (and ``units``, the
+    weight gradients' blocks), and ``writes``: the elements each kernel writes into each
+    backward scratch, from its grid and masks."""
+
+    def __init__(self, dtype: torch.dtype, rows: int, dim: int, f: int):
+        self.route = mlp_route(dtype, dim, f)
+        self.rows, self.dim, self.f = rows, dim, f
+        self.wide = dim > _WIDE
+        bf16 = self.route == TENSOR_CORE
+        count = 2 * f * dim + f + dim  # dW1, dW2, db1, db2
+        if bf16 and self.wide:
+            self.splits = wgrad_splits(rows, dim, f)
+            self.split_rows = _cdiv(_cdiv(rows, _HG_BK), self.splits) * _HG_BK
+        elif bf16:
+            self.splits = max(1, min(_TC_SPLITS, _cdiv(rows, _TC_ROW_STEP)))
+            self.split_rows = _cdiv(_cdiv(rows, _TC_ROW_STEP), self.splits) * _TC_ROW_STEP
+        else:
+            self.splits = max(1, min(_SPLITS, _cdiv(rows, _ROW_TILE)))
+            self.split_rows = _cdiv(rows, self.splits)
+        f32 = torch.float32
+        self.fwd_scratch = {"hidden": ((rows, f), dtype)} if self.wide else {}
+        self.bwd_scratch = {"part": ((self.splits, count), f32), "grads": ((count,), f32)}
+        self.writes = {"part": self.splits * count, "grads": count}
+        if bf16 or self.wide:  # dH, then a_used
+            self.bwd_scratch["hidden"] = ((2, rows, f), dtype)
+            self.writes["hidden"] = 2 * rows * f
+        if self.wide and not bf16:  # the fp32 route's dA = g W2
+            self.bwd_scratch["da"] = ((rows, f), f32)
+            self.writes["da"] = rows * f
+        self.tiles = {}
+        if bf16 and self.wide:
+            for name, n, mn_major in (("fc2", dim, False), ("dx", dim, True)):
+                bm, width = gemm_tile(rows, n, mn_major)
+                self.tiles[name] = (_cdiv(rows, bm), _cdiv(n, width), width)
+            self.tiles["fc1"] = (_cdiv(rows, _HEAVY_BM), _cdiv(f, _HEAVY_N), _HEAVY_N)
+            self.tiles["h_da"] = (_cdiv(rows, _HG_BM), _cdiv(f, _DUAL_N), _DUAL_N)
+            wg = (dim // _HG_BM, _cdiv(f, _WGRAD_N), _WGRAD_N)
+            self.tiles["wgrad"] = wg
+            self.units = 2 * wg[0] * wg[1] * self.splits
+
+
+def mlp_plan(dtype: torch.dtype, rows: int, dim: int, f: int) -> MlpPlan:
+    """The launch plan of ``fused_mlp`` and ``fused_mlp_bwd`` on ``rows`` rows
+    of this dtype and width, hidden width ``f``; raises as ``mlp_route``."""
+    return MlpPlan(dtype, rows, dim, f)
+
+
+def _scratch(spec: dict, device) -> dict:
+    return {name: torch.empty(shape, dtype=dt, device=device)
+            for name, (shape, dt) in spec.items()}
 
 
 def gelu_as_grad(x: torch.Tensor) -> torch.Tensor:
@@ -165,13 +279,12 @@ def _mlp_forward(x, w1, b1, w2, b2, activation, dropout_p, seed):
     if x.device.type == "cpu":
         return fused_mlp_reference(x, w1, b1, w2, b2, activation, dropout_p, seed)
     rows, dim, f = _check_mlp("fused_mlp", x, w1, b1, w2, activation)
-    route = mlp_route(x.dtype, dim, f)
+    plan = mlp_plan(x.dtype, rows, dim, f)
     _check("b2", b2, x.dtype, (dim,))
-    if route == TENSOR_CORE:
+    if plan.route == TENSOR_CORE:
         _check_aligned("fused_mlp", x, w1, w2)
     out = torch.empty_like(x)
-    # the wide route's hidden state, a_used [rows, f] in x's dtype
-    hidden = torch.empty((rows, f), dtype=x.dtype, device=x.device) if dim > _WIDE else None
+    hidden = _scratch(plan.fwd_scratch, x.device).get("hidden")  # the wide route's a_used
     err = _build.library().sn_fused_mlp(
         _DTYPES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), out.data_ptr(), hidden.data_ptr() if hidden is not None else None, rows,
@@ -179,9 +292,9 @@ def _mlp_forward(x, w1, b1, w2, b2, activation, dropout_p, seed):
     )
     _build.check(err, "fused_mlp")
     fused_mlp.launches += 1
-    if route == TENSOR_CORE:
+    if plan.route == TENSOR_CORE:
         fused_mlp.tc_launches += 1
-    if dim > _WIDE:
+    if plan.wide:
         fused_mlp.wide_launches += 1
     return out
 
@@ -193,36 +306,27 @@ def fused_mlp_bwd(x, w1, b1, w2, g, activation: str = "gelu", dropout_p: float =
     if x.device.type == "cpu":
         return fused_mlp_bwd_reference(x, w1, b1, w2, g, activation, dropout_p, seed)
     rows, dim, f = _check_mlp("fused_mlp_bwd", x, w1, b1, w2, activation)
-    route = mlp_route(x.dtype, dim, f)
+    plan = mlp_plan(x.dtype, rows, dim, f)
     _check("g", g, x.dtype, x.shape)
-    hidden = da = None
-    if route == TENSOR_CORE:
+    if plan.route == TENSOR_CORE:
         _check_aligned("fused_mlp_bwd", x, w1, w2, g)
-        splits = max(1, min(_TC_SPLITS, -(-rows // _TC_ROW_STEP)))
-    else:
-        splits = max(1, min(_SPLITS, -(-rows // _ROW_TILE)))
-    if route == TENSOR_CORE or dim > _WIDE:
-        hidden = torch.empty((2, rows, f), dtype=x.dtype, device=x.device)  # dH, a_used
-    if dim > _WIDE:  # the wide route's dA = g W2
-        da = torch.empty((rows, f), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    count = 2 * f * dim + f + dim
-    part = torch.empty((splits, count), dtype=torch.float32, device=x.device)
-    grads = torch.empty(count, dtype=torch.float32, device=x.device)
+    sc = _scratch(plan.bwd_scratch, x.device)
+    hidden, da = sc.get("hidden"), sc.get("da")
     err = _build.library().sn_fused_mlp_bwd(
         _DTYPES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), g.data_ptr(),
-        dx.data_ptr(), part.data_ptr(), grads.data_ptr(),
+        dx.data_ptr(), sc["part"].data_ptr(), sc["grads"].data_ptr(),
         hidden.data_ptr() if hidden is not None else None,
-        da.data_ptr() if da is not None else None, rows, dim, f, splits,
+        da.data_ptr() if da is not None else None, rows, dim, f, plan.splits,
         *kernel_dropout_args(dropout_p, seed), _stream(),
     )
     _build.check(err, "fused_mlp_bwd")
     fused_mlp_bwd.launches += 1
-    if route == TENSOR_CORE:
+    if plan.route == TENSOR_CORE:
         fused_mlp_bwd.tc_launches += 1
-    if dim > _WIDE:
+    if plan.wide:
         fused_mlp_bwd.wide_launches += 1
-    dw1, dw2, db1, db2 = torch.split(grads, [f * dim, f * dim, f, dim])
+    dw1, dw2, db1, db2 = torch.split(sc["grads"], [f * dim, f * dim, f, dim])
     dt = x.dtype
     return dx, dw1.view(f, dim).to(dt), db1.to(dt), dw2.view(dim, f).to(dt), db2.to(dt)
 

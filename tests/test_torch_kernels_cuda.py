@@ -146,6 +146,24 @@ def test_ffn_block_kernel(dev, dtype, tol, rows, dim, f):
     assert _rel(got, eb.ffn_block_reference(*args)) <= tol
 
 
+@pytest.mark.parametrize("rows", [1000, 77])
+def test_ffn_block_wide_bf16(dev, rows):
+    """DeiT-Base's width in bf16: LN + fc1 + gelu, then fc2 + residual by the
+    TMA-fed wgmma GEMM; 77 rows leave most of a 128-row tile past the end."""
+    dim, f = 768, 3072
+    g = torch.Generator().manual_seed(2)
+    args = (
+        _rnd(g, dev, 1, rows, dim).to(torch.bfloat16), 1 + _rnd(g, dev, dim, scale=0.1),
+        _rnd(g, dev, dim, scale=0.1), _rnd(g, dev, f, dim, scale=dim**-0.5),
+        _rnd(g, dev, f, scale=0.1), _rnd(g, dev, dim, f, scale=f**-0.5), _rnd(g, dev, dim, scale=0.1),
+    )
+    before = eb.ffn_block.wide_launches
+    got = eb.ffn_block(*args)
+    torch.cuda.synchronize()
+    assert eb.ffn_block.wide_launches == before + 1
+    assert _rel(got, eb.ffn_block_reference(*args)) <= 2e-2
+
+
 # rows of E 4-byte aligned (V = 70), 8-byte (196: instance graphs; 500:
 # ImageNet class graphs), 16-byte (1024: CIFAR class graphs), 2-byte (33)
 CONV_SHAPES = [(2, 70, 40), (3, 196, 256), (2, 500, 1024), (2, 1024, 256), (2, 33, 8)]
@@ -385,6 +403,37 @@ def test_fused_mlp_kernels(dev, dtype, tol, p, rows, dim, f):
         (before_fwd[0] + 1, before_fwd[1] + tc)
     assert all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))  # no atomics
     assert out.dtype == dtype
+    assert _rel(out, mk.fused_mlp_reference(x, w1, b1, w2, b2, "gelu", p, seed)) <= tol
+    want = mk.fused_mlp_bwd_reference(x, w1, b1, w2, cot, "gelu", p, seed)
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape, name
+        assert _rel(a, b) <= tol, name
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("dim", [384, 768])
+@pytest.mark.parametrize("rows", [12_608, 1000, 77])
+def test_fused_mlp_wide_bf16(dev, p, dim, rows):
+    """The bf16 wide route (DeiT-Small's 384, DeiT-Base's 768; TMA-fed wgmma,
+    the backward's h and dA in one launch) against the plain versions at the
+    stage-0 rows and at rows that end inside a 128-row tile and inside a
+    64-row step; the weight and bias gradients the same bits on a second
+    call (fixed splits, no atomics)."""
+    dtype, tol, f = torch.bfloat16, 2e-2, 4 * dim
+    g = torch.Generator().manual_seed(11)
+    x = _rnd(g, dev, rows, dim).to(dtype)
+    w1, b1 = _rnd(g, dev, f, dim, scale=dim**-0.5).to(dtype), _rnd(g, dev, f, scale=0.1).to(dtype)
+    w2, b2 = _rnd(g, dev, dim, f, scale=f**-0.5).to(dtype), _rnd(g, dev, dim, scale=0.1).to(dtype)
+    cot = _rnd(g, dev, rows, dim).to(dtype)
+    seed = SEED if p else None
+    before = (mk.fused_mlp.wide_launches, mk.fused_mlp_bwd.wide_launches)
+    out = mk.fused_mlp(x, w1, b1, w2, b2, "gelu", p, seed)
+    got = mk.fused_mlp_bwd(x, w1, b1, w2, cot, "gelu", p, seed)
+    again = mk.fused_mlp_bwd(x, w1, b1, w2, cot, "gelu", p, seed)
+    torch.cuda.synchronize()
+    assert (mk.fused_mlp.wide_launches, mk.fused_mlp_bwd.wide_launches) == \
+        (before[0] + 1, before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert _rel(out, mk.fused_mlp_reference(x, w1, b1, w2, b2, "gelu", p, seed)) <= tol
     want = mk.fused_mlp_bwd_reference(x, w1, b1, w2, cot, "gelu", p, seed)
     for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):

@@ -167,3 +167,72 @@ def test_mlp_route_rejects(dtype, dim, f, what):
 def test_mlp_route_rejects_other_dtypes():
     with pytest.raises(TypeError, match="float16"):
         mk.mlp_route(torch.float16, 192, 768)
+
+
+@pytest.mark.parametrize("rows,dim,f", [
+    (12_608, 384, 1536),  # DeiT-Small stage 0
+    (12_608, 768, 3072),  # DeiT-Base stage 0
+    (1000, 384, 1536),  # rows that end inside a 64-row step
+    (77, 768, 3072),  # one 128-row tile, most of it past the end
+])
+def test_wide_plan(rows, dim, f):
+    """The bf16 wide route's launch plan: the weight gradients' row splits
+    depend on the shape alone and their units cover the card; no split is
+    empty; the scratch covers every element the kernels write, and no fp32
+    [rows, f] scratch is left (dA stays in registers)."""
+    plan = mk.mlp_plan(torch.bfloat16, rows, dim, f)
+    assert plan.wide and plan.route == "tensor_core"
+    assert plan.splits == mk.mlp_plan(torch.bfloat16, rows, dim, f).splits
+    assert plan.splits == mk.wgrad_splits(rows, dim, f)
+    assert plan.units == 2 * (dim // 128) * -(-f // 128) * plan.splits >= 132
+    assert plan.split_rows % 64 == 0
+    assert (plan.splits - 1) * plan.split_rows < rows <= plan.splits * plan.split_rows
+    for spec, writes in ((plan.bwd_scratch, plan.writes),):
+        for name, (shape, dt) in spec.items():
+            assert int(np.prod(shape)) >= writes[name], name
+    assert plan.fwd_scratch == {"hidden": ((rows, f), torch.bfloat16)}
+    assert "da" not in plan.bwd_scratch
+    assert not any(dt == torch.float32 and tuple(shape[-2:]) == (rows, f)
+                   for shape, dt in plan.bwd_scratch.values())
+    for name, n, mn_major in (("fc2", dim, False), ("dx", dim, True)):
+        mt, nt, width = plan.tiles[name]
+        bm, bn = mk.gemm_tile(rows, n, mn_major)
+        assert (mt, width) == (-(-rows // bm), bn) and nt * width >= n > (nt - 1) * width, name
+    for name, n, bm in (("fc1", f, 192), ("h_da", f, 128)):
+        mt, nt, width = plan.tiles[name]
+        assert mt == -(-rows // bm) and nt * width >= n > (nt - 1) * width, name
+
+
+@pytest.mark.parametrize("rows,n,mn_major,tile", [
+    (12_608, 384, False, (192, 192)),  # fc2 at 384: 132 tiles, one round
+    (12_608, 768, False, (192, 192)),  # fc2 at 768 (and ffn_block's fc2): ties 128 x 192
+    (12_608, 384, True, (192, 192)),  # dx at 384
+    (12_608, 768, True, (192, 192)),  # dx at 768
+    (1000, 384, False, (128, 96)),  # 32 tiles: one round either way, the smallest
+    (1000, 384, True, (128, 128)),
+])
+def test_gemm_tile(rows, n, mn_major, tile):
+    """The tile of the wide route's products with a light epilogue
+    (csrc/gemm.cuh gemm_tile); fc1's is 192 x 128 at every shape."""
+    assert mk.gemm_tile(rows, n, mn_major) == tile
+    assert mk.mlp_plan(torch.bfloat16, rows, 384, 1536).tiles["fc1"] == (-(-rows // 192), 12, 128)
+
+
+@pytest.mark.parametrize("dtype,rows,dim,f", [
+    (torch.float32, 12_608, 384, 1536),  # the fp32 wide route keeps its dA scratch
+    (torch.bfloat16, 12_608, 192, 768),  # DeiT-Tiny: the one-launch route, 12 splits
+    (torch.float32, 1000, 192, 768),
+])
+def test_plan_other_routes(dtype, rows, dim, f):
+    """The fp32 wide route and the one-launch routes keep their scratch and
+    splits: fp32 dA [rows, f] on the fp32 wide route only, the bf16
+    narrow route's 12 fixed splits of 32-row steps."""
+    plan = mk.mlp_plan(dtype, rows, dim, f)
+    assert ("da" in plan.bwd_scratch) == (dim > 256 and dtype == torch.float32)
+    assert ("hidden" in plan.fwd_scratch) == (dim > 256)
+    for name, (shape, dt) in plan.bwd_scratch.items():
+        assert int(np.prod(shape)) >= plan.writes[name], name
+    if dtype == torch.bfloat16:
+        assert plan.splits == 12 and plan.bwd_scratch["hidden"] == ((2, rows, f), dtype)
+    else:
+        assert plan.splits == min(24, -(-rows // 32))
