@@ -22,8 +22,9 @@ Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
    statistics, ffn_block's bf16 and split-TF32 kernels, VQ's two routes, the
    LayerNorm backward's 12 and its parameter sum, embed_grad's 6, the wide
    FFN route's Hopper kernels: TMA-fed wgmma GEMMs, the dual product, the
-   weight gradients) from the ptxas log, and fails if one is missing or
-   spills;
+   weight gradients; the wide ffn_block's LN pass and its two GEMMs;
+   adamw_project_rows' warp-a-row and block-a-row kernels) from the ptxas
+   log, and fails if one is missing or spills;
 3. each serving kernel against its plain PyTorch version at the serving
    shapes, in bf16 and fp32: max |kernel - plain| / max |plain| <= 2e-2
    (bf16), 1e-4 (fp32); ``sym_conv`` also at rows of E that are 4-byte
@@ -251,8 +252,14 @@ codebook; class ingredients drawn distinct a class from the 8000 codes):
 
 24. the kernels at the new widths against their plain versions (the
     tolerances of 3), each bitwise over two calls and counted on its route:
-    ``ffn_block`` at [64, 197, 768] f 3072 and at 1,000 rows in both dtypes
-    (the two-product route); ``fused_mlp`` forward and backward at
+    ``ffn_block`` at [64, 197, 768] f 3072 and at 1,000 and 77 rows in both
+    dtypes (the wide route), in bf16 its LN pass (``ffn_ln_rows``) bit for
+    bit its plain emulation ``ln_rows_reference`` and the profiled kernel
+    names of a call at [64, 197, 768]: the LN pass and two ``gemm_wg_kernel``,
+    no ``linear_tc_kernel`` and no cuBLAS, CUTLASS or cuDNN kernel;
+    ``attn_block`` at [64, 197, 384] (6 heads) and [64, 197, 768] (12
+    heads) and ``ffn_block`` at [64, 197, 384] f 1536, bf16, timed;
+    ``fused_mlp`` forward and backward at
     [64, 197, 384] and [64, 197, 768], p = 0 and 0.1, both dtypes (the wide
     route); ``fused_layernorm`` forward and backward at [500,000, 1024] relu
     (the class graphs; no cotangent at a gate tie, as 15) and
@@ -273,7 +280,7 @@ codebook; class ingredients drawn distinct a class from the 8000 codes):
     predictor at K = 1000 beside the first would crowd the card's memory);
 27. the ImageNet stage-4 step in bf16 (``schema_net_trainer``): 5 finite
     losses, the counters as 9 plus 2 ``adamw_project_rows`` with bf16
-    moments a step, the moments' dtypes (bf16 for all four atlas tensors),
+    moments a step, both on the 4-column route, the moments' dtypes (bf16 for all four atlas tensors),
     step ms and images/s, device-busy ms and idle share (profiler, 2
     steps), the peak device memory; ``sym_conv`` and ``sym_conv_bwd`` at
     [1000, 500, 1024] against their plain versions and timed (run after 25,
@@ -297,7 +304,9 @@ codebook; class ingredients drawn distinct a class from the 8000 codes):
     every FFN launch on the wide route, 25 LayerNorm forward and backward;
     step ms; the profiler's device ms a step and idle share over 2 steps;
 30. DeiT-Base: one bf16 serving microbatch of 64 (K cut to 100) with its 10
-    ``ffn_block`` launches on the two-product route at 768, finite logits;
+    ``attn_block`` launches and 10 ``ffn_block`` launches on the wide route
+    at 768, finite logits, p50/p99 latency of a microbatch and the
+    profiler's device ms a microbatch;
     2 bf16 stage-0 steps with ``fused_mlp`` at 768 on the wide route,
     finite losses, step ms, device ms a step and idle share. Depth not cut.
 
@@ -311,7 +320,8 @@ SchemaNet kernels, stage 0 for the fused attention and FFN kernels), its
 error against its plain version, its time, the plain version's, its bound on
 the card and, where one PyTorch call computes the same function, that
 call's time, and its launches in the workers' runs (phases 20 and 23); the
-instantiations of phases 24-30 follow (``ffn_block_d768``,
+instantiations of phases 24-30 follow (``attn_block_d384``,
+``attn_block_d768``, ``ffn_block_d384``, ``ffn_block_d768``,
 ``fused_mlp[_bwd]_d384`` and ``_d768``, ``fused_layernorm[_bwd]_d1024``,
 ``adamw_project_rows_bf16``, ``sym_conv[_bwd]_imagenet``), each with the
 launches of the path that runs it. The VQ kernel's launches are stage 1's and the LayerNorm
@@ -901,7 +911,8 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
 
     # 24. the kernels at the new widths against their plain versions, each
     # bitwise over two calls, each counted on its route
-    ffn_cases = {"d768": (vit_rows, 768, 3072), "d768_rows1000": (1000, 768, 3072)}
+    ffn_cases = {"d768": (vit_rows, 768, 3072), "d768_rows1000": (1000, 768, 3072),
+                 "d768_rows77": (77, 768, 3072)}
     for tag, (rows_, d_, f_) in ffn_cases.items():
         args = (rnd(1, rows_, d_), 1 + rnd(d_, scale=0.1), rnd(d_, scale=0.1),
                 rnd(f_, d_, scale=d_**-0.5), rnd(f_, scale=0.1), rnd(d_, f_, scale=f_**-0.5),
@@ -915,7 +926,29 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
             phase("compare", kernel=label, run_to_run_bitwise=same,
                   wide_launches=eb.ffn_block.wide_launches - before)
             require(same and eb.ffn_block.wide_launches - before == 3,
-                    f"{label}: two calls differ, or a call missed the two-product route")
+                    f"{label}: two calls differ, or a call missed the wide route")
+            if dt == torch.bfloat16:
+                # the LN pass alone, bit for bit its plain emulation (on the CPU)
+                ln = eb.ffn_ln_rows(*a[:3])
+                ln_same = torch.equal(ln.cpu(), eb.ln_rows_reference(
+                    *(t.cpu() for t in a[:3]), 1e-6))
+                phase("compare", kernel=f"ffn_ln_rows_{tag}", bitwise_plain=ln_same,
+                      plan=eb.ffn_plan(dt, rows_, d_, f_).launches)
+                require(ln_same, f"ffn_block {tag}: the LN pass differs from ln_rows_reference")
+                del ln
+            if tag == "d768" and dt == torch.bfloat16:
+                # only the repo's kernels, and none of the first design's
+                # linear_tc_kernel: no cuBLAS, CUTLASS or cuDNN name
+                with torch.no_grad():
+                    names = kernel_names(lambda: eb.ffn_block(*a))
+                library = [n for n in names
+                           if any(mark in n.lower() for mark in LIBRARY_KERNEL_MARKS)]
+                phase("kernel_names", kernel="ffn_block", dim=d_, dtype="bfloat16", names=names,
+                      library=library)
+                require(not library and any("ln_rows_bf16" in n for n in names)
+                        and sum("gemm_wg_kernel" in n for n in names) == 2
+                        and not any("linear_tc" in n for n in names),
+                        f"ffn_block at 768 ran library kernels or not its three: {names}")
             if tag == "d768":
                 x_, g1, b1, w1, fb1, w2, fb2 = a
                 flops = 4 * x_.numel() * f_ * (3 if dt == torch.float32 else 1)
@@ -925,6 +958,37 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
                     row(name, (flops, moved, "tfloat32" if dt == torch.float32 else "bfloat16"),
                         time_ms(lambda: eb.ffn_block(*a), iters),
                         time_ms(lambda: eb.ffn_block_reference(*a), iters), shape=list(x_.shape))
+    # the frozen layer halves at DeiT-Small's and DeiT-Base's widths in bf16,
+    # the instantiations ImageNet serving, stage 4 and DeiT-Base serving run
+    for d_, heads_, f_ in ((384, 6, 1536), (768, 12, 3072)):
+        x_ = rnd(BATCH, vit_rows // BATCH, d_).to(torch.bfloat16)
+        g1, b1 = 1 + rnd(d_, scale=0.1), rnd(d_, scale=0.1)
+        wqkv, bqkv = rnd(3 * d_, d_, scale=d_**-0.5), rnd(3 * d_, scale=0.1)
+        wo, bo = rnd(d_, d_, scale=d_**-0.5), rnd(d_, scale=0.1)
+        attn_a = (x_, g1, b1, wqkv, bqkv, wo, bo, heads_)
+        compare(f"attn_block_d{d_}", eb.attn_block, eb.attn_block_reference, attn_a, {},
+                torch.bfloat16, BF16_TOL, errors)
+        n_ = x_.shape[1]
+        flops = 2 * vit_rows * d_ * 4 * d_ + 4 * BATCH * n_ * n_ * d_
+        moved = 2 * nbytes(x_) + nbytes(g1, b1, *(t.to(torch.bfloat16) for t in (wqkv, bqkv, wo,
+                                                                                  bo)))
+        with torch.no_grad():
+            row(f"attn_block_d{d_}", (flops, moved, "bfloat16"),
+                time_ms(lambda: eb.attn_block(*attn_a), iters),
+                time_ms(lambda: eb.attn_block_reference(*attn_a), iters), shape=list(x_.shape),
+                heads=heads_)
+        if d_ == 384:
+            ffn_a = (x_, g1, b1, rnd(f_, d_, scale=d_**-0.5), rnd(f_, scale=0.1),
+                     rnd(d_, f_, scale=f_**-0.5), rnd(d_, scale=0.1))
+            compare("ffn_block_d384", eb.ffn_block, eb.ffn_block_reference, ffn_a, {},
+                    torch.bfloat16, BF16_TOL, errors)
+            moved = 2 * nbytes(x_) + nbytes(g1, b1, *(t.to(torch.bfloat16) for t in ffn_a[3:]))
+            with torch.no_grad():
+                row("ffn_block_d384", (4 * x_.numel() * f_, moved, "bfloat16"),
+                    time_ms(lambda: eb.ffn_block(*ffn_a), iters),
+                    time_ms(lambda: eb.ffn_block_reference(*ffn_a), iters), shape=list(x_.shape))
+            del ffn_a
+        del x_, attn_a
     mlp_same = {}
     for d_ in (384, 768):
         f_, rows_ = 4 * d_, vit_rows
@@ -1153,8 +1217,9 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
                          "fused_layernorm", "fused_layernorm_bwd", "fused_layernorm_bwd_vec")},
                      "embed_grad": 2 * BF16_STEPS, "embed_grad_vec": 2 * BF16_STEPS,
                      "embed_grad_planned": BF16_STEPS,
-                     "adamw_project_rows": 2 * BF16_STEPS,
-                     "adamw_project_rows_bf16": 2 * BF16_STEPS})  # the hot atlas tensors
+                     "adamw_project_rows": 2 * BF16_STEPS,  # the hot atlas tensors, on
+                     "adamw_project_rows_bf16": 2 * BF16_STEPS,  # the 4-column route
+                     "adamw_project_rows_vec": 2 * BF16_STEPS})
     moments = {name: {k: str(t.dtype) for k, t in h.state.items()} for name, h in tr.hot.items()}
     moments.update({f"lowmem {gi}/{pi}": {k: str(t.dtype) for k, t in slot.items()}
                     for gi, group in enumerate(tr.optimizer.lowmem.state)
@@ -1193,7 +1258,8 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
     require(all(t == "torch.bfloat16" for m in moments.values() for t in m.values()),
             f"an atlas tensor's moment is not bf16: {moments}")
     require(busy_us > 0, "the ImageNet stage-4 profile holds no device time")
-    launches_path = {"ffn_block": train_launches["ffn_block"],
+    launches_path = {"ffn_block_d384": train_launches["ffn_block"],
+                     "attn_block_d384": train_launches["attn_block"],
                      "fused_layernorm_d1024": train_launches["fused_layernorm"],
                      "fused_layernorm_bwd_d1024": train_launches["fused_layernorm_bwd"],
                      "adamw_project_rows_bf16": train_launches["adamw_project_rows_bf16"],
@@ -1419,12 +1485,16 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
     def profiled_steps(tr0, steps=2):
         """The profiler's device ms a step (device activity only), the idle
         share of the steps' host wall time, and the top kernels a step."""
+        return profiled_calls(lambda i: tr0.train_iter(s0_batches[i]), steps)
+
+    def profiled_calls(fn, steps):
+        """``profiled_steps`` of ``steps`` calls fn(0), fn(1), ..."""
         for attempt in range(1, 6):  # a session without device events is taken again
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                for b in s0_batches[:steps]:
-                    tr0.train_iter(b)
+                for i in range(steps):
+                    fn(i)
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t0) * 1e6
             by_kernel = device_time_by_name(prof)
@@ -1470,14 +1540,23 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
     torch.cuda.synchronize()
     base_serve = launch_counts()
     finite = bool(torch.isfinite(logits).all())
+    lat = []
+    for _ in range(LATENCY_ITERS):
+        t0 = time.perf_counter()
+        serve.predict_tensor(images)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
     phase("deit_base_serve_bf16", classes=IN_FP32_CLASSES, logits=list(logits.shape),
           finite=finite, ffn_block_wide=base_serve["ffn_block_wide"],
-          attn_block=base_serve["attn_block"])
+          attn_block=base_serve["attn_block"], p50_ms=float(np.percentile(lat, 50)),
+          p99_ms=float(np.percentile(lat, 99)),
+          **profiled_calls(lambda i: serve.predict_tensor(images), 2), **card_note)
     require(finite and tuple(logits.shape) == (MICROBATCH, IN_FP32_CLASSES),
             "DeiT-Base bf16 logits not finite")
-    require(base_serve["ffn_block_wide"] == base_serve["ffn_block"] == FROZEN_LAYERS,
-            f"DeiT-Base serving: ffn_block launches {base_serve}")
+    require(base_serve["ffn_block_wide"] == base_serve["ffn_block"] == FROZEN_LAYERS
+            == base_serve["attn_block"], f"DeiT-Base serving: launches {base_serve}")
     launches_path["ffn_block_d768"] = base_serve["ffn_block_wide"]
+    launches_path["attn_block_d768"] = base_serve["attn_block"]
     del serve, mb, images, logits
     torch.cuda.empty_cache()
     tr0 = stage0(768, 12, "bfloat16")
@@ -1615,7 +1694,8 @@ def worker_phases(dev, work_dir: str, bundle_dir: str, atlas_path: str, card_not
                      "fused_layernorm": GNN_CONVS * fwd, "fused_layernorm_bwd": GNN_CONVS * steps,
                      "fused_layernorm_bwd_vec": GNN_CONVS * steps,
                      "embed_grad": 2 * steps, "embed_grad_vec": 2 * steps,
-                     "embed_grad_planned": steps, "adamw_project_rows": 2 * steps})
+                     "embed_grad_planned": steps, "adamw_project_rows": 2 * steps,
+                     "adamw_project_rows_vec": 2 * steps})
     losses = [float(loss) for loss in stats["losses"]]
     final = run_a["eval"]
     ckpt_dir = os.path.join(full_dir, "ckpt")
@@ -1888,25 +1968,32 @@ def main() -> None:
     # 128 x 96, 128 x 192 and 192 x 192; dx at 128 x 128, 128 x 192 and
     # 192 x 192) and mlp_wgrad_wg_kernel (8 "_wg_kernel"), gemm_dual_kernel
     # (h and dA); in fp32 5 gemm_fma_kernel and col_sum_kernel;
-    # encoder_block.cu's gelu epilogues of linear_tc and linear_tf32 (3
-    # each) and its 3 gemm_wg_kernel (fc2 + residual);
+    # encoder_block.cu's wide ffn_block: in bf16 the LN pass
+    # (ln_rows_bf16_kernel) and 4 gemm_wg_kernel (fc1 + gelu at 192 x 128,
+    # fc2 + residual at the 3 light tiles), in fp32 linear_tf32's gelu
+    # epilogue (3 linear_tf32 in all); attn_block's 2 linear_tc;
     # layernorm.cu's backward at 1024 (18 in all: 16-byte pieces 4 and 8 a
     # lane, scalar 32, in both dtypes). mlp.cu's 9 "tc_kernel" are the
     # one-launch route's (4 widths of the forward, 4 of dH and dx, the
-    # weight gradients).
+    # weight gradients). atlas_opt.cu: adamw_rows_warp_kernel for rows up to
+    # 1024 wide (4 moment-type pairs x 4-column pieces at 4 and 8 a lane,
+    # 1-column pieces at 16 and 32) and adamw_rows_block_kernel past them
+    # (4 pairs).
     for source, tag, count in (("attention.cu", "mhsa_tc", 16), ("graphconv.cu", "tc_kernel", 8),
                                ("mlp.cu", "tc_kernel", 9), ("mlp.cu", "_wg_kernel", 8),
                                ("mlp.cu", "gemm_dual", 1), ("mlp.cu", "gemm_fma", 5),
-                               ("mlp.cu", "col_sum", 1), ("encoder_block.cu", "linear_tc", 3),
+                               ("mlp.cu", "col_sum", 1), ("encoder_block.cu", "linear_tc", 2),
                                ("encoder_block.cu", "linear_tf32", 3),
-                               ("encoder_block.cu", "gemm_wg", 3),
+                               ("encoder_block.cu", "gemm_wg", 4),
+                               ("encoder_block.cu", "ln_rows_bf16", 1),
                                ("encoder_block.cu", "attn_tf32", 3),
                                ("encoder_block.cu", "ln_stats", 1),
                                ("encoder_block.cu", "ffn_tc_kernel", 5),
                                ("encoder_block.cu", "ffn_tf32_kernel", 5), ("vq.cu", "vq_tc", 2),
                                ("layernorm.cu", "ln_bwd_kernel", 18),
                                ("layernorm.cu", "ln_param_sum", 1), ("embed_bwd.cu", "embed_", 6),
-                               ("atlas_opt.cu", "adamw_project_rows", 4)):
+                               ("atlas_opt.cu", "adamw_rows_warp", 16),
+                               ("atlas_opt.cu", "adamw_rows_block", 4)):
         tc_ptxas = {name: dict(zip(("registers", "spill_stores", "spill_loads"), r))
                     for name, r in ptxas_report(build_log, source).items() if tag in name}
         phase("ptxas", source=source, tag=tag, kernels=tc_ptxas)
@@ -2397,7 +2484,8 @@ def main() -> None:
                      "fused_layernorm_bwd_vec": GNN_CONVS * BF16_STEPS,
                      "embed_grad": 2 * BF16_STEPS, "embed_grad_vec": 2 * BF16_STEPS,
                      "embed_grad_planned": BF16_STEPS,  # the class lookup, from the atlas's plan
-                     "adamw_project_rows": 2 * BF16_STEPS})
+                     "adamw_project_rows": 2 * BF16_STEPS,
+                     "adamw_project_rows_vec": 2 * BF16_STEPS})  # V = 1024: 4-column pieces
     phase("train_bf16", steps=BF16_STEPS, batch=BATCH, losses=losses16,
           launches=train_launches, expected=expected)
     require(all(np.isfinite(losses16)), f"bf16 train losses not finite: {losses16}")
@@ -3342,6 +3430,9 @@ def main() -> None:
     # and DeiT-Base stage 0 (fused_mlp at 384, 768), DeiT-Base serving
     # (ffn_block at 768), the ImageNet stage-4 step (the rest)
     new_rows = {
+        "attn_block_d384": ("encoder_block.cu", "encoder_block.py:240"),
+        "attn_block_d768": ("encoder_block.cu", "encoder_block.py:240"),
+        "ffn_block_d384": ("encoder_block.cu", "encoder_block.py:286"),
         "ffn_block_d768": ("encoder_block.cu", "encoder_block.py:286"),
         "fused_mlp_d384": ("mlp.cu", "mlp.py:230"), "fused_mlp_bwd_d384": ("mlp.cu", "mlp.py:271"),
         "fused_mlp_d768": ("mlp.cu", "mlp.py:230"), "fused_mlp_bwd_d768": ("mlp.cu", "mlp.py:271"),

@@ -27,7 +27,8 @@
 //     head-mean's error passed the plain fp32 version's).
 //   * ffn_block: bf16 ffn_tc_kernel (mma.sync m16n8k16, the fused_mlp
 //     forward's chunk loop of ffn.cuh behind an LN2 prologue); fp32
-//     ffn_tf32_kernel (mma.sync m16n8k8 .tf32 by the 3xTF32 split).
+//     ffn_tf32_kernel (mma.sync m16n8k8 .tf32 by the 3xTF32 split). Past
+//     width 384 the three launches of ffn_wide_tc (below).
 //
 // Numerics follow the TPU kernels: LN statistics in fp32 (E[x^2] - E[x]^2),
 // every product accumulated in fp32 and rounded once to T, bias added in T
@@ -817,7 +818,7 @@ constexpr int kLinRows = 64, kLinCols = 64, kLinMaxK = 768;
 
 inline size_t linear_tc_smem(int K) { return sizeof(bf16) * 2 * (size_t)kLinRows * (K + 8); }
 
-template <bool kLn, bool kGelu = false>
+template <bool kLn>
 __global__ void __launch_bounds__(kThreads)
     linear_tc_kernel(const bf16* __restrict__ a, const float* __restrict__ ln_scale,
                      const float* __restrict__ ln_bias, float eps, const bf16* __restrict__ w,
@@ -863,7 +864,6 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         v[e] = Num<bf16>::round(acc[nt][half * 2 + e]) + __bfloat162float(bias[col + e]);
-        if (kGelu) v[e] = gelu_as(Num<bf16>::round(v[e]));
         if (!kLn)
           v[e] = __bfloat162float(resid[row * N + col + e]) + Num<bf16>::round(v[e]);
       }
@@ -871,12 +871,12 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-template <bool kLn, bool kGelu = false>
+template <bool kLn>
 cudaError_t linear_tc(const void* a, const void* ln_scale, const void* ln_bias, float eps,
                       const void* w, const void* bias, const void* resid, void* y, int rows, int K,
                       int N, cudaStream_t stream) {
   const size_t bytes = linear_tc_smem(K);
-  auto kernel = linear_tc_kernel<kLn, kGelu>;
+  auto kernel = linear_tc_kernel<kLn>;
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((rows + kLinRows - 1) / kLinRows, (N + kLinCols - 1) / kLinCols);
@@ -938,18 +938,132 @@ cudaError_t ffn_tf32_launch(const void* x, const void* g, const void* be, const 
 // ---------------------------------------------------------------------------
 // FFN half past width 384 (DeiT-Base's 768): the one-launch kernels hold a
 // row tile of LN2(x) and the warps' output fragments whole, which at 768
-// passes the shared memory and registers a block has. Two products, the
-// hidden state through device memory between them (in T, where the
-// one-launch kernels round it to T):
-//   bf16: linear_tc_kernel<true, true> (LN2 prologue, K = dim staged whole,
-//         gelu epilogue: hidden = round(gelu(round(round(acc) + b1)))), then
-//         gemm.cuh's gemm_tc (TMA-fed wgmma) over k = f with EpiResidual below:
-//         out = x + round(round(acc) + b2);
-//   fp32: ln_stats_kernel, linear_tf32_kernel<true, true> (hidden =
-//         gelu(acc + b1)) and linear_tf32_kernel<false> (out = x + (acc +
-//         b2)), split TF32 as attn_block's fp32 route.
+// passes the shared memory and registers a block has. So the half runs as
+// separate launches, LN2(x) and the hidden state through device memory
+// between them (in T, where the one-launch kernels round them to T anyway).
+//
+// bf16, three launches (ffn_wide_tc):
+//   (a) ln_rows_bf16_kernel: a = round(LN2(x)) into a bf16 scratch [rows,
+//       dim], a warp a row in 16-byte pieces;
+//   (b) fc1, gemm.cuh's gemm_tc (TMA-fed wgmma) over k = dim with EpiGelu:
+//       hidden = round(gelu(round(round(acc) + b1)));
+//   (c) fc2, the same GEMM over k = f with EpiResidual:
+//       out = x + round(round(acc) + b2).
+// What bounds it at [64, 197, 768], f 3072: the products, 119 GFLOP (0.12
+// ms of bf16 tensor-core time), against ~0.03 ms of bytes for a, hidden and
+// the weights. The first design (LN2 in the prologue of each of fc1's
+// 64 x 64 blocks, K = 768 staged whole, mma.sync) held one block an SM,
+// waited for all of its copies before its first product and recomputed a
+// row tile's LN2 for each of its 48 column tiles: 1.8 ms. Here LN2 runs once
+// a row (~0.02 ms of bytes), and both products stream k through the GEMM's
+// ring of TMA stages; fc1's gelu epilogue (tens of instructions an element)
+// takes gemm_tile's epilogue-heavy tile, 192 x 128 over three consumer
+// warpgroups.
+// fp32: ln_stats_kernel, linear_tf32_kernel<true, true> (hidden =
+// gelu(acc + b1)) and linear_tf32_kernel<false> (out = x + (acc + b2)),
+// split TF32 as attn_block's fp32 route.
 // ---------------------------------------------------------------------------
-struct EpiResidual {  // out = x + round(round(acc) + b2), bf16 (gemm.cuh's cols / put)
+
+// (a) LN2 of each row of x [rows, dim] rounded to bf16 into a [rows, dim]:
+// lane l holds the 16-byte pieces at columns 8 (l + 32 i), i < kLnPieces,
+// in registers from the statistics to the stores. Each lane sums its values
+// (s, and s2 of v v, exact for a bf16 v) in column order, then the xor tree
+// 16, 8, 4, 2, 1; mean = s / dim, var = max(s2 / dim - mean mean, 0), rstd
+// = 1 / sqrt(var + eps), a = round(((v - mean) rstd) scale + bias). Every
+// operation rounds on its own (the _rn intrinsics, which nvcc never fuses
+// into an FMA), so encoder_block.py's ln_rows_reference gives the same bits
+// on any IEEE device. dim a multiple of 8 up to 256 kLnPieces; x and a
+// 16-byte aligned.
+constexpr int kLnPieces = 4;  // rows up to 1024 wide
+
+__global__ void __launch_bounds__(kThreads)
+    ln_rows_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
+                        const float* __restrict__ bias, float eps, bf16* __restrict__ a, long rows,
+                        int dim) {
+  using P = Pack<bf16, 8>;
+  const long row = (long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const bf16* xr = x + row * dim;
+  P::Raw raw[kLnPieces];
+  float s = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < kLnPieces; ++i) {
+    const int c = 8 * (lane + 32 * i);
+    raw[i] = c < dim ? P::load(xr + c) : P::zero();
+    if (c >= dim) continue;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float v = P::get(raw[i], k);
+      s = __fadd_rn(s, v);
+      s2 = __fadd_rn(s2, __fmul_rn(v, v));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+    s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, o));
+  }
+  const float n = (float)dim;
+  const float mean = __fdiv_rn(s, n);
+  const float var = fmaxf(__fsub_rn(__fdiv_rn(s2, n), __fmul_rn(mean, mean)), 0.f);
+  const float rstd = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+#pragma unroll
+  for (int i = 0; i < kLnPieces; ++i) {
+    const int c = 8 * (lane + 32 * i);
+    if (c >= dim) continue;
+    const float4 s0 = __ldg(reinterpret_cast<const float4*>(scale + c));
+    const float4 s1 = __ldg(reinterpret_cast<const float4*>(scale + c + 4));
+    const float4 b0 = __ldg(reinterpret_cast<const float4*>(bias + c));
+    const float4 b1 = __ldg(reinterpret_cast<const float4*>(bias + c + 4));
+    const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    const float bi[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    float y[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      y[k] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(P::get(raw[i], k), mean), rstd), sc[k]),
+                       bi[k]);
+    P::store(a + row * dim + c, y);
+  }
+}
+
+// scale and bias: fp32 [dim], 16-byte aligned
+cudaError_t ln_rows_bf16(const void* x, const void* scale, const void* bias, void* a, long rows,
+                         int dim, float eps, cudaStream_t s) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (dim % 8 || dim > 256 * kLnPieces || !aligned(x) || !aligned(a) || !aligned(scale) ||
+      !aligned(bias))
+    return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  constexpr int kWarps = kThreads / 32;
+  ln_rows_bf16_kernel<<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0, s>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), eps, static_cast<bf16*>(a), rows, dim);
+  return cudaGetLastError();
+}
+
+// (b) hidden = round(gelu(round(round(acc) + b1))), bf16, as the one-launch
+// kernels' hidden chunk (gemm.cuh's cols / put)
+struct EpiGelu {
+  using Col = float2;
+  static constexpr bool kHeavy = true;  // gelu: tens of instructions an element
+  const bf16* b1;
+  bf16* hidden;
+  int f;
+  __device__ __forceinline__ Col cols(int col, bool in) const {
+    return in ? unpack_bf16(*reinterpret_cast<const uint32_t*>(b1 + col)) : make_float2(0.f, 0.f);
+  }
+  __device__ __forceinline__ void put(long row, int col, float c0, float c1, Col b,
+                                      bool in) const {
+    const float h0 = Num<bf16>::round(Num<bf16>::round(c0) + b.x);
+    const float h1 = Num<bf16>::round(Num<bf16>::round(c1) + b.y);
+    const uint32_t v = pack_bf16(gelu_as(h0), gelu_as(h1));
+    if (in) *reinterpret_cast<uint32_t*>(hidden + row * f + col) = v;
+  }
+};
+
+// (c) out = x + round(round(acc) + b2), bf16
+struct EpiResidual {
   using Col = float2;
   static constexpr bool kHeavy = false;
   const bf16* b2;
@@ -970,18 +1084,22 @@ struct EpiResidual {  // out = x + round(round(acc) + b2), bf16 (gemm.cuh's cols
   }
 };
 
-// hidden: bf16 scratch [rows, f]; dim a multiple of 16 up to kLinMaxK, f of 8
+// ln: bf16 scratch [rows, dim]; hidden: bf16 scratch [rows, f]; dim a
+// multiple of 16 up to 1024, f of 8
 cudaError_t ffn_wide_tc(const void* x, const void* g, const void* be, const void* w1,
-                        const void* b1, const void* w2, const void* b2, void* out, void* hidden,
-                        int rows, int dim, int f, float eps, cudaStream_t s) {
-  if (dim % 16 || dim > kLinMaxK || f % 8 || hidden == nullptr) return cudaErrorInvalidValue;
-  cudaError_t err =
-      linear_tc<true, true>(x, g, be, eps, w1, b1, nullptr, hidden, rows, dim, f, s);
+                        const void* b1, const void* w2, const void* b2, void* out, void* ln,
+                        void* hidden, int rows, int dim, int f, float eps, cudaStream_t s) {
+  if (dim % 16 || f % 8 || ln == nullptr || hidden == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = ln_rows_bf16(x, g, be, ln, rows, dim, eps, s);
   if (err != cudaSuccess) return err;
-  const EpiResidual epi{static_cast<const bf16*>(b2), static_cast<const bf16*>(x),
+  const EpiGelu fc1{static_cast<const bf16*>(b1), static_cast<bf16*>(hidden), f};
+  err = gemm_tc<false>(static_cast<const bf16*>(ln), static_cast<const bf16*>(w1), rows, f, dim,
+                       fc1, s);
+  if (err != cudaSuccess) return err;
+  const EpiResidual fc2{static_cast<const bf16*>(b2), static_cast<const bf16*>(x),
                         static_cast<bf16*>(out), dim};
   return gemm_tc<false>(static_cast<const bf16*>(hidden), static_cast<const bf16*>(w2), rows, dim,
-                        f, epi, s);
+                        f, fc2, s);
 }
 
 // hidden: fp32 scratch [rows, f]; stats fp32 [rows, 2]
@@ -1059,12 +1177,13 @@ int sn_attn_block(int dtype, const void* x, const void* ln_scale, const void* ln
 
 // dim 64-384: fp32 takes the split-TF32 kernel (x and w1 16-byte aligned),
 // bf16 the tensor-core kernel (f a multiple of 8; x, w1 and w2 16-byte
-// aligned); hidden and stats unused, may be null. Past 384 (dim a multiple
-// of 16 up to 768) the two-product route: hidden a scratch [rows, f] of the
-// storage type, and in fp32 stats an fp32 scratch [rows, 2].
+// aligned); hidden and ln unused, may be null. Past 384 the wide route:
+// hidden a scratch [rows, f] of the storage type, and ln LN2's scratch, in
+// fp32 its (mean, rstd) a row [rows, 2], in bf16 LN2(x) itself [rows, dim]
+// (dim a multiple of 16 up to 1024; ln_scale and ln_bias 16-byte aligned).
 int sn_ffn_block(int dtype, const void* x, const void* ln_scale, const void* ln_bias,
                  const void* w1, const void* b1, const void* w2, const void* b2, void* out,
-                 void* hidden, void* stats, int rows, int dim, int f, float eps, void* stream) {
+                 void* hidden, void* ln, int rows, int dim, int f, float eps, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (rows == 0) return cudaSuccess;
   if (dim > 384) {
@@ -1072,14 +1191,22 @@ int sn_ffn_block(int dtype, const void* x, const void* ln_scale, const void* ln_
       const auto c = [](const void* p) { return static_cast<const float*>(p); };
       return sn::ffn_wide_tf32(c(x), c(ln_scale), c(ln_bias), c(w1), c(b1), c(w2), c(b2),
                                static_cast<float*>(out), static_cast<float*>(hidden),
-                               static_cast<float2*>(stats), rows, dim, f, eps, s);
+                               static_cast<float2*>(ln), rows, dim, f, eps, s);
     }
-    return sn::ffn_wide_tc(x, ln_scale, ln_bias, w1, b1, w2, b2, out, hidden, rows, dim, f, eps,
-                           s);
+    return sn::ffn_wide_tc(x, ln_scale, ln_bias, w1, b1, w2, b2, out, ln, hidden, rows, dim, f,
+                           eps, s);
   }
   if (dtype == sn::kF32)
     return sn::ffn_block_fp32(x, ln_scale, ln_bias, w1, b1, w2, b2, out, rows, dim, f, eps, s);
   return sn::ffn_block_tc(x, ln_scale, ln_bias, w1, b1, w2, b2, out, rows, dim, f, eps, s);
+}
+
+// the bf16 wide route's launch (a) alone: a = round(LN2(x)) [rows, dim]
+// (dim a multiple of 8 up to 1024; x, a, ln_scale, ln_bias 16-byte aligned)
+int sn_ffn_ln_rows(const void* x, const void* ln_scale, const void* ln_bias, void* a, long rows,
+                   int dim, float eps, void* stream) {
+  return sn::ln_rows_bf16(x, ln_scale, ln_bias, a, rows, dim, eps,
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // Block-tiled matrix products with an epilogue, for the FFN widths that the
-// one-launch kernels do not hold (fused_mlp at 384 and 768, ffn_block's fc2
-// at 768; mlp.cu and encoder_block.cu say which launches use them).
+// one-launch kernels do not hold (fused_mlp at 384 and 768, ffn_block's fc1
+// and fc2 at 768; mlp.cu and encoder_block.cu say which launches use them).
 //
 //   C[M][N] = A[M][K] B,  A row-major [M][K];  B [N][K] (BKN false: a weight
 //   in nn.Linear layout, read K-major) or [K][N] (BKN true, read MN-major)
@@ -109,8 +109,8 @@ __device__ __forceinline__ uint8_t* ring_base(uint8_t* raw) {
 // consumer warpgroups: its 64 sums a thread leave the epilogue the
 // registers to interleave its elements, and 12 warps run it where 8 did
 // (on an H100 SXM at 700 W fc1 at 768 took 0.388 ms at 256 columns and two
-// warpgroups, 0.246 at 128, 0.193-0.198 at 128 and three). The launch plan
-// of ops/kernels/mlp.py repeats this rule.
+// warpgroups, 0.246 at 128, 0.193-0.198 at 128 and three). The launch plans
+// (ops/kernels/gemm.py) repeat this rule.
 constexpr int kHgHeavyN = 128;
 
 struct HgTile {

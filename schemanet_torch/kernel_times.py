@@ -44,10 +44,13 @@ named, in bf16 unless said.
   microbatch ([12,544, 192] x 1024, bf16), each beside the plain scores by
   ``torch.matmul`` (fp32, TF32 off) and ``torch.argmin``: a note;
 * where the checkout takes them, the DeiT-Small, DeiT-Base and ImageNet
-  widths: ``ffn_block`` at [64, 197, 768] f 3072 beside the library calls
-  as above; the ``fused_mlp`` forward and backward at 12,608 rows of 384 ->
-  1536 and of 768 -> 3072 (p = 0.1), each split by kernel, beside their
-  products by ``torch.matmul``; the LayerNorm forward and backward (relu) on the
+  widths: ``ffn_block`` at [64, 197, 384] f 1536 and at [64, 197, 768] f
+  3072 (split by kernel), beside the library calls as above; ``attn_block``
+  at [64, 197, 384] (6 heads) and [64, 197, 768] (12 heads), split by
+  kernel, beside LN + linear + SDPA + linear; the ``fused_mlp`` forward
+  and backward at 12,608 rows of 384 -> 1536 and of 768 -> 3072 (p = 0.1),
+  each split by kernel, beside their products by ``torch.matmul``; the
+  LayerNorm forward and backward (relu) on the
   ImageNet class graphs ([500,000, 1024]) beside ``F.layer_norm`` and
   ``native_layer_norm_backward`` (no gate: notes);
   ``adamw_project_rows`` with bf16 moments on the ImageNet edge weights
@@ -194,7 +197,6 @@ def instance_ids(dev: torch.device, batch: int = 64, seed: int = 0) -> torch.Ten
 def measure(dev: torch.device, inst_ids=None) -> dict:
     """{row: {timing: {"ms", "device_ms"}}} of the kernels and yardsticks.
     ``inst_ids``: the instance lookup's ids, ``instance_ids(dev)`` if None."""
-    from .ops.kernels import atlas_opt as ao
     from .ops.kernels import embed_bwd as ek
     from .ops.kernels import encoder_block as eb
     from .ops.kernels import layernorm as lnk
@@ -325,13 +327,6 @@ def measure(dev: torch.device, inst_ids=None) -> dict:
         del x_ln, g_ln, xx, gg
 
     f32 = torch.float32
-    shape = (classes * codes, codes)
-    prm, grad = torch.rand(shape, device=dev) / codes, rnd(*shape, scale=1e-3, dtype=f32)
-    m, v = rnd(*shape, scale=1e-4, dtype=f32), torch.rand(shape, device=dev) * 1e-8
-    out["adamw_project_rows"] = _both(
-        lambda: ao.adamw_project_rows(prm, grad, m, v, 2, lr=1e-3, weight_decay=5e-4))
-    del prm, grad, m, v
-
     cb = rnd(codes, d, dtype=f32)
     for case, (n_rows, dt, iters) in {"minibatch": (1024, f32, ITERS),
                                       "lloyd": (200_000, f32, 5),
@@ -350,30 +345,74 @@ def measure(dev: torch.device, inst_ids=None) -> dict:
                                                   "device_ms": device_ms(scores_argmin, iters)}
     if 768 in getattr(mk, "_DIMS", ()) and getattr(lnk, "_MAX_DIM", 0) >= 1024:
         out.update(_imagenet_widths(dev, rnd))
+    else:
+        out["adamw_project_rows"] = _adamw_rows(dev, rnd)["adamw_project_rows"]
     return out
 
 
-def _imagenet_widths(dev: torch.device, rnd) -> dict:
-    """The rows of the DeiT-Small, DeiT-Base and ImageNet widths."""
+def _adamw_rows(dev: torch.device, rnd, bf16_rows: bool = False) -> dict:
+    """``adamw_project_rows`` on the CIFAR class graphs' edge weights
+    ([102,400, 1024], fp32 moments), and with ``bf16_rows`` on the ImageNet
+    ones ([500,000, 500], bf16 moments)."""
     from .ops.kernels import atlas_opt as ao
+
+    out, f32 = {}, torch.float32
+    cases = {"adamw_project_rows": ((100 * 1024, 1024), f32)}
+    if bf16_rows:
+        cases["adamw_project_rows_bf16"] = ((1000 * 500, 500), torch.bfloat16)
+    for key, (shape, mdt) in cases.items():
+        prm = torch.rand(shape, device=dev) / shape[1]
+        grad = rnd(*shape, scale=1e-3, dtype=f32)
+        m, v = rnd(*shape, scale=1e-4, dtype=mdt), (torch.rand(shape, device=dev) * 1e-8).to(mdt)
+        out[key] = _both(lambda: ao.adamw_project_rows(prm, grad, m, v, 2, lr=1e-3,
+                                                       weight_decay=5e-4))
+        del prm, grad, m, v
+    return out
+
+
+def _width_rows(dev: torch.device, rnd) -> dict:
+    """The rows ``--widths`` times: the bf16 frozen layer halves at
+    DeiT-Small's and DeiT-Base's widths (``ffn_block`` at [64, 197, 384] f
+    1536 and at [64, 197, 768] f 3072, the latter split by kernel;
+    ``attn_block`` at [64, 197, 384] 6 heads and [64, 197, 768] 12 heads),
+    each beside the same function by library calls (LN + linear + gelu +
+    linear; LN + linear + SDPA + linear); the wide ``fused_mlp`` forward and
+    backward at 12,608 rows of 384 -> 1536 and of 768 -> 3072 (p = 0.1),
+    split by kernel, beside their products by ``torch.matmul``; and
+    ``adamw_project_rows`` (fp32 moments at CIFAR's [102,400, 1024], bf16
+    at ImageNet's [500,000, 500])."""
     from .ops.kernels import encoder_block as eb
-    from .ops.kernels import graphconv as gc
-    from .ops.kernels import layernorm as lnk
     from .ops.kernels import mlp as mk
 
     out, bf, f32 = {}, torch.bfloat16, torch.float32
     rows = 64 * 197
-    d, f = 768, 3072
-    x = rnd(64, 197, d)
-    lg, lb = 1 + rnd(d, scale=0.1, dtype=f32), rnd(d, scale=0.1, dtype=f32)
-    w1, b1, w2, b2 = (rnd(f, d, scale=d**-0.5), rnd(f, scale=0.1), rnd(d, f, scale=f**-0.5),
-                      rnd(d, scale=0.1))
-    lg16, lb16 = lg.to(bf), lb.to(bf)
-    out["ffn_block_d768"] = _both(lambda: eb.ffn_block(x, lg, lb, w1, b1, w2, b2))
-    out["ffn_block_d768_torch_calls"] = _both(
-        lambda: x + F.linear(F.gelu(F.linear(F.layer_norm(x, (d,), lg16, lb16, 1e-6), w1, b1)),
-                             w2, b2))
-    del x
+    for d, f, heads in ((384, 1536, 6), (768, 3072, 12)):
+        x = rnd(64, 197, d)
+        lg, lb = 1 + rnd(d, scale=0.1, dtype=f32), rnd(d, scale=0.1, dtype=f32)
+        w1, b1, w2, b2 = (rnd(f, d, scale=d**-0.5), rnd(f, scale=0.1), rnd(d, f, scale=f**-0.5),
+                          rnd(d, scale=0.1))
+        wqkv, bqkv = rnd(3 * d, d, scale=d**-0.5), rnd(3 * d, scale=0.1)
+        wo, bo = rnd(d, d, scale=d**-0.5), rnd(d, scale=0.1)
+        lg16, lb16 = lg.to(bf), lb.to(bf)
+
+        def attn_torch():
+            y = F.layer_norm(x, (d,), lg16, lb16, 1e-6)
+            qkv = F.linear(y, wqkv, bqkv).view(64, 197, 3, heads, d // heads)
+            qkv = qkv.permute(2, 0, 3, 1, 4)
+            o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
+            return x + F.linear(o.transpose(1, 2).reshape(64, 197, d), wo, bo)
+
+        timing = _split if d == 768 else _both
+        out[f"ffn_block_d{d}"] = timing(lambda: eb.ffn_block(x, lg, lb, w1, b1, w2, b2))
+        out[f"ffn_block_d{d}_torch_calls"] = _both(
+            lambda: x + F.linear(F.gelu(F.linear(F.layer_norm(x, (d,), lg16, lb16, 1e-6), w1,
+                                                 b1)), w2, b2))
+        out[f"attn_block_d{d}"] = _split(
+            lambda: eb.attn_block(x, lg, lb, wqkv, bqkv, wo, bo, heads))
+        out[f"attn_block_d{d}_torch_calls"] = _split(attn_torch)
+        out[f"attn_block_d{d}_torch_calls"]["sdpa_backend"] = sdpa_backend(
+            out[f"attn_block_d{d}_torch_calls"]["by_kernel"])
+        del x
     for d, f in ((384, 1536), (768, 3072)):
         x2, g2 = rnd(rows, d), rnd(rows, d)
         w1, b1, w2, b2 = (rnd(f, d, scale=d**-0.5), rnd(f, scale=0.1), rnd(d, f, scale=f**-0.5),
@@ -386,6 +425,18 @@ def _imagenet_widths(dev: torch.device, rnd) -> dict:
         out[f"fused_mlp_bwd_d{d}_matmul_products"] = _both(
             lambda: (x2 @ w1.t(), g2 @ w2, dh @ w1, dh.t() @ x2, g2.t() @ act))
         del x2, g2, dh, act
+    out.update(_adamw_rows(dev, rnd, bf16_rows=True))
+    return out
+
+
+def _imagenet_widths(dev: torch.device, rnd) -> dict:
+    """The rows of the DeiT-Small, DeiT-Base and ImageNet widths:
+    ``_width_rows``, then the LayerNorm and GraphConv at the ImageNet class
+    graphs."""
+    from .ops.kernels import graphconv as gc
+    from .ops.kernels import layernorm as lnk
+
+    out, bf, f32 = _width_rows(dev, rnd), torch.bfloat16, torch.float32
     n_rows, width = 1000 * 500, 1024
     x_ln = rnd(n_rows, width) * 2 + 0.5
     g_ln = rnd(n_rows, width)
@@ -401,12 +452,6 @@ def _imagenet_widths(dev: torch.device, rnd) -> dict:
         lambda: torch.ops.aten.native_layer_norm_backward(
             g_ln, x_ln, [width], mean, rstd, sc16, bi16, [True, True, True]))
     del x_ln, g_ln, mean, rstd
-    shape = (n_rows, 500)
-    prm, grad = torch.rand(shape, device=dev) / 500, rnd(*shape, scale=1e-3, dtype=f32)
-    m, v = rnd(*shape, scale=1e-4), (torch.rand(shape, device=dev) * 1e-8).to(bf)
-    out["adamw_project_rows_bf16"] = _both(
-        lambda: ao.adamw_project_rows(prm, grad, m, v, 2, lr=1e-3, weight_decay=5e-4))
-    del prm, grad, m, v
     e = (torch.rand(1000, 500, 500, device=dev) / 500).to(bf)
     feat, cot = rnd(1000, 500, width), rnd(1000, 500, width)
     e_sym = (0.5 * (e + e.transpose(1, 2)) + torch.eye(500, device=dev, dtype=bf)).contiguous()
@@ -420,10 +465,10 @@ def _imagenet_widths(dev: torch.device, rnd) -> dict:
 
 def main() -> None:
     """``python -m schemanet_torch.kernel_times [--widths]``: every row, or
-    with ``--widths`` only the FFN rows at DeiT-Small's and DeiT-Base's
-    widths (``ffn_block`` at 768, the wide ``fused_mlp`` forward and
-    backward), which a copy of this file dropped into an older checkout
-    times there too."""
+    with ``--widths`` only ``_width_rows`` (the frozen layer halves at 384
+    and 768, the wide ``fused_mlp`` forward and backward, both
+    ``adamw_project_rows`` rows), which a copy of this file dropped into an
+    older checkout times there too."""
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -437,8 +482,7 @@ def main() -> None:
         def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
             return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
 
-        rows = {k: v for k, v in _imagenet_widths(dev, rnd).items()
-                if k.startswith(("ffn_block", "fused_mlp"))}
+        rows = _width_rows(dev, rnd)
     else:
         rows = measure(dev)
     print(json.dumps({"kernel_times": rows, "card": smi.splitlines()[0]}), flush=True)

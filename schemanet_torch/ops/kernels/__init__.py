@@ -13,6 +13,7 @@ from .encoder_block import (
     attn_block_reference,
     ffn_block,
     ffn_block_reference,
+    ffn_ln_rows,
 )
 from .graphconv import sym_conv, sym_conv_bwd, sym_conv_bwd_reference, sym_conv_reference
 from .layernorm import (
@@ -32,7 +33,8 @@ _COUNTERS = {
     "attn_block_tc": (attn_block, "tc_launches"),  # tensor cores: bf16 mma or split TF32
     "ffn_block": (ffn_block, "launches"),
     "ffn_block_tc": (ffn_block, "tc_launches"),  # tensor cores: bf16 mma or split TF32
-    "ffn_block_wide": (ffn_block, "wide_launches"),  # past width 384: two products
+    "ffn_block_wide": (ffn_block, "wide_launches"),  # past width 384: a launch a step
+    "ffn_ln_rows": (ffn_ln_rows, "launches"),  # the wide route's LN2 pass alone
     "sym_conv": (sym_conv, "launches"),
     "sym_conv_bwd": (sym_conv_bwd, "launches"),
     "sym_conv_tc": (sym_conv, "tc_launches"),  # the tensor-core route's share
@@ -42,6 +44,7 @@ _COUNTERS = {
     "embed_grad_planned": (embed_grad, "planned_launches"),  # calls given a plan
     "adamw_project_rows": (adamw_project_rows, "launches"),
     "adamw_project_rows_bf16": (adamw_project_rows, "bf16_launches"),  # a bf16 moment
+    "adamw_project_rows_vec": (adamw_project_rows, "vec_launches"),  # 4-column pieces
     "fused_mhsa": (fused_mhsa, "launches"),
     "fused_mhsa_bwd": (fused_mhsa_bwd, "launches"),
     "fused_mhsa_tc": (fused_mhsa, "tc_launches"),  # the tensor-core route's share

@@ -36,7 +36,8 @@ _SIGNATURES = {
     "sn_sym_conv_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "sn_embed_offsets": [_P, _P, _L, _I, _P],
     "sn_embed_grad": [_I, _I] + [_P] * 6 + [_L, _I, _I, _P],
-    "sn_adamw_project_rows": [_P] * 4 + [_I, _I, _L, _I, _I, _I] + [_F] * 9 + [_P],
+    "sn_ffn_ln_rows": [_P] * 4 + [_L, _I, _F, _P],
+    "sn_adamw_project_rows": [_P] * 4 + [_I, _I, _L, _I, _I, _I, _I] + [_F] * 9 + [_P],
     "sn_fused_mhsa": [_I, _P, _P] + [_I] * 4 + [_F] * 3 + [_I, _P],
     "sn_fused_mhsa_bwd": [_I] + [_P] * 4 + [_I] * 4 + [_F] * 3 + [_I, _P],
     "sn_fused_mlp": [_I] + [_P] * 7 + [_I] * 3 + [_F, _F, _I, _P],

@@ -23,12 +23,17 @@ tiles, head_dim a multiple of 16 up to 64, n <= 320), whose attention is
 three TF32 ``mma`` products of split operands, about fp32's accuracy; head_dim
 up to 128, any n), whose attention takes its softmax online over chunks of 32
 keys. ``ffn_block_route`` picks ``ffn_block``'s: bf16 the tensor-core kernel
-(f a multiple of 8), fp32 the split-TF32 kernel. gelu is the TPU kernels'
-(``gelu_as``, the Abramowitz-Stegun erf). Each wrapper counts its launches
-in a plain integer attribute (``attn_block.launches``,
-``attn_block.hmean_launches``, ``ffn_block.launches``; ``attn_block.tc_launches``
-and ``ffn_block.tc_launches`` count the launches on the tensor cores: both
-routes of each).
+(f a multiple of 8), fp32 the split-TF32 kernel. Past width 384 (DeiT-Base's
+768) the FFN half runs as separate launches, its intermediates in device
+scratch: in bf16 an LN2 pass (``ln_rows_reference`` is its plain version,
+bit for bit), fc1 with gelu and fc2 with the residual on the TMA-fed
+``wgmma`` GEMM; ``ffn_plan`` gives the scratch, the tiles and the launches,
+and the wrapper allocates from it. gelu is the TPU kernels' (``gelu_as``,
+the Abramowitz-Stegun erf). Each wrapper counts its launches in a plain
+integer attribute (``attn_block.launches``, ``attn_block.hmean_launches``,
+``ffn_block.launches``, ``ffn_block.wide_launches``, ``ffn_ln_rows.launches``;
+``attn_block.tc_launches`` and ``ffn_block.tc_launches`` count the launches
+on the tensor cores: both routes of each).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from . import _build
+from .gemm import heavy_tiles, light_tiles
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TENSOR_CORE, SPLIT_TF32 = "tensor_core", "split_tf32"
@@ -236,7 +242,7 @@ attn_block.launches = attn_block.hmean_launches = attn_block.tc_launches = 0
 
 
 # csrc/encoder_block.cu: the one-launch kernels' widths up to 384, then
-# DeiT-Base's 768 on the two-product route (the hidden state in device memory)
+# DeiT-Base's 768 on the wide route (LN2 and the hidden state in device memory)
 _FFN_DIMS = (64, 128, 192, 256, 384, 768)
 _FFN_FUSED_MAX = 384
 
@@ -260,6 +266,109 @@ def ffn_block_route(dtype: torch.dtype, dim: int, f: int) -> str:
         raise ValueError(f"ffn_block takes a bfloat16 hidden width that is a multiple of 8, "
                          f"got {f}")
     return TENSOR_CORE
+
+
+class FfnPlan:
+    """The launches of one ``ffn_block`` call on ``rows`` rows of width
+    ``dim``, hidden width ``f``: ``route`` (``ffn_block_route``), ``wide``
+    (past width 384: a launch a step), ``launches`` (the kernels in order),
+    ``scratch`` (``{name: (shape, dtype)}``, the wrapper's device scratch)
+    and, on the bf16 wide route, ``tiles`` (``{product: (row tiles, column
+    tiles, columns)}`` of the TMA-fed GEMM, csrc/gemm.cuh)."""
+
+    def __init__(self, dtype: torch.dtype, rows: int, dim: int, f: int):
+        self.route = ffn_block_route(dtype, dim, f)
+        self.rows, self.dim, self.f = rows, dim, f
+        self.wide = dim > _FFN_FUSED_MAX
+        self.scratch, self.tiles = {}, {}
+        if not self.wide:
+            self.launches = ["ffn_tc_kernel" if self.route == TENSOR_CORE else "ffn_tf32_kernel"]
+        elif self.route == TENSOR_CORE:  # LN2(x), then gelu's output
+            self.launches = ["ln_rows_bf16_kernel", "gemm_wg_kernel", "gemm_wg_kernel"]
+            self.scratch = {"ln": ((rows, dim), dtype), "hidden": ((rows, f), dtype)}
+            self.tiles = {"fc1": heavy_tiles(rows, f), "fc2": light_tiles(rows, dim, False)}
+        else:  # LN2's (mean, rstd) a row, then gelu's output
+            self.launches = ["ln_stats_kernel", "linear_tf32_kernel", "linear_tf32_kernel"]
+            self.scratch = {"ln": ((rows, 2), torch.float32), "hidden": ((rows, f), dtype)}
+
+
+def ffn_plan(dtype: torch.dtype, rows: int, dim: int, f: int) -> FfnPlan:
+    """The launch plan of ``ffn_block`` on ``rows`` rows of this dtype and
+    width, hidden width ``f``; raises as ``ffn_block_route``."""
+    return FfnPlan(dtype, rows, dim, f)
+
+
+_LN_LANES, _LN_PIECE = 32, 8  # csrc/encoder_block.cu ln_rows_bf16_kernel: 8 values a piece
+
+
+def ln_rows_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                      eps: float) -> torch.Tensor:
+    """The bf16 wide FFN route's LN2 pass in plain PyTorch, bit for bit
+    (csrc/encoder_block.cu ``ln_rows_bf16_kernel``): x [..., dim] bf16 (dim a
+    multiple of 8) to round_bf16(LN2(x)). Lane l of a row's warp sums its
+    columns 8 (l + 32 i) + k in column order (s of v, s2 of v v: exact for
+    a bf16 v), then the xor tree 16, 8, 4, 2, 1; every operation in fp32,
+    each rounded on its own: computed in fp64 and rounded to fp32, which for
+    +, -, x, / and sqrt is the correctly rounded fp32 result on any device
+    (PyTorch's fp32 sqrt on the CPU is not). The same function as
+    ``layer_norm``, its sums in another order."""
+    dim = x.shape[-1]
+    if dim % _LN_PIECE:
+        raise ValueError(f"ln_rows_reference takes a width that is a multiple of 8, got {dim}")
+    xf = x.reshape(-1, dim).float()
+    rows, span = xf.shape[0], _LN_LANES * _LN_PIECE
+    pad = -dim % span
+    lanes = torch.nn.functional.pad(xf, (0, pad)).view(rows, -1, _LN_LANES, _LN_PIECE)
+    lanes = lanes.permute(0, 2, 1, 3).reshape(rows, _LN_LANES, -1).double()  # a lane's columns
+
+    def rn(t):  # an fp64 result rounded to fp32, held in fp64
+        return t.float().double()
+
+    s = torch.zeros(rows, _LN_LANES, dtype=torch.float64)
+    s2 = torch.zeros(rows, _LN_LANES, dtype=torch.float64)
+    for j in range(lanes.shape[-1]):
+        v = lanes[..., j]
+        s, s2 = rn(s + v), rn(s2 + v * v)  # v v: exact
+    lane = torch.arange(_LN_LANES)
+    for o in (16, 8, 4, 2, 1):
+        s, s2 = rn(s + s[:, lane ^ o]), rn(s2 + s2[:, lane ^ o])
+    # tensor divisors: a scalar one may be taken as a product by its reciprocal
+    n = torch.full((rows, 1), float(dim), dtype=torch.float64)
+    mean = rn(s[:, :1] / n)
+    var = torch.clamp(rn(rn(s2[:, :1] / n) - rn(mean * mean)), min=0.0)
+    eps32 = float(torch.tensor(eps, dtype=torch.float32))
+    rstd = rn(torch.ones_like(var) / rn(torch.sqrt(rn(var + eps32))))
+    y = rn(rn(rn(rn(xf.double() - mean) * rstd) * scale.double()) + bias.double())
+    return y.to(torch.bfloat16).reshape(x.shape)
+
+
+def ffn_ln_rows(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """The bf16 wide FFN route's LN2 pass alone, round_bf16(LN2(x)) of x
+    [..., dim] bf16 (dim a multiple of 8 up to 1024): the kernel on a CUDA
+    tensor, ``ln_rows_reference`` on a CPU one. ``ffn_block`` runs the same
+    kernel into its scratch; this launch is counted apart
+    (``ffn_ln_rows.launches``)."""
+    if x.device.type == "cpu":
+        return ln_rows_reference(x, ln_scale, ln_bias, eps)
+    dim = x.shape[-1]
+    ln_scale, ln_bias = ln_scale.float().contiguous(), ln_bias.float().contiguous()
+    _check("x", x, torch.bfloat16, x.shape)
+    _check("ln_scale", ln_scale, torch.float32, (dim,))
+    _check("ln_bias", ln_bias, torch.float32, (dim,))
+    if dim % 8 or dim > 1024 or any(t.data_ptr() % 16 for t in (x, ln_scale, ln_bias)):
+        raise ValueError(f"ffn_ln_rows takes 16-byte aligned rows of a multiple of 8 up to 1024 "
+                         f"values, got {dim}")
+    out = torch.empty_like(x)
+    err = _build.library().sn_ffn_ln_rows(x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+                                          out.data_ptr(), x.numel() // dim, dim, float(eps),
+                                          _stream())
+    _build.check(err, "ffn_ln_rows")
+    ffn_ln_rows.launches += 1
+    return out
+
+
+ffn_ln_rows.launches = 0
 
 
 def ffn_block(
@@ -289,27 +398,28 @@ def ffn_block(
     _check("b1", b1, dt, (f,))
     _check("w2", w2, dt, (dim, f))
     _check("b2", b2, dt, (dim,))
-    if any(t.data_ptr() % 16 for t in (x, w1, w2)):
-        raise ValueError("ffn_block: the tensor-core kernels load 16-byte chunks; x or a weight is "
-                         "not 16-byte aligned")
-    rows = x.numel() // dim
+    plan = ffn_plan(dt, x.numel() // dim, dim, f)
+    ln_pass = plan.wide and plan.route == TENSOR_CORE  # reads the LN parameters in 16 bytes
+    loaded = (x, w1, w2) + ((ln_scale, ln_bias) if ln_pass else ())
+    if any(t.data_ptr() % 16 for t in loaded):
+        raise ValueError("ffn_block: the tensor-core kernels load 16-byte chunks; x, a weight or "
+                         "an LN parameter is not 16-byte aligned")
     out = torch.empty_like(x)
-    hidden = stats = None
-    if dim > _FFN_FUSED_MAX:  # the two-product route: gelu's output, and fp32's LN2 statistics
-        hidden = torch.empty((rows, f), dtype=dt, device=x.device)
-        if dt == torch.float32:
-            stats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
+    scratch = {name: torch.empty(shape, dtype=sdt, device=x.device)
+               for name, (shape, sdt) in plan.scratch.items()}
+
+    def ptr(name):
+        return scratch[name].data_ptr() if name in scratch else None
+
     err = _build.library().sn_ffn_block(
         _DTYPES[dt], x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        hidden.data_ptr() if hidden is not None else None,
-        stats.data_ptr() if stats is not None else None, rows, dim, f, float(eps), _stream(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), ptr("hidden"), ptr("ln"),
+        plan.rows, dim, f, float(eps), _stream(),
     )
     _build.check(err, "ffn_block")
     ffn_block.launches += 1
     ffn_block.tc_launches += 1  # both routes run on the tensor cores
-    if dim > _FFN_FUSED_MAX:
-        ffn_block.wide_launches += 1
+    ffn_block.wide_launches += plan.wide
     return out
 
 

@@ -50,6 +50,8 @@ import torch
 from . import _build
 from .dropmask import hash_keep_mask, kernel_dropout_args, keep_scale
 from .encoder_block import _DTYPES, _SQRT_HALF, _check, _require_cuda, _stream, erf_as, gelu_as
+from .gemm import _HG_BK, _HG_BM, _SMS, _cdiv, heavy_tiles, light_tiles
+from .gemm import gemm_tile  # noqa: F401  (mlp.gemm_tile: the tile rule of the plan below)
 
 # csrc/mlp.cu: the one-launch kernels' widths, and the wide route's (each
 # product a launch, the hidden state in device memory) past them
@@ -60,17 +62,9 @@ _ROW_TILE = 32  # csrc/mlp.cu kMlpBM
 # row splits of the narrow tensor-core weight-gradient kernel: 12 x 36 tiles
 # at the stage-0 shape, ~3 blocks an SM; its rows go in steps of 32 (csrc/mlp.cu kWgK)
 _TC_SPLITS, _TC_ROW_STEP = 12, 32
-# the wide bf16 route's Hopper kernels (csrc/gemm.cuh, csrc/mlp.cu): 128-row
-# tiles of the dual product and the weight gradients, 64 of k a stage, the
-# tiles gemm_tile chooses from (consumer warpgroups of 64 rows, columns),
-# fc1's tile (an epilogue-heavy product: 192 rows, 128 columns), the dual
-# product's and the weight gradients' N tiles, and the SMs the rules assume
-# (an H100 SXM's; the rules read no device, so a shape gives the same tiles
-# and splits, and the same bits, on any card)
-_HG_BM, _HG_BK = 128, 64
-_KMAJOR_TILES, _MNMAJOR_TILES = ((2, 96), (2, 192), (3, 192)), ((2, 128), (2, 192), (3, 192))
-_HEAVY_BM, _HEAVY_N, _DUAL_N, _WGRAD_N = 192, 128, 128, 128
-_SMS = 132
+# the wide bf16 route's Hopper kernels (csrc/mlp.cu): the N tiles of the
+# dual product and the weight gradients (their rows: gemm.py's _HG_BM)
+_DUAL_N, _WGRAD_N = 128, 128
 # the split rule's model: a 64-row step of a 128 x 128 weight-gradient tile
 # at ~5 TFLOP/s an SM, and each split's fp32 partials written and read back
 # at ~3 TB/s
@@ -79,25 +73,6 @@ _PART_US_PER_BYTE = 1e6 / 3e12
 _MAX_SPLITS = 16
 FMA, TENSOR_CORE = "fma", "tensor_core"
 _INV_SQRT_2PI = 0.3989422804014327
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def gemm_tile(rows: int, n: int, mn_major: bool) -> Tuple[int, int]:
-    """csrc/gemm.cuh ``gemm_tile``: (rows, columns) of the tile of a bf16
-    wide-route product with a light epilogue over ``rows`` x ``n`` (B read
-    MN-major or K-major), the shape with the least rounds of persistent
-    blocks times its rows times (columns + 32); a tie goes to the later.
-    fc1 (gelu and the hash) takes ``_HEAVY_BM`` x ``_HEAVY_N``."""
-    best, best_cost = None, None
-    for nc, width in (_MNMAJOR_TILES if mn_major else _KMAJOR_TILES):
-        bm = 64 * nc
-        cost = _cdiv(_cdiv(rows, bm) * _cdiv(n, width), _SMS) * bm * (width + 32)
-        if best_cost is None or cost <= best_cost:
-            best, best_cost = (bm, width), cost
-    return best
 
 
 def wgrad_splits(rows: int, dim: int, f: int) -> int:
@@ -155,10 +130,9 @@ class MlpPlan:
             self.writes["da"] = rows * f
         self.tiles = {}
         if bf16 and self.wide:
-            for name, n, mn_major in (("fc2", dim, False), ("dx", dim, True)):
-                bm, width = gemm_tile(rows, n, mn_major)
-                self.tiles[name] = (_cdiv(rows, bm), _cdiv(n, width), width)
-            self.tiles["fc1"] = (_cdiv(rows, _HEAVY_BM), _cdiv(f, _HEAVY_N), _HEAVY_N)
+            self.tiles["fc2"] = light_tiles(rows, dim, False)
+            self.tiles["dx"] = light_tiles(rows, dim, True)
+            self.tiles["fc1"] = heavy_tiles(rows, f)
             self.tiles["h_da"] = (_cdiv(rows, _HG_BM), _cdiv(f, _DUAL_N), _DUAL_N)
             wg = (dim // _HG_BM, _cdiv(f, _WGRAD_N), _WGRAD_N)
             self.tiles["wgrad"] = wg

@@ -105,10 +105,92 @@ def test_bf16_moments_match_jax_adamw_lowmem_plus_projection(remove_self_loop):
     1e-5 relative (the kernel's bias corrections as reciprocals, the row
     sums in another order), m and v within one bf16 ulp of JAX's (a last-bit
     fp32 difference in the update can flip a rounding), stored in bf16."""
+    _bf16_moments_against_adamw_lowmem((4, 24, 24), remove_self_loop, seed=5)
+
+
+# ImageNet's atlas width (V_max = 500): vertex rows [K, V], and edge rows
+# [K, V, V] with their self loops removed, a few classes of each
+@pytest.mark.parametrize("shape,remove_self_loop", [((6, 500), False), ((2, 500, 500), True)])
+def test_bf16_moments_at_500_columns_match_jax_adamw_lowmem(shape, remove_self_loop):
+    """The same rule as above at the row width of the ImageNet atlas, whose
+    kernel route takes the rows in pieces of 4 columns. Each step starts
+    from JAX's state: over 10^5-10^6 elements a few stored moments differ by
+    their one ulp, and a later step carries that into p; within a step p
+    uses the step's fp32 moments, so it holds 1e-5."""
+    _bf16_moments_against_adamw_lowmem(shape, remove_self_loop, seed=7, resync=True)
+
+
+def test_matches_jax_kernel_at_500_columns():
+    """fp32 moments at 500 columns: the plain version against the JAX Pallas
+    kernel in interpret mode, 2 steps, p, m, v within 1e-5."""
+    rng = np.random.default_rng(8)
+    shape = (6, 500)
+    p0 = _project(_start(shape, rng)[None], False)[0]
+    p_t, m_t, v_t = torch.from_numpy(p0.copy()), torch.zeros(shape), torch.zeros(shape)
+    p_j, m_j, v_j = jnp.asarray(p0), jnp.zeros(shape), jnp.zeros(shape)
+    for step in range(2):
+        g = rng.normal(0.0, 0.05, size=shape).astype(np.float32)
+        ao.adamw_project_rows(p_t, torch.from_numpy(g), m_t, v_t, step, **HYPERS)
+        p_j, m_j, v_j = jax_adamw_project_rows(p_j, jnp.asarray(g), m_j, v_j,
+                                               jnp.asarray(step, jnp.int32), interpret=True,
+                                               **HYPERS)
+        for got, want in ((p_t, p_j), (m_t, m_j), (v_t, v_j)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-9,
+                                       err_msg=f"step {step}")
+
+
+F32, BF = torch.float32, torch.bfloat16
+
+
+# (rows, C, m and v dtypes, byte offsets of p, g, m, v) -> route, bytes of a
+# piece of p, g, m, v, pieces a lane: every atlas width the configs name
+# (ImageNet V = 500, CIFAR V = 1024, as edge [K V, V] and vertex [K, V]
+# rows), the scalar route of a width that is not a multiple of 4 (70) and
+# of bases at 8- and 4-byte offsets, and the block route past 1024
+@pytest.mark.parametrize("rows,c,mdt,offsets,route,piece,per", [
+    (500_000, 500, BF, (0, 0, 0, 0), "vector", (16, 16, 8, 8), 4),
+    (1000, 500, BF, (0, 0, 0, 0), "vector", (16, 16, 8, 8), 4),
+    (102_400, 1024, F32, (0, 0, 0, 0), "vector", (16, 16, 16, 16), 8),
+    (100, 1024, F32, (0, 0, 0, 0), "vector", (16, 16, 16, 16), 8),
+    (12_800, 128, F32, (0, 0, 0, 0), "vector", (16, 16, 16, 16), 4),
+    (10, 500, BF, (0, 0, 8, 8), "vector", (16, 16, 8, 8), 4),
+    (10, 500, F32, (0, 0, 8, 0), "scalar", (4, 4, 4, 4), 16),
+    (10, 500, BF, (0, 0, 4, 0), "scalar", (4, 4, 2, 2), 16),
+    (10, 500, F32, (4, 0, 0, 0), "scalar", (4, 4, 4, 4), 16),
+    (10, 1000, BF, (0, 16, 0, 8), "vector", (16, 16, 8, 8), 8),
+    (10, 70, F32, (0, 0, 0, 0), "scalar", (4, 4, 4, 4), 16),
+    (1, 513, BF, (0, 0, 0, 0), "scalar", (4, 4, 2, 2), 32),
+    (10, 4096, F32, (0, 0, 0, 0), "block", (4, 4, 4, 4), None),
+])
+def test_adamw_plan(rows, c, mdt, offsets, route, piece, per):
+    """The kernel's route and pieces from C and the pointers (csrc/
+    atlas_opt.cu adamw_project_rows_launch): four columns a piece where C
+    is a multiple of 4 and p, g and fp32 moments are 16-byte aligned, bf16
+    moments 8-byte; one otherwise; a block a row past 1024 columns. The
+    warp routes take a row a warp, 8 a block."""
+    base = 1 << 20
+    plan = ao.adamw_plan(rows, c, mdt, mdt, *(base + o for o in offsets))
+    assert plan.route == route
+    assert tuple(plan.piece_bytes[k] for k in "pgmv") == piece
+    assert plan.pieces_per_lane == per
+    if route == "block":
+        assert plan.blocks == rows
+    else:
+        assert plan.values_per_lane * 32 >= c  # the lanes of a warp cover the row
+        assert plan.blocks == -(-rows // 8)
+
+
+def test_adamw_plan_rejects_what_no_route_takes():
+    with pytest.raises(ValueError, match="columns"):
+        ao.adamw_plan(4, 4097)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ao.adamw_plan(4, 16, torch.float16)
+
+
+def _bf16_moments_against_adamw_lowmem(shape, remove_self_loop, seed, resync=False):
     from schemanet_tpu.train.common import adamw_lowmem
 
-    rng = np.random.default_rng(5)
-    shape = (4, 24, 24)
+    rng = np.random.default_rng(seed)
     p0 = _project(_start(shape, rng), remove_self_loop)
     p_t = torch.from_numpy(p0.copy())
     m_t = torch.zeros(shape, dtype=torch.bfloat16)
@@ -119,6 +201,10 @@ def test_bf16_moments_match_jax_adamw_lowmem_plus_projection(remove_self_loop):
     p_o, state = p0, tx.init(jnp.asarray(p0))
     for step in range(3):
         g = rng.normal(0.0, 0.05, size=shape).astype(np.float32)
+        if resync and step:
+            p_t.copy_(torch.from_numpy(np.asarray(p_o)))
+            for t, j in ((m_t, state[0].mu), (v_t, state[0].nu["full"])):
+                t.copy_(torch.from_numpy(np.asarray(j.astype(jnp.float32))))
         ao.adamw_project_rows(p_t, torch.from_numpy(g), m_t, v_t, step,
                               remove_self_loop=remove_self_loop, **HYPERS)
         updates, state = tx.update(jnp.asarray(g), state, jnp.asarray(p_o))

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from schemanet_torch.ops.kernels import encoder_block as eb
+from schemanet_torch.ops.kernels import mlp as mk
 from schemanet_tpu.ops.pallas import encoder_block as jeb
 from schemanet_tpu.ops.pallas.mlp import _kernel_activation
 from tests.test_torch_vq import _tf32
@@ -148,6 +149,81 @@ def test_ffn_block_route_rejects(dtype, dim, f, error, what):
     """No quiet fallback: what no ffn_block kernel takes raises."""
     with pytest.raises(error, match=what):
         eb.ffn_block_route(dtype, dim, f)
+
+
+# (dtype, rows, dim) -> launches, scratch and tiles of ffn_block: DeiT-Tiny
+# and DeiT-Small on the one-launch kernels; DeiT-Base's 768 in bf16 (the LN
+# pass, fc1 on 192 x 128 tiles, fc2 on gemm_tile's) and fp32 (statistics,
+# two split-TF32 products), at the serving microbatch's 12,608 rows and at 77
+@pytest.mark.parametrize("dtype,rows,dim", [
+    (torch.bfloat16, 12_608, 192), (torch.float32, 12_608, 192),
+    (torch.bfloat16, 12_608, 384), (torch.float32, 12_608, 384),
+    (torch.bfloat16, 12_608, 768), (torch.float32, 12_608, 768),
+    (torch.bfloat16, 77, 768),
+])
+def test_ffn_plan(dtype, rows, dim):
+    f = 4 * dim
+    plan = eb.ffn_plan(dtype, rows, dim, f)
+    assert plan.route == eb.ffn_block_route(dtype, dim, f)
+    if dim <= 384:
+        assert not plan.wide and plan.scratch == {} and plan.tiles == {}
+        assert plan.launches == ["ffn_tc_kernel" if dtype == torch.bfloat16 else "ffn_tf32_kernel"]
+    elif dtype == torch.bfloat16:
+        assert plan.launches == ["ln_rows_bf16_kernel", "gemm_wg_kernel", "gemm_wg_kernel"]
+        assert plan.scratch == {"ln": ((rows, dim), dtype), "hidden": ((rows, f), dtype)}
+        assert plan.tiles["fc1"] == (-(-rows // 192), f // 128, 128)
+        bm, bn = mk.gemm_tile(rows, dim, False)
+        assert plan.tiles["fc2"] == (-(-rows // bm), -(-dim // bn), bn)
+        if rows == 12_608:  # fc2 in one round of 132 persistent blocks
+            assert plan.tiles["fc2"] == (66, 4, 192)
+    else:
+        assert plan.launches == ["ln_stats_kernel", "linear_tf32_kernel", "linear_tf32_kernel"]
+        assert plan.scratch == {"ln": ((rows, 2), torch.float32), "hidden": ((rows, f), dtype)}
+
+
+# widths: DeiT-Base's; the smallest the kernel takes; one not a multiple of
+# a warp's 256 columns (pieces past the row's end masked)
+@pytest.mark.parametrize("dim", [768, 8, 392])
+def test_ln_rows_reference_is_the_layer_norm(dim):
+    """The wide route's LN2 pass (plain emulation of the kernel's order of
+    operations) against ``layer_norm`` and JAX's LN in bf16: within one bf16
+    ulp everywhere (the statistics sum in another order), equal on all but
+    a few elements."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(0.3, 1.5, size=(64, dim)).astype(np.float32)).bfloat16()
+    sc = torch.from_numpy(1 + 0.3 * rng.normal(size=dim).astype(np.float32))
+    bi = torch.from_numpy(0.3 * rng.normal(size=dim).astype(np.float32))
+    got = eb.ln_rows_reference(x, sc, bi, 1e-6)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.equal(eb.ffn_ln_rows(x, sc, bi, 1e-6), got)  # the CPU dispatch
+    want = eb.layer_norm(x, sc, bi, 1e-6).float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    assert bool(((got.float() - want).abs() <= ulp).all())
+    assert (got.float() != want).float().mean().item() <= 1e-3
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mean * mean
+    ref64 = ((xf.double() - mean.double()) / torch.sqrt(var.double() + 1e-6) * sc.double()
+             + bi.double())
+    assert (got.double() - ref64).abs().max().item() <= 2.0**-7 * ref64.abs().max().item()
+
+
+def test_wide_bf16_route_in_plain_holds_the_jax_ffn_block():
+    """The bf16 route at 768 in plain arithmetic, launch by launch: the LN
+    pass (``ln_rows_reference``), fc1 rounded once and b1 added in bf16,
+    gelu rounded, fc2 rounded once, b2 and the residual in bf16: against
+    JAX's bf16 ffn_block in interpret mode, the same tolerance as the
+    wrapper's (2e-2)."""
+    x, p = _ffn_inputs(np.random.default_rng(12), 2, 9, 768, 3072)
+    want = _np(_jax_ffn(x, p, "bfloat16"))
+    bf = torch.bfloat16
+    xt = _t(x).to(bf)
+    a = eb.ln_rows_reference(xt, _t(p["g"]), _t(p["b"]), 1e-6)
+    h = (a.float() @ _t(p["w1"]).to(bf).float()).to(bf) + _t(p["b1"]).to(bf)
+    hidden = eb.gelu_as(h)
+    y = (hidden.float() @ _t(p["w2"]).to(bf).float()).to(bf) + _t(p["b2"]).to(bf)
+    got = xt + y
+    np.testing.assert_allclose(_np(got), want, rtol=2e-2, atol=2e-2)
 
 
 def _split(t):

@@ -146,10 +146,13 @@ def test_ffn_block_kernel(dev, dtype, tol, rows, dim, f):
     assert _rel(got, eb.ffn_block_reference(*args)) <= tol
 
 
-@pytest.mark.parametrize("rows", [1000, 77])
+@pytest.mark.parametrize("rows", [12_608, 1000, 77])
 def test_ffn_block_wide_bf16(dev, rows):
-    """DeiT-Base's width in bf16: LN + fc1 + gelu, then fc2 + residual by the
-    TMA-fed wgmma GEMM; 77 rows leave most of a 128-row tile past the end."""
+    """DeiT-Base's width in bf16: the LN pass, fc1 + gelu and fc2 + residual
+    by the TMA-fed wgmma GEMM (12,608 rows: the serving microbatch; 77 leave
+    most of a 192-row tile past the end). Within 2e-2 of the plain version,
+    the same bits over two calls, and the LN pass's output bit for bit its
+    plain emulation's (computed on the CPU)."""
     dim, f = 768, 3072
     g = torch.Generator().manual_seed(2)
     args = (
@@ -161,7 +164,11 @@ def test_ffn_block_wide_bf16(dev, rows):
     got = eb.ffn_block(*args)
     torch.cuda.synchronize()
     assert eb.ffn_block.wide_launches == before + 1
+    assert eb.ffn_plan(torch.bfloat16, rows, dim, f).launches[0] == "ln_rows_bf16_kernel"
     assert _rel(got, eb.ffn_block_reference(*args)) <= 2e-2
+    assert torch.equal(got, eb.ffn_block(*args))
+    ln = eb.ffn_ln_rows(*args[:3])
+    assert torch.equal(ln.cpu(), eb.ln_rows_reference(*(t.cpu() for t in args[:3]), 1e-6))
 
 
 # rows of E 4-byte aligned (V = 70), 8-byte (196: instance graphs; 500:
@@ -314,6 +321,74 @@ def test_adamw_project_rows_kernel(dev, shape, remove_self_loop):
     for a, b in zip(got, want):
         assert _rel(a, b) <= 1e-5
     assert not p[0].any()
+
+
+def _within_bf16_ulp(got, want, terms):
+    """|got - want| <= one bf16 ulp of the larger, beyond the fp32 rounding
+    of the moment's sum b t + (1 - b) x (2^-22 of its terms' magnitudes):
+    chip_smoke.py phase 24's rule for bf16 moments."""
+    big = torch.maximum(got.float().abs(), want.float().abs()).clamp_min(1e-30)
+    tol = torch.exp2(torch.floor(torch.log2(big)) - 7) + 2.0**-22 * terms
+    return bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+BF = torch.bfloat16
+
+
+# (shape, moment dtype, project, remove_self_loop, route): the ImageNet edge
+# and vertex rows (V = 500, bf16 moments), CIFAR's (V = 1024, fp32), C = 70
+# on the scalar route, C = 4096 on the block route, one row, plain AdamW
+# (no projection), and the self loops of [K, V, V] edge rows
+@pytest.mark.parametrize("shape,mdt,project,loop,route", [
+    ((500_000, 500), BF, True, False, "vector"),
+    ((102_400, 1024), torch.float32, True, False, "vector"),
+    ((1000, 500), BF, True, False, "vector"),
+    ((100, 1024), torch.float32, True, False, "vector"),
+    ((333, 70), BF, True, False, "scalar"),
+    ((300, 70), torch.float32, True, False, "scalar"),
+    ((37, 4096), torch.float32, True, False, "block"),
+    ((1, 500), BF, True, False, "vector"),
+    ((1000, 500), BF, False, False, "vector"),
+    ((6, 500, 500), BF, True, True, "vector"),
+])
+def test_adamw_project_rows_routes(dev, shape, mdt, project, loop, route):
+    """The warp-a-row kernel (pieces of 4 columns or 1) and the block route
+    against the plain version: p within 1e-5 of max |p|, bf16 m and v within
+    one bf16 ulp beyond the fp32 rounding of their sums (fp32 ones within
+    1e-5), every output the same bits over two calls, in place."""
+    g = torch.Generator().manual_seed(6)
+    p0 = torch.rand(shape, generator=g).to(dev)
+    p0 /= p0.sum(-1, keepdim=True)
+    p0[0, ..., :7] = -1.0  # negative entries that the projection clamps
+    grad = _rnd(g, dev, *shape, scale=1e-4)
+    m0 = _rnd(g, dev, *shape, scale=1e-5).to(mdt)
+    v0 = (_rnd(g, dev, *shape, scale=1e-5) ** 2).to(mdt)
+    kw = dict(lr=1e-3, weight_decay=5e-4, project=project, remove_self_loop=loop)
+    plan = ao.adamw_plan(p0.numel() // shape[-1], shape[-1], mdt, mdt, p0.data_ptr(),
+                         grad.data_ptr(), m0.data_ptr(), v0.data_ptr())
+    assert plan.route == route
+    outs = []
+    for fn in (ao.adamw_project_rows, ao.adamw_project_rows, ao.adamw_project_rows_reference):
+        p, m, v = p0.clone(), m0.clone(), v0.clone()
+        before = ao.adamw_project_rows.vec_launches
+        got = fn(p, grad, m, v, 3, **kw)
+        assert got[0] is p and got[1] is m and got[2] is v
+        if fn is ao.adamw_project_rows:
+            assert ao.adamw_project_rows.vec_launches - before == (route == "vector")
+        outs.append((p, m, v))
+    torch.cuda.synchronize()
+    (pk, mk_, vk), (pk2, mk2, vk2), (pp, mp, vp) = outs
+    assert all(torch.equal(a, b) for a, b in ((pk, pk2), (mk_, mk2), (vk, vk2)))
+    assert _rel(pk, pp) <= 1e-5
+    if mdt == BF:
+        assert _within_bf16_ulp(mk_, mp, 0.9 * m0.float().abs() + 0.1 * grad.abs())
+        assert _within_bf16_ulp(vk, vp, 0.999 * v0.float().abs() + 0.001 * grad * grad)
+    else:
+        assert _rel(mk_, mp) <= 1e-5 and _rel(vk, vp) <= 1e-5
+    if loop:
+        assert not torch.diagonal(pk, dim1=-2, dim2=-1).any()
+    if project:
+        assert (pk >= 0).all()
 
 
 def test_training_kernels_reject_bad_inputs(dev):

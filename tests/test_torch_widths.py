@@ -11,10 +11,12 @@ Needs no GPU: the checks are plain Python."""
 
 import glob
 import os
+import re
 
 import pytest
 import torch
 
+from schemanet_torch.ops.kernels import atlas_opt as ao
 from schemanet_torch.ops.kernels import attention as ak
 from schemanet_torch.ops.kernels import encoder_block as eb
 from schemanet_torch.ops.kernels import graphconv as gc
@@ -68,7 +70,17 @@ def _gnn_shapes():
     return out
 
 
-VITS, GNNS = _vit_shapes(), _gnn_shapes()
+def _atlas_widths():
+    """(config, V) of every SchemaNet config's atlas: ``class_max_vertices``,
+    or the codebook's M (the file's ``M_<n>``) where it is null."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(ROOT, "*", "schema_net", "*.yaml"))):
+        v = get_cfg(path)["schema_net"].get("ir_atlas", {}).get("class_max_vertices")
+        out[_rel(path)] = v or int(re.search(r"M_(\d+)", os.path.basename(path)).group(1))
+    return out
+
+
+VITS, GNNS, ATLASES = _vit_shapes(), _gnn_shapes(), _atlas_widths()
 
 
 def test_the_configs_name_the_widths_this_checks():
@@ -104,6 +116,33 @@ def test_gnn_kernels_take_the_config(config, dtype):
     for v in vs:
         assert gc.conv_route(dtype, v, width)
     _ln_check_width(dtype, width)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp32"])
+@pytest.mark.parametrize("config", sorted(VITS))
+def test_ffn_plan_takes_the_config(config, dtype):
+    """ffn_block's launch plan at the config's widths and a serving
+    microbatch of 64 images: past 384 every scratch it allocates is named
+    with its shape, and the bf16 wide route's products have tiles."""
+    d, _, f, n = VITS[config]
+    plan = eb.ffn_plan(dtype, 64 * n, d, f)
+    assert plan.wide == (d > 384) and len(plan.launches) == (3 if plan.wide else 1)
+    if plan.wide:
+        assert plan.scratch["hidden"] == ((64 * n, f), dtype)
+        assert (dtype == torch.bfloat16) == bool(plan.tiles)
+
+
+@pytest.mark.parametrize("config", sorted(ATLASES))
+def test_adamw_plan_takes_the_config(config):
+    """adamw_project_rows at the config's atlas width: the edge rows [K V,
+    V] and vertex rows [K, V] take a warp a row in pieces of 4 columns (V a
+    multiple of 4, the tensors aligned), in fp32 and bf16 moments."""
+    v = ATLASES[config]
+    assert v % 4 == 0 and v <= 1024
+    for rows in (1000 * v, 1000):
+        for mdt in DTYPES:
+            plan = ao.adamw_plan(rows, v, mdt, mdt)
+            assert plan.route == "vector" and plan.values_per_lane * 32 >= v
 
 
 @pytest.mark.parametrize("check,args", [
