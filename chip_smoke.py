@@ -2,8 +2,9 @@
 the SchemaNet training step, stage 0 (fine-tuning the backbone), stage 1
 (codebook extraction), stage 3 (IR-Atlas initialisation), the
 loader-driven workers (training with validation, checkpoints and resume,
-and evaluation), and the ImageNet DeiT-Small configuration (serving, the
-stage-4 step and stage 0) with DeiT-Base's widths.
+and evaluation), the ImageNet DeiT-Small configuration (serving with its
+explanations, the stage-4 step and stage 0) with DeiT-Base's widths, the
+command line's stage chain, and the pretrained-weight loader.
 
 Both run the CIFAR-100 DeiT-Tiny configuration at full width (224^2 input,
 patch 16, 197 tokens, d=192, 3 heads, FFN 768, layers 0-9 of 12 frozen,
@@ -14,7 +15,8 @@ hand-written CUDA kernel on the two paths.
 Serving (``schemanet_torch.ServePredictor.predict``, microbatch 64, as
 ``tools/bench_serve.py``):
 
-1. device: name, count, and ``nvidia-smi`` name and power limit;
+1. device: name, count, ``nvidia-smi`` name and power limit, and whether
+   networkx is present (phase 32's GraphML export needs it);
 2. build: compiles ``schemanet_torch/csrc/*.cu``, one nvcc per file at once;
    prints the registers and spills of the tensor-core kernels (attention
    and its head-mean variant, GraphConv, the FFN forward and backward,
@@ -96,7 +98,10 @@ the fused update):
    4 sym_conv and 4 sym_conv_bwd, all on the tensor-core routes, 4
    fused_layernorm and 4 fused_layernorm_bwd on the 16-byte route, 2
    embed_grad on the 16-byte route, one of them (the class lookup) with the
-   atlas's plan, 2 adamw_project_rows);
+   atlas's plan, 2 adamw_project_rows); the GraphConv and LayerNorm
+   launches by shape (``launch_counts_by_shape``): 2 a step at the class
+   graphs' [100, 1024, 256] (rows 102,400 x 256) and 2 at the instance
+   graphs' [64, 196, 256] (rows 12,544 x 256), none at any other shape;
 10. timings: each training kernel beside its plain version; the device time
     of ``sym_conv``, ``sym_conv_bwd`` and ``embed_grad`` (``torch.profiler``;
     ``embed_grad`` unplanned, planned and at the instance ids, beside
@@ -107,7 +112,12 @@ the fused update):
     plain LayerNorm alone; the step split
     into frozen forward, graph build + GNN forward + loss, backward and
     optimizer (CUDA events); the device's idle share over 3 steps
-    (``torch.profiler``) and the peak device memory.
+    (``torch.profiler``), where the profile's ``sym_conv_tc_kernel``,
+    ``sym_conv_de_tc_kernel``, ``ln_fwd_kernel`` and ``ln_bwd_kernel``
+    launches must equal what the wrappers' launches by shape over the same
+    steps imply (a ``sym_conv_bwd`` is one dF product and one dE kernel),
+    and the peak device memory; the instance graphs' GraphConv device time
+    beside ``torch.bmm`` on a pre-formed E_sym (a note).
 
 Stage 0 (``schemanet_torch.train.backbone_trainer(...).train_iter``, the
 ``backbone_worker`` step of ``configs/cifar_100/vanilla/deit_tiny.yaml``: ViT
@@ -308,10 +318,48 @@ codebook; class ingredients drawn distinct a class from the 8000 codes):
     at 768, finite logits, p50/p99 latency of a microbatch and the
     profiler's device ms a microbatch;
     2 bf16 stage-0 steps with ``fused_mlp`` at 768 on the wide route,
-    finite losses, step ms, device ms a step and idle share. Depth not cut.
+    finite losses, step ms, device ms a step and idle share. Depth not cut;
+31. ``ServePredictor.explain_tensor`` on phase 25's predictor (bf16, K =
+    1000, M = 8000, V_max = 500), one microbatch of 64 (run after 25):
+    ``pred`` equal to ``predict_tensor``'s bit for bit, ``ingredients`` the
+    VQ ids of the same forward, the attribution bit for bit a gather of the
+    [K, M+1] table summed apart on the CPU in fp64 and rounded to fp32,
+    every output the same bits over two calls, the launch counts one predict
+    microbatch's; explain p50/p99 beside predict's p50. In fp32 at K = 100
+    (phase 26's predictor, run with 26): against the plain versions, ids >=
+    99.9% equal, ``pred`` within 1e-3 x max, the attribution equal wherever
+    the two sides' ids are.
+    Phase 27 also counts the GraphConv and LayerNorm launches by shape (class
+    graphs [1000, 500, 1024], rows 500,000 x 1024; instance graphs [64, 196,
+    1024], rows 12,544 x 1024), holds them to the profile as phase 10 does,
+    and times the instance graphs' GraphConv (beside ``torch.bmm`` on a
+    pre-formed E_sym, a note) and LayerNorm against their plain versions.
 
-Each of 24-30 prints its seconds (``phase_seconds``; ``imagenet_seconds``
+Each of 24-31 prints its seconds (``phase_seconds``; ``imagenet_seconds``
 sums them).
+
+The command line and the pretrained loader (``cli_phase``,
+``pretrained_phase``):
+
+32. the stage chain through ``schemanet_torch.cli`` at CIFAR DeiT-Tiny's full
+    width (12 layers, d 192, M 1024, K 100) on the synthetic dataset (128
+    training images, 64 validation), configs written as JSON (the card's
+    machine has no PyYAML): ``train --worker backbone_worker`` from a
+    reference-named ``.pth`` made from a seed (1000-class head, the head in
+    ``lax_names``; the worker must log the load), ``extract``, ``export``,
+    ``init``, ``train --worker schema_net_worker`` (one epoch of 2 steps,
+    ``max_keep`` 1), each through ``cli.main`` in this process, exit code 0
+    and its stage's kernels counted; then ``serve --explain --out`` (with
+    ``--graph-sample 0`` where networkx is present) as ``python -m
+    schemanet_torch.cli`` in a subprocess: exit 0, a top-k line an image, and
+    its ``.npz`` bit for bit ``load_serve_predictor(...).predict`` and
+    ``.explain`` in this process (with the subprocess's PyTorch defaults:
+    cuDNN in TF32), whose launches show the serving kernels;
+33. the pretrained loader at DeiT-Small's real shape: a reference-named
+    ``.pth`` from a seed (12 layers, d 384, 1000 classes) into a 100-class
+    ``backbone_trainer`` with the head in ``lax_names``: every loaded tensor
+    bit for bit the file's after the layout change (``pos_embed`` [n, 1, d]
+    -> [1, n, d]), the head its local initialisation, one bf16 step finite.
 
 Any failed check raises, so the script exits non-zero. Without a GPU it fails
 at once. Its last line is ``{"ok": true, "device": {...}}``; the line before
@@ -323,9 +371,15 @@ call's time, and its launches in the workers' runs (phases 20 and 23); the
 instantiations of phases 24-30 follow (``attn_block_d384``,
 ``attn_block_d768``, ``ffn_block_d384``, ``ffn_block_d768``,
 ``fused_mlp[_bwd]_d384`` and ``_d768``, ``fused_layernorm[_bwd]_d1024``,
-``adamw_project_rows_bf16``, ``sym_conv[_bwd]_imagenet``), each with the
-launches of the path that runs it. The VQ kernel's launches are stage 1's and the LayerNorm
-kernels' stage 0's; its error is the largest plain-score difference between
+``adamw_project_rows_bf16``, ``sym_conv[_bwd]_imagenet``, and the instance
+graphs' ``sym_conv[_bwd]_instance_imagenet`` and
+``fused_layernorm[_bwd]_instance_d1024``), each with the launches of the
+path that runs it. The GraphConv and the GNN's LayerNorm rows count their
+own shape's launches only: ``sym_conv[_bwd]`` and
+``fused_layernorm[_bwd]_gnn`` the class graphs', ``*_instance`` the
+instance graphs'. The VQ kernel's launches are stage 1's and the ViT's
+LayerNorm (``fused_layernorm[_bwd]``) stage 0's; its error is the largest
+plain-score difference between
 the kernel's code and the plain version's. ``ffn_block_fp32`` is
 ``ffn_block`` in fp32 (the split-TF32 kernel): stage 1's launches, the fp32
 error and times, its bound by three TF32 products a product.
@@ -395,6 +449,23 @@ LOSS_CFG = {"name": "schema_inference_loss"}
 LOSS_WEIGHTS = {"cls": 1.0, "re_entropy_vertex": 0.5, "re_entropy_edge": 0.75}
 BATCH = TRAIN_CFG["batch_size"]
 STEPS_PER_EPOCH = 50_000 // BATCH
+L_INST = (IMG // PATCH) ** 2  # patch tokens: the slots of an instance graph
+# the kernels line's rows of the GNN's GraphConv and LayerNorm: (counter,
+# shape) of the class graphs [K, V_max, D] and of the instance graphs of a
+# batch [64, L, D]; LayerNorm by (rows, D)
+GNN_ROWS = {
+    "sym_conv": ("sym_conv", (NUM_CLASSES, NUM_CODES, GNN_DIM)),
+    "sym_conv_instance": ("sym_conv", (BATCH, L_INST, GNN_DIM)),
+    "sym_conv_bwd": ("sym_conv_bwd", (NUM_CLASSES, NUM_CODES, GNN_DIM)),
+    "sym_conv_bwd_instance": ("sym_conv_bwd", (BATCH, L_INST, GNN_DIM)),
+    "fused_layernorm_gnn": ("fused_layernorm", (NUM_CLASSES * NUM_CODES, GNN_DIM)),
+    "fused_layernorm_gnn_instance": ("fused_layernorm", (BATCH * L_INST, GNN_DIM)),
+    "fused_layernorm_bwd_gnn": ("fused_layernorm_bwd", (NUM_CLASSES * NUM_CODES, GNN_DIM)),
+    "fused_layernorm_bwd_gnn_instance": ("fused_layernorm_bwd", (BATCH * L_INST, GNN_DIM)),
+}
+# stage 0's LayerNorm rows: the ViT's [64, 197, 192]
+S0_LN_ROWS = {"fused_layernorm": ("fused_layernorm", (BATCH * (L_INST + 1), EMBED_DIM)),
+              "fused_layernorm_bwd": ("fused_layernorm_bwd", (BATCH * (L_INST + 1), EMBED_DIM))}
 FP32_STEPS, BF16_STEPS, STEP_TIME_ITERS = 3, 5, 10
 # configs/cifar_100/vanilla/deit_tiny.yaml (stage 0), as backbone_trainer reads it
 STAGE0_CFG = {
@@ -482,6 +553,17 @@ W_EPOCHS, W_VAL_INTERVAL, W_PRINT, S0W_STEPS = 2, 15, 5, 5
 # in the repository: 224^2 images shipped as they are, no resize)
 IN_CLASSES, IN_CODES, IN_VMAX, IN_GNN, IN_FP32_CLASSES = 1000, 8000, 500, 1024, 100
 IN_DATA = {"name": "synthetic", "num_classes": IN_CLASSES, "image_size": IMG}
+# the ImageNet step's GraphConv and LayerNorm rows, as GNN_ROWS
+IN_GNN_ROWS = {
+    "sym_conv_imagenet": ("sym_conv", (IN_CLASSES, IN_VMAX, IN_GNN)),
+    "sym_conv_instance_imagenet": ("sym_conv", (BATCH, L_INST, IN_GNN)),
+    "sym_conv_bwd_imagenet": ("sym_conv_bwd", (IN_CLASSES, IN_VMAX, IN_GNN)),
+    "sym_conv_bwd_instance_imagenet": ("sym_conv_bwd", (BATCH, L_INST, IN_GNN)),
+    "fused_layernorm_d1024": ("fused_layernorm", (IN_CLASSES * IN_VMAX, IN_GNN)),
+    "fused_layernorm_instance_d1024": ("fused_layernorm", (BATCH * L_INST, IN_GNN)),
+    "fused_layernorm_bwd_d1024": ("fused_layernorm_bwd", (IN_CLASSES * IN_VMAX, IN_GNN)),
+    "fused_layernorm_bwd_instance_d1024": ("fused_layernorm_bwd", (BATCH * L_INST, IN_GNN)),
+}
 
 
 def vit_cfg(dim: int, heads: int, dropout) -> dict:
@@ -624,6 +706,47 @@ def device_time_by_name(prof) -> dict:
         if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
             out[evt.name] = out.get(evt.name, 0.0) + evt.time_range.elapsed_us()
     return out
+
+
+def device_counts_by_name(prof) -> dict:
+    """Device kernel launches by kernel name in a profile (user annotations
+    apart)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+            out[evt.name] = out.get(evt.name, 0) + 1
+    return out
+
+
+def row_launches(shapes: dict, rows: dict):
+    """(each row's launches, the launches no row takes) from a run's launches
+    by shape (``launch_counts_by_shape()``): ``rows`` maps a kernel-line row
+    to (its kernel's counter, its shape)."""
+    got = {row: shapes[kernel].get(tuple(shape), 0) for row, (kernel, shape) in rows.items()}
+    taken = {(kernel, tuple(shape)) for kernel, shape in rows.values()}
+    rest = {f"{kernel} {list(shape)}": n for kernel, by in shapes.items()
+            for shape, n in by.items() if (kernel, shape) not in taken and n}
+    return got, rest
+
+
+def profiled_conv_ln_launches(prof, shapes: dict):
+    """(the profile's launches, what the wrappers' launches by shape over the
+    same calls imply) of the GraphConv tensor-core and LayerNorm kernels: a
+    ``sym_conv`` call is one ``sym_conv_tc_kernel``, a ``sym_conv_bwd`` call
+    one more (dF) and one ``sym_conv_de_tc_kernel`` (dE, which every graph of
+    the stage-4 step needs), a LayerNorm call one ``ln_fwd_kernel`` or one
+    ``ln_bwd_kernel``."""
+    counts = device_counts_by_name(prof)
+    total = {kernel: sum(by.values()) for kernel, by in shapes.items()}
+    marks = ("sym_conv_tc_kernel", "sym_conv_de_tc_kernel", "ln_fwd_kernel", "ln_bwd_kernel")
+    got = {m: sum(n for name, n in counts.items() if m in name) for m in marks}
+    want = {"sym_conv_tc_kernel": total["sym_conv"] + total["sym_conv_bwd"],
+            "sym_conv_de_tc_kernel": total["sym_conv_bwd"],
+            "ln_fwd_kernel": total["fused_layernorm"],
+            "ln_bwd_kernel": total["fused_layernorm_bwd"]}
+    return got, want
 
 
 # marks of library GEMM kernels in profiled names: cuBLAS (and cuBLASLt's
@@ -869,7 +992,8 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
     from schemanet_torch.ops.kernels import atlas_opt as ao
     from schemanet_torch.ops.kernels import encoder_block as eb
     from schemanet_torch.ops.kernels import graphconv as gc
-    from schemanet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from schemanet_torch.ops.kernels import (launch_counts, launch_counts_by_shape,
+                                             reset_launch_counts)
     from schemanet_torch.ops.kernels import layernorm as lnk
     from schemanet_torch.ops.kernels import mlp as mk
     from schemanet_torch.pipeline.bundle import Bundle
@@ -890,8 +1014,12 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
         t_phase = now
         phase("phase_seconds", phase_name=name, seconds=seconds[name], **card_note)
 
-    def rnd(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=g) * scale).to(dev)
+    def rnd(*shape, scale=1.0, gen=None):
+        return (torch.randn(*shape, generator=gen or g) * scale).to(dev)
+
+    # the instance graphs' inputs from a generator of their own, so that the
+    # phases after them draw the same numbers as without them
+    g_inst = torch.Generator().manual_seed(31)
 
     def twice_equal(fn):
         a, b = fn(), fn()
@@ -1046,12 +1174,16 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
 
     # the LayerNorm at the ImageNet class graphs (relu) and the ViT widths
     ln_same = {}
+    ln_rows = {"d1024": "fused_layernorm_d1024",
+               "d1024_instance": "fused_layernorm_instance_d1024"}
     for tag, (rows_, d_, act) in {"d1024": (IN_CLASSES * IN_VMAX, IN_GNN, "relu"),
+                                  "d1024_instance": (BATCH * L_INST, IN_GNN, "relu"),
                                   "d384": (vit_rows, 384, "none"),
                                   "d768": (vit_rows, 768, "none")}.items():
-        x32 = rnd(rows_, d_)
-        sc, bi = 1 + rnd(d_, scale=0.1), rnd(d_, scale=0.1)
-        cot32 = rnd(rows_, d_)
+        gen = g_inst if tag == "d1024_instance" else g
+        x32 = rnd(rows_, d_, gen=gen)
+        sc, bi = 1 + rnd(d_, scale=0.1, gen=gen), rnd(d_, scale=0.1, gen=gen)
+        cot32 = rnd(rows_, d_, gen=gen)
         if act == "relu":  # no cotangent at a gate tie (|y| <= 1e-5 max |y|), as phase 15
             y = lnk.fused_layernorm_reference(x32, sc, bi, 1e-6, act)
             cot32 = torch.where(y.abs() <= 1e-5 * y.abs().max(), 0.0, cot32)
@@ -1061,7 +1193,8 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
             del y, yk
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
             xx, cc = x32.to(dt), cot32.to(dt)
-            label = f"fused_layernorm_{tag}" + ("" if dt == torch.bfloat16 else "_fp32")
+            label = (ln_rows.get(tag, f"fused_layernorm_{tag}")
+                     + ("" if dt == torch.bfloat16 else "_fp32"))
             compare(label, lnk.fused_layernorm, lnk.fused_layernorm_reference,
                     (xx, sc, bi, 1e-6, act), {}, dt, tol, errors)
             compare(label.replace("layernorm", "layernorm_bwd"), lnk.fused_layernorm_bwd,
@@ -1069,12 +1202,13 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
                     errors)
             ln_same[label] = twice_equal(lambda: lnk.fused_layernorm_bwd(xx, sc, bi, cc, 1e-6,
                                                                          act)[1:])
-            if tag == "d1024" and dt == torch.bfloat16:
-                row("fused_layernorm_d1024", (*ln_work(xx), "float32"),
+            if tag in ln_rows and dt == torch.bfloat16:
+                row(ln_rows[tag], (*ln_work(xx), "float32"),
                     time_ms(lambda: lnk.fused_layernorm(xx, sc, bi, 1e-6, act), iters),
                     time_ms(lambda: lnk.fused_layernorm_reference(xx, sc, bi, 1e-6, act), iters),
                     shape=list(xx.shape), act=act)
-                row("fused_layernorm_bwd_d1024", (*ln_work(xx, bwd=True), "float32"),
+                row(ln_rows[tag].replace("layernorm", "layernorm_bwd"),
+                    (*ln_work(xx, bwd=True), "float32"),
                     time_ms(lambda: lnk.fused_layernorm_bwd(xx, sc, bi, cc, 1e-6, act), iters),
                     time_ms(lambda: lnk.fused_layernorm_bwd_reference(xx, sc, bi, cc, 1e-6, act),
                             iters), shape=list(xx.shape), act=act)
@@ -1193,6 +1327,52 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
     require(serve_launches == expected, f"ImageNet serving launches {serve_launches} != {expected}")
     lap("25_imagenet_serve_bf16")
 
+    # 31. explain at ImageNet DeiT-Small, on phase 25's predictor (bf16,
+    # K = 1000, M = 8000, V_max = 500), one microbatch of 64
+    xb = images[:MICROBATCH]
+    reset_launch_counts()
+    ex = serve.explain_tensor(xb)
+    torch.cuda.synchronize()
+    explain_launches = launch_counts()
+    one_mb = {name: 0 for name in explain_launches}
+    one_mb.update({name: n // mbs for name, n in expected.items()})
+    ex_again = serve.explain_tensor(xb)
+    with torch.no_grad():
+        pred = serve.predict_tensor(xb)
+        ids = serve.predictor.ingredient_backbone(xb)["ingredients"]
+        atlas = serve.predictor.schema_net.get_atlas()
+    # the attribution built apart: the [K, M+1] table summed on the CPU in
+    # fp64, rounded to fp32, gathered by the VQ ids
+    cv = atlas["class_vertices"].float().cpu().double().numpy()
+    ci = atlas["class_ingredients"].long().cpu().numpy()
+    table = np.zeros((IN_CLASSES, IN_CODES + 1))
+    np.add.at(table, (np.arange(IN_CLASSES)[:, None], ci), cv)
+    grid = IMG // PATCH
+    want_attr = table.astype(np.float32)[:, ids.long().cpu().numpy().reshape(-1)].reshape(
+        IN_CLASSES, MICROBATCH, grid, grid).transpose(1, 0, 2, 3)
+    checks = {
+        "pred_equals_predict": bool(torch.equal(ex["pred"], pred)),
+        "ingredients_equal_vq_ids": bool(torch.equal(ex["ingredients"].reshape(ids.shape), ids)),
+        "attribution_equals_cpu_fp64_table": bool(np.array_equal(
+            ex["attribution"].cpu().numpy(), want_attr)),
+        "run_to_run_bitwise": all(torch.equal(ex[k], ex_again[k]) for k in ex),
+        "launches_equal_a_predict_microbatch": explain_launches == one_mb,
+    }
+    del ex, ex_again, want_attr, table
+    lat_ex = []
+    for _ in range(LATENCY_ITERS):
+        t0 = time.perf_counter()
+        serve.explain_tensor(xb)
+        torch.cuda.synchronize()
+        lat_ex.append((time.perf_counter() - t0) * 1e3)
+    phase("imagenet_explain_bf16", microbatch=MICROBATCH, classes=IN_CLASSES, codes=IN_CODES,
+          v_max=IN_VMAX, attribution_shape=[MICROBATCH, IN_CLASSES, grid, grid],
+          launches=explain_launches, expected=one_mb, **checks,
+          explain_p50_ms=float(np.percentile(lat_ex, 50)),
+          explain_p99_ms=float(np.percentile(lat_ex, 99)), predict_p50_ms=p50, **card_note)
+    require(all(checks.values()), f"ImageNet explain: {checks}")
+    lap("31_imagenet_explain_bf16")
+
     # 27. the ImageNet stage-4 step in bf16: the main path, counted, timed
     rng = np.random.default_rng(27)
     batches = [{"image": torch.from_numpy(rng.integers(0, 256, size=(BATCH, IMG, IMG, 3),
@@ -1206,6 +1386,7 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
     losses = [tr.train_iter(b)["loss"].item() for b in batches]
     first_steps_s = time.perf_counter() - t0
     train_launches = launch_counts()
+    gnn_path, gnn_rest = row_launches(launch_counts_by_shape(), IN_GNN_ROWS)
     expected = {name: 0 for name in train_launches}
     expected.update({"attn_block": FROZEN_LAYERS * BF16_STEPS, "attn_block_hmean": BF16_STEPS,
                      "attn_block_tc": FROZEN_LAYERS * BF16_STEPS,
@@ -1233,6 +1414,7 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for attempt in range(1, 6):  # a session without device events is taken again
+        reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for b in batches[:2]:
@@ -1244,27 +1426,31 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
         if busy_us:
             break
         phase("profile_empty", attempt=attempt, iters=2)
+    profiled, implied = profiled_conv_ln_launches(prof, launch_counts_by_shape())
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
     step_p50 = float(np.median(step_ms))
+    want_rows = {name: convs // 2 * BF16_STEPS for name in IN_GNN_ROWS}
     phase("imagenet_train_bf16", steps=BF16_STEPS, batch=BATCH, losses=losses,
-          launches=train_launches, expected=expected, moment_dtypes=moments,
+          launches=train_launches, expected=expected, launches_by_shape=gnn_path,
+          expected_by_shape=want_rows, other_shapes=gnn_rest, moment_dtypes=moments,
           first_steps_s=first_steps_s, step_ms=step_ms, p50_ms=step_p50,
           images_per_s=BATCH / step_p50 * 1e3, device_busy_ms_a_step=busy_us / 2e3,
           idle_share=1 - busy_us / wall_us if busy_us else None,
           top_device_ms_a_step={k: v / 2e3 for k, v in top}, peak_memory_gb=peak_gb,
-          **card_note)
+          profiled_launches=profiled, launches_by_shape_sum=implied, **card_note)
     require(all(np.isfinite(losses)), f"ImageNet bf16 stage-4 losses not finite: {losses}")
     require(train_launches == expected, f"ImageNet stage-4 launches {train_launches} != {expected}")
+    require(gnn_path == want_rows and not gnn_rest,
+            f"ImageNet GraphConv/LayerNorm launches by shape {gnn_path}, others {gnn_rest}")
+    require(profiled == implied, f"ImageNet stage-4 profile: GraphConv/LayerNorm launches "
+            f"{profiled} != the rows' sums {implied}")
     require(all(t == "torch.bfloat16" for m in moments.values() for t in m.values()),
             f"an atlas tensor's moment is not bf16: {moments}")
     require(busy_us > 0, "the ImageNet stage-4 profile holds no device time")
     launches_path = {"ffn_block_d384": train_launches["ffn_block"],
                      "attn_block_d384": train_launches["attn_block"],
-                     "fused_layernorm_d1024": train_launches["fused_layernorm"],
-                     "fused_layernorm_bwd_d1024": train_launches["fused_layernorm_bwd"],
                      "adamw_project_rows_bf16": train_launches["adamw_project_rows_bf16"],
-                     "sym_conv_imagenet": train_launches["sym_conv"],
-                     "sym_conv_bwd_imagenet": train_launches["sym_conv_bwd"]}
+                     **gnn_path}
     # the class graphs' GraphConv at [1000, 500, 1024], beside its plain version
     e16 = tr.model.schema_net.edge_weights.detach().to(torch.bfloat16)
     f16 = rnd(IN_CLASSES, IN_VMAX, IN_GNN).to(torch.bfloat16)
@@ -1283,7 +1469,28 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
             time_ms(lambda: gc.sym_conv_bwd(e16, f16, gout), iters),
             time_ms(lambda: gc.sym_conv_bwd_reference(e16, f16, gout), iters),
             shape=list(f16.shape))
-    del e16, f16, gout, tr, serve, batches, images
+    # the instance graphs' GraphConv at [64, 196, 1024]: attention-sized E, and
+    # beside it (a note: the products alone) torch.bmm on a pre-formed E_sym
+    e_i = (torch.rand(BATCH, L_INST, L_INST, generator=g_inst) / L_INST).to(dev, torch.bfloat16)
+    f_i, g_i = (rnd(BATCH, L_INST, IN_GNN, gen=g_inst).to(torch.bfloat16) for _ in range(2))
+    compare("sym_conv_instance_imagenet", gc.sym_conv, gc.sym_conv_reference, (e_i, f_i), {},
+            torch.bfloat16, BF16_TOL, errors)
+    compare("sym_conv_bwd_instance_imagenet", gc.sym_conv_bwd, gc.sym_conv_bwd_reference,
+            (e_i, f_i, g_i), {}, torch.bfloat16, BF16_TOL, errors)
+    inst_flops = 2 * BATCH * L_INST * L_INST * IN_GNN + 2 * BATCH * L_INST * L_INST
+    esym_i = gc.symmetrize_edges(e_i)
+    with torch.no_grad():
+        row("sym_conv_instance_imagenet", (inst_flops, nbytes(e_i, f_i, f_i), "bfloat16"),
+            time_ms(lambda: gc.sym_conv(e_i, f_i), iters),
+            time_ms(lambda: gc.sym_conv_reference(e_i, f_i), iters), shape=list(f_i.shape),
+            bmm_note_ms=time_ms(lambda: torch.bmm(esym_i, f_i), iters))
+        row("sym_conv_bwd_instance_imagenet",
+            (2 * inst_flops, nbytes(e_i, f_i, g_i, e_i, f_i), "bfloat16"),
+            time_ms(lambda: gc.sym_conv_bwd(e_i, f_i, g_i), iters),
+            time_ms(lambda: gc.sym_conv_bwd_reference(e_i, f_i, g_i), iters),
+            shape=list(f_i.shape), bmm_note_ms=time_ms(
+                lambda: (torch.bmm(esym_i, g_i), torch.bmm(g_i, f_i.transpose(1, 2))), iters))
+    del e16, f16, gout, e_i, f_i, g_i, esym_i, tr, serve, batches, images
     torch.cuda.empty_cache()
     lap("27_imagenet_train_bf16")
 
@@ -1329,7 +1536,25 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
     require(tuple(logits_k.shape) == (N_IMAGES, IN_FP32_CLASSES), "ImageNet fp32 logits shape")
     require(agree >= 0.999, f"ImageNet fp32 VQ ids agree on {agree:.5f} < 0.999 of tokens")
     require(logit_err <= 1e-3 * scale, f"ImageNet fp32 logits differ by {logit_err}")
-    del s32, m32, logits_k, logits_p, images
+    # 31 (fp32, K = 100): explain against the plain versions, phase 26's rule;
+    # the attribution equal where the two sides' tokens took one code
+    with torch.no_grad():
+        ex_k = s32.explain_tensor(images[:MICROBATCH])
+        ex_p = with_plain(lambda: s32.explain_tensor(images[:MICROBATCH]))
+    torch.cuda.synchronize()
+    same_id = ex_k["ingredients"] == ex_p["ingredients"]
+    ex_agree = same_id.float().mean().item()
+    ex_scale = ex_p["pred"].abs().max().item()
+    ex_err = (ex_k["pred"] - ex_p["pred"]).abs().max().item()
+    attr_same = bool(torch.equal(ex_k["attribution"].permute(0, 2, 3, 1)[same_id],
+                                 ex_p["attribution"].permute(0, 2, 3, 1)[same_id]))
+    phase("imagenet_explain_fp32", classes=IN_FP32_CLASSES, vq_id_agreement=ex_agree,
+          pred_max_abs_err=ex_err, pred_scale=ex_scale, tol=1e-3 * ex_scale,
+          attribution_equal_at_equal_ids=attr_same)
+    require(ex_agree >= 0.999 and ex_err <= 1e-3 * ex_scale and attr_same,
+            f"ImageNet fp32 explain against the plain versions: ids {ex_agree}, pred err "
+            f"{ex_err}, attribution equal {attr_same}")
+    del s32, m32, logits_k, logits_p, images, ex_k, ex_p
     torch.cuda.empty_cache()
     lap("26_imagenet_serve_fp32")
 
@@ -1591,7 +1816,8 @@ def worker_phases(dev, work_dir: str, bundle_dir: str, atlas_path: str, card_not
     from schemanet_torch.data import build_loaders, device_prefetch
     from schemanet_torch.data.augment import get_augmentation, resize_normalize_reference
     from schemanet_torch.data.loader import DataLoader
-    from schemanet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from schemanet_torch.ops.kernels import (launch_counts, launch_counts_by_shape,
+                                             reset_launch_counts)
     from schemanet_torch.pipeline import load_bundle
     from schemanet_torch.schema import build_predictor, get_loss_fn
     from schemanet_torch.train import (CBEvaluation, CheckpointManager, Evaluation, LaunchArgs,
@@ -1683,6 +1909,7 @@ def worker_phases(dev, work_dir: str, bundle_dir: str, atlas_path: str, card_not
             mock.patch.object(CheckpointManager, "save", timed(real_save, "save_s")):
         run_a = schema_net_worker(s4_cfg, LaunchArgs(seed=0, log_dir=full_dir, device=str(dev)))
     s4_launches = launch_counts()
+    s4_shapes = launch_counts_by_shape()
     steps = W_EPOCHS * len(train_loader)
     fwd = steps + 3 * len(val_loader)  # training forwards and 3 validations' batches
     expected = {name: 0 for name in s4_launches}  # no stage-0 kernel
@@ -1864,6 +2091,7 @@ def worker_phases(dev, work_dir: str, bundle_dir: str, atlas_path: str, card_not
     reset_launch_counts()
     run_b = backbone_worker(s0_cfg, LaunchArgs(seed=0, log_dir=s0_dir, device=str(dev)))
     s0w_launches = launch_counts()
+    s0w_shapes = launch_counts_by_shape()
     fwd = 2 * len(val_loader)  # the initial and the final validation
     layer = S0_LAYERS
     expected = {name: 0 for name in s0w_launches}  # no SchemaNet kernel
@@ -1895,7 +2123,235 @@ def worker_phases(dev, work_dir: str, bundle_dir: str, atlas_path: str, card_not
             f"eval_worker {evaluated} != the worker's final validation {b_final}")
     del run_b
     torch.cuda.empty_cache()
-    return {"schema_net_worker": s4_launches, "backbone_worker": s0w_launches}
+    # the kernels line's rows: the GraphConv and LayerNorm launches by shape
+    rows = {**GNN_ROWS, **S0_LN_ROWS}
+    return {"schema_net_worker": {**s4_launches, **row_launches(s4_shapes, rows)[0]},
+            "backbone_worker": {**s0w_launches, **row_launches(s0w_shapes, rows)[0]}}
+
+
+def reference_deit_state(dim: int, classes: int, layers: int = 12, seed: int = 0) -> dict:
+    """A reference-named ViT/DeiT state dict at 224^2, patch 16, FFN 4 d, from
+    a seed (fp32): the reference's module tree (``transformer.layers.N.
+    attention.linear_qkv.weight`` ...), Linear weights [out, in], the conv
+    OIHW, ``pos_embed.pos_embed`` [n, 1, d], as ``weights/deit_*_patch16_224.pth``
+    holds under its ``model`` entry."""
+    g = torch.Generator().manual_seed(seed)
+
+    def t(*shape, scale=0.02):
+        return torch.randn(*shape, generator=g) * scale
+
+    sd = {"cls_token": t(1, 1, dim), "pos_embed.pos_embed": t(L_INST + 1, 1, dim),
+          "patch_embed.proj.weight": t(dim, 3, PATCH, PATCH), "patch_embed.proj.bias": t(dim),
+          "transformer.norm.weight": 1 + t(dim), "transformer.norm.bias": t(dim),
+          "cls_head.weight": t(classes, dim), "cls_head.bias": t(classes)}
+    for i in range(layers):
+        p = f"transformer.layers.{i}."
+        sd.update({p + "attention.linear_qkv.weight": t(3 * dim, dim, scale=dim**-0.5),
+                   p + "attention.linear_qkv.bias": t(3 * dim),
+                   p + "attention.linear_out.weight": t(dim, dim, scale=dim**-0.5),
+                   p + "attention.linear_out.bias": t(dim),
+                   p + "mlp.linear1.weight": t(4 * dim, dim, scale=dim**-0.5),
+                   p + "mlp.linear1.bias": t(4 * dim),
+                   p + "mlp.linear2.weight": t(dim, 4 * dim, scale=(4 * dim) ** -0.5),
+                   p + "mlp.linear2.bias": t(dim),
+                   p + "norm1.weight": 1 + t(dim), p + "norm1.bias": t(dim),
+                   p + "norm2.weight": 1 + t(dim), p + "norm2.bias": t(dim)})
+    return sd
+
+
+def save_reference(path: str, sd: dict) -> str:
+    """``sd`` as the reference's checkpoints wrap it: a ``model`` entry,
+    ``module.`` prefixes."""
+    torch.save({"model": {f"module.{k}": v for k, v in sd.items()}}, path)
+    return path
+
+
+HEAD_LAX = ["cls_head.weight", "cls_head.bias"]
+
+
+def cli_phase(work_dir: str, has_networkx: bool, card_note: dict, device: str = "cuda") -> dict:
+    """Phase 32: the stage chain through the command line at CIFAR DeiT-Tiny's
+    full width (12 layers, d 192, M 1024, K 100) on the synthetic dataset
+    (128 training images at 32^2 resized to 224^2 on the card, 64 for
+    validation; one epoch of 2 steps a worker), configs written as JSON:
+    ``train`` (backbone_worker from a reference-named ``.pth`` with a
+    1000-class head, the head in ``lax_names``), ``extract``, ``export``,
+    ``init``, ``train`` (schema_net_worker), each through ``cli.main`` in
+    this process with its launches counted; then ``serve --explain --out``
+    (and ``--graph-sample 0`` where networkx is present) as ``python -m
+    schemanet_torch.cli`` in a subprocess; its ``.npz`` must equal
+    ``load_serve_predictor(...).predict`` and ``.explain`` in this process bit
+    for bit. ``device`` goes to every call's ``--device`` (the default,
+    cuda, on the card). Returns each stage's seconds."""
+    import logging
+
+    from schemanet_torch import cli, load_serve_predictor
+    from schemanet_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    root = os.path.join(work_dir, "cli")
+    os.makedirs(os.path.join(root, "datasets"))
+
+    def write(name, cfg):
+        path = os.path.join(root, name)
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        return path
+
+    write("datasets/synthetic.json",
+          {"name": "synthetic", "num_classes": NUM_CLASSES, "image_size": 32, "resize": IMG,
+           "train": {"num_samples": 2 * BATCH}, "val": {"num_samples": BATCH}})
+    layers = STAGE0_CFG["model"]["transformer"]["num_encoder_layers"]
+    pth = save_reference(os.path.join(root, "deit_tiny_patch16_224.pth"),
+                         reference_deit_state(EMBED_DIM, 1000, layers))
+    loop = {"train_epochs": 1, "batch_size": BATCH, "num_workers": 4, "val_interval": 1000,
+            "max_keep": 1}
+    val = {"batch_size": BATCH, "num_workers": 4}
+    vanilla = write("vanilla.json", {
+        "dataset": "datasets/synthetic.json", "training": dict(STAGE0_CFG["training"], **loop),
+        "validation": val, "model": dict(STAGE0_CFG["model"], pre_train=pth, lax_names=HEAD_LAX),
+        "loss": STAGE0_CFG["loss"]})
+    ingredient = write("ingredient.json", {"dataset": "datasets/synthetic.json",
+                                           "model": STAGE0_CFG["model"],
+                                           "discretization": STAGE1_CFG["discretization"]})
+    schema_cfg = dict(SCHEMA_CFG, bundle=os.path.join(root, "bundle"),
+                      initial_state_fp=os.path.join(root, "atlas.pt"))
+    schema = write("schema.json", {
+        "dataset": "datasets/synthetic.json",
+        "training": dict(TRAIN_CFG, dtype="bfloat16", **loop), "validation": val,
+        "schema_net": schema_cfg, "loss": dict(LOSS_CFG, weight_dict=LOSS_WEIGHTS)})
+    codes = os.path.join(root, "codes", f"cluster_{NUM_CODES}_from_{2 * BATCH * L_INST}.npy")
+    s0_ckpt, s4_ckpt = os.path.join(root, "s0", "ckpt"), os.path.join(root, "s4", "ckpt")
+    stages = [
+        ("train_backbone_worker", ["train", "--cfg", vanilla, "--worker", "backbone_worker"],
+         ("fused_mhsa", "fused_mhsa_bwd", "fused_mlp", "fused_mlp_bwd", "fused_layernorm",
+          "fused_layernorm_bwd", "attn_block", "ffn_block")),
+        ("extract", ["extract", "--cfg", ingredient, "--ckpt", s0_ckpt, "--save-path",
+                     os.path.dirname(codes), "--max-features", str(2 * BATCH * L_INST),
+                     "--batch-size", str(BATCH)],
+         ("attn_block", "ffn_block", "vq_assign")),
+        ("export", ["export", "--cfg", ingredient, "--ckpt", s0_ckpt, "--vocabulary-fp", codes,
+                    "--save-path", schema_cfg["bundle"], "--num-classes", str(NUM_CLASSES)], ()),
+        ("init", ["init", "--cfg", schema, "--save-fp", schema_cfg["initial_state_fp"],
+                  "--batch-size", str(BATCH // 2)],
+         ("attn_block", "attn_block_hmean", "ffn_block", "vq_assign")),
+        ("train_schema_net_worker", ["train", "--cfg", schema, "--worker", "schema_net_worker"],
+         ("attn_block", "attn_block_hmean", "ffn_block", "vq_assign", "sym_conv", "sym_conv_bwd",
+          "fused_layernorm", "fused_layernorm_bwd", "embed_grad", "adamw_project_rows")),
+    ]
+    log_dirs = {"train_backbone_worker": "s0", "train_schema_net_worker": "s4"}
+    seconds = {}
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    logging.getLogger("schemanet_torch.train.workers").addHandler(handler)
+    try:
+        for stage, argv, want in stages:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(argv + ["--seed", "0", "--device", device, "--log-dir",
+                                  os.path.join(root, log_dirs.get(stage, stage))])
+            torch.cuda.synchronize()
+            seconds[stage] = time.perf_counter() - t0
+            counts = {k: v for k, v in launch_counts().items() if v}
+            phase("cli", stage=stage, exit_code=rc, seconds=seconds[stage], launches=counts)
+            require(rc == 0, f"cli {stage}: exit code {rc}")
+            require(all(counts.get(k, 0) > 0 for k in want),
+                    f"cli {stage}: a kernel of {want} did not launch ({counts})")
+    finally:
+        logging.getLogger("schemanet_torch.train.workers").removeHandler(handler)
+    loaded = any(m.startswith("loaded pretrain weights") for m in messages)
+    require(loaded, "cli train backbone_worker: the pre_train file was not loaded")
+    require(os.path.isfile(codes) and os.path.isfile(codes.replace(".npy", ".pth")),
+            f"cli extract: {codes} or its .pth is missing")
+
+    n_images = MICROBATCH + 6  # two microbatches, the second padded
+    npz = os.path.join(root, "served.npz")
+    argv = [sys.executable, "-m", "schemanet_torch.cli", "serve", "--cfg", schema, "--ckpt",
+            s4_ckpt, "--images", f"synthetic:{n_images}", "--explain", "--out", npz,
+            "--log-dir", os.path.join(root, "serve"), "--device", device]
+    if has_networkx:
+        argv += ["--graph-sample", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    seconds["serve_subprocess"] = time.perf_counter() - t0
+    top = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{"index"')]
+    phase("cli", stage="serve", exit_code=proc.returncode, seconds=seconds["serve_subprocess"],
+          lines=len(top), stderr_tail=proc.stderr[-2000:] if proc.returncode else "")
+    require(proc.returncode == 0, f"cli serve: exit code {proc.returncode}")
+    require(len(top) == n_images, f"cli serve printed {len(top)} top-k lines, not {n_images}")
+    graphml = npz + ".sample0.graphml"
+    require(not has_networkx or os.path.isfile(graphml), "cli serve: no GraphML written")
+
+    # the same server in this process, with the subprocess's PyTorch defaults
+    # (cuDNN convolutions in TF32: the fp32 patch embedding)
+    saved = np.load(npz)
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        server = load_serve_predictor(schema_cfg["bundle"], schema_cfg, s4_ckpt, NUM_CLASSES,
+                                      microbatch=MICROBATCH, device=device)
+        images = np.random.default_rng(0).normal(size=(n_images, IMG, IMG, 3)).astype(np.float32)
+        reset_launch_counts()
+        logits = server.predict(images)
+        explained = server.explain(images)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    equal = {"logits": bool(np.array_equal(saved["logits"], logits)),
+             **{k: bool(np.array_equal(saved[k], v)) for k, v in explained.items()}}
+    phase("cli_serve_vs_in_process", images=n_images, keys=sorted(saved.files), bitwise=equal,
+          attribution_shape=list(saved["attribution"].shape), launches=counts,
+          graphml=has_networkx, **card_note)
+    require(all(equal.values()), f"cli serve .npz differs from the in-process server: {equal}")
+    require(all(counts.get(k, 0) > 0 for k in ("attn_block", "attn_block_hmean", "ffn_block",
+                                               "vq_assign", "sym_conv", "fused_layernorm")),
+            f"serving from the CLI's files: a kernel did not launch ({counts})")
+    del server
+    torch.cuda.empty_cache()
+    return seconds
+
+
+def pretrained_phase(dev, work_dir: str, card_note: dict) -> None:
+    """Phase 33: the pretrained loader at DeiT-Small's real shape: a
+    reference-named ``.pth`` from a seed (12 layers, d 384, 1000 classes)
+    into a 100-class ``backbone_trainer`` (``configs/imagenet/vanilla/
+    deit_small.yaml`` with ``pre_train`` and the head in ``lax_names``):
+    every loaded tensor equals the file's after the layout change bit for
+    bit, the head keeps its local initialisation, and one bf16 stage-0 step
+    is finite."""
+    from schemanet_torch.models.vit import get_model
+    from schemanet_torch.schema import init_parameters_
+    from schemanet_torch.train import backbone_trainer
+
+    sd = reference_deit_state(384, 1000, seed=33)
+    path = save_reference(os.path.join(work_dir, "deit_small_patch16_224.pth"), sd)
+    cfg = vanilla_cfg(384, 6)
+    cfg["model"] = dict(cfg["model"], pre_train=path, lax_names=HEAD_LAX)
+    t0 = time.perf_counter()
+    tr = backbone_trainer(cfg, IN_STEPS_PER_EPOCH, seed=0, device=dev, num_classes=100)
+    load_s = time.perf_counter() - t0
+    got = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+    local = init_parameters_(get_model(cfg["model"], 100),
+                             torch.Generator().manual_seed(0)).state_dict()
+    loaded = {k: bool(torch.equal(got[k], v.permute(1, 0, 2) if k == "pos_embed.pos_embed" else v))
+              for k, v in sd.items() if k not in HEAD_LAX}
+    head_local = all(torch.equal(got[k], local[k]) for k in HEAD_LAX)
+    g = torch.Generator().manual_seed(33)
+    batch = {"image": torch.randn(BATCH, IMG, IMG, 3, generator=g).to(dev),
+             "label": torch.randint(0, 100, (BATCH,), generator=g).to(dev)}
+    loss = tr.train_iter(batch)["loss"].item()
+    phase("pretrained_deit_small", tensors=len(sd), loaded_bitwise=sum(loaded.values()),
+          same_keys=set(got) == set(sd), head_keeps_local_init=head_local, step_loss=loss,
+          load_s=load_s, **card_note)
+    require(set(got) == set(sd) and all(loaded.values()),
+            f"pretrained load: keys differ or tensors differ from the file: "
+            f"{[k for k, v in loaded.items() if not v][:5]}")
+    require(head_local, "pretrained load: the head in lax_names did not keep its local init")
+    require(np.isfinite(loss), f"pretrained stage-0 step: loss {loss}")
+    del tr
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -1912,7 +2368,8 @@ def main() -> None:
     from schemanet_torch.ops.kernels import embed_bwd as ek
     from schemanet_torch.ops.kernels import encoder_block as eb
     from schemanet_torch.ops.kernels import graphconv as gc
-    from schemanet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from schemanet_torch.ops.kernels import (launch_counts, launch_counts_by_shape,
+                                             reset_launch_counts)
     from schemanet_torch.ops.kernels import layernorm as lnk
     from schemanet_torch.ops.kernels import mlp as mk
     from schemanet_torch.ops.kernels import vq as vqk
@@ -1942,8 +2399,11 @@ def main() -> None:
     card = f"{kind} ({smi.split(',')[-1].strip()} limit)"
     card_note = {"card": card}
     print(smi, flush=True)
+    import importlib.util
+
+    has_networkx = importlib.util.find_spec("networkx") is not None  # the GraphML export's
     phase("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
-          torch=torch.__version__, cuda=torch.version.cuda)
+          torch=torch.__version__, cuda=torch.version.cuda, networkx=has_networkx)
 
     # 2. build
     t0 = time.perf_counter()
@@ -2005,8 +2465,8 @@ def main() -> None:
     # 3. each serving kernel against its plain version at the serving shapes
     g = torch.Generator().manual_seed(0)
 
-    def rnd(*shape, scale=1.0, dtype=torch.float32):
-        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+    def rnd(*shape, scale=1.0, dtype=torch.float32, gen=None):
+        return (torch.randn(*shape, generator=gen or g) * scale).to(dev, dtype)
 
     d, f, heads = EMBED_DIM, FFN_DIM, HEADS
     v_inst = (IMG // PATCH) ** 2
@@ -2470,6 +2930,7 @@ def main() -> None:
     metrics = [tr16.train_iter(batch) for batch in batches]
     torch.cuda.synchronize()
     train_launches = launch_counts()
+    train_shapes = launch_counts_by_shape()
     losses16 = [m["loss"].item() for m in metrics]
     expected = {name: 0 for name in train_launches}  # no stage-0 kernel
     expected.update({"attn_block": FROZEN_LAYERS * BF16_STEPS, "attn_block_hmean": BF16_STEPS,
@@ -2494,6 +2955,15 @@ def main() -> None:
                 for name in ("sym_conv", "sym_conv_bwd", "attn_block", "ffn_block", "vq_assign")),
             "a bf16 GraphConv, attn_block, ffn_block or vq_assign launch of the stage-4 step "
             "missed the tensor-core kernels")
+    # the GNN's GraphConv and LayerNorm launches by shape: class graphs
+    # [K, V_max, D] and instance graphs [bs, L, D] (rows K V_max and bs L),
+    # half of each kernel's launches each
+    gnn_path, gnn_rest = row_launches(train_shapes, GNN_ROWS)
+    want_rows = {name: GNN_CONVS // 2 * BF16_STEPS for name in GNN_ROWS}
+    phase("train_bf16_by_shape", launches=gnn_path, expected=want_rows, other_shapes=gnn_rest)
+    require(gnn_path == want_rows and not gnn_rest,
+            f"stage-4 GraphConv/LayerNorm launches by shape {gnn_path}, others {gnn_rest} != "
+            f"{want_rows}")
 
     # 10. timings: training kernels, the step, its split, idle share, memory
     for name, case in train_cases.items():
@@ -2568,6 +3038,20 @@ def main() -> None:
           bmm_fwd_device_ms=device_ms(lambda: torch.bmm(esym, f16)),
           bmm_bwd_ms=time_ms(bwd_products, TIME_ITERS), bmm_bwd_device_ms=device_ms(bwd_products),
           **card_note)
+    del esym, conv_args, bwd_args, f16, g16
+    # the same at the instance graphs' shape [64, 196, 256]
+    conv_args = cases["sym_conv_instance"](torch.bfloat16)[2]
+    bwd_args = train_cases["sym_conv_bwd_instance"](torch.bfloat16)[2]
+    esym = gc.symmetrize_edges(conv_args[0])
+    f16, g16 = bwd_args[1], bwd_args[2]
+    phase("kernel_time", kernel="sym_conv_instance_device", dtype="bfloat16",
+          shape=list(f16.shape), device_ms={
+              "sym_conv_instance": device_ms(lambda: gc.sym_conv(*conv_args)),
+              "sym_conv_bwd_instance": device_ms(lambda: gc.sym_conv_bwd(*bwd_args))},
+          ms={k: times[k][0] for k in ("sym_conv_instance", "sym_conv_bwd_instance")},
+          note="bmm_*: torch.bmm on a pre-formed E_sym, the products alone; not library_ms",
+          bmm_fwd_ms=time_ms(lambda: torch.bmm(esym, conv_args[1]), TIME_ITERS),
+          bmm_bwd_ms=time_ms(bwd_products, TIME_ITERS), **card_note)
     del esym, conv_args, bwd_args, f16, g16
     # the one PyTorch call that computes embed_grad's function: index_add_
     # into an fp32 table, of the same cotangents made fp32 beforehand
@@ -2650,18 +3134,29 @@ def main() -> None:
           **card_note)
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for batch in batches[:3]:
-            tr16.train_iter(batch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_kernel = device_time_by_name(prof)
-    busy_us = sum(by_kernel.values())
+    for attempt in range(1, 6):  # a session without device events is taken again
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for batch in batches[:3]:
+                tr16.train_iter(batch)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by_kernel = device_time_by_name(prof)
+        busy_us = sum(by_kernel.values())
+        if busy_us:
+            break
+        phase("profile_empty", attempt=attempt, iters=3)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    # the rows' launches by shape over these 3 steps sum to the profile's
+    profiled, implied = profiled_conv_ln_launches(prof, launch_counts_by_shape())
     phase("train_profile", steps=3, wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
           idle_share=(1 - busy_us / wall_us) if busy_us else None,
-          top_device_ms_per_step={k[:80]: v / 3e3 for k, v in top}, **card_note)
+          top_device_ms_per_step={k[:80]: v / 3e3 for k, v in top},
+          profiled_launches=profiled, launches_by_shape_sum=implied, **card_note)
+    require(busy_us > 0, "the stage-4 profile holds no device time")
+    require(profiled == implied, f"stage-4 profile: GraphConv/LayerNorm launches {profiled} != "
+            f"the rows' sums {implied}")
 
     del tr16, batches
     torch.cuda.empty_cache()
@@ -2972,14 +3467,15 @@ def main() -> None:
                   - xhat * (ga * xhat).mean(dim=-1, keepdim=True))
         return y, dx, (gd * xhat).sum(dim=0), gd.sum(dim=0)
 
-    def ln_case(rows, width, act, name):
+    def ln_case(rows, width, act, name, gen=None):
         """(x fp32, scale, bias, cotangent, act). For relu: the gate y > 0 is a
         tie where y is a few ulps from 0: the kernel's and the plain version's
         roundings of y may fall on either side, and one element gated apart
         moves dx by ~r g scale. No cotangent sits there (y of the fp32 and of
         the bf16 x)."""
-        x32 = rnd(rows, width) * 2 + 0.5
-        sc, bi, cot = 1 + rnd(width, scale=0.3), rnd(width, scale=0.3), rnd(rows, width)
+        x32 = rnd(rows, width, gen=gen) * 2 + 0.5
+        sc, bi = 1 + rnd(width, scale=0.3, gen=gen), rnd(width, scale=0.3, gen=gen)
+        cot = rnd(rows, width, gen=gen)
         if act == "relu":
             ties = torch.zeros_like(cot, dtype=torch.bool)
             for dt in (torch.float32, torch.bfloat16):
@@ -2990,11 +3486,16 @@ def main() -> None:
         return x32, sc, bi, cot, act
 
     ln_shapes = {"fused_layernorm": (BATCH * n, d, "none"),
-                 "fused_layernorm_gnn": (NUM_CLASSES * NUM_CODES, GNN_DIM, "relu")}
+                 "fused_layernorm_gnn": (NUM_CLASSES * NUM_CODES, GNN_DIM, "relu"),
+                 "fused_layernorm_gnn_instance": (BATCH * L_INST, GNN_DIM, "relu")}
     ln_inputs = {}
+    # the instance graphs' inputs from a generator of their own, so that the
+    # phases after them draw the same numbers as without them
+    g_inst = torch.Generator().manual_seed(16)
     for name, (rows, width, act) in ln_shapes.items():
         ln_inputs[name] = ln_case(rows, width, act,
-                                  name.replace("fused_layernorm", "fused_layernorm_bwd"))
+                                  name.replace("fused_layernorm", "fused_layernorm_bwd"),
+                                  g_inst if name.endswith("_instance") else None)
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
             x, sc, bi, cot, _ = ln_inputs[name]
             x, cot = x.to(dt), cot.to(dt)
@@ -3248,8 +3749,10 @@ def main() -> None:
                       time_ms(lambda: lnk.fused_layernorm_bwd_reference(x, sc, bi, cot, 1e-6, act),
                               TIME_ITERS))
         w16, b16 = sc.to(torch.bfloat16), bi.to(torch.bfloat16)
-        library[name] = time_ms(lambda: torch.nn.functional.layer_norm(
+        layer_norm_ms = time_ms(lambda: torch.nn.functional.layer_norm(
             x, (x.shape[-1],), w16, b16, 1e-6), TIME_ITERS)
+        if act == "none":  # F.layer_norm has no relu: at the GNN's shapes a note
+            library[name] = layer_norm_ms
         # one ATen call computes the backward of a plain LayerNorm; it has no
         # relu gate, so at the GNN's shape it is a note, not library_ms
         _, mean, rstd = torch.ops.aten.native_layer_norm(x, [x.shape[-1]], w16, b16, 1e-6)
@@ -3263,7 +3766,7 @@ def main() -> None:
             library[bwd] = bwd_library_ms
         x32_, cot32_ = x.float(), cot.float()  # the same values in fp32
         phase("kernel_time", kernel=name, dtype="bfloat16", shape=list(x.shape), act=act,
-              ms=times[name][0], plain_ms=times[name][1], layer_norm_ms=library[name],
+              ms=times[name][0], plain_ms=times[name][1], layer_norm_ms=layer_norm_ms,
               bwd_ms=times[bwd][0], bwd_plain_ms=times[bwd][1],
               native_layer_norm_backward_ms=bwd_library_ms,
               native_layer_norm_backward_device_ms=device_ms(ln_bwd_library),
@@ -3294,6 +3797,21 @@ def main() -> None:
                                                 "recording_vq": recording_vq,
                                                 "replaying_vq": replaying_vq,
                                                 "replay_report": replay_report})
+
+    # 32-33. the command line's stage chain, and the pretrained loader
+    torch.cuda.empty_cache()
+    cli_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        t0 = time.perf_counter()
+        cli_seconds = cli_phase(cli_dir, has_networkx, card_note)
+        phase("phase_seconds", phase_name="32_cli", seconds=time.perf_counter() - t0,
+              stages=cli_seconds, **card_note)
+        t0 = time.perf_counter()
+        pretrained_phase(dev, cli_dir, card_note)
+        phase("phase_seconds", phase_name="33_pretrained", seconds=time.perf_counter() - t0,
+              **card_note)
+    finally:
+        shutil.rmtree(cli_dir, ignore_errors=True)
 
     # the least time the card could take for the timed work of each kernel
     def attn_work(args, hmean=False):
@@ -3351,15 +3869,18 @@ def main() -> None:
         "ffn_block": ffn_work(cases["ffn_block"](torch.bfloat16)[2]),
         "ffn_block_fp32": ffn_work(cases["ffn_block"](torch.float32)[2]),
         "sym_conv": conv_work(cases["sym_conv"](torch.bfloat16)[2]),
+        "sym_conv_instance": conv_work(cases["sym_conv_instance"](torch.bfloat16)[2]),
         "sym_conv_bwd": conv_work(train_cases["sym_conv_bwd"](torch.bfloat16)[2], bwd=True),
+        "sym_conv_bwd_instance": conv_work(train_cases["sym_conv_bwd_instance"](torch.bfloat16)[2],
+                                           bwd=True),
         "embed_grad": embed_work(train_cases["embed_grad"](torch.bfloat16)[2]),
         "adamw_project_rows": adamw_work("edge"),
         **{name: s0_work(name) for name in s0_kernels},
         "vq_assign": vq_work(*vq_inputs["minibatch"]),
         # timed in bf16
-        "fused_layernorm": ln_work(ln_inputs["fused_layernorm"][0].to(torch.bfloat16)),
-        "fused_layernorm_bwd": ln_work(ln_inputs["fused_layernorm"][0].to(torch.bfloat16),
-                                       bwd=True),
+        **{name: ln_work(x.to(torch.bfloat16)) for name, (x, *_) in ln_inputs.items()},
+        **{name.replace("layernorm", "layernorm_bwd"): ln_work(x.to(torch.bfloat16), bwd=True)
+           for name, (x, *_) in ln_inputs.items()},
     }
     replaces = {
         "attn_block": "schemanet_tpu/ops/pallas/encoder_block.py:240",
@@ -3369,7 +3890,9 @@ def main() -> None:
         "ffn_block": "schemanet_tpu/ops/pallas/encoder_block.py:286",
         "ffn_block_fp32": "schemanet_tpu/ops/pallas/encoder_block.py:286",
         "sym_conv": "schemanet_tpu/ops/pallas/graphconv.py:68",
+        "sym_conv_instance": "schemanet_tpu/ops/pallas/graphconv.py:68",
         "sym_conv_bwd": "schemanet_tpu/ops/pallas/graphconv.py:100",
+        "sym_conv_bwd_instance": "schemanet_tpu/ops/pallas/graphconv.py:100",
         "embed_grad": "schemanet_tpu/ops/pallas/embed_bwd.py:161",
         "adamw_project_rows": "schemanet_tpu/ops/pallas/atlas_opt.py:133",
         "fused_mhsa": "schemanet_tpu/ops/pallas/attention.py:162",
@@ -3377,25 +3900,29 @@ def main() -> None:
         "fused_mlp": "schemanet_tpu/ops/pallas/mlp.py:230",
         "fused_mlp_bwd": "schemanet_tpu/ops/pallas/mlp.py:271",
         "vq_assign": "schemanet_tpu/ops/pallas/vq.py:79",
-        "fused_layernorm": "schemanet_tpu/ops/pallas/layernorm.py:119",
-        "fused_layernorm_bwd": "schemanet_tpu/ops/pallas/layernorm.py:151",
+        **{name: "schemanet_tpu/ops/pallas/layernorm.py:119" for name in ln_inputs},
+        **{name.replace("layernorm", "layernorm_bwd"): "schemanet_tpu/ops/pallas/layernorm.py:151"
+           for name in ln_inputs},
     }
-    sources = {"sym_conv": "graphconv.cu", "sym_conv_bwd": "graphconv.cu",
-               "embed_grad": "embed_bwd.cu", "adamw_project_rows": "atlas_opt.cu",
+    sources = {"embed_grad": "embed_bwd.cu", "adamw_project_rows": "atlas_opt.cu",
                "fused_mhsa": "attention.cu", "fused_mhsa_bwd": "attention.cu",
-               "fused_mlp": "mlp.cu", "fused_mlp_bwd": "mlp.cu", "vq_assign": "vq.cu",
-               "fused_layernorm": "layernorm.cu", "fused_layernorm_bwd": "layernorm.cu"}
-    variants = {"sym_conv": "sym_conv_instance", "sym_conv_bwd": "sym_conv_bwd_instance",
-                "embed_grad": "embed_grad_instance",
+               "fused_mlp": "mlp.cu", "fused_mlp_bwd": "mlp.cu", "vq_assign": "vq.cu"}
+
+    def source_of(name):
+        if name.startswith("sym_conv"):
+            return "graphconv.cu"
+        return "layernorm.cu" if name.startswith("fused_layernorm") else sources.get(
+            name, "encoder_block.cu")
+
+    variants = {"embed_grad": "embed_grad_instance",
                 "adamw_project_rows": "adamw_project_rows_vertex",
-                "fused_layernorm": "fused_layernorm_gnn",
-                "fused_layernorm_bwd": "fused_layernorm_bwd_gnn",
                 **{name: f"{name}_p0" for name in s0_kernels}}
     # each kernel's launches on the path that runs it most: stage 4 for the
-    # SchemaNet kernels, stage 0 for the fused ViT kernels and the LayerNorm,
-    # stage 1 for VQ and fp32 ffn_block and attn_block, stage 3 for the fp32
-    # head-mean
-    launches = {**train_launches,
+    # SchemaNet kernels (the GNN's GraphConv and LayerNorm by shape, class
+    # and instance graphs apart), stage 0 for the fused ViT kernels and the
+    # ViT's LayerNorm, stage 1 for VQ and fp32 ffn_block and attn_block,
+    # stage 3 for the fp32 head-mean
+    launches = {**train_launches, **gnn_path,
                 **{name: s0_launches[name] for name in (*s0_kernels, "fused_layernorm",
                                                         "fused_layernorm_bwd")},
                 "vq_assign": s1_launches["vq_assign"], "ffn_block_fp32": s1_launches["ffn_block"],
@@ -3406,14 +3933,14 @@ def main() -> None:
         # the operations' type: where the work does not name it (VQ's does),
         # fp32 for the kernels that compute outside the tensor cores on fp32
         # data (or with fp32 statistics), else bf16
-        fp32_ops = ("adamw_project_rows", "fused_layernorm", "fused_layernorm_bwd")
+        fp32_ops = name.startswith(("adamw_project_rows", "fused_layernorm"))
         flops, moved, *ops_type = work[name]
-        dtype = ops_type[0] if ops_type else "float32" if name in fp32_ops else "bfloat16"
+        dtype = ops_type[0] if ops_type else "float32" if fp32_ops else "bfloat16"
         bound_ms, bound_by = least_ms(flops, moved, dtype)
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "schemanet_torch/csrc/" + sources.get(name, "encoder_block.cu"),
+            "source": "schemanet_torch/csrc/" + source_of(name),
             "replaces": replaces[name],
             "launches": launches[name],
             "max_abs_err": max(errors[name], errors.get(variants.get(name), 0.0)),
@@ -3441,6 +3968,10 @@ def main() -> None:
         "adamw_project_rows_bf16": ("atlas_opt.cu", "atlas_opt.py:133"),
         "sym_conv_imagenet": ("graphconv.cu", "graphconv.py:68"),
         "sym_conv_bwd_imagenet": ("graphconv.cu", "graphconv.py:100"),
+        "sym_conv_instance_imagenet": ("graphconv.cu", "graphconv.py:68"),
+        "sym_conv_bwd_instance_imagenet": ("graphconv.cu", "graphconv.py:100"),
+        "fused_layernorm_instance_d1024": ("layernorm.cu", "layernorm.py:119"),
+        "fused_layernorm_bwd_instance_d1024": ("layernorm.cu", "layernorm.py:151"),
     }
     for name, (source, tpu_site) in new_rows.items():
         r = imagenet["rows"][name]

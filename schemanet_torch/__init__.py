@@ -11,13 +11,27 @@ Entry points: ``ServePredictor`` (serving), ``train.backbone_trainer``
 (stage 0, fine-tuning the ViT/DeiT backbone), ``pipeline.extract_stage``
 (stage 1, the codebook), ``pipeline.init_stage`` (stage 3, the IR-Atlas
 init) and ``train.schema_net_trainer`` or ``train.Trainer`` with a SchemaNet
-predictor (stage 4). They run on CUDA unless the caller passes
-``device="cpu"``.
+predictor (stage 4); ``load_serve_predictor`` assembles a server from the
+files the stages write, and ``python -m schemanet_torch.cli`` runs every
+stage from the command line (``--device cpu`` for the CPU). They run on CUDA
+unless the caller passes ``device="cpu"``.
 
 This package never imports JAX, Flax, Optax, Orbax or ``schemanet_tpu``.
 """
 
 from .schema.predictor import SchemaNetPredictor, build_predictor
-from .serve import ServePredictor
+from .serve import ServePredictor, load_serve_predictor
+from .utils import (apply_overrides, get_cfg, make_deterministic, parse_override_strings,
+                    resolve_subconfig)
 
-__all__ = ["SchemaNetPredictor", "ServePredictor", "build_predictor"]
+__all__ = [
+    "SchemaNetPredictor",
+    "ServePredictor",
+    "apply_overrides",
+    "build_predictor",
+    "get_cfg",
+    "load_serve_predictor",
+    "make_deterministic",
+    "parse_override_strings",
+    "resolve_subconfig",
+]

@@ -21,15 +21,28 @@ of the port must be set, with its shape.
 tensors (parameters, or a tree of the same shape such as gradients or Adam
 moments) back to the JAX nested-dict layout, as numpy arrays. ``jax_name``
 gives the JAX package's dotted name of a port parameter, which its
-param-group regexes are written against. Imports numpy and torch only.
+param-group regexes are written against.
+
+Pretrained backbones (the JAX package's ``torch_vit_to_flax`` and
+``merge_pretrained``): the reference loads renamed official DeiT weights
+whose names follow its own module tree (``transformer.layers.N.attention.
+linear_qkv.weight`` ..., ``utils/model.py:10-36``). The port's ViT/DeiT has
+that tree, so ``reference_to_port`` maps names as they are and converts one
+layout, ``pos_embed.pos_embed`` ``[n, 1, d]`` -> ``[1, n, d]``; Linear
+weights stay ``[out, in]``, the conv ``OIHW``, the fused qkv in the
+reference's ``(3, H, d)`` order. ``load_pretrain_into`` overlays a file onto a
+model under the ``lax_names`` rule. Imports numpy and torch only.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+import logging
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 _AS_IS = {
     "bias", "embedding", "vocabulary", "cls_token", "dist_token", "pos_embed",
@@ -154,3 +167,89 @@ def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             raise KeyError(f"two port leaves map onto {'/'.join(path[:-1] + [leaf])}")
         node[leaf] = np.ascontiguousarray(value)
     return tree
+
+
+# -- pretrained reference checkpoints ---------------------------------------
+
+_LAYER_KEYS = tuple(f"{sub}.{leaf}" for sub in (
+    "attention.linear_qkv", "attention.linear_out", "mlp.linear1", "mlp.linear2", "norm1",
+    "norm2") for leaf in ("weight", "bias"))
+_TOP_KEYS = ("cls_token", "dist_token", "patch_embed.proj.weight", "patch_embed.proj.bias",
+             "pos_embed.pos_embed", "transformer.norm.weight", "transformer.norm.bias",
+             "cls_head.weight", "cls_head.bias", "dist_head.weight", "dist_head.bias")
+
+
+def _unwrap_state_dict(ckpt: Mapping[str, Any]) -> Dict[str, Any]:
+    """Unwrap the ``model``/``student`` entries and strip ``module.``
+    prefixes (the reference's ``utils/model.py:19-30``)."""
+    for key in ("model", "student"):
+        if key in ckpt and isinstance(ckpt[key], Mapping):
+            ckpt = ckpt[key]
+    return {k.removeprefix("module."): v for k, v in ckpt.items()}
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a reference checkpoint file, unwrapped, on the CPU.
+    Read with ``weights_only=True``: tensors, containers and plain values
+    load, arbitrary pickled objects raise."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.detach() for k, v in _unwrap_state_dict(ckpt).items() if torch.is_tensor(v)}
+
+
+def reference_to_port(state_dict: Mapping[str, torch.Tensor], num_layers: int = 12
+                      ) -> Dict[str, torch.Tensor]:
+    """The port's ViT/DeiT names and layouts of a reference-named state dict:
+    layers ``0 .. num_layers - 1``; ``pos_embed`` ``[n, 1, d]`` -> ``[1, n,
+    d]``, everything else as it is. Keys of the file that map onto nothing
+    are logged as a warning."""
+    sd = dict(state_dict)
+    keys = list(_TOP_KEYS) + [f"transformer.layers.{i}.{k}" for i in range(num_layers)
+                              for k in _LAYER_KEYS]
+    out = {k: sd.pop(k) for k in keys if k in sd}
+    if "pos_embed.pos_embed" in out:
+        out["pos_embed.pos_embed"] = out["pos_embed.pos_embed"].permute(1, 0, 2).contiguous()
+    leftover = [k for k in sd if not k.endswith("num_batches_tracked")]
+    if leftover:
+        logger.warning("unported torch parameters: %s", leftover)
+    return out
+
+
+def merge_pretrained(local: Mapping[str, torch.Tensor], ported: Mapping[str, torch.Tensor],
+                     lax_names: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
+    """``local`` (a state dict) with every entry ``ported`` has, cast to the
+    local dtype. Where the shapes differ, an entry whose name starts with the
+    module path of a ``lax_names`` entry (torch naming, e.g.
+    ``cls_head.weight`` -> ``cls_head``) keeps the local value, as does every
+    entry when ``lax_names`` is None, with a warning; any other raises (the
+    reference's tolerance for a head of another class count,
+    ``utils/model.py:24-33``)."""
+    lax_prefixes = {n.rsplit(".", 1)[0] for n in (lax_names or [])}
+    out = {}
+    for name, value in local.items():
+        if name not in ported:
+            out[name] = value
+            continue
+        new = ported[name]
+        if tuple(new.shape) != tuple(value.shape):
+            if lax_names is None or any(name.startswith(p) for p in lax_prefixes):
+                logger.warning("keeping local init for %s (ckpt %s vs local %s)", name,
+                               tuple(new.shape), tuple(value.shape))
+                out[name] = value
+                continue
+            raise ValueError(f"shape mismatch for {name}: {tuple(new.shape)} vs "
+                             f"{tuple(value.shape)}")
+        out[name] = new.to(value.dtype)
+    return out
+
+
+def load_pretrain_into(model: torch.nn.Module, path: str,
+                       lax_names: Optional[Sequence[str]] = None,
+                       num_layers: Optional[int] = None) -> torch.nn.Module:
+    """Load the reference checkpoint ``path`` into the ViT/DeiT ``model`` in
+    place, under the ``lax_names`` rule of ``merge_pretrained``; returns the
+    model. ``num_layers`` defaults to the model's depth."""
+    if num_layers is None:
+        num_layers = model.transformer.num_encoder_layers
+    ported = reference_to_port(load_torch_state_dict(path), num_layers)
+    model.load_state_dict(merge_pretrained(model.state_dict(), ported, lax_names))
+    return model

@@ -5,13 +5,19 @@ stack, in its two forwards. Probe names:
 
     layers_{i}.out        — output sequence of encoder layer i
     layers_{i}.attn_hmean — head-mean of the pre-softmax scaled scores [bs, n, n]
-                            (deterministic forwards only)
+    layers_{i}.attn       — softmax attention [bs, H, n, n]
+    layers_{i}.attn_raw   — pre-softmax scaled scores [bs, H, n, n]
+    layers_{i}.resid1     — the sequence after the attention residual
+    layers_{i}.resid2     — the sequence after the FFN residual
+                            (all but ``out``: deterministic forwards only)
 
 Deterministic (frozen) forward, as serving and the SchemaNet backbone run it:
 on CUDA every layer takes the two hand-written kernels
 (``ops/kernels/encoder_block.py``), and layer i's ``attn_hmean`` comes out of
-the ``attn_block`` kernel itself. On the CPU a layer runs the plain per-op path
-and the probe is the fp32 mean over heads of the raw scores.
+the ``attn_block`` kernel itself. A layer with ``attn``, ``attn_raw``,
+``resid1`` or ``resid2`` captured runs the plain per-op path instead, as in
+the JAX package (the kernels keep none of them), and so does every layer on
+the CPU; there ``attn_hmean`` is the fp32 mean over heads of the raw scores.
 
 Training forward (``deterministic=False``), as stage 0 runs it:
 ``fused_layernorm``, ``fused_mhsa`` (attention dropout in the kernel),
@@ -47,19 +53,24 @@ class EncoderLayer(nn.Module):
         self.drop = Dropout(dropout) if dropout else None
 
     def forward(self, seq: torch.Tensor, capture_hmean: bool = False, deterministic: bool = True,
-                rng: Optional[DropoutRNG] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                rng: Optional[DropoutRNG] = None, plain: bool = False
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(output, probes). ``plain`` asks for the per-op path of a frozen
+        forward on any device, which alone gives the ``PLAIN_PROBES``."""
         if not deterministic:
-            if capture_hmean:
-                raise ValueError("the training forward has no attn_hmean probe")
+            if capture_hmean or plain:
+                raise ValueError("the training forward has only the out probe")
             out = self._train_forward(seq, rng)
             return out, {"out": out}
-        if seq.is_cuda:
+        if seq.is_cuda and not plain:
             return self._block_forward(seq, capture_hmean)
         n1, n2 = self.norm1, self.norm2
-        x, _, attn_raw = self.attention(eb.layer_norm(seq, n1.weight, n1.bias, self.norm_eps))
+        x, attn, attn_raw = self.attention(eb.layer_norm(seq, n1.weight, n1.bias, self.norm_eps))
         seq = seq + x
+        resid1 = seq
         seq = seq + self.mlp(eb.layer_norm(seq, n2.weight, n2.bias, self.norm_eps))
-        probes = {"out": seq}
+        probes = {"out": seq, "attn": attn, "attn_raw": attn_raw, "resid1": resid1,
+                  "resid2": seq}
         if capture_hmean:
             probes["attn_hmean"] = attn_raw.float().mean(dim=1).to(attn_raw.dtype)
         return seq, probes
@@ -101,6 +112,10 @@ class EncoderLayer(nn.Module):
         return out, probes
 
 
+# the probes only the plain per-op path keeps
+PLAIN_PROBES = ("attn", "attn_raw", "resid1", "resid2")
+
+
 class Transformer(nn.Module):
     """Pre-norm encoder stack with an optional final LayerNorm."""
 
@@ -128,8 +143,9 @@ class Transformer(nn.Module):
         end_layer = self.num_encoder_layers if end_layer is None else end_layer
         captured: Dict[str, torch.Tensor] = {}
         for i in range(start_layer, end_layer):
+            plain = any(f"layers_{i}.{kind}" in capture for kind in PLAIN_PROBES)
             seq, probes = self.layers[i](seq, f"layers_{i}.attn_hmean" in capture, deterministic,
-                                         rng)
+                                         rng, plain)
             for kind, value in probes.items():
                 if f"layers_{i}.{kind}" in capture:
                     captured[f"layers_{i}.{kind}"] = value

@@ -63,11 +63,25 @@ _COUNTERS = {
 }
 
 
+# the wrappers that also count their launches by shape (``shape_launches``):
+# GraphConv by (K, V, D), LayerNorm by (rows, d), so that the class graphs'
+# launches are told from the instance graphs'
+_SHAPE_COUNTERS = {"sym_conv": sym_conv, "sym_conv_bwd": sym_conv_bwd,
+                   "fused_layernorm": fused_layernorm, "fused_layernorm_bwd": fused_layernorm_bwd}
+
+
 def launch_counts() -> dict:
     """Launch counters of every kernel wrapper, by kernel name."""
     return {name: getattr(fn, attr) for name, (fn, attr) in _COUNTERS.items()}
 
 
+def launch_counts_by_shape() -> dict:
+    """{kernel name: {shape: launches}} of the wrappers counted by shape."""
+    return {name: dict(fn.shape_launches) for name, fn in _SHAPE_COUNTERS.items()}
+
+
 def reset_launch_counts() -> None:
     for fn, attr in _COUNTERS.values():
         setattr(fn, attr, 0)
+    for fn in _SHAPE_COUNTERS.values():
+        fn.shape_launches.clear()

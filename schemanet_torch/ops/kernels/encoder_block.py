@@ -158,6 +158,11 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def count_shape(wrapper, shape) -> None:
+    """One launch of ``wrapper`` at ``shape`` in its ``shape_launches``."""
+    wrapper.shape_launches[shape] = wrapper.shape_launches.get(shape, 0) + 1
+
+
 VECTOR, SCALAR = "vector", "scalar"
 
 

@@ -24,7 +24,10 @@ tensor launches the kernel or raises. ``conv_route`` picks the kernels by
 dtype: fp32 takes the FMA kernels, bf16 the tensor-core ones (any V, D a
 multiple of 8). ``sym_conv.launches`` and ``sym_conv_bwd.launches`` count
 the launches of both routes, ``sym_conv.tc_launches`` and
-``sym_conv_bwd.tc_launches`` those of the tensor-core route.
+``sym_conv_bwd.tc_launches`` those of the tensor-core route, and
+``sym_conv.shape_launches`` and ``sym_conv_bwd.shape_launches`` the launches
+by graph shape ``(K, V, D)``, which tells the class graphs from the instance
+graphs.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .encoder_block import _DTYPES, _check, _require_cuda, _stream
+from .encoder_block import _DTYPES, _check, _require_cuda, _stream, count_shape
 
 FMA, TENSOR_CORE = "fma", "tensor_core"
 
@@ -114,6 +117,7 @@ def _sym_conv_forward(e: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     )
     _build.check(err, "sym_conv")
     sym_conv.launches += 1
+    count_shape(sym_conv, (k, v, d))
     if route == TENSOR_CORE:
         sym_conv.tc_launches += 1
     return out
@@ -135,6 +139,7 @@ def sym_conv_bwd(
     )
     _build.check(err, "sym_conv_bwd")
     sym_conv_bwd.launches += 1
+    count_shape(sym_conv_bwd, (k, v, d))
     if route == TENSOR_CORE:
         sym_conv_bwd.tc_launches += 1
     return de, df
@@ -161,3 +166,4 @@ def sym_conv(e: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
 
 sym_conv.launches = sym_conv.tc_launches = 0
 sym_conv_bwd.launches = sym_conv_bwd.tc_launches = 0
+sym_conv.shape_launches, sym_conv_bwd.shape_launches = {}, {}

@@ -28,7 +28,8 @@ for the forward, ``fused_layernorm_bwd_reference`` for the backward); a CUDA
 tensor launches the kernels or raises. ``fused_layernorm_plain`` takes the
 plain versions on any device. ``fused_layernorm.launches`` and
 ``fused_layernorm_bwd.launches`` count the launches,
-``fused_layernorm_bwd.vec_launches`` those of the backward's vector route.
+``fused_layernorm_bwd.vec_launches`` those of the backward's vector route,
+and the two wrappers' ``shape_launches`` the launches by ``(rows, d)``.
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .encoder_block import (VECTOR, _DTYPES, _check, _require_cuda, _stream, layer_norm,
-                            piece_route)
+from .encoder_block import (VECTOR, _DTYPES, _check, _require_cuda, _stream, count_shape,
+                            layer_norm, piece_route)
 
 _ACTS = ("none", "relu")
 _MAX_DIM = 1024  # csrc/layernorm.cu kLnMaxDim: up to 32 values a lane
@@ -115,6 +116,7 @@ def _ln_forward(x, scale, bias, eps, act):
     )
     _build.check(err, "fused_layernorm")
     _counted[0].launches += 1
+    count_shape(_counted[0], (rows, d))
     return y
 
 
@@ -140,6 +142,7 @@ def fused_layernorm_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
     )
     _build.check(err, "fused_layernorm_bwd")
     _counted[1].launches += 1
+    count_shape(_counted[1], (rows, d))
     if route == VECTOR:
         _counted[1].vec_launches += 1
     return dx, dparam[:d], dparam[d:]
@@ -188,6 +191,7 @@ def fused_layernorm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tens
 
 fused_layernorm.launches = 0
 fused_layernorm_bwd.launches = fused_layernorm_bwd.vec_launches = 0
+fused_layernorm.shape_launches, fused_layernorm_bwd.shape_launches = {}, {}
 # the counters are reached through these second names, so that a caller who
 # wraps or replaces the wrappers in this module still counts into them
 _counted = (fused_layernorm, fused_layernorm_bwd)

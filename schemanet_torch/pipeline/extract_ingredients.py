@@ -8,8 +8,10 @@ the JAX package, the features stay on the device: the JAX stage copies each
 batch to the host, while 1,000,000 x 192 fp32 features (768 MB) fit the
 card with room to spare.
 
-A loader is any re-iterable of ``{"image": NHWC float, "label", "valid"?}``
-batches (numpy arrays or tensors). Not ported: ``mesh`` (data-parallel
+A loader is any re-iterable of ``{"image": NHWC, "label", "valid"?}``
+batches (numpy arrays or tensors): float images as they are, uint8 ones made
+ready on the device by the loader's ``prepare`` (``data/loader.py``
+``prepare_images``). Not ported: ``mesh`` (data-parallel
 collection), ``quant`` (the int8 backbone), and ``save_features_path`` /
 ``cluster_saved_features``, which need h5py.
 """
@@ -20,13 +22,15 @@ from typing import Iterator, List
 
 import torch
 
+from ..data.loader import prepare_images
 from ..ops import kmeans as kmeans_ops
 
 MINIBATCH = 1024  # rows of one k-means minibatch
 
 
-def _image(batch, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(batch["image"]).to(device, torch.float32)
+def _image(loader, batch, device: torch.device) -> torch.Tensor:
+    image = torch.as_tensor(batch["image"]).to(device)
+    return prepare_images(loader, image).to(torch.float32)
 
 
 @torch.no_grad()
@@ -47,7 +51,7 @@ def collect_mid_features(model, loader, encode_layer: int, max_features: int,
     def gen() -> Iterator[torch.Tensor]:
         seen = 0
         for batch in loader:
-            flat = _mid_features(model, _image(batch, device), encode_layer)
+            flat = _mid_features(model, _image(loader, batch, device), encode_layer)
             flat = flat[: max_features - seen]
             seen += len(flat)
             yield flat

@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..data.loader import prepare_images
 from ..device import resolve_device
 from ..ops import geometry, graph as graph_ops
 from ..schema.atlas import AtlasConfig, project_params_, trunc_normal_unit
@@ -39,12 +40,13 @@ def _add_by_label(acc: torch.Tensor, labels: torch.Tensor, values: torch.Tensor)
     acc[uniq] += sums.reshape(len(uniq), *values.shape[1:])
 
 
-def _batch(batch, device: torch.device):
-    """(images, labels, valid) of a loader batch on the device."""
+def _batch(loader, batch, device: torch.device):
+    """(images, labels, valid) of a loader batch on the device; uint8 images
+    made ready by the loader's ``prepare``."""
     labels = torch.as_tensor(batch["label"]).to(device, torch.long)
     valid = batch.get("valid")
     valid = (torch.ones(len(labels)) if valid is None else torch.as_tensor(valid))
-    image = torch.as_tensor(batch["image"]).to(device)
+    image = prepare_images(loader, torch.as_tensor(batch["image"]).to(device))
     return image, labels, valid.to(device, torch.float32)
 
 
@@ -83,7 +85,7 @@ def init_atlas(
     acc = torch.zeros(k, m, device=dev)
     counts = torch.zeros(k, device=dev)
     for batch in loader:
-        image, labels, valid = _batch(batch, dev)
+        image, labels, valid = _batch(loader, batch, dev)
         out = predictor(image)
         vertices = graph_ops.feat_to_full_vertices(
             out["ingredients"], out["attn_cls"], m, w_v, c.clamp_vertex_attn)  # [bs, M]
@@ -113,7 +115,7 @@ def init_atlas(
     if hasattr(loader, "set_epoch"):
         loader.set_epoch(1)
     for batch in loader:
-        image, labels, valid = _batch(batch, dev)
+        image, labels, valid = _batch(loader, batch, dev)
         out = predictor(image)
         edges = graph_ops.class_limited_edges(
             out["ingredients"], out["attn"], geo, labels, class_ingredients, w_e,

@@ -63,7 +63,22 @@ def schema_inference_loss(re_a_vertex: float = 3.0, re_a_edge: float = 3.0, **kw
     return loss_fn
 
 
-LOSSES = {"ce_loss": ce_loss, "schema_inference_loss": schema_inference_loss}
+def distill_kl(T: float = 4.0, **kwargs) -> Callable:
+    """KL distillation (the reference's ``base_loss.py:37-48``): T^2 times the
+    batch mean of KL(softmax(teacher / T) || softmax(student / T)), the
+    teacher's logits in ``target["teacher_pred"]``; fp32."""
+
+    def loss_fn(output, target):
+        p_s = F.log_softmax(_logits(output).float() / T, dim=1)
+        p_t = F.softmax(target["teacher_pred"].float() / T, dim=1)
+        kl = (p_t * (torch.log(torch.clamp(p_t, min=1e-12)) - p_s)).sum(dim=1).mean()
+        return {"kl": kl * T**2}
+
+    return loss_fn
+
+
+LOSSES = {"ce_loss": ce_loss, "schema_inference_loss": schema_inference_loss,
+          "distill_kl": distill_kl}
 
 
 def get_loss_fn(loss_cfg: Dict[str, Any], **kwargs) -> Callable:

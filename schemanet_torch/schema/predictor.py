@@ -11,6 +11,11 @@ atlas and the GNN only.
 
 Parameter names follow the JAX tree (``ingredient_backbone.backbone``,
 ``schema_net``, ``matcher.gnn``) so ``models/port.py`` maps one onto the other.
+
+The JAX predictor's ``init_full`` has no counterpart: it exists because Flax
+creates parameters lazily, on the first trace through them, so the backbone
+layers after the encode layer needed a trace of their own. The port's modules
+own every parameter from construction.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import torch
 from torch import nn
 
 from ..models.vit import ViT, get_model
+from ..ops import geometry
+from ..ops import graph as graph_ops
 from ..ops.graph import graph_dtype
 from ..ops.vq import vq_encode
 from .atlas import AtlasConfig, SchemaAtlas, trunc_normal_, trunc_normal_unit
@@ -98,20 +105,62 @@ class SchemaNetPredictor(nn.Module):
         self.ingredient_backbone.requires_grad_(False)
 
     def forward(self, img: torch.Tensor, deterministic: bool = True, rng=None,
-                per_sample_pooling: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+                per_sample_pooling: Optional[bool] = None, requires_graph: bool = False
+                ) -> Dict[str, torch.Tensor]:
         """Logits and atlas of NHWC images. ``deterministic`` and ``rng`` are
         the trainer's training-forward arguments, which this model takes and
         ignores: its backbone is frozen and runs deterministic whatever its
         ``dropout``, as in the JAX package, and nothing else drops out, so the
         forward does not depend on the module's training mode.
         ``per_sample_pooling`` overrides ``cfg.per_sample_pooling`` for this
-        call (None keeps it)."""
+        call (None keeps it). ``requires_graph`` adds the instance graphs
+        (``instance_ingredients``, ``instance_vertices``, ``instance_edges``,
+        ``feat_mask``, ``num_slots``), the token ``ingredients`` [bs, L] and
+        ``attn_cls`` [bs, L]."""
         with torch.no_grad():
             output = self.ingredient_backbone(img)
         instance = self.schema_net(output["ingredients"], output["attn"], output["attn_cls"])
         atlas = self.schema_net.get_atlas()
         pred = self.matcher(instance, atlas, per_sample_pooling, self.schema_net.class_id_plans)
-        return {"pred": pred, **atlas}
+        ret = {"pred": pred, **atlas}
+        if requires_graph:
+            ret.update(instance)
+            ret["ingredients"] = output["ingredients"]
+            ret["attn_cls"] = output["attn_cls"]
+        return ret
+
+    @torch.no_grad()
+    def build_instance_graphs(self, img: torch.Tensor) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Ingredients and instance graphs without matching:
+        ``{"output": the backbone's outputs, "instance": the graphs}``."""
+        output = self.ingredient_backbone(img)
+        instance = self.schema_net(output["ingredients"], output["attn"], output["attn_cls"])
+        return {"output": output, "instance": instance}
+
+    @torch.no_grad()
+    def full_vertices(self, img: torch.Tensor) -> torch.Tensor:
+        """[bs, M] full-vocabulary vertex weights of the images (stage 3's
+        pass 1), with the atlas's vertex attribute weights."""
+        c = self.cfg.atlas
+        output = self.ingredient_backbone(img)
+        return graph_ops.feat_to_full_vertices(
+            output["ingredients"], output["attn_cls"], c.num_vertices,
+            self.schema_net.vertex_attribute_weights, c.clamp_vertex_attn)
+
+    @torch.no_grad()
+    def limited_edges(self, img: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """[bs, V_max, V_max] edges of each image over its label's class
+        vertex set (stage 3's pass 2), with the atlas's edge attribute
+        weights and ``class_ingredients``."""
+        c = self.cfg.atlas
+        output = self.ingredient_backbone(img)
+        geo = geometry.pairwise_point_sim(c.feat_h, c.feat_w, c.dist_alpha, c.dist_pow,
+                                          device=img.device)
+        return graph_ops.class_limited_edges(
+            output["ingredients"], output["attn"], geo, labels,
+            self.schema_net.class_ingredients, self.schema_net.edge_attribute_weights,
+            clamp_edge_attn=c.clamp_edge_attn, remove_self_loop=c.remove_self_loop,
+            precision=c.graph_precision)
 
     @torch.no_grad()
     def classify_discretized(self, img: torch.Tensor, quantize: bool = True) -> torch.Tensor:

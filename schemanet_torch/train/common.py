@@ -467,3 +467,30 @@ def load_metadata(ckpt_dir: str) -> Optional[Dict[str, Any]]:
         return None
     with open(path) as f:
         return json.load(f)
+
+
+def checkpoint_file(path: str) -> str:
+    """The file of a checkpoint named by ``path``: a ``<tag>.pt`` file; a
+    tag's path without the extension (``run/ckpt/best``); or a checkpoint
+    directory, whose ``best`` tag is taken where it exists, else the
+    ``last_tag`` of its ``meta.json``."""
+    path = os.path.abspath(os.path.expanduser(path))
+    if os.path.isfile(path):
+        return path
+    if os.path.isfile(path + ".pt"):
+        return path + ".pt"
+    if os.path.isdir(path):
+        tag = "best" if os.path.isfile(os.path.join(path, "best.pt")) else (
+            (load_metadata(path) or {}).get("last_tag"))
+        if tag and os.path.isfile(os.path.join(path, f"{tag}.pt")):
+            return os.path.join(path, f"{tag}.pt")
+    raise FileNotFoundError(f"no checkpoint at {path}")
+
+
+def restore_model_state(path: str) -> Dict[str, Any]:
+    """The model state dict of the checkpoint named by ``path``
+    (``checkpoint_file``) on the CPU: its ``model`` entry, or the file's
+    whole content where it has none."""
+    file = checkpoint_file(path)
+    restored = CheckpointManager(os.path.dirname(file), max_keep=None).restore(file)
+    return restored.get("model", restored)

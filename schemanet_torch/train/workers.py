@@ -14,9 +14,11 @@ as ``LaunchArgs.resume`` asks, and train for the YAML's epochs.
 (``CBEvaluation``).
 
 Weights: a backbone starts from seeded random weights
-(``init_parameters_``); loading the pretrained DeiT weights that the YAML
-names (``model.pre_train``) is not ported, and a run whose file is absent
-trains from scratch with a warning, as the JAX worker does. A SchemaNet
+(``init_parameters_``), then from the pretrained reference checkpoint that
+the YAML names (``model.pre_train``, a reference-named ``.pth``) under its
+``lax_names`` rule (``models/port.py`` ``load_pretrain_into``) where that
+file exists; a run whose file is absent trains from scratch with a warning,
+as the JAX worker does. A SchemaNet
 predictor reads the port's own bundle and atlas-init files
 (``pipeline/bundle.py``).
 
@@ -37,11 +39,13 @@ import torch
 
 from ..data.loader import build_eval_loader, build_loaders
 from ..device import resolve_device
+from ..models.port import load_pretrain_into
 from ..models.vit import get_model
 from ..schema.loss import get_loss_fn
 from ..schema.predictor import build_predictor, init_parameters_
+from ..utils.config import resolve_subconfig
 from ..utils.registry import Registry
-from .common import CheckpointManager, merge_restored
+from .common import merge_restored, restore_model_state
 from .evaluator import CBEvaluation, Evaluation
 from .trainer import SCHEMA_NET_FROZEN, Trainer, TrainerConfig
 
@@ -74,22 +78,6 @@ def resolve_dtype(name) -> torch.dtype:
     return _DTYPES[name]
 
 
-def resolve_subconfig(value, base_dir: Optional[str] = None) -> Dict[str, Any]:
-    """An inline config block, or the YAML file it names (tried as given,
-    then under ``base_dir``)."""
-    if isinstance(value, dict):
-        return value
-    candidates = [value] + ([os.path.join(base_dir, value)] if base_dir else [])
-    for cand in candidates:
-        path = os.path.expandvars(os.path.expanduser(cand))
-        if os.path.isfile(path):
-            import yaml  # only path references need it
-
-            with open(path) as f:
-                return yaml.safe_load(f)
-    raise FileNotFoundError(f"sub-config not found: {value!r} (tried {candidates})")
-
-
 def num_classes_of(dataset_cfg) -> int:
     """Class count of a ``dataset`` block: an inline dict (with ``num_classes``
     or a ``name``) or the path of a dataset YAML named after the dataset."""
@@ -115,14 +103,24 @@ def _split_cfg(global_cfg: Dict[str, Any], args: LaunchArgs):
     return data_cfg, train_cfg, val_cfg
 
 
-def _backbone_model(global_cfg, num_classes: int, dtype, seed: int):
+def model_cfg_of(global_cfg, base_dir: Optional[str] = None) -> Dict[str, Any]:
+    """The ``model`` block, inline or from the file it names (whose payload
+    sits under ``model:``)."""
     model_cfg = global_cfg["model"]
+    if isinstance(model_cfg, str):
+        model_cfg = resolve_subconfig(model_cfg, base_dir).get("model", model_cfg)
+    return model_cfg
+
+
+def _backbone_model(global_cfg, num_classes: int, dtype, seed: int):
+    model_cfg = model_cfg_of(global_cfg)
     model = get_model(model_cfg, num_classes, dtype=dtype)
     init_parameters_(model, torch.Generator().manual_seed(seed))
     pretrain = model_cfg.get("pre_train")
     if pretrain and os.path.isfile(os.path.expanduser(pretrain)):
-        raise NotImplementedError(f"loading the pretrained weights {pretrain} is not ported")
-    if pretrain:
+        load_pretrain_into(model, os.path.expanduser(pretrain), model_cfg.get("lax_names"))
+        logger.info("loaded pretrain weights from %s", pretrain)
+    elif pretrain:
         logger.warning("pretrain file %s not found; training from scratch", pretrain)
     return model
 
@@ -205,8 +203,9 @@ def backbone_worker(global_cfg: Dict[str, Any], args: LaunchArgs) -> Dict[str, A
     ``{"trainer", "eval" (the final validation), "model"}``."""
     data_cfg, train_cfg, val_cfg = _split_cfg(global_cfg, args)
     train_loader, val_loader, n_classes = build_loaders(data_cfg, train_cfg, val_cfg, args.seed)
-    trainer = backbone_trainer(dict(global_cfg, training=train_cfg), None, seed=args.seed,
-                               device=args.device, num_classes=n_classes,
+    global_cfg = dict(global_cfg, training=train_cfg, model=model_cfg_of(global_cfg, args.base_dir))
+    trainer = backbone_trainer(global_cfg, None, seed=args.seed, device=args.device,
+                               num_classes=n_classes,
                                train_loader=train_loader, val_loader=val_loader, **_run_dirs(args))
     result = trainer()
     return {"trainer": trainer, "eval": result, "model": trainer.model}
@@ -258,9 +257,7 @@ def schema_net_worker(global_cfg: Dict[str, Any], args: LaunchArgs) -> Dict[str,
 
 def _restore_model(model: torch.nn.Module, path: str) -> None:
     """A checkpoint's model state onto ``model``, laxly (``merge_restored``)."""
-    restored = CheckpointManager(os.path.dirname(os.path.abspath(path))).restore(
-        os.path.abspath(path))
-    merged = merge_restored(dict(model.state_dict()), restored.get("model", restored))
+    merged = merge_restored(dict(model.state_dict()), restore_model_state(path))
     model.load_state_dict(merged)
 
 
@@ -295,7 +292,8 @@ def eval_worker(global_cfg: Dict[str, Any], args: LaunchArgs) -> Dict[str, Any]:
                             top_k=(1, 5), device=device)()
         result["cb"] = CBEvaluation(predictor.classify_discretized, val_loader, device=device)()
         return result
-    model = get_model(global_cfg["model"], n_classes, dtype=resolve_dtype(val_cfg.get("dtype")))
+    model = get_model(model_cfg_of(global_cfg, args.base_dir), n_classes,
+                      dtype=resolve_dtype(val_cfg.get("dtype")))
     init_parameters_(model, torch.Generator().manual_seed(0))
     if args.resume:
         _restore_model(model, args.resume)

@@ -1,0 +1,226 @@
+"""The port's command line against the JAX package's, on the CPU: the
+parser's subcommands, flags and defaults (``--device`` added), the config
+helpers on the same inputs, JSON configs without PyYAML, the unported flags,
+and the whole stage chain ``train -> extract -> export -> init -> train
+schema_net_worker -> serve --explain --out --graph-sample`` with ``--device
+cpu`` at a tiny size."""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from schemanet_torch import cli
+from schemanet_torch.utils import config as torch_config
+from schemanet_tpu import cli as jax_cli
+from schemanet_tpu.utils import config as jax_config
+
+from tests.test_torch_pretrained import reference_state_dict, save_reference
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+COMMANDS = ("train", "extract", "export", "init", "serve")
+
+
+def _options(parser):
+    sub = next(a for a in parser._actions if a.__class__.__name__ == "_SubParsersAction")
+    return {name: {tuple(a.option_strings): (a.dest, a.default, a.required, a.choices, a.type,
+                                             a.nargs, a.const)
+                   for a in p._actions if a.option_strings and a.dest != "help"}
+            for name, p in sub.choices.items()}
+
+
+@pytest.mark.parametrize("command", COMMANDS)
+def test_parser_matches_jax(command):
+    got, want = _options(cli.build_parser()), _options(jax_cli.build_parser())
+    assert set(got) == set(want) == set(COMMANDS)
+    flags = dict(got[command])
+    assert flags.pop(("--device",))[:2] == ("device", "cuda")
+    assert flags == want[command]
+
+
+CFG = {
+    "dataset": "datasets/synthetic.yaml",
+    "training": {"param_groups": [{"pattern": "schema_net", "cfg": {"weight_decay": 5e-4}},
+                                  {"pattern": "matcher"}], "batch_size": 64},
+    "model": {"name": "vit", "transformer": {"embed_dim": 192}},
+}
+OVERRIDES = ["training.param_groups.0.cfg.nu_dtype=bfloat16", "training.batch_size=32",
+             "dataset.num_classes=7", "model.transformer.dropout=0.1", "loss.name=ce_loss",
+             "training.param_groups.1=null"]
+
+
+def test_config_helpers_match_jax(tmp_path):
+    (tmp_path / "datasets").mkdir()
+    (tmp_path / "datasets" / "synthetic.yaml").write_text(
+        "name: synthetic\nnum_classes: 10\nimage_size: 8\n")
+    got_o = torch_config.parse_override_strings(OVERRIDES)
+    want_o = jax_config.parse_override_strings(OVERRIDES)
+    assert got_o == want_o
+    got = torch_config.apply_overrides(CFG, got_o, base_dir=str(tmp_path))
+    want = jax_config.apply_overrides(CFG, want_o, base_dir=str(tmp_path))
+    assert got == want
+    assert got["dataset"]["num_classes"] == 7 and got["dataset"]["image_size"] == 8
+    assert got["training"]["param_groups"][0]["cfg"]["nu_dtype"] == "bfloat16"
+    assert CFG["training"]["batch_size"] == 64  # a copy
+    for value in ("datasets/synthetic.yaml", {"name": "inline"}):
+        assert (torch_config.resolve_subconfig(value, str(tmp_path))
+                == jax_config.resolve_subconfig(value, str(tmp_path)))
+    with pytest.raises(FileNotFoundError):
+        torch_config.resolve_subconfig("missing.yaml", str(tmp_path))
+    path = tmp_path / "cfg.yaml"
+    path.write_text("a: 1\nb: [x, 2.5]\n")
+    assert torch_config.get_cfg(str(path)) == jax_config.get_cfg(str(path))
+
+
+def test_json_configs_without_pyyaml(tmp_path):
+    """With PyYAML missing: a JSON config loads (the JAX loader reads the same
+    file), overrides are read as JSON, a YAML config and a non-JSON value
+    raise."""
+    cfg = {"dataset": {"name": "synthetic"}, "training": {"lr": 0.001, "groups": [1, 2]}}
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    (tmp_path / "cfg.yaml").write_text("a: 1\n")
+    assert jax_config.get_cfg(str(tmp_path / "cfg.json")) == cfg
+    script = textwrap.dedent(f"""
+        import sys
+        sys.modules["yaml"] = None
+        from schemanet_torch.utils import config
+        root = {str(tmp_path)!r}
+        assert config.get_cfg(root + "/cfg.json") == {cfg!r}
+        assert config.parse_override_strings(['a.b=1e-3', 'c="x"', 'd=true']) == {{
+            "a.b": 1e-3, "c": "x", "d": True}}
+        for bad, err in ((lambda: config.get_cfg(root + "/cfg.yaml"), ImportError),
+                         (lambda: config.parse_override_strings(["c=x"]), ValueError)):
+            try:
+                bad()
+            except err as exc:
+                assert "PyYAML" in str(exc), exc
+            else:
+                raise AssertionError("no error")
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
+
+
+@pytest.mark.parametrize("argv, item", [
+    (["train", "--mesh-data", "2"], "A11"),
+    (["train", "--mesh-model", "2"], "A11"),
+    (["serve", "--multi-host", "--ckpt", "c", "--images", "synthetic:1"], "A11"),
+    (["serve", "--quant-int8", "--ckpt", "c", "--images", "synthetic:1"], "A11"),
+    (["extract", "--quant-int8", "--ckpt", "c", "--save-path", "s"], "A11"),
+    (["extract", "--save-features", "--ckpt", "c", "--save-path", "s"], "A9"),
+    (["extract", "--saved-features-fp", "f.h5", "--ckpt", "c", "--save-path", "s"], "A9"),
+])
+def test_unported_flags_raise(tmp_path, argv, item):
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text("{}")
+    with pytest.raises(SystemExit, match=item):
+        cli.main(argv[:1] + ["--cfg", str(cfg), "--log-dir", str(tmp_path)] + argv[1:])
+
+
+def test_default_device_raises_without_a_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"dataset": {"name": "synthetic", "num_classes": 3,
+                                           "image_size": 8, "resize": 16,
+                                           "train": {"num_samples": 4}}},))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["init", "--cfg", str(cfg), "--log-dir", str(tmp_path), "--save-fp",
+                  str(tmp_path / "a.pt")])
+
+
+MODEL = {"name": "vit",
+         "transformer": {"embed_dim": 32, "num_encoder_layers": 2, "num_heads": 2,
+                         "dim_feedforward": 128, "dropout": 0.1, "activation": "gelu",
+                         "final_norm": True, "norm_eps": 1e-6},
+         "patch_embed": {"img_size": 16, "patch_size": 4, "image_channels": 3},
+         "pos_encoding": {"name": "learnable"}}
+CLASSES, CODES = 5, 16
+
+
+def _write(path, cfg):
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+def test_cli_chain_on_the_cpu(tmp_path):
+    """Stage 0 from a reference ``.pth`` (head in ``lax_names``), stage 1,
+    stage 2, stage 3, stage 4, then serving with explanations, a ``.npz`` and
+    a GraphML graph; every call exits 0 and the ``.npz`` equals the server
+    ``load_serve_predictor`` builds from the same files, bit for bit."""
+    root = tmp_path
+    data = {"name": "synthetic", "num_classes": CLASSES, "image_size": 8, "resize": 16,
+            "train": {"num_samples": 8}, "val": {"num_samples": 4}}
+    (root / "datasets").mkdir()
+    _write(root / "datasets" / "synthetic.json", data)
+    pth = save_reference(root / "ref.pth",
+                         reference_state_dict(dim=32, layers=2, classes=1000, img=16, patch=4))
+    train = {"train_epochs": 1, "batch_size": 4, "num_workers": 1, "val_interval": 1,
+             "optimizer": {"name": "AdamW", "lr": 1e-3}, "clip_max_norm": 0.1}
+    val = {"batch_size": 4, "num_workers": 1}
+    vanilla = _write(root / "vanilla.json", {
+        "dataset": "datasets/synthetic.json", "training": train, "validation": val,
+        "model": dict(MODEL, pre_train=pth, lax_names=["cls_head.weight", "cls_head.bias"]),
+        "loss": {"name": "ce_loss", "weight_dict": {"cls": 1.0}}})
+    ingredient = _write(root / "ingredient.json", {
+        "dataset": "datasets/synthetic.json", "model": MODEL,
+        "discretization": {"vocabulary": {"size": CODES, "dim": 32},
+                           "encoder_layer": "module.transformer.layers.1"}})
+    schema_cfg = {"bundle": str(root / "bundle"), "initial_state_fp": str(root / "atlas.pt"),
+                  "gnn": {"embed_dim": 16, "num_layers": 2},
+                  "ir_atlas": {"feat_h": 4, "feat_w": 4, "clamp_edge_attn": -1.0,
+                               "prune_node_threshold": 0.001}}
+    schema = _write(root / "schema.json", {
+        "dataset": "datasets/synthetic.json", "training": train, "validation": val,
+        "schema_net": schema_cfg,
+        "loss": {"name": "schema_inference_loss", "weight_dict": {"cls": 1.0}}})
+    common = ["--device", "cpu", "--seed", "3"]
+
+    def run(*argv):
+        assert cli.main(list(argv) + common) == 0, argv
+
+    run("train", "--cfg", vanilla, "--worker", "backbone_worker", "--log-dir", str(root / "s0"),
+        "-o", "training.train_epochs=1")
+    run("extract", "--cfg", ingredient, "--ckpt", str(root / "s0" / "ckpt"), "--save-path",
+        str(root / "codes"), "--batch-size", "4", "--max-features", "128", "--log-dir",
+        str(root / "s1"))
+    codes = root / "codes" / f"cluster_{CODES}_from_128.npy"
+    assert np.load(codes).shape == (CODES, 32)
+    assert torch.load(str(codes).replace(".npy", ".pth")).shape == (CODES, 32)
+    run("export", "--cfg", ingredient, "--ckpt", str(root / "s0" / "ckpt" / "iter-2"),
+        "--vocabulary-fp", str(codes), "--save-path", str(root / "bundle"), "--num-classes",
+        str(CLASSES), "--log-dir", str(root / "s2"))
+    run("init", "--cfg", schema, "--save-fp", str(root / "atlas.pt"), "--batch-size", "4",
+        "--log-dir", str(root / "s3"))
+    run("train", "--cfg", schema, "--worker", "schema_net_worker", "--log-dir", str(root / "s4"))
+    out = root / "served.npz"
+    proc = subprocess.run(
+        [sys.executable, "-m", "schemanet_torch.cli", "serve", "--cfg", schema, "--ckpt",
+         str(root / "s4" / "ckpt"), "--images", "synthetic:6", "--microbatch", "4", "--explain",
+         "--out", str(out), "--graph-sample", "0", "--log-dir", str(root / "serve"), *common],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    assert [line["index"] for line in lines] == list(range(6))
+    assert all(len(line["topk"]) == CLASSES for line in lines)
+    assert os.path.isfile(str(out) + ".sample0.graphml")
+
+    from schemanet_torch.serve import load_serve_predictor
+
+    saved = np.load(out)
+    server = load_serve_predictor(str(root / "bundle"), dict(schema_cfg), str(root / "s4" / "ckpt"),
+                                  CLASSES, microbatch=4, device="cpu")
+    images = np.random.default_rng(0).normal(size=(6, 16, 16, 3)).astype(np.float32)
+    np.testing.assert_array_equal(saved["logits"], server.predict(images))
+    explained = server.explain(images)
+    for key, value in explained.items():
+        np.testing.assert_array_equal(saved[key], value, err_msg=key)
+    assert saved["attribution"].shape == (6, CLASSES, 4, 4)

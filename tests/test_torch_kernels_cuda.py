@@ -623,3 +623,44 @@ def test_stage_kernels_reject_bad_inputs(dev):
         vqk.vq_assign_kernel(torch.zeros(4, 8, device=dev), torch.zeros(5, 9, device=dev))
     with pytest.raises(ValueError, match="multiple of 8"):  # no quiet fallback
         vqk.vq_assign_kernel(torch.zeros(4, 12, device=dev), torch.zeros(5, 12, device=dev))
+
+
+def _small_server(dev, dtype, precision):
+    """A seeded SchemaNet predictor (ViT 2 layers, d 64, 16 patches of 4^2;
+    5 classes, 40 codes, GNN 32) served on the card, one class holding a
+    code twice (whose table column then adds two weights atomically)."""
+    from schemanet_torch.schema import build_predictor, init_parameters_
+    from schemanet_torch.serve import ServePredictor
+
+    model_cfg = {"name": "vit",
+                 "transformer": dict(embed_dim=64, num_encoder_layers=2, num_heads=2,
+                                     dim_feedforward=256, activation="gelu", norm_eps=1e-6),
+                 "patch_embed": dict(img_size=16, patch_size=4, image_channels=3)}
+    schema_cfg = {"gnn": {"embed_dim": 32, "num_layers": 2},
+                  "ir_atlas": {"feat_h": 4, "feat_w": 4, "clamp_edge_attn": -1.0,
+                               "prune_node_threshold": 0.001, "graph_precision": precision}}
+    model = build_predictor(model_cfg, schema_cfg, 5, 40, 64, 1, dtype=dtype)
+    init_parameters_(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.schema_net.class_ingredients[0, 7] = model.schema_net.class_ingredients[0, 3]
+    return ServePredictor(model, microbatch=4, device=dev)
+
+
+@pytest.mark.parametrize("dtype,precision", [(torch.float32, "highest"),
+                                             (torch.bfloat16, "default")])
+def test_explain_bitwise_run_to_run(dev, dtype, precision):
+    """Every output of explain on the card has the same bits over two calls,
+    a duplicated code's two weights added atomically included."""
+    server = _small_server(dev, dtype, precision)
+    images = torch.randn(6, 16, 16, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+    first, again = server.explain_tensor(images), server.explain_tensor(images)
+    for key in first:
+        assert torch.equal(first[key], again[key]), key
+
+
+@pytest.mark.parametrize("dtype,precision", [(torch.float32, "highest"),
+                                             (torch.bfloat16, "default")])
+def test_explain_pred_equals_predict(dev, dtype, precision):
+    server = _small_server(dev, dtype, precision)
+    images = torch.randn(6, 16, 16, 3, generator=torch.Generator().manual_seed(2)).to(dev)
+    assert torch.equal(server.explain_tensor(images)["pred"], server.predict_tensor(images))

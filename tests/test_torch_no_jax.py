@@ -1,10 +1,12 @@
-"""The port imports neither JAX nor the JAX package, and neither Pillow nor
-TensorBoard: the machine with the card has none of them. Checked in a fresh
-interpreter where importing any of them fails (serving, one SchemaNet
-training step, one stage-0 backbone step with dropout live, stages 1 and 3
-through the pipeline package, with the VQ and LayerNorm kernel modules, and
-one epoch of ``schema_net_worker`` with its loaders, validation, TensorBoard
-writer and checkpoints), and by reading the port's sources."""
+"""The port imports neither JAX nor the JAX package, and neither Pillow,
+PyYAML nor TensorBoard: the machine with the card has none of them. Checked
+in a fresh interpreter where importing any of them fails (serving, one
+SchemaNet training step, one stage-0 backbone step with dropout live, stages
+1 and 3 through the pipeline package, with the VQ and LayerNorm kernel
+modules, one epoch of ``schema_net_worker`` with its loaders, validation,
+TensorBoard writer and checkpoints, then the command line's ``serve
+--explain`` on its files from a JSON config, ``load_serve_predictor``, the
+capture probes and the config helpers), and by reading the port's sources."""
 
 import pathlib
 import re
@@ -14,7 +16,7 @@ import textwrap
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "schemanet_tpu")
-ABSENT_ON_CARD = ("PIL", "tensorboard")  # not installed beside the card either
+ABSENT_ON_CARD = ("PIL", "tensorboard", "yaml")  # not installed beside the card either
 
 
 def test_import_and_cpu_forward_without_jax(tmp_path):
@@ -102,6 +104,27 @@ def test_import_and_cpu_forward_without_jax(tmp_path):
         assert meta["iter"] == 2 and meta["last_tag"] == "iter-2", meta
         assert os.path.isfile(os.path.join(root, "run", "ckpt", "best.pt"))
         assert out["trainer"].tb._writer is None  # no tensorboard: the writer does nothing
+        from schemanet_torch import cli, load_serve_predictor
+        from schemanet_torch.models.capture import MidExtractor
+        serve_cfg = os.path.join(root, "serve.json")
+        with open(serve_cfg, "w") as f:
+            json.dump(dict(worker_cfg, num_classes=10), f)
+        npz = os.path.join(root, "served.npz")
+        assert cli.main(["serve", "--cfg", serve_cfg, "--ckpt", os.path.join(root, "run", "ckpt"),
+                         "--images", "synthetic:3", "--microbatch", "2", "--explain", "--out",
+                         npz, "--log-dir", os.path.join(root, "cli"), "--device", "cpu",
+                         "-o", "schema_net.gnn.num_layers=2"]) == 0
+        saved = np.load(npz)
+        server = load_serve_predictor(worker_cfg["schema_net"]["bundle"], worker_cfg["schema_net"],
+                                      os.path.join(root, "run", "ckpt"), 10, microbatch=2,
+                                      device="cpu")
+        assert saved["attribution"].shape == (3, 10, 4, 4), saved["attribution"].shape
+        assert (saved["logits"] == server.predict(
+            np.random.default_rng(0).normal(size=(3, 16, 16, 3)).astype(np.float32))).all()
+        feats = MidExtractor(server.predictor.ingredient_backbone.backbone,
+                             ["module.transformer.layers.1.attention.attn_identity"])(
+            torch.randn(2, 16, 16, 3))
+        assert feats["module.transformer.layers.1.attention.attn_identity"].shape == (2, 2, 18, 18)
         loaded = [m for m in sys.modules if m.split(".")[0] in {blocked!r}
                   and sys.modules[m] is not None]
         assert not loaded, loaded
@@ -132,5 +155,19 @@ def test_data_and_utils_import_no_pillow_or_tensorboard_at_module_level():
     sources = [p for sub in ("data", "utils")
                for p in sorted((REPO / "schemanet_torch" / sub).rglob("*.py"))]
     assert len(sources) >= 7
+    offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
+    assert not offenders, offenders
+
+
+def test_new_modules_import_no_optional_package_at_module_level():
+    """The command line, serving, the capture probes, the graph export and
+    the config helpers import Pillow, PyYAML, TensorBoard and networkx only
+    inside the functions that need them."""
+    pattern = re.compile(
+        r"^(import|from)\s+(PIL|yaml|tensorboard|networkx|torch\.utils\.tensorboard)\b",
+        re.MULTILINE)
+    sources = [REPO / "schemanet_torch" / name for name in (
+        "cli.py", "serve.py", "models/capture.py", "models/port.py", "schema/convert_graph.py",
+        "utils/config.py", "utils/seed.py")]
     offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
     assert not offenders, offenders
