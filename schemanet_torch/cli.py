@@ -30,7 +30,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .data.datasets import get_dataset
+from .data.datasets import IMG_EXTS, get_dataset
+from .data.jpeg import read_image
 from .data.loader import _loader
 from .device import resolve_device
 from .models.port import load_pretrain_into
@@ -249,9 +250,13 @@ def cmd_init(args):
     return 0
 
 
-def _load_serve_images(spec: str, img_size: int) -> np.ndarray:
-    """--images: 'synthetic:N' | .npy array | image file | directory (image
-    files need Pillow, imported here)."""
+def _load_serve_images(spec: str, img_size: int, device: str) -> np.ndarray:
+    """--images: 'synthetic:N' | .npy array | image file | directory. JPEG
+    files decode through the port's route (``data/jpeg.py``: libjpeg on the
+    host, or nvJPEG on ``device``), other files through Pillow; each image
+    is resized to ``img_size`` by the JAX CLI's PIL ``resize``'s filter
+    (bicubic, antialiased, uint8; a level or two apart from PIL's at
+    most), then scaled to [0, 1]."""
     if spec.startswith("synthetic:"):
         n = int(spec.split(":", 1)[1])
         rng = np.random.default_rng(0)
@@ -260,21 +265,22 @@ def _load_serve_images(spec: str, img_size: int) -> np.ndarray:
     if path.endswith(".npy"):
         arr = np.asarray(np.load(path), np.float32)
         return arr[None] if arr.ndim == 3 else arr
-    try:
-        from PIL import Image
-    except ImportError as exc:
-        raise ImportError("reading image files needs Pillow; pass a .npy array or "
-                          "'synthetic:N' instead") from exc
-
     files = (
         sorted(os.path.join(path, f) for f in os.listdir(path)
-               if f.lower().endswith((".png", ".jpg", ".jpeg", ".bmp", ".webp")))
+               if f.lower().endswith(IMG_EXTS))
         if os.path.isdir(path) else [path]
     )
     if not files:
         raise FileNotFoundError(f"no images under {path}")
-    imgs = [np.asarray(Image.open(f).convert("RGB").resize((img_size, img_size)), np.float32)
-            / 255.0 for f in files]
+    decode_device = device if torch.device(device).type == "cuda" else None
+    imgs = []
+    for f in files:
+        x = torch.from_numpy(np.ascontiguousarray(read_image(f, decode_device)))
+        # PyTorch's uint8 antialiased resize takes PIL's fixed-point steps
+        x = torch.nn.functional.interpolate(x.permute(2, 0, 1)[None].contiguous(),
+                                            size=(img_size, img_size), mode="bicubic",
+                                            align_corners=False, antialias=True)
+        imgs.append(x[0].permute(1, 2, 0).numpy().astype(np.float32) / 255.0)
     return np.stack(imgs)
 
 
@@ -291,7 +297,7 @@ def cmd_serve(args):
     img_size = load_bundle(bundle_path).img_size
     server = load_serve_predictor(bundle_path, schema_cfg, args.ckpt, num_classes,
                                   microbatch=args.microbatch, device=args.device)
-    images = _load_serve_images(args.images, img_size)
+    images = _load_serve_images(args.images, img_size, args.device)
 
     logits = server.predict(images)
     k = min(args.topk, logits.shape[1])

@@ -1,6 +1,8 @@
-"""Data: in-memory datasets, the numpy augmentations, the loader with its
-host-to-device prefetch, and the device-side resize and normalisation.
-Importing it imports neither Pillow nor any JAX module."""
+"""Data: in-memory and image-folder datasets, the JPEG decode (libjpeg on
+the host or nvJPEG on the card), the numpy augmentations and their
+crop-parameter form, the loader with its host-to-device prefetch, and the
+device-side crop/resize and normalisation. Importing it imports neither
+Pillow nor any JAX module."""
 
 from .augment import AUG_REGISTRY, get_augmentation, normalize_batch, resize_normalize
 from .datasets import DATASET_REGISTRY, get_dataset, make_partial

@@ -6,8 +6,10 @@ each drawing from the sample's own ``np.random.Generator`` in the JAX
 package's order (CIFAR train: ``random_crop((32, 32), padding=4)`` then
 ``random_horizontal_flip``). The transforms that need Pillow (a bicubic or
 aspect-keeping ``resize``, ``random_rotation``, the ImageNet crops) import
-it when they run, so importing this module never does: the machine with the
-card has no Pillow.
+it when they run, so importing this module never does. The image-folder
+loader takes the crop-parameter form of each augmentation instead
+(``CROP_PARAMS_REGISTRY``), whose windows the ``crop_resize`` kernel
+resizes on the device: no Pillow there either.
 
 Device side: the dataset's final ``resize`` (the JAX loader's
 ``final_resize``, done there on the host with PIL or ``native/imagepipe``)
@@ -178,6 +180,83 @@ for _name in _IMAGENET_LIKE:
 
 def get_augmentation(dataset_name: str, split: str) -> Optional[Transform]:
     return AUG_REGISTRY.get(f"{dataset_name}_{'train' if split == 'train' else 'val'}")
+
+
+# ---------------------------------------------------------------------------
+# Crop-parameter form of each augmentation (the JAX package's native route):
+# one (top, left, crop_h, crop_w, flip) draw a sample, which the crop/flip/
+# resize kernel (ops/kernels/imagepipe.py) turns into the output image.
+#   cifar train:    RandomCrop(32, pad=4) + flip, then the resize: the
+#                   window may pass the image's edges (zeros there).
+#   imagenet train: RandomResizedCrop(scale .6-1) + flip: a box a sample.
+#   imagenet val:   Resize(256 short edge) + CenterCrop(224): the center box
+#                   of side short * 224 / 256, resized in one filter pass.
+#   identity:       the whole image.
+# Each draws from the sample's generator in the JAX package's order.
+# ---------------------------------------------------------------------------
+
+
+def _params_cifar_train(shape, rng):
+    h, w = shape[:2]
+    pad = 4
+    top = int(rng.integers(0, 2 * pad + 1)) - pad
+    left = int(rng.integers(0, 2 * pad + 1)) - pad
+    return top, left, h, w, rng.random() < 0.5
+
+
+def _params_rrc_train(shape, rng, scale=(0.6, 1.0), ratio=(3 / 4, 4 / 3)):
+    h, w = shape[:2]
+    area = h * w
+    for _ in range(10):
+        target_area = area * rng.uniform(*scale)
+        aspect = np.exp(rng.uniform(*np.log(ratio)))
+        cw = int(round(np.sqrt(target_area * aspect)))
+        ch = int(round(np.sqrt(target_area / aspect)))
+        if 0 < cw <= w and 0 < ch <= h:
+            top = int(rng.integers(0, h - ch + 1))
+            left = int(rng.integers(0, w - cw + 1))
+            return top, left, ch, cw, rng.random() < 0.5
+    side = min(h, w)
+    return (h - side) // 2, (w - side) // 2, side, side, rng.random() < 0.5
+
+
+def _params_imagenet_val(shape, rng):
+    h, w = shape[:2]
+    short = min(h, w)
+    crop = max(1, int(round(short * 224.0 / 256.0)))
+    return (h - crop) // 2, (w - crop) // 2, crop, crop, False
+
+
+def _params_identity(shape, rng):
+    h, w = shape[:2]
+    return 0, 0, h, w, False
+
+
+# the crop size is a function of the source shape alone for these (the JAX
+# package batches them in one C++ call); RandomResizedCrop draws a box a sample
+_params_cifar_train.fixed_crop = True
+_params_imagenet_val.fixed_crop = True
+_params_identity.fixed_crop = True
+_params_identity.identity = True  # no crop or flip
+_params_rrc_train.fixed_crop = False
+
+CROP_PARAMS_REGISTRY: Dict[str, Callable] = {
+    "cifar_10_train": _params_cifar_train,
+    "cifar_100_train": _params_cifar_train,
+    "cifar_10_val": _params_identity,
+    "cifar_100_val": _params_identity,
+    "synthetic_train": _params_identity,
+    "synthetic_val": _params_identity,
+}
+for _name in _IMAGENET_LIKE:
+    CROP_PARAMS_REGISTRY[f"{_name}_train"] = _params_rrc_train
+    CROP_PARAMS_REGISTRY[f"{_name}_val"] = _params_imagenet_val
+
+
+def get_crop_params_fn(dataset_name: str, split: str) -> Optional[Callable]:
+    """The crop-parameter function of a dataset's split (the JAX package's
+    ``get_native_params_fn``), or None."""
+    return CROP_PARAMS_REGISTRY.get(f"{dataset_name}_{'train' if split == 'train' else 'val'}")
 
 
 def normalize_batch(images: np.ndarray, mean: Sequence[float] = DEFAULT_MEAN,

@@ -4,11 +4,14 @@ the port's loader path reads).
 A dataset yields ``(uint8 HWC image, int label)`` pairs and exposes
 ``num_classes``/``classes``. Registered names follow the JAX package:
 ``cifar_10``, ``cifar_100`` (the python pickle batches), ``mnist`` (IDX
-files) and ``synthetic`` (class-separable images made from a seed, for
-tests and benchmarks: no dataset file is in the repository). The
-image-folder datasets (ImageNet and its subsets, Caltech-101, CUB-200,
-Stanford Cars, mini-ImageNet, the robustness sets) and the native JPEG
-decode are not ported yet.
+files), ``synthetic`` (class-separable images made from a seed, for
+tests and benchmarks: no dataset file is in the repository), and the
+image-folder datasets: ``imagenet``, ``imagenet=10/20/50/100``,
+``imagenet=10birds``, ``imagenet_a``, ``imagenet_r``, ``caltech_101``,
+``mini_imagenet``, ``cub_200`` and ``stanford_cars``, each with the JAX
+builder's samples, labels, classes and order. An image-folder sample is
+read lazily: ``get_raw`` gives a JPEG's bytes for the loader's decode
+(``data/jpeg.py``), ``__getitem__`` its decoded pixels.
 """
 
 from __future__ import annotations
@@ -20,8 +23,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..utils.registry import Registry
+from . import jpeg
 
 DATASET_REGISTRY: Registry = Registry("datasets")
+
+IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 
 
 class ArrayDataset:
@@ -44,12 +50,67 @@ class ArrayDataset:
         return self.images[idx], int(self.labels[idx])
 
 
+class ImageFolderDataset:
+    """ImageNet-style <root>/<class>/<image> tree, decoded lazily."""
+
+    def __init__(
+        self,
+        root: str,
+        classes: Optional[Sequence[str]] = None,
+        name: str = "image_folder",
+        class_offset: int = 0,
+    ):
+        self.root = os.path.expanduser(root)
+        if classes is not None:
+            self.classes = list(classes)  # no discovery listing needed
+        else:
+            self.classes = sorted(
+                d for d in os.listdir(self.root) if os.path.isdir(os.path.join(self.root, d)))
+        self.name = name
+        self.samples: List[Tuple[str, int]] = []
+        for label, cls in enumerate(self.classes):
+            cls_dir = os.path.join(self.root, cls)
+            if not os.path.isdir(cls_dir):
+                continue
+            for fn in sorted(os.listdir(cls_dir)):
+                if fn.lower().endswith(IMG_EXTS):
+                    self.samples.append((os.path.join(cls_dir, fn), label + class_offset))
+
+    @property
+    def num_classes(self) -> int:
+        return len(self.classes)
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, int]:
+        path, label = self.samples[idx]
+        return jpeg.read_image(path), label
+
+    def get_raw(self, idx: int) -> Tuple[Optional[bytes], int]:
+        """A JPEG file's bytes for the loader's decode (None for any other
+        file, which the loader reads through Pillow)."""
+        path, label = self.samples[idx]
+        if jpeg.is_jpeg_name(path):
+            with open(path, "rb") as f:
+                return f.read(), label
+        return None, label
+
+    def sample_path(self, idx: int) -> str:
+        return self.samples[idx][0]
+
+
 class SubsetDataset:
     def __init__(self, base, indices: Sequence[int]):
         self.base = base
         self.indices = list(indices)
         self.classes = base.classes
         self.name = base.name
+        # an image-folder base's lazy reads, by the subset's index
+        for attr in ("get_raw", "sample_path"):
+            if hasattr(base, attr):
+                method = getattr(base, attr)
+                setattr(self, attr, lambda idx, method=method: method(self.indices[idx]))
 
     @property
     def num_classes(self) -> int:
@@ -133,6 +194,274 @@ def build_mnist(root: str, split: str = "train", **kwargs) -> ArrayDataset:
     images = np.repeat(images, 3, axis=-1)
     labels = np.frombuffer(lab_raw, np.uint8, offset=8).astype(np.int64)
     return ArrayDataset(images, labels, [str(i) for i in range(10)], "mnist")
+
+
+# ---------------------------------------------------------------------------
+# ImageNet-style folders
+# ---------------------------------------------------------------------------
+
+
+def load_class_list(path: str) -> List[str]:
+    """Class names from a txt (one per line) or csv file.
+
+    Two csv shapes are accepted (see configs/datasets/README.md):
+    * plain one-column (class name per line);
+    * the reference's pandas-style ``config/datasets/*_all_classes.csv``
+      (header row ``,classes`` then ``<index>,<class name>`` rows) — the
+      class name lives in the LAST column there, not the first.
+    """
+    classes: List[str] = []
+    with open(os.path.expanduser(path)) as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    for i, line in enumerate(lines):
+        cols = [c.strip() for c in line.split(",")]
+        if len(cols) == 1:
+            classes.append(cols[0])
+            continue
+        if i == 0 and cols[-1].lower() in ("classes", "class", "name"):
+            continue  # pandas header row (",classes")
+        # pandas-style "<row index>,<name>": take the name column
+        classes.append(cols[-1] if (not cols[0] or cols[0].isdigit()) else cols[0])
+    return classes
+
+
+@DATASET_REGISTRY.register("imagenet")
+def build_imagenet(
+    root: str,
+    split: str = "train",
+    classes: Optional[Sequence[str]] = None,
+    classes_file: Optional[str] = None,
+    **kwargs,
+) -> ImageFolderDataset:
+    sub = "train" if split == "train" else "val"
+    if classes is None and classes_file:
+        classes = load_class_list(classes_file)
+    return ImageFolderDataset(os.path.join(root, sub), classes=classes, name="imagenet")
+
+
+def _imagenet_subset(n: int):
+    def build(root: str, split: str = "train", classes=None, classes_file=None, **kwargs):
+        # single directory listing for the class names, then one scan over the
+        # kept class dirs only (the 1.28M-file train tree is walked once)
+        sub = os.path.join(os.path.expanduser(root), "train" if split == "train" else "val")
+        if classes is None and classes_file:
+            classes = load_class_list(classes_file)
+        if classes is None:
+            classes = sorted(
+                d for d in os.listdir(sub) if os.path.isdir(os.path.join(sub, d))
+            )
+        return ImageFolderDataset(sub, classes=list(classes)[:n], name=f"imagenet={n}")
+
+    return build
+
+
+@DATASET_REGISTRY.register("imagenet=10birds")
+def build_imagenet_10birds(
+    root: str, split: str = "train", classes=None, classes_file=None, **kwargs
+):
+    """The reference's named 10-bird-class ImageNet subset (aug.py:37-38; its
+    wnid list lives in cv_lib). Provide the wnids via ``classes`` or
+    ``classes_file`` in the dataset config."""
+    if classes is None and classes_file:
+        classes = load_class_list(classes_file)
+    if classes is None:
+        raise ValueError(
+            "imagenet=10birds needs its wnid list: set dataset.classes or "
+            "dataset.classes_file (10 wnids, one per line)"
+        )
+    sub = os.path.join(os.path.expanduser(root), "train" if split == "train" else "val")
+    return ImageFolderDataset(sub, classes=classes, name="imagenet=10birds")
+
+
+def _imagenet_robustness(name: str):
+    """imagenet_a / imagenet_r (reference aug.py:57-58): val-only trees of 200
+    wnid class folders. With ``imagenet_classes_file`` (the 1000 wnids in
+    1000-class order) labels land in the full ImageNet label space so a
+    1000-way classifier evaluates directly; otherwise labels are local 0..199.
+    """
+
+    def build(
+        root: str,
+        split: str = "val",
+        imagenet_classes_file: Optional[str] = None,
+        **kwargs,
+    ):
+        base = os.path.expanduser(root)
+        # tolerate either <root>/ or <root>/val/ holding the wnid dirs
+        sub = os.path.join(base, "val")
+        if not os.path.isdir(sub):
+            sub = base
+        ds = ImageFolderDataset(sub, name=name)
+        if imagenet_classes_file:
+            full = load_class_list(imagenet_classes_file)
+            index_of = {wnid: i for i, wnid in enumerate(full)}
+            missing = [c for c in ds.classes if c not in index_of]
+            if missing:
+                raise ValueError(
+                    f"{name}: wnids {missing[:3]}... absent from "
+                    f"{imagenet_classes_file}"
+                )
+            remap = {local: index_of[c] for local, c in enumerate(ds.classes)}
+            ds.samples = [(p, remap[l]) for p, l in ds.samples]
+            ds.classes = full  # label space is now the full 1000 classes
+        return ds
+
+    return build
+
+
+DATASET_REGISTRY.register("imagenet_a", _imagenet_robustness("imagenet_a"))
+DATASET_REGISTRY.register("imagenet_r", _imagenet_robustness("imagenet_r"))
+
+
+for _n in (10, 20, 50, 100):
+    DATASET_REGISTRY.register(f"imagenet={_n}", _imagenet_subset(_n))
+
+
+@DATASET_REGISTRY.register("caltech_101")
+def build_caltech101(
+    root: str,
+    split: str = "train",
+    train_per_class: int = 30,
+    seed: int = 0,
+    split_file: Optional[str] = None,
+    **kwargs,
+) -> SubsetDataset:
+    """Caltech-101 with cv_lib-style *manual* split support: pass
+    ``split_file`` (lines of ``<class_dir>/<filename>`` naming the TRAIN
+    members; val = remainder) to reproduce the reference's exact membership
+    and make accuracies comparable. Without it, a deterministic seeded
+    ``train_per_class``-per-class split is used."""
+    base = ImageFolderDataset(root, name="caltech_101")
+    if split_file:
+        with open(os.path.expanduser(split_file)) as f:
+            train_set = {line.strip() for line in f if line.strip()}
+        root_abs = os.path.expanduser(root)
+        def rel(p):
+            return os.path.relpath(p, root_abs)
+        indices = [
+            i for i, (p, _) in enumerate(base.samples)
+            if (rel(p) in train_set) == (split == "train")
+        ]
+        return SubsetDataset(base, indices)
+    rng = np.random.default_rng(seed)
+    by_class: Dict[int, List[int]] = {}
+    for i, (_, label) in enumerate(base.samples):
+        by_class.setdefault(label, []).append(i)
+    indices: List[int] = []
+    for label, idxs in sorted(by_class.items()):
+        idxs = list(rng.permutation(idxs))
+        take = idxs[:train_per_class] if split == "train" else idxs[train_per_class:]
+        indices.extend(take)
+    return SubsetDataset(base, indices)
+
+
+@DATASET_REGISTRY.register("mini_imagenet")
+def build_mini_imagenet(
+    root: str,
+    split: str = "train",
+    classes: Optional[Sequence[str]] = None,
+    classes_file: Optional[str] = None,
+    **kwargs,
+):
+    """mini-ImageNet as an ImageFolder tree restricted to a 100-wnid class
+    list (``classes_file``: txt or reference-style csv — see
+    configs/datasets/examples/)."""
+    if classes is None and classes_file:
+        classes = load_class_list(classes_file)
+    sub = "train" if split == "train" else "val"
+    path = os.path.join(root, sub)
+    if not os.path.isdir(path):
+        path = root  # single-folder layout with per-class split files
+    return ImageFolderDataset(path, classes=classes, name="mini_imagenet")
+
+
+class FileListDataset(ImageFolderDataset):
+    """ImageFolderDataset API over an explicit (path, label) sample list."""
+
+    def __init__(self, samples: List[Tuple[str, int]], classes: List[str], name: str):
+        self.root = ""
+        self.classes = list(classes)
+        self.name = name
+        self.samples = list(samples)
+
+
+@DATASET_REGISTRY.register("cub_200")
+def build_cub200(root: str, split: str = "train", **kwargs):
+    """CUB-200-2011's real layout (the reference loads it via cv_lib; see
+    aug.py:45-46): a flat ``images/`` tree driven by ``images.txt``
+    (id rel_path), ``train_test_split.txt`` (id is_train) and
+    ``image_class_labels.txt`` (id class_id, 1-based), with class names in
+    ``classes.txt``. Falls back to a train/|val/ ImageFolder tree when the
+    split files are absent."""
+    base = os.path.expanduser(root)
+    # the official tarball unpacks to CUB_200_2011/
+    if not os.path.isfile(os.path.join(base, "images.txt")):
+        nested = os.path.join(base, "CUB_200_2011")
+        if os.path.isfile(os.path.join(nested, "images.txt")):
+            base = nested
+    images_txt = os.path.join(base, "images.txt")
+    if not os.path.isfile(images_txt):
+        return ImageFolderDataset(
+            os.path.join(base, "train" if split == "train" else "val"), name="cub_200"
+        )
+
+    def read_pairs(fn):
+        out = {}
+        with open(os.path.join(base, fn)) as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) >= 2:
+                    out[parts[0]] = parts[1]
+        return out
+
+    paths = read_pairs("images.txt")
+    is_train = read_pairs("train_test_split.txt")
+    class_of = read_pairs("image_class_labels.txt")
+    classes = [None] * 200
+    with open(os.path.join(base, "classes.txt")) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 2:
+                classes[int(parts[0]) - 1] = parts[1]
+    classes = [c for c in classes if c is not None]
+
+    want_train = split == "train"
+    samples = [
+        (os.path.join(base, "images", rel), int(class_of[img_id]) - 1)
+        for img_id, rel in sorted(paths.items(), key=lambda kv: int(kv[0]))
+        if (is_train.get(img_id) == "1") == want_train
+    ]
+    return FileListDataset(samples, classes, "cub_200")
+
+
+@DATASET_REGISTRY.register("stanford_cars")
+def build_stanford_cars(root: str, split: str = "train", **kwargs):
+    """Stanford Cars' real layout (reference aug.py:47-48; loader in cv_lib):
+    ``cars_train/``/``cars_test/`` flat image dirs with devkit .mat
+    annotations (``cars_train_annos.mat`` / ``cars_test_annos_withlabels.mat``,
+    class names in ``cars_meta.mat``; labels 1-based). Falls back to a
+    train/|val/ ImageFolder tree when the devkit is absent."""
+    base = os.path.expanduser(root)
+    devkit = os.path.join(base, "devkit")
+    want_train = split == "train"
+    annos_fp = os.path.join(
+        devkit, "cars_train_annos.mat" if want_train else "cars_test_annos_withlabels.mat"
+    )
+    if not os.path.isfile(annos_fp):
+        return ImageFolderDataset(
+            os.path.join(base, "train" if want_train else "val"), name="stanford_cars"
+        )
+    from scipy.io import loadmat
+
+    meta = loadmat(os.path.join(devkit, "cars_meta.mat"), squeeze_me=True)
+    classes = [str(c) for c in meta["class_names"]]
+    # squeeze_me collapses 1-element struct arrays to 0-d; restore the axis
+    annos = np.atleast_1d(loadmat(annos_fp, squeeze_me=True)["annotations"])
+    img_dir = os.path.join(base, "cars_train" if want_train else "cars_test")
+    samples = [
+        (os.path.join(img_dir, str(a["fname"])), int(a["class"]) - 1) for a in annos
+    ]
+    return FileListDataset(samples, classes, "stanford_cars")
 
 
 @DATASET_REGISTRY.register("synthetic")

@@ -20,6 +20,21 @@ normalisation run on the device: ``prepare`` (``augment.resize_normalize``
 at the loader's ``resize``, ``mean`` and ``std``). There is no host route
 for them, so a batch never falls back to a resize on the CPU.
 
+The image-folder route (a dataset with ``get_raw``, a crop-parameter
+function for its split in ``augment.CROP_PARAMS_REGISTRY``, ``resize`` set
+and no custom ``transform``) follows the JAX loader's native route: in the
+thread pool each sample's bytes are read, its header read, its
+``(top, left, crop_h, crop_w, flip)`` drawn from its generator and, on the
+``libjpeg`` route, its pixels decoded; a file the route refuses goes
+through Pillow or raises, naming it (``data/jpeg.py``). The batch ships the
+decoded images packed in one 1-D uint8 ``image`` with a ``crop`` table
+[bs, 8] (offset, h, w and the parameters a sample); on the ``nvjpeg``
+route it ships the JPEG bytes (``jpeg``, ``jpeg_offsets``, and the files'
+paths, ``jpeg_files``) and ``batch_to_device`` decodes them on the card.
+``prepare(image, crop)`` then runs the crop/flip/resize kernel
+(``ops/kernels/imagepipe.py``) and the normalisation. ``decode_route``
+names the route (None off this route).
+
 ``device_prefetch`` moves batches to the device ahead of the consumer: from
 a producer thread, each array is copied into pinned host memory and then to
 the device on a side CUDA stream, and the consumer's stream waits on that
@@ -40,7 +55,10 @@ from typing import Any, Callable, Dict, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from .augment import DEFAULT_MEAN, DEFAULT_STD, get_augmentation, resize_normalize
+from ..ops.kernels import imagepipe
+from . import jpeg
+from .augment import (DEFAULT_MEAN, DEFAULT_STD, get_augmentation, get_crop_params_fn,
+                      resize_normalize)
 
 
 class DataLoader:
@@ -75,6 +93,10 @@ class DataLoader:
         self.epoch = 0
         self.transform = (transform if transform is not None
                           else get_augmentation(getattr(dataset, "name", ""), split))
+        self._crop_params = (get_crop_params_fn(getattr(dataset, "name", ""), split)
+                             if transform is None and resize and hasattr(dataset, "get_raw")
+                             else None)
+        self.decode_route = jpeg.decode_route() if self._crop_params is not None else None
         self._pindex, self._pcount = process_index, process_count
         self.local_batch_size = batch_size // process_count
         self._pool = futures.ThreadPoolExecutor(max_workers=self.num_workers)
@@ -97,6 +119,57 @@ class DataLoader:
     def _load_one(self, idx: int, rng_seed: int):
         img, label = self.dataset[int(idx)]
         return self.transform(np.asarray(img), np.random.default_rng(rng_seed)), label
+
+    def _load_packed(self, idx: int, rng_seed: int):
+        """(pixels or None, JPEG bytes or None, header, crop parameters,
+        label) of one image-folder sample, drawing as the JAX loader's
+        native route does: from the JPEG header when it reads, again from
+        the Pillow image where the decode refuses the file."""
+        rng = np.random.default_rng(rng_seed)
+        raw, label = self.dataset.get_raw(int(idx))
+        if raw is not None:
+            header = jpeg.jpeg_header(raw)
+            if header is not None:
+                params = self._crop_params(header[:2], rng)
+                if self.decode_route == jpeg.NVJPEG:
+                    if jpeg.decodable(header):
+                        return None, raw, header, params, label
+                else:
+                    img = jpeg.decode_jpeg(raw)
+                    if img is not None:
+                        return img, None, img.shape, params, label
+        img = jpeg.pillow_rgb(self.dataset.sample_path(int(idx)))
+        return img, None, img.shape, self._crop_params(img.shape, rng), label
+
+    def _packed_batch(self, local_idx: np.ndarray, seed0: int) -> Dict[str, np.ndarray]:
+        """The image-folder route's batch: host-decoded pixels packed in
+        ``image``, the JPEG bytes left for the card (nvJPEG route) in
+        ``jpeg``; ``crop`` [bs, 8] gives sample j's image offset (in
+        ``image``, or -1 - k for the k-th file of ``jpeg``), h, w and
+        (top, left, crop_h, crop_w, flip)."""
+        jobs = [self._pool.submit(self._load_packed, idx, seed0 + j)
+                for j, idx in enumerate(local_idx)]
+        out = [job.result() for job in jobs]
+        crop = np.empty((len(out), imagepipe.META), np.int64)
+        pixels, blobs, files, at = [], [], [], 0
+        for j, (img, raw, shape, (top, left, ch, cw, flip), _) in enumerate(out):
+            if raw is None:
+                crop[j, 0] = at
+                pixels.append(img.reshape(-1))
+                at += img.size
+            else:
+                crop[j, 0] = -1 - len(blobs)
+                blobs.append(np.frombuffer(raw, np.uint8))
+                files.append(self.dataset.sample_path(int(local_idx[j])))
+            crop[j, 1:] = (shape[0], shape[1], top, left, ch, cw, int(flip))
+        batch = {"image": np.concatenate(pixels) if pixels else np.zeros(0, np.uint8),
+                 "crop": crop, "label": np.asarray([o[4] for o in out], np.int32)}
+        if blobs:
+            batch["jpeg"] = np.concatenate(blobs)
+            batch["jpeg_offsets"] = np.concatenate(
+                [[0], np.cumsum([len(b) for b in blobs])]).astype(np.int64)
+            batch["jpeg_files"] = files
+        return batch
 
     def _images_labels(self, local_idx: np.ndarray, seed0: int):
         """uint8 images and int32 labels of the samples ``local_idx``, sample
@@ -123,27 +196,68 @@ class DataLoader:
                 # pad the last batch to the static shape; 'valid' masks the padding
                 pad = np.resize(local_idx if n_valid else order[:1], self.local_batch_size - n_valid)
                 local_idx = np.concatenate([local_idx, pad])
-            images, labels = self._images_labels(local_idx, base_seed + start + lo)
             valid = (np.arange(self.local_batch_size) < n_valid).astype(np.float32)
+            if self._crop_params is not None:
+                yield {**self._packed_batch(local_idx, base_seed + start + lo), "valid": valid}
+                continue
+            images, labels = self._images_labels(local_idx, base_seed + start + lo)
             yield {"image": images, "label": labels, "valid": valid}
 
-    def prepare(self, image: torch.Tensor) -> torch.Tensor:
+    def prepare(self, image: torch.Tensor, crop=None) -> torch.Tensor:
         """A batch's images on the device, ready for the model: uint8 ones
         resized to ``resize`` and normalised, in fp32; float ones (already
-        normalised by the caller) as they are."""
+        normalised by the caller) as they are. With the image-folder
+        route's ``crop`` table, ``image`` is its packed buffer, which the
+        crop/flip/resize kernel turns into the batch first."""
+        if crop is not None:
+            image = imagepipe.crop_resize(image, crop, self.resize)
         if image.dtype != torch.uint8:
             return image
         return resize_normalize(image, self.resize, self.mean, self.std)
 
 
-def prepare_images(loader, image: torch.Tensor) -> torch.Tensor:
-    """``loader.prepare(image)`` where the loader has one; otherwise uint8
-    images are scaled to [0, 1] (the JAX trainer's default mean 0, std 1)
-    and float images pass as they are."""
+def prepare_images(loader, image: torch.Tensor, crop=None) -> torch.Tensor:
+    """``loader.prepare(image, crop)`` where the loader has one; otherwise
+    uint8 images are scaled to [0, 1] (the JAX trainer's default mean 0, std
+    1) and float images pass as they are."""
     prepare = getattr(loader, "prepare", None)
     if prepare is not None:
-        return prepare(image)
+        return prepare(image, crop)
+    if crop is not None:
+        raise ValueError("a packed image-folder batch needs its loader's prepare")
     return resize_normalize(image, None, (0.0,) * 3, (1.0,) * 3) if image.dtype == torch.uint8 else image
+
+
+def batch_to_device(batch: Dict[str, Any], device, non_blocking: bool = False
+                    ) -> Dict[str, torch.Tensor]:
+    """A loader batch's arrays as tensors on ``device`` (pinned copies where
+    ``non_blocking``). The image-folder route's ``crop`` table stays on the
+    host (``crop_resize`` checks it there); its JPEG bytes, on the nvJPEG
+    route, are decoded on the card into the packed ``image``, after the
+    host-decoded images, and the table's offsets follow."""
+    device = torch.device(device)
+    moved = {}
+    for k, v in batch.items():
+        if k in ("jpeg", "jpeg_offsets", "jpeg_files", "crop"):
+            continue
+        t = v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda" and not t.is_cuda and non_blocking:
+            t = t.pin_memory()
+        moved[k] = t.to(device, non_blocking=non_blocking)
+    if "crop" not in batch:
+        return moved
+    crop = np.array(torch.as_tensor(batch["crop"]).cpu(), np.int64)
+    if "jpeg" in batch:
+        data, offsets = batch["jpeg"], np.asarray(batch["jpeg_offsets"])
+        blobs = [np.asarray(data)[offsets[k]:offsets[k + 1]].tobytes()
+                 for k in range(len(offsets) - 1)]
+        decoded, where = jpeg.decode_to_device(blobs, device, batch.get("jpeg_files"))
+        host = moved["image"]
+        moved["image"] = torch.cat([host, decoded]) if host.numel() else decoded
+        on_card = crop[:, 0] < 0
+        crop[on_card, 0] = host.numel() + np.asarray(where, np.int64)[-1 - crop[on_card, 0]]
+    moved["crop"] = torch.from_numpy(crop)
+    return moved
 
 
 def device_prefetch(iterator: Iterator[Dict[str, np.ndarray]], device,
@@ -169,13 +283,10 @@ def device_prefetch(iterator: Iterator[Dict[str, np.ndarray]], device,
         return False
 
     def to_device(batch):
-        tensors = {k: v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v))
-                   for k, v in batch.items()}
         if not cuda:
-            return {k: t.to(device) for k, t in tensors.items()}, None
+            return batch_to_device(batch, device), None
         with torch.cuda.stream(side):
-            moved = {k: t.to(device) if t.is_cuda else t.pin_memory().to(device, non_blocking=True)
-                     for k, t in tensors.items()}
+            moved = batch_to_device(batch, device, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record(side)
         return moved, ready
@@ -202,7 +313,8 @@ def device_prefetch(iterator: Iterator[Dict[str, np.ndarray]], device,
                 stream = torch.cuda.current_stream(device)
                 stream.wait_event(extra)
                 for t in item.values():
-                    t.record_stream(stream)
+                    if t.is_cuda:
+                        t.record_stream(stream)
             yield item
     finally:
         stop.set()

@@ -15,6 +15,7 @@ from .encoder_block import (
     ffn_block_reference,
     ffn_ln_rows,
 )
+from .imagepipe import crop_resize, crop_resize_reference, ycc_to_rgb, ycc_to_rgb_reference
 from .graphconv import sym_conv, sym_conv_bwd, sym_conv_bwd_reference, sym_conv_reference
 from .layernorm import (
     fused_layernorm,
@@ -60,6 +61,8 @@ _COUNTERS = {
     "fused_layernorm": (fused_layernorm, "launches"),
     "fused_layernorm_bwd": (fused_layernorm_bwd, "launches"),
     "fused_layernorm_bwd_vec": (fused_layernorm_bwd, "vec_launches"),  # 16-byte route's share
+    "crop_resize": (crop_resize, "launches"),
+    "ycc_to_rgb": (ycc_to_rgb, "launches"),
 }
 
 

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "sn_vq_assign": [_I] + [_P] * 5 + [_I] * 4 + [_P],
     "sn_layernorm_fwd": [_I] + [_P] * 4 + [_L, _I, _F, _I, _P],
     "sn_layernorm_bwd": [_I, _I] + [_P] * 7 + [_L, _I, _F, _I, _P],
+    "sn_crop_resize": [_P, _P, _P, _I, _I, _P],
+    "sn_ycc_to_rgb": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -22,15 +22,15 @@ from typing import Iterator, List
 
 import torch
 
-from ..data.loader import prepare_images
+from ..data.loader import batch_to_device, prepare_images
 from ..ops import kmeans as kmeans_ops
 
 MINIBATCH = 1024  # rows of one k-means minibatch
 
 
 def _image(loader, batch, device: torch.device) -> torch.Tensor:
-    image = torch.as_tensor(batch["image"]).to(device)
-    return prepare_images(loader, image).to(torch.float32)
+    batch = batch_to_device(batch, device)
+    return prepare_images(loader, batch["image"], batch.get("crop")).to(torch.float32)
 
 
 @torch.no_grad()

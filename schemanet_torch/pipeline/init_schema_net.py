@@ -25,7 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..data.loader import prepare_images
+from ..data.loader import batch_to_device, prepare_images
 from ..device import resolve_device
 from ..ops import geometry, graph as graph_ops
 from ..schema.atlas import AtlasConfig, project_params_, trunc_normal_unit
@@ -46,7 +46,8 @@ def _batch(loader, batch, device: torch.device):
     labels = torch.as_tensor(batch["label"]).to(device, torch.long)
     valid = batch.get("valid")
     valid = (torch.ones(len(labels)) if valid is None else torch.as_tensor(valid))
-    image = prepare_images(loader, torch.as_tensor(batch["image"]).to(device))
+    moved = batch_to_device({k: batch[k] for k in batch if k not in ("label", "valid")}, device)
+    image = prepare_images(loader, moved["image"], moved.get("crop"))
     return image, labels, valid.to(device, torch.float32)
 
 

@@ -62,7 +62,7 @@ class Evaluation:
     def _batch_sums(self, batch: Dict[str, torch.Tensor]):
         """(loss-dict keys, [n, loss * n, acc counts..., loss terms * n]) of
         one batch, on the device."""
-        out = self.apply_fn(prepare_images(self.val_loader, batch["image"]))
+        out = self.apply_fn(prepare_images(self.val_loader, batch["image"], batch.get("crop")))
         label = batch["label"]
         loss_dict = self.loss_fn(out, {"label": label})
         total = weighted_total(loss_dict, self.loss_weights)
@@ -115,7 +115,8 @@ class IncEvaluation:
             lo, hi = self.offsets[task], self.offsets[task + 1]
             sums = torch.zeros(3, device=self.device)
             for batch in device_prefetch(iter(loader), self.device):
-                pred = _logits(self.apply_fn(prepare_images(loader, batch["image"]), task))
+                image = prepare_images(loader, batch["image"], batch.get("crop"))
+                pred = _logits(self.apply_fn(image, task))
                 label = batch["label"].long()
                 valid = _valid(batch, pred.shape[0], pred.device)
                 task_ok = (pred[:, lo:hi].argmax(dim=1) == label - lo).float()
@@ -142,7 +143,7 @@ class CBEvaluation:
 
     def _batch_sums(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """[acc, acc_model, acc_origin, n] counts of one batch, on the device."""
-        image = prepare_images(self.val_loader, batch["image"])
+        image = prepare_images(self.val_loader, batch["image"], batch.get("crop"))
         pred_q = self.classify_fn(image, True).argmax(dim=1)
         pred_o = self.classify_fn(image, False).argmax(dim=1)
         gt = batch["label"].long()

@@ -75,7 +75,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
-from ..data.loader import device_prefetch, prepare_images
+from ..data.loader import batch_to_device, device_prefetch, prepare_images
 from ..device import resolve_device
 from ..models.layers import DropoutRNG
 from ..ops.kernels import atlas_opt as ao
@@ -256,8 +256,8 @@ class Trainer:
         """One step on ``batch`` (``image`` [B, H, W, 3], uint8 or float,
         ``label`` [B]), moved to the trainer's device; returns the detached
         loss terms, ``loss`` their weighted total."""
-        batch = {k: v.to(self.device) for k, v in batch.items()}
-        batch["image"] = prepare_images(self.train_loader, batch["image"])
+        batch = batch_to_device(batch, self.device)
+        batch["image"] = prepare_images(self.train_loader, batch["image"], batch.pop("crop", None))
         if self.atlas is not None:
             clamp_attribute_weights_(self.atlas)
         total, loss_dict = self.forward_loss(batch)

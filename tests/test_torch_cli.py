@@ -224,3 +224,103 @@ def test_cli_chain_on_the_cpu(tmp_path):
     for key, value in explained.items():
         np.testing.assert_array_equal(saved[key], value, err_msg=key)
     assert saved["attribution"].shape == (6, CLASSES, 4, 4)
+
+
+FIXTURES = REPO / "tests" / "fixtures" / "jpeg"
+
+
+def _jpeg_tree(root, classes, per_class):
+    """An ImageNet-style tree of JPEG fixture copies under root/train, root/val."""
+    import shutil
+
+    photos = sorted(f for f in os.listdir(FIXTURES) if f.startswith(("photo_", "s4")))
+    k = 0
+    for split, n in (("train", per_class), ("val", max(1, per_class // 2))):
+        for cls in classes:
+            (root / split / cls).mkdir(parents=True)
+            for i in range(n):
+                shutil.copy(FIXTURES / photos[k % len(photos)], root / split / cls / f"{i}.JPEG")
+                k += 1
+
+
+def test_cli_chain_on_an_image_folder_tree(tmp_path):
+    """``extract`` (from a reference ``.pth``) -> ``export`` -> ``init`` ->
+    ``train --worker schema_net_worker`` on an ImageNet-style tree of JPEG
+    fixtures, every loader on the image-folder route; then ``serve --images``
+    on a directory of JPEGs in an interpreter where Pillow cannot be
+    imported: exit 0, its logits bit for bit the in-process server's on the
+    port's decode of the same files, which is within two levels of the JAX
+    CLI's PIL decode and resize."""
+    from schemanet_torch.data import jpeg
+
+    if jpeg.decode_route() != jpeg.LIBJPEG:
+        pytest.skip("libjpeg's jpeglib.h is not installed: the host decode route is absent")
+    root = tmp_path
+    wnids = [f"n{i:08d}" for i in range(CLASSES)]
+    _jpeg_tree(root / "tree", wnids, 4)
+    data = {"name": "imagenet", "root": str(root / "tree"), "resize": 16}
+    (root / "datasets").mkdir()
+    _write(root / "datasets" / "imagenet.json", data)
+    pth = save_reference(root / "ref.pth",
+                         reference_state_dict(dim=32, layers=2, classes=1000, img=16, patch=4))
+    train = {"train_epochs": 1, "batch_size": 4, "num_workers": 2, "val_interval": 1,
+             "optimizer": {"name": "AdamW", "lr": 1e-3}, "clip_max_norm": 0.1}
+    val = {"batch_size": 4, "num_workers": 2}
+    ingredient = _write(root / "ingredient.json", {
+        "dataset": "datasets/imagenet.json", "model": MODEL,
+        "discretization": {"vocabulary": {"size": CODES, "dim": 32},
+                           "encoder_layer": "module.transformer.layers.1"}})
+    schema_cfg = {"bundle": str(root / "bundle"), "initial_state_fp": str(root / "atlas.pt"),
+                  "gnn": {"embed_dim": 16, "num_layers": 2},
+                  "ir_atlas": {"feat_h": 4, "feat_w": 4, "clamp_edge_attn": -1.0,
+                               "prune_node_threshold": 0.001}}
+    schema = _write(root / "schema.json", {
+        "dataset": "datasets/imagenet.json", "training": train, "validation": val,
+        "schema_net": schema_cfg,
+        "loss": {"name": "schema_inference_loss", "weight_dict": {"cls": 1.0}}})
+    common = ["--device", "cpu", "--seed", "3"]
+
+    def run(*argv):
+        assert cli.main(list(argv) + common) == 0, argv
+
+    run("extract", "--cfg", ingredient, "--ckpt", pth, "--save-path", str(root / "codes"),
+        "--batch-size", "4", "--max-features", "256", "--log-dir", str(root / "s1"))
+    codes = root / "codes" / f"cluster_{CODES}_from_256.npy"
+    assert np.load(codes).shape == (CODES, 32)
+    run("export", "--cfg", ingredient, "--ckpt", pth, "--vocabulary-fp", str(codes),
+        "--save-path", str(root / "bundle"), "--num-classes", str(CLASSES), "--log-dir",
+        str(root / "s2"))
+    run("init", "--cfg", schema, "--save-fp", str(root / "atlas.pt"), "--batch-size", "4",
+        "--log-dir", str(root / "s3"))
+    run("train", "--cfg", schema, "--worker", "schema_net_worker", "--log-dir", str(root / "s4"))
+    meta = json.load(open(root / "s4" / "ckpt" / "meta.json"))
+    assert meta["iter"] == (CLASSES * 4) // 4, meta
+
+    images = root / "tree" / "val" / wnids[0]
+    out = root / "served.npz"
+    argv = ["serve", "--cfg", schema, "--ckpt", str(root / "s4" / "ckpt"), "--images",
+            str(images), "--microbatch", "2", "--out", str(out), "--log-dir",
+            str(root / "serve"), *common]
+    script = textwrap.dedent(f"""
+        import sys
+        sys.modules["PIL"] = None  # no Pillow, as beside the card
+        from schemanet_torch import cli
+        code = cli.main({argv!r})
+        assert "PIL" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
+        sys.exit(code)
+        """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    assert [line["index"] for line in lines] == [0, 1]
+
+    from schemanet_torch.serve import load_serve_predictor
+
+    port_images = cli._load_serve_images(str(images), 16, "cpu")
+    jax_images = jax_cli._load_serve_images(str(images), 16)
+    assert port_images.shape == jax_images.shape == (2, 16, 16, 3)
+    assert np.abs(port_images - jax_images).max() <= 2 / 255 + 1e-6
+    server = load_serve_predictor(str(root / "bundle"), dict(schema_cfg), str(root / "s4" / "ckpt"),
+                                  CLASSES, microbatch=2, device="cpu")
+    np.testing.assert_array_equal(np.load(out)["logits"], server.predict(port_images))

@@ -168,6 +168,57 @@ def test_new_modules_import_no_optional_package_at_module_level():
         re.MULTILINE)
     sources = [REPO / "schemanet_torch" / name for name in (
         "cli.py", "serve.py", "models/capture.py", "models/port.py", "schema/convert_graph.py",
-        "utils/config.py", "utils/seed.py")]
+        "utils/config.py", "utils/seed.py", "data/jpeg.py", "data/datasets.py",
+        "ops/kernels/imagepipe.py")]
     offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
     assert not offenders, offenders
+
+
+def test_image_folder_route_without_jax_or_pillow(tmp_path):
+    """An ImageNet-style tree of JPEG fixtures through the port's datasets,
+    decode, loader and ``prepare`` in an interpreter where JAX, Pillow,
+    PyYAML and TensorBoard cannot be imported (the host decode route; skips
+    where libjpeg's header is missing)."""
+    import shutil
+
+    from schemanet_torch.data import jpeg
+
+    if jpeg.decode_route() != jpeg.LIBJPEG:
+        import pytest
+
+        pytest.skip("libjpeg's jpeglib.h is not installed: the host decode route is absent")
+    fixtures = REPO / "tests" / "fixtures" / "jpeg"
+    names = sorted(f for f in __import__("os").listdir(fixtures) if f.startswith("photo_"))
+    for split in ("train", "val"):
+        for c in range(2):
+            (tmp_path / split / f"n{c:08d}").mkdir(parents=True)
+            for i in range(3):
+                shutil.copy(fixtures / names[c * 3 + i], tmp_path / split / f"n{c:08d}" / f"{i}.JPEG")
+    blocked = FORBIDDEN + ABSENT_ON_CARD
+    script = textwrap.dedent(
+        f"""
+        import sys
+        for name in {blocked!r}:
+            sys.modules[name] = None
+        import torch
+        from schemanet_torch.data import build_loaders
+        from schemanet_torch.data.loader import batch_to_device
+        train, val, n = build_loaders({{"name": "imagenet", "root": {str(tmp_path)!r},
+                                        "resize": 32}}, {{"batch_size": 4, "num_workers": 2}},
+                                      {{"batch_size": 4, "num_workers": 2}})
+        assert n == 2 and train.decode_route == "libjpeg", train.decode_route
+        for loader, batches in ((train, 1), (val, 2)):
+            got = [loader.prepare(b["image"], b["crop"])
+                   for b in map(lambda b: batch_to_device(b, "cpu"), loader)]
+            assert len(got) == batches and all(g.shape == (4, 32, 32, 3) for g in got)
+            assert all(torch.isfinite(g).all() for g in got)
+        loaded = [m for m in sys.modules if m.split(".")[0] in {blocked!r}
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("ok")
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
