@@ -4,7 +4,9 @@ the SchemaNet training step, stage 0 (fine-tuning the backbone), stage 1
 loader-driven workers (training with validation, checkpoints and resume,
 and evaluation), the ImageNet DeiT-Small configuration (serving with its
 explanations, the stage-4 step and stage 0) with DeiT-Base's widths, the
-command line's stage chain, and the pretrained-weight loader.
+command line's stage chain, the pretrained-weight loader, and several
+ranks (``parallel/mesh.py``: a one-rank grid, then two ranks with the atlas
+split over its classes and with the batch split over the data axis).
 
 Both run the CIFAR-100 DeiT-Tiny configuration at full width (224^2 input,
 patch 16, 197 tokens, d=192, 3 heads, FFN 768, layers 0-9 of 12 frozen,
@@ -396,6 +398,46 @@ of ``tests/fixtures/jpeg/``; the decode route is named on each line):
 39. 2 bf16 steps of ``schema_net_worker`` from the tree on that bundle and
     atlas (training cut to 128 images), one validation, one checkpoint.
 
+Several ranks (``parallel/mesh.py``; ``grid_phases``), after phase 39, on
+the cards present: with two or more, NCCL with one card a rank; with one,
+gloo with both ranks on ``cuda:0`` (NCCL refuses two ranks on one device),
+the kernels on the card and the collectives through the host. A
+``grid_setup`` line names the backend and the card count first.
+
+40. ``mesh_one_rank``: a one-rank NCCL grid in this process, 2 bf16 steps of
+    the ImageNet DeiT-Small stage-4 trainer of phase 27 through the grid's
+    code path, every parameter, moment and loss bit for bit those of the
+    trainer without a grid;
+41. ``mesh_model2``: two ranks (``python3 chip_smoke.py --grid-rank DIR``,
+    spawned with a wall-clock limit; a rank that fails or hangs fails the
+    run), model 2 on the same configuration: each rank holds 500 classes of
+    the atlas and their bf16 moments and runs their class graphs. One fp32
+    step (graph_precision 'highest') from the seeded state against one
+    process on the same batch by phase 8's rules (loss rtol 1e-4; the
+    gathered atlas within rtol 1e-4 / atol 1e-6 where the one-process
+    gradient is large; every trained tensor within 2 lr; the gradients the
+    update reads, gathered, by phase 28's first-step rule: each leaf within
+    1e-5 of its max of the one process's, else no farther from the plain
+    versions' fp64 gradient than the one process's, by more than 10%; taken
+    after the reduction, before any clip),
+    and taken twice from one saved state on each rank, bit for bit
+    (``run_to_run_bitwise``); then 2 bf16 steps, finite, each kernel's
+    launches at the shard's shapes (GraphConv at ``[500, 500, 1024]``, the
+    GNN's LayerNorm at 250,000 rows), the peak memory a rank and the ms a
+    step (through gloo on one card: no measure of NCCL), then a third step
+    profiled (device ms, idle share, top kernels);
+42. ``mesh_data2_stage0``: two ranks, data 2: 2 fp32 DeiT-Small stage-0
+    steps with dropout live, each rank on its 32 images, against one process
+    on the 64 by phase 29's rules, the first step's gradients (the mean over
+    the data group, before the clip) by phase 28's rule as in 41; 12 launches of
+    each fused kernel a step on each rank.
+
+The kernels line adds the class graphs' kernels at a model-2 rank's shard:
+``sym_conv[_bwd]_shard``, ``fused_layernorm[_bwd]_shard_d1024``,
+``embed_grad_shard`` (the class lookup's 250,000 ids) and
+``adamw_project_rows_shard`` (the ``[500, 500, 500]`` edge shard, bf16
+moments), each timed beside its plain version, with phase 41's launches.
+
 The kernels line gains ``crop_resize`` and ``ycc_to_rgb`` (ported from the
 host pipeline, ``native/src/imagepipe.cpp``, not from a Pallas kernel),
 ``attn_block_fp32_d384``, ``attn_block_fp32_hmean_d384``,
@@ -429,7 +471,9 @@ error and times, its bound by three TF32 products a product.
 same way, at serving's microbatch shape; ``attn_block_fp32_hmean`` its
 head-mean variant: stage 3's launches, timed at stage 3's batch of 32.
 
-Usage: python3 chip_smoke.py
+Usage: python3 chip_smoke.py; ``python3 chip_smoke.py --grid`` runs phases
+1-2 and 40-42 alone, on the cards present (a rank of phases 41-42 runs it as
+``chip_smoke.py --grid-rank DIR``)
 """
 
 from __future__ import annotations
@@ -675,6 +719,84 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def plain_patches() -> list:
+    """Each kernel wrapper of the paths patched to its plain version."""
+    from schemanet_torch.ops.kernels import atlas_opt as ao
+    from schemanet_torch.ops.kernels import attention as ak
+    from schemanet_torch.ops.kernels import embed_bwd as ek
+    from schemanet_torch.ops.kernels import encoder_block as eb
+    from schemanet_torch.ops.kernels import graphconv as gc
+    from schemanet_torch.ops.kernels import layernorm as lnk
+    from schemanet_torch.ops.kernels import mlp as mk
+    from schemanet_torch.ops.kernels import vq as vqk
+
+    return [
+        mock.patch.object(eb, "attn_block", eb.attn_block_reference),
+        mock.patch.object(eb, "ffn_block", eb.ffn_block_reference),
+        mock.patch.object(gc, "sym_conv", gc.sym_conv_reference),  # autograd of plain torch
+        mock.patch.object(ek, "embed_grad", ek.embed_grad_reference),
+        mock.patch.object(ao, "adamw_project_rows", ao.adamw_project_rows_reference),
+        mock.patch.object(ak, "fused_mhsa", ak.fused_mhsa_reference),  # autograd of plain torch
+        mock.patch.object(mk, "fused_mlp", mk.fused_mlp_reference),
+        mock.patch.object(vqk, "vq_assign_kernel", vqk.vq_assign_reference),
+        mock.patch.object(lnk, "fused_layernorm", lnk.fused_layernorm_plain),
+    ]
+
+
+def with_plain(fn):
+    """fn() with every kernel wrapper patched to its plain version."""
+    patches = plain_patches()
+    for p in patches:
+        p.start()
+    try:
+        return fn()
+    finally:
+        for p in patches:
+            p.stop()
+
+
+# A run on the kernels against one on the plain versions: where two codes'
+# scores nearly tie, the VQ kernel and its plain version may pick either, and
+# one other code changes a graph and its gradients. So the plain run takes
+# the kernel run's ids in the same order, and the plain VQ's own ids on the
+# plain run's features are held to them apart from near-ties.
+def recording_vq(store):
+    from schemanet_torch.ops.kernels import vq as vqk
+
+    kernel_vq = vqk.vq_assign_kernel
+
+    def record(x, cb):
+        ids = kernel_vq(x, cb)
+        store.append(ids)
+        return ids
+
+    return mock.patch.object(vqk, "vq_assign_kernel", record)
+
+
+def replaying_vq(store, stats):
+    from schemanet_torch.ops.kernels import vq as vqk
+
+    replay = iter(store)
+
+    def replayed(x, cb):
+        ids = next(replay)
+        gaps, scale = vqk.score_gaps(x, cb, ids, vqk.vq_assign_reference(x, cb))
+        stats["rows"] += ids.numel()
+        stats["mismatches"] += len(gaps)
+        stats["near_ties_only"] &= bool((gaps <= 1e-5 * scale).all())
+        return ids
+
+    return mock.patch.object(vqk, "vq_assign_kernel", replayed)
+
+
+def replay_report(stats):
+    agree = 1 - stats["mismatches"] / max(stats["rows"], 1)
+    require(agree >= 0.999 and stats["near_ties_only"],
+            f"plain VQ ids disagree with the kernel's beyond near-ties: {stats}")
+    return {"plain_vq_id_agreement": agree, "plain_vq_mismatches": stats["mismatches"],
+            "plain_vq_near_ties_only": stats["near_ties_only"]}
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
@@ -851,7 +973,7 @@ def compare(name, kernel, plain, args, kw, dtype, tol, errors) -> None:
         errors[name] = max(abss)
 
 
-def stage4_fp32_vs_plain(make_trainer, batches, lr: float, frozen_layers: int, helpers: dict,
+def stage4_fp32_vs_plain(make_trainer, batches, lr: float, frozen_layers: int,
                          label: str = "train_fp32", tight: bool = True, **fields):
     """Phase 8 (and phase 28 at ImageNet's shapes): the stage-4 step in fp32
     (``make_trainer()``, graph_precision 'highest') against the same trainer
@@ -864,8 +986,6 @@ def stage4_fp32_vs_plain(make_trainer, batches, lr: float, frozen_layers: int, h
     (``sure_ok_steps``), not gated; the bound gates every entry."""
     from schemanet_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    with_plain, recording_vq = helpers["with_plain"], helpers["recording_vq"]
-    replaying_vq, replay_report = helpers["replaying_vq"], helpers["replay_report"]
     steps = len(batches)
     hot_names = ("schema_net.vertex_weights", "schema_net.edge_weights")
 
@@ -1089,16 +1209,15 @@ def kmeans_vs_plain(feats, held, init_state, n_codes: int, with_plain):
     return lock, 1 - lock["mismatches"] / lock["rows"]
 
 
-def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
+def imagenet_phases(dev, card_note: dict) -> dict:
     """Phases 24-30: the kernels at the DeiT-Small, DeiT-Base and ImageNet
     widths against their plain versions; the ImageNet DeiT-Small
     configuration's serving (bf16, counted and timed; fp32 against the plain
     versions), its stage-4 step (bf16, counted, timed, profiled; fp32 in lock
     step against the plain versions) and its stage 0 (fp32 against the plain
     versions, bf16 counted); DeiT-Base's serving microbatch and stage-0
-    steps. ``helpers``: main's ``with_plain``, ``recording_vq``,
-    ``replaying_vq`` and ``replay_report``. Returns the rows of the kernels
-    line for the new instantiations, and each phase's seconds."""
+    steps. Returns the rows of the kernels line for the new instantiations,
+    and each phase's seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     from schemanet_torch.models.vit import get_model
@@ -1115,7 +1234,6 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
     from schemanet_torch.train import (SCHEMA_NET_FROZEN, Trainer, TrainerConfig, backbone_trainer,
                                        schema_net_trainer)
 
-    with_plain = helpers["with_plain"]
     seconds, rows, errors = {}, {}, {}
     g = torch.Generator().manual_seed(24)
     t_phase = time.perf_counter()
@@ -1698,7 +1816,7 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
     # versions', and after 2 steps no farther from fp64 (below).
     _, lock = stage4_fp32_vs_plain(
         fp32_trainer, batches, IN_SCHEMA_CFG["training"]["optimizer"]["lr"], FROZEN_LAYERS,
-        helpers, label="imagenet_train_fp32", tight=False, classes=IN_FP32_CLASSES,
+        label="imagenet_train_fp32", tight=False, classes=IN_FP32_CLASSES,
         moments="bf16 (the schema_net group's)")
     first = {k.split(".")[-1]: r["grad_rel_err_steps"][0] for k, r in lock.items()}
 
@@ -1721,12 +1839,12 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
             return with_plain(run) if plain else run()
 
         ids = []
-        with helpers["recording_vq"](ids):
+        with recording_vq(ids):
             g_k = step_grads(False)
         stats = {"rows": 0, "mismatches": 0, "near_ties_only": True}
-        with helpers["replaying_vq"](list(ids), stats):
+        with replaying_vq(list(ids), stats):
             g_p = step_grads(True)
-        with helpers["replaying_vq"](list(ids), dict(stats)):
+        with replaying_vq(list(ids), dict(stats)):
             g_64 = step_grads(True, torch.float64)
         cond = {k: {"kernel_vs_plain": rel_err(g_k[k], g_p[k]),
                     "kernel_vs_fp64": rel_err(g_k[k], g_64[k]),
@@ -1931,13 +2049,12 @@ def imagenet_phases(dev, card_note: dict, helpers: dict) -> dict:
     return {"rows": rows, "seconds": seconds, "launches": launches_path}
 
 
-def worker_phases(dev, work_dir: str, bundle_dir: str, atlas_path: str, card_note: dict,
-                  helpers: dict) -> dict:
+def worker_phases(dev, work_dir: str, bundle_dir: str, atlas_path: str, card_note: dict
+                  ) -> dict:
     """Phases 19-23: the loader on the card, ``schema_net_worker`` (counted,
     timed, profiled), its resume, its validation in fp32 against the plain
     versions, and ``backbone_worker`` with ``eval_worker`` on its checkpoint.
-    ``helpers``: main's ``with_plain``, ``recording_vq``, ``replaying_vq`` and
-    ``replay_report``. Returns each worker's launch counts."""
+    Returns each worker's launch counts."""
     from torch.profiler import ProfilerActivity, profile
 
     from schemanet_torch.data import build_loaders, device_prefetch
@@ -2151,14 +2268,14 @@ def worker_phases(dev, work_dir: str, bundle_dir: str, atlas_path: str, card_not
         return ev, cb, {k: torch.cat(v).cpu().numpy() for k, v in store.items()}
 
     recorded, vq_stats = [], {"rows": 0, "mismatches": 0, "near_ties_only": True}
-    with helpers["recording_vq"](recorded):
+    with recording_vq(recorded):
         ev_k, cb_k, logits_k = evaluate({"pred": [], "q": [], "o": []})
 
     def plain_eval():
-        with helpers["replaying_vq"](recorded, vq_stats):
+        with replaying_vq(recorded, vq_stats):
             return evaluate({"pred": [], "q": [], "o": []})
 
-    ev_p, cb_p, logits_p = helpers["with_plain"](plain_eval)
+    ev_p, cb_p, logits_p = with_plain(plain_eval)
 
     def gaps(logits, k):
         """The gap between the k-th and (k+1)-th largest logit of each row
@@ -2193,7 +2310,7 @@ def worker_phases(dev, work_dir: str, bundle_dir: str, atlas_path: str, card_not
           logit_scale={k: float(np.abs(logits_p[k])[valid].max()) for k in logits_p},
           near_tie_samples=near, flipped_samples_and_near_tie=flips,
           tol={"loss": 1e-4, "near_tie": "top two logits within 1e-3 x max |logit|"},
-          **helpers["replay_report"](vq_stats), seconds=time.perf_counter() - t_phase)
+          **replay_report(vq_stats), seconds=time.perf_counter() - t_phase)
     require(vq_stats["rows"] > 0, "the plain validation took no recorded VQ ids")
     require(loss_rel <= 1e-4, f"fp32 validation loss differs by {loss_rel} relative")
     # the counts and rates differ by the flipped samples alone, so this holds them too
@@ -2524,17 +2641,15 @@ def device_ms_of(fn, iters: int = TIME_ITERS):
     return None
 
 
-def imagefolder_phases(dev, work_dir: str, card_note: dict, helpers: dict,
-                       path_launches: dict) -> dict:
+def imagefolder_phases(dev, work_dir: str, card_note: dict, path_launches: dict) -> dict:
     """Phases 34-39: the JPEG decode route, the crop/flip/resize kernel, the
     image-folder loader on a fake ImageNet tree, stage 1 and stage 3 of the
     ImageNet DeiT-Small configuration fed from it, and 2 steps of
     ``schema_net_worker`` from it; then the kernels-line rows this slice
     adds (the image kernels, the fp32 ViT kernels and VQ at 384 wide and
     M 8000, ``fused_mhsa`` at 384 and 768, whose launches come from phases
-    29 and 30 through ``path_launches``). ``helpers``: main's
-    ``with_plain``, ``recording_vq``, ``replaying_vq``, ``replay_report``.
-    Returns the rows and each phase's seconds."""
+    29 and 30 through ``path_launches``). Returns the rows and each phase's
+    seconds."""
     import importlib.util
 
     from schemanet_torch.data import jpeg
@@ -2552,7 +2667,6 @@ def imagefolder_phases(dev, work_dir: str, card_note: dict, helpers: dict,
                                           save_atlas_init, save_bundle)
     from schemanet_torch.train import LaunchArgs, Trainer, schema_net_worker
 
-    with_plain = helpers["with_plain"]
     seconds, rows, errors = {}, {}, {}
     t_phase = time.perf_counter()
     g = torch.Generator().manual_seed(34)
@@ -2981,7 +3095,7 @@ def imagefolder_phases(dev, work_dir: str, card_note: dict, helpers: dict,
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    with helpers["recording_vq"](recorded):
+    with recording_vq(recorded):
         atlas = init_stage(s3_cfg, bundle, s3_timed, device=dev)
     torch.cuda.synchronize()
     s3_seconds = time.perf_counter() - t0
@@ -2999,7 +3113,7 @@ def imagefolder_phases(dev, work_dir: str, card_note: dict, helpers: dict,
 
     def plain_init():
         s3_loader.set_epoch(0)
-        with helpers["replaying_vq"](recorded, replay_stats):
+        with replaying_vq(recorded, replay_stats):
             return init_stage(s3_cfg, bundle, s3_loader, device=dev)
 
     atlas_p = with_plain(plain_init)
@@ -3032,7 +3146,7 @@ def imagefolder_phases(dev, work_dir: str, card_note: dict, helpers: dict,
           launches=s3_launches, expected=expected, peak_mem_gb=s3_peak,
           class_code_sets_equal=same_sets, reordered_at_near_ties=reordered,
           param_rel_err_code_by_code=atlas_err,
-          **helpers["replay_report"](replay_stats), tol={"params": 1e-5, "ids": 0.999},
+          **replay_report(replay_stats), tol={"params": 1e-5, "ids": 0.999},
           **card_note)
     require(same_sets, "ImageNet stage-3 classes' code sets differ from the plain versions'")
     require(all(err <= 1e-5 for err in atlas_err.values()),
@@ -3105,7 +3219,660 @@ def imagefolder_phases(dev, work_dir: str, card_note: dict, helpers: dict,
     return {"rows": rows, "seconds": seconds}
 
 
-def main() -> None:
+# -- 40-42: several ranks (parallel/mesh.py) ---------------------------------
+GRID_STEPS = 2  # steps of each grid run
+GRID_TIMEOUT_S = 600  # the two-rank run's wall-clock limit; a collective waits at most 300 s
+GRID_ENV = "SCHEMANET_SMOKE_GRID"  # "<backend>,<device>" in a spawned rank's environment
+
+
+def grid_layout():
+    """(backend, device) of the two-rank phases: NCCL one card a rank where
+    the host has two or more, else gloo with both ranks on ``cuda:0`` (NCCL
+    refuses two ranks on one device): the kernels run on the card and the
+    collectives through the host."""
+    if torch.cuda.device_count() >= 2:
+        return "nccl", "cuda"
+    return "gloo", "cuda:0"
+
+
+def in_stage4_cfg(dtype: str, highest: bool = False) -> dict:
+    """IN_SCHEMA_CFG in ``dtype``; ``highest``: graph_precision 'highest'
+    (the fp32 lock step's, as phase 28's)."""
+    cfg = copy.deepcopy(IN_SCHEMA_CFG)
+    cfg["training"]["dtype"] = dtype
+    if highest:
+        cfg["schema_net"]["ir_atlas"]["graph_precision"] = "highest"
+    return cfg
+
+
+def in_stage4_state(bundle, ingredients) -> dict:
+    """The state (fp32, on the CPU) of phase 27's predictor as
+    ``schema_net_trainer`` builds it (seeded, the bundle's backbone and
+    codebook), with ``ingredients`` as its class ingredients: made once, so
+    each trainer of phases 40-41 loads it instead of drawing the 1.0 GB
+    atlas again."""
+    from schemanet_torch.train.workers import _schema_cfg, _schema_predictor
+
+    model = _schema_predictor(_schema_cfg(IN_SCHEMA_CFG), bundle, IN_CLASSES, torch.float32, 0)
+    with torch.no_grad():
+        model.schema_net.class_ingredients.copy_(ingredients)
+    return model.state_dict()
+
+
+def in_stage4_trainer(state: dict, dtype: str, dev, mesh=None, highest=False):
+    """Phase 27's stage-4 trainer in ``dtype`` from ``state``, on ``mesh``
+    or in one process: the predictor and ``Trainer`` that
+    ``schema_net_trainer`` builds. ``dtype`` "float64": parameters and
+    compute in fp64 (for the plain versions, as phase 28's fp64 step)."""
+    from schemanet_torch.schema import build_predictor, get_loss_fn
+    from schemanet_torch.train import SCHEMA_NET_FROZEN, Trainer, TrainerConfig
+    from schemanet_torch.train.workers import _schema_cfg, resolve_dtype
+
+    fp64 = dtype == "float64"
+    cfg = in_stage4_cfg("float32" if fp64 else dtype, highest)
+    model = build_predictor(vit_cfg(384, 6, None), _schema_cfg(cfg), IN_CLASSES, IN_CODES, 384,
+                            ENCODE_LAYER, dtype=torch.float64 if fp64 else resolve_dtype(dtype))
+    if fp64:
+        model = model.to(torch.float64)
+    model.load_state_dict(state)
+    return Trainer(TrainerConfig.from_cfg(cfg["training"], frozen_patterns=SCHEMA_NET_FROZEN),
+                   model, get_loss_fn(cfg["loss"]), cfg["loss"]["weight_dict"],
+                   IN_STEPS_PER_EPOCH, seed=0, device=dev, mesh=mesh)
+
+
+def trainer_snapshot(tr) -> dict:
+    """Every tensor a step reads and writes (this rank's shards): the
+    model's state, the AdamW state (deep), the atlas moments, the step and
+    the dropout generators."""
+    return {"model": {k: v.detach().clone() for k, v in tr.model.state_dict().items()},
+            "optimizer": copy.deepcopy(tr.optimizer.state_dict()),
+            "hot": {k: {n: t.clone() for n, t in h.state.items()} for k, h in tr.hot.items()},
+            "step": tr.step, "rng": (tr.rng.seeds.get_state(), tr.rng.masks.get_state())}
+
+
+def restore_snapshot(tr, snap: dict) -> None:
+    with torch.no_grad():
+        tr.model.load_state_dict(snap["model"])
+        for k, moments in snap["hot"].items():
+            for n, t in moments.items():
+                tr.hot[k].state[n].copy_(t)
+    tr.optimizer.load_state_dict(copy.deepcopy(snap["optimizer"]))
+    tr.step = snap["step"]
+    tr.rng.seeds.set_state(snap["rng"][0])
+    tr.rng.masks.set_state(snap["rng"][1])
+
+
+def same_snapshots(a: dict, b: dict) -> list:
+    """The names of the tensors two snapshots differ in, bit for bit."""
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from flat(v, f"{prefix}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from flat(v, f"{prefix}/{i}")
+        elif torch.is_tensor(tree):
+            yield prefix, tree
+
+    fa, fb = dict(flat(a)), dict(flat(b))
+    return sorted(k for k in fa if k not in fb or not torch.equal(fa[k], fb[k]))
+
+
+def grid_batches(seed: int, steps: int, classes: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [{"image": torch.from_numpy(rng.normal(size=(BATCH, IMG, IMG, 3)).astype(np.float32)),
+             "label": torch.from_numpy(rng.integers(0, classes, size=BATCH))}
+            for _ in range(steps)]
+
+
+def sure_rule(got: dict, want: dict, sure: dict, bound: float) -> dict:
+    """Phase 8's rules on whole tensors: entries whose one-process step-1
+    gradient is large (|g| > 1e-3 max) within rtol 1e-4 / atol 1e-6, every
+    entry within ``bound``."""
+    out = {"sure_ok": True, "max_abs_diff_sure": 0.0, "max_abs_diff": 0.0}
+    for k, w in want.items():
+        diff = (got[k].float() - w.float()).abs()
+        out["max_abs_diff"] = max(out["max_abs_diff"], diff.max().item())
+        if sure[k].any():
+            out["max_abs_diff_sure"] = max(out["max_abs_diff_sure"], diff[sure[k]].max().item())
+            out["sure_ok"] &= bool((diff[sure[k]] <= 1e-6 + 1e-4 * w.float().abs()[sure[k]]).all())
+    out["within_bound"] = out["max_abs_diff"] <= bound
+    return out
+
+
+def keep_reduced_gradients(tr) -> dict:
+    """Makes ``tr``'s next step keep its gradients after ``reduce_gradients``
+    (before the clip, which would hide a wrong scale), whole: a sharded
+    parameter's gathered over the model group, so every rank of it calls
+    this. Returns the dict that step fills."""
+    from schemanet_torch.parallel.mesh import gather_like
+
+    kept = {}
+
+    def reduce_and_keep():
+        del tr.reduce_gradients  # the class's method again from the next step on
+        tr.reduce_gradients()
+        kept.update({k: gather_like(p.grad, p).detach().clone()
+                     for k, p in tr.model.named_parameters() if p.grad is not None})
+
+    tr.reduce_gradients = reduce_and_keep
+    return kept
+
+
+def grad_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|, in fp64 (0 where both are 0)."""
+    diff = (got.double() - want.double()).abs().max().item()
+    scale = want.double().abs().max().item()
+    return diff / scale if scale else (0.0 if diff == 0 else float("inf"))
+
+
+GRAD_RULE = "1e-5 of max, else no farther from fp64 than one process's (+10%)"
+
+
+def grad_rule(got: dict, want: dict, fp64) -> dict:
+    """Phase 28's rule on a step's gradients, leaf by leaf: the grid's
+    within 1e-5 of the leaf's max |g| of the one process's; else, where fp32
+    resolves the leaf no finer (a sum split over ranks rounds otherwise), no
+    farther from the fp64 gradient than the one process's, by more than 10%.
+    ``fp64()`` gives the fp64 gradients; it runs only for such a leaf."""
+    rel = {k: grad_rel(got[k], w) for k, w in want.items() if k in got}
+    wide = sorted(k for k, r in rel.items() if r > 1e-5)
+    out = {"leaves": len(want), "same_leaves": sorted(got) == sorted(want),
+           "rel_err_max": max(rel.values(), default=0.0),
+           "rel_err_max_leaf": max(rel, key=rel.get, default=None), "over_1e-5": wide}
+    vs = {}
+    if wide:
+        g64 = fp64()
+        vs = {k: {"rel_err": rel[k], "grid_vs_fp64": grad_rel(got[k], g64[k]),
+                  "one_vs_fp64": grad_rel(want[k], g64[k])} for k in wide}
+        out["vs_fp64"] = vs
+    out["ok"] = out["same_leaves"] and all(
+        c["grid_vs_fp64"] <= 1.1 * c["one_vs_fp64"] + 1e-6 for c in vs.values())
+    return out
+
+
+def stage4_fp64_grads(state: dict, batch: dict, ids: list, dev) -> dict:
+    """The one-process stage-4 step's gradients on the plain versions in
+    fp64 from ``state`` on ``batch``, the VQ taking ``ids`` (the fp32 step's)."""
+    from schemanet_torch.schema.atlas import clamp_attribute_weights_
+
+    t = in_stage4_trainer(state, "float64", dev, None, highest=True)
+    b = {"image": batch["image"].to(dev, torch.float64), "label": batch["label"].to(dev)}
+    stats = {"rows": 0, "mismatches": 0, "near_ties_only": True}
+
+    def run():
+        with replaying_vq(list(ids), stats):
+            clamp_attribute_weights_(t.atlas)
+            t.zero_grad()
+            t.forward_loss(b)[0].backward()
+
+    with_plain(run)
+    replay_report(stats)
+    return {k: p.grad for k, p in t.model.named_parameters() if p.grad is not None}
+
+
+def stage0_fp64_grads(cfg: dict, batch: dict, dev) -> dict:
+    """The one-process stage-0 first step's gradients on the plain versions
+    in fp64: ``backbone_trainer``'s model from seed 0 made fp64, the
+    dropout drawn as that trainer's first step draws it."""
+    from schemanet_torch.schema import get_loss_fn
+    from schemanet_torch.train import Trainer, TrainerConfig
+    from schemanet_torch.train.workers import _backbone_model
+
+    model = _backbone_model(cfg, IN_CLASSES, torch.float64, 0).to(torch.float64)
+    t = Trainer(TrainerConfig.from_cfg(cfg["training"]), model, get_loss_fn(cfg["loss"]),
+                cfg["loss"]["weight_dict"], IN_STEPS_PER_EPOCH, seed=0, device=dev)
+    b = {"image": batch["image"].to(dev, torch.float64), "label": batch["label"].to(dev)}
+
+    def run():
+        t.zero_grad()
+        t.forward_loss(b)[0].backward()
+
+    with_plain(run)
+    return {k: p.grad for k, p in t.model.named_parameters() if p.grad is not None}
+
+
+def profiled_step(step) -> dict:
+    """One ``step()`` under the profiler: the host wall ms, the device ms
+    (CUDA activity, user annotations excluded), the idle share and the
+    device ms of the top kernels; None for a session that came back
+    without device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = device_time_by_name(prof)
+    busy_ms = sum(by_kernel.values()) / 1e3
+    if not busy_ms:
+        return None
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "top_device_ms": {k[:80]: v / 1e3 for k, v in top}}
+
+
+def grid_rank_main(work_dir: str) -> None:
+    """One rank of phases 41-42 (``python3 chip_smoke.py --grid-rank DIR``,
+    spawned by ``grid_phases`` with the rendezvous in the environment):
+    writes ``DIR/rank<r>.json``; rank 0 also runs the one-process references
+    and the comparisons."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import datetime
+
+    from schemanet_torch.ops.kernels import (launch_counts, launch_counts_by_shape,
+                                             reset_launch_counts)
+    from schemanet_torch.parallel.mesh import gather_like, local_batch_slice, make_mesh
+    from schemanet_torch.train import backbone_trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend, device = os.environ[GRID_ENV].split(",")
+    timeout = datetime.timedelta(seconds=300)
+    mesh_m = make_mesh(data=1, model=2, device=device, backend=backend, timeout=timeout)
+    mesh_d = make_mesh(data=2, model=1, device=device, backend=backend, timeout=timeout)
+    dev, rank = mesh_m.device, mesh_m.rank
+    inputs = torch.load(os.path.join(work_dir, "inputs.pt"), weights_only=True)
+    state = torch.load(os.path.join(work_dir, "state.pt"), weights_only=True, mmap=True)
+    out = {"rank": rank, "device": str(dev), "backend": mesh_m.backend}
+    t_phase = time.perf_counter()
+    hot_names = ("schema_net.vertex_weights", "schema_net.edge_weights")
+
+    def on(batch, sl=slice(None)):
+        return {k: v[sl].to(dev) for k, v in batch.items()}
+
+    # 41. mesh_model2: one fp32 lock step, model 2, from the seeded state
+    b4 = inputs["stage4"]
+    tr = in_stage4_trainer(state, "float32", dev, mesh_m, highest=True)
+    state0 = trainer_snapshot(tr)
+    grid_grads = keep_reduced_gradients(tr)
+    loss = tr.train_iter(on(b4[0]))["loss"].item()
+    first = trainer_snapshot(tr)
+    restore_snapshot(tr, state0)
+    loss_again = tr.train_iter(on(b4[0]))["loss"].item()
+    run_to_run = same_snapshots(first, trainer_snapshot(tr)) + (
+        [] if loss == loss_again else ["loss"])
+    grid_hot = {k: gather_like(tr.hot[k].param.detach(), tr.hot[k].param) for k in hot_names}
+    grid_params = {k: gather_like(p.detach(), p) for k, p in tr.model.named_parameters()
+                   if p.requires_grad and k not in hot_names}
+    shard_shape = list(tr.hot["schema_net.edge_weights"].param.shape)
+    del tr, state0, first
+    torch.cuda.empty_cache()
+    out["lock"] = {"loss": loss, "run_to_run_differs": run_to_run[:20],
+                   "edge_shard_shape": shard_shape}
+    if rank == 0:  # the one-process step on the same state and batch
+        ref = in_stage4_trainer(state, "float32", dev, None, highest=True)
+        ids, want_grads = [], keep_reduced_gradients(ref)
+        with recording_vq(ids):
+            want_loss = ref.train_iter(on(b4[0]))["loss"].item()
+        sure = {k: (p.grad.abs() > 1e-3 * p.grad.abs().max()) for k, p in
+                ref.model.named_parameters() if p.requires_grad}
+        want = {k: p.detach() for k, p in ref.model.named_parameters() if p.requires_grad}
+        bound = 2 * IN_SCHEMA_CFG["training"]["optimizer"]["lr"]
+        out["lock"].update(
+            one_process_loss=want_loss, loss_rel_err=abs(loss - want_loss) / abs(want_loss),
+            bound=bound, hot=sure_rule(grid_hot, {k: want[k] for k in hot_names}, sure, bound),
+            rest=sure_rule(grid_params, {k: v for k, v in want.items() if k not in hot_names},
+                           sure, bound),
+            grads=grad_rule(grid_grads, want_grads,
+                            lambda: stage4_fp64_grads(state, b4[0], ids, dev)))
+        del ref, want, sure, want_grads
+    del grid_hot, grid_params, grid_grads
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    out["lock"]["seconds"] = time.perf_counter() - t_phase
+
+    # 41. mesh_model2: 2 bf16 steps at the shard's shapes
+    t_phase = time.perf_counter()
+    tr = in_stage4_trainer(state, "bfloat16", dev, mesh_m)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    step_ms, losses = [], []
+    for b in b4[:GRID_STEPS]:
+        b = on(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(tr.train_iter(b)["loss"].item())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out["bf16"] = {"losses": losses, "step_ms": step_ms, "launches": launch_counts(),
+                   "launches_by_shape": {f"{name} {list(shape)}": n for name, by in
+                                         launch_counts_by_shape().items()
+                                         for shape, n in by.items()},
+                   "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                   "moment_dtypes": {k: {n: str(t.dtype) for n, t in h.state.items()}
+                                     for k, h in tr.hot.items()},
+                   "edge_shard_shape": list(tr.hot["schema_net.edge_weights"].param.shape)}
+    out["bf16"]["profiled"] = profiled_step(lambda: tr.train_iter(on(b4[0])))
+    del tr
+    torch.cuda.empty_cache()
+    out["bf16"]["seconds"] = time.perf_counter() - t_phase
+
+    # 42. mesh_data2_stage0: DeiT-Small stage 0, fp32, dropout live, data 2
+    t_phase = time.perf_counter()
+    cfg = vanilla_cfg(384, 6)
+    cfg["training"] = dict(cfg["training"], dtype="float32")
+    b0 = inputs["stage0"]
+    sl = local_batch_slice(BATCH, mesh_d)
+    tr0 = backbone_trainer(cfg, IN_STEPS_PER_EPOCH, seed=0, device=dev, num_classes=IN_CLASSES,
+                           mesh=mesh_d)
+    grid_grads = keep_reduced_gradients(tr0)
+    reset_launch_counts()
+    losses = [tr0.train_iter(on(b, sl))["loss"].item() for b in b0]
+    launches = launch_counts()
+    grid_params = {k: p.detach().clone() for k, p in tr0.model.named_parameters()}
+    del tr0
+    torch.cuda.empty_cache()
+    out["stage0"] = {"losses": losses, "local_batch": sl.stop - sl.start, "launches": launches}
+    if rank == 0:
+        ref = backbone_trainer(cfg, IN_STEPS_PER_EPOCH, seed=0, device=dev,
+                               num_classes=IN_CLASSES)
+        want_losses, sure, want_grads = [], {}, keep_reduced_gradients(ref)
+        for b in b0:
+            want_losses.append(ref.train_iter(on(b))["loss"].item())
+            if not sure:
+                sure = {k: p.grad.abs() > 1e-3 * p.grad.abs().max()
+                        for k, p in ref.model.named_parameters()}
+        want = {k: p.detach() for k, p in ref.model.named_parameters()}
+        bound = 2 * cfg["training"]["optimizer"]["lr"] * len(b0)
+        out["stage0"].update(
+            one_process_losses=want_losses, bound=bound,
+            loss_rel_err=max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses)),
+            grads=grad_rule(grid_grads, want_grads, lambda: stage0_fp64_grads(cfg, b0[0], dev)),
+            **sure_rule(grid_params, want, sure, bound))
+        del ref, want, sure, want_grads
+    del grid_params, grid_grads
+    torch.cuda.empty_cache()
+    out["stage0"]["seconds"] = time.perf_counter() - t_phase
+    with open(os.path.join(work_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def grid_phases(dev, work_dir: str, card_note: dict) -> dict:
+    """Phases 40-42: ``mesh_one_rank`` in this process (a one-rank NCCL grid,
+    2 bf16 ImageNet DeiT-Small stage-4 steps, bit for bit the trainer
+    without a grid), then two ranks (``grid_rank_main``, spawned with a
+    wall-clock limit): ``mesh_model2`` (model 2: the fp32 lock step against
+    one process by phase 8's rules and run to run bit for bit, 2 bf16 steps
+    counted by shape, peak memory a rank) and ``mesh_data2_stage0`` (data 2:
+    2 fp32 DeiT-Small stage-0 steps with dropout live against one process by
+    phase 29's rules). Returns the kernels line's rows at the shard's shapes
+    and the phases' seconds."""
+    from schemanet_torch.ops.kernels import _build
+    from schemanet_torch.ops.kernels import atlas_opt as ao
+    from schemanet_torch.ops.kernels import embed_bwd as ek
+    from schemanet_torch.ops.kernels import graphconv as gc
+    from schemanet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from schemanet_torch.ops.kernels import layernorm as lnk
+    from schemanet_torch.models.vit import get_model
+    from schemanet_torch.parallel.launch import spawn_ranks
+    from schemanet_torch.parallel.mesh import make_mesh
+    from schemanet_torch.pipeline.bundle import Bundle
+    from schemanet_torch.schema import init_parameters_
+
+    seconds = {}
+    backend, device = grid_layout()
+    phase("grid_setup", backend=backend, cards=torch.cuda.device_count(), ranks=2,
+          rank_devices=[device] * 2 if device == "cuda:0" else ["cuda:0", "cuda:1"],
+          note="gloo: both ranks on one card, the collectives through the host; no measure "
+               "of NCCL" if backend == "gloo" else "nccl: one card a rank", **card_note)
+    # the bundle and class ingredients of phase 25, drawn the same way
+    g = torch.Generator().manual_seed(40)
+    small = vit_cfg(384, 6, None)
+    vit = get_model(small, IN_CLASSES)
+    init_parameters_(vit, torch.Generator().manual_seed(0))
+    bundle = Bundle(model_cfg=small, encode_layer=ENCODE_LAYER, img_size=IMG,
+                    backbone_state={k: v.clone() for k, v in vit.state_dict().items()},
+                    codebook=torch.rand(IN_CODES, 384, generator=g) * 2 - 1, extra={})
+    del vit
+    ingredients = torch.stack([torch.randperm(IN_CODES, generator=g)[:IN_VMAX]
+                               for _ in range(IN_CLASSES)]).to(torch.int32)
+    b4 = grid_batches(40, GRID_STEPS, IN_CLASSES)
+
+    # 40. mesh_one_rank
+    t0 = time.perf_counter()
+    state = in_stage4_state(bundle, ingredients)
+    tr = in_stage4_trainer(state, "bfloat16", dev)
+    losses_plain = [tr.train_iter({k: v.to(dev) for k, v in b.items()})["loss"].item()
+                    for b in b4]
+    want = trainer_snapshot(tr)
+    del tr
+    mesh = make_mesh(device=dev)
+    tr = in_stage4_trainer(state, "bfloat16", dev, mesh)
+    reset_launch_counts()
+    losses_grid = [tr.train_iter({k: v.to(dev) for k, v in b.items()})["loss"].item()
+                   for b in b4]
+    launches = launch_counts()
+    differs = same_snapshots(want, trainer_snapshot(tr))
+    del tr, want
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    seconds["40_mesh_one_rank"] = time.perf_counter() - t0
+    phase("mesh_one_rank", backend=mesh.backend, grid=mesh.shape, steps=GRID_STEPS,
+          losses=losses_grid, losses_without_grid=losses_plain, bitwise=not differs,
+          differs=differs[:20], launches=launches, seconds=seconds["40_mesh_one_rank"],
+          **card_note)
+    require(mesh.backend == "nccl", f"the one-rank grid is not NCCL's: {mesh.backend}")
+    require(not differs and losses_grid == losses_plain,
+            f"one-rank grid differs from the trainer without a grid in {differs[:20]}")
+    require(all(v > 0 for k, v in launches.items() if k in (
+        "attn_block", "ffn_block", "vq_assign", "sym_conv", "sym_conv_bwd", "fused_layernorm",
+        "fused_layernorm_bwd", "embed_grad", "adamw_project_rows")),
+        f"one-rank grid: a kernel of the path never launched: {launches}")
+
+    # 41-42: two ranks
+    t0 = time.perf_counter()
+    torch.save(state, os.path.join(work_dir, "state.pt"))
+    del state
+    torch.save({"stage4": b4,
+                "stage0": grid_batches(42, GRID_STEPS, IN_CLASSES)},
+               os.path.join(work_dir, "inputs.pt"))
+    _build.library()  # built before the ranks start
+    torch.cuda.empty_cache()
+    spawn_ranks([sys.executable, os.path.abspath(__file__), "--grid-rank", work_dir], 2,
+                timeout=GRID_TIMEOUT_S, log_dir=os.path.join(work_dir, "logs"),
+                env=dict(os.environ, **{GRID_ENV: f"{backend},{device}"}),
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    seconds["41_42_two_ranks"] = time.perf_counter() - t0
+    lock = ranks[0]["lock"]
+    phase("mesh_model2", part="fp32_lock_step", backend=backend, grid={"data": 1, "model": 2},
+          rank_losses=[r["lock"]["loss"] for r in ranks],
+          run_to_run_bitwise=[not r["lock"]["run_to_run_differs"] for r in ranks], **lock,
+          tol={"loss": 1e-4, "atlas where |g| is large": "rtol 1e-4 / atol 1e-6",
+               "every trained tensor": "2 lr", "gradients": GRAD_RULE}, **card_note)
+    require(all(not r["lock"]["run_to_run_differs"] for r in ranks),
+            f"a grid step from one state twice differs: {[r['lock'] for r in ranks]}")
+    require(lock["loss_rel_err"] <= 1e-4, f"fp32 grid loss differs by {lock['loss_rel_err']}")
+    # phase 8's rules: the tight rule on the atlas, the bound on every tensor
+    # (the GNN's small gradients are differences of large terms, so their
+    # summation order moves them: reported, not gated)
+    require(lock["hot"]["sure_ok"] and lock["hot"]["within_bound"],
+            f"fp32 grid lock step, the atlas: {lock['hot']}")
+    require(lock["rest"]["within_bound"], f"fp32 grid lock step, the GNN: {lock['rest']}")
+    # the gradients the update reads: the GNN's and the class lookup's summed
+    # over the model group, the atlas's from this rank's classes
+    require(lock["grads"]["ok"], f"fp32 grid lock step, the reduced gradients: {lock['grads']}")
+    require(lock["edge_shard_shape"] == [IN_CLASSES // 2, IN_VMAX, IN_VMAX],
+            f"the edge atlas shard is {lock['edge_shard_shape']}")
+
+    # the bf16 steps' launches: phase 27's at the shard's class count
+    convs = 2 * IN_SCHEMA_CFG["schema_net"]["gnn"]["num_layers"]
+    k_local = IN_CLASSES // 2
+    want_shapes = {f"sym_conv {[k_local, IN_VMAX, IN_GNN]}": convs // 2 * GRID_STEPS,
+                   f"sym_conv_bwd {[k_local, IN_VMAX, IN_GNN]}": convs // 2 * GRID_STEPS,
+                   f"fused_layernorm {[k_local * IN_VMAX, IN_GNN]}": convs // 2 * GRID_STEPS,
+                   f"fused_layernorm_bwd {[k_local * IN_VMAX, IN_GNN]}": convs // 2 * GRID_STEPS,
+                   f"sym_conv {[BATCH, L_INST, IN_GNN]}": convs // 2 * GRID_STEPS,
+                   f"sym_conv_bwd {[BATCH, L_INST, IN_GNN]}": convs // 2 * GRID_STEPS,
+                   f"fused_layernorm {[BATCH * L_INST, IN_GNN]}": convs // 2 * GRID_STEPS,
+                   f"fused_layernorm_bwd {[BATCH * L_INST, IN_GNN]}": convs // 2 * GRID_STEPS}
+    want_counts = {"attn_block": FROZEN_LAYERS * GRID_STEPS, "attn_block_hmean": GRID_STEPS,
+                   "ffn_block": FROZEN_LAYERS * GRID_STEPS, "vq_assign": GRID_STEPS,
+                   "sym_conv": convs * GRID_STEPS, "sym_conv_bwd": convs * GRID_STEPS,
+                   "fused_layernorm": convs * GRID_STEPS,
+                   "fused_layernorm_bwd": convs * GRID_STEPS,
+                   "embed_grad": 2 * GRID_STEPS, "embed_grad_planned": GRID_STEPS,
+                   "adamw_project_rows": 2 * GRID_STEPS,
+                   "adamw_project_rows_bf16": 2 * GRID_STEPS}
+    for r in ranks:
+        bf = r["bf16"]
+        got_shapes = {k: v for k, v in bf["launches_by_shape"].items() if k in want_shapes}
+        got_counts = {k: bf["launches"].get(k) for k in want_counts}
+        phase("mesh_model2", part="bf16_steps", rank=r["rank"], device=r["device"],
+              steps=GRID_STEPS, losses=bf["losses"], step_ms=bf["step_ms"],
+              step_ms_note="two ranks on one card through gloo: no measure of NCCL"
+              if backend == "gloo" else "nccl", launches_by_shape=got_shapes,
+              expected_by_shape=want_shapes, launches=got_counts, expected=want_counts,
+              peak_memory_gb=bf["peak_memory_gb"], edge_shard_shape=bf["edge_shard_shape"],
+              profiled_third_step=bf["profiled"],
+              moment_dtypes=bf["moment_dtypes"], seconds=bf["seconds"], **card_note)
+        require(all(np.isfinite(bf["losses"])), f"grid bf16 losses not finite: {bf['losses']}")
+        require(got_shapes == want_shapes, f"rank {r['rank']}: launches by shape {got_shapes} "
+                                           f"!= {want_shapes}")
+        require(got_counts == want_counts, f"rank {r['rank']}: launches {got_counts} != "
+                                           f"{want_counts}")
+    require(ranks[0]["bf16"]["losses"] == ranks[1]["bf16"]["losses"],
+            "the ranks of one model group report other losses")
+
+    s0 = ranks[0]["stage0"]
+    s0_kernels = ("fused_mhsa", "fused_mhsa_bwd", "fused_mlp", "fused_mlp_bwd")
+    phase("mesh_data2_stage0", backend=backend, grid={"data": 2, "model": 1}, steps=GRID_STEPS,
+          rank_losses=[r["stage0"]["losses"] for r in ranks],
+          launches={k: s0["launches"].get(k) for k in s0_kernels},
+          tol={"loss": 1e-4, "sure": "rtol 1e-4 / atol 1e-6", "all": "2 lr a step",
+               "gradients": GRAD_RULE},
+          **{k: v for k, v in s0.items() if k not in ("launches", "losses")}, **card_note)
+    require(s0["loss_rel_err"] <= 1e-4, f"grid stage-0 losses differ by {s0['loss_rel_err']}")
+    require(s0["sure_ok"] and s0["within_bound"], f"grid stage-0 parameters: {s0}")
+    require(s0["grads"]["ok"], f"grid stage 0, the first step's gradients averaged over the "
+                               f"data group: {s0['grads']}")
+    require(ranks[0]["stage0"]["losses"] == ranks[1]["stage0"]["losses"],
+            "the ranks report other stage-0 losses")
+    require(all(r["stage0"]["launches"].get(k) == 12 * GRID_STEPS for r in ranks
+                for k in s0_kernels), "grid stage 0: a fused kernel's launches")
+
+    # the kernels at the shard's shapes against their plain versions, timed
+    rows, errors = {}, {}
+    t0 = time.perf_counter()
+    iters = 5
+    gen = torch.Generator(device=dev).manual_seed(41)  # inputs drawn on the device
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    e = (torch.rand(k_local, IN_VMAX, IN_VMAX, generator=gen, device=dev) / IN_VMAX).to(
+        torch.bfloat16)
+    f_, gout = (rnd(k_local, IN_VMAX, IN_GNN).to(torch.bfloat16) for _ in range(2))
+    compare("sym_conv_shard", gc.sym_conv, gc.sym_conv_reference, (e, f_), {}, torch.bfloat16,
+            BF16_TOL, errors)
+    compare("sym_conv_bwd_shard", gc.sym_conv_bwd, gc.sym_conv_bwd_reference, (e, f_, gout), {},
+            torch.bfloat16, BF16_TOL, errors)
+    conv_flops = 2 * k_local * IN_VMAX * IN_VMAX * IN_GNN + 2 * k_local * IN_VMAX * IN_VMAX
+    with torch.no_grad():
+        rows["sym_conv_shard"] = ((conv_flops, nbytes(e, f_, f_), "bfloat16"),
+                                  time_ms(lambda: gc.sym_conv(e, f_), iters),
+                                  time_ms(lambda: gc.sym_conv_reference(e, f_), iters))
+        rows["sym_conv_bwd_shard"] = (
+            (2 * conv_flops, nbytes(e, f_, gout, e, f_), "bfloat16"),
+            time_ms(lambda: gc.sym_conv_bwd(e, f_, gout), iters),
+            time_ms(lambda: gc.sym_conv_bwd_reference(e, f_, gout), iters))
+    del e, f_, gout
+    x = rnd(k_local * IN_VMAX, IN_GNN).to(torch.bfloat16)
+    sc, bi = 1 + rnd(IN_GNN, scale=0.1), rnd(IN_GNN, scale=0.1)
+    y = lnk.fused_layernorm_reference(x, sc, bi, 1e-6, "relu").float()
+    cot = torch.where(y.abs() <= 1e-5 * y.abs().max(), 0.0, rnd(*x.shape)).to(torch.bfloat16)
+    del y
+    compare("fused_layernorm_shard_d1024", lnk.fused_layernorm, lnk.fused_layernorm_reference,
+            (x, sc, bi, 1e-6, "relu"), {}, torch.bfloat16, BF16_TOL, errors)
+    compare("fused_layernorm_bwd_shard_d1024", lnk.fused_layernorm_bwd,
+            lnk.fused_layernorm_bwd_reference, (x, sc, bi, cot, 1e-6, "relu"), {},
+            torch.bfloat16, BF16_TOL, errors)
+    rows["fused_layernorm_shard_d1024"] = (
+        (*ln_work(x), "float32"), time_ms(lambda: lnk.fused_layernorm(x, sc, bi, 1e-6, "relu"),
+                                          iters),
+        time_ms(lambda: lnk.fused_layernorm_reference(x, sc, bi, 1e-6, "relu"), iters))
+    rows["fused_layernorm_bwd_shard_d1024"] = (
+        (*ln_work(x, bwd=True), "float32"),
+        time_ms(lambda: lnk.fused_layernorm_bwd(x, sc, bi, cot, 1e-6, "relu"), iters),
+        time_ms(lambda: lnk.fused_layernorm_bwd_reference(x, sc, bi, cot, 1e-6, "relu"), iters))
+    del x, cot
+    ids = ingredients[:k_local].to(dev)
+    gl = rnd(k_local, IN_VMAX, IN_GNN).to(torch.bfloat16)
+    plan = ek.sort_ids(ids, IN_CODES + 1)
+    compare("embed_grad_shard", lambda *a: ek.embed_grad(*a, plan=plan), ek.embed_grad_reference,
+            (ids, gl, IN_CODES + 1), {}, torch.bfloat16, BF16_TOL, errors)
+    rows["embed_grad_shard"] = (
+        (*embed_work((ids, gl, IN_CODES + 1)), "bfloat16"),
+        time_ms(lambda: ek.embed_grad(ids, gl, IN_CODES + 1, plan=plan), iters),
+        time_ms(lambda: ek.embed_grad_reference(ids, gl, IN_CODES + 1), iters))
+    del gl
+    shape = (k_local, IN_VMAX, IN_VMAX)
+    p0 = torch.rand(*shape, generator=gen, device=dev)
+    p0 /= p0.sum(-1, keepdim=True)
+    grad = rnd(*shape, scale=1e-4)
+    m0 = rnd(*shape, scale=1e-5).to(torch.bfloat16)
+    v0 = (rnd(*shape, scale=1e-5) ** 2).to(torch.bfloat16)
+    hyper = dict(lr=1e-3, weight_decay=5e-4, project=True)
+    pk, mk_, vk = p0.clone(), m0.clone(), v0.clone()
+    ao.adamw_project_rows(pk, grad, mk_, vk, 3, **hyper)
+    pp, mp, vp = p0.clone(), m0.clone(), v0.clone()
+    ao.adamw_project_rows_reference(pp, grad, mp, vp, 3, **hyper)
+    errors["adamw_project_rows_shard"] = abs_err(pk, pp)
+    require(rel_err(pk, pp) <= FP32_TOL, f"adamw_project_rows at the shard: {rel_err(pk, pp)}")
+    prm = p0.numel()
+    rows["adamw_project_rows_shard"] = (
+        (15 * prm, 3 * 4 * prm + 4 * 2 * prm, "float32"),
+        time_ms(lambda: ao.adamw_project_rows(pk, grad, mk_, vk, 3, **hyper), iters),
+        time_ms(lambda: ao.adamw_project_rows_reference(pp, grad, mp, vp, 3, **hyper), iters))
+    del p0, grad, m0, v0, pk, mk_, vk, pp, mp, vp
+    torch.cuda.empty_cache()
+    seconds["grid_kernel_rows"] = time.perf_counter() - t0
+    # each row's launches: rank 0's in the bf16 grid steps, at the row's shape
+    by_shape, counts = ranks[0]["bf16"]["launches_by_shape"], ranks[0]["bf16"]["launches"]
+    launches = {
+        "sym_conv_shard": by_shape.get(f"sym_conv {[k_local, IN_VMAX, IN_GNN]}", 0),
+        "sym_conv_bwd_shard": by_shape.get(f"sym_conv_bwd {[k_local, IN_VMAX, IN_GNN]}", 0),
+        "fused_layernorm_shard_d1024":
+            by_shape.get(f"fused_layernorm {[k_local * IN_VMAX, IN_GNN]}", 0),
+        "fused_layernorm_bwd_shard_d1024":
+            by_shape.get(f"fused_layernorm_bwd {[k_local * IN_VMAX, IN_GNN]}", 0),
+        "embed_grad_shard": counts["embed_grad_planned"],  # the class lookup's
+        "adamw_project_rows_shard": counts["adamw_project_rows"] // 2,  # the edge shard's
+    }
+    out = {}
+    for name, (work, ms, plain_ms) in rows.items():
+        bound_ms, bound_by = least_ms(*work)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None, max_abs_err=errors[name], launches=launches[name])
+        phase("kernel_time", kernel=name, grid="model 2 (K 500 a rank)", **out[name],
+              **card_note)
+    seconds["total"] = sum(seconds.values())
+    phase("grid_seconds", **seconds, **card_note)
+    return {"rows": out, "seconds": seconds}
+
+
+def run_grid_phases(dev, card_note: dict) -> dict:
+    """``grid_phases`` in a temporary directory it removes."""
+    torch.cuda.empty_cache()
+    grid_dir = tempfile.mkdtemp(prefix="chip_smoke_grid_")
+    try:
+        return grid_phases(dev, grid_dir, card_note)
+    finally:
+        shutil.rmtree(grid_dir, ignore_errors=True)
+
+
+def main(grid_only: bool = False) -> None:
+    """Every phase; ``grid_only``: phases 1-2 and 40-42, with the grid's
+    kernel rows."""
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script measures the GPU and nothing else")
@@ -3212,6 +3979,14 @@ def main() -> None:
                 f"ptxas reported {len(tc_ptxas)} {tag} kernels in {source}, not {count}")
         require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in tc_ptxas.values()),
                 f"a kernel of {source} ({tag}) spills to local memory")
+
+    if grid_only:
+        grid = run_grid_phases(dev, card_note)
+        phase("total", seconds=time.perf_counter() - t_start, **card_note)
+        print(json.dumps({"grid_kernels": grid["rows"]}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     # 3. each serving kernel against its plain version at the serving shapes
     g = torch.Generator().manual_seed(0)
@@ -3336,27 +4111,6 @@ def main() -> None:
     images = np.random.default_rng(0).normal(size=(N_IMAGES, IMG, IMG, 3)).astype(np.float32)
     x_dev = torch.from_numpy(images).to(dev)
 
-    plain_versions = [
-        mock.patch.object(eb, "attn_block", eb.attn_block_reference),
-        mock.patch.object(eb, "ffn_block", eb.ffn_block_reference),
-        mock.patch.object(gc, "sym_conv", gc.sym_conv_reference),  # autograd of plain torch
-        mock.patch.object(ek, "embed_grad", ek.embed_grad_reference),
-        mock.patch.object(ao, "adamw_project_rows", ao.adamw_project_rows_reference),
-        mock.patch.object(ak, "fused_mhsa", ak.fused_mhsa_reference),  # autograd of plain torch
-        mock.patch.object(mk, "fused_mlp", mk.fused_mlp_reference),
-        mock.patch.object(vqk, "vq_assign_kernel", vqk.vq_assign_reference),
-        mock.patch.object(lnk, "fused_layernorm", lnk.fused_layernorm_plain),
-    ]
-
-    def with_plain(fn):
-        for p in plain_versions:
-            p.start()
-        try:
-            return fn()
-        finally:
-            for p in plain_versions:
-                p.stop()
-
     def plain_layernorm(fn):
         """fn with the plain LayerNorm in place of the kernels, the rest as is."""
         with mock.patch.object(lnk, "fused_layernorm", lnk.fused_layernorm_plain):
@@ -3364,41 +4118,6 @@ def main() -> None:
 
     def median(xs):
         return float(np.percentile(xs, 50))
-
-    # A run on the kernels against one on the plain versions: where two codes'
-    # scores nearly tie, the VQ kernel and its plain version may pick either,
-    # and one other code changes a graph and its gradients. So the plain run
-    # takes the kernel run's ids in the same order, and the plain VQ's own
-    # ids on the plain run's features are held to them apart from near-ties.
-    def recording_vq(store):
-        kernel_vq = vqk.vq_assign_kernel
-
-        def record(x, cb):
-            ids = kernel_vq(x, cb)
-            store.append(ids)
-            return ids
-
-        return mock.patch.object(vqk, "vq_assign_kernel", record)
-
-    def replaying_vq(store, stats):
-        replay = iter(store)
-
-        def replayed(x, cb):
-            ids = next(replay)
-            gaps, scale = vqk.score_gaps(x, cb, ids, vqk.vq_assign_reference(x, cb))
-            stats["rows"] += ids.numel()
-            stats["mismatches"] += len(gaps)
-            stats["near_ties_only"] &= bool((gaps <= 1e-5 * scale).all())
-            return ids
-
-        return mock.patch.object(vqk, "vq_assign_kernel", replayed)
-
-    def replay_report(stats):
-        agree = 1 - stats["mismatches"] / max(stats["rows"], 1)
-        require(agree >= 0.999 and stats["near_ties_only"],
-                f"plain VQ ids disagree with the kernel's beyond near-ties: {stats}")
-        return {"plain_vq_id_agreement": agree, "plain_vq_mismatches": stats["mismatches"],
-                "plain_vq_near_ties_only": stats["near_ties_only"]}
 
     # 4. the slice in fp32 against the plain versions
     s32 = ServePredictor(m32, microbatch=MICROBATCH, device=dev)
@@ -3670,9 +4389,7 @@ def main() -> None:
     hot_names = ("schema_net.vertex_weights", "schema_net.edge_weights")
     s4_launches, _ = stage4_fp32_vs_plain(
         lambda: trainer(torch.float32, "highest"), batches[:FP32_STEPS],
-        TRAIN_CFG["optimizer"]["lr"], FROZEN_LAYERS,
-        {"with_plain": with_plain, "recording_vq": recording_vq, "replaying_vq": replaying_vq,
-         "replay_report": replay_report})
+        TRAIN_CFG["optimizer"]["lr"], FROZEN_LAYERS)
 
     # 9. the training step in bf16: the main path, counted
     tr16 = trainer(torch.bfloat16, "default")
@@ -4504,17 +5221,14 @@ def main() -> None:
     try:
         worker_launches = worker_phases(
             dev, run_dir, os.path.join(run_dir, "bundle"), os.path.join(run_dir, "atlas_init.pt"),
-            card_note, {"with_plain": with_plain, "recording_vq": recording_vq,
-                        "replaying_vq": replaying_vq, "replay_report": replay_report})
+            card_note)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 
     # 24-30. ImageNet: the kernels at the new widths, DeiT-Small's serving,
     # stage-4 step and stage 0, DeiT-Base's serving and stage 0
     torch.cuda.empty_cache()
-    helpers = {"with_plain": with_plain, "recording_vq": recording_vq,
-               "replaying_vq": replaying_vq, "replay_report": replay_report}
-    imagenet = imagenet_phases(dev, card_note, helpers)
+    imagenet = imagenet_phases(dev, card_note)
 
     # 32-33. the command line's stage chain, and the pretrained loader
     torch.cuda.empty_cache()
@@ -4536,9 +5250,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     folder_dir = tempfile.mkdtemp(prefix="chip_smoke_folder_")
     try:
-        folder = imagefolder_phases(dev, folder_dir, card_note, helpers, imagenet["launches"])
+        folder = imagefolder_phases(dev, folder_dir, card_note, imagenet["launches"])
     finally:
         shutil.rmtree(folder_dir, ignore_errors=True)
+
+    # 40-42. several ranks: a one-rank NCCL grid, then two ranks (model 2,
+    # data 2) on the cards present
+    grid = run_grid_phases(dev, card_note)
 
     # the least time the card could take for the timed work of each kernel
     def conv_work(args, bwd=False):
@@ -4715,6 +5433,25 @@ def main() -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "worker_launches": {},
         })
+    # phases 41's rows: the class graphs' kernels at a model-2 rank's shard
+    # (K 500), launches from its bf16 steps
+    grid_rows = {
+        "sym_conv_shard": ("graphconv.cu", "graphconv.py:68"),
+        "sym_conv_bwd_shard": ("graphconv.cu", "graphconv.py:100"),
+        "fused_layernorm_shard_d1024": ("layernorm.cu", "layernorm.py:119"),
+        "fused_layernorm_bwd_shard_d1024": ("layernorm.cu", "layernorm.py:151"),
+        "embed_grad_shard": ("embed_bwd.cu", "embed_bwd.py:161"),
+        "adamw_project_rows_shard": ("atlas_opt.cu", "atlas_opt.py:133"),
+    }
+    for name, (source, tpu_site) in grid_rows.items():
+        r = grid["rows"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "schemanet_torch/csrc/" + source,
+            "replaces": "schemanet_tpu/ops/pallas/" + tpu_site, "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "worker_launches": {},
+        })
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     phase("imagenet_seconds", total=sum(imagenet["seconds"].values()), **imagenet["seconds"])
     phase("imagefolder_seconds", total=sum(folder["seconds"].values()), **folder["seconds"])
@@ -4725,4 +5462,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--grid-rank"]:  # a rank of phases 41-42, spawned by grid_phases
+        grid_rank_main(sys.argv[2])
+    else:
+        main(grid_only=sys.argv[1:] == ["--grid"])

@@ -14,7 +14,9 @@ init) and ``train.schema_net_trainer`` or ``train.Trainer`` with a SchemaNet
 predictor (stage 4); ``load_serve_predictor`` assembles a server from the
 files the stages write, and ``python -m schemanet_torch.cli`` runs every
 stage from the command line (``--device cpu`` for the CPU). They run on CUDA
-unless the caller passes ``device="cpu"``.
+unless the caller passes ``device="cpu"``. On several GPUs
+``parallel.make_mesh`` gives the grid of ``torch.distributed`` ranks that
+``Trainer(mesh=...)``, the workers and stages 1 and 3 run on.
 
 This package never imports JAX, Flax, Optax, Orbax or ``schemanet_tpu``.
 """

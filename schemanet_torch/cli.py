@@ -1,5 +1,5 @@
 """Command line of the port (counterpart of ``schemanet_tpu/cli.py``): the
-reference's five-stage pipeline and serving, one process on one GPU.
+reference's five-stage pipeline and serving.
 
 Subcommands, with the JAX CLI's flags and defaults and one more, ``--device``
 (``cuda`` unless the caller passes ``cpu``; the JAX CLI's
@@ -13,9 +13,19 @@ Subcommands, with the JAX CLI's flags and defaults and one more, ``--device``
 
 Run as ``python -m schemanet_torch.cli <subcommand> ...``. Configs are YAML
 (read with PyYAML) or JSON (read without it). Flags the port cannot honour
-yet raise ``SystemExit`` naming their ROADMAP item: a mesh of more than one
-device and ``--multi-host`` (A11), ``--quant-int8`` (A11),
+yet raise ``SystemExit`` naming their ROADMAP item: ``--quant-int8`` (A11),
 ``--save-features`` and ``--saved-features-fp`` (A9).
+
+Several GPUs (``train``, ``extract``, ``init``): ``--mesh-data D
+--mesh-model M`` runs a ``D x M`` grid (``parallel/mesh.py``), one process a
+rank on this host (``parallel/launch.py``; rank r on ``cuda:r``, the kernel
+library built before the ranks start; with ``--device cpu`` gloo processes
+on the CPU). A grid larger than the GPUs present raises. ``--multi-host``
+joins the rendezvous ``torchrun`` sets instead (``torchrun
+--nproc-per-node N -m schemanet_torch.cli train ...``, on each host);
+``--mesh-data`` then defaults to every rank ``--mesh-model`` leaves. Rank 0
+writes the outputs. ``export`` and ``serve`` run in one process, as the JAX
+CLI's do.
 """
 
 from __future__ import annotations
@@ -36,6 +46,9 @@ from .data.loader import _loader
 from .device import resolve_device
 from .models.port import load_pretrain_into
 from .models.vit import get_model
+from .ops.kernels import _build
+from .parallel.launch import GRID_CHILD, spawn_ranks
+from .parallel.mesh import RENDEZVOUS_KEYS, init_from_env, make_mesh
 from .pipeline.bundle import load_bundle, save_atlas_init, save_bundle
 from .pipeline.extract_ingredients import extract_codebook
 from .pipeline.stages import init_stage, parse_encode_layer
@@ -58,7 +71,7 @@ def _common_flags(p: argparse.ArgumentParser):
     p.add_argument("--mesh-data", type=int, default=None, help="data-parallel axis size")
     p.add_argument("--mesh-model", type=int, default=1, help="model-parallel axis size")
     p.add_argument("--multi-host", action="store_true",
-                   help="several hosts (not ported: ROADMAP A11)")
+                   help="join the rendezvous torchrun sets (several hosts)")
     p.add_argument(
         "--override", "-o", action="append", default=[],
         help="dotted-path config override key=value (repeatable)",
@@ -130,11 +143,38 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+GRID_COMMANDS = ("train", "extract", "init")
+
+
+def _grid_size(args) -> int:
+    return (args.mesh_data or 1) * args.mesh_model
+
+
+def _is_rank(args) -> bool:
+    """This process is a rank of a grid: spawned by the launcher, or
+    ``--multi-host`` under ``torchrun``."""
+    return args.command in GRID_COMMANDS and (args.multi_host or GRID_CHILD in os.environ)
+
+
+def _spawn_grid(args, argv) -> int:
+    """Run this command line as the grid's ranks on this host."""
+    n = _grid_size(args)
+    if torch.device(args.device).type == "cuda":
+        count = torch.cuda.device_count()
+        if n > count:
+            raise SystemExit(f"a grid of {n} ranks needs {n} GPUs, one a rank; this host has "
+                             f"{count}")
+        _build.library()  # once, before the ranks start
+    spawn_ranks([sys.executable, "-m", "schemanet_torch.cli", *argv], n)
+    return 0
+
+
 def _refuse_unported(args) -> None:
     """Flags the port cannot honour raise instead of being ignored."""
-    if args.multi_host or (args.mesh_data or 1) != 1 or args.mesh_model != 1:
-        raise SystemExit("--mesh-data/--mesh-model beyond one device and --multi-host are not "
-                         "ported yet (ROADMAP A11)")
+    if args.multi_host and not all(k in os.environ for k in RENDEZVOUS_KEYS):
+        raise SystemExit("--multi-host joins the rendezvous torchrun sets ("
+                         + ", ".join(RENDEZVOUS_KEYS) + " are unset): launch with torchrun "
+                         "--nproc-per-node N -m schemanet_torch.cli ...")
     if getattr(args, "quant_int8", False):
         raise SystemExit("--quant-int8 is not ported yet (ROADMAP A11)")
     if getattr(args, "save_features", False) or getattr(args, "saved_features_fp", None):
@@ -148,6 +188,11 @@ def _base_dir(args) -> str:
 def _setup(args) -> Dict[str, Any]:
     _refuse_unported(args)
     resolve_device(args.device)  # raises before any work where the device is missing
+    if _is_rank(args):
+        init_from_env(device=args.device)
+    elif _grid_size(args) > 1:
+        logging.getLogger("cli").warning("%s runs in one process; the grid flags are ignored",
+                                         args.command)
     setup_logger(os.path.join(args.log_dir, "logs"), f"{args.file_name_cfg}.log")
     cfg = get_cfg(args.cfg)
     return apply_overrides(cfg, parse_override_strings(args.override), base_dir=_base_dir(args))
@@ -155,12 +200,27 @@ def _setup(args) -> Dict[str, Any]:
 
 def _launch_args(args, resume: str = ""):
     return LaunchArgs(seed=args.seed, debug=args.debug, log_dir=args.log_dir, resume=resume,
-                      base_dir=_base_dir(args), device=args.device)
+                      base_dir=_base_dir(args), device=args.device, mesh_data=args.mesh_data,
+                      mesh_model=args.mesh_model)
 
 
-def _stage_loader(train_set, data_cfg, batch_size: int, seed: int):
-    """The training split shuffled, as stages 1 and 3 read it."""
-    return _loader(train_set, data_cfg, {"batch_size": batch_size}, "train", True, seed)
+def _stage_mesh(args):
+    """The grid of stages 1 and 3 (data-parallel passes), None in one
+    process."""
+    if not _is_rank(args):
+        return None
+    return make_mesh(data=args.mesh_data, model=args.mesh_model, device=args.device)
+
+
+def _stage_loader(train_set, data_cfg, batch_size: int, seed: int, mesh=None):
+    """The training split shuffled, as stages 1 and 3 read it; a rank's data
+    slice on a grid."""
+    kw = {} if mesh is None else {"process_index": mesh.data_index, "process_count": mesh.data}
+    return _loader(train_set, data_cfg, {"batch_size": batch_size}, "train", True, seed, **kw)
+
+
+def _is_writer(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
 
 
 def _load_backbone_for_stage(cfg, args):
@@ -202,11 +262,15 @@ def cmd_extract(args):
     num_clusters = cfg["discretization"]["vocabulary"]["size"]
     os.makedirs(args.save_path, exist_ok=True)
     model, _, data_cfg = _load_backbone_for_stage(cfg, args)
-    model.requires_grad_(False).to(resolve_device(args.device))
+    mesh = _stage_mesh(args)
+    model.requires_grad_(False).to(mesh.device if mesh else resolve_device(args.device))
     encode_layer = parse_encode_layer(cfg["discretization"]["encoder_layer"])
-    loader = _stage_loader(get_dataset(data_cfg, "train"), data_cfg, args.batch_size, args.seed)
+    loader = _stage_loader(get_dataset(data_cfg, "train"), data_cfg, args.batch_size, args.seed,
+                           mesh)
     centers = extract_codebook(model, loader, encode_layer, num_clusters,
-                               max_features=args.max_features, seed=args.seed)
+                               max_features=args.max_features, seed=args.seed, mesh=mesh)
+    if not _is_writer(mesh):
+        return 0
     centers = centers.float().cpu()
     save_fp = os.path.join(args.save_path, f"cluster_{num_clusters}_from_{args.max_features}.npy")
     np.save(save_fp, centers.numpy())
@@ -241,10 +305,14 @@ def cmd_init(args):
     if args.make_partial:
         data_cfg["make_partial"] = args.make_partial
     train_set = get_dataset(data_cfg, "train")
-    loader = _stage_loader(train_set, data_cfg, args.batch_size, args.seed)
+    mesh = _stage_mesh(args)
+    loader = _stage_loader(train_set, data_cfg, args.batch_size, args.seed, mesh)
     bundle = load_bundle(cfg["schema_net"]["bundle"])
     stage_cfg = dict(cfg, dataset=dict(data_cfg, num_classes=train_set.num_classes))
-    atlas_init = init_stage(stage_cfg, bundle, loader, seed=args.seed, device=args.device)
+    atlas_init = init_stage(stage_cfg, bundle, loader, seed=args.seed,
+                            device=None if mesh else args.device, mesh=mesh)
+    if not _is_writer(mesh):
+        return 0
     save_atlas_init(args.save_fp, atlas_init["params"], atlas_init["class_ingredients"])
     print(f"saved initial IR-Atlas to {args.save_fp}")
     return 0
@@ -330,7 +398,11 @@ COMMANDS = {"train": cmd_train, "extract": cmd_extract, "export": cmd_export, "i
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    if (args.command in GRID_COMMANDS and _grid_size(args) > 1 and not _is_rank(args)):
+        _refuse_unported(args)
+        return _spawn_grid(args, argv)
     return COMMANDS[args.command](args)
 
 

@@ -129,7 +129,7 @@ __device__ __forceinline__ float dot_rows(const float* a, const float* b, int d)
 // forward
 __global__ void __launch_bounds__(kThreads)
     mhsa_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int n, int heads, int d,
-                    float scale, float p, float inv, int seed) {
+                    float scale, float p, float inv, DropSeed seed) {
   extern __shared__ float smem[];
   float* ks = smem;                      // [n][d+1]
   float* vs = ks + n * (d + 1);          // [n][d+1]
@@ -150,7 +150,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  const uint32_t h0 = drop_stream(seed, b * heads + h);
+  const uint32_t h0 = drop_stream(seed.seed, seed.offset + b * heads + h);
   for (int r = warp; r < rows_here; r += kThreads / 32) {
     float* row = ss + r * n;
     float m = -__int_as_float(0x7f800000);
@@ -188,7 +188,7 @@ __global__ void __launch_bounds__(kThreads)
 __global__ void __launch_bounds__(kThreads)
     mhsa_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ g,
                    float* __restrict__ dqkv, float* __restrict__ stats, int n, int heads, int d,
-                   float scale, float p, float inv, int seed) {
+                   float scale, float p, float inv, DropSeed seed) {
   extern __shared__ float smem[];
   float* ks = smem;                      // [n][d+1]
   float* vs = ks + n * (d + 1);          // [n][d+1]
@@ -216,7 +216,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  const uint32_t h0 = drop_stream(seed, b * heads + h);
+  const uint32_t h0 = drop_stream(seed.seed, seed.offset + b * heads + h);
   for (int r = warp; r < rows_here; r += kThreads / 32) {
     float* srow = ss + r * n;
     float* prow = ps + r * n;
@@ -268,7 +268,7 @@ __global__ void __launch_bounds__(kThreads)
 __global__ void __launch_bounds__(kThreads)
     mhsa_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ g,
                     float* __restrict__ dqkv, const float* __restrict__ stats, int n, int heads,
-                    int d, float scale, float p, float inv, int seed) {
+                    int d, float scale, float p, float inv, DropSeed seed) {
   extern __shared__ float smem[];
   float* ks = smem;                        // [BK][d+1]
   float* vs = ks + kMhsaBK * (d + 1);      // [BK][d+1]
@@ -282,7 +282,7 @@ __global__ void __launch_bounds__(kThreads)
   const int keys = min(kMhsaBK, n - j0);
   const int hd = heads * d, n3 = 3 * hd;
   const long item = (long)b * n;
-  const uint32_t h0 = drop_stream(seed, b * heads + h);
+  const uint32_t h0 = drop_stream(seed.seed, seed.offset + b * heads + h);
   for (int idx = tid; idx < kMhsaBK * (d + 1); idx += kThreads) ks[idx] = vs[idx] = 0.f;
   __syncthreads();
   load_kv(qkv, item, n, n3, heads, h, d, j0, keys, ks, vs);
@@ -345,7 +345,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 cudaError_t mhsa_fwd_impl(const void* qkv, void* out, int bs, int n, int heads, int d,
-                          float scale, float p, float inv, int seed, cudaStream_t stream) {
+                          float scale, float p, float inv, DropSeed seed, cudaStream_t stream) {
   const size_t bytes = sizeof(float) * mhsa_fwd_smem_floats(n, d);
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(mhsa_fwd_kernel, bytes);
@@ -357,7 +357,7 @@ cudaError_t mhsa_fwd_impl(const void* qkv, void* out, int bs, int n, int heads, 
 }
 
 cudaError_t mhsa_bwd_impl(const void* qkv, const void* g, void* dqkv, void* stats, int bs, int n,
-                          int heads, int d, float scale, float p, float inv, int seed,
+                          int heads, int d, float scale, float p, float inv, DropSeed seed,
                           cudaStream_t stream) {
   const size_t dq_bytes = sizeof(float) * mhsa_dq_smem_floats(n, d);
   if (dq_bytes > kMaxSmem) return cudaErrorInvalidValue;
@@ -571,7 +571,7 @@ template <int D>
 __device__ __forceinline__ void mhsa_tc_fwd_head(const bf16* __restrict__ qkv,
                                                  bf16* __restrict__ out, int n, int heads, int h,
                                                  int b, int q0, float scale, float p, float inv,
-                                                 int seed, bf16* ks, bf16* vs, float* hsum) {
+                                                 DropSeed seed, bf16* ks, bf16* vs, float* hsum) {
   const int np = tc_keys(n);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int hd = heads * D, n3 = 3 * hd;
@@ -606,7 +606,7 @@ __device__ __forceinline__ void mhsa_tc_fwd_head(const bf16* __restrict__ qkv,
 
   cp_async_wait<0>();  // V
   __syncthreads();
-  const uint32_t h0 = drop_stream(seed, b * heads + h);
+  const uint32_t h0 = drop_stream(seed.seed, seed.offset + b * heads + h);
   const int i0 = q0 + warp * 16 + lane / 4;  // rows i0 and i0 + 8
   float o[D / 8][4] = {};
   for (int j0 = 0; j0 < np; j0 += 16) {
@@ -644,7 +644,7 @@ __device__ __forceinline__ void mhsa_tc_fwd_head(const bf16* __restrict__ qkv,
 template <int D>
 __global__ void __launch_bounds__(kTcThreads)
     mhsa_tc_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int n, int heads,
-                       float scale, float p, float inv, int seed) {
+                       float scale, float p, float inv, DropSeed seed) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* ks = reinterpret_cast<bf16*>(tc_smem);  // [np][P]
   bf16* vs = ks + tc_keys(n) * tc_pitch<D>();   // [np][P]
@@ -694,7 +694,7 @@ template <int D>
 __global__ void __launch_bounds__(kTcThreads)
     mhsa_tc_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g,
                       bf16* __restrict__ dqkv, float* __restrict__ stats, int n, int heads,
-                      float scale, float p, float inv, int seed) {
+                      float scale, float p, float inv, DropSeed seed) {
   constexpr int P = tc_pitch<D>();
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const int np = tc_keys(n);
@@ -728,7 +728,7 @@ __global__ void __launch_bounds__(kTcThreads)
 
   cp_async_wait<0>();  // V
   __syncthreads();
-  const uint32_t h0 = drop_stream(seed, b * heads + h);
+  const uint32_t h0 = drop_stream(seed.seed, seed.offset + b * heads + h);
   const int i0 = q0 + warp * 16 + lane / 4;  // rows i0 and i0 + 8
 
   // pass 2: D_i = sum_j dA_ij s_ij, dA = g v^T masked
@@ -810,7 +810,7 @@ template <int D>
 __global__ void __launch_bounds__(kTcThreads)
     mhsa_tc_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g,
                        bf16* __restrict__ dqkv, const float* __restrict__ stats, int n, int heads,
-                       float scale, float p, float inv, int seed) {
+                       float scale, float p, float inv, DropSeed seed) {
   constexpr int P = tc_pitch<D>();
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* ks = reinterpret_cast<bf16*>(tc_smem);  // [64][P]
@@ -824,7 +824,7 @@ __global__ void __launch_bounds__(kTcThreads)
   const int hd = heads * D, n3 = 3 * hd;
   const long item = (long)b * n;
   const float scale_t = Num<bf16>::round(scale);
-  const uint32_t h0 = drop_stream(seed, b * heads + h);
+  const uint32_t h0 = drop_stream(seed.seed, seed.offset + b * heads + h);
   const float* st = stats + ((long)b * heads + h) * n * 3;
   stage_async<D>(qkv, item, j0, kTcRows, n, n3, (heads + h) * D, ks);
   stage_async<D>(qkv, item, j0, kTcRows, n, n3, (2 * heads + h) * D, vs);
@@ -936,7 +936,7 @@ size_t tc_dkv_smem() {  // K, V, two q and two g tiles; P and dS
 
 template <int D>
 cudaError_t mhsa_tc_fwd(const void* qkv, void* out, int bs, int n, int heads, float scale, float p,
-                        float inv, int seed, cudaStream_t stream) {
+                        float inv, DropSeed seed, cudaStream_t stream) {
   const size_t bytes = tc_fwd_smem<D>(n);
   cudaError_t err = allow_smem(mhsa_tc_fwd_kernel<D>, bytes);
   if (err != cudaSuccess) return err;
@@ -948,7 +948,7 @@ cudaError_t mhsa_tc_fwd(const void* qkv, void* out, int bs, int n, int heads, fl
 
 template <int D>
 cudaError_t mhsa_tc_bwd(const void* qkv, const void* g, void* dqkv, void* stats, int bs, int n,
-                        int heads, float scale, float p, float inv, int seed,
+                        int heads, float scale, float p, float inv, DropSeed seed,
                         cudaStream_t stream) {
   const size_t dq_bytes = tc_dq_smem<D>(n), kv_bytes = tc_dkv_smem<D>();
   cudaError_t err = allow_smem(mhsa_tc_dq_kernel<D>, dq_bytes);
@@ -1011,11 +1011,14 @@ cudaError_t mhsa_tc_forward(const void* qkv, void* out, void* hmean, int bs, int
 
 extern "C" {
 
-// out [bs, n, heads*d]; p = 0 turns dropout off. fp32 takes the FMA kernel,
-// bf16 the tensor-core kernel (head_dim a multiple of 16 up to 64, n <= 320).
+// out [bs, n, heads*d]; p = 0 turns dropout off; offset: the stream of the
+// launch's first item and head in the global batch (its first item x heads).
+// fp32 takes the FMA kernel, bf16 the tensor-core kernel (head_dim a multiple
+// of 16 up to 64, n <= 320).
 int sn_fused_mhsa(int dtype, const void* qkv, void* out, int bs, int n, int heads, int head_dim,
-                  float scale, float p, float inv, int seed, void* stream) {
+                  float scale, float p, float inv, int seed_, int offset, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  const sn::DropSeed seed(seed_, offset);
   if (dtype == sn::kF32) {
     if (head_dim > sn::kMhsaMaxHeadDim) return cudaErrorInvalidValue;
     return sn::mhsa_fwd_impl(qkv, out, bs, n, heads, head_dim, scale, p, inv, seed, s);
@@ -1032,9 +1035,10 @@ int sn_fused_mhsa(int dtype, const void* qkv, void* out, int bs, int n, int head
 // dqkv [bs, n, 3*heads*d]; stats: fp32 scratch of bs*heads*n*3. Routes as
 // sn_fused_mhsa.
 int sn_fused_mhsa_bwd(int dtype, const void* qkv, const void* g, void* dqkv, void* stats, int bs,
-                      int n, int heads, int head_dim, float scale, float p, float inv, int seed,
-                      void* stream) {
+                      int n, int heads, int head_dim, float scale, float p, float inv, int seed_,
+                      int offset, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  const sn::DropSeed seed(seed_, offset);
   if (dtype == sn::kF32) {
     if (head_dim > sn::kMhsaMaxHeadDim) return cudaErrorInvalidValue;
     return sn::mhsa_bwd_impl(qkv, g, dqkv, stats, bs, n, heads, head_dim, scale, p, inv, seed,

@@ -56,7 +56,7 @@ struct FfnHidden {
 
 template <typename T>
 __device__ __forceinline__ FfnHidden ffn_hidden(float acc, const T* b1, long row, int col, int f,
-                                                float p, float inv_t, uint32_t h0) {
+                                                float p, float inv_t, DropKey h0) {
   FfnHidden v;
   v.h = Num<T>::round(Num<T>::round(acc) + Num<T>::load(b1, col));
   v.a_used = Num<T>::round(gelu_as(v.h));
@@ -74,7 +74,7 @@ __device__ __forceinline__ FfnHidden ffn_hidden(float acc, const T* b1, long row
 // mask applied by selects, no branch. The same numbers as ffn_hidden.
 template <typename T>
 __device__ __forceinline__ FfnHidden ffn_hidden_sel(float acc, float bias, long row, int col,
-                                                    int f, float p, float inv_t, uint32_t h0) {
+                                                    int f, float p, float inv_t, DropKey h0) {
   FfnHidden v;
   v.h = Num<T>::round(Num<T>::round(acc) + bias);
   const float a = Num<T>::round(gelu_as(v.h));
@@ -141,7 +141,7 @@ __device__ __forceinline__ int2 ffn_tc_out_coord(int nt, int half, int lane) {
 template <int DIM, int RT>
 __device__ __forceinline__ void ffn_tc_chunks(const bf16* a, bf16* stages, bf16* act,
                                               const bf16* w1, const bf16* b1, const bf16* w2,
-                                              long row0, int f, float p, float inv_t, uint32_t h0,
+                                              long row0, int f, float p, float inv_t, DropKey h0,
                                               float (&oacc)[FfnTcLayout<DIM, RT>::kOutTiles][4]) {
   using S = FfnTcSmem<DIM, RT>;
   using L = FfnTcLayout<DIM, RT>;

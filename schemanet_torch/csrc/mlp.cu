@@ -106,7 +106,7 @@ template <typename T, int kDim>
 __device__ __forceinline__ void mlp_hidden_bwd(const float* xs, const float* gs, const T* w1,
                                                const T* b1, const T* w2, int f, int f0,
                                                long row0, int rows_here, float p, float inv,
-                                               float inv_t, uint32_t h0, float* bs, float* as,
+                                               float inv_t, DropKey h0, float* bs, float* as,
                                                float* hs) {
   constexpr int TM = 2, TN = 4;
   float acc_h[TM][TN] = {}, acc_d[TM][TN] = {};
@@ -143,7 +143,7 @@ template <typename T, int TN2>
 __global__ void __launch_bounds__(kThreads)
     mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
                    const T* __restrict__ w2, const T* __restrict__ b2, T* __restrict__ out,
-                   int rows, int f, float p, float inv, int seed) {
+                   int rows, int f, float p, float inv, DropSeed seed) {
   constexpr int dim = 32 * TN2;
   extern __shared__ float smem[];
   float* xs = smem;                  // [BM][dim]
@@ -151,7 +151,7 @@ __global__ void __launch_bounds__(kThreads)
   float* bs = hs + kMlpBM * kMlpFC;  // weight chunks
   const long row0 = (long)blockIdx.x * kMlpBM;
   const int rows_here = min(kMlpBM, rows - (int)row0);
-  const uint32_t h0 = drop_stream(seed, 0);
+  const DropKey h0 = drop_key(seed);
   const float inv_t = Num<T>::round(inv);
   load_rows<T>(x, row0, rows_here, dim, xs);
   __syncthreads();
@@ -200,7 +200,7 @@ template <typename T, int TN2>
 __global__ void __launch_bounds__(kThreads)
     mlp_dx_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
                   const T* __restrict__ w2, const T* __restrict__ g, T* __restrict__ dx, int rows,
-                  int f, float p, float inv, int seed) {
+                  int f, float p, float inv, DropSeed seed) {
   constexpr int dim = 32 * TN2;
   extern __shared__ float smem[];
   float* xs = smem;                  // [BM][dim]
@@ -209,7 +209,7 @@ __global__ void __launch_bounds__(kThreads)
   float* bs = hs + kMlpBM * kMlpFC;  // weight chunks
   const long row0 = (long)blockIdx.x * kMlpBM;
   const int rows_here = min(kMlpBM, rows - (int)row0);
-  const uint32_t h0 = drop_stream(seed, 0);
+  const DropKey h0 = drop_key(seed);
   const float inv_t = Num<T>::round(inv);
   load_rows<T>(x, row0, rows_here, dim, xs);
   load_rows<T>(g, row0, rows_here, dim, gs);
@@ -243,7 +243,7 @@ __global__ void __launch_bounds__(kThreads)
     mlp_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
                      const T* __restrict__ w2, const T* __restrict__ g,
                      float* __restrict__ part, int rows, int f, int tiles_per_split, float p,
-                     float inv, int seed) {
+                     float inv, DropSeed seed) {
   constexpr int dim = 32 * TN2;
   constexpr int TD = dim / 16;  // dim entries per thread: 16 x 16 threads over [dim][FC]
   extern __shared__ float smem[];
@@ -256,7 +256,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tiles = (rows + kMlpBM - 1) / kMlpBM;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(tiles, t_begin + tiles_per_split);
-  const uint32_t h0 = drop_stream(seed, 0);
+  const DropKey h0 = drop_key(seed);
   const float inv_t = Num<T>::round(inv);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 
@@ -401,7 +401,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     mlp_dh_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                      const bf16* __restrict__ b1, const bf16* __restrict__ w2,
                      const bf16* __restrict__ g, bf16* __restrict__ dx, bf16* __restrict__ dh_out,
-                     bf16* __restrict__ a_out, int rows, int f, float p, float inv, int seed) {
+                     bf16* __restrict__ a_out, int rows, int f, float p, float inv, DropSeed seed) {
   using S = MlpTcSmem<DIM>;
   constexpr int P = S::kPitch, CP = kTcChunkPitch;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -413,7 +413,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wr = warp >> 1, wc = warp & 1;  // rows 16 wr..; column half wc
   const long row0 = (long)blockIdx.x * kTcRowTile;
-  const uint32_t h0 = drop_stream(seed, 0);
+  const DropKey h0 = drop_key(seed);
   const float inv_t = Num<bf16>::round(inv);
   auto w1c = [&](int c) { return wbuf + (c & 1) * (S::kRows + S::kW2); };
   auto w2c = [&](int c) { return w1c(c) + S::kRows; };
@@ -614,7 +614,7 @@ __global__ void __launch_bounds__(kThreads, DIM <= 192 ? 2 : 1)
     mlp_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                       const bf16* __restrict__ b1, const bf16* __restrict__ w2,
                       const bf16* __restrict__ b2, bf16* __restrict__ out, int rows, int f, float p,
-                      float inv, int seed) {
+                      float inv, DropSeed seed) {
   using S = FfnTcSmem<DIM, kTcRowTile>;
   using L = FfnTcLayout<DIM, kTcRowTile>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -629,7 +629,7 @@ __global__ void __launch_bounds__(kThreads, DIM <= 192 ? 2 : 1)
 
   float oacc[L::kOutTiles][4] = {};  // the warp's 16 rows x DIM/2 columns of out
   ffn_tc_chunks<DIM, kTcRowTile>(xs, stages, act, w1, b1, w2, row0, f, p, Num<bf16>::round(inv),
-                                 drop_stream(seed, 0), oacc);
+                                 drop_key(seed), oacc);
   // out = round(round(a W2^T) + b2), as the FMA route
 #pragma unroll
   for (int nt = 0; nt < L::kOutTiles; ++nt)
@@ -647,7 +647,7 @@ __global__ void __launch_bounds__(kThreads, DIM <= 192 ? 2 : 1)
 template <int DIM>
 cudaError_t mlp_fwd_tc_launch(const void* x, const void* w1, const void* b1, const void* w2,
                               const void* b2, void* out, int rows, int f, float p, float inv,
-                              int seed, cudaStream_t stream) {
+                              DropSeed seed, cudaStream_t stream) {
   const size_t bytes = FfnTcSmem<DIM, kTcRowTile>::kBytes;
   cudaError_t err = allow_smem(mlp_fwd_tc_kernel<DIM>, bytes);
   if (err != cudaSuccess) return err;
@@ -660,7 +660,7 @@ cudaError_t mlp_fwd_tc_launch(const void* x, const void* w1, const void* b1, con
 
 cudaError_t mlp_fwd_tc(const void* x, const void* w1, const void* b1, const void* w2,
                        const void* b2, void* out, int rows, int dim, int f, float p, float inv,
-                       int seed, cudaStream_t s) {
+                       DropSeed seed, cudaStream_t s) {
   if (f % 8) return cudaErrorInvalidValue;
   switch (dim) {
     case 64: return mlp_fwd_tc_launch<64>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
@@ -674,7 +674,7 @@ cudaError_t mlp_fwd_tc(const void* x, const void* w1, const void* b1, const void
 template <typename T, int TN2>
 cudaError_t mlp_fwd_launch(const void* x, const void* w1, const void* b1, const void* w2,
                            const void* b2, void* out, int rows, int f, float p, float inv,
-                           int seed, cudaStream_t stream) {
+                           DropSeed seed, cudaStream_t stream) {
   constexpr int dim = 32 * TN2;
   const size_t chunk = kMlpKC1 * (kMlpFC + 1) > kMlpKC2 * (dim + 1) ? kMlpKC1 * (kMlpFC + 1)
                                                                     : kMlpKC2 * (dim + 1);
@@ -763,7 +763,7 @@ struct EpiHidden {  // hidden[row][col] = a_used of x W1^T + b1
   T* hidden;
   int f;
   float p, inv_t;
-  uint32_t h0;
+  DropKey h0;
   __device__ __forceinline__ Col cols(int col, bool in) const {
     return in ? load_pair(b1, col) : make_float2(0.f, 0.f);
   }
@@ -825,7 +825,7 @@ struct EpiHiddenBwd {
   T* a_used;
   int f;
   float p, inv, inv_t;
-  uint32_t h0;
+  DropKey h0;
   __device__ __forceinline__ Col cols(int col, bool in) const {
     return in ? load_pair(b1, col) : make_float2(0.f, 0.f);
   }
@@ -878,14 +878,14 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 cudaError_t mlp_fwd_wide(const void* x, const void* w1, const void* b1, const void* w2,
                          const void* b2, void* out, void* hidden, int rows, int dim, int f,
-                         float p, float inv, int seed, cudaStream_t s) {
+                         float p, float inv, DropSeed seed, cudaStream_t s) {
   if (hidden == nullptr) return cudaErrorInvalidValue;
   const T* xt = static_cast<const T*>(x);
   const T* w1t = static_cast<const T*>(w1);
   const T* w2t = static_cast<const T*>(w2);
   T* ht = static_cast<T*>(hidden);
   const EpiHidden<T> eh{static_cast<const T*>(b1), ht, f, p, host_round<T>(inv),
-                        drop_stream(seed, 0)};
+                        drop_key(seed)};
   const EpiBias<T> eb{static_cast<const T*>(b2), static_cast<T*>(out), dim};
   cudaError_t err;
   if constexpr (sizeof(T) == 2) {
@@ -1054,7 +1054,7 @@ cudaError_t mlp_wgrad_wg(const bf16* x, const bf16* g, const bf16* dh, const bf1
 template <typename T>
 cudaError_t mlp_bwd_wide(const void* x, const void* w1, const void* b1, const void* w2,
                          const void* g, void* dx, void* part, void* grads, void* hidden, void* da,
-                         int rows, int dim, int f, int splits, float p, float inv, int seed,
+                         int rows, int dim, int f, int splits, float p, float inv, DropSeed seed,
                          cudaStream_t s) {
   if (hidden == nullptr || (sizeof(T) == 4 && da == nullptr)) return cudaErrorInvalidValue;
   const T* xt = static_cast<const T*>(x);
@@ -1066,7 +1066,7 @@ cudaError_t mlp_bwd_wide(const void* x, const void* w1, const void* b1, const vo
   float* dat = static_cast<float*>(da);
   float* pt = static_cast<float*>(part);
   const EpiHiddenBwd<T> eh{static_cast<const T*>(b1), dat, dh, a, f, p, inv, host_round<T>(inv),
-                           drop_stream(seed, 0)};
+                           drop_key(seed)};
   const EpiStore<T> ex{static_cast<T*>(dx), dim};
   const long fd = (long)f * dim, stride = 2 * fd + f + dim;
   cudaError_t err;
@@ -1114,7 +1114,7 @@ inline bool mlp_wide(int dim) { return dim > 256 && dim % kHgBM == 0; }
 template <typename T, int TN2>
 cudaError_t mlp_bwd_launch(const void* x, const void* w1, const void* b1, const void* w2,
                            const void* g, void* dx, void* part, void* grads, int rows, int f,
-                           int splits, float p, float inv, int seed, cudaStream_t stream) {
+                           int splits, float p, float inv, DropSeed seed, cudaStream_t stream) {
   constexpr int dim = 32 * TN2;
   const size_t chunk = kMlpKC1 * (kMlpFC + 1) > kMlpKC2 * (dim + 1) ? kMlpKC1 * (kMlpFC + 1)
                                                                     : kMlpKC2 * (dim + 1);
@@ -1154,7 +1154,7 @@ cudaError_t mlp_bwd_launch(const void* x, const void* w1, const void* b1, const 
 template <int DIM>
 cudaError_t mlp_bwd_tc_launch(const void* x, const void* w1, const void* b1, const void* w2,
                               const void* g, void* dx, void* part, void* grads, void* hidden,
-                              int rows, int f, int splits, float p, float inv, int seed,
+                              int rows, int f, int splits, float p, float inv, DropSeed seed,
                               cudaStream_t stream) {
   bf16* dh = static_cast<bf16*>(hidden);
   bf16* a = dh + (long)rows * f;
@@ -1182,7 +1182,8 @@ cudaError_t mlp_bwd_tc_launch(const void* x, const void* w1, const void* b1, con
 
 cudaError_t mlp_bwd_tc(const void* x, const void* w1, const void* b1, const void* w2,
                        const void* g, void* dx, void* part, void* grads, void* hidden, int rows,
-                       int dim, int f, int splits, float p, float inv, int seed, cudaStream_t s) {
+                       int dim, int f, int splits, float p, float inv, DropSeed seed,
+                       cudaStream_t s) {
   if (f % 8 || hidden == nullptr) return cudaErrorInvalidValue;
   switch (dim) {
     case 64:
@@ -1203,7 +1204,7 @@ cudaError_t mlp_bwd_tc(const void* x, const void* w1, const void* b1, const void
 
 cudaError_t mlp_fwd_fp32(const void* x, const void* w1, const void* b1, const void* w2,
                          const void* b2, void* out, int rows, int dim, int f, float p, float inv,
-                         int seed, cudaStream_t s) {
+                         DropSeed seed, cudaStream_t s) {
   switch (dim) {
     case 64: return mlp_fwd_launch<float, 2>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
     case 128: return mlp_fwd_launch<float, 4>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
@@ -1216,7 +1217,7 @@ cudaError_t mlp_fwd_fp32(const void* x, const void* w1, const void* b1, const vo
 template <typename T>
 cudaError_t mlp_bwd_impl(const void* x, const void* w1, const void* b1, const void* w2,
                          const void* g, void* dx, void* part, void* grads, int rows, int dim,
-                         int f, int splits, float p, float inv, int seed, cudaStream_t s) {
+                         int f, int splits, float p, float inv, DropSeed seed, cudaStream_t s) {
   switch (dim) {
     case 64:
       return mlp_bwd_launch<T, 2>(x, w1, b1, w2, g, dx, part, grads, rows, f, splits, p, inv,
@@ -1238,15 +1239,17 @@ cudaError_t mlp_bwd_impl(const void* x, const void* w1, const void* b1, const vo
 
 extern "C" {
 
-// out [rows, dim]; p = 0 turns dropout off; inv = fp32(1 / (1 - p)). fp32
+// out [rows, dim]; p = 0 turns dropout off; inv = fp32(1 / (1 - p)); offset:
+// the launch's first row in the global batch (the masks' row counter). fp32
 // takes the FMA kernel, bf16 the tensor-core one (f a multiple of 8; x, w1
 // and w2 16-byte aligned), at widths 64-256; past 256 (a multiple of 128)
 // both take the wide route, with hidden a scratch of rows f in the storage
 // type (unused, may be null, at the narrower widths).
 int sn_fused_mlp(int dtype, const void* x, const void* w1, const void* b1, const void* w2,
                  const void* b2, void* out, void* hidden, int rows, int dim, int f, float p,
-                 float inv, int seed, void* stream) {
+                 float inv, int seed_, int offset, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  const sn::DropSeed seed(seed_, offset);
   if (sn::mlp_wide(dim)) {
     if (dtype == sn::kF32)
       return sn::mlp_fwd_wide<float>(x, w1, b1, w2, b2, out, hidden, rows, dim, f, p, inv, seed,
@@ -1271,9 +1274,10 @@ int sn_fused_mlp(int dtype, const void* x, const void* w1, const void* b1, const
 // (may be null), the splits cut the rows in steps of 64.
 int sn_fused_mlp_bwd(int dtype, const void* x, const void* w1, const void* b1, const void* w2,
                      const void* g, void* dx, void* part, void* grads, void* hidden, void* da,
-                     int rows, int dim, int f, int splits, float p, float inv, int seed,
-                     void* stream) {
+                     int rows, int dim, int f, int splits, float p, float inv, int seed_,
+                     int offset, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  const sn::DropSeed seed(seed_, offset);
   if (sn::mlp_wide(dim)) {
     if (dtype == sn::kF32)
       return sn::mlp_bwd_wide<float>(x, w1, b1, w2, g, dx, part, grads, hidden, da, rows, dim, f,

@@ -41,8 +41,11 @@ the device on a side CUDA stream, and the consumer's stream waits on that
 copy's event before it reads the batch. On the CPU it only wraps the arrays
 as tensors.
 
-One process: ``process_index``/``process_count`` default to 0/1 (several
-processes are queue A's multi-GPU item).
+``process_index``/``process_count`` (0/1 by default) give a rank of a
+grid its data slice: rows ``process_index * local .. + local`` of every
+global batch, ``local = batch_size / process_count``. A grid's ranks pass
+their ``data_index`` and ``data`` (``parallel/mesh.py``), so the ranks of
+one model group read the same slice.
 """
 
 from __future__ import annotations
@@ -322,7 +325,7 @@ def device_prefetch(iterator: Iterator[Dict[str, np.ndarray]], device,
 
 
 def _loader(dataset, data_cfg: Dict[str, Any], block: Dict[str, Any], split: str, train: bool,
-            seed: int) -> DataLoader:
+            seed: int, process_index: int = 0, process_count: int = 1) -> DataLoader:
     return DataLoader(
         dataset,
         batch_size=block["batch_size"],
@@ -334,30 +337,38 @@ def _loader(dataset, data_cfg: Dict[str, Any], block: Dict[str, Any], split: str
         mean=data_cfg.get("mean", DEFAULT_MEAN),
         std=data_cfg.get("std", DEFAULT_STD),
         num_workers=block.get("num_workers", 8),
+        process_index=process_index,
+        process_count=process_count,
     )
 
 
 def build_loaders(data_cfg: Dict[str, Any], train_cfg: Dict[str, Any], val_cfg: Dict[str, Any],
-                  seed: int = 0):
+                  seed: int = 0, process_index: int = 0, process_count: int = 1):
     """(train_loader, val_loader, num_classes) from the YAML's dataset,
     ``training`` and ``validation`` blocks (the reference's
     ``data/__init__.py:79-147``): the training loader shuffles and drops a
-    partial batch, the validation loader pads it."""
+    partial batch, the validation loader pads it. Both give the data slice
+    ``process_index`` of ``process_count``."""
     from .datasets import get_dataset
 
     train_set = get_dataset(data_cfg, "train")
     val_set = get_dataset(data_cfg, "val")
-    return (_loader(train_set, data_cfg, train_cfg, "train", True, seed),
-            _loader(val_set, data_cfg, val_cfg, "val", False, seed), train_set.num_classes)
+    return (_loader(train_set, data_cfg, train_cfg, "train", True, seed, process_index,
+                    process_count),
+            _loader(val_set, data_cfg, val_cfg, "val", False, seed, process_index, process_count),
+            train_set.num_classes)
 
 
-def build_eval_loader(data_cfg: Dict[str, Any], val_cfg: Dict[str, Any], seed: int = 0):
+def build_eval_loader(data_cfg: Dict[str, Any], val_cfg: Dict[str, Any], seed: int = 0,
+                      process_index: int = 0, process_count: int = 1):
     """(val_loader, num_classes): the validation split in order, padded
-    (the reference's ``build_eval_dataloader``)."""
+    (the reference's ``build_eval_dataloader``), data slice
+    ``process_index`` of ``process_count``."""
     from .datasets import get_dataset
 
     val_set = get_dataset(data_cfg, "val")
-    return _loader(val_set, data_cfg, val_cfg, "val", False, seed), val_set.num_classes
+    return (_loader(val_set, data_cfg, val_cfg, "val", False, seed, process_index, process_count),
+            val_set.num_classes)
 
 
 def build_adv_loader(data_cfg: Dict[str, Any], val_cfg: Dict[str, Any], seed: int = 0):

@@ -17,6 +17,7 @@ from torch import nn
 
 from ..ops.kernels import attention as ak
 from ..ops.kernels.encoder_block import dense
+from ..parallel.mesh import gathered
 
 
 def dot_product_attention(
@@ -44,19 +45,21 @@ class MultiHeadSelfAttention(nn.Module):
 
     def forward(self, seq: torch.Tensor):
         bs, n, _ = seq.shape
-        qkv = dense(seq, self.linear_qkv.weight, self.linear_qkv.bias)
+        qkv = dense(seq, gathered(self.linear_qkv.weight), gathered(self.linear_qkv.bias))
         qkv = qkv.reshape(bs, n, 3, self.num_heads, self.embed_dim // self.num_heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)  # each [bs, H, n, d]
         out, attn, attn_raw = dot_product_attention(q, k, v)
         out = out.transpose(1, 2).reshape(bs, n, self.embed_dim)
-        return dense(out, self.linear_out.weight, self.linear_out.bias), attn, attn_raw
+        return dense(out, gathered(self.linear_out.weight), self.linear_out.bias), attn, attn_raw
 
-    def fused(self, seq: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
+    def fused(self, seq: torch.Tensor, seed: Optional[int] = None, item0: int = 0
+              ) -> torch.Tensor:
         """The training path: the qkv projection (flax Dense semantics), then
         ``fused_mhsa`` (its plain version on the CPU) on the untouched
         ``(3, H, d)`` layout, then the out projection; attention dropout live
-        when a seed is given."""
-        qkv = dense(seq, self.linear_qkv.weight, self.linear_qkv.bias)
+        when a seed is given, the items being items ``item0 ..`` of the
+        global batch."""
+        qkv = dense(seq, gathered(self.linear_qkv.weight), gathered(self.linear_qkv.bias))
         p = self.dropout if seed is not None else 0.0
-        out = ak.fused_mhsa(qkv, self.num_heads, p, seed)
-        return dense(out, self.linear_out.weight, self.linear_out.bias)
+        out = ak.fused_mhsa(qkv, self.num_heads, p, seed, item0)
+        return dense(out, gathered(self.linear_out.weight), self.linear_out.bias)

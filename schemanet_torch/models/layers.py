@@ -7,7 +7,13 @@ stored in fp32 and cast to the module's compute dtype at use, like flax's
 
 Dropout takes its randomness from a ``DropoutRNG`` that the caller owns and
 passes in (the counterpart of flax's ``make_rng("dropout")``): nothing here
-reads PyTorch's global generator.
+reads PyTorch's global generator. On a data-parallel grid the generator
+is the same on every rank and ``DropoutRNG.rows`` says which rows of the
+global batch this rank holds: masks are drawn for the global batch and each
+rank takes its rows, so the grid drops what one process would.
+
+Weights held as shards on a grid's model axis (``parallel/mesh.py``) are
+gathered (``gathered``) before each use.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from torch import nn
 from ..ops.kernels import mlp as mk
 from ..ops.kernels.dropmask import SEED_HIGH
 from ..ops.kernels.encoder_block import dense
+from ..parallel.mesh import gathered
 
 ACTIVATIONS = {
     "relu": F.relu,
@@ -79,6 +86,13 @@ class DropoutRNG:
 
     seeds: torch.Generator
     masks: torch.Generator
+    # (first item, items of the global batch) of a data-parallel rank's
+    # slice; None: the batch is the global one
+    rows: Optional[Tuple[int, int]] = None
+
+    @property
+    def item0(self) -> int:
+        return 0 if self.rows is None else self.rows[0]
 
     def kernel_seed(self) -> int:
         """A seed in [0, 2^31 - 1), as the JAX package draws one per kernel call."""
@@ -88,15 +102,23 @@ class DropoutRNG:
 class Dropout(nn.Module):
     """flax ``nn.Dropout``: keep with probability 1 - rate, kept values
     divided by 1 - rate in x's dtype; the mask drawn from an explicit
-    generator on x's device."""
+    generator on x's device. With ``rows`` (``DropoutRNG.rows``) x holds
+    items ``rows[0] ..`` of a batch of ``rows[1]``: the mask is drawn for the
+    whole batch and x takes its rows."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        if rows is None:
+            u = torch.rand(x.shape, generator=generator, device=x.device)
+        else:
+            u = torch.rand((rows[1], *x.shape[1:]), generator=generator, device=x.device)
+            u = u[rows[0]:rows[0] + x.shape[0]]
+        keep = u < keep_prob
         return torch.where(keep, x / torch.tensor(keep_prob, dtype=x.dtype), 0.0)
 
 
@@ -115,7 +137,7 @@ class LearnablePosEncoding(nn.Module):
         if self.drop is not None and not deterministic:
             if rng is None:
                 raise ValueError("a training forward with dropout needs a DropoutRNG")
-            seq = self.drop(seq, rng.masks)
+            seq = self.drop(seq, rng.masks, rng.rows)
         return seq
 
 
@@ -131,12 +153,15 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The plain deterministic path (frozen forwards on the CPU)."""
-        h = get_activation(self.activation)(dense(x, self.linear1.weight, self.linear1.bias))
-        return dense(h, self.linear2.weight, self.linear2.bias)
+        l1, l2 = self.linear1, self.linear2
+        h = get_activation(self.activation)(dense(x, gathered(l1.weight), gathered(l1.bias)))
+        return dense(h, gathered(l2.weight), l2.bias)
 
-    def fused(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
+    def fused(self, x: torch.Tensor, seed: Optional[int] = None, row0: int = 0) -> torch.Tensor:
         """The training path through ``fused_mlp`` (its plain version on the
-        CPU); dropout live when a seed is given."""
+        CPU); dropout live when a seed is given, x's rows being rows
+        ``row0 ..`` of the global batch."""
         p = self.dropout if seed is not None else 0.0
-        return mk.fused_mlp(x, self.linear1.weight, self.linear1.bias, self.linear2.weight,
-                            self.linear2.bias, self.activation, p, seed)
+        l1, l2 = self.linear1, self.linear2
+        return mk.fused_mlp(x, gathered(l1.weight), gathered(l1.bias), gathered(l2.weight),
+                            l2.bias, self.activation, p, seed, row0)

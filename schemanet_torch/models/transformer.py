@@ -23,7 +23,10 @@ Training forward (``deterministic=False``), as stage 0 runs it:
 ``fused_layernorm``, ``fused_mhsa`` (attention dropout in the kernel),
 residual dropout, ``fused_layernorm``, ``fused_mlp`` (FFN dropout in the
 kernel), residual dropout; differentiable through the kernels' backward
-kernels. Dropout draws from the caller's ``DropoutRNG``. The final norm is
+kernels. Dropout draws from the caller's ``DropoutRNG``; on a data-parallel
+grid each rank's masks are the global batch's for its items (the kernels'
+streams and rows offset by its first item, the residual masks drawn for the
+global batch). The final norm is
 ``fused_layernorm`` in both forwards.
 """
 
@@ -36,6 +39,7 @@ from torch import nn
 
 from ..ops.kernels import encoder_block as eb
 from ..ops.kernels import layernorm as lnk
+from ..parallel.mesh import gathered
 from .attention import MultiHeadSelfAttention
 from .layers import MLP, Dropout, DropoutRNG
 
@@ -82,12 +86,13 @@ class EncoderLayer(nn.Module):
         if live and rng is None:
             raise ValueError("a training forward with dropout needs a DropoutRNG")
         n1, n2 = self.norm1, self.norm2
+        item0 = rng.item0 if live else 0
         x = self.attention.fused(lnk.fused_layernorm(seq, n1.weight, n1.bias, self.norm_eps),
-                                 rng.kernel_seed() if live else None)
-        seq = seq + (self.drop(x, rng.masks) if live else x)
+                                 rng.kernel_seed() if live else None, item0)
+        seq = seq + (self.drop(x, rng.masks, rng.rows) if live else x)
         x = self.mlp.fused(lnk.fused_layernorm(seq, n2.weight, n2.bias, self.norm_eps),
-                           rng.kernel_seed() if live else None)
-        return seq + (self.drop(x, rng.masks) if live else x)
+                           rng.kernel_seed() if live else None, item0 * seq.shape[1])
+        return seq + (self.drop(x, rng.masks, rng.rows) if live else x)
 
     def _block_forward(self, seq, capture_hmean):
         """Whole-layer fusion: the attention half and the FFN half are one
@@ -96,8 +101,8 @@ class EncoderLayer(nn.Module):
             raise ValueError(f"the ffn_block kernel computes gelu, not {self.activation}")
         a, m = self.attention, self.mlp
         out = eb.attn_block(
-            seq, self.norm1.weight, self.norm1.bias,
-            a.linear_qkv.weight, a.linear_qkv.bias, a.linear_out.weight, a.linear_out.bias,
+            seq, self.norm1.weight, self.norm1.bias, gathered(a.linear_qkv.weight),
+            gathered(a.linear_qkv.bias), gathered(a.linear_out.weight), a.linear_out.bias,
             self.num_heads, eps=self.norm_eps, capture_hmean=capture_hmean,
         )
         probes = {}
@@ -105,7 +110,8 @@ class EncoderLayer(nn.Module):
             out, probes["attn_hmean"] = out
         out = eb.ffn_block(
             out, self.norm2.weight, self.norm2.bias,
-            m.linear1.weight, m.linear1.bias, m.linear2.weight, m.linear2.bias,
+            gathered(m.linear1.weight), gathered(m.linear1.bias), gathered(m.linear2.weight),
+            m.linear2.bias,
             eps=self.norm_eps,
         )
         probes["out"] = out

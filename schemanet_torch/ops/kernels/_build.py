@@ -12,6 +12,7 @@ first reaches a kernel, and a machine without ``nvcc`` fails there, loudly.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -38,10 +39,10 @@ _SIGNATURES = {
     "sn_embed_grad": [_I, _I] + [_P] * 6 + [_L, _I, _I, _P],
     "sn_ffn_ln_rows": [_P] * 4 + [_L, _I, _F, _P],
     "sn_adamw_project_rows": [_P] * 4 + [_I, _I, _L, _I, _I, _I, _I] + [_F] * 9 + [_P],
-    "sn_fused_mhsa": [_I, _P, _P] + [_I] * 4 + [_F] * 3 + [_I, _P],
-    "sn_fused_mhsa_bwd": [_I] + [_P] * 4 + [_I] * 4 + [_F] * 3 + [_I, _P],
-    "sn_fused_mlp": [_I] + [_P] * 7 + [_I] * 3 + [_F, _F, _I, _P],
-    "sn_fused_mlp_bwd": [_I] + [_P] * 10 + [_I] * 4 + [_F, _F, _I, _P],
+    "sn_fused_mhsa": [_I, _P, _P] + [_I] * 4 + [_F] * 3 + [_I, _I, _P],
+    "sn_fused_mhsa_bwd": [_I] + [_P] * 4 + [_I] * 4 + [_F] * 3 + [_I, _I, _P],
+    "sn_fused_mlp": [_I] + [_P] * 7 + [_I] * 3 + [_F, _F, _I, _I, _P],
+    "sn_fused_mlp_bwd": [_I] + [_P] * 10 + [_I] * 4 + [_F, _F, _I, _I, _P],
     "sn_vq_assign": [_I] + [_P] * 5 + [_I] * 4 + [_P],
     "sn_layernorm_fwd": [_I] + [_P] * 4 + [_L, _I, _F, _I, _P],
     "sn_layernorm_bwd": [_I, _I] + [_P] * 7 + [_L, _I, _F, _I, _P],
@@ -118,13 +119,20 @@ def _compile(out: Path) -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, compiled first if this source hash has no build."""
+    """The loaded kernel library, compiled first if this source hash has no
+    build. Processes that find no build take turns on a file lock, so the
+    ranks of a grid compile it once (the launcher builds it before spawning
+    them)."""
     global _lib
     with _lock:
         if _lib is None:
             path = library_path()
             if not path.exists():
-                _compile(path)
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                with open(BUILD_DIR / ".build.lock", "w") as lock:
+                    fcntl.flock(lock, fcntl.LOCK_EX)
+                    if not path.exists():
+                        _compile(path)
             lib = ctypes.CDLL(str(path))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

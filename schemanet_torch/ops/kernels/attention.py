@@ -10,7 +10,9 @@ bounds them on the card and how their design answers it.
 fused qkv projection (``[bs, n, (3, H, d)]``) and returns ``[bs, n, H * d]``.
 Attention dropout keeps element (i, j) of (item, head) by the hash mask of
 ``dropmask.py``, stream ``item * H + head``, so the backward regenerates the
-forward's mask instead of storing it. It is a ``torch.autograd.Function``
+forward's mask instead of storing it. A launch over items ``item0 ..`` of a
+larger batch (a data-parallel rank's slice) takes the streams of those items,
+so its masks are the whole batch's for its rows. It is a ``torch.autograd.Function``
 whose backward is the backward kernel; it saves only qkv.
 
 Numerics follow the TPU kernels: q scaled in its own dtype, scores and
@@ -75,14 +77,16 @@ def _split(qkv: torch.Tensor, num_heads: int):
     return x[0], x[1], x[2], 1.0 / d**0.5
 
 
-def _keep_mask(seed: int, bs: int, num_heads: int, n: int, dropout_p: float, device):
-    """[bs, H, n, n] keep mask of every (item, head) stream."""
-    streams = torch.arange(bs * num_heads, dtype=torch.int64, device=device)
+def _keep_mask(seed: int, bs: int, num_heads: int, n: int, dropout_p: float, device,
+               item0: int = 0):
+    """[bs, H, n, n] keep mask of every (item, head) stream, items from ``item0``."""
+    streams = torch.arange(item0 * num_heads, (item0 + bs) * num_heads, dtype=torch.int64,
+                           device=device)
     return hash_keep_mask(seed, streams.view(bs, num_heads), (n, n), dropout_p)
 
 
 def fused_mhsa_reference(qkv: torch.Tensor, num_heads: int, dropout_p: float = 0.0,
-                         seed: Optional[int] = None) -> torch.Tensor:
+                         seed: Optional[int] = None, item0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the ``fused_mhsa`` forward, differentiable by
     autograd: [bs, n, 3*H*d] -> [bs, n, H*d] in qkv.dtype."""
     q, k, v, scale = _split(qkv, num_heads)
@@ -90,14 +94,15 @@ def fused_mhsa_reference(qkv: torch.Tensor, num_heads: int, dropout_p: float = 0
     q = q * torch.tensor(scale, dtype=qkv.dtype)
     s = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)), dim=-1)
     if dropout_p:
-        keep = _keep_mask(seed, bs, heads, n, dropout_p, qkv.device)
+        keep = _keep_mask(seed, bs, heads, n, dropout_p, qkv.device, item0)
         s = torch.where(keep, s * torch.tensor(keep_scale(dropout_p), dtype=torch.float32), 0.0)
     out = torch.matmul(s.to(qkv.dtype).float(), v.float()).to(qkv.dtype)  # [bs, H, n, d]
     return out.transpose(1, 2).reshape(bs, n, heads * d)
 
 
 def fused_mhsa_bwd_reference(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
-                             dropout_p: float = 0.0, seed: Optional[int] = None) -> torch.Tensor:
+                             dropout_p: float = 0.0, seed: Optional[int] = None,
+                             item0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the ``fused_mhsa`` backward: dqkv
     [bs, n, 3*H*d] of the output cotangent ``g`` [bs, n, H*d], rounded where
     the TPU kernel rounds."""
@@ -109,7 +114,7 @@ def fused_mhsa_bwd_reference(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
     s = torch.softmax(torch.matmul(q_s.float(), k.float().transpose(-1, -2)), dim=-1)
     da = torch.matmul(g_h, v.float().transpose(-1, -2))  # dattn_used
     if dropout_p:
-        keep = _keep_mask(seed, bs, heads, n, dropout_p, qkv.device)
+        keep = _keep_mask(seed, bs, heads, n, dropout_p, qkv.device, item0)
         inv = torch.tensor(keep_scale(dropout_p), dtype=torch.float32)
         a_lp = torch.where(keep, s * inv, 0.0).to(dt)
         da = torch.where(keep, da * inv, 0.0)
@@ -140,15 +145,16 @@ def _check_qkv(name: str, qkv: torch.Tensor, num_heads: int):
     return bs, n, d, route
 
 
-def _mhsa_forward(qkv: torch.Tensor, num_heads: int, dropout_p: float, seed: Optional[int]):
+def _mhsa_forward(qkv: torch.Tensor, num_heads: int, dropout_p: float, seed: Optional[int],
+                  item0: int = 0):
     """The forward alone: the kernel on CUDA, the plain version on the CPU."""
     if qkv.device.type == "cpu":
-        return fused_mhsa_reference(qkv, num_heads, dropout_p, seed)
+        return fused_mhsa_reference(qkv, num_heads, dropout_p, seed, item0)
     bs, n, d, route = _check_qkv("fused_mhsa", qkv, num_heads)
     out = torch.empty((bs, n, num_heads * d), dtype=qkv.dtype, device=qkv.device)
     err = _build.library().sn_fused_mhsa(
         _DTYPES[qkv.dtype], qkv.data_ptr(), out.data_ptr(), bs, n, num_heads, d,
-        1.0 / d**0.5, *kernel_dropout_args(dropout_p, seed), _stream(),
+        1.0 / d**0.5, *kernel_dropout_args(dropout_p, seed), item0 * num_heads, _stream(),
     )
     _build.check(err, "fused_mhsa")
     fused_mhsa.launches += 1
@@ -158,12 +164,12 @@ def _mhsa_forward(qkv: torch.Tensor, num_heads: int, dropout_p: float, seed: Opt
 
 
 def fused_mhsa_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, dropout_p: float = 0.0,
-                   seed: Optional[int] = None) -> torch.Tensor:
+                   seed: Optional[int] = None, item0: int = 0) -> torch.Tensor:
     """dqkv [bs, n, 3*H*d] of ``fused_mhsa(qkv, ...)`` for the output
     cotangent ``g`` [bs, n, H*d]: the kernel on CUDA, the plain version on
     the CPU."""
     if qkv.device.type == "cpu":
-        return fused_mhsa_bwd_reference(qkv, g, num_heads, dropout_p, seed)
+        return fused_mhsa_bwd_reference(qkv, g, num_heads, dropout_p, seed, item0)
     bs, n, d, route = _check_qkv("fused_mhsa_bwd", qkv, num_heads)
     _check("g", g, qkv.dtype, (bs, n, num_heads * d))
     if route == TENSOR_CORE and g.data_ptr() % 16:
@@ -172,7 +178,8 @@ def fused_mhsa_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, dropout_p
     stats = torch.empty((bs, num_heads, n, 3), dtype=torch.float32, device=qkv.device)
     err = _build.library().sn_fused_mhsa_bwd(
         _DTYPES[qkv.dtype], qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-        bs, n, num_heads, d, 1.0 / d**0.5, *kernel_dropout_args(dropout_p, seed), _stream(),
+        bs, n, num_heads, d, 1.0 / d**0.5, *kernel_dropout_args(dropout_p, seed),
+        item0 * num_heads, _stream(),
     )
     _build.check(err, "fused_mhsa_bwd")
     fused_mhsa_bwd.launches += 1
@@ -183,25 +190,26 @@ def fused_mhsa_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, dropout_p
 
 class _FusedMhsa(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, qkv, num_heads, dropout_p, seed):
+    def forward(ctx, qkv, num_heads, dropout_p, seed, item0):
         ctx.save_for_backward(qkv)
-        ctx.args = (num_heads, dropout_p, seed)
-        return _mhsa_forward(qkv, num_heads, dropout_p, seed)
+        ctx.args = (num_heads, dropout_p, seed, item0)
+        return _mhsa_forward(qkv, num_heads, dropout_p, seed, item0)
 
     @staticmethod
     def backward(ctx, g):
         (qkv,) = ctx.saved_tensors
-        return fused_mhsa_bwd(qkv, g.contiguous(), *ctx.args), None, None, None
+        return fused_mhsa_bwd(qkv, g.contiguous(), *ctx.args), None, None, None, None
 
 
 def fused_mhsa(qkv: torch.Tensor, num_heads: int, dropout_p: float = 0.0,
-               seed: Optional[int] = None) -> torch.Tensor:
+               seed: Optional[int] = None, item0: int = 0) -> torch.Tensor:
     """Attention of every head on the fused qkv ``[bs, n, 3*H*d]`` (float32 or
     bfloat16) -> ``[bs, n, H*d]``; differentiable in qkv. With
-    ``dropout_p > 0``, attention dropout keyed on the int32 ``seed``."""
+    ``dropout_p > 0``, attention dropout keyed on the int32 ``seed``, the
+    items being items ``item0 ..`` of the global batch."""
     if dropout_p and seed is None:
         raise ValueError("fused_mhsa: dropout needs a seed")
-    return _FusedMhsa.apply(qkv, num_heads, float(dropout_p), seed)
+    return _FusedMhsa.apply(qkv, num_heads, float(dropout_p), seed, int(item0))
 
 
 fused_mhsa.launches = fused_mhsa.tc_launches = 0

@@ -9,8 +9,9 @@ them on the card and how their design answers it.
 ``drop(act(x W1^T + b1)) W2^T + b2`` on ``x [bs, n, dim]`` with weights in
 ``nn.Linear`` layout (``w1 [f, dim]``, ``w2 [dim, f]``). FFN dropout keeps
 hidden element (row, col) by the hash mask of ``dropmask.py``, stream 0, the
-absolute row of the flattened ``bs * n`` rows and ``cols = f``, so the
-backward regenerates the forward's mask. It is a ``torch.autograd.Function``
+absolute row of the flattened ``bs * n`` rows (plus ``row0``, the call's
+first row in the global batch of a data-parallel grid) and ``cols = f``, so
+the backward regenerates the forward's mask. It is a ``torch.autograd.Function``
 whose backward is the backward kernel; the forward never stores the
 ``[rows, f]`` hidden state.
 
@@ -177,8 +178,9 @@ def mlp_route(dtype: torch.dtype, dim: int, f: int) -> str:
     return TENSOR_CORE
 
 
-def _keep_mask(seed: int, rows: int, f: int, dropout_p: float, device) -> torch.Tensor:
-    return hash_keep_mask(seed, 0, (rows, f), dropout_p, device=device)
+def _keep_mask(seed: int, rows: int, f: int, dropout_p: float, device, row0: int = 0
+               ) -> torch.Tensor:
+    return hash_keep_mask(seed, 0, (rows, f), dropout_p, row_offset=row0, device=device)
 
 
 def _hidden(x2, w1, b1, activation):
@@ -190,7 +192,7 @@ def _hidden(x2, w1, b1, activation):
 
 
 def fused_mlp_reference(x, w1, b1, w2, b2, activation: str = "gelu", dropout_p: float = 0.0,
-                        seed: Optional[int] = None) -> torch.Tensor:
+                        seed: Optional[int] = None, row0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the ``fused_mlp`` forward, differentiable by
     autograd: x [..., dim] -> [..., dim] in x.dtype (weights cast to it)."""
     dt, dim = x.dtype, x.shape[-1]
@@ -198,14 +200,15 @@ def fused_mlp_reference(x, w1, b1, w2, b2, activation: str = "gelu", dropout_p: 
     x2 = x.reshape(-1, dim)
     _, a = _hidden(x2, w1, b1, activation)
     if dropout_p:
-        keep = _keep_mask(seed, x2.shape[0], w1.shape[0], dropout_p, x.device)
+        keep = _keep_mask(seed, x2.shape[0], w1.shape[0], dropout_p, x.device, row0)
         a = torch.where(keep, a * torch.tensor(keep_scale(dropout_p), dtype=dt), 0.0).to(dt)
     y = torch.matmul(a.float(), w2.float().t()).to(dt) + b2
     return y.reshape(x.shape)
 
 
 def fused_mlp_bwd_reference(x, w1, b1, w2, g, activation: str = "gelu", dropout_p: float = 0.0,
-                            seed: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+                            seed: Optional[int] = None, row0: int = 0
+                            ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of the ``fused_mlp`` backward: (dx, dw1, db1,
     dw2, db2) for the output cotangent g; dx in x.dtype, the weight and bias
     gradients fp32 sums rounded to x.dtype. The weights are in x.dtype."""
@@ -214,7 +217,7 @@ def fused_mlp_bwd_reference(x, w1, b1, w2, g, activation: str = "gelu", dropout_
     h, a = _hidden(x2, w1, b1, activation)
     da = torch.matmul(g2.float(), w2.float())  # [rows, f]
     if dropout_p:
-        keep = _keep_mask(seed, x2.shape[0], w1.shape[0], dropout_p, x.device)
+        keep = _keep_mask(seed, x2.shape[0], w1.shape[0], dropout_p, x.device, row0)
         a = torch.where(keep, a * torch.tensor(keep_scale(dropout_p), dtype=dt), 0.0).to(dt)
         da = torch.where(keep, da * torch.tensor(keep_scale(dropout_p), dtype=torch.float32), 0.0)
     dh = (da * gelu_as_grad(h)).to(dt).float()
@@ -247,11 +250,11 @@ def _check_aligned(name, *tensors):
                          f"not 16-byte aligned")
 
 
-def _mlp_forward(x, w1, b1, w2, b2, activation, dropout_p, seed):
+def _mlp_forward(x, w1, b1, w2, b2, activation, dropout_p, seed, row0=0):
     """The forward alone, weights in x.dtype: the kernel on CUDA, the plain
     version on the CPU."""
     if x.device.type == "cpu":
-        return fused_mlp_reference(x, w1, b1, w2, b2, activation, dropout_p, seed)
+        return fused_mlp_reference(x, w1, b1, w2, b2, activation, dropout_p, seed, row0)
     rows, dim, f = _check_mlp("fused_mlp", x, w1, b1, w2, activation)
     plan = mlp_plan(x.dtype, rows, dim, f)
     _check("b2", b2, x.dtype, (dim,))
@@ -262,7 +265,7 @@ def _mlp_forward(x, w1, b1, w2, b2, activation, dropout_p, seed):
     err = _build.library().sn_fused_mlp(
         _DTYPES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), out.data_ptr(), hidden.data_ptr() if hidden is not None else None, rows,
-        dim, f, *kernel_dropout_args(dropout_p, seed), _stream(),
+        dim, f, *kernel_dropout_args(dropout_p, seed), row0, _stream(),
     )
     _build.check(err, "fused_mlp")
     fused_mlp.launches += 1
@@ -274,11 +277,11 @@ def _mlp_forward(x, w1, b1, w2, b2, activation, dropout_p, seed):
 
 
 def fused_mlp_bwd(x, w1, b1, w2, g, activation: str = "gelu", dropout_p: float = 0.0,
-                  seed: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+                  seed: Optional[int] = None, row0: int = 0) -> Tuple[torch.Tensor, ...]:
     """(dx, dw1, db1, dw2, db2) of ``fused_mlp`` for the output cotangent g,
     weights in x.dtype: the kernels on CUDA, the plain version on the CPU."""
     if x.device.type == "cpu":
-        return fused_mlp_bwd_reference(x, w1, b1, w2, g, activation, dropout_p, seed)
+        return fused_mlp_bwd_reference(x, w1, b1, w2, g, activation, dropout_p, seed, row0)
     rows, dim, f = _check_mlp("fused_mlp_bwd", x, w1, b1, w2, activation)
     plan = mlp_plan(x.dtype, rows, dim, f)
     _check("g", g, x.dtype, x.shape)
@@ -292,7 +295,7 @@ def fused_mlp_bwd(x, w1, b1, w2, g, activation: str = "gelu", dropout_p: float =
         dx.data_ptr(), sc["part"].data_ptr(), sc["grads"].data_ptr(),
         hidden.data_ptr() if hidden is not None else None,
         da.data_ptr() if da is not None else None, rows, dim, f, plan.splits,
-        *kernel_dropout_args(dropout_p, seed), _stream(),
+        *kernel_dropout_args(dropout_p, seed), row0, _stream(),
     )
     _build.check(err, "fused_mlp_bwd")
     fused_mlp_bwd.launches += 1
@@ -307,31 +310,32 @@ def fused_mlp_bwd(x, w1, b1, w2, g, activation: str = "gelu", dropout_p: float =
 
 class _FusedMlp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, activation, dropout_p, seed):
+    def forward(ctx, x, w1, b1, w2, b2, activation, dropout_p, seed, row0):
         ctx.save_for_backward(x, w1, b1, w2)
-        ctx.args = (activation, dropout_p, seed)
-        return _mlp_forward(x, w1, b1, w2, b2, activation, dropout_p, seed)
+        ctx.args = (activation, dropout_p, seed, row0)
+        return _mlp_forward(x, w1, b1, w2, b2, activation, dropout_p, seed, row0)
 
     @staticmethod
     def backward(ctx, g):
         x, w1, b1, w2 = ctx.saved_tensors
         dx, dw1, db1, dw2, db2 = fused_mlp_bwd(x, w1, b1, w2, g.contiguous(), *ctx.args)
-        return dx, dw1, db1, dw2, db2, None, None, None
+        return dx, dw1, db1, dw2, db2, None, None, None, None
 
 
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
               b2: torch.Tensor, activation: str = "gelu", dropout_p: float = 0.0,
-              seed: Optional[int] = None) -> torch.Tensor:
+              seed: Optional[int] = None, row0: int = 0) -> torch.Tensor:
     """``drop(gelu(x W1^T + b1)) W2^T + b2`` on x [..., dim] (float32 or
     bfloat16), weights in ``nn.Linear`` layout (w1 [f, dim], w2 [dim, f]) of
     any float dtype; differentiable in x and the weights. With
-    ``dropout_p > 0``, FFN dropout keyed on the int32 ``seed``."""
+    ``dropout_p > 0``, FFN dropout keyed on the int32 ``seed``, x's rows
+    being rows ``row0 ..`` of the global batch."""
     if dropout_p and seed is None:
         raise ValueError("fused_mlp: dropout needs a seed")
     # the weights in the compute dtype, outside the kernel, as flax Dense and
     # the JAX package cast them: their gradients come back through the cast
     w1, b1, w2, b2 = (t.to(x.dtype).contiguous() for t in (w1, b1, w2, b2))
-    return _FusedMlp.apply(x, w1, b1, w2, b2, activation, float(dropout_p), seed)
+    return _FusedMlp.apply(x, w1, b1, w2, b2, activation, float(dropout_p), seed, int(row0))
 
 
 fused_mlp.launches = fused_mlp.tc_launches = fused_mlp.wide_launches = 0

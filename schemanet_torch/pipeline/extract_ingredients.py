@@ -11,19 +11,25 @@ card with room to spare.
 A loader is any re-iterable of ``{"image": NHWC, "label", "valid"?}``
 batches (numpy arrays or tensors): float images as they are, uint8 ones made
 ready on the device by the loader's ``prepare`` (``data/loader.py``
-``prepare_images``). Not ported: ``mesh`` (data-parallel
-collection), ``quant`` (the int8 backbone), and ``save_features_path`` /
-``cluster_saved_features``, which need h5py.
+``prepare_images``).
+
+On a data-parallel grid (``mesh``) each rank runs the backbone on its slice
+of every batch (its loader built with ``process_index = data_index``); the
+features are gathered over the data group in the global batch's order, and
+k-means runs on them identically on every rank, as the JAX stage's global
+arrays do. Not ported: ``quant`` (the int8 backbone), and
+``save_features_path`` / ``cluster_saved_features``, which need h5py.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import torch
 
 from ..data.loader import batch_to_device, prepare_images
 from ..ops import kmeans as kmeans_ops
+from ..parallel.mesh import Mesh, gather_data
 
 MINIBATCH = 1024  # rows of one k-means minibatch
 
@@ -41,17 +47,20 @@ def _mid_features(model, image: torch.Tensor, encode_layer: int) -> torch.Tensor
 
 
 def collect_mid_features(model, loader, encode_layer: int, max_features: int,
-                         as_iterator: bool = False):
+                         as_iterator: bool = False, mesh: Optional[Mesh] = None):
     """[n, d] chunks, one per loader batch, of the patch tokens that leave
     layer ``encode_layer`` of the ViT/DeiT ``model``, until ``max_features``
     rows; on the model's device, in its dtype. ``as_iterator`` yields the
-    chunks, otherwise they come back concatenated."""
+    chunks, otherwise they come back concatenated. With a ``mesh`` each
+    chunk is the global batch's, gathered over the data group."""
     device = next(model.parameters()).device
 
     def gen() -> Iterator[torch.Tensor]:
         seen = 0
         for batch in loader:
             flat = _mid_features(model, _image(loader, batch, device), encode_layer)
+            if mesh is not None:
+                flat = gather_data(flat, mesh)
             flat = flat[: max_features - seen]
             seen += len(flat)
             yield flat
@@ -74,13 +83,15 @@ def extract_codebook(
     lloyd_iters: int = 10,
     lloyd_sample: int = 200_000,
     generator: torch.Generator = None,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Stream features into minibatch k-means (minibatches of 1,024 cut from
     each loader batch, seeded by k-means++ from the first
     ``max(4 M, 4096)`` features), then ``lloyd_iters`` Lloyd iterations on the
     first ``lloyd_sample`` features. Returns the [M, d] fp32 centers on the
     model's device. k-means++ draws from ``generator``, or from a CPU
-    generator seeded with ``seed``."""
+    generator seeded with ``seed``. With a ``mesh``, the features of the
+    data group's global batches (``collect_mid_features``)."""
     if generator is None:
         generator = torch.Generator().manual_seed(seed)
     held: List[torch.Tensor] = []
@@ -89,7 +100,7 @@ def extract_codebook(
     def stream():
         nonlocal held_count
         for chunk in collect_mid_features(model, loader, encode_layer, max_features,
-                                          as_iterator=True):
+                                          as_iterator=True, mesh=mesh):
             if held_count < lloyd_sample:
                 take = min(len(chunk), lloyd_sample - held_count)
                 held.append(chunk[:take])

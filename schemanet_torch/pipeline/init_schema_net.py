@@ -15,7 +15,10 @@ reproduces the reference's accumulation onto the random edge init
 ``generator`` (a CPU generator seeded with 0 when None; ``jax.random`` draws
 other numbers for the same seed).
 
-Not ported: ``mesh`` (data-parallel passes).
+On a data-parallel grid (``mesh``) each rank runs both passes over its
+slice of every batch (its loader built with ``process_index = data_index``)
+and the per-label sums and counts are added over the data group once a
+pass, ``all_reduce`` in a fixed order, so every rank holds the same atlas.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch.nn.functional as F
 from ..data.loader import batch_to_device, prepare_images
 from ..device import resolve_device
 from ..ops import geometry, graph as graph_ops
+from ..parallel.mesh import Mesh, all_reduce_
 from ..schema.atlas import AtlasConfig, project_params_, trunc_normal_unit
 
 
@@ -69,13 +73,20 @@ def init_atlas(
     initial_edge_weights: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     device=None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, Any]:
     """``{"params": the four atlas tensors, "class_ingredients": [K, V_max]
     int32}``, projected as ``project_atlas_params`` leaves them, on
     ``device`` (CUDA unless the caller passes ``"cpu"``; the predictor must
     be there). ``loader`` is iterated twice; its ``set_epoch(1)`` is called
-    before pass 2 when it has one."""
-    dev = resolve_device(device)
+    before pass 2 when it has one. With a ``mesh``, on its device unless
+    ``device`` is given, the loader giving this rank's data slice."""
+    dev = resolve_device(mesh.device if mesh is not None and device is None else device)
+
+    def reduce_(*accs):
+        if mesh is not None:
+            for a in accs:
+                all_reduce_(a, mesh.data_group)
     c = atlas_cfg
     k, v_max, m = c.num_classes, c.v_max, c.num_vertices
     w_v, w_e = _attr_weights(c) if attr_init is None else attr_init
@@ -92,6 +103,7 @@ def init_atlas(
             out["ingredients"], out["attn_cls"], m, w_v, c.clamp_vertex_attn)  # [bs, M]
         _add_by_label(acc, labels, vertices * valid[:, None])
         _add_by_label(counts, labels, valid)
+    reduce_(acc, counts)
     class_vertices = acc / torch.clamp(counts, min=1.0)[:, None]
     class_vertices = class_vertices / torch.clamp(class_vertices.sum(dim=-1, keepdim=True),
                                                   min=1e-12)
@@ -111,6 +123,8 @@ def init_atlas(
             raise ValueError(f"initial_edge_weights must be {(k, v_max, v_max)}, got "
                              f"{tuple(initial_edge_weights.shape)}")
         acc_e = initial_edge_weights.to(dev, torch.float32).clone()
+        if mesh is not None and mesh.data_index:  # the init counts once in the sum
+            acc_e.zero_()
     else:
         acc_e = torch.zeros(k, v_max, v_max, device=dev)
     if hasattr(loader, "set_epoch"):
@@ -123,6 +137,7 @@ def init_atlas(
             clamp_edge_attn=c.clamp_edge_attn, remove_self_loop=c.remove_self_loop,
         )  # [bs, V_max, V_max]
         _add_by_label(acc_e, labels, edges * valid[:, None, None])
+    reduce_(acc_e)
     edge_weights = acc_e.div_(torch.clamp(counts, min=1.0)[:, None, None])
 
     params = {

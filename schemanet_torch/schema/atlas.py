@@ -13,6 +13,12 @@ emit the graph dtype (bf16 under ``graph_precision='default'``).
 
 ``project_atlas_params`` is the no-grad ``normalize()`` projection that
 training keeps the parameters on; it works on the module in place.
+
+On a grid with a model axis (``parallel/mesh.py`` ``shard_module``) each rank
+holds the vertex and edge weights of its K / model classes
+(``join_grid``): the getters return those classes' graphs and
+``class_ingredients``' rows, and ``gather_classes`` concatenates a per-class
+tensor over the model group.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from torch import nn
 from ..ops import geometry, graph as graph_ops
 from ..ops.kernels import embed_bwd as ek
 from ..ops.normalize import normalize_sum_clamp, zero_nans
+from ..parallel.mesh import Mesh, all_gather, grid_shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +101,42 @@ class SchemaAtlas(nn.Module):
         # the embedding gradient's plan of class_ingredients (sorted ids,
         # offsets, range checked), rebuilt when the buffer changes
         self.class_id_plans = ek.PlannedIds()
+        self.class_mesh: Optional[Mesh] = None  # set by join_grid
+        self._local_ingredients = (None, None)
+
+    def join_grid(self, mesh: Mesh) -> None:
+        """Where ``shard_module`` split the class axis, this rank holds the
+        classes ``class_range`` of the model axis."""
+        if grid_shard(self.vertex_weights) is not None:
+            self.class_mesh = mesh
+
+    @property
+    def class_range(self) -> Tuple[int, int]:
+        """(first, end) of the classes this module holds."""
+        k = self.cfg.num_classes
+        if self.class_mesh is None:
+            return 0, k
+        n = k // self.class_mesh.model
+        return self.class_mesh.model_index * n, (self.class_mesh.model_index + 1) * n
+
+    def gather_classes(self, t: torch.Tensor) -> torch.Tensor:
+        """A tensor of this rank's classes along dim 0 made whole over the
+        model group (differentiable); as it is when the classes are not
+        split."""
+        return t if self.class_mesh is None else all_gather(t, 0, self.class_mesh)
+
+    def local_class_ingredients(self) -> torch.Tensor:
+        """``class_ingredients``' rows of the classes this module holds: the
+        same tensor object while the buffer is unchanged, so the class
+        lookup's ``PlannedIds`` keeps its plan."""
+        ci = self.class_ingredients
+        if self.class_mesh is None:
+            return ci
+        key = (ci.data_ptr(), tuple(ci.shape), ci._version)
+        if self._local_ingredients[0] != key:
+            k0, k1 = self.class_range
+            self._local_ingredients = (key, ci[k0:k1])
+        return self._local_ingredients[1]
 
     def _out_dtype(self) -> torch.dtype:
         return graph_ops.graph_dtype(self.cfg.graph_precision)
@@ -121,7 +164,7 @@ class SchemaAtlas(nn.Module):
         return {
             "class_vertices": self.get_class_vertices(),
             "class_edges": self.get_class_edges(),
-            "class_ingredients": self.class_ingredients,
+            "class_ingredients": self.local_class_ingredients(),
         }
 
     def forward(self, ingredients: torch.Tensor, attn: torch.Tensor, attn_cls: torch.Tensor

@@ -21,6 +21,14 @@ Semantics kept from the JAX package:
   atlas's fixed ``class_ingredients`` buffer, whose sort and range check the
   atlas keeps as a plan (``PlannedIds``) while the buffer is unchanged.
 
+On a grid with a model axis (``parallel/mesh.py``) the class graphs are this
+rank's K / model classes: the matcher embeds them, gathers the class
+features ``[K, D]`` over the model group (``class_gather``) and scores the
+instances against every class; a code embedding held as row shards is
+gathered once a forward for both lookups; the training pool size, the
+batch max of the live slots, is the global batch's (a max over the data
+group).
+
 Not ported, being TPU workarounds with the same semantics as the fp32 sum:
 the JAX package's one-hot and banded-product backward routes and its
 ``StaticIds`` trace-time class ids; nor ``remat_class_gnn``, which trades
@@ -29,7 +37,7 @@ recompute for TPU memory.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -39,6 +47,7 @@ from ..ops.kernels import embed_bwd as ek
 from ..ops.kernels import encoder_block as eb
 from ..ops.kernels import graphconv as gc
 from ..ops.kernels import layernorm as lnk
+from ..parallel.mesh import Mesh, all_reduce_, gathered
 
 GNN_NORM_EPS = 1e-6  # flax nn.LayerNorm's default, which the JAX GNN uses
 
@@ -117,10 +126,13 @@ class GNN(nn.Module):
         feat_mask: Optional[torch.Tensor] = None,  # [bs, n] True = padding
         pool_size: Optional[torch.Tensor] = None,  # [bs] or scalar denominator
         id_plans: Optional[ek.PlannedIds] = None,  # of a fixed ingredients buffer
+        table: Optional[torch.Tensor] = None,  # ``self.table()``, made once for several calls
     ) -> torch.Tensor:
+        if table is None:
+            table = self.table()
         # cast the table, not the gathered rows, so the backward's fp32 sum
         # rounds once to the compute dtype (a no-op in fp32)
-        feat = embed_lookup(self.embedding.to(self.dtype), ingredients, id_plans)
+        feat = embed_lookup(table.to(self.dtype), ingredients, id_plans)
         for layer in self.layers:
             feat = layer(edges, feat, feat_mask)
         feat = feat * nodes[..., None].to(feat.dtype)
@@ -130,6 +142,11 @@ class GNN(nn.Module):
             denom = pool_size.to(feat.dtype)
         feat = feat.sum(dim=1) / (denom[..., None] if denom.ndim else denom)
         return eb.dense(feat, self.fc.weight, self.fc.bias)
+
+    def table(self) -> torch.Tensor:
+        """The embedding table, whole (gathered where it is held as row
+        shards)."""
+        return gathered(self.embedding)
 
 
 def similarity_fn(name: str):
@@ -160,14 +177,23 @@ class Matcher(nn.Module):
         self.similarity = similarity
         self.ref_pooling, self.per_sample_pooling = ref_pooling, per_sample_pooling
         self.gnn = GNN(num_codes, embed_dim, num_layers, identity_proj, activation, dtype)
+        self.grid: Optional[Mesh] = None
+
+    def join_grid(self, mesh: Mesh) -> None:
+        """On a data-parallel grid the batch max of the pooling size is the
+        global batch's: a max over the data group."""
+        self.grid = mesh
 
     def forward(self, instance: dict, atlas: dict, per_sample_pooling: Optional[bool] = None,
-                class_id_plans: Optional[ek.PlannedIds] = None) -> torch.Tensor:
+                class_id_plans: Optional[ek.PlannedIds] = None,
+                class_gather: Optional[Callable] = None) -> torch.Tensor:
         """``per_sample_pooling`` overrides the module's own setting for this
         call (None keeps it): serving passes True without changing the
         module. ``class_id_plans``: the atlas's ``PlannedIds`` of its
         ``class_ingredients``, so the class lookup's backward sorts and checks
-        those ids once, not every step."""
+        those ids once, not every step. ``class_gather``: makes the class
+        features of this rank's classes whole (the atlas's
+        ``gather_classes``)."""
         if per_sample_pooling is None:
             per_sample_pooling = self.per_sample_pooling
         pool_size = None
@@ -176,12 +202,18 @@ class Matcher(nn.Module):
             # per-sample: each sample's own live-slot count (batch invariant);
             # otherwise the batch max, the reference's training semantics
             pool_size = slots if per_sample_pooling else slots.max()
+            if not per_sample_pooling and self.grid is not None and self.grid.data > 1:
+                all_reduce_(pool_size, self.grid.data_group,
+                            torch.distributed.ReduceOp.MAX)
+        table = self.gnn.table()
         feat_instance = self.gnn(
             instance["instance_vertices"], instance["instance_edges"],
-            instance["instance_ingredients"], instance.get("feat_mask"), pool_size,
+            instance["instance_ingredients"], instance.get("feat_mask"), pool_size, table=table,
         )  # [bs, D]
         feat_kg = self.gnn(
             atlas["class_vertices"], atlas["class_edges"], atlas["class_ingredients"],
-            id_plans=class_id_plans,
-        )  # [K, D]
+            id_plans=class_id_plans, table=table,
+        )  # [K, D] (this rank's classes)
+        if class_gather is not None:
+            feat_kg = class_gather(feat_kg)
         return similarity_fn(self.similarity)(feat_instance[:, None, :], feat_kg[None, :, :])

@@ -48,12 +48,19 @@ def schema_inference_loss(re_a_vertex: float = 3.0, re_a_edge: float = 3.0, **kw
     entropy_vertex = max over classes of the vertex-row entropy;
     entropy_edge   = mean over classes of the max over rows of the edge-row
     entropy. Both run in fp32 whatever the getters emit. A max over ties
-    spreads its gradient evenly (``amax``), as ``jnp.max`` does."""
+    spreads its gradient evenly (``amax``), as ``jnp.max`` does. Where the
+    output holds a rank's classes of a grid, its ``class_gather`` makes the
+    per-class entropies whole first."""
 
     def loss_fn(output, target):
         ret = {"cls": cross_entropy(_logits(output), target["label"])}
-        entropy_vertex = entropy(output["class_vertices"].float()).amax(dim=0)
-        entropy_edge = entropy(output["class_edges"].float()).amax(dim=1).mean()
+        per_vertex = entropy(output["class_vertices"].float())  # [K]
+        per_edge = entropy(output["class_edges"].float()).amax(dim=1)  # [K]
+        gather = output.get("class_gather")
+        if gather is not None:
+            per_vertex, per_edge = gather(torch.stack([per_vertex, per_edge], dim=1)).unbind(1)
+        entropy_vertex = per_vertex.amax(dim=0)
+        entropy_edge = per_edge.mean()
         ret["entropy_vertex"] = entropy_vertex
         ret["entropy_edge"] = entropy_edge
         ret["re_entropy_vertex"] = rectify_linear(entropy_vertex, a=re_a_vertex)

@@ -121,8 +121,13 @@ class SchemaNetPredictor(nn.Module):
             output = self.ingredient_backbone(img)
         instance = self.schema_net(output["ingredients"], output["attn"], output["attn_cls"])
         atlas = self.schema_net.get_atlas()
-        pred = self.matcher(instance, atlas, per_sample_pooling, self.schema_net.class_id_plans)
+        sharded = self.schema_net.class_mesh is not None
+        gather = self.schema_net.gather_classes if sharded else None
+        pred = self.matcher(instance, atlas, per_sample_pooling, self.schema_net.class_id_plans,
+                            gather)
         ret = {"pred": pred, **atlas}
+        if sharded:  # the atlas holds this rank's classes: the loss gathers its per-class terms
+            ret["class_gather"] = gather
         if requires_graph:
             ret.update(instance)
             ret["ingredients"] = output["ingredients"]

@@ -63,6 +63,7 @@ import torch
 from torch import nn
 
 from ..models.port import jax_name
+from ..parallel.mesh import all_reduce_
 
 _GROUP_LOWMEM_KEYS = ("nu_dtype", "nu_factored_min_size", "moment_dtype")
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults, which the JAX package uses
@@ -101,14 +102,23 @@ def epoch_schedule(
     return schedule
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        sharded: Optional[Sequence[bool]] = None, mesh=None) -> torch.Tensor:
     """``optax.clip_by_global_norm`` in place: with the global norm
     ``sqrt(sum of g^2 over every gradient)`` at or above ``max_norm``, each
     gradient becomes ``(g / norm) * max_norm``; below it, none changes.
     Returns the norm as a device scalar (the test runs on the device, so the
     host does not wait). Not ``torch.nn.utils.clip_grad_norm_``, whose
-    ``+ 1e-6`` in the divisor changes the numbers."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    ``+ 1e-6`` in the divisor changes the numbers. On a grid (``mesh``)
+    ``sharded`` marks the gradients of parameters held as shards: their
+    squares are summed over the model group, and the replicated ones, the
+    same on every rank, count once."""
+    if mesh is not None and sharded is not None and any(sharded):
+        rep = sum(torch.sum(g * g) for g, s in zip(grads, sharded) if not s)
+        part = sum(torch.sum(g * g) for g, s in zip(grads, sharded) if s)
+        norm = torch.sqrt(rep + all_reduce_(part, mesh.model_group))
+    else:
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))
@@ -304,6 +314,21 @@ class ScheduledAdamW:
             state = {**state, "lowmem": self.lowmem.state_dict()}
         return state
 
+    def map_state(self, state: Dict[str, Any], fn: Callable) -> Dict[str, Any]:
+        """``state`` (of this optimizer's layout) with every moment tensor
+        ``t`` of parameter ``p`` replaced by ``fn(t, p)``: a grid's trainer
+        gathers shards' moments for a checkpoint and slices them back."""
+        out = dict(state)
+        if self.optimizer is not None:
+            params = [p for g in self.optimizer.param_groups for p in g["params"]]
+            out["state"] = {i: {k: fn(v, params[i]) if torch.is_tensor(v) and v.ndim else v
+                                for k, v in st.items()}
+                            for i, st in state["state"].items()}
+        if self.lowmem is not None:
+            out["lowmem"] = [[{k: fn(t, p) for k, t in st.items()} for p, st in zip(ps, sts)]
+                             for (_, ps), sts in zip(self.lowmem.groups, state["lowmem"])]
+        return out
+
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         state = dict(state)
         lowmem = state.pop("lowmem", None)
@@ -380,7 +405,8 @@ class CheckpointManager:
     """``iter-<n>`` checkpoints and a ``best`` copy in ``ckpt_dir``, one
     ``torch.save`` file a tag. ``max_keep`` keeps the newest N ``iter-*``
     files (``best`` and other tags are never pruned); None keeps all. One
-    process writes: the port's training runs in one."""
+    process writes: on a grid, rank 0 writes the gathered state, which is
+    the file one process would write, so it restores on any grid."""
 
     def __init__(self, ckpt_dir: str, max_keep: Optional[int] = 3):
         self.ckpt_dir = os.path.abspath(ckpt_dir)

@@ -13,19 +13,22 @@ Each moves the loader's batches to the device ahead of use
 (``device_prefetch``), resizes and normalises uint8 images there
 (``prepare_images``), runs without autograd, masks padded rows with the
 batch's ``valid`` and keeps its sums on the device: the host reads them
-once an evaluation. With ``torch.distributed`` initialised over several
-processes, each holding its shard of every batch, the sums are added over
-them first.
+once an evaluation. On a grid (``mesh``; every rank calls the evaluation)
+the sums are added over its data group only: the ranks of a model group
+hold the same data slice, so a sum over every rank would count each sample
+``model`` times. ``Evaluation``'s ``n`` is the count of samples
+evaluated.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
 from ..data.loader import device_prefetch, prepare_images
 from ..device import resolve_device
+from ..parallel.mesh import Mesh, all_reduce_
 from ..schema.loss import weighted_total
 
 
@@ -39,22 +42,24 @@ def _valid(batch, rows: int, device) -> torch.Tensor:
     return torch.ones(rows, device=device) if valid is None else valid.float()
 
 
-def _fetch(sums: torch.Tensor) -> list:
-    """The one host read of an evaluation (summed over processes first)."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        dist.all_reduce(sums)
+def _fetch(sums: torch.Tensor, mesh: Optional[Mesh] = None) -> list:
+    """The one host read of an evaluation, summed first over the grid's
+    data group."""
+    if mesh is not None:
+        all_reduce_(sums, mesh.data_group)
     return sums.double().tolist()
 
 
 class Evaluation:
     """``apply_fn(image) -> output`` (a dict with ``pred``) over
-    ``val_loader``: ``{"loss", "loss_dict", "acc": {k: fraction}}``, each the
-    mean over the valid rows (a batch's loss weighted by its valid count)."""
+    ``val_loader``: ``{"loss", "loss_dict", "acc": {k: fraction}, "n"}``, each
+    the mean over the valid rows (a batch's loss weighted by its valid
+    count), ``n`` their count."""
 
     def __init__(self, apply_fn: Callable, loss_fn: Callable, loss_weights: Dict[str, float],
-                 val_loader, top_k: Sequence[int] = (1,), device=None):
-        self.apply_fn, self.loss_fn = apply_fn, loss_fn
+                 val_loader, top_k: Sequence[int] = (1,), device=None,
+                 mesh: Optional[Mesh] = None):
+        self.apply_fn, self.loss_fn, self.mesh = apply_fn, loss_fn, mesh
         self.loss_weights = dict(loss_weights)
         self.val_loader, self.top_k = val_loader, tuple(top_k)
         self.device = resolve_device(device)
@@ -82,14 +87,15 @@ class Evaluation:
             keys, row = self._batch_sums(batch)
             sums = row if sums is None else sums + row
         if sums is None:
-            return {"loss": 0.0, "loss_dict": {}, "acc": {k: 0.0 for k in self.top_k}}
-        n, loss, *rest = _fetch(sums)
+            return {"loss": 0.0, "loss_dict": {}, "acc": {k: 0.0 for k in self.top_k}, "n": 0}
+        n, loss, *rest = _fetch(sums, self.mesh)
         counts, terms = rest[: len(self.top_k)], rest[len(self.top_k):]
-        n = max(n, 1.0)
+        count, n = int(n), max(n, 1.0)
         return {
             "loss": loss / n,
             "loss_dict": {k: v / n for k, v in zip(keys, terms)},
             "acc": {k: c / n for k, c in zip(self.top_k, counts)},
+            "n": count,
         }
 
 
@@ -100,8 +106,9 @@ class IncEvaluation:
     the task's slice of the head (labels offset into it) and over the whole
     head, and the overall accuracy."""
 
-    def __init__(self, apply_fn: Callable, val_loaders, classes_per_task, device=None):
-        self.apply_fn = apply_fn
+    def __init__(self, apply_fn: Callable, val_loaders, classes_per_task, device=None,
+                 mesh: Optional[Mesh] = None):
+        self.apply_fn, self.mesh = apply_fn, mesh
         self.val_loaders = list(val_loaders)
         self.offsets = [0]
         for n in classes_per_task:
@@ -123,7 +130,7 @@ class IncEvaluation:
                 all_ok = (pred.argmax(dim=1) == label).float()
                 sums += torch.stack([(task_ok * valid).sum(), (all_ok * valid).sum(),
                                      valid.sum()])
-            t_correct, a_correct, n = _fetch(sums)
+            t_correct, a_correct, n = _fetch(sums, self.mesh)
             per_task[task] = {"acc_task": t_correct / max(n, 1.0),
                               "acc_all": a_correct / max(n, 1.0)}
             total_correct += a_correct
@@ -137,8 +144,9 @@ class CBEvaluation:
 
     KEYS = ("acc", "acc_model", "acc_origin")
 
-    def __init__(self, classify_fn: Callable, val_loader, device=None):
-        self.classify_fn, self.val_loader = classify_fn, val_loader
+    def __init__(self, classify_fn: Callable, val_loader, device=None,
+                 mesh: Optional[Mesh] = None):
+        self.classify_fn, self.val_loader, self.mesh = classify_fn, val_loader, mesh
         self.device = resolve_device(device)
 
     def _batch_sums(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -156,5 +164,5 @@ class CBEvaluation:
         sums = torch.zeros(4, device=self.device)
         for batch in device_prefetch(iter(self.val_loader), self.device):
             sums += self._batch_sums(batch)
-        *counts, n = _fetch(sums)
+        *counts, n = _fetch(sums, self.mesh)
         return {k: c / max(n, 1.0) for k, c in zip(self.KEYS, counts)}

@@ -63,6 +63,22 @@ schedule's position) and both dropout generators' states, so ``resume`` ("auto":
 ``meta.json``) continues at the epoch after the saved one with the bits of
 an uninterrupted run. SIGTERM or SIGINT during the loop saves a checkpoint
 at the next step's end and stops.
+
+Several GPUs (``mesh``, a ``parallel.mesh.Mesh``; one process a rank): the
+trainer shards the model by the grid's rules (``shard_module``: the atlas's
+classes, the GNN embedding's rows and four backbone weights over ``model``),
+so the moments of a sharded parameter are those of its shard and
+``adamw_project_rows`` runs on the local atlas rows. Each rank takes its
+data slice of the global batch and back-propagates its loss divided by
+``model``; ``reduce_gradients`` then sums a replicated parameter's gradient
+over the model group and averages every gradient over the data group, in
+the parameters' order, so the update is the one-process update on the
+global batch. The loss terms returned are the global batch's (averaged over
+the data group). Dropout draws the global batch's masks for the rank's rows
+(``DropoutRNG.rows``), from generators seeded from ``seed`` on every rank.
+Validation sums over the data group. A checkpoint is the gathered state,
+written by rank 0 behind a barrier: the file one process writes, so it
+restores on any grid.
 """
 
 from __future__ import annotations
@@ -79,6 +95,8 @@ from ..data.loader import batch_to_device, device_prefetch, prepare_images
 from ..device import resolve_device
 from ..models.layers import DropoutRNG
 from ..ops.kernels import atlas_opt as ao
+from ..parallel.mesh import (Mesh, all_reduce_, gather_like, gather_params, grid_shard,
+                             shard_module, shard_params, slice_like)
 from ..schema.atlas import clamp_attribute_weights_, project_atlas_params
 from ..schema.loss import weighted_total
 from ..utils.logging_utils import TBWriter, process_rank
@@ -153,11 +171,17 @@ class Trainer:
                  log_dir: Optional[str] = None, ckpt_dir: Optional[str] = None,
                  resume: str = "", buffer_guard: Optional[Callable] = None,
                  extra_scalars: Optional[Callable] = None, top_k: Sequence[int] = (1, 5),
-                 name: str = "trainer"):
+                 name: str = "trainer", mesh: Optional[Mesh] = None):
         """``steps_per_epoch`` defaults to ``len(train_loader)``.
         ``buffer_guard(state_dict)`` checks a checkpoint's state before
         ``resume`` loads it; ``extra_scalars(model)`` gives the TensorBoard
-        ``Weights`` scalars of each log line."""
+        ``Weights`` scalars of each log line. ``mesh``: the grid this rank
+        trains on (its device unless ``device`` is given); the loaders
+        must give this rank's data slice."""
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            device = mesh.device
+        self.shardings = shard_module(model, mesh) if mesh is not None else {}
         self.device = resolve_device(device)
         self.logger = logging.getLogger(name)
         self.cfg, self.model = cfg, model.to(self.device)
@@ -207,7 +231,7 @@ class Trainer:
         self.tb = TBWriter(log_dir)
         self.top_k, self.extra_scalars = tuple(top_k), extra_scalars
         self.evaluation = (Evaluation(self.model, loss_fn, loss_weights, val_loader, self.top_k,
-                                      self.device) if val_loader is not None else None)
+                                      self.device, mesh) if val_loader is not None else None)
         self.epoch = self.start_epoch = 0
         self.best_acc, self.best_iter = 0.0, 0
         self.ckpt = CheckpointManager(ckpt_dir, max_keep=cfg.max_keep or None) if ckpt_dir else None
@@ -218,6 +242,9 @@ class Trainer:
 
     def forward_loss(self, batch: Dict[str, torch.Tensor]):
         """(weighted total, loss dict) of the batch's training forward."""
+        if self.mesh is not None:  # this rank's items of the global batch
+            b = batch["image"].shape[0]
+            self.rng.rows = (self.mesh.data_index * b, self.mesh.data * b)
         out = self.model(batch["image"], deterministic=False, rng=self.rng)
         loss_dict = self.loss_fn(out, {"label": batch["label"]})
         return weighted_total(loss_dict, self.loss_weights), loss_dict
@@ -227,12 +254,29 @@ class Trainer:
         for hot in self.hot.values():
             hot.param.grad = None
 
+    def reduce_gradients(self) -> None:
+        """On a grid: each replicated parameter's gradient summed over the
+        model group, then every gradient averaged over the data group, one
+        parameter after another in the model's order."""
+        m = self.mesh
+        if m is None:
+            return
+        for p in self.trainable:
+            if p.grad is None:
+                continue
+            if m.model > 1 and grid_shard(p) is None:
+                all_reduce_(p.grad, m.model_group)
+            all_reduce_(p.grad, m.data_group)
+            if m.data > 1:
+                p.grad.div_(m.data)
+
     def clip_gradients(self) -> None:
         """``clip_by_global_norm`` over every trainable gradient, when the
-        config asks for it."""
+        config asks for it (on a grid, the norm of the whole parameters)."""
         if self.cfg.clip_max_norm:
-            grads = [p.grad for p in self.trainable if p.grad is not None]
-            clip_by_global_norm(grads, float(self.cfg.clip_max_norm))
+            live = [p for p in self.trainable if p.grad is not None]
+            clip_by_global_norm([p.grad for p in live], float(self.cfg.clip_max_norm),
+                                [grid_shard(p) is not None for p in live], self.mesh)
 
     def apply_updates(self) -> None:
         """AdamW on the rest, then the fused AdamW + projection of the hot
@@ -262,10 +306,17 @@ class Trainer:
             clamp_attribute_weights_(self.atlas)
         total, loss_dict = self.forward_loss(batch)
         self.zero_grad()
-        total.backward()
+        model_ranks = self.mesh.model if self.mesh is not None else 1
+        (total / model_ranks if model_ranks > 1 else total).backward()
+        self.reduce_gradients()
         self.clip_gradients()
         self.apply_updates()
-        return {"loss": total.detach(), **{k: v.detach() for k, v in loss_dict.items()}}
+        metrics = {"loss": total.detach(), **{k: v.detach() for k, v in loss_dict.items()}}
+        if self.mesh is not None:  # the global batch's: the mean over the data group
+            stacked = all_reduce_(torch.stack([v.float() for v in metrics.values()]),
+                                  self.mesh.data_group) / self.mesh.data
+            metrics = dict(zip(metrics, stacked.unbind()))
+        return metrics
 
     # -- validation, checkpoints, resume --------------------------------------
 
@@ -283,22 +334,38 @@ class Trainer:
         return self.evaluation()
 
     def state_dict(self) -> Dict[str, Any]:
-        """Everything a resumed run needs to continue with the same bits."""
+        """Everything a resumed run needs to continue with the same bits; on
+        a grid with a model axis the shards gathered whole (a collective:
+        every rank calls it), as one process would hold them."""
+        model, opt = self.model.state_dict(), self.optimizer.state_dict()
+        hot = {name: hot.state for name, hot in self.hot.items()}
+        if self.mesh is not None and self.mesh.model > 1:
+            model = gather_params(self.mesh, model, self.shardings)
+            opt = self.optimizer.map_state(opt, gather_like)
+            hot = {name: {k: gather_like(t, h.param) for k, t in h.state.items()}
+                   for name, h in self.hot.items()}
         return {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "hot": {name: hot.state for name, hot in self.hot.items()},
+            "model": model,
+            "optimizer": opt,
+            "hot": hot,
             "step": self.step,
             "rng": {"seeds": self.rng.seeds.get_state(), "masks": self.rng.masks.get_state()},
         }
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """A ``state_dict`` (whole, as any grid writes it) onto this trainer;
+        on a grid each rank takes its shards."""
+        opt = state["optimizer"]
+        model = state["model"]
+        if self.mesh is not None:
+            model = shard_params(self.mesh, model, self.shardings)
+            opt = self.optimizer.map_state(opt, slice_like)
         with torch.no_grad():
-            self.model.load_state_dict(state["model"])
+            self.model.load_state_dict(model)
             for name, hot in self.hot.items():
                 for key, t in hot.state.items():
-                    t.copy_(state["hot"][name][key])
-        self.optimizer.load_state_dict(state["optimizer"])
+                    t.copy_(slice_like(state["hot"][name][key], hot.param))
+        self.optimizer.load_state_dict(opt)
         self.step = int(state["step"])
         self.rng.seeds.set_state(state["rng"]["seeds"])
         self.rng.masks.set_state(state["rng"]["masks"])
@@ -325,17 +392,21 @@ class Trainer:
         is_best = acc > self.best_acc
         if is_best:
             self.best_acc, self.best_iter = float(acc), it
-        if self.ckpt is not None and process_rank() == 0:
+        if self.ckpt is not None:
             tag = f"iter-{it}"
-            self.ckpt.save(tag, self.state_dict(), is_best=is_best)
-            save_metadata(self.ckpt.ckpt_dir, {
-                "epoch": self.epoch,
-                "iter": it,
-                "best_acc": self.best_acc,
-                "best_iter": self.best_iter,
-                "eval": {str(k): v for k, v in eval_dict["acc"].items()},
-                "last_tag": tag,
-            })
+            state = self.state_dict() if self.mesh is not None or process_rank() == 0 else None
+            if process_rank() == 0:
+                self.ckpt.save(tag, state, is_best=is_best)
+                save_metadata(self.ckpt.ckpt_dir, {
+                    "epoch": self.epoch,
+                    "iter": it,
+                    "best_acc": self.best_acc,
+                    "best_iter": self.best_iter,
+                    "eval": {str(k): v for k, v in eval_dict["acc"].items()},
+                    "last_tag": tag,
+                })
+            if self.mesh is not None:  # the file is whole before any rank reads it
+                torch.distributed.barrier()
         return eval_dict
 
     def resume(self, tag_or_path: str) -> None:

@@ -25,6 +25,12 @@ predictor reads the port's own bundle and atlas-init files
 ``backbone_trainer`` and ``schema_net_trainer`` are the two training
 workers' trainers without loaders, which callers that feed batches by hand
 use.
+
+Several GPUs: ``LaunchArgs.mesh_data`` and ``mesh_model`` give the grid, as
+the JAX ``LaunchArgs`` do. A grid of more than one rank, or a process that
+has joined ``torch.distributed`` (a rank the command line or ``torchrun``
+spawned), runs on ``parallel.mesh.make_mesh``'s grid: each rank's loaders
+give its data slice and the trainer or evaluator runs on the grid.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from ..data.loader import build_eval_loader, build_loaders
 from ..device import resolve_device
 from ..models.port import load_pretrain_into
 from ..models.vit import get_model
+from ..parallel.mesh import Mesh, make_mesh, shard_module
 from ..schema.loss import get_loss_fn
 from ..schema.predictor import build_predictor, init_parameters_
 from ..utils.config import resolve_subconfig
@@ -69,6 +76,26 @@ class LaunchArgs:
     resume: str = ""
     base_dir: Optional[str] = None  # for resolving config path references
     device: Optional[str] = None
+    mesh_data: Optional[int] = None  # None: every rank that mesh_model leaves
+    mesh_model: int = 1
+
+
+def worker_mesh(args: LaunchArgs) -> Optional[Mesh]:
+    """The grid a worker runs on: None for one process outside
+    ``torch.distributed`` with a grid of one, else ``make_mesh``'s."""
+    one = (args.mesh_data or 1) * args.mesh_model == 1
+    if one and not torch.distributed.is_initialized():
+        return None
+    return make_mesh(data=args.mesh_data, model=args.mesh_model, device=args.device)
+
+
+def _slice_kw(mesh: Optional[Mesh]) -> Dict[str, int]:
+    """The loader arguments of a rank's data slice."""
+    return {} if mesh is None else {"process_index": mesh.data_index, "process_count": mesh.data}
+
+
+def _device(args: LaunchArgs, mesh: Optional[Mesh]):
+    return mesh.device if mesh is not None else args.device
 
 
 def resolve_dtype(name) -> torch.dtype:
@@ -202,11 +229,13 @@ def backbone_worker(global_cfg: Dict[str, Any], args: LaunchArgs) -> Dict[str, A
     """Fine-tune the ViT/DeiT backbone (reference ``tasks/worker.py``):
     ``{"trainer", "eval" (the final validation), "model"}``."""
     data_cfg, train_cfg, val_cfg = _split_cfg(global_cfg, args)
-    train_loader, val_loader, n_classes = build_loaders(data_cfg, train_cfg, val_cfg, args.seed)
+    mesh = worker_mesh(args)
+    train_loader, val_loader, n_classes = build_loaders(data_cfg, train_cfg, val_cfg, args.seed,
+                                                        **_slice_kw(mesh))
     global_cfg = dict(global_cfg, training=train_cfg, model=model_cfg_of(global_cfg, args.base_dir))
-    trainer = backbone_trainer(global_cfg, None, seed=args.seed, device=args.device,
-                               num_classes=n_classes,
-                               train_loader=train_loader, val_loader=val_loader, **_run_dirs(args))
+    trainer = backbone_trainer(global_cfg, None, seed=args.seed, device=_device(args, mesh),
+                               num_classes=n_classes, train_loader=train_loader,
+                               val_loader=val_loader, mesh=mesh, **_run_dirs(args))
     result = trainer()
     return {"trainer": trainer, "eval": result, "model": trainer.model}
 
@@ -223,7 +252,9 @@ def schema_net_worker(global_cfg: Dict[str, Any], args: LaunchArgs) -> Dict[str,
     if args.debug:
         train_cfg.update(batch_size=1)
         val_cfg.update(batch_size=1)
-    train_loader, val_loader, n_classes = build_loaders(data_cfg, train_cfg, val_cfg, args.seed)
+    mesh = worker_mesh(args)
+    train_loader, val_loader, n_classes = build_loaders(data_cfg, train_cfg, val_cfg, args.seed,
+                                                        **_slice_kw(mesh))
     # pipeline.stages imports this module: its bundle module is read here
     from ..pipeline.bundle import load_atlas_init, load_bundle
 
@@ -247,10 +278,10 @@ def schema_net_worker(global_cfg: Dict[str, Any], args: LaunchArgs) -> Dict[str,
                 "e_geo": float(e[0, 0]), "e_attn": float(e[1, 0])}
 
     trainer = schema_net_trainer(dict(global_cfg, training=train_cfg), bundle, atlas_init, None,
-                                 seed=args.seed, device=args.device, num_classes=n_classes,
-                                 train_loader=train_loader, val_loader=val_loader,
-                                 buffer_guard=buffer_guard, extra_scalars=attr_scalars,
-                                 **_run_dirs(args))
+                                 seed=args.seed, device=_device(args, mesh),
+                                 num_classes=n_classes, train_loader=train_loader,
+                                 val_loader=val_loader, buffer_guard=buffer_guard,
+                                 extra_scalars=attr_scalars, mesh=mesh, **_run_dirs(args))
     result = trainer()
     return {"trainer": trainer, "eval": result, "predictor": trainer.model}
 
@@ -281,22 +312,31 @@ def eval_worker(global_cfg: Dict[str, Any], args: LaunchArgs) -> Dict[str, Any]:
     ``tasks/worker_eval.py``): ``{"loss", "loss_dict", "acc": {1, 5}}`` of
     the validation split, and for a SchemaNet predictor (a config with a
     ``schema_net`` block) ``"cb"``, the codebook agreement. A plain model
-    is built in the validation block's dtype (fp32 when it names none)."""
+    is built in the validation block's dtype (fp32 when it names none). On a
+    grid the model is sharded by its rules and each rank evaluates its data
+    slice."""
     data_cfg, _, val_cfg = _split_cfg(global_cfg, args)
     loss_cfg = global_cfg.get("loss", {"name": "ce_loss", "weight_dict": {"cls": 1.0}})
-    val_loader, n_classes = build_eval_loader(data_cfg, val_cfg, args.seed)
-    device = resolve_device(args.device)
+    mesh = worker_mesh(args)
+    val_loader, n_classes = build_eval_loader(data_cfg, val_cfg, args.seed, **_slice_kw(mesh))
+    device = resolve_device(_device(args, mesh))
+
+    def placed(model):
+        if mesh is not None:
+            shard_module(model, mesh)
+        return model.to(device)
+
     if "schema_net" in global_cfg:
-        predictor = _assemble_schema_predictor(global_cfg, args, n_classes).to(device)
+        predictor = placed(_assemble_schema_predictor(global_cfg, args, n_classes))
         result = Evaluation(predictor, get_loss_fn(loss_cfg), loss_cfg["weight_dict"], val_loader,
-                            top_k=(1, 5), device=device)()
-        result["cb"] = CBEvaluation(predictor.classify_discretized, val_loader, device=device)()
+                            top_k=(1, 5), device=device, mesh=mesh)()
+        result["cb"] = CBEvaluation(predictor.classify_discretized, val_loader, device=device,
+                                    mesh=mesh)()
         return result
     model = get_model(model_cfg_of(global_cfg, args.base_dir), n_classes,
                       dtype=resolve_dtype(val_cfg.get("dtype")))
     init_parameters_(model, torch.Generator().manual_seed(0))
     if args.resume:
         _restore_model(model, args.resume)
-    model.to(device)
-    return Evaluation(model, get_loss_fn(loss_cfg), loss_cfg["weight_dict"], val_loader,
-                      top_k=(1, 5), device=device)()
+    return Evaluation(placed(model), get_loss_fn(loss_cfg), loss_cfg["weight_dict"], val_loader,
+                      top_k=(1, 5), device=device, mesh=mesh)()

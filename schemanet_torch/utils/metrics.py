@@ -1,8 +1,10 @@
 """Host-side metric meters and top-k accuracy (port of
 ``schemanet_tpu/utils/metrics.py``).
 
-``sync()`` sums a meter across the processes of ``torch.distributed`` when
-it is initialised with more than one; a single process has nothing to sum.
+``sync(group)`` sums a meter over a process group: on a grid, its data
+group (``Mesh.data_group``), since the ranks of a model group see the same
+samples; without one, every process of ``torch.distributed`` when it is
+initialised with more than one. A single process has nothing to sum.
 """
 
 from __future__ import annotations
@@ -13,9 +15,10 @@ import torch
 from torch import nn
 
 
-def _world_size() -> int:
+def _group_size(group=None) -> int:
     dist = torch.distributed
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    return (dist.get_world_size(group) if dist.is_available() and dist.is_initialized()
+            else 1)
 
 
 class AverageMeter:
@@ -36,13 +39,19 @@ class AverageMeter:
     def accumulate(self):
         self._accumulated = (self._sum, self._count)
 
-    def sync(self):
+    def sync(self, group=None):
         if self._accumulated is None:
             self.accumulate()
-        if _world_size() > 1:
+        if _group_size(group) > 1:
             both = torch.tensor(self._accumulated, dtype=torch.float64)
-            torch.distributed.all_reduce(both)
+            torch.distributed.all_reduce(both, group=group)
             self._accumulated = (float(both[0]), float(both[1]))
+
+    @property
+    def count(self) -> float:
+        """The weight accumulated (after ``sync``, over the group)."""
+        return (self._accumulated if self._accumulated is not None
+                else (self._sum, self._count))[1]
 
     def value(self) -> float:
         s, c = self._accumulated if self._accumulated is not None else (self._sum, self._count)
@@ -64,9 +73,9 @@ class DictAverageMeter:
         for m in self._meters.values():
             m.accumulate()
 
-    def sync(self):
+    def sync(self, group=None):
         for m in self._meters.values():
-            m.sync()
+            m.sync(group)
 
     def value(self) -> Dict[str, float]:
         return {k: m.value() for k, m in self._meters.items()}

@@ -1,9 +1,12 @@
 """The port's command line against the JAX package's, on the CPU: the
 parser's subcommands, flags and defaults (``--device`` added), the config
 helpers on the same inputs, JSON configs without PyYAML, the unported flags,
-and the whole stage chain ``train -> extract -> export -> init -> train
+the whole stage chain ``train -> extract -> export -> init -> train
 schema_net_worker -> serve --explain --out --graph-sample`` with ``--device
-cpu`` at a tiny size."""
+cpu`` at a tiny size, and the grid flags: ``train`` and ``extract`` with
+``--mesh-data 2 --device cpu`` (two gloo ranks the command line spawns)
+against one process, a grid larger than the GPUs present, and
+``--multi-host`` without ``torchrun``'s rendezvous."""
 
 import json
 import os
@@ -110,9 +113,6 @@ def test_json_configs_without_pyyaml(tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["train", "--mesh-data", "2"], "A11"),
-    (["train", "--mesh-model", "2"], "A11"),
-    (["serve", "--multi-host", "--ckpt", "c", "--images", "synthetic:1"], "A11"),
     (["serve", "--quant-int8", "--ckpt", "c", "--images", "synthetic:1"], "A11"),
     (["extract", "--quant-int8", "--ckpt", "c", "--save-path", "s"], "A11"),
     (["extract", "--save-features", "--ckpt", "c", "--save-path", "s"], "A9"),
@@ -324,3 +324,97 @@ def test_cli_chain_on_an_image_folder_tree(tmp_path):
     server = load_serve_predictor(str(root / "bundle"), dict(schema_cfg), str(root / "s4" / "ckpt"),
                                   CLASSES, microbatch=2, device="cpu")
     np.testing.assert_array_equal(np.load(out)["logits"], server.predict(port_images))
+
+
+def _run_cli(argv, timeout=240):
+    """``python -m schemanet_torch.cli argv`` in its own session, killed with
+    the ranks it spawned past ``timeout`` seconds."""
+    import signal
+
+    proc = subprocess.Popen([sys.executable, "-m", "schemanet_torch.cli", *argv], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    assert proc.returncode == 0, out[-4000:]
+    return out
+
+
+@pytest.fixture(scope="module")
+def grid_cfgs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("grid_cli")
+    data = {"name": "synthetic", "num_classes": CLASSES, "image_size": 8, "resize": 16,
+            "train": {"num_samples": 8}, "val": {"num_samples": 4}}
+    train = {"train_epochs": 1, "batch_size": 4, "num_workers": 1, "val_interval": 1,
+             "optimizer": {"name": "AdamW", "lr": 1e-3}, "clip_max_norm": 0.1}
+    vanilla = _write(root / "vanilla.json", {
+        "dataset": data, "training": train, "validation": {"batch_size": 4, "num_workers": 1},
+        "model": MODEL, "loss": {"name": "ce_loss", "weight_dict": {"cls": 1.0}}})
+    ingredient = _write(root / "ingredient.json", {
+        "dataset": data, "model": MODEL,
+        "discretization": {"vocabulary": {"size": CODES, "dim": 32},
+                           "encoder_layer": "module.transformer.layers.1"}})
+    return root, vanilla, ingredient
+
+
+def test_train_on_a_data_grid_equals_one_process(grid_cfgs):
+    """``train --mesh-data 2 --device cpu``: the command line spawns two gloo
+    ranks (dropout 0.1 live, clipping); rank 0's checkpoint after the 2 steps
+    equals one process's within 1e-6, its step and validation the same. The
+    key bias of the qkv projection is the exception: its exact gradient is 0
+    (a softmax ignores a shift of a row's scores), so AdamW's normalised
+    step follows rounding noise there; it is held to 2 lr a step."""
+    root, vanilla, _ = grid_cfgs
+    common = ["train", "--cfg", vanilla, "--worker", "backbone_worker", "--device", "cpu",
+              "--seed", "3"]
+    _run_cli(common + ["--log-dir", str(root / "one")])
+    _run_cli(common + ["--log-dir", str(root / "grid"), "--mesh-data", "2"])
+    metas = [json.loads((root / run / "ckpt" / "meta.json").read_text()) for run in ("one", "grid")]
+    assert metas[0] == metas[1] and metas[0]["iter"] == 2
+    one, grid = (torch.load(root / run / "ckpt" / "iter-2.pt", weights_only=True)["model"]
+                 for run in ("one", "grid"))
+    assert sorted(one) == sorted(grid)
+    for name, want in one.items():
+        err = (grid[name] - want).abs()
+        if name.endswith("linear_qkv.bias"):
+            q, k, v = err.chunk(3)
+            assert float(k.max()) <= 2 * 1e-3 * 2, name
+            err = torch.cat([q, v])
+        assert float(err.max()) <= 1e-6, name
+
+
+def test_extract_on_a_data_grid_equals_one_process(grid_cfgs, tmp_path):
+    """``extract --mesh-data 2 --device cpu``: both ranks' features gathered,
+    the same k-means; rank 0 writes the codebook of one process."""
+    root, vanilla, ingredient = grid_cfgs
+    pth = save_reference(tmp_path / "ref.pth",
+                         reference_state_dict(dim=32, layers=2, classes=CLASSES, img=16, patch=4))
+    common = ["extract", "--cfg", ingredient, "--ckpt", pth, "--batch-size", "4",
+              "--max-features", "128", "--device", "cpu", "--seed", "3"]
+    _run_cli(common + ["--save-path", str(tmp_path / "one"), "--log-dir", str(tmp_path / "l1")])
+    _run_cli(common + ["--save-path", str(tmp_path / "grid"), "--log-dir", str(tmp_path / "l2"),
+                       "--mesh-data", "2"])
+    name = f"cluster_{CODES}_from_128.npy"
+    np.testing.assert_allclose(np.load(tmp_path / "grid" / name), np.load(tmp_path / "one" / name),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_a_grid_larger_than_the_gpus_raises(grid_cfgs):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    _, vanilla, _ = grid_cfgs
+    with pytest.raises(SystemExit, match="needs 2 GPUs, one a rank; this host has 0"):
+        cli.main(["train", "--cfg", vanilla, "--mesh-data", "2"])
+
+
+def test_multi_host_without_a_rendezvous_raises(grid_cfgs, monkeypatch, tmp_path):
+    _, vanilla, _ = grid_cfgs
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(SystemExit, match="torchrun"):
+        cli.main(["train", "--cfg", vanilla, "--multi-host", "--device", "cpu", "--log-dir",
+                  str(tmp_path)])

@@ -732,3 +732,40 @@ def test_device_decode_near_libjpeg(dev):
         want = pixels[name].astype(np.int32)
         got = out[off:off + want.size].cpu().numpy().reshape(want.shape).astype(np.int32)
         assert np.abs(got - want).max() <= 3 and np.abs(got - want).mean() < 0.2, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", [192, 384])
+def test_dropout_offsets_give_the_global_masks(dev, dtype, dim):
+    """A data-parallel rank's launch over items 3.. of a batch of 7: the
+    attention kernels (stream offset item0 x heads) and the FFN kernels (row
+    offset) give, bit for bit, the rows of the launch over the whole batch,
+    forward and backward; the plain versions with the same offsets agree
+    within the tolerances."""
+    g = torch.Generator().manual_seed(18)
+    heads = dim // 64
+    qkv = _rnd(g, dev, 7, 65, 3 * dim).to(dtype)
+    go = _rnd(g, dev, 7, 65, dim).to(dtype)
+    full = ak.fused_mhsa(qkv, heads, 0.1, 99)
+    part = ak.fused_mhsa(qkv[3:].contiguous(), heads, 0.1, 99, item0=3)
+    assert torch.equal(part, full[3:])
+    assert torch.equal(ak.fused_mhsa_bwd(qkv[3:].contiguous(), go[3:].contiguous(), heads, 0.1,
+                                         99, item0=3),
+                       ak.fused_mhsa_bwd(qkv, go, heads, 0.1, 99)[3:])
+    tol = dict(TOLS)[dtype]
+    plain = ak.fused_mhsa_reference(qkv[3:], heads, 0.1, 99, item0=3)
+    assert (part.float() - plain.float()).abs().max() <= tol * plain.float().abs().max()
+    x = _rnd(g, dev, 7, 65, dim).to(dtype)
+    w1, b1 = _rnd(g, dev, 4 * dim, dim, scale=dim**-0.5).to(dtype), _rnd(g, dev, 4 * dim).to(dtype)
+    w2 = _rnd(g, dev, dim, 4 * dim, scale=(4 * dim)**-0.5).to(dtype)
+    b2 = _rnd(g, dev, dim).to(dtype)
+    full = mk.fused_mlp(x, w1, b1, w2, b2, "gelu", 0.1, 7)
+    part = mk.fused_mlp(x[3:].contiguous(), w1, b1, w2, b2, "gelu", 0.1, 7, row0=3 * 65)
+    assert torch.equal(part, full[3:])
+    gx = _rnd(g, dev, 7, 65, dim).to(dtype)
+    d_full = mk.fused_mlp_bwd(x, w1, b1, w2, gx, "gelu", 0.1, 7)
+    d_part = mk.fused_mlp_bwd(x[3:].contiguous(), w1, b1, w2, gx[3:].contiguous(), "gelu", 0.1,
+                              7, row0=3 * 65)
+    assert torch.equal(d_part[0], d_full[0][3:])
+    plain = mk.fused_mlp_reference(x[3:], w1, b1, w2, b2, "gelu", 0.1, 7, row0=3 * 65)
+    assert (part.float() - plain.float()).abs().max() <= tol * plain.float().abs().max()

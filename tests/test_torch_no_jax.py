@@ -6,7 +6,9 @@ SchemaNet training step, one stage-0 backbone step with dropout live, stages
 modules, one epoch of ``schema_net_worker`` with its loaders, validation,
 TensorBoard writer and checkpoints, then the command line's ``serve
 --explain`` on its files from a JSON config, ``load_serve_predictor``, the
-capture probes and the config helpers), and by reading the port's sources."""
+capture probes and the config helpers; and the grid of ``parallel/``: a
+one-rank gloo grid, a training step on it, the sharding rules), and by
+reading the port's sources."""
 
 import pathlib
 import re
@@ -128,6 +130,61 @@ def test_import_and_cpu_forward_without_jax(tmp_path):
         loaded = [m for m in sys.modules if m.split(".")[0] in {blocked!r}
                   and sys.modules[m] is not None]
         assert not loaded, loaded
+        print("ok")
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
+
+
+def test_grid_without_jax():
+    """The grid modules (``parallel/mesh.py``, ``parallel/launch.py``) in a
+    fresh interpreter where JAX and the JAX package cannot be imported: a
+    one-rank gloo grid, a SchemaNet training step on it, the sharding rules
+    and ``shard_params`` at model 2."""
+    blocked = FORBIDDEN + ABSENT_ON_CARD
+    script = textwrap.dedent(
+        f"""
+        import sys
+        for name in {blocked!r}:
+            sys.modules[name] = None
+        import torch
+        from schemanet_torch.parallel import launch
+        from schemanet_torch.parallel.mesh import (Mesh, make_mesh, param_shardings,
+                                                   shard_params)
+        from schemanet_torch.schema import build_predictor, get_loss_fn, init_parameters_
+        from schemanet_torch.train import SCHEMA_NET_FROZEN, Trainer, TrainerConfig
+        model_cfg = {{"name": "vit",
+                      "transformer": dict(embed_dim=32, num_encoder_layers=2, num_heads=2,
+                                          dim_feedforward=64, activation="gelu", norm_eps=1e-6),
+                      "patch_embed": dict(img_size=16, patch_size=4, image_channels=3)}}
+        schema_cfg = {{"gnn": {{"embed_dim": 16, "num_layers": 2}},
+                      "ir_atlas": {{"feat_h": 4, "feat_w": 4, "clamp_edge_attn": -1.0}}}}
+        model = build_predictor(model_cfg, schema_cfg, num_classes=4, num_codes=16, code_dim=32,
+                                encode_layer=1)
+        init_parameters_(model, torch.Generator().manual_seed(0))
+        state = dict(model.state_dict())
+        mesh = make_mesh(device="cpu")
+        assert (mesh.data, mesh.model, mesh.backend) == (1, 1, "gloo"), mesh
+        trainer = Trainer(TrainerConfig(train_epochs=1, optimizer={{"lr": 1e-3}},
+                                        frozen_patterns=SCHEMA_NET_FROZEN),
+                          model, get_loss_fn({{"name": "schema_inference_loss"}}), {{"cls": 1.0}},
+                          steps_per_epoch=1, mesh=mesh)
+        loss = trainer.train_iter({{"image": torch.randn(2, 16, 16, 3),
+                                    "label": torch.tensor([0, 1])}})["loss"]
+        assert torch.isfinite(loss), loss
+        dims = param_shardings(Mesh(2, 2), [(k, v.shape) for k, v in state.items()
+                                            if v.is_floating_point()])
+        assert dims["schema_net.edge_weights"] == 0, dims
+        local = shard_params(Mesh(2, 2, rank=3), state)
+        assert local["schema_net.edge_weights"].shape == (2, 16, 16)
+        assert callable(launch.spawn_ranks)
+        loaded = [m for m in sys.modules if m.split(".")[0] in {blocked!r}
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        torch.distributed.destroy_process_group()
         print("ok")
         """
     )
