@@ -432,6 +432,51 @@ the kernels on the card and the collectives through the host. A
     the data group, before the clip) by phase 28's rule as in 41; 12 launches of
     each fused kernel a step on each rank.
 
+The int8 (W8A8) route of the frozen backbone (``ops/quant.py``;
+``quant_phases``), after phase 42:
+
+43. ``quant_vs_plain``: ``quantize_rows`` (activations in bf16 and fp32, the
+    fp32 weights) and ``int8_gemm`` (with bias, bf16 and fp32 out) against
+    their plain versions, bit for bit, at every projection of DeiT-Tiny,
+    -Small and -Base (in and out 192/576/768, 384/1152/1536, 768/2304/3072)
+    on 12,608 and 1,000 rows, with ``max |int8 route - dense| / max
+    |dense|`` a case as a note; then each projection of DeiT-Small timed in
+    bf16 beside its plain version, its bound, ``torch._int_mm`` on the same
+    operands (the int32 product alone) and the bf16 ``F.linear`` (notes);
+44. ``imagenet_serve_int8``: phase 25's stage-4 predictor (K 1000, M 8000,
+    V_max 500, GNN 1024 x 2) through ``ServePredictor(quant_int8=True)``:
+    a microbatch of 64 is 40 ``int8_gemm``, 80 ``quantize_rows``, 20 + 4
+    (GNN) ``fused_layernorm``, 9 ``fused_mhsa`` (the encode layer takes the
+    per-op attention for its head-mean) and no ``attn_block``/``ffn_block``;
+    finite at 1, 64 and 100 images, batch invariant; p50/p99 and images/s
+    in turns with the unquantised route, each route's microbatch profiled
+    (device ms, idle share, top kernels); the drift against that route under
+    tests/test_quant.py's bounds (mid-feature relative error < 0.05,
+    per-token cosine > 0.99; the ViT classifier's argmax agreement >=
+    0.875 in fp32, as that file gates it, and reported in bf16 beside
+    bf16's own agreement with fp32; the SchemaNet logits' argmax agreement
+    and their near-ties reported); the caller's config unchanged;
+45. ``imagenet_serve_int8_fp32``: the same route in fp32 at K 100 and
+    DeiT-Base's microbatch (fc2's k 3072), each against the plain versions:
+    free running, phase 4's rule (VQ ids >= 99.9% equal, logits within
+    1e-3 of max) and the share of int8 codes that differ, reported (a code
+    flipped at a .5 tie moves its projection by a quantisation step and
+    the runs part layer by layer); gated in lock step, each layer on the
+    kernel run's input to it, by tests/test_torch_quant.py's whole-layer
+    bounds (codes differing <= 1e-4, each by 1; output within 2e-3 of
+    max);
+46. ``stage1_int8``: phase 16's stage 1 with ``quant``: seconds and
+    features/s beside phase 16's, its launches, the centers' drift
+    (inertia on phase 16's held sample, nearest fp32 center) and the
+    features' drift under phase 44's bounds. Phase 32 also runs
+    ``extract --quant-int8`` and ``serve --quant-int8`` (its logits bit
+    for bit the in-process ``load_serve_predictor(..., quant_int8=True)``).
+
+The kernels line gains ``quantize_rows`` and ``int8_gemm`` (replacing XLA's
+int8 ``dot_general``, no Pallas kernel), timed at DeiT-Small's qkv
+projection of a serving microbatch, launches from phase 44, ``library_ms``
+of ``int8_gemm`` the ``torch._int_mm`` product.
+
 The kernels line adds the class graphs' kernels at a model-2 rank's shard:
 ``sym_conv[_bwd]_shard``, ``fused_layernorm[_bwd]_shard_d1024``,
 ``embed_grad_shard`` (the class lookup's 250,000 ids) and
@@ -705,8 +750,8 @@ def vanilla_cfg(dim: int, heads: int) -> dict:
 
 
 IN_STEPS_PER_EPOCH = 1_281_167 // BATCH  # ImageNet-1k's training images
-# H100 SXM data sheet, dense: bf16 and TF32 tensor cores, fp32 outside them, HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "tfloat32": 494.7e12, "float32": 67e12}
+# H100 SXM data sheet, dense: bf16, TF32 and int8 tensor cores, fp32 outside them, HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "tfloat32": 494.7e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -728,6 +773,7 @@ def plain_patches() -> list:
     from schemanet_torch.ops.kernels import graphconv as gc
     from schemanet_torch.ops.kernels import layernorm as lnk
     from schemanet_torch.ops.kernels import mlp as mk
+    from schemanet_torch.ops.kernels import quant as qk
     from schemanet_torch.ops.kernels import vq as vqk
 
     return [
@@ -740,6 +786,8 @@ def plain_patches() -> list:
         mock.patch.object(mk, "fused_mlp", mk.fused_mlp_reference),
         mock.patch.object(vqk, "vq_assign_kernel", vqk.vq_assign_reference),
         mock.patch.object(lnk, "fused_layernorm", lnk.fused_layernorm_plain),
+        mock.patch.object(qk, "quantize_rows", qk.quantize_rows_reference),
+        mock.patch.object(qk, "int8_gemm", qk.int8_gemm_reference),
     ]
 
 
@@ -2425,6 +2473,9 @@ def cli_phase(work_dir: str, has_networkx: bool, card_note: dict, device: str = 
     (and ``--graph-sample 0`` where networkx is present) as ``python -m
     schemanet_torch.cli`` in a subprocess; its ``.npz`` must equal
     ``load_serve_predictor(...).predict`` and ``.explain`` in this process bit
+    for bit. Then (phase 46's command line) ``extract --quant-int8`` in this
+    process and ``serve --quant-int8 --out`` in a subprocess, whose logits
+    must equal ``load_serve_predictor(..., quant_int8=True).predict`` bit
     for bit. ``device`` goes to every call's ``--device`` (the default,
     cuda, on the card). Returns each stage's seconds."""
     import logging
@@ -2552,6 +2603,56 @@ def cli_phase(work_dir: str, has_networkx: bool, card_note: dict, device: str = 
     require(all(counts.get(k, 0) > 0 for k in ("attn_block", "attn_block_hmean", "ffn_block",
                                                "vq_assign", "sym_conv", "fused_layernorm")),
             f"serving from the CLI's files: a kernel did not launch ({counts})")
+    del server
+    torch.cuda.empty_cache()
+
+    # 46 (the int8 route's command line): extract and serve with --quant-int8
+    int8_route = ("quantize_rows", "int8_gemm", "fused_layernorm", "fused_mhsa", "vq_assign")
+    codes_int8 = os.path.join(root, "codes_int8", os.path.basename(codes))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["extract", "--cfg", ingredient, "--ckpt", s0_ckpt, "--save-path",
+                   os.path.dirname(codes_int8), "--max-features", str(2 * BATCH * L_INST),
+                   "--batch-size", str(BATCH), "--quant-int8", "--seed", "0", "--device", device,
+                   "--log-dir", os.path.join(root, "extract_int8")])
+    torch.cuda.synchronize()
+    seconds["extract_int8"] = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    phase("cli", stage="extract --quant-int8", exit_code=rc, seconds=seconds["extract_int8"],
+          launches=counts)
+    require(rc == 0 and os.path.isfile(codes_int8), f"cli extract --quant-int8: exit code {rc}")
+    require(all(counts.get(k, 0) > 0 for k in int8_route)
+            and not counts.get("attn_block") and not counts.get("ffn_block"),
+            f"cli extract --quant-int8: not on the int8 route ({counts})")
+    npz_int8 = os.path.join(root, "served_int8.npz")
+    argv = [sys.executable, "-m", "schemanet_torch.cli", "serve", "--cfg", schema, "--ckpt",
+            s4_ckpt, "--images", f"synthetic:{n_images}", "--quant-int8", "--out", npz_int8,
+            "--log-dir", os.path.join(root, "serve_int8"), "--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    seconds["serve_int8_subprocess"] = time.perf_counter() - t0
+    phase("cli", stage="serve --quant-int8", exit_code=proc.returncode,
+          seconds=seconds["serve_int8_subprocess"],
+          stderr_tail=proc.stderr[-2000:] if proc.returncode else "")
+    require(proc.returncode == 0, f"cli serve --quant-int8: exit code {proc.returncode}")
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        server = load_serve_predictor(schema_cfg["bundle"], schema_cfg, s4_ckpt, NUM_CLASSES,
+                                      microbatch=MICROBATCH, device=device, quant_int8=True)
+        reset_launch_counts()
+        logits_int8 = server.predict(images)
+        counts = {k: v for k, v in launch_counts().items() if v}
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    saved_int8 = np.load(npz_int8)["logits"]
+    same = bool(np.array_equal(saved_int8, logits_int8))
+    phase("cli_serve_int8_vs_in_process", images=n_images, bitwise=same, launches=counts,
+          differs_from_unquantised=not np.array_equal(saved_int8, saved["logits"]), **card_note)
+    require(same, "cli serve --quant-int8 logits differ from the in-process int8 server")
+    require(all(counts.get(k, 0) > 0 for k in int8_route) and not counts.get("attn_block"),
+            f"serving --quant-int8: not on the int8 route ({counts})")
     del server
     torch.cuda.empty_cache()
     return seconds
@@ -3860,6 +3961,467 @@ def grid_phases(dev, work_dir: str, card_note: dict) -> dict:
     return {"rows": out, "seconds": seconds}
 
 
+# the int8 route (phases 43-46): the widths of DeiT-Tiny, DeiT-Small and
+# DeiT-Base, and the rows of a serving microbatch (64 x 197) and of 1,000
+QUANT_WIDTHS = (192, 384, 768)
+QUANT_ROWS = (MICROBATCH * (L_INST + 1), 1000)
+QUANT_REPLACES = "schemanet_tpu/ops/quant.py (XLA int8 dot_general; no Pallas kernel)"
+# tests/test_quant.py's drift bounds: mid-feature relative error, per-token
+# cosine, the ViT classifier's argmax agreement
+QUANT_DRIFT = {"rel_err": 0.05, "cosine": 0.99, "argmax": 0.875}
+# tests/test_torch_quant.py's whole-layer bounds: the share of int8 codes
+# that may differ, each by at most 1, and a layer's output within 2e-3 of max
+QUANT_LOCK = {"code_share": 1e-4, "code_max_diff": 1, "out_rel_err": 2e-3}
+
+
+def quantize_work(x):
+    """(operations, bytes) of ``quantize_rows`` on x [rows, k]: |x|, the max,
+    the division, the rounding and the clip an element in fp32; x read, the
+    codes and a scale a row written."""
+    rows = x.numel() // x.shape[-1]
+    return 5 * x.numel(), nbytes(x) + x.numel() + 4 * rows
+
+
+def int8_gemm_work(a, w, y):
+    """(operations, bytes) of ``int8_gemm``: 2 rows n k int8 operations; a,
+    w, the scales and the bias read, y written."""
+    rows, k = a.shape
+    n = w.shape[0]
+    return 2 * rows * n * k, nbytes(a, w, y) + 4 * (rows + 2 * n)
+
+
+def code_recorder(store):
+    """Patches ``ops.quant.quantize_rows`` (the activations' quantisation of
+    ``int8_dot``; weights go through ``quantize_weight``) to keep the codes
+    of each call in ``store``."""
+    from schemanet_torch.ops import quant as tq
+
+    inner = tq.quantize_rows
+
+    def record(x):
+        q, s = inner(x)
+        store.append(q)
+        return q, s
+
+    return mock.patch.object(tq, "quantize_rows", record)
+
+
+def code_share(got: list, want: list) -> dict:
+    """The share of int8 codes that differ between two runs' records, and the
+    largest difference."""
+    require(len(got) == len(want) and got, f"code records of {len(got)} and {len(want)} calls")
+    differ = total = worst = 0
+    for a, b in zip(got, want):
+        diff = (a.int() - b.int()).abs()
+        differ += int((diff > 0).sum())
+        total += diff.numel()
+        worst = max(worst, int(diff.max()))
+    return {"codes": total, "codes_differing": differ, "code_share_differing": differ / total,
+            "code_max_diff": worst}
+
+
+def quant_phases(dev, card_note: dict, stage1: dict, device_images) -> dict:
+    """Phases 43-46, the int8 (W8A8) route of the frozen backbone: 43 the two
+    kernels against their plain versions bit for bit at every projection of
+    the three widths, timed at DeiT-Small's; 44 ImageNet DeiT-Small serving
+    in bf16 through ``ServePredictor(quant_int8=True)`` on phase 25's
+    stage-4 predictor, counted, timed beside its bf16 route, its drift
+    against that route under tests/test_quant.py's bounds; 45 the same in
+    fp32 at K 100 against the plain versions (phase 4's rule), and
+    DeiT-Base's microbatch (k 3072); 46 stage 1 at CIFAR with ``quant``,
+    beside phase 16's (``stage1``: its seconds, codebook, held sample and
+    stage shape; ``device_images`` its loader class). Returns the kernels
+    line's rows and each phase's seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from schemanet_torch.kernel_times import projections
+    from schemanet_torch.models.vit import get_model
+    from schemanet_torch.ops import kmeans
+    from schemanet_torch.ops.kernels import encoder_block as eb
+    from schemanet_torch.ops.kernels import (launch_counts, launch_counts_by_shape,
+                                             reset_launch_counts)
+    from schemanet_torch.ops.kernels import quant as qk
+    from schemanet_torch.pipeline import collect_mid_features, extract_stage
+    from schemanet_torch.pipeline.bundle import Bundle
+    from schemanet_torch.schema import build_predictor, init_parameters_
+    from schemanet_torch.serve import ServePredictor
+    from schemanet_torch.train import schema_net_trainer
+
+    seconds, rows = {}, {}
+    t_phase = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        seconds[name] = now - t_phase
+        t_phase = now
+        phase("phase_seconds", phase_name=name, seconds=seconds[name], **card_note)
+
+    gd = torch.Generator(device=dev).manual_seed(43)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gd, device=dev) * scale
+
+    # 43. the two kernels against their plain versions, bit for bit
+    cases, max_err = [], {"quantize_rows": 0.0, "int8_gemm": 0.0}
+    for d in QUANT_WIDTHS:
+        for name, n, k in projections(d):
+            w, b = rnd(n, k, scale=k**-0.5), rnd(n, scale=0.02)
+            wq, ws = qk.quantize_rows(w)
+            want_wq, want_ws = qk.quantize_rows_reference(w)
+            w_same = torch.equal(wq, want_wq) and torch.equal(ws, want_ws)
+            for n_rows in QUANT_ROWS:
+                x32 = rnd(n_rows, k)
+                for dt in (torch.bfloat16, torch.float32):
+                    x = x32.to(dt)
+                    xq, xs = qk.quantize_rows(x)
+                    want_xq, want_xs = qk.quantize_rows_reference(x)
+                    y = qk.int8_gemm(xq, wq, xs, ws, b, dt)
+                    want_y = qk.int8_gemm_reference(xq, wq, xs, ws, b, dt)
+                    dense = eb.dense(x, w, b)  # the product the route stands in for
+                    max_err["quantize_rows"] = max(
+                        max_err["quantize_rows"], abs_err(xq, want_xq), abs_err(xs, want_xs),
+                        abs_err(wq, want_wq), abs_err(ws, want_ws))
+                    max_err["int8_gemm"] = max(max_err["int8_gemm"], abs_err(y, want_y))
+                    cases.append({"width": d, "projection": name, "rows": n_rows,
+                                  "dtype": str(dt).split(".")[-1], "weight_bitwise": w_same,
+                                  "x_bitwise": torch.equal(xq, want_xq) and torch.equal(
+                                      xs, want_xs), "y_bitwise": torch.equal(y, want_y),
+                                  "vs_dense_rel": rel_err(y, dense)})
+                    del x, xq, y, want_y, dense
+            del w, wq
+    bitwise = all(c["weight_bitwise"] and c["x_bitwise"] and c["y_bitwise"] for c in cases)
+    phase("quant_vs_plain", cases=len(cases), bitwise=bitwise, max_abs_err=max_err,
+          worst_vs_dense_rel={dt: max(c["vs_dense_rel"] for c in cases if c["dtype"] == dt)
+                              for dt in ("bfloat16", "float32")}, report=cases)
+    require(bitwise, "quantize_rows or int8_gemm differs from its plain version: "
+            + json.dumps([c for c in cases if not (c["weight_bitwise"] and c["x_bitwise"]
+                                                   and c["y_bitwise"])][:4]))
+    # times at DeiT-Small's projections, a serving microbatch in bf16
+    timed = {}
+    for name, n, k in projections(384):
+        x = rnd(QUANT_ROWS[0], k).to(torch.bfloat16)
+        w, b = rnd(n, k, scale=k**-0.5), rnd(n, scale=0.02)
+        xq, xs = qk.quantize_rows(x)
+        wq, ws = qk.quantize_rows(w)
+        y = qk.int8_gemm(xq, wq, xs, ws, b, torch.bfloat16)
+        wt, w16, b16 = wq.t(), w.to(torch.bfloat16), b.to(torch.bfloat16)
+        q_ops, q_bytes = quantize_work(x)
+        g_ops, g_bytes = int8_gemm_work(xq, wq, y)
+        timed[name] = {
+            "shape": [QUANT_ROWS[0], n, k],
+            "quantize_rows_ms": time_ms(lambda: qk.quantize_rows(x), TIME_ITERS),
+            "quantize_rows_plain_ms": time_ms(lambda: qk.quantize_rows_reference(x), TIME_ITERS),
+            "quantize_rows_bound": least_ms(q_ops, q_bytes, "float32"),
+            "quantize_weight_ms": time_ms(lambda: qk.quantize_rows(w), TIME_ITERS),
+            "int8_gemm_ms": time_ms(lambda: qk.int8_gemm(xq, wq, xs, ws, b, torch.bfloat16),
+                                    TIME_ITERS),
+            "int8_gemm_plain_ms": time_ms(
+                lambda: qk.int8_gemm_reference(xq, wq, xs, ws, b, torch.bfloat16), TIME_ITERS),
+            "int8_gemm_bound": least_ms(g_ops, g_bytes, "int8"),
+            # the library's int32 product alone (no epilogue), and the bf16
+            # product the route stands in for: notes
+            "int_mm_ms": time_ms(lambda: torch._int_mm(xq, wt), TIME_ITERS),
+            "bf16_linear_ms": time_ms(lambda: torch.nn.functional.linear(x, w16, b16),
+                                      TIME_ITERS),
+        }
+        phase("kernel_time", kernel="int8_route", projection=name, dtype="bfloat16",
+              **timed[name], **card_note)
+        del x, xq, y, wq
+    qkv = timed["qkv"]
+    rows["quantize_rows"] = {"ms": qkv["quantize_rows_ms"], "plain_ms": qkv["quantize_rows_plain_ms"],
+                             "bound_ms": qkv["quantize_rows_bound"][0],
+                             "bound_by": qkv["quantize_rows_bound"][1], "library_ms": None,
+                             "max_abs_err": max_err["quantize_rows"]}
+    rows["int8_gemm"] = {"ms": qkv["int8_gemm_ms"], "plain_ms": qkv["int8_gemm_plain_ms"],
+                         "bound_ms": qkv["int8_gemm_bound"][0],
+                         "bound_by": qkv["int8_gemm_bound"][1], "library_ms": qkv["int_mm_ms"],
+                         "library_note": "torch._int_mm on the same int8 operands: the int32 "
+                                         "product alone, without the epilogue",
+                         "max_abs_err": max_err["int8_gemm"]}
+    torch.cuda.empty_cache()
+    lap("43_quant_kernels")
+
+    # 44. ImageNet DeiT-Small W8A8 serving in bf16: phase 25's stage-4
+    # predictor (schema_net_trainer from a seeded bundle, K 1000, V_max 500,
+    # M 8000, GNN 1024 x 2) through ServePredictor(quant_int8=True)
+    g = torch.Generator().manual_seed(44)
+    small = vit_cfg(384, 6, None)
+    vit = get_model(small, IN_CLASSES)
+    init_parameters_(vit, torch.Generator().manual_seed(0))
+    bundle = Bundle(model_cfg=small, encode_layer=ENCODE_LAYER, img_size=IMG,
+                    backbone_state={k: v.clone() for k, v in vit.state_dict().items()},
+                    codebook=torch.rand(IN_CODES, 384, generator=g) * 2 - 1, extra={})
+    del vit
+    ingredients = torch.stack([torch.randperm(IN_CODES, generator=g)[:IN_VMAX]
+                               for _ in range(IN_CLASSES)]).to(torch.int32)
+    tr = schema_net_trainer(IN_SCHEMA_CFG, bundle, None, IN_STEPS_PER_EPOCH, seed=0, device=dev)
+    with torch.no_grad():
+        tr.model.schema_net.class_ingredients.copy_(ingredients)
+    model = tr.model
+    cfg_before = model.cfg
+    serve_b = ServePredictor(model, microbatch=MICROBATCH, device=dev)
+    serve_q = ServePredictor(model, microbatch=MICROBATCH, device=dev, quant_int8=True)
+    images = torch.from_numpy(np.random.default_rng(44).normal(
+        size=(N_IMAGES, IMG, IMG, 3)).astype(np.float32)).to(dev)
+    reset_launch_counts()
+    logits = serve_q.predict_tensor(images)
+    torch.cuda.synchronize()
+    got = launch_counts()
+    by_shape = {k: {str(list(s)): c for s, c in v.items()}
+                for k, v in launch_counts_by_shape().items() if k in ("quantize_rows", "int8_gemm")}
+    mbs = -(-N_IMAGES // MICROBATCH)
+    convs = 2 * IN_SCHEMA_CFG["schema_net"]["gnn"]["num_layers"]
+    expected = {name: 0 for name in got}
+    expected.update({"quantize_rows": 8 * FROZEN_LAYERS * mbs, "int8_gemm": 4 * FROZEN_LAYERS * mbs,
+                     "fused_layernorm": (2 * FROZEN_LAYERS + convs) * mbs,
+                     "fused_mhsa": (FROZEN_LAYERS - 1) * mbs,
+                     "fused_mhsa_tc": (FROZEN_LAYERS - 1) * mbs, "vq_assign": mbs,
+                     "vq_assign_tc": mbs, "sym_conv": convs * mbs, "sym_conv_tc": convs * mbs})
+    rows["quantize_rows"]["launches"] = got["quantize_rows"]
+    rows["int8_gemm"]["launches"] = got["int8_gemm"]
+    finite = {n_img: bool(torch.isfinite(serve_q.predict_tensor(images[:n_img])).all())
+              for n_img in (1, MICROBATCH)}
+    finite[N_IMAGES] = bool(torch.isfinite(logits).all())
+    invariant = torch.equal(serve_q.predict_tensor(images[:5]), logits[:5])
+    xb = images[:MICROBATCH]
+    lat = {"bf16": [], "int8": []}
+    for route in ("bf16", "int8", "int8", "bf16"):  # in turns
+        server = serve_q if route == "int8" else serve_b
+        for _ in range(LATENCY_ITERS // 2):
+            t0 = time.perf_counter()
+            server.predict_tensor(xb)
+            torch.cuda.synchronize()
+            lat[route].append((time.perf_counter() - t0) * 1e3)
+    p = {route: {"p50_ms": float(np.percentile(v, 50)), "p99_ms": float(np.percentile(v, 99)),
+                 "images_per_s": MICROBATCH / float(np.percentile(v, 50)) * 1e3}
+         for route, v in lat.items()}
+    # the frozen ViT's own classifier (all 12 layers, its 1000-class head),
+    # in the serving dtype and, as tests/test_quant.py gates it, in fp32
+    backbone = model.ingredient_backbone.backbone
+    vit32 = get_model(small, IN_CLASSES)
+    vit32.load_state_dict(backbone.state_dict())
+    vit32.requires_grad_(False).to(dev)
+
+    def vit_logits(net, quant):
+        return torch.cat([net.resume_from_layer(net.encode_until(
+            images[i:i + MICROBATCH], FROZEN_LAYERS, quant=quant)[0], FROZEN_LAYERS,
+            quant=quant)["pred"] for i in range(0, N_IMAGES, MICROBATCH)])
+
+    def agree(a, b):
+        return (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
+    with torch.no_grad():
+        out_q = model.ingredient_backbone(xb, quant=True)
+        out_b = model.ingredient_backbone(xb, quant=False)
+        logits_b = serve_b.predict_tensor(images)
+        vit_q, vit_b = vit_logits(backbone, True), vit_logits(backbone, False)
+        vit32_q, vit32_b = vit_logits(vit32, True), vit_logits(vit32, False)
+    mid_q, mid_b = out_q["mid_feat"].float().flatten(0, 1), out_b["mid_feat"].float().flatten(0, 1)
+    diff = abs_err(logits, logits_b)
+    top2 = logits_b.float().topk(2, dim=-1).values
+    drift = {
+        "mid_rel_err": ((mid_q - mid_b).norm() / mid_b.norm()).item(),
+        "token_cosine_min": torch.nn.functional.cosine_similarity(mid_q, mid_b, dim=-1).min().item(),
+        # tests/test_quant.py's argmax gate: the ViT classifier's logits in
+        # fp32; in bf16 beside it, with bf16's own agreement with fp32 (no
+        # int8) as the measure of how finely bf16 resolves these argmaxes
+        "vit_argmax_agreement_fp32": agree(vit32_q, vit32_b),
+        "vit_argmax_agreement_bf16": agree(vit_q, vit_b),
+        "vit_argmax_bf16_vs_fp32": agree(vit_b, vit32_b),
+        "vq_id_agreement": (out_q["ingredients"] == out_b["ingredients"]).float().mean().item(),
+        # the SchemaNet logits (reported): seeded class graphs give near-ties
+        # that bf16 rounds together; the share of images whose top two lie
+        # within twice the routes' largest logit difference
+        "schemanet_argmax_agreement": (logits.argmax(-1) == logits_b.argmax(-1)).float().mean()
+        .item(),
+        "schemanet_top2_within_2x_diff": (top2[:, 0] - top2[:, 1] <= 2 * diff).float().mean()
+        .item(),
+        "logit_max_abs_diff": diff, "logit_scale": logits_b.abs().max().item(),
+    }
+    del out_q, out_b, mid_q, mid_b, vit_q, vit_b, vit32_q, vit32_b, vit32
+    def profiled(server):
+        """Device ms, wall ms, idle share and the top kernels a microbatch,
+        from a profile of two."""
+        for attempt in range(1, 6):  # a session without device events is taken again
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    server.predict_tensor(xb)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            busy = device_time_by_name(prof)
+            busy_us = sum(busy.values())
+            if busy_us:
+                break
+            phase("profile_empty", attempt=attempt, iters=2)
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:12]
+        return {"device_ms_a_microbatch": busy_us / 2e3, "wall_ms_a_microbatch": wall_us / 2e3,
+                "idle_share": 1 - busy_us / wall_us if busy_us else None,
+                "top_device_ms_a_microbatch": {k[:80]: v / 2e3 for k, v in top}}
+
+    prof_q, prof_b = profiled(serve_q), profiled(serve_b)
+    unchanged = model.cfg is cfg_before and not model.cfg.quant_backbone
+    phase("imagenet_serve_int8", images=N_IMAGES, microbatches=mbs, logits=list(logits.shape),
+          finite=finite, batch_invariant=invariant, launches=got, expected=expected,
+          launches_by_shape=by_shape, latency=p, drift=drift, drift_bounds=QUANT_DRIFT,
+          profile_int8=prof_q, profile_bf16=prof_b, callers_model_unchanged=unchanged, classes=IN_CLASSES, codes=IN_CODES, v_max=IN_VMAX,
+          gnn=IN_GNN, **card_note)
+    require(tuple(logits.shape) == (N_IMAGES, IN_CLASSES) and all(finite.values()),
+            f"ImageNet int8 logits {tuple(logits.shape)}, finite {finite}")
+    require(invariant, "ImageNet int8 serving: predict(x[:5]) != predict(x)[:5]")
+    require(got == expected, f"ImageNet int8 serving launches {got} != {expected}")
+    require(unchanged, "ServePredictor(quant_int8=True) changed the caller's config")
+    require(drift["mid_rel_err"] < QUANT_DRIFT["rel_err"]
+            and drift["token_cosine_min"] > QUANT_DRIFT["cosine"]
+            and drift["vit_argmax_agreement_fp32"] >= QUANT_DRIFT["argmax"],
+            f"ImageNet int8 serving drift {drift} beyond {QUANT_DRIFT}")
+    require(prof_q["device_ms_a_microbatch"] > 0 and prof_b["device_ms_a_microbatch"] > 0,
+            "a serving profile holds no device time")
+    del tr, model, serve_b, serve_q, images, logits, logits_b
+    torch.cuda.empty_cache()
+    lap("44_imagenet_serve_int8")
+
+    # 45. fp32 at K 100 against the plain versions, then DeiT-Base's
+    # microbatch (fc2's k 3072). Free running, phase 4's rule is reported:
+    # a code that flips where x / scale lies at .5 within the kernels' fp32
+    # differences moves its projection by a quantisation step, which flips
+    # more codes in the next layers, so the two runs part further layer by
+    # layer (as free-running training steps do, phase 8). The gate is the
+    # lock step: each layer on the kernel run's input to that layer,
+    # kernels against plain versions, under tests/test_torch_quant.py's
+    # whole-layer bounds.
+    schema = dict(IN_SCHEMA_CFG["schema_net"], ir_atlas=dict(
+        IN_SCHEMA_CFG["schema_net"]["ir_atlas"], graph_precision="highest"))
+    images = torch.from_numpy(np.random.default_rng(45).normal(
+        size=(N_IMAGES, IMG, IMG, 3)).astype(np.float32)).to(dev)
+    report = {}
+    for label, cfg, width in (("deit_small", small, 384), ("deit_base", vit_cfg(768, 12, None), 768)):
+        m32 = build_predictor(cfg, schema, IN_FP32_CLASSES, IN_CODES, width, ENCODE_LAYER)
+        init_parameters_(m32, torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            if width == 384:  # phase 44's backbone and codebook
+                m32.ingredient_backbone.backbone.load_state_dict(
+                    {k: v for k, v in bundle.backbone_state.items()
+                     if not k.startswith("cls_head.")}, strict=False)
+                m32.ingredient_backbone.vocabulary.copy_(bundle.codebook)
+            m32.schema_net.class_ingredients.copy_(ingredients[:IN_FP32_CLASSES])
+        s32 = ServePredictor(m32, microbatch=MICROBATCH, device=dev, quant_int8=True)
+        x = images if width == 384 else images[:MICROBATCH]
+        n_mbs = -(-x.shape[0] // MICROBATCH)
+        codes_k, codes_p = [], []
+        with torch.no_grad():
+            reset_launch_counts()
+            logits_k = s32.predict_tensor(x)
+            torch.cuda.synchronize()
+            got = launch_counts()
+            k_shapes = sorted({s[2] for s in launch_counts_by_shape()["int8_gemm"]})
+            with code_recorder(codes_k):
+                ids_k = m32.ingredient_backbone(x[:MICROBATCH], quant=True)["ingredients"]
+            logits_p = with_plain(lambda: s32.predict_tensor(x))
+            with code_recorder(codes_p):
+                ids_p = with_plain(lambda: m32.ingredient_backbone(x[:MICROBATCH], quant=True))[
+                    "ingredients"]
+            lock = {"code_share_differing": 0.0, "code_max_diff": 0, "out_rel_err": 0.0}
+            bb = m32.ingredient_backbone.backbone
+            seq = bb.embed(x[:MICROBATCH])
+            for i, layer in enumerate(bb.transformer.layers[:FROZEN_LAYERS]):
+                hmean = i == ENCODE_LAYER  # the serving path's per-op attention
+                lock_k, lock_p = [], []
+                with code_recorder(lock_k):
+                    out_k, _ = layer(seq, hmean, quant=True)
+                with code_recorder(lock_p):
+                    out_p, _ = with_plain(lambda: layer(seq, hmean, quant=True))
+                layer_codes = code_share(lock_k, lock_p)
+                lock["code_share_differing"] = max(lock["code_share_differing"],
+                                                   layer_codes["code_share_differing"])
+                lock["code_max_diff"] = max(lock["code_max_diff"], layer_codes["code_max_diff"])
+                lock["out_rel_err"] = max(lock["out_rel_err"], rel_err(out_k, out_p))
+                seq = out_k
+                del lock_k, lock_p, out_p
+        torch.cuda.synchronize()
+        want = {"quantize_rows": 8 * FROZEN_LAYERS * n_mbs, "int8_gemm": 4 * FROZEN_LAYERS * n_mbs,
+                "fused_mhsa": (FROZEN_LAYERS - 1) * n_mbs, "fused_mhsa_tc": 0,
+                "attn_block": 0, "ffn_block": 0}
+        scale = logits_p.abs().max().item()
+        free = {"vq_id_agreement": (ids_k == ids_p).float().mean().item(),
+                "logit_max_abs_err": abs_err(logits_k, logits_p), "logit_scale": scale,
+                **code_share(codes_k, codes_p)}
+        free["phase4_rule_met"] = bool(free["vq_id_agreement"] >= 0.999
+                                       and free["logit_max_abs_err"] <= 1e-3 * scale)
+        report[label] = {"images": x.shape[0], "int8_gemm_k": k_shapes, "free_running": free,
+                         "lock_step": lock, "launches": {k: got[k] for k in want},
+                         "expected": want}
+        del s32, m32, logits_k, logits_p, codes_k, codes_p, seq, out_k
+        torch.cuda.empty_cache()
+    phase("imagenet_serve_int8_fp32", classes=IN_FP32_CLASSES,
+          phase4_rule={"ids": 0.999, "logits": "1e-3 of max"}, lock_step_rule=QUANT_LOCK,
+          **report, **card_note)
+    for label, r in report.items():
+        lock = r["lock_step"]
+        require(r["launches"] == r["expected"], f"{label} int8 fp32 launches {r['launches']}")
+        require(lock["code_share_differing"] <= QUANT_LOCK["code_share"]
+                and lock["code_max_diff"] <= QUANT_LOCK["code_max_diff"]
+                and lock["out_rel_err"] <= QUANT_LOCK["out_rel_err"],
+                f"{label} int8 fp32 layers against the plain versions in lock step: {lock}")
+    require(3072 in report["deit_base"]["int8_gemm_k"], "DeiT-Base's fc2 (k 3072) did not run")
+    del images
+    lap("45_imagenet_serve_int8_fp32")
+
+    # 46. stage 1 at CIFAR, uncut, on the int8 route, beside phase 16's
+    loader = device_images(S1_BATCHES, S1_BATCH, 3)  # phase 16's images
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    bundle_q = extract_stage(STAGE1_CFG, loader, seed=0, device=dev, quant=True)
+    torch.cuda.synchronize()
+    s1_seconds = time.perf_counter() - t0
+    got = launch_counts()
+    chunks = stage1["chunks"]
+    expected = {name: 0 for name in got}
+    expected.update({"quantize_rows": 8 * FROZEN_LAYERS * chunks,
+                     "int8_gemm": 4 * FROZEN_LAYERS * chunks,
+                     "fused_layernorm": 2 * FROZEN_LAYERS * chunks,
+                     "fused_mhsa": FROZEN_LAYERS * chunks,
+                     "vq_assign": stage1["vq_launches"], "vq_assign_tc": stage1["vq_launches"]})
+    held = stage1["held"].to(dev)
+    ref_cb, q_cb = stage1["codebook"].to(dev), bundle_q.codebook
+    nearest = torch.cdist(q_cb, ref_cb).min(dim=1).values
+    backbone = get_model(STAGE1_CFG["model"], NUM_CLASSES)
+    backbone.load_state_dict(bundle_q.backbone_state)
+    backbone.requires_grad_(False).to(dev)
+    n_feats = 2 * S1_BATCH * L_INST
+    f_q = collect_mid_features(backbone, device_images(2, S1_BATCH, 3), ENCODE_LAYER, n_feats,
+                               quant=True)
+    f_b = collect_mid_features(backbone, device_images(2, S1_BATCH, 3), ENCODE_LAYER, n_feats)
+    centers = {
+        "inertia_int8_centers": kmeans.kmeans_inertia(q_cb, held).item(),
+        "inertia_fp32_centers": kmeans.kmeans_inertia(ref_cb, held).item(),
+        "nearest_fp32_center_mean": nearest.mean().item(),
+        "nearest_fp32_center_max": nearest.max().item(),
+        "fp32_center_norm_mean": ref_cb.norm(dim=1).mean().item(),
+    }
+    feat_drift = {"rel_err": ((f_q - f_b).norm() / f_b.norm()).item(),
+                  "token_cosine_min": torch.nn.functional.cosine_similarity(
+                      f_q, f_b, dim=-1).min().item()}
+    phase("stage1_int8", features=S1_FEATURES, batches=chunks, batch=S1_BATCH, codes=NUM_CODES,
+          seconds=s1_seconds, features_per_s=S1_FEATURES / s1_seconds,
+          fp32_seconds=stage1["seconds"], fp32_features_per_s=S1_FEATURES / stage1["seconds"],
+          launches=got, expected=expected, centers=centers, feature_drift=feat_drift,
+          drift_bounds=QUANT_DRIFT, **card_note)
+    require(got == expected, f"stage-1 int8 launches {got} != {expected}")
+    require(bool(torch.isfinite(q_cb).all()) and tuple(q_cb.shape) == (NUM_CODES, EMBED_DIM),
+            "stage-1 int8 codebook")
+    require(feat_drift["rel_err"] < QUANT_DRIFT["rel_err"]
+            and feat_drift["token_cosine_min"] > QUANT_DRIFT["cosine"],
+            f"stage-1 int8 feature drift {feat_drift} beyond {QUANT_DRIFT}")
+    del held, f_q, f_b, backbone, bundle_q
+    torch.cuda.empty_cache()
+    lap("46_stage1_int8")
+    return {"rows": rows, "seconds": seconds}
+
+
 def run_grid_phases(dev, card_note: dict) -> dict:
     """``grid_phases`` in a temporary directory it removes."""
     torch.cuda.empty_cache()
@@ -3956,7 +4518,8 @@ def main(grid_only: bool = False) -> None:
     # weight gradients). atlas_opt.cu: adamw_rows_warp_kernel for rows up to
     # 1024 wide (4 moment-type pairs x 4-column pieces at 4 and 8 a lane,
     # 1-column pieces at 16 and 32) and adamw_rows_block_kernel past them
-    # (4 pairs).
+    # (4 pairs). quant.cu (phase 43): quantize_rows_kernel at 6 pieces a
+    # lane in 2 dtypes, int8_gemm_kernel in 2 output dtypes.
     for source, tag, count in (("attention.cu", "mhsa_tc", 16), ("graphconv.cu", "tc_kernel", 8),
                                ("mlp.cu", "tc_kernel", 9), ("mlp.cu", "_wg_kernel", 8),
                                ("mlp.cu", "gemm_dual", 1), ("mlp.cu", "gemm_fma", 5),
@@ -3971,7 +4534,9 @@ def main(grid_only: bool = False) -> None:
                                ("layernorm.cu", "ln_bwd_kernel", 18),
                                ("layernorm.cu", "ln_param_sum", 1), ("embed_bwd.cu", "embed_", 6),
                                ("atlas_opt.cu", "adamw_rows_warp", 16),
-                               ("atlas_opt.cu", "adamw_rows_block", 4)):
+                               ("atlas_opt.cu", "adamw_rows_block", 4),
+                               ("quant.cu", "quantize_rows_kernel", 12),
+                               ("quant.cu", "int8_gemm_kernel", 2)):
         tc_ptxas = {name: dict(zip(("registers", "spill_stores", "spill_loads"), r))
                     for name, r in ptxas_report(build_log, source).items() if tag in name}
         phase("ptxas", source=source, tag=tag, kernels=tc_ptxas)
@@ -5087,6 +5652,9 @@ def main(grid_only: bool = False) -> None:
     require(agree >= 0.999, f"stage-1 k-means ids agree on {agree} < 0.999")
     require(lock["near_ties_only"], "stage-1 k-means: a mismatch is no near-tie")
     require(lock["center_err"] <= 1e-4, f"stage-1 centers differ by {lock['center_err']}")
+    # what phase 46 (stage 1 on the int8 route) is held beside, the sample on the host
+    s1_ref = {"seconds": s1_seconds, "codebook": bundle.codebook.cpu(), "held": held[:50_000].cpu(),
+              "chunks": len(chunks), "vq_launches": minibatches + S1_LLOYD_ITERS}
     del feats, held, backbone, init_state, mb
     torch.cuda.empty_cache()
 
@@ -5257,6 +5825,11 @@ def main(grid_only: bool = False) -> None:
     # 40-42. several ranks: a one-rank NCCL grid, then two ranks (model 2,
     # data 2) on the cards present
     grid = run_grid_phases(dev, card_note)
+
+    # 43-46. the int8 (W8A8) route: its kernels, ImageNet serving in bf16
+    # and fp32, stage 1 at CIFAR
+    torch.cuda.empty_cache()
+    quant = quant_phases(dev, card_note, s1_ref, DeviceImages)
 
     # the least time the card could take for the timed work of each kernel
     def conv_work(args, bwd=False):
@@ -5452,7 +6025,21 @@ def main(grid_only: bool = False) -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "worker_launches": {},
         })
+    # phases 43-46's rows: the int8 route's kernels, which replace XLA's int8
+    # product (no Pallas kernel), timed at DeiT-Small's qkv projection of a
+    # serving microbatch, launches from phase 44's serving run
+    for name in ("quantize_rows", "int8_gemm"):
+        r = quant["rows"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "schemanet_torch/csrc/quant.cu",
+            "replaces": QUANT_REPLACES, "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"library_note": r["library_note"]} if "library_note" in r else {}),
+            "worker_launches": {},
+        })
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
+    phase("quant_seconds", total=sum(quant["seconds"].values()), **quant["seconds"])
     phase("imagenet_seconds", total=sum(imagenet["seconds"].values()), **imagenet["seconds"])
     phase("imagefolder_seconds", total=sum(folder["seconds"].values()), **folder["seconds"])
     phase("total", seconds=time.perf_counter() - t_start, **card_note)

@@ -12,8 +12,9 @@ Subcommands, with the JAX CLI's flags and defaults and one more, ``--device``
     serve    (microbatched predict; --explain, --out .npz, --graph-sample GraphML)
 
 Run as ``python -m schemanet_torch.cli <subcommand> ...``. Configs are YAML
-(read with PyYAML) or JSON (read without it). Flags the port cannot honour
-yet raise ``SystemExit`` naming their ROADMAP item: ``--quant-int8`` (A11),
+(read with PyYAML) or JSON (read without it). ``--quant-int8`` (``extract``,
+``serve``) runs the backbone's W8A8 route (``ops/quant.py``). Flags the port
+cannot honour yet raise ``SystemExit`` naming their ROADMAP item:
 ``--save-features`` and ``--saved-features-fp`` (A9).
 
 Several GPUs (``train``, ``extract``, ``init``): ``--mesh-data D
@@ -108,7 +109,7 @@ def build_parser() -> argparse.ArgumentParser:
                            help="backbone compute dtype (bfloat16 for speed; fp32 = reference "
                                 "parity)")
     p_extract.add_argument("--quant-int8", action="store_true",
-                           help="W8A8 backbone forward (not ported: ROADMAP A11)")
+                           help="W8A8 backbone forward (int8 projections)")
 
     p_export = sub.add_parser("export", help="stage 2: export frozen bundle")
     _common_flags(p_export)
@@ -132,7 +133,7 @@ def build_parser() -> argparse.ArgumentParser:
                               "of images, or 'synthetic:N'")
     p_serve.add_argument("--microbatch", type=int, default=64)
     p_serve.add_argument("--quant-int8", action="store_true",
-                         help="W8A8 backbone (not ported: ROADMAP A11)")
+                         help="W8A8 backbone (int8 projections)")
     p_serve.add_argument("--explain", action="store_true",
                          help="also compute attribution maps / instance graphs")
     p_serve.add_argument("--graph-sample", type=int, default=None,
@@ -175,8 +176,6 @@ def _refuse_unported(args) -> None:
         raise SystemExit("--multi-host joins the rendezvous torchrun sets ("
                          + ", ".join(RENDEZVOUS_KEYS) + " are unset): launch with torchrun "
                          "--nproc-per-node N -m schemanet_torch.cli ...")
-    if getattr(args, "quant_int8", False):
-        raise SystemExit("--quant-int8 is not ported yet (ROADMAP A11)")
     if getattr(args, "save_features", False) or getattr(args, "saved_features_fp", None):
         raise SystemExit("--save-features/--saved-features-fp are not ported yet (ROADMAP A9)")
 
@@ -268,7 +267,8 @@ def cmd_extract(args):
     loader = _stage_loader(get_dataset(data_cfg, "train"), data_cfg, args.batch_size, args.seed,
                            mesh)
     centers = extract_codebook(model, loader, encode_layer, num_clusters,
-                               max_features=args.max_features, seed=args.seed, mesh=mesh)
+                               max_features=args.max_features, seed=args.seed, mesh=mesh,
+                               quant=args.quant_int8)
     if not _is_writer(mesh):
         return 0
     centers = centers.float().cpu()
@@ -364,7 +364,8 @@ def cmd_serve(args):
     bundle_path = os.path.expanduser(schema_cfg["bundle"])
     img_size = load_bundle(bundle_path).img_size
     server = load_serve_predictor(bundle_path, schema_cfg, args.ckpt, num_classes,
-                                  microbatch=args.microbatch, device=args.device)
+                                  microbatch=args.microbatch, device=args.device,
+                                  quant_int8=args.quant_int8)
     images = _load_serve_images(args.images, img_size, args.device)
 
     logits = server.predict(images)

@@ -1,7 +1,7 @@
 """Card times of the frozen ``attn_block`` (with and without the head-mean),
 ``ffn_block`` (bf16 and fp32), the ``fused_mlp`` forward and backward, ``embed_grad``,
-``adamw_project_rows``, ``vq_assign`` and, at ImageNet's shapes, ``sym_conv``
-at the shapes of their paths, each beside a PyTorch yardstick where one is
+``adamw_project_rows``, ``vq_assign``, at ImageNet's shapes ``sym_conv``, and
+the int8 route's ``quantize_rows`` and ``int8_gemm``, at the shapes of their paths, each beside a PyTorch yardstick where one is
 named, in bf16 unless said.
 
 * ``attn_block`` at serving's microbatch (x [64, 197, 192], 3 heads), beside
@@ -56,7 +56,15 @@ named, in bf16 unless said.
   ``adamw_project_rows`` with bf16 moments on the ImageNet edge weights
   ([500,000, 500]); ``sym_conv`` and ``sym_conv_bwd`` on the ImageNet class
   graphs ([1000, 500, 500] x [1000, 500, 1024]) beside ``torch.bmm`` on a
-  pre-formed E_sym (the products alone, a note).
+  pre-formed E_sym (the products alone, a note);
+* where the checkout has the int8 route (``ops/kernels/quant.py``), its two
+  kernels at the four projections of a serving microbatch (12,608 rows;
+  qkv, out, fc1, fc2) at DeiT-Small's width (``--quant``: also DeiT-Tiny's
+  and DeiT-Base's), bf16 activations: ``quantize_rows`` of the activation
+  and of the fp32 weight, and ``int8_gemm`` with its epilogue, each beside
+  its plain version, the product beside ``torch._int_mm`` on the same int8
+  operands (the int32 product alone, without the epilogue: a note) and
+  beside the bf16 ``F.linear`` it stands in for (a note).
 
 Each gets ``ms``, CUDA events around one window of 20 calls after warm-up,
 and ``device_ms``, the ``torch.profiler`` device time of a call (and, for
@@ -66,8 +74,9 @@ that time split by kernel name). fp32 products run
 with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` False). Uses only
 the kernels' public wrappers, so the same file times an older checkout of
 the port: from that checkout's root, ``python -m schemanet_torch.kernel_times``
-(``--widths``: only the FFN rows at 384 and 768). Prints the card's name and
-power limit, then one JSON line.
+(``--widths``: only the FFN rows at 384 and 768; ``--quant``: only the
+int8 route's rows). Prints the card's name and power limit, then one JSON
+line.
 """
 
 from __future__ import annotations
@@ -347,6 +356,51 @@ def measure(dev: torch.device, inst_ids=None) -> dict:
         out.update(_imagenet_widths(dev, rnd))
     else:
         out["adamw_project_rows"] = _adamw_rows(dev, rnd)["adamw_project_rows"]
+    if _has_quant():
+        out.update(_quant_rows(dev, rnd, widths=(384,)))
+    return out
+
+
+def _has_quant() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(f"{__package__}.ops.kernels.quant") is not None
+
+
+def projections(d: int):
+    """(name, out, in) of an encoder layer's four projections at width d."""
+    return (("qkv", 3 * d, d), ("out", d, d), ("fc1", 4 * d, d), ("fc2", d, 4 * d))
+
+
+def _quant_rows(dev: torch.device, rnd, widths=(192, 384, 768)) -> dict:
+    """The int8 route's kernels at each projection of a serving microbatch
+    (12,608 rows, bf16 activations, fp32 weights) at these widths:
+    ``quantize_rows`` of x and of the weight, ``int8_gemm`` (bf16 out, with
+    bias), each beside its plain version; the product beside
+    ``torch._int_mm`` on the same int8 operands (no epilogue) and the bf16
+    ``F.linear`` it stands in for (notes)."""
+    from .ops.kernels import quant as qk
+
+    out, rows = {}, 64 * 197
+    for d in widths:
+        for name, n, k in projections(d):
+            tag = f"{name}_d{d}"
+            x = rnd(rows, k)
+            w, b = rnd(n, k, scale=k**-0.5, dtype=torch.float32), rnd(n, dtype=torch.float32)
+            xq, xs = qk.quantize_rows(x)
+            wq, ws = qk.quantize_rows(w)
+            wt, w16, b16 = wq.t(), w.to(torch.bfloat16), b.to(torch.bfloat16)
+            out[f"quantize_rows_{tag}"] = _both(lambda: qk.quantize_rows(x))
+            out[f"quantize_rows_{tag}_plain"] = {"ms": time_ms(
+                lambda: qk.quantize_rows_reference(x))}
+            out[f"quantize_rows_weight_{tag}"] = _both(lambda: qk.quantize_rows(w))
+            out[f"int8_gemm_{tag}"] = _both(
+                lambda: qk.int8_gemm(xq, wq, xs, ws, b, torch.bfloat16))
+            out[f"int8_gemm_{tag}_plain"] = {"ms": time_ms(
+                lambda: qk.int8_gemm_reference(xq, wq, xs, ws, b, torch.bfloat16))}
+            out[f"int8_gemm_{tag}_int_mm"] = {"ms": time_ms(lambda: torch._int_mm(xq, wt))}
+            out[f"int8_gemm_{tag}_bf16_linear"] = {"ms": time_ms(lambda: F.linear(x, w16, b16))}
+            del x, w, xq, wq
     return out
 
 
@@ -464,11 +518,12 @@ def _imagenet_widths(dev: torch.device, rnd) -> dict:
 
 
 def main() -> None:
-    """``python -m schemanet_torch.kernel_times [--widths]``: every row, or
-    with ``--widths`` only ``_width_rows`` (the frozen layer halves at 384
-    and 768, the wide ``fused_mlp`` forward and backward, both
+    """``python -m schemanet_torch.kernel_times [--widths | --quant]``: every
+    row, or with ``--widths`` only ``_width_rows`` (the frozen layer halves
+    at 384 and 768, the wide ``fused_mlp`` forward and backward, both
     ``adamw_project_rows`` rows), which a copy of this file dropped into an
-    older checkout times there too."""
+    older checkout times there too, or with ``--quant`` only the int8
+    route's rows at widths 192, 384 and 768."""
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -476,13 +531,13 @@ def main() -> None:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
     dev = torch.device("cuda")
-    if "--widths" in sys.argv[1:]:
+    if {"--widths", "--quant"} & set(sys.argv[1:]):
         g = torch.Generator().manual_seed(0)
 
         def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
             return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
 
-        rows = _width_rows(dev, rnd)
+        rows = _width_rows(dev, rnd) if "--widths" in sys.argv[1:] else _quant_rows(dev, rnd)
     else:
         rows = measure(dev)
     print(json.dumps({"kernel_times": rows, "card": smi.splitlines()[0]}), flush=True)

@@ -2,10 +2,17 @@
 
 Port of ``schemanet_tpu/models/attention.py``: the qkv projection is fused,
 its output ordered ``(3, H, d)``; attention maps are ``[bs, H, n, n]``.
-``forward`` is the plain per-op path of frozen forwards on the CPU (on CUDA
-the frozen encoder layer runs the ``attn_block`` kernel instead,
-models/transformer.py); ``fused`` is the training path, through the
-``fused_mhsa`` kernel with its backward and in-kernel attention dropout.
+Three routes:
+
+* ``forward``, the plain per-op path of frozen forwards on the CPU (on CUDA
+  the frozen encoder layer runs the ``attn_block`` kernel instead,
+  models/transformer.py);
+* ``fused``, the training path, through the ``fused_mhsa`` kernel with its
+  backward and in-kernel attention dropout;
+* ``quant``, the W8A8 frozen forward: int8 qkv and out projections
+  (``ops/quant.py``: the ``quantize_rows`` and ``int8_gemm`` kernels on
+  CUDA) around ``fused_mhsa`` at p = 0, or around the plain per-op
+  attention where an attention map is asked for.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from torch import nn
 
 from ..ops.kernels import attention as ak
 from ..ops.kernels.encoder_block import dense
+from ..ops.quant import int8_dense
 from ..parallel.mesh import gathered
 
 
@@ -43,14 +51,32 @@ class MultiHeadSelfAttention(nn.Module):
         self.linear_qkv = nn.Linear(embed_dim, 3 * embed_dim)
         self.linear_out = nn.Linear(embed_dim, embed_dim)
 
-    def forward(self, seq: torch.Tensor):
-        bs, n, _ = seq.shape
-        qkv = dense(seq, gathered(self.linear_qkv.weight), gathered(self.linear_qkv.bias))
+    def _per_op(self, qkv: torch.Tensor):
+        """(out [bs, n, dim], attn, attn_raw) of the plain per-op attention
+        on the fused qkv output."""
+        bs, n, _ = qkv.shape
         qkv = qkv.reshape(bs, n, 3, self.num_heads, self.embed_dim // self.num_heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)  # each [bs, H, n, d]
         out, attn, attn_raw = dot_product_attention(q, k, v)
-        out = out.transpose(1, 2).reshape(bs, n, self.embed_dim)
+        return out.transpose(1, 2).reshape(bs, n, self.embed_dim), attn, attn_raw
+
+    def forward(self, seq: torch.Tensor):
+        qkv = dense(seq, gathered(self.linear_qkv.weight), gathered(self.linear_qkv.bias))
+        out, attn, attn_raw = self._per_op(qkv)
         return dense(out, gathered(self.linear_out.weight), self.linear_out.bias), attn, attn_raw
+
+    def quant(self, seq: torch.Tensor, maps: bool = False):
+        """The W8A8 frozen forward: (out, attn, attn_raw). The qkv and out
+        projections are int8 (``ops/quant.py``); between them ``fused_mhsa``
+        at p = 0 (its plain version on the CPU), or with ``maps`` the plain
+        per-op attention, which alone gives the maps (None otherwise)."""
+        qkv = int8_dense(seq, gathered(self.linear_qkv.weight), gathered(self.linear_qkv.bias))
+        if maps:
+            out, attn, attn_raw = self._per_op(qkv)
+        else:
+            out, attn, attn_raw = ak.fused_mhsa(qkv, self.num_heads), None, None
+        return (int8_dense(out, gathered(self.linear_out.weight), self.linear_out.bias), attn,
+                attn_raw)
 
     def fused(self, seq: torch.Tensor, seed: Optional[int] = None, item0: int = 0
               ) -> torch.Tensor:

@@ -28,6 +28,7 @@ from torch import nn
 from ..ops.kernels import mlp as mk
 from ..ops.kernels.dropmask import SEED_HIGH
 from ..ops.kernels.encoder_block import dense
+from ..ops.quant import int8_dense
 from ..parallel.mesh import gathered
 
 ACTIVATIONS = {
@@ -165,3 +166,11 @@ class MLP(nn.Module):
         l1, l2 = self.linear1, self.linear2
         return mk.fused_mlp(x, gathered(l1.weight), gathered(l1.bias), gathered(l2.weight),
                             l2.bias, self.activation, p, seed, row0)
+
+    def quant(self, x: torch.Tensor) -> torch.Tensor:
+        """The W8A8 frozen forward (``ops/quant.py``): int8 fc1, the
+        activation as the plain op in x's dtype (the JAX package applies it
+        outside the int8 product too), int8 fc2."""
+        l1, l2 = self.linear1, self.linear2
+        h = get_activation(self.activation)(int8_dense(x, gathered(l1.weight), gathered(l1.bias)))
+        return int8_dense(h, gathered(l2.weight), l2.bias)

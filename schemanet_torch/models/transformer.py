@@ -1,7 +1,8 @@
 """Pre-norm Transformer encoder with declarative activation capture.
 
 Port of ``schemanet_tpu/models/transformer.py`` for the mask-free pre-norm
-stack, in its two forwards. Probe names:
+stack, in three routes: the frozen forward, its int8 (W8A8) variant and the
+training forward. Probe names:
 
     layers_{i}.out        — output sequence of encoder layer i
     layers_{i}.attn_hmean — head-mean of the pre-softmax scaled scores [bs, n, n]
@@ -18,6 +19,17 @@ the ``attn_block`` kernel itself. A layer with ``attn``, ``attn_raw``,
 ``resid1`` or ``resid2`` captured runs the plain per-op path instead, as in
 the JAX package (the kernels keep none of them), and so does every layer on
 the CPU; there ``attn_hmean`` is the fp32 mean over heads of the raw scores.
+
+W8A8 frozen forward (``quant=True``: stage-1 extraction, serving, the
+SchemaNet backbone under ``schema_net.quant_backbone``): as in the JAX
+package the whole-layer kernels give way to the per-op route, with
+``fused_layernorm`` for both norms, the four projections int8
+(``ops/quant.py``: ``quantize_rows`` of x and of the weight, then
+``int8_gemm``), ``fused_mhsa`` at p = 0 between qkv and out, gelu as the
+plain op between fc1 and fc2. A layer with ``attn_hmean``, ``attn`` or
+``attn_raw`` captured takes the plain per-op attention between its int8
+projections (the head-mean from ``attn_raw``); ``resid1`` and ``resid2``
+come with every layer. On the CPU the kernels' plain versions run.
 
 Training forward (``deterministic=False``), as stage 0 runs it:
 ``fused_layernorm``, ``fused_mhsa`` (attention dropout in the kernel),
@@ -57,15 +69,19 @@ class EncoderLayer(nn.Module):
         self.drop = Dropout(dropout) if dropout else None
 
     def forward(self, seq: torch.Tensor, capture_hmean: bool = False, deterministic: bool = True,
-                rng: Optional[DropoutRNG] = None, plain: bool = False
+                rng: Optional[DropoutRNG] = None, plain: bool = False, quant: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(output, probes). ``plain`` asks for the per-op path of a frozen
-        forward on any device, which alone gives the ``PLAIN_PROBES``."""
+        forward on any device, which alone gives the ``PLAIN_PROBES``; with
+        ``quant`` (the W8A8 frozen forward) it asks for the per-op attention,
+        which alone gives the attention maps."""
         if not deterministic:
-            if capture_hmean or plain:
-                raise ValueError("the training forward has only the out probe")
+            if capture_hmean or plain or quant:
+                raise ValueError("the training forward has only the out probe, and no int8 route")
             out = self._train_forward(seq, rng)
             return out, {"out": out}
+        if quant:
+            return self._quant_forward(seq, capture_hmean, plain)
         if seq.is_cuda and not plain:
             return self._block_forward(seq, capture_hmean)
         n1, n2 = self.norm1, self.norm2
@@ -94,6 +110,24 @@ class EncoderLayer(nn.Module):
                            rng.kernel_seed() if live else None, item0 * seq.shape[1])
         return seq + (self.drop(x, rng.masks, rng.rows) if live else x)
 
+    def _quant_forward(self, seq, capture_hmean, maps):
+        """The W8A8 layer: ``fused_layernorm``, the int8 attention half, the
+        residual, ``fused_layernorm``, the int8 FFN, the residual; the
+        attention maps (and ``attn_hmean``, their fp32 mean over heads) only
+        where ``maps`` or ``capture_hmean`` asks for the per-op attention."""
+        n1, n2 = self.norm1, self.norm2
+        maps = maps or capture_hmean
+        x, attn, attn_raw = self.attention.quant(
+            lnk.fused_layernorm(seq, n1.weight, n1.bias, self.norm_eps), maps)
+        seq = seq + x
+        resid1 = seq
+        seq = seq + self.mlp.quant(lnk.fused_layernorm(seq, n2.weight, n2.bias, self.norm_eps))
+        probes = {"out": seq, "resid1": resid1, "resid2": seq}
+        if maps:
+            probes.update(attn=attn, attn_raw=attn_raw)
+            probes["attn_hmean"] = attn_raw.float().mean(dim=1).to(attn_raw.dtype)
+        return seq, probes
+
     def _block_forward(self, seq, capture_hmean):
         """Whole-layer fusion: the attention half and the FFN half are one
         hand-written kernel each."""
@@ -120,6 +154,8 @@ class EncoderLayer(nn.Module):
 
 # the probes only the plain per-op path keeps
 PLAIN_PROBES = ("attn", "attn_raw", "resid1", "resid2")
+# the probes only the per-op attention keeps (the int8 route's choice)
+MAP_PROBES = ("attn", "attn_raw", "attn_hmean")
 
 
 class Transformer(nn.Module):
@@ -143,15 +179,18 @@ class Transformer(nn.Module):
         end_layer: Optional[int] = None,
         deterministic: bool = True,
         rng: Optional[DropoutRNG] = None,
+        quant: bool = False,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Layers [start_layer, end_layer); the final norm only when the stack
-        runs to its end. ``deterministic=False`` is the training forward."""
+        runs to its end. ``deterministic=False`` is the training forward,
+        ``quant`` the W8A8 frozen forward."""
         end_layer = self.num_encoder_layers if end_layer is None else end_layer
         captured: Dict[str, torch.Tensor] = {}
         for i in range(start_layer, end_layer):
-            plain = any(f"layers_{i}.{kind}" in capture for kind in PLAIN_PROBES)
+            kinds = MAP_PROBES if quant else PLAIN_PROBES
+            plain = any(f"layers_{i}.{kind}" in capture for kind in kinds)
             seq, probes = self.layers[i](seq, f"layers_{i}.attn_hmean" in capture, deterministic,
-                                         rng, plain)
+                                         rng, plain, quant)
             for kind, value in probes.items():
                 if f"layers_{i}.{kind}" in capture:
                     captured[f"layers_{i}.{kind}"] = value

@@ -66,17 +66,21 @@ class ViT(nn.Module):
         return self.head(seq, deterministic)
 
     def encode_until(
-        self, img: torch.Tensor, end_layer: int, capture: Tuple[str, ...] = ()
+        self, img: torch.Tensor, end_layer: int, capture: Tuple[str, ...] = (),
+        quant: bool = False,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Patchify + layers [0, end_layer): the mid feature is the output of
-        ``layers_{end_layer-1}``."""
-        return self.transformer.run(self.embed(img), capture=capture, end_layer=end_layer)
+        ``layers_{end_layer-1}``. ``quant``: the layers' W8A8 forward."""
+        return self.transformer.run(self.embed(img), capture=capture, end_layer=end_layer,
+                                    quant=quant)
 
-    def resume_from_layer(self, seq: torch.Tensor, start_layer: int) -> Dict[str, torch.Tensor]:
+    def resume_from_layer(self, seq: torch.Tensor, start_layer: int, quant: bool = False
+                          ) -> Dict[str, torch.Tensor]:
         """Layers [start_layer, end) from the output of ``layers_{start_layer-1}``,
         the final norm and the head (deterministic): the rest of the model
-        after ``encode_until(img, start_layer)``."""
-        seq, _ = self.transformer.run(seq, start_layer=start_layer)
+        after ``encode_until(img, start_layer)``. ``quant``: the layers'
+        W8A8 forward."""
+        seq, _ = self.transformer.run(seq, start_layer=start_layer, quant=quant)
         return self.head(seq)
 
 

@@ -25,6 +25,7 @@ from .layernorm import (
     fused_layernorm_reference,
 )
 from .mlp import fused_mlp, fused_mlp_bwd, fused_mlp_bwd_reference, fused_mlp_reference
+from .quant import int8_gemm, int8_gemm_reference, quantize_rows, quantize_rows_reference
 from .vq import vq_assign_kernel, vq_assign_reference
 
 # (wrapper, attribute) of every launch counter, by kernel name
@@ -62,15 +63,19 @@ _COUNTERS = {
     "fused_layernorm_bwd": (fused_layernorm_bwd, "launches"),
     "fused_layernorm_bwd_vec": (fused_layernorm_bwd, "vec_launches"),  # 16-byte route's share
     "crop_resize": (crop_resize, "launches"),
+    "quantize_rows": (quantize_rows, "launches"),
+    "int8_gemm": (int8_gemm, "launches"),
     "ycc_to_rgb": (ycc_to_rgb, "launches"),
 }
 
 
 # the wrappers that also count their launches by shape (``shape_launches``):
 # GraphConv by (K, V, D), LayerNorm by (rows, d), so that the class graphs'
-# launches are told from the instance graphs'
+# launches are told from the instance graphs'; the int8 route's by (rows, k)
+# and (rows, n, k), so that weights are told from activations
 _SHAPE_COUNTERS = {"sym_conv": sym_conv, "sym_conv_bwd": sym_conv_bwd,
-                   "fused_layernorm": fused_layernorm, "fused_layernorm_bwd": fused_layernorm_bwd}
+                   "fused_layernorm": fused_layernorm, "fused_layernorm_bwd": fused_layernorm_bwd,
+                   "quantize_rows": quantize_rows, "int8_gemm": int8_gemm}
 
 
 def launch_counts() -> dict:

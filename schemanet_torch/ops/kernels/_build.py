@@ -48,6 +48,8 @@ _SIGNATURES = {
     "sn_layernorm_bwd": [_I, _I] + [_P] * 7 + [_L, _I, _F, _I, _P],
     "sn_crop_resize": [_P, _P, _P, _I, _I, _P],
     "sn_ycc_to_rgb": [_P, _P, _P, _I, _I, _I, _P],
+    "sn_quantize_rows": [_I, _P, _P, _P, _L, _I, _P],
+    "sn_int8_gemm": [_I] + [_P] * 6 + [_L, _I, _I, _P],
 }
 
 _lock = threading.Lock()

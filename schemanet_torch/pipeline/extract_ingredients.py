@@ -17,8 +17,9 @@ On a data-parallel grid (``mesh``) each rank runs the backbone on its slice
 of every batch (its loader built with ``process_index = data_index``); the
 features are gathered over the data group in the global batch's order, and
 k-means runs on them identically on every rank, as the JAX stage's global
-arrays do. Not ported: ``quant`` (the int8 backbone), and
-``save_features_path`` / ``cluster_saved_features``, which need h5py.
+arrays do. ``quant`` runs the backbone's W8A8 route (``ops/quant.py``), as
+the JAX stage's flag of that name does. Not ported: ``save_features_path``
+/ ``cluster_saved_features``, which need h5py.
 """
 
 from __future__ import annotations
@@ -40,25 +41,27 @@ def _image(loader, batch, device: torch.device) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _mid_features(model, image: torch.Tensor, encode_layer: int) -> torch.Tensor:
-    seq, _ = model.encode_until(image, end_layer=encode_layer + 1)
+def _mid_features(model, image: torch.Tensor, encode_layer: int, quant: bool) -> torch.Tensor:
+    seq, _ = model.encode_until(image, end_layer=encode_layer + 1, quant=quant)
     feats = seq[:, model.num_prefix_tokens:]  # strip the cls (and dist) tokens
     return feats.reshape(-1, feats.shape[-1])
 
 
 def collect_mid_features(model, loader, encode_layer: int, max_features: int,
-                         as_iterator: bool = False, mesh: Optional[Mesh] = None):
+                         as_iterator: bool = False, mesh: Optional[Mesh] = None,
+                         quant: bool = False):
     """[n, d] chunks, one per loader batch, of the patch tokens that leave
     layer ``encode_layer`` of the ViT/DeiT ``model``, until ``max_features``
     rows; on the model's device, in its dtype. ``as_iterator`` yields the
     chunks, otherwise they come back concatenated. With a ``mesh`` each
-    chunk is the global batch's, gathered over the data group."""
+    chunk is the global batch's, gathered over the data group. ``quant``:
+    the backbone's W8A8 route."""
     device = next(model.parameters()).device
 
     def gen() -> Iterator[torch.Tensor]:
         seen = 0
         for batch in loader:
-            flat = _mid_features(model, _image(loader, batch, device), encode_layer)
+            flat = _mid_features(model, _image(loader, batch, device), encode_layer, quant)
             if mesh is not None:
                 flat = gather_data(flat, mesh)
             flat = flat[: max_features - seen]
@@ -84,6 +87,7 @@ def extract_codebook(
     lloyd_sample: int = 200_000,
     generator: torch.Generator = None,
     mesh: Optional[Mesh] = None,
+    quant: bool = False,
 ) -> torch.Tensor:
     """Stream features into minibatch k-means (minibatches of 1,024 cut from
     each loader batch, seeded by k-means++ from the first
@@ -91,7 +95,8 @@ def extract_codebook(
     first ``lloyd_sample`` features. Returns the [M, d] fp32 centers on the
     model's device. k-means++ draws from ``generator``, or from a CPU
     generator seeded with ``seed``. With a ``mesh``, the features of the
-    data group's global batches (``collect_mid_features``)."""
+    data group's global batches (``collect_mid_features``); ``quant``, those
+    of the backbone's W8A8 route."""
     if generator is None:
         generator = torch.Generator().manual_seed(seed)
     held: List[torch.Tensor] = []
@@ -100,7 +105,7 @@ def extract_codebook(
     def stream():
         nonlocal held_count
         for chunk in collect_mid_features(model, loader, encode_layer, max_features,
-                                          as_iterator=True, mesh=mesh):
+                                          as_iterator=True, mesh=mesh, quant=quant):
             if held_count < lloyd_sample:
                 take = min(len(chunk), lloyd_sample - held_count)
                 held.append(chunk[:take])

@@ -48,11 +48,13 @@ def extract_stage(global_cfg: Dict[str, Any], loader, seed: int = 0, device=None
                   backbone_state: Optional[Dict[str, torch.Tensor]] = None,
                   dtype: str = "float32", max_features: int = 1_000_000,
                   lloyd_iters: int = 10, lloyd_sample: int = 200_000,
-                  mesh: Optional[Mesh] = None) -> Bundle:
+                  mesh: Optional[Mesh] = None, quant: bool = False) -> Bundle:
     """Stage 1: the codebook of ``discretization.vocabulary.size`` codes from
     the features of layer ``discretization.encoder_layer``, with the CLI's
     defaults (fp32 backbone, 1,000,000 features, 10 Lloyd iterations over
-    200,000). Returns the bundle that stage 3 and serving read."""
+    200,000); ``quant`` takes the features from the backbone's W8A8 route
+    (the CLI's ``--quant-int8``). Returns the bundle that stage 3 and
+    serving read."""
     dev = resolve_device(mesh.device if mesh is not None and device is None else device)
     disc = global_cfg["discretization"]
     model_cfg = global_cfg["model"]
@@ -65,7 +67,7 @@ def extract_stage(global_cfg: Dict[str, Any], loader, seed: int = 0, device=None
     encode_layer = parse_encode_layer(disc["encoder_layer"])
     codebook = extract_codebook(model, loader, encode_layer, disc["vocabulary"]["size"],
                                 max_features=max_features, seed=seed, lloyd_iters=lloyd_iters,
-                                lloyd_sample=lloyd_sample, mesh=mesh)
+                                lloyd_sample=lloyd_sample, mesh=mesh, quant=quant)
     return Bundle(model_cfg=model_cfg, encode_layer=encode_layer,
                   img_size=int(model_cfg.get("patch_embed", {}).get("img_size", 224)),
                   backbone_state=model.state_dict(), codebook=codebook,

@@ -43,18 +43,24 @@ class IngredientBackbone(nn.Module):
     ingredients [bs, L], attn [bs, L, L], attn_cls [bs, L]
 
     ``attn`` is the head-mean of the raw pre-softmax attention at the encode
-    layer, emitted in ``attn_dtype`` (the graph dtype)."""
+    layer, emitted in ``attn_dtype`` (the graph dtype). ``quant_backbone``
+    runs the frozen forward's W8A8 route (``ops/quant.py``), as the JAX
+    module's field of that name does."""
 
     def __init__(self, backbone: ViT, num_codes: int, code_dim: int, encode_layer: int,
-                 attn_dtype=torch.float32):
+                 attn_dtype=torch.float32, quant_backbone: bool = False):
         super().__init__()
         self.backbone, self.encode_layer, self.attn_dtype = backbone, encode_layer, attn_dtype
+        self.quant_backbone = quant_backbone
         self.vocabulary = nn.Parameter(torch.zeros(num_codes, code_dim))
 
-    def forward(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, img: torch.Tensor, quant: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+        """The ingredient interface of NHWC images; ``quant`` overrides
+        ``quant_backbone`` for this call (None keeps it)."""
         probe = f"layers_{self.encode_layer}.attn_hmean"
         mid_feat, captured = self.backbone.encode_until(
-            img, end_layer=self.encode_layer + 1, capture=(probe,)
+            img, end_layer=self.encode_layer + 1, capture=(probe,),
+            quant=self.quant_backbone if quant is None else quant,
         )
         n_prefix = self.backbone.num_prefix_tokens
         patches = mid_feat[:, n_prefix:]
@@ -83,6 +89,8 @@ class SchemaNetConfig:
     ref_pooling: bool = True
     # ... of each sample rather than the batch max: batch invariant (serving)
     per_sample_pooling: bool = False
+    # W8A8 frozen-backbone forward (schema_net.quant_backbone; ops/quant.py)
+    quant_backbone: bool = False
 
 
 class SchemaNetPredictor(nn.Module):
@@ -95,6 +103,7 @@ class SchemaNetPredictor(nn.Module):
         self.ingredient_backbone = IngredientBackbone(
             backbone, num_codes, code_dim, encode_layer,
             attn_dtype=graph_dtype(cfg.atlas.graph_precision),
+            quant_backbone=cfg.quant_backbone,
         )
         self.schema_net = SchemaAtlas(cfg.atlas)
         self.matcher = Matcher(
@@ -105,20 +114,21 @@ class SchemaNetPredictor(nn.Module):
         self.ingredient_backbone.requires_grad_(False)
 
     def forward(self, img: torch.Tensor, deterministic: bool = True, rng=None,
-                per_sample_pooling: Optional[bool] = None, requires_graph: bool = False
-                ) -> Dict[str, torch.Tensor]:
+                per_sample_pooling: Optional[bool] = None, requires_graph: bool = False,
+                quant: Optional[bool] = None) -> Dict[str, torch.Tensor]:
         """Logits and atlas of NHWC images. ``deterministic`` and ``rng`` are
         the trainer's training-forward arguments, which this model takes and
         ignores: its backbone is frozen and runs deterministic whatever its
         ``dropout``, as in the JAX package, and nothing else drops out, so the
         forward does not depend on the module's training mode.
         ``per_sample_pooling`` overrides ``cfg.per_sample_pooling`` for this
-        call (None keeps it). ``requires_graph`` adds the instance graphs
+        call (None keeps it), and ``quant`` overrides ``cfg.quant_backbone``,
+        the backbone's W8A8 route. ``requires_graph`` adds the instance graphs
         (``instance_ingredients``, ``instance_vertices``, ``instance_edges``,
         ``feat_mask``, ``num_slots``), the token ``ingredients`` [bs, L] and
         ``attn_cls`` [bs, L]."""
         with torch.no_grad():
-            output = self.ingredient_backbone(img)
+            output = self.ingredient_backbone(img, quant)
         instance = self.schema_net(output["ingredients"], output["attn"], output["attn_cls"])
         atlas = self.schema_net.get_atlas()
         sharded = self.schema_net.class_mesh is not None
@@ -173,16 +183,18 @@ class SchemaNetPredictor(nn.Module):
         tokens after the encode layer replaced by their nearest codes
         (``quantize``) or kept (not): the codebook-agreement evaluation's two
         classifiers (``train/evaluator.py`` ``CBEvaluation``). Layers after
-        the encode layer run deterministic, without the head-mean probe."""
+        the encode layer run deterministic, without the head-mean probe; the
+        whole backbone takes its W8A8 route under ``cfg.quant_backbone``."""
         backbone = self.ingredient_backbone.backbone
         start = self.ingredient_backbone.encode_layer + 1
-        mid_feat, _ = backbone.encode_until(img, end_layer=start)
+        quant = self.ingredient_backbone.quant_backbone
+        mid_feat, _ = backbone.encode_until(img, end_layer=start, quant=quant)
         n_prefix = backbone.num_prefix_tokens
         patches = mid_feat[:, n_prefix:]
         if quantize:
             patches, _ = vq_encode(patches, self.ingredient_backbone.vocabulary)
         seq = torch.cat([mid_feat[:, :n_prefix], patches], dim=1)
-        return backbone.resume_from_layer(seq, start)["pred"]
+        return backbone.resume_from_layer(seq, start, quant=quant)["pred"]
 
 
 def build_predictor(
@@ -208,6 +220,7 @@ def build_predictor(
         gnn_activation=gnn_cfg.get("activation", "relu"),
         similarity=matcher_cfg.get("similarity", "inner_product"),
         ref_pooling=matcher_cfg.get("ref_pooling", True),
+        quant_backbone=schema_cfg.get("quant_backbone", False),
     )
     return SchemaNetPredictor(backbone, cfg, encode_layer, num_codes, code_dim, dtype)
 

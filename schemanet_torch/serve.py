@@ -6,7 +6,9 @@ padded by repeating its final image, so every call runs one shape. Serving
 pools each instance graph by its own live-slot count (``per_sample_pooling``,
 passed to every forward call): the reference's bs=1 semantics, which makes
 the logits of an image independent of the images it shares a microbatch
-with. The caller's model keeps its own pooling for training.
+with. The caller's model keeps its own pooling for training. The W8A8
+backbone (``quant_int8``, or the predictor's ``cfg.quant_backbone``) is
+passed the same way, as an argument of each call.
 
 ``explain`` returns, per image, the ingredient map [H, W], the instance graph
 and the class-attribution maps ``attribution[b, k, h, w]`` = the atlas
@@ -56,18 +58,23 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 class ServePredictor:
     """Serves ``predictor`` on ``device``: CUDA unless the caller passes
-    ``device="cpu"``; without a GPU the default raises.
+    ``device="cpu"``; without a GPU the default raises. ``quant_int8`` runs
+    the frozen backbone's W8A8 route (``ops/quant.py``: int8 projections on
+    the ``quantize_rows`` and ``int8_gemm`` kernels), as does a predictor
+    whose ``cfg.quant_backbone`` is set.
 
     The model is moved to the serving device in place (``Module.to`` moves
     the caller's module). Nothing else of it changes: its config, its
     matcher's pooling and its training mode stay as they were, since the
-    predictor's forward does not depend on the mode and the per-sample pooling
-    is an argument of each call."""
+    predictor's forward does not depend on the mode, and the per-sample
+    pooling and the int8 route are arguments of each call."""
 
-    def __init__(self, predictor: SchemaNetPredictor, microbatch: int = 64, device=None):
+    def __init__(self, predictor: SchemaNetPredictor, microbatch: int = 64, device=None,
+                 quant_int8: bool = False):
         self.microbatch = microbatch
         self.device = resolve_device(device)
         self.predictor = predictor.to(self.device)
+        self.quant = bool(quant_int8 or predictor.cfg.quant_backbone)
 
     def _microbatches(self, images: torch.Tensor) -> Iterator[Tuple[torch.Tensor, int]]:
         mb = self.microbatch
@@ -87,7 +94,7 @@ class ServePredictor:
         """images [n, H, W, C] float (normalised), on any device -> logits
         [n, K] on the serving device."""
         images = images.to(self.device, torch.float32)
-        outs = [self.predictor(chunk, per_sample_pooling=True)["pred"][:n_valid]
+        outs = [self.predictor(chunk, per_sample_pooling=True, quant=self.quant)["pred"][:n_valid]
                 for chunk, n_valid in self._microbatches(images)]
         return torch.cat(outs)
 
@@ -100,7 +107,8 @@ class ServePredictor:
 
     @torch.no_grad()
     def _explain_microbatch(self, chunk: torch.Tensor) -> Dict[str, torch.Tensor]:
-        out = self.predictor(chunk, per_sample_pooling=True, requires_graph=True)
+        out = self.predictor(chunk, per_sample_pooling=True, requires_graph=True,
+                             quant=self.quant)
         c = self.predictor.cfg.atlas
         ingredients = out["ingredients"]  # [bs, L]
         table = code_weight_table(out["class_vertices"], out["class_ingredients"],
@@ -167,12 +175,14 @@ def load_serve_predictor(
     microbatch: int = 64,
     device=None,
     dtype: torch.dtype = torch.float32,
+    quant_int8: bool = False,
 ) -> ServePredictor:
     """A ``ServePredictor`` from the port's bundle (``pipeline/bundle.py``)
     and a checkpoint of the trained predictor (``train/common.py``
     ``checkpoint_file``: a ``<tag>.pt`` file, a tag's path or a checkpoint
     directory), which sets every parameter and buffer. ``dtype`` is the
-    compute dtype; ``device`` is CUDA unless the caller passes "cpu"."""
+    compute dtype; ``device`` is CUDA unless the caller passes "cpu";
+    ``quant_int8`` serves the W8A8 backbone."""
     from .pipeline.bundle import load_bundle
     from .schema.predictor import build_predictor
     from .train.common import restore_model_state
@@ -182,4 +192,4 @@ def load_serve_predictor(
     predictor = build_predictor(bundle.model_cfg, schema_cfg, num_classes, m, d,
                                 bundle.encode_layer, dtype=dtype)
     predictor.load_state_dict(restore_model_state(ckpt_path))
-    return ServePredictor(predictor, microbatch=microbatch, device=device)
+    return ServePredictor(predictor, microbatch=microbatch, device=device, quant_int8=quant_int8)

@@ -113,8 +113,6 @@ def test_json_configs_without_pyyaml(tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["serve", "--quant-int8", "--ckpt", "c", "--images", "synthetic:1"], "A11"),
-    (["extract", "--quant-int8", "--ckpt", "c", "--save-path", "s"], "A11"),
     (["extract", "--save-features", "--ckpt", "c", "--save-path", "s"], "A9"),
     (["extract", "--saved-features-fp", "f.h5", "--ckpt", "c", "--save-path", "s"], "A9"),
 ])
@@ -224,6 +222,94 @@ def test_cli_chain_on_the_cpu(tmp_path):
     for key, value in explained.items():
         np.testing.assert_array_equal(saved[key], value, err_msg=key)
     assert saved["attribution"].shape == (6, CLASSES, 4, 4)
+
+
+@pytest.fixture(scope="module")
+def synthetic_chain(tmp_path_factory):
+    """The synthetic chain's files without stage 0: ``extract`` and ``export``
+    from a reference ``.pth``, ``init``, ``train --worker schema_net_worker``;
+    returns (root, ingredient config, schema config path, schema_net block,
+    common flags)."""
+    root = tmp_path_factory.mktemp("quant_chain")
+    data = {"name": "synthetic", "num_classes": CLASSES, "image_size": 8, "resize": 16,
+            "train": {"num_samples": 8}, "val": {"num_samples": 4}}
+    (root / "datasets").mkdir()
+    _write(root / "datasets" / "synthetic.json", data)
+    pth = save_reference(root / "ref.pth",
+                         reference_state_dict(dim=32, layers=2, classes=1000, img=16, patch=4))
+    train = {"train_epochs": 1, "batch_size": 4, "num_workers": 1, "val_interval": 1,
+             "optimizer": {"name": "AdamW", "lr": 1e-3}, "clip_max_norm": 0.1}
+    ingredient = _write(root / "ingredient.json", {
+        "dataset": "datasets/synthetic.json", "model": MODEL,
+        "discretization": {"vocabulary": {"size": CODES, "dim": 32},
+                           "encoder_layer": "module.transformer.layers.1"}})
+    schema_cfg = {"bundle": str(root / "bundle"), "initial_state_fp": str(root / "atlas.pt"),
+                  "gnn": {"embed_dim": 16, "num_layers": 2},
+                  "ir_atlas": {"feat_h": 4, "feat_w": 4, "clamp_edge_attn": -1.0,
+                               "prune_node_threshold": 0.001}}
+    schema = _write(root / "schema.json", {
+        "dataset": "datasets/synthetic.json", "training": train,
+        "validation": {"batch_size": 4, "num_workers": 1}, "schema_net": schema_cfg,
+        "loss": {"name": "schema_inference_loss", "weight_dict": {"cls": 1.0}}})
+    common = ["--device", "cpu", "--seed", "3"]
+    for argv in (["extract", "--cfg", ingredient, "--ckpt", pth, "--save-path", str(root / "codes"),
+                  "--batch-size", "4", "--max-features", "128", "--log-dir", str(root / "s1")],
+                 ["export", "--cfg", ingredient, "--ckpt", pth, "--vocabulary-fp",
+                  str(root / "codes" / f"cluster_{CODES}_from_128.npy"), "--save-path",
+                  str(root / "bundle"), "--num-classes", str(CLASSES), "--log-dir",
+                  str(root / "s2")],
+                 ["init", "--cfg", schema, "--save-fp", str(root / "atlas.pt"), "--batch-size",
+                  "4", "--log-dir", str(root / "s3")],
+                 ["train", "--cfg", schema, "--worker", "schema_net_worker", "--log-dir",
+                  str(root / "s4")]):
+        assert cli.main(argv + common) == 0, argv
+    return root, ingredient, pth, schema, schema_cfg, common
+
+
+@pytest.mark.parametrize("command", ["serve", "extract"])
+def test_quant_int8_flag_runs(synthetic_chain, command):
+    """``--quant-int8`` runs the backbone's W8A8 route on the synthetic chain:
+    ``serve`` prints the logits of ``load_serve_predictor(...,
+    quant_int8=True)`` bit for bit (not those of the unquantised server),
+    ``extract`` writes the codebook of ``extract_codebook(..., quant=True)``
+    (not that of the unquantised features)."""
+    from schemanet_torch.models.port import load_pretrain_into
+    from schemanet_torch.models.vit import get_model
+    from schemanet_torch.pipeline import extract_codebook
+    from schemanet_torch.schema.predictor import init_parameters_
+    from schemanet_torch.serve import load_serve_predictor
+
+    root, ingredient, pth, schema, schema_cfg, common = synthetic_chain
+    if command == "serve":
+        out = root / "served_quant.npz"
+        assert cli.main(["serve", "--cfg", schema, "--ckpt", str(root / "s4" / "ckpt"),
+                         "--images", "synthetic:6", "--microbatch", "4", "--quant-int8",
+                         "--out", str(out), "--log-dir", str(root / "serve"), *common]) == 0
+        images = np.random.default_rng(0).normal(size=(6, 16, 16, 3)).astype(np.float32)
+
+        def server(quant):
+            return load_serve_predictor(str(root / "bundle"), dict(schema_cfg),
+                                        str(root / "s4" / "ckpt"), CLASSES, microbatch=4,
+                                        device="cpu", quant_int8=quant)
+
+        logits = np.load(out)["logits"]
+        np.testing.assert_array_equal(logits, server(True).predict(images))
+        assert not np.array_equal(logits, server(False).predict(images))
+        return
+    save = root / "codes_quant"
+    assert cli.main(["extract", "--cfg", ingredient, "--ckpt", pth, "--save-path", str(save),
+                     "--batch-size", "4", "--max-features", "128", "--quant-int8",
+                     "--log-dir", str(root / "s1_quant"), *common]) == 0
+    got = np.load(save / f"cluster_{CODES}_from_128.npy")
+    model = get_model(MODEL, CLASSES)  # as the CLI loads it
+    init_parameters_(model, torch.Generator().manual_seed(0))
+    load_pretrain_into(model, pth)
+    model.requires_grad_(False)
+    data = json.loads((root / "datasets" / "synthetic.json").read_text())
+    loader = cli._stage_loader(cli.get_dataset(data, "train"), data, 4, 3)
+    want = extract_codebook(model, loader, 1, CODES, max_features=128, seed=3, quant=True)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert not np.array_equal(got, np.load(root / "codes" / f"cluster_{CODES}_from_128.npy"))
 
 
 FIXTURES = REPO / "tests" / "fixtures" / "jpeg"

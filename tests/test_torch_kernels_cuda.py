@@ -28,7 +28,10 @@ backward's weight and bias gradients are equal bit for bit over two calls
 too. The image pipeline's ``crop_resize`` and ``ycc_to_rgb`` equal their
 plain versions bit for bit (the same operations in the same order), and
 the nvJPEG route's pixels lie within 3 levels of libjpeg's on the JPEG
-fixtures (mean under 0.2 a byte: nvJPEG's IDCT).
+fixtures (mean under 0.2 a byte: nvJPEG's IDCT). The int8 route's
+``quantize_rows`` and ``int8_gemm`` equal their plain versions bit for bit
+(the same IEEE divisions and rounding, exact int32 sums, the same fp32
+epilogue in the same order).
 """
 
 import pytest
@@ -42,6 +45,7 @@ from schemanet_torch.ops.kernels import graphconv as gc
 from schemanet_torch.ops.kernels import imagepipe as ipk
 from schemanet_torch.ops.kernels import layernorm as lnk
 from schemanet_torch.ops.kernels import mlp as mk
+from schemanet_torch.ops.kernels import quant as qk
 from schemanet_torch.ops.kernels import vq as vqk
 
 pytestmark = pytest.mark.cuda
@@ -769,3 +773,84 @@ def test_dropout_offsets_give_the_global_masks(dev, dtype, dim):
     assert torch.equal(d_part[0], d_full[0][3:])
     plain = mk.fused_mlp_reference(x[3:], w1, b1, w2, b2, "gelu", 0.1, 7, row0=3 * 65)
     assert (part.float() - plain.float()).abs().max() <= tol * plain.float().abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,k", [(12_608, 384), (1000, 3072), (77, 1152), (5, 8), (33, 1536)])
+def test_quantize_rows_kernel(dev, dtype, rows, k):
+    """Codes and scales bit for bit the plain version's, at the activation
+    and weight widths and at edges of the pieces a lane holds; a zero row
+    takes the 1e-12 floor, and a row of absmax 127 (scale exactly 1) rounds
+    its halves to even."""
+    g = torch.Generator().manual_seed(43)
+    x = _rnd(g, dev, rows, k) * torch.rand(rows, 1, generator=g).to(dev) * 30
+    x[0] = 0
+    if rows > 1:
+        x[1] = torch.arange(k, device=dev) % 9 - 4.5  # halves to even after scaling by 1
+        x[1, 0] = 127
+    x = x.to(dtype)
+    q, s = qk.quantize_rows(x)
+    want_q, want_s = qk.quantize_rows_reference(x)
+    assert q.dtype == torch.int8 and s.shape == (rows, 1)
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    assert qk.quantize_rows.shape_launches.get((rows, k), 0) > 0
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("rows,n,k", [(12_608, 1152, 384), (1000, 384, 3072), (77, 200, 96),
+                                      (5, 7, 32), (129, 130, 64)])
+def test_int8_gemm_kernel(dev, out_dtype, bias, rows, n, k):
+    """Bit for bit the plain version (exact sums in float64, the fp32
+    epilogue in the same order) on ragged tiles, an odd n and k a multiple
+    of 32 but not of the kernel's 64-byte stage; |sums| past 2^24 at k 3072."""
+    g = torch.Generator().manual_seed(44)
+    a = torch.randint(-127, 128, (rows, k), generator=g, dtype=torch.int8).to(dev)
+    w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(dev)
+    a_s, w_s = torch.rand(rows, generator=g).to(dev) / 127, torch.rand(n, generator=g).to(dev) / 127
+    b = _rnd(g, dev, n) if bias else None
+    y = qk.int8_gemm(a, w, a_s, w_s, b, out_dtype)
+    want = qk.int8_gemm_reference(a, w, a_s, w_s, b, out_dtype)
+    assert y.dtype == out_dtype and y.shape == (rows, n)
+    assert torch.equal(y, want)
+
+
+def test_int8_dense_on_the_kernels(dev):
+    """``ops.quant.int8_dense`` launches the two kernels (x and the weight
+    quantised, one product) and gives the plain versions' bits."""
+    from schemanet_torch.ops import quant
+
+    g = torch.Generator().manual_seed(45)
+    x = _rnd(g, dev, 3, 197, 384).to(torch.bfloat16)
+    w, b = _rnd(g, dev, 1536, 384, scale=384**-0.5), _rnd(g, dev, 1536)
+    before = (qk.quantize_rows.launches, qk.int8_gemm.launches)
+    y = quant.int8_dense(x, w, b)
+    assert (qk.quantize_rows.launches - before[0], qk.int8_gemm.launches - before[1]) == (2, 1)
+    xq, xs = qk.quantize_rows_reference(x)
+    wq, ws = qk.quantize_rows_reference(w)
+    want = qk.int8_gemm_reference(xq.reshape(-1, 384), wq, xs, ws, b, torch.bfloat16)
+    assert y.shape == (3, 197, 1536) and torch.equal(y.reshape(-1, 1536), want)
+
+
+def test_int8_route_rejects_bad_inputs(dev):
+    a = torch.zeros(4, 48, dtype=torch.int8, device=dev)
+    w = torch.zeros(8, 48, dtype=torch.int8, device=dev)
+    s4, s8 = torch.ones(4, device=dev), torch.ones(8, device=dev)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        qk.int8_gemm(a, w, s4, s8, None, torch.float32)
+    a, w = a[:, :32].contiguous(), w[:, :32].contiguous()
+    with pytest.raises(TypeError):
+        qk.int8_gemm(a.float(), w, s4, s8, None, torch.float32)
+    with pytest.raises(TypeError):
+        qk.int8_gemm(a, w, s4, s8, None, torch.float16)
+    with pytest.raises(ValueError, match="contiguous"):
+        qk.int8_gemm(torch.zeros(32, 4, dtype=torch.int8, device=dev).t(), w, s4, s8, None,
+                     torch.float32)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        qk.int8_gemm(a, w.cpu(), s4, s8, None, torch.float32)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        qk.quantize_rows(torch.zeros(4, 12, device=dev))
+    with pytest.raises(ValueError, match="3072"):
+        qk.quantize_rows(torch.zeros(4, 3080, device=dev))
+    with pytest.raises(TypeError):
+        qk.quantize_rows(torch.zeros(4, 16, device=dev, dtype=torch.float16))

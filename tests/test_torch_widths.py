@@ -22,6 +22,7 @@ from schemanet_torch.ops.kernels import encoder_block as eb
 from schemanet_torch.ops.kernels import graphconv as gc
 from schemanet_torch.ops.kernels import layernorm as lnk
 from schemanet_torch.ops.kernels import mlp as mk
+from schemanet_torch.ops.kernels import quant as qk
 from schemanet_torch.ops.kernels import vq as vqk
 from schemanet_tpu.utils.config import get_cfg
 
@@ -95,9 +96,10 @@ def test_the_configs_name_the_widths_this_checks():
 @pytest.mark.parametrize("config", sorted(VITS))
 def test_vit_kernels_take_the_config(config, dtype):
     """attn_block (the frozen layers), ffn_block, fused_mhsa and fused_mlp
-    (stage 0), the LayerNorm (stage 0's) and vq_assign (stages 1, 3 and
-    serving) at the config's widths: each returns a route and raises
-    nothing."""
+    (stage 0), the LayerNorm (stage 0's), vq_assign (stages 1, 3 and
+    serving) and the int8 route's quantize_rows and int8_gemm (the
+    projections' input widths d and f) at the config's widths: each
+    returns a route and raises nothing."""
     d, heads, f, n = VITS[config]
     assert eb.attn_block_route(dtype, n, heads, d // heads)
     assert eb.ffn_block_route(dtype, d, f)
@@ -105,6 +107,9 @@ def test_vit_kernels_take_the_config(config, dtype):
     assert mk.mlp_route(dtype, d, f)
     _ln_check_width(dtype, d)
     assert vqk.vq_route(dtype, d)
+    for k in (d, f):
+        qk.check_row_width(dtype, k)
+        qk.check_k(k)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp32"])
@@ -149,6 +154,8 @@ def test_adamw_plan_takes_the_config(config):
     (mk.mlp_route, (torch.bfloat16, 320, 1280)),
     (eb.ffn_block_route, (torch.float32, 1024, 4096)),
     (_ln_check_width, (torch.bfloat16, 1025)),
+    (qk.check_row_width, (torch.float32, 3080)),
+    (qk.check_k, (48,)),
 ])
 def test_widths_no_kernel_takes_still_raise(check, args):
     with pytest.raises(ValueError):
