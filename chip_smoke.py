@@ -4,9 +4,11 @@ the SchemaNet training step, stage 0 (fine-tuning the backbone), stage 1
 loader-driven workers (training with validation, checkpoints and resume,
 and evaluation), the ImageNet DeiT-Small configuration (serving with its
 explanations, the stage-4 step and stage 0) with DeiT-Base's widths, the
-command line's stage chain, the pretrained-weight loader, and several
+command line's stage chain, the pretrained-weight loader, several
 ranks (``parallel/mesh.py``: a one-rank grid, then two ranks with the atlas
-split over its classes and with the batch split over the data axis).
+split over its classes and with the batch split over the data axis), the
+int8 route, and the model zoo (the FFN kernels' activations, a relu and a
+post-norm DeiT-Small, ResNet-50 and ResNet-18).
 
 Both run the CIFAR-100 DeiT-Tiny configuration at full width (224^2 input,
 patch 16, 197 tokens, d=192, 3 heads, FFN 768, layers 0-9 of 12 frozen,
@@ -472,6 +474,72 @@ The int8 (W8A8) route of the frozen backbone (``ops/quant.py``;
     ``extract --quant-int8`` and ``serve --quant-int8`` (its logits bit
     for bit the in-process ``load_serve_predictor(..., quant_int8=True)``).
 
+The model zoo (``zoo_phases``), after phase 46:
+
+47. ``ffn_activations``: ``ffn_block`` and the ``fused_mlp`` forward and
+    backward with relu against their plain versions at DeiT-Tiny's, -Small's
+    and -Base's widths (192, 384, 768; 12,608 rows, f = 4 d; dropout 0.1 in
+    ``fused_mlp``), bf16 and fp32, each launch counted by ``relu_launches``;
+    the relu backward in lock step, its plain version given the kernel's
+    relu gate (read back from the kernel's dW2,
+    ``tests/_torch_relu_gates.py``) within the tolerance of 3, the gates
+    the two set apart counted and each a candidate of ``gate_candidates``
+    (within the fp32 summation-error bound of the point where the gate
+    switches, h rounded as the TPU kernel rounds it); ``swish``,
+    ``sigmoid``, ``hard_sigmoid`` and ``none`` forward at 384, both dtypes,
+    each pair counted one ``ffn_block`` and one ``fused_mlp`` launch; the relu rows
+    timed at DeiT-Small's 12,608 x 384 in bf16 beside their plain versions,
+    ``ffn_block_relu`` and ``fused_mlp_relu`` also beside the library calls
+    (F.layer_norm + F.linear + F.relu + F.linear) as a note;
+48. ``relu_deit_small``: ``vanilla_cfg(384, 6)`` naming no activation
+    (relu, the packages' default): 2 bf16 stage-0 steps, 12 launches a step
+    of each fused kernel and of ``fused_mlp[_bwd]_relu``, and a frozen
+    forward: 12 ``attn_block``, 12 ``ffn_block`` (``ffn_block_relu``);
+49. ``post_norm_stage0``: that DeiT-Small post-norm (``pre_norm: false``)
+    with the identity position encoding, with gelu and with relu: 3 fp32
+    steps with dropout 0.1 live against the plain versions by phase 12's
+    rules (relu: the plain run in lock step, each backward given the
+    kernel run's relu gate, as phase 8 gives the VQ ids; the free-running
+    plain run reported beside it, not gated) and its fp32 frozen forward
+    within 1e-4 of max; with relu 3 bf16 steps and a bf16 frozen forward
+    counted, every layer on the per-op route (``fused_mhsa``,
+    ``fused_layernorm`` for both norms and the final norm, applied first,
+    ``fused_mlp``) and no ``attn_block`` or ``ffn_block``; one masked
+    post-norm layer (a causal mask, [8, 197, 384], fp32) on the card within
+    1e-5 of max of the CPU's, through 2 ``fused_layernorm`` and 1
+    ``fused_mlp`` launch and no attention or whole-layer kernel (the JAX
+    package declines those two for a mask);
+50. ``resnet50``: ``official_models``/``resnet50`` at 224^2 and 1000 classes
+    under the ImageNet vanilla block's training: one step on the card
+    against the CPU at batch 8, in fp32 (TF32 off: a deterministic
+    forward's logits, the loss and the running statistics after the step
+    within 1e-4; the gradients reported, each run's distance from fp64
+    too: fp32 resolves them to a few % of a leaf's max, where a ReLU input
+    lies within two runs' rounding of 0) and in fp64 (the loss fp32, as in
+    both packages: logits, loss and statistics within 1e-6, each gradient
+    leaf within 1e-5 of its max); then bf16 stage 0 at batch
+    ``RN_BATCH``: p50 step ms over 10 steps after 2 warm-up steps, images/s,
+    peak memory, one step profiled (device ms, idle share, the top eight
+    device entries), and no hand-written kernel launched (the JAX package
+    runs a ResNet in XLA, with no Pallas kernel);
+51. ``resnet18_worker``: ``backbone_worker`` with ``resnet18`` on the
+    synthetic dataset (64 images of 32^2 resized to 224^2, batch 32, cuDNN
+    deterministic): two epochs, and one epoch resumed ("auto") for the
+    second, equal bit for bit (parameters, the running statistics, the
+    AdamW state, the final validation).
+
+52. ``mesh_data2_resnet50`` (with phases 40-42, also under ``--grid``): two
+    ranks, data 2: 2 ResNet-50 stage-0 steps in fp64 (the loss fp32, as in
+    both packages; fp32 resolves these gradients to a few % only, phase
+    50), each rank on 8 of 16 images, against one process on the 16: losses
+    within 1e-6, the running statistics within 1e-6 of max after the first
+    step and 1e-5 after the second, the first step's gradients (the mean
+    over the data group, before the clip) within 1e-5 of each leaf's max,
+    the parameters by phase 29's rules, no hand-written kernel launched.
+
+The kernels line gains ``ffn_block_relu``, ``fused_mlp_relu`` and
+``fused_mlp_bwd_relu`` (phase 47's times, phase 48's launches).
+
 The kernels line gains ``quantize_rows`` and ``int8_gemm`` (replacing XLA's
 int8 ``dot_general``, no Pallas kernel), timed at DeiT-Small's qkv
 projection of a serving microbatch, launches from phase 44, ``library_ms``
@@ -517,8 +585,8 @@ same way, at serving's microbatch shape; ``attn_block_fp32_hmean`` its
 head-mean variant: stage 3's launches, timed at stage 3's batch of 32.
 
 Usage: python3 chip_smoke.py; ``python3 chip_smoke.py --grid`` runs phases
-1-2 and 40-42 alone, on the cards present (a rank of phases 41-42 runs it as
-``chip_smoke.py --grid-rank DIR``)
+1-2, 40-42 and 52 alone, on the cards present (a rank of phases 41-42 and 52
+runs it as ``chip_smoke.py --grid-rank DIR``)
 """
 
 from __future__ import annotations
@@ -801,6 +869,62 @@ def with_plain(fn):
     finally:
         for p in patches:
             p.stop()
+
+
+# The same for the relu gate of the FFN backward: where x W1^T is about the
+# point where relu' = (h > 0) switches, the kernel and its plain version may
+# set a hidden element's gate apart, and that element's dH is dA on one side
+# and 0 on the other. So the plain run's fused_mlp backward takes the kernel
+# run's gates, read back from the kernel (tests/_torch_relu_gates.py), in
+# the order the kernel run launched its backward.
+def recording_relu_gates(store):
+    from schemanet_torch.ops.kernels import mlp as mk
+    from tests._torch_relu_gates import kernel_gate
+
+    kernel_backward = mk._FusedMlp.backward
+
+    def backward(ctx, g):
+        x, w1, b1, w2 = ctx.saved_tensors
+        grads = kernel_backward(ctx, g)
+        if ctx.args[0] == "relu":
+            store.append(kernel_gate(x, w1, b1, w2))
+        return grads
+
+    return mock.patch.object(mk._FusedMlp, "backward", staticmethod(backward))
+
+
+def replaying_relu_gates(store, stats):
+    """``fused_mlp`` on its plain versions, its backward
+    ``fused_mlp_bwd_reference`` given the next recorded gate; ``stats``
+    counts the backward calls and the gates the replay set apart from the
+    plain run's own."""
+    from schemanet_torch.ops.kernels import mlp as mk
+    from tests._torch_relu_gates import plain_gate
+
+    class Replay(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w1, b1, w2, b2, activation, dropout_p, seed, row0):
+            ctx.save_for_backward(x, w1, b1, w2)
+            ctx.args = (activation, dropout_p, seed, row0)
+            return mk.fused_mlp_reference(x, w1, b1, w2, b2, activation, dropout_p, seed, row0)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, w1, b1, w2 = ctx.saved_tensors
+            gate = store.pop(0)
+            require(gate.shape == (x.numel() // x.shape[-1], w1.shape[0]),
+                    f"a replayed relu gate of shape {tuple(gate.shape)} at x {tuple(x.shape)}")
+            stats["calls"] += 1
+            stats["gates_set_apart"] += int((gate != plain_gate(x, w1, b1)).sum())
+            grads = mk.fused_mlp_bwd_reference(x, w1, b1, w2, g.contiguous(), *ctx.args,
+                                               gate=gate)
+            return (*grads, None, None, None, None)
+
+    def replay(x, w1, b1, w2, b2, activation="gelu", dropout_p=0.0, seed=None, row0=0):
+        w1, b1, w2, b2 = (t.to(x.dtype).contiguous() for t in (w1, b1, w2, b2))
+        return Replay.apply(x, w1, b1, w2, b2, activation, float(dropout_p), seed, int(row0))
+
+    return mock.patch.object(mk, "fused_mlp", replay)
 
 
 # A run on the kernels against one on the plain versions: where two codes'
@@ -3556,7 +3680,7 @@ def profiled_step(step) -> dict:
 
 
 def grid_rank_main(work_dir: str) -> None:
-    """One rank of phases 41-42 (``python3 chip_smoke.py --grid-rank DIR``,
+    """One rank of phases 41-42 and 52 (``python3 chip_smoke.py --grid-rank DIR``,
     spawned by ``grid_phases`` with the rendezvous in the environment):
     writes ``DIR/rank<r>.json``; rank 0 also runs the one-process references
     and the comparisons."""
@@ -3688,6 +3812,49 @@ def grid_rank_main(work_dir: str) -> None:
     del grid_params, grid_grads
     torch.cuda.empty_cache()
     out["stage0"]["seconds"] = time.perf_counter() - t_phase
+
+    # 52. mesh_data2_resnet50: ResNet-50 stage 0, data 2, in fp64 (fp32
+    # resolves these gradients to a few % only: RN_TOL64): BatchNorm's
+    # statistics of the global batch (each rank's sums summed over the data
+    # group, and their gradients)
+    t_phase = time.perf_counter()
+    brn = inputs["resnet"]
+    sl = local_batch_slice(RN_GRID_BATCH, mesh_d)
+    trn = resnet_trainer("float64", dev, mesh_d)
+    grid_grads = keep_reduced_gradients(trn)
+    reset_launch_counts()
+    losses, stats = [], []
+    for b in brn:
+        losses.append(trn.train_iter(on(b, sl))["loss"].item())
+        stats.append(running_stats(trn.model))
+    launched = {k: v for k, v in launch_counts().items() if v}
+    grid_params = {k: p.detach().clone() for k, p in trn.model.named_parameters()}
+    del trn
+    torch.cuda.empty_cache()
+    out["resnet"] = {"losses": losses, "local_batch": sl.stop - sl.start, "launches": launched}
+    if rank == 0:
+        ref = resnet_trainer("float64", dev)
+        want_losses, want_stats, sure, want_grads = [], [], {}, keep_reduced_gradients(ref)
+        for b in brn:
+            want_losses.append(ref.train_iter(on(b))["loss"].item())
+            want_stats.append(running_stats(ref.model))
+            if not sure:
+                sure = {k: p.grad.abs() > 1e-3 * p.grad.abs().max()
+                        for k, p in ref.model.named_parameters()}
+        want = {k: p.detach() for k, p in ref.model.named_parameters()}
+        bound = 2 * resnet_cfg("float32")["training"]["optimizer"]["lr"] * len(brn)
+        grads = leaf_rel(grid_grads, want_grads)
+        out["resnet"].update(
+            one_process_losses=want_losses, bound=bound,
+            loss_rel_err=[abs(a - b) / abs(b) for a, b in zip(losses, want_losses)],
+            stats_rel_err=[max(leaf_rel(a, b).values()) for a, b in zip(stats, want_stats)],
+            grads_rel_err_max=max(grads.values()), grads_rel_err_max_leaf=max(grads, key=grads.get),
+            same_leaves=sorted(grid_grads) == sorted(want_grads),
+            **sure_rule(grid_params, want, sure, bound))
+        del ref, want, sure, want_grads, want_stats
+    del grid_params, grid_grads, stats
+    torch.cuda.empty_cache()
+    out["resnet"]["seconds"] = time.perf_counter() - t_phase
     with open(os.path.join(work_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     torch.distributed.barrier()
@@ -3702,8 +3869,9 @@ def grid_phases(dev, work_dir: str, card_note: dict) -> dict:
     one process by phase 8's rules and run to run bit for bit, 2 bf16 steps
     counted by shape, peak memory a rank) and ``mesh_data2_stage0`` (data 2:
     2 fp32 DeiT-Small stage-0 steps with dropout live against one process by
-    phase 29's rules). Returns the kernels line's rows at the shard's shapes
-    and the phases' seconds."""
+    phase 29's rules) and ``mesh_data2_resnet50`` (phase 52: data 2, 2 fp64
+    ResNet-50 steps against one process). Returns the kernels line's rows at
+    the shard's shapes and the phases' seconds."""
     from schemanet_torch.ops.kernels import _build
     from schemanet_torch.ops.kernels import atlas_opt as ao
     from schemanet_torch.ops.kernels import embed_bwd as ek
@@ -3770,8 +3938,13 @@ def grid_phases(dev, work_dir: str, card_note: dict) -> dict:
     t0 = time.perf_counter()
     torch.save(state, os.path.join(work_dir, "state.pt"))
     del state
+    rng = np.random.default_rng(52)
+    resnet_batches = [
+        {"image": torch.from_numpy(rng.normal(size=(RN_GRID_BATCH, RN_IMG, RN_IMG, 3)).astype(
+            np.float32)), "label": torch.from_numpy(rng.integers(0, RN_CLASSES, RN_GRID_BATCH))}
+        for _ in range(GRID_STEPS)]
     torch.save({"stage4": b4,
-                "stage0": grid_batches(42, GRID_STEPS, IN_CLASSES)},
+                "stage0": grid_batches(42, GRID_STEPS, IN_CLASSES), "resnet": resnet_batches},
                os.path.join(work_dir, "inputs.pt"))
     _build.library()  # built before the ranks start
     torch.cuda.empty_cache()
@@ -3860,6 +4033,27 @@ def grid_phases(dev, work_dir: str, card_note: dict) -> dict:
             "the ranks report other stage-0 losses")
     require(all(r["stage0"]["launches"].get(k) == 12 * GRID_STEPS for r in ranks
                 for k in s0_kernels), "grid stage 0: a fused kernel's launches")
+
+    rn = ranks[0]["resnet"]
+    phase("mesh_data2_resnet50", backend=backend, grid={"data": 2, "model": 1},
+          steps=GRID_STEPS, global_batch=RN_GRID_BATCH, dtype="float64 (the loss fp32)",
+          rank_losses=[r["resnet"]["losses"] for r in ranks],
+          tol={"loss": RN_TOL64["loss"], "running statistics": "1e-6 of max after step 1, "
+               "1e-5 after step 2", "gradients": RN_TOL64["gradients"],
+               "sure": "rtol 1e-4 / atol 1e-6", "all": "2 lr a step"},
+          **{k: v for k, v in rn.items() if k != "losses"}, **card_note)
+    require(max(rn["loss_rel_err"]) <= RN_TOL64["loss"], f"grid ResNet-50 losses differ by "
+                                                         f"{rn['loss_rel_err']}")
+    require(rn["stats_rel_err"][0] <= 1e-6 and rn["stats_rel_err"][1] <= 1e-5,
+            f"grid ResNet-50 running statistics differ by {rn['stats_rel_err']}")
+    require(rn["same_leaves"] and rn["grads_rel_err_max"] <= RN_TOL64["gradients"],
+            f"grid ResNet-50, the first step's gradients averaged over the data group: "
+            f"{rn['grads_rel_err_max']} ({rn['grads_rel_err_max_leaf']})")
+    require(rn["sure_ok"] and rn["within_bound"], f"grid ResNet-50 parameters: {rn}")
+    require(ranks[0]["resnet"]["losses"] == ranks[1]["resnet"]["losses"],
+            "the ranks report other ResNet-50 losses")
+    require(not any(r["resnet"]["launches"] for r in ranks),
+            f"grid ResNet-50 launched a hand-written kernel: {[r['resnet'] for r in ranks]}")
 
     # the kernels at the shard's shapes against their plain versions, timed
     rows, errors = {}, {}
@@ -4422,6 +4616,515 @@ def quant_phases(dev, card_note: dict, stage1: dict, device_images) -> dict:
     return {"rows": rows, "seconds": seconds}
 
 
+# the model zoo (phases 47-52): the FFN kernels' activations, a relu and a
+# post-norm DeiT-Small, ResNet-50 and ResNet-18
+ZOO_WIDTHS = (192, 384, 768)  # DeiT-Tiny, -Small, -Base
+ZOO_ROWS = BATCH * (L_INST + 1)  # a stage-0 batch or a serving microbatch: 12,608 rows
+ZOO_FORWARD_ONLY = ("swish", "sigmoid", "hard_sigmoid", "none")  # no backward, as the TPU kernel
+ZOO_SEED = 2**31 - 3
+RN_IMG, RN_CLASSES = 224, 1000
+RN_FP32_BATCH, RN_BATCH, RN_STEPS, RN_WARMUP = 8, 128, 10, 2
+RN_GRID_BATCH = 16  # phase 52's global batch: 8 images a rank
+# phase 50's gates. fp32 resolves a ResNet-50's first-step gradients to a
+# few % of a leaf's max (a ReLU input within two runs' rounding of 0 takes
+# its other branch: 2-12% from fp64 a leaf at ResNet-50's first step, in one
+# process and on the grid alike), so fp32 gates the forward, the loss and
+# the running statistics, and fp64 the gradients (the loss takes fp32 logits
+# in both packages: its rounding, ~1e-7, carried back)
+RN_TOL = {"logits": 1e-4, "loss": 1e-4, "running_stats": 1e-4}
+RN_TOL64 = {"logits": 1e-6, "loss": 1e-6, "running_stats": 1e-6, "gradients": 1e-5}
+RW_DATA = {"name": "synthetic", "num_classes": 10, "image_size": 32, "resize": RN_IMG,
+           "train": {"num_samples": 64}, "val": {"num_samples": 32}}
+
+
+def relu_cfg(dim: int, heads: int) -> dict:
+    """``vanilla_cfg`` whose model names no activation: relu, the default of
+    both packages' ``_transformer_kwargs``."""
+    cfg = copy.deepcopy(vanilla_cfg(dim, heads))
+    del cfg["model"]["transformer"]["activation"]
+    return cfg
+
+
+def post_norm_cfg(dim: int, heads: int, activation: str = "relu") -> dict:
+    """``relu_cfg`` with post-norm layers and the identity position encoding
+    (and ``activation`` named where it is not relu)."""
+    cfg = relu_cfg(dim, heads)
+    cfg["model"]["transformer"]["pre_norm"] = False
+    if activation != "relu":
+        cfg["model"]["transformer"]["activation"] = activation
+    cfg["model"]["pos_encoding"] = {"name": "identity"}
+    return cfg
+
+
+def resnet_cfg(dtype: str) -> dict:
+    """Stage 0 of a ResNet-50 under the ImageNet vanilla block's training."""
+    cfg = copy.deepcopy(vanilla_cfg(384, 6))
+    cfg["model"] = {"name": "official_models", "model_name": "resnet50"}
+    cfg["training"]["dtype"] = dtype
+    return cfg
+
+
+def running_stats(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.named_buffers()
+            if k.endswith((".mean", ".var"))}
+
+
+def leaf_rel(got: dict, want: dict) -> dict:
+    """Each leaf's max |got - want| / max |want| (``grad_rel``)."""
+    return {k: grad_rel(got[k].to(w.device), w) for k, w in want.items()}
+
+
+def resnet_trainer(dtype: str, dev, mesh=None):
+    """``backbone_trainer``'s ResNet-50 (seed 0) under ``resnet_cfg``, on
+    ``mesh`` or in one process; ``dtype`` "float64": parameters and compute
+    in fp64 (the loss takes fp32 logits, in both packages)."""
+    from schemanet_torch.schema import get_loss_fn
+    from schemanet_torch.train import Trainer, TrainerConfig, backbone_trainer
+    from schemanet_torch.train.workers import _backbone_model
+
+    if dtype != "float64":
+        return backbone_trainer(resnet_cfg(dtype), IN_STEPS_PER_EPOCH, seed=0, device=dev,
+                                num_classes=RN_CLASSES, mesh=mesh)
+    cfg = resnet_cfg("float32")
+    model = _backbone_model(cfg, RN_CLASSES, torch.float64, 0).to(torch.float64)
+    return Trainer(TrainerConfig.from_cfg(cfg["training"]), model, get_loss_fn(cfg["loss"]),
+                   cfg["loss"]["weight_dict"], IN_STEPS_PER_EPOCH, seed=0, device=dev, mesh=mesh)
+
+
+def resnet_step(dtype: str, dev, batch: dict) -> dict:
+    """One step of ``resnet_trainer(dtype)`` on ``batch``: the loss, the
+    gradients before the clip and the running statistics after it (on the
+    CPU), and the logits of a deterministic forward before it."""
+    t = resnet_trainer(dtype, dev)
+    with torch.no_grad():
+        logits = t.model(batch["image"].to(t.device))["pred"].float().cpu()
+    kept = keep_reduced_gradients(t)
+    loss = t.train_iter(batch)["loss"].item()
+    return {"logits": logits, "loss": loss, "grads": {k: v.cpu() for k, v in kept.items()},
+            "stats": {k: v.cpu() for k, v in running_stats(t.model).items()}}
+
+
+def grad_distance(got: dict, want: dict) -> float:
+    """The whole gradient's distance: sqrt of the sum over leaves of
+    ``grad_rel`` squared."""
+    return float(np.sqrt(sum(grad_rel(got[k], w) ** 2 for k, w in want.items())))
+
+
+def zoo_phases(dev, card_note: dict) -> dict:
+    """Phases 47-51: the FFN kernels with relu and the registry's other
+    activations against their plain versions; a relu DeiT-Small (stage 0 and
+    its frozen forward, counted); a post-norm identity-encoded DeiT-Small
+    (stage 0 in fp32 against the plain versions, bf16 counted, its frozen
+    forward, a masked layer against the CPU); ResNet-50 (fp32 on the card
+    against the CPU, then bf16 stage 0 timed and profiled); ResNet-18's
+    ``backbone_worker`` with a checkpoint and resume. Returns the kernels
+    line's relu rows and the phases' seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from schemanet_torch.models.transformer import EncoderLayer
+    from schemanet_torch.models.vit import get_model
+    from schemanet_torch.ops.kernels import encoder_block as eb
+    from schemanet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from schemanet_torch.ops.kernels import mlp as mk
+    from schemanet_torch.schema import init_parameters_
+    from schemanet_torch.train import LaunchArgs, backbone_trainer
+    from schemanet_torch.train.workers import backbone_worker
+    from tests._torch_relu_gates import gate_flips, kernel_gate
+
+    seconds, rows, errors = {}, {}, {}
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(47)
+
+    def lap(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        seconds[name] = now - t_phase
+        t_phase = now
+        phase("phase_seconds", phase_name=name, seconds=seconds[name], **card_note)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    def ffn_inputs(dim):
+        f_ = 4 * dim
+        return (rnd(BATCH, L_INST + 1, dim), (1 + rnd(dim, scale=0.1), rnd(dim, scale=0.1)),
+                (rnd(f_, dim, scale=dim**-0.5), rnd(f_, scale=0.1), rnd(dim, f_, scale=f_**-0.5),
+                 rnd(dim, scale=0.1)), rnd(BATCH, L_INST + 1, dim))
+
+    def relu_bwd_compare(label, args, dt, tol):
+        """fused_mlp_bwd with relu against its plain version in lock step:
+        the plain version given the kernel's gate (read back from the
+        kernel), within the tolerance of 3; every gate the two set apart a
+        candidate of ``gate_candidates``. Returns the gate's read-back
+        launches."""
+        x, w1, b1, w2 = args[:4]
+        got = mk.fused_mlp_bwd(*args)
+        before = mk.fused_mlp_bwd.launches
+        gate = kernel_gate(x, w1, b1, w2)
+        reads = mk.fused_mlp_bwd.launches - before
+        want, free = mk.fused_mlp_bwd_reference(*args, gate=gate), mk.fused_mlp_bwd_reference(*args)
+        flips = gate_flips(gate, x, w1, b1)
+        torch.cuda.synchronize()
+        rels = [rel_err(a, b) for a, b in zip(got, want)]
+        phase("compare", kernel=label, dtype=str(dt).split(".")[-1], shape=list(x.shape),
+              rel_err=rels, max_abs_err=[abs_err(a, b) for a, b in zip(got, want)], tol=tol,
+              free_running_rel_err=[rel_err(a, b) for a, b in zip(got, free)], **flips,
+              rule="lock step: the plain version given the kernel's relu gate")
+        require(all(r <= tol for r in rels), f"{label} {dt}: rel err {rels} > {tol}")
+        require(flips["flips_outside_candidates"] == 0,
+                f"{label} {dt}: gates set apart where no fp32 order can: {flips}")
+        if dt == torch.bfloat16 or label not in errors:
+            errors[label] = max(abs_err(a, b) for a, b in zip(got, want))
+        return reads
+
+    # 47. the FFN kernels with relu at the configs' widths, both dtypes, and
+    # the forward-only activations at 384, against their plain versions
+    inputs = {dim: ffn_inputs(dim) for dim in ZOO_WIDTHS}
+    for dim, (x, ln, w, cot) in inputs.items():
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            sfx = f"_d{dim}" if dt == torch.bfloat16 else f"_fp32_d{dim}"
+            xd, wd, cd = x.to(dt), tuple(t.to(dt) for t in w), cot.to(dt)
+            before = {k: v for k, v in launch_counts().items() if k.endswith("_relu")}
+            compare(f"ffn_block_relu{sfx}", eb.ffn_block, eb.ffn_block_reference, (xd, *ln, *w),
+                    {"activation": "relu"}, dt, tol, errors)
+            compare(f"fused_mlp_relu{sfx}", mk.fused_mlp, mk.fused_mlp_reference,
+                    (xd, *wd, "relu", S0_DROPOUT, ZOO_SEED), {}, dt, tol, errors)
+            reads = relu_bwd_compare(f"fused_mlp_bwd_relu{sfx}",
+                                     (xd, *wd[:3], cd, "relu", S0_DROPOUT, ZOO_SEED), dt, tol)
+            after = {k: v for k, v in launch_counts().items() if k.endswith("_relu")}
+            want_after = {k: before[k] + 1 + (reads if k == "fused_mlp_bwd_relu" else 0)
+                          for k in before}
+            require(after == want_after, f"relu at {dim} {dt}: each kernel counted once (and "
+                                         f"the gate's {reads} reads): {before} -> {after}")
+            if dim == 384:
+                for act in ZOO_FORWARD_ONLY:
+                    before = launch_counts()
+                    compare(f"ffn_block_{act}{sfx}", eb.ffn_block, eb.ffn_block_reference,
+                            (xd, *ln, *w), {"activation": act}, dt, tol, errors)
+                    compare(f"fused_mlp_{act}{sfx}", mk.fused_mlp, mk.fused_mlp_reference,
+                            (xd, *wd, act), {}, dt, tol, errors)
+                    moved = {k: v - before[k] for k, v in launch_counts().items()
+                             if v != before[k]}
+                    phase("launches", kernels=f"ffn_block_{act}{sfx}, fused_mlp_{act}{sfx}",
+                          moved=moved)
+                    require(moved.get("ffn_block") == 1 and moved.get("fused_mlp") == 1 and all(
+                        k.startswith(("ffn_block", "fused_mlp")) and not k.endswith("_relu")
+                        for k in moved), f"{act} at 384 {dt}: launches {moved}")
+    # the relu rows of the kernels line, timed at DeiT-Small's serving
+    # microbatch and stage-0 batch in bf16 (12,608 rows of 384 -> 1536 -> 384)
+    x, ln, w, cot = inputs[384]
+    x16, w16, c16 = x.to(torch.bfloat16), tuple(t.to(torch.bfloat16) for t in w), cot.to(
+        torch.bfloat16)
+    fwd_args = (x16, *w16, "relu", S0_DROPOUT, ZOO_SEED)
+    bwd_args = (x16, *w16[:3], c16, "relu", S0_DROPOUT, ZOO_SEED)
+    mlp_flops = 2 * ZOO_ROWS * 384 * 1536
+    mlp_weights = nbytes(*w16[:3])
+    F_ = torch.nn.functional
+    with torch.no_grad():
+        timed = {
+            "ffn_block_relu": (ffn_work((x16, *ln, *w)),
+                               lambda: eb.ffn_block(x16, *ln, *w, activation="relu"),
+                               lambda: eb.ffn_block_reference(x16, *ln, *w, activation="relu"),
+                               lambda: x16 + F_.linear(F_.relu(F_.linear(F_.layer_norm(
+                                   x16, (384,), ln[0].to(x16.dtype), ln[1].to(x16.dtype), 1e-6),
+                                   w16[0], w16[1])), w16[2], w16[3])),
+            "fused_mlp_relu": ((2 * mlp_flops, 2 * nbytes(x16) + mlp_weights + nbytes(w16[3])),
+                               lambda: mk.fused_mlp(*fwd_args),
+                               lambda: mk.fused_mlp_reference(*fwd_args),
+                               lambda: F_.linear(F_.relu(F_.linear(x16, w16[0], w16[1])), w16[2],
+                                                 w16[3])),
+            "fused_mlp_bwd_relu": ((5 * mlp_flops, 3 * nbytes(x16) + 2 * mlp_weights
+                                    + nbytes(w16[3])),
+                                   lambda: mk.fused_mlp_bwd(*bwd_args),
+                                   lambda: mk.fused_mlp_bwd_reference(*bwd_args), None),
+        }
+        for name, (work, kern, plain, library) in timed.items():
+            ms, plain_ms = time_ms(kern, TIME_ITERS), time_ms(plain, TIME_ITERS)
+            bound_ms, bound_by = least_ms(*work, "bfloat16")
+            rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=None, max_abs_err=errors[f"{name}_d384"])
+            if library is not None:
+                rows[name]["library_note"] = {
+                    "ms": time_ms(library, TIME_ITERS),
+                    "calls": "F.layer_norm + F.linear + F.relu + F.linear + residual"
+                    if name == "ffn_block_relu" else "F.linear + F.relu + F.linear (no dropout)"}
+            phase("kernel_time", kernel=name, shape=[ZOO_ROWS, 384], dtype="bfloat16",
+                  **rows[name], **card_note)
+    del inputs, x, ln, w, cot, x16, w16, c16, fwd_args, bwd_args, timed
+    torch.cuda.empty_cache()
+    lap("47_ffn_activations")
+
+    rng = np.random.default_rng(48)
+    images = [torch.from_numpy(rng.normal(size=(BATCH, IMG, IMG, 3)).astype(np.float32)).to(dev)
+              for _ in range(BF16_STEPS)]
+    labels = [torch.from_numpy(rng.integers(0, IN_CLASSES, size=BATCH)).to(dev)
+              for _ in range(BF16_STEPS)]
+    batches = [{"image": i, "label": lab} for i, lab in zip(images, labels)]
+    layers = 12
+
+    def vit_trainer(cfg, dtype):
+        cfg = dict(cfg, training=dict(cfg["training"], dtype=dtype))
+        return backbone_trainer(cfg, IN_STEPS_PER_EPOCH, seed=0, device=dev,
+                                num_classes=IN_CLASSES)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, launch_counts()
+
+    def expect(**nonzero):
+        want = {name: 0 for name in launch_counts()}
+        want.update(nonzero)
+        return want
+
+    train_kernels = ("fused_mhsa", "fused_mhsa_bwd", "fused_mlp", "fused_mlp_bwd", "fused_mhsa_tc",
+                     "fused_mhsa_bwd_tc", "fused_mlp_tc", "fused_mlp_bwd_tc", "fused_mlp_wide",
+                     "fused_mlp_bwd_wide", "fused_mlp_relu", "fused_mlp_bwd_relu")
+    ln_kernels = ("fused_layernorm", "fused_layernorm_bwd", "fused_layernorm_bwd_vec")
+
+    # 48. a relu DeiT-Small (vanilla_cfg naming no activation): 2 bf16
+    # stage-0 steps and a frozen forward, counted
+    tr = vit_trainer(relu_cfg(384, 6), "bfloat16")
+    require(tr.model.transformer.layers[0].activation == "relu", "the default activation")
+    losses, got = counted(lambda: [tr.train_iter(b)["loss"].item() for b in batches[:2]])
+    want = expect(**{k: layers * 2 for k in train_kernels},
+                  **{k: (2 * layers + 1) * 2 for k in ln_kernels})
+    with torch.no_grad():
+        logits, got_eval = counted(lambda: tr.model(images[0])["pred"])
+    want_eval = expect(attn_block=layers, attn_block_tc=layers, ffn_block=layers,
+                       ffn_block_tc=layers, ffn_block_relu=layers, fused_layernorm=1)
+    phase("relu_deit_small", steps=2, batch=BATCH, losses=losses, launches=got, expected=want,
+          frozen_launches=got_eval, frozen_expected=want_eval,
+          frozen_finite=bool(torch.isfinite(logits).all()), **card_note)
+    require(all(np.isfinite(losses)), f"relu DeiT-Small losses: {losses}")
+    require(got == want, f"relu DeiT-Small stage-0 launches {got} != {want}")
+    require(got_eval == want_eval and bool(torch.isfinite(logits).all()),
+            f"relu DeiT-Small frozen forward launches {got_eval} != {want_eval}")
+    relu_launches = {"fused_mlp_relu": got["fused_mlp_relu"],
+                     "fused_mlp_bwd_relu": got["fused_mlp_bwd_relu"],
+                     "ffn_block_relu": got_eval["ffn_block_relu"]}
+    del tr, logits
+    torch.cuda.empty_cache()
+    lap("48_relu_deit_small")
+
+    # 49. a post-norm DeiT-Small, identity position encoding: 3 fp32 steps
+    # with dropout live against the plain versions (phase 12's rules) with
+    # gelu and with relu, and each one's fp32 frozen forward against the plain
+    # versions; 3 bf16 steps and a bf16 frozen forward counted with relu
+    # (the per-op route: no whole-layer kernel); a masked layer against the CPU,
+    # on the LayerNorm and FFN kernels
+    def pn_fp32_run(cfg, track_sure):
+        t = vit_trainer(cfg, "float32")
+        out_losses, sure = [], {}
+        for b in batches[:FP32_STEPS]:
+            out_losses.append(t.train_iter(b)["loss"].item())
+            if track_sure and not sure:
+                sure = {k: p.grad.abs() > 1e-3 * p.grad.abs().max()
+                        for k, p in t.model.named_parameters()}
+        params = {k: p.detach().clone() for k, p in t.model.named_parameters()}
+        with torch.no_grad():
+            frozen = t.model(images[0])["pred"]
+        del t
+        torch.cuda.empty_cache()
+        return out_losses, params, sure, frozen
+
+    for act in ("gelu", "relu"):
+        cfg = post_norm_cfg(384, 6, act)
+        bound = 2 * cfg["training"]["optimizer"]["lr"] * FP32_STEPS
+        if act == "gelu":
+            losses_k, params_k, _, frozen_k = pn_fp32_run(cfg, False)
+            losses_p, params_p, sure, frozen_p = with_plain(lambda: pn_fp32_run(cfg, True))
+            replay = {}
+        else:
+            # relu: the plain run in lock step, given the kernel run's gates
+            # (the free-running plain run reported beside it, not gated)
+            gates, replay = [], {"calls": 0, "gates_set_apart": 0}
+            with recording_relu_gates(gates):
+                losses_k, params_k, _, frozen_k = pn_fp32_run(cfg, False)
+            recorded = len(gates)
+
+            def locked():
+                with replaying_relu_gates(gates, replay):
+                    return pn_fp32_run(cfg, True)
+
+            losses_p, params_p, sure, frozen_p = with_plain(locked)
+            require(recorded == replay["calls"] == FP32_STEPS * layers and not gates,
+                    f"relu gates recorded {recorded}, replayed {replay}, left {len(gates)}")
+            free_losses, free_params, _, _ = with_plain(lambda: pn_fp32_run(cfg, False))
+            replay["free_running"] = sure_rule(params_k, free_params, sure, bound)
+            replay["free_running_loss_rel_err"] = max(
+                abs(a - b) / abs(b) for a, b in zip(losses_k, free_losses))
+            del free_params
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
+        worst = sure_rule(params_k, params_p, sure, bound)
+        frozen_rel = rel_err(frozen_k, frozen_p)
+        phase("post_norm_stage0_fp32", model=f"deit_small post-norm identity {act}",
+              steps=FP32_STEPS, batch=BATCH, dropout=S0_DROPOUT, losses=losses_k,
+              plain_losses=losses_p, loss_rel_err=loss_rel, tol=1e-4, bound=bound,
+              frozen_rel_err=frozen_rel, frozen_tol=FP32_TOL, relu_gate_replay=replay, **worst)
+        require(loss_rel <= 1e-4, f"post-norm {act} stage-0 fp32 losses differ by {loss_rel}")
+        require(worst["within_bound"] and worst["sure_ok"], f"post-norm {act} stage-0 fp32: {worst}")
+        require(frozen_rel <= FP32_TOL, f"post-norm {act} fp32 frozen forward: {frozen_rel}")
+        del params_k, params_p, sure, frozen_k, frozen_p
+    tr = vit_trainer(post_norm_cfg(384, 6), "bfloat16")
+    losses, got = counted(lambda: [tr.train_iter(b)["loss"].item() for b in batches[:3]])
+    want = expect(**{k: layers * 3 for k in train_kernels},
+                  **{k: (2 * layers + 1) * 3 for k in ln_kernels})
+    with torch.no_grad():
+        logits, got_eval = counted(lambda: tr.model(images[0])["pred"])
+    want_eval = expect(fused_mhsa=layers, fused_mhsa_tc=layers, fused_mlp=layers,
+                       fused_mlp_tc=layers, fused_mlp_wide=layers, fused_mlp_relu=layers,
+                       fused_layernorm=2 * layers + 1)
+    phase("post_norm_stage0_bf16", steps=3, batch=BATCH, losses=losses, launches=got,
+          expected=want, frozen_launches=got_eval, frozen_expected=want_eval,
+          frozen_finite=bool(torch.isfinite(logits).all()), **card_note)
+    require(all(np.isfinite(losses)), f"post-norm bf16 losses: {losses}")
+    require(got == want, f"post-norm stage-0 launches {got} != {want}")
+    require(got_eval == want_eval and bool(torch.isfinite(logits).all()),
+            f"post-norm frozen forward launches {got_eval} != {want_eval}")
+    del tr, logits
+    torch.cuda.empty_cache()
+    layer = EncoderLayer(6, 384, 1536, "relu", 1e-6, None, pre_norm=False)
+    init_parameters_(layer, torch.Generator().manual_seed(49))
+    seq = torch.randn(8, L_INST + 1, 384, generator=g)
+    keep = torch.tril(torch.ones(L_INST + 1, L_INST + 1, dtype=torch.bool))
+    mask = torch.where(keep, 0.0, -1e9)[None, None]
+    with torch.no_grad():
+        want_m, _ = layer(seq, attn_mask=mask)
+        got_m, masked_launches = counted(
+            lambda: layer.to(dev)(seq.to(dev), attn_mask=mask.to(dev))[0])
+    masked_rel = rel_err(got_m.cpu(), want_m)
+    masked_launches = {k: v for k, v in masked_launches.items() if v}
+    phase("masked_layer", shape=list(seq.shape), rel_err=masked_rel, tol=1e-5,
+          launches=masked_launches, **card_note)
+    require(masked_rel <= 1e-5, f"a masked layer on the card differs from the CPU: {masked_rel}")
+    # JAX declines the attention kernels and whole-layer fusion for a mask,
+    # and keeps the LayerNorm and FFN kernels
+    require(masked_launches.get("fused_layernorm") == 2 and masked_launches.get("fused_mlp") == 1
+            and masked_launches.get("fused_mlp_relu") == 1
+            and not any(k.startswith(("fused_mhsa", "attn_block", "ffn_block"))
+                        for k in masked_launches),
+            f"a masked layer's launches: {masked_launches}")
+    del layer, seq, got_m, want_m, batches, images, labels
+    torch.cuda.empty_cache()
+    lap("49_post_norm_deit_small")
+
+    # 50. ResNet-50 at full width (224^2, 1000 classes): one step on the
+    # card against the CPU at batch 8, in fp32 (TF32 off) and in fp64, then
+    # bf16 stage 0 timed and profiled
+    rng = np.random.default_rng(50)
+    b8 = {"image": torch.from_numpy(rng.normal(size=(RN_FP32_BATCH, RN_IMG, RN_IMG, 3)).astype(
+        np.float32)), "label": torch.from_numpy(rng.integers(0, RN_CLASSES, size=RN_FP32_BATCH))}
+    steps = {(dtype, where): resnet_step(dtype, dev if where == "card" else "cpu", b8)
+             for dtype in ("float32", "float64") for where in ("card", "cpu")}
+    torch.cuda.empty_cache()
+    compared = {}
+    for dtype in ("float32", "float64"):
+        card, host = steps[(dtype, "card")], steps[(dtype, "cpu")]
+        grads = leaf_rel(card["grads"], host["grads"])
+        compared[dtype] = {
+            "logits_rel_err": rel_err(card["logits"], host["logits"]),
+            "loss_rel_err": abs(card["loss"] - host["loss"]) / abs(host["loss"]),
+            "running_stats_rel_err": max(leaf_rel(card["stats"], host["stats"]).values()),
+            "grads_rel_err_max": max(grads.values()),
+            "grads_rel_err_max_leaf": max(grads, key=grads.get)}
+    f64 = steps[("float64", "card")]["grads"]
+    compared["float32"].update(  # how far fp32 resolves the step's gradients
+        card_vs_fp64=grad_distance(steps[("float32", "card")]["grads"], f64),
+        cpu_vs_fp64=grad_distance(steps[("float32", "cpu")]["grads"], f64))
+    phase("resnet50_card_vs_cpu", batch=RN_FP32_BATCH, tf32=False, **compared,
+          losses={f"{d}_{w}": v["loss"] for (d, w), v in steps.items()},
+          tol={"fp32": RN_TOL, "fp64": RN_TOL64}, **card_note)
+    for dtype, tol in (("float32", RN_TOL), ("float64", RN_TOL64)):
+        c = compared[dtype]
+        require(c["logits_rel_err"] <= tol["logits"] and c["loss_rel_err"] <= tol["loss"]
+                and c["running_stats_rel_err"] <= tol["running_stats"],
+                f"ResNet-50 {dtype} card against CPU: {c}")
+    require(compared["float64"]["grads_rel_err_max"] <= RN_TOL64["gradients"],
+            f"ResNet-50 fp64 gradients card against CPU: {compared['float64']}")
+    del steps, f64, b8
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(50)
+    rn_batches = [{"image": torch.randn(RN_BATCH, RN_IMG, RN_IMG, 3, generator=gen, device=dev),
+                   "label": torch.randint(0, RN_CLASSES, (RN_BATCH,), generator=gen, device=dev)}
+                  for _ in range(2)]
+    t = backbone_trainer(resnet_cfg("bfloat16"), IN_STEPS_PER_EPOCH, seed=0, device=dev,
+                         num_classes=RN_CLASSES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    losses, ms = [], []
+    for i in range(RN_WARMUP + RN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(t.train_iter(rn_batches[i % 2])["loss"].item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launched = {k: v for k, v in launch_counts().items() if v}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    prof = None
+    for attempt in range(1, 6):  # a session without device events is taken again
+        prof = profiled_step(lambda: t.train_iter(rn_batches[0]))
+        if prof is not None:
+            break
+        phase("profile_empty", attempt=attempt, iters=1)
+    p50 = float(np.percentile(ms[RN_WARMUP:], 50))
+    phase("resnet50_stage0_bf16", batch=RN_BATCH, img=RN_IMG, steps=RN_STEPS,
+          warmup=RN_WARMUP, losses=losses, step_ms=ms[RN_WARMUP:], p50_step_ms=p50,
+          images_per_s=RN_BATCH / p50 * 1e3, peak_memory_gb=peak_gb, profiled=prof,
+          kernel_launches=launched, **card_note)
+    require(all(np.isfinite(losses)), f"ResNet-50 bf16 losses: {losses}")
+    require(prof is not None, "ResNet-50: five profiler sessions came back empty")
+    require(not launched, f"ResNet-50 launched a hand-written kernel: {launched}")
+    del t, rn_batches
+    torch.cuda.empty_cache()
+    lap("50_resnet50")
+
+    # 51. backbone_worker with resnet18 on the synthetic dataset: a two-epoch
+    # run, and a one-epoch run resumed for the second, bit for bit
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_resnet18_")
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        def worker_cfg(epochs):
+            return {"dataset": RW_DATA, "model": {"name": "resnet18"},
+                    "loss": {"name": "ce_loss", "weight_dict": {"cls": 1.0}},
+                    "training": {"optimizer": {"name": "AdamW", "lr": 1e-3},
+                                 "lr_schedule": {"name": "constant"}, "train_epochs": epochs,
+                                 "batch_size": 32, "num_workers": 1, "print_interval": 100,
+                                 "val_interval": 1000},
+                    "validation": {"batch_size": 32, "num_workers": 1}}
+
+        full = backbone_worker(worker_cfg(2), LaunchArgs(
+            seed=0, log_dir=os.path.join(work_dir, "full"), device=str(dev)))
+        cut_dir = os.path.join(work_dir, "cut")
+        backbone_worker(worker_cfg(1), LaunchArgs(seed=0, log_dir=cut_dir, device=str(dev)))
+        resumed = backbone_worker(worker_cfg(2), LaunchArgs(seed=0, log_dir=cut_dir,
+                                                            resume="auto", device=str(dev)))
+        want_state, got_state = full["trainer"].state_dict(), resumed["trainer"].state_dict()
+        differs = same_snapshots({"model": want_state["model"], "opt": want_state["optimizer"]},
+                                 {"model": got_state["model"], "opt": got_state["optimizer"]})
+        moved = not torch.equal(want_state["model"]["bn1.mean"].cpu(), torch.zeros(64))
+        phase("resnet18_worker", steps=full["trainer"].step,
+              resumed_from_epoch=resumed["trainer"].start_epoch, bitwise=not differs,
+              differs=differs[:20], running_stats_moved=moved, eval=full["eval"],
+              resumed_eval=resumed["eval"], **card_note)
+        require(not differs and resumed["eval"] == full["eval"],
+                f"ResNet-18 worker resumed differs in {differs[:20]}")
+        require(moved and resumed["trainer"].start_epoch == 1 and full["trainer"].step == 4,
+                "ResNet-18 worker: no steps, or no resume")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+        shutil.rmtree(work_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    lap("51_resnet18_worker")
+    for name in rows:
+        rows[name]["launches"] = relu_launches[name]
+    return {"rows": rows, "seconds": seconds}
+
+
 def run_grid_phases(dev, card_note: dict) -> dict:
     """``grid_phases`` in a temporary directory it removes."""
     torch.cuda.empty_cache()
@@ -4519,18 +5222,25 @@ def main(grid_only: bool = False) -> None:
     # 1024 wide (4 moment-type pairs x 4-column pieces at 4 and 8 a lane,
     # 1-column pieces at 16 and 32) and adamw_rows_block_kernel past them
     # (4 pairs). quant.cu (phase 43): quantize_rows_kernel at 6 pieces a
-    # lane in 2 dtypes, int8_gemm_kernel in 2 output dtypes.
+    # lane in 2 dtypes, int8_gemm_kernel in 2 output dtypes. The FFN
+    # kernels that compute the activation are instances for it (ffn.cuh
+    # ffn_act): bf16 forwards for gelu, relu and the run-time
+    # code (x3), bf16 backwards for gelu and relu (x2), fp32 ones for gelu and
+    # the run-time code (x2): mlp.cu's tc_kernel 4 x 3 + 4 x 2 + 1, its wide
+    # fc1 gemm_wg x3, gemm_dual x2, gemm_fma + 2; encoder_block.cu's
+    # ffn_tc_kernel 5 x 3, ffn_tf32_kernel 5 x 2, the wide fc1's linear_tf32
+    # x2 and gemm_wg x3
     for source, tag, count in (("attention.cu", "mhsa_tc", 16), ("graphconv.cu", "tc_kernel", 8),
-                               ("mlp.cu", "tc_kernel", 9), ("mlp.cu", "_wg_kernel", 8),
-                               ("mlp.cu", "gemm_dual", 1), ("mlp.cu", "gemm_fma", 5),
+                               ("mlp.cu", "tc_kernel", 21), ("mlp.cu", "_wg_kernel", 10),
+                               ("mlp.cu", "gemm_dual", 2), ("mlp.cu", "gemm_fma", 7),
                                ("mlp.cu", "col_sum", 1), ("encoder_block.cu", "linear_tc", 2),
-                               ("encoder_block.cu", "linear_tf32", 3),
-                               ("encoder_block.cu", "gemm_wg", 4),
+                               ("encoder_block.cu", "linear_tf32", 4),
+                               ("encoder_block.cu", "gemm_wg", 6),
                                ("encoder_block.cu", "ln_rows_bf16", 1),
                                ("encoder_block.cu", "attn_tf32", 3),
                                ("encoder_block.cu", "ln_stats", 1),
-                               ("encoder_block.cu", "ffn_tc_kernel", 5),
-                               ("encoder_block.cu", "ffn_tf32_kernel", 5), ("vq.cu", "vq_tc", 2),
+                               ("encoder_block.cu", "ffn_tc_kernel", 15),
+                               ("encoder_block.cu", "ffn_tf32_kernel", 10), ("vq.cu", "vq_tc", 2),
                                ("layernorm.cu", "ln_bwd_kernel", 18),
                                ("layernorm.cu", "ln_param_sum", 1), ("embed_bwd.cu", "embed_", 6),
                                ("atlas_opt.cu", "adamw_rows_warp", 16),
@@ -5831,6 +6541,11 @@ def main(grid_only: bool = False) -> None:
     torch.cuda.empty_cache()
     quant = quant_phases(dev, card_note, s1_ref, DeviceImages)
 
+    # 47-51. the model zoo: the FFN kernels' activations, a relu and a
+    # post-norm DeiT-Small, ResNet-50 and ResNet-18's worker
+    torch.cuda.empty_cache()
+    zoo = zoo_phases(dev, card_note)
+
     # the least time the card could take for the timed work of each kernel
     def conv_work(args, bwd=False):
         e, f_ = args[0], args[1]
@@ -6038,7 +6753,24 @@ def main(grid_only: bool = False) -> None:
             **({"library_note": r["library_note"]} if "library_note" in r else {}),
             "worker_launches": {},
         })
+    # phases 47-48's rows: the FFN kernels with relu (a config that names no
+    # activation), timed at DeiT-Small's widths in bf16, launches from phase
+    # 48's relu DeiT-Small (its stage-0 steps, its frozen forward)
+    relu_rows = {"ffn_block_relu": ("encoder_block.cu", "encoder_block.py:286"),
+                 "fused_mlp_relu": ("mlp.cu", "mlp.py:230"),
+                 "fused_mlp_bwd_relu": ("mlp.cu", "mlp.py:271")}
+    for name, (source, tpu_site) in relu_rows.items():
+        r = zoo["rows"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "schemanet_torch/csrc/" + source,
+            "replaces": "schemanet_tpu/ops/pallas/" + tpu_site, "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"library_note": r["library_note"]} if "library_note" in r else {}),
+            "worker_launches": {},
+        })
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
+    phase("zoo_seconds", total=sum(zoo["seconds"].values()), **zoo["seconds"])
     phase("quant_seconds", total=sum(quant["seconds"].values()), **quant["seconds"])
     phase("imagenet_seconds", total=sum(imagenet["seconds"].values()), **imagenet["seconds"])
     phase("imagefolder_seconds", total=sum(folder["seconds"].values()), **folder["seconds"])

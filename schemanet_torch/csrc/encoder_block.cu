@@ -4,7 +4,7 @@
 //   attn_block (_attn_block_kernel, _attn_block_hmean_kernel):
 //       y = x + (MHSA(LN1(x) Wqkv + bqkv) Wo + bo)   [+ head-mean of the scores]
 //   ffn_block (_ffn_block_kernel):
-//       z = y + (gelu(LN2(y) W1 + b1) W2 + b2)
+//       z = y + (act(LN2(y) W1 + b1) W2 + b2), act the registry's activation
 //
 // What bounds it on the card: at the serving shape ([64, 197, 192], 3 heads
 // of 64, FFN 768) a layer is ~13 GFLOP against ~10 MB of activations, so the
@@ -34,8 +34,9 @@
 // every product accumulated in fp32 and rounded once to T, bias added in T
 // after that rounding, q scaled in T, scores and softmax in fp32, the
 // probabilities rounded to T before the AV product, the head-mean summed in
-// fp32 over heads in order and scaled by 1/H, gelu in fp32 with the
-// Abramowitz-Stegun erf (ffn.cuh's gelu_as), the residual added in T. The
+// fp32 over heads in order and scaled by 1/H, the FFN's activation in fp32
+// (ffn.cuh's ffn_act: gelu with the Abramowitz-Stegun erf, or relu, swish,
+// sigmoid, hard_sigmoid or none, a runtime code), the residual added in T. The
 // fp32 attention takes its softmax online over chunks of 32 keys (running
 // max, sums rescaled), dividing by the row's sum after the AV product: the
 // same function, rounded in another order.
@@ -149,13 +150,15 @@ struct LinearTf32Smem {
   static constexpr size_t kBytes = sizeof(float) * (kRawA + kRawW + 2 * (kA + kW) + 2 * kLtRows);
 };
 
-template <bool kLn, bool kGelu = false>
+// kAct: y = act(acc + bias), the activation's instance A and code act (the
+// wide FFN's fc1)
+template <bool kLn, bool kAct = false, int A = kActGelu>
 __global__ void __launch_bounds__(kThreads, 2)
     linear_tf32_kernel(const float* __restrict__ a, const float2* __restrict__ stats,
                        const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
                        const float* __restrict__ w, const float* __restrict__ bias,
                        const float* __restrict__ resid, float* __restrict__ y, int rows, int K,
-                       int N, int vec) {
+                       int N, int vec, int act) {
   using S = LinearTf32Smem;
   constexpr int P = kLtPitch;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -245,7 +248,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int col = n0 + wc * 32 + ni * 8 + (lane & 3) * 2 + (e & 1);
         if (row >= rows || col >= N) continue;
         const float v = acc[mi][ni][e] + bias[col];
-        y[row * N + col] = kGelu ? gelu_as(v) : kLn ? v : resid[row * N + col] + v;
+        y[row * N + col] = kAct ? ffn_act<A>(act, v) : kLn ? v : resid[row * N + col] + v;
       }
 }
 
@@ -426,18 +429,18 @@ __global__ void __launch_bounds__(kAtThreads)
   }
 }
 
-template <bool kLn, bool kGelu = false>
+template <bool kLn, bool kAct = false, int A = kActGelu>
 cudaError_t linear_tf32(const float* a, const float2* stats, const float* ln_scale,
                         const float* ln_bias, const float* w, const float* bias,
                         const float* resid, float* y, int rows, int K, int N, bool vec,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, int act = kActGelu) {
   const size_t bytes = LinearTf32Smem::kBytes;
-  auto kernel = linear_tf32_kernel<kLn, kGelu>;
+  auto kernel = linear_tf32_kernel<kLn, kAct, A>;
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((rows + kLtRows - 1) / kLtRows, (N + kLtCols - 1) / kLtCols);
   kernel<<<grid, kThreads, bytes, stream>>>(a, stats, ln_scale, ln_bias, w, bias, resid, y, rows,
-                                            K, N, vec);
+                                            K, N, vec, act);
   return cudaGetLastError();
 }
 
@@ -485,7 +488,8 @@ cudaError_t attn_block_tf32(const float* x, const float* g, const float* be, con
 // block of 8 warps per RT rows. The prologue is LN2 of the block's rows,
 // computed in fp32 and rounded to bf16 into the A tile (layernorm_rows_bf16)
 // while the first W1/W2 chunk is in flight by cp.async; the hidden element
-// is ffn_hidden at p = 0 (no hash, no mask); the epilogue is
+// is ffn_hidden at p = 0 (no hash, no mask) with the launch's activation;
+// the epilogue is
 //   out = x + round(round(acc) + b2), x re-read from device memory.
 // RT = 64 up to width 256 (two blocks an SM up to 192), 32 at 384 (48
 // output registers a thread, one block an SM). f a multiple of 8: the
@@ -494,19 +498,19 @@ cudaError_t attn_block_tf32(const float* x, const float* g, const float* be, con
 template <int DIM>
 constexpr int kFfnTcRows = DIM <= 256 ? 64 : 32;
 
-template <int DIM>
+template <int DIM, int A>
 __global__ void __launch_bounds__(kThreads, DIM <= 192 ? 2 : 1)
     ffn_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
                   const float* __restrict__ ln_bias, float eps, const bf16* __restrict__ w1,
                   const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                  const bf16* __restrict__ b2, bf16* __restrict__ out, int rows, int f) {
+                  const bf16* __restrict__ b2, bf16* __restrict__ out, int rows, int f, int act) {
   constexpr int RT = kFfnTcRows<DIM>;
   using S = FfnTcSmem<DIM, RT>;
   using L = FfnTcLayout<DIM, RT>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* as = reinterpret_cast<bf16*>(smem_raw);  // LN2(x) [RT][DIM + 8]
   bf16* stages = as + S::kA;                     // 2 x (W1 chunk, W2 chunk)
-  bf16* act = stages + 2 * S::kStage;            // gelu of the chunk [RT][40]
+  bf16* acts = stages + 2 * S::kStage;           // the chunk's activation [RT][40]
   const int lane = threadIdx.x & 31;
   const long row0 = (long)blockIdx.x * RT;
   ffn_tc_stage_chunk<DIM, RT>(stages, w1, w2, f, 0);
@@ -515,7 +519,7 @@ __global__ void __launch_bounds__(kThreads, DIM <= 192 ? 2 : 1)
                           as, S::kPitch);  // while chunk 0 is in flight
 
   float oacc[L::kOutTiles][4] = {};
-  ffn_tc_chunks<DIM, RT>(as, stages, act, w1, b1, w2, row0, f, 0.f, 1.f, 0u, oacc);
+  ffn_tc_chunks<DIM, RT, A>(as, stages, acts, w1, b1, w2, row0, f, act, 0.f, 1.f, 0u, oacc);
 #pragma unroll
   for (int nt = 0; nt < L::kOutTiles; ++nt)
 #pragma unroll
@@ -537,7 +541,7 @@ __global__ void __launch_bounds__(kThreads, DIM <= 192 ? 2 : 1)
 // mma.sync m16n8k8 .tf32 by the 3xTF32 split (common.cuh), the output layout
 // of ffn_tc_kernel: 8 warps over RT rows, the hidden width in chunks of CH
 // (kFfnTf32Rows, kFfnTf32Chunk below). LN2(x), each W1 and W2 chunk and the
-// chunk's gelu output are split into hi and lo planes once per element, as
+// chunk's activation are split into hi and lo planes once per element, as
 // they are stored into shared memory. The planes take twice bf16's room, so
 // the weights are double-buffered in registers, not in shared memory: chunk
 // c + 1's 16-byte (W1) and 4-byte (W2, any f) loads are in flight while chunk
@@ -554,8 +558,8 @@ __global__ void __launch_bounds__(kThreads, DIM <= 192 ? 2 : 1)
 // and chunks of 16 (50 + 61 KB, activation 5 KB): chunks of 32 would take
 // 318 KB. With a chunk of 16 fc1 has 4 tiles of 16 x 8 for 8 warps, so two
 // warps split each tile's k and one adds the other's half through shared
-// memory (2.5 KB) before gelu. One block an SM.
-//   out = x + ((gelu(LN2(x) W1^T + b1) W2^T) + b2), all in fp32
+// memory (2.5 KB) before the activation. One block an SM.
+//   out = x + ((act(LN2(x) W1^T + b1) W2^T) + b2), all in fp32
 // ---------------------------------------------------------------------------
 template <int DIM>
 constexpr int kFfnTf32Rows = DIM <= 192 ? 64 : 32;
@@ -570,7 +574,7 @@ struct FfnTf32Smem {
   static constexpr int kA = kRows * kPitch;       // one plane of LN2(x)
   static constexpr int kW1 = kChunk * kPitch;     // one plane of a W1 chunk [CH][DIM]
   static constexpr int kW2 = DIM * kActPitch;     // one plane of a W2 chunk [DIM][CH]
-  static constexpr int kAct = kRows * kActPitch;  // one plane of the chunk's gelu
+  static constexpr int kAct = kRows * kActPitch;  // one plane of the chunk's activation
   // the fc1 layout: n8 tiles a warp (2 or 1) and warps over one tile's k
   static constexpr int kWC = FfnTcLayout<DIM, kRows>::kWC, kTiles = kChunk / 8;
   static constexpr int kKSplit = kWC > kTiles ? kWC / kTiles : 1;
@@ -582,12 +586,13 @@ struct FfnTf32Smem {
   static_assert(kChunk * DIM / 4 % kThreads == 0, "W1 chunk in whole 16-byte loads a thread");
 };
 
-template <int DIM>
+template <int DIM, int A>
 __global__ void __launch_bounds__(kThreads, 1)
     ffn_tf32_kernel(const float* __restrict__ x, const float* __restrict__ ln_scale,
                     const float* __restrict__ ln_bias, float eps, const float* __restrict__ w1,
                     const float* __restrict__ b1, const float* __restrict__ w2,
-                    const float* __restrict__ b2, float* __restrict__ out, int rows, int f) {
+                    const float* __restrict__ b2, float* __restrict__ out, int rows, int f,
+                    int act) {
   using S = FfnTf32Smem<DIM>;
   constexpr int RT = S::kRows, CH = S::kChunk, P = S::kPitch, AP = S::kActPitch;
   using L = FfnTcLayout<DIM, RT>;
@@ -723,7 +728,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       __syncthreads();
     }
-    // a = gelu(h + b1) in fp32, split into the activation planes
+    // a = act(h + b1) in fp32, split into the activation planes
     if (kq == 0) {
 #pragma unroll
       for (int nt = 0; nt < NT1; ++nt)
@@ -738,8 +743,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             h1 += o.y;
           }
           uint2 hi, lo;
-          tf32_split(f0 + cc < f ? gelu_as(h0 + b1[f0 + cc]) : 0.f, hi.x, lo.x);
-          tf32_split(f0 + cc + 1 < f ? gelu_as(h1 + b1[f0 + cc + 1]) : 0.f, hi.y, lo.y);
+          tf32_split(f0 + cc < f ? ffn_act<A>(act, h0 + b1[f0 + cc]) : 0.f, hi.x, lo.x);
+          tf32_split(f0 + cc + 1 < f ? ffn_act<A>(act, h1 + b1[f0 + cc + 1]) : 0.f, hi.y, lo.y);
           *reinterpret_cast<uint2*>(act_hi + r * AP + cc) = hi;
           *reinterpret_cast<uint2*>(act_lo + r * AP + cc) = lo;
         }
@@ -908,31 +913,31 @@ cudaError_t attn_block_tc(const void* x, const void* g, const void* be, const vo
 template <typename T, int RT, typename Kernel>
 cudaError_t ffn_launch(Kernel kernel, size_t bytes, const void* x, const void* g, const void* be,
                        const void* w1, const void* b1, const void* w2, const void* b2, void* out,
-                       int rows, int f, float eps, cudaStream_t stream) {
+                       int rows, int f, int act, float eps, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<(rows + RT - 1) / RT, kThreads, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const float*>(be), eps,
       static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<T*>(out), rows, f);
+      static_cast<const T*>(b2), static_cast<T*>(out), rows, f, act);
   return cudaGetLastError();
 }
 
-template <int DIM>
+template <int DIM, int A>
 cudaError_t ffn_tc_launch(const void* x, const void* g, const void* be, const void* w1,
                           const void* b1, const void* w2, const void* b2, void* out, int rows,
-                          int f, float eps, cudaStream_t s) {
+                          int f, int act, float eps, cudaStream_t s) {
   constexpr int RT = kFfnTcRows<DIM>;
-  return ffn_launch<bf16, RT>(ffn_tc_kernel<DIM>, FfnTcSmem<DIM, RT>::kBytes, x, g, be, w1, b1,
-                              w2, b2, out, rows, f, eps, s);
+  return ffn_launch<bf16, RT>(ffn_tc_kernel<DIM, A>, FfnTcSmem<DIM, RT>::kBytes, x, g, be, w1, b1,
+                              w2, b2, out, rows, f, act, eps, s);
 }
 
-template <int DIM>
+template <int DIM, int A>
 cudaError_t ffn_tf32_launch(const void* x, const void* g, const void* be, const void* w1,
                             const void* b1, const void* w2, const void* b2, void* out, int rows,
-                            int f, float eps, cudaStream_t s) {
-  return ffn_launch<float, kFfnTf32Rows<DIM>>(ffn_tf32_kernel<DIM>, FfnTf32Smem<DIM>::kBytes, x,
-                                                 g, be, w1, b1, w2, b2, out, rows, f, eps, s);
+                            int f, int act, float eps, cudaStream_t s) {
+  return ffn_launch<float, kFfnTf32Rows<DIM>>(ffn_tf32_kernel<DIM, A>, FfnTf32Smem<DIM>::kBytes, x,
+                                                 g, be, w1, b1, w2, b2, out, rows, f, act, eps, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -945,8 +950,8 @@ cudaError_t ffn_tf32_launch(const void* x, const void* g, const void* be, const 
 // bf16, three launches (ffn_wide_tc):
 //   (a) ln_rows_bf16_kernel: a = round(LN2(x)) into a bf16 scratch [rows,
 //       dim], a warp a row in 16-byte pieces;
-//   (b) fc1, gemm.cuh's gemm_tc (TMA-fed wgmma) over k = dim with EpiGelu:
-//       hidden = round(gelu(round(round(acc) + b1)));
+//   (b) fc1, gemm.cuh's gemm_tc (TMA-fed wgmma) over k = dim with EpiAct:
+//       hidden = round(act(round(round(acc) + b1)));
 //   (c) fc2, the same GEMM over k = f with EpiResidual:
 //       out = x + round(round(acc) + b2).
 // What bounds it at [64, 197, 768], f 3072: the products, 119 GFLOP (0.12
@@ -956,11 +961,11 @@ cudaError_t ffn_tf32_launch(const void* x, const void* g, const void* be, const 
 // waited for all of its copies before its first product and recomputed a
 // row tile's LN2 for each of its 48 column tiles: 1.8 ms. Here LN2 runs once
 // a row (~0.02 ms of bytes), and both products stream k through the GEMM's
-// ring of TMA stages; fc1's gelu epilogue (tens of instructions an element)
+// ring of TMA stages; fc1's activation epilogue (tens of instructions an element)
 // takes gemm_tile's epilogue-heavy tile, 192 x 128 over three consumer
 // warpgroups.
 // fp32: ln_stats_kernel, linear_tf32_kernel<true, true> (hidden =
-// gelu(acc + b1)) and linear_tf32_kernel<false> (out = x + (acc + b2)),
+// act(acc + b1)) and linear_tf32_kernel<false> (out = x + (acc + b2)),
 // split TF32 as attn_block's fp32 route.
 // ---------------------------------------------------------------------------
 
@@ -1042,14 +1047,15 @@ cudaError_t ln_rows_bf16(const void* x, const void* scale, const void* bias, voi
   return cudaGetLastError();
 }
 
-// (b) hidden = round(gelu(round(round(acc) + b1))), bf16, as the one-launch
+// (b) hidden = round(act(round(round(acc) + b1))), bf16, as the one-launch
 // kernels' hidden chunk (gemm.cuh's cols / put)
-struct EpiGelu {
+template <int A>
+struct EpiAct {
   using Col = float2;
-  static constexpr bool kHeavy = true;  // gelu: tens of instructions an element
+  static constexpr bool kHeavy = true;  // the activation: gelu is tens of instructions
   const bf16* b1;
   bf16* hidden;
-  int f;
+  int f, act;
   __device__ __forceinline__ Col cols(int col, bool in) const {
     return in ? unpack_bf16(*reinterpret_cast<const uint32_t*>(b1 + col)) : make_float2(0.f, 0.f);
   }
@@ -1057,7 +1063,7 @@ struct EpiGelu {
                                       bool in) const {
     const float h0 = Num<bf16>::round(Num<bf16>::round(c0) + b.x);
     const float h1 = Num<bf16>::round(Num<bf16>::round(c1) + b.y);
-    const uint32_t v = pack_bf16(gelu_as(h0), gelu_as(h1));
+    const uint32_t v = pack_bf16(ffn_act<A>(act, h0), ffn_act<A>(act, h1));
     if (in) *reinterpret_cast<uint32_t*>(hidden + row * f + col) = v;
   }
 };
@@ -1086,13 +1092,15 @@ struct EpiResidual {
 
 // ln: bf16 scratch [rows, dim]; hidden: bf16 scratch [rows, f]; dim a
 // multiple of 16 up to 1024, f of 8
+template <int A>
 cudaError_t ffn_wide_tc(const void* x, const void* g, const void* be, const void* w1,
                         const void* b1, const void* w2, const void* b2, void* out, void* ln,
-                        void* hidden, int rows, int dim, int f, float eps, cudaStream_t s) {
+                        void* hidden, int rows, int dim, int f, int act, float eps,
+                        cudaStream_t s) {
   if (dim % 16 || f % 8 || ln == nullptr || hidden == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = ln_rows_bf16(x, g, be, ln, rows, dim, eps, s);
   if (err != cudaSuccess) return err;
-  const EpiGelu fc1{static_cast<const bf16*>(b1), static_cast<bf16*>(hidden), f};
+  const EpiAct<A> fc1{static_cast<const bf16*>(b1), static_cast<bf16*>(hidden), f, act};
   err = gemm_tc<false>(static_cast<const bf16*>(ln), static_cast<const bf16*>(w1), rows, f, dim,
                        fc1, s);
   if (err != cudaSuccess) return err;
@@ -1103,48 +1111,56 @@ cudaError_t ffn_wide_tc(const void* x, const void* g, const void* be, const void
 }
 
 // hidden: fp32 scratch [rows, f]; stats fp32 [rows, 2]
+template <int A>
 cudaError_t ffn_wide_tf32(const float* x, const float* g, const float* be, const float* w1,
                           const float* b1, const float* w2, const float* b2, float* out,
-                          float* hidden, float2* stats, int rows, int dim, int f, float eps,
-                          cudaStream_t s) {
+                          float* hidden, float2* stats, int rows, int dim, int f, int act,
+                          float eps, cudaStream_t s) {
   if (hidden == nullptr || stats == nullptr) return cudaErrorInvalidValue;
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   constexpr int kWarps = kThreads / 32;
   ln_stats_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, s>>>(x, stats, rows, dim, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = linear_tf32<true, true>(x, stats, g, be, w1, b1, nullptr, hidden, rows, dim, f,
-                                dim % 4 == 0 && aligned(x) && aligned(w1), s);
+  err = linear_tf32<true, true, A>(x, stats, g, be, w1, b1, nullptr, hidden, rows, dim, f,
+                                dim % 4 == 0 && aligned(x) && aligned(w1), s, act);
   if (err != cudaSuccess) return err;
   return linear_tf32<false>(hidden, nullptr, nullptr, nullptr, w2, b2, x, out, rows, f, dim,
                             f % 4 == 0 && aligned(hidden) && aligned(w2), s);
 }
 
 // bf16 by the tensor cores, f a multiple of 8
+template <int A>
 cudaError_t ffn_block_tc(const void* x, const void* g, const void* be, const void* w1,
                          const void* b1, const void* w2, const void* b2, void* out, int rows,
-                         int dim, int f, float eps, cudaStream_t s) {
+                         int dim, int f, int act, float eps, cudaStream_t s) {
   if (f % 8) return cudaErrorInvalidValue;
   switch (dim) {
-    case 64: return ffn_tc_launch<64>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
-    case 128: return ffn_tc_launch<128>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
-    case 192: return ffn_tc_launch<192>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
-    case 256: return ffn_tc_launch<256>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
-    case 384: return ffn_tc_launch<384>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
+    case 64: return ffn_tc_launch<64, A>(x, g, be, w1, b1, w2, b2, out, rows, f, act, eps, s);
+    case 128: return ffn_tc_launch<128, A>(x, g, be, w1, b1, w2, b2, out, rows, f, act, eps, s);
+    case 192: return ffn_tc_launch<192, A>(x, g, be, w1, b1, w2, b2, out, rows, f, act, eps, s);
+    case 256: return ffn_tc_launch<256, A>(x, g, be, w1, b1, w2, b2, out, rows, f, act, eps, s);
+    case 384: return ffn_tc_launch<384, A>(x, g, be, w1, b1, w2, b2, out, rows, f, act, eps, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // fp32 by the split TF32
+template <int A>
 cudaError_t ffn_block_fp32(const void* x, const void* g, const void* be, const void* w1,
                            const void* b1, const void* w2, const void* b2, void* out, int rows,
-                           int dim, int f, float eps, cudaStream_t s) {
+                           int dim, int f, int act, float eps, cudaStream_t s) {
   switch (dim) {
-    case 64: return ffn_tf32_launch<64>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
-    case 128: return ffn_tf32_launch<128>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
-    case 192: return ffn_tf32_launch<192>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
-    case 256: return ffn_tf32_launch<256>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
-    case 384: return ffn_tf32_launch<384>(x, g, be, w1, b1, w2, b2, out, rows, f, eps, s);
+    case 64:
+      return ffn_tf32_launch<64, A>(x, g, be, w1, b1, w2, b2, out, rows, f, act, eps, s);
+    case 128:
+      return ffn_tf32_launch<128, A>(x, g, be, w1, b1, w2, b2, out, rows, f, act, eps, s);
+    case 192:
+      return ffn_tf32_launch<192, A>(x, g, be, w1, b1, w2, b2, out, rows, f, act, eps, s);
+    case 256:
+      return ffn_tf32_launch<256, A>(x, g, be, w1, b1, w2, b2, out, rows, f, act, eps, s);
+    case 384:
+      return ffn_tf32_launch<384, A>(x, g, be, w1, b1, w2, b2, out, rows, f, act, eps, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1181,24 +1197,35 @@ int sn_attn_block(int dtype, const void* x, const void* ln_scale, const void* ln
 // hidden a scratch [rows, f] of the storage type, and ln LN2's scratch, in
 // fp32 its (mean, rstd) a row [rows, 2], in bf16 LN2(x) itself [rows, dim]
 // (dim a multiple of 16 up to 1024; ln_scale and ln_bias 16-byte aligned).
+// act: the activation's code (ffn.cuh FfnAct); the kernels' instances: gelu
+// and the run-time code in fp32; gelu, relu and the run-time code in bf16.
 int sn_ffn_block(int dtype, const void* x, const void* ln_scale, const void* ln_bias,
                  const void* w1, const void* b1, const void* w2, const void* b2, void* out,
-                 void* hidden, void* ln, int rows, int dim, int f, float eps, void* stream) {
+                 void* hidden, void* ln, int rows, int dim, int f, int act, float eps,
+                 void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (!sn::ffn_act_valid(act)) return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
-  if (dim > 384) {
-    if (dtype == sn::kF32) {
-      const auto c = [](const void* p) { return static_cast<const float*>(p); };
-      return sn::ffn_wide_tf32(c(x), c(ln_scale), c(ln_bias), c(w1), c(b1), c(w2), c(b2),
-                               static_cast<float*>(out), static_cast<float*>(hidden),
-                               static_cast<float2*>(ln), rows, dim, f, eps, s);
-    }
-    return sn::ffn_wide_tc(x, ln_scale, ln_bias, w1, b1, w2, b2, out, ln, hidden, rows, dim, f,
-                           eps, s);
+  const bool wide = dim > 384;
+  if (dtype == sn::kF32) {
+    const auto c = [](const void* p) { return static_cast<const float*>(p); };
+    return sn::with_act<sn::kActGelu, sn::kActAny>(act, [&](auto a) {
+      constexpr int A = decltype(a)::value;
+      return wide ? sn::ffn_wide_tf32<A>(c(x), c(ln_scale), c(ln_bias), c(w1), c(b1), c(w2),
+                                         c(b2), static_cast<float*>(out),
+                                         static_cast<float*>(hidden), static_cast<float2*>(ln),
+                                         rows, dim, f, act, eps, s)
+                  : sn::ffn_block_fp32<A>(x, ln_scale, ln_bias, w1, b1, w2, b2, out, rows, dim,
+                                          f, act, eps, s);
+    });
   }
-  if (dtype == sn::kF32)
-    return sn::ffn_block_fp32(x, ln_scale, ln_bias, w1, b1, w2, b2, out, rows, dim, f, eps, s);
-  return sn::ffn_block_tc(x, ln_scale, ln_bias, w1, b1, w2, b2, out, rows, dim, f, eps, s);
+  return sn::with_act<sn::kActGelu, sn::kActRelu, sn::kActAny>(act, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    return wide ? sn::ffn_wide_tc<A>(x, ln_scale, ln_bias, w1, b1, w2, b2, out, ln, hidden, rows,
+                                     dim, f, act, eps, s)
+                : sn::ffn_block_tc<A>(x, ln_scale, ln_bias, w1, b1, w2, b2, out, rows, dim, f,
+                                      act, eps, s);
+  });
 }
 
 // the bf16 wide route's launch (a) alone: a = round(LN2(x)) [rows, dim]

@@ -8,13 +8,15 @@
 // W2[:, f0:+32] double-buffered by cp.async. Per chunk each warp computes
 // h = A W1^T for its 16 rows and 32 / WC of the chunk's columns (W1 rows as
 // [n][k] by ldmatrix), turns the C fragments into the activation
-// (ffn_hidden: b1, gelu, the mask) and writes it, bf16, to a shared
+// (ffn_hidden: b1, the activation, the mask) and writes it, bf16, to a shared
 // tile; then out += act W2^T (W2's chunk as [n][k]) for its 16 rows and
 // DIM / WC columns, in fp32 registers over all chunks. The hidden state
 // never leaves the chip. RT = 64 (4 row groups x 2 column groups of warps)
 // or 32 (2 x 4): 32 at DIM 384 keeps the output fragments at 48 registers
 // a thread, where 64 rows would hold 96.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "dropmask.cuh"
@@ -43,9 +45,71 @@ __device__ __forceinline__ float gelu_as_grad(float x) {
   return cdf + x * pdf;
 }
 
+// The FFN's hidden activation (ops/kernels/mlp.py ACT_CODES): the TPU
+// kernels' gelu, or one of the registry's (schemanet_tpu/models/layers.py),
+// each in fp32; the caller rounds to the storage type, as the TPU kernel
+// computes gelu in fp32 and the rest in the compute dtype. A kernel is an
+// instance for its activation A: gelu and relu (the default of a config that
+// names none) their own, the rest kActAny, which reads the launch's code
+// `act` at run time. A switch in every element's epilogue measured 2.1-2.4x
+// slower on the wgmma route's fc1 and dual product (the branches stop the
+// compiler interleaving the elements), so the two that matter are compiled.
+enum FfnAct : int {
+  kActGelu = 0,
+  kActRelu = 1,
+  kActSwish = 2,
+  kActSigmoid = 3,
+  kActHardSigmoid = 4,
+  kActNone = 5,
+};
+constexpr int kActAny = -1;  // the code read at run time
+
+template <int A>
+__device__ __forceinline__ float ffn_act(int act, float x) {
+  if constexpr (A == kActGelu) {
+    return gelu_as(x);
+  } else if constexpr (A == kActRelu) {
+    return fmaxf(x, 0.f);
+  } else {
+    switch (act) {
+      case kActRelu: return fmaxf(x, 0.f);
+      case kActSwish: return x * (1.f / (1.f + expf(-x)));  // x sigmoid(x), as flax's swish
+      case kActSigmoid: return 1.f / (1.f + expf(-x));
+      case kActHardSigmoid: return fminf(fmaxf(x + 3.f, 0.f), 6.f) / 6.f;
+      case kActNone: return x;
+      default: return gelu_as(x);
+    }
+  }
+}
+
+// d act / d x in fp32: the backward takes gelu and relu, as the TPU kernel's
+// _activation_grad (the launchers refuse any other code)
+template <int A>
+__device__ __forceinline__ float ffn_act_grad(int act, float x) {
+  const bool relu = A == kActRelu || (A == kActAny && act == kActRelu);
+  return relu ? (x > 0.f ? 1.f : 0.f) : gelu_as_grad(x);
+}
+
+// f(std::integral_constant<int, A>{}) for the first A of As that is act or
+// kActAny (list kActAny last): the launchers' choice of instance
+template <int... As, typename F>
+cudaError_t with_act(int act, F&& f) {
+  cudaError_t err = cudaErrorInvalidValue;
+  bool done = false;
+  ((!done && (As == act || As == kActAny)
+        ? (err = f(std::integral_constant<int, As>{}), done = true)
+        : false),
+   ...);
+  return err;
+}
+
+inline bool ffn_act_valid(int act) { return act >= kActGelu && act <= kActNone; }
+inline bool ffn_act_has_grad(int act) { return act == kActGelu || act == kActRelu; }
+
 // The hidden element (row, col) of the FFN from its fp32 fc1 sum, with the
-// TPU kernel's roundings to the storage type T: h = round(round(acc) + b1),
-// a = round(gelu(h)), and with dropout a_used = round(a * inv_t) where the
+// TPU kernel's roundings to the storage type T (A: the activation's instance,
+// act its code): h = round(round(acc) + b1),
+// a = round(act(h)), and with dropout a_used = round(a * inv_t) where the
 // hash keeps (row, col), else 0. The tensor-core forward and backward both
 // call it on their C fragments, so they regenerate the same h, a_used and
 // mask; so do the wide routes' epilogues (mlp.cu).
@@ -54,12 +118,12 @@ struct FfnHidden {
   bool keep;
 };
 
-template <typename T>
+template <typename T, int A>
 __device__ __forceinline__ FfnHidden ffn_hidden(float acc, const T* b1, long row, int col, int f,
-                                                float p, float inv_t, DropKey h0) {
+                                                int act, float p, float inv_t, DropKey h0) {
   FfnHidden v;
   v.h = Num<T>::round(Num<T>::round(acc) + Num<T>::load(b1, col));
-  v.a_used = Num<T>::round(gelu_as(v.h));
+  v.a_used = Num<T>::round(ffn_act<A>(act, v.h));
   v.keep = true;
   if (p > 0.f) {
     v.keep = drop_keep(h0, (uint32_t)row, f, col, p);
@@ -72,12 +136,13 @@ __device__ __forceinline__ FfnHidden ffn_hidden(float acc, const T* b1, long row
 // elements run as one straight sequence the compiler interleaves: b1's value
 // passed in (read before any store), the hash computed at p = 0 too and the
 // mask applied by selects, no branch. The same numbers as ffn_hidden.
-template <typename T>
+template <typename T, int A>
 __device__ __forceinline__ FfnHidden ffn_hidden_sel(float acc, float bias, long row, int col,
-                                                    int f, float p, float inv_t, DropKey h0) {
+                                                    int f, int act, float p, float inv_t,
+                                                    DropKey h0) {
   FfnHidden v;
   v.h = Num<T>::round(Num<T>::round(acc) + bias);
-  const float a = Num<T>::round(gelu_as(v.h));
+  const float a = Num<T>::round(ffn_act<A>(act, v.h));
   const bool drop = p > 0.f;
   const bool keep = drop_keep(h0, (uint32_t)row, f, col, p);
   v.keep = keep | !drop;
@@ -134,14 +199,16 @@ __device__ __forceinline__ int2 ffn_tc_out_coord(int nt, int half, int lane) {
                    (warp % L::kWC) * L::kOutCols + nt * 8 + (lane & 3) * 2);
 }
 
-// oacc += act(A W1^T + b1) W2^T over the whole hidden width, for the A tile
-// `a` [RT][DIM + 8] of the rows from row0. On entry chunk 0 is staged into
-// `stages` (its cp.async group committed) and the A tile is written or in
-// flight in the same group; the first wait and barrier publish both.
-template <int DIM, int RT>
-__device__ __forceinline__ void ffn_tc_chunks(const bf16* a, bf16* stages, bf16* act,
+// oacc += act(A W1^T + b1) W2^T over the whole hidden width (AC: the
+// activation's instance, act its code), for the A tile `a` [RT][DIM + 8]
+// of the rows from row0. On entry chunk 0 is staged into `stages` (its
+// cp.async group committed) and the A tile is written or in flight in the
+// same group; the first wait and barrier publish both.
+template <int DIM, int RT, int AC>
+__device__ __forceinline__ void ffn_tc_chunks(const bf16* a, bf16* stages, bf16* act_tile,
                                               const bf16* w1, const bf16* b1, const bf16* w2,
-                                              long row0, int f, float p, float inv_t, DropKey h0,
+                                              long row0, int f, int act, float p, float inv_t,
+                                              DropKey h0,
                                               float (&oacc)[FfnTcLayout<DIM, RT>::kOutTiles][4]) {
   using S = FfnTcSmem<DIM, RT>;
   using L = FfnTcLayout<DIM, RT>;
@@ -192,12 +259,12 @@ __device__ __forceinline__ void ffn_tc_chunks(const bf16* a, bf16* stages, bf16*
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = f0 + cc + e;
-          av[e] = col < f ? ffn_hidden<bf16>(hacc[nt][half * 2 + e], b1, row0 + r, col, f, p,
-                                            inv_t, h0)
+          av[e] = col < f ? ffn_hidden<bf16, AC>(hacc[nt][half * 2 + e], b1, row0 + r, col, f,
+                                                act, p, inv_t, h0)
                                 .a_used
                           : 0.f;
         }
-        *reinterpret_cast<uint32_t*>(act + r * CP + cc) = pack_bf16(av[0], av[1]);
+        *reinterpret_cast<uint32_t*>(act_tile + r * CP + cc) = pack_bf16(av[0], av[1]);
       }
     __syncthreads();
 
@@ -205,7 +272,7 @@ __device__ __forceinline__ void ffn_tc_chunks(const bf16* a, bf16* stages, bf16*
 #pragma unroll
     for (int kk = 0; kk < kFfnChunk / 16; ++kk) {
       uint32_t af[4];
-      ldsm_a(af, act, CP, wr * 16, kk * 16, lane);
+      ldsm_a(af, act_tile, CP, wr * 16, kk * 16, lane);
 #pragma unroll
       for (int nb = 0; nb < L::kOutTiles / 2; ++nb) {
         uint32_t b[4];

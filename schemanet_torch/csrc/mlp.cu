@@ -14,12 +14,12 @@
 // products) against ~10 MB and ~16 MB of operands: compute-bound, once the
 // [rows, f] hidden state stays on chip. The design keeps it there:
 //   * forward (fp32): one block per 32 rows; the hidden width in chunks of 64:
-//     fc1 + bias + gelu + mask into shared memory, and the fc2 partial sums
+//     fc1 + bias + activation + mask into shared memory, and the fc2 partial sums
 //     accumulate in registers (as the frozen ffn_block's fp32 FMA kernel
 //     does at width 384).
 //   * backward, three launches. (a) dx: one block per 32 rows, the hidden
 //     width in chunks: recompute h = x W1 + b1 and dA = g W2^T for the chunk,
-//     dH = dA * gelu'(h) in shared memory, dx += dH W1 in registers.
+//     dH = dA * act'(h) in shared memory, dx += dH W1 in registers.
 //     (b) weight gradients: one block per (chunk of 64 hidden columns, split
 //     of the rows); it recomputes a and dH for its chunk over its rows and
 //     sums dW1, dW2, db1 (and db2) for the chunk in registers, then writes
@@ -38,11 +38,15 @@
 // launches.
 //
 // Numerics follow the TPU kernel: x W1 accumulated in fp32 and rounded once
-// to T, + b1 in T, gelu with the Abramowitz-Stegun erf in fp32 rounded to T,
+// to T, + b1 in T, the activation in fp32 rounded to T (gelu with the
+// Abramowitz-Stegun erf, or relu, swish, sigmoid, hard_sigmoid or none:
+// ffn.cuh's ffn_act; each kernel an instance for gelu and kActAny, the bf16
+// ones for relu too, and the backward for gelu and relu),
 // dropout h * inv as a product in T (inv rounded to T first, as JAX rounds
 // a weak-typed Python float), then the fp32-accumulated fc2 rounded to T,
-// + b2 in T. Backward: dA * inv in fp32, dH = dA * gelu'(h) rounded to T,
-// weight and bias gradients summed in fp32.
+// + b2 in T. Backward (gelu and relu, as the TPU kernel): dA * inv in fp32,
+// dH = dA * act'(h) rounded to T (relu' = (h > 0)), weight and bias
+// gradients summed in fp32.
 #include <cstring>
 
 #include "ffn.cuh"
@@ -102,10 +106,11 @@ __device__ __forceinline__ void load_rows(const T* x, long row0, int rows_here, 
 // The hidden chunk [f0, f0 + FC) of a row tile for the backward: a_used (the
 // dropped activation, in T; skipped when `as` is null) and dH (in T), both
 // [BM][FC] in shared memory, zero past the rows and columns.
-template <typename T, int kDim>
+template <typename T, int kDim, int A>
 __device__ __forceinline__ void mlp_hidden_bwd(const float* xs, const float* gs, const T* w1,
                                                const T* b1, const T* w2, int f, int f0,
-                                               long row0, int rows_here, float p, float inv,
+                                               long row0, int rows_here, int act, float p,
+                                               float inv,
                                                float inv_t, DropKey h0, float* bs, float* as,
                                                float* hs) {
   constexpr int TM = 2, TN = 4;
@@ -121,14 +126,14 @@ __device__ __forceinline__ void mlp_hidden_bwd(const float* xs, const float* gs,
       float a_used = 0.f, dh = 0.f;
       if (r < rows_here && col < f) {
         const float h = Num<T>::round(Num<T>::round(acc_h[i][j]) + Num<T>::load(b1, col));
-        a_used = Num<T>::round(gelu_as(h));
+        a_used = Num<T>::round(ffn_act<A>(act, h));
         float da = acc_d[i][j];
         if (p > 0.f) {
           const bool keep = drop_keep(h0, (uint32_t)(row0 + r), f, col, p);
           a_used = keep ? Num<T>::round(a_used * inv_t) : 0.f;
           da = keep ? da * inv : 0.f;
         }
-        dh = Num<T>::round(da * gelu_as_grad(h));
+        dh = Num<T>::round(da * ffn_act_grad<A>(act, h));
       }
       if (as != nullptr) as[r * kMlpFC + c] = a_used;
       hs[r * kMlpFC + c] = dh;
@@ -139,15 +144,15 @@ __device__ __forceinline__ void mlp_hidden_bwd(const float* xs, const float* gs,
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
-template <typename T, int TN2>
+template <typename T, int TN2, int A>
 __global__ void __launch_bounds__(kThreads)
     mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
                    const T* __restrict__ w2, const T* __restrict__ b2, T* __restrict__ out,
-                   int rows, int f, float p, float inv, DropSeed seed) {
+                   int rows, int f, int act, float p, float inv, DropSeed seed) {
   constexpr int dim = 32 * TN2;
   extern __shared__ float smem[];
   float* xs = smem;                  // [BM][dim]
-  float* hs = xs + kMlpBM * dim;     // [BM][FC] hidden chunk after gelu and dropout
+  float* hs = xs + kMlpBM * dim;     // [BM][FC] hidden chunk after the activation and dropout
   float* bs = hs + kMlpBM * kMlpFC;  // weight chunks
   const long row0 = (long)blockIdx.x * kMlpBM;
   const int rows_here = min(kMlpBM, rows - (int)row0);
@@ -170,7 +175,7 @@ __global__ void __launch_bounds__(kThreads)
         float a = 0.f;
         if (col < f) {
           const float h = Num<T>::round(Num<T>::round(acc1[i][j]) + Num<T>::load(b1, col));
-          a = Num<T>::round(gelu_as(h));
+          a = Num<T>::round(ffn_act<A>(act, h));
           if (p > 0.f)
             a = drop_keep(h0, (uint32_t)(row0 + r), f, col, p) ? Num<T>::round(a * inv_t) : 0.f;
         }
@@ -196,11 +201,11 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // backward (a): dx
 // ---------------------------------------------------------------------------
-template <typename T, int TN2>
+template <typename T, int TN2, int A>
 __global__ void __launch_bounds__(kThreads)
     mlp_dx_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
                   const T* __restrict__ w2, const T* __restrict__ g, T* __restrict__ dx, int rows,
-                  int f, float p, float inv, DropSeed seed) {
+                  int f, int act, float p, float inv, DropSeed seed) {
   constexpr int dim = 32 * TN2;
   extern __shared__ float smem[];
   float* xs = smem;                  // [BM][dim]
@@ -218,8 +223,8 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int TM2 = 4;
   float acc[TM2][TN2] = {};
   for (int f0 = 0; f0 < f; f0 += kMlpFC) {
-    mlp_hidden_bwd<T, dim>(xs, gs, w1, b1, w2, f, f0, row0, rows_here, p, inv, inv_t, h0, bs,
-                           nullptr, hs);
+    mlp_hidden_bwd<T, dim, A>(xs, gs, w1, b1, w2, f, f0, row0, rows_here, act, p, inv, inv_t,
+                              h0, bs, nullptr, hs);
     gemm_smem_a_kn<T, kMlpBM, dim, TM2, TN2, kMlpKC2>(hs, kMlpFC, w1 + (long)f0 * dim, dim,
                                                       min(kMlpFC, f - f0), 0, dim, bs, acc);
   }
@@ -238,12 +243,12 @@ __global__ void __launch_bounds__(kThreads)
 // row split). part holds, per split: dW1 [f][dim], dW2 [dim][f], db1 [f],
 // db2 [dim] (db2 from the blocks of chunk 0 only).
 // ---------------------------------------------------------------------------
-template <typename T, int TN2>
+template <typename T, int TN2, int A>
 __global__ void __launch_bounds__(kThreads)
     mlp_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
                      const T* __restrict__ w2, const T* __restrict__ g,
-                     float* __restrict__ part, int rows, int f, int tiles_per_split, float p,
-                     float inv, DropSeed seed) {
+                     float* __restrict__ part, int rows, int f, int tiles_per_split, int act,
+                     float p, float inv, DropSeed seed) {
   constexpr int dim = 32 * TN2;
   constexpr int TD = dim / 16;  // dim entries per thread: 16 x 16 threads over [dim][FC]
   extern __shared__ float smem[];
@@ -268,8 +273,8 @@ __global__ void __launch_bounds__(kThreads)
     load_rows<T>(x, row0, rows_here, dim, xs);
     load_rows<T>(g, row0, rows_here, dim, gs);
     __syncthreads();
-    mlp_hidden_bwd<T, dim>(xs, gs, w1, b1, w2, f, f0, row0, rows_here, p, inv, inv_t, h0, bs, as,
-                           hs);
+    mlp_hidden_bwd<T, dim, A>(xs, gs, w1, b1, w2, f, f0, row0, rows_here, act, p, inv, inv_t,
+                              h0, bs, as, hs);
     for (int r = 0; r < rows_here; ++r) {
       float a[kMlpTF], h[kMlpTF], xv[TD], gv[TD];
 #pragma unroll
@@ -352,7 +357,7 @@ __global__ void __launch_bounds__(kThreads)
 // forward, mlp_fwd_tc_kernel: one block of 8 warps per 64 rows, whose x
 //     stays in shared memory, through the chunk loop of ffn.cuh (shared with
 //     encoder_block.cu's ffn_tc_kernel): hidden chunks of 32, double-buffered
-//     by cp.async; h, b1, gelu and the mask on the C fragments
+//     by cp.async; h, b1, the activation and the mask on the C fragments
 //     (ffn_hidden, shared with (a) below); out += a_used W2^T in fp32
 //     registers; b2 in the epilogue. Nothing of the hidden state leaves the
 //     chip. The chunk of 32 (not (a)'s 64) keeps a block at 87 KB of shared
@@ -363,7 +368,7 @@ __global__ void __launch_bounds__(kThreads)
 //     W1[f0:+64, :] and W2[:, f0:+64] double-buffered by cp.async. Per
 //     chunk each warp computes h = x W1^T and dA = g W2 for its 16 rows and
 //     32 of the chunk's columns (W1 rows as [n][k] by ldmatrix, W2 as [k][n]
-//     by ldmatrix.trans), applies b1, gelu, gelu' and the mask to the C
+//     by ldmatrix.trans), applies b1, act, act' and the mask to the C
 //     fragments in registers (an element's row and column from the lane
 //     layout), and writes a_used and dH, bf16, to shared tiles. Then
 //     dx += dH W1 (W1's chunk again, as [k][n]) for the warp's 16 rows and
@@ -396,12 +401,13 @@ struct MlpTcSmem {
   static constexpr size_t kBytes = sizeof(bf16) * (2 * kRows + 2 * (kRows + kW2) + 2 * kHidden);
 };
 
-template <int DIM>
+template <int DIM, int A>
 __global__ void __launch_bounds__(kThreads, 1)
     mlp_dh_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                      const bf16* __restrict__ b1, const bf16* __restrict__ w2,
                      const bf16* __restrict__ g, bf16* __restrict__ dx, bf16* __restrict__ dh_out,
-                     bf16* __restrict__ a_out, int rows, int f, float p, float inv, DropSeed seed) {
+                     bf16* __restrict__ a_out, int rows, int f, int act, float p, float inv,
+                     DropSeed seed) {
   using S = MlpTcSmem<DIM>;
   constexpr int P = S::kPitch, CP = kTcChunkPitch;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -472,11 +478,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           float a_used = 0.f, dh = 0.f;
           if (col < f) {
             const FfnHidden hv =
-                ffn_hidden<bf16>(hacc[nt][half * 2 + e], b1, row0 + r, col, f, p, inv_t, h0);
+                ffn_hidden<bf16, A>(hacc[nt][half * 2 + e], b1, row0 + r, col, f, act, p, inv_t,
+                                    h0);
             a_used = hv.a_used;
             float da = dacc[nt][half * 2 + e];
             if (p > 0.f) da = hv.keep ? da * inv : 0.f;
-            dh = Num<bf16>::round(da * gelu_as_grad(hv.h));
+            dh = Num<bf16>::round(da * ffn_act_grad<A>(act, hv.h));
           }
           av[e] = a_used;
           dv[e] = dh;
@@ -609,18 +616,18 @@ __global__ void __launch_bounds__(kThreads)
 
 // two resident blocks an SM up to dim 192 (<= 128 registers a thread); at
 // 256 the fp32 output fragments take 64 registers, so one
-template <int DIM>
+template <int DIM, int A>
 __global__ void __launch_bounds__(kThreads, DIM <= 192 ? 2 : 1)
     mlp_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                       const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                      const bf16* __restrict__ b2, bf16* __restrict__ out, int rows, int f, float p,
-                      float inv, DropSeed seed) {
+                      const bf16* __restrict__ b2, bf16* __restrict__ out, int rows, int f, int act,
+                      float p, float inv, DropSeed seed) {
   using S = FfnTcSmem<DIM, kTcRowTile>;
   using L = FfnTcLayout<DIM, kTcRowTile>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [64][DIM + 8]
   bf16* stages = xs + S::kA;                     // 2 x (W1 chunk, W2 chunk)
-  bf16* act = stages + 2 * S::kStage;            // a_used of the chunk [64][40]
+  bf16* acts = stages + 2 * S::kStage;           // a_used of the chunk [64][40]
   const int lane = threadIdx.x & 31;
   const long row0 = (long)blockIdx.x * kTcRowTile;
   stage_tile<kThreads>(xs, S::kPitch, x, DIM, rows, DIM, row0, 0, kTcRowTile, DIM);
@@ -628,8 +635,8 @@ __global__ void __launch_bounds__(kThreads, DIM <= 192 ? 2 : 1)
   cp_async_commit();
 
   float oacc[L::kOutTiles][4] = {};  // the warp's 16 rows x DIM/2 columns of out
-  ffn_tc_chunks<DIM, kTcRowTile>(xs, stages, act, w1, b1, w2, row0, f, p, Num<bf16>::round(inv),
-                                 drop_key(seed), oacc);
+  ffn_tc_chunks<DIM, kTcRowTile, A>(xs, stages, acts, w1, b1, w2, row0, f, act, p,
+                                 Num<bf16>::round(inv), drop_key(seed), oacc);
   // out = round(round(a W2^T) + b2), as the FMA route
 #pragma unroll
   for (int nt = 0; nt < L::kOutTiles; ++nt)
@@ -644,47 +651,52 @@ __global__ void __launch_bounds__(kThreads, DIM <= 192 ? 2 : 1)
     }
 }
 
-template <int DIM>
+template <int DIM, int A>
 cudaError_t mlp_fwd_tc_launch(const void* x, const void* w1, const void* b1, const void* w2,
-                              const void* b2, void* out, int rows, int f, float p, float inv,
-                              DropSeed seed, cudaStream_t stream) {
+                              const void* b2, void* out, int rows, int f, int act, float p,
+                              float inv, DropSeed seed, cudaStream_t stream) {
   const size_t bytes = FfnTcSmem<DIM, kTcRowTile>::kBytes;
-  cudaError_t err = allow_smem(mlp_fwd_tc_kernel<DIM>, bytes);
+  cudaError_t err = allow_smem(mlp_fwd_tc_kernel<DIM, A>, bytes);
   if (err != cudaSuccess) return err;
-  mlp_fwd_tc_kernel<DIM><<<(rows + kTcRowTile - 1) / kTcRowTile, kThreads, bytes, stream>>>(
+  mlp_fwd_tc_kernel<DIM, A><<<(rows + kTcRowTile - 1) / kTcRowTile, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
       static_cast<const bf16*>(w2), static_cast<const bf16*>(b2), static_cast<bf16*>(out), rows,
-      f, p, inv, seed);
+      f, act, p, inv, seed);
   return cudaGetLastError();
 }
 
+template <int A>
 cudaError_t mlp_fwd_tc(const void* x, const void* w1, const void* b1, const void* w2,
-                       const void* b2, void* out, int rows, int dim, int f, float p, float inv,
-                       DropSeed seed, cudaStream_t s) {
+                       const void* b2, void* out, int rows, int dim, int f, int act, float p,
+                       float inv, DropSeed seed, cudaStream_t s) {
   if (f % 8) return cudaErrorInvalidValue;
   switch (dim) {
-    case 64: return mlp_fwd_tc_launch<64>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
-    case 128: return mlp_fwd_tc_launch<128>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
-    case 192: return mlp_fwd_tc_launch<192>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
-    case 256: return mlp_fwd_tc_launch<256>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
+    case 64:
+      return mlp_fwd_tc_launch<64, A>(x, w1, b1, w2, b2, out, rows, f, act, p, inv, seed, s);
+    case 128:
+      return mlp_fwd_tc_launch<128, A>(x, w1, b1, w2, b2, out, rows, f, act, p, inv, seed, s);
+    case 192:
+      return mlp_fwd_tc_launch<192, A>(x, w1, b1, w2, b2, out, rows, f, act, p, inv, seed, s);
+    case 256:
+      return mlp_fwd_tc_launch<256, A>(x, w1, b1, w2, b2, out, rows, f, act, p, inv, seed, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T, int TN2>
+template <typename T, int TN2, int A>
 cudaError_t mlp_fwd_launch(const void* x, const void* w1, const void* b1, const void* w2,
-                           const void* b2, void* out, int rows, int f, float p, float inv,
+                           const void* b2, void* out, int rows, int f, int act, float p, float inv,
                            DropSeed seed, cudaStream_t stream) {
   constexpr int dim = 32 * TN2;
   const size_t chunk = kMlpKC1 * (kMlpFC + 1) > kMlpKC2 * (dim + 1) ? kMlpKC1 * (kMlpFC + 1)
                                                                     : kMlpKC2 * (dim + 1);
   const size_t bytes = sizeof(float) * ((size_t)kMlpBM * dim + kMlpBM * kMlpFC + chunk);
-  cudaError_t err = allow_smem(mlp_fwd_kernel<T, TN2>, bytes);
+  cudaError_t err = allow_smem(mlp_fwd_kernel<T, TN2, A>, bytes);
   if (err != cudaSuccess) return err;
-  mlp_fwd_kernel<T, TN2><<<(rows + kMlpBM - 1) / kMlpBM, kThreads, bytes, stream>>>(
+  mlp_fwd_kernel<T, TN2, A><<<(rows + kMlpBM - 1) / kMlpBM, kThreads, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
-      static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<T*>(out), rows, f, p, inv,
-      seed);
+      static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<T*>(out), rows, f, act, p,
+      inv, seed);
   return cudaGetLastError();
 }
 
@@ -696,7 +708,7 @@ cudaError_t mlp_fwd_launch(const void* x, const void* w1, const void* b1, const 
 // product is one launch of gemm.cuh over a fixed tile of its output, and the
 // hidden state goes through device memory between them, stored in T where
 // the one-launch kernels round it to T (so nothing is lost by storing it):
-//   forward:  hidden = a_used = drop(gelu(x W1^T + b1))       [rows, f] T
+//   forward:  hidden = a_used = drop(act(x W1^T + b1))        [rows, f] T
 //             out = round(hidden W2^T) + b2
 //   backward, bf16 (Hopper: TMA-fed wgmma, gemm.cuh):
 //             (dH, a_used) from h = x W1^T and dA = g W2, both products in
@@ -715,7 +727,7 @@ cudaError_t mlp_fwd_launch(const void* x, const void* w1, const void* b1, const 
 //             dx = dH W1; dW1^T, dW2 over row splits and db1, db2 by
 //             col_sum_kernel, then sum_splits_kernel
 // The epilogues below are the one-launch kernels' roundings (ffn_hidden,
-// the same gelu' and mask). The price against a fused kernel: the hidden
+// the same act' and mask). The price against a fused kernel: the hidden
 // state is written and read once more in device memory (at DeiT-Small's
 // stage 0, 12,608 x 1,536 bf16: 39 MB a forward).
 // ---------------------------------------------------------------------------
@@ -755,13 +767,13 @@ __device__ __forceinline__ void store_pair(T* p, long i, float v0, float v1) {
   }
 }
 
-template <typename T>
+template <typename T, int A>
 struct EpiHidden {  // hidden[row][col] = a_used of x W1^T + b1
   using Col = float2;
-  static constexpr bool kHeavy = true;  // gelu and the hash an element
+  static constexpr bool kHeavy = true;  // the activation and the hash an element
   const T* b1;
   T* hidden;
-  int f;
+  int f, act;
   float p, inv_t;
   DropKey h0;
   __device__ __forceinline__ Col cols(int col, bool in) const {
@@ -769,8 +781,8 @@ struct EpiHidden {  // hidden[row][col] = a_used of x W1^T + b1
   }
   __device__ __forceinline__ void put(long row, int col, float c0, float c1, Col b,
                                       bool in) const {
-    const float a0 = ffn_hidden_sel<T>(c0, b.x, row, col, f, p, inv_t, h0).a_used;
-    const float a1 = ffn_hidden_sel<T>(c1, b.y, row, col + 1, f, p, inv_t, h0).a_used;
+    const float a0 = ffn_hidden_sel<T, A>(c0, b.x, row, col, f, act, p, inv_t, h0).a_used;
+    const float a1 = ffn_hidden_sel<T, A>(c1, b.y, row, col + 1, f, act, p, inv_t, h0).a_used;
     if (in) store_pair(hidden, row * f + col, a0, a1);
   }
   __device__ __forceinline__ void operator()(long row, int col, float c0, float c1, int) const {
@@ -816,14 +828,14 @@ struct EpiStore {  // out[row][col] = acc, rounded to T
 // dH and a_used from the fc1 sum x W1^T and dA: dA handed over from its own
 // accumulator (gemm_tc_dual's put) or read from the fp32 scratch `da`
 // (gemm_fma's route)
-template <typename T>
+template <typename T, int A>
 struct EpiHiddenBwd {
   using Col = float2;
   const T* b1;
   const float* da;
   T* dh;
   T* a_used;
-  int f;
+  int f, act;
   float p, inv, inv_t;
   DropKey h0;
   __device__ __forceinline__ Col cols(int col, bool in) const {
@@ -831,9 +843,9 @@ struct EpiHiddenBwd {
   }
   // (dH, a_used) of one element
   __device__ __forceinline__ float2 one(long row, int col, float acc, float d, float bias) const {
-    const FfnHidden hv = ffn_hidden_sel<T>(acc, bias, row, col, f, p, inv_t, h0);
+    const FfnHidden hv = ffn_hidden_sel<T, A>(acc, bias, row, col, f, act, p, inv_t, h0);
     d = p > 0.f ? (hv.keep ? d * inv : 0.f) : d;
-    return make_float2(Num<T>::round(d * gelu_as_grad(hv.h)), hv.a_used);
+    return make_float2(Num<T>::round(d * ffn_act_grad<A>(act, hv.h)), hv.a_used);
   }
   __device__ __forceinline__ void put(long row, int col, float c0, float c1, float d0, float d1,
                                       Col b, bool in) const {
@@ -875,16 +887,16 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // hidden: [rows, f] of T
-template <typename T>
+template <typename T, int A>
 cudaError_t mlp_fwd_wide(const void* x, const void* w1, const void* b1, const void* w2,
                          const void* b2, void* out, void* hidden, int rows, int dim, int f,
-                         float p, float inv, DropSeed seed, cudaStream_t s) {
+                         int act, float p, float inv, DropSeed seed, cudaStream_t s) {
   if (hidden == nullptr) return cudaErrorInvalidValue;
   const T* xt = static_cast<const T*>(x);
   const T* w1t = static_cast<const T*>(w1);
   const T* w2t = static_cast<const T*>(w2);
   T* ht = static_cast<T*>(hidden);
-  const EpiHidden<T> eh{static_cast<const T*>(b1), ht, f, p, host_round<T>(inv),
+  const EpiHidden<T, A> eh{static_cast<const T*>(b1), ht, f, act, p, host_round<T>(inv),
                         drop_key(seed)};
   const EpiBias<T> eb{static_cast<const T*>(b2), static_cast<T*>(out), dim};
   cudaError_t err;
@@ -1051,11 +1063,11 @@ cudaError_t mlp_wgrad_wg(const bf16* x, const bf16* g, const bf16* dh, const bf1
 // hidden: [2][rows, f] of T (dH, then a_used); part: splits x (dW1
 // [f][dim] in bf16, dW1^T [dim][f] in fp32; dW2 [dim][f], db1, db2) fp32; da:
 // the fp32 route's [rows, f] scratch of dA (unused, may be null, in bf16)
-template <typename T>
+template <typename T, int A>
 cudaError_t mlp_bwd_wide(const void* x, const void* w1, const void* b1, const void* w2,
                          const void* g, void* dx, void* part, void* grads, void* hidden, void* da,
-                         int rows, int dim, int f, int splits, float p, float inv, DropSeed seed,
-                         cudaStream_t s) {
+                         int rows, int dim, int f, int splits, int act, float p, float inv,
+                         DropSeed seed, cudaStream_t s) {
   if (hidden == nullptr || (sizeof(T) == 4 && da == nullptr)) return cudaErrorInvalidValue;
   const T* xt = static_cast<const T*>(x);
   const T* w1t = static_cast<const T*>(w1);
@@ -1065,8 +1077,8 @@ cudaError_t mlp_bwd_wide(const void* x, const void* w1, const void* b1, const vo
   T* a = dh + (long)rows * f;
   float* dat = static_cast<float*>(da);
   float* pt = static_cast<float*>(part);
-  const EpiHiddenBwd<T> eh{static_cast<const T*>(b1), dat, dh, a, f, p, inv, host_round<T>(inv),
-                           drop_key(seed)};
+  const EpiHiddenBwd<T, A> eh{static_cast<const T*>(b1), dat, dh, a, f, act, p, inv,
+                           host_round<T>(inv), drop_key(seed)};
   const EpiStore<T> ex{static_cast<T*>(dx), dim};
   const long fd = (long)f * dim, stride = 2 * fd + f + dim;
   cudaError_t err;
@@ -1111,10 +1123,11 @@ inline bool mlp_wide(int dim) { return dim > 256 && dim % kHgBM == 0; }
 
 // part: fp32 scratch of splits * (2 f dim + f + dim); dw1 [f, dim], dw2 [dim, f],
 // db1 [f], db2 [dim] fp32, contiguous in that order (one buffer).
-template <typename T, int TN2>
+template <typename T, int TN2, int A>
 cudaError_t mlp_bwd_launch(const void* x, const void* w1, const void* b1, const void* w2,
                            const void* g, void* dx, void* part, void* grads, int rows, int f,
-                           int splits, float p, float inv, DropSeed seed, cudaStream_t stream) {
+                           int splits, int act, float p, float inv, DropSeed seed,
+                           cudaStream_t stream) {
   constexpr int dim = 32 * TN2;
   const size_t chunk = kMlpKC1 * (kMlpFC + 1) > kMlpKC2 * (dim + 1) ? kMlpKC1 * (kMlpFC + 1)
                                                                     : kMlpKC2 * (dim + 1);
@@ -1122,25 +1135,25 @@ cudaError_t mlp_bwd_launch(const void* x, const void* w1, const void* b1, const 
   {
     const size_t bytes =
         sizeof(float) * (2 * (size_t)kMlpBM * dim + kMlpBM * kMlpFC + chunk);
-    cudaError_t err = allow_smem(mlp_dx_kernel<T, TN2>, bytes);
+    cudaError_t err = allow_smem(mlp_dx_kernel<T, TN2, A>, bytes);
     if (err != cudaSuccess) return err;
-    mlp_dx_kernel<T, TN2><<<tiles, kThreads, bytes, stream>>>(
+    mlp_dx_kernel<T, TN2, A><<<tiles, kThreads, bytes, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
-        static_cast<const T*>(w2), static_cast<const T*>(g), static_cast<T*>(dx), rows, f, p, inv,
-        seed);
+        static_cast<const T*>(w2), static_cast<const T*>(g), static_cast<T*>(dx), rows, f, act, p,
+        inv, seed);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   {
     const size_t bytes =
         sizeof(float) * (2 * (size_t)kMlpBM * dim + 2 * kMlpBM * kMlpFC + kMlpKC1 * (kMlpFC + 1));
-    cudaError_t err = allow_smem(mlp_wgrad_kernel<T, TN2>, bytes);
+    cudaError_t err = allow_smem(mlp_wgrad_kernel<T, TN2, A>, bytes);
     if (err != cudaSuccess) return err;
     dim3 grid((f + kMlpFC - 1) / kMlpFC, splits);
-    mlp_wgrad_kernel<T, TN2><<<grid, kThreads, bytes, stream>>>(
+    mlp_wgrad_kernel<T, TN2, A><<<grid, kThreads, bytes, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
         static_cast<const T*>(w2), static_cast<const T*>(g), static_cast<float*>(part), rows, f,
-        (tiles + splits - 1) / splits, p, inv, seed);
+        (tiles + splits - 1) / splits, act, p, inv, seed);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -1151,20 +1164,20 @@ cudaError_t mlp_bwd_launch(const void* x, const void* w1, const void* b1, const 
 }
 
 // hidden: bf16 scratch of 2 rows f (dH, then a_used)
-template <int DIM>
+template <int DIM, int A>
 cudaError_t mlp_bwd_tc_launch(const void* x, const void* w1, const void* b1, const void* w2,
                               const void* g, void* dx, void* part, void* grads, void* hidden,
-                              int rows, int f, int splits, float p, float inv, DropSeed seed,
-                              cudaStream_t stream) {
+                              int rows, int f, int splits, int act, float p, float inv,
+                              DropSeed seed, cudaStream_t stream) {
   bf16* dh = static_cast<bf16*>(hidden);
   bf16* a = dh + (long)rows * f;
   const size_t bytes = MlpTcSmem<DIM>::kBytes;
-  cudaError_t err = allow_smem(mlp_dh_tc_kernel<DIM>, bytes);
+  cudaError_t err = allow_smem(mlp_dh_tc_kernel<DIM, A>, bytes);
   if (err != cudaSuccess) return err;
-  mlp_dh_tc_kernel<DIM><<<(rows + kTcRowTile - 1) / kTcRowTile, kThreads, bytes, stream>>>(
+  mlp_dh_tc_kernel<DIM, A><<<(rows + kTcRowTile - 1) / kTcRowTile, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
       static_cast<const bf16*>(w2), static_cast<const bf16*>(g), static_cast<bf16*>(dx), dh, a,
-      rows, f, p, inv, seed);
+      rows, f, act, p, inv, seed);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int steps = (rows + kWgK - 1) / kWgK;
@@ -1180,57 +1193,64 @@ cudaError_t mlp_bwd_tc_launch(const void* x, const void* w1, const void* b1, con
   return cudaGetLastError();
 }
 
+template <int A>
 cudaError_t mlp_bwd_tc(const void* x, const void* w1, const void* b1, const void* w2,
                        const void* g, void* dx, void* part, void* grads, void* hidden, int rows,
-                       int dim, int f, int splits, float p, float inv, DropSeed seed,
+                       int dim, int f, int splits, int act, float p, float inv, DropSeed seed,
                        cudaStream_t s) {
   if (f % 8 || hidden == nullptr) return cudaErrorInvalidValue;
   switch (dim) {
     case 64:
-      return mlp_bwd_tc_launch<64>(x, w1, b1, w2, g, dx, part, grads, hidden, rows, f, splits, p,
-                                   inv, seed, s);
+      return mlp_bwd_tc_launch<64, A>(x, w1, b1, w2, g, dx, part, grads, hidden, rows, f, splits,
+                                      act, p, inv, seed, s);
     case 128:
-      return mlp_bwd_tc_launch<128>(x, w1, b1, w2, g, dx, part, grads, hidden, rows, f, splits,
-                                    p, inv, seed, s);
+      return mlp_bwd_tc_launch<128, A>(x, w1, b1, w2, g, dx, part, grads, hidden, rows, f, splits,
+                                       act, p, inv, seed, s);
     case 192:
-      return mlp_bwd_tc_launch<192>(x, w1, b1, w2, g, dx, part, grads, hidden, rows, f, splits,
-                                    p, inv, seed, s);
+      return mlp_bwd_tc_launch<192, A>(x, w1, b1, w2, g, dx, part, grads, hidden, rows, f, splits,
+                                       act, p, inv, seed, s);
     case 256:
-      return mlp_bwd_tc_launch<256>(x, w1, b1, w2, g, dx, part, grads, hidden, rows, f, splits,
-                                    p, inv, seed, s);
+      return mlp_bwd_tc_launch<256, A>(x, w1, b1, w2, g, dx, part, grads, hidden, rows, f, splits,
+                                       act, p, inv, seed, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <int A>
 cudaError_t mlp_fwd_fp32(const void* x, const void* w1, const void* b1, const void* w2,
-                         const void* b2, void* out, int rows, int dim, int f, float p, float inv,
-                         DropSeed seed, cudaStream_t s) {
-  switch (dim) {
-    case 64: return mlp_fwd_launch<float, 2>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
-    case 128: return mlp_fwd_launch<float, 4>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
-    case 192: return mlp_fwd_launch<float, 6>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
-    case 256: return mlp_fwd_launch<float, 8>(x, w1, b1, w2, b2, out, rows, f, p, inv, seed, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t mlp_bwd_impl(const void* x, const void* w1, const void* b1, const void* w2,
-                         const void* g, void* dx, void* part, void* grads, int rows, int dim,
-                         int f, int splits, float p, float inv, DropSeed seed, cudaStream_t s) {
+                         const void* b2, void* out, int rows, int dim, int f, int act, float p,
+                         float inv, DropSeed seed, cudaStream_t s) {
   switch (dim) {
     case 64:
-      return mlp_bwd_launch<T, 2>(x, w1, b1, w2, g, dx, part, grads, rows, f, splits, p, inv,
-                                  seed, s);
+      return mlp_fwd_launch<float, 2, A>(x, w1, b1, w2, b2, out, rows, f, act, p, inv, seed, s);
     case 128:
-      return mlp_bwd_launch<T, 4>(x, w1, b1, w2, g, dx, part, grads, rows, f, splits, p, inv,
-                                  seed, s);
+      return mlp_fwd_launch<float, 4, A>(x, w1, b1, w2, b2, out, rows, f, act, p, inv, seed, s);
     case 192:
-      return mlp_bwd_launch<T, 6>(x, w1, b1, w2, g, dx, part, grads, rows, f, splits, p, inv,
-                                  seed, s);
+      return mlp_fwd_launch<float, 6, A>(x, w1, b1, w2, b2, out, rows, f, act, p, inv, seed, s);
     case 256:
-      return mlp_bwd_launch<T, 8>(x, w1, b1, w2, g, dx, part, grads, rows, f, splits, p, inv,
-                                  seed, s);
+      return mlp_fwd_launch<float, 8, A>(x, w1, b1, w2, b2, out, rows, f, act, p, inv, seed, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int A>
+cudaError_t mlp_bwd_impl(const void* x, const void* w1, const void* b1, const void* w2,
+                         const void* g, void* dx, void* part, void* grads, int rows, int dim,
+                         int f, int splits, int act, float p, float inv, DropSeed seed,
+                         cudaStream_t s) {
+  switch (dim) {
+    case 64:
+      return mlp_bwd_launch<T, 2, A>(x, w1, b1, w2, g, dx, part, grads, rows, f, splits, act, p,
+                                     inv, seed, s);
+    case 128:
+      return mlp_bwd_launch<T, 4, A>(x, w1, b1, w2, g, dx, part, grads, rows, f, splits, act, p,
+                                     inv, seed, s);
+    case 192:
+      return mlp_bwd_launch<T, 6, A>(x, w1, b1, w2, g, dx, part, grads, rows, f, splits, act, p,
+                                     inv, seed, s);
+    case 256:
+      return mlp_bwd_launch<T, 8, A>(x, w1, b1, w2, g, dx, part, grads, rows, f, splits, act, p,
+                                     inv, seed, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1239,60 +1259,73 @@ cudaError_t mlp_bwd_impl(const void* x, const void* w1, const void* b1, const vo
 
 extern "C" {
 
-// out [rows, dim]; p = 0 turns dropout off; inv = fp32(1 / (1 - p)); offset:
-// the launch's first row in the global batch (the masks' row counter). fp32
-// takes the FMA kernel, bf16 the tensor-core one (f a multiple of 8; x, w1
-// and w2 16-byte aligned), at widths 64-256; past 256 (a multiple of 128)
-// both take the wide route, with hidden a scratch of rows f in the storage
-// type (unused, may be null, at the narrower widths).
+// out [rows, dim]; act the activation's code (ffn.cuh FfnAct); p = 0 turns
+// dropout off; inv = fp32(1 / (1 - p)); offset: the launch's first row in the
+// global batch (the masks' row counter). fp32 takes the FMA kernel, bf16 the
+// tensor-core one (f a multiple of 8; x, w1 and w2 16-byte aligned), at
+// widths 64-256; past 256 (a multiple of 128) both take the wide route, with
+// hidden a scratch of rows f in the storage type (unused, may be null, at the
+// narrower widths). The kernels' instances: gelu and the run-time code in
+// fp32; gelu, relu and the run-time code in bf16.
 int sn_fused_mlp(int dtype, const void* x, const void* w1, const void* b1, const void* w2,
-                 const void* b2, void* out, void* hidden, int rows, int dim, int f, float p,
-                 float inv, int seed_, int offset, void* stream) {
+                 const void* b2, void* out, void* hidden, int rows, int dim, int f, int act,
+                 float p, float inv, int seed_, int offset, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const sn::DropSeed seed(seed_, offset);
-  if (sn::mlp_wide(dim)) {
-    if (dtype == sn::kF32)
-      return sn::mlp_fwd_wide<float>(x, w1, b1, w2, b2, out, hidden, rows, dim, f, p, inv, seed,
-                                     s);
-    if (f % 8) return cudaErrorInvalidValue;
-    return sn::mlp_fwd_wide<sn::bf16>(x, w1, b1, w2, b2, out, hidden, rows, dim, f, p, inv, seed,
-                                      s);
-  }
+  if (!sn::ffn_act_valid(act)) return cudaErrorInvalidValue;
+  const bool wide = sn::mlp_wide(dim);
   if (dtype == sn::kF32)
-    return sn::mlp_fwd_fp32(x, w1, b1, w2, b2, out, rows, dim, f, p, inv, seed, s);
-  return sn::mlp_fwd_tc(x, w1, b1, w2, b2, out, rows, dim, f, p, inv, seed, s);
+    return sn::with_act<sn::kActGelu, sn::kActAny>(act, [&](auto a) {
+      constexpr int A = decltype(a)::value;
+      return wide ? sn::mlp_fwd_wide<float, A>(x, w1, b1, w2, b2, out, hidden, rows, dim, f, act,
+                                               p, inv, seed, s)
+                  : sn::mlp_fwd_fp32<A>(x, w1, b1, w2, b2, out, rows, dim, f, act, p, inv, seed,
+                                        s);
+    });
+  if (wide && f % 8) return cudaErrorInvalidValue;
+  return sn::with_act<sn::kActGelu, sn::kActRelu, sn::kActAny>(act, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    return wide ? sn::mlp_fwd_wide<sn::bf16, A>(x, w1, b1, w2, b2, out, hidden, rows, dim, f, act,
+                                                p, inv, seed, s)
+                : sn::mlp_fwd_tc<A>(x, w1, b1, w2, b2, out, rows, dim, f, act, p, inv, seed, s);
+  });
 }
 
 // dx [rows, dim] in the storage type; grads fp32 [2 f dim + f + dim] holding
 // dw1 [f, dim], dw2 [dim, f], db1 [f], db2 [dim]; part fp32 scratch of
-// splits * (2 f dim + f + dim). At widths 64-256 fp32 takes the FMA kernels
+// splits * (2 f dim + f + dim); act gelu's or relu's code (any other has no
+// backward: refused). At widths 64-256 fp32 takes the FMA kernels
 // (hidden and da unused, may be null) and bf16 the tensor-core kernels (f a
 // multiple of 8; hidden a bf16 scratch of 2 rows f; the splits cut the rows
 // in steps of 32; da unused). Past 256 (a multiple of 128) both take the
 // wide route: hidden a scratch of 2 rows f in the storage type; fp32: da an
 // fp32 scratch of rows f, the splits cut the rows evenly; bf16: da unused
-// (may be null), the splits cut the rows in steps of 64.
+// (may be null), the splits cut the rows in steps of 64. The kernels'
+// instances: gelu and the run-time code in fp32; gelu and relu in bf16.
 int sn_fused_mlp_bwd(int dtype, const void* x, const void* w1, const void* b1, const void* w2,
                      const void* g, void* dx, void* part, void* grads, void* hidden, void* da,
-                     int rows, int dim, int f, int splits, float p, float inv, int seed_,
+                     int rows, int dim, int f, int splits, int act, float p, float inv, int seed_,
                      int offset, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const sn::DropSeed seed(seed_, offset);
-  if (sn::mlp_wide(dim)) {
-    if (dtype == sn::kF32)
-      return sn::mlp_bwd_wide<float>(x, w1, b1, w2, g, dx, part, grads, hidden, da, rows, dim, f,
-                                     splits, p, inv, seed, s);
-    if (f % 8) return cudaErrorInvalidValue;
-    return sn::mlp_bwd_wide<sn::bf16>(x, w1, b1, w2, g, dx, part, grads, hidden, da, rows, dim,
-                                      f, splits, p, inv, seed, s);
-  }
+  if (!sn::ffn_act_has_grad(act)) return cudaErrorInvalidValue;
+  const bool wide = sn::mlp_wide(dim);
   if (dtype == sn::kF32)
-    return sn::mlp_bwd_impl<float>(x, w1, b1, w2, g, dx, part, grads, rows, dim, f, splits, p,
-                                   inv, seed, s);
-  return sn::mlp_bwd_tc(x, w1, b1, w2, g, dx, part, grads, hidden, rows, dim, f, splits, p, inv,
-                        seed, s);
+    return sn::with_act<sn::kActGelu, sn::kActAny>(act, [&](auto a) {
+      constexpr int A = decltype(a)::value;
+      return wide ? sn::mlp_bwd_wide<float, A>(x, w1, b1, w2, g, dx, part, grads, hidden, da,
+                                               rows, dim, f, splits, act, p, inv, seed, s)
+                  : sn::mlp_bwd_impl<float, A>(x, w1, b1, w2, g, dx, part, grads, rows, dim, f,
+                                               splits, act, p, inv, seed, s);
+    });
+  if (wide && f % 8) return cudaErrorInvalidValue;
+  return sn::with_act<sn::kActGelu, sn::kActRelu>(act, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    return wide ? sn::mlp_bwd_wide<sn::bf16, A>(x, w1, b1, w2, g, dx, part, grads, hidden, da,
+                                                rows, dim, f, splits, act, p, inv, seed, s)
+                : sn::mlp_bwd_tc<A>(x, w1, b1, w2, g, dx, part, grads, hidden, rows, dim, f,
+                                    splits, act, p, inv, seed, s);
+  });
 }
 
 }  // extern "C"
-
-

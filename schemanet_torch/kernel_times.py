@@ -75,7 +75,8 @@ with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` False). Uses only
 the kernels' public wrappers, so the same file times an older checkout of
 the port: from that checkout's root, ``python -m schemanet_torch.kernel_times``
 (``--widths``: only the FFN rows at 384 and 768; ``--quant``: only the
-int8 route's rows). Prints the card's name and power limit, then one JSON
+int8 route's rows; ``--ffn``: only the FFN kernels with gelu and relu at
+192, 384 and 768). Prints the card's name and power limit, then one JSON
 line.
 """
 
@@ -483,6 +484,44 @@ def _width_rows(dev: torch.device, rnd) -> dict:
     return out
 
 
+def _activation_rows(dev: torch.device, rnd) -> dict:
+    """The rows ``--ffn`` times: ``ffn_block`` at [64, 197, d] (bf16, and
+    fp32 at 192 and 384) and the ``fused_mlp`` forward and backward at
+    12,608 rows of d (p = 0.1, bf16) at d = 192, 384 and 768 (f = 4 d),
+    with gelu and, where the checkout's kernels take an activation, with
+    relu (a checkout that refuses relu records ``"refused"``)."""
+    from .ops.kernels import encoder_block as eb
+    from .ops.kernels import mlp as mk
+
+    out, bf, f32 = {}, torch.bfloat16, torch.float32
+    for d in (192, 384, 768):
+        f = 4 * d
+        x = rnd(64, 197, d)
+        lg, lb = 1 + rnd(d, scale=0.1, dtype=f32), rnd(d, scale=0.1, dtype=f32)
+        w1, b1, w2, b2 = (rnd(f, d, scale=d**-0.5), rnd(f, scale=0.1), rnd(d, f, scale=f**-0.5),
+                          rnd(d, scale=0.1))
+        g = rnd(64, 197, d)
+        weights = {bf: (w1, b1, w2, b2), f32: tuple(t.float() for t in (w1, b1, w2, b2))}
+        for act in ("gelu", "relu"):
+            kw = {} if act == "gelu" else {"activation": act}
+            cases = {f"ffn_block_{act}_d{d}": lambda: eb.ffn_block(x, lg, lb, *weights[bf], **kw),
+                     f"fused_mlp_{act}_d{d}": lambda: mk.fused_mlp(x, *weights[bf], act, 0.1, SEED),
+                     f"fused_mlp_bwd_{act}_d{d}": lambda: mk.fused_mlp_bwd(
+                         x, *weights[bf][:3], g, act, 0.1, SEED)}
+            if d <= 384:
+                cases[f"ffn_block_fp32_{act}_d{d}"] = lambda: eb.ffn_block(
+                    x.float(), lg, lb, *weights[f32], **kw)
+            for name, fn in cases.items():
+                try:
+                    fn()
+                except (TypeError, ValueError):  # a checkout whose kernels take gelu alone
+                    out[name] = "refused"
+                    continue
+                out[name] = _both(fn)
+        del x, g
+    return out
+
+
 def _imagenet_widths(dev: torch.device, rnd) -> dict:
     """The rows of the DeiT-Small, DeiT-Base and ImageNet widths:
     ``_width_rows``, then the LayerNorm and GraphConv at the ImageNet class
@@ -518,12 +557,14 @@ def _imagenet_widths(dev: torch.device, rnd) -> dict:
 
 
 def main() -> None:
-    """``python -m schemanet_torch.kernel_times [--widths | --quant]``: every
-    row, or with ``--widths`` only ``_width_rows`` (the frozen layer halves
-    at 384 and 768, the wide ``fused_mlp`` forward and backward, both
+    """``python -m schemanet_torch.kernel_times [--widths | --quant | --ffn]``:
+    every row, or with ``--widths`` only ``_width_rows`` (the frozen layer
+    halves at 384 and 768, the wide ``fused_mlp`` forward and backward, both
     ``adamw_project_rows`` rows), which a copy of this file dropped into an
-    older checkout times there too, or with ``--quant`` only the int8
-    route's rows at widths 192, 384 and 768."""
+    older checkout times there too, with ``--quant`` only the int8 route's
+    rows at widths 192, 384 and 768, or with ``--ffn`` only the FFN kernels
+    with gelu and relu at 192, 384 and 768 (``_activation_rows``; an older
+    checkout's refuse relu)."""
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -531,13 +572,15 @@ def main() -> None:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
     dev = torch.device("cuda")
-    if {"--widths", "--quant"} & set(sys.argv[1:]):
+    chosen = {"--widths": _width_rows, "--quant": _quant_rows, "--ffn": _activation_rows}
+    picked = [flag for flag in chosen if flag in sys.argv[1:]]
+    if picked:
         g = torch.Generator().manual_seed(0)
 
         def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
             return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
 
-        rows = _width_rows(dev, rnd) if "--widths" in sys.argv[1:] else _quant_rows(dev, rnd)
+        rows = chosen[picked[0]](dev, rnd)
     else:
         rows = measure(dev)
     print(json.dumps({"kernel_times": rows, "card": smi.splitlines()[0]}), flush=True)

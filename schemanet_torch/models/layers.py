@@ -34,8 +34,10 @@ from ..parallel.mesh import gathered
 ACTIVATIONS = {
     "relu": F.relu,
     "gelu": F.gelu,  # exact (erf) gelu, as the JAX registry
+    "glu": F.glu,  # first half times the sigmoid of the second, on the last axis
     "swish": F.silu,
     "sigmoid": torch.sigmoid,
+    "hard_sigmoid": lambda x: F.relu6(x + 3.0) / 6.0,  # flax's relu6(x + 3) / 6
     "none": lambda x: x,
 }
 
@@ -135,6 +137,23 @@ class LearnablePosEncoding(nn.Module):
     def forward(self, seq: torch.Tensor, deterministic: bool = True,
                 rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         seq = seq + self.pos_embed.to(seq.dtype)
+        if self.drop is not None and not deterministic:
+            if rng is None:
+                raise ValueError("a training forward with dropout needs a DropoutRNG")
+            seq = self.drop(seq, rng.masks, rng.rows)
+        return seq
+
+
+class IdentityPosEncoding(nn.Module):
+    """The ``identity`` positional encoding: no table, dropout only when the
+    forward is not deterministic."""
+
+    def __init__(self, dropout: Optional[float] = None):
+        super().__init__()
+        self.drop = Dropout(dropout) if dropout else None
+
+    def forward(self, seq: torch.Tensor, deterministic: bool = True,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         if self.drop is not None and not deterministic:
             if rng is None:
                 raise ValueError("a training forward with dropout needs a DropoutRNG")

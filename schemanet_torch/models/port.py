@@ -7,7 +7,9 @@ and returns a state dict for ``schemanet_torch.SchemaNetPredictor``:
 * Dense ``kernel [in, out]`` -> ``weight [out, in]`` (the fused qkv column
   order ``(3, H, d)`` is unchanged);
 * Conv ``kernel`` HWIO -> ``weight`` OIHW;
-* LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
+* LayerNorm and BatchNorm ``scale``/``bias`` -> ``weight``/``bias``;
+  BatchNorm's ``batch_stats`` ``mean``/``var`` (a ResNet's ``buffers``) ->
+  its running buffers ``mean``/``var``;
 * ``pos_embed`` keeps ``[1, n, d]``; the GNN ``embedding`` keeps its M+1 rows
   (the last is padding); atlas parameters and ``class_ingredients`` map as
   they are;
@@ -19,7 +21,9 @@ of the port must be set, with its shape.
 
 ``to_jax_params(state)`` is the inverse: any mapping of the port's names to
 tensors (parameters, or a tree of the same shape such as gradients or Adam
-moments) back to the JAX nested-dict layout, as numpy arrays. ``jax_name``
+moments) back to the JAX nested-dict layout, as numpy arrays;
+``to_jax_variables(state)`` splits a state dict into ``(params,
+batch_stats)``. ``jax_name``
 gives the JAX package's dotted name of a port parameter, which its
 param-group regexes are written against.
 
@@ -44,10 +48,12 @@ import torch
 
 logger = logging.getLogger(__name__)
 
+# BatchNorm's running statistics: flax's batch_stats, the port's buffers
+_STATS = ("mean", "var")
 _AS_IS = {
     "bias", "embedding", "vocabulary", "cls_token", "dist_token", "pos_embed",
     "vertex_weights", "edge_weights", "vertex_attribute_weights", "edge_attribute_weights",
-    "class_ingredients",
+    "class_ingredients", *_STATS,
 }
 
 
@@ -167,6 +173,15 @@ def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             raise KeyError(f"two port leaves map onto {'/'.join(path[:-1] + [leaf])}")
         node[leaf] = np.ascontiguousarray(value)
     return tree
+
+
+def to_jax_variables(state: Mapping[str, torch.Tensor]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(params, batch_stats) of a port state dict: BatchNorm's running
+    ``mean``/``var`` buffers form flax's ``batch_stats`` collection, the
+    rest the ``params``."""
+    stats = {k: v for k, v in state.items() if k.rsplit(".", 1)[-1] in _STATS}
+    return (to_jax_params({k: v for k, v in state.items() if k not in stats}),
+            to_jax_params(stats))
 
 
 # -- pretrained reference checkpoints ---------------------------------------

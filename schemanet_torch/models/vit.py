@@ -1,4 +1,5 @@
-"""ViT / DeiT backbones (port of ``schemanet_tpu/models/vit.py``).
+"""ViT / DeiT backbones and the model registry (port of
+``schemanet_tpu/models/vit.py``; the ResNets are ``models/resnet.py``).
 
 Token layout matches the JAX package: [cls, patches...] for ViT and
 [cls, dist, patches...] for DeiT, with the learnable positional table over the
@@ -18,7 +19,8 @@ import torch
 from torch import nn
 
 from ..ops.kernels.encoder_block import dense
-from .layers import DropoutRNG, LearnablePosEncoding, PatchEmbed
+from .layers import DropoutRNG, IdentityPosEncoding, LearnablePosEncoding, PatchEmbed
+from .resnet import RESNET_SPECS, build_resnet
 from .transformer import Transformer
 
 
@@ -28,19 +30,22 @@ class ViT(nn.Module):
     def __init__(self, num_classes: int, img_size=224, patch_size=16, image_channels=3,
                  embed_dim=192, num_encoder_layers=12, num_heads=3, dim_feedforward=768,
                  activation="gelu", final_norm=True, norm_eps=1e-6, pos_encoding="learnable",
-                 dropout: Optional[float] = None, dtype=torch.float32):
+                 dropout: Optional[float] = None, pre_norm: bool = True, dtype=torch.float32):
         super().__init__()
-        if pos_encoding != "learnable":
-            raise ValueError(f"pos_encoding {pos_encoding!r} is not ported")
         self.embed_dim, self.dtype = embed_dim, dtype
         self.patch_embed = PatchEmbed(img_size, patch_size, image_channels, embed_dim, dtype)
         # the transformer's dropout, as the JAX ViT passes it (pos_encoding's
-        # own ``dropout`` key is read nowhere there)
-        self.pos_embed = LearnablePosEncoding(
-            self.patch_embed.num_patches + self.num_prefix_tokens, embed_dim, dropout
-        )
+        # own ``dropout`` key is read nowhere there); any name but
+        # "learnable" is the identity encoding, as there
+        if pos_encoding == "learnable":
+            self.pos_embed = LearnablePosEncoding(
+                self.patch_embed.num_patches + self.num_prefix_tokens, embed_dim, dropout
+            )
+        else:
+            self.pos_embed = IdentityPosEncoding(dropout)
         self.transformer = Transformer(num_encoder_layers, num_heads, embed_dim,
-                                       dim_feedforward, activation, final_norm, norm_eps, dropout)
+                                       dim_feedforward, activation, final_norm, norm_eps, dropout,
+                                       pre_norm)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.cls_head = nn.Linear(embed_dim, num_classes)
 
@@ -112,8 +117,6 @@ def _transformer_kwargs(model_cfg: Dict[str, Any]) -> Dict[str, Any]:
     t = model_cfg["transformer"]
     p = model_cfg.get("patch_embed", {})
     pos = model_cfg.get("pos_encoding", {"name": "learnable"})
-    if not t.get("pre_norm", True):
-        raise ValueError("post-norm transformers are not ported")
     return dict(
         img_size=p.get("img_size", 224),
         patch_size=p.get("patch_size", 16),
@@ -126,16 +129,35 @@ def _transformer_kwargs(model_cfg: Dict[str, Any]) -> Dict[str, Any]:
         activation=t.get("activation", "relu"),
         final_norm=t.get("final_norm", True),
         norm_eps=t.get("norm_eps", 1e-5),
+        pre_norm=t.get("pre_norm", True),
         pos_encoding=pos.get("name", "learnable"),
     )
 
 
-MODEL_REGISTRY = {"vit": ViT, "deit": DeiT}
+def _transformer(cls):
+    def build(model_cfg, num_classes, dtype=torch.float32):
+        return cls(num_classes, dtype=dtype, **_transformer_kwargs(model_cfg))
+
+    return build
 
 
-def get_model(model_cfg: Dict[str, Any], num_classes: int, dtype=torch.float32) -> ViT:
-    """Name-dispatch model builder for the ported backbones (vit, deit)."""
+def _resnet(name: str):
+    def build(model_cfg, num_classes, dtype=torch.float32):
+        return build_resnet(dict(model_cfg, model_name=name), num_classes, dtype=dtype)
+
+    return build
+
+
+# official_models: the ResNet of the config's model_name
+MODEL_REGISTRY = {"vit": _transformer(ViT), "deit": _transformer(DeiT),
+                  "official_models": build_resnet,
+                  **{name: _resnet(name) for name in RESNET_SPECS}}
+
+
+def get_model(model_cfg: Dict[str, Any], num_classes: int, dtype=torch.float32) -> nn.Module:
+    """Name-dispatch model builder: ``vit``, ``deit``, ``official_models``
+    (with ``model_name``) and ``resnet18``/``resnet34``/``resnet50``."""
     name = model_cfg["name"]
     if name not in MODEL_REGISTRY:
         raise KeyError(f"model {name!r} is not ported (choose from {sorted(MODEL_REGISTRY)})")
-    return MODEL_REGISTRY[name](num_classes, dtype=dtype, **_transformer_kwargs(model_cfg))
+    return MODEL_REGISTRY[name](model_cfg, num_classes, dtype=dtype)

@@ -37,6 +37,7 @@ _COUNTERS = {
     "ffn_block_tc": (ffn_block, "tc_launches"),  # tensor cores: bf16 mma or split TF32
     "ffn_block_wide": (ffn_block, "wide_launches"),  # past width 384: a launch a step
     "ffn_ln_rows": (ffn_ln_rows, "launches"),  # the wide route's LN2 pass alone
+    "ffn_block_relu": (ffn_block, "relu_launches"),  # the activation relu's share
     "sym_conv": (sym_conv, "launches"),
     "sym_conv_bwd": (sym_conv_bwd, "launches"),
     "sym_conv_tc": (sym_conv, "tc_launches"),  # the tensor-core route's share
@@ -57,6 +58,8 @@ _COUNTERS = {
     "fused_mlp_bwd_tc": (fused_mlp_bwd, "tc_launches"),
     "fused_mlp_wide": (fused_mlp, "wide_launches"),  # past width 256: a launch a product
     "fused_mlp_bwd_wide": (fused_mlp_bwd, "wide_launches"),
+    "fused_mlp_relu": (fused_mlp, "relu_launches"),  # the activation relu's share
+    "fused_mlp_bwd_relu": (fused_mlp_bwd, "relu_launches"),
     "vq_assign": (vq_assign_kernel, "launches"),
     "vq_assign_tc": (vq_assign_kernel, "tc_launches"),  # split TF32 or bf16 mma: all of them
     "fused_layernorm": (fused_layernorm, "launches"),

@@ -6,7 +6,7 @@ Port of ``schemanet_tpu/ops/pallas/encoder_block.py`` (``attn_block`` with its
 how their design answers it.
 
 * ``attn_block``:  y = x + (MHSA(LN1(x) Wqkv + bqkv) Wo + bo)
-* ``ffn_block``:   z = y + (gelu(LN2(y) W1 + b1) W2 + b2)
+* ``ffn_block``:   z = y + (act(LN2(y) W1 + b1) W2 + b2)
 
 Weights are in ``nn.Linear`` layout (``[out, in]``); the fused qkv output is
 ordered ``(3, H, d)`` like the JAX package's. Numerics follow the TPU kernels:
@@ -28,10 +28,13 @@ keys. ``ffn_block_route`` picks ``ffn_block``'s: bf16 the tensor-core kernel
 scratch: in bf16 an LN2 pass (``ln_rows_reference`` is its plain version,
 bit for bit), fc1 with gelu and fc2 with the residual on the TMA-fed
 ``wgmma`` GEMM; ``ffn_plan`` gives the scratch, the tiles and the launches,
-and the wrapper allocates from it. gelu is the TPU kernels' (``gelu_as``,
-the Abramowitz-Stegun erf). Each wrapper counts its launches in a plain
+and the wrapper allocates from it. The activation is the TPU kernels'
+(``act_as``): gelu with the Abramowitz-Stegun erf (``gelu_as``), or relu,
+swish, sigmoid, hard_sigmoid or none, computed in fp32 and rounded to the
+compute dtype, passed to the kernels as a code (``ACT_CODES``). Each wrapper counts its launches in a plain
 integer attribute (``attn_block.launches``, ``attn_block.hmean_launches``,
-``ffn_block.launches``, ``ffn_block.wide_launches``, ``ffn_ln_rows.launches``;
+``ffn_block.launches``, ``ffn_block.wide_launches``, ``ffn_block.relu_launches``,
+``ffn_ln_rows.launches``;
 ``attn_block.tc_launches`` and ``ffn_block.tc_launches`` count the launches
 on the tensor cores: both routes of each).
 """
@@ -93,6 +96,35 @@ def gelu_as(x: torch.Tensor) -> torch.Tensor:
     return (xf * 0.5 * (1.0 + erf_as(xf * _SQRT_HALF))).to(x.dtype)
 
 
+# the FFN kernels' activations and their codes (csrc/ffn.cuh FfnAct): the TPU
+# kernels take any of the registry's but glu, which halves its input's width
+ACT_CODES = {"gelu": 0, "relu": 1, "swish": 2, "sigmoid": 3, "hard_sigmoid": 4, "none": 5}
+_ACT_FP32 = {
+    "relu": torch.relu,
+    "swish": lambda x: x * torch.sigmoid(x),
+    "sigmoid": torch.sigmoid,
+    "hard_sigmoid": lambda x: torch.nn.functional.relu6(x + 3.0) / 6.0,
+    "none": lambda x: x,
+}
+
+
+def act_code(activation: str) -> int:
+    """The FFN kernels' code of ``activation``; raises on one they do not
+    compute."""
+    if activation not in ACT_CODES:
+        raise ValueError(f"the FFN kernels compute {sorted(ACT_CODES)}, not {activation!r}")
+    return ACT_CODES[activation]
+
+
+def act_as(x: torch.Tensor, activation: str) -> torch.Tensor:
+    """The FFN kernels' activation of x: computed in fp32 (gelu by
+    ``gelu_as``), cast back to x.dtype."""
+    act_code(activation)
+    if activation == "gelu":
+        return gelu_as(x)
+    return _ACT_FP32[activation](x.float()).to(x.dtype)
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
     """fp32 LayerNorm with flax's fast variance (E[x^2] - E[x]^2, clamped at
     0), scale and bias in fp32, output in x.dtype."""
@@ -131,10 +163,11 @@ def attn_block_reference(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, num_heads, ep
     return out, (score_sum * (1.0 / num_heads)).to(x.dtype)
 
 
-def ffn_block_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6):
-    """Plain PyTorch version of ``ffn_block``: gelu in fp32 with the TPU
-    kernels' Abramowitz-Stegun erf (``gelu_as``), cast back."""
-    h = gelu_as(dense(layer_norm(x, ln_scale, ln_bias, eps), w1, b1))
+def ffn_block_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6, activation="gelu"):
+    """Plain PyTorch version of ``ffn_block``: the activation in fp32
+    (``act_as``; gelu with the TPU kernels' Abramowitz-Stegun erf), cast
+    back."""
+    h = act_as(dense(layer_norm(x, ln_scale, ln_bias, eps), w1, b1), activation)
     return x + dense(h, w2, b2)
 
 
@@ -385,11 +418,14 @@ def ffn_block(
     w2: torch.Tensor,  # [dim, f]
     b2: torch.Tensor,  # [dim]
     eps: float = 1e-6,
+    activation: str = "gelu",
 ) -> torch.Tensor:
-    """x + FFN half (gelu) of a pre-norm encoder layer, [bs, n, dim] -> same."""
+    """x + FFN half of a pre-norm encoder layer, [bs, n, dim] -> same;
+    ``activation`` one of ``ACT_CODES``."""
     if x.device.type == "cpu":
-        return ffn_block_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+        return ffn_block_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, activation)
     _require_cuda("x", x)
+    code = act_code(activation)
     dim = x.shape[-1]
     f = w1.shape[0]
     ffn_block_route(x.dtype, dim, f)  # raises on what no kernel takes
@@ -419,13 +455,15 @@ def ffn_block(
     err = _build.library().sn_ffn_block(
         _DTYPES[dt], x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), ptr("hidden"), ptr("ln"),
-        plan.rows, dim, f, float(eps), _stream(),
+        plan.rows, dim, f, code, float(eps), _stream(),
     )
     _build.check(err, "ffn_block")
     ffn_block.launches += 1
     ffn_block.tc_launches += 1  # both routes run on the tensor cores
     ffn_block.wide_launches += plan.wide
+    ffn_block.relu_launches += activation == "relu"
     return out
 
 
 ffn_block.launches = ffn_block.tc_launches = ffn_block.wide_launches = 0
+ffn_block.relu_launches = 0

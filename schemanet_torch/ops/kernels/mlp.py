@@ -6,7 +6,9 @@ backward); the kernels are ``csrc/mlp.cu``, whose header says what bounds
 them on the card and how their design answers it.
 
 ``fused_mlp(x, w1, b1, w2, b2, activation, dropout_p, seed)`` computes
-``drop(act(x W1^T + b1)) W2^T + b2`` on ``x [bs, n, dim]`` with weights in
+``drop(act(x W1^T + b1)) W2^T + b2`` on ``x [bs, n, dim]``, ``act`` one of
+``encoder_block.ACT_CODES`` (the backward: gelu or relu, as the TPU kernel's
+``_activation_grad``; any other raises ``NotImplementedError``), with weights in
 ``nn.Linear`` layout (``w1 [f, dim]``, ``w2 [dim, f]``). FFN dropout keeps
 hidden element (row, col) by the hash mask of ``dropmask.py``, stream 0, the
 absolute row of the flattened ``bs * n`` rows (plus ``row0``, the call's
@@ -18,11 +20,12 @@ whose backward is the backward kernel; the forward never stores the
 Numerics follow the TPU kernels: the weights are cast to x's dtype outside
 the kernel (so their gradients reach fp32 parameters rounded to that dtype,
 as in JAX); ``x W1`` accumulated in fp32 and rounded once, ``+ b1`` in the
-compute dtype; gelu with the Abramowitz-Stegun erf in fp32, cast back;
+compute dtype; the activation in fp32, cast back (gelu with the
+Abramowitz-Stegun erf);
 dropout ``h * (1/(1-p))`` as a product in the compute dtype (JAX rounds the
 weak-typed Python float to it); fc2 accumulated in fp32 and rounded once,
 ``+ b2`` in the compute dtype. Backward: ``da * (1/(1-p))`` in fp32,
-``dh = da * gelu'(h)`` rounded to the compute dtype, weight and bias
+``dh = da * act'(h)`` rounded to the compute dtype (relu' = (h > 0)), weight and bias
 gradients summed in fp32 and rounded to the weights' dtype.
 
 Dispatch: a CPU tensor takes the plain versions (``fused_mlp_reference``,
@@ -38,8 +41,9 @@ state ``a_used`` (and in the backward ``dH``, and in fp32 ``dA``) in device
 memory between them. ``mlp_plan`` gives every launch's scratch, row splits
 and tiles, and the wrappers allocate from it. ``fused_mlp.launches`` and
 ``fused_mlp_bwd.launches`` count the launches, ``fused_mlp.tc_launches`` and
-``fused_mlp_bwd.tc_launches`` those of the tensor-core route, and
-``*.wide_launches`` those of the wide route.
+``fused_mlp_bwd.tc_launches`` those of the tensor-core route,
+``*.wide_launches`` those of the wide route and ``*.relu_launches`` those
+with relu.
 """
 
 from __future__ import annotations
@@ -50,7 +54,8 @@ import torch
 
 from . import _build
 from .dropmask import hash_keep_mask, kernel_dropout_args, keep_scale
-from .encoder_block import _DTYPES, _SQRT_HALF, _check, _require_cuda, _stream, erf_as, gelu_as
+from .encoder_block import (_DTYPES, _SQRT_HALF, _check, _require_cuda, _stream, act_as, act_code,
+                            erf_as, gelu_as)  # noqa: F401  (mlp.gelu_as: the forward's gelu)
 from .gemm import _HG_BK, _HG_BM, _SMS, _cdiv, heavy_tiles, light_tiles
 from .gemm import gemm_tile  # noqa: F401  (mlp.gemm_tile: the tile rule of the plan below)
 
@@ -158,6 +163,22 @@ def gelu_as_grad(x: torch.Tensor) -> torch.Tensor:
     return cdf + xf * (torch.exp(-0.5 * xf * xf) * _INV_SQRT_2PI)
 
 
+def act_grad_code(activation: str) -> int:
+    """The kernel code of an activation the backward takes: gelu or relu,
+    as the TPU kernel's ``_activation_grad``; any other raises."""
+    code = act_code(activation)
+    if activation not in ("gelu", "relu"):
+        raise NotImplementedError(f"no in-kernel activation grad for {activation!r}")
+    return code
+
+
+def act_as_grad(x: torch.Tensor, activation: str) -> torch.Tensor:
+    """d act / dx in fp32 for x in the compute dtype: gelu's, or relu's
+    (x > 0)."""
+    act_grad_code(activation)
+    return gelu_as_grad(x) if activation == "gelu" else (x > 0).float()
+
+
 def mlp_route(dtype: torch.dtype, dim: int, f: int) -> str:
     """The kernels a CUDA launch of ``fused_mlp`` (the forward) or
     ``fused_mlp_bwd`` takes for rows of this dtype, width ``dim`` and hidden
@@ -185,10 +206,8 @@ def _keep_mask(seed: int, rows: int, f: int, dropout_p: float, device, row0: int
 
 def _hidden(x2, w1, b1, activation):
     """(pre-activation h, activation a) of the rows x2 [rows, dim], in x's dtype."""
-    if activation != "gelu":
-        raise ValueError(f"the fused FFN kernels compute gelu, not {activation}")
     h = torch.matmul(x2.float(), w1.float().t()).to(x2.dtype) + b1
-    return h, gelu_as(h)
+    return h, act_as(h, activation)
 
 
 def fused_mlp_reference(x, w1, b1, w2, b2, activation: str = "gelu", dropout_p: float = 0.0,
@@ -207,12 +226,18 @@ def fused_mlp_reference(x, w1, b1, w2, b2, activation: str = "gelu", dropout_p: 
 
 
 def fused_mlp_bwd_reference(x, w1, b1, w2, g, activation: str = "gelu", dropout_p: float = 0.0,
-                            seed: Optional[int] = None, row0: int = 0
-                            ) -> Tuple[torch.Tensor, ...]:
+                            seed: Optional[int] = None, row0: int = 0,
+                            gate: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of the ``fused_mlp`` backward: (dx, dw1, db1,
     dw2, db2) for the output cotangent g; dx in x.dtype, the weight and bias
-    gradients fp32 sums rounded to x.dtype. The weights are in x.dtype."""
+    gradients fp32 sums rounded to x.dtype. The weights are in x.dtype.
+    ``gate`` [rows, f] (relu only) replaces relu' = (h > 0): a run held in
+    lock step with the kernel takes the kernel's gate, which another
+    summation order of x W1^T may set otherwise where h is about 0."""
     dt, dim = x.dtype, x.shape[-1]
+    act_grad_code(activation)
+    if gate is not None and activation != "relu":
+        raise ValueError(f"a gate replaces relu', not the derivative of {activation!r}")
     x2, g2 = x.reshape(-1, dim), g.reshape(-1, dim)
     h, a = _hidden(x2, w1, b1, activation)
     da = torch.matmul(g2.float(), w2.float())  # [rows, f]
@@ -220,7 +245,7 @@ def fused_mlp_bwd_reference(x, w1, b1, w2, g, activation: str = "gelu", dropout_
         keep = _keep_mask(seed, x2.shape[0], w1.shape[0], dropout_p, x.device, row0)
         a = torch.where(keep, a * torch.tensor(keep_scale(dropout_p), dtype=dt), 0.0).to(dt)
         da = torch.where(keep, da * torch.tensor(keep_scale(dropout_p), dtype=torch.float32), 0.0)
-    dh = (da * gelu_as_grad(h)).to(dt).float()
+    dh = (da * (act_as_grad(h, activation) if gate is None else gate.float())).to(dt).float()
     dw2 = torch.matmul(g2.float().t(), a.float())
     dw1 = torch.matmul(dh.t(), x2.float())
     dx = torch.matmul(dh, w1.float()).to(dt)
@@ -228,10 +253,8 @@ def fused_mlp_bwd_reference(x, w1, b1, w2, g, activation: str = "gelu", dropout_
             g2.float().sum(dim=0).to(dt))
 
 
-def _check_mlp(name, x, w1, b1, w2, activation):
+def _check_mlp(name, x, w1, b1, w2):
     _require_cuda("x", x)
-    if activation != "gelu":
-        raise ValueError(f"the fused FFN kernels compute gelu, not {activation}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"{name} takes float32 or bfloat16, got {x.dtype}")
     dim, f = x.shape[-1], w1.shape[0]
@@ -255,7 +278,8 @@ def _mlp_forward(x, w1, b1, w2, b2, activation, dropout_p, seed, row0=0):
     version on the CPU."""
     if x.device.type == "cpu":
         return fused_mlp_reference(x, w1, b1, w2, b2, activation, dropout_p, seed, row0)
-    rows, dim, f = _check_mlp("fused_mlp", x, w1, b1, w2, activation)
+    code = act_code(activation)
+    rows, dim, f = _check_mlp("fused_mlp", x, w1, b1, w2)
     plan = mlp_plan(x.dtype, rows, dim, f)
     _check("b2", b2, x.dtype, (dim,))
     if plan.route == TENSOR_CORE:
@@ -265,10 +289,11 @@ def _mlp_forward(x, w1, b1, w2, b2, activation, dropout_p, seed, row0=0):
     err = _build.library().sn_fused_mlp(
         _DTYPES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), out.data_ptr(), hidden.data_ptr() if hidden is not None else None, rows,
-        dim, f, *kernel_dropout_args(dropout_p, seed), row0, _stream(),
+        dim, f, code, *kernel_dropout_args(dropout_p, seed), row0, _stream(),
     )
     _build.check(err, "fused_mlp")
     fused_mlp.launches += 1
+    fused_mlp.relu_launches += activation == "relu"
     if plan.route == TENSOR_CORE:
         fused_mlp.tc_launches += 1
     if plan.wide:
@@ -282,7 +307,8 @@ def fused_mlp_bwd(x, w1, b1, w2, g, activation: str = "gelu", dropout_p: float =
     weights in x.dtype: the kernels on CUDA, the plain version on the CPU."""
     if x.device.type == "cpu":
         return fused_mlp_bwd_reference(x, w1, b1, w2, g, activation, dropout_p, seed, row0)
-    rows, dim, f = _check_mlp("fused_mlp_bwd", x, w1, b1, w2, activation)
+    code = act_grad_code(activation)
+    rows, dim, f = _check_mlp("fused_mlp_bwd", x, w1, b1, w2)
     plan = mlp_plan(x.dtype, rows, dim, f)
     _check("g", g, x.dtype, x.shape)
     if plan.route == TENSOR_CORE:
@@ -294,11 +320,12 @@ def fused_mlp_bwd(x, w1, b1, w2, g, activation: str = "gelu", dropout_p: float =
         _DTYPES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), g.data_ptr(),
         dx.data_ptr(), sc["part"].data_ptr(), sc["grads"].data_ptr(),
         hidden.data_ptr() if hidden is not None else None,
-        da.data_ptr() if da is not None else None, rows, dim, f, plan.splits,
+        da.data_ptr() if da is not None else None, rows, dim, f, plan.splits, code,
         *kernel_dropout_args(dropout_p, seed), row0, _stream(),
     )
     _build.check(err, "fused_mlp_bwd")
     fused_mlp_bwd.launches += 1
+    fused_mlp_bwd.relu_launches += activation == "relu"
     if plan.route == TENSOR_CORE:
         fused_mlp_bwd.tc_launches += 1
     if plan.wide:
@@ -325,7 +352,7 @@ class _FusedMlp(torch.autograd.Function):
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
               b2: torch.Tensor, activation: str = "gelu", dropout_p: float = 0.0,
               seed: Optional[int] = None, row0: int = 0) -> torch.Tensor:
-    """``drop(gelu(x W1^T + b1)) W2^T + b2`` on x [..., dim] (float32 or
+    """``drop(act(x W1^T + b1)) W2^T + b2`` on x [..., dim] (float32 or
     bfloat16), weights in ``nn.Linear`` layout (w1 [f, dim], w2 [dim, f]) of
     any float dtype; differentiable in x and the weights. With
     ``dropout_p > 0``, FFN dropout keyed on the int32 ``seed``, x's rows
@@ -338,5 +365,6 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
     return _FusedMlp.apply(x, w1, b1, w2, b2, activation, float(dropout_p), seed, int(row0))
 
 
-fused_mlp.launches = fused_mlp.tc_launches = fused_mlp.wide_launches = 0
+fused_mlp.launches = fused_mlp.tc_launches = fused_mlp.wide_launches = fused_mlp.relu_launches = 0
 fused_mlp_bwd.launches = fused_mlp_bwd.tc_launches = fused_mlp_bwd.wide_launches = 0
+fused_mlp_bwd.relu_launches = 0

@@ -296,6 +296,25 @@ class _AllGather(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n).contiguous(), None, None, None, None
 
 
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``, differentiable: each rank's sum is the
+    same function of every rank's ``x``, so the backward sums the cotangent
+    over the group too (BatchNorm's statistics of a global batch,
+    ``models/layers_extra.py``)."""
+    return _AllReduceSum.apply(x, group)
+
+
 def all_gather(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
     """The model group's shards of ``x`` concatenated along ``dim`` in rank
     order, differentiable: the backward sums the cotangent over the group

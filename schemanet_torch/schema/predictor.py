@@ -232,10 +232,12 @@ def _xavier_uniform_(w: torch.Tensor, g: torch.Generator):
 
 @torch.no_grad()
 def init_parameters_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random initialisation of a SchemaNet predictor or a bare
-    ViT/DeiT after the JAX package's initialisers (their families and
-    scales; not their numbers, since ``torch.Generator`` is not
-    ``jax.random``). Parameters are made on the CPU; move the model to its
+    """Seeded random initialisation of a SchemaNet predictor, a bare
+    ViT/DeiT or a ResNet after the JAX package's initialisers (their
+    families and scales; not their numbers, since ``torch.Generator`` is not
+    ``jax.random``): a ResNet's convolutions and ``fc`` lecun-normal, its
+    BatchNorm scales 1 and biases 0 (the running statistics, buffers, start
+    at 0 and 1). Parameters are made on the CPU; move the model to its
     device after."""
     g = generator
     for name, p in model.named_parameters():
@@ -253,8 +255,10 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             p.copy_(1e-6 + torch.randn(p.shape, generator=g))
         elif name.endswith("g_conv.linear.bias"):
             p.copy_(torch.randn(p.shape, generator=g))
-        elif name.endswith(("cls_head.weight", "dist_head.weight")):
+        elif name.endswith(("cls_head.weight", "dist_head.weight")) or name == "fc.weight":
             trunc_normal_(p, 1.0 / math.sqrt(p.shape[1]) / 0.87962566, -2.0, 2.0, g)
+        elif p.ndim == 4:  # ResNet convolutions OIHW: lecun normal over I H W
+            trunc_normal_(p, 1.0 / math.sqrt(p[0].numel()) / 0.87962566, -2.0, 2.0, g)
         elif name.endswith("vocabulary"):
             p.copy_(torch.rand(p.shape, generator=g) * 2 - 1)
         elif leaf in ("vertex_weights", "edge_weights"):
@@ -262,7 +266,7 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif leaf == "embedding":
             trunc_normal_(p, 1.0, -2.0, 2.0, g)
             p[-1] = 0.0  # padding row
-        elif leaf == "weight" and p.ndim == 1:  # LayerNorm scales
+        elif leaf == "weight" and p.ndim == 1:  # LayerNorm and BatchNorm scales
             p.fill_(1.0)
         elif leaf == "bias":  # attention, conv, fc and LayerNorm biases
             p.zero_()

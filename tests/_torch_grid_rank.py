@@ -57,6 +57,8 @@ def build_model(spec):
     from schemanet_torch.schema import build_predictor
 
     if spec["kind"] == "backbone":
+        if spec.get("dtype") == "float64":  # parameters and compute in fp64
+            return get_model(spec["model_cfg"], spec["K"], dtype=torch.float64).double()
         return get_model(spec["model_cfg"], spec["K"])
     return build_predictor(spec["model_cfg"], spec["schema_cfg"], spec["K"], spec["M"],
                            spec["D"], spec["encode_layer"])

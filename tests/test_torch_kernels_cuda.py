@@ -9,7 +9,12 @@ without a card. Imports no JAX, so it also runs on a machine without it:
 Tolerances, relative to max |plain|: fp32 1e-5 (summation order only), bf16
 2e-2 (a few bf16 ulps where roundings meet in another order). The fused attention and FFN kernels
 are held to the plain versions of their forward and their backward, with
-dropout off and at p = 0.1 with the same seed.
+dropout off and at p = 0.1 with the same seed; the FFN kernels also with
+relu at 192, 384 and 768 and with the forward-only activations at 384. The
+relu backward is held in lock step: the plain version takes the kernel's
+relu gate, read back from the kernel (``tests/_torch_relu_gates.py``), and
+every gate the two set apart must lie within the fp32 summation-error bound
+of the point where the gate switches (``gate_candidates``).
 
 The VQ kernel (fp32 by the 3xTF32 split, bf16 by bf16 mma, both counted by
 ``tc_launches``) sums each dot product in another order than the plain
@@ -47,6 +52,7 @@ from schemanet_torch.ops.kernels import layernorm as lnk
 from schemanet_torch.ops.kernels import mlp as mk
 from schemanet_torch.ops.kernels import quant as qk
 from schemanet_torch.ops.kernels import vq as vqk
+from tests._torch_relu_gates import gate_flips, kernel_gate
 
 pytestmark = pytest.mark.cuda
 TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
@@ -491,6 +497,61 @@ def test_fused_mlp_kernels(dev, dtype, tol, p, rows, dim, f):
     for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
         assert a.dtype == b.dtype == dtype and a.shape == b.shape, name
         assert _rel(a, b) <= tol, name
+
+
+def _ffn_weights(g, dev, dtype, dim, f):
+    return (_rnd(g, dev, f, dim, scale=dim**-0.5).to(dtype), _rnd(g, dev, f, scale=0.1).to(dtype),
+            _rnd(g, dev, dim, f, scale=f**-0.5).to(dtype), _rnd(g, dev, dim, scale=0.1).to(dtype))
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("dim", [192, 384, 768])
+def test_ffn_kernels_relu(dev, dtype, tol, dim):
+    """relu, the activation of a config that names none, through every
+    route of ``ffn_block`` and of the ``fused_mlp`` forward and backward
+    (one-launch at 192, 384 wide for fused_mlp, 768 wide for both), dropout
+    live in fused_mlp; each launch counted by ``relu_launches``."""
+    g = torch.Generator().manual_seed(11)
+    rows, f = 2 * 197 + 5, 4 * dim
+    x = _rnd(g, dev, 1, rows, dim).to(dtype)
+    ln = (1 + _rnd(g, dev, dim, scale=0.1), _rnd(g, dev, dim, scale=0.1))
+    w = _ffn_weights(g, dev, dtype, dim, f)
+    cot = _rnd(g, dev, 1, rows, dim).to(dtype)
+    before = {k: getattr(fn, "relu_launches") for k, fn in (
+        ("ffn", eb.ffn_block), ("fwd", mk.fused_mlp), ("bwd", mk.fused_mlp_bwd))}
+    block = eb.ffn_block(x, *ln, *w, activation="relu")
+    out = mk.fused_mlp(x, *w, "relu", 0.1, SEED)
+    grads = mk.fused_mlp_bwd(x, *w[:3], cot, "relu", 0.1, SEED)
+    torch.cuda.synchronize()
+    assert eb.ffn_block.relu_launches == before["ffn"] + 1
+    assert (mk.fused_mlp.relu_launches, mk.fused_mlp_bwd.relu_launches) == \
+        (before["fwd"] + 1, before["bwd"] + 1)
+    assert _rel(block, eb.ffn_block_reference(x, *ln, *w, activation="relu")) <= tol
+    assert _rel(out, mk.fused_mlp_reference(x, *w, "relu", 0.1, SEED)) <= tol
+    # in lock step: the plain version given the kernel's relu gate, read
+    # back from the kernel; the gates the two set apart all candidates
+    gate = kernel_gate(x, *w[:3])
+    want = mk.fused_mlp_bwd_reference(x, *w[:3], cot, "relu", 0.1, SEED, gate=gate)
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), grads, want):
+        assert _rel(a, b) <= tol, name
+    flips = gate_flips(gate, x, *w[:2])
+    assert flips["flips_outside_candidates"] == 0, flips
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("activation", ["swish", "sigmoid", "hard_sigmoid", "none"])
+def test_ffn_kernels_other_activations(dev, dtype, tol, activation):
+    """The forward-only activations at DeiT-Small's width; their backward
+    raises, as the TPU kernel's."""
+    g = torch.Generator().manual_seed(12)
+    x = _rnd(g, dev, 1, 77, 384).to(dtype)
+    ln = (1 + _rnd(g, dev, 384, scale=0.1), _rnd(g, dev, 384, scale=0.1))
+    w = _ffn_weights(g, dev, dtype, 384, 1536)
+    assert _rel(eb.ffn_block(x, *ln, *w, activation=activation),
+                eb.ffn_block_reference(x, *ln, *w, activation=activation)) <= tol
+    assert _rel(mk.fused_mlp(x, *w, activation), mk.fused_mlp_reference(x, *w, activation)) <= tol
+    with pytest.raises(NotImplementedError):
+        mk.fused_mlp_bwd(x, *w[:3], x, activation)
 
 
 @pytest.mark.parametrize("p", [0.0, 0.1])

@@ -77,6 +77,46 @@ def test_stage0_data_parallel_with_dropout_matches_one_process(tmp_path):
             assert float((r["state"]["model"][name] - want).abs().max()) <= 1e-6, name
 
 
+def test_resnet_batch_norm_on_a_data_grid_matches_one_process(tmp_path):
+    """ResNet-18 stage 0 on a (data 2, model 1) grid: every BatchNorm
+    normalises by the global batch's statistics (each rank's sums of x and
+    x^2 summed over the data group, and their gradients in the backward), so
+    the losses, the step-1 gradients and the running statistics after two
+    steps are one process's on the global batch. In fp64 but the loss (fp32
+    in both packages): in fp32 a ReLU input within the grid's rounding
+    difference of 0 would take its other branch and move its neighbours'
+    gradients by its cotangent (tests/test_torch_resnet.py). Losses rtol
+    1e-6 and the step-1 gradients within 1e-5 of each leaf's largest value
+    (the fp32 loss's rounding, ~1e-7, carried back); the running statistics
+    and parameters after two steps within 1e-4 of the largest (AdamW moves
+    an entry whose gradient is near 0 by lr either way)."""
+    cfg = {"name": "resnet18"}
+    model = get_model(cfg, K, dtype=torch.float64)
+    init_parameters_(model, torch.Generator().manual_seed(0))
+    model.double()
+    rng = np.random.default_rng(5)
+    batches = [(_images(rng, 8, 32).double(), torch.from_numpy(rng.integers(0, K, 8)))
+               for _ in range(2)]
+    spec = dict(case="steps", kind="backbone", model_cfg=cfg, K=K, dtype="float64",
+                train_cfg=VANILLA["training"], loss_cfg=VANILLA["loss"],
+                state=model.state_dict(), steps_per_epoch=2, batches=batches, grid=(2, 1))
+    one = run_steps(spec, None)
+    ranks = run_grid(spec, 2, tmp_path)
+    np.testing.assert_allclose([s["loss"] for s in ranks[0]["losses"]],
+                               [s["loss"] for s in one["losses"]], rtol=1e-6)
+    for name, want in one["grads"].items():
+        for r in ranks:
+            assert float((r["grads"][name] - want).abs().max()) <= 1e-5 * float(
+                want.abs().max()), name
+    stats = [n for n in one["state"]["model"] if n.endswith((".mean", ".var"))]
+    assert len(stats) == 2 * 20 and not torch.equal(one["state"]["model"]["bn1.mean"],
+                                                     torch.zeros(64, dtype=torch.float64))
+    for name, want in one["state"]["model"].items():
+        for r in ranks:
+            assert float((r["state"]["model"][name] - want).abs().max()) <= 1e-4 * float(
+                want.abs().max()), name
+
+
 def _stage3_batches(rng):
     return [{"image": torch.from_numpy(rng.integers(0, 8, size=(8, 4)).astype(np.float32)),
              "label": torch.from_numpy(rng.integers(0, 3, size=8))} for _ in range(3)]

@@ -6,9 +6,10 @@ SchemaNet training step, one stage-0 backbone step with dropout live, stages
 modules, one epoch of ``schema_net_worker`` with its loaders, validation,
 TensorBoard writer and checkpoints, then the command line's ``serve
 --explain`` on its files from a JSON config, ``load_serve_predictor``, the
-capture probes and the config helpers; and the grid of ``parallel/``: a
-one-rank gloo grid, a training step on it, the sharding rules), and by
-reading the port's sources."""
+capture probes and the config helpers; the grid of ``parallel/``: a
+one-rank gloo grid, a training step on it, the sharding rules; and the
+model zoo: a ResNet stage-0 step, a post-norm identity-encoded ViT, a masked
+stack, every FFN activation), and by reading the port's sources."""
 
 import pathlib
 import re
@@ -194,13 +195,71 @@ def test_grid_without_jax():
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
 
 
+def test_model_zoo_without_jax():
+    """The model zoo in a fresh interpreter where JAX and the JAX package
+    cannot be imported: ``models/resnet.py`` and ``models/layers_extra.py``
+    (a ResNet-18 stage-0 step, its running statistics moved), a post-norm
+    identity-encoded relu ViT's training step, a masked stack, and the
+    FFN kernels' activations on their plain versions."""
+    blocked = FORBIDDEN + ABSENT_ON_CARD
+    script = textwrap.dedent(
+        f"""
+        import sys
+        for name in {blocked!r}:
+            sys.modules[name] = None
+        import torch
+        from schemanet_torch.models import layers_extra, resnet
+        from schemanet_torch.models.transformer import Transformer
+        from schemanet_torch.ops.kernels import encoder_block, mlp
+        from schemanet_torch.train import backbone_trainer
+        loss_cfg = {{"name": "ce_loss", "weight_dict": {{"cls": 1.0}}}}
+        train_cfg = {{"train_epochs": 1, "optimizer": {{"name": "AdamW", "lr": 1e-3}}}}
+        stage0 = {{"dataset": {{"num_classes": 3}}, "model": {{"name": "resnet18"}},
+                   "loss": loss_cfg, "training": train_cfg}}
+        trainer = backbone_trainer(stage0, steps_per_epoch=1, device="cpu")
+        batch = {{"image": torch.randn(2, 32, 32, 3), "label": torch.tensor([0, 1])}}
+        assert torch.isfinite(trainer.train_iter(batch)["loss"])
+        assert isinstance(trainer.model, resnet.ResNet)
+        assert not torch.equal(trainer.model.bn1.mean, torch.zeros(64))
+        vit = {{"dataset": {{"num_classes": 3}}, "loss": loss_cfg, "training": train_cfg,
+                "model": {{"name": "vit", "pos_encoding": {{"name": "identity"}},
+                           "transformer": dict(embed_dim=32, num_encoder_layers=2, num_heads=2,
+                                               dim_feedforward=64, pre_norm=False,
+                                               dropout=0.1),
+                           "patch_embed": dict(img_size=16, patch_size=4)}}}}
+        trainer = backbone_trainer(vit, steps_per_epoch=1, device="cpu")
+        batch = {{"image": torch.randn(2, 16, 16, 3), "label": torch.tensor([0, 1])}}
+        assert torch.isfinite(trainer.train_iter(batch)["loss"])
+        stack = Transformer(2, 2, 32, 64, "relu", pre_norm=False)
+        mask = torch.zeros(1, 1, 5, 5)
+        out, _ = stack.run(torch.randn(2, 5, 32), attn_mask=mask)
+        assert out.shape == (2, 5, 32)
+        assert layers_extra.get_norm("batch_norm", 4, use_running_average=True)(
+            torch.randn(2, 3, 3, 4)).shape == (2, 3, 3, 4)
+        x = torch.randn(2, 3, 8)
+        for act in encoder_block.ACT_CODES:
+            w = (torch.randn(16, 8), torch.randn(16), torch.randn(8, 16), torch.randn(8))
+            assert mlp.fused_mlp(x, *w, act).shape == x.shape
+        loaded = [m for m in sys.modules if m.split(".")[0] in {blocked!r}
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("ok")
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
+
+
 def test_sources_name_no_jax_module():
     pattern = re.compile(
         rf"^\s*(import|from)\s+({'|'.join(FORBIDDEN)})\b", re.MULTILINE
     )
     offenders = [
         str(p.relative_to(REPO))
-        for p in sorted((REPO / "schemanet_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+        for p in sorted((REPO / "schemanet_torch").rglob("*.py"))
+        + [REPO / "chip_smoke.py", REPO / "tests" / "_torch_relu_gates.py"]  # chip_smoke's helper
         if pattern.search(p.read_text())
     ]
     assert not offenders, offenders
