@@ -537,6 +537,40 @@ The model zoo (``zoo_phases``), after phase 46:
     over the data group, before the clip) within 1e-5 of each leaf's max,
     the parameters by phase 29's rules, no hand-written kernel launched.
 
+The kernel policy, the optimizers and the feature dump (each phase where
+its path already runs):
+
+53. ``kernel_policy`` (``schemanet_torch/ops/policy.py``): after phase 2, the
+    resolved policy, all 13 fields, on a line of its own (a stray
+    ``SCHEMANET_*`` variable shows); after phases 10 and 14, from one state
+    of the CIFAR stage-4 bf16 step and of the stage-0 bf16 step, one step
+    with each kernel field alone plain (``POLICY_PLAIN``): its kernels launch
+    0 times and every other kernel as in the default run (``block`` plain:
+    the frozen layers' per-op route adds its ``fused_mhsa``,
+    ``fused_layernorm`` and ``fused_mlp``); with every field plain no kernel
+    launches, and the loss and the updated state are bit for bit those of
+    ``with_plain`` from the same state (the stage-4 side with ``block: xla``
+    on both). Phase 32 adds a stage-4 worker run with ``--override
+    kernels.graphconv=xla``: no ``sym_conv`` launch;
+54. ``optimizers``: after phase 27, the ImageNet DeiT-Small stage-4 step at
+    full width (K 1000, bf16, the YAML's groups) under AdamW, SGD, Adam and
+    factored AdamW (the groups without their low-memory keys, which would
+    keep the atlas on ``adamw_lowmem``), 3 steps each: finite losses, p50
+    step ms and peak memory beside AdamW's, no ``adamw_project_rows`` launch
+    but under AdamW, the other kernels as under AdamW; after phase 28, each
+    of the three in fp32 at K 100 against the plain versions by phase 8's
+    rules (``run_to_run_bitwise`` gated, the tight rule reported as in 28),
+    then resumed from step 2 through a checkpoint bit for bit; in the grid
+    ranks (``mesh_model2_factored``), one fp32 factored step at model 2, the
+    Adafactor statistics of the split edge weights (summed over the model
+    group) within 1e-4 of one process's, the atlas within 1e-5;
+55. ``saved_features``: after phase 16, ``cluster_features`` of its
+    1,000,000 x 192 fp32 features on the card (one ``vq_assign`` a
+    minibatch and a Lloyd step), its seconds, and in lock step against the
+    plain versions by phase 16's rules; whether h5py is importable (its own
+    line) and, where it is, the dump's round trip (its absence is no
+    failure).
+
 The kernels line gains ``ffn_block_relu``, ``fused_mlp_relu`` and
 ``fused_mlp_bwd_relu`` (phase 47's times, phase 48's launches).
 
@@ -1893,9 +1927,17 @@ def imagenet_phases(dev, card_note: dict) -> dict:
             time_ms(lambda: gc.sym_conv_bwd_reference(e_i, f_i, g_i), iters),
             shape=list(f_i.shape), bmm_note_ms=time_ms(
                 lambda: (torch.bmm(esym_i, g_i), torch.bmm(g_i, f_i.transpose(1, 2))), iters))
+    state54 = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+    b54 = batches[:3]
     del e16, f16, gout, e_i, f_i, g_i, esym_i, tr, serve, batches, images
     torch.cuda.empty_cache()
     lap("27_imagenet_train_bf16")
+
+    # 54. the optimizers at full width, from phase 27's state
+    optimizer_phase_bf16(state54, b54, dev, card_note)
+    del state54, b54
+    torch.cuda.empty_cache()
+    lap("54_optimizers_bf16")
 
     # 26 and 28 in fp32 against the plain versions, K cut to 100 classes (two
     # trainers and the plain GraphConv's E_sym at K = 1000 pass 80 GB)
@@ -2044,9 +2086,21 @@ def imagenet_phases(dev, card_note: dict) -> dict:
     require(all(no_farther(c) for c in after.values()),
             f"the kernels' fp32 atlas gradient is farther from fp64 than the plain one: {after}")
     del stepped
-    del batches, host_state
     torch.cuda.empty_cache()
     lap("28_imagenet_train_fp32")
+
+    # 54. the optimizers in fp32 at K 100 against the plain versions, resumed
+    def opt_trainer(name):
+        mdl = fp32_model()
+        mdl.load_state_dict(host_state)
+        cfg = TrainerConfig.from_cfg(optimizer_training(IN_SCHEMA_CFG["training"], name),
+                                     frozen_patterns=SCHEMA_NET_FROZEN)
+        return Trainer(cfg, mdl, loss_fn, LOSS_WEIGHTS, IN_STEPS_PER_EPOCH, device=dev)
+
+    optimizer_phase_fp32(opt_trainer, batches, card_note)
+    del batches, host_state
+    torch.cuda.empty_cache()
+    lap("54_optimizers_fp32")
 
     # 29. DeiT-Small stage 0 (configs/imagenet/vanilla/deit_small.yaml):
     # 3 fp32 steps against the plain versions (phase 12's rules), then 5 bf16
@@ -2680,6 +2734,32 @@ def cli_phase(work_dir: str, has_networkx: bool, card_note: dict, device: str = 
         logging.getLogger("schemanet_torch.train.workers").removeHandler(handler)
     loaded = any(m.startswith("loaded pretrain weights") for m in messages)
     require(loaded, "cli train backbone_worker: the pre_train file was not loaded")
+
+    # 53. a kernels: entry from the command line: the stage-4 worker with
+    # --override kernels.graphconv=xla runs the plain GraphConv, no sym_conv
+    from schemanet_torch.ops import policy
+
+    stage = "train_schema_net_worker kernels.graphconv=xla"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["train", "--cfg", schema, "--worker", "schema_net_worker", "--override",
+                       "kernels.graphconv=xla", "--seed", "0", "--device", device, "--log-dir",
+                       os.path.join(root, "s4_graphconv_xla")])
+        torch.cuda.synchronize()
+        resolved = policy.resolve("graphconv")
+    finally:
+        policy.reset_policy()
+    seconds[stage] = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    phase("cli", stage=stage, exit_code=rc, seconds=seconds[stage], launches=counts,
+          graphconv=resolved)
+    require(rc == 0 and resolved == "xla", f"cli {stage}: exit code {rc}, graphconv {resolved}")
+    require(not counts.get("sym_conv") and not counts.get("sym_conv_bwd")
+            and all(counts.get(k, 0) > 0 for k in ("attn_block", "ffn_block", "vq_assign",
+                                                    "fused_layernorm", "embed_grad",
+                                                    "adamw_project_rows")),
+            f"cli {stage}: launches {counts}")
     require(os.path.isfile(codes) and os.path.isfile(codes.replace(".npy", ".pth")),
             f"cli extract: {codes} or its .pth is missing")
 
@@ -3460,10 +3540,12 @@ def grid_layout():
     return "gloo", "cuda:0"
 
 
-def in_stage4_cfg(dtype: str, highest: bool = False) -> dict:
+def in_stage4_cfg(dtype: str, highest: bool = False, optimizer: str = "adamw") -> dict:
     """IN_SCHEMA_CFG in ``dtype``; ``highest``: graph_precision 'highest'
-    (the fp32 lock step's, as phase 28's)."""
+    (the fp32 lock step's, as phase 28's); ``optimizer``: the training block
+    of ``optimizer_training`` (phase 54)."""
     cfg = copy.deepcopy(IN_SCHEMA_CFG)
+    cfg["training"] = optimizer_training(cfg["training"], optimizer)
     cfg["training"]["dtype"] = dtype
     if highest:
         cfg["schema_net"]["ir_atlas"]["graph_precision"] = "highest"
@@ -3484,17 +3566,19 @@ def in_stage4_state(bundle, ingredients) -> dict:
     return model.state_dict()
 
 
-def in_stage4_trainer(state: dict, dtype: str, dev, mesh=None, highest=False):
+def in_stage4_trainer(state: dict, dtype: str, dev, mesh=None, highest=False,
+                      optimizer: str = "adamw"):
     """Phase 27's stage-4 trainer in ``dtype`` from ``state``, on ``mesh``
     or in one process: the predictor and ``Trainer`` that
-    ``schema_net_trainer`` builds. ``dtype`` "float64": parameters and
-    compute in fp64 (for the plain versions, as phase 28's fp64 step)."""
+    ``schema_net_trainer`` builds, under ``optimizer`` (phase 54). ``dtype``
+    "float64": parameters and compute in fp64 (for the plain versions, as
+    phase 28's fp64 step)."""
     from schemanet_torch.schema import build_predictor, get_loss_fn
     from schemanet_torch.train import SCHEMA_NET_FROZEN, Trainer, TrainerConfig
     from schemanet_torch.train.workers import _schema_cfg, resolve_dtype
 
     fp64 = dtype == "float64"
-    cfg = in_stage4_cfg("float32" if fp64 else dtype, highest)
+    cfg = in_stage4_cfg("float32" if fp64 else dtype, highest, optimizer)
     model = build_predictor(vit_cfg(384, 6, None), _schema_cfg(cfg), IN_CLASSES, IN_CODES, 384,
                             ENCODE_LAYER, dtype=torch.float64 if fp64 else resolve_dtype(dtype))
     if fp64:
@@ -3691,6 +3775,7 @@ def grid_rank_main(work_dir: str) -> None:
                                              reset_launch_counts)
     from schemanet_torch.parallel.mesh import gather_like, local_batch_slice, make_mesh
     from schemanet_torch.train import backbone_trainer
+    from schemanet_torch.train.common import follows_split
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3775,6 +3860,38 @@ def grid_rank_main(work_dir: str) -> None:
     del tr
     torch.cuda.empty_cache()
     out["bf16"]["seconds"] = time.perf_counter() - t_phase
+
+    # 54. factored AdamW on the model-2 grid: the edge weights factored over
+    # their class axis, which is split; one fp32 step, the Adafactor
+    # statistics and the atlas gathered, against one process's
+    t_phase = time.perf_counter()
+    tr = in_stage4_trainer(state, "float32", dev, mesh_m, highest=True, optimizer="adafactor")
+    loss = tr.train_iter(on(b4[0]))["loss"].item()
+    grid_state = {k: {n: (gather_like(t, h.param) if follows_split(n, h.param) else t).float()
+                      for n, t in h.state.items()} for k, h in tr.hot.items()}
+    grid_hot = {k: gather_like(h.param.detach(), h.param) for k, h in tr.hot.items()}
+    local = {k: {n: list(t.shape) for n, t in h.state.items()} for k, h in tr.hot.items()}
+    del tr
+    torch.cuda.empty_cache()
+    out["factored"] = {"loss": loss, "local_state_shapes": local}
+    if rank == 0:
+        ref = in_stage4_trainer(state, "float32", dev, None, highest=True, optimizer="adafactor")
+        want_loss = ref.train_iter(on(b4[0]))["loss"].item()
+        out["factored"].update(
+            one_process_loss=want_loss, loss_rel_err=abs(loss - want_loss) / abs(want_loss),
+            state_rel_err={f"{k} {n}": rel_err(t, ref.hot[k].state[n].float())
+                           for k, st in grid_state.items() for n, t in st.items()},
+            shapes_equal=all(t.shape == ref.hot[k].state[n].shape
+                             for k, st in grid_state.items() for n, t in st.items()),
+            atlas_rel_err={k: rel_err(t, ref.hot[k].param.detach())
+                           for k, t in grid_hot.items()},
+            one_process_state_shapes={k: {n: list(t.shape) for n, t in h.state.items()}
+                                      for k, h in ref.hot.items()})
+        del ref
+    del grid_state, grid_hot
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    out["factored"]["seconds"] = time.perf_counter() - t_phase
 
     # 42. mesh_data2_stage0: DeiT-Small stage 0, fp32, dropout live, data 2
     t_phase = time.perf_counter()
@@ -4016,6 +4133,23 @@ def grid_phases(dev, work_dir: str, card_note: dict) -> dict:
                                            f"{want_counts}")
     require(ranks[0]["bf16"]["losses"] == ranks[1]["bf16"]["losses"],
             "the ranks of one model group report other losses")
+
+    # 54. factored AdamW on the grid: the statistics summed over the model
+    # group equal one process's (fp32: the order of the class axis' sums)
+    fac = ranks[0]["factored"]
+    phase("mesh_model2_factored", backend=backend, grid={"data": 1, "model": 2},
+          rank_losses=[r["factored"]["loss"] for r in ranks],
+          rank_state_shapes=[r["factored"]["local_state_shapes"] for r in ranks],
+          tol={"loss": 1e-4, "statistics": 1e-4, "atlas": 1e-5},
+          **{k: v for k, v in fac.items() if k != "local_state_shapes"}, **card_note)
+    edge_local = ranks[0]["factored"]["local_state_shapes"]["schema_net.edge_weights"]
+    require(edge_local == {"v_row": [1, IN_VMAX, IN_VMAX], "v_col": [k_local, IN_VMAX, 1]},
+            f"factored edge weights on a rank: {edge_local}")
+    require(fac["loss_rel_err"] <= 1e-4, f"factored grid loss differs by {fac['loss_rel_err']}")
+    require(fac["shapes_equal"] and all(v <= 1e-4 for v in fac["state_rel_err"].values()),
+            f"factored grid statistics differ from one process's: {fac['state_rel_err']}")
+    require(all(v <= 1e-5 for v in fac["atlas_rel_err"].values()),
+            f"factored grid atlas differs from one process's: {fac['atlas_rel_err']}")
 
     s0 = ranks[0]["stage0"]
     s0_kernels = ("fused_mhsa", "fused_mhsa_bwd", "fused_mlp", "fused_mlp_bwd")
@@ -5135,6 +5269,272 @@ def run_grid_phases(dev, card_note: dict) -> dict:
         shutil.rmtree(grid_dir, ignore_errors=True)
 
 
+# -- phases 53-55: the kernel policy, the optimizers, the feature dump --------
+
+# each policy field's plain value, and the launch counters its plain value
+# stops on the stage-4 path ("s4") and the stage-0 path ("s0")
+POLICY_PLAIN = {"attn": "xla", "block": "xla", "ln": "xla", "mlp": "xla", "gnn_ln": "xla",
+                "graphconv": "xla", "vq": "xla", "static_embed_bwd": "blocked",
+                "embed_bwd": "xla", "atlas_opt": "xla"}
+_LN_COUNTERS = ("fused_layernorm", "fused_layernorm_bwd", "fused_layernorm_bwd_vec")
+POLICY_COUNTERS = {
+    "block": {"s4": ("attn_block", "attn_block_hmean", "attn_block_tc", "ffn_block",
+                     "ffn_block_tc", "ffn_block_wide", "ffn_ln_rows", "ffn_block_relu")},
+    "attn": {"s0": ("fused_mhsa", "fused_mhsa_bwd", "fused_mhsa_tc", "fused_mhsa_bwd_tc")},
+    "mlp": {"s0": ("fused_mlp", "fused_mlp_bwd", "fused_mlp_tc", "fused_mlp_bwd_tc",
+                   "fused_mlp_wide", "fused_mlp_bwd_wide", "fused_mlp_relu",
+                   "fused_mlp_bwd_relu")},
+    "ln": {"s0": _LN_COUNTERS},
+    "gnn_ln": {"s4": _LN_COUNTERS},
+    "graphconv": {"s4": ("sym_conv", "sym_conv_bwd", "sym_conv_tc", "sym_conv_bwd_tc")},
+    "vq": {"s4": ("vq_assign", "vq_assign_tc")},
+    "atlas_opt": {"s4": ("adamw_project_rows", "adamw_project_rows_bf16",
+                         "adamw_project_rows_vec")},
+}
+
+
+def policy_expected(field: str, path: str, base: dict) -> dict:
+    """The launches of one step with ``field`` alone plain, from the default
+    run's ``base``: the field's counters 0, every other counter as in
+    ``base``. Two fields share a kernel: the embedding lookups (the class
+    lookup, planned, is ``static_embed_bwd``'s; the instance lookup
+    ``embed_bwd``'s: one ``embed_grad`` launch each) and, with ``block``
+    plain, the frozen layers take the per-op route, whose kernels the other
+    fields keep: a ``fused_mhsa`` (the encode layer's head-mean takes the
+    per-op attention instead), two ``fused_layernorm`` and a ``fused_mlp`` a
+    layer."""
+    want = dict(base)
+    for name in POLICY_COUNTERS.get(field, {}).get(path, ()):
+        want[name] = 0
+    if path == "s4" and field in ("embed_bwd", "static_embed_bwd"):
+        want["embed_grad"] -= 1
+        want["embed_grad_vec"] -= 1
+        if field == "static_embed_bwd":
+            want["embed_grad_planned"] = 0
+    if path == "s4" and field == "block":
+        for name, more in (("fused_mhsa", FROZEN_LAYERS - 1), ("fused_mhsa_tc", FROZEN_LAYERS - 1),
+                           ("fused_layernorm", 2 * FROZEN_LAYERS), ("fused_mlp", FROZEN_LAYERS),
+                           ("fused_mlp_tc", FROZEN_LAYERS)):
+            want[name] += more
+    return want
+
+
+def policy_phase(tr, batch, path: str, card_note: dict) -> dict:
+    """Phase 53 on one path (``s4``: the CIFAR stage-4 bf16 step, ``s0``:
+    stage 0): from one state, the step under the default policy, then with
+    each field of ``ops/policy.py`` alone plain (``policy_expected``), then
+    with every field plain, whose loss and updated state must equal bit for
+    bit those of ``with_plain`` from the same state (on the stage-4 path with
+    ``block: xla`` on both sides: ``with_plain`` puts ``attn_block_reference``
+    in the frozen layers, the policy JAX's per-op route). Restores the state
+    and the default policy."""
+    from schemanet_torch.ops import policy
+    from schemanet_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    snap = trainer_snapshot(tr)
+
+    def run(**fields):
+        policy.reset_policy()
+        policy.set_policy(**fields)
+        restore_snapshot(tr, snap)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        loss = tr.train_iter(batch)["loss"].detach().clone()
+        torch.cuda.synchronize()
+        return loss, launch_counts()
+
+    report = {}
+    try:
+        base_loss, base = run()
+        for field in POLICY_PLAIN:
+            loss, counts = run(**{field: POLICY_PLAIN[field]})
+            want = policy_expected(field, path, base)
+            report[field] = {"ok": counts == want, "finite": bool(torch.isfinite(loss)),
+                             "launches": {k: v for k, v in counts.items() if v},
+                             "differs": {k: (counts[k], want[k]) for k in counts
+                                         if counts[k] != want[k]}}
+        loss_p, counts_p = run(**POLICY_PLAIN)
+        got = trainer_snapshot(tr)
+        ref_fields = {"block": "xla"} if path == "s4" else {}
+        loss_r, _ = with_plain(lambda: run(**ref_fields))
+        differs = same_snapshots(got, trainer_snapshot(tr))
+        del got
+    finally:
+        policy.reset_policy()
+        restore_snapshot(tr, snap)
+        del snap
+        torch.cuda.empty_cache()
+    all_plain = {"launches": {k: v for k, v in counts_p.items() if v},
+                 "loss_bitwise": torch.equal(loss_p, loss_r), "state_differs": differs[:20]}
+    phase("kernel_policy", path=path, default_launches={k: v for k, v in base.items() if v},
+          default_loss=base_loss.item(), fields=report, all_plain=all_plain,
+          all_plain_loss=loss_p.item(), reference="with_plain" + (" and block: xla" if ref_fields
+                                                                   else ""), **card_note)
+    bad = {f: r["differs"] for f, r in report.items() if not r["ok"] or not r["finite"]}
+    require(not bad, f"kernel policy ({path}): a field's plain value launched {bad}")
+    require(not all_plain["launches"], f"kernel policy ({path}): every field plain, yet "
+                                       f"{all_plain['launches']} launched")
+    require(all_plain["loss_bitwise"] and not differs,
+            f"kernel policy ({path}): every field plain differs from with_plain in {differs[:20]}")
+    return report
+
+
+OPTIMIZERS = {"sgd": {"name": "sgd", "lr": 0.001},
+              "adam": {"name": "adam", "lr": 0.001},
+              "adafactor": {"name": "AdamW", "lr": 0.001, "weight_decay": 0.05, "factored": True}}
+
+
+def optimizer_training(training: dict, name: str) -> dict:
+    """A ``training`` block under optimizer ``name`` (AdamW: as it is). Under
+    ``adafactor`` the parameter groups lose their low-memory keys: with them
+    the JAX ``make_one`` keeps a group on ``adamw_lowmem`` even when
+    ``factored`` (``schemanet_tpu/train/common.py``), and the atlas would not
+    be factored."""
+    out = copy.deepcopy(training)
+    if name == "adamw":
+        return out
+    out["optimizer"] = dict(OPTIMIZERS[name])
+    if name == "adafactor":
+        for group in out.get("param_groups") or ():
+            group["cfg"] = {k: v for k, v in (group.get("cfg") or {}).items()
+                            if k not in ("moment_dtype", "nu_dtype", "nu_factored_min_size")}
+    return out
+
+
+def optimizer_phase_bf16(state: dict, batches: list, dev, card_note: dict) -> dict:
+    """Phase 54 at full width: the ImageNet DeiT-Small stage-4 step (K 1000,
+    bf16, the YAML's groups) from phase 27's state under AdamW, SGD, Adam and
+    factored AdamW, 3 steps each: finite losses, p50 step ms and peak memory
+    beside AdamW's; no ``adamw_project_rows`` launch but under AdamW, and the
+    frozen forward's and GNN's kernels launched as under AdamW."""
+    from schemanet_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    out = {}
+    for name in ("adamw", *OPTIMIZERS):
+        tr = in_stage4_trainer(state, "bfloat16", dev, optimizer=name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        ms, losses = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(tr.train_iter(b)["loss"].item())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = launch_counts()
+        hot = {k.split(".")[-1]: sorted(h.state) for k, h in tr.hot.items()}
+        out[name] = {"losses": losses, "step_ms": ms, "p50_ms": float(np.median(ms)),
+                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+                     "launches": {k: v for k, v in counts.items() if v}, "hot_state": hot}
+        del tr
+        torch.cuda.empty_cache()
+    base = out["adamw"]["launches"]
+    same = ("attn_block", "attn_block_tc", "attn_block_hmean", "ffn_block", "ffn_block_tc",
+            "sym_conv", "sym_conv_bwd", "vq_assign", "fused_layernorm", "fused_layernorm_bwd",
+            "embed_grad")
+    phase("optimizers_bf16", classes=IN_CLASSES, steps=len(batches), batch=BATCH, runs=out,
+          **card_note)
+    for name, r in out.items():
+        require(all(np.isfinite(r["losses"])), f"{name}: ImageNet stage-4 losses {r['losses']}")
+        require(all(r["launches"].get(k, 0) == base.get(k, 0) > 0 for k in same),
+                f"{name}: the path's kernels launched {r['launches']}, not as under AdamW {base}")
+        if name != "adamw":
+            require(not r["launches"].get("adamw_project_rows"),
+                    f"{name}: adamw_project_rows launched under another optimizer")
+    require(base.get("adamw_project_rows") == 2 * len(batches), "AdamW: no fused atlas update")
+    require(out["adafactor"]["hot_state"]["edge_weights"] == ["v_col", "v_row"],
+            f"factored AdamW: the edge weights' state {out['adafactor']['hot_state']}")
+    return out
+
+
+def optimizer_phase_fp32(make_trainer, batches: list, card_note: dict) -> dict:
+    """Phase 54 in fp32 at K 100: each of SGD, Adam and factored AdamW
+    against the plain versions by phase 8's rules (``stage4_fp32_vs_plain``:
+    free run, lock step, ``run_to_run_bitwise``; the tight rule reported, as
+    phase 28), then resumed from step 2 through a checkpoint (``state_dict``
+    saved and loaded in a new trainer) bit for bit the uninterrupted third
+    step."""
+    import io
+
+    out = {}
+    for name, opt in OPTIMIZERS.items():
+        stage4_fp32_vs_plain(lambda: make_trainer(name), batches, opt["lr"], FROZEN_LAYERS,
+                             label=f"optimizer_fp32_{name}", tight=False, optimizer=name,
+                             classes=IN_FP32_CLASSES)
+        tr = make_trainer(name)
+        for b in batches[:2]:
+            tr.train_iter(b)
+        buf = io.BytesIO()
+        torch.save(tr.state_dict(), buf)
+        tr.train_iter(batches[2])
+        want = trainer_snapshot(tr)
+        del tr
+        resumed = make_trainer(name)
+        buf.seek(0)
+        resumed.load_state_dict(torch.load(buf, weights_only=False))
+        resumed.train_iter(batches[2])
+        differs = same_snapshots(want, trainer_snapshot(resumed))
+        del resumed, want, buf
+        torch.cuda.empty_cache()
+        out[name] = differs
+        phase("optimizer_resume", optimizer=name, resumed_at_step=2, bitwise=not differs,
+              differs=differs[:20], **card_note)
+        require(not differs, f"{name}: resumed from step 2, the third step differs in "
+                             f"{differs[:20]}")
+    return out
+
+
+def saved_features_phase(feats, init_state, card_note: dict) -> dict:
+    """Phase 55: ``cluster_features`` (the ``--saved-features-fp`` path's
+    clustering) on stage 1's 1,000,000 x 192 fp32 features on the card,
+    counted and timed; against the plain versions by stage 1's rules, in
+    lock step from its k-means++ init; whether h5py is importable, and where
+    it is, the dump's round trip."""
+    import importlib.util
+
+    from schemanet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from schemanet_torch.pipeline.extract_ingredients import (LLOYD_SAMPLE, append_h5,
+                                                              cluster_features,
+                                                              read_saved_features)
+
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    print(json.dumps({"h5py_importable": has_h5py}), flush=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    centers = cluster_features(feats, NUM_CODES, seed=0, lloyd_iters=S1_LLOYD_ITERS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    minibatches = -(-len(feats) // 1024)
+    lock, agree = kmeans_vs_plain(feats, feats[:LLOYD_SAMPLE], init_state, NUM_CODES,
+                                  with_plain)
+    round_trip = None
+    if has_h5py:
+        path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_h5_"), "saved_features.h5")
+        try:
+            part = feats[:100_000]
+            append_h5(path, part[:60_000])
+            append_h5(path, part[60_000:])
+            round_trip = bool(np.array_equal(read_saved_features(path), part.cpu().numpy()))
+        finally:
+            shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    phase("saved_features", features=len(feats), codes=NUM_CODES, seconds=seconds,
+          launches={k: v for k, v in counts.items() if v},
+          expected_vq_assign=minibatches + S1_LLOYD_ITERS, id_agreement=agree,
+          h5py_importable=has_h5py, h5_round_trip=round_trip,
+          tol={"ids": 0.999, "near_tie": 1e-5, "centers": 1e-4}, **lock, **card_note)
+    require(bool(torch.isfinite(centers).all()) and tuple(centers.shape) == (NUM_CODES, EMBED_DIM),
+            "cluster_features: centers")
+    require(centers.is_cuda and counts["vq_assign"] == minibatches + S1_LLOYD_ITERS > 0,
+            f"cluster_features: vq_assign launched {counts['vq_assign']} times")
+    require(agree >= 0.999 and lock["near_ties_only"] and lock["center_err"] <= 1e-4,
+            f"cluster_features against the plain versions: {lock}, ids {agree}")
+    require(round_trip in (None, True), "saved_features.h5: the rows read back differ")
+    return {"seconds": seconds}
+
+
 def main(grid_only: bool = False) -> None:
     """Every phase; ``grid_only``: phases 1-2 and 40-42, with the grid's
     kernel rows."""
@@ -5193,6 +5593,11 @@ def main(grid_only: bool = False) -> None:
     _build.library()
     phase("build", seconds=round(time.perf_counter() - t0, 3),
           compile_seconds=_build.build_seconds, library=str(_build.library_path().name))
+    # 53. the resolved kernel policy, every field, so that a stray
+    # SCHEMANET_* variable shows
+    from schemanet_torch.ops import policy
+
+    print(json.dumps({"kernel_policy": policy.resolved()}), flush=True)
     # registers and spills of the tensor-core kernels, from ptxas: 16
     # attention kernels (4 head_dims x forward, dq, dk/dv, head-mean
     # forward), 8 GraphConv kernels (4 row widths of E x forward, dE), 9 FFN
@@ -5901,6 +6306,12 @@ def main(grid_only: bool = False) -> None:
     require(profiled == implied, f"stage-4 profile: GraphConv/LayerNorm launches {profiled} != "
             f"the rows' sums {implied}")
 
+    # 53. the kernel policy on the stage-4 step: each field alone plain, then
+    # every field plain against with_plain
+    t53 = time.perf_counter()
+    policy_phase(tr16, batches[0], "s4", card_note)
+    policy_seconds = time.perf_counter() - t53
+
     del tr16, batches
     torch.cuda.empty_cache()
 
@@ -6159,6 +6570,12 @@ def main(grid_only: bool = False) -> None:
           top_host_self_ms_per_step={e.key[:60]: e.self_cpu_time_total / 3e3 for e in host},
           **card_note)
 
+    # 53. the kernel policy on the stage-0 step
+    t53 = time.perf_counter()
+    policy_phase(tr0, s0_batches[0], "s0", card_note)
+    policy_seconds += time.perf_counter() - t53
+    phase("phase_seconds", phase_name="53_kernel_policy", seconds=policy_seconds, **card_note)
+
     del tr0, s0_batches
     torch.cuda.empty_cache()
 
@@ -6362,6 +6779,11 @@ def main(grid_only: bool = False) -> None:
     require(agree >= 0.999, f"stage-1 k-means ids agree on {agree} < 0.999")
     require(lock["near_ties_only"], "stage-1 k-means: a mismatch is no near-tie")
     require(lock["center_err"] <= 1e-4, f"stage-1 centers differ by {lock['center_err']}")
+    # 55. the --saved-features-fp path's clustering on these features
+    t55 = time.perf_counter()
+    saved_features_phase(feats, init_state, card_note)
+    phase("phase_seconds", phase_name="55_saved_features", seconds=time.perf_counter() - t55,
+          **card_note)
     # what phase 46 (stage 1 on the int8 route) is held beside, the sample on the host
     s1_ref = {"seconds": s1_seconds, "codebook": bundle.codebook.cpu(), "held": held[:50_000].cpu(),
               "chunks": len(chunks), "vq_launches": minibatches + S1_LLOYD_ITERS}

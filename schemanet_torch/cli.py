@@ -48,10 +48,11 @@ from .device import resolve_device
 from .models.port import load_pretrain_into
 from .models.vit import get_model
 from .ops.kernels import _build
+from .ops.policy import configure
 from .parallel.launch import GRID_CHILD, spawn_ranks
 from .parallel.mesh import RENDEZVOUS_KEYS, init_from_env, make_mesh
 from .pipeline.bundle import load_bundle, save_atlas_init, save_bundle
-from .pipeline.extract_ingredients import extract_codebook
+from .pipeline.extract_ingredients import cluster_saved_features, extract_codebook
 from .pipeline.stages import init_stage, parse_encode_layer
 from .schema.predictor import init_parameters_
 from .serve import load_serve_predictor
@@ -102,9 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
     p_extract.add_argument("--max-features", type=int, default=1_000_000)
     p_extract.add_argument("--batch-size", type=int, default=64)
     p_extract.add_argument("--save-features", action="store_true",
-                           help="also dump saved_features.h5 (not ported: ROADMAP A9)")
+                           help="also dump the features to saved_features.h5 (needs h5py)")
     p_extract.add_argument("--saved-features-fp", type=str, default=None,
-                           help="cluster a saved feature dump (not ported: ROADMAP A9)")
+                           help="cluster a saved feature dump instead of extracting (needs h5py)")
     p_extract.add_argument("--dtype", type=str, default="float32",
                            help="backbone compute dtype (bfloat16 for speed; fp32 = reference "
                                 "parity)")
@@ -176,8 +177,6 @@ def _refuse_unported(args) -> None:
         raise SystemExit("--multi-host joins the rendezvous torchrun sets ("
                          + ", ".join(RENDEZVOUS_KEYS) + " are unset): launch with torchrun "
                          "--nproc-per-node N -m schemanet_torch.cli ...")
-    if getattr(args, "save_features", False) or getattr(args, "saved_features_fp", None):
-        raise SystemExit("--save-features/--saved-features-fp are not ported yet (ROADMAP A9)")
 
 
 def _base_dir(args) -> str:
@@ -194,7 +193,11 @@ def _setup(args) -> Dict[str, Any]:
                                          args.command)
     setup_logger(os.path.join(args.log_dir, "logs"), f"{args.file_name_cfg}.log")
     cfg = get_cfg(args.cfg)
-    return apply_overrides(cfg, parse_override_strings(args.override), base_dir=_base_dir(args))
+    cfg = apply_overrides(cfg, parse_override_strings(args.override), base_dir=_base_dir(args))
+    # kernels: the kernel policy (ops/policy.py), for every subcommand, as
+    # the JAX package's _setup applies it
+    configure(cfg.get("kernels"))
+    return cfg
 
 
 def _launch_args(args, resume: str = ""):
@@ -260,19 +263,28 @@ def cmd_extract(args):
     cfg = _setup(args)
     num_clusters = cfg["discretization"]["vocabulary"]["size"]
     os.makedirs(args.save_path, exist_ok=True)
-    model, _, data_cfg = _load_backbone_for_stage(cfg, args)
     mesh = _stage_mesh(args)
-    model.requires_grad_(False).to(mesh.device if mesh else resolve_device(args.device))
-    encode_layer = parse_encode_layer(cfg["discretization"]["encoder_layer"])
-    loader = _stage_loader(get_dataset(data_cfg, "train"), data_cfg, args.batch_size, args.seed,
-                           mesh)
-    centers = extract_codebook(model, loader, encode_layer, num_clusters,
-                               max_features=args.max_features, seed=args.seed, mesh=mesh,
-                               quant=args.quant_int8)
+    if args.saved_features_fp:  # cluster a dump (the JAX CLI's resume-from-h5 path)
+        centers = cluster_saved_features(args.saved_features_fp, num_clusters, seed=args.seed,
+                                         device=mesh.device if mesh else args.device)
+        n_feats = "h5"
+    else:
+        model, _, data_cfg = _load_backbone_for_stage(cfg, args)
+        model.requires_grad_(False).to(mesh.device if mesh else resolve_device(args.device))
+        encode_layer = parse_encode_layer(cfg["discretization"]["encoder_layer"])
+        loader = _stage_loader(get_dataset(data_cfg, "train"), data_cfg, args.batch_size,
+                               args.seed, mesh)
+        dump = os.path.join(args.save_path, "saved_features.h5") if args.save_features else None
+        if dump and _is_writer(mesh) and os.path.exists(dump):
+            os.remove(dump)  # a new dump, not an append to an earlier run's
+        centers = extract_codebook(model, loader, encode_layer, num_clusters,
+                                   max_features=args.max_features, seed=args.seed, mesh=mesh,
+                                   quant=args.quant_int8, save_features_path=dump)
+        n_feats = args.max_features
     if not _is_writer(mesh):
         return 0
     centers = centers.float().cpu()
-    save_fp = os.path.join(args.save_path, f"cluster_{num_clusters}_from_{args.max_features}.npy")
+    save_fp = os.path.join(args.save_path, f"cluster_{num_clusters}_from_{n_feats}.npy")
     np.save(save_fp, centers.numpy())
     torch.save(centers, save_fp.replace(".npy", ".pth"))  # the reference's artifact
     print(f"saved codebook to {save_fp}")

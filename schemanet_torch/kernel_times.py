@@ -76,8 +76,10 @@ the kernels' public wrappers, so the same file times an older checkout of
 the port: from that checkout's root, ``python -m schemanet_torch.kernel_times``
 (``--widths``: only the FFN rows at 384 and 768; ``--quant``: only the
 int8 route's rows; ``--ffn``: only the FFN kernels with gelu and relu at
-192, 384 and 768). Prints the card's name and power limit, then one JSON
-line.
+192, 384 and 768; ``--notes``: ``embed_grad`` beside ``index_add_`` at a
+model-2 rank's ImageNet class lookup and the fp32 ``attn_block`` at 384
+beside its library calls). Prints the card's name and power limit, then
+one JSON line.
 """
 
 from __future__ import annotations
@@ -556,15 +558,69 @@ def _imagenet_widths(dev: torch.device, rnd) -> dict:
     return out
 
 
+def _note_rows(dev: torch.device, rnd) -> dict:
+    """The rows ``--notes`` times: ``embed_grad`` on a model-2 rank's class
+    lookup at ImageNet's scale (ids [500, 500], 500 distinct codes a class
+    out of 8,000, cotangents [500, 500, 1024] bf16, a table of 8,001 rows),
+    one call and planned, beside ``index_add_`` of the same cotangents made
+    fp32 beforehand, the one PyTorch call that computes its function; and
+    the fp32 ``attn_block`` at DeiT-Small's width (x [64, 197, 384], 6
+    heads; stage 1 at ImageNet) and its head-mean variant at stage 3's
+    batch (x [32, 197, 384]), each beside ``F.layer_norm`` + ``F.linear`` +
+    SDPA + ``F.linear`` and the residual in fp32 with TF32 off (a note: the
+    head-mean is not among the calls)."""
+    from .ops.kernels import embed_bwd as ek
+    from .ops.kernels import encoder_block as eb
+
+    out, f32 = {}, torch.float32
+    g = torch.Generator().manual_seed(41)
+    codes, width = 8000, 1024
+    ids = torch.stack([torch.randperm(codes, generator=g)[:500] for _ in range(500)]).to(
+        dev, torch.int32)
+    cot = rnd(500, 500, width)
+    ids_long, cot32 = ids.reshape(-1).long(), cot.reshape(-1, width).float()
+    table = torch.zeros(codes + 1, width, device=dev)
+    out["embed_grad_shard"] = _split(lambda: ek.embed_grad(ids, cot, codes + 1))
+    plan = ek.sort_ids(ids, codes + 1)
+    out["embed_grad_shard_planned"] = _split(
+        lambda: ek.embed_grad(ids, cot, codes + 1, plan=plan))
+    out["embed_grad_shard_index_add"] = _both(lambda: table.index_add_(0, ids_long, cot32))
+    del table, cot, cot32
+    d, heads = 384, 6
+    lg, lb = 1 + rnd(d, scale=0.1, dtype=f32), rnd(d, scale=0.1, dtype=f32)
+    w = [rnd(3 * d, d, scale=d**-0.5, dtype=f32), rnd(3 * d, scale=0.1, dtype=f32),
+         rnd(d, d, scale=d**-0.5, dtype=f32), rnd(d, scale=0.1, dtype=f32)]
+    for bs, key, hmean in ((64, "attn_block_fp32_d384", False),
+                           (32, "attn_block_fp32_hmean_d384", True)):
+        x = rnd(bs, 197, d, dtype=f32)
+
+        def calls():
+            y = F.layer_norm(x, (d,), lg, lb, 1e-6)
+            qkv = F.linear(y, w[0], w[1]).view(bs, 197, 3, heads, d // heads)
+            qkv = qkv.permute(2, 0, 3, 1, 4)
+            o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
+            return x + F.linear(o.transpose(1, 2).reshape(bs, 197, d), w[2], w[3])
+
+        out[key] = _split(lambda: eb.attn_block(x, lg, lb, *w, heads, capture_hmean=hmean))
+        out[f"{key}_torch_calls"] = _split(calls)
+        out[f"{key}_torch_calls"]["sdpa_backend"] = sdpa_backend(
+            out[f"{key}_torch_calls"]["by_kernel"])
+        del x
+    return out
+
+
 def main() -> None:
-    """``python -m schemanet_torch.kernel_times [--widths | --quant | --ffn]``:
+    """``python -m schemanet_torch.kernel_times [--widths | --quant | --ffn |
+    --notes]``:
     every row, or with ``--widths`` only ``_width_rows`` (the frozen layer
     halves at 384 and 768, the wide ``fused_mlp`` forward and backward, both
     ``adamw_project_rows`` rows), which a copy of this file dropped into an
     older checkout times there too, with ``--quant`` only the int8 route's
     rows at widths 192, 384 and 768, or with ``--ffn`` only the FFN kernels
     with gelu and relu at 192, 384 and 768 (``_activation_rows``; an older
-    checkout's refuse relu)."""
+    checkout's refuse relu), or with ``--notes`` only ``_note_rows``
+    (``embed_grad`` beside ``index_add_`` at a model-2 rank's ImageNet class
+    lookup, the fp32 ``attn_block`` at 384 beside its library calls)."""
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -572,7 +628,8 @@ def main() -> None:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
     dev = torch.device("cuda")
-    chosen = {"--widths": _width_rows, "--quant": _quant_rows, "--ffn": _activation_rows}
+    chosen = {"--widths": _width_rows, "--quant": _quant_rows, "--ffn": _activation_rows,
+              "--notes": _note_rows}
     picked = [flag for flag in chosen if flag in sys.argv[1:]]
     if picked:
         g = torch.Generator().manual_seed(0)

@@ -26,6 +26,7 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops import policy
 from ..ops.kernels import attention as ak
 from ..ops.kernels.encoder_block import dense
 from ..ops.quant import int8_dense
@@ -49,6 +50,12 @@ def dot_product_attention(
     logits = attn_raw if attn_mask is None else attn_raw + attn_mask
     attn = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     return torch.matmul(attn if drop is None else drop(attn), v), attn, attn_raw
+
+
+def mhsa_site():
+    """``fused_mhsa``, or its plain version where the policy's ``attn`` is
+    plain."""
+    return ak.fused_mhsa if policy.routes().attn else ak.fused_mhsa_reference
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -89,7 +96,7 @@ class MultiHeadSelfAttention(nn.Module):
         if maps or attn_mask is not None:
             out, attn, attn_raw = self._per_op(qkv, attn_mask)
         else:
-            out, attn, attn_raw = ak.fused_mhsa(qkv, self.num_heads), None, None
+            out, attn, attn_raw = mhsa_site()(qkv, self.num_heads), None, None
         return (int8_dense(out, gathered(self.linear_out.weight), self.linear_out.bias), attn,
                 attn_raw)
 
@@ -102,5 +109,5 @@ class MultiHeadSelfAttention(nn.Module):
         global batch."""
         qkv = dense(seq, gathered(self.linear_qkv.weight), gathered(self.linear_qkv.bias))
         p = self.dropout if seed is not None else 0.0
-        out = ak.fused_mhsa(qkv, self.num_heads, p, seed, item0)
+        out = mhsa_site()(qkv, self.num_heads, p, seed, item0)
         return dense(out, gathered(self.linear_out.weight), self.linear_out.bias)

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import policy
 from ..ops.kernels import mlp as mk
 from ..ops.kernels.dropmask import SEED_HIGH
 from ..ops.kernels.encoder_block import dense
@@ -183,8 +184,9 @@ class MLP(nn.Module):
         ``row0 ..`` of the global batch."""
         p = self.dropout if seed is not None else 0.0
         l1, l2 = self.linear1, self.linear2
-        return mk.fused_mlp(x, gathered(l1.weight), gathered(l1.bias), gathered(l2.weight),
-                            l2.bias, self.activation, p, seed, row0)
+        fn = mk.fused_mlp if policy.routes().mlp else mk.fused_mlp_reference
+        return fn(x, gathered(l1.weight), gathered(l1.bias), gathered(l2.weight), l2.bias,
+                  self.activation, p, seed, row0)
 
     def quant(self, x: torch.Tensor) -> torch.Tensor:
         """The W8A8 frozen forward (``ops/quant.py``): int8 fc1, the

@@ -62,6 +62,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops import policy
 from ..ops.kernels import encoder_block as eb
 from ..ops.kernels import layernorm as lnk
 from ..parallel.mesh import gathered
@@ -70,6 +71,13 @@ from .layers import MLP, Dropout, DropoutRNG
 
 Parts = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor], torch.Tensor,
               torch.Tensor]
+
+
+def layer_norm_site(x: torch.Tensor, ln: nn.LayerNorm, eps: float) -> torch.Tensor:
+    """The backbone's LayerNorm: ``fused_layernorm``, or its plain version
+    where the policy's ``ln`` is plain."""
+    fn = lnk.fused_layernorm if policy.routes().ln else lnk.fused_layernorm_plain
+    return fn(x, ln.weight, ln.bias, eps)
 
 
 class EncoderLayer(nn.Module):
@@ -101,7 +109,8 @@ class EncoderLayer(nn.Module):
         if quant:
             return self._probes(*self._quant_forward(seq, plain or capture_hmean, attn_mask),
                                 capture_hmean)
-        if not plain and seq.is_cuda and self.pre_norm and attn_mask is None:
+        if (not plain and seq.is_cuda and self.pre_norm and attn_mask is None
+                and policy.routes().block):
             return self._block_forward(seq, capture_hmean)
         if not plain and (seq.is_cuda or not self.pre_norm):
             return self._probes(*self._kernel_forward(seq, capture_hmean, attn_mask),
@@ -113,7 +122,7 @@ class EncoderLayer(nn.Module):
         return self._probes(*parts, capture_hmean)
 
     def _norm_kernel(self, ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-        return lnk.fused_layernorm(x, ln.weight, ln.bias, self.norm_eps)
+        return layer_norm_site(x, ln, self.norm_eps)
 
     def _compose(self, seq: torch.Tensor, attend: Callable, norm: Callable, ffn: Callable,
                  drop: Optional[Callable] = None) -> Parts:
@@ -230,7 +239,7 @@ class Transformer(nn.Module):
         self.norm = nn.LayerNorm(embed_dim, eps=norm_eps) if final_norm else None
 
     def _final_norm(self, seq: torch.Tensor) -> torch.Tensor:
-        return lnk.fused_layernorm(seq, self.norm.weight, self.norm.bias, self.norm_eps)
+        return layer_norm_site(seq, self.norm, self.norm_eps)
 
     def run(
         self,

@@ -73,6 +73,13 @@ def sym_conv_reference(e: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     return torch.matmul(symmetrize_edges(e), f)
 
 
+def sym_conv_two_reference(e: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """The plain conv in the JAX package's ``symconv: two`` form: ``(E f +
+    E^T f) / 2 + f``, two batched products and no E_sym. Differentiable by
+    autograd."""
+    return 0.5 * (torch.matmul(e, f) + torch.matmul(e.transpose(-1, -2), f)) + f
+
+
 def sym_conv_bwd_reference(
     e: torch.Tensor, f: torch.Tensor, g: torch.Tensor, need_de: bool = True
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:

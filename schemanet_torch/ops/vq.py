@@ -16,6 +16,7 @@ from typing import Tuple
 
 import torch
 
+from . import policy
 from .kernels import vq as vqk
 
 
@@ -23,7 +24,10 @@ def vq_assign(
     x: torch.Tensor,  # [..., d]
     codebook: torch.Tensor,  # [M, d]
 ) -> torch.Tensor:
-    """Nearest-code ids (int32) with the leading shape of ``x``."""
+    """Nearest-code ids (int32) with the leading shape of ``x``; the plain
+    version where the policy's ``vq`` is plain."""
+    if not policy.routes().vq:
+        return vqk.vq_assign_reference(x, codebook)
     return vqk.vq_assign_kernel(x, codebook)
 
 

@@ -29,6 +29,12 @@ gathered once a forward for both lookups; the training pool size, the
 batch max of the live slots, is the global batch's (a max over the data
 group).
 
+The kernel policy (``ops/policy.py``) routes four sites here: ``graphconv``
+(``sym_conv``, or the plain conv in ``symconv``'s form), ``gnn_ln``
+(``fused_layernorm`` with the relu, or its plain version), ``embed_bwd`` (the
+instance lookup's backward) and ``static_embed_bwd`` (the class lookup's):
+``embed_grad``, or its plain fixed-order fp32 sums.
+
 Not ported, being TPU workarounds with the same semantics as the fp32 sum:
 the JAX package's one-hot and banded-product backward routes and its
 ``StaticIds`` trace-time class ids; nor ``remat_class_gnn``, which trades
@@ -43,6 +49,7 @@ import torch
 from torch import nn
 
 from ..models.layers import get_activation
+from ..ops import policy
 from ..ops.kernels import embed_bwd as ek
 from ..ops.kernels import encoder_block as eb
 from ..ops.kernels import graphconv as gc
@@ -63,6 +70,12 @@ class _EmbedLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
+        r = policy.routes()
+        # the class lookup (a planned buffer) is the policy's static_embed_bwd
+        # site, the instance lookup its embed_bwd site
+        kernel = r.embed_bwd if ctx.plans is None else r.static_embed_bwd
+        if not kernel:
+            return ek.embed_grad_reference(ids, g, ctx.num_rows).to(g.dtype), None, None
         plan = None if ctx.plans is None else ctx.plans.plan(ids, ctx.num_rows)
         return ek.embed_grad(ids, g.contiguous(), ctx.num_rows, plan=plan).to(g.dtype), None, None
 
@@ -82,7 +95,10 @@ class GraphConv(nn.Module):
         self.linear = None if identity_proj else nn.Linear(embed_dim, embed_dim)
 
     def forward(self, edges: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
-        feat = gc.sym_conv(edges.to(feat.dtype).contiguous(), feat.contiguous())
+        r = policy.routes()
+        conv = (gc.sym_conv if r.graphconv
+                else gc.sym_conv_two_reference if r.symconv == "two" else gc.sym_conv_reference)
+        feat = conv(edges.to(feat.dtype).contiguous(), feat.contiguous())
         if self.linear is None:
             return feat
         return eb.dense(feat, self.linear.weight, self.linear.bias)
@@ -99,9 +115,10 @@ class GNNLayer(nn.Module):
         feat = self.g_conv(edges, feat)
         if feat_mask is not None:
             feat = torch.where(feat_mask[..., None], torch.zeros_like(feat), feat)
+        ln = lnk.fused_layernorm if policy.routes().gnn_ln else lnk.fused_layernorm_plain
         if self.activation == "relu":
-            return lnk.fused_layernorm(feat, self.norm.weight, self.norm.bias, GNN_NORM_EPS, "relu")
-        feat = lnk.fused_layernorm(feat, self.norm.weight, self.norm.bias, GNN_NORM_EPS)
+            return ln(feat, self.norm.weight, self.norm.bias, GNN_NORM_EPS, "relu")
+        feat = ln(feat, self.norm.weight, self.norm.bias, GNN_NORM_EPS)
         return get_activation(self.activation)(feat)
 
 

@@ -35,10 +35,21 @@ Low-memory moments, chosen as the JAX ``make_optimizer`` chooses them:
   product in fp32);
 * the rest take ``torch.optim.AdamW``.
 
-The low-memory updates are plain PyTorch (``LowMemAdamW``), as the JAX
-package runs them as plain XLA. Not ported: ``factored: true``
-(``optax.adafactor``) and the ``adam`` and ``sgd`` optimizers; asking for
-them raises ``NotImplementedError``.
+The other optimizers, each as the JAX ``make_one`` builds it for a group
+(the group's lr scale; the ``frozen`` label gets no update):
+
+* ``adam``: ``optax.adam(mu_dtype=moment_dtype)``, the update of
+  ``optax.adamw(mu_dtype)`` above without the decay;
+* ``sgd``: ``optax.sgd(momentum=optimizer.momentum (0.9), nesterov=False)``:
+  ``t = g + momentum t`` (fused, as XLA computes it), ``p -= lr t``; no decay;
+* ``adamw`` with ``factored: true`` on a group without the low-memory keys:
+  ``optax.adafactor(lr, multiply_by_parameter_scale=False)`` at optax
+  0.2.6's defaults (``adafactor_step_``), then the JAX package's
+  ``_scheduled_decay`` (``u -= lr_t wd p``). The group keys that route to
+  ``adamw_lowmem`` do so only under ``adamw`` (factored or not).
+
+The low-memory updates and the other optimizers are plain PyTorch
+(``PlainUpdates``), as the JAX package runs them as plain XLA.
 
 Checkpoints are torch-native: ``CheckpointManager`` writes one
 ``torch.save`` file a tag (``<ckpt_dir>/iter-<n>.pt``, the reference's
@@ -63,10 +74,12 @@ import torch
 from torch import nn
 
 from ..models.port import jax_name
-from ..parallel.mesh import all_reduce_
+from ..parallel.mesh import Shard, all_reduce_, grid_shard
 
 _GROUP_LOWMEM_KEYS = ("nu_dtype", "nu_factored_min_size", "moment_dtype")
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults, which the JAX package uses
+# optax.adafactor's defaults (optax 0.2.6), which the JAX package's factored AdamW takes
+FACTOR_MIN_DIM, FACTOR_DECAY, FACTOR_EPS, FACTOR_CLIP = 128, 0.8, 1e-30, 1.0
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
@@ -153,17 +166,128 @@ class Moments:
 @dataclasses.dataclass(frozen=True)
 class GroupHyper:
     """A parameter group's hyperparameters: lr as a scale of the schedule;
-    ``moments`` None for ``torch.optim.AdamW`` (fp32 moments)."""
+    ``kind`` its optimizer: ``adamw`` (``moments`` None for
+    ``torch.optim.AdamW`` with fp32 moments; ``adam`` is ``adamw`` with the
+    optax mu and no decay), ``sgd`` (with ``momentum``) or ``adafactor``."""
 
     lr_scale: float
     weight_decay: float
     moments: Optional[Moments] = None
+    kind: str = "adamw"
+    momentum: float = 0.9
 
 
 def _bias_correction(b: float, count: int) -> torch.Tensor:
     """1 - b^t at t = count + 1, in fp32 as optax computes it."""
     return torch.tensor(1.0, dtype=torch.float32) - torch.tensor(b, dtype=torch.float32) ** float(
         count + 1)
+
+
+def _whole(shape, shard: Optional[Shard]) -> Tuple[int, ...]:
+    """The whole parameter's shape of a ``shard``'s ``shape`` (None: not split)."""
+    if shard is None:
+        return tuple(shape)
+    return tuple(n * shard.mesh.model if i == shard.dim else n for i, n in enumerate(shape))
+
+
+def factored_dims(shape: Sequence[int]) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims``: (d1, d0), the second largest and the
+    largest axis, where the second largest is at least
+    ``FACTOR_MIN_DIM``; None (a full second moment) otherwise."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < FACTOR_MIN_DIM:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def follows_split(key: str, p: torch.Tensor) -> bool:
+    """Whether the state tensor ``key`` of ``p`` is split as ``p`` is: all
+    but an Adafactor statistic reduced over ``p``'s split axis, which every
+    rank of the model group holds whole."""
+    shard = grid_shard(p)
+    if shard is None or key not in ("v_row", "v_col"):
+        return True
+    d1, d0 = factored_dims(_whole(p.shape, shard))
+    return (d0 if key == "v_row" else d1) != shard.dim
+
+
+def optimizer_init(p: torch.Tensor, hyper: GroupHyper) -> Dict[str, torch.Tensor]:
+    """Zero state of ``p`` under its group's optimizer: ``lowmem_init``'s
+    for AdamW and Adam, ``trace`` for SGD, and for Adafactor ``v_row`` and
+    ``v_col`` (``p``'s shape with a 1 at the axis each reduces, d0 and d1)
+    or a full ``v``, in ``p``'s dtype, as optax keeps them."""
+    if hyper.kind == "sgd":
+        return {"trace": torch.zeros_like(p)}
+    if hyper.kind == "adafactor":
+        dims = factored_dims(_whole(p.shape, grid_shard(p)))
+        if dims is None:
+            return {"v": torch.zeros_like(p)}
+        d1, d0 = dims
+        return {"v_row": torch.zeros(_keep1(p.shape, d0), dtype=p.dtype, device=p.device),
+                "v_col": torch.zeros(_keep1(p.shape, d1), dtype=p.dtype, device=p.device)}
+    return lowmem_init(p, hyper.moments or Moments())
+
+
+def _keep1(shape, dim: int) -> Tuple[int, ...]:
+    return tuple(1 if i == dim else n for i, n in enumerate(shape))
+
+
+def _mean(t: torch.Tensor, dim: Optional[int], shard: Optional[Shard]) -> torch.Tensor:
+    """``t``'s mean over ``dim`` (kept, size 1), or over every element with
+    ``dim`` None; on a shard, over the whole parameter: the sum over the
+    split axis is summed over the model group."""
+    split = shard is not None and (dim is None or dim == shard.dim)
+    if not split:
+        return t.mean() if dim is None else t.mean(dim, keepdim=True)
+    total = t.sum() if dim is None else t.sum(dim, keepdim=True)
+    all_reduce_(total, shard.mesh.model_group)
+    count = t.numel() if dim is None else t.shape[dim]
+    return total / (count * shard.mesh.model)
+
+
+@torch.no_grad()
+def sgd_step_(p: torch.Tensor, g: torch.Tensor, state: Dict[str, torch.Tensor], lr: float,
+              momentum: float) -> None:
+    """``optax.sgd(momentum, nesterov=False)``: ``t = g + momentum t``
+    (one rounding, as XLA fuses it), ``p += -lr t``."""
+    t = _fma(momentum, state["trace"], g.float()).to(state["trace"].dtype)
+    state["trace"].copy_(t)
+    p.add_(t * torch.tensor(-lr, dtype=torch.float32))
+
+
+@torch.no_grad()
+def adafactor_step_(p: torch.Tensor, g: torch.Tensor, state: Dict[str, torch.Tensor],
+                    count: int, lr: float, weight_decay: float,
+                    shard: Optional[Shard] = None) -> None:
+    """``optax.adafactor(lr, multiply_by_parameter_scale=False)`` at optax
+    0.2.6's defaults, then the JAX package's ``_scheduled_decay``: with
+    ``s = g^2 + 1e-30`` and ``b = 1 - (count + 1)^-0.8``, the factored
+    statistics ``r = b r + (1 - b) mean_d0(s)``, ``c = b c + (1 - b)
+    mean_d1(s)``, ``u = g (r / mean_d1(r))^-1/2 c^-1/2`` (or ``v = b v + (1 -
+    b) s``, ``u = g v^-1/2``), ``u / max(1, rms(u))``, then ``p += -lr u - lr
+    wd p``. ``count`` updates were applied before. On a shard (``shard``)
+    each mean over the split axis and the RMS are the whole parameter's."""
+    decay = float(np.float32(1.0) - np.float32(count + 1) ** np.float32(-FACTOR_DECAY))
+    gs = g * g + FACTOR_EPS
+    if "v" in state:
+        v = decay * state["v"] + (1.0 - decay) * gs
+        state["v"].copy_(v)
+        u = g * v.rsqrt()
+    else:
+        d1, d0 = factored_dims(_whole(p.shape, shard))
+        r = decay * state["v_row"] + (1.0 - decay) * _mean(gs, d0, shard)
+        c = decay * state["v_col"] + (1.0 - decay) * _mean(gs, d1, shard)
+        state["v_row"].copy_(r)
+        state["v_col"].copy_(c)
+        u = g * (r / _mean(r, d1, shard)).rsqrt() * c.rsqrt()
+    u = u / torch.clamp(torch.sqrt(_mean(u * u, None, shard)) / FACTOR_CLIP, min=1.0)
+    lr32 = torch.tensor(lr, dtype=torch.float32)
+    u = -(u * lr32)
+    if weight_decay:
+        u = u - (lr32 * weight_decay) * p
+    p.add_(u)
 
 
 def lowmem_init(p: torch.Tensor, moments: Moments) -> Dict[str, torch.Tensor]:
@@ -230,20 +354,34 @@ def lowmem_adamw_step_(p: torch.Tensor, g: torch.Tensor, state: Dict[str, torch.
     p.add_((u + weight_decay * p) * torch.tensor(-lr, dtype=torch.float32))
 
 
-class LowMemAdamW:
-    """The groups of ``make_optimizer`` that store their moments in a narrow
-    dtype or factored: ``lowmem_adamw_step_`` on each of their parameters."""
+def group_step_(p: torch.Tensor, g: torch.Tensor, state: Dict[str, torch.Tensor], count: int,
+                lr: float, hyper: GroupHyper) -> None:
+    """One update of parameter ``p`` (its data changed in place) by its
+    group's optimizer at the schedule's ``lr``; ``count`` updates were
+    applied before."""
+    lr = lr * hyper.lr_scale
+    if hyper.kind == "sgd":
+        sgd_step_(p.data, g, state, lr, hyper.momentum)
+    elif hyper.kind == "adafactor":
+        adafactor_step_(p.data, g, state, count, lr, hyper.weight_decay, grid_shard(p))
+    else:
+        lowmem_adamw_step_(p.data, g, state, count, lr, hyper.weight_decay, hyper.moments)
+
+
+class PlainUpdates:
+    """The groups of ``make_optimizer`` that ``torch.optim.AdamW`` does not
+    update (moments in a narrow dtype or factored, Adam, SGD, Adafactor):
+    ``group_step_`` on each of their parameters."""
 
     def __init__(self, params: Dict[str, List[nn.Parameter]], hyper: Dict[str, GroupHyper]):
         self.groups = [(hyper[label], ps) for label, ps in params.items() if ps]
-        self.state = [[lowmem_init(p, hp.moments) for p in ps] for hp, ps in self.groups]
+        self.state = [[optimizer_init(p, hp) for p in ps] for hp, ps in self.groups]
 
     def step(self, count: int, lr: float) -> None:
         for (hp, ps), states in zip(self.groups, self.state):
             for p, st in zip(ps, states):
                 if p.grad is not None:
-                    lowmem_adamw_step_(p.data, p.grad, st, count, lr * hp.lr_scale,
-                                       hp.weight_decay, hp.moments)
+                    group_step_(p, p.grad, st, count, lr, hp)
 
     def zero_grad(self) -> None:
         for _, ps in self.groups:
@@ -281,12 +419,16 @@ def param_labels(
     return labels
 
 
+def _torch_adamw(hyper: GroupHyper) -> bool:
+    return hyper.kind == "adamw" and hyper.moments is None
+
+
 class ScheduledAdamW:
-    """``torch.optim.AdamW`` over the labelled groups with fp32 moments and
-    ``LowMemAdamW`` over the others (``GroupHyper.moments``), their lr set
-    from the schedule at every step. The state dict is torch's (``state``,
-    ``param_groups``), with the low-memory groups' moments under
-    ``lowmem`` where there are any."""
+    """``torch.optim.AdamW`` over the labelled AdamW groups with fp32
+    moments and ``PlainUpdates`` over the others, their lr set from the
+    schedule at every step. The state dict is torch's (``state``,
+    ``param_groups``), with the plain groups' states under ``lowmem`` where
+    there are any."""
 
     def __init__(self, params: Dict[str, List[nn.Parameter]], hyper: Dict[str, GroupHyper],
                  schedule: Callable[[int], float]):
@@ -294,13 +436,13 @@ class ScheduledAdamW:
         groups = [
             {"params": ps, "lr": schedule(0) * hyper[label].lr_scale,
              "weight_decay": hyper[label].weight_decay, "lr_scale": hyper[label].lr_scale}
-            for label, ps in params.items() if ps and hyper[label].moments is None
+            for label, ps in params.items() if ps and _torch_adamw(hyper[label])
         ]
         self.optimizer = (torch.optim.AdamW(groups, betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS)
                           if groups else None)
         lowmem = {label: ps for label, ps in params.items()
-                  if ps and hyper[label].moments is not None}
-        self.lowmem = LowMemAdamW(lowmem, hyper) if lowmem else None
+                  if ps and not _torch_adamw(hyper[label])}
+        self.lowmem = PlainUpdates(lowmem, hyper) if lowmem else None
 
     def zero_grad(self) -> None:
         if self.optimizer is not None:
@@ -325,7 +467,8 @@ class ScheduledAdamW:
                                 for k, v in st.items()}
                             for i, st in state["state"].items()}
         if self.lowmem is not None:
-            out["lowmem"] = [[{k: fn(t, p) for k, t in st.items()} for p, st in zip(ps, sts)]
+            out["lowmem"] = [[{k: fn(t, p) if follows_split(k, p) else t for k, t in st.items()}
+                              for p, st in zip(ps, sts)]
                              for (_, ps), sts in zip(self.lowmem.groups, state["lowmem"])]
         return out
 
@@ -357,39 +500,45 @@ def make_optimizer(
     frozen_patterns: Sequence[str] = (),
     exclude: Sequence[str] = (),
 ) -> Tuple[ScheduledAdamW, Dict[str, str], Dict[str, GroupHyper]]:
-    """AdamW over ``model``'s parameters by regex group. Freezes (sets
-    ``requires_grad=False`` on) the frozen ones; ``exclude`` names trainable
-    parameters that another update owns (the fused atlas tensors). Returns
-    ``(optimizer, labels, hyper)``: the label of every parameter and the
-    hyperparameters of every label but ``frozen``."""
+    """AdamW, Adam, SGD or factored AdamW (Adafactor) over ``model``'s
+    parameters by regex group. Freezes (sets ``requires_grad=False`` on) the
+    frozen ones; ``exclude`` names trainable parameters that another update
+    owns (the hot atlas tensors). Returns ``(optimizer, labels, hyper)``:
+    the label of every parameter and the hyperparameters of every label but
+    ``frozen``."""
     name = optimizer_cfg.get("name", "AdamW").lower()
-    if name != "adamw":
-        raise NotImplementedError(f"optimizer {name!r} is not ported (only AdamW)")
-    if optimizer_cfg.get("factored"):
-        raise NotImplementedError("factored: true (optax.adafactor) is not ported")
+    if name not in ("adamw", "adam", "sgd"):
+        raise KeyError(f"unknown optimizer {name!r}")
+    factored = bool(optimizer_cfg.get("factored", False))
+    momentum = float(optimizer_cfg.get("momentum", 0.9))
     groups = list(param_groups or [])
     base_lr = float(optimizer_cfg.get("lr", 1e-3))
     weight_decay = float(optimizer_cfg.get("weight_decay", 0.0))
     moment_dtype = _dtype(optimizer_cfg.get("moment_dtype"))
 
-    def moments_of(cfg: Dict[str, Any]) -> Optional[Moments]:
-        """As the JAX make_one: any group key -> adamw_lowmem; else a
-        top-level moment_dtype -> optax.adamw(mu_dtype); else fp32 AdamW."""
+    def make_one(lr_scale: float, wd: float, cfg: Dict[str, Any]) -> GroupHyper:
+        """As the JAX make_one: under adamw, any group key -> adamw_lowmem,
+        else factored -> Adafactor, else a top-level moment_dtype ->
+        optax.adamw(mu_dtype), else fp32 AdamW; adam -> optax.adam(mu_dtype)
+        (no decay); sgd -> optax.sgd (no decay)."""
+        if name == "sgd":
+            return GroupHyper(lr_scale, 0.0, kind="sgd", momentum=momentum)
+        if name == "adam":
+            return GroupHyper(lr_scale, 0.0, Moments(moment_dtype, optax_mu=True))
         if any(k in cfg for k in _GROUP_LOWMEM_KEYS):
-            return Moments(_dtype(cfg.get("moment_dtype")) if "moment_dtype" in cfg
-                           else moment_dtype, _dtype(cfg.get("nu_dtype")),
-                           cfg.get("nu_factored_min_size"))
-        if moment_dtype is not None:
-            return Moments(moment_dtype, optax_mu=True)
-        return None
+            return GroupHyper(lr_scale, wd, Moments(
+                _dtype(cfg.get("moment_dtype")) if "moment_dtype" in cfg else moment_dtype,
+                _dtype(cfg.get("nu_dtype")), cfg.get("nu_factored_min_size")))
+        if factored:
+            return GroupHyper(lr_scale, wd, kind="adafactor")
+        return GroupHyper(lr_scale, wd,
+                          Moments(moment_dtype, optax_mu=True) if moment_dtype else None)
 
-    hyper = {"default": GroupHyper(1.0, weight_decay, moments_of({}))}
+    hyper = {"default": make_one(1.0, weight_decay, {})}
     for gi, group in enumerate(groups):
         cfg = group.get("cfg") or {}
-        hyper[f"group_{gi}"] = GroupHyper(
-            float(cfg.get("lr", base_lr)) / base_lr, float(cfg.get("weight_decay", weight_decay)),
-            moments_of(cfg),
-        )
+        hyper[f"group_{gi}"] = make_one(float(cfg.get("lr", base_lr)) / base_lr,
+                                        float(cfg.get("weight_decay", weight_decay)), cfg)
     named = list(model.named_parameters())
     labels = param_labels(named, groups, drop_remain, frozen_patterns)
     params: Dict[str, List[nn.Parameter]] = {label: [] for label in hyper}

@@ -19,8 +19,10 @@ step:
 4. AdamW on the trainable parameters other than the two hot atlas tensors;
 5. for a SchemaNet predictor, ``adamw_project_rows`` on ``vertex_weights``
    and ``edge_weights``: AdamW and the row projection in one pass, so they
-   stay projected. The gradient therefore sees the same projected parameters
-   as under the JAX package's default, the projection before every step
+   stay projected (the kernel's plain version where the policy's
+   ``atlas_opt`` is plain, ``ops/policy.py``). The gradient therefore sees
+   the same projected parameters as under the JAX package's default, the
+   projection before every step
    (``ops/kernels/atlas_opt.py``). Their moments are stored as their group
    asks (``common.py`` ``Moments``): fp32, or bf16 under ``moment_dtype`` /
    ``nu_dtype`` (the kernel's bf16-moment variant: ``adamw_lowmem`` then the
@@ -28,7 +30,11 @@ step:
    kernel does not compute (a factored nu, or ``optax.adamw(mu_dtype)``'s b1
    rounded to bf16 under a top-level ``moment_dtype``) takes the plain
    low-memory update and then the plain projection, as the JAX package
-   does. The ImageNet YAMLs
+   does. So does a hot tensor whose group's optimizer is not AdamW (Adam,
+   SGD, Adafactor): its group's update, then ``project_rows_``; never the
+   kernel. By the argument of ``schemanet_tpu/train/trainer.py``'s
+   ``fused_atlas`` note, update-then-project equals the JAX package's
+   projection before every step. The ImageNet YAMLs
    put every atlas tensor in the ``schema_net`` group, so all four
    (vertex, edge and both attribute weights) keep bf16 moments, where
    ``bench.py`` gave bf16 moments to two of them: the port follows the YAML
@@ -94,6 +100,7 @@ import torch
 from ..data.loader import batch_to_device, device_prefetch, prepare_images
 from ..device import resolve_device
 from ..models.layers import DropoutRNG
+from ..ops import policy
 from ..ops.kernels import atlas_opt as ao
 from ..parallel.mesh import (Mesh, all_reduce_, gather_like, gather_params, grid_shard,
                              shard_module, shard_params, slice_like)
@@ -102,8 +109,8 @@ from ..schema.loss import weighted_total
 from ..utils.logging_utils import TBWriter, process_rank
 from ..utils.metrics import tensor_dict_items
 from ..utils.profiling import StepTimer
-from .common import (CheckpointManager, Moments, clip_by_global_norm, epoch_schedule,
-                     load_metadata, lowmem_adamw_step_, lowmem_init, make_optimizer,
+from .common import (CheckpointManager, GroupHyper, clip_by_global_norm, epoch_schedule,
+                     follows_split, group_step_, load_metadata, make_optimizer, optimizer_init,
                      save_metadata)
 from .evaluator import Evaluation
 
@@ -140,11 +147,17 @@ class TrainerConfig:
 @dataclasses.dataclass
 class _HotTensor:
     param: torch.nn.Parameter
-    state: Dict[str, torch.Tensor]  # lowmem_init's: m, and v or (factored) row and col
-    lr_scale: float
-    weight_decay: float
-    moments: Optional[Moments]  # None: fp32 moments
+    state: Dict[str, torch.Tensor]  # optimizer_init's: m and v (AdamW), or the group's
+    hyper: GroupHyper
     remove_self_loop: bool
+
+    @property
+    def lr_scale(self) -> float:
+        return self.hyper.lr_scale
+
+    @property
+    def weight_decay(self) -> float:
+        return self.hyper.weight_decay
 
     @property
     def m(self) -> torch.Tensor:
@@ -156,9 +169,11 @@ class _HotTensor:
 
     @property
     def fused(self) -> bool:
-        """The kernel computes this tensor's update: full (not factored)
-        moments, each in fp32 or bf16, and adamw_lowmem's b1."""
-        return "v" in self.state and not (self.moments and self.moments.optax_mu)
+        """The kernel computes this tensor's update: AdamW with full (not
+        factored) moments, each in fp32 or bf16, and adamw_lowmem's b1."""
+        moments = self.hyper.moments
+        return (self.hyper.kind == "adamw" and "v" in self.state
+                and not (moments and moments.optax_mu))
 
 
 class Trainer:
@@ -216,11 +231,8 @@ class Trainer:
             if label == "frozen":
                 continue
             p = getattr(self.atlas, name.split(".", 1)[1])
-            moments = hyper[label].moments
-            state = (lowmem_init(p, moments) if moments is not None
-                     else {"m": torch.zeros_like(p), "v": torch.zeros_like(p)})
             self.hot[name] = _HotTensor(
-                p, state, hyper[label].lr_scale, hyper[label].weight_decay, moments,
+                p, optimizer_init(p, hyper[label]), hyper[label],
                 name.endswith("edge_weights") and self.atlas.cfg.remove_self_loop,
             )
         self.trainable = [p for p in model.parameters() if p.requires_grad]
@@ -279,20 +291,22 @@ class Trainer:
                                 [grid_shard(p) is not None for p in live], self.mesh)
 
     def apply_updates(self) -> None:
-        """AdamW on the rest, then the fused AdamW + projection of the hot
-        atlas tensors; advances the step count."""
+        """The optimizer on the rest, then the hot atlas tensors' update and
+        projection (``adamw_project_rows``, or its plain version where the
+        policy's ``atlas_opt`` is plain; the group's update and
+        ``project_rows_`` where the kernel does not compute it); advances
+        the step count."""
         self.optimizer.step(self.step)
         lr = self.schedule(self.step)
         for hot in self.hot.values():
             if hot.fused:
-                ao.adamw_project_rows(
-                    hot.param.data, hot.param.grad.contiguous(), hot.m, hot.v, self.step,
-                    lr=lr * hot.lr_scale, weight_decay=hot.weight_decay, project=True,
-                    remove_self_loop=hot.remove_self_loop,
-                )
+                fused = (ao.adamw_project_rows if policy.routes().atlas_opt
+                         else ao.adamw_project_rows_reference)
+                fused(hot.param.data, hot.param.grad.contiguous(), hot.m, hot.v, self.step,
+                      lr=lr * hot.lr_scale, weight_decay=hot.weight_decay, project=True,
+                      remove_self_loop=hot.remove_self_loop)
             else:
-                lowmem_adamw_step_(hot.param.data, hot.param.grad, hot.state, self.step,
-                                   lr * hot.lr_scale, hot.weight_decay, hot.moments)
+                group_step_(hot.param, hot.param.grad, hot.state, self.step, lr, hot.hyper)
                 ao.project_rows_(hot.param.data, hot.remove_self_loop)
         self.step += 1
 
@@ -342,8 +356,8 @@ class Trainer:
         if self.mesh is not None and self.mesh.model > 1:
             model = gather_params(self.mesh, model, self.shardings)
             opt = self.optimizer.map_state(opt, gather_like)
-            hot = {name: {k: gather_like(t, h.param) for k, t in h.state.items()}
-                   for name, h in self.hot.items()}
+            hot = {name: {k: gather_like(t, h.param) if follows_split(k, h.param) else t
+                          for k, t in h.state.items()} for name, h in self.hot.items()}
         return {
             "model": model,
             "optimizer": opt,
@@ -364,7 +378,9 @@ class Trainer:
             self.model.load_state_dict(model)
             for name, hot in self.hot.items():
                 for key, t in hot.state.items():
-                    t.copy_(slice_like(state["hot"][name][key], hot.param))
+                    saved = state["hot"][name][key]
+                    t.copy_(slice_like(saved, hot.param) if follows_split(key, hot.param)
+                            else saved)
         self.optimizer.load_state_dict(opt)
         self.step = int(state["step"])
         self.rng.seeds.set_state(state["rng"]["seeds"])

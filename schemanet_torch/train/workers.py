@@ -47,6 +47,7 @@ from ..data.loader import build_eval_loader, build_loaders
 from ..device import resolve_device
 from ..models.port import load_pretrain_into
 from ..models.vit import get_model
+from ..ops.policy import configure
 from ..parallel.mesh import Mesh, make_mesh, shard_module
 from ..schema.loss import get_loss_fn
 from ..schema.predictor import build_predictor, init_parameters_
@@ -121,6 +122,9 @@ def num_classes_of(dataset_cfg) -> int:
 
 
 def _split_cfg(global_cfg: Dict[str, Any], args: LaunchArgs):
+    # kernels: the kernel policy (ops/policy.py), resolved before any model
+    # is built, where the JAX workers call it
+    configure(global_cfg.get("kernels"))
     data_cfg = resolve_subconfig(global_cfg["dataset"], args.base_dir)
     train_cfg = dict(global_cfg.get("training", {}))
     val_cfg = dict(global_cfg.get("validation", {}))

@@ -117,10 +117,14 @@ def test_json_configs_without_pyyaml(tmp_path):
     (["extract", "--saved-features-fp", "f.h5", "--ckpt", "c", "--save-path", "s"], "A9"),
 ])
 def test_unported_flags_raise(tmp_path, argv, item):
+    """The feature-dump flags, once refused, now run: the command gets past
+    them to the config (here empty, so its missing ``discretization`` block
+    raises). Their runs: test_torch_saved_features.py."""
     cfg = tmp_path / "cfg.json"
     cfg.write_text("{}")
-    with pytest.raises(SystemExit, match=item):
-        cli.main(argv[:1] + ["--cfg", str(cfg), "--log-dir", str(tmp_path)] + argv[1:])
+    with pytest.raises(KeyError, match="discretization"):
+        cli.main(argv[:1] + ["--cfg", str(cfg), "--log-dir", str(tmp_path), "--device", "cpu"]
+                 + argv[1:])
 
 
 def test_default_device_raises_without_a_gpu(tmp_path):

@@ -186,5 +186,12 @@ def test_lowmem_adamw_matches_jax(case):
 @pytest.mark.parametrize("cfg", [{"name": "AdamW", "factored": True}, {"name": "adam"},
                                  {"name": "sgd"}])
 def test_unported_optimizers_raise(cfg):
-    with pytest.raises(NotImplementedError):
-        make_optimizer(_Holder({("head", "bias"): np.zeros(3, np.float32)}), cfg, lambda s: 1e-3)
+    """Factored AdamW, Adam and SGD, once refused, now build (their updates
+    against optax: tests/test_torch_optimizers.py); an optimizer neither
+    package knows raises KeyError, as the JAX make_one does."""
+    holder = _Holder({("head", "bias"): np.zeros(3, np.float32)})
+    _, labels, hyper = make_optimizer(holder, cfg, lambda s: 1e-3)
+    want = {"adamw": "adafactor", "adam": "adamw", "sgd": "sgd"}[cfg["name"].lower()]
+    assert hyper["default"].kind == want
+    with pytest.raises(KeyError):
+        make_optimizer(holder, dict(cfg, name="lamb"), lambda s: 1e-3)

@@ -338,3 +338,76 @@ def test_image_folder_route_without_jax_or_pillow(tmp_path):
         [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
+
+
+def test_policy_optimizers_and_feature_dump_without_jax():
+    """The kernel policy (every field set plain, then reset), SGD, Adam and
+    factored AdamW steps of a SchemaNet trainer, and ``cluster_features``,
+    in an interpreter where JAX, h5py, Pillow, PyYAML and TensorBoard cannot
+    be imported; the feature dump names the missing h5py."""
+    blocked = FORBIDDEN + ABSENT_ON_CARD + ("h5py",)
+    script = textwrap.dedent(
+        f"""
+        import sys
+        for name in {blocked!r}:
+            sys.modules[name] = None
+        import numpy as np
+        import torch
+        from schemanet_torch.ops import policy
+        from schemanet_torch.pipeline.extract_ingredients import append_h5, cluster_features
+        from schemanet_torch.schema import build_predictor, get_loss_fn, init_parameters_
+        from schemanet_torch.train import SCHEMA_NET_FROZEN, Trainer, TrainerConfig
+
+        policy.configure({{f: ("blocked" if f == "static_embed_bwd" else "xla")
+                           for f in policy.KERNEL_FIELDS}})
+        assert not any(getattr(policy.routes(), f) for f in policy.KERNEL_FIELDS)
+        model_cfg = {{"name": "deit",
+                      "transformer": dict(embed_dim=32, num_encoder_layers=2, num_heads=2,
+                                          dim_feedforward=64, activation="gelu"),
+                      "patch_embed": dict(img_size=16, patch_size=4, image_channels=3)}}
+        schema_cfg = {{"gnn": {{"embed_dim": 16, "num_layers": 2}},
+                      "ir_atlas": {{"feat_h": 4, "feat_w": 4, "clamp_edge_attn": -1.0,
+                                    "prune_node_threshold": 0.001}}}}
+        for opt in ({{"name": "sgd", "lr": 1e-3}}, {{"name": "adam", "lr": 1e-3}},
+                    {{"name": "AdamW", "lr": 1e-3, "factored": True}}):
+            model = build_predictor(model_cfg, schema_cfg, num_classes=5, num_codes=16,
+                                    code_dim=32, encode_layer=1)
+            init_parameters_(model, torch.Generator().manual_seed(0))
+            trainer = Trainer(TrainerConfig(train_epochs=1, optimizer=opt,
+                                            frozen_patterns=SCHEMA_NET_FROZEN),
+                              model, get_loss_fn({{"name": "schema_inference_loss"}}),
+                              {{"cls": 1.0}}, steps_per_epoch=1, device="cpu")
+            loss = trainer.train_iter({{"image": torch.randn(2, 16, 16, 3),
+                                        "label": torch.tensor([0, 1])}})["loss"]
+            assert torch.isfinite(loss), (opt, loss)
+        policy.reset_policy()
+        centers = cluster_features(np.random.default_rng(0).normal(size=(500, 8)), 4,
+                                   lloyd_iters=2, device="cpu")
+        assert centers.shape == (4, 8) and torch.isfinite(centers).all()
+        try:
+            append_h5("x.h5", np.zeros((2, 3), np.float32))
+        except ImportError as exc:
+            assert "h5py" in str(exc), exc
+        else:
+            raise AssertionError("no error")
+        print("ok")
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
+
+
+def test_policy_and_example_name_no_jax_module():
+    """The kernel policy, the stage-1 feature dump and the atlas viewer
+    example name no JAX module; the dump imports h5py, and the viewer
+    matplotlib and networkx, inside the functions that need them."""
+    pattern = re.compile(rf"^\s*(import|from)\s+({'|'.join(FORBIDDEN)})\b", re.MULTILINE)
+    optional = re.compile(r"^(import|from)\s+(h5py|matplotlib|networkx)\b", re.MULTILINE)
+    sources = [REPO / "schemanet_torch" / "ops" / "policy.py",
+               REPO / "schemanet_torch" / "pipeline" / "extract_ingredients.py",
+               REPO / "examples" / "visualize_atlas_torch.py"]
+    offenders = [str(p.relative_to(REPO)) for p in sources
+                 if pattern.search(p.read_text()) or optional.search(p.read_text())]
+    assert not offenders, offenders
