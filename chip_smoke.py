@@ -349,9 +349,10 @@ The command line and the pretrained loader (``cli_phase``,
 
 32. the stage chain through ``schemanet_torch.cli`` at CIFAR DeiT-Tiny's full
     width (12 layers, d 192, M 1024, K 100) on the synthetic dataset (128
-    training images, 64 validation), configs written as JSON (the card's
-    machine has no PyYAML): ``train --worker backbone_worker`` from a
-    reference-named ``.pth`` made from a seed (1000-class head, the head in
+    training images, 64 validation), configs written as JSON (``get_cfg``'s
+    JSON route; phase 56 reads the shipped YAML): ``train --worker
+    backbone_worker`` from a reference-named ``.pth`` made from a seed
+    (1000-class head, the head in
     ``lax_names``; the worker must log the load), ``extract``, ``export``,
     ``init``, ``train --worker schema_net_worker`` (one epoch of 2 steps,
     ``max_keep`` 1), each through ``cli.main`` in this process, exit code 0
@@ -571,6 +572,28 @@ its path already runs):
     line) and, where it is, the dump's round trip (its absence is no
     failure).
 
+The project's own runs (``gate_phases``, after phase 51):
+
+56. ``yaml_configs``: every ``configs/**/*.yaml`` read by the port's reader
+    (``schemanet_torch/utils/config.py``) with PyYAML refused in this
+    process, as on a machine without it: each parses to a mapping; the
+    count;
+57. ``gates``: ``sh tools/ab_graph_precision_torch.sh`` then ``sh
+    tools/ab_atlas_moments_torch.sh`` as subprocesses at the JAX gates'
+    recipe (CIFAR-100-scale synthetic data: stage 0 from scratch, 3 epochs
+    at batch 256; stage 1 at 400,000 features, bf16; export; init; stage 4
+    at batch 64, 3 epochs, 96 steps an arm, seed 0; ``training.max_keep``
+    1, so an arm keeps two 1.29 GB checkpoints, and the graph-precision
+    gate's checkpoint files go before the moments gate runs) under a work
+    directory deleted afterwards: exit code 0 for every stage and script,
+    every artifact the scripts check, top-1 ``|default - highest| <=
+    0.005``, ``|bf16 - fp32| <= 0.005`` (fp32: the ``default`` arm), the
+    ``default`` arm at least 0.10 top-1, ``eval_worker`` on the ``default``
+    arm's best checkpoint equal to its final eval's counts; the factored
+    arm reported. A line an arm (top-1, top-5, steps, stage-4 seconds) and
+    one with the seconds of stages 0-3. No kernel is added: the stages
+    launch those phase 32 counts, in their own processes.
+
 The kernels line gains ``ffn_block_relu``, ``fused_mlp_relu`` and
 ``fused_mlp_bwd_relu`` (phase 47's times, phase 48's launches).
 
@@ -620,7 +643,8 @@ head-mean variant: stage 3's launches, timed at stage 3's batch of 32.
 
 Usage: python3 chip_smoke.py; ``python3 chip_smoke.py --grid`` runs phases
 1-2, 40-42 and 52 alone, on the cards present (a rank of phases 41-42 and 52
-runs it as ``chip_smoke.py --grid-rank DIR``)
+runs it as ``chip_smoke.py --grid-rank DIR``); ``python3 chip_smoke.py
+--gates`` runs phases 1-2, 56 and 57 alone
 """
 
 from __future__ import annotations
@@ -782,7 +806,7 @@ W_EPOCHS, W_VAL_INTERVAL, W_PRINT, S0W_STEPS = 2, 15, 5, 5
 # ImageNet (phases 24-30): configs/imagenet/schema_net/deit_small-l9-M_8000.yaml
 # with its model configs/models/deit_small_patch16_224.yaml, and
 # configs/imagenet/vanilla/deit_{small,base}.yaml, as the workers read them
-# (inline: the card's machine has no PyYAML); the dataset block
+# (inline); the dataset block
 # {name: synthetic, num_classes: 1000, image_size: 224} (no ImageNet file is
 # in the repository: 224^2 images shipped as they are, no resize)
 IN_CLASSES, IN_CODES, IN_VMAX, IN_GNN, IN_FP32_CLASSES = 1000, 8000, 500, 1024, 100
@@ -5535,9 +5559,109 @@ def saved_features_phase(feats, init_state, card_note: dict) -> dict:
     return {"seconds": seconds}
 
 
-def main(grid_only: bool = False) -> None:
+GATE_SCRIPTS = ("tools/ab_graph_precision_torch.sh", "tools/ab_atlas_moments_torch.sh")
+GATE_TIMEOUT_S = {"tools/ab_graph_precision_torch.sh": 600, "tools/ab_atlas_moments_torch.sh": 300}
+GATE_GAP, GATE_FLOOR = 0.005, 0.10  # within 0.5 pt of top-1; ten times chance at K 100
+GATE_EXTRA = "-o training.max_keep=1"  # a checkpoint's retention, not the recipe
+
+
+def yaml_configs_phase(card_note: dict) -> int:
+    """Phase 56: every shipped YAML config through the port's reader, with
+    PyYAML refused in this process; the count."""
+    import importlib.util
+
+    from schemanet_torch.utils.config import get_cfg
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = sorted(os.path.relpath(os.path.join(d, f), root)
+                   for d, _, files in os.walk(os.path.join(root, "configs"))
+                   for f in files if f.endswith(".yaml"))
+    t0 = time.perf_counter()
+    with mock.patch.dict(sys.modules, {"yaml": None}):  # any import of PyYAML now raises
+        read = {path: get_cfg(os.path.join(root, path)) for path in paths}
+    seconds = time.perf_counter() - t0
+    mappings = sum(isinstance(cfg, dict) and bool(cfg) for cfg in read.values())
+    phase("yaml_configs", files=len(paths), mappings=mappings, seconds=seconds,
+          pyyaml_installed=importlib.util.find_spec("yaml") is not None, **card_note)
+    require(paths and mappings == len(paths),
+            f"{len(paths) - mappings} of {len(paths)} shipped configs did not read to a mapping")
+    return len(paths)
+
+
+def gate_phases(card_note: dict) -> dict:
+    """Phases 56-57: the shipped YAML, then the two accuracy gates at the JAX
+    recipe (``GATE_SCRIPTS``), each a subprocess, under a work directory
+    deleted afterwards; returns each phase's seconds."""
+    seconds = {}
+    t0 = time.perf_counter()
+    yaml_configs_phase(card_note)
+    seconds["56_yaml_configs"] = time.perf_counter() - t0
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_gates_")
+    run = os.path.join(work, "ab")
+    env = dict(os.environ, AB_RUN=run, AB_EXTRA=GATE_EXTRA, PYTHON=sys.executable)
+    verdicts = {}
+    try:
+        for script in GATE_SCRIPTS:
+            t0 = time.perf_counter()
+            proc = subprocess.run(["sh", script], cwd=root, env=env, capture_output=True,
+                                  text=True, timeout=GATE_TIMEOUT_S[script])
+            took = time.perf_counter() - t0
+            lines = [line for line in proc.stdout.splitlines() if line.startswith('{"gate"')]
+            verdict = json.loads(lines[-1]) if lines else {}
+            name = verdict.get("gate", script)
+            verdicts[name] = verdict
+            seconds[f"57_{name}"] = took
+            phase("gate", script=script, exit_code=proc.returncode, seconds=took,
+                  final_eval_lines=[line for line in proc.stdout.splitlines()
+                                    if ": final eval: " in line and " cli INFO" not in line],
+                  verdict=verdict, stdout_tail="" if proc.returncode == 0 else proc.stdout[-3000:],
+                  stderr_tail="" if proc.returncode == 0 else proc.stderr[-3000:], **card_note)
+            require(proc.returncode == 0 and verdict.get("pass") is True,
+                    f"{script}: exit code {proc.returncode}, verdict {verdict.get('pass')}")
+            require(all(s["exit_code"] == 0 for s in verdict["stages"].values()),
+                    f"{script}: a stage failed ({verdict['stages']})")
+            if name == "graph_precision":
+                arms = verdict["arms"]
+                require(set(arms) == {"default", "highest"}, f"graph_precision arms {set(arms)}")
+                require(abs(arms["highest"]["top1"] - arms["default"]["top1"]) <= GATE_GAP,
+                        f"graph_precision: |default - highest| top-1 > {GATE_GAP} ({arms})")
+                require(arms["default"]["top1"] >= GATE_FLOOR,
+                        f"graph_precision: the default arm under {GATE_FLOOR} top-1 ({arms})")
+                ev = verdict["eval_worker"]
+                require(ev["equal"] and ev["counts"] == ev["final_eval_counts"],
+                        f"eval_worker on the default arm's best checkpoint: {ev}")
+                for arm in ("default", "highest"):  # the moments gate reads only their logs
+                    ckpt = os.path.join(run, f"schema_{arm}", "ckpt")
+                    for f in os.listdir(ckpt):
+                        if f.endswith(".pt"):
+                            os.remove(os.path.join(ckpt, f))
+            else:
+                arms = verdict["arms"]
+                require(set(arms) == {"fp32", "bf16", "factored"}, f"atlas_moments arms {arms}")
+                require(abs(arms["bf16"]["top1"] - arms["fp32"]["top1"]) <= GATE_GAP,
+                        f"atlas_moments: |bf16 - fp32| top-1 > {GATE_GAP} ({arms})")
+                require(arms["fp32"]["top1"] >= GATE_FLOOR,
+                        f"atlas_moments: the fp32 arm under {GATE_FLOOR} top-1 ({arms})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    stages = verdicts["atlas_moments"]["stages"]
+    for gate, verdict in verdicts.items():
+        for arm, r in verdict["arms"].items():
+            log = {"default": "schema_default", "fp32": "schema_default",
+                   "highest": "schema_highest"}.get(arm, f"schema_mom_{arm}")
+            phase("gate_arm", gate=gate, arm=arm, role=r["role"], top1=r["top1"], top5=r["top5"],
+                  steps=r["steps"], gap=r.get("gap"), verdict=r["verdict"],
+                  stage4_seconds=stages[log]["seconds"], **card_note)
+    first = {k: stages[k]["seconds"] for k in ("vanilla", "extract", "export", "init")}
+    phase("gate_stages", seconds=first, stages_0_3=sum(first.values()),
+          eval_worker=stages["eval_default"]["seconds"], **card_note)
+    return seconds
+
+
+def main(grid_only: bool = False, gates_only: bool = False) -> None:
     """Every phase; ``grid_only``: phases 1-2 and 40-42, with the grid's
-    kernel rows."""
+    kernel rows; ``gates_only``: phases 1-2, 56 and 57."""
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script measures the GPU and nothing else")
@@ -5660,6 +5784,13 @@ def main(grid_only: bool = False) -> None:
         require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in tc_ptxas.values()),
                 f"a kernel of {source} ({tag}) spills to local memory")
 
+    if gates_only:
+        gates = gate_phases(card_note)
+        phase("gate_seconds", total=sum(gates.values()), **gates, **card_note)
+        phase("total", seconds=time.perf_counter() - t_start, **card_note)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
     if grid_only:
         grid = run_grid_phases(dev, card_note)
         phase("total", seconds=time.perf_counter() - t_start, **card_note)
@@ -6968,6 +7099,11 @@ def main(grid_only: bool = False) -> None:
     torch.cuda.empty_cache()
     zoo = zoo_phases(dev, card_note)
 
+    # 56-57. the project's own runs: the shipped YAML configs, then the two
+    # accuracy gates at the JAX recipe, each stage a subprocess
+    torch.cuda.empty_cache()
+    gates = gate_phases(card_note)
+
     # the least time the card could take for the timed work of each kernel
     def conv_work(args, bwd=False):
         e, f_ = args[0], args[1]
@@ -7192,6 +7328,7 @@ def main(grid_only: bool = False) -> None:
             "worker_launches": {},
         })
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
+    phase("gate_seconds", total=sum(gates.values()), **gates)
     phase("zoo_seconds", total=sum(zoo["seconds"].values()), **zoo["seconds"])
     phase("quant_seconds", total=sum(quant["seconds"].values()), **quant["seconds"])
     phase("imagenet_seconds", total=sum(imagenet["seconds"].values()), **imagenet["seconds"])
@@ -7206,4 +7343,4 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--grid-rank"]:  # a rank of phases 41-42, spawned by grid_phases
         grid_rank_main(sys.argv[2])
     else:
-        main(grid_only=sys.argv[1:] == ["--grid"])
+        main(grid_only=sys.argv[1:] == ["--grid"], gates_only=sys.argv[1:] == ["--gates"])

@@ -12,10 +12,12 @@ Subcommands, with the JAX CLI's flags and defaults and one more, ``--device``
     serve    (microbatched predict; --explain, --out .npz, --graph-sample GraphML)
 
 Run as ``python -m schemanet_torch.cli <subcommand> ...``. Configs are YAML
-(read with PyYAML) or JSON (read without it). ``--quant-int8`` (``extract``,
-``serve``) runs the backbone's W8A8 route (``ops/quant.py``). Flags the port
-cannot honour yet raise ``SystemExit`` naming their ROADMAP item:
-``--save-features`` and ``--saved-features-fp`` (A9).
+(the port's reader, ``utils/config.py``, with PyYAML's typing and without
+PyYAML) or JSON. ``scripts/torch/*.sh``, ``tools/parity_run_torch.sh`` and
+the accuracy gates ``tools/ab_*_torch.sh`` run the stages through this
+module. ``--quant-int8`` (``extract``, ``serve``) runs the backbone's W8A8
+route (``ops/quant.py``); ``--save-features`` and ``--saved-features-fp``
+dump and cluster features through h5py.
 
 Several GPUs (``train``, ``extract``, ``init``): ``--mesh-data D
 --mesh-model M`` runs a ``D x M`` grid (``parallel/mesh.py``), one process a

@@ -1,11 +1,11 @@
 """The port's command line against the JAX package's, on the CPU: the
 parser's subcommands, flags and defaults (``--device`` added), the config
-helpers on the same inputs, JSON configs without PyYAML, the unported flags,
-the whole stage chain ``train -> extract -> export -> init -> train
-schema_net_worker -> serve --explain --out --graph-sample`` with ``--device
-cpu`` at a tiny size, and the grid flags: ``train`` and ``extract`` with
-``--mesh-data 2 --device cpu`` (two gloo ranks the command line spawns)
-against one process, a grid larger than the GPUs present, and
+helpers on the same inputs, YAML and JSON configs without PyYAML, the
+unported flags, the whole stage chain ``train -> extract -> export -> init ->
+train schema_net_worker -> serve --explain --out --graph-sample`` with
+``--device cpu`` at a tiny size, and the grid flags: ``train`` and
+``extract`` with ``--mesh-data 2 --device cpu`` (two gloo ranks the command
+line spawns) against one process, a grid larger than the GPUs present, and
 ``--multi-host`` without ``torchrun``'s rendezvous."""
 
 import json
@@ -82,29 +82,25 @@ def test_config_helpers_match_jax(tmp_path):
 
 
 def test_json_configs_without_pyyaml(tmp_path):
-    """With PyYAML missing: a JSON config loads (the JAX loader reads the same
-    file), overrides are read as JSON, a YAML config and a non-JSON value
-    raise."""
+    """With PyYAML missing: a shipped YAML config loads equal to the JAX
+    loader's dict, override values are typed as YAML types them (``1e-3``
+    and ``x`` strings), and a JSON config still loads."""
     cfg = {"dataset": {"name": "synthetic"}, "training": {"lr": 0.001, "groups": [1, 2]}}
     (tmp_path / "cfg.json").write_text(json.dumps(cfg))
-    (tmp_path / "cfg.yaml").write_text("a: 1\n")
+    shipped = str(REPO / "configs" / "synthetic" / "schema_net" / "deit_tiny-l9-M_128.yaml")
     assert jax_config.get_cfg(str(tmp_path / "cfg.json")) == cfg
+    want_yaml = jax_config.get_cfg(shipped)
+    want_o = jax_config.parse_override_strings(["a.b=1e-3", 'c="x"', "d=true", "e=x"])
+    assert want_o == {"a.b": "1e-3", "c": "x", "d": True, "e": "x"}
     script = textwrap.dedent(f"""
         import sys
         sys.modules["yaml"] = None
         from schemanet_torch.utils import config
         root = {str(tmp_path)!r}
         assert config.get_cfg(root + "/cfg.json") == {cfg!r}
-        assert config.parse_override_strings(['a.b=1e-3', 'c="x"', 'd=true']) == {{
-            "a.b": 1e-3, "c": "x", "d": True}}
-        for bad, err in ((lambda: config.get_cfg(root + "/cfg.yaml"), ImportError),
-                         (lambda: config.parse_override_strings(["c=x"]), ValueError)):
-            try:
-                bad()
-            except err as exc:
-                assert "PyYAML" in str(exc), exc
-            else:
-                raise AssertionError("no error")
+        assert config.get_cfg({shipped!r}) == {want_yaml!r}
+        assert config.parse_override_strings(['a.b=1e-3', 'c="x"', 'd=true', 'e=x']) == {want_o!r}
+        assert "yaml" not in sys.modules or sys.modules["yaml"] is None
         print("ok")
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,

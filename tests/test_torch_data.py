@@ -164,3 +164,18 @@ def test_device_prefetch_on_cpu():
     import threading
 
     assert not any(t.name == "device_prefetch" and t.is_alive() for t in threading.enumerate())
+
+
+@pytest.mark.parametrize("num_samples,image_size,classes", [(21, 32, 5), (128, 17, 7),
+                                                            (129, 8, 3)])
+@pytest.mark.parametrize("split", ["train", "val"])
+def test_synthetic_bulk_build_equals_jax(num_samples, image_size, classes, split):
+    """The bulk build (chunks of noise from one stream, a class's pattern
+    once, the sums in threads) gives the JAX ``build_synthetic``'s images
+    bit for bit, at sizes that end inside, at and past a chunk."""
+    cfg = {"name": "synthetic", "num_classes": classes, "num_samples": num_samples,
+           "image_size": image_size}
+    got, want = get_dataset(cfg, split), jax_get_dataset(cfg, split)
+    np.testing.assert_array_equal(got.images, want.images)
+    np.testing.assert_array_equal(got.labels, want.labels)
+    assert got.classes == want.classes and got.images.dtype == np.uint8
