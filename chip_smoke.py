@@ -381,8 +381,11 @@ of ``tests/fixtures/jpeg/``; the decode route is named on each line):
     decode ms;
 35. ``crop_resize`` against its plain version on that batch at 224^2, with
     train (RandomResizedCrop + flip), val, identity and edge boxes (windows
-    past the image's edges): every differing byte one level off at a .5
-    tie (counted), the same bits over two calls; its time;
+    past the image's edges), the train boxes at outputs of 129 and 300,
+    windows 16x their output (at 28^2, most past the photos' edges) and
+    upscaled windows (56 wide to 224, some flipped): every differing byte
+    one level off at a .5 tie (counted), the same bits over two calls; its
+    time;
 36. the image-folder loader on a fake ImageNet tree (1000 class folders of
     6 training and 1 validation photo, hard links in a temporary
     directory): images/s of 20 training batches (two epochs) and of the
@@ -442,10 +445,12 @@ The int8 (W8A8) route of the frozen backbone (``ops/quant.py``;
     fp32 weights) and ``int8_gemm`` (with bias, bf16 and fp32 out) against
     their plain versions, bit for bit, at every projection of DeiT-Tiny,
     -Small and -Base (in and out 192/576/768, 384/1152/1536, 768/2304/3072)
-    on 12,608 and 1,000 rows, with ``max |int8 route - dense| / max
-    |dense|`` a case as a note; then each projection of DeiT-Small timed in
-    bf16 beside its plain version, its bound, ``torch._int_mm`` on the same
-    operands (the int32 product alone) and the bf16 ``F.linear`` (notes);
+    on 12,608, 1,000, 129 and 1 rows, with ``max |int8 route - dense| / max
+    |dense|`` a case as a note; then each of the 12 projections timed in
+    bf16 (event ms and profiled device ms) beside its plain version, its
+    bound, ``torch._int_mm`` on the same operands (the int32 product alone)
+    and the bf16 ``F.linear`` (notes), the profiled kernel names showing
+    ``int8_gemm_wg_kernel`` at each (and at 1 and 129 rows);
 44. ``imagenet_serve_int8``: phase 25's stage-4 predictor (K 1000, M 8000,
     V_max 500, GNN 1024 x 2) through ``ServePredictor(quant_int8=True)``:
     a microbatch of 64 is 40 ``int8_gemm``, 80 ``quantize_rows``, 20 + 4
@@ -600,7 +605,11 @@ The kernels line gains ``ffn_block_relu``, ``fused_mlp_relu`` and
 The kernels line gains ``quantize_rows`` and ``int8_gemm`` (replacing XLA's
 int8 ``dot_general``, no Pallas kernel), timed at DeiT-Small's qkv
 projection of a serving microbatch, launches from phase 44, ``library_ms``
-of ``int8_gemm`` the ``torch._int_mm`` product.
+of ``int8_gemm`` the ``torch._int_mm`` product. The rows of ``int8_gemm``
+and ``crop_resize`` carry ``parent_ms``: with ``SCHEMANET_SMOKE_PARENT=<an
+unpacked older checkout>`` the time of that checkout's kernel on the same
+card and shapes (``kernel_times.py --quant --imagepipe`` run there), else
+null.
 
 The kernels line adds the class graphs' kernels at a model-2 rank's shard:
 ``sym_conv[_bwd]_shard``, ``fused_layernorm[_bwd]_shard_d1024``,
@@ -2985,6 +2994,7 @@ def imagefolder_phases(dev, work_dir: str, card_note: dict, path_launches: dict)
     from schemanet_torch.data.augment import get_crop_params_fn
     from schemanet_torch.data.datasets import get_dataset, make_partial
     from schemanet_torch.data.loader import DataLoader, build_loaders, device_prefetch
+    from schemanet_torch.kernel_times import photo_batch, ycc_batch
     from schemanet_torch.models.vit import get_model
     from schemanet_torch.ops import kmeans
     from schemanet_torch.ops.kernels import attention as ak
@@ -3049,23 +3059,14 @@ def imagefolder_phases(dev, work_dir: str, card_note: dict, path_launches: dict)
     # a batch of 64 of the ImageNet-sized photos (4:2:0, sizes in their
     # names), as random pixels and planes: crop_resize with the training
     # crop parameters, ycc_to_rgb
-    photo_hw = [tuple(int(v) for v in photos[i % len(photos)][:-5].split("_")[-1].split("x"))[
-        ::-1] for i in range(BATCH)]
-    pix_off = np.cumsum([0] + [h * w * 3 for h, w in photo_hw])
-    rand_pixels = torch.randint(0, 256, (int(pix_off[-1]),), generator=g, dtype=torch.uint8).to(dev)
-    rrc = get_crop_params_fn("imagenet", "train")
-    crop_train = np.asarray([(pix_off[j], h, w, *rrc((h, w, 3), np.random.default_rng(1000 + j)))
-                             for j, (h, w) in enumerate(photo_hw)], np.int64)
+    photo_hw, crop_train, n_bytes = photo_batch(BATCH)
+    rand_pixels = torch.randint(0, 256, (n_bytes,), generator=g, dtype=torch.uint8).to(dev)
     window_bytes = int((crop_train[:, 5] * crop_train[:, 6] * 3).sum())
     time_row("crop_resize", (0, window_bytes + BATCH * IMG * IMG * 3, "float32"),
              lambda: ipk.crop_resize(rand_pixels, crop_train, IMG),
              lambda: ipk.crop_resize_reference(rand_pixels, crop_train, IMG), 2,
              images=BATCH, out=IMG, window_bytes=window_bytes)
-    ycc_meta, at, out_at = [], 0, 0
-    for h, w in photo_hw:
-        ch, cw = -(-h // 2), -(-w // 2)
-        ycc_meta.append((at, at + h * w, at + h * w + ch * cw, h, w, cw, ch, 2, 2, out_at))
-        at, out_at = at + h * w + 2 * ch * cw, out_at + h * w * 3
+    ycc_meta, at, out_at = ycc_batch(photo_hw)
     rand_planes = torch.randint(0, 256, (at,), generator=g, dtype=torch.uint8).to(dev)
     if route == jpeg.NVJPEG:
         time_row("ycc_to_rgb", (0, at + out_at, "float32"),
@@ -3227,21 +3228,36 @@ def imagefolder_phases(dev, work_dir: str, card_note: dict, path_launches: dict)
     edge_boxes = [lambda h, w: (0, 0, h, w, 1), lambda h, w: (-4, -4, h, w, 0),
                   lambda h, w: (h - 7, w - 9, 7, 9, 1), lambda h, w: (0, w - 1, h, 1, 0),
                   lambda h, w: (h // 2, 0, h - h // 2 + 5, w + 3, 1)]
-    crop_tables = {"train": table(get_crop_params_fn("imagenet", "train")),
-                   "val": table(get_crop_params_fn("imagenet", "val")),
-                   "identity": table(lambda shape, rng: (0, 0, shape[0], shape[1], False)),
-                   "edges": table(edge_boxes)}
+    # the path's tables at 224^2, then other geometries: outputs of 129 and
+    # 300 (a partial column tile and a partial band), windows 16x the output
+    # (at IMG // 8: 448-pixel windows, most past the photo's edges), and
+    # upscaled windows (IMG // 4 wide, 4x), some flipped
+    small, up = IMG // 8, IMG // 4
+    wide_boxes = [lambda h, w: ((h - 16 * small) // 2, (w - 16 * small) // 2, 16 * small,
+                                16 * small, 0),
+                  lambda h, w: (-5, -7, 16 * small, 16 * small, 1)]
+    up_boxes = [lambda h, w: (h // 3, w // 5, up, up, 1), lambda h, w: (0, 0, up // 2, up, 0),
+                lambda h, w: (-3, w - up + 5, up, up // 3, 1)]
+    train_crop = get_crop_params_fn("imagenet", "train")
+    crop_tables = {"train": (table(train_crop), IMG),
+                   "val": (table(get_crop_params_fn("imagenet", "val")), IMG),
+                   "identity": (table(lambda shape, rng: (0, 0, shape[0], shape[1], False)), IMG),
+                   "edges": (table(edge_boxes), IMG),
+                   "train_out129": (table(train_crop), 129),
+                   "train_out300": (table(train_crop), 300),
+                   "window16x": (table(wide_boxes), small),
+                   "upscaled": (table(up_boxes), IMG)}
     crop_report = {}
     host_pixels = photo_pixels.cpu()
-    for tag, crop in crop_tables.items():
-        got = ipk.crop_resize(photo_pixels, crop, IMG)
-        again = ipk.crop_resize(photo_pixels, crop, IMG)
-        u = ipk.crop_resize_values(host_pixels, crop, IMG)
+    for tag, (crop, out_) in crop_tables.items():
+        got = ipk.crop_resize(photo_pixels, crop, out_)
+        again = ipk.crop_resize(photo_pixels, crop, out_)
+        u = ipk.crop_resize_values(host_pixels, crop, out_)
         want = u.clamp(0.0, 255.0).to(torch.uint8)
         diff = (got.cpu().int() - want.int()).abs()
         off = diff > 0
         at_ties = bool(((u - u.round()).abs()[off] <= 1e-4).all())
-        crop_report[tag] = {"bytes": got.numel(), "differ": int(off.sum()),
+        crop_report[tag] = {"out": out_, "bytes": got.numel(), "differ": int(off.sum()),
                             "differ_at_ties_only": at_ties, "max_diff": int(diff.max()),
                             "run_to_run_bitwise": bool(torch.equal(got, again))}
         errors["crop_resize"] = max(errors.get("crop_resize", 0.0), float(diff.max()))
@@ -4317,6 +4333,7 @@ def grid_phases(dev, work_dir: str, card_note: dict) -> dict:
 # DeiT-Base, and the rows of a serving microbatch (64 x 197) and of 1,000
 QUANT_WIDTHS = (192, 384, 768)
 QUANT_ROWS = (MICROBATCH * (L_INST + 1), 1000)
+QUANT_EDGE_ROWS = (1, 129)  # a single row, and a partial tile past a whole one
 QUANT_REPLACES = "schemanet_tpu/ops/quant.py (XLA int8 dot_general; no Pallas kernel)"
 # tests/test_quant.py's drift bounds: mid-feature relative error, per-token
 # cosine, the ViT classifier's argmax agreement
@@ -4422,7 +4439,7 @@ def quant_phases(dev, card_note: dict, stage1: dict, device_images) -> dict:
             wq, ws = qk.quantize_rows(w)
             want_wq, want_ws = qk.quantize_rows_reference(w)
             w_same = torch.equal(wq, want_wq) and torch.equal(ws, want_ws)
-            for n_rows in QUANT_ROWS:
+            for n_rows in QUANT_ROWS + QUANT_EDGE_ROWS:
                 x32 = rnd(n_rows, k)
                 for dt in (torch.bfloat16, torch.float32):
                     x = x32.to(dt)
@@ -4449,38 +4466,65 @@ def quant_phases(dev, card_note: dict, stage1: dict, device_images) -> dict:
     require(bitwise, "quantize_rows or int8_gemm differs from its plain version: "
             + json.dumps([c for c in cases if not (c["weight_bitwise"] and c["x_bitwise"]
                                                    and c["y_bitwise"])][:4]))
-    # times at DeiT-Small's projections, a serving microbatch in bf16
-    timed = {}
-    for name, n, k in projections(384):
-        x = rnd(QUANT_ROWS[0], k).to(torch.bfloat16)
-        w, b = rnd(n, k, scale=k**-0.5), rnd(n, scale=0.02)
-        xq, xs = qk.quantize_rows(x)
-        wq, ws = qk.quantize_rows(w)
-        y = qk.int8_gemm(xq, wq, xs, ws, b, torch.bfloat16)
-        wt, w16, b16 = wq.t(), w.to(torch.bfloat16), b.to(torch.bfloat16)
-        q_ops, q_bytes = quantize_work(x)
-        g_ops, g_bytes = int8_gemm_work(xq, wq, y)
-        timed[name] = {
-            "shape": [QUANT_ROWS[0], n, k],
-            "quantize_rows_ms": time_ms(lambda: qk.quantize_rows(x), TIME_ITERS),
-            "quantize_rows_plain_ms": time_ms(lambda: qk.quantize_rows_reference(x), TIME_ITERS),
-            "quantize_rows_bound": least_ms(q_ops, q_bytes, "float32"),
-            "quantize_weight_ms": time_ms(lambda: qk.quantize_rows(w), TIME_ITERS),
-            "int8_gemm_ms": time_ms(lambda: qk.int8_gemm(xq, wq, xs, ws, b, torch.bfloat16),
-                                    TIME_ITERS),
-            "int8_gemm_plain_ms": time_ms(
-                lambda: qk.int8_gemm_reference(xq, wq, xs, ws, b, torch.bfloat16), TIME_ITERS),
-            "int8_gemm_bound": least_ms(g_ops, g_bytes, "int8"),
-            # the library's int32 product alone (no epilogue), and the bf16
-            # product the route stands in for: notes
-            "int_mm_ms": time_ms(lambda: torch._int_mm(xq, wt), TIME_ITERS),
-            "bf16_linear_ms": time_ms(lambda: torch.nn.functional.linear(x, w16, b16),
-                                      TIME_ITERS),
-        }
-        phase("kernel_time", kernel="int8_route", projection=name, dtype="bfloat16",
-              **timed[name], **card_note)
-        del x, xq, y, wq
-    qkv = timed["qkv"]
+    # times at every projection of the three widths, a serving microbatch
+    # in bf16; the profiled kernel names of each (and of one row and 129
+    # rows at qkv): the wgmma kernel at every shape
+    timed, names_seen = {}, {}
+
+    def int8_names(fn):
+        """The kernel names of fn's calls, from profiles of 5 calls and, where
+        the profiler came back empty five times, of 20 (short sessions have
+        come back empty)."""
+        return kernel_names(fn) or kernel_names(fn, 20)
+
+    for d in QUANT_WIDTHS:
+        for name, n, k in projections(d):
+            tag = f"{name}_d{d}"
+            x = rnd(QUANT_ROWS[0], k).to(torch.bfloat16)
+            w, b = rnd(n, k, scale=k**-0.5), rnd(n, scale=0.02)
+            xq, xs = qk.quantize_rows(x)
+            wq, ws = qk.quantize_rows(w)
+            y = qk.int8_gemm(xq, wq, xs, ws, b, torch.bfloat16)
+            wt, w16, b16 = wq.t(), w.to(torch.bfloat16), b.to(torch.bfloat16)
+            q_ops, q_bytes = quantize_work(x)
+            g_ops, g_bytes = int8_gemm_work(xq, wq, y)
+            gemm = lambda: qk.int8_gemm(xq, wq, xs, ws, b, torch.bfloat16)  # noqa: E731
+            timed[tag] = {
+                "shape": [QUANT_ROWS[0], n, k],
+                "quantize_rows_ms": time_ms(lambda: qk.quantize_rows(x), TIME_ITERS),
+                "quantize_rows_plain_ms": time_ms(lambda: qk.quantize_rows_reference(x),
+                                                  TIME_ITERS),
+                "quantize_rows_bound": least_ms(q_ops, q_bytes, "float32"),
+                "quantize_weight_ms": time_ms(lambda: qk.quantize_rows(w), TIME_ITERS),
+                "int8_gemm_ms": time_ms(gemm, TIME_ITERS),
+                "int8_gemm_device_ms": device_ms_of(gemm),
+                "int8_gemm_plain_ms": time_ms(
+                    lambda: qk.int8_gemm_reference(xq, wq, xs, ws, b, torch.bfloat16),
+                    TIME_ITERS),
+                "int8_gemm_bound": least_ms(g_ops, g_bytes, "int8"),
+                # the library's int32 product alone (no epilogue), and the
+                # bf16 product the route stands in for: notes
+                "int_mm_ms": time_ms(lambda: torch._int_mm(xq, wt), TIME_ITERS),
+                "int_mm_device_ms": device_ms_of(lambda: torch._int_mm(xq, wt)),
+                "bf16_linear_ms": time_ms(lambda: torch.nn.functional.linear(x, w16, b16),
+                                          TIME_ITERS),
+            }
+            names_seen[tag] = int8_names(gemm)
+            if tag == "qkv_d384":
+                for few in QUANT_EDGE_ROWS:
+                    fq, fs = qk.quantize_rows(x[:few])
+                    names_seen[f"{tag}_rows{few}"] = int8_names(
+                        lambda: qk.int8_gemm(fq, wq, fs, ws, b, torch.bfloat16))
+            phase("kernel_time", kernel="int8_route", projection=tag, dtype="bfloat16",
+                  **timed[tag], **card_note)
+            del x, xq, y, wq, gemm
+    on_wgmma = all(any("int8_gemm_wg_kernel" in nm for nm in names)
+                   and not any("int8_gemm_kernel" in nm for nm in names)
+                   for names in names_seen.values())
+    phase("int8_gemm_kernel_names", on_wgmma=on_wgmma,
+          names={tag: [nm for nm in names if "int8" in nm] for tag, names in names_seen.items()})
+    require(on_wgmma, f"int8_gemm ran another kernel than int8_gemm_wg_kernel: {names_seen}")
+    qkv = timed["qkv_d384"]
     rows["quantize_rows"] = {"ms": qkv["quantize_rows_ms"], "plain_ms": qkv["quantize_rows_plain_ms"],
                              "bound_ms": qkv["quantize_rows_bound"][0],
                              "bound_by": qkv["quantize_rows_bound"][1], "library_ms": None,
@@ -5659,6 +5703,30 @@ def gate_phases(card_note: dict) -> dict:
     return seconds
 
 
+PARENT_ENV = "SCHEMANET_SMOKE_PARENT"  # an unpacked older checkout: its kernels timed beside
+
+
+def parent_times(card_note: dict) -> dict:
+    """{row: ms} of the kernels line's rows that carry a parent's time
+    (``int8_gemm`` at DeiT-Small's qkv, ``crop_resize``), timed in the older
+    checkout that ``SCHEMANET_SMOKE_PARENT`` names: this checkout's
+    ``kernel_times.py --quant --imagepipe``, dropped into it, runs from its
+    root in a process of its own (its kernels built there) on this card. {}
+    without the variable."""
+    root = os.environ.get(PARENT_ENV)
+    if not root:
+        return {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    shutil.copyfile(os.path.join(here, "schemanet_torch", "kernel_times.py"),
+                    os.path.join(root, "schemanet_torch", "kernel_times.py"))
+    proc = subprocess.run([sys.executable, "-m", "schemanet_torch.kernel_times", "--quant",
+                           "--imagepipe"], cwd=root, capture_output=True, text=True, timeout=900)
+    require(proc.returncode == 0, f"the parent's kernel_times failed: {proc.stderr[-3000:]}")
+    rows = json.loads(proc.stdout.strip().splitlines()[-1])["kernel_times"]
+    phase("parent_times", root=root, rows=rows, **card_note)
+    return {"int8_gemm": rows["int8_gemm_qkv_d384"]["ms"], "crop_resize": rows["crop_resize"]["ms"]}
+
+
 def main(grid_only: bool = False, gates_only: bool = False) -> None:
     """Every phase; ``grid_only``: phases 1-2 and 40-42, with the grid's
     kernel rows; ``gates_only``: phases 1-2, 56 and 57."""
@@ -5751,7 +5819,9 @@ def main(grid_only: bool = False, gates_only: bool = False) -> None:
     # 1024 wide (4 moment-type pairs x 4-column pieces at 4 and 8 a lane,
     # 1-column pieces at 16 and 32) and adamw_rows_block_kernel past them
     # (4 pairs). quant.cu (phase 43): quantize_rows_kernel at 6 pieces a
-    # lane in 2 dtypes, int8_gemm_kernel in 2 output dtypes. The FFN
+    # lane in 2 dtypes, int8_gemm_wg_kernel at 2 tile widths in 2 output
+    # dtypes; imagepipe.cu: crop_resize_kernel on its 3 coefficient routes
+    # (registers, shared tables, per tap). The FFN
     # kernels that compute the activation are instances for it (ffn.cuh
     # ffn_act): bf16 forwards for gelu, relu and the run-time
     # code (x3), bf16 backwards for gelu and relu (x2), fp32 ones for gelu and
@@ -5775,7 +5845,8 @@ def main(grid_only: bool = False, gates_only: bool = False) -> None:
                                ("atlas_opt.cu", "adamw_rows_warp", 16),
                                ("atlas_opt.cu", "adamw_rows_block", 4),
                                ("quant.cu", "quantize_rows_kernel", 12),
-                               ("quant.cu", "int8_gemm_kernel", 2)):
+                               ("quant.cu", "int8_gemm_wg_kernel", 4),
+                               ("imagepipe.cu", "crop_resize_kernel", 3)):
         tc_ptxas = {name: dict(zip(("registers", "spill_stores", "spill_loads"), r))
                     for name, r in ptxas_report(build_log, source).items() if tag in name}
         phase("ptxas", source=source, tag=tag, kernels=tc_ptxas)
@@ -7269,6 +7340,9 @@ def main(grid_only: bool = False, gates_only: bool = False) -> None:
         "fused_mhsa_d768": ("attention.cu", "schemanet_tpu/ops/pallas/attention.py:162"),
         "fused_mhsa_bwd_d768": ("attention.cu", "schemanet_tpu/ops/pallas/attention.py:216"),
     }
+    parent = parent_times(card_note)
+    parent_note = (f"the parent's kernel in {os.environ[PARENT_ENV]}, this card, kernel_times.py "
+                   "--quant --imagepipe" if parent else f"not measured: no {PARENT_ENV}")
     for name, (source, tpu_site) in folder_rows.items():
         if name not in folder["rows"]:  # ycc_to_rgb runs on the nvJPEG route alone
             continue
@@ -7278,6 +7352,8 @@ def main(grid_only: bool = False, gates_only: bool = False) -> None:
             "replaces": tpu_site, "launches": r["launches"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "worker_launches": {},
+            **({"parent_ms": parent.get(name), "parent_note": parent_note}
+               if name == "crop_resize" else {}),
         })
     # phases 41's rows: the class graphs' kernels at a model-2 rank's shard
     # (K 500), launches from its bf16 steps
@@ -7310,6 +7386,8 @@ def main(grid_only: bool = False, gates_only: bool = False) -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **({"library_note": r["library_note"]} if "library_note" in r else {}),
             "worker_launches": {},
+            **({"parent_ms": parent.get(name), "parent_note": parent_note}
+               if name == "int8_gemm" else {}),
         })
     # phases 47-48's rows: the FFN kernels with relu (a config that names no
     # activation), timed at DeiT-Small's widths in bf16, launches from phase

@@ -30,16 +30,29 @@
 //     4 (fp32) or 8 (bf16) codes a piece: the row leaves device memory once.
 //   * int8_gemm: at the serving shapes, bytes too. At DeiT-Small's qkv
 //     (12,608 x 1,152 x 384) the products are 11.2 GOP (5.6 us at 1,979
-//     TOP/s), while the bf16 output alone is 29 MB (8.7 us). The first design
-//     is the simple one: 128 x 128 output tiles a block of 8 warps (each
-//     64 x 32), k in stages of 64 bytes double-buffered by cp.async,
-//     ldmatrix of 16-byte rows into mma.sync m16n8k32 s8 fragments (the
-//     int8 k32 fragment is the bf16 k16 one read as bytes, so the bf16
-//     fragment loaders of common.cuh serve), the epilogue from registers.
-//     A TMA-fed wgmma design with a fused gelu or quantise epilogue is later
-//     work.
+//     TOP/s), while the bf16 output alone is 29 MB (8.7 us); at DeiT-Base's
+//     fc2 (k 3,072) the products bound it. The design is gemm.cuh's
+//     gemm_wg_kernel for int8: a persistent block an SM, a producer
+//     warpgroup keeping TMA loads of a's and w's k stages (128 bytes of k,
+//     the 128-byte swizzle; tma_map_i8) in flight through a ring with full
+//     and empty mbarriers, and two consumer warpgroups on
+//     wgmma.mma_async m64nBNk32 s32.s8.s8 (both operands K-major, the only
+//     layout wgmma takes for 8-bit types and the one nn.Linear's weight has;
+//     a k32 step is 32 bytes, as a bf16 k16 step). The tile is 128 x 96 or
+//     128 x 192 (int8_tile_bn: the fewest rounds of persistent blocks). The
+//     output write sets the bound, so the epilogue runs on the fragments in
+//     registers (its column values from shared memory), puts the outputs in
+//     shared memory, and writes y from there in whole 16-byte chunks along
+//     its rows while the warpgroup's products of its next tile run (the
+//     products alone take half the kernel's time at qkv or less on an H100
+//     SXM at 700 W: tools/kernel_variants_torch.py int8). TMA fills rows, n and
+//     k past their ends with zeros and the epilogue masks, so any rows, any
+//     n >= 1 and k a multiple of 32 are taken.
+//     (The first design, mma.sync m16n8k32 on 128 x 128 tiles a block fed
+//     by two cp.async stages of 64 bytes, ran at 20% of the byte bound at
+//     qkv and behind torch._int_mm on the same card.)
 
-#include "common.cuh"
+#include "gemm.cuh"
 
 namespace sn {
 
@@ -141,143 +154,259 @@ cudaError_t quantize_rows_t(const void* x, void* q, void* scale, long rows, int 
 constexpr int kQuantMaxRow = 3072;  // 24 pieces of 4 fp32 a lane
 
 // ---------------------------------------------------------------------------
-// int8_gemm: 128 x 128 tiles, 8 warps of 64 x 32, k in stages of 64 bytes
+// int8_gemm: persistent blocks, a TMA ring of k stages, wgmma s8
 // ---------------------------------------------------------------------------
-constexpr int kI8BM = 128, kI8BN = 128, kI8BK = 64;
-constexpr int kI8Pitch = kI8BK + 16;  // bytes: the 8 rows of an ldmatrix fall on distinct banks
-constexpr int kI8WarpsM = 2, kI8WarpsN = 4;
-constexpr int kI8MT = kI8BM / kI8WarpsM / 16;  // m16 tiles a warp: 4
-constexpr int kI8NT = kI8BN / kI8WarpsN / 8;   // n8 tiles a warp: 4
-static_assert(kI8WarpsM * kI8WarpsN * 32 == kThreads, "a block is 8 warps");
-
-// c += a b: A 16 x 32 (row), B 32 x 8 (col), s8 in, s32 accumulated (exact)
-__device__ __forceinline__ void mma16832_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                            uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows [r0, r0 + 128) and bytes [k0, k0 + 64) of a K-major int8 matrix into a
-// [128][kI8Pitch] tile, 16 bytes a copy; rows past `nrows` read as zeros
-__device__ __forceinline__ void stage_i8(int8_t* tile, const int8_t* __restrict__ src, long r0,
-                                         long nrows, int k0, int K) {
-#pragma unroll
-  for (int i = 0; i < (kI8BM * kI8BK / 16) / kThreads; ++i) {
-    const int id = threadIdx.x + kThreads * i;
-    const int r = id / (kI8BK / 16), chunk = id % (kI8BK / 16);
-    const long gr = r0 + r;
-    const int gk = k0 + 16 * chunk;
-    const bool in = gr < nrows && gk < K;
-    cp_async16(tile + r * kI8Pitch + 16 * chunk, in ? src + gr * K + gk : src, in ? 16 : 0);
-  }
-}
+constexpr int kI8Consumers = 2;          // consumer warpgroups, 64 rows each
+constexpr int kI8BM = 64 * kI8Consumers;  // rows of a tile
+constexpr int kI8BK = 128;               // k a stage: one 128-byte swizzled row
+constexpr int kI8Threads = 128 * (kI8Consumers + 1);
+constexpr int kMaxSmem = 232448;  // the dynamic shared memory a block may ask for on an H100
 
 template <typename OutT>
-__device__ __forceinline__ void store_pair(OutT* y, long r, int c, int n, float v0, float v1);
+struct Out2;  // two adjacent outputs into shared memory, and 16 bytes of y
 
 template <>
-__device__ __forceinline__ void store_pair<float>(float* y, long r, int c, int n, float v0,
-                                                  float v1) {
-  float* p = y + r * n + c;
-  if (c + 1 < n && n % 2 == 0) {
+struct Out2<float> {
+  static __device__ __forceinline__ void put(uint8_t* p, float v0, float v1) {
     *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-  } else {
-    p[0] = v0;
-    if (c + 1 < n) p[1] = v1;
   }
-}
+  static __device__ __forceinline__ void one(float* y, const uint8_t* p) {
+    *y = *reinterpret_cast<const float*>(p);
+  }
+};
 
 template <>
-__device__ __forceinline__ void store_pair<bf16>(bf16* y, long r, int c, int n, float v0,
-                                                 float v1) {
-  bf16* p = y + r * n + c;
-  if (c + 1 < n && n % 2 == 0) {
+struct Out2<bf16> {
+  static __device__ __forceinline__ void put(uint8_t* p, float v0, float v1) {
     *reinterpret_cast<uint32_t*>(p) = pack_bf16(v0, v1);
-  } else {
-    p[0] = __float2bfloat16(v0);
-    if (c + 1 < n) p[1] = __float2bfloat16(v1);
   }
+  static __device__ __forceinline__ void one(bf16* y, const uint8_t* p) {
+    *y = *reinterpret_cast<const bf16*>(p);
+  }
+};
+
+template <int BN, typename OutT>
+struct I8Smem {
+  static constexpr int kA = kI8BM * kI8BK;  // 16 KB: 128 rows of a's k stage
+  static constexpr int kB = BN * kI8BK;     // BN rows of w's
+  static constexpr int kStage = kA + kB;
+  // a consumer warpgroup's finished tile: 64 rows of BN outputs, padded by
+  // 16 bytes a row (bf16) or 32 (fp32) so that the 4- or 8-byte fragment
+  // stores of a warp (8 rows x 4 pairs) fall on distinct banks, then the
+  // tile's w_scale and bias (BN each) and a_scale (64)
+  static constexpr int kPitch = BN * (int)sizeof(OutT) + 8 * (int)sizeof(OutT);
+  static constexpr int kOutRows = 64 * kPitch;
+  static constexpr int kOut = (kOutRows + 2048 + 1023) / 1024 * 1024;
+  static constexpr int kRoom = (kMaxSmem - 256 - 1024 - kI8Consumers * kOut) / kStage;
+  static constexpr int kStages = kRoom < 6 ? kRoom : 6;
+  static constexpr int kBytes = kStages * kStage + kI8Consumers * kOut + 1024;
+  static_assert(kStage % 1024 == 0, "stages stay 1024-byte aligned");
+  static_assert(kPitch % 16 == 0, "rows of whole 16-byte chunks");
+  static_assert(kStages >= 2, "a ring of two stages at least");
+};
+
+__device__ __forceinline__ void consumer_sync(int cw) {  // the 128 threads of warpgroup 1 + cw
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
-    int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
-                     const float* __restrict__ as, const float* __restrict__ ws,
-                     const float* __restrict__ bias, OutT* __restrict__ y, long rows, int n,
-                     int K) {
-  __shared__ __align__(128) int8_t sa[2][kI8BM * kI8Pitch];
-  __shared__ __align__(128) int8_t sb[2][kI8BN * kI8Pitch];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wm = warp / kI8WarpsN, wn = warp % kI8WarpsN;
-  const long m0 = (long)blockIdx.x * kI8BM;
-  const int n0 = blockIdx.y * kI8BN;
-  int acc[kI8MT][kI8NT][4];
-#pragma unroll
-  for (int i = 0; i < kI8MT; ++i)
-#pragma unroll
-    for (int j = 0; j < kI8NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  const int nk = (K + kI8BK - 1) / kI8BK;
-  stage_i8(sa[0], a, m0, rows, 0, K);
-  stage_i8(sb[0], w, n0, n, 0, K);
-  cp_async_commit();
-  constexpr int pitch = kI8Pitch / 2;  // in the 2-byte units of the bf16 fragment loaders
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      stage_i8(sa[(kt + 1) & 1], a, m0, rows, (kt + 1) * kI8BK, K);
-      stage_i8(sb[(kt + 1) & 1], w, n0, n, (kt + 1) * kI8BK, K);
+// One persistent block an SM walks the output tiles (kI8BM x BN, n fastest,
+// so the blocks in flight share their rows of a). Warpgroup 0 is the
+// producer: one thread keeps TMA loads of a's and w's k stages in flight
+// through the ring (a full and an empty mbarrier a stage). Consumer
+// warpgroup cw multiplies rows 64 cw.. of the tile by wgmma m64nBNk32 s8,
+// then runs the epilogue on its fragments in registers (the tile's scales
+// and bias, loaded while the products ran, from shared memory; the plain
+// version's operations in its order) and puts the outputs in its own shared
+// buffer. The buffer goes to y while the warpgroup's products of the next
+// tile run, a share of its 16-byte chunks after each k stage's wgmma is
+// issued. `vec`: y's rows are whole 16-byte chunks (n sizeof(OutT) a
+// multiple of 16, y aligned); else element stores.
+template <int BN, typename OutT>
+__global__ void __launch_bounds__(kI8Threads, 1)
+    int8_gemm_wg_kernel(const __grid_constant__ CUtensorMap ta,
+                        const __grid_constant__ CUtensorMap tw, const float* __restrict__ as,
+                        const float* __restrict__ ws, const float* __restrict__ bias,
+                        OutT* __restrict__ y, int rows, int n, int K, int vec) {
+  using S = I8Smem<BN, OutT>;
+  constexpr int E = 16 / (int)sizeof(OutT);     // outputs a chunk
+  constexpr int kChunks = 64 * (BN / E) / 128;  // a thread's chunks of a finished tile
+  static_assert((64 * (BN / E)) % 128 == 0, "whole chunks a thread");
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[S::kStages], empty[S::kStages];
+  uint8_t* smem = ring_base(smem_raw);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int n_tiles = (n + BN - 1) / BN;
+  const int tiles = (rows + kI8BM - 1) / kI8BM * n_tiles, steps = (K + kI8BK - 1) / kI8BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kI8Consumers);  // one arrival a consumer warpgroup
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* ta = reinterpret_cast<const bf16*>(sa[kt & 1]);
-    const bf16* tb = reinterpret_cast<const bf16*>(sb[kt & 1]);
-#pragma unroll
-    for (int ks = 0; ks < kI8BK / 32; ++ks) {
-      uint32_t fa[kI8MT][4], fb[kI8NT / 2][4];
-#pragma unroll
-      for (int i = 0; i < kI8MT; ++i) ldsm_a(fa[i], ta, pitch, wm * 64 + i * 16, ks * 16, lane);
-#pragma unroll
-      for (int j = 0; j < kI8NT / 2; ++j)
-        ldsm_b_nk(fb[j], tb, pitch, wn * 32 + j * 16, ks * 16, lane);
-#pragma unroll
-      for (int i = 0; i < kI8MT; ++i)
-#pragma unroll
-        for (int j = 0; j < kI8NT; ++j)
-          mma16832_s8(acc[i][j], fa[i], fb[j / 2][(j & 1) * 2], fb[j / 2][(j & 1) * 2 + 1]);
-    }
-    __syncthreads();
+    mbar_init_fence();
   }
-
-  // epilogue: lane holds rows lane/4 and lane/4 + 8, columns 2 (lane % 4) + 0, 1
-#pragma unroll
-  for (int j = 0; j < kI8NT; ++j) {
-    const int c = n0 + wn * 32 + j * 8 + 2 * (lane % 4);
-    if (c >= n) continue;
-    const bool c1 = c + 1 < n;
-    const float w0 = ws[c], w1 = c1 ? ws[c + 1] : 0.f;
-    const float b0 = bias ? bias[c] : 0.f, b1 = bias && c1 ? bias[c + 1] : 0.f;
-#pragma unroll
-    for (int i = 0; i < kI8MT; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long r = m0 + wm * 64 + i * 16 + lane / 4 + 8 * h;
-        if (r >= rows) continue;
-        const float x = as[r];
-        float v0 = __fmul_rn(__int2float_rn(acc[i][j][2 * h]), __fmul_rn(x, w0));
-        float v1 = __fmul_rn(__int2float_rn(acc[i][j][2 * h + 1]), __fmul_rn(x, w1));
-        if (bias) {
-          v0 = __fadd_rn(v0, b0);
-          v1 = __fadd_rn(v1, b1);
-        }
-        store_pair<OutT>(y, r, c, n, v0, v1);
+  __syncthreads();
+  if (wg == 0) {  // producer
+    regs_dec<kHgProducerRegs>();
+    if (tid != 0) return;
+    Ring<S::kStages> ring;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int n0 = (t % n_tiles) * BN, m0 = (t / n_tiles) * kI8BM;
+      for (int s = 0; s < steps; ++s, ring.next()) {
+        mbar_wait(&empty[ring.stage], ring.phase ^ 1);
+        uint8_t* st = smem + ring.stage * S::kStage;
+        mbar_arrive_expect(&full[ring.stage], S::kStage);
+        tma_load(st, &ta, &full[ring.stage], s * kI8BK, m0);
+        tma_load(st + S::kA, &tw, &full[ring.stage], s * kI8BK, n0);
       }
     }
+    return;
   }
+  regs_inc<HgRegs<kI8Consumers>::kConsumer>();
+  const int cw = wg - 1, warp = tid / 32, lane = tid % 32;
+  uint8_t* staged = smem + S::kStages * S::kStage + cw * S::kOut;
+  float* col_w = reinterpret_cast<float*>(staged + S::kOutRows);
+  float* col_b = col_w + BN;
+  float* row_a = col_b + BN;
+  long pm0 = -1;  // the finished tile's first row (-1: none) and column
+  int pn0 = 0;
+
+  // chunk i of this thread's share of the finished tile, to y
+  const auto emit = [&](int i) {
+    const int id = tid + 128 * i;
+    const int rl = id / (BN / E), cl = (id % (BN / E)) * E;
+    const long r = pm0 + rl;
+    const int c = pn0 + cl;
+    if (r >= rows || c >= n) return;
+    const uint8_t* src = staged + rl * S::kPitch + cl * (int)sizeof(OutT);
+    OutT* out = y + r * n + c;
+    if (vec && c + E <= n) {
+      *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < E && c + e < n; ++e)
+        Out2<OutT>::one(out + e, src + e * (int)sizeof(OutT));
+    }
+  };
+
+  Ring<S::kStages> ring;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int n0 = (t % n_tiles) * BN, m0 = (t / n_tiles) * kI8BM + cw * 64;
+    // this tile's scales and bias, loaded now, put in shared memory after
+    // its products
+    float pre_w[2], pre_b[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int cl = tid + 128 * q, c = n0 + cl;
+      const bool in = cl < BN && c < n;
+      pre_w[q] = in ? ws[c] : 0.f;
+      pre_b[q] = in && bias ? bias[c] : 0.f;
+    }
+    const float pre_a = tid < 64 && m0 + tid < rows ? as[m0 + tid] : 0.f;
+    int acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    wg_fence_regs(acc);
+    int held = -1;  // the stage whose products may still be in flight
+    for (int s = 0; s < steps; ++s, ring.next()) {
+      mbar_wait(&full[ring.stage], ring.phase);
+      const uint8_t* a_s = smem + ring.stage * S::kStage + cw * 64 * kI8BK;
+      const uint8_t* w_s = smem + ring.stage * S::kStage + S::kA;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kI8BK / 32; ++kk)
+        wgmma_s8<BN>(acc, wg_desc(a_s + kk * 32, 16, 1024), wg_desc(w_s + kk * 32, 16, 1024));
+      wg_commit();
+      if (pm0 >= 0)  // the finished tile's share for this stage, under the products
+        for (int i = s * kChunks / steps; i < (s + 1) * kChunks / steps; ++i) emit(i);
+      wg_wait<1>();  // the previous stage's products are done: release it
+      if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);
+      held = ring.stage;
+    }
+    wg_wait<0>();
+    if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);
+    wg_fence_regs(acc);
+
+    // the epilogue: the previous tile's epilogue read the column values
+    // before its last sync, and its chunks are all written
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      if (tid + 128 * q < BN) {
+        col_w[tid + 128 * q] = pre_w[q];
+        col_b[tid + 128 * q] = pre_b[q];
+      }
+    if (tid < 64) row_a[tid] = pre_a;
+    consumer_sync(cw);
+    // thread t holds rows 16 warp + lane / 4 (+ 8) and columns 8 j +
+    // 2 (lane % 4) (+ 1)
+    const int rl = warp * 16 + lane / 4;
+    const float x0 = row_a[rl], x1 = row_a[rl + 8];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int cl = 8 * j + 2 * (lane % 4);
+      const float2 wv = *reinterpret_cast<const float2*>(col_w + cl);
+      const float2 bv = *reinterpret_cast<const float2*>(col_b + cl);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float x = h ? x1 : x0;
+        float v0 = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), __fmul_rn(x, wv.x));
+        float v1 = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), __fmul_rn(x, wv.y));
+        if (bias) {
+          v0 = __fadd_rn(v0, bv.x);
+          v1 = __fadd_rn(v1, bv.y);
+        }
+        Out2<OutT>::put(staged + (rl + 8 * h) * S::kPitch + cl * (int)sizeof(OutT), v0, v1);
+      }
+    }
+    consumer_sync(cw);
+    pm0 = m0;
+    pn0 = n0;
+  }
+  if (pm0 >= 0)
+    for (int i = 0; i < kChunks; ++i) emit(i);
+}
+
+// The tile width for a rows x n product: of 96 and 192 columns (each n of
+// the paths is a multiple of 192), the one with the fewest rounds of kSms
+// persistent blocks times (columns + 32), the 32 standing for a tile's fixed
+// cost (fill and epilogue), as gemm_tile; a tie goes to 192.
+inline int int8_tile_bn(long rows, int n) {
+  int best = 96;
+  long best_cost = -1;
+  static const int widths[] = {96, 192};
+  for (const int bn : widths) {
+    const long tiles = (rows + kI8BM - 1) / kI8BM * ((n + bn - 1) / bn);
+    const long cost = (tiles + kSms - 1) / kSms * (bn + 32);
+    if (best_cost < 0 || cost <= best_cost) {
+      best = bn;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <int BN, typename OutT>
+cudaError_t int8_gemm_launch(const int8_t* a, const int8_t* w, const float* as, const float* ws,
+                             const float* bias, OutT* y, long rows, int n, int k,
+                             cudaStream_t stream) {
+  using S = I8Smem<BN, OutT>;
+  CUtensorMap ta, tw;
+  cudaError_t err = tma_map_i8(&ta, a, rows, k, kI8BM);
+  if (err == cudaSuccess) err = tma_map_i8(&tw, w, n, k, BN);
+  if (err == cudaSuccess) err = allow_smem(int8_gemm_wg_kernel<BN, OutT>, S::kBytes);
+  if (err != cudaSuccess) return err;
+  const long tiles = (rows + kI8BM - 1) / kI8BM * ((n + BN - 1) / BN);
+  const int grid = (int)(tiles < sm_count() ? tiles : sm_count());
+  const int vec = (n * (int)sizeof(OutT)) % 16 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  int8_gemm_wg_kernel<BN, OutT><<<grid, kI8Threads, S::kBytes, stream>>>(
+      ta, tw, as, ws, bias, y, (int)rows, n, k, vec);
+  return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t int8_gemm_t(const int8_t* a, const int8_t* w, const float* as, const float* ws,
+                        const float* bias, OutT* y, long rows, int n, int k, cudaStream_t s) {
+  if (int8_tile_bn(rows, n) == 96)
+    return int8_gemm_launch<96, OutT>(a, w, as, ws, bias, y, rows, n, k, s);
+  return int8_gemm_launch<192, OutT>(a, w, as, ws, bias, y, rows, n, k, s);
 }
 
 }  // namespace sn
@@ -305,22 +434,17 @@ int sn_int8_gemm(int out_dtype, const void* a, const void* w, const void* a_scal
                  void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  if (k <= 0 || k % 32 || n <= 0 || !aligned(a) || !aligned(w)) return cudaErrorInvalidValue;
+  if (k <= 0 || k % 32 || n <= 0 || rows < 0 || rows > INT32_MAX || !aligned(a) || !aligned(w))
+    return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
-  const dim3 grid((unsigned)((rows + sn::kI8BM - 1) / sn::kI8BM),
-                  (unsigned)((n + sn::kI8BN - 1) / sn::kI8BN));
   const auto ap = static_cast<const int8_t*>(a);
   const auto wp = static_cast<const int8_t*>(w);
   const auto asp = static_cast<const float*>(a_scale);
   const auto wsp = static_cast<const float*>(w_scale);
   const auto bp = static_cast<const float*>(bias);
   if (out_dtype == sn::kF32)
-    sn::int8_gemm_kernel<float><<<grid, sn::kThreads, 0, s>>>(ap, wp, asp, wsp, bp,
-                                                              static_cast<float*>(y), rows, n, k);
-  else
-    sn::int8_gemm_kernel<sn::bf16><<<grid, sn::kThreads, 0, s>>>(
-        ap, wp, asp, wsp, bp, static_cast<sn::bf16*>(y), rows, n, k);
-  return cudaGetLastError();
+    return sn::int8_gemm_t(ap, wp, asp, wsp, bp, static_cast<float*>(y), rows, n, k, s);
+  return sn::int8_gemm_t(ap, wp, asp, wsp, bp, static_cast<sn::bf16*>(y), rows, n, k, s);
 }
 
 }  // extern "C"

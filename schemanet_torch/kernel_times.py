@@ -78,13 +78,19 @@ the port: from that checkout's root, ``python -m schemanet_torch.kernel_times``
 int8 route's rows; ``--ffn``: only the FFN kernels with gelu and relu at
 192, 384 and 768; ``--notes``: ``embed_grad`` beside ``index_add_`` at a
 model-2 rank's ImageNet class lookup and the fp32 ``attn_block`` at 384
-beside its library calls). Prints the card's name and power limit, then
-one JSON line.
+beside its library calls; ``--imagepipe``: ``crop_resize`` and
+``ycc_to_rgb`` on chip_smoke.py phase 34's batch of 64 photo-sized images;
+flags add up). To time a change beside its parent in one call, unpack the
+parent with ``git archive`` into a directory that ``.gitignore`` lists,
+copy this file into its ``schemanet_torch/``, and run the module from each
+root in turns (parent, change, change, parent). Prints the card's name and
+power limit, then one JSON line.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 
@@ -407,6 +413,55 @@ def _quant_rows(dev: torch.device, rnd, widths=(192, 384, 768)) -> dict:
     return out
 
 
+FIXTURES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests",
+                        "fixtures", "jpeg")
+
+
+def photo_batch(batch: int = 64):
+    """(image sizes [(h, w)], crop table [batch, 8], packed bytes) of
+    chip_smoke.py phase 34's timed batch: ``batch`` images of the photo
+    fixtures' sizes (their names, cycled in order), packed, each with
+    ImageNet's training crop (RandomResizedCrop and flip) drawn by
+    ``numpy.random.default_rng(1000 + j)``."""
+    from .data.augment import get_crop_params_fn
+
+    photos = sorted(f for f in os.listdir(FIXTURES) if f.startswith("photo_"))
+    sizes = [tuple(int(v) for v in photos[i % len(photos)][:-5].split("_")[-1].split("x"))[::-1]
+             for i in range(batch)]
+    offsets = np.cumsum([0] + [h * w * 3 for h, w in sizes])
+    rrc = get_crop_params_fn("imagenet", "train")
+    crop = np.asarray([(offsets[j], h, w, *rrc((h, w, 3), np.random.default_rng(1000 + j)))
+                       for j, (h, w) in enumerate(sizes)], np.int64)
+    return sizes, crop, int(offsets[-1])
+
+
+def ycc_batch(sizes):
+    """(meta [n, 10], plane bytes, output bytes) of 4:2:0 files of these
+    sizes, packed as nvJPEG's planes are: ``ycc_to_rgb``'s timed input."""
+    meta, at, out_at = [], 0, 0
+    for h, w in sizes:
+        ch, cw = -(-h // 2), -(-w // 2)
+        meta.append((at, at + h * w, at + h * w + ch * cw, h, w, cw, ch, 2, 2, out_at))
+        at, out_at = at + h * w + 2 * ch * cw, out_at + h * w * 3
+    return meta, at, out_at
+
+
+def _imagepipe_rows(dev: torch.device, rnd) -> dict:
+    """The image pipeline's kernels on phase 34's batch (``photo_batch``,
+    random pixels): ``crop_resize`` to 224^2 and ``ycc_to_rgb`` of the same
+    sizes' 4:2:0 planes."""
+    from .ops.kernels import imagepipe as ipk
+
+    g = torch.Generator().manual_seed(34)
+    sizes, crop, total = photo_batch()
+    pixels = torch.randint(0, 256, (total,), generator=g, dtype=torch.uint8).to(dev)
+    meta, n_planes, out_at = ycc_batch(sizes)
+    planes = torch.randint(0, 256, (n_planes,), generator=g, dtype=torch.uint8).to(dev)
+    return {"crop_resize": {**_both(lambda: ipk.crop_resize(pixels, crop, 224)),
+                            "window_bytes": int((crop[:, 5] * crop[:, 6] * 3).sum())},
+            "ycc_to_rgb": _both(lambda: ipk.ycc_to_rgb(planes, meta, out_at))}
+
+
 def _adamw_rows(dev: torch.device, rnd, bf16_rows: bool = False) -> dict:
     """``adamw_project_rows`` on the CIFAR class graphs' edge weights
     ([102,400, 1024], fp32 moments), and with ``bf16_rows`` on the ImageNet
@@ -610,8 +665,8 @@ def _note_rows(dev: torch.device, rnd) -> dict:
 
 
 def main() -> None:
-    """``python -m schemanet_torch.kernel_times [--widths | --quant | --ffn |
-    --notes]``:
+    """``python -m schemanet_torch.kernel_times [--widths] [--quant] [--ffn]
+    [--notes] [--imagepipe]``:
     every row, or with ``--widths`` only ``_width_rows`` (the frozen layer
     halves at 384 and 768, the wide ``fused_mlp`` forward and backward, both
     ``adamw_project_rows`` rows), which a copy of this file dropped into an
@@ -620,7 +675,9 @@ def main() -> None:
     with gelu and relu at 192, 384 and 768 (``_activation_rows``; an older
     checkout's refuse relu), or with ``--notes`` only ``_note_rows``
     (``embed_grad`` beside ``index_add_`` at a model-2 rank's ImageNet class
-    lookup, the fp32 ``attn_block`` at 384 beside its library calls)."""
+    lookup, the fp32 ``attn_block`` at 384 beside its library calls), with
+    ``--imagepipe`` only ``crop_resize`` and ``ycc_to_rgb`` on chip_smoke.py
+    phase 34's batch; flags add up."""
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -629,7 +686,7 @@ def main() -> None:
     print(smi.splitlines()[0], flush=True)
     dev = torch.device("cuda")
     chosen = {"--widths": _width_rows, "--quant": _quant_rows, "--ffn": _activation_rows,
-              "--notes": _note_rows}
+              "--notes": _note_rows, "--imagepipe": _imagepipe_rows}
     picked = [flag for flag in chosen if flag in sys.argv[1:]]
     if picked:
         g = torch.Generator().manual_seed(0)
@@ -637,7 +694,9 @@ def main() -> None:
         def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
             return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
 
-        rows = chosen[picked[0]](dev, rnd)
+        rows = {}
+        for flag in picked:
+            rows.update(chosen[flag](dev, rnd))
     else:
         rows = measure(dev)
     print(json.dumps({"kernel_times": rows, "card": smi.splitlines()[0]}), flush=True)

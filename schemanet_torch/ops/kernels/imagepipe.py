@@ -90,6 +90,17 @@ def _check_crop(crop: np.ndarray, n_pixels: int, out: int) -> None:
         raise ValueError(f"crop_resize: out {out} or batch {len(crop)} out of range")
 
 
+def tap_bound(crop_len: np.ndarray, out: int) -> int:
+    """A bound of the taps of any output along an axis of windows
+    ``crop_len`` long resized to ``out``: the kernel's coefficient tables
+    hold this many a column (a row). The span floor(c + s + .5) -
+    floor(c - s + .5) is at most floor(2 s) + 2 with fp64's rounding of c
+    +- s; the clamp to 16 pixels past the window caps it at crop + 32."""
+    crop_len = np.asarray(crop_len, np.int64)
+    support = np.maximum(crop_len.astype(np.float64) / out, 1.0)
+    return int(np.minimum(np.floor(2 * support) + 3, crop_len + 32).max())
+
+
 def _crop_table(crop) -> np.ndarray:
     if torch.is_tensor(crop):
         crop = crop.cpu().numpy()
@@ -153,7 +164,8 @@ def crop_resize(pixels: torch.Tensor, crop, out: int) -> torch.Tensor:
     meta = torch.from_numpy(table).pin_memory().to(pixels.device, non_blocking=True)
     dst = torch.empty(len(table), out, out, 3, dtype=torch.uint8, device=pixels.device)
     err = _build.library().sn_crop_resize(pixels.data_ptr(), meta.data_ptr(), dst.data_ptr(),
-                                          len(table), out, _stream())
+                                          len(table), out, tap_bound(table[:, 6], out),
+                                          tap_bound(table[:, 5], out), _stream())
     _build.check(err, "crop_resize")
     meta.record_stream(torch.cuda.current_stream(pixels.device))
     _counted.launches += 1

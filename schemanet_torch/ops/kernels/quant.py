@@ -16,9 +16,10 @@ bounds them on the card and how their design answers it):
 * ``int8_gemm(a, w, a_scale, w_scale, bias, out_dtype)``: ``y[r, c] =
   cast(float(sum_k a[r, k] w[c, k]) * (a_scale[r] * w_scale[c]) + bias[c])``
   with int8 a [rows, k] and w [n, k] (both K-major: ``nn.Linear``'s
-  layout is already the ``col`` operand of ``mma.sync ... s8.s8.s32``), the
+  layout is already the operand layout ``wgmma ... s32.s8.s8`` takes), the
   sum exact in int32, the epilogue in fp32 in that order, the output in fp32
-  or bf16.
+  or bf16. Persistent blocks, a TMA-fed ring of k stages, 128 x 96 or
+  128 x 192 tiles by the shape, y written in 16-byte chunks.
 
 Both kernels are bit for bit their plain versions: the codes come from the
 same IEEE divisions and the same rounding, the int32 sums are exact, and the
@@ -46,7 +47,7 @@ from .encoder_block import _DTYPES, _check, _require_cuda, _stream, count_shape
 QMAX = 127
 SCALE_FLOOR = 1e-12
 _MAX_ROW = 3072  # csrc/quant.cu kQuantMaxRow: a warp holds a row of up to 3072 values
-_K_STEP = 32  # mma.sync m16n8k32: k in steps of 32 bytes
+_K_STEP = 32  # wgmma m64nNk32 s8: k in steps of 32 bytes
 
 
 def quantize_rows_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -91,7 +92,7 @@ def check_row_width(dtype: torch.dtype, k: int) -> None:
 
 def check_k(k: int) -> None:
     """Raises unless ``int8_gemm``'s kernel takes this contraction width: a
-    positive multiple of 32 (the ``mma`` k step)."""
+    positive multiple of 32 (the ``wgmma`` k step)."""
     if k < 1 or k % _K_STEP:
         raise ValueError(f"int8_gemm takes k a multiple of {_K_STEP}, got {k}")
 

@@ -19,7 +19,10 @@ decodable ones, ``tools/make_jpeg_fixtures.py`` wrote them).
   of an integer (a .5 tie: the C++ filter, built with ``-ffast-math``,
   fuses multiply-adds that the port rounds twice), over the train (RRC +
   flip), val, identity and CIFAR padding parameters and boxes at the
-  image's edges; its first cases measured 384 such bytes in 18.3M.
+  image's edges, and the card's band kernel's edges (outputs of 1, 129 and
+  300, windows 16x the output, upscaled windows, windows past both edges,
+  flips); its first cases measured 384 such bytes in 18.3M.
+  ``tap_bound`` holds every tap count of the plain version's taps.
 
 Decoding tests skip where libjpeg's header is missing; the JAX comparisons
 need ``native/libimagepipe.so``.
@@ -221,10 +224,25 @@ def _crop_cases():
         im = pixels[name]
         boxes = _edge_boxes(*im.shape[:2])
         cases.append(([im] * len(boxes), boxes, 45))
+    # the card's band kernel at its edges: outputs of 1, 129 and 300 (a
+    # partial column tile, a partial band), windows 16x the output, upscaled
+    # windows, windows past both edges, flips
+    photo, odd, tall = pixels["s420_500x375"], pixels["s420_odd_127x129"], pixels["s420_tall_75x240"]
+    h, w = photo.shape[:2]
+    rng = np.random.default_rng(99)
+    rrc = [jax_augment._params_rrc_train(photo.shape, rng) for _ in range(2)]
+    past = [(-7, -9, h + 14, w + 18, True), (-3, w - 40, 60, 70, False)]
+    for out in (1, 129, 300):
+        cases.append(([photo] * 4 + [odd], rrc + past + [(0, 0, 129, 127, out % 2 == 1)], out))
+    cases.append(([photo, photo, tall], [(10, 30, 320, 320, True), (-30, -40, 320, 320, False),
+                                         (-60, -100, 320, 320, True)], 20))  # 16x
+    cases.append(([photo, odd, tall, photo],
+                  [(100, 200, 30, 40, True), (0, 0, 129, 127, False), (5, 3, 11, 9, True),
+                   (h - 20, w - 12, 28, 17, False)], 224))  # upscaled, past the far edges
     return cases
 
 
-@pytest.mark.parametrize("case", range(28))
+@pytest.mark.parametrize("case", range(33))
 def test_crop_resize_reference_matches_jax_native(native, case):
     images, params, out = _crop_cases()[case]
     flat, offsets = _pack(images)
@@ -238,6 +256,22 @@ def test_crop_resize_reference_matches_jax_native(native, case):
         assert np.abs(diff).max() <= 1
         off = diff != 0
         assert (np.abs(u[b] - np.round(u[b]))[off] <= TIE).all(), "a difference off a .5 tie"
+
+
+@pytest.mark.parametrize("out", [1, 2, 7, 37, 129, 224, 300])
+def test_tap_bound_holds_every_count(out):
+    """The kernel's coefficient tables hold ``tap_bound`` taps a column: at
+    least every output's tap count of the plain version's taps (which are
+    the kernel's), over windows from 1 pixel to 40x the output, at offsets
+    past the image's edges."""
+    rng = np.random.default_rng(out)
+    crops = np.unique(np.concatenate([np.arange(1, 64), rng.integers(1, 40 * out + 2, 300),
+                                      [out, 2 * out, 16 * out, 16 * out + 1]]))
+    for crop in crops.tolist():
+        start = int(rng.integers(-50, 50))
+        j, _, valid = ip._taps(start, crop, out)
+        assert valid.sum(axis=1).max() <= ip.tap_bound(np.array([crop]), out), (crop, start)
+    assert ip.tap_bound(np.array([3, 900, 40]), 224) == ip.tap_bound(np.array([900]), 224)
 
 
 def test_crop_resize_rejects_bad_tables():

@@ -743,19 +743,40 @@ def _ragged(g, shapes):
     return torch.cat([im.reshape(-1) for im in images]), offsets
 
 
-@pytest.mark.parametrize("out", [224, 37])
+@pytest.mark.parametrize("out", [224, 37, 1, 129, 300])
 def test_crop_resize_kernel(dev, out):
+    """Bit for bit the plain version over a ragged batch: downscales and
+    upscales, windows past both edges, flips, at outputs that leave a
+    partial column tile (129, 300) or band of rows (37, 129, 300)."""
     g = torch.Generator().manual_seed(out)
-    shapes = [(375, 500), (9, 17), (1, 1), (500, 333), (32, 32), (64, 640)]
+    shapes = [(375, 500), (9, 17), (1, 1), (500, 333), (32, 32), (64, 640), (40, 50), (20, 30)]
     flat, offsets = _ragged(g, shapes)
     boxes = [(30, 40, 300, 400, 1), (0, 0, 9, 17, 0), (0, 0, 1, 1, 1), (100, 0, 292, 333, 0),
-             (-4, 3, 32, 32, 1), (0, 600, 64, 40, 1)]
+             (-4, 3, 32, 32, 1), (0, 600, 64, 40, 1), (-6, -8, 52, 66, 1), (3, 4, 10, 12, 0)]
     crop = torch.tensor([[o, h, w, *b] for o, (h, w), b in zip(offsets, shapes, boxes)])
     before = ipk.crop_resize.launches
     got = ipk.crop_resize(flat.to(dev), crop, out)
     again = ipk.crop_resize(flat.to(dev), crop, out)
     assert ipk.crop_resize.launches == before + 2
     assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), ipk.crop_resize_reference(flat, crop, out))
+
+
+@pytest.mark.parametrize("case", ["window16x", "chunked_rows", "no_table_x", "no_table_y"])
+def test_crop_resize_kernel_wide_windows(dev, case):
+    """The band kernel's other routes, bit for bit the plain version: a
+    window 16x its output; source rows wider than its stage buffer (taken in
+    chunks of columns); and taps too many for its coefficient tables, along
+    x and along y (each coefficient computed where it is used)."""
+    (h, w), box, out = {
+        "window16x": ((600, 640), (4, 30, 592, 592, 1), 37),
+        "chunked_rows": ((6, 4100), (1, 20, 5, 4000, 1), 8),
+        "no_table_x": ((3, 41_700), (0, 50, 3, 41_600, 0), 1),
+        "no_table_y": ((9_100, 2), (40, 0, 9_000, 2, 1), 3)}[case]
+    flat, _ = _ragged(torch.Generator().manual_seed(7), [(h, w)])
+    crop = torch.tensor([[0, h, w, *box]])
+    got = ipk.crop_resize(flat.to(dev), crop, out)
+    assert torch.equal(got, ipk.crop_resize(flat.to(dev), crop, out))
     assert torch.equal(got.cpu(), ipk.crop_resize_reference(flat, crop, out))
 
 
@@ -857,14 +878,23 @@ def test_quantize_rows_kernel(dev, dtype, rows, k):
     assert qk.quantize_rows.shape_launches.get((rows, k), 0) > 0
 
 
+# the 12 projections of DeiT-Tiny, -Small and -Base (n, k) at a single row,
+# one sequence and a serving microbatch, then ragged shapes: an odd n, k 32
+# and k a multiple of 32 but not of the kernel's 128-byte stage
+_PATH_GEMMS = [(rows, n, k) for rows in (1, 197, 12_608) for d in (192, 384, 768)
+               for n, k in ((3 * d, d), (d, d), (4 * d, d), (d, 4 * d))]
+_EDGE_GEMMS = [(1000, 384, 3072), (77, 200, 96), (5, 7, 32), (129, 130, 64), (300, 33, 32),
+               (1, 1, 32), (131, 193, 160)]
+
+
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bias", [True, False])
-@pytest.mark.parametrize("rows,n,k", [(12_608, 1152, 384), (1000, 384, 3072), (77, 200, 96),
-                                      (5, 7, 32), (129, 130, 64)])
+@pytest.mark.parametrize("rows,n,k", _PATH_GEMMS + _EDGE_GEMMS)
 def test_int8_gemm_kernel(dev, out_dtype, bias, rows, n, k):
     """Bit for bit the plain version (exact sums in float64, the fp32
-    epilogue in the same order) on ragged tiles, an odd n and k a multiple
-    of 32 but not of the kernel's 64-byte stage; |sums| past 2^24 at k 3072."""
+    epilogue in the same order) at the paths' shapes, on ragged tiles, an
+    odd n, k 32 and k a multiple of 32 but not of the kernel's 128-byte
+    stage; |sums| past 2^24 at k 3072."""
     g = torch.Generator().manual_seed(44)
     a = torch.randint(-127, 128, (rows, k), generator=g, dtype=torch.int8).to(dev)
     w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(dev)

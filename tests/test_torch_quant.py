@@ -162,6 +162,32 @@ def test_int8_dot_and_dense_match_jax_at_k_3072(bias, dtype):
     assert torch.equal(torch.matmul(x_q.reshape(-1, 3072).int(), w_q.int().t()).long(), exact)
 
 
+PROJECTIONS = [(d, name, n, k) for d in (192, 384, 768)
+               for name, n, k in (("qkv", 3 * d, d), ("out", d, d), ("fc1", 4 * d, d),
+                                  ("fc2", d, 4 * d))]
+
+
+@pytest.mark.parametrize("rows", [1, 129])
+@pytest.mark.parametrize("d,name,n,k", PROJECTIONS,
+                         ids=[f"{name}_d{d}" for d, name, _, _ in PROJECTIONS])
+def test_int8_dot_matches_jax_at_each_projection(d, name, n, k, rows):
+    """``int8_dot`` bit for bit the JAX package's at every projection of
+    DeiT-Tiny, -Small and -Base (n 576 and 192 among them), on one row and
+    on 129 (a row past a 128-row tile), bf16 activations as served, with
+    the weight's codes from ``quantize_weight`` on both sides."""
+    rng = np.random.default_rng(d * 7 + k + rows)
+    x = rng.normal(size=(rows, k)).astype(np.float32)
+    w = (rng.normal(size=(n, k)) * k ** -0.5).astype(np.float32)
+    b = (rng.normal(size=(n,)) * 0.02).astype(np.float32)
+    w_q, w_s = tq.quantize_weight(torch.from_numpy(w))
+    jw_q, jw_s = jq.quantize_weight(jnp.asarray(w.T))
+    np.testing.assert_array_equal(w_q.numpy(), np.asarray(jw_q).T)
+    got = tq.int8_dot(torch.from_numpy(x).to(torch.bfloat16), w_q, w_s, torch.from_numpy(b))
+    want = jq.int8_dot(jnp.asarray(x).astype(jnp.bfloat16), jw_q, jw_s, jnp.asarray(b))
+    assert got.shape == (rows, n) and got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
 def _jax_encode(model, params, img, end, quant, capture=()):
     return model.apply({"params": params}, jnp.asarray(img), end, method="encode_until",
                        quant=quant, capture=capture)
