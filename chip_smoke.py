@@ -375,10 +375,13 @@ of ``tests/fixtures/jpeg/``; the decode route is named on each line):
     else nvJPEG on the card with ``ycc_to_rgb``): the fixtures against their
     committed libjpeg pixels (bit for bit on the host route; within 3
     levels, mean under 0.2 a file, on nvJPEG), ``ycc_to_rgb`` bit for bit
-    its plain version, the decode bit for bit from run to run, the CMYK
-    JPEG and the PNG named ``.JPEG`` through Pillow where it is installed,
-    else raising with the file's name; a batch of 64 ImageNet-sized photos'
-    decode ms;
+    its plain version on ``decode_to_device``'s planes (the fixtures and
+    the batch below) and on a random table of every chroma mode (1-row
+    images, a 4,000-wide one, unaligned outputs; twice, equal bytes), timed
+    on the batch (events and device ms), the decode bit for bit from run to run, the
+    CMYK JPEG and the PNG named ``.JPEG`` through Pillow where it is
+    installed, else raising with the file's name; a batch of 64
+    ImageNet-sized photos' decode ms;
 35. ``crop_resize`` against its plain version on that batch at 224^2, with
     train (RandomResizedCrop + flip), val, identity and edge boxes (windows
     past the image's edges), the train boxes at outputs of 129 and 300,
@@ -605,11 +608,11 @@ The kernels line gains ``ffn_block_relu``, ``fused_mlp_relu`` and
 The kernels line gains ``quantize_rows`` and ``int8_gemm`` (replacing XLA's
 int8 ``dot_general``, no Pallas kernel), timed at DeiT-Small's qkv
 projection of a serving microbatch, launches from phase 44, ``library_ms``
-of ``int8_gemm`` the ``torch._int_mm`` product. The rows of ``int8_gemm``
-and ``crop_resize`` carry ``parent_ms``: with ``SCHEMANET_SMOKE_PARENT=<an
-unpacked older checkout>`` the time of that checkout's kernel on the same
-card and shapes (``kernel_times.py --quant --imagepipe`` run there), else
-null.
+of ``int8_gemm`` the ``torch._int_mm`` product. The rows of ``int8_gemm``,
+``crop_resize`` and ``ycc_to_rgb`` carry ``parent_ms``: with
+``SCHEMANET_SMOKE_PARENT=<an unpacked older checkout>`` the time of that
+checkout's kernel on the same card and shapes (``kernel_times.py --quant
+--imagepipe`` run there), else null.
 
 The kernels line adds the class graphs' kernels at a model-2 rank's shard:
 ``sym_conv[_bwd]_shard``, ``fused_layernorm[_bwd]_shard_d1024``,
@@ -2950,6 +2953,7 @@ IF_TRAIN_PER_CLASS, IF_VAL_PER_CLASS, IF_LOADER_BATCHES = 6, 1, 20
 IF_S3_IMAGES, IF_S3_BATCH = 2000, 32  # the CLI's init batch
 IMAGENET_TRAIN = 1_281_167
 NVJPEG_TOL = {"max_levels": 3, "mean_levels": 0.2}  # measured on the fixtures on an H100
+YCC_SPILL_BYTES = 64  # ycc_rgb_kernel's spill a thread at its 80-register cap: 24 on an H100
 IN_STAGE1_CFG = {  # configs/imagenet/ingredient/deit_small-l9-M_8000.yaml
     "dataset": {"name": "imagenet", "num_classes": IN_CLASSES},
     "model": vit_cfg(384, 6, None),
@@ -2994,7 +2998,8 @@ def imagefolder_phases(dev, work_dir: str, card_note: dict, path_launches: dict)
     from schemanet_torch.data.augment import get_crop_params_fn
     from schemanet_torch.data.datasets import get_dataset, make_partial
     from schemanet_torch.data.loader import DataLoader, build_loaders, device_prefetch
-    from schemanet_torch.kernel_times import photo_batch, ycc_batch
+    from schemanet_torch.kernel_times import (YCC_MODES, YCC_SIZES, photo_batch, ycc_batch,
+                                              ycc_random_batch)
     from schemanet_torch.models.vit import get_model
     from schemanet_torch.ops import kmeans
     from schemanet_torch.ops.kernels import attention as ak
@@ -3019,6 +3024,10 @@ def imagefolder_phases(dev, work_dir: str, card_note: dict, path_launches: dict)
 
     def row(name, work, ms, plain_ms, launches, library_ms=None, **extra):
         bound_ms, bound_by = least_ms(*work)
+        if extra.get("device_ms") is not None and extra["device_ms"] < bound_ms:
+            # a profile that reads less than the least time the card could
+            # take is not a time: kept under its own name, not as device_ms
+            extra = {**extra, "device_ms": None, "device_ms_under_bound": extra["device_ms"]}
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms, launches=launches,
                           max_abs_err=errors.get(name, 0.0))
@@ -3067,11 +3076,13 @@ def imagefolder_phases(dev, work_dir: str, card_note: dict, path_launches: dict)
              lambda: ipk.crop_resize_reference(rand_pixels, crop_train, IMG), 2,
              images=BATCH, out=IMG, window_bytes=window_bytes)
     ycc_meta, at, out_at = ycc_batch(photo_hw)
+    ycc_meta = np.asarray(ycc_meta, np.int64)  # as decode_to_device passes it
     rand_planes = torch.randint(0, 256, (at,), generator=g, dtype=torch.uint8).to(dev)
     if route == jpeg.NVJPEG:
         time_row("ycc_to_rgb", (0, at + out_at, "float32"),
                  lambda: ipk.ycc_to_rgb(rand_planes, ycc_meta, out_at),
-                 lambda: ipk.ycc_to_rgb_reference(rand_planes, ycc_meta, out_at), 2, images=BATCH)
+                 lambda: ipk.ycc_to_rgb_reference(rand_planes, ycc_meta, out_at), 2, images=BATCH,
+                 tiles=ipk.ycc_records(ycc_meta, at, out_at)[1])
     del rand_pixels, rand_planes
     # the fp32 ViT kernels at 384 (stage 1's batch; the head-mean at stage
     # 3's), VQ at M 8000 (a minibatch and the Lloyd sample), each checked
@@ -3186,6 +3197,20 @@ def imagefolder_phases(dev, work_dir: str, card_note: dict, path_launches: dict)
                 and worst_mean <= NVJPEG_TOL["mean_levels"],
                 f"nvJPEG's pixels off libjpeg's beyond {NVJPEG_TOL}: {worst_max}, {worst_mean}")
         require(ycc_same, "ycc_to_rgb differs from its plain version")
+        # random planes of every chroma mode (1-row images, chunked rows, a
+        # 4,000-wide image, unaligned outputs)
+        cases = [(h, w, hs, vs) for hs, vs in YCC_MODES for h, w in YCC_SIZES]
+        planes_r, meta_r, total_r = ycc_random_batch(cases, 34)
+        got = ipk.ycc_to_rgb(planes_r.to(dev), meta_r, total_r)
+        again = ipk.ycc_to_rgb(planes_r.to(dev), meta_r, total_r)
+        want = ipk.ycc_to_rgb_reference(planes_r, meta_r, total_r)
+        err = float((got.cpu().int() - want.int()).abs().max())
+        errors["ycc_to_rgb"] = max(errors["ycc_to_rgb"], err)
+        modes = dict(bitwise_plain=bool(torch.equal(got.cpu(), want)),
+                     run_to_run_bitwise=bool(torch.equal(got, again)), max_abs_err=err)
+        phase("ycc_to_rgb_modes", files=len(cases), **modes, **card_note)
+        require(modes["bitwise_plain"] and modes["run_to_run_bitwise"],
+                f"ycc_to_rgb differs from its plain version on the mode table: {modes}")
     else:
         require(worst_max == 0, "the host decode differs from the committed libjpeg pixels")
     require(decode_same, "the decode differs from run to run")
@@ -3204,10 +3229,19 @@ def imagefolder_phases(dev, work_dir: str, card_note: dict, path_launches: dict)
     decode_ms_again = time_ms(lambda: decode_batch(batch_blobs), 3, warmup=1)
     photo_same = all(bool(torch.equal(photo_pixels, decode_batch(batch_blobs)[0]))
                      for _ in range(3))
+    batch_plain = None
+    if route == jpeg.NVJPEG:  # the batch's planes, the plain version on the card
+        planes, meta, total, out_k = captured[0]
+        want = ipk.ycc_to_rgb_reference(planes, meta, total)
+        batch_plain = bool(torch.equal(out_k, want))
+        errors["ycc_to_rgb"] = max(errors["ycc_to_rgb"],
+                                   float((out_k.int() - want.int()).abs().max()))
+        del planes, want, out_k
     phase("decode_batch", route=route, images=BATCH, ms=decode_ms, ms_warm=decode_ms_again,
           images_per_s=BATCH / decode_ms_again * 1e3, run_to_run_bitwise=photo_same,
-          **card_note)
+          ycc_to_rgb_bitwise_plain=batch_plain, **card_note)
     require(photo_same, "the decode of the photos' batch differs from run to run")
+    require(batch_plain is not False, "ycc_to_rgb differs from its plain version on the batch")
     del packed, packed2, captured
     lap("34_decode")
 
@@ -5708,7 +5742,8 @@ PARENT_ENV = "SCHEMANET_SMOKE_PARENT"  # an unpacked older checkout: its kernels
 
 def parent_times(card_note: dict) -> dict:
     """{row: ms} of the kernels line's rows that carry a parent's time
-    (``int8_gemm`` at DeiT-Small's qkv, ``crop_resize``), timed in the older
+    (``int8_gemm`` at DeiT-Small's qkv, ``crop_resize``, ``ycc_to_rgb``),
+    timed in the older
     checkout that ``SCHEMANET_SMOKE_PARENT`` names: this checkout's
     ``kernel_times.py --quant --imagepipe``, dropped into it, runs from its
     root in a process of its own (its kernels built there) on this card. {}
@@ -5724,7 +5759,8 @@ def parent_times(card_note: dict) -> dict:
     require(proc.returncode == 0, f"the parent's kernel_times failed: {proc.stderr[-3000:]}")
     rows = json.loads(proc.stdout.strip().splitlines()[-1])["kernel_times"]
     phase("parent_times", root=root, rows=rows, **card_note)
-    return {"int8_gemm": rows["int8_gemm_qkv_d384"]["ms"], "crop_resize": rows["crop_resize"]["ms"]}
+    return {"int8_gemm": rows["int8_gemm_qkv_d384"]["ms"], "crop_resize": rows["crop_resize"]["ms"],
+            "ycc_to_rgb": rows["ycc_to_rgb"]["ms"]}
 
 
 def main(grid_only: bool = False, gates_only: bool = False) -> None:
@@ -5821,7 +5857,10 @@ def main(grid_only: bool = False, gates_only: bool = False) -> None:
     # (4 pairs). quant.cu (phase 43): quantize_rows_kernel at 6 pieces a
     # lane in 2 dtypes, int8_gemm_wg_kernel at 2 tile widths in 2 output
     # dtypes; imagepipe.cu: crop_resize_kernel on its 3 coefficient routes
-    # (registers, shared tables, per tap). The FFN
+    # (registers, shared tables, per tap) and ycc_rgb_kernel, whose cap of 80
+    # registers (6 blocks an SM) spills 24 bytes a thread, held under
+    # YCC_SPILL_BYTES (caps of 96 and 64 registers spill more and are no
+    # faster: PERF.md section 7). The FFN
     # kernels that compute the activation are instances for it (ffn.cuh
     # ffn_act): bf16 forwards for gelu, relu and the run-time
     # code (x3), bf16 backwards for gelu and relu (x2), fp32 ones for gelu and
@@ -5846,14 +5885,17 @@ def main(grid_only: bool = False, gates_only: bool = False) -> None:
                                ("atlas_opt.cu", "adamw_rows_block", 4),
                                ("quant.cu", "quantize_rows_kernel", 12),
                                ("quant.cu", "int8_gemm_wg_kernel", 4),
-                               ("imagepipe.cu", "crop_resize_kernel", 3)):
+                               ("imagepipe.cu", "crop_resize_kernel", 3),
+                               ("imagepipe.cu", "ycc_rgb_kernel", 1)):
         tc_ptxas = {name: dict(zip(("registers", "spill_stores", "spill_loads"), r))
                     for name, r in ptxas_report(build_log, source).items() if tag in name}
-        phase("ptxas", source=source, tag=tag, kernels=tc_ptxas)
+        spill_limit = YCC_SPILL_BYTES if tag == "ycc_rgb_kernel" else 0
+        phase("ptxas", source=source, tag=tag, kernels=tc_ptxas, spill_limit_bytes=spill_limit)
         require(len(tc_ptxas) == count,
                 f"ptxas reported {len(tc_ptxas)} {tag} kernels in {source}, not {count}")
-        require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in tc_ptxas.values()),
-                f"a kernel of {source} ({tag}) spills to local memory")
+        require(all(r["spill_stores"] is not None and r["spill_stores"] <= spill_limit
+                    and r["spill_loads"] <= spill_limit for r in tc_ptxas.values()),
+                f"a kernel of {source} ({tag}) spills past {spill_limit} bytes to local memory")
 
     if gates_only:
         gates = gate_phases(card_note)
@@ -7353,7 +7395,7 @@ def main(grid_only: bool = False, gates_only: bool = False) -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "worker_launches": {},
             **({"parent_ms": parent.get(name), "parent_note": parent_note}
-               if name == "crop_resize" else {}),
+               if name in ("crop_resize", "ycc_to_rgb") else {}),
         })
     # phases 41's rows: the class graphs' kernels at a model-2 rank's shard
     # (K 500), launches from its bf16 steps

@@ -64,7 +64,7 @@
 namespace sn {
 
 constexpr int kCropThreads = 256;  // a block: up to 256 output columns, a thread each
-constexpr int kYccThreads = 128;   // ycc_rgb_kernel: a thread a pixel, 128 along a row
+constexpr int kYccThreads = 128;   // ycc_rgb_kernel: a thread a group of 2 x 16 pixels
 constexpr int kCropMeta = 8;       // offset, h, w, top, left, crop_h, crop_w, flip
 constexpr int kBandRows = 8;       // output rows a band: 24 sums a thread in registers
 constexpr int kCropStage = 8192;   // bytes of staged source rows (and of the band's output)
@@ -324,76 +324,506 @@ crop_resize_kernel(const uint8_t* __restrict__ src, const int64_t* __restrict__ 
   }
 }
 
-// libjpeg's upsampling of one chroma plane p [ch][cw], at output (y, x) of
-// an image with factors (hs, vs) (jdsample.c: the fancy 2h1v, 2h2v and
-// 1h2v filters, edges replicated as libjpeg's context rows and column
-// sums replicate them; plain replication where libjpeg takes it).
-__device__ __forceinline__ int upsampled(const uint8_t* __restrict__ p, int cw, int ch, int hs,
-                                         int vs, int y, int x) {
-  auto at = [&](int r, int c) {
-    r = min(max(r, 0), ch - 1);
-    c = min(max(c, 0), cw - 1);
-    return (int)p[(int64_t)r * cw + c];
-  };
-  if (hs == 1 && vs == 1) return at(y, x);
-  const bool fancy = (hs == 2 && (vs == 1 || vs == 2) && cw > 2) || (hs == 1 && vs == 2);
-  if (!fancy) return at(y / vs, x / hs);
-  if (hs == 1) {  // 1h2v: 3/4 nearer row + 1/4 further, biases 1 (upper) and 2 (lower)
-    const int j = y >> 1, lower = y & 1;
-    return (3 * at(j, x) + at(lower ? j + 1 : j - 1, x) + (lower ? 2 : 1)) >> 2;
-  }
-  const int i = x >> 1, right = x & 1;
-  if (vs == 1)  // 2h1v: 3/4 nearer column + 1/4 further, biases 1 (left) and 2 (right)
-    return (3 * at(y, i) + at(y, right ? i + 1 : i - 1) + (right ? 2 : 1)) >> 2;
-  // 2h2v: column sums 3 nearer row + 1 further, then 3/4 + 1/4 across,
-  // biases 8 (left) and 7 (right)
-  const int j = y >> 1, rn = (y & 1) ? j + 1 : j - 1;
-  const int here = 3 * at(j, i) + at(rn, i);
-  const int there = 3 * at(j, right ? i + 1 : i - 1) + at(rn, right ? i + 1 : i - 1);
-  return (3 * here + there + (right ? 7 : 8)) >> 4;
+// ---------------------------------------------------------------------------
+// ycc_rgb_kernel: the nvJPEG route's last decode step, RGB from a file's Y, Cb
+// and Cr planes by libjpeg's upsampling (jdsample.c: the fancy 2h1v, 2h2v and
+// 1h2v filters, edges replicated as libjpeg's context rows and column sums
+// replicate them; plain replication where libjpeg takes it: 4h1v, 4h2v, a
+// chroma plane 2 wide or less) and its fixed-point YCbCr conversion
+// (jdcolor.c, 16 fractional bits: FIX(1.402) = 91881, FIX(1.772) = 116130,
+// FIX(0.71414) = 46802, FIX(0.34414) = 22554, ONE_HALF = 32768, arithmetic
+// shifts, then clamped to [0, 255]); a gray file's luma fills R, G and B.
+// The integer operations are the plain version's (ops/kernels/imagepipe.py
+// ycc_to_rgb_reference), so the bytes are equal.
+//
+// What bounds it: bytes. At 4:2:0 it reads 1.5 h w bytes and writes 3 h w
+// (64 photos, 11.47 M pixels: 51.6 MB, 15.4 us at 3.35 TB/s; a copy_ of as
+// many bytes takes 19.6 us). The first design, a thread an output pixel over
+// the batch's bounding box (44% of its threads idle), 8 clamped chroma byte
+// loads a pixel and three 1-byte stores at stride 3, ran at 13% of that
+// bound on an H100 SXM at 700 W; this one at 42% (PERF.md, row 15): after
+// the bytes, its ~30 integer operations a pixel, which overlap the memory
+// traffic only in part.
+//
+// Design. The planes are packed as nvJPEG decodes them (a plane's pitch
+// its width). The host half (ycc_prepare, in this library) checks the
+// table and writes each file's record with its tiling, so the kernel
+// divides by nothing; it alone decides the tiling (sn_ycc_prepare gives
+// its records to the tests and its tile count to chip_smoke.py). A block
+// takes one tile of real pixels: a band of an even
+// number of rows from an even row (a 1h2v or 2h2v chroma row pair never
+// straddles two tiles) by a chunk of at most kYccCols columns, whole rows
+// for any photo, so that the band's RGB bytes are one contiguous run of the
+// output; the grid is the batch's tiles, and a block finds its file by a
+// search of the tiles' prefix, 128 candidates a round. No width is too
+// wide: a wider row splits into chunks (bands of 2 rows). A thread takes a
+// group of 2 rows by 16 columns, which share their chroma: Y in one 16-byte
+// load a row where the row's 16 bytes are aligned (bytes where not), each
+// chroma row the group needs loaded once (8 bytes and its two neighbours at
+// 2h, 16 at 1h), each chroma column's 3 near + far sum formed once. The
+// colour conversion adds y << 16 into jdcolor.c's term and clamps in one DPX
+// instruction (the byte is bits 16-23), and byte permutes pack the group's
+// 96 RGB bytes, which go into shared memory at their destination's offset
+// mod 16 (funnel shifts, 4-byte stores). The copy engine then writes each
+// run's 16-byte aligned body (a bulk copy, cp.async.bulk), and threads its
+// head and tail bytes, so no output offset needs any alignment. Each block
+// has one file and so one chroma mode (a switch uniform over the block).
+// kYccBlocks caps a thread at 80 registers, where ptxas spills 24 bytes a
+// thread to local memory (chip_smoke.py phase 2 prints it and holds it
+// under 64 bytes). Tried and no faster on the card (PERF.md §7): planes at
+// pitches rounded up to 16 (all Y loads aligned; within run-to-run noise of
+// the packed planes), caps of 96 registers (5 blocks an SM: 60 bytes
+// spilled, slower) and 64 (8 blocks: 84), 256 threads a block, the lower
+// chroma rows loaded late (tools/kernel_variants_torch.py ycc); blocks that
+// each take a run of tiles with the next band prefetched into L2 (slower;
+// not kept).
+constexpr int kYccMeta = 10;  // y, cb, cr offsets, h, w, chroma w, chroma h, hs, vs, out
+constexpr int kYccRec = 14;   // a file's record (imagepipe.py YCC_REC): its 10 columns, then
+                              // its tiling (chunks, chunk width, tc | tr << 16, 65536 / tc + 1)
+                              // and, after the n records, each file's first tile
+constexpr int kYccCols = 2048;    // a tile's columns at most, a multiple of 16
+constexpr int kYccStage = 12320;  // staged output: 4,096 pixels, or 2 rows of 2,048 and 16 bytes a row
+constexpr int kYccBlocks = 6;     // blocks an SM: at most 80 registers a thread
+static_assert(kYccCols == 16 * kYccThreads, "a row cut into chunks has bands of 2 rows");
+static_assert(kYccRec == kYccMeta + 4, "a record is the table's columns and 4 words of tiling");
+
+enum YccMode : int { kGray = 0, kH1V1 = 1, kH2V1 = 2, kH2V2 = 3, kH1V2 = 4, kReplicate = 5 };
+
+// How the host half cuts a file w wide: chunks of chunk_w columns (the
+// fewest of at most kYccCols, evenly, a multiple of 16 wide), tc groups of
+// 16 columns across a chunk and tr groups of 2 rows down a band of 2 tr rows
+struct YccTiling {
+  int chunks, chunk_w, tc, tr;
+};
+
+inline YccTiling ycc_tiling(int w) {
+  YccTiling t;
+  t.chunks = (w + kYccCols - 1) / kYccCols;
+  t.chunk_w = ((w + t.chunks - 1) / t.chunks + 15) / 16 * 16;
+  t.tc = t.chunk_w / 16;
+  t.tr = kYccThreads / t.tc;
+  return t;
 }
 
-constexpr int kYccMeta = 10;  // y, cb, cr offsets, h, w, chroma w, chroma h, hs, vs, out
-
-// The nvJPEG route's last decode step: RGB from a file's Y, Cb, Cr planes by
-// libjpeg's upsampling and its fixed-point YCbCr conversion (jdcolor.c,
-// 16 fractional bits: FIX(1.402) = 91881, FIX(1.772) = 116130, FIX(0.71414)
-// = 46802, FIX(0.34414) = 22554, ONE_HALF = 32768, arithmetic shifts, then
-// clamped to [0, 255]); a gray file's luma fills R, G and B. A thread an
-// output pixel, grid (column blocks, rows, files). Bound by bytes: each
-// plane read once (L1 serves the neighbours), 3 h w bytes written.
-__global__ void __launch_bounds__(kYccThreads)
-ycc_rgb_kernel(const uint8_t* __restrict__ planes, const int64_t* __restrict__ meta,
-               uint8_t* __restrict__ dst) {
-  const int x = blockIdx.x * kYccThreads + threadIdx.x;
-  const int y = blockIdx.y;
-  const int64_t* m = meta + (int64_t)blockIdx.z * kYccMeta;
-  const int h = (int)m[3], w = (int)m[4];
-  if (x >= w || y >= h) return;
-  const int yv = planes[m[0] + (int64_t)y * w + x];
-  uint8_t* o = dst + m[9] + ((int64_t)y * w + x) * 3;
-  if (m[1] < 0) {
-    o[0] = o[1] = o[2] = (uint8_t)yv;
+// 16 bytes of a row from p: one 16-byte load where p is aligned and n >= 16
+// of them lie in the row, else the first n by bytes (the rest 0)
+__device__ __forceinline__ void load16(const uint8_t* __restrict__ p, int n, uint32_t (&v)[4]) {
+  if (n >= 16 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
     return;
   }
-  const int cw = (int)m[5], ch = (int)m[6], hs = (int)m[7], vs = (int)m[8];
-  const int cb = upsampled(planes + m[1], cw, ch, hs, vs, y, x) - 128;
-  const int cr = upsampled(planes + m[2], cw, ch, hs, vs, y, x) - 128;
-  const int r = yv + ((91881 * cr + 32768) >> 16);
-  const int g = yv + ((-22554 * cb + 32768 - 46802 * cr) >> 16);
-  const int b = yv + ((116130 * cb + 32768) >> 16);
-  o[0] = (uint8_t)min(max(r, 0), 255);
-  o[1] = (uint8_t)min(max(g, 0), 255);
-  o[2] = (uint8_t)min(max(b, 0), 255);
+  v[0] = v[1] = v[2] = v[3] = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    if (j < n) v[j >> 2] |= (uint32_t)__ldg(p + j) << (8 * (j & 3));
+}
+
+// byte l of 16 packed in v, in one byte permute
+__device__ __forceinline__ int byte_of(const uint32_t (&v)[4], int l) {
+  return (int)__byte_perm(v[l >> 2], 0, 0x4440 | (l & 3));
+}
+
+// A 2h group's chroma samples i0 - 1 .. i0 + 8 of a row cw wide, columns
+// clamped to the row: the middle 8 packed in lo and hi (one 8-byte load
+// where aligned and inside the row), the two neighbours in l and r
+struct Chroma10 {
+  uint32_t lo, hi;
+  int l, r;
+};
+
+__device__ __forceinline__ Chroma10 load10(const uint8_t* __restrict__ row, int i0, int cw) {
+  Chroma10 c;
+  const uint8_t* p = row + i0;
+  if (i0 + 8 <= cw && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    c.lo = q.x;
+    c.hi = q.y;
+  } else {
+    c.lo = c.hi = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const uint32_t b = __ldg(row + min(i0 + k, cw - 1));
+      if (k < 4) c.lo |= b << (8 * k);
+      else c.hi |= b << (8 * (k - 4));
+    }
+  }
+  c.l = __ldg(row + max(i0 - 1, 0));
+  c.r = __ldg(row + min(i0 + 8, cw - 1));
+  return c;
+}
+
+// sample k (0 .. 9) of a group
+__device__ __forceinline__ int at10(const Chroma10& c, int k) {
+  return k == 0 ? c.l
+         : k == 9 ? c.r
+                  : (int)__byte_perm(k <= 4 ? c.lo : c.hi, 0, 0x4440 | ((k - 1) & 3));
+}
+
+// libjpeg's 2h1v filter at output l of a group: 3 x its sample + 1 x the
+// further neighbour, biases 1 (left) and 2 (right)
+__device__ __forceinline__ int h2v1_at(const Chroma10& c, int l) {
+  const int i = (l >> 1) + 1;
+  return (l & 1) ? (3 * at10(c, i) + at10(c, i + 1) + 2) >> 2
+                 : (3 * at10(c, i) + at10(c, i - 1) + 1) >> 2;
+}
+
+// libjpeg's 2h2v filter across a group: column sums cs of 3 x the nearer
+// chroma row (mid) + 1 x the further (far), then output l = (3 cs_i + cs_j
+// + 8 or 7) >> 4 (j the further neighbour, 8 left and 7 right); 3 cs_i + 8
+// is formed once a column
+struct H2V2 {
+  int cs[10], near[10];
+  __device__ __forceinline__ H2V2(const Chroma10& mid, const Chroma10& far) {
+#pragma unroll
+    for (int k = 0; k < 10; ++k) {
+      cs[k] = 3 * at10(mid, k) + at10(far, k);
+      near[k] = 3 * cs[k] + 8;
+    }
+  }
+  __device__ __forceinline__ int operator()(int l) const {
+    const int i = (l >> 1) + 1;
+    return (l & 1) ? (near[i] + cs[i + 1] - 1) >> 4 : (near[i] + cs[i - 1]) >> 4;
+  }
+};
+
+// bytes 2 of a, b, c, d into one word, little-endian
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0062), __byte_perm(c, d, 0x0062), 0x5410);
+}
+
+// A row of 16 pixels: 48 RGB bytes packed little-endian in v, from the Y
+// bytes yv and chroma(l) = (cb, cr) of pixel l, each taken where it is used.
+// jdcolor.c's fixed point with y << 16 added in, so a channel's byte is bits
+// 16-23 of y << 16 + its term (Cb and Cr - 128 folded into the constants:
+// 91881 (r - 128) + 32768 = 91881 r - 11728000), clamped to [0, 0xffffff]
+// with the add in one DPX instruction: the byte is then clamp(y + (term >>
+// 16), 0, 255), as jdcolor.c computes it
+template <class F>
+__device__ __forceinline__ void ycc_pack(const uint32_t (&yv)[4], const F& chroma,
+                                         uint32_t (&v)[12]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {  // 4 pixels, 12 bytes, 3 words
+    uint32_t c[12];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int l = 4 * q + p;
+      const int y16 = (int)__byte_perm(yv[q], 0, 0x4044 | (p << 8));  // y << 16
+      const int2 bc = chroma(l);
+      const int b = bc.x, r = bc.y;
+      c[3 * p] = (uint32_t)__viaddmin_s32_relu(91881 * r - 11728000, y16, 0xffffff);
+      c[3 * p + 1] =
+          (uint32_t)__viaddmin_s32_relu(8910336 - 22554 * b - 46802 * r, y16, 0xffffff);
+      c[3 * p + 2] = (uint32_t)__viaddmin_s32_relu(116130 * b - 14831872, y16, 0xffffff);
+    }
+    v[3 * q] = pack4(c[0], c[1], c[2], c[3]);
+    v[3 * q + 1] = pack4(c[4], c[5], c[6], c[7]);
+    v[3 * q + 2] = pack4(c[8], c[9], c[10], c[11]);
+  }
+}
+
+// A gray row: each Y byte three times
+__device__ __forceinline__ void gray_pack(const uint32_t (&yv)[4], uint32_t (&v)[12]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    v[3 * q] = __byte_perm(yv[q], 0, 0x1000);
+    v[3 * q + 1] = __byte_perm(yv[q], 0, 0x2211);
+    v[3 * q + 2] = __byte_perm(yv[q], 0, 0x3332);
+  }
+}
+
+// The first nbytes of v into shared memory from byte s: a whole group's 48
+// by 4-byte stores (funnel-shifted to s mod 4) and bytes at its two ends
+__device__ __forceinline__ void stage_bytes(uint8_t* stage, int s, const uint32_t (&v)[12],
+                                            int nbytes) {
+  if (nbytes == 48) {
+    const int a = s & 3;
+    uint32_t* w = reinterpret_cast<uint32_t*>(stage + (s & ~3));
+    if (a == 0) {
+#pragma unroll
+      for (int k = 0; k < 12; ++k) w[k] = v[k];
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      if (j < 4 - a) stage[s + j] = (uint8_t)(v[0] >> (8 * j));
+    const int sh = 8 * (4 - a);
+#pragma unroll
+    for (int k = 0; k < 11; ++k) w[k + 1] = __funnelshift_r(v[k], v[k + 1], sh);
+#pragma unroll
+    for (int j = 1; j < 4; ++j)
+      if (j >= 4 - a) stage[s + 44 + j] = (uint8_t)(v[11] >> (8 * j));
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 48; ++j)
+    if (j < nbytes) stage[s + j] = (uint8_t)(v[j >> 2] >> (8 * (j & 3)));
+}
+
+// This thread's shared-memory writes made visible to the copy engine (the
+// async proxy), before a bulk copy reads them
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// bytes (a multiple of 16) from shared to global memory by the copy engine,
+// both addresses 16-byte aligned; bulk_wait_read waits until it has read
+// the shared memory
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kYccThreads, kYccBlocks)
+ycc_rgb_kernel(const uint8_t* __restrict__ planes, const int64_t* __restrict__ meta, int n,
+               uint8_t* __restrict__ dst) {
+  __shared__ __align__(16) uint8_t stage[kYccStage];
+  const int64_t* starts = meta + (int64_t)n * kYccRec;  // each file's first tile
+  const int64_t tile = blockIdx.x;
+  // the block's file: the last whose first tile is at most this one; each
+  // round tests 128 evenly spaced candidates of the files left
+  int lo = 0, span = n;
+  while (span > 1) {
+    const int step = (span + kYccThreads - 1) / kYccThreads;
+    const int c = (int)threadIdx.x * step;
+    const int count = __syncthreads_count(c < span && starts[lo + c] <= tile);
+    lo += (count - 1) * step;
+    span = min(step, span - (count - 1) * step);
+  }
+  const int64_t* m = meta + (int64_t)lo * kYccRec;
+  const int h = (int)m[3], w = (int)m[4], cw = (int)m[5], ch = (int)m[6];
+  const int hs = (int)m[7], vs = (int)m[8];
+  const int64_t yp = w, cp = cw;  // packed planes: a row's pitch is its width
+  const int mode = m[1] < 0                            ? kGray
+                   : hs == 1 && vs == 1                ? kH1V1
+                   : hs == 2 && vs == 1 && cw > 2      ? kH2V1
+                   : hs == 2 && vs == 2 && cw > 2      ? kH2V2
+                   : hs == 1 && vs == 2                ? kH1V2
+                                                       : kReplicate;
+  // the tile (the record's tiling: no division here but for a row in chunks)
+  const int chunks = (int)m[10], chunk_w = (int)m[11], tc = (int)(m[12] & 0xffff);
+  const int tr = (int)(m[12] >> 16), recip = (int)m[13];
+  const int local = (int)(tile - starts[lo]), band = 2 * tr;
+  const bool whole = chunks == 1;  // the band's output is one contiguous run
+  const int y0 = (whole ? local : local / chunks) * band;
+  const int x0 = whole ? 0 : local % chunks * chunk_w;
+  const int nrows = min(band, h - y0), ncols = min(chunk_w, w - x0);
+  const int64_t row_bytes = (int64_t)w * 3;
+  const int opitch = chunk_w * 3 + 16;
+  uint8_t* first = dst + m[9] + ((int64_t)y0 * w + x0) * 3;  // the tile's first output byte
+  const int head = (int)(reinterpret_cast<uintptr_t>(first) & 15);
+  const int t = threadIdx.x;
+  const int trow = (t * recip) >> 16;  // t / tc, exact for t < 128
+  const int r0 = 2 * trow, c0 = 16 * (t - trow * tc);
+  const int nc = min(16, ncols - c0);
+  if (trow < tr && r0 < nrows && nc > 0) {
+    const bool two = r0 + 1 < nrows;
+    const int ya = y0 + r0, xs = x0 + c0;
+    const uint8_t* yrow = planes + m[0] + (int64_t)ya * yp + xs;
+    uint32_t yv[2][4], v[12];
+    load16(yrow, nc, yv[0]);
+    if (two) load16(yrow + yp, nc, yv[1]);
+    // row r (0 or 1) of the group into the stage, at its destination's
+    // offset mod 16
+    const auto emit = [&](int r) {
+      const int s = whole ? head + (int)((r0 + r) * row_bytes) + c0 * 3
+                          : (r0 + r) * opitch + c0 * 3 +
+                                (int)(reinterpret_cast<uintptr_t>(first + (r0 + r) * row_bytes) & 15);
+      stage_bytes(stage, s, v, nc * 3);
+    };
+    const uint8_t* cbp = planes + (mode == kGray ? 0 : m[1]);
+    const uint8_t* crp = planes + (mode == kGray ? 0 : m[2]);
+    if (mode == kGray) {
+      gray_pack(yv[0], v);
+      emit(0);
+      if (two) {
+        gray_pack(yv[1], v);
+        emit(1);
+      }
+    } else if (mode == kH1V1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (r == 1 && !two) break;
+        uint32_t bv[4], rv[4];
+        load16(cbp + (int64_t)(ya + r) * cp + xs, nc, bv);
+        load16(crp + (int64_t)(ya + r) * cp + xs, nc, rv);
+        ycc_pack(yv[r], [&](int l) { return make_int2(byte_of(bv, l), byte_of(rv, l)); }, v);
+        emit(r);
+      }
+    } else if (mode == kH2V1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (r == 1 && !two) break;
+        const Chroma10 b = load10(cbp + (int64_t)(ya + r) * cp, xs >> 1, cw);
+        const Chroma10 c = load10(crp + (int64_t)(ya + r) * cp, xs >> 1, cw);
+        ycc_pack(yv[r], [&](int l) { return make_int2(h2v1_at(b, l), h2v1_at(c, l)); }, v);
+        emit(r);
+      }
+    } else if (mode == kH2V2) {
+      // chroma row j and its neighbours above and below (clamped), loaded
+      // once for both output rows
+      const int j = ya >> 1;
+      const int64_t up = (int64_t)max(j - 1, 0) * cp, mid = (int64_t)j * cp;
+      const int64_t down = (int64_t)min(j + 1, ch - 1) * cp;
+      const Chroma10 bu = load10(cbp + up, xs >> 1, cw), bm = load10(cbp + mid, xs >> 1, cw);
+      const Chroma10 bd = load10(cbp + down, xs >> 1, cw);
+      const Chroma10 ru = load10(crp + up, xs >> 1, cw), rm = load10(crp + mid, xs >> 1, cw);
+      const Chroma10 rd = load10(crp + down, xs >> 1, cw);
+      {
+        const H2V2 b(bm, bu), c(rm, ru);
+        ycc_pack(yv[0], [&](int l) { return make_int2(b(l), c(l)); }, v);
+      }
+      emit(0);
+      if (two) {
+        const H2V2 b(bm, bd), c(rm, rd);
+        ycc_pack(yv[1], [&](int l) { return make_int2(b(l), c(l)); }, v);
+        emit(1);
+      }
+    } else if (mode == kH1V2) {
+      // 3/4 the nearer row + 1/4 the further, biases 1 (upper) and 2 (lower)
+      const int j = ya >> 1;
+      const int64_t up = (int64_t)max(j - 1, 0) * cp, mid = (int64_t)j * cp;
+      const int64_t down = (int64_t)min(j + 1, ch - 1) * cp;
+      uint32_t bu[4], bm[4], bd[4], ru[4], rm[4], rd[4];
+      load16(cbp + up + xs, nc, bu);
+      load16(cbp + mid + xs, nc, bm);
+      load16(cbp + down + xs, nc, bd);
+      load16(crp + up + xs, nc, ru);
+      load16(crp + mid + xs, nc, rm);
+      load16(crp + down + xs, nc, rd);
+      ycc_pack(yv[0], [&](int l) {
+        return make_int2((3 * byte_of(bm, l) + byte_of(bu, l) + 1) >> 2,
+                         (3 * byte_of(rm, l) + byte_of(ru, l) + 1) >> 2);
+      }, v);
+      emit(0);
+      if (two) {
+        ycc_pack(yv[1], [&](int l) {
+          return make_int2((3 * byte_of(bm, l) + byte_of(bd, l) + 2) >> 2,
+                           (3 * byte_of(rm, l) + byte_of(rd, l) + 2) >> 2);
+        }, v);
+        emit(1);
+      }
+    } else {  // kReplicate: chroma sample (y / vs, x / hs)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (r == 1 && !two) break;
+        const int64_t row = (int64_t)((ya + r) / vs) * cp;
+        ycc_pack(yv[r], [&](int l) {
+          const int64_t at = row + (l < nc ? (xs + l) / hs : 0);
+          return make_int2(__ldg(cbp + at), __ldg(crp + at));
+        }, v);
+        emit(r);
+      }
+    }
+  }
+  // the tile's runs of output bytes (the band, or each of its 2 rows where
+  // a row is cut into chunks): the 16-byte aligned body of each by the copy
+  // engine (a bulk copy from the stage, which holds it at the same offsets
+  // mod 16), the head and tail before and after it (under 16 bytes each) a
+  // byte a thread
+  fence_async_shared();
+  __syncthreads();
+  const int runs = whole ? 1 : nrows;  // a row cut into chunks has bands of 2 rows
+  const int64_t run_len = whole ? nrows * row_bytes : (int64_t)ncols * 3;
+  const int r = t < 64 ? t : (t - 64) >> 5;  // threads 0-1: bodies; 64-127: heads, tails
+  if (r < runs) {
+    uint8_t* d0 = first + r * row_bytes;
+    uint8_t* d1 = d0 + run_len;
+    uint8_t* a0 = reinterpret_cast<uint8_t*>(reinterpret_cast<uintptr_t>(d0) & ~uintptr_t(15));
+    uint8_t* b0 = a0 < d0 ? a0 + 16 : a0;  // the body [b0, b1)
+    if (b0 > d1) b0 = d1;
+    uint8_t* b1 = reinterpret_cast<uint8_t*>(reinterpret_cast<uintptr_t>(d1) & ~uintptr_t(15));
+    if (b1 < b0) b1 = b0;
+    const uint8_t* src = stage + r * opitch;  // holds byte g of the run at g - a0
+    if (t < 64) {
+      if (b1 > b0) {
+        bulk_store(b0, src + (b0 - a0), (uint32_t)(b1 - b0));
+        bulk_wait_read();  // the stage is read before the block ends
+      }
+    } else {
+      const int e = (t - 64) & 31;
+      uint8_t* p = e < 16 ? d0 + e : b1 + (e - 16);
+      if (p < (e < 16 ? b0 : d1)) *p = src[p - a0];
+    }
+  }
+}
+
+// The host half: the table's checks (the conditions of ops/kernels/
+// imagepipe.py _check_ycc, by code: 1 an empty image or plane, 2 a chroma
+// plane short of its image, 3 a plane outside the plane buffer, 4 an image
+// outside the output or too large, 5 more tiles than a launch takes) and
+// the words the kernel reads (kYccRec a file, then each file's first
+// tile). Returns the batch's tiles, or minus the first failed check.
+long ycc_prepare(const int64_t* table, int n, int64_t n_planes, int64_t total, int64_t* words) {
+  if (n > 65535) return -4;
+  int64_t* starts = words + (int64_t)n * kYccRec;
+  int64_t tiles = 0;
+  for (int i = 0; i < n; ++i) {
+    const int64_t* src = table + (int64_t)i * kYccMeta;
+    int64_t* m = words + (int64_t)i * kYccRec;
+    for (int c = 0; c < kYccMeta; ++c) m[c] = src[c];
+    const int64_t yo = m[0], cbo = m[1], cro = m[2], h = m[3], w = m[4], cw = m[5], ch = m[6];
+    const int64_t hs = m[7], vs = m[8], oo = m[9];
+    const bool gray = cbo < 0;
+    if (h < 1 || w < 1 || (!gray && (cw < 1 || ch < 1))) return -1;
+    if (!gray && (hs < 1 || vs < 1 || cw * hs < w || ch * vs < h)) return -2;
+    const int64_t plane = gray ? 0 : cw * ch;
+    if (yo < 0 || yo + h * w > n_planes ||
+        (!gray && (cro < 0 || cbo + plane > n_planes || cro + plane > n_planes)))
+      return -3;
+    if (oo < 0 || oo + h * w * 3 > total || h > 65535) return -4;
+    starts[i] = tiles;
+    const YccTiling tl = ycc_tiling((int)w);
+    m[10] = tl.chunks;
+    m[11] = tl.chunk_w;
+    m[12] = tl.tc | (int64_t)tl.tr << 16;
+    m[13] = 65536 / tl.tc + 1;  // (t * this) >> 16 = t / tc for t < 128
+    tiles += (h + 2 * tl.tr - 1) / (2 * tl.tr) * tl.chunks;
+    if (tiles >= 0x7fffffff) return -5;
+  }
+  return (long)tiles;
 }
 
 }  // namespace sn
 
-extern "C" int sn_ycc_to_rgb(const void* planes, const void* meta, void* dst, int n, int max_h,
-                             int max_w, void* stream) {
-  const dim3 grid((max_w + sn::kYccThreads - 1) / sn::kYccThreads, max_h, n);
-  sn::ycc_rgb_kernel<<<grid, sn::kYccThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(planes), static_cast<const int64_t*>(meta),
+// table [n, 10] int64 (host); words: n * (kYccRec + 1) int64 (host). The
+// host half alone (sn::ycc_prepare): the batch's tiles, or minus the first
+// failed check.
+extern "C" int sn_ycc_prepare(const void* table, int n, long n_planes, long total, void* words) {
+  if (n <= 0) return -1;
+  return (int)sn::ycc_prepare(static_cast<const int64_t*>(table), n, n_planes, total,
+                              static_cast<int64_t*>(words));
+}
+
+// planes: the files' planes (device); table [n, 10] int64 (host);
+// host_words and dev_words: n * (kYccRec + 1) int64 of pinned host and
+// device memory; dst: the packed RGB images. Checks the table and fills
+// host_words (sn::ycc_prepare), copies them to dev_words on the stream and
+// launches a block a tile. Returns minus a failed check's code, else the
+// cudaError_t of the copy or the launch.
+extern "C" int sn_ycc_to_rgb(const void* planes, const void* table, int n, long n_planes,
+                             long total, void* host_words, void* dev_words, void* dst,
+                             void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const long tiles = sn::ycc_prepare(static_cast<const int64_t*>(table), n, n_planes, total,
+                                     static_cast<int64_t*>(host_words));
+  if (tiles < 0) return (int)tiles;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      cudaMemcpyAsync(dev_words, host_words, (size_t)n * (sn::kYccRec + 1) * sizeof(int64_t),
+                      cudaMemcpyHostToDevice, s);
+  if (err != cudaSuccess) return (int)err;
+  sn::ycc_rgb_kernel<<<(unsigned)tiles, sn::kYccThreads, 0, s>>>(
+      static_cast<const uint8_t*>(planes), static_cast<const int64_t*>(dev_words), n,
       static_cast<uint8_t*>(dst));
   return (int)cudaGetLastError();
 }

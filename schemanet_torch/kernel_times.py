@@ -79,8 +79,9 @@ int8 route's rows; ``--ffn``: only the FFN kernels with gelu and relu at
 192, 384 and 768; ``--notes``: ``embed_grad`` beside ``index_add_`` at a
 model-2 rank's ImageNet class lookup and the fp32 ``attn_block`` at 384
 beside its library calls; ``--imagepipe``: ``crop_resize`` and
-``ycc_to_rgb`` on chip_smoke.py phase 34's batch of 64 photo-sized images;
-flags add up). To time a change beside its parent in one call, unpack the
+``ycc_to_rgb`` on chip_smoke.py phase 34's batch of 64 photo-sized images,
+``ycc_to_rgb`` with its host microseconds beside a ``copy_`` of as many
+bytes; flags add up). To time a change beside its parent in one call, unpack the
 parent with ``git archive`` into a directory that ``.gitignore`` lists,
 copy this file into its ``schemanet_torch/``, and run the module from each
 root in turns (parent, change, change, parent). Prints the card's name and
@@ -93,6 +94,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -446,20 +448,69 @@ def ycc_batch(sizes):
     return meta, at, out_at
 
 
+# (h factor, v factor) of every chroma mode ycc_to_rgb takes ((0, 0): gray),
+# and sizes at its tiles' edges: a pixel, a row, odd sizes, a 16-column
+# group's edge, rows of 17 and 38 groups, a row in two chunks (4000)
+YCC_MODES = ((1, 1), (2, 1), (2, 2), (1, 2), (4, 1), (4, 2), (0, 0))
+YCC_SIZES = ((37, 53), (38, 52), (1, 1), (1, 300), (5, 3), (7, 4), (17, 33), (33, 16),
+             (20, 257), (3, 600), (2, 4000))
+
+
+def ycc_random_batch(cases, seed: int):
+    """(planes uint8 on the CPU, meta [n, 10], output bytes) of files
+    ``cases`` [(h, w, hs, vs)], random packed planes from ``seed``. The
+    outputs are packed, at offsets that are mostly not 16-byte aligned."""
+    meta, at, out_at = [], 0, 0
+    for h, w, hs, vs in cases:
+        if hs == 0:
+            meta.append((at, -1, -1, h, w, 0, 0, 1, 1, out_at))
+            at += h * w
+        else:
+            cw, ch = -(-w // hs), -(-h // vs)
+            meta.append((at, at + h * w, at + h * w + ch * cw, h, w, cw, ch, hs, vs, out_at))
+            at += h * w + 2 * ch * cw
+        out_at += h * w * 3
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 256, (max(at, 1),), generator=g, dtype=torch.uint8), meta, out_at
+
+
+def host_us(fn, iters: int = ITERS) -> float:
+    """Host microseconds a call takes to return, the device idle before
+    each call (the wrapper's checks, table and upload: no queue behind)."""
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / iters * 1e6
+
+
 def _imagepipe_rows(dev: torch.device, rnd) -> dict:
     """The image pipeline's kernels on phase 34's batch (``photo_batch``,
     random pixels): ``crop_resize`` to 224^2 and ``ycc_to_rgb`` of the same
-    sizes' 4:2:0 planes."""
+    sizes' 4:2:0 planes, with the wrapper's host microseconds, beside a
+    ``copy_`` that reads and writes as many bytes as it moves (a practical
+    ceiling)."""
     from .ops.kernels import imagepipe as ipk
 
     g = torch.Generator().manual_seed(34)
     sizes, crop, total = photo_batch()
     pixels = torch.randint(0, 256, (total,), generator=g, dtype=torch.uint8).to(dev)
     meta, n_planes, out_at = ycc_batch(sizes)
+    meta = np.asarray(meta, np.int64)  # as decode_to_device passes it
     planes = torch.randint(0, 256, (n_planes,), generator=g, dtype=torch.uint8).to(dev)
+    half = (n_planes + out_at) // 2
+    src, dst = torch.empty(half, dtype=torch.uint8, device=dev), torch.empty(
+        half, dtype=torch.uint8, device=dev)
     return {"crop_resize": {**_both(lambda: ipk.crop_resize(pixels, crop, 224)),
                             "window_bytes": int((crop[:, 5] * crop[:, 6] * 3).sum())},
-            "ycc_to_rgb": _both(lambda: ipk.ycc_to_rgb(planes, meta, out_at))}
+            "ycc_to_rgb": {**_split(lambda: ipk.ycc_to_rgb(planes, meta, out_at)),
+                           "host_us": host_us(lambda: ipk.ycc_to_rgb(planes, meta, out_at)),
+                           "bytes": n_planes + out_at},
+            "ycc_copy_same_bytes": {**_both(lambda: dst.copy_(src)), "bytes": 2 * half}}
 
 
 def _adamw_rows(dev: torch.device, rnd, bf16_rows: bool = False) -> dict:

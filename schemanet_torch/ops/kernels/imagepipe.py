@@ -37,13 +37,22 @@ otherwise) and the fixed-point (16-bit) colour conversion. nvJPEG's own
 upsampling is a plain replication, up to ~100 levels from libjpeg's at a
 sharp colour edge. ``planes`` holds the planes packed; ``meta`` [n, 10]
 int64 a file: (Y offset, Cb offset (-1: gray), Cr offset, h, w, chroma w,
-chroma h, h factor, v factor, output offset). ``ycc_to_rgb_reference``
-gives libjpeg's bytes from libjpeg's own planes
+chroma h, h factor, v factor, output offset). The kernel takes each image
+in tiles (bands of an even number of rows from an even row by chunks of at
+most 2,048 columns, so that a photo's band is whole rows, one contiguous
+run of the output), a block each. The kernel library's host half owns the
+tiling: one call checks the table, writes each file's record with its
+tiling and first tile into a pinned buffer of a ring this module keeps (no
+pinned allocation a call), uploads them and launches; ``ycc_records``
+returns what it writes.
+``ycc_to_rgb_reference`` gives libjpeg's bytes from libjpeg's own planes
 (``tests/test_torch_imagepipe.py``), and the kernel's on the card.
 ``ycc_to_rgb.launches`` counts the launches.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -177,6 +186,8 @@ _counted = crop_resize
 
 
 YCC_META = 10  # y, cb, cr offsets, h, w, chroma w, chroma h, h factor, v factor, out offset
+YCC_REC = 14  # int64 a file's record on the card (csrc/imagepipe.cu kYccRec): its columns,
+#               then its tiling; after the n records, each file's first tile
 _FIX_CR_R, _FIX_CB_B, _FIX_CR_G, _FIX_CB_G = 91881, 116130, 46802, 22554  # FIX(1.402) ...
 
 
@@ -227,9 +238,14 @@ def ycc_image_reference(y: torch.Tensor, cb, cr, hs: int, vs: int) -> torch.Tens
     return torch.stack([r, g, b], -1).clamp(0, 255).to(torch.uint8)
 
 
+def _ycc_table(meta) -> np.ndarray:
+    table = _crop_table(meta)
+    if table.ndim != 2 or table.shape[1] != YCC_META or not len(table):
+        raise ValueError(f"meta must be [n, {YCC_META}] with n >= 1, got {table.shape}")
+    return table
+
+
 def _check_ycc(table: np.ndarray, n_planes: int, total: int) -> None:
-    if table.ndim != 2 or table.shape[1] != YCC_META:
-        raise ValueError(f"meta must be [n, {YCC_META}], got {table.shape}")
     yo, cbo, cro, h, w, cw, ch, hs, vs, oo = table.T
     gray = cbo < 0
     if (h < 1).any() or (w < 1).any() or (~gray & ((cw < 1) | (ch < 1))).any():
@@ -247,7 +263,7 @@ def _check_ycc(table: np.ndarray, n_planes: int, total: int) -> None:
 def ycc_to_rgb_reference(planes: torch.Tensor, meta, total: int) -> torch.Tensor:
     """Plain version of ``ycc_to_rgb``: the packed uint8 RGB images, ``total``
     bytes."""
-    table = _crop_table(meta)
+    table = _ycc_table(meta)
     _check_ycc(table, planes.numel(), total)
     out = torch.zeros(total, dtype=torch.uint8, device=planes.device)
     for yo, cbo, cro, h, w, cw, ch, hs, vs, oo in table.tolist():
@@ -258,23 +274,91 @@ def ycc_to_rgb_reference(planes: torch.Tensor, meta, total: int) -> torch.Tensor
     return out
 
 
+# the table's checks by code, as the kernel library's host half
+# (csrc/imagepipe.cu ycc_prepare) returns them negated: _check_ycc's messages
+_YCC_ERRORS = {
+    1: "ycc_to_rgb: an empty image or plane",
+    2: "ycc_to_rgb: a chroma plane does not cover its image",
+    3: "ycc_to_rgb: a plane lies outside the plane buffer",
+    4: "ycc_to_rgb: an image lies outside the output or too large",
+    5: "ycc_to_rgb: more tiles than a launch takes",
+}
+
+
+def ycc_records(meta, n_planes: int, total: int):
+    """(int64 words, tiles): what the kernel library's host half writes for
+    the table ``meta`` (n records of ``YCC_REC`` words, then each file's
+    first tile) and the batch's tiles, a block each; the library's own
+    tiling, for the tests and chip_smoke.py. Needs the kernel library (nvcc)."""
+    table = _ycc_table(meta)
+    words = np.zeros(len(table) * (YCC_REC + 1), np.int64)
+    tiles = _build.library().sn_ycc_prepare(table.ctypes.data, len(table), n_planes, total,
+                                            words.ctypes.data)
+    if tiles < 0:
+        raise ValueError(_YCC_ERRORS[-tiles])
+    return words, tiles
+
+
+class _PinnedRing:
+    """Pinned host buffers for the wrapper's one upload a launch: a slot is
+    written again, or its buffer replaced by a larger one, only once the
+    copy that last read it has completed (its event; the copy is the kernel
+    library's own, so the caching host allocator knows nothing of it), so
+    no call allocates pinned memory once the ring has grown to the batches'
+    size. ``lock`` serialises the calls that fill and copy a slot."""
+
+    def __init__(self, slots: int = 4):
+        self._bufs = [None] * slots
+        self._events = [None] * slots
+        self._next = 0
+        self.lock = threading.Lock()
+
+    def take(self, nbytes: int):
+        """(pinned uint8 buffer of at least ``nbytes``, slot); call under
+        ``lock`` and ``done`` the slot once its copy is enqueued."""
+        slot = self._next
+        self._next = (slot + 1) % len(self._bufs)
+        if self._events[slot] is not None:
+            self._events[slot].synchronize()
+        if self._bufs[slot] is None or self._bufs[slot].numel() < nbytes:
+            self._bufs[slot] = torch.empty(max(nbytes, 4096) * 2, dtype=torch.uint8,
+                                           pin_memory=True)
+        return self._bufs[slot], slot
+
+    def done(self, slot: int, stream) -> None:
+        event = self._events[slot] = self._events[slot] or torch.cuda.Event()
+        event.record(stream)
+
+
+_ring = _PinnedRing()
+
+
 def ycc_to_rgb(planes: torch.Tensor, meta, total: int) -> torch.Tensor:
     """The packed uint8 RGB HWC images (``total`` bytes, each at its output
-    offset) of the files whose planes ``meta`` locates in ``planes``."""
+    offset) of the files whose planes ``meta`` locates in ``planes``. On
+    the card the table's checks, its records with their tiling and their
+    upload are one call of the kernel library (``sn_ycc_to_rgb``), from a
+    pinned slot of ``_ring``."""
     if planes.device.type == "cpu":
         return ycc_to_rgb_reference(planes, meta, total)
     _require_cuda("planes", planes)
     if planes.dtype != torch.uint8 or planes.ndim != 1 or not planes.is_contiguous():
         raise ValueError("planes must be a contiguous 1-D uint8 tensor")
-    table = _crop_table(meta)
-    _check_ycc(table, planes.numel(), total)
-    dev_meta = torch.from_numpy(table).pin_memory().to(planes.device, non_blocking=True)
+    table = _ycc_table(meta)
+    nbytes = len(table) * (YCC_REC + 1) * 8
+    words = torch.empty(nbytes, dtype=torch.uint8, device=planes.device)
     out = torch.empty(total, dtype=torch.uint8, device=planes.device)
-    err = _build.library().sn_ycc_to_rgb(planes.data_ptr(), dev_meta.data_ptr(), out.data_ptr(),
-                                         len(table), int(table[:, 3].max()),
-                                         int(table[:, 4].max()), _stream())
+    stream = torch.cuda.current_stream(planes.device)
+    with _ring.lock:
+        host, slot = _ring.take(nbytes)
+        err = _build.library().sn_ycc_to_rgb(
+            planes.data_ptr(), table.ctypes.data, len(table), planes.numel(), total,
+            host.data_ptr(), words.data_ptr(), out.data_ptr(), stream.cuda_stream)
+        if err >= 0:
+            _ring.done(slot, stream)
+    if err < 0:
+        raise ValueError(_YCC_ERRORS[-err])
     _build.check(err, "ycc_to_rgb")
-    dev_meta.record_stream(torch.cuda.current_stream(planes.device))
     _counted_ycc.launches += 1
     return out
 

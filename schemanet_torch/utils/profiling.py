@@ -1,11 +1,42 @@
-"""The training loop's throughput meter (port of ``StepTimer`` in
-``schemanet_tpu/utils/profiling.py``). Host clock: a caller that wants the
-device's rate synchronises before it reads one."""
+"""Tracing and timing helpers (port of ``schemanet_tpu/utils/profiling.py``):
+a profiler trace written to a directory (``trace``), the training loop's
+throughput meter (``StepTimer``) and a wait for every tensor of a nested
+structure (``block_tree``). ``StepTimer`` reads the host clock: a caller that
+wants the device's rate synchronises before it reads one."""
 
 from __future__ import annotations
 
+import contextlib
+import logging
+import os
 import time
-from typing import Optional
+from typing import Iterator, Optional
+
+import torch
+
+logger = logging.getLogger(__name__)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """Profile the enclosed code (host activity, and the card's where one is
+    present) and write a Chrome/Perfetto trace, ``trace_<pid>_<ns>.json``,
+    into ``log_dir`` on exit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        logger.info("profiler trace written to %s", path)
 
 
 class StepTimer:
@@ -35,3 +66,27 @@ class StepTimer:
             self._t0 = now
             return result
         return None
+
+
+def block_tree(tree):
+    """Wait for the device work behind every CUDA tensor in ``tree`` (dicts,
+    lists and tuples, nested): each CUDA device that holds one is
+    synchronised once. Returns ``tree`` unchanged (accurate timing
+    boundaries)."""
+    devices = set()
+
+    def walk(node):
+        if torch.is_tensor(node):
+            if node.is_cuda:
+                devices.add(node.device)
+        elif isinstance(node, dict):
+            for value in node.values():
+                walk(value)
+        elif isinstance(node, (list, tuple)):
+            for value in node:
+                walk(value)
+
+    walk(tree)
+    for device in devices:
+        torch.cuda.synchronize(device)
+    return tree

@@ -34,12 +34,15 @@ import sys
 import numpy as np
 import pytest
 import torch
+from hypothesis import example, given, settings
+from hypothesis import strategies as st
 
 from schemanet_torch.data import datasets as port_datasets
 from schemanet_torch.data import jpeg
 from schemanet_torch.ops.kernels import imagepipe as ip
 from schemanet_tpu.data import augment as jax_augment
 from schemanet_tpu.data import datasets as jax_datasets
+from tests import _torch_ycc_tiling as ycc_tiles
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "fixtures", "jpeg")
@@ -188,6 +191,85 @@ def test_ycc_to_rgb_rejects_bad_tables():
         bad[0, col] = value
         with pytest.raises(ValueError):
             ip.ycc_to_rgb(planes, bad, 48)
+
+
+def _tile_cover(h, w):
+    """How many of each image's tiles cover each pixel, and the tiles."""
+    cover = np.zeros((h, w), np.int32)
+    rects = [ycc_tiles.tile_rect(h, w, k) for k in range(int(ycc_tiles.tile_counts(h, w)))]
+    for y0, x0, nr, nc in rects:
+        cover[y0:y0 + nr, x0:x0 + nc] += 1
+    return cover, rects
+
+
+@settings(max_examples=150, deadline=None)
+@given(h=st.integers(1, 300), w=st.integers(1, 5000))
+@example(h=1, w=1)
+@example(h=3, w=5)
+@example(h=7, w=5000)
+@example(h=129, w=257)
+@example(h=5, w=2049)
+def test_ycc_tiles_cover_every_pixel_once(h, w):
+    """The kernel's tiles of an image, by the tiling model
+    (``tests/_torch_ycc_tiling.py``, a copy of the kernel library's host
+    half, which the card test ``test_ycc_records_equal_the_tiling_model``
+    holds to the library word for word): every pixel in exactly one tile;
+    each tile a band from an even row whose rows are even but at the image's
+    last row, so no 1h2v or 2h2v chroma row pair straddles two tiles; at
+    most 2,048 columns and 128 groups of 2 x 16 pixels (a block's threads);
+    a chunk spans whole rows unless the image is wider."""
+    cover, rects = _tile_cover(h, w)
+    assert (cover == 1).all()
+    chunks, chunk_w, band = (int(v) for v in ycc_tiles.tiling(w))
+    assert chunk_w % 16 == 0 and chunk_w <= ycc_tiles.COLS and band % 2 == 0
+    assert (chunks == 1) == (w <= ycc_tiles.COLS)
+    assert (band // 2) * (chunk_w // 16) <= ycc_tiles.THREADS
+    for y0, x0, nr, nc in rects:
+        assert y0 % 2 == 0 and (nr % 2 == 0 or y0 + nr == h)
+        assert x0 % 16 == 0 and 1 <= nc <= ycc_tiles.COLS and nr >= 1
+
+
+def test_ycc_tile_counts_sum_over_a_batch():
+    """The tile prefix over ragged sizes: the counts are the tiles that
+    ``tile_rect`` enumerates, image by image."""
+    hs = np.array([1, 3, 375, 500, 2, 9000, 1])
+    ws = np.array([1, 5, 500, 375, 5000, 3, 257])
+    counts = ycc_tiles.tile_counts(hs, ws)
+    for h, w, c in zip(hs.tolist(), ws.tolist(), counts.tolist()):
+        cover, rects = _tile_cover(h, w)
+        assert len(rects) == c and (cover == 1).all()
+
+
+def test_ycc_records_hold_the_table_and_its_tiling():
+    """The model's records over a ragged table of every mode: each is the
+    file's 10 columns and its tiling, the tile prefix is exclusive, and
+    65536 // tc + 1 divides every thread index of a block by tc exactly,
+    for every tc a tiling gives."""
+    from schemanet_torch.kernel_times import YCC_MODES, YCC_SIZES
+
+    cases = [(h, w, hs, vs) for hs, vs in YCC_MODES for h, w in YCC_SIZES]
+    table = ycc_tiles.table_of(cases)[0]
+    n = len(table)
+    words = ycc_tiles.records(table)
+    assert words.shape == (n * (ip.YCC_REC + 1),)
+    rec, starts = words[:n * ip.YCC_REC].reshape(n, ip.YCC_REC), words[n * ip.YCC_REC:]
+    counts = ycc_tiles.tile_counts(table[:, 3], table[:, 4])
+    np.testing.assert_array_equal(rec[:, :ip.YCC_META], table)
+    np.testing.assert_array_equal(starts, np.cumsum(counts) - counts)
+    chunks, chunk_w, band = ycc_tiles.tiling(table[:, 4])
+    np.testing.assert_array_equal(rec[:, 10:12], np.stack([chunks, chunk_w], 1))
+    tc, tr = rec[:, 12] & 0xFFFF, rec[:, 12] >> 16
+    np.testing.assert_array_equal(tc, chunk_w // 16)
+    np.testing.assert_array_equal(2 * tr, band)
+    assert (tc * tr <= ycc_tiles.THREADS).all()
+    t = np.arange(ycc_tiles.THREADS)
+    for c in range(1, ycc_tiles.THREADS + 1):
+        np.testing.assert_array_equal((t * (65536 // c + 1)) >> 16, t // c)
+
+
+def test_ycc_to_rgb_rejects_an_empty_table():
+    with pytest.raises(ValueError, match="n >= 1"):
+        ip.ycc_to_rgb(torch.zeros(4, dtype=torch.uint8), np.zeros((0, 10), np.int64), 0)
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,8 @@ bitwise from run to run; a planned call runs under the sync debug mode
 "error" and a plan is rebuilt after an in-place write. The bf16 FFN
 backward's weight and bias gradients are equal bit for bit over two calls
 too. The image pipeline's ``crop_resize`` and ``ycc_to_rgb`` equal their
-plain versions bit for bit (the same operations in the same order), and
+plain versions bit for bit (the same operations in the same order;
+``ycc_to_rgb`` at every chroma mode), and
 the nvJPEG route's pixels lie within 3 levels of libjpeg's on the JPEG
 fixtures (mean under 0.2 a byte: nvJPEG's IDCT). The int8 route's
 ``quantize_rows`` and ``int8_gemm`` equal their plain versions bit for bit
@@ -781,24 +782,98 @@ def test_crop_resize_kernel_wide_windows(dev, case):
 
 
 def test_ycc_to_rgb_kernel(dev):
-    g = torch.Generator().manual_seed(1)
-    cases = [(37, 53, 1, 1), (37, 53, 2, 1), (37, 53, 2, 2), (38, 52, 1, 2), (17, 33, 4, 1),
-             (5, 3, 2, 2), (7, 4, 2, 1), (1, 1, 2, 2), (20, 21, 0, 0)]  # (0, 0): gray
-    meta, at, out_at = [], 0, 0
-    for h, w, hs, vs in cases:
-        if hs == 0:
-            meta.append((at, -1, -1, h, w, 0, 0, 1, 1, out_at))
-            at += h * w
-        else:
-            cw, ch = -(-w // hs), -(-h // vs)
-            meta.append((at, at + h * w, at + h * w + cw * ch, h, w, cw, ch, hs, vs, out_at))
-            at += h * w + 2 * cw * ch
-        out_at += h * w * 3
-    planes = torch.randint(0, 256, (at,), generator=g, dtype=torch.uint8)
+    """Bit for bit the plain version, over two calls, at every chroma mode
+    (1x1; 2h1v, 2h2v, 1h2v fancy; 4h1v, 4h2v and chroma 2 wide or less
+    replicated; gray) on packed planes (rows mostly not 16-byte aligned): a
+    pixel, 1-row images, odd sizes, rows 257 and 600 wide, a 4,000-wide
+    image (two chunks), output offsets that are mostly not 16-byte aligned."""
+    from schemanet_torch.kernel_times import YCC_MODES, YCC_SIZES, ycc_random_batch
+
+    cases = [(h, w, hs, vs) for hs, vs in YCC_MODES for h, w in YCC_SIZES]
+    planes, meta, total = ycc_random_batch(cases, 1)
     before = ipk.ycc_to_rgb.launches
-    got = ipk.ycc_to_rgb(planes.to(dev), meta, out_at)
-    assert ipk.ycc_to_rgb.launches == before + 1
-    assert torch.equal(got.cpu(), ipk.ycc_to_rgb_reference(planes, meta, out_at))
+    got = ipk.ycc_to_rgb(planes.to(dev), meta, total)
+    again = ipk.ycc_to_rgb(planes.to(dev), meta, total)
+    assert ipk.ycc_to_rgb.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), ipk.ycc_to_rgb_reference(planes, meta, total))
+
+
+def test_ycc_to_rgb_kernel_many_files(dev):
+    """17,000 small files of every mode: a block finds its file in three
+    rounds of the tiles' prefix search; bit for bit the plain version."""
+    import numpy as np
+
+    from schemanet_torch.kernel_times import YCC_MODES, ycc_random_batch
+
+    rng = np.random.default_rng(4)
+    cases = [(int(rng.integers(1, 4)), int(rng.integers(1, 20)), *YCC_MODES[i % 7])
+             for i in range(17_000)]
+    planes, meta, total = ycc_random_batch(cases, 2)
+    got = ipk.ycc_to_rgb(planes.to(dev), meta, total)
+    assert torch.equal(got.cpu(), ipk.ycc_to_rgb_reference(planes, meta, total))
+
+
+def test_ycc_to_rgb_kernel_ring_grows_behind_a_queued_kernel(dev, monkeypatch):
+    """A pinned slot outgrown while its last upload still waits behind a long
+    kernel: 8 files, then 120 in the same slot (a ring of one; its buffer
+    replaced), then pinned allocations written over; both outputs bit for
+    bit their plain versions."""
+    from schemanet_torch.kernel_times import YCC_MODES, YCC_SIZES, ycc_random_batch
+
+    monkeypatch.setattr(ipk, "_ring", ipk._PinnedRing(slots=1))
+    cases = [(h, w, hs, vs) for hs, vs in YCC_MODES for h, w in YCC_SIZES]
+    small = ycc_random_batch(cases[:8], 5)
+    large = ycc_random_batch((cases * 2)[:120], 6)
+    planes_s, planes_l = small[0].to(dev), large[0].to(dev)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of one block spinning
+    got_s = ipk.ycc_to_rgb(planes_s, small[1], small[2])
+    got_l = ipk.ycc_to_rgb(planes_l, large[1], large[2])
+    assert ipk._ring._bufs[0].numel() >= 120 * (ipk.YCC_REC + 1) * 8 > 2 * 4096
+    for _ in range(4):
+        torch.empty(1 << 16, dtype=torch.uint8, pin_memory=True).fill_(255)
+    assert torch.equal(got_s.cpu(), ipk.ycc_to_rgb_reference(*small))
+    assert torch.equal(got_l.cpu(), ipk.ycc_to_rgb_reference(*large))
+
+
+def test_ycc_records_equal_the_tiling_model(dev):
+    """The kernel library's records and tile count (``ycc_records``, the
+    host half the kernel runs) equal the tiling model that the CPU tests
+    hold (``tests/_torch_ycc_tiling.py``), word for word, over 3,000 files:
+    every mode at ragged sizes from 1 x 1 to 5,000 wide and 9,000 high."""
+    import numpy as np
+
+    from schemanet_torch.kernel_times import YCC_MODES, YCC_SIZES
+    from tests import _torch_ycc_tiling as ycc_tiles
+
+    rng = np.random.default_rng(7)
+    cases = [(h, w, hs, vs) for hs, vs in YCC_MODES for h, w in YCC_SIZES]
+    cases += [(1, 5000, 2, 2), (9000, 3, 1, 2), (2, 2049, 2, 1), (129, 257, 0, 0)]
+    cases += [(int(rng.integers(1, 300)), int(rng.integers(1, 5001)), *YCC_MODES[i % 7])
+              for i in range(3000 - len(cases))]
+    table, n_planes, total = ycc_tiles.table_of(cases)
+    words, tiles = ipk.ycc_records(table, n_planes, total)
+    np.testing.assert_array_equal(words, ycc_tiles.records(table))
+    assert tiles == ycc_tiles.tile_counts(table[:, 3], table[:, 4]).sum()
+
+
+@pytest.mark.parametrize("col,value", [(3, 0), (0, 90), (5, 1), (9, 1)])
+def test_ycc_to_rgb_kernel_rejects_bad_tables(dev, col, value):
+    """The wrapper refuses on the card what the plain version refuses, with
+    its message, and launches nothing."""
+    good = torch.tensor([[0, 16, 20, 4, 4, 2, 2, 2, 2, 0]])
+    planes = torch.zeros(100, dtype=torch.uint8)
+    assert torch.equal(ipk.ycc_to_rgb(planes.to(dev), good, 48).cpu(),
+                       ipk.ycc_to_rgb_reference(planes, good, 48))
+    bad = good.clone()
+    bad[0, col] = value
+    with pytest.raises(ValueError) as plain:
+        ipk.ycc_to_rgb_reference(planes, bad, 48)
+    before = ipk.ycc_to_rgb.launches
+    with pytest.raises(ValueError, match=str(plain.value)):
+        ipk.ycc_to_rgb(planes.to(dev), bad, 48)
+    assert ipk.ycc_to_rgb.launches == before
 
 
 def test_device_decode_near_libjpeg(dev):

@@ -1,4 +1,4 @@
-"""Variants of two port kernels, timed side by side on the card.
+"""Variants of three port kernels, timed side by side on the card.
 
 Each variant is a copy of a ``schemanet_torch/csrc`` source with text
 replacements, built alone by nvcc into a library of its own under
@@ -16,11 +16,25 @@ events over 50 calls after 5) on the shapes of its kernel's table rows:
   ``kernel`` as built (x coefficients in registers); ``tables``, the shared
   x table instead; ``one_tap``, a row's horizontal sum over its first tap
   alone (the horizontal taps' share).
+* ``ycc``: ``ycc_to_rgb`` (``csrc/imagepipe.cu``) on chip_smoke.py phase
+  34's batch (64 photo-sized 4:2:0 files, planes packed as
+  ``decode_to_device`` lays them out). Variants: ``kernel`` as built (6
+  blocks an SM, 80 registers); ``blocks5``, 5 blocks an SM (96
+  registers); ``blocks8``, the register cap of 8 blocks an SM (64 registers);
+  ``threads256``, blocks of 256 threads (tiles of 8,192 pixels);
+  ``late_down``, the 2h2v group's lower chroma rows loaded after its upper
+  row is written (fewer live registers), and ``late_down8`` with 64;
+  ``no_near``, the 2h2v filter's 3 x column sum + bias not kept a column;
+  ``gray_only``, every file taken as gray (Y read, RGB written: the loads
+  and stores without the chroma); ``no_writeout``, the tile staged but
+  never written (the loads and arithmetic alone). Each call is the
+  launcher's host half, the records' upload and the kernel, so these times
+  run ~0.01 ms over the profiler's kernel time.
 
 Outputs of a variant that drops work differ from the kernel's (noted, not
 checked). Run on the card from the repository's root:
 
-    python tools/kernel_variants_torch.py int8 crop
+    python tools/kernel_variants_torch.py int8 crop ycc
 
 Prints the card's name and power limit, each variant's registers and
 spills from ptxas, then one JSON line.
@@ -55,6 +69,35 @@ CROP = {
     "tables": [("  if (tx_max <= kRegTaps && table_y <= (size_t)kCropTable)", "  if (false)")],
     "one_tap": [("        for (int j = 0; j < kRegTaps; ++j) {\n          const int sx = mine.lo + j;",
                  "        for (int j = 0; j < 1; ++j) {\n          const int sx = mine.lo + j;")],
+}
+
+YCC = {
+    "kernel": [],
+    "blocks5": [("constexpr int kYccBlocks = 6;", "constexpr int kYccBlocks = 5;")],
+    "blocks8": [("constexpr int kYccBlocks = 6;", "constexpr int kYccBlocks = 8;")],
+    "threads256": [("constexpr int kYccThreads = 128;", "constexpr int kYccThreads = 256;"),
+                   ("constexpr int kYccCols = 2048;", "constexpr int kYccCols = 4096;"),
+                   ("constexpr int kYccStage = 12320;", "constexpr int kYccStage = 24608;"),
+                   ("constexpr int kYccBlocks = 6;", "constexpr int kYccBlocks = 3;")],
+    "late_down": [
+        ("      const Chroma10 bd = load10(cbp + down, xs >> 1, cw);\n", ""),
+        ("      const Chroma10 rd = load10(crp + down, xs >> 1, cw);\n", ""),
+        ("      if (two) {\n        const H2V2 b(bm, bd), c(rm, rd);",
+         "      if (two) {\n        const Chroma10 bd = load10(cbp + down, xs >> 1, cw);\n"
+         "        const Chroma10 rd = load10(crp + down, xs >> 1, cw);\n"
+         "        const H2V2 b(bm, bd), c(rm, rd);")],
+    "late_down8": [("constexpr int kYccBlocks = 6;", "constexpr int kYccBlocks = 8;"),
+                   ("      const Chroma10 bd = load10(cbp + down, xs >> 1, cw);\n", ""),
+                   ("      const Chroma10 rd = load10(crp + down, xs >> 1, cw);\n", ""),
+                   ("      if (two) {\n        const H2V2 b(bm, bd), c(rm, rd);",
+                    "      if (two) {\n        const Chroma10 bd = load10(cbp + down, xs >> 1, cw);\n"
+                    "        const Chroma10 rd = load10(crp + down, xs >> 1, cw);\n"
+                    "        const H2V2 b(bm, bd), c(rm, rd);")],
+    "no_near": [("      near[k] = 3 * cs[k] + 8;\n", ""),
+                ("    return (l & 1) ? (near[i] + cs[i + 1] - 1) >> 4 : (near[i] + cs[i - 1]) >> 4;",
+                 "    return (l & 1) ? (3 * cs[i] + cs[i + 1] + 7) >> 4 : (3 * cs[i] + cs[i - 1] + 8) >> 4;")],
+    "gray_only": [("  const int mode = m[1] < 0 ", "  const int mode = true ")],
+    "no_writeout": [("  if (r < runs) {\n", "  if (r < runs && tile < 0) {\n")],
 }
 
 
@@ -159,6 +202,40 @@ def crop_rows(dev) -> dict:
     return {"crop_resize": row}
 
 
+def ycc_rows(dev) -> dict:
+    import numpy as np
+
+    from schemanet_torch.kernel_times import photo_batch, ycc_batch
+    from schemanet_torch.ops.kernels.imagepipe import YCC_REC
+
+    libs = build_all({f"ycc_{tag}": ("imagepipe.cu", p) for tag, p in YCC.items()})
+    sizes, _, _ = photo_batch()
+    meta, n_planes, total = ycc_batch(sizes)
+    table = np.ascontiguousarray(np.asarray(meta, np.int64))
+    g = torch.Generator().manual_seed(34)
+    planes = torch.randint(0, 256, (n_planes,), generator=g, dtype=torch.uint8).to(dev)
+    host = torch.empty(len(table) * (YCC_REC + 1) * 8, dtype=torch.uint8, pin_memory=True)
+    words = torch.empty(host.numel(), dtype=torch.uint8, device=dev)
+    dst = torch.empty(total, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    row, want = {}, None
+    for tag, lib in libs.items():
+        fn = lib.sn_ycc_to_rgb
+        fn.argtypes = [P, P, I, L, L, P, P, P, P]
+        args = (planes.data_ptr(), table.ctypes.data, len(table), n_planes, total,
+                host.data_ptr(), words.data_ptr(), dst.data_ptr(), stream)
+        dst.zero_()
+        if fn(*args) != 0:
+            raise SystemExit(f"{tag} refused the batch")
+        torch.cuda.synchronize()
+        want = dst.clone() if want is None else want
+        row[tag.removeprefix("ycc_")] = {"ms": time_ms(lambda: fn(*args)),
+                                        "same_bytes": bool(torch.equal(dst, want))}
+    row["bound"] = (n_planes + total) / 3.35e12 * 1e3
+    print("ycc_to_rgb", row, flush=True)
+    return {"ycc_to_rgb": row}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants_torch: no CUDA device")
@@ -166,11 +243,13 @@ def main() -> None:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
     dev, rows = torch.device("cuda"), {}
-    picked = sys.argv[1:] or ["int8", "crop"]
+    picked = sys.argv[1:] or ["int8", "crop", "ycc"]
     if "int8" in picked:
         rows.update(int8_rows(dev))
     if "crop" in picked:
         rows.update(crop_rows(dev))
+    if "ycc" in picked:
+        rows.update(ycc_rows(dev))
     print(json.dumps({"kernel_variants": rows, "card": smi.splitlines()[0]}), flush=True)
 
 
